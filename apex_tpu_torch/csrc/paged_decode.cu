@@ -1,0 +1,277 @@
+// Paged decode attention for Hopper (sm_90a): one query token per sequence
+// over a paged KV pool, GQA-aware, bf16 pages, fp32 online softmax.
+//
+// Replaces the Pallas kernel `_paged_decode_kernel` of
+// apex_tpu/ops/flash_attention.py (:986, launched by `paged_decode_attention`
+// :1056). Contract (shared with apex_tpu_torch.serve.cache):
+//   q            [b, kv, group, d]          bf16
+//   k/v pages    [kv, num_pages, page, d]   bf16
+//   block_tables [b, m] int32  (page 0 is the null page)
+//   seq_lens     [b] int32     (0 = inactive slot: exact zero output)
+//   out          [b, kv, group, d]          bf16
+// Pages wholly past seq_lens[b] are never read; keys past seq_lens[b] in a
+// partly live page are left out of the max and the sum (the Pallas kernel
+// masks them to -1e30 and zeroes their p: the same result).
+//
+// Bound on the H100: HBM bytes. Each live K and V row is read once and used
+// for 2*group flops per element, so at group 1 the kernel does ~1 flop per
+// byte: the time is the live pages' bytes over the memory rate.
+//
+// Design. One thread block (128 threads) per (kv head, sequence): the block
+// loads its own block-table row and seq_len, which replaces the TPU's scalar
+// prefetch, and walks only the live pages. D/8 threads share one key row,
+// each loading 16 contiguous bytes, so a warp reads whole 128-byte rows and
+// a page (contiguous in the pool) streams coalesced. Per page: scores for
+// every live key into shared memory (a shuffle reduction over the D/8
+// lanes), then one warp per query row takes the page max, the exponentials
+// and the sum and publishes the rescale factor, then every thread folds its
+// keys' p * v into fp32 accumulators held in registers. The accumulators of
+// the key lanes are summed through shared memory once, after the last page.
+// Splitting a sequence across blocks (flash-decoding) and deeper load
+// pipelining are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 128;
+constexpr float NEG_INF = -1e30f;
+
+__device__ __forceinline__ void bf16x8_to_float(const uint4& u, float* f) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+template <int D, int G>
+__global__ void __launch_bounds__(THREADS)
+paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ kp,
+                    const __nv_bfloat16* __restrict__ vp,
+                    const int32_t* __restrict__ block_tables,
+                    const int32_t* __restrict__ seq_lens,
+                    __nv_bfloat16* __restrict__ out, int kv, int num_pages,
+                    int page_size, int m, int group, float scale) {
+  constexpr int TPK = D / 8;             // threads per key row
+  constexpr int KPI = THREADS / TPK;     // keys per iteration
+  constexpr int WARPS = THREADS / 32;
+
+  extern __shared__ float smem[];
+  float* sP = smem;                      // [G][page_size] scores, then p
+  float* sRed = smem + G * page_size;    // [KPI][D] final reduction
+  __shared__ float sM[G], sL[G], sAlpha[G];
+
+  const int kh = blockIdx.x, bi = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int kl = tid / TPK, c = tid % TPK;
+  const long qrow = ((long)bi * kv + kh) * group;
+
+  const int n_live = min(seq_lens[bi], m * page_size);
+  if (n_live <= 0) {                     // inactive slot: exact zeros
+    for (int i = tid; i < group * D; i += THREADS)
+      out[qrow * D + i] = __float2bfloat16(0.f);
+    return;
+  }
+
+  float qf[G][8];
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    if (gi < group) {
+      const uint4 u = *reinterpret_cast<const uint4*>(q + (qrow + gi) * D +
+                                                      c * 8);
+      bf16x8_to_float(u, qf[gi]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) qf[gi][e] = 0.f;
+    }
+  }
+  float acc[G][8];
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[gi][e] = 0.f;
+  if (tid < G) {
+    sM[tid] = NEG_INF;
+    sL[tid] = 0.f;
+  }
+
+  const int n_pages = (n_live + page_size - 1) / page_size;
+  for (int j = 0; j < n_pages; ++j) {
+    int page = block_tables[(long)bi * m + j];
+    page = min(max(page, 0), num_pages - 1);   // clamp like an XLA gather
+    const long base = ((long)kh * num_pages + page) * page_size * D;
+    const int live = min(page_size, n_live - j * page_size);
+
+    // ---- scores of the live keys: s = (q . k) * scale
+    for (int t0 = 0; t0 < live; t0 += KPI) {
+      const int t = t0 + kl;
+      float kf[8];
+      if (t < live) {
+        const uint4 u =
+            *reinterpret_cast<const uint4*>(kp + base + (long)t * D + c * 8);
+        bf16x8_to_float(u, kf);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) kf[e] = 0.f;
+      }
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        float part = 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) part += qf[gi][e] * kf[e];
+#pragma unroll
+        for (int off = 1; off < TPK; off <<= 1)
+          part += __shfl_xor_sync(0xffffffffu, part, off);
+        if (c == 0 && t < live && gi < group)
+          sP[gi * page_size + t] = part * scale;
+      }
+    }
+    __syncthreads();
+
+    // ---- one warp per query row: page max, p = exp(s - m_new), sum
+    for (int gi = warp; gi < group; gi += WARPS) {
+      float* row = sP + gi * page_size;
+      float mx = NEG_INF;
+      for (int t = lane; t < live; t += 32) mx = fmaxf(mx, row[t]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_old = sM[gi];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+      for (int t = lane; t < live; t += 32) {
+        const float p = __expf(row[t] - m_new);
+        row[t] = p;
+        sum += p;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      __syncwarp();
+      if (lane == 0) {
+        const float alpha = __expf(m_old - m_new);
+        sAlpha[gi] = alpha;
+        sL[gi] = alpha * sL[gi] + sum;
+        sM[gi] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // ---- acc = acc * alpha + sum_t p[t] * v[t]
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      const float a = gi < group ? sAlpha[gi] : 1.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[gi][e] *= a;
+    }
+    for (int t = kl; t < live; t += KPI) {
+      float vf[8];
+      const uint4 u =
+          *reinterpret_cast<const uint4*>(vp + base + (long)t * D + c * 8);
+      bf16x8_to_float(u, vf);
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        if (gi < group) {
+          const float p = sP[gi * page_size + t];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[gi][e] += p * vf[e];
+        }
+      }
+    }
+    __syncthreads();  // sP is rewritten by the next page
+  }
+
+  // ---- sum the key lanes' partial accumulators, normalize, store
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    if (gi >= group) break;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sRed[kl * D + c * 8 + e] = acc[gi][e];
+    __syncthreads();
+    for (int col = tid; col < D; col += THREADS) {
+      float tot = 0.f;
+      for (int r = 0; r < KPI; ++r) tot += sRed[r * D + col];
+      const float l = sL[gi];
+      out[(qrow + gi) * D + col] = __float2bfloat16(tot / (l > 0.f ? l : 1.f));
+    }
+    __syncthreads();
+  }
+}
+
+template <int D, int G>
+cudaError_t launch(const void* q, const void* kp, const void* vp,
+                   const void* bt, const void* sl, void* out, int b, int kv,
+                   int num_pages, int page_size, int m, int group,
+                   float scale, cudaStream_t stream) {
+  constexpr int KPI = THREADS / (D / 8);
+  const size_t smem = ((size_t)G * page_size + (size_t)KPI * D) * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_decode_kernel<D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(kv, b);
+  paged_decode_kernel<D, G><<<grid, THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(kp),
+      static_cast<const __nv_bfloat16*>(vp), static_cast<const int32_t*>(bt),
+      static_cast<const int32_t*>(sl), static_cast<__nv_bfloat16*>(out), kv,
+      num_pages, page_size, m, group, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t dispatch_group(const void* q, const void* kp, const void* vp,
+                           const void* bt, const void* sl, void* out, int b,
+                           int kv, int num_pages, int page_size, int m,
+                           int group, float scale, cudaStream_t st) {
+  if (group <= 1)
+    return launch<D, 1>(q, kp, vp, bt, sl, out, b, kv, num_pages, page_size,
+                        m, group, scale, st);
+  if (group <= 2)
+    return launch<D, 2>(q, kp, vp, bt, sl, out, b, kv, num_pages, page_size,
+                        m, group, scale, st);
+  if (group <= 4)
+    return launch<D, 4>(q, kp, vp, bt, sl, out, b, kv, num_pages, page_size,
+                        m, group, scale, st);
+  if (group <= 8)
+    return launch<D, 8>(q, kp, vp, bt, sl, out, b, kv, num_pages, page_size,
+                        m, group, scale, st);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// C interface (loaded with ctypes); see the contract at the top. Returns the
+// launch's cudaError_t (cudaErrorInvalidValue for an unsupported head dim or
+// group > 8).
+extern "C" int apex_paged_decode(const void* q, const void* k_pages,
+                                 const void* v_pages, const void* block_tables,
+                                 const void* seq_lens, void* out, int b,
+                                 int kv, int group, int d, int num_pages,
+                                 int page_size, int m, float scale,
+                                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (b <= 0 || kv <= 0 || group <= 0) return cudaSuccess;
+  switch (d) {
+    case 32:
+      return dispatch_group<32>(q, k_pages, v_pages, block_tables, seq_lens,
+                                out, b, kv, num_pages, page_size, m, group,
+                                scale, st);
+    case 64:
+      return dispatch_group<64>(q, k_pages, v_pages, block_tables, seq_lens,
+                                out, b, kv, num_pages, page_size, m, group,
+                                scale, st);
+    case 128:
+      return dispatch_group<128>(q, k_pages, v_pages, block_tables, seq_lens,
+                                 out, b, kv, num_pages, page_size, m, group,
+                                 scale, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}

@@ -1,0 +1,172 @@
+"""GPT configuration and parameters of the port (``apex_tpu/models/gpt.py``).
+
+:class:`GPT` holds the parameters of the JAX package's GPT under the same
+names and layouts as its flax tree — ``wte.embedding`` [V, h], ``wpe``
+[max_seq_len, h], ``block_{i}.{ln1, attn.qkv, attn.proj, ln2, mlp.fc1,
+mlp.fc2}`` with linear ``kernel`` [in, out] and ``bias`` [out], ``ln_f``
+— so :meth:`GPT.params_from_jax` carries a trained or flax-initialised tree
+across leaf for leaf, and the serve forward (``apex_tpu_torch.serve.
+model``) reads them as the JAX serve path does. The qkv projection packs
+each head as ``[q|k|v]`` (``serve.model._split_qkv``).
+
+:meth:`GPT.init_params` draws from the flax initialisers' distributions:
+``normal(0.02)`` for ``wte``/``wpe``, ``lecun_normal`` (truncated normal at
+two standard deviations, variance ``1/fan_in``) for linear kernels, zeros
+for biases, ones/zeros for LayerNorm. The numbers differ from a flax init
+with the same seed; tests carry flax params across instead.
+
+The training forward and loss come with the training slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Mapping, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from apex_tpu_torch._compat import DeviceLike, as_torch_dtype, resolve_device
+from apex_tpu_torch.normalization import FusedLayerNorm
+from apex_tpu_torch.transformer.tensor_parallel import (
+    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+
+
+@dataclasses.dataclass(frozen=True)
+class GPTConfig:
+    vocab_size: int = 50304
+    max_seq_len: int = 1024
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    ffn_hidden_size: Optional[int] = None   # default 4*hidden
+    dtype: Any = torch.bfloat16
+
+    def __post_init__(self):
+        object.__setattr__(self, "dtype", as_torch_dtype(self.dtype))
+        if self.hidden_size % self.num_heads:
+            raise ValueError(f"hidden_size {self.hidden_size} not divisible "
+                             f"by num_heads {self.num_heads}")
+
+    @property
+    def ffn(self) -> int:
+        return self.ffn_hidden_size or 4 * self.hidden_size
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+
+class _Attention(nn.Module):
+    def __init__(self, cfg: GPTConfig, device):
+        super().__init__()
+        h = cfg.hidden_size
+        self.qkv = ColumnParallelLinear(h, 3 * h, device=device)
+        self.proj = RowParallelLinear(h, h, device=device)
+
+
+class _MLP(nn.Module):
+    def __init__(self, cfg: GPTConfig, device):
+        super().__init__()
+        self.fc1 = ColumnParallelLinear(cfg.hidden_size, cfg.ffn,
+                                        device=device)
+        self.fc2 = RowParallelLinear(cfg.ffn, cfg.hidden_size, device=device)
+
+
+class GPTBlock(nn.Module):
+    def __init__(self, cfg: GPTConfig, device):
+        super().__init__()
+        h = cfg.hidden_size
+        self.ln1 = FusedLayerNorm(h, dtype=cfg.dtype, device=device)
+        self.attn = _Attention(cfg, device)
+        self.ln2 = FusedLayerNorm(h, dtype=cfg.dtype, device=device)
+        self.mlp = _MLP(cfg, device)
+
+
+class GPT(nn.Module):
+    """The GPT parameter tree (uninitialised: use :meth:`init_params` or
+    :meth:`params_from_jax`)."""
+
+    def __init__(self, cfg: GPTConfig, *, device: DeviceLike = None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        h = cfg.hidden_size
+        self.wte = VocabParallelEmbedding(cfg.vocab_size, h, device=dev)
+        self.wpe = nn.Parameter(torch.empty((cfg.max_seq_len, h),
+                                            dtype=torch.float32, device=dev))
+        for i in range(cfg.num_layers):
+            self.add_module(f"block_{i}", GPTBlock(cfg, dev))
+        self.ln_f = FusedLayerNorm(h, dtype=cfg.dtype, device=dev)
+        self.requires_grad_(False)       # serving only until training lands
+
+    def block(self, i: int) -> GPTBlock:
+        return getattr(self, f"block_{i}")
+
+    @property
+    def device(self) -> torch.device:
+        return self.wpe.device
+
+    @classmethod
+    def init_params(cls, cfg: GPTConfig,
+                    generator: Optional[torch.Generator] = None, *,
+                    device: DeviceLike = None) -> "GPT":
+        """Random parameters from the flax initialisers' distributions,
+        drawn on the CPU from ``generator`` in parameter order and copied
+        to ``device``."""
+        model = cls(cfg, device=device)
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            cpu = torch.empty(p.shape, dtype=torch.float32)
+            if name in ("wte.embedding", "wpe"):
+                cpu.normal_(0.0, 0.02, generator=generator)
+            elif leaf == "kernel":
+                # flax lecun_normal: truncated at +-2 std, rescaled so the
+                # truncated distribution has variance 1/fan_in
+                std = math.sqrt(1.0 / p.shape[0]) / .87962566103423978
+                nn.init.trunc_normal_(cpu, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+            elif leaf == "weight":
+                cpu.fill_(1.0)
+            else:
+                cpu.zero_()
+            p.data.copy_(cpu)
+        return model
+
+    @classmethod
+    def params_from_jax(cls, cfg: GPTConfig, tree: Mapping, *,
+                        device: DeviceLike = None) -> "GPT":
+        """The port's parameters from a JAX GPT parameter tree (nested
+        mappings of numpy arrays, as ``jax.device_get(params)`` gives).
+        Layouts carry over unchanged; each leaf keeps its dtype (bfloat16
+        leaves arrive as ``ml_dtypes`` arrays)."""
+        model = cls(cfg, device=device)
+        names = dict(model.named_parameters())
+        flat = {}
+
+        def walk(node, prefix):
+            for key in node:
+                val = node[key]
+                path = f"{prefix}{key}"
+                if isinstance(val, Mapping):
+                    walk(val, path + ".")
+                else:
+                    flat[path] = val
+
+        walk(tree, "")
+        if set(flat) != set(names):
+            raise ValueError(
+                "JAX tree does not match the port's GPT: missing "
+                f"{sorted(set(names) - set(flat))}, unexpected "
+                f"{sorted(set(flat) - set(names))}")
+        for name, p in names.items():
+            arr = np.asarray(flat[name])
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: JAX shape {arr.shape} != "
+                                 f"{tuple(p.shape)}")
+            dtype = as_torch_dtype(arr.dtype)
+            t = torch.from_numpy(np.array(arr, np.float32))
+            p.data = t.to(device=p.device, dtype=dtype)
+        return model

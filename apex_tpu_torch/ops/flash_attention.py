@@ -1,0 +1,308 @@
+"""Flash-attention forward and paged decode attention: CUDA kernels beside
+their plain PyTorch versions.
+
+Port of ``apex_tpu/ops/flash_attention.py`` for the serve path:
+
+- :func:`flash_attention` — the prefill attention. On CUDA it launches
+  ``csrc/flash_fwd.cu``, which replaces the Pallas ``_fwd_kernel``
+  (``apex_tpu/ops/flash_attention.py:251``); on the CPU it is
+  :func:`mha_reference`. Forward only: the backward kernels, the additive
+  bias and in-kernel dropout come with the training slice.
+- :func:`paged_decode_attention` — one query per sequence over the paged KV
+  pool. On CUDA it launches ``csrc/paged_decode.cu``, which replaces the
+  Pallas ``_paged_decode_kernel`` (``:986``); on the CPU it is
+  :func:`paged_attention_reference`. fp8-KV scales come with the fp8 serve
+  slice.
+
+Shapes follow the JAX package: q [b, h, sq, d]; k, v [b, h, sk, d];
+segment ids int32 [b, sq] ([b, sk] for kv). Paged layout: q [b, kv, group,
+d]; pages [kv, num_pages, page_size, d]; block tables [b, m] int32 (page 0
+is the null page); seq_lens [b] int32 (0 = inactive slot, zero output).
+
+Masking conventions (as in the JAX package): the masked fill is ``-1e30``;
+a negative segment id is padding — it matches nothing, not even another
+padding id — and its output row is exactly zero; causal attention aligns
+the sequence ends (``causal_offset = sk - sq``).
+
+``flash_attention.launches`` and ``paged_decode_attention.launches`` count
+kernel launches (the CPU path does not count).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from apex_tpu_torch._compat import check_device_type
+from apex_tpu_torch.ops import _build
+
+_NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _attention_mask(sq, sk, device, causal, segment_ids_q, segment_ids_kv):
+    """[b|1, 1, sq, sk] bool validity mask, or None when nothing masks."""
+    mask = None
+    if causal:
+        qpos = torch.arange(sq, device=device)[:, None]
+        kpos = torch.arange(sk, device=device)[None, :]
+        mask = (kpos <= qpos + (sk - sq))[None, None]
+    if segment_ids_q is not None:
+        sid_kv = segment_ids_q if segment_ids_kv is None else segment_ids_kv
+        seg = ((segment_ids_q[:, None, :, None] == sid_kv[:, None, None, :])
+               & (segment_ids_q >= 0)[:, None, :, None])
+        mask = seg if mask is None else mask & seg
+    return mask
+
+
+def flash_attention_reference(q, k, v, *, causal=False, segment_ids_q=None,
+                              segment_ids_kv=None, scale=None, bias=None):
+    """Plain attention returning ``(out, lse)`` like the forward kernel:
+    fp32 scores and softmax, ``out`` in ``q.dtype``, ``lse`` fp32
+    [b, h, sq] (``-1e30`` on rows that see no key)."""
+    d = q.shape[-1]
+    scale = d ** -0.5 if scale is None else scale
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        s = s + bias.float()
+    mask = _attention_mask(q.shape[2], k.shape[2], q.device, causal,
+                           segment_ids_q, segment_ids_kv)
+    if mask is not None:
+        s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
+    mx = s.amax(dim=-1, keepdim=True).clamp_min(_NEG_INF)
+    p = torch.exp(s - mx)
+    if mask is not None:
+        # dead-row guard: a row whose max is the fill gives exp(0) = 1
+        p = torch.where(mask, p, torch.zeros_like(p))
+    l = p.sum(dim=-1, keepdim=True)
+    safe_l = torch.where(l > 0, l, torch.ones_like(l))
+    out = torch.einsum("bhqk,bhkd->bhqd", p / safe_l, v.float())
+    lse = (mx + torch.log(safe_l))[..., 0]
+    return out.to(q.dtype), lse
+
+
+def mha_reference(q, k, v, *, causal=False, segment_ids_q=None,
+                  segment_ids_kv=None, scale=None, bias=None):
+    """Plain multi-head attention (the JAX ``mha_reference``): fp32 math,
+    output in ``q.dtype``; padding rows (segment id < 0) are zero."""
+    out, _ = flash_attention_reference(
+        q, k, v, causal=causal, segment_ids_q=segment_ids_q,
+        segment_ids_kv=segment_ids_kv, scale=scale, bias=bias)
+    return out
+
+
+def paged_attention_reference(q, k_pages, v_pages, block_tables, seq_lens,
+                              *, scale=None, k_scales=None, v_scales=None):
+    """Plain paged decode attention: gathers each sequence's pages through
+    its block table, then a masked fp32 softmax over ``seq_lens``."""
+    kv_heads, _, page_size, d = k_pages.shape
+    b = q.shape[0]
+    m = block_tables.shape[1]
+    scale = d ** -0.5 if scale is None else scale
+    bt = block_tables.long()
+    # [kv, b, m, page, d] -> [b, kv, m*page, d]
+    k = k_pages[:, bt].transpose(0, 1).float().reshape(b, kv_heads,
+                                                       m * page_size, d)
+    v = v_pages[:, bt].transpose(0, 1).float().reshape(b, kv_heads,
+                                                       m * page_size, d)
+    if k_scales is not None:
+        ks = k_scales[:, bt].transpose(0, 1)               # [b, kv, m]
+        k = k / ks.repeat_interleave(page_size, dim=2)[..., None]
+    if v_scales is not None:
+        vs = v_scales[:, bt].transpose(0, 1)
+        v = v / vs.repeat_interleave(page_size, dim=2)[..., None]
+    s = torch.einsum("bkgd,bksd->bkgs", q.float(), k) * scale
+    pos = torch.arange(m * page_size, device=q.device)
+    live = (pos[None, :] < seq_lens[:, None].long())[:, None, None, :]
+    s = torch.where(live, s, torch.full_like(s, _NEG_INF))
+    mx = s.amax(dim=-1, keepdim=True).clamp_min(_NEG_INF)
+    p = torch.where(live, torch.exp(s - mx), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgs,bksd->bkgd", p, v) / torch.where(
+        l > 0, l, torch.ones_like(l))
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+_HEAD_DIMS = (32, 64, 128)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(t: torch.Tensor):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _require(cond: bool, what: str, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"{what}: {msg}")
+
+
+def _check_cuda_operands(what, named, dtype, device):
+    for name, t in named:
+        _require(t.device == device, what,
+                 f"{name} lies on {t.device}, expected {device}")
+        _require(t.dtype == dtype, what,
+                 f"{name} has dtype {t.dtype}, the kernel takes {dtype}")
+        _require(t.is_contiguous(), what, f"{name} must be contiguous")
+
+
+# apex_flash_fwd(q, k, v, sid_q, sid_kv, out, lse, b, h, sq, sk, d, causal,
+#                scale, stream)
+_FLASH_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_void_p]
+
+
+def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale):
+    what = "flash_attention kernel"
+    _require(q.dtype == torch.bfloat16, what,
+             f"takes bfloat16 operands, got {q.dtype}")
+    _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, what,
+             "q, k, v must be [b, h, s, d]")
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    _require(k.shape == (b, h, sk, d) and v.shape == k.shape, what,
+             f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q "
+             f"{tuple(q.shape)}")
+    _require(d in _HEAD_DIMS, what, f"head dim {d} not in {_HEAD_DIMS}")
+    _check_cuda_operands(what, (("q", q), ("k", k), ("v", v)),
+                         torch.bfloat16, q.device)
+    if segment_ids_q is not None:
+        if segment_ids_kv is None:
+            _require(sq == sk, what, "segment_ids_kv is needed when sq != sk")
+            segment_ids_kv = segment_ids_q
+        _require(segment_ids_q.shape == (b, sq)
+                 and segment_ids_kv.shape == (b, sk), what,
+                 "segment ids must be [b, sq] and [b, sk]")
+        _check_cuda_operands(what, (("segment_ids_q", segment_ids_q),
+                                    ("segment_ids_kv", segment_ids_kv)),
+                             torch.int32, q.device)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    fn = _build.function("flash_fwd", "apex_flash_fwd", _FLASH_ARGS)
+    err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(segment_ids_q),
+             _ptr(segment_ids_kv), _ptr(out), _ptr(lse), b, h, sq, sk, d,
+             int(bool(causal)), float(scale), _stream(q))
+    _build.check(err, what)
+    flash_attention.launches += 1
+    return out, lse
+
+
+def flash_attention_fwd(q, k, v, segment_ids_q=None, segment_ids_kv=None,
+                        causal: bool = False, scale: Optional[float] = None):
+    """``(out, lse)`` of the attention forward: the kernel on CUDA,
+    :func:`flash_attention_reference` on the CPU."""
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    if check_device_type(q, "flash_attention") == "cpu":
+        return flash_attention_reference(
+            q, k, v, causal=causal, segment_ids_q=segment_ids_q,
+            segment_ids_kv=segment_ids_kv, scale=scale)
+    return _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal,
+                           scale)
+
+
+def flash_attention(q, k, v, segment_ids_q=None, segment_ids_kv=None,
+                    causal: bool = False, scale: Optional[float] = None,
+                    bias=None, dropout_rate: float = 0.0, dropout_seed=None):
+    """Fused attention forward. Returns [b, h, sq, d] in ``q.dtype``.
+
+    ``segment_ids_*``: tokens attend only within equal non-negative ids;
+    negative ids are padding and give zero rows. ``bias`` runs through the
+    plain version on the CPU and is not supported by the kernel yet;
+    ``dropout_rate > 0`` is not ported yet (training slice)."""
+    if dropout_rate:
+        raise NotImplementedError("attention dropout is not ported yet "
+                                  "(training slice)")
+    if bias is not None:
+        if check_device_type(q, "flash_attention") == "cuda":
+            raise NotImplementedError("flash_attention: the additive bias "
+                                      "is not in the CUDA kernel yet "
+                                      "(training slice)")
+        return mha_reference(q, k, v, causal=causal,
+                             segment_ids_q=segment_ids_q,
+                             segment_ids_kv=segment_ids_kv, scale=scale,
+                             bias=bias)
+    out, _ = flash_attention_fwd(q, k, v, segment_ids_q, segment_ids_kv,
+                                 causal, scale)
+    return out
+
+
+flash_attention.launches = 0
+
+
+# apex_paged_decode(q, k_pages, v_pages, block_tables, seq_lens, out, b,
+#                   kv, group, d, num_pages, page_size, m, scale, stream)
+_PAGED_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+    ctypes.c_float, ctypes.c_void_p]
+_MAX_GROUP = 8
+
+
+def _paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale):
+    what = "paged_decode_attention kernel"
+    b, kv, group, d = q.shape
+    _, num_pages, page_size, _ = k_pages.shape
+    m = block_tables.shape[1]
+    _require(q.dtype == torch.bfloat16, what,
+             f"takes a bfloat16 pool and query, got {q.dtype}")
+    _require(d in _HEAD_DIMS, what, f"head dim {d} not in {_HEAD_DIMS}")
+    _require(group <= _MAX_GROUP, what, f"group {group} > {_MAX_GROUP}")
+    _require(v_pages.shape == k_pages.shape, what,
+             "k_pages and v_pages differ in shape")
+    _require(block_tables.shape == (b, m) and seq_lens.shape == (b,), what,
+             "block_tables must be [b, m] and seq_lens [b]")
+    _check_cuda_operands(what, (("q", q), ("k_pages", k_pages),
+                                ("v_pages", v_pages)),
+                         torch.bfloat16, q.device)
+    _check_cuda_operands(what, (("block_tables", block_tables),
+                                ("seq_lens", seq_lens)),
+                         torch.int32, q.device)
+    out = torch.empty_like(q)
+    fn = _build.function("paged_decode", "apex_paged_decode", _PAGED_ARGS)
+    err = fn(_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(block_tables),
+             _ptr(seq_lens), _ptr(out), b, kv, group, d, num_pages,
+             page_size, m, float(scale), _stream(q))
+    _build.check(err, what)
+    paged_decode_attention.launches += 1
+    return out
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens, *,
+                           scale: Optional[float] = None,
+                           k_scales=None, v_scales=None):
+    """Paged single-query (decode) attention, GQA-aware. Returns
+    ``[b, kv_heads, group, d]`` in ``q.dtype`` (layout in the module
+    docstring). The kernel on CUDA, :func:`paged_attention_reference` on
+    the CPU."""
+    b, kv_heads, group, d = q.shape
+    kvp, _, _, dp = k_pages.shape
+    if (kvp, dp) != (kv_heads, d):
+        raise ValueError(
+            f"k_pages {tuple(k_pages.shape)} does not match q "
+            f"{tuple(q.shape)}: want [kv_heads={kv_heads}, num_pages, "
+            f"page_size, d={d}]")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("fp8-KV mode needs BOTH k_scales and v_scales")
+    scale = d ** -0.5 if scale is None else float(scale)
+    if check_device_type(q, "paged_decode_attention") == "cpu":
+        return paged_attention_reference(q, k_pages, v_pages, block_tables,
+                                         seq_lens, scale=scale,
+                                         k_scales=k_scales,
+                                         v_scales=v_scales)
+    if k_scales is not None:
+        raise NotImplementedError("paged_decode_attention: fp8-KV is not in "
+                                  "the CUDA kernel yet (fp8 serve slice)")
+    return _paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens,
+                              scale)
+
+
+paged_decode_attention.launches = 0

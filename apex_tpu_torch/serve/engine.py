@@ -1,0 +1,293 @@
+"""The serve engine of the port (``apex_tpu/serve/engine.py``): prefill and
+decode steps over an in-place paged cache, driven by the continuous-batching
+scheduler.
+
+Shape discipline, as in the JAX engine: the prefill step runs one sequence
+at the static padded prompt length (``max_prompt_len``); the decode step
+runs the full fixed-capacity batch (``max_batch`` slots, inactive slots
+routed to the null page). No operation in the forward mixes batch rows and
+every step runs at one shape, so a slot's row is a function of that slot's
+inputs alone — which is why replaying a preempted sequence's generated
+tokens through the decode step reproduces its cache and logits bit-exactly.
+The cache pool is updated in place (the JAX engine donates it): one pool
+is resident, never two.
+
+Sampling is greedy argmax. Kernels are chosen by the device: on CUDA the
+flash-prefill, paged-decode and LayerNorm kernels run, on the CPU their
+plain versions.
+
+Not ported yet (each raises ``NotImplementedError``): speculative decoding
+(``spec_k``), fp8 KV and fp8 weights, tensor parallelism, and the serve
+telemetry (spans, metrics export, flight dumps).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from apex_tpu_torch._compat import DeviceLike, resolve_device
+from apex_tpu_torch.models.gpt import GPT, GPTConfig
+from apex_tpu_torch.serve import cache as cache_mod
+from apex_tpu_torch.serve import model as model_mod
+from apex_tpu_torch.serve.scheduler import RUNNING, Scheduler, Sequence
+
+
+def _check_params(params: GPT, device: torch.device) -> None:
+    if params.device.type != device.type:
+        raise ValueError(f"params lie on {params.device}, the engine runs "
+                         f"on {device}")
+
+
+class ServeEngine:
+    """Paged-KV-cache GPT serving on one device.
+
+    ``params`` is the port's :class:`~apex_tpu_torch.models.gpt.GPT`.
+    ``device`` defaults to CUDA and raises without it; pass ``"cpu"`` to
+    serve through the kernels' plain versions.
+    """
+
+    def __init__(self, cfg: GPTConfig, params: GPT, *, num_pages: int,
+                 max_seq_len: int, max_prompt_len: int,
+                 page_size: Optional[int] = None, max_batch: int = 4,
+                 record_logits: bool = False, device: DeviceLike = None,
+                 fp8_kv: bool = False, spec_k: int = 0,
+                 fp8_weights: bool = False):
+        if fp8_kv or fp8_weights:
+            raise NotImplementedError("fp8 KV and fp8 weights are not "
+                                      "ported yet (fp8 serve slice)")
+        if spec_k:
+            raise NotImplementedError("speculative decoding is not ported "
+                                      "yet")
+        self.device = resolve_device(device)
+        _check_params(params, self.device)
+        self.cfg = cfg
+        self.params = params
+        psize = cache_mod.resolve_page_size(context_len=max_seq_len,
+                                            page_size=page_size)
+        if max_seq_len > cfg.max_seq_len:
+            raise ValueError(f"max_seq_len {max_seq_len} exceeds the "
+                             f"model's {cfg.max_seq_len}")
+        if max_prompt_len > max_seq_len:
+            raise ValueError("max_prompt_len exceeds max_seq_len")
+        self.max_seq_len = max_seq_len
+        self.max_prompt_len = max_prompt_len
+        self.pages_per_seq = -(-max_seq_len // psize)
+        self.ccfg = cache_mod.CacheConfig(
+            num_layers=cfg.num_layers, kv_heads=cfg.num_heads,
+            head_dim=cfg.head_dim, num_pages=num_pages, page_size=psize,
+            dtype=cfg.dtype)
+        self.state = cache_mod.init_cache(self.ccfg, device=self.device)
+        self.sched = Scheduler(num_pages=num_pages, page_size=psize,
+                               max_batch=max_batch)
+        self.max_batch = max_batch
+        self.slots: List[Optional[Sequence]] = [None] * max_batch
+        self.record_logits = record_logits
+        self.logits_log: Dict[int, Dict[int, np.ndarray]] = {}
+        # host-clock seconds of each batched decode step (synchronised by
+        # the token read-back), its number of live slots, and of each
+        # prefill with its prompt length
+        self.decode_step_times: List[float] = []
+        self.decode_step_sizes: List[int] = []
+        self.prefill_times: List[Tuple[int, float]] = []
+        self.tokens_generated = 0
+        self._next_id = 0
+        self.seqs: Dict[int, Sequence] = {}    # every request ever added
+
+    # -- device steps ------------------------------------------------
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    @torch.no_grad()
+    def _decode(self, bts, pos, tok, act):
+        logits, _ = model_mod.decode_forward(
+            self.cfg, self.ccfg, self.params, self.state, self._tensor(bts),
+            self._tensor(pos).long(), self._tensor(tok).long(),
+            self._tensor(act))
+        return logits, logits.argmax(dim=-1).cpu().numpy()
+
+    @torch.no_grad()
+    def _prefill(self, bt, length, ids):
+        logits, _ = model_mod.prefill_forward(
+            self.cfg, self.ccfg, self.params, self.state, self._tensor(bt),
+            length, self._tensor(ids).long())
+        return logits, int(logits.argmax())
+
+    # -- request intake ----------------------------------------------
+
+    def add_request(self, prompt: List[int], max_new_tokens: int) -> int:
+        if len(prompt) > self.max_prompt_len:
+            raise ValueError(f"prompt length {len(prompt)} exceeds "
+                             f"max_prompt_len {self.max_prompt_len}")
+        if len(prompt) + max_new_tokens > self.max_seq_len:
+            raise ValueError("prompt + max_new_tokens exceeds max_seq_len")
+        seq = Sequence(seq_id=self._next_id, prompt=list(prompt),
+                       max_new_tokens=max_new_tokens)
+        self._next_id += 1
+        self.seqs[seq.seq_id] = seq
+        self.sched.add(seq)
+        return seq.seq_id
+
+    # -- host-side step driving --------------------------------------
+
+    def _bt_row(self, seq: Sequence) -> np.ndarray:
+        row = np.zeros((self.pages_per_seq,), np.int32)
+        row[:len(seq.pages)] = seq.pages
+        return row
+
+    def _blank_batch(self):
+        return (np.zeros((self.max_batch,), np.int32),
+                np.zeros((self.max_batch,), np.int32),
+                np.zeros((self.max_batch,), bool),
+                np.zeros((self.max_batch, self.pages_per_seq), np.int32))
+
+    def _record(self, seq: Sequence, pos: int, logits_row) -> None:
+        if self.record_logits:
+            self.logits_log.setdefault(seq.seq_id, {})[pos] = \
+                logits_row.cpu().numpy()
+
+    def _free_slot(self, seq: Sequence) -> None:
+        for i, s in enumerate(self.slots):
+            if s is seq:
+                self.slots[i] = None
+
+    def _sample(self, seq: Sequence, token: int) -> None:
+        seq.tokens.append(int(token))
+        self.tokens_generated += 1
+        if seq.done:
+            self.sched.finish(seq)
+            self._free_slot(seq)
+
+    def _replay_generated(self, seq: Sequence) -> None:
+        """Recompute the cache for a resumed sequence's generated tokens
+        through the decode step (single-slot-active batches): the same
+        rows as the original steps, hence bit-exact. The last token is NOT
+        replayed — it is the next decode's input."""
+        slot = self.slots.index(seq)
+        for j in range(len(seq.prompt), seq.num_tokens - 1):
+            tok, pos, act, bts = self._blank_batch()
+            tok[slot] = seq.tokens[j]
+            pos[slot] = j
+            act[slot] = True
+            bts[slot] = self._bt_row(seq)
+            logits, _ = self._decode(bts, pos, tok, act)
+            self._record(seq, j + 1, logits[slot])
+            seq.num_cached = j + 1
+
+    def _do_prefill(self, seq: Sequence) -> None:
+        slot = self.slots.index(None)
+        self.slots[slot] = seq
+        seq.slot = slot
+        resumed = seq.num_generated > 0
+        ids = np.zeros((self.max_prompt_len,), np.int32)
+        ids[:len(seq.prompt)] = seq.prompt
+        t0 = time.perf_counter()
+        logits, next_tok = self._prefill(self._bt_row(seq), len(seq.prompt),
+                                         ids)
+        self.prefill_times.append((len(seq.prompt),
+                                   time.perf_counter() - t0))
+        seq.num_cached = len(seq.prompt)
+        self._record(seq, len(seq.prompt), logits)
+        if not resumed:
+            self._sample(seq, next_tok)
+        else:
+            # resumed: the generated tokens already exist; rebuild the
+            # cache deterministically instead of re-sampling
+            self._replay_generated(seq)
+
+    def step(self) -> bool:
+        """One scheduler round: prefills + one batched decode. Returns
+        whether any work remains."""
+        plan = self.sched.schedule()
+        for seq in plan.preempted:
+            self._free_slot(seq)
+        for seq in plan.prefill:
+            self._do_prefill(seq)
+        decodes = [s for s in plan.decode
+                   if not s.done and s.state == RUNNING]
+        if decodes:
+            tok, pos, act, bts = self._blank_batch()
+            for seq in decodes:
+                slot = seq.slot
+                tok[slot] = seq.tokens[-1]
+                pos[slot] = seq.num_tokens - 1
+                act[slot] = True
+                bts[slot] = self._bt_row(seq)
+            t0 = time.perf_counter()
+            logits, next_np = self._decode(bts, pos, tok, act)
+            self.decode_step_times.append(time.perf_counter() - t0)
+            self.decode_step_sizes.append(len(decodes))
+            for seq in decodes:
+                slot = seq.slot
+                seq.num_cached = seq.num_tokens
+                self._record(seq, seq.num_tokens, logits[slot])
+                self._sample(seq, next_np[slot])
+        return self.sched.has_work
+
+    def preempt(self, seq_id: int) -> None:
+        """Force-preempt a running sequence (tests/benchmarks; the organic
+        path is the scheduler's evict-on-exhaustion)."""
+        for seq in self.sched.running:
+            if seq.seq_id == seq_id:
+                self.sched.preempt(seq)
+                self._free_slot(seq)
+                return
+        raise KeyError(f"sequence {seq_id} is not running")
+
+    def run(self, max_steps: int = 100_000) -> Dict[int, List[int]]:
+        """Drive until every request finished; returns seq_id -> generated
+        tokens for EVERY request ever added."""
+        steps = 0
+        while self.sched.has_work:
+            self.step()
+            steps += 1
+            if steps > max_steps:
+                raise RuntimeError("serve engine did not drain in "
+                                   f"{max_steps} steps")
+        return {sid: s.tokens[len(s.prompt):]
+                for sid, s in self.seqs.items()}
+
+    def serve(self, **_):
+        raise NotImplementedError("the live metrics surface (serve "
+                                  "telemetry) is not ported yet; use run()")
+
+
+@torch.no_grad()
+def naive_generate(cfg: GPTConfig, params: GPT, requests, *,
+                   max_seq_len: int, device: DeviceLike = None):
+    """The full-recompute baseline: the same batched greedy decoding with
+    NO KV cache — every token recomputes the whole prefix (one fixed-shape
+    forward over the padded context per step).
+
+    ``requests``: list of ``(prompt, max_new_tokens)``. Returns
+    ``(outputs: list[list[int]], step_times: list[float])``.
+    """
+    dev = resolve_device(device)
+    _check_params(params, dev)
+    B = len(requests)
+    ids = np.zeros((B, max_seq_len), np.int64)
+    lengths = np.zeros((B,), np.int64)
+    todo = np.zeros((B,), np.int64)
+    for i, (prompt, n_new) in enumerate(requests):
+        ids[i, :len(prompt)] = prompt
+        lengths[i] = len(prompt)
+        todo[i] = n_new
+    outputs: List[List[int]] = [[] for _ in range(B)]
+    step_times: List[float] = []
+    while (np.array([len(o) for o in outputs]) < todo).any():
+        t0 = time.perf_counter()
+        logits = model_mod.full_forward_logits(
+            cfg, params, torch.from_numpy(ids).to(dev),
+            torch.from_numpy(lengths).to(dev))
+        next_toks = logits.argmax(dim=-1).cpu().numpy()
+        step_times.append(time.perf_counter() - t0)
+        for i in range(B):
+            if len(outputs[i]) < todo[i]:
+                outputs[i].append(int(next_toks[i]))
+                ids[i, lengths[i]] = next_toks[i]
+                lengths[i] += 1
+    return outputs, step_times

@@ -1,0 +1,185 @@
+"""The port's kernels on the card, held against their plain versions over
+more shapes than ``chip_smoke.py`` checks.
+
+Every test needs an NVIDIA GPU (with ``nvcc`` and ``triton``) and skips
+without one. Run on the card, without the JAX test configuration::
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+
+Tolerances: bf16 outputs within two bf16 ulps of the plain version plus an
+absolute floor (4e-3 for flash attention, whose kernel rounds p to bf16
+before the PV product; 1e-3 for paged decode); fp32 lse within 1e-3; fp32
+LayerNorm outputs within 1e-5 relative; half-precision LayerNorm outputs
+within one ulp.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from apex_tpu_torch.ops import flash_attention as fa
+from apex_tpu_torch.ops import layer_norm as ln
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _close(got, ref, floor, ulps=2):
+    got, ref = got.float(), ref.float()
+    tol = ref.abs() * ulps * 2.0 ** -7 + floor
+    assert bool(((got - ref).abs() <= tol).all()), \
+        float((got - ref).abs().max())
+
+
+def _rand(gen, *shape, dtype=torch.bfloat16):
+    return torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,seg", [
+    (1, 1, 1, 1, 64, True, False),
+    (2, 3, 65, 65, 64, True, True),
+    (1, 2, 17, 200, 128, True, False),       # sq < sk: end-aligned causal
+    (1, 2, 130, 90, 64, True, True),         # sq > sk: rows with no key
+    (3, 2, 100, 100, 32, False, True),
+    (1, 4, 512, 512, 64, True, True),
+])
+def test_flash_fwd_matches_plain(gen, b, h, sq, sk, d, causal, seg):
+    q, k, v = _rand(gen, b, h, sq, d), _rand(gen, b, h, sk, d), \
+        _rand(gen, b, h, sk, d)
+    sid_q = sid_kv = None
+    if seg:
+        rng = np.random.RandomState(b * sq + sk)
+        sid_q = np.sort(rng.randint(-1, 3, (b, sq)), axis=1)[:, ::-1]
+        sid_kv = np.sort(rng.randint(-1, 3, (b, sk)), axis=1)[:, ::-1]
+        sid_q = torch.from_numpy(sid_q.copy()).int().cuda()
+        sid_kv = torch.from_numpy(sid_kv.copy()).int().cuda()
+    before = fa.flash_attention.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal)
+    assert fa.flash_attention.launches == before + 1
+    ref, ref_lse = fa.flash_attention_reference(
+        q, k, v, causal=causal, segment_ids_q=sid_q, segment_ids_kv=sid_kv)
+    _close(out, ref, 4e-3)
+    assert float((lse - ref_lse).abs().max()) <= 1e-3
+    if seg:
+        pad = (sid_q < 0)[:, None, :].expand(b, h, sq)
+        assert not bool(out[pad].any())
+
+
+@pytest.mark.parametrize("b,kv,g,d,page,m,seq_lens", [
+    (2, 2, 1, 64, 8, 5, [0, 40]),
+    (3, 2, 3, 64, 16, 4, [13, 0, 64]),
+    (4, 1, 8, 128, 32, 3, [1, 31, 33, 96]),
+    (2, 4, 2, 32, 256, 2, [257, 512]),
+    (8, 16, 1, 64, 128, 8, [0, 1, 127, 128, 129, 300, 640, 1024]),
+])
+def test_paged_decode_matches_plain(gen, b, kv, g, d, page, m, seq_lens):
+    num_pages = 1 + b * m
+    q = _rand(gen, b, kv, g, d)
+    kp, vp = _rand(gen, kv, num_pages, page, d), \
+        _rand(gen, kv, num_pages, page, d)
+    rng = np.random.RandomState(sum(seq_lens))
+    bt = rng.permutation(np.arange(1, num_pages))[:b * m].reshape(b, m)
+    bt = torch.from_numpy(bt.astype(np.int32)).cuda()
+    sl = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
+    before = fa.paged_decode_attention.launches
+    out = fa.paged_decode_attention(q, kp, vp, bt, sl)
+    assert fa.paged_decode_attention.launches == before + 1
+    ref = fa.paged_attention_reference(q, kp, vp, bt, sl)
+    _close(out, ref, 1e-3)
+    for i, n in enumerate(seq_lens):
+        if n == 0:
+            assert float(out[i].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("n,h", [(1, 128), (3, 1000), (8, 1024), (512, 1024),
+                                 (5, 4096)])
+@pytest.mark.parametrize("x_dtype,out_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float16, torch.float16),
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32)])
+def test_layer_norm_matches_plain(gen, n, h, x_dtype, out_dtype):
+    x = _rand(gen, n, h, dtype=torch.float32).mul(2).add(0.5).to(x_dtype)
+    w = 1 + 0.1 * _rand(gen, h, dtype=torch.float32)
+    b = 0.1 * _rand(gen, h, dtype=torch.float32)
+    before = ln.fused_layer_norm_affine.launches
+    y = ln.fused_layer_norm_affine(x, w, b, (h,), 1e-5, out_dtype)
+    assert ln.fused_layer_norm_affine.launches == before + 1
+    ref = ln.fused_layer_norm_affine_reference(x, w, b, (h,), 1e-5,
+                                               out_dtype)
+    assert y.dtype == out_dtype
+    if out_dtype == torch.float32:
+        torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-5)
+    else:
+        ulp = 2.0 ** -7 if out_dtype == torch.bfloat16 else 2.0 ** -10
+        assert bool(((y.float() - ref.float()).abs()
+                     <= ref.float().abs() * ulp + 1e-6).all())
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(gen):
+    q = _rand(gen, 1, 2, 16, 64)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.flash_attention_fwd(q.float(), q.float(), q.float())
+    qt = _rand(gen, 1, 16, 2, 64).transpose(1, 2)      # [1, 2, 16, 64]
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_fwd(qt, qt, qt)
+    with pytest.raises(ValueError, match="head dim"):
+        qq = _rand(gen, 1, 2, 16, 48)
+        fa.flash_attention_fwd(qq, qq, qq)
+    with pytest.raises(NotImplementedError, match="bias"):
+        fa.flash_attention(q, q, q, bias=torch.zeros(1, 2, 16, 16,
+                                                     device="cuda"))
+    qp = _rand(gen, 2, 2, 1, 64)
+    pages = _rand(gen, 2, 4, 8, 64)
+    bt = torch.zeros(2, 2, dtype=torch.int32, device="cuda")
+    sl = torch.zeros(2, dtype=torch.int32, device="cuda")
+    with pytest.raises(NotImplementedError, match="fp8"):
+        fa.paged_decode_attention(qp, pages, pages, bt, sl,
+                                  k_scales=torch.ones(2, 4, device="cuda"),
+                                  v_scales=torch.ones(2, 4, device="cuda"))
+    with pytest.raises(ValueError, match="int32"):
+        fa.paged_decode_attention(qp, pages, pages, bt.long(), sl)
+    with pytest.raises(ValueError, match="group"):
+        fa.paged_decode_attention(_rand(gen, 2, 2, 9, 64), pages, pages,
+                                  bt, sl)
+    with pytest.raises(ValueError, match="float32"):
+        ln.fused_layer_norm_affine(q, torch.ones(64, device="cuda").half(),
+                                   torch.zeros(64, device="cuda"), (64,))
+
+
+def test_engine_preempt_resume_bit_exact_on_the_card(gen):
+    """The replay contract holds through the kernels: a preempted
+    sequence's logits rows are bit-identical to an uninterrupted run."""
+    from apex_tpu_torch.models.gpt import GPT, GPTConfig
+    from apex_tpu_torch.serve import ServeEngine
+    cfg = GPTConfig(vocab_size=256, max_seq_len=128, hidden_size=128,
+                    num_layers=2, num_heads=2, dtype=torch.bfloat16)
+    params = GPT.init_params(cfg, torch.Generator().manual_seed(0))
+    prompts = [[5, 9, 17, 3, 40, 22, 8], [11, 2, 33, 60, 7, 7, 1, 90, 4]]
+
+    def run(preempt_at=None):
+        eng = ServeEngine(cfg, params, num_pages=32, max_seq_len=64,
+                          max_prompt_len=16, page_size=8, max_batch=2,
+                          record_logits=True)
+        ids = [eng.add_request(p, 12) for p in prompts]
+        steps = 0
+        while eng.sched.has_work:
+            eng.step()
+            steps += 1
+            if steps == preempt_at:
+                eng.preempt(ids[0])
+        return eng, ids
+
+    a, ids = run()
+    b, _ = run(preempt_at=4)
+    assert b.seqs[ids[0]].n_preemptions == 1
+    for sid in ids:
+        assert a.seqs[sid].tokens == b.seqs[sid].tokens
+        assert set(a.logits_log[sid]) == set(b.logits_log[sid])
+        for pos in a.logits_log[sid]:
+            assert np.array_equal(a.logits_log[sid][pos],
+                                  b.logits_log[sid][pos]), (sid, pos)

@@ -1,0 +1,208 @@
+"""apex_tpu_torch flash-attention forward and paged decode attention
+against the JAX package.
+
+Inputs are made with numpy from a seed and handed to both sides. The JAX
+kernels run in Pallas interpret mode, as the JAX package's own CPU tests
+run them; the port's wrappers run their plain versions on CPU tensors.
+Tolerances: fp32 within 1e-5 absolute (fp32 math on both sides, other
+summation order); bf16 within 2e-2 absolute (the Pallas kernel rounds p to
+bf16 before its PV product, the plain version does not; outputs are bf16).
+"""
+
+import importlib
+
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+# ``apex_tpu.ops`` re-exports a function of the same name as the module
+jfa = importlib.import_module("apex_tpu.ops.flash_attention")
+from apex_tpu_torch.ops import _build
+from apex_tpu_torch.ops import flash_attention as tfa
+
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def _segments(b, s):
+    """Row 0: one segment, padding (-1) from 29; row 1: two packed
+    segments, then padding."""
+    sid = np.zeros((b, s), np.int32)
+    sid[0, 29:] = -1
+    sid[1, 20:32] = 1
+    sid[1, 32:] = -1
+    return sid
+
+
+def _pair(a, dtype):
+    """The same numbers as a JAX array and a torch tensor in ``dtype``."""
+    if dtype == "bfloat16":
+        return (jnp.asarray(a.astype(ml_dtypes.bfloat16)),
+                torch.from_numpy(a).to(torch.bfloat16))
+    return jnp.asarray(a), torch.from_numpy(a)
+
+
+def _np(t):
+    return np.asarray(t, np.float32) if not isinstance(t, torch.Tensor) \
+        else t.float().numpy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_prefill_matches_jax_interpret(dtype):
+    rng = np.random.RandomState(0)
+    b, h, s, d = 2, 2, 40, 16
+    q, k, v = (rng.randn(b, h, s, d).astype(np.float32) for _ in range(3))
+    sid = _segments(b, s)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, k, v))
+    scale = d ** -0.5
+    ref = jfa.flash_attention(jq, jk, jv, segment_ids_q=jnp.asarray(sid),
+                              causal=True, scale=scale, block_q=16,
+                              block_k=16, block_q_bwd=16, block_k_bwd=16,
+                              interpret=True, autotune="off")
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(tq, tk, tv, segment_ids_q=torch.from_numpy(sid),
+                              causal=True, scale=scale)
+    assert tfa.flash_attention.launches == before     # CPU: no kernel
+    assert got.dtype == tq.dtype
+    np.testing.assert_allclose(_np(got), _np(ref), atol=TOL[dtype], rtol=0)
+    # padding rows are exactly zero
+    assert float(got[0, :, 29:].abs().max()) == 0.0
+    assert float(got[1, :, 32:].abs().max()) == 0.0
+
+
+def test_flash_lse_matches_jax_forward_impl():
+    rng = np.random.RandomState(1)
+    b, h, s, d = 2, 2, 40, 16
+    q, k, v = (rng.randn(b, h, s, d).astype(np.float32) for _ in range(3))
+    sid = _segments(b, s)
+    scale = d ** -0.5
+    _, jlse = jfa._flash_fwd_impl(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(sid),
+        None, None, jnp.zeros((1,), jnp.int32), scale, True, 0.0, 16, 16,
+        True)
+    _, tlse = tfa.flash_attention_fwd(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(sid), None, True, scale)
+    jlse = np.asarray(jlse).reshape(b, h, -1)[:, :, :s]
+    live = np.broadcast_to((sid >= 0)[:, None, :], (b, h, s))
+    np.testing.assert_allclose(tlse.numpy()[live], jlse[live], atol=1e-5)
+    # rows that see no key: -1e30 on both sides
+    assert np.all(tlse.numpy()[:, :, 32:] == np.float32(-1e30))
+    assert np.all(jlse[:, :, 32:] == np.float32(-1e30))
+
+
+@pytest.mark.parametrize("case", ["bias", "causal_sq_lt_sk"])
+def test_mha_reference_matches_jax(case):
+    rng = np.random.RandomState(2)
+    b, h, sq, sk, d = 2, 3, 12, 20, 8
+    q = rng.randn(b, h, sq, d).astype(np.float32)
+    k, v = (rng.randn(b, h, sk, d).astype(np.float32) for _ in range(2))
+    kw_j, kw_t = {}, {}
+    if case == "bias":
+        bias = rng.randn(1, h, sq, sk).astype(np.float32)
+        kw_j["bias"], kw_t["bias"] = jnp.asarray(bias), torch.from_numpy(bias)
+    else:
+        kw_j["causal"] = kw_t["causal"] = True
+    ref = jfa.mha_reference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            **kw_j)
+    got = tfa.mha_reference(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v), **kw_t)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_matches_jax_interpret(dtype):
+    """GQA group 3, an inactive slot (seq_len 0) and a partly dead page."""
+    rng = np.random.RandomState(3)
+    b, kv, g, d = 3, 2, 3, 16
+    page, n_pages, m = 8, 9, 4
+    q = (rng.randn(b, kv, g, d) * 0.3).astype(np.float32)
+    kp = (rng.randn(kv, n_pages, page, d) * 0.3).astype(np.float32)
+    vp = (rng.randn(kv, n_pages, page, d) * 0.3).astype(np.float32)
+    bt = rng.randint(1, n_pages, (b, m)).astype(np.int32)
+    sl = np.asarray([13, 0, 32], np.int32)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, kp, vp))
+    ref = jfa.paged_decode_attention(jq, jk, jv, jnp.asarray(bt),
+                                     jnp.asarray(sl), interpret=True)
+    jref = jfa.paged_attention_reference(jq, jk, jv, jnp.asarray(bt),
+                                         jnp.asarray(sl))
+    before = tfa.paged_decode_attention.launches
+    got = tfa.paged_decode_attention(tq, tk, tv, torch.from_numpy(bt),
+                                     torch.from_numpy(sl))
+    assert tfa.paged_decode_attention.launches == before
+    assert got.dtype == tq.dtype and tuple(got.shape) == (b, kv, g, d)
+    np.testing.assert_allclose(_np(got), _np(ref), atol=TOL[dtype], rtol=0)
+    np.testing.assert_allclose(_np(got), _np(jref), atol=TOL[dtype], rtol=0)
+    assert float(got[1].abs().max()) == 0.0          # inactive: exact zeros
+
+
+def test_wrappers_reject_unported_and_foreign_inputs():
+    q = torch.zeros(1, 2, 8, 16)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        tfa.flash_attention(q, q, q, dropout_rate=0.1, dropout_seed=1)
+    with pytest.raises(ValueError, match="not supported"):
+        tfa.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+    qp = torch.zeros(2, 2, 1, 16)
+    pages = torch.zeros(2, 4, 8, 16)
+    bt = torch.zeros(2, 2, dtype=torch.int32)
+    sl = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="does not match"):
+        tfa.paged_decode_attention(qp, torch.zeros(3, 4, 8, 16), pages, bt,
+                                   sl)
+    with pytest.raises(ValueError, match="BOTH"):
+        tfa.paged_decode_attention(qp, pages, pages, bt, sl,
+                                   k_scales=torch.ones(2, 4))
+    with pytest.raises(ValueError, match="not supported"):
+        tfa.paged_decode_attention(qp.to("meta"), pages.to("meta"),
+                                   pages.to("meta"), bt.to("meta"),
+                                   sl.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# the build of the CUDA sources (a stand-in nvcc: the real one runs on the
+# machine with the card)
+# ---------------------------------------------------------------------------
+
+def _fake_cuda_home(tmp_path, body):
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text("#!/bin/sh\n" + body)
+    nvcc.chmod(0o755)
+    return str(tmp_path / "cuda")
+
+
+def test_build_all_compiles_each_source_for_sm90a(tmp_path, monkeypatch):
+    # the stand-in records its arguments and writes the -o target
+    body = ('echo "$@" > "$(dirname "$0")/args.$$"\n'
+            'while [ "$1" != "-o" ]; do shift; done\n'
+            'echo lib > "$2"\necho "ptxas info : Used 1 registers"\n')
+    monkeypatch.setenv("CUDA_HOME", _fake_cuda_home(tmp_path, body))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    names = ["flash_fwd", "paged_decode"]
+    _build.build_all(names)
+    for name in names:
+        lib = _build.library_path(name)
+        assert lib.parent == tmp_path / "build" and lib.is_file()
+        assert "registers" in lib.with_suffix(".log").read_text()
+    calls = sorted(p.read_text() for p in (tmp_path / "cuda" / "bin").glob(
+        "args.*"))
+    assert len(calls) == 2
+    for call in calls:
+        assert "-gencode arch=compute_90a,code=sm_90a" in call
+        assert "-shared" in call and "-O3" in call
+    # a built library is reused, not rebuilt
+    _build.build_all(names)
+    assert len(list((tmp_path / "cuda" / "bin").glob("args.*"))) == 2
+
+
+def test_build_failure_raises_with_the_compiler_log(tmp_path, monkeypatch):
+    monkeypatch.setenv("CUDA_HOME", _fake_cuda_home(
+        tmp_path, 'echo "error: bad kernel"\nexit 3\n'))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="bad kernel"):
+        _build.build_all(["flash_fwd"])
+    assert not _build.library_path("flash_fwd").exists()
+    with pytest.raises(RuntimeError, match="cudaError_t 700"):
+        _build.check(700, "launch")
