@@ -11,9 +11,15 @@ a CUDA tensor launches the kernel (or raises), a CPU tensor takes the plain
 version. Entry points default to ``device="cuda"`` and raise without a GPU
 unless the caller passes ``device="cpu"``.
 
-Ported so far: the serving path (``apex_tpu_torch.serve``) at tp=1 with a
-bf16 or fp32 KV cache, over three kernels — the flash-attention forward
-(prefill), paged decode attention and the LayerNorm forward.
+Ported so far:
+
+- the serving path (``apex_tpu_torch.serve``) at tp=1 with a bf16 or fp32
+  KV cache, over the flash-attention forward (prefill), paged decode
+  attention and the LayerNorm forward kernels;
+- O0/O2/O3 training (``apex_tpu_torch.amp``, ``apex_tpu_torch.optimizers``
+  FusedAdam, ``models.gpt.GPT.loss``) over those forwards plus the
+  flash-attention backward, the LayerNorm backward and the fused LM-head
+  cross-entropy forward and backward kernels.
 """
 
 __version__ = "0.1.0"

@@ -15,7 +15,22 @@ two standard deviations, variance ``1/fan_in``) for linear kernels, zeros
 for biases, ones/zeros for LayerNorm. The numbers differ from a flax init
 with the same seed; tests carry flax params across instead.
 
-The training forward and loss come with the training slice.
+:meth:`GPT.forward` and :meth:`GPT.loss` are the training forward and loss
+of the JAX ``GPT.__call__``/``GPT.loss`` (``apex_tpu/models/gpt.py:337-433``),
+with its rounding points: the embedding is ``wte[ids]`` and ``wpe[:s]``
+each cast to ``cfg.dtype`` and added in that dtype; residual adds are in
+``cfg.dtype``; GELU is the tanh form in fp32; the qkv split is per head;
+attention is causal flash attention with scale ``d ** -0.5``; the loss is
+the mean over all tokens of the fused LM-head cross entropy (or, with
+``fused_lm_head=False``, of the vocab-parallel cross entropy over
+materialized logits). ``reference=True`` runs the plain version of every
+kernel — differentiated by autograd — on any device: the oracle the
+kernels are held against on the card. The serve path
+(``apex_tpu_torch.serve``) runs its forwards under ``torch.no_grad()``.
+
+Not ported yet (raise ``NotImplementedError``): ``remat_blocks``, dropout
+above 0, ``attention_impl="fused_softmax"``, mixture-of-experts and
+sequence parallelism.
 """
 
 from __future__ import annotations
@@ -26,12 +41,18 @@ from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from apex_tpu_torch._compat import DeviceLike, as_torch_dtype, resolve_device
 from apex_tpu_torch.normalization import FusedLayerNorm
+from apex_tpu_torch.ops.flash_attention import flash_attention, mha_reference
+from apex_tpu_torch.ops.layer_norm import fused_layer_norm_affine_reference
+from apex_tpu_torch.ops.lm_head_ce import (fused_lm_head_cross_entropy,
+                                           lm_head_cross_entropy_reference)
 from apex_tpu_torch.transformer.tensor_parallel import (
-    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
+    vocab_parallel_cross_entropy)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,12 +64,35 @@ class GPTConfig:
     num_heads: int = 12
     ffn_hidden_size: Optional[int] = None   # default 4*hidden
     dtype: Any = torch.bfloat16
+    remat_blocks: bool = False
+    attention_impl: str = "flash"           # "flash" | "fused_softmax"
+    attention_dropout: float = 0.0
+    hidden_dropout: float = 0.0
+    sequence_parallel: bool = False
+    moe_num_experts: int = 0
+    fused_lm_head: bool = True
 
     def __post_init__(self):
         object.__setattr__(self, "dtype", as_torch_dtype(self.dtype))
         if self.hidden_size % self.num_heads:
             raise ValueError(f"hidden_size {self.hidden_size} not divisible "
                              f"by num_heads {self.num_heads}")
+        if self.attention_impl not in ("flash", "fused_softmax"):
+            raise ValueError("attention_impl must be 'flash' or "
+                             f"'fused_softmax', got {self.attention_impl!r}")
+        unported = {
+            "remat_blocks": self.remat_blocks,
+            "attention_impl='fused_softmax'":
+                self.attention_impl == "fused_softmax",
+            "attention_dropout > 0": self.attention_dropout > 0,
+            "hidden_dropout > 0": self.hidden_dropout > 0,
+            "sequence_parallel": self.sequence_parallel,
+            "moe_num_experts > 0": self.moe_num_experts > 0,
+        }
+        for what, on in unported.items():
+            if on:
+                raise NotImplementedError(f"GPTConfig: {what} is not ported "
+                                          "to apex_tpu_torch yet")
 
     @property
     def ffn(self) -> int:
@@ -100,7 +144,6 @@ class GPT(nn.Module):
         for i in range(cfg.num_layers):
             self.add_module(f"block_{i}", GPTBlock(cfg, dev))
         self.ln_f = FusedLayerNorm(h, dtype=cfg.dtype, device=dev)
-        self.requires_grad_(False)       # serving only until training lands
 
     def block(self, i: int) -> GPTBlock:
         return getattr(self, f"block_{i}")
@@ -108,6 +151,57 @@ class GPT(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.wpe.device
+
+    # -- training forward and loss -----------------------------------------
+    @staticmethod
+    def _ln(mod: FusedLayerNorm, x, reference: bool):
+        if reference:
+            return fused_layer_norm_affine_reference(
+                x, mod.weight, mod.bias, mod.normalized_shape, mod.eps,
+                mod.dtype)
+        return mod(x)
+
+    def _block_forward(self, blk: GPTBlock, x, reference: bool):
+        cfg = self.cfg
+        b, s, h = x.shape
+        d = cfg.head_dim
+        y = self._ln(blk.ln1, x, reference)
+        qkv = blk.attn.qkv(y).reshape(b, s, cfg.num_heads, 3 * d)
+        q, k, v = (t.transpose(1, 2).contiguous()
+                   for t in qkv.split(d, dim=-1))          # [b, heads, s, d]
+        attend = mha_reference if reference else flash_attention
+        ctx = attend(q, k, v, causal=True, scale=d ** -0.5)
+        x = x + blk.attn.proj(ctx.transpose(1, 2).reshape(b, s, h))
+        y = self._ln(blk.ln2, x, reference)
+        y = blk.mlp.fc1(y)
+        y = F.gelu(y.float(), approximate="tanh").to(x.dtype)
+        return x + blk.mlp.fc2(y)
+
+    def forward(self, ids, return_hidden: bool = False,
+                reference: bool = False):
+        """Logits ``[b, s, V]`` in ``cfg.dtype`` (the tied LM head), or
+        with ``return_hidden`` the final LayerNorm's output ``[b, s, h]``.
+        ``ids``: ``[b, s]`` int."""
+        cfg = self.cfg
+        s = ids.shape[1]
+        x = self.wte(ids).to(cfg.dtype) + self.wpe[:s].to(cfg.dtype)[None]
+        for i in range(cfg.num_layers):
+            x = self._block_forward(self.block(i), x, reference)
+        x = self._ln(self.ln_f, x, reference)
+        if return_hidden:
+            return x
+        return self.wte.attend(x)
+
+    def loss(self, ids, labels, reference: bool = False):
+        """Mean next-token cross entropy over all ``b * s`` tokens (fp32
+        scalar)."""
+        if self.cfg.fused_lm_head:
+            x = self.forward(ids, return_hidden=True, reference=reference)
+            ce = (lm_head_cross_entropy_reference if reference
+                  else fused_lm_head_cross_entropy)
+            return ce(x, self.wte.embedding, labels).mean()
+        logits = self.forward(ids, reference=reference)
+        return vocab_parallel_cross_entropy(logits, labels).mean()
 
     @classmethod
     def init_params(cls, cfg: GPTConfig,

@@ -1,8 +1,9 @@
 """``FusedLayerNorm`` module of the port (``apex_tpu/normalization/
-fused_layer_norm.py``): fp32 ``weight``/``bias`` parameters, fp32
-statistics, output in ``dtype`` (default: the parameter dtype), through
+fused_layer_norm.py``): ``weight``/``bias`` parameters (fp32 unless
+``param_dtype`` or an amp cast says otherwise), fp32 statistics, output in
+``dtype`` (default: the parameter dtype), differentiable through
 :func:`apex_tpu_torch.ops.layer_norm.fused_layer_norm_affine` — the Triton
-kernel on CUDA, the plain version on the CPU."""
+forward and backward kernels on CUDA, the plain versions on the CPU."""
 
 from __future__ import annotations
 

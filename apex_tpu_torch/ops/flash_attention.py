@@ -1,13 +1,20 @@
-"""Flash-attention forward and paged decode attention: CUDA kernels beside
-their plain PyTorch versions.
+"""Flash attention (forward and backward) and paged decode attention: CUDA
+kernels beside their plain PyTorch versions.
 
-Port of ``apex_tpu/ops/flash_attention.py`` for the serve path:
+Port of ``apex_tpu/ops/flash_attention.py``:
 
-- :func:`flash_attention` — the prefill attention. On CUDA it launches
-  ``csrc/flash_fwd.cu``, which replaces the Pallas ``_fwd_kernel``
-  (``apex_tpu/ops/flash_attention.py:251``); on the CPU it is
-  :func:`mha_reference`. Forward only: the backward kernels, the additive
-  bias and in-kernel dropout come with the training slice.
+- :func:`flash_attention` — differentiable attention. On CUDA the forward
+  launches ``csrc/flash_fwd.cu``, which replaces the Pallas ``_fwd_kernel``
+  (``apex_tpu/ops/flash_attention.py:251``), and the backward
+  ``csrc/flash_bwd.cu``, which replaces the single-pass ``_bwd_fused_kernel``
+  (``:604``); on the CPU they are :func:`flash_attention_reference` and
+  :func:`flash_attention_bwd_reference` (the JAX ``_bwd_math``). The
+  additive bias runs through the plain version on the CPU and raises on
+  CUDA; in-kernel dropout is not ported yet. The two-kernel backward of
+  the JAX package (``_dkdv_kernel``/``_dq_kernel``, which it takes past
+  its 2 MB VMEM gate) is not ported yet; until it is, the single-pass
+  CUDA backward, which keeps no per-(b, h) state on chip, runs at every
+  length.
 - :func:`paged_decode_attention` — one query per sequence over the paged KV
   pool. On CUDA it launches ``csrc/paged_decode.cu``, which replaces the
   Pallas ``_paged_decode_kernel`` (``:986``); on the CPU it is
@@ -24,8 +31,9 @@ a negative segment id is padding — it matches nothing, not even another
 padding id — and its output row is exactly zero; causal attention aligns
 the sequence ends (``causal_offset = sk - sq``).
 
-``flash_attention.launches`` and ``paged_decode_attention.launches`` count
-kernel launches (the CPU path does not count).
+``flash_attention.launches`` (forward), ``flash_attention_bwd.launches``
+and ``paged_decode_attention.launches`` count kernel launches (the CPU path
+does not count).
 """
 
 from __future__ import annotations
@@ -94,6 +102,33 @@ def mha_reference(q, k, v, *, causal=False, segment_ids_q=None,
         q, k, v, causal=causal, segment_ids_q=segment_ids_q,
         segment_ids_kv=segment_ids_kv, scale=scale, bias=bias)
     return out
+
+
+def flash_attention_bwd_reference(q, k, v, out, lse, do, *, causal=False,
+                                  segment_ids_q=None, segment_ids_kv=None,
+                                  scale=None):
+    """Plain attention backward — the JAX ``_bwd_math`` operation for
+    operation: p from the saved ``lse`` (zero where masked), fp32 math,
+    ``(dq, dk, dv)`` in the input dtypes."""
+    d = q.shape[-1]
+    scale = d ** -0.5 if scale is None else scale
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    mask = _attention_mask(q.shape[2], k.shape[2], q.device, causal,
+                           segment_ids_q, segment_ids_kv)
+    if mask is None:
+        p = torch.exp(s - lse[..., None])
+    else:
+        s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
+        p = torch.where(mask, torch.exp(s - lse[..., None]),
+                        torch.zeros_like(s))
+    do32 = do.float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do32)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do32, v.float())
+    delta = (do32 * out.float()).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def paged_attention_reference(q, k_pages, v_pages, block_tables, seq_lens,
@@ -211,30 +246,121 @@ def flash_attention_fwd(q, k, v, segment_ids_q=None, segment_ids_kv=None,
                            scale)
 
 
+# apex_flash_bwd(q, k, v, do, lse, delta, sid_q, sid_kv, dq_acc, dk, dv, b,
+#                h, sq, sk, d, causal, scale, stream)
+_FLASH_BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_void_p]
+
+
+def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
+                    causal, scale):
+    what = "flash_attention_bwd kernel"
+    _require(q.dtype == torch.bfloat16, what,
+             f"takes bfloat16 operands, got {q.dtype}")
+    _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, what,
+             "q, k, v must be [b, h, s, d]")
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    _require(k.shape == (b, h, sk, d) and v.shape == k.shape
+             and out.shape == q.shape and do.shape == q.shape, what,
+             f"k {tuple(k.shape)} / v {tuple(v.shape)} / out / do do not "
+             f"match q {tuple(q.shape)}")
+    _require(d in _HEAD_DIMS, what, f"head dim {d} not in {_HEAD_DIMS}")
+    _check_cuda_operands(what, (("q", q), ("k", k), ("v", v), ("out", out),
+                                ("do", do)), torch.bfloat16, q.device)
+    _require(lse.shape == (b, h, sq), what, "lse must be [b, h, sq]")
+    _check_cuda_operands(what, (("lse", lse),), torch.float32, q.device)
+    if segment_ids_q is not None:
+        if segment_ids_kv is None:
+            _require(sq == sk, what, "segment_ids_kv is needed when sq != sk")
+            segment_ids_kv = segment_ids_q
+        _require(segment_ids_q.shape == (b, sq)
+                 and segment_ids_kv.shape == (b, sk), what,
+                 "segment ids must be [b, sq] and [b, sk]")
+        _check_cuda_operands(what, (("segment_ids_q", segment_ids_q),
+                                    ("segment_ids_kv", segment_ids_kv)),
+                             torch.int32, q.device)
+    # delta = rowsum(do * o) in fp32, outside the kernel as in the JAX
+    # package (_flash_bwd_impl)
+    delta = (do.float() * out.float()).sum(dim=-1)
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    fn = _build.function("flash_bwd", "apex_flash_bwd", _FLASH_BWD_ARGS)
+    err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
+             _ptr(segment_ids_q), _ptr(segment_ids_kv), _ptr(dq_acc),
+             _ptr(dk), _ptr(dv), b, h, sq, sk, d, int(bool(causal)),
+             float(scale), _stream(q))
+    _build.check(err, what)
+    flash_attention_bwd.launches += 1
+    return dq_acc.to(q.dtype), dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, segment_ids_q=None,
+                        segment_ids_kv=None, causal: bool = False,
+                        scale: Optional[float] = None):
+    """``(dq, dk, dv)`` of the attention from the forward's ``out`` and
+    ``lse``: the kernel on CUDA, :func:`flash_attention_bwd_reference` on
+    the CPU. ``flash_attention_bwd.launches`` counts kernel launches."""
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    if check_device_type(q, "flash_attention_bwd") == "cpu":
+        return flash_attention_bwd_reference(
+            q, k, v, out, lse, do, causal=causal,
+            segment_ids_q=segment_ids_q, segment_ids_kv=segment_ids_kv,
+            scale=scale)
+    return _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q,
+                           segment_ids_kv, causal, scale)
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Forward kernel + backward kernel as one differentiable op. Saves
+    ``(q, k, v, out, lse)`` and the segment ids; segment ids get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids_q, segment_ids_kv, causal, scale):
+        out, lse = flash_attention_fwd(q, k, v, segment_ids_q,
+                                       segment_ids_kv, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse, segment_ids_q,
+                              segment_ids_kv)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, sid_q, sid_kv = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                         sid_q, sid_kv, ctx.causal,
+                                         ctx.scale)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q, k, v, segment_ids_q=None, segment_ids_kv=None,
                     causal: bool = False, scale: Optional[float] = None,
                     bias=None, dropout_rate: float = 0.0, dropout_seed=None):
-    """Fused attention forward. Returns [b, h, sq, d] in ``q.dtype``.
+    """Fused attention, differentiable in ``q``, ``k`` and ``v``. Returns
+    [b, h, sq, d] in ``q.dtype``.
 
     ``segment_ids_*``: tokens attend only within equal non-negative ids;
     negative ids are padding and give zero rows. ``bias`` runs through the
-    plain version on the CPU and is not supported by the kernel yet;
-    ``dropout_rate > 0`` is not ported yet (training slice)."""
+    plain version on the CPU and is not supported by the kernels yet;
+    ``dropout_rate > 0`` is not ported yet."""
     if dropout_rate:
-        raise NotImplementedError("attention dropout is not ported yet "
-                                  "(training slice)")
+        raise NotImplementedError("attention dropout is not ported yet")
     if bias is not None:
         if check_device_type(q, "flash_attention") == "cuda":
             raise NotImplementedError("flash_attention: the additive bias "
-                                      "is not in the CUDA kernel yet "
-                                      "(training slice)")
+                                      "is not in the CUDA kernels yet")
         return mha_reference(q, k, v, causal=causal,
                              segment_ids_q=segment_ids_q,
                              segment_ids_kv=segment_ids_kv, scale=scale,
                              bias=bias)
-    out, _ = flash_attention_fwd(q, k, v, segment_ids_q, segment_ids_kv,
-                                 causal, scale)
-    return out
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    return FlashAttentionFunction.apply(q, k, v, segment_ids_q,
+                                        segment_ids_kv, bool(causal), scale)
 
 
 flash_attention.launches = 0

@@ -1,6 +1,7 @@
-"""Fused LayerNorm forward: a Triton kernel beside its plain PyTorch version.
+"""Fused LayerNorm, forward and backward: Triton kernels beside their plain
+PyTorch versions.
 
-Port of ``apex_tpu/ops/layer_norm.py``. The kernel replaces the Pallas
+Port of ``apex_tpu/ops/layer_norm.py``. The forward kernel replaces the Pallas
 ``_ln_fwd_kernel`` (``apex_tpu/ops/layer_norm.py:131``, launched by
 ``_ln_pallas_fwd``): one row LayerNorm with fp32 statistics and the affine
 epilogue, cast to ``out_dtype``.
@@ -15,10 +16,22 @@ dtype, so ``x`` crosses HBM once and no statistics are stored. Triton is
 used because the kernel is one reduction plus an elementwise epilogue; a
 CUDA version would move the same bytes with more code.
 
-The Pallas backward (``_ln_bwd_kernel``) belongs to the training slice.
+The backward kernel replaces the Pallas ``_ln_bwd_kernel`` (``:141``,
+launched by ``_ln_pallas_bwd`` ``:197``): ``dx`` and the dgamma/dbeta sums
+from one read of ``x`` and ``dy``. Bound: bytes — x, dy read and dx written
+once (3 x 16 MB in bf16 at the training shape [8192, 1024]), about 20
+flops per element. As the Pallas kernel does, it recomputes mean and
+invvar from ``x`` instead of saving them, so the autograd function keeps
+only ``(x, weight)``. The TPU kernel carries dgamma/dbeta across its
+sequential row grid in VMEM; GPU programs run in no order, so each program
+walks ``ROWS`` rows, keeps its dgamma/dbeta partial in fp32 registers and
+writes it to an ``[n_programs, h]`` fp32 buffer that a torch ``sum`` over
+the programs reduces (the second pass), then casts to the parameter dtype.
 
-Dispatch: a CUDA tensor launches the kernel (or raises), a CPU tensor takes
-:func:`fused_layer_norm_affine_reference`.
+Dispatch: a CUDA tensor launches the kernels (or raises), a CPU tensor
+takes :func:`fused_layer_norm_affine_reference` and
+:func:`layer_norm_bwd_reference`. :func:`fused_layer_norm_affine` is
+differentiable through :class:`FusedLayerNormAffineFunction`.
 """
 
 from __future__ import annotations
@@ -76,6 +89,40 @@ def _ln_fwd_body(X, W, B, Y, h, eps, BLOCK: "tl.constexpr"):
     tl.store(Y + row * h + cols, y.to(Y.dtype.element_ty), mask=live)
 
 
+def _ln_bwd_body(X, W, DY, DX, DWP, DBP, n, h, eps, ROWS: "tl.constexpr",
+                 BLOCK: "tl.constexpr"):
+    pid = tl.program_id(0)
+    cols = tl.arange(0, BLOCK)
+    live = cols < h
+    w = tl.load(W + cols, mask=live, other=0.0).to(tl.float32)
+    dw = tl.zeros([BLOCK], dtype=tl.float32)
+    db = tl.zeros([BLOCK], dtype=tl.float32)
+    for r in range(ROWS):
+        row = pid * ROWS + r
+        ok = live & (row < n)
+        off = row.to(tl.int64) * h
+        # rows past n load zeros: dy = 0 adds nothing to dgamma/dbeta
+        x = tl.load(X + off + cols, mask=ok, other=0.0).to(tl.float32)
+        dy = tl.load(DY + off + cols, mask=ok, other=0.0).to(tl.float32)
+        mean = tl.sum(x, axis=0) / h
+        xc = tl.where(live, x - mean, 0.0)
+        var = tl.sum(xc * xc, axis=0) / h
+        rstd = tl.math.rsqrt(var + eps)
+        xhat = xc * rstd
+        dxhat = dy * w
+        s1 = tl.sum(dxhat, axis=0)
+        s2 = tl.sum(dxhat * xhat, axis=0)
+        dx = (rstd / h) * (h * dxhat - s1 - xhat * s2)
+        tl.store(DX + off + cols, dx.to(DX.dtype.element_ty), mask=ok)
+        dw += dy * xhat
+        db += dy
+    tl.store(DWP + pid * h + cols, dw, mask=live)
+    tl.store(DBP + pid * h + cols, db, mask=live)
+
+
+_BWD_KERNEL = None
+
+
 def _kernel():
     global _KERNEL, tl
     if _KERNEL is None:
@@ -84,6 +131,15 @@ def _kernel():
         tl = triton.language
         _KERNEL = triton.jit(_ln_fwd_body)
     return _KERNEL
+
+
+def _bwd_kernel():
+    global _BWD_KERNEL
+    if _BWD_KERNEL is None:
+        import triton
+        _kernel()                         # binds ``tl``
+        _BWD_KERNEL = triton.jit(_ln_bwd_body)
+    return _BWD_KERNEL
 
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
@@ -95,9 +151,10 @@ def _ln_fwd_cuda(x, weight, bias, eps, out_dtype):
     if x.dtype not in _KERNEL_DTYPES or out_dtype not in _KERNEL_DTYPES:
         raise ValueError(f"fused_layer_norm_affine kernel: unsupported "
                          f"dtypes x={x.dtype} out={out_dtype}")
-    if weight.dtype != torch.float32 or bias.dtype != torch.float32:
+    if weight.dtype not in _KERNEL_DTYPES or bias.dtype not in _KERNEL_DTYPES:
         raise ValueError("fused_layer_norm_affine kernel: weight and bias "
-                         f"must be float32, got {weight.dtype}/{bias.dtype}")
+                         "must be float32, bfloat16 or float16, got "
+                         f"{weight.dtype}/{bias.dtype}")
     if weight.shape != (h,) or bias.shape != (h,):
         raise ValueError(f"weight/bias must be [{h}], got "
                          f"{tuple(weight.shape)}/{tuple(bias.shape)}")
@@ -124,15 +181,91 @@ def _ln_fwd_cuda(x, weight, bias, eps, out_dtype):
     return y
 
 
-def fused_layer_norm_affine(x, weight, bias, normalized_shape: Union[
-        int, Sequence[int]], eps=1e-5, out_dtype=None):
-    """Affine LayerNorm over the trailing ``normalized_shape`` axes.
-
-    CUDA: the Triton kernel (one trailing normalized axis, fp32 params).
-    CPU: :func:`fused_layer_norm_affine_reference`.
-    ``fused_layer_norm_affine.launches`` counts kernel launches."""
+def layer_norm_bwd_reference(x, weight, dy, normalized_shape, eps=1e-5,
+                             bias_dtype=None):
+    """Plain LayerNorm backward — the JAX ``_ln_bwd_affine`` operation for
+    operation, with mean and invvar recomputed from ``x``. Returns ``(dx
+    in x.dtype, dweight in weight.dtype, dbias in bias_dtype)``."""
     shape = _check_shape(x, normalized_shape)
-    out_dtype = weight.dtype if out_dtype is None else out_dtype
+    bias_dtype = weight.dtype if bias_dtype is None else bias_dtype
+    axes = tuple(range(x.dim() - len(shape), x.dim()))
+    x32 = x.float()
+    dy32 = dy.float()
+    mean = x32.mean(dim=axes, keepdim=True)
+    var = (x32 - mean).square().mean(dim=axes, keepdim=True)
+    invvar = torch.rsqrt(var + eps)
+    xhat = (x32 - mean) * invvar
+    dxhat = dy32 * weight.float()
+    n = 1
+    for a in axes:
+        n *= x.shape[a]
+    s1 = dxhat.sum(dim=axes, keepdim=True)
+    s2 = (dxhat * xhat).sum(dim=axes, keepdim=True)
+    dx = (invvar / n) * (n * dxhat - s1 - xhat * s2)
+    red = tuple(range(x.dim() - len(shape)))
+    dw = (dy32 * xhat).sum(dim=red)
+    db = dy32.sum(dim=red)
+    return dx.to(x.dtype), dw.to(weight.dtype), db.to(bias_dtype)
+
+
+def _ln_bwd_cuda(x, weight, dy, eps, bias_dtype):
+    h = x.shape[-1]
+    what = "layer_norm_bwd kernel"
+    for name, t in (("x", x), ("dy", dy), ("weight", weight)):
+        if t.dtype not in _KERNEL_DTYPES:
+            raise ValueError(f"{what}: unsupported dtype {name}={t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{what}: {name} lies on {t.device}, expected "
+                             f"{x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    if dy.shape != x.shape or weight.shape != (h,):
+        raise ValueError(f"{what}: dy {tuple(dy.shape)} / weight "
+                         f"{tuple(weight.shape)} do not match x "
+                         f"{tuple(x.shape)}")
+    if h > _MAX_H:
+        raise ValueError(f"{what}: h={h} exceeds {_MAX_H}")
+    n = x.numel() // h
+    dx = torch.empty_like(x)
+    # ~512 programs: each walks ROWS rows and keeps one fp32 partial row
+    rows = min(64, 1 << max(0, (-(-n // 512) - 1).bit_length()))
+    n_prog = max(1, -(-n // rows))
+    dwp = torch.empty((n_prog, h), dtype=torch.float32, device=x.device)
+    dbp = torch.empty((n_prog, h), dtype=torch.float32, device=x.device)
+    if n == 0:
+        dwp.zero_()
+        dbp.zero_()
+    else:
+        block = 1 << (h - 1).bit_length()
+        warps = max(1, min(16, block // 256))
+        _bwd_kernel()[(n_prog,)](x, weight, dy, dx, dwp, dbp, n, h,
+                                 float(eps), ROWS=rows, BLOCK=block,
+                                 num_warps=warps)
+        layer_norm_bwd.launches += 1
+    # the second pass over the programs' partials
+    return dx, dwp.sum(0).to(weight.dtype), dbp.sum(0).to(bias_dtype)
+
+
+def layer_norm_bwd(x, weight, dy, normalized_shape, eps=1e-5,
+                   bias_dtype=None):
+    """``(dx, dweight, dbias)`` of the affine LayerNorm: the Triton kernel
+    on CUDA (one trailing normalized axis), :func:`layer_norm_bwd_reference`
+    on the CPU. ``layer_norm_bwd.launches`` counts kernel launches."""
+    shape = _check_shape(x, normalized_shape)
+    bias_dtype = weight.dtype if bias_dtype is None else bias_dtype
+    if check_device_type(x, "layer_norm_bwd") == "cpu":
+        return layer_norm_bwd_reference(x, weight, dy, shape, eps,
+                                        bias_dtype)
+    if len(shape) != 1:
+        raise ValueError("layer_norm_bwd kernel normalizes one trailing "
+                         f"axis, got normalized_shape={shape}")
+    return _ln_bwd_cuda(x, weight, dy, eps, bias_dtype)
+
+
+layer_norm_bwd.launches = 0
+
+
+def _ln_fwd(x, weight, bias, shape, eps, out_dtype):
     if check_device_type(x, "fused_layer_norm_affine") == "cpu":
         return fused_layer_norm_affine_reference(x, weight, bias, shape, eps,
                                                  out_dtype)
@@ -140,6 +273,39 @@ def fused_layer_norm_affine(x, weight, bias, normalized_shape: Union[
         raise ValueError("fused_layer_norm_affine kernel normalizes one "
                          f"trailing axis, got normalized_shape={shape}")
     return _ln_fwd_cuda(x, weight, bias, eps, out_dtype)
+
+
+class FusedLayerNormAffineFunction(torch.autograd.Function):
+    """The forward kernel and the backward kernel as one differentiable
+    op. Saves ``(x, weight)``; the backward recomputes the statistics."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, shape, eps, out_dtype):
+        ctx.save_for_backward(x, weight)
+        ctx.shape, ctx.eps, ctx.bias_dtype = shape, eps, bias.dtype
+        return _ln_fwd(x, weight, bias, shape, eps, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        dx, dw, db = layer_norm_bwd(x, weight, dy.contiguous(), ctx.shape,
+                                    ctx.eps, ctx.bias_dtype)
+        return dx, dw, db, None, None, None
+
+
+def fused_layer_norm_affine(x, weight, bias, normalized_shape: Union[
+        int, Sequence[int]], eps=1e-5, out_dtype=None):
+    """Affine LayerNorm over the trailing ``normalized_shape`` axes,
+    differentiable in ``x``, ``weight`` and ``bias``.
+
+    CUDA: the Triton kernels (one trailing normalized axis; params in
+    fp32, bf16 or fp16). CPU: the plain versions.
+    ``fused_layer_norm_affine.launches`` counts forward launches,
+    ``layer_norm_bwd.launches`` backward ones."""
+    shape = _check_shape(x, normalized_shape)
+    out_dtype = weight.dtype if out_dtype is None else out_dtype
+    return FusedLayerNormAffineFunction.apply(x, weight, bias, shape,
+                                              float(eps), out_dtype)
 
 
 fused_layer_norm_affine.launches = 0

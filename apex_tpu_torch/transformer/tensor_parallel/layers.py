@@ -5,10 +5,14 @@ The parameters keep the JAX package's layouts, so trees carry across
 unchanged: linear ``kernel`` is stored ``[in, out]`` and applied as
 ``x @ kernel`` (not ``nn.Linear``'s ``[out, in]``), the embedding table is
 ``[V, h]`` and tied to the LM head through :meth:`VocabParallelEmbedding.
-attend`. Parameters are fp32; a forward computes in the activation dtype
-(``kernel.to(x.dtype)``), so a bf16 activation gets a bf16 product with
-fp32 accumulation, rounded to bf16 — the JAX layers' ``jnp.dot(x,
-W.astype(x.dtype), preferred_element_type=f32).astype(x.dtype)``.
+attend` (and through the fused LM-head loss, which reads ``embedding``), so
+its gradient sums the lookup's and the head's. Parameters are created fp32
+(amp O2 casts them to bf16 in place); a forward computes in the activation
+dtype (``kernel.to(x.dtype)``, a no-op once cast), so a bf16 activation
+gets a bf16 product with fp32 accumulation, rounded to bf16 — the JAX
+layers' ``jnp.dot(x, W.astype(x.dtype), preferred_element_type=f32)
+.astype(x.dtype)``. Every layer is differentiable by autograd as it
+stands.
 
 Modules are built on ``device`` (default CUDA, which raises without a GPU).
 Tensor parallelism (world > 1, sequence parallel, the comms overlap) is a

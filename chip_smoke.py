@@ -12,13 +12,13 @@ Phases (any failure exits non-zero; no phase's error is caught):
 1. set-up — build the CUDA kernels from ``apex_tpu_torch/csrc`` (one
    ``nvcc`` per source, started together), turn TF32 off, print the card's
    name and power limit;
-2. kernels — each kernel's wrapper at the serve path's shapes against its
+2. kernels — each kernel's wrapper at its main path's shapes against its
    plain version on the same inputs, with the tolerance stated beside each
    check, timed with CUDA events (L2 flushed before every launch) beside
    its plain version, a PyTorch library call where one computes the same
    function, and its bound (the least time for its bytes at 3.35 TB/s or
    its operations at 989 TFLOP/s bf16, whichever is larger);
-3. main path — ``ServeEngine`` serves 16 requests (prompts of 64-512
+3. serve path — ``ServeEngine`` serves 16 requests (prompts of 64-512
    tokens, 64 new tokens each) through the 12-layer h1024 GPT
    (``bench.py``'s ``_bench_gpt`` shape, random weights from seed 0) with
    the launch counters reset just before; asserts every request's length,
@@ -26,7 +26,23 @@ Phases (any failure exits non-zero; no phase's error is caught):
    number of times; prints prefill and decode times;
 4. teacher-forced check — for two finished requests, the no-cache forward
    through the plain versions of every kernel, over prompt + generated
-   tokens, against the engine's recorded logits.
+   tokens, against the engine's recorded logits;
+5. train path — the same GPT trained at O2 (bf16 model, fp32 master
+   weights, dynamic loss scale) with ``FusedAdam`` through
+   ``amp.make_train_step`` on one fixed b8 s1024 batch: a warm-up step,
+   then 8 timed steps with the launch counters reset just before; asserts
+   the losses are finite and fall, the scale never moved and each kernel's
+   launches per step; prints step-time median, p90 and tokens/s;
+6. gradient check — from the same initial parameters, the loss and every
+   parameter's gradient through the kernels against
+   ``GPT.loss(reference=True)`` (the plain versions, differentiated by
+   autograd);
+7. overflow — one step whose gradients overflow fp32 leaves the master
+   weights, the moments and the step counter bitwise unchanged and halves
+   the scale;
+8. trace — ``torch.profiler`` over decode steps, prefills and train steps,
+   and the train step's device time by phase (forward + backward, unscale,
+   optimizer, scaler update) from CUDA events.
 
 The second-last line of standard output is the card as ``nvidia-smi``
 names it, the line before it the kernels' JSON record, and the last line
@@ -84,6 +100,24 @@ def bound(flops: float, nbytes: float):
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def grad_err(got, ref, what: str, floor_frac: float = 0.02,
+             norm_tol: float = 1e-2) -> float:
+    """Two bf16 ulps of ``ref`` plus ``floor_frac`` of its largest value
+    element-wise, and ``norm_tol`` in relative norm. The backward kernels
+    round p, ds (flash) and the softmax gradient tile (LM-head CE) to bf16
+    before their products, as the TPU kernels do, where the plain versions
+    keep fp32; the flash dq sums with atomics in a varying order."""
+    got, ref = got.float(), ref.float()
+    diff = (got - ref).abs()
+    floor = floor_frac * ref.abs().max().item() + 1e-12
+    check(bool((diff <= ref.abs() * 2.0 ** -6 + floor).all()),
+          f"{what}: beyond two bf16 ulps + {floor:.3g} (max err "
+          f"{diff.max().item()})")
+    rel = (diff.norm() / ref.norm().clamp_min(1e-30)).item()
+    check(rel <= norm_tol, f"{what}: relative norm error {rel} > {norm_tol}")
+    return diff.max().item()
 
 
 class Timer:
@@ -169,6 +203,29 @@ def check_flash(torch, timer):
     flops = 4.0 * b * h * d * pairs
     nbytes = 4 * b * h * s * d * 2 + b * h * s * 4 + b * s * 4
     t_bound, by = bound(flops, nbytes)
+
+    # the train path's shape: b8 h16 s1024 causal, no segment ids
+    tb, ts = 8, 1024
+    tq, tk, tv = (rand(tb, h, ts, d) for _ in range(3))
+    tout, tlse = fa.flash_attention_fwd(tq, tk, tv, None, None, True, scale)
+    tref, tref_lse = fa.flash_attention_reference(tq, tk, tv, causal=True,
+                                                  scale=scale)
+    torch.cuda.synchronize()
+    t_err = bf16_err(tout, tref, 4e-3, "flash train shape")
+    check((tlse - tref_lse).abs().max().item() <= 1e-3, "flash train lse")
+    del tout, tref, tlse, tref_lse
+    t_pairs = tb * h * ts * (ts + 1) // 2
+    tb_ms, tb_by = bound(4.0 * d * t_pairs, 4 * tb * h * ts * d * 2
+                         + tb * h * ts * 4)
+    train_shape = dict(
+        shape=f"b{tb} h{h} s{ts} d{d} causal", max_abs_err=t_err,
+        ms=timer(lambda: fa.flash_attention_fwd(tq, tk, tv, None, None, True,
+                                                scale)),
+        plain_ms=timer(lambda: fa.flash_attention_reference(
+            tq, tk, tv, causal=True, scale=scale), iters=10),
+        library_ms=timer(lambda: F.scaled_dot_product_attention(
+            tq, tk, tv, is_causal=True, scale=scale)),
+        bound_ms=tb_ms, bound_by=tb_by)
     return dict(name="flash_fwd", route="cuda",
                 source="apex_tpu_torch/csrc/flash_fwd.cu",
                 replaces="apex_tpu/ops/flash_attention.py:251",
@@ -179,7 +236,7 @@ def check_flash(torch, timer):
                 ms=ms, plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
                 library_ms=lib_ms,
                 library="F.scaled_dot_product_attention(is_causal=True), "
-                        "no segment ids")
+                        "no segment ids", train_shape=train_shape)
 
 
 def _paged_inputs(torch, gen, b, kv, g, d, page, m, num_pages, seq_lens):
@@ -248,7 +305,11 @@ def check_layer_norm(torch, timer):
     w = 1 + 0.1 * torch.randn(h, generator=gen, device="cuda")
     bb = 0.1 * torch.randn(h, generator=gen, device="cuda")
     shapes = []
-    for n in (8, 512):
+    # decode (n8) and prefill (n512) with fp32 params; the O2 train path
+    # (n8192) with the bf16 params amp's cast gives it
+    for n, p_dtype in ((8, torch.float32), (512, torch.float32),
+                       (8192, torch.bfloat16)):
+        w, bb = w.to(p_dtype), bb.to(p_dtype)
         x = torch.randn(n, h, generator=gen, device="cuda",
                         dtype=torch.bfloat16)
         y = ln.fused_layer_norm_affine(x, w, bb, (h,), 1e-5, torch.bfloat16)
@@ -266,16 +327,18 @@ def check_layer_norm(torch, timer):
             x, w, bb, (h,), 1e-5, torch.bfloat16))
         wb, bbb = w.to(torch.bfloat16), bb.to(torch.bfloat16)
         lib_ms = timer(lambda: F.layer_norm(x, (h,), wb, bbb, 1e-5))
-        nbytes = 2 * n * h * 2 + 2 * h * 4
+        nbytes = 2 * n * h * 2 + 2 * h * w.element_size()
         t_bound, by = bound(10.0 * n * h, nbytes)
-        shapes.append(dict(n=n, h=h, max_abs_err=err, ms=ms,
+        shapes.append(dict(n=n, h=h, params=str(p_dtype), max_abs_err=err,
+                           ms=ms,
                            plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
                            library_ms=lib_ms))
-    main = shapes[-1]                      # the prefill shape, n = 512
+    main = shapes[1]                       # the prefill shape, n = 512
     return dict(name="layer_norm_fwd", route="triton",
                 source="apex_tpu_torch/ops/layer_norm.py",
                 replaces="apex_tpu/ops/layer_norm.py:131",
-                shape=f"n512 h{h} bf16 in/out, fp32 params",
+                shape=f"n512 h{h} bf16 in/out, fp32 params (by_shape: n8, "
+                      "and n8192 with bf16 params as on the train path)",
                 max_abs_err=max(s["max_abs_err"] for s in shapes),
                 tolerance="one bf16 ulp", ms=main["ms"],
                 plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
@@ -284,8 +347,193 @@ def check_layer_norm(torch, timer):
                 by_shape=shapes)
 
 
+def _grad_of(torch, fn, inputs, dout):
+    """A closure timing the autograd backward of ``fn(*inputs)`` (the
+    forward runs once, outside the timed call)."""
+    ins = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*ins)
+    return lambda: torch.autograd.grad(out, ins, dout, retain_graph=True)
+
+
+def check_flash_bwd(torch, timer):
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    # segment ids with padding rows, at the training width
+    b, h, s, d, live = 2, 16, 1024, 64, 700
+    q, k, v, do = (rand(b, h, s, d) for _ in range(4))
+    sid = torch.where(torch.arange(s, device="cuda") < live, 0, -1)
+    sid = sid.to(torch.int32)[None].expand(b, s).contiguous()
+    out, lse = fa.flash_attention_fwd(q, k, v, sid, None, True)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, do, sid, None,
+                                        True)
+    ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                           causal=True, segment_ids_q=sid)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        grad_err(g, r, f"flash_bwd segments {name}")
+    check(dq[:, :, live:].abs().max().item() == 0.0,
+          "flash_bwd: padding rows got a nonzero dq")
+
+    # the training path's shape: b8 h16 s1024 d64 causal
+    b = 8
+    q, k, v, do = (rand(b, h, s, d) for _ in range(4))
+    scale = d ** -0.5
+    out, lse = fa.flash_attention_fwd(q, k, v, None, None, True, scale)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, None, None, True,
+                                 scale)
+    ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                           causal=True, scale=scale)
+    torch.cuda.synchronize()
+    err = max(grad_err(g, r, f"flash_bwd {n}")
+              for n, g, r in zip(("dq", "dk", "dv"), got, ref))
+    del got, ref
+    ms = timer(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, None,
+                                              None, True, scale))
+    plain_ms = timer(lambda: fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, do, causal=True, scale=scale), iters=10)
+    lib_ms = timer(_grad_of(torch, lambda a, b_, c: (
+        F.scaled_dot_product_attention(a, b_, c, is_causal=True,
+                                       scale=scale)), (q, k, v), do))
+    pairs = s * (s + 1) // 2
+    flops = 5 * 2.0 * b * h * d * pairs          # s, dp, dv, dk, dq
+    nbytes = 8 * b * h * s * d * 2 + 2 * b * h * s * 4
+    t_bound, by = bound(flops, nbytes)
+    return dict(name="flash_bwd", route="cuda",
+                source="apex_tpu_torch/csrc/flash_bwd.cu",
+                replaces="apex_tpu/ops/flash_attention.py:604",
+                shape=f"b{b} h{h} s{s} d{d} bf16 causal (also b2 with "
+                      f"segment ids, padding from {live})",
+                max_abs_err=err,
+                tolerance="2 bf16 ulp + 2% of max, 1% relative norm",
+                ms=ms, plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
+                library_ms=lib_ms,
+                library="backward of F.scaled_dot_product_attention("
+                        "is_causal=True)")
+
+
+def check_layer_norm_bwd(torch, timer):
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import layer_norm as ln
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    n, h = 8192, 1024
+    x = torch.randn(n, h, generator=gen, device="cuda").to(torch.bfloat16)
+    dy = torch.randn(n, h, generator=gen, device="cuda").to(torch.bfloat16)
+    errs = []
+    for p_dtype in (torch.float32, torch.bfloat16):
+        w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(
+            p_dtype)
+        got = ln.layer_norm_bwd(x, w, dy, (h,), 1e-5, p_dtype)
+        ref = ln.layer_norm_bwd_reference(x, w, dy, (h,), 1e-5, p_dtype)
+        torch.cuda.synchronize()
+        # dx: fp32 math on both sides, one rounding to bf16 (one ulp);
+        # dgamma/dbeta: fp32 sums over 8192 rows in another order
+        d = (got[0].float() - ref[0].float()).abs()
+        check(bool((d <= ref[0].float().abs() * 2.0 ** -7 + 1e-6).all()),
+              f"LN bwd dx beyond one bf16 ulp (max err {d.max().item()})")
+        for name, g, r in zip(("dw", "db"), got[1:], ref[1:]):
+            ulp = 2.0 ** -7 if p_dtype == torch.bfloat16 else 0.0
+            d = (g.float() - r.float()).abs()
+            tol = r.float().abs() * ulp + 1e-4 * r.float().abs().max().item()
+            check(bool((d <= tol).all()),
+                  f"LN bwd {name} ({p_dtype}) max err {d.max().item()}")
+        errs.append(max((a.float() - b.float()).abs().max().item()
+                        for a, b in zip(got, ref)))
+    # w is the bf16 weight of the O2 main path from here on
+    b_ = torch.zeros(h, device="cuda", dtype=torch.bfloat16)
+    ms = timer(lambda: ln.layer_norm_bwd(x, w, dy, (h,), 1e-5))
+    plain_ms = timer(lambda: ln.layer_norm_bwd_reference(x, w, dy, (h,),
+                                                         1e-5))
+    lib_ms = timer(_grad_of(torch, lambda a, ww, bb: F.layer_norm(
+        a, (h,), ww, bb, 1e-5), (x, w, b_), dy))
+    nbytes = 3 * n * h * 2 + 3 * h * 2
+    t_bound, by = bound(20.0 * n * h, nbytes)
+    return dict(name="layer_norm_bwd", route="triton",
+                source="apex_tpu_torch/ops/layer_norm.py",
+                replaces="apex_tpu/ops/layer_norm.py:141",
+                shape=f"n{n} h{h} bf16 x/dy, bf16 params (and fp32 params)",
+                max_abs_err=max(errs),
+                tolerance="dx one bf16 ulp; dgamma/dbeta one ulp + 1e-4 of "
+                          "max",
+                ms=ms, plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
+                library_ms=lib_ms,
+                library="backward of F.layer_norm (bf16 w/b)")
+
+
+def check_lm_head_ce(torch, timer):
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import lm_head_ce as ce
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    n, V, h = 8192, 32768, 1024
+    x = torch.randn(n, h, generator=gen, device="cuda").to(torch.bfloat16)
+    e = (0.02 * torch.randn(V, h, generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    tgt = torch.randint(0, V, (n,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    dl = torch.full((n,), 1.0 / n, device="cuda")
+    fwd_err, bwd_err = 0.0, 0.0
+    for ls in (0.0, 0.1):
+        got = ce.lm_head_ce_fwd(x, e, tgt, ls > 0)
+        ref = ce.lm_head_ce_fwd_reference(x, e, tgt, ls > 0)
+        torch.cuda.synchronize()
+        # fp32 sums of the same exact products in another order
+        for name, a, r in zip(("m", "l", "pred", "ssum"), got, ref):
+            if r is None:
+                continue
+            err = (a - r).abs().max().item()
+            check(err <= 1e-4 * (r.abs().max().item() + 1.0),
+                  f"CE fwd {name} (ls {ls}) max err {err}")
+            fwd_err = max(fwd_err, err)
+        m, l = ref[0], ref[1]
+        dx, de = ce.lm_head_ce_bwd(x, e, tgt, m, l, dl, ls)
+        rx, re = ce.lm_head_ce_bwd_reference(x, e, tgt, m, l, dl, ls)
+        torch.cuda.synchronize()
+        bwd_err = max(bwd_err, grad_err(dx, rx, f"CE bwd dx (ls {ls})"),
+                      grad_err(de, re, f"CE bwd dE (ls {ls})"))
+        del got, ref, dx, de, rx, re
+    m, l, _, _ = ce.lm_head_ce_fwd_reference(x, e, tgt)
+    fwd_ms = timer(lambda: ce.lm_head_ce_fwd(x, e, tgt), iters=10)
+    fwd_plain = timer(lambda: ce.lm_head_ce_fwd_reference(x, e, tgt),
+                      iters=10)
+    fwd_lib = timer(lambda: F.cross_entropy(F.linear(x, e).float(),
+                                            tgt.long()), iters=10)
+    bwd_ms = timer(lambda: ce.lm_head_ce_bwd(x, e, tgt, m, l, dl), iters=10)
+    bwd_plain = timer(lambda: ce.lm_head_ce_bwd_reference(
+        x, e, tgt, m, l, dl), iters=5)
+    bwd_lib = timer(_grad_of(torch, lambda a, w: F.cross_entropy(
+        F.linear(a, w).float(), tgt.long()), (x, e),
+        torch.ones((), device="cuda")), iters=10)
+    prod = 2.0 * n * V * h
+    io = n * h * 2 + V * h * 2 + n * 4
+    fb, fby = bound(prod, io + 4 * n * 4)
+    bb, bby = bound(3 * prod, io + 3 * n * 4 + V * h * 2 + n * h * 2)
+    common = dict(route="cuda", source="apex_tpu_torch/csrc/lm_head_ce.cu",
+                  shape=f"n{n} V{V} h{h} bf16 x/E, int32 targets; label "
+                        "smoothing 0 and 0.1 checked")
+    return [
+        dict(name="lm_head_ce_fwd", replaces="apex_tpu/ops/lm_head_ce.py:162",
+             max_abs_err=fwd_err, tolerance="1e-4 of max (fp32 stats)",
+             ms=fwd_ms, plain_ms=fwd_plain, bound_ms=fb, bound_by=fby,
+             library_ms=fwd_lib,
+             library="two calls: F.linear then F.cross_entropy on fp32 "
+                     "logits", **common),
+        dict(name="lm_head_ce_bwd", replaces="apex_tpu/ops/lm_head_ce.py:198",
+             max_abs_err=bwd_err,
+             tolerance="2 bf16 ulp + 2% of max, 1% relative norm",
+             ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bb, bound_by=bby,
+             library_ms=bwd_lib,
+             library="autograd backward of F.linear + F.cross_entropy",
+             passes_per_launch=2, **common),
+    ]
+
+
 # ---------------------------------------------------------------------------
-# main path
+# serve path
 # ---------------------------------------------------------------------------
 
 N_REQUESTS, N_NEW = 16, 64
@@ -308,9 +556,23 @@ def make_engine(cfg, params):
 def counters():
     from apex_tpu_torch.ops import flash_attention as fa
     from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.ops import lm_head_ce as ce
     return {"flash_fwd": fa.flash_attention,
             "paged_decode": fa.paged_decode_attention,
-            "layer_norm_fwd": ln.fused_layer_norm_affine}
+            "layer_norm_fwd": ln.fused_layer_norm_affine,
+            "flash_bwd": fa.flash_attention_bwd,
+            "layer_norm_bwd": ln.layer_norm_bwd,
+            "lm_head_ce_fwd": ce.lm_head_ce_fwd,
+            "lm_head_ce_bwd": ce.lm_head_ce_bwd}
+
+
+def reset_counters():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counters():
+    return {k: fn.launches for k, fn in counters().items()}
 
 
 def run_main_path(torch, cfg, params):
@@ -327,13 +589,12 @@ def run_main_path(torch, cfg, params):
     lens = rng.randint(64, 513, size=N_REQUESTS)
     prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist() for n in lens]
     ids = [eng.add_request(p, N_NEW) for p in prompts]
-    for fn in counters().values():
-        fn.launches = 0
+    reset_counters()
     t0 = time.perf_counter()
     out = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters().items()}
+    launches = read_counters()
 
     check(all(len(out[i]) == N_NEW for i in ids),
           "a request did not return 64 tokens")
@@ -346,11 +607,14 @@ def run_main_path(torch, cfg, params):
     n_decode = len(eng.decode_step_times)
     check(n_prefill == N_REQUESTS, f"{n_prefill} prefills")
     expect = {"flash_fwd": 12 * n_prefill, "paged_decode": 12 * n_decode,
-              "layer_norm_fwd": 25 * (n_prefill + n_decode)}
+              "layer_norm_fwd": 25 * (n_prefill + n_decode),
+              "flash_bwd": 0, "layer_norm_bwd": 0, "lm_head_ce_fwd": 0,
+              "lm_head_ce_bwd": 0}
     for k in expect:
         check(launches[k] == expect[k],
               f"{k}: {launches[k]} launches, expected {expect[k]}")
-        check(launches[k] > 0, f"{k} never launched on the main path")
+    for k in ("flash_fwd", "paged_decode", "layer_norm_fwd"):
+        check(launches[k] > 0, f"{k} never launched on the serve path")
 
     full = [t for t, n in zip(eng.decode_step_times, eng.decode_step_sizes)
             if n == eng.max_batch]
@@ -407,11 +671,246 @@ TF_TOL = 0.1
 TF_TIE = 2 * TF_TOL
 
 
-def trace(torch, cfg, params):
-    """torch.profiler over 4 steady decode steps at batch 8 and over one
-    prefill: device time by kernel and the device-busy share of the wall
-    time (``None`` when the profiler records no device time)."""
+# ---------------------------------------------------------------------------
+# train path
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS, LR = 8, 1024, 8, 3e-4
+TRAIN_PER_STEP = {"flash_fwd": 12, "flash_bwd": 12, "layer_norm_fwd": 25,
+                  "layer_norm_bwd": 25, "lm_head_ce_fwd": 1,
+                  "lm_head_ce_bwd": 1, "paged_decode": 0}
+
+
+def train_batch(torch, cfg):
+    ids = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (TRAIN_B, TRAIN_S)).astype(np.int64)
+    ids = torch.from_numpy(ids).cuda()
+    return ids, torch.roll(ids, -1, dims=1)
+
+
+def o2_setup(torch, cfg):
+    """The O2 recipe: init -> amp.initialize -> cast_params -> opt.init ->
+    make_train_step."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models.gpt import GPT
+    from apex_tpu_torch.optimizers import FusedAdam
+    model = GPT.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cuda")
+    amp_model, opt = amp.initialize(model, FusedAdam(lr=LR), opt_level="O2",
+                                    loss_scale="dynamic", verbosity=0)
+    amp_model.cast_params()
+    state = opt.init(model.parameters())
+    step = amp.make_train_step(lambda m, i, l: m.loss(i, l), opt)
+    return model, opt, state, step
+
+
+def run_train_path(torch, cfg):
+    model, opt, state, step = o2_setup(torch, cfg)
+    ids, labels = train_batch(torch, cfg)
+    sstate = opt._scaler.state
+    # warm-up: cuBLAS handles and Triton's compiles stay out of the count
+    _, state, sstate, _ = step(model, state, sstate, ids, labels)
+    torch.cuda.synchronize()
+    scale0 = float(sstate.loss_scale)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    reset_counters()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        _, state, sstate, loss = step(model, state, sstate, ids, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    launches = read_counters()
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"non-finite train loss: {losses}")
+    check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
+    check(float(sstate.loss_scale) == scale0 == 2.0 ** 16,
+          "the loss scale moved (an overflow) during the timed steps")
+    for k, per in TRAIN_PER_STEP.items():
+        check(launches[k] == per * TRAIN_STEPS,
+              f"train {k}: {launches[k]} launches, expected "
+              f"{per * TRAIN_STEPS}")
+    ms = [1e3 * t for t in times]
+    stats = dict(steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+                 losses=losses, warmup_loss_scale=scale0,
+                 step_ms_median=float(np.median(ms)),
+                 step_ms_p90=float(np.percentile(ms, 90)),
+                 step_ms_all=ms,
+                 tokens_per_s=TRAIN_B * TRAIN_S / (np.median(ms) / 1e3),
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 launches=launches)
+    return model, opt, state, sstate, step, stats
+
+
+def step_phases(torch, cfg, model, opt, state, sstate, reps=3):
+    """Device time of each phase of the train step, by CUDA events around
+    the functions ``make_train_step`` calls, called one by one in its
+    order: forward + backward of the scaled loss, unscale (gradient
+    concatenation, overflow check, multiply), the optimizer step on the
+    flat buffer, the scaler update. Median of ``reps``; returns the phase
+    times and the state after them."""
+    from apex_tpu_torch.amp import scaler as scaler_mod
+    ids, labels = train_batch(torch, cfg)
+    params = [p for g in opt.param_groups for p in g["params"]]
+    names = ("forward_backward", "unscale", "optimizer", "scaler_update")
+    ms = {k: [] for k in names}
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        scaler_mod.scale_value(model.loss(ids, labels), sstate).backward()
+        ev[1].record()
+        g32, found_inf = scaler_mod.unscale(
+            [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params], sstate)
+        for p in params:
+            p.grad = None
+        ev[2].record()
+        state = opt.apply_flat(state, g32, skip=found_inf)
+        ev[3].record()
+        sstate = opt._scaler.update_state(sstate, found_inf)
+        ev[4].record()
+        torch.cuda.synchronize()
+        for i, k in enumerate(names):
+            ms[k].append(ev[i].elapsed_time(ev[i + 1]))
+    return {k: float(np.median(v)) for k, v in ms.items()}, state, sstate
+
+
+# loss through the kernels vs the plain versions, same bf16 params: the
+# kernels round p (flash) at the same points as the plain forward; only
+# summation order differs, through 12 layers. Measured on the H100 at
+# full size: 10.60548 vs 10.60557, a gap of 9e-5 (PERF.md).
+GRAD_LOSS_TOL = 1e-3
+# per-parameter relative norm of the gradient difference: the backward
+# kernels round p, ds and the softmax-gradient tile to bf16 before their
+# products (the plain versions, differentiated by autograd, keep fp32).
+# Measured on the H100 at full size: worst 1.26 %, median 0.90 %.
+GRAD_NORM_TOL = 3e-2
+
+
+def grad_check(torch, cfg):
+    model, _, _, _ = o2_setup(torch, cfg)
+    ids, labels = train_batch(torch, cfg)
+    params = list(model.named_parameters())
+    loss = model.loss(ids, labels)
+    grads = torch.autograd.grad(loss, [p for _, p in params])
+    ref_loss = model.loss(ids, labels, reference=True)
+    ref = torch.autograd.grad(ref_loss, [p for _, p in params])
+    loss, ref_loss = loss.detach(), ref_loss.detach()
+    dloss = abs(float(loss) - float(ref_loss))
+    check(dloss <= GRAD_LOSS_TOL, f"loss kernels {float(loss)} vs plain "
+          f"{float(ref_loss)}")
+    worst = []
+    for (name, _), g, r in zip(params, grads, ref):
+        rel = ((g.float() - r.float()).norm()
+               / r.float().norm().clamp_min(1e-30)).item()
+        worst.append((rel, name))
+        check(rel <= GRAD_NORM_TOL, f"grad {name}: relative norm error {rel}")
+    worst.sort(reverse=True)
+    return dict(layers=cfg.num_layers, loss_kernels=float(loss),
+                loss_plain=float(ref_loss), loss_abs_diff=dloss,
+                params=len(params), worst_rel_norm=worst[:5],
+                median_rel_norm=float(np.median([w for w, _ in worst])))
+
+
+def overflow_check(torch, cfg, model, opt, state, sstate):
+    """One step whose gradients overflow: the loss times 1e38 (the
+    overflow factory of tests/test_amp.py), so loss * scale and the
+    gradient seed overflow fp32 and every gradient is inf or nan."""
+    from apex_tpu_torch import amp
+    ids, labels = train_batch(torch, cfg)
+    big = amp.make_train_step(lambda m, i, l: m.loss(i, l) * 1e38, opt)
+    g = state.groups[0]
+    before = (g.master.clone(), {k: v.clone() for k, v in g.slots.items()},
+              int(g.step), [p.detach().clone() for p in model.parameters()])
+    scale0 = float(sstate.loss_scale)
+    _, state2, sstate2, loss = big(model, state, sstate, ids, labels)
+    torch.cuda.synchronize()
+    g2 = state2.groups[0]
+    check(torch.equal(g2.master, before[0]), "overflow: master changed")
+    for k, v in before[1].items():
+        check(torch.equal(g2.slots[k], v), f"overflow: {k} changed")
+    check(int(g2.step) == before[2], "overflow: step counter moved")
+    check(all(torch.equal(p, b) for p, b in zip(model.parameters(),
+                                                before[3])),
+          "overflow: model params changed")
+    check(bool(sstate2.overflow), "overflow: not detected")
+    check(float(sstate2.loss_scale) == scale0 / 2, "overflow: scale not "
+          "halved")
+    return dict(loss=float(loss), scale_before=scale0,
+                scale_after=float(sstate2.loss_scale), step=int(g2.step))
+
+
+_PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_kernel", "paged_decode_kernel",
+                 "_ln_fwd_body", "_ln_bwd_body", "ce_fwd_kernel",
+                 "ce_bwd_de_kernel", "ce_bwd_dx_kernel")
+
+
+def _kernel_class(name: str) -> str:
+    """The port's own kernels by name; library GEMMs (cuBLAS's nvjet and
+    CUTLASS/xmma kernels); memory copies; everything else (PyTorch's
+    elementwise, reduction, index and copy kernels)."""
+    for k in _PORT_KERNELS:
+        if k in name:
+            return k
+    low = name.lower()
+    if any(t in low for t in ("nvjet", "gemm", "xmma", "cutlass")):
+        return "library GEMM"
+    if low.startswith("memcpy") or low.startswith("memset"):
+        return "memcpy/memset"
+    return "other PyTorch kernels"
+
+
+def _profile(torch, fn, reps):
     from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kern)
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:12]
+    by_class = {}
+    for e in kern:
+        by_class.setdefault(_kernel_class(e.key), [0.0, 0])
+        by_class[_kernel_class(e.key)][0] += e.self_device_time_total
+        by_class[_kernel_class(e.key)][1] += e.count
+    return dict(
+        wall_ms_per_call=wall_us / reps / 1e3,
+        device_ms_per_call=dev_us / reps / 1e3,
+        device_busy_share=(dev_us / wall_us) if dev_us else None,
+        kernel_launches_per_call=sum(e.count for e in kern) / reps,
+        device_ms_and_launches_by_class_per_call={
+            k: (us / reps / 1e3, n / reps) for k, (us, n) in
+            sorted(by_class.items(), key=lambda kv: -kv[1][0])},
+        top_device_ms_per_call=[
+            (e.key[:60], e.self_device_time_total / reps / 1e3)
+            for e in top])
+
+
+def trace_train(torch, cfg, model, state, sstate, step):
+    """torch.profiler over 2 train steps (after one unprofiled); returns
+    the trace and the state after them."""
+    ids, labels = train_batch(torch, cfg)
+    box = [state, sstate]
+
+    def one():
+        _, box[0], box[1], _ = step(model, box[0], box[1], ids, labels)
+
+    return _profile(torch, one, 2), box[0], box[1]
+
+
+def trace(torch, cfg, params):
+    """torch.profiler over 4 steady decode steps at batch 8 and over two
+    prefills: device time by kernel and the device-busy share of the wall
+    time (``None`` when the profiler records no device time)."""
     from apex_tpu_torch.serve import model as model_mod
     eng = make_engine(cfg, params)
     rng = np.random.RandomState(1)
@@ -428,31 +927,8 @@ def trace(torch, cfg, params):
             model_mod.prefill_forward(cfg, eng.ccfg, params, eng.state, bt,
                                       400, ids)
 
-    result = {}
-    for name, fn, reps in (("decode_step_b8", eng.step, 4),
-                           ("prefill_512", prefill, 2)):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        kern = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev_us = sum(e.self_device_time_total for e in kern)
-        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
-        result[name] = dict(
-            wall_ms_per_call=wall_us / reps / 1e3,
-            device_ms_per_call=dev_us / reps / 1e3,
-            device_busy_share=(dev_us / wall_us) if dev_us else None,
-            kernel_launches_per_call=sum(e.count for e in kern) / reps,
-            top_device_ms_per_call=[
-                (e.key[:60], e.self_device_time_total / reps / 1e3)
-                for e in top])
-    return result
+    return {"decode_step_b8": _profile(torch, eng.step, 4),
+            "prefill_512": _profile(torch, prefill, 2)}
 
 
 def main() -> int:
@@ -473,9 +949,10 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    _build.build_all(["flash_fwd", "paged_decode"])
+    sources = ["flash_fwd", "paged_decode", "flash_bwd", "lm_head_ce"]
+    _build.build_all(sources)
     log(f"build: {time.perf_counter() - t0:.1f} s")
-    for name in ("flash_fwd", "paged_decode"):
+    for name in sources:
         text = _build.library_path(name).with_suffix(".log").read_text()
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -483,13 +960,16 @@ def main() -> int:
 
     timer = Timer(torch)
     kernels = [check_flash(torch, timer), check_paged(torch, timer),
-               check_layer_norm(torch, timer)]
+               check_layer_norm(torch, timer), check_flash_bwd(torch, timer),
+               check_layer_norm_bwd(torch, timer),
+               *check_lm_head_ce(torch, timer)]
     for kr in kernels:
         log(f"kernel {kr['name']}: err {kr['max_abs_err']:.3g} "
             f"ms {kr['ms']:.4f} plain {kr['plain_ms']:.4f} "
             f"bound {kr['bound_ms']:.4f} ({kr['bound_by']}) "
             f"library {kr['library_ms']}")
     del timer
+    torch.cuda.empty_cache()
 
     cfg = gpt_config()
     t0 = time.perf_counter()
@@ -497,9 +977,7 @@ def main() -> int:
                              device="cuda")
     log(f"params: {time.perf_counter() - t0:.1f} s")
     eng, ids, stats = run_main_path(torch, cfg, params)
-    log(f"main path ({card}): " + json.dumps(stats))
-    for kr in kernels:
-        kr["launches"] = stats["launches"][kr["name"]]
+    log(f"serve path ({card}): " + json.dumps(stats))
 
     tf = teacher_forced(torch, cfg, params, eng, ids)
     log("teacher-forced: " + json.dumps(tf) + f" (tolerance {TF_TOL}, "
@@ -508,8 +986,33 @@ def main() -> int:
           f"teacher-forced logits differ by {tf['max_abs_diff']}")
     check(tf["worst_flip_gap"] <= TF_TIE,
           f"argmax flip with plain gap {tf['worst_flip_gap']}")
+    serve_trace = trace(torch, cfg, params)
+    del eng, params
+    torch.cuda.empty_cache()
 
-    log("trace: " + json.dumps(trace(torch, cfg, params)))
+    model, opt, state, sstate, step, tstats = run_train_path(torch, cfg)
+    log(f"train path ({card}): " + json.dumps(tstats))
+    train_trace, state, sstate = trace_train(torch, cfg, model, state,
+                                             sstate, step)
+    phases, state, sstate = step_phases(torch, cfg, model, opt, state,
+                                        sstate)
+    log(f"train step phases, device ms ({card}): " + json.dumps(phases))
+    log("overflow: " + json.dumps(overflow_check(torch, cfg, model, opt,
+                                                 state, sstate)))
+    del model, opt, state, sstate, step
+    torch.cuda.empty_cache()
+    log("grad check (kernels vs plain, tolerances: loss "
+        f"{GRAD_LOSS_TOL}, relative norm {GRAD_NORM_TOL}): "
+        + json.dumps(grad_check(torch, cfg)))
+    log("trace: " + json.dumps({**serve_trace, "train_step": train_trace}))
+
+    for kr in kernels:
+        by_path = {"serve": stats["launches"][kr["name"]],
+                   "train": tstats["launches"][kr["name"]]}
+        kr["launches"] = by_path["serve"] + by_path["train"]
+        kr["launches_by_path"] = by_path
+        check(kr["launches"] > 0, f"{kr['name']} never launched on a main "
+              "path")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -11,6 +11,18 @@ absolute floor (4e-3 for flash attention, whose kernel rounds p to bf16
 before the PV product; 1e-3 for paged decode); fp32 lse within 1e-3; fp32
 LayerNorm outputs within 1e-5 relative; half-precision LayerNorm outputs
 within one ulp.
+
+Backward kernels: the flash backward rounds p and ds to bf16 before its
+products (as the TPU kernel does) where the plain version (the JAX
+``_bwd_math``) keeps fp32, and sums dq with atomics in a varying order, so
+its gradients are held within two bf16 ulps plus 2 % of the largest
+gradient, and within 1 % in relative norm. The LayerNorm backward computes
+in fp32 like its plain version: dx within two ulps of its dtype plus 1e-5
+of the largest, dgamma/dbeta (fp32 sums over rows in another order) within
+1e-4 of the largest plus one ulp of their dtype. The LM-head CE statistics
+are fp32 sums of the same exact products in another order: within 1e-4
+relative; its gradients round the same g tile to bf16 (a logit an fp32 ulp
+apart can flip one rounding), held like the flash gradients.
 """
 
 import numpy as np
@@ -19,6 +31,7 @@ import torch
 
 from apex_tpu_torch.ops import flash_attention as fa
 from apex_tpu_torch.ops import layer_norm as ln
+from apex_tpu_torch.ops import lm_head_ce as ce
 
 pytestmark = pytest.mark.cuda
 
@@ -146,9 +159,190 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="group"):
         fa.paged_decode_attention(_rand(gen, 2, 2, 9, 64), pages, pages,
                                   bt, sl)
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        ln.fused_layer_norm_affine(q, torch.ones(64, device="cuda").double(),
+                                   torch.zeros(64, device="cuda"), (64,),
+                                   out_dtype=torch.bfloat16)
+    o, lse = fa.flash_attention_fwd(q, q, q, causal=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_bwd(q, q, q, o, lse, qt, causal=True)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.flash_attention_bwd(q.float(), q.float(), q.float(), o.float(),
+                               lse, o.float())
+    x = _rand(gen, 8, 256)
+    e = _rand(gen, 100, 256)
+    t = torch.zeros(8, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="bfloat16"):
+        ce.lm_head_ce_fwd(x.float(), e.float(), t)
+    with pytest.raises(ValueError, match="int32"):
+        ce.lm_head_ce_fwd(x, e, t.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        ce.lm_head_ce_fwd(_rand(gen, 256, 8).t(), e, t)
+    m = torch.zeros(8, device="cuda")
+    with pytest.raises(ValueError, match="hidden size"):
+        ce.lm_head_ce_bwd(_rand(gen, 8, 320), _rand(gen, 100, 320), t, m,
+                          m + 1, m)
     with pytest.raises(ValueError, match="float32"):
-        ln.fused_layer_norm_affine(q, torch.ones(64, device="cuda").half(),
-                                   torch.zeros(64, device="cuda"), (64,))
+        ce.lm_head_ce_bwd(x, e, t, m.half(), m + 1, m)
+    dy = _rand(gen, 4, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        ln.layer_norm_bwd(_rand(gen, 64, 4).t(), torch.ones(64,
+                                                            device="cuda"),
+                          dy, (64,))
+
+
+def _close_grad(got, ref, name):
+    """Two bf16 ulps plus 2 % of the largest |ref|, and 1 % in norm (the
+    module docstring gives the reason)."""
+    got, ref = got.float(), ref.float()
+    diff = (got - ref).abs()
+    floor = 0.02 * float(ref.abs().max()) + 1e-6
+    assert bool((diff <= ref.abs() * 2 * 2.0 ** -7 + floor).all()), \
+        (name, float(diff.max()), floor)
+    rel = float(diff.norm() / ref.norm().clamp_min(1e-30))
+    assert rel <= 1e-2, (name, rel)
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,seg", [
+    (1, 1, 1, 1, 64, True, False),
+    (2, 3, 65, 65, 64, True, True),
+    (1, 2, 17, 200, 128, True, False),       # sq < sk: end-aligned causal
+    (1, 2, 130, 90, 64, True, True),         # sq > sk: rows with no key
+    (3, 2, 100, 100, 32, False, True),
+    (2, 4, 256, 256, 64, True, False),
+    (1, 2, 200, 200, 128, False, False),
+])
+def test_flash_bwd_matches_plain(gen, b, h, sq, sk, d, causal, seg):
+    q, k, v = _rand(gen, b, h, sq, d), _rand(gen, b, h, sk, d), \
+        _rand(gen, b, h, sk, d)
+    do = _rand(gen, b, h, sq, d)
+    sid_q = sid_kv = None
+    if seg:
+        rng = np.random.RandomState(b * sq + sk)
+        sid_q = np.sort(rng.randint(-1, 3, (b, sq)), axis=1)[:, ::-1]
+        sid_kv = np.sort(rng.randint(-1, 3, (b, sk)), axis=1)[:, ::-1]
+        sid_q = torch.from_numpy(sid_q.copy()).int().cuda()
+        sid_kv = torch.from_numpy(sid_kv.copy()).int().cuda()
+    out, lse = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal)
+    before = fa.flash_attention_bwd.launches
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, do, sid_q, sid_kv,
+                                        causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 1
+    rq, rk, rv = fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, do, causal=causal, segment_ids_q=sid_q,
+        segment_ids_kv=sid_kv)
+    for name, got, ref in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        _close_grad(got, ref, name)
+    if seg:
+        pad = (sid_q < 0)[:, None, :].expand(b, h, sq)
+        assert not bool(dq[pad].any())
+
+
+def test_flash_autograd_runs_both_kernels(gen):
+    q, k, v = (_rand(gen, 2, 2, 64, 64).requires_grad_() for _ in range(3))
+    f0, b0 = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    out = fa.flash_attention(q, k, v, causal=True)
+    out.float().square().sum().backward()
+    assert fa.flash_attention.launches == f0 + 1
+    assert fa.flash_attention_bwd.launches == b0 + 1
+    assert q.grad is not None and k.grad.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("n,h", [(1, 128), (3, 1000), (8192, 1024),
+                                 (5, 4096), (700, 768)])
+@pytest.mark.parametrize("x_dtype,p_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float16, torch.float32), (torch.float32, torch.float32)])
+def test_layer_norm_bwd_matches_plain(gen, n, h, x_dtype, p_dtype):
+    x = _rand(gen, n, h, dtype=torch.float32).mul(2).add(0.5).to(x_dtype)
+    w = (1 + 0.1 * _rand(gen, h, dtype=torch.float32)).to(p_dtype)
+    dy = _rand(gen, n, h, dtype=torch.float32).to(x_dtype)
+    before = ln.layer_norm_bwd.launches
+    dx, dw, db = ln.layer_norm_bwd(x, w, dy, (h,), 1e-5)
+    torch.cuda.synchronize()
+    assert ln.layer_norm_bwd.launches == before + 1
+    rx, rw, rb = ln.layer_norm_bwd_reference(x, w, dy, (h,), 1e-5)
+    assert dx.dtype == x_dtype and dw.dtype == db.dtype == p_dtype
+    ulp = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10,
+           torch.float32: 2.0 ** -22}
+    d = (dx.float() - rx.float()).abs()
+    assert bool((d <= rx.float().abs() * 2 * ulp[x_dtype]
+                 + 1e-5 * float(rx.float().abs().max()) + 1e-6).all()), \
+        float(d.max())
+    for got, ref in ((dw, rw), (db, rb)):
+        d = (got.float() - ref.float()).abs()
+        assert bool((d <= ref.float().abs() * ulp[p_dtype]
+                     + 1e-4 * float(ref.float().abs().max()) + 1e-6
+                     ).all()), float(d.max())
+
+
+def test_layer_norm_autograd_runs_both_kernels(gen):
+    x = _rand(gen, 16, 256).requires_grad_()
+    w = torch.ones(256, device="cuda", dtype=torch.bfloat16,
+                   requires_grad=True)
+    b = torch.zeros(256, device="cuda", dtype=torch.bfloat16,
+                    requires_grad=True)
+    f0, b0 = ln.fused_layer_norm_affine.launches, ln.layer_norm_bwd.launches
+    ln.fused_layer_norm_affine(x, w, b, (256,)).float().sum().backward()
+    assert ln.fused_layer_norm_affine.launches == f0 + 1
+    assert ln.layer_norm_bwd.launches == b0 + 1
+    assert w.grad.dtype == torch.bfloat16 and x.grad.shape == x.shape
+
+
+_CE_SHAPES = [(100, 1000, 256, 0.0), (64, 1041, 1024, 0.1),
+              (33, 300, 128, 0.0), (257, 2048, 512, 0.1),
+              (1, 40, 768, 0.0)]
+
+
+@pytest.mark.parametrize("n,V,h,ls", _CE_SHAPES + [(5, 70, 1536, 0.1)])
+def test_lm_head_ce_fwd_matches_plain(gen, n, V, h, ls):
+    x = _rand(gen, n, h)
+    e = _rand(gen, V, h).mul(0.1)
+    tgt = torch.from_numpy(np.random.RandomState(n).randint(
+        -1, V, n).astype(np.int32)).cuda()
+    before = ce.lm_head_ce_fwd.launches
+    got = ce.lm_head_ce_fwd(x, e, tgt, ls > 0)
+    torch.cuda.synchronize()
+    assert ce.lm_head_ce_fwd.launches == before + 1
+    ref = ce.lm_head_ce_fwd_reference(x, e, tgt, ls > 0)
+    for name, a, r in zip(("m", "l", "pred", "ssum"), got, ref):
+        if r is None:
+            assert a is None
+            continue
+        scale = float(r.abs().max()) + 1.0
+        assert float((a - r).abs().max()) <= 1e-4 * scale, name
+
+
+@pytest.mark.parametrize("n,V,h,ls", _CE_SHAPES)
+def test_lm_head_ce_bwd_matches_plain(gen, n, V, h, ls):
+    x = _rand(gen, n, h)
+    e = _rand(gen, V, h).mul(0.1)
+    tgt = torch.from_numpy(np.random.RandomState(n).randint(
+        0, V, n).astype(np.int32)).cuda()
+    m, l, _, _ = ce.lm_head_ce_fwd_reference(x, e, tgt)
+    dl = torch.full((n,), 1.0 / n, device="cuda")
+    before = ce.lm_head_ce_bwd.launches
+    dx, de = ce.lm_head_ce_bwd(x, e, tgt, m, l, dl, ls)
+    torch.cuda.synchronize()
+    assert ce.lm_head_ce_bwd.launches == before + 1
+    rx, re = ce.lm_head_ce_bwd_reference(x, e, tgt, m, l, dl, ls)
+    _close_grad(dx, rx, "dx")
+    _close_grad(de, re, "dE")
+
+
+def test_lm_head_ce_autograd_runs_both_kernels(gen):
+    x = _rand(gen, 2, 16, 256).requires_grad_()
+    e = _rand(gen, 500, 256).mul(0.1).requires_grad_()
+    t = torch.randint(0, 500, (2, 16), device="cuda")
+    f0, b0 = ce.lm_head_ce_fwd.launches, ce.lm_head_ce_bwd.launches
+    loss = ce.fused_lm_head_cross_entropy(x, e, t)
+    assert loss.shape == (2, 16) and loss.dtype == torch.float32
+    loss.mean().backward()
+    assert ce.lm_head_ce_fwd.launches == f0 + 1
+    assert ce.lm_head_ce_bwd.launches == b0 + 1
+    assert e.grad.dtype == torch.bfloat16 and x.grad.shape == x.shape
 
 
 def test_engine_preempt_resume_bit_exact_on_the_card(gen):

@@ -1,5 +1,5 @@
-"""apex_tpu_torch flash-attention forward and paged decode attention
-against the JAX package.
+"""apex_tpu_torch flash attention (forward and backward) and paged decode
+attention against the JAX package.
 
 Inputs are made with numpy from a seed and handed to both sides. The JAX
 kernels run in Pallas interpret mode, as the JAX package's own CPU tests
@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 # ``apex_tpu.ops`` re-exports a function of the same name as the module
@@ -206,3 +207,84 @@ def test_build_failure_raises_with_the_compiler_log(tmp_path, monkeypatch):
     assert not _build.library_path("flash_fwd").exists()
     with pytest.raises(RuntimeError, match="cudaError_t 700"):
         _build.check(700, "launch")
+
+
+# ---------------------------------------------------------------------------
+# the backward: the port's plain backward (``flash_attention_bwd_reference``,
+# reached through autograd on CPU tensors) against the JAX package's
+# ``_bwd_math`` and its Pallas backward in interpret mode. fp32 within 1e-5
+# of the largest gradient; bf16 within two bf16 ulps plus 2 % of the
+# largest: the Pallas kernel rounds p and ds to bf16 before its products,
+# the plain version (like ``_bwd_math``) keeps them fp32.
+# ---------------------------------------------------------------------------
+
+def _close_grad(got, ref, dtype):
+    got, ref = _np(got), _np(ref)
+    scale = float(np.abs(ref).max())
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, atol=1e-5 * scale, rtol=0)
+    else:
+        tol = np.abs(ref) * 2 * 2.0 ** -7 + 2e-2 * scale
+        assert np.all(np.abs(got - ref) <= tol), float(np.abs(got - ref).max())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_matches_jax(dtype, causal):
+    rng = np.random.RandomState(4)
+    b, h, s, d = 2, 2, 40, 16
+    q, k, v, do = (rng.randn(b, h, s, d).astype(np.float32)
+                   for _ in range(4))
+    sid = _segments(b, s)                 # padding rows and two segments
+    (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = (_pair(a, dtype)
+                                                for a in (q, k, v, do))
+    scale = d ** -0.5
+
+    def jf(qq, kk, vv):
+        return jfa.flash_attention(qq, kk, vv, segment_ids_q=jnp.asarray(sid),
+                                   causal=causal, scale=scale, block_q=16,
+                                   block_k=16, block_q_bwd=16,
+                                   block_k_bwd=16, interpret=True,
+                                   autotune="off")
+
+    jout, vjp = jax.vjp(jf, jq, jk, jv)
+    jgrads = vjp(jdo)
+    _, jlse = jfa._flash_fwd_impl(jq, jk, jv, jnp.asarray(sid), None, None,
+                                  jnp.zeros((1,), jnp.int32), scale, causal,
+                                  0.0, 16, 16, True)
+    jlse = jnp.asarray(jlse).reshape(b, h, -1)[:, :, :s]
+    math_grads = jfa._bwd_math(
+        (jq, jk, jv, jout, jlse, jnp.asarray(sid), None, None, None), jdo,
+        scale=scale, causal=causal)
+    tq, tk, tv = (t.requires_grad_() for t in (tq, tk, tv))
+    before = tfa.flash_attention_bwd.launches
+    out = tfa.flash_attention(tq, tk, tv, segment_ids_q=torch.from_numpy(sid),
+                              causal=causal, scale=scale)
+    out.backward(tdo)
+    assert tfa.flash_attention_bwd.launches == before   # CPU: no kernel
+    for got, ref, ref_math in zip((tq.grad, tk.grad, tv.grad), jgrads,
+                                  math_grads):
+        assert got.dtype == tq.dtype
+        _close_grad(got, ref, dtype)
+        _close_grad(got, ref_math, dtype)
+    # padding query rows get exactly zero dq
+    assert float(tq.grad[0, :, 29:].abs().max()) == 0.0
+    assert float(tq.grad[1, :, 32:].abs().max()) == 0.0
+
+
+def test_flash_bwd_reference_matches_jax_bwd_math_sq_ne_sk():
+    """End-aligned causal with sq < sk, fp32, straight through the plain
+    backward against ``_bwd_math`` on the same residuals."""
+    rng = np.random.RandomState(5)
+    b, h, sq, sk, d = 1, 2, 12, 20, 8
+    q, do = (rng.randn(b, h, sq, d).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(b, h, sk, d).astype(np.float32) for _ in range(2))
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    out, lse = tfa.flash_attention_fwd(tq, tk, tv, causal=True)
+    got = tfa.flash_attention_bwd(tq, tk, tv, out, lse, tdo, causal=True)
+    ref = jfa._bwd_math((jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         jnp.asarray(out.numpy()), jnp.asarray(lse.numpy()),
+                         None, None, None, None), jnp.asarray(do),
+                        scale=d ** -0.5, causal=True)
+    for g, r in zip(got, ref):
+        _close_grad(g, r, "float32")

@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``apex_tpu_torch`` (nor
 ``chip_smoke.py``) imports ``jax``, ``flax`` or ``apex_tpu``; importing the
-serve package builds nothing; and the default device is CUDA, with no
-silent fall-back to the CPU."""
+serve and training packages builds nothing; and the default device is CUDA,
+with no silent fall-back to the CPU."""
 
 import ast
 import json
@@ -47,7 +47,9 @@ def test_port_module_imports_no_jax(path):
 def test_importing_serve_loads_no_jax_and_builds_nothing():
     code = (
         "import sys, json\n"
-        "import apex_tpu_torch.serve\n"
+        "import apex_tpu_torch.serve, apex_tpu_torch.amp\n"
+        "import apex_tpu_torch.optimizers, apex_tpu_torch.utils\n"
+        "import apex_tpu_torch.ops.lm_head_ce\n"
         "from apex_tpu_torch.ops import _build\n"
         "mods = set(sys.modules)\n"
         "print(json.dumps({\n"
@@ -82,3 +84,8 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
                                            page_size=8))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.naive_generate(cfg, params, [([1, 2], 2)], max_seq_len=8)
+    from apex_tpu_torch import amp
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        amp.LossScaler("dynamic")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        amp.init_state()

@@ -109,7 +109,7 @@ def test_params_from_jax_keeps_names_and_layouts(jparams, params):
     assert len(flat) == len(names)
     for path, leaf in flat:
         name = ".".join(str(p.key) for p in path)
-        np.testing.assert_array_equal(names[name].numpy(), np.asarray(leaf))
+        np.testing.assert_array_equal(names[name].detach().numpy(), np.asarray(leaf))
     assert tuple(params.block(0).attn.qkv.kernel.shape) == (32, 96)  # in,out
     assert tuple(params.wte.embedding.shape) == (64, 32)             # [V, h]
     bad = dict(jax.device_get(jparams))
@@ -394,3 +394,25 @@ def test_page_allocator_invariants():
         alloc.free([got[0]])
     with pytest.raises(ValueError, match="invalid page"):
         alloc.free([0])
+
+
+def test_serving_builds_no_autograd_graph(params, monkeypatch):
+    """The GPT's parameters are trainable; every serve forward still runs
+    under ``torch.no_grad()`` and returns logits with no graph."""
+    seen = []
+    for name in ("decode_forward", "prefill_forward", "full_forward_logits"):
+        fn = getattr(tmodel, name)
+
+        def spy(*a, _fn=fn, **kw):
+            out = _fn(*a, **kw)
+            logits = out[0] if isinstance(out, tuple) else out
+            seen.append((torch.is_grad_enabled(), logits.requires_grad))
+            return out
+
+        monkeypatch.setattr(tmodel, name, spy)
+    assert all(p.requires_grad for p in params.parameters())
+    _run(params)
+    serve.naive_generate(CFG, params, [(PROMPTS[0], 3)], max_seq_len=32,
+                         device="cpu")
+    assert len(seen) > 3
+    assert all(flags == (False, False) for flags in seen)
