@@ -5,8 +5,8 @@ argument into a ``torch.device``: ``None`` means CUDA, and asking for CUDA
 on a machine without it raises instead of quietly running on the CPU.
 
 ``as_torch_dtype`` accepts a ``torch.dtype`` or anything numpy can name
-(``"bfloat16"``, ``np.float32``, the ``ml_dtypes``/JAX bfloat16 scalar
-type), so configurations written for the JAX package carry over.
+(``"bfloat16"``, ``np.float32``, the ``ml_dtypes``/JAX bfloat16 and fp8
+scalar types), so configurations written for the JAX package carry over.
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ _DTYPES = {
     "float32": torch.float32,
     "float16": torch.float16,
     "bfloat16": torch.bfloat16,
+    "float8_e4m3fn": torch.float8_e4m3fn,
+    "float8_e5m2": torch.float8_e5m2,
 }
 
 

@@ -1,11 +1,12 @@
 // Paged decode attention for Hopper (sm_90a): one query token per sequence
-// over a paged KV pool, GQA-aware, bf16 pages, fp32 online softmax.
+// over a paged KV pool, GQA-aware, bf16 or e4m3 pages, fp32 online softmax.
 //
 // Replaces the Pallas kernel `_paged_decode_kernel` of
 // apex_tpu/ops/flash_attention.py (:986, launched by `paged_decode_attention`
-// :1056). Contract (shared with apex_tpu_torch.serve.cache):
+// :1056), both of its modes. Contract (shared with apex_tpu_torch.serve.cache):
 //   q            [b, kv, group, d]          bf16
-//   k/v pages    [kv, num_pages, page, d]   bf16
+//   k/v pages    [kv, num_pages, page, d]   bf16, or e4m3 in fp8 mode
+//   k/v scales   [kv, num_pages] fp32       fp8 mode only (else null)
 //   block_tables [b, m] int32  (page 0 is the null page)
 //   seq_lens     [b] int32     (0 = inactive slot: exact zero output)
 //   out          [b, kv, group, d]          bf16
@@ -13,24 +14,33 @@
 // partly live page are left out of the max and the sum (the Pallas kernel
 // masks them to -1e30 and zeroes their p: the same result).
 //
+// fp8 mode (the JAX kernel's `fp8=True`, :1004-1035): a stored page holds
+// clip(x * page_scale) in e4m3, one scale per (kv head, page). The score is
+// s = (q . k) / ks[kh, page] * scale, and the value term (p . v) / vs[kh,
+// page] with p kept in fp32 (folded here as p / vs into the p that
+// multiplies v). The bf16 mode's arithmetic is untouched.
+//
 // Bound on the H100: HBM bytes. Each live K and V row is read once and used
 // for 2*group flops per element, so at group 1 the kernel does ~1 flop per
-// byte: the time is the live pages' bytes over the memory rate.
+// byte (~2 in fp8 mode): the time is the live pages' bytes over the memory
+// rate.
 //
 // Design. One thread block (128 threads) per (kv head, sequence): the block
 // loads its own block-table row and seq_len, which replaces the TPU's scalar
 // prefetch, and walks only the live pages. D/8 threads share one key row,
-// each loading 16 contiguous bytes, so a warp reads whole 128-byte rows and
-// a page (contiguous in the pool) streams coalesced. Per page: scores for
-// every live key into shared memory (a shuffle reduction over the D/8
-// lanes), then one warp per query row takes the page max, the exponentials
-// and the sum and publishes the rescale factor, then every thread folds its
-// keys' p * v into fp32 accumulators held in registers. The accumulators of
-// the key lanes are summed through shared memory once, after the last page.
-// Splitting a sequence across blocks (flash-decoding) and deeper load
-// pipelining are later work.
+// each loading 8 contiguous elements (16 bytes of bf16, 8 of e4m3), so a
+// warp reads whole rows and a page (contiguous in the pool) streams
+// coalesced. Per page: scores for every live key into shared memory (a
+// shuffle reduction over the D/8 lanes), then one warp per query row takes
+// the page max, the exponentials and the sum and publishes the rescale
+// factor, then every thread folds its keys' p * v into fp32 accumulators
+// held in registers. The accumulators of the key lanes are summed through
+// shared memory once, after the last page. Splitting a sequence across
+// blocks (flash-decoding) and deeper load pipelining are later work.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,11 +59,43 @@ __device__ __forceinline__ void bf16x8_to_float(const uint4& u, float* f) {
   }
 }
 
-template <int D, int G>
+__device__ __forceinline__ void e4m3x8_to_float(const uint2& u, float* f) {
+  const uint32_t w[2] = {u.x, u.y};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const __nv_fp8x2_storage_t pair =
+          static_cast<__nv_fp8x2_storage_t>((w[i] >> (16 * j)) & 0xffffu);
+      const __half2 h = __half2(__nv_cvt_fp8x2_to_halfraw2(pair, __NV_E4M3));
+      const float2 t = __half22float2(h);
+      f[4 * i + 2 * j] = t.x;
+      f[4 * i + 2 * j + 1] = t.y;
+    }
+  }
+}
+
+// 8 consecutive pool elements from element offset `idx`, as fp32
+template <bool FP8>
+__device__ __forceinline__ void load8(const void* pool, long idx, float* f) {
+  if constexpr (FP8) {
+    const uint2 u = *reinterpret_cast<const uint2*>(
+        static_cast<const uint8_t*>(pool) + idx);
+    e4m3x8_to_float(u, f);
+  } else {
+    const uint4 u = *reinterpret_cast<const uint4*>(
+        static_cast<const __nv_bfloat16*>(pool) + idx);
+    bf16x8_to_float(u, f);
+  }
+}
+
+template <int D, int G, bool FP8>
 __global__ void __launch_bounds__(THREADS)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ kp,
-                    const __nv_bfloat16* __restrict__ vp,
+                    const void* __restrict__ kp,
+                    const void* __restrict__ vp,
+                    const float* __restrict__ k_scales,
+                    const float* __restrict__ v_scales,
                     const int32_t* __restrict__ block_tables,
                     const int32_t* __restrict__ seq_lens,
                     __nv_bfloat16* __restrict__ out, int kv, int num_pages,
@@ -107,15 +149,18 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     page = min(max(page, 0), num_pages - 1);   // clamp like an XLA gather
     const long base = ((long)kh * num_pages + page) * page_size * D;
     const int live = min(page_size, n_live - j * page_size);
+    float ks = 1.f, vs = 1.f;
+    if constexpr (FP8) {
+      ks = k_scales[(long)kh * num_pages + page];
+      vs = v_scales[(long)kh * num_pages + page];
+    }
 
     // ---- scores of the live keys: s = (q . k) * scale
     for (int t0 = 0; t0 < live; t0 += KPI) {
       const int t = t0 + kl;
       float kf[8];
       if (t < live) {
-        const uint4 u =
-            *reinterpret_cast<const uint4*>(kp + base + (long)t * D + c * 8);
-        bf16x8_to_float(u, kf);
+        load8<FP8>(kp, base + (long)t * D + c * 8, kf);
       } else {
 #pragma unroll
         for (int e = 0; e < 8; ++e) kf[e] = 0.f;
@@ -128,8 +173,12 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int off = 1; off < TPK; off <<= 1)
           part += __shfl_xor_sync(0xffffffffu, part, off);
-        if (c == 0 && t < live && gi < group)
-          sP[gi * page_size + t] = part * scale;
+        if (c == 0 && t < live && gi < group) {
+          if constexpr (FP8)
+            sP[gi * page_size + t] = part / ks * scale;
+          else
+            sP[gi * page_size + t] = part * scale;
+        }
       }
     }
     __syncthreads();
@@ -147,7 +196,10 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
       float sum = 0.f;
       for (int t = lane; t < live; t += 32) {
         const float p = __expf(row[t] - m_new);
-        row[t] = p;
+        if constexpr (FP8)
+          row[t] = p / vs;
+        else
+          row[t] = p;
         sum += p;
       }
 #pragma unroll
@@ -172,9 +224,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     }
     for (int t = kl; t < live; t += KPI) {
       float vf[8];
-      const uint4 u =
-          *reinterpret_cast<const uint4*>(vp + base + (long)t * D + c * 8);
-      bf16x8_to_float(u, vf);
+      load8<FP8>(vp, base + (long)t * D + c * 8, vf);
 #pragma unroll
       for (int gi = 0; gi < G; ++gi) {
         if (gi < group) {
@@ -204,74 +254,70 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D, int G>
-cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const void* bt, const void* sl, void* out, int b, int kv,
-                   int num_pages, int page_size, int m, int group,
-                   float scale, cudaStream_t stream) {
+struct Args {
+  const void *q, *kp, *vp, *ks, *vs, *bt, *sl;
+  void* out;
+  int b, kv, num_pages, page_size, m, group;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <int D, int G, bool FP8>
+cudaError_t launch(const Args& a) {
   constexpr int KPI = THREADS / (D / 8);
-  const size_t smem = ((size_t)G * page_size + (size_t)KPI * D) * 4;
+  const size_t smem = ((size_t)G * a.page_size + (size_t)KPI * D) * 4;
   cudaError_t err = cudaFuncSetAttribute(
-      paged_decode_kernel<D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      paged_decode_kernel<D, G, FP8>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(kv, b);
-  paged_decode_kernel<D, G><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(kp),
-      static_cast<const __nv_bfloat16*>(vp), static_cast<const int32_t*>(bt),
-      static_cast<const int32_t*>(sl), static_cast<__nv_bfloat16*>(out), kv,
-      num_pages, page_size, m, group, scale);
+  dim3 grid(a.kv, a.b);
+  paged_decode_kernel<D, G, FP8><<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), a.kp, a.vp,
+      static_cast<const float*>(a.ks), static_cast<const float*>(a.vs),
+      static_cast<const int32_t*>(a.bt), static_cast<const int32_t*>(a.sl),
+      static_cast<__nv_bfloat16*>(a.out), a.kv, a.num_pages, a.page_size,
+      a.m, a.group, a.scale);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t dispatch_group(const void* q, const void* kp, const void* vp,
-                           const void* bt, const void* sl, void* out, int b,
-                           int kv, int num_pages, int page_size, int m,
-                           int group, float scale, cudaStream_t st) {
-  if (group <= 1)
-    return launch<D, 1>(q, kp, vp, bt, sl, out, b, kv, num_pages, page_size,
-                        m, group, scale, st);
-  if (group <= 2)
-    return launch<D, 2>(q, kp, vp, bt, sl, out, b, kv, num_pages, page_size,
-                        m, group, scale, st);
-  if (group <= 4)
-    return launch<D, 4>(q, kp, vp, bt, sl, out, b, kv, num_pages, page_size,
-                        m, group, scale, st);
-  if (group <= 8)
-    return launch<D, 8>(q, kp, vp, bt, sl, out, b, kv, num_pages, page_size,
-                        m, group, scale, st);
+template <int D, bool FP8>
+cudaError_t dispatch_group(const Args& a) {
+  if (a.group <= 1) return launch<D, 1, FP8>(a);
+  if (a.group <= 2) return launch<D, 2, FP8>(a);
+  if (a.group <= 4) return launch<D, 4, FP8>(a);
+  if (a.group <= 8) return launch<D, 8, FP8>(a);
   return cudaErrorInvalidValue;
+}
+
+template <bool FP8>
+cudaError_t dispatch_dim(const Args& a, int d) {
+  switch (d) {
+    case 32: return dispatch_group<32, FP8>(a);
+    case 64: return dispatch_group<64, FP8>(a);
+    case 128: return dispatch_group<128, FP8>(a);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// C interface (loaded with ctypes); see the contract at the top. Returns the
-// launch's cudaError_t (cudaErrorInvalidValue for an unsupported head dim or
-// group > 8).
+// C interface (loaded with ctypes); see the contract at the top. Null
+// k_scales/v_scales select the bf16 pool, non-null the e4m3 pool. Returns
+// the launch's cudaError_t (cudaErrorInvalidValue for an unsupported head
+// dim or group > 8).
 extern "C" int apex_paged_decode(const void* q, const void* k_pages,
-                                 const void* v_pages, const void* block_tables,
+                                 const void* v_pages, const void* k_scales,
+                                 const void* v_scales,
+                                 const void* block_tables,
                                  const void* seq_lens, void* out, int b,
                                  int kv, int group, int d, int num_pages,
                                  int page_size, int m, float scale,
                                  void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b <= 0 || kv <= 0 || group <= 0) return cudaSuccess;
-  switch (d) {
-    case 32:
-      return dispatch_group<32>(q, k_pages, v_pages, block_tables, seq_lens,
-                                out, b, kv, num_pages, page_size, m, group,
-                                scale, st);
-    case 64:
-      return dispatch_group<64>(q, k_pages, v_pages, block_tables, seq_lens,
-                                out, b, kv, num_pages, page_size, m, group,
-                                scale, st);
-    case 128:
-      return dispatch_group<128>(q, k_pages, v_pages, block_tables, seq_lens,
-                                 out, b, kv, num_pages, page_size, m, group,
-                                 scale, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  const Args a{q, k_pages, v_pages, k_scales, v_scales, block_tables,
+               seq_lens, out, b, kv, num_pages, page_size, m, group, scale,
+               static_cast<cudaStream_t>(stream)};
+  if ((k_scales == nullptr) != (v_scales == nullptr))
+    return cudaErrorInvalidValue;
+  return k_scales ? dispatch_dim<true>(a, d) : dispatch_dim<false>(a, d);
 }

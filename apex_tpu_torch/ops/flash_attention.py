@@ -17,9 +17,9 @@ Port of ``apex_tpu/ops/flash_attention.py``:
   length.
 - :func:`paged_decode_attention` — one query per sequence over the paged KV
   pool. On CUDA it launches ``csrc/paged_decode.cu``, which replaces the
-  Pallas ``_paged_decode_kernel`` (``:986``); on the CPU it is
-  :func:`paged_attention_reference`. fp8-KV scales come with the fp8 serve
-  slice.
+  Pallas ``_paged_decode_kernel`` (``:986``) in both its modes: a bf16
+  pool, or an e4m3 pool with one fp32 scale per (kv head, page); on the
+  CPU it is :func:`paged_attention_reference`.
 
 Shapes follow the JAX package: q [b, h, sq, d]; k, v [b, h, sk, d];
 segment ids int32 [b, sq] ([b, sk] for kv). Paged layout: q [b, kv, group,
@@ -31,9 +31,10 @@ a negative segment id is padding — it matches nothing, not even another
 padding id — and its output row is exactly zero; causal attention aligns
 the sequence ends (``causal_offset = sk - sq``).
 
-``flash_attention.launches`` (forward), ``flash_attention_bwd.launches``
-and ``paged_decode_attention.launches`` count kernel launches (the CPU path
-does not count).
+``flash_attention.launches`` (forward), ``flash_attention_bwd.launches``,
+``paged_decode_attention.launches`` (bf16 pool) and
+``paged_decode_attention.fp8_launches`` (e4m3 pool) count kernel launches
+(the CPU path does not count).
 """
 
 from __future__ import annotations
@@ -366,39 +367,54 @@ def flash_attention(q, k, v, segment_ids_q=None, segment_ids_kv=None,
 flash_attention.launches = 0
 
 
-# apex_paged_decode(q, k_pages, v_pages, block_tables, seq_lens, out, b,
-#                   kv, group, d, num_pages, page_size, m, scale, stream)
-_PAGED_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+# apex_paged_decode(q, k_pages, v_pages, k_scales, v_scales, block_tables,
+#                   seq_lens, out, b, kv, group, d, num_pages, page_size, m,
+#                   scale, stream)
+_PAGED_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_void_p]
 _MAX_GROUP = 8
 
 
-def _paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale):
+def _paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
+                       k_scales, v_scales):
     what = "paged_decode_attention kernel"
+    fp8 = k_scales is not None
     b, kv, group, d = q.shape
     _, num_pages, page_size, _ = k_pages.shape
     m = block_tables.shape[1]
     _require(q.dtype == torch.bfloat16, what,
-             f"takes a bfloat16 pool and query, got {q.dtype}")
+             f"takes a bfloat16 query, got {q.dtype}")
     _require(d in _HEAD_DIMS, what, f"head dim {d} not in {_HEAD_DIMS}")
     _require(group <= _MAX_GROUP, what, f"group {group} > {_MAX_GROUP}")
     _require(v_pages.shape == k_pages.shape, what,
              "k_pages and v_pages differ in shape")
     _require(block_tables.shape == (b, m) and seq_lens.shape == (b,), what,
              "block_tables must be [b, m] and seq_lens [b]")
-    _check_cuda_operands(what, (("q", q), ("k_pages", k_pages),
-                                ("v_pages", v_pages)),
-                         torch.bfloat16, q.device)
+    _check_cuda_operands(what, (("q", q),), torch.bfloat16, q.device)
+    _check_cuda_operands(what, (("k_pages", k_pages), ("v_pages", v_pages)),
+                         torch.float8_e4m3fn if fp8 else torch.bfloat16,
+                         q.device)
+    if fp8:
+        _require(k_scales.shape == (kv, num_pages)
+                 and v_scales.shape == (kv, num_pages), what,
+                 f"fp8 scales must be [kv={kv}, num_pages={num_pages}]")
+        _check_cuda_operands(what, (("k_scales", k_scales),
+                                    ("v_scales", v_scales)),
+                             torch.float32, q.device)
     _check_cuda_operands(what, (("block_tables", block_tables),
                                 ("seq_lens", seq_lens)),
                          torch.int32, q.device)
     out = torch.empty_like(q)
     fn = _build.function("paged_decode", "apex_paged_decode", _PAGED_ARGS)
-    err = fn(_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(block_tables),
-             _ptr(seq_lens), _ptr(out), b, kv, group, d, num_pages,
-             page_size, m, float(scale), _stream(q))
+    err = fn(_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_scales),
+             _ptr(v_scales), _ptr(block_tables), _ptr(seq_lens), _ptr(out),
+             b, kv, group, d, num_pages, page_size, m, float(scale),
+             _stream(q))
     _build.check(err, what)
-    paged_decode_attention.launches += 1
+    if fp8:
+        paged_decode_attention.fp8_launches += 1
+    else:
+        paged_decode_attention.launches += 1
     return out
 
 
@@ -407,8 +423,11 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens, *,
                            k_scales=None, v_scales=None):
     """Paged single-query (decode) attention, GQA-aware. Returns
     ``[b, kv_heads, group, d]`` in ``q.dtype`` (layout in the module
-    docstring). The kernel on CUDA, :func:`paged_attention_reference` on
-    the CPU."""
+    docstring). ``k_scales``/``v_scales`` ([kv_heads, num_pages] fp32) arm
+    the fp8-KV mode: the pages hold e4m3 values, each page quantized with
+    its own scale. The kernel on CUDA, :func:`paged_attention_reference` on
+    the CPU. ``paged_decode_attention.launches`` counts the bf16 kernel's
+    launches and ``.fp8_launches`` the fp8 variant's."""
     b, kv_heads, group, d = q.shape
     kvp, _, _, dp = k_pages.shape
     if (kvp, dp) != (kv_heads, d):
@@ -424,11 +443,9 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens, *,
                                          seq_lens, scale=scale,
                                          k_scales=k_scales,
                                          v_scales=v_scales)
-    if k_scales is not None:
-        raise NotImplementedError("paged_decode_attention: fp8-KV is not in "
-                                  "the CUDA kernel yet (fp8 serve slice)")
     return _paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens,
-                              scale)
+                              scale, k_scales, v_scales)
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.fp8_launches = 0

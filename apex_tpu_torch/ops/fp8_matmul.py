@@ -1,0 +1,129 @@
+"""fp8 dequant-matmul for serve weight streaming: a CUDA kernel beside its
+plain PyTorch version (``apex_tpu/ops/fp8_matmul.py``).
+
+Decode is bound by the weights' bytes: every block linear is read once per
+step. Storing its kernel as e4m3 with one per-tensor scale (the
+``amp.fp8`` codec) halves the bytes against bf16, and this module is the
+product that consumes them:
+
+- :func:`quantize_weight` — the build-time half: a per-tensor amax scale
+  (``compute_scale`` against the e4m3 max, with ``margin`` powers of two
+  of headroom) and the saturating e4m3 cast;
+- :func:`fp8_dequant_matmul_reference` — the plain version:
+  ``(x.float() @ (q.float() / scale)).to(out_dtype)``;
+- :func:`fp8_dequant_matmul` — the JAX guards (e4m3 weight, matching
+  contraction), then on CUDA the kernel ``csrc/fp8_matmul.cu``, which
+  replaces the Pallas ``_fp8_mm_kernel`` (``apex_tpu/ops/fp8_matmul.py:76``)
+  and never writes a dequantized weight; on the CPU the plain version.
+  ``fp8_dequant_matmul.launches`` counts kernel launches.
+
+The kernel takes bf16 ``x`` and gives a bf16 result (``out_dtype`` must be
+``x.dtype``); ``K`` and ``N`` must be multiples of 16. The scale stays on
+the device: the kernel reads it, the host never does. The Pallas block
+knobs and the tuned-cache lookup of the JAX entry wait for the port's
+tuner.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from apex_tpu_torch._compat import check_device_type
+from apex_tpu_torch.amp import fp8
+from apex_tpu_torch.ops import _build
+
+
+def quantize_weight(w: torch.Tensor, *, margin: float = 0.0):
+    """One weight matrix -> ``(q e4m3, scale)``, ``scale`` a 0-d fp32
+    tensor on ``w``'s device: what :func:`fp8_dequant_matmul` divides back
+    out."""
+    scale = fp8.compute_scale(fp8.amax(w), fp8.E4M3_MAX, margin)
+    return fp8.quantize(w, scale, fp8.E4M3), scale
+
+
+def fp8_dequant_matmul_reference(x, q, scale, out_dtype=None):
+    """Dequantize the e4m3 weight to fp32, contract with fp32 accumulation,
+    cast to ``out_dtype`` (default ``x.dtype``). ``x``: [..., K]; ``q``:
+    [K, N] e4m3; ``scale``: fp32 scalar."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    w = fp8.dequantize(q, scale, torch.float32)
+    return (x.float() @ w).to(out_dtype)
+
+
+# apex_fp8_matmul(x, q, scale, y, ws, m, K, N, splits, stream)
+_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_SKINNY_M = 8            # the decode regime of the kernel: m <= 8
+_SKINNY_BN = 128         # columns per block there
+_MAX_KC = 512            # rows of one K split (the kernel's shared x tile)
+_WAVE = 132              # blocks to aim at: one per SM of an H100
+
+
+def _splits(K: int, N: int) -> int:
+    """The decode regime's K split, from (K, N) alone so that a row's sum
+    order never depends on how many rows come with it: about one wave of
+    blocks, at least 64 rows and at most ``_MAX_KC`` rows per split."""
+    n_tiles = -(-N // _SKINNY_BN)
+    splits = max(1, min(-(-_WAVE // n_tiles), K // 64))
+    kc = -(-K // splits)
+    kc = min(_MAX_KC, -(-kc // 16) * 16)
+    return -(-K // kc)
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"fp8_dequant_matmul kernel: {msg}")
+
+
+def _fp8_mm_cuda(x, q, scale, out_dtype):
+    K, N = q.shape
+    _require(x.dtype == torch.bfloat16 and out_dtype == torch.bfloat16,
+             f"takes a bfloat16 x and gives bfloat16, got x {x.dtype} -> "
+             f"{out_dtype}")
+    _require(K % 16 == 0 and N % 16 == 0,
+             f"K and N must be multiples of 16, got q [{K}, {N}]")
+    for name, t in (("x", x), ("q", q), ("scale", scale)):
+        _require(t.device == x.device,
+                 f"{name} lies on {t.device}, expected {x.device}")
+        _require(t.is_contiguous(), f"{name} must be contiguous")
+    _require(scale.dtype == torch.float32 and scale.numel() == 1,
+             f"scale must be one fp32 value, got {scale.dtype} "
+             f"{tuple(scale.shape)}")
+    _require(x.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0,
+             "x and q must be 16-byte aligned")
+    lead = x.shape[:-1]
+    m = x.numel() // K
+    y = torch.empty((m, N), dtype=torch.bfloat16, device=x.device)
+    splits = _splits(K, N)
+    ws = (torch.empty((splits, m, N), dtype=torch.float32, device=x.device)
+          if 0 < m <= _SKINNY_M else None)
+    fn = _build.function("fp8_matmul", "apex_fp8_matmul", _ARGS)
+    err = fn(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(q.data_ptr()),
+             ctypes.c_void_p(scale.data_ptr()), ctypes.c_void_p(y.data_ptr()),
+             None if ws is None else ctypes.c_void_p(ws.data_ptr()),
+             m, K, N, splits,
+             ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    _build.check(err, "fp8_dequant_matmul kernel")
+    fp8_dequant_matmul.launches += 1
+    return y.reshape(lead + (N,))
+
+
+def fp8_dequant_matmul(x, q, scale, out_dtype: Optional[torch.dtype] = None):
+    """``x @ dequantize(q, scale)``: the kernel on CUDA,
+    :func:`fp8_dequant_matmul_reference` on the CPU."""
+    if q.dtype != fp8.E4M3:
+        raise ValueError(
+            f"fp8_dequant_matmul: weight must be e4m3, got {q.dtype}")
+    if q.dim() != 2 or x.shape[-1] != q.shape[0]:
+        raise ValueError(
+            f"fp8_dequant_matmul: contraction mismatch, "
+            f"x[..., {x.shape[-1]}] @ q{list(q.shape)}")
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    if check_device_type(x, "fp8_dequant_matmul") == "cpu":
+        return fp8_dequant_matmul_reference(x, q, scale, out_dtype)
+    return _fp8_mm_cuda(x, q, scale, out_dtype)
+
+
+fp8_dequant_matmul.launches = 0

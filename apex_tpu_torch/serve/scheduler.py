@@ -16,9 +16,13 @@ order — the vLLM recompute-preemption shape:
   Re-admission recomputes the cache (prefill of the prompt + decode-replay
   of the generated tokens), which is why preempt/resume is bit-exact.
 
+With speculative decoding the engine passes ``lookahead = spec_k``: a
+round writes up to that many positions past the next decode position (the
+verify window), so growth and admission cover them up front.
+
 Page 0 of the pool is the null page and is never allocated. The JAX
-scheduler's telemetry (spans, queue-wait histograms) and its speculative
-look-ahead come with later slices.
+scheduler's telemetry (spans, queue-wait histograms) comes with a later
+slice.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ class Sequence:
     pages: List[int] = dataclasses.field(default_factory=list)
     slot: Optional[int] = None         # engine batch slot while RUNNING
     num_cached: int = 0                # positions with K/V in the pool
+    draft_cached: int = 0              # positions in the DRAFT pool
     n_preemptions: int = 0
 
     def __post_init__(self):
@@ -104,10 +109,15 @@ class StepPlan:
 
 
 class Scheduler:
-    def __init__(self, *, num_pages: int, page_size: int, max_batch: int):
+    def __init__(self, *, num_pages: int, page_size: int, max_batch: int,
+                 lookahead: int = 0):
         self.allocator = PageAllocator(num_pages)
         self.page_size = page_size
         self.max_batch = max_batch
+        # speculative decoding writes up to ``lookahead`` positions past the
+        # next decode position in one round; a preemption in mid-window
+        # would strand a half-written round
+        self.lookahead = int(lookahead)
         self.waiting: List[Sequence] = []
         self.running: List[Sequence] = []
         self._arrival = 0
@@ -127,6 +137,7 @@ class Scheduler:
         seq.pages = []
         seq.slot = None
         seq.num_cached = 0
+        seq.draft_cached = 0
 
     @property
     def has_work(self) -> bool:
@@ -145,6 +156,9 @@ class Scheduler:
         seq.pages = []
         seq.slot = None
         seq.num_cached = 0
+        # the draft pool reuses the target's page ids, so eviction
+        # invalidates the draft cache too: re-admission re-ingests
+        seq.draft_cached = 0
         # back of the ARRIVAL order, front of readmission among later
         # arrivals: waiting stays sorted by arrival
         self.waiting.append(seq)
@@ -156,14 +170,14 @@ class Scheduler:
         plan = StepPlan()
 
         # 1. growth: every running sequence must hold pages for its next
-        # decode write (position num_tokens-1). Earliest arrivals are
-        # served first; exhaustion preempts the LATEST-arrived running
+        # decode write (position num_tokens-1) plus the lookahead window.
+        # Earliest arrivals are served first; exhaustion preempts the LATEST-arrived running
         # sequence — possibly the grower itself, when it is the latest.
         for seq in sorted(self.running, key=lambda s: s.arrival):
             if seq.state != RUNNING:
                 continue                    # preempted earlier this pass
             grown = True
-            want = self._pages_needed(seq.num_tokens)
+            want = self._pages_needed(seq.num_tokens + self.lookahead)
             while want > len(seq.pages):
                 need = want - len(seq.pages)
                 got = self.allocator.alloc(need)
@@ -184,7 +198,7 @@ class Scheduler:
         # the next write.
         while self.waiting and len(self.running) < self.max_batch:
             seq = self.waiting[0]
-            need = self._pages_needed(seq.num_tokens + 1)
+            need = self._pages_needed(seq.num_tokens + 1 + self.lookahead)
             if need > self.allocator.num_pages - 1:
                 raise RuntimeError(
                     f"sequence {seq.seq_id} needs {need} pages; the pool "

@@ -11,22 +11,27 @@ Phases (any failure exits non-zero; no phase's error is caught):
 
 1. set-up — build the CUDA kernels from ``apex_tpu_torch/csrc`` (one
    ``nvcc`` per source, started together), turn TF32 off, print the card's
-   name and power limit;
+   name and power limit; the fp8 codec's e4m3 cast and scale on the card
+   against the CPU's, bitwise;
 2. kernels — each kernel's wrapper at its main path's shapes against its
    plain version on the same inputs, with the tolerance stated beside each
    check, timed with CUDA events (L2 flushed before every launch) beside
    its plain version, a PyTorch library call where one computes the same
    function, and its bound (the least time for its bytes at 3.35 TB/s or
    its operations at 989 TFLOP/s bf16, whichever is larger);
-3. serve path — ``ServeEngine`` serves 16 requests (prompts of 64-512
-   tokens, 64 new tokens each) through the 12-layer h1024 GPT
-   (``bench.py``'s ``_bench_gpt`` shape, random weights from seed 0) with
-   the launch counters reset just before; asserts every request's length,
-   that every page went back, and that each kernel launched the expected
-   number of times; prints prefill and decode times;
-4. teacher-forced check — for two finished requests, the no-cache forward
-   through the plain versions of every kernel, over prompt + generated
-   tokens, against the engine's recorded logits;
+3. serve paths — three ``ServeEngine``s, each after a warm-up engine and
+   with the launch counters reset just before, serve 16 requests (prompts
+   of 64-512 tokens, 64 new tokens each) through the 12-layer h1024 GPT
+   (``bench.py``'s ``_bench_gpt`` shape, random weights from seed 0): the
+   bf16 engine, ``fp8_weights`` + ``fp8_kv``, and ``fp8_weights`` +
+   ``spec_k=4`` (6-layer draft); asserts every request's length, that
+   every page went back, and each kernel's exact launch count; prints
+   tokens/s, decode-step and prefill times, pool bytes, the accept rate;
+4. serve checks — for two finished requests of the bf16 and the fp8
+   engine, the no-cache forward through the plain versions of every kernel
+   (over the same e4m3 weights for the fp8 engine), over prompt + generated
+   tokens, against the engine's recorded logits; the speculative engine's
+   tokens against a plain ``fp8_weights`` engine's;
 5. train path — the same GPT trained at O2 (bf16 model, fp32 master
    weights, dynamic loss scale) with ``FusedAdam`` through
    ``amp.make_train_step`` on one fixed b8 s1024 batch: a warm-up step,
@@ -40,9 +45,10 @@ Phases (any failure exits non-zero; no phase's error is caught):
 7. overflow — one step whose gradients overflow fp32 leaves the master
    weights, the moments and the step counter bitwise unchanged and halves
    the scale;
-8. trace — ``torch.profiler`` over decode steps, prefills and train steps,
-   and the train step's device time by phase (forward + backward, unscale,
-   optimizer, scaler update) from CUDA events.
+8. trace — ``torch.profiler`` over decode steps and prefills of the bf16
+   and the fp8 engine and over train steps, and the train step's device
+   time by phase (forward + backward, unscale, optimizer, scaler update)
+   from CUDA events.
 
 The second-last line of standard output is the card as ``nvidia-smi``
 names it, the line before it the kernels' JSON record, and the last line
@@ -297,6 +303,131 @@ def check_paged(torch, timer):
                 bound_ms=t_bound, bound_by=by, library_ms=None)
 
 
+def _fp8_pool(torch, gen, kv, num_pages, page, d):
+    """An e4m3 pool quantized per (kv head, page) with the codec, as the
+    fp8 cache writes it (one scale per page, 2 powers of two of headroom)."""
+    from apex_tpu_torch.amp import fp8
+    x = torch.randn(kv, num_pages, page, d, generator=gen, device="cuda")
+    s = fp8.compute_scale(x.abs().amax(dim=(2, 3)), fp8.E4M3_MAX, 2.0)
+    return fp8.quantize(x, s[..., None, None], fp8.E4M3), s
+
+
+def check_paged_fp8(torch, timer):
+    from apex_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    b, kv, g, d, page, m, num_pages = 8, 16, 1, 64, 128, 8, 72
+    seq_lens = [0, 1, 127, 128, 129, 300, 640, 1024]
+    q, _, _, bt, sl = _paged_inputs(torch, gen, b, kv, g, d, page, m,
+                                    num_pages, seq_lens)
+    (kp, ks), (vp, vs) = (_fp8_pool(torch, gen, kv, num_pages, page, d)
+                          for _ in range(2))
+    out = fa.paged_decode_attention(q, kp, vp, bt, sl, k_scales=ks,
+                                    v_scales=vs)
+    ref = fa.paged_attention_reference(q, kp, vp, bt, sl, k_scales=ks,
+                                       v_scales=vs)
+    torch.cuda.synchronize()
+    # the same e4m3 values dequantized by the same fp32 divides, p and the
+    # accumulators fp32 in both: only summation order and the bf16 output
+    err = bf16_err(out, ref, 1e-3, "paged fp8")
+    check(out[0].abs().max().item() == 0.0, "paged fp8: inactive slot")
+    ms = timer(lambda: fa.paged_decode_attention(q, kp, vp, bt, sl,
+                                                 k_scales=ks, v_scales=vs))
+    plain_ms = timer(lambda: fa.paged_attention_reference(
+        q, kp, vp, bt, sl, k_scales=ks, v_scales=vs))
+    live = sum(seq_lens)
+    live_pages = sum(-(-n // page) for n in seq_lens)
+    flops = 4.0 * kv * g * d * live
+    nbytes = (2 * kv * d * 1 * live + 2 * kv * live_pages * 4
+              + 2 * b * kv * g * d * 2 + b * m * 4 + b * 4)
+    t_bound, by = bound(flops, nbytes)
+    return dict(name="paged_decode_fp8", route="cuda",
+                source="apex_tpu_torch/csrc/paged_decode.cu",
+                replaces="apex_tpu/ops/flash_attention.py:986",
+                shape=f"b{b} kv{kv} g{g} d{d} page{page} m{m} e4m3 pool, "
+                      f"[kv, pages] fp32 scales, seq_lens {seq_lens}",
+                max_abs_err=err, tolerance="2 bf16 ulp + 1e-3", ms=ms,
+                plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
+                library_ms=None)
+
+
+# the block linears of the 12-layer h1024 GPT, [in, out]
+FP8_SHAPES = (("qkv", 1024, 3072), ("proj", 1024, 1024), ("fc1", 1024, 4096),
+              ("fc2", 4096, 1024))
+
+
+def check_fp8_matmul(torch, timer):
+    from apex_tpu_torch.ops import fp8_matmul as mm
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    shapes = []
+    # decode (m = 8, the fixed batch) at the four linears, prefill (m = 512,
+    # one padded prompt) at fc1, then decode qkv once more: the spread of
+    # the same measurement within one run
+    plan = ([(8, s) for s in FP8_SHAPES] + [(512, FP8_SHAPES[2]),
+                                            (8, FP8_SHAPES[0])])
+    for m, (lin, K, N) in plan:
+        x = torch.randn(m, K, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        w = torch.randn(K, N, generator=gen, device="cuda") * K ** -0.5
+        q, scale = mm.quantize_weight(w)
+        y = mm.fp8_dequant_matmul(x, q, scale)
+        ref = mm.fp8_dequant_matmul_reference(x, q, scale)
+        torch.cuda.synchronize()
+        # exact operands (every e4m3 value and the bf16 x are exact in
+        # fp32), fp32 sums in another order, one bf16 rounding of each
+        # side; the floor covers outputs near zero (|y| ~ 1 here)
+        err = bf16_err(y, ref, 1e-3, f"fp8_matmul {lin} m{m}")
+        wb = w.to(torch.bfloat16)
+        ms = timer(lambda: mm.fp8_dequant_matmul(x, q, scale))
+        plain_ms = timer(lambda: mm.fp8_dequant_matmul_reference(x, q,
+                                                                 scale))
+        bf16_ms = timer(lambda: torch.matmul(x, wb))
+        nbytes = K * N + m * K * 2 + m * N * 2 + 4
+        t_bound, by = bound(2.0 * m * K * N, nbytes)
+        shapes.append(dict(linear=lin, m=m, K=K, N=N, max_abs_err=err,
+                           ms=ms, plain_ms=plain_ms, bound_ms=t_bound,
+                           bound_by=by, bf16_matmul_ms=bf16_ms))
+    main = shapes[0]                       # decode qkv
+    return dict(name="fp8_matmul", route="cuda",
+                source="apex_tpu_torch/csrc/fp8_matmul.cu",
+                replaces="apex_tpu/ops/fp8_matmul.py:76",
+                shape="m8 K1024 N3072 (decode qkv): bf16 x, e4m3 [K, N] "
+                      "weight, fp32 device scale (by_shape: the four decode "
+                      "linears and prefill fc1 at m512)",
+                max_abs_err=max(s["max_abs_err"] for s in shapes),
+                tolerance="2 bf16 ulp + 1e-3", ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=None,
+                library="none computes it in one call; bf16_matmul_ms is "
+                        "torch.matmul on the unquantized bf16 weight, what "
+                        "fp8 streaming competes with",
+                bf16_matmul_ms=main["bf16_matmul_ms"],
+                ms_repeat=shapes[-1]["ms"], by_shape=shapes)
+
+
+def check_e4m3_cast(torch):
+    """The codec's quantize on the card against the CPU's, bitwise: fp32
+    values over every e4m3 binade, the subnormals and past the maximum."""
+    from apex_tpu_torch.amp import fp8
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    n = 1 << 20
+    x = torch.randn(n, generator=gen, device="cuda") * torch.exp2(
+        torch.randint(-14, 12, (n,), generator=gen, device="cuda").float())
+    for s in (1.0, 0.37, 12.5, 3e-3):
+        sc = torch.tensor(s, device="cuda")
+        got = fp8.quantize(x, sc, fp8.E4M3).view(torch.uint8).cpu()
+        want = fp8.quantize(x.cpu(), sc.cpu(), fp8.E4M3).view(torch.uint8)
+        bad = int((got != want).sum())
+        check(bad == 0, f"e4m3 cast: {bad} of {n} bytes differ from the "
+              f"CPU's at scale {s}")
+    amax = x.abs().amax()
+    for margin in (0.0, 2.0):
+        a = fp8.compute_scale(amax, fp8.E4M3_MAX, margin).cpu()
+        b = fp8.compute_scale(amax.cpu(), fp8.E4M3_MAX, margin)
+        check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+              "compute_scale on the card differs from the CPU's")
+    return dict(values=n, scales=4, bitwise_equal=True)
+
+
 def check_layer_norm(torch, timer):
     import torch.nn.functional as F
     from apex_tpu_torch.ops import layer_norm as ln
@@ -538,6 +669,14 @@ def check_lm_head_ce(torch, timer):
 
 N_REQUESTS, N_NEW = 16, 64
 
+# the serve paths: the bf16 engine (PR 1), fp8 weights + fp8 KV, and
+# speculative decoding over fp8 weights with the default 6-layer draft
+SERVE_PATHS = {
+    "serve": {},
+    "serve-fp8": dict(fp8_weights=True, fp8_kv=True),
+    "serve-spec-fp8w": dict(fp8_weights=True, spec_k=4),
+}
+
 
 def gpt_config():
     import torch
@@ -546,48 +685,82 @@ def gpt_config():
                      num_layers=12, num_heads=16, dtype=torch.bfloat16)
 
 
-def make_engine(cfg, params):
+def make_engine(cfg, params, **kw):
     from apex_tpu_torch.serve import ServeEngine
     return ServeEngine(cfg, params, num_pages=72, page_size=128,
                        max_seq_len=1024, max_prompt_len=512, max_batch=8,
-                       record_logits=True)
+                       record_logits=True, **kw)
 
 
 def counters():
+    """Each kernel's launch counter as (wrapper, attribute): the fp8
+    variant of paged decode counts apart from the bf16 kernel."""
     from apex_tpu_torch.ops import flash_attention as fa
+    from apex_tpu_torch.ops import fp8_matmul as mm
     from apex_tpu_torch.ops import layer_norm as ln
     from apex_tpu_torch.ops import lm_head_ce as ce
-    return {"flash_fwd": fa.flash_attention,
-            "paged_decode": fa.paged_decode_attention,
-            "layer_norm_fwd": ln.fused_layer_norm_affine,
-            "flash_bwd": fa.flash_attention_bwd,
-            "layer_norm_bwd": ln.layer_norm_bwd,
-            "lm_head_ce_fwd": ce.lm_head_ce_fwd,
-            "lm_head_ce_bwd": ce.lm_head_ce_bwd}
+    return {"flash_fwd": (fa.flash_attention, "launches"),
+            "paged_decode": (fa.paged_decode_attention, "launches"),
+            "paged_decode_fp8": (fa.paged_decode_attention, "fp8_launches"),
+            "layer_norm_fwd": (ln.fused_layer_norm_affine, "launches"),
+            "flash_bwd": (fa.flash_attention_bwd, "launches"),
+            "layer_norm_bwd": (ln.layer_norm_bwd, "launches"),
+            "lm_head_ce_fwd": (ce.lm_head_ce_fwd, "launches"),
+            "lm_head_ce_bwd": (ce.lm_head_ce_bwd, "launches"),
+            "fp8_matmul": (mm.fp8_dequant_matmul, "launches")}
 
 
 def reset_counters():
-    for fn in counters().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counters():
-    return {k: fn.launches for k, fn in counters().items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
 
 
-def run_main_path(torch, cfg, params):
-    # warm-up: cuBLAS handles and Triton's first compile stay out of the
-    # timed run (a separate engine, so its steps are not counted)
-    warm = make_engine(cfg, params)
-    warm.add_request(list(range(1, 65)), 2)
+def serve_prompts(cfg):
+    rng = np.random.RandomState(0)
+    lens = rng.randint(64, 513, size=N_REQUESTS)
+    return [rng.randint(0, cfg.vocab_size, size=n).tolist() for n in lens]
+
+
+def expected_serve_launches(path, eng, n_prefill, n_decode):
+    """Launches of each kernel over a drained run: per layer one flash
+    forward per prefill and one paged decode per decode step (verify call
+    under speculation), 2 LayerNorms per layer plus the final one per
+    forward, 4 block linears per layer through the fp8 matmul with fp8
+    weights; a draft call runs the draft's layers the same way."""
+    L = eng.cfg.num_layers
+    exp = {k: 0 for k in counters()}
+    steps = n_prefill + n_decode
+    exp["flash_fwd"] = L * n_prefill
+    exp["layer_norm_fwd"] = (2 * L + 1) * steps
+    decode = "paged_decode_fp8" if eng.ccfg.fp8 else "paged_decode"
+    exp[decode] = L * n_decode
+    if eng.fp8_weights:
+        exp["fp8_matmul"] = 4 * L * steps
+    if eng.spec_k:
+        Ld, calls = eng.draft_cfg.num_layers, eng.draft_calls
+        exp["paged_decode"] += Ld * calls
+        exp["layer_norm_fwd"] += (2 * Ld + 1) * calls
+        exp["fp8_matmul"] += 4 * Ld * calls
+    return exp
+
+
+def run_serve_path(torch, cfg, params, path, n_requests=N_REQUESTS):
+    """Drain ``n_requests`` requests through the engine of ``path`` after a
+    warm-up engine (cuBLAS handles, Triton's first compile and the
+    kernels' first loads stay out of the timed, counted run)."""
+    kw = SERVE_PATHS[path]
+    warm = make_engine(cfg, params, **kw)
+    warm.add_request(list(range(1, 65)), 6)
     warm.run()
     del warm
     torch.cuda.synchronize()
 
-    eng = make_engine(cfg, params)
-    rng = np.random.RandomState(0)
-    lens = rng.randint(64, 513, size=N_REQUESTS)
-    prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist() for n in lens]
+    eng = make_engine(cfg, params, **kw)
+    prompts = serve_prompts(cfg)[:n_requests]
     ids = [eng.add_request(p, N_NEW) for p in prompts]
     reset_counters()
     t0 = time.perf_counter()
@@ -597,46 +770,96 @@ def run_main_path(torch, cfg, params):
     launches = read_counters()
 
     check(all(len(out[i]) == N_NEW for i in ids),
-          "a request did not return 64 tokens")
+          f"{path}: a request did not return {N_NEW} tokens")
     check(eng.sched.allocator.free_pages == eng.ccfg.num_pages - 1,
-          "pages were not all returned")
-    check(eng.slots == [None] * eng.max_batch, "a slot leaked")
+          f"{path}: pages were not all returned")
+    check(eng.slots == [None] * eng.max_batch, f"{path}: a slot leaked")
     check(sum(eng.seqs[i].n_preemptions for i in ids) == 0,
-          "a preemption happened: the launch counts below assume none")
+          f"{path}: a preemption happened: the launch counts assume none")
     n_prefill = len(eng.prefill_times)
     n_decode = len(eng.decode_step_times)
-    check(n_prefill == N_REQUESTS, f"{n_prefill} prefills")
-    expect = {"flash_fwd": 12 * n_prefill, "paged_decode": 12 * n_decode,
-              "layer_norm_fwd": 25 * (n_prefill + n_decode),
-              "flash_bwd": 0, "layer_norm_bwd": 0, "lm_head_ce_fwd": 0,
-              "lm_head_ce_bwd": 0}
+    check(n_prefill == n_requests, f"{path}: {n_prefill} prefills")
+    expect = expected_serve_launches(path, eng, n_prefill, n_decode)
     for k in expect:
         check(launches[k] == expect[k],
-              f"{k}: {launches[k]} launches, expected {expect[k]}")
-    for k in ("flash_fwd", "paged_decode", "layer_norm_fwd"):
-        check(launches[k] > 0, f"{k} never launched on the serve path")
+              f"{path} {k}: {launches[k]} launches, expected {expect[k]}")
+    if eng.fp8_weights:
+        check(launches["fp8_matmul"] > 0, f"{path}: fp8 matmul never ran")
+    if eng.ccfg.fp8:
+        check(launches["paged_decode_fp8"] > 0 and
+              launches["paged_decode"] == 0,
+              f"{path}: decode did not go through the fp8 kernel alone")
 
-    full = [t for t, n in zip(eng.decode_step_times, eng.decode_step_sizes)
+    dec_ms = [1e3 * t for t in eng.decode_step_times]
+    full = [1e3 * t for t, n in zip(eng.decode_step_times,
+                                    eng.decode_step_sizes)
             if n == eng.max_batch]
-    dec_tokens = sum(eng.decode_step_sizes)
     stats = dict(
-        requests=N_REQUESTS, new_tokens=N_NEW, wall_s=wall,
-        tokens_per_s=eng.tokens_generated / wall,
+        path=path, engine_flags=kw, requests=n_requests, new_tokens=N_NEW,
+        wall_s=wall, tokens_per_s=eng.tokens_generated / wall,
         prefill_ms_by_len=sorted((n, 1e3 * t) for n, t in eng.prefill_times),
+        prefill_ms_median=float(np.median([1e3 * t for _, t in
+                                           eng.prefill_times])),
         decode_steps=n_decode,
-        decode_step_ms_batch8_median=1e3 * float(np.median(full)),
-        decode_step_ms_batch8_p90=1e3 * float(np.percentile(full, 90)),
-        decode_steps_batch8=len(full),
-        decode_tokens_per_s=dec_tokens / sum(eng.decode_step_times),
+        decode_step_ms_median=float(np.median(dec_ms)),
+        decode_step_ms_p90=float(np.percentile(dec_ms, 90)),
+        decode_tokens_per_s=sum(eng.decode_step_sizes)
+        / sum(eng.decode_step_times),
+        pool_bytes=eng.ccfg.pool_bytes(),
         launches=launches)
-    return eng, ids, stats
+    if full:
+        stats.update(decode_step_ms_batch8_median=float(np.median(full)),
+                     decode_step_ms_batch8_p90=float(np.percentile(full, 90)),
+                     decode_steps_batch8=len(full))
+    if eng.spec_k:
+        stats.update(spec_k=eng.spec_k, draft_layers=eng.draft_cfg.num_layers,
+                     spec_rounds=eng.spec_rounds,
+                     draft_calls=eng.draft_calls,
+                     draft_tokens=eng.draft_tokens,
+                     accepted_tokens=eng.accepted_tokens,
+                     accept_rate=eng.accepted_tokens
+                     / max(1, eng.draft_tokens),
+                     tokens_per_round=(eng.accepted_tokens
+                                       + eng.spec_rounds)
+                     / max(1, eng.spec_rounds),
+                     draft_pool_bytes=eng.draft_ccfg.pool_bytes())
+    return eng, ids, out, stats
+
+
+def spec_identity(torch, cfg, params, spec, ids, out):
+    """The speculative engine's tokens against a plain ``fp8_weights``
+    engine's on the same requests (the JAX contract: a verify row is
+    bitwise the plain-decode row). Returns the first differing (request,
+    token index) or None, and how many recorded logits rows are bitwise
+    equal."""
+    plain = make_engine(cfg, params, fp8_weights=True)
+    pids = [plain.add_request(p, N_NEW) for p in serve_prompts(cfg)]
+    pout = plain.run()
+    torch.cuda.synchronize()
+    first = None
+    for sid, pid in zip(ids, pids):
+        a, b = out[sid], pout[pid]
+        diff = [i for i in range(N_NEW) if a[i] != b[i]]
+        if diff and first is None:
+            first = (sid, diff[0])
+    rows = same = 0
+    for sid, pid in zip(ids, pids):
+        for pos, row in plain.logits_log[pid].items():
+            other = spec.logits_log[sid].get(pos)
+            if other is not None:
+                rows += 1
+                same += int(np.array_equal(row, other))
+    return dict(requests=len(ids), first_token_divergence=first,
+                logits_rows_compared=rows, logits_rows_bitwise_equal=same)
 
 
 def teacher_forced(torch, cfg, params, eng, ids):
     """The plain no-cache forward over prompt + generated tokens against the
-    engine's recorded logits, every generated position of two requests."""
+    engine's recorded logits, every generated position of two requests.
+    ``params`` is what the engine serves (the quantized view under fp8
+    weights, whose plain forward runs the dequant-matmul's plain version)."""
     from apex_tpu_torch.serve.model import full_forward_logits
-    worst, worst_gap, n_pos, n_flip = 0.0, 0.0, 0, 0
+    worst, worst_gap, n_pos, n_flip, mag = 0.0, 0.0, 0, 0, 0.0
     for sid in ids[:2]:
         seq = eng.seqs[sid]
         lp = len(seq.prompt)
@@ -655,14 +878,20 @@ def teacher_forced(torch, cfg, params, eng, ids):
             for r, p in enumerate(chunk):
                 got = eng.logits_log[sid][p]
                 worst = max(worst, float(np.abs(got - ref[r]).max()))
+                mag = max(mag, float(np.abs(ref[r]).max()))
                 n_pos += 1
                 a, b = int(got.argmax()), int(ref[r].argmax())
                 if a != b:
                     n_flip += 1
                     worst_gap = max(worst_gap, float(ref[r][b] - ref[r][a]))
-    return dict(positions=n_pos, max_abs_diff=worst, argmax_flips=n_flip,
-                worst_flip_gap=worst_gap)
+    return dict(positions=n_pos, max_abs_diff=worst, max_abs_logit=mag,
+                argmax_flips=n_flip, worst_flip_gap=worst_gap)
 
+
+# fp8 KV against the plain forward over the same quantized weights: the
+# e4m3 round trip of K and V is the only difference besides the kernels';
+# the bound tests/test_serve.py holds the JAX fp8 cache to
+TF_FP8_FRAC = 0.15
 
 # max |logit| diff, bf16 engine vs the plain forward: ~6 bf16 ulps at the
 # largest logits (|logit| < 4, ulp 2^-6); an argmax flip is allowed only
@@ -678,7 +907,8 @@ TF_TIE = 2 * TF_TOL
 TRAIN_B, TRAIN_S, TRAIN_STEPS, LR = 8, 1024, 8, 3e-4
 TRAIN_PER_STEP = {"flash_fwd": 12, "flash_bwd": 12, "layer_norm_fwd": 25,
                   "layer_norm_bwd": 25, "lm_head_ce_fwd": 1,
-                  "lm_head_ce_bwd": 1, "paged_decode": 0}
+                  "lm_head_ce_bwd": 1, "paged_decode": 0,
+                  "paged_decode_fp8": 0, "fp8_matmul": 0}
 
 
 def train_batch(torch, cfg):
@@ -844,7 +1074,9 @@ def overflow_check(torch, cfg, model, opt, state, sstate):
 
 _PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_kernel", "paged_decode_kernel",
                  "_ln_fwd_body", "_ln_bwd_body", "ce_fwd_kernel",
-                 "ce_bwd_de_kernel", "ce_bwd_dx_kernel")
+                 "ce_bwd_de_kernel", "ce_bwd_dx_kernel",
+                 "fp8_mm_skinny_kernel", "fp8_mm_reduce_kernel",
+                 "fp8_mm_tc_kernel")
 
 
 def _kernel_class(name: str) -> str:
@@ -907,12 +1139,13 @@ def trace_train(torch, cfg, model, state, sstate, step):
     return _profile(torch, one, 2), box[0], box[1]
 
 
-def trace(torch, cfg, params):
+def trace(torch, cfg, params, path="serve"):
     """torch.profiler over 4 steady decode steps at batch 8 and over two
-    prefills: device time by kernel and the device-busy share of the wall
-    time (``None`` when the profiler records no device time)."""
+    prefills of the engine of ``path``: device time by kernel and the
+    device-busy share of the wall time (``None`` when the profiler records
+    no device time)."""
     from apex_tpu_torch.serve import model as model_mod
-    eng = make_engine(cfg, params)
+    eng = make_engine(cfg, params, **SERVE_PATHS[path])
     rng = np.random.RandomState(1)
     for _ in range(eng.max_batch):
         eng.add_request(rng.randint(0, cfg.vocab_size, size=256).tolist(), 16)
@@ -924,11 +1157,11 @@ def trace(torch, cfg, params):
 
     def prefill():
         with torch.no_grad():
-            model_mod.prefill_forward(cfg, eng.ccfg, params, eng.state, bt,
-                                      400, ids)
+            model_mod.prefill_forward(cfg, eng.ccfg, eng.params, eng.state,
+                                      bt, 400, ids)
 
-    return {"decode_step_b8": _profile(torch, eng.step, 4),
-            "prefill_512": _profile(torch, prefill, 2)}
+    return {f"{path} decode_step_b8": _profile(torch, eng.step, 4),
+            f"{path} prefill_512": _profile(torch, prefill, 2)}
 
 
 def main() -> int:
@@ -949,7 +1182,8 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    sources = ["flash_fwd", "paged_decode", "flash_bwd", "lm_head_ce"]
+    sources = ["flash_fwd", "paged_decode", "flash_bwd", "lm_head_ce",
+               "fp8_matmul"]
     _build.build_all(sources)
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name in sources:
@@ -958,8 +1192,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
+    log("e4m3 cast, card against CPU: " + json.dumps(check_e4m3_cast(torch)))
     timer = Timer(torch)
     kernels = [check_flash(torch, timer), check_paged(torch, timer),
+               check_paged_fp8(torch, timer), check_fp8_matmul(torch, timer),
                check_layer_norm(torch, timer), check_flash_bwd(torch, timer),
                check_layer_norm_bwd(torch, timer),
                *check_lm_head_ce(torch, timer)]
@@ -976,9 +1212,11 @@ def main() -> int:
     params = GPT.init_params(cfg, torch.Generator().manual_seed(0),
                              device="cuda")
     log(f"params: {time.perf_counter() - t0:.1f} s")
-    eng, ids, stats = run_main_path(torch, cfg, params)
-    log(f"serve path ({card}): " + json.dumps(stats))
+    serve_stats = {}
 
+    eng, ids, _, stats = run_serve_path(torch, cfg, params, "serve")
+    serve_stats["serve"] = stats
+    log(f"serve path ({card}): " + json.dumps(stats))
     tf = teacher_forced(torch, cfg, params, eng, ids)
     log("teacher-forced: " + json.dumps(tf) + f" (tolerance {TF_TOL}, "
         f"near-tie margin {TF_TIE})")
@@ -986,8 +1224,37 @@ def main() -> int:
           f"teacher-forced logits differ by {tf['max_abs_diff']}")
     check(tf["worst_flip_gap"] <= TF_TIE,
           f"argmax flip with plain gap {tf['worst_flip_gap']}")
-    serve_trace = trace(torch, cfg, params)
-    del eng, params
+    del eng
+
+    eng, ids, _, stats = run_serve_path(torch, cfg, params, "serve-fp8")
+    stats["pool_bytes_bf16_engine"] = serve_stats["serve"]["pool_bytes"]
+    serve_stats["serve-fp8"] = stats
+    log(f"serve-fp8 path ({card}): " + json.dumps(stats))
+    tf8 = teacher_forced(torch, cfg, eng.params, eng, ids)
+    tol8 = TF_FP8_FRAC * max(tf8["max_abs_logit"], 1.0)
+    log("serve-fp8 teacher-forced, plain forward over the same e4m3 "
+        f"weights: {json.dumps(tf8)} (tolerance {TF_FP8_FRAC} x max|logit| "
+        f"= {tol8})")
+    check(tf8["max_abs_diff"] <= tol8,
+          f"serve-fp8 teacher-forced logits differ by {tf8['max_abs_diff']}")
+    del eng
+
+    spec, ids, out, stats = run_serve_path(torch, cfg, params,
+                                           "serve-spec-fp8w")
+    stats["pool_bytes_bf16_engine"] = serve_stats["serve"]["pool_bytes"]
+    serve_stats["serve-spec-fp8w"] = stats
+    log(f"serve-spec-fp8w path ({card}): " + json.dumps(stats))
+    ident = spec_identity(torch, cfg, params, spec, ids, out)
+    log("serve-spec-fp8w against a plain fp8-weights engine: "
+        + json.dumps(ident))
+    check(ident["first_token_divergence"] is None,
+          f"speculative tokens differ from plain decode: {ident}")
+    del spec
+    torch.cuda.empty_cache()
+
+    serve_trace = {**trace(torch, cfg, params, "serve"),
+                   **trace(torch, cfg, params, "serve-fp8")}
+    del params
     torch.cuda.empty_cache()
 
     model, opt, state, sstate, step, tstats = run_train_path(torch, cfg)
@@ -1007,9 +1274,10 @@ def main() -> int:
     log("trace: " + json.dumps({**serve_trace, "train_step": train_trace}))
 
     for kr in kernels:
-        by_path = {"serve": stats["launches"][kr["name"]],
-                   "train": tstats["launches"][kr["name"]]}
-        kr["launches"] = by_path["serve"] + by_path["train"]
+        by_path = {path: st["launches"][kr["name"]]
+                   for path, st in serve_stats.items()}
+        by_path["train"] = tstats["launches"][kr["name"]]
+        kr["launches"] = sum(by_path.values())
         kr["launches_by_path"] = by_path
         check(kr["launches"] > 0, f"{kr['name']} never launched on a main "
               "path")

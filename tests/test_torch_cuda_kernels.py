@@ -8,9 +8,12 @@ without one. Run on the card, without the JAX test configuration::
 
 Tolerances: bf16 outputs within two bf16 ulps of the plain version plus an
 absolute floor (4e-3 for flash attention, whose kernel rounds p to bf16
-before the PV product; 1e-3 for paged decode); fp32 lse within 1e-3; fp32
-LayerNorm outputs within 1e-5 relative; half-precision LayerNorm outputs
-within one ulp.
+before the PV product; 1e-3 for paged decode, bf16 or fp8 pool, and for the
+fp8 dequant-matmul, whose fp32 sums run in another order than the plain
+version's); fp32 lse within 1e-3; fp32 LayerNorm outputs within 1e-5
+relative; half-precision LayerNorm outputs within one ulp. The e4m3 cast on
+the card is bitwise the CPU's, and the fp8 engines keep the serve path's
+bitwise contracts (preempt/resume, speculative against plain decode).
 
 Backward kernels: the flash backward rounds p and ds to bf16 before its
 products (as the TPU kernel does) where the plain version (the JAX
@@ -29,7 +32,9 @@ import numpy as np
 import pytest
 import torch
 
+from apex_tpu_torch.amp import fp8
 from apex_tpu_torch.ops import flash_attention as fa
+from apex_tpu_torch.ops import fp8_matmul as mm
 from apex_tpu_torch.ops import layer_norm as ln
 from apex_tpu_torch.ops import lm_head_ce as ce
 
@@ -150,10 +155,23 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
     pages = _rand(gen, 2, 4, 8, 64)
     bt = torch.zeros(2, 2, dtype=torch.int32, device="cuda")
     sl = torch.zeros(2, dtype=torch.int32, device="cuda")
-    with pytest.raises(NotImplementedError, match="fp8"):
+    with pytest.raises(ValueError, match="float8_e4m3fn"):   # bf16 pages
         fa.paged_decode_attention(qp, pages, pages, bt, sl,
                                   k_scales=torch.ones(2, 4, device="cuda"),
                                   v_scales=torch.ones(2, 4, device="cuda"))
+    pages8 = pages.to(torch.float8_e4m3fn)
+    with pytest.raises(ValueError, match="num_pages"):
+        fa.paged_decode_attention(qp, pages8, pages8, bt, sl,
+                                  k_scales=torch.ones(2, 5, device="cuda"),
+                                  v_scales=torch.ones(2, 5, device="cuda"))
+    w8 = _rand(gen, 64, 32).to(torch.float8_e4m3fn)
+    one = torch.ones((), device="cuda")
+    with pytest.raises(ValueError, match="bfloat16"):
+        mm.fp8_dequant_matmul(_rand(gen, 8, 64).float(), w8, one)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        mm.fp8_dequant_matmul(_rand(gen, 8, 40), w8[:40], one)
+    with pytest.raises(ValueError, match="one fp32 value"):
+        mm.fp8_dequant_matmul(_rand(gen, 8, 64), w8, one.double())
     with pytest.raises(ValueError, match="int32"):
         fa.paged_decode_attention(qp, pages, pages, bt.long(), sl)
     with pytest.raises(ValueError, match="group"):
@@ -377,3 +395,108 @@ def test_engine_preempt_resume_bit_exact_on_the_card(gen):
         for pos in a.logits_log[sid]:
             assert np.array_equal(a.logits_log[sid][pos],
                                   b.logits_log[sid][pos]), (sid, pos)
+
+
+@pytest.mark.parametrize("m", [8, 512])
+@pytest.mark.parametrize("K,N", [(1024, 3072), (1024, 1024), (1024, 4096),
+                                 (4096, 1024)])
+def test_fp8_matmul_matches_plain(gen, m, K, N):
+    x = _rand(gen, m, K)
+    q, scale = mm.quantize_weight(_rand(gen, K, N, dtype=torch.float32)
+                                  * K ** -0.5)
+    before = mm.fp8_dequant_matmul.launches
+    y = mm.fp8_dequant_matmul(x, q, scale)
+    assert mm.fp8_dequant_matmul.launches == before + 1
+    ref = mm.fp8_dequant_matmul_reference(x, q, scale)
+    assert y.dtype == torch.bfloat16 and y.shape == (m, N)
+    _close(y, ref, 1e-3)
+    # rows never mix: a row's bits do not depend on the rows beside it
+    # (the decode regime serves every m <= 8 through one sum order)
+    if m == 8:
+        y1 = mm.fp8_dequant_matmul(x[3:4].contiguous(), q, scale)
+        assert torch.equal(y1[0], y[3])
+
+
+@pytest.mark.parametrize("b,kv,g,d,page,m,seq_lens", [
+    (3, 2, 3, 64, 16, 4, [13, 0, 64]),
+    (8, 16, 1, 64, 128, 8, [0, 1, 127, 128, 129, 300, 640, 1024]),
+])
+def test_fp8_paged_decode_matches_plain(gen, b, kv, g, d, page, m, seq_lens):
+    num_pages = 1 + b * m
+
+    def pool():
+        x = _rand(gen, kv, num_pages, page, d, dtype=torch.float32)
+        s = fp8.compute_scale(x.abs().amax(dim=(2, 3)), fp8.E4M3_MAX, 2.0)
+        return fp8.quantize(x, s[..., None, None], fp8.E4M3), s
+
+    q = _rand(gen, b, kv, g, d)
+    (kp, ks), (vp, vs) = pool(), pool()
+    rng = np.random.RandomState(sum(seq_lens))
+    bt = rng.permutation(np.arange(1, num_pages))[:b * m].reshape(b, m)
+    bt = torch.from_numpy(bt.astype(np.int32)).cuda()
+    sl = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
+    b16, b8 = fa.paged_decode_attention.launches, \
+        fa.paged_decode_attention.fp8_launches
+    out = fa.paged_decode_attention(q, kp, vp, bt, sl, k_scales=ks,
+                                    v_scales=vs)
+    assert fa.paged_decode_attention.fp8_launches == b8 + 1
+    assert fa.paged_decode_attention.launches == b16
+    ref = fa.paged_attention_reference(q, kp, vp, bt, sl, k_scales=ks,
+                                       v_scales=vs)
+    _close(out, ref, 1e-3)
+    for i, n in enumerate(seq_lens):
+        if n == 0:
+            assert float(out[i].abs().max()) == 0.0
+
+
+def test_e4m3_cast_on_the_card_is_the_cpus(gen):
+    x = _rand(gen, 1 << 16, dtype=torch.float32) * 2.0 ** torch.randint(
+        -14, 12, (1 << 16,), generator=gen, device="cuda")
+    for s in (1.0, 0.37, 12.5):
+        sc = torch.tensor(s, device="cuda")
+        got = fp8.quantize(x, sc, fp8.E4M3).view(torch.uint8).cpu()
+        want = fp8.quantize(x.cpu(), sc.cpu(), fp8.E4M3).view(torch.uint8)
+        assert torch.equal(got, want)
+
+
+def test_fp8_engines_on_the_card(gen):
+    """fp8 weights + fp8 KV through the kernels, and speculative decoding
+    over fp8 weights token- and bit-identical to plain decode."""
+    from apex_tpu_torch.models.gpt import GPT, GPTConfig
+    from apex_tpu_torch.serve import ServeEngine
+    cfg = GPTConfig(vocab_size=256, max_seq_len=128, hidden_size=128,
+                    num_layers=2, num_heads=2, dtype=torch.bfloat16)
+    params = GPT.init_params(cfg, torch.Generator().manual_seed(0))
+    prompts = [[5, 9, 17, 3, 40, 22, 8], [11, 2, 33, 60, 7, 7, 1, 90, 4]]
+
+    def run(preempt_at=None, **kw):
+        eng = ServeEngine(cfg, params, num_pages=32, max_seq_len=64,
+                          max_prompt_len=16, page_size=8, max_batch=4,
+                          record_logits=True, fp8_weights=True, **kw)
+        ids = [eng.add_request(p, 12) for p in prompts]
+        steps = 0
+        while eng.sched.has_work:
+            eng.step()
+            steps += 1
+            if steps == preempt_at:
+                eng.preempt(ids[0])
+        return eng, ids
+
+    def same(a, b, ids):
+        for sid in ids:
+            assert a.seqs[sid].tokens == b.seqs[sid].tokens
+            assert set(a.logits_log[sid]) == set(b.logits_log[sid])
+            for pos in a.logits_log[sid]:
+                assert np.array_equal(a.logits_log[sid][pos],
+                                      b.logits_log[sid][pos]), (sid, pos)
+
+    l8 = fa.paged_decode_attention.fp8_launches
+    kv, ids = run(fp8_kv=True)
+    assert fa.paged_decode_attention.fp8_launches > l8
+    kv_pre, _ = run(fp8_kv=True, preempt_at=4)
+    assert kv_pre.seqs[ids[0]].n_preemptions == 1
+    same(kv, kv_pre, ids)
+    plain, _ = run()
+    spec, _ = run(spec_k=3)
+    assert spec.spec_rounds > 0
+    same(plain, spec, ids)

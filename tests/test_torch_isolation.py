@@ -49,7 +49,8 @@ def test_importing_serve_loads_no_jax_and_builds_nothing():
         "import sys, json\n"
         "import apex_tpu_torch.serve, apex_tpu_torch.amp\n"
         "import apex_tpu_torch.optimizers, apex_tpu_torch.utils\n"
-        "import apex_tpu_torch.ops.lm_head_ce\n"
+        "import apex_tpu_torch.ops.lm_head_ce, apex_tpu_torch.ops.fp8_matmul\n"
+        "import apex_tpu_torch.amp.fp8, apex_tpu_torch.serve.spec\n"
         "from apex_tpu_torch.ops import _build\n"
         "mods = set(sys.modules)\n"
         "print(json.dumps({\n"
@@ -89,3 +90,29 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
         amp.LossScaler("dynamic")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         amp.init_state()
+
+
+def test_new_modules_are_checked_for_imports():
+    checked = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    for mod in ("apex_tpu_torch/amp/fp8.py", "apex_tpu_torch/ops/fp8_matmul.py",
+                "apex_tpu_torch/serve/spec.py"):
+        assert mod in checked
+
+
+def test_fp8_serving_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    from apex_tpu_torch import serve
+    from apex_tpu_torch.models.gpt import GPT, GPTConfig
+    from apex_tpu_torch.serve import cache
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = GPTConfig(vocab_size=16, max_seq_len=16, hidden_size=8,
+                    num_layers=2, num_heads=2, dtype=torch.float32)
+    params = GPT.init_params(cfg, device="cpu")
+    for kw in (dict(fp8_kv=True, fp8_weights=True),
+               dict(fp8_weights=True, spec_k=2)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve.ServeEngine(cfg, params, num_pages=4, max_seq_len=16,
+                              max_prompt_len=8, **kw)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cache.init_cache(cache.CacheConfig(num_layers=1, kv_heads=2,
+                                           head_dim=4, num_pages=4,
+                                           page_size=8, fp8=True))
