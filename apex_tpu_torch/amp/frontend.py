@@ -5,9 +5,14 @@
   :class:`AmpModel` around the ``nn.Module`` and the optimizer with the
   opt level's master-weight mode and loss scaler attached.
 - ``amp_model.cast_params()`` casts the module's parameters in place per
-  the opt level. As in the JAX package, only batchnorm-named parameters
-  are exempt under O2 (``_is_norm_param``): LayerNorm weights and biases
-  go to the half type too.
+  the opt level. Under O2 (``keep_batchnorm_fp32``) the parameters of
+  every module that owns running statistics stay fp32, whatever its name
+  — the structural ``isinstance(_BatchNorm)`` rule, which the JAX package
+  reads from the ``batch_stats`` collection (``_batch_stats_scopes``) and
+  the port from ``running_mean``/``running_var`` buffers — with the name
+  heuristic ``_is_norm_param`` as the fallback. LayerNorm weights and
+  biases, which own no running statistics, go to the half type, in both
+  packages. Buffers are never cast.
 - ``make_train_step(loss_fn, optimizer)`` builds the hot loop: scaled
   loss → backward → unscale with overflow detection → optimizer step
   skipped on the device when a gradient overflowed → scaler update. The
@@ -30,7 +35,7 @@ from apex_tpu_torch.amp._amp_state import _amp_state, maybe_print, \
     warn_or_err
 from apex_tpu_torch.amp.properties import Properties, opt_levels
 from apex_tpu_torch.amp.scaler import LossScaler, ScalerState
-from apex_tpu_torch.utils.tree import cast_floating
+from apex_tpu_torch.utils.tree import cast_floating, path_names
 
 
 def _is_norm_param(path_names: tuple) -> bool:
@@ -39,6 +44,22 @@ def _is_norm_param(path_names: tuple) -> bool:
     ``BatchNorm*`` / ``bn*`` / ``batch_stats``."""
     joined = "/".join(path_names).lower()
     return any(k in joined for k in ("batchnorm", "batch_norm", "batch_stats", "/bn", "bn_", "sync_bn", "syncbn"))
+
+
+_RUNNING_STATS = ("running_mean", "running_var")
+
+
+def _batch_stats_scopes(module: nn.Module) -> frozenset:
+    """Path names of the modules that own running statistics (a
+    ``running_mean`` or ``running_var`` buffer) — the structural signal of
+    a batch norm, whatever the module is called. The JAX package reads the
+    same from the scopes of the ``batch_stats`` collection."""
+    scopes = set()
+    for name, _ in module.named_buffers():
+        names = path_names(name)
+        if names[-1] in _RUNNING_STATS:
+            scopes.add(names[:-1])
+    return frozenset(scopes)
 
 
 def _cast_tensors(obj, dtype):
@@ -60,19 +81,29 @@ class AmpModel:
                  keep_fp32_predicate: Optional[Callable] = None):
         self.module = module
         self.properties = properties
+        self._keep_fp32_is_default = keep_fp32_predicate is None
         self._keep_fp32 = keep_fp32_predicate or (
             (lambda names, x: not _is_norm_param(names))
             if properties.keep_batchnorm_fp32 else None)
 
     def cast_params(self, module: Optional[nn.Module] = None) -> nn.Module:
         """Cast the module's parameters in place per the opt level and
-        return the module. O2/O3: floating parameters -> half (batchnorm
-        parameters exempt under O2); O0: -> fp32."""
+        return the module. O2/O3: floating parameters -> half; under O2
+        the parameters of modules owning running statistics stay fp32
+        (structurally, else by name: module docstring); an explicit
+        ``keep_fp32_predicate`` overrides both. O0: -> fp32."""
         module = self.module if module is None else module
         ct = self.properties.cast_model_type
         if ct is None:
             return module
-        return cast_floating(module, ct, self._keep_fp32)
+        keep = self._keep_fp32
+        if self._keep_fp32_is_default and self.properties.keep_batchnorm_fp32:
+            scopes = _batch_stats_scopes(module)
+            if scopes:
+                def keep(names, x, _scopes=scopes):
+                    return not (names[:-1] in _scopes
+                                or _is_norm_param(names))
+        return cast_floating(module, ct, keep)
 
     def __call__(self, *args, **kwargs):
         p = self.properties

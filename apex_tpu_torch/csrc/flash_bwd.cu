@@ -1,43 +1,59 @@
 // Flash-attention backward for Hopper (sm_90a): dq, dk, dv from q, k, v, the
 // output gradient do (bf16), the forward's lse and delta = rowsum(do * out)
 // (fp32, computed by the caller as the JAX package computes it outside its
-// kernel).
+// kernels). Three kernels, the three Pallas backward kernels of
+// apex_tpu/ops/flash_attention.py:
 //
-// Replaces the Pallas kernel `_bwd_fused_kernel` of
-// apex_tpu/ops/flash_attention.py (:604, launched by `_flash_bwd_impl`
-// :787): the single-pass backward that recomputes p = exp(s * scale - lse)
-// ONCE per (q block, k block) pair and feeds it to all three gradients.
-// Same masking rules as the forward (flash_fwd.cu): causal with the
-// end-aligned offset sk - sq, segment ids whose negative values are padding,
-// p = 0 wherever the mask is false — so padding rows (lse -1e30) give zero
-// dq and add nothing to dk or dv. As in the Pallas kernel, p is rounded to
-// bf16 before the dv product, ds = p * (dp - delta) is rounded to bf16 once
-// and feeds both the dk and the dq products, and the softmax scale is
-// applied to dk at the finish.
+// - flash_bwd_kernel replaces `_bwd_fused_kernel` (:604, launched by
+//   `_flash_bwd_impl` :787): the single-pass backward that recomputes
+//   p = exp(s * scale - lse) ONCE per (q block, k block) pair and feeds it to
+//   all three gradients;
+// - flash_dkdv_kernel replaces `_dkdv_kernel` (:558, launched at :805): dk
+//   and dv only, a k block resident while every q block streams past;
+// - flash_dq_kernel replaces `_dq_kernel` (:671, launched at :820): dq only,
+//   a q block resident while every k block streams past.
 //
-// Bound on the H100: five products of 2 * d flops per live (q, k) pair
-// (s, dp, dv, dk, dq) — 42.9 GFLOP at the causal training shape b8 h16
-// s1024 d64, 0.043 ms at 989 TFLOP/s — against q, k, v, do, dq, dk, dv in
-// bf16 plus lse, delta once (~135 MB, 0.040 ms): nearly balanced.
+// The JAX package takes the two-kernel split past its 2 MB VMEM gate
+// (`_FUSED_BWD_MAX_KV_BYTES`); the wrapper (ops/flash_attention.py) routes
+// the same shapes the same way. Same masking rules as the forward
+// (flash_fwd.cu): causal with the end-aligned offset sk - sq, segment ids
+// whose negative values are padding, p = 0 wherever the mask is false — so
+// padding rows (lse -1e30) give zero dq and add nothing to dk or dv. As in
+// the Pallas kernels, p is rounded to bf16 before the dv product, ds =
+// p * (dp - delta) is rounded to bf16 once before the dk and the dq
+// products, and the softmax scale is applied at the finish.
 //
-// Design. The TPU kernel keeps per-(b, h) dk/dv accumulators for the whole
-// [sk, d] in VMEM across its sequential grid; a GPU grid has no order. Here
-// one thread block owns a tile of 64 keys of one (batch, head): it holds
-// K and V in shared memory, keeps its dk and dv in fp32 registers (four
-// warps, 16 keys each) and loops over the q tiles of 64 rows from the first
-// one the causal mask lets see its keys. Per q tile each warp computes
-// S^T = K Q^T and dP^T = V dO^T for its keys on the tensor cores
-// (`mma.sync.m16n8k16`, bf16 in, fp32 accumulate), forms P^T and dS^T in
-// registers, and accumulates dV += P^T dO and dK += dS^T Q with the
-// accumulator fragments converted in registers to A operands. dQ needs a
-// sum over every key block of the (b, h): the block stages dS (bf16) in
-// shared memory, computes its [64, d] share dS K and adds it with fp32
-// atomicAdd into a zeroed [b, h, sq, d] fp32 workspace that the caller
-// casts to bf16. The atomics make dq's summation order vary from run to
-// run (a last-bit effect in fp32). Tiles are loaded synchronously; the B
-// operands that need a transposed layout (Q, dO, K) are stored transposed
-// as well, so every fragment is a 32-bit shared load. wgmma/TMA and a
-// pipelined ring are later work.
+// Bounds on the H100, per live (q, k) pair at head dim d: the single pass
+// does five products of 2 * d flops (s, dp, dv, dk, dq) — 42.9 GFLOP at the
+// causal training shape b8 h16 s1024 d64, 0.043 ms at 989 TFLOP/s, against
+// ~135 MB of q, k, v, do, dq, dk, dv, lse, delta (0.040 ms): nearly
+// balanced. The split recomputes s and dp in both kernels: four products
+// in dk/dv (s, dp, dv, dk), three in dq (s, dp, dq), seven in all.
+//
+// Design. The TPU kernels keep fp32 accumulators in VMEM across a
+// sequential grid; a GPU grid has no order. Here a thread block of four
+// warps owns a 64-row tile and loops over the other side's 64-row tiles,
+// with its accumulators in fp32 registers (16 rows a warp), products on the
+// tensor cores (`mma.sync.m16n8k16`, bf16 in, fp32 accumulate) and the
+// accumulator fragments of one product converted in registers to the A
+// operand of the next.
+// - k-side blocks (single pass, dk/dv): K and V in shared memory; per q
+//   tile each warp computes S^T = K Q^T and dP^T = V dO^T for its 16 keys,
+//   forms P^T and dS^T in registers and accumulates dV += P^T dO and
+//   dK += dS^T Q. The single pass then stages dS (bf16) in shared memory,
+//   computes the tile's [64, d] share dS K and adds it with fp32 atomicAdd
+//   into a zeroed [b, h, sq, d] fp32 workspace that the caller casts to
+//   bf16 (the atomics make dq's summation order vary from run to run, a
+//   last-bit effect in fp32). The dk/dv kernel stops before that staging:
+//   it keeps no state beyond its own 64 keys at any sequence length, which
+//   is what the split buys.
+// - q-side blocks (dq): Q and dO in shared memory; per k tile each warp
+//   computes S = Q K^T and dP = dO V^T for its 16 rows, forms dS in
+//   registers and accumulates dQ += dS K. No atomics: dq is written once,
+//   in bf16, from its block's registers.
+// Tiles are loaded synchronously; the B operands that need a transposed
+// layout (Q, dO, K) are stored transposed as well, so every fragment is a
+// 32-bit shared load. wgmma/TMA and a pipelined ring are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,8 +61,8 @@
 
 namespace {
 
-constexpr int BLOCK_M = 64;   // q rows per loop step
-constexpr int BLOCK_N = 64;   // keys owned by a block
+constexpr int BLOCK_M = 64;   // q rows per tile
+constexpr int BLOCK_N = 64;   // keys per tile
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int PAD = 8;
@@ -79,6 +95,15 @@ struct Smem {
       (size_t)4 * 64 * 4;
 };
 
+// The dq kernel: sQ, sDO, sK, sV row-major, sKt transposed, key segment ids.
+template <int D>
+struct DqSmem {
+  static constexpr int LDR = Smem<D>::LDR;
+  static constexpr int LDT = Smem<D>::LDT;
+  static constexpr size_t bytes =
+      (size_t)(4 * 64 * LDR + D * LDT) * 2 + (size_t)64 * 4;
+};
+
 // Row-major copy of rows [r0, r0 + 64) of src ([rows, D], zero past `rows`)
 // into dst [64][D + PAD], and optionally its transpose into dt [D][64 + PAD].
 template <int D>
@@ -109,26 +134,23 @@ __device__ __forceinline__ void load_tile(const __nv_bfloat16* src, int r0,
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const __nv_bfloat16* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta,
-                 const int32_t* __restrict__ sid_q,
-                 const int32_t* __restrict__ sid_kv,
-                 float* __restrict__ dq_acc, __nv_bfloat16* __restrict__ dk,
-                 __nv_bfloat16* __restrict__ dv, int h, int sq, int sk,
-                 int causal, float scale) {
+// One block of 64 keys of one (batch, head): dk and dv, and with WITH_DQ
+// the block's dq share added into dq_acc by atomics (the single pass).
+template <int D, bool WITH_DQ>
+__device__ __forceinline__ void kv_block(
+    unsigned char* smem_raw, const __nv_bfloat16* __restrict__ q,
+    const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, const int32_t* __restrict__ sid_q,
+    const int32_t* __restrict__ sid_kv, float* __restrict__ dq_acc,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int h,
+    int sq, int sk, int causal, float scale) {
   constexpr int LDR = Smem<D>::LDR;
   constexpr int LDT = Smem<D>::LDT;
   constexpr int KSTEPS = D / 16;         // k-steps of S^T = K Q^T
   constexpr int DTILES = D / 8;          // n-tiles over d
   constexpr int QTILES = BLOCK_M / 8;    // n-tiles of S^T (q columns)
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sV = sK + 64 * LDR;
   __nv_bfloat16* sQ = sV + 64 * LDR;
@@ -155,7 +177,7 @@ flash_bwd_kernel(const __nv_bfloat16* __restrict__ q,
   const int offset = sk - sq;
   const bool use_seg = sid_q != nullptr;
 
-  load_tile<D>(kb, n0, sk, sK, sKt);
+  load_tile<D>(kb, n0, sk, sK, WITH_DQ ? sKt : nullptr);
   load_tile<D>(vb, n0, sk, sV, nullptr);
   for (int r = tid; r < 64; r += THREADS)
     sSidK[r] = (use_seg && n0 + r < sk) ? sid_kv[(long)bi * sk + n0 + r] : -1;
@@ -252,50 +274,52 @@ flash_bwd_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
 
-    // ---- stage dS (bf16) as [q][key] for the dQ product
+    if constexpr (WITH_DQ) {
+      // ---- stage dS (bf16) as [q][key] for the dQ product
 #pragma unroll
-    for (int j = 0; j < QTILES; ++j)
+      for (int j = 0; j < QTILES; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ql = j * 8 + tig * 2 + (e & 1);
-        const int kl = kw + g + (e < 2 ? 0 : 8);
-        sdS[ql * LDT + kl] = __float2bfloat16_rn(dpt[j][e]);
-      }
-    __syncthreads();
+        for (int e = 0; e < 4; ++e) {
+          const int ql = j * 8 + tig * 2 + (e & 1);
+          const int kl = kw + g + (e < 2 ? 0 : 8);
+          sdS[ql * LDT + kl] = __float2bfloat16_rn(dpt[j][e]);
+        }
+      __syncthreads();
 
-    // ---- dQ[q0 + 16 warp rows, :] += dS K over the 64 keys -> atomics
-    float dqa[DTILES][4];
+      // ---- dQ[q0 + 16 warp rows, :] += dS K over the 64 keys -> atomics
+      float dqa[DTILES][4];
 #pragma unroll
-    for (int t = 0; t < DTILES; ++t)
-      dqa[t][0] = dqa[t][1] = dqa[t][2] = dqa[t][3] = 0.f;
-    const int qw = warp * 16;
+      for (int t = 0; t < DTILES; ++t)
+        dqa[t][0] = dqa[t][1] = dqa[t][2] = dqa[t][3] = 0.f;
+      const int qw = warp * 16;
 #pragma unroll
-    for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
-      uint32_t a[4];
-      const int c = kk * 16 + tig * 2;
-      a[0] = ld32(sdS + (qw + g) * LDT + c);
-      a[1] = ld32(sdS + (qw + g + 8) * LDT + c);
-      a[2] = ld32(sdS + (qw + g) * LDT + c + 8);
-      a[3] = ld32(sdS + (qw + g + 8) * LDT + c + 8);
+      for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
+        uint32_t a[4];
+        const int c = kk * 16 + tig * 2;
+        a[0] = ld32(sdS + (qw + g) * LDT + c);
+        a[1] = ld32(sdS + (qw + g + 8) * LDT + c);
+        a[2] = ld32(sdS + (qw + g) * LDT + c + 8);
+        a[3] = ld32(sdS + (qw + g + 8) * LDT + c + 8);
+#pragma unroll
+        for (int t = 0; t < DTILES; ++t) {
+          const __nv_bfloat16* pk = sKt + (t * 8 + g) * LDT + c;
+          mma_m16n8k16(dqa[t], a, ld32(pk), ld32(pk + 8));
+        }
+      }
+      const int qr0 = q0 + qw + g, qr1 = qr0 + 8;
 #pragma unroll
       for (int t = 0; t < DTILES; ++t) {
-        const __nv_bfloat16* pk = sKt + (t * 8 + g) * LDT + c;
-        mma_m16n8k16(dqa[t], a, ld32(pk), ld32(pk + 8));
-      }
-    }
-    const int qr0 = q0 + qw + g, qr1 = qr0 + 8;
-#pragma unroll
-    for (int t = 0; t < DTILES; ++t) {
-      const int col = t * 8 + tig * 2;
-      if (qr0 < sq) {
-        float* dst = dq_acc + (bh * sq + qr0) * D + col;
-        atomicAdd(dst, dqa[t][0] * scale);
-        atomicAdd(dst + 1, dqa[t][1] * scale);
-      }
-      if (qr1 < sq) {
-        float* dst = dq_acc + (bh * sq + qr1) * D + col;
-        atomicAdd(dst, dqa[t][2] * scale);
-        atomicAdd(dst + 1, dqa[t][3] * scale);
+        const int col = t * 8 + tig * 2;
+        if (qr0 < sq) {
+          float* dst = dq_acc + (bh * sq + qr0) * D + col;
+          atomicAdd(dst, dqa[t][0] * scale);
+          atomicAdd(dst + 1, dqa[t][1] * scale);
+        }
+        if (qr1 < sq) {
+          float* dst = dq_acc + (bh * sq + qr1) * D + col;
+          atomicAdd(dst, dqa[t][2] * scale);
+          atomicAdd(dst + 1, dqa[t][3] * scale);
+        }
       }
     }
   }
@@ -321,19 +345,194 @@ flash_bwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+#define KV_ARGS                                                              \
+  const __nv_bfloat16 *__restrict__ q, const __nv_bfloat16 *__restrict__ k, \
+      const __nv_bfloat16 *__restrict__ v,                                   \
+      const __nv_bfloat16 *__restrict__ dout,                                \
+      const float *__restrict__ lse, const float *__restrict__ delta,        \
+      const int32_t *__restrict__ sid_q, const int32_t *__restrict__ sid_kv, \
+      float *__restrict__ dq_acc, __nv_bfloat16 *__restrict__ dk,            \
+      __nv_bfloat16 *__restrict__ dv, int h, int sq, int sk, int causal,     \
+      float scale
+#define KV_PASS q, k, v, dout, lse, delta, sid_q, sid_kv, dq_acc, dk, dv, h, \
+                sq, sk, causal, scale
+
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* dout, const void* lse, const void* delta,
-                   const void* sid_q, const void* sid_kv, void* dq_acc,
-                   void* dk, void* dv, int b, int h, int sq, int sk,
-                   int causal, float scale, cudaStream_t stream) {
+__global__ void __launch_bounds__(THREADS) flash_bwd_kernel(KV_ARGS) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  kv_block<D, true>(smem_raw, KV_PASS);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS) flash_dkdv_kernel(KV_ARGS) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  kv_block<D, false>(smem_raw, KV_PASS);
+}
+
+// One block of 64 q rows of one (batch, head): dq, no atomics.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_dq_kernel(const __nv_bfloat16* __restrict__ q,
+                const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v,
+                const __nv_bfloat16* __restrict__ dout,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta,
+                const int32_t* __restrict__ sid_q,
+                const int32_t* __restrict__ sid_kv,
+                __nv_bfloat16* __restrict__ dq, int h, int sq, int sk,
+                int causal, float scale) {
+  constexpr int LDR = DqSmem<D>::LDR;
+  constexpr int LDT = DqSmem<D>::LDT;
+  constexpr int KSTEPS = D / 16;         // k-steps of S = Q K^T over d
+  constexpr int DTILES = D / 8;          // n-tiles of dq over d
+  constexpr int NTILES = BLOCK_N / 8;    // n-tiles of S (key columns)
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sDO = sQ + 64 * LDR;
+  __nv_bfloat16* sK = sDO + 64 * LDR;
+  __nv_bfloat16* sV = sK + 64 * LDR;
+  __nv_bfloat16* sKt = sV + 64 * LDR;              // [d][key]
+  int32_t* sSidK = reinterpret_cast<int32_t*>(sKt + D * LDT);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tig = lane % 4;
+  const int m0 = blockIdx.x * BLOCK_M;
+  const int hh = blockIdx.y, bi = blockIdx.z;
+  const long bh = (long)bi * h + hh;
+  const __nv_bfloat16* kb = k + bh * sk * D;
+  const __nv_bfloat16* vb = v + bh * sk * D;
+  const int offset = sk - sq;
+  const bool use_seg = sid_q != nullptr;
+
+  load_tile<D>(q + bh * sq * D, m0, sq, sQ, nullptr);
+  load_tile<D>(dout + bh * sq * D, m0, sq, sDO, nullptr);
+
+  // this thread's two rows (g and g + 8 of the warp's 16)
+  const int qw = warp * 16;
+  const int row0 = m0 + qw + g, row1 = row0 + 8;
+  const bool in0 = row0 < sq, in1 = row1 < sq;
+  const float lse0 = in0 ? lse[bh * sq + row0] : 0.f;
+  const float lse1 = in1 ? lse[bh * sq + row1] : 0.f;
+  const float dl0 = in0 ? delta[bh * sq + row0] : 0.f;
+  const float dl1 = in1 ? delta[bh * sq + row1] : 0.f;
+  const int sid0 = (use_seg && in0) ? sid_q[(long)bi * sq + row0] : -1;
+  const int sid1 = (use_seg && in1) ? sid_q[(long)bi * sq + row1] : -1;
+
+  float dqa[DTILES][4];
+#pragma unroll
+  for (int t = 0; t < DTILES; ++t)
+    dqa[t][0] = dqa[t][1] = dqa[t][2] = dqa[t][3] = 0.f;
+
+  // causal: the last key any row of the tile sees is its last row + offset
+  const int n_kt = (sk + BLOCK_N - 1) / BLOCK_N;
+  int kt_end = n_kt;
+  if (causal) {
+    const int last = min(sq - 1, m0 + BLOCK_M - 1) + offset;
+    kt_end = last < 0 ? 0 : min(n_kt, last / BLOCK_N + 1);
+  }
+
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int n0 = kt * BLOCK_N;
+    __syncthreads();  // every warp is done with the previous k tile
+    load_tile<D>(kb, n0, sk, sK, sKt);
+    load_tile<D>(vb, n0, sk, sV, nullptr);
+    for (int r = tid; r < 64; r += THREADS)
+      sSidK[r] =
+          (use_seg && n0 + r < sk) ? sid_kv[(long)bi * sk + n0 + r] : -1;
+    __syncthreads();
+
+    // ---- S = Q K^T and dP = dO V^T for this warp's 16 rows x 64 keys
+    float s[NTILES][4], dp[NTILES][4];
+#pragma unroll
+    for (int j = 0; j < NTILES; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      uint32_t aq[4], ad[4];
+      const int c = kk * 16 + tig * 2;
+      aq[0] = ld32(sQ + (qw + g) * LDR + c);
+      aq[1] = ld32(sQ + (qw + g + 8) * LDR + c);
+      aq[2] = ld32(sQ + (qw + g) * LDR + c + 8);
+      aq[3] = ld32(sQ + (qw + g + 8) * LDR + c + 8);
+      ad[0] = ld32(sDO + (qw + g) * LDR + c);
+      ad[1] = ld32(sDO + (qw + g + 8) * LDR + c);
+      ad[2] = ld32(sDO + (qw + g) * LDR + c + 8);
+      ad[3] = ld32(sDO + (qw + g + 8) * LDR + c + 8);
+#pragma unroll
+      for (int j = 0; j < NTILES; ++j) {
+        const __nv_bfloat16* pk = sK + (j * 8 + g) * LDR + c;
+        mma_m16n8k16(s[j], aq, ld32(pk), ld32(pk + 8));
+        const __nv_bfloat16* pv = sV + (j * 8 + g) * LDR + c;
+        mma_m16n8k16(dp[j], ad, ld32(pv), ld32(pv + 8));
+      }
+    }
+
+    // ---- mask, p = exp(s * scale - lse), ds = p * (dp - delta) (in s)
+#pragma unroll
+    for (int j = 0; j < NTILES; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool lo = e < 2;
+        const int row = lo ? row0 : row1;
+        const int key = n0 + j * 8 + tig * 2 + (e & 1);
+        bool ok = row < sq && key < sk && (!causal || key <= row + offset);
+        if (use_seg) {
+          const int sr = lo ? sid0 : sid1;
+          ok = ok && sr >= 0 && sr == sSidK[key - n0];
+        }
+        const float p =
+            ok ? __expf(s[j][e] * scale - (lo ? lse0 : lse1)) : 0.f;
+        s[j][e] = p * (dp[j][e] - (lo ? dl0 : dl1));
+      }
+    }
+
+    // ---- dQ += dS K (k-steps over the 64 keys; dS rounded to bf16)
+#pragma unroll
+    for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
+      uint32_t a[4];
+      a[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int t = 0; t < DTILES; ++t) {
+        const __nv_bfloat16* pk = sKt + (t * 8 + g) * LDT + kk * 16 + tig * 2;
+        mma_m16n8k16(dqa[t], a, ld32(pk), ld32(pk + 8));
+      }
+    }
+  }
+
+  // ---- finish: dq (scaled), once, in bf16
+  __nv_bfloat16* dqb = dq + bh * sq * D;
+#pragma unroll
+  for (int t = 0; t < DTILES; ++t) {
+    const int col = t * 8 + tig * 2;
+    if (in0)
+      *reinterpret_cast<uint32_t*>(dqb + (long)row0 * D + col) =
+          pack_bf16x2(dqa[t][0] * scale, dqa[t][1] * scale);
+    if (in1)
+      *reinterpret_cast<uint32_t*>(dqb + (long)row1 * D + col) =
+          pack_bf16x2(dqa[t][2] * scale, dqa[t][3] * scale);
+  }
+}
+
+template <int D, bool WITH_DQ>
+cudaError_t launch_kv(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      const void* sid_q, const void* sid_kv, void* dq_acc,
+                      void* dk, void* dv, int b, int h, int sq, int sk,
+                      int causal, float scale, cudaStream_t stream) {
   const size_t smem = Smem<D>::bytes;
+  auto kernel = WITH_DQ ? flash_bwd_kernel<D> : flash_dkdv_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((sk + BLOCK_N - 1) / BLOCK_N, h, b);
-  flash_bwd_kernel<D><<<grid, THREADS, smem, stream>>>(
+  kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
@@ -345,32 +544,106 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      const void* sid_q, const void* sid_kv, void* dq, int b,
+                      int h, int sq, int sk, int causal, float scale,
+                      cudaStream_t stream) {
+  const size_t smem = DqSmem<D>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((sq + BLOCK_M - 1) / BLOCK_M, h, b);
+  flash_dq_kernel<D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int32_t*>(sid_q), static_cast<const int32_t*>(sid_kv),
+      static_cast<__nv_bfloat16*>(dq), h, sq, sk, causal, scale);
+  return cudaGetLastError();
+}
+
+template <bool WITH_DQ>
+int dispatch_kv(const void* q, const void* k, const void* v,
+                const void* dout, const void* lse, const void* delta,
+                const void* sid_q, const void* sid_kv, void* dq_acc, void* dk,
+                void* dv, int b, int h, int sq, int sk, int d, int causal,
+                float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (sk <= 0 || b <= 0 || h <= 0) return cudaSuccess;
+  switch (d) {
+    case 32:
+      return launch_kv<32, WITH_DQ>(q, k, v, dout, lse, delta, sid_q, sid_kv,
+                                    dq_acc, dk, dv, b, h, sq, sk, causal,
+                                    scale, st);
+    case 64:
+      return launch_kv<64, WITH_DQ>(q, k, v, dout, lse, delta, sid_q, sid_kv,
+                                    dq_acc, dk, dv, b, h, sq, sk, causal,
+                                    scale, st);
+    case 128:
+      return launch_kv<128, WITH_DQ>(q, k, v, dout, lse, delta, sid_q,
+                                     sid_kv, dq_acc, dk, dv, b, h, sq, sk,
+                                     causal, scale, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // C interface (loaded with ctypes). Device pointers of contiguous tensors:
 // q, dout [b,h,sq,d] and k, v [b,h,sk,d] bf16; lse, delta [b,h,sq] f32;
-// sid_q [b,sq] and sid_kv [b,sk] int32, or both null; dq_acc [b,h,sq,d] f32,
-// ZEROED by the caller (the kernel adds into it, scale applied); dk, dv
-// [b,h,sk,d] bf16 (every element written). Returns the launch's cudaError_t
-// (cudaErrorInvalidValue for an unsupported head dim).
+// sid_q [b,sq] and sid_kv [b,sk] int32, or both null. Each returns the
+// launch's cudaError_t (cudaErrorInvalidValue for an unsupported head dim).
+//
+// The single pass: dq_acc [b,h,sq,d] f32, ZEROED by the caller (the kernel
+// adds into it, scale applied); dk, dv [b,h,sk,d] bf16 (every element
+// written).
 extern "C" int apex_flash_bwd(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* delta, const void* sid_q,
                               const void* sid_kv, void* dq_acc, void* dk,
                               void* dv, int b, int h, int sq, int sk, int d,
                               int causal, float scale, void* stream) {
+  return dispatch_kv<true>(q, k, v, dout, lse, delta, sid_q, sid_kv, dq_acc,
+                           dk, dv, b, h, sq, sk, d, causal, scale, stream);
+}
+
+// The split, dk/dv half: dk, dv [b,h,sk,d] bf16 (every element written).
+extern "C" int apex_flash_bwd_dkdv(const void* q, const void* k,
+                                   const void* v, const void* dout,
+                                   const void* lse, const void* delta,
+                                   const void* sid_q, const void* sid_kv,
+                                   void* dk, void* dv, int b, int h, int sq,
+                                   int sk, int d, int causal, float scale,
+                                   void* stream) {
+  return dispatch_kv<false>(q, k, v, dout, lse, delta, sid_q, sid_kv, nullptr,
+                            dk, dv, b, h, sq, sk, d, causal, scale, stream);
+}
+
+// The split, dq half: dq [b,h,sq,d] bf16 (every element written).
+extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                 const void* dout, const void* lse,
+                                 const void* delta, const void* sid_q,
+                                 const void* sid_kv, void* dq, int b, int h,
+                                 int sq, int sk, int d, int causal,
+                                 float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (sk <= 0 || b <= 0 || h <= 0) return cudaSuccess;
+  if (sq <= 0 || b <= 0 || h <= 0) return cudaSuccess;
   switch (d) {
     case 32:
-      return launch<32>(q, k, v, dout, lse, delta, sid_q, sid_kv, dq_acc, dk,
-                        dv, b, h, sq, sk, causal, scale, st);
+      return launch_dq<32>(q, k, v, dout, lse, delta, sid_q, sid_kv, dq, b, h,
+                           sq, sk, causal, scale, st);
     case 64:
-      return launch<64>(q, k, v, dout, lse, delta, sid_q, sid_kv, dq_acc, dk,
-                        dv, b, h, sq, sk, causal, scale, st);
+      return launch_dq<64>(q, k, v, dout, lse, delta, sid_q, sid_kv, dq, b, h,
+                           sq, sk, causal, scale, st);
     case 128:
-      return launch<128>(q, k, v, dout, lse, delta, sid_q, sid_kv, dq_acc,
-                         dk, dv, b, h, sq, sk, causal, scale, st);
+      return launch_dq<128>(q, k, v, dout, lse, delta, sid_q, sid_kv, dq, b,
+                            h, sq, sk, causal, scale, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -10,11 +10,13 @@ Port of ``apex_tpu/ops/flash_attention.py``:
   (``:604``); on the CPU they are :func:`flash_attention_reference` and
   :func:`flash_attention_bwd_reference` (the JAX ``_bwd_math``). The
   additive bias runs through the plain version on the CPU and raises on
-  CUDA; in-kernel dropout is not ported yet. The two-kernel backward of
-  the JAX package (``_dkdv_kernel``/``_dq_kernel``, which it takes past
-  its 2 MB VMEM gate) is not ported yet; until it is, the single-pass
-  CUDA backward, which keeps no per-(b, h) state on chip, runs at every
-  length.
+  CUDA; in-kernel dropout is not ported yet. Past the JAX package's 2 MB
+  VMEM gate the backward is its two-kernel split: ``flash_dkdv_kernel``
+  and ``flash_dq_kernel`` of the same source replace ``_dkdv_kernel``
+  (``:558``) and ``_dq_kernel`` (``:671``). :func:`uses_split_backward`
+  is the gate, computed as the JAX package computes it at its default
+  backward blocks, so the two packages route the same shapes the same
+  way; the plain backward is the same function either way.
 - :func:`paged_decode_attention` — one query per sequence over the paged KV
   pool. On CUDA it launches ``csrc/paged_decode.cu``, which replaces the
   Pallas ``_paged_decode_kernel`` (``:986``) in both its modes: a bf16
@@ -31,10 +33,11 @@ a negative segment id is padding — it matches nothing, not even another
 padding id — and its output row is exactly zero; causal attention aligns
 the sequence ends (``causal_offset = sk - sq``).
 
-``flash_attention.launches`` (forward), ``flash_attention_bwd.launches``,
-``paged_decode_attention.launches`` (bf16 pool) and
-``paged_decode_attention.fp8_launches`` (e4m3 pool) count kernel launches
-(the CPU path does not count).
+``flash_attention.launches`` (forward), ``flash_attention_bwd.launches``
+(the single-pass backward), ``flash_attention_bwd.dkdv_launches`` and
+``.dq_launches`` (the split), ``paged_decode_attention.launches`` (bf16
+pool) and ``paged_decode_attention.fp8_launches`` (e4m3 pool) count kernel
+launches (the CPU path does not count).
 """
 
 from __future__ import annotations
@@ -247,14 +250,70 @@ def flash_attention_fwd(q, k, v, segment_ids_q=None, segment_ids_kv=None,
                            scale)
 
 
+# The JAX package runs its single-pass backward while the per-(b, h) dk/dv
+# accumulators (2 x [sk_p, d] fp32 plus the dk/dv blocks in their own
+# dtype) fit this budget of its scoped VMEM, and the two-kernel split past
+# it (``_FUSED_BWD_MAX_KV_BYTES``, apex_tpu/ops/flash_attention.py:78)
+_FUSED_BWD_MAX_KV_BYTES = 2 * 1024 * 1024
+
+
+def _bwd_blocks(sq: int, sk: int, causal: bool, bias: bool,
+                dropout: bool):
+    """The JAX package's default backward ``(block_q, block_k)`` with no
+    tuned cache and no explicit blocks (``flash_attention``, :1250-1284),
+    clipped to the sequence lengths as ``_flash_bwd_impl`` clips them."""
+    blk = 512 if (bias and dropout) else 1024
+    if causal:
+        blk = min(blk, max(512, (sq // 2) // 512 * 512))
+    return min(blk, sq), min(blk, sk)
+
+
+def backward_kv_bytes(sq: int, sk: int, d: int, itemsize_k: int = 2,
+                      itemsize_v: int = 2, causal: bool = False,
+                      bias: bool = False, dropout: bool = False) -> int:
+    """What the JAX package's gate (``_flash_bwd_impl``, :774-784) counts
+    against its 2 MB: ``sk`` padded to the default backward block times
+    ``d * (8 + itemsize_k + itemsize_v)``, plus a ``[block_q, block_k]``
+    fp32 block each for bias and dropout."""
+    block_q, block_k = _bwd_blocks(sq, sk, causal, bias, dropout)
+    sk_p = -(-sk // block_k) * block_k
+    kv_bytes = sk_p * d * (8 + itemsize_k + itemsize_v)
+    if bias:
+        kv_bytes += 4 * block_q * block_k
+    if dropout:
+        kv_bytes += 4 * block_q * block_k
+    return kv_bytes
+
+
+def uses_split_backward(sq: int, sk: int, d: int, itemsize_k: int = 2,
+                        itemsize_v: int = 2, causal: bool = False,
+                        bias: bool = False, dropout: bool = False) -> bool:
+    """True where the JAX package's backward takes the two-kernel split:
+    :func:`backward_kv_bytes` above 2 MB. At d64 bf16: s2048 stays
+    single-pass (``sk_p`` 2048, 1.57 MB), s2049 splits (``sk_p`` 3072,
+    2.36 MB)."""
+    return backward_kv_bytes(sq, sk, d, itemsize_k, itemsize_v, causal,
+                             bias, dropout) > _FUSED_BWD_MAX_KV_BYTES
+
+
 # apex_flash_bwd(q, k, v, do, lse, delta, sid_q, sid_kv, dq_acc, dk, dv, b,
 #                h, sq, sk, d, causal, scale, stream)
 _FLASH_BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_void_p]
+# apex_flash_bwd_dkdv(q, k, v, do, lse, delta, sid_q, sid_kv, dk, dv, b, h,
+#                     sq, sk, d, causal, scale, stream), and
+# apex_flash_bwd_dq(..., sid_kv, dq, b, ...) with one output pointer less
+_FLASH_DKDV_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_void_p]
+_FLASH_DQ_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_void_p]
 
 
 def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
-                    causal, scale):
+                    causal, scale, split: Optional[bool] = None):
+    """The backward kernels. ``split=None`` routes by
+    :func:`uses_split_backward`; True or False forces the two-kernel split
+    or the single pass (for comparing the two at one shape)."""
     what = "flash_attention_bwd kernel"
     _require(q.dtype == torch.bfloat16, what,
              f"takes bfloat16 operands, got {q.dtype}")
@@ -281,9 +340,17 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
         _check_cuda_operands(what, (("segment_ids_q", segment_ids_q),
                                     ("segment_ids_kv", segment_ids_kv)),
                              torch.int32, q.device)
-    # delta = rowsum(do * o) in fp32, outside the kernel as in the JAX
+    # delta = rowsum(do * o) in fp32, outside the kernels as in the JAX
     # package (_flash_bwd_impl)
     delta = (do.float() * out.float()).sum(dim=-1)
+    if split is None:
+        split = uses_split_backward(sq, sk, d, k.element_size(),
+                                    v.element_size(), causal)
+    if split:
+        args = (q, k, v, do, lse, delta, segment_ids_q, segment_ids_kv,
+                causal, scale)
+        dk, dv = _flash_dkdv_cuda(*args)
+        return _flash_dq_cuda(*args), dk, dv
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -297,12 +364,48 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
     return dq_acc.to(q.dtype), dk, dv
 
 
+def _split_operands(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale):
+    b, h, sq, d = q.shape
+    return ((_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
+             _ptr(sid_q), _ptr(sid_kv)),
+            (b, h, sq, k.shape[2], d, int(bool(causal)), float(scale),
+             _stream(q)))
+
+
+def _flash_dkdv_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale):
+    """The split's dk/dv kernel on operands ``_flash_bwd_cuda`` checked;
+    ``delta`` = rowsum(do * out) fp32 [b, h, sq]."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    operands, tail = _split_operands(q, k, v, do, lse, delta, sid_q, sid_kv,
+                                     causal, scale)
+    fn = _build.function("flash_bwd", "apex_flash_bwd_dkdv", _FLASH_DKDV_ARGS)
+    _build.check(fn(*operands, _ptr(dk), _ptr(dv), *tail),
+                 "flash_attention_bwd dk/dv kernel")
+    flash_attention_bwd.dkdv_launches += 1
+    return dk, dv
+
+
+def _flash_dq_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale):
+    """The split's dq kernel, as :func:`_flash_dkdv_cuda`."""
+    dq = torch.empty_like(q)
+    operands, tail = _split_operands(q, k, v, do, lse, delta, sid_q, sid_kv,
+                                     causal, scale)
+    fn = _build.function("flash_bwd", "apex_flash_bwd_dq", _FLASH_DQ_ARGS)
+    _build.check(fn(*operands, _ptr(dq), *tail),
+                 "flash_attention_bwd dq kernel")
+    flash_attention_bwd.dq_launches += 1
+    return dq
+
+
 def flash_attention_bwd(q, k, v, out, lse, do, segment_ids_q=None,
                         segment_ids_kv=None, causal: bool = False,
                         scale: Optional[float] = None):
     """``(dq, dk, dv)`` of the attention from the forward's ``out`` and
-    ``lse``: the kernel on CUDA, :func:`flash_attention_bwd_reference` on
-    the CPU. ``flash_attention_bwd.launches`` counts kernel launches."""
+    ``lse``: on CUDA the single-pass kernel, or past the JAX package's gate
+    (:func:`uses_split_backward`) the dk/dv kernel then the dq kernel; on
+    the CPU :func:`flash_attention_bwd_reference`.
+    ``flash_attention_bwd.launches`` counts single-pass launches,
+    ``.dkdv_launches`` and ``.dq_launches`` the split's."""
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     if check_device_type(q, "flash_attention_bwd") == "cpu":
         return flash_attention_bwd_reference(
@@ -314,6 +417,8 @@ def flash_attention_bwd(q, k, v, out, lse, do, segment_ids_q=None,
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.dkdv_launches = 0
+flash_attention_bwd.dq_launches = 0
 
 
 class FlashAttentionFunction(torch.autograd.Function):

@@ -48,7 +48,22 @@ Phases (any failure exits non-zero; no phase's error is caught):
 8. trace — ``torch.profiler`` over decode steps and prefills of the bf16
    and the fp8 engine and over train steps, and the train step's device
    time by phase (forward + backward, unscale, optimizer, scaler update)
-   from CUDA events.
+   from CUDA events;
+9. long-sequence train path — the same GPT at O2 with ``FusedAdam`` at
+   b2 s4096 (``bench.py``'s ``_bench_gpt_long_seq``), where the flash
+   backward takes its two-kernel split: a warm-up step, then 4 timed steps
+   with the counters reset just before; asserts finite losses and per
+   step 12 dk/dv and 12 dq launches and no single-pass one; traced;
+10. ResNet-50 path — ``bench.py``'s ``_build_step`` at b256 224x224: O2
+    (bf16 convs, fp32 batch norms and statistics, fp32 masters),
+    ``FusedSGD(lr=0.1, momentum=0.9, weight_decay=1e-4)``, the mean of
+    ``softmax_cross_entropy_with_smoothing(logits, y, 0.1)``, inputs and
+    labels from numpy seed 0: a warm-up step, then 8 timed steps with the
+    counters reset just before; asserts finite losses, one launch of each
+    cross-entropy kernel per step and fp32 batch norms; prints images/s;
+    traced; then an overflowing step (skipped bitwise: masters, momentum
+    buffers and their flag; the scale halved) and one step's loss and
+    gradients through the kernels against the plain twin.
 
 The second-last line of standard output is the card as ``nvidia-smi``
 names it, the line before it the kernels' JSON record, and the last line
@@ -70,6 +85,7 @@ import numpy as np
 FLUSH_BYTES = 256 << 20          # > the H100's 50 MB L2
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor cores, data sheet
+FP32_FLOPS_PER_S = 67e12         # fp32 outside the tensor cores, data sheet
 
 
 def log(msg: str) -> None:
@@ -102,8 +118,8 @@ def bf16_err(got, ref, floor: float, what: str) -> float:
     return diff.max().item()
 
 
-def bound(flops: float, nbytes: float):
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+def bound(flops: float, nbytes: float, peak: float = BF16_FLOPS_PER_S):
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
@@ -663,6 +679,211 @@ def check_lm_head_ce(torch, timer):
     ]
 
 
+SPLIT_B, SPLIT_H, SPLIT_S, SPLIT_D = 2, 16, 4096, 64
+
+
+def check_flash_split(torch, timer):
+    """The two-kernel backward (dk/dv, then dq) at the long-sequence GPT's
+    attention shape, b2 h16 s4096 d64 causal, where the JAX package's gate
+    sends it; a ragged shape with padding segment ids; each kernel timed
+    apart, the pair beside the single-pass backward forced at the same
+    shape."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    # past the gate with segment ids: padding rows get zero dq
+    b, h, s, d, live = 1, 4, 2304, 64, 2000
+    q, k, v, do = (rand(b, h, s, d) for _ in range(4))
+    sid = torch.where(torch.arange(s, device="cuda") < live, 0, -1)
+    sid = sid.to(torch.int32)[None].contiguous()
+    check(fa.uses_split_backward(s, s, d, 2, 2, True), "gate at s2304")
+    out, lse = fa.flash_attention_fwd(q, k, v, sid, None, True)
+    n0 = fa.flash_attention_bwd.dkdv_launches
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, sid, None, True)
+    ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                           causal=True, segment_ids_q=sid)
+    torch.cuda.synchronize()
+    check(fa.flash_attention_bwd.dkdv_launches == n0 + 1,
+          "s2304 did not take the split")
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        grad_err(g, r, f"flash split segments {name}")
+    check(got[0][:, :, live:].abs().max().item() == 0.0,
+          "flash split: padding rows got a nonzero dq")
+    del q, k, v, do, out, lse, got, ref
+
+    b, h, s, d = SPLIT_B, SPLIT_H, SPLIT_S, SPLIT_D
+    q, k, v, do = (rand(b, h, s, d) for _ in range(4))
+    scale = d ** -0.5
+    check(fa.uses_split_backward(s, s, d, 2, 2, True), "gate at s4096")
+    out, lse = fa.flash_attention_fwd(q, k, v, None, None, True, scale)
+    counts = (fa.flash_attention_bwd.launches,
+              fa.flash_attention_bwd.dkdv_launches,
+              fa.flash_attention_bwd.dq_launches)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, None, None, True,
+                                 scale)
+    torch.cuda.synchronize()
+    check((fa.flash_attention_bwd.launches - counts[0],
+           fa.flash_attention_bwd.dkdv_launches - counts[1],
+           fa.flash_attention_bwd.dq_launches - counts[2]) == (0, 1, 1),
+          "s4096 did not route to the split")
+    ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                           causal=True, scale=scale)
+    torch.cuda.synchronize()
+    errs = {n: grad_err(g, r, f"flash split {n}")
+            for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
+    single = fa._flash_bwd_cuda(q, k, v, out, lse, do, None, None, True,
+                                scale, split=False)
+    torch.cuda.synchronize()
+    single_err = max(grad_err(g, r, f"flash single pass s{s} {n}")
+                     for n, g, r in zip(("dq", "dk", "dv"), single, ref))
+    del got, ref, single
+    delta = (do.float() * out.float()).sum(dim=-1)
+    args = (q, k, v, do, lse, delta, None, None, True, scale)
+    dkdv_ms = timer(lambda: fa._flash_dkdv_cuda(*args), iters=10)
+    dq_ms = timer(lambda: fa._flash_dq_cuda(*args), iters=10)
+    split_ms = timer(lambda: fa._flash_bwd_cuda(
+        q, k, v, out, lse, do, None, None, True, scale, split=True), iters=10)
+    single_ms = timer(lambda: fa._flash_bwd_cuda(
+        q, k, v, out, lse, do, None, None, True, scale, split=False),
+        iters=10)
+    plain_ms = timer(lambda: fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, do, causal=True, scale=scale), iters=3, warmup=1)
+    lib_ms = timer(_grad_of(torch, lambda a, b_, c: (
+        F.scaled_dot_product_attention(a, b_, c, is_causal=True,
+                                       scale=scale)), (q, k, v), do),
+        iters=10)
+    pairs = b * h * s * (s + 1) // 2
+    io = 4 * b * h * s * d * 2 + 2 * b * h * s * 4
+    dkdv_bound = bound(4 * 2.0 * d * pairs, io + 2 * b * h * s * d * 2)
+    dq_bound = bound(3 * 2.0 * d * pairs, io + b * h * s * d * 2)
+    single_bound = bound(5 * 2.0 * d * pairs, io + 3 * b * h * s * d * 2)
+    common = dict(
+        route="cuda", source="apex_tpu_torch/csrc/flash_bwd.cu",
+        shape=f"b{b} h{h} s{s} d{d} bf16 causal (also b1 h4 s2304 with "
+              "segment ids, padding from 2000)",
+        tolerance="2 bf16 ulp + 2% of max, 1% relative norm",
+        plain_ms=plain_ms, library_ms=lib_ms,
+        plain="flash_attention_bwd_reference: dq, dk and dv together",
+        library="backward of F.scaled_dot_product_attention(is_causal="
+                "True): dq, dk and dv together",
+        split_ms=split_ms, single_pass_ms=single_ms,
+        single_pass_bound_ms=single_bound[0], single_pass_max_abs_err=
+        single_err)
+    return [
+        dict(name="flash_bwd_dkdv", replaces="apex_tpu/ops/flash_attention"
+             ".py:558", max_abs_err=max(errs["dk"], errs["dv"]),
+             ms=dkdv_ms, bound_ms=dkdv_bound[0], bound_by=dkdv_bound[1],
+             **common),
+        dict(name="flash_bwd_dq", replaces="apex_tpu/ops/flash_attention.py"
+             ":671", max_abs_err=errs["dq"], ms=dq_ms, bound_ms=dq_bound[0],
+             bound_by=dq_bound[1], **common),
+    ]
+
+
+# the ResNet-50 head (n256 V1000 fp32, the bench's smoothing) and the GPT's
+# vocabulary at its token count (n8192 V32768 bf16, smoothing 0.1 and 0)
+XENT_SHAPES = ((256, 1000, "float32", (0.1,)),
+               (8192, 32768, "bfloat16", (0.1, 0.0)))
+
+
+def check_xentropy(torch, timer):
+    """Both softmax cross-entropy kernels through the autograd function
+    against the plain twin, with rows labelled ``padding_idx`` (0); the
+    forward and the backward timed apart beside the twin's halves and
+    ``F.cross_entropy`` with the same smoothing."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import fused_ce as xe
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    fwd, bwd = [], []
+    for n, V, dt, smoothings in XENT_SHAPES:
+        dtype = getattr(torch, dt)
+        x = (3 * torch.randn(n, V, generator=gen, device="cuda")).to(dtype)
+        y = torch.randint(0, V, (n,), generator=gen, device="cuda")
+        y[::16] = 0
+        dl = torch.full((n,), 1.0 / n, device="cuda")
+        f_err = b_err = 0.0
+        for ls in smoothings:
+            xa = x.clone().requires_grad_()
+            xb = x.clone().requires_grad_()
+            la = xe.softmax_cross_entropy_with_smoothing(xa, y, ls, 0)
+            ga, = torch.autograd.grad(la, xa, dl)
+            lb = xe.softmax_cross_entropy_reference(xb, y, ls, 0)
+            gb, = torch.autograd.grad(lb, xb, dl)
+            torch.cuda.synchronize()
+            # fp32 losses: sums and exponentials in another order
+            d = (la - lb).abs()
+            check(bool((d <= 1e-5 * lb.abs() + 1e-6).all()),
+                  f"xentropy loss n{n} V{V} ls{ls}: max err {d.max().item()}")
+            check(not bool(la[::16].any()) and not bool(ga[::16].any()),
+                  "xentropy: a padding row got a loss or a gradient")
+            f_err = max(f_err, d.max().item())
+            # gradients: one rounding of an fp32 value to the logits' dtype
+            # on each side, p recomputed from (m, l) against exp(x - lse)
+            ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22
+            d = (ga.float() - gb.float()).abs()
+            floor = 1e-6 * gb.float().abs().max().item() + 1e-12
+            check(bool((d <= gb.float().abs() * 2 * ulp + floor).all()),
+                  f"xentropy grad n{n} V{V} ls{ls}: max err "
+                  f"{d.max().item()}")
+            b_err = max(b_err, d.max().item())
+            del xa, xb, la, lb, ga, gb
+        ls = smoothings[0]
+        tgt = y.to(torch.int32)
+        loss, m, l = xe._xent_fwd_cuda(x, tgt, ls)
+        _, lse = xe._xent_fwd(x, y, ls, None)
+        itm = x.element_size()
+        f_ms = timer(lambda: xe._xent_fwd_cuda(x, tgt, ls))
+        f_plain = timer(lambda: xe._xent_fwd(x, y, ls, None), iters=10)
+        f_lib = timer(lambda: F.cross_entropy(x, y, label_smoothing=ls,
+                                              reduction="none"))
+        b_ms = timer(lambda: xe._xent_bwd_cuda(x, tgt, m, l, dl, ls))
+        b_plain = timer(lambda: xe._xent_bwd(x, y, lse, dl, ls, None),
+                        iters=10)
+        b_lib = timer(_grad_of(torch, lambda a: F.cross_entropy(
+            a, y, label_smoothing=ls, reduction="none").float(), (x,), dl))
+        # ~10 fp32 operations and two exponentials an element forward, ~6
+        # and one backward, on the CUDA cores
+        fb = bound(12.0 * n * V, n * V * itm + n * 4 + 3 * n * 4,
+                   FP32_FLOPS_PER_S)
+        bb = bound(7.0 * n * V, 2 * n * V * itm + 4 * n * 4,
+                   FP32_FLOPS_PER_S)
+        shape = f"n{n} V{V} {dt} smoothing {ls}"
+        fwd.append(dict(shape=shape, max_abs_err=f_err, ms=f_ms,
+                        plain_ms=f_plain, library_ms=f_lib, bound_ms=fb[0],
+                        bound_by=fb[1]))
+        bwd.append(dict(shape=shape, max_abs_err=b_err, ms=b_ms,
+                        plain_ms=b_plain, library_ms=b_lib, bound_ms=bb[0],
+                        bound_by=bb[1]))
+        del x, y, loss, m, l, lse
+    common = dict(
+        route="triton", source="apex_tpu_torch/ops/fused_ce.py",
+        shape="n256 V1000 fp32 smoothing 0.1 (the ResNet-50 head; by_shape: "
+              "n8192 V32768 bf16, smoothing 0.1 and 0 checked), rows "
+              "labelled padding_idx 0")
+    out = []
+    for name, replaces, rows, tol, lib in (
+            ("xentropy_fwd", "apex_tpu/ops/fused_ce.py:111", fwd,
+             "fp32 loss 1e-5 relative + 1e-6",
+             "F.cross_entropy(label_smoothing=s, reduction='none')"),
+            ("xentropy_bwd", "apex_tpu/ops/fused_ce.py:139", bwd,
+             "2 ulps of the logits' dtype + 1e-6 of max",
+             "autograd backward of that F.cross_entropy")):
+        main = rows[0]
+        out.append(dict(name=name, replaces=replaces,
+                        max_abs_err=max(r["max_abs_err"] for r in rows),
+                        tolerance=tol, ms=main["ms"],
+                        plain_ms=main["plain_ms"],
+                        library_ms=main["library_ms"], library=lib,
+                        bound_ms=main["bound_ms"],
+                        bound_by=main["bound_by"], by_shape=rows, **common))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # serve path
 # ---------------------------------------------------------------------------
@@ -678,11 +899,12 @@ SERVE_PATHS = {
 }
 
 
-def gpt_config():
+def gpt_config(max_seq_len=1024):
     import torch
     from apex_tpu_torch.models.gpt import GPTConfig
-    return GPTConfig(vocab_size=32768, max_seq_len=1024, hidden_size=1024,
-                     num_layers=12, num_heads=16, dtype=torch.bfloat16)
+    return GPTConfig(vocab_size=32768, max_seq_len=max_seq_len,
+                     hidden_size=1024, num_layers=12, num_heads=16,
+                     dtype=torch.bfloat16)
 
 
 def make_engine(cfg, params, **kw):
@@ -694,9 +916,11 @@ def make_engine(cfg, params, **kw):
 
 def counters():
     """Each kernel's launch counter as (wrapper, attribute): the fp8
-    variant of paged decode counts apart from the bf16 kernel."""
+    variant of paged decode counts apart from the bf16 kernel, the split
+    flash backward's two kernels apart from the single pass."""
     from apex_tpu_torch.ops import flash_attention as fa
     from apex_tpu_torch.ops import fp8_matmul as mm
+    from apex_tpu_torch.ops import fused_ce as xe
     from apex_tpu_torch.ops import layer_norm as ln
     from apex_tpu_torch.ops import lm_head_ce as ce
     return {"flash_fwd": (fa.flash_attention, "launches"),
@@ -707,7 +931,13 @@ def counters():
             "layer_norm_bwd": (ln.layer_norm_bwd, "launches"),
             "lm_head_ce_fwd": (ce.lm_head_ce_fwd, "launches"),
             "lm_head_ce_bwd": (ce.lm_head_ce_bwd, "launches"),
-            "fp8_matmul": (mm.fp8_dequant_matmul, "launches")}
+            "fp8_matmul": (mm.fp8_dequant_matmul, "launches"),
+            "flash_bwd_dkdv": (fa.flash_attention_bwd, "dkdv_launches"),
+            "flash_bwd_dq": (fa.flash_attention_bwd, "dq_launches"),
+            "xentropy_fwd": (xe.softmax_cross_entropy_with_smoothing,
+                             "launches"),
+            "xentropy_bwd": (xe.softmax_cross_entropy_with_smoothing,
+                             "bwd_launches")}
 
 
 def reset_counters():
@@ -908,12 +1138,14 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS, LR = 8, 1024, 8, 3e-4
 TRAIN_PER_STEP = {"flash_fwd": 12, "flash_bwd": 12, "layer_norm_fwd": 25,
                   "layer_norm_bwd": 25, "lm_head_ce_fwd": 1,
                   "lm_head_ce_bwd": 1, "paged_decode": 0,
-                  "paged_decode_fp8": 0, "fp8_matmul": 0}
+                  "paged_decode_fp8": 0, "fp8_matmul": 0,
+                  "flash_bwd_dkdv": 0, "flash_bwd_dq": 0, "xentropy_fwd": 0,
+                  "xentropy_bwd": 0}
 
 
-def train_batch(torch, cfg):
+def train_batch(torch, cfg, b=TRAIN_B, s=TRAIN_S):
     ids = np.random.RandomState(0).randint(
-        0, cfg.vocab_size, (TRAIN_B, TRAIN_S)).astype(np.int64)
+        0, cfg.vocab_size, (b, s)).astype(np.int64)
     ids = torch.from_numpy(ids).cuda()
     return ids, torch.roll(ids, -1, dims=1)
 
@@ -1072,8 +1304,242 @@ def overflow_check(torch, cfg, model, opt, state, sstate):
                 scale_after=float(sstate2.loss_scale), step=int(g2.step))
 
 
-_PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_kernel", "paged_decode_kernel",
-                 "_ln_fwd_body", "_ln_bwd_body", "ce_fwd_kernel",
+# ---------------------------------------------------------------------------
+# long-sequence GPT training: the same O2 FusedAdam step at b2 s4096
+# (bench.py's _bench_gpt_long_seq), past the flash backward's gate
+# ---------------------------------------------------------------------------
+
+LONG_B, LONG_S, LONG_STEPS = 2, 4096, 4
+LONG_PER_STEP = {**TRAIN_PER_STEP, "flash_bwd": 0, "flash_bwd_dkdv": 12,
+                 "flash_bwd_dq": 12}
+
+
+def run_long_seq_path(torch):
+    cfg = gpt_config(max_seq_len=LONG_S)
+    model, opt, state, step = o2_setup(torch, cfg)
+    ids, labels = train_batch(torch, cfg, LONG_B, LONG_S)
+    sstate = opt._scaler.state
+    _, state, sstate, _ = step(model, state, sstate, ids, labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    reset_counters()
+    for _ in range(LONG_STEPS):
+        t0 = time.perf_counter()
+        _, state, sstate, loss = step(model, state, sstate, ids, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    launches = read_counters()
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"non-finite s4096 loss: {losses}")
+    for k, per in LONG_PER_STEP.items():
+        check(launches[k] == per * LONG_STEPS,
+              f"train s{LONG_S} {k}: {launches[k]} launches, expected "
+              f"{per * LONG_STEPS}")
+    ms = [1e3 * t for t in times]
+    stats = dict(steps=LONG_STEPS, batch=LONG_B, seq=LONG_S, losses=losses,
+                 step_ms_median=float(np.median(ms)),
+                 step_ms_p90=float(np.percentile(ms, 90)), step_ms_all=ms,
+                 tokens_per_s=LONG_B * LONG_S / (np.median(ms) / 1e3),
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 launches=launches)
+    box = [state, sstate]
+
+    def one():
+        _, box[0], box[1], _ = step(model, box[0], box[1], ids, labels)
+
+    return stats, _profile(torch, one, 2)
+
+
+# ---------------------------------------------------------------------------
+# ResNet-50 O2 training (bench.py's _build_step): FusedSGD, label-smoothed
+# softmax cross entropy through the fused kernels, b256 224x224
+# ---------------------------------------------------------------------------
+
+RN_B, RN_STEPS = 256, 8
+RN_PER_STEP = {k: 0 for k in TRAIN_PER_STEP}
+RN_PER_STEP.update(xentropy_fwd=1, xentropy_bwd=1)
+
+
+def rn50_batch(torch):
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(RN_B, 3, 224, 224).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 1000, RN_B).astype(np.int64))
+    return (x.cuda().contiguous(memory_format=torch.channels_last),
+            y.cuda())
+
+
+def rn50_setup(torch):
+    """The bench's recipe: ResNet50(dtype=bf16) -> amp.initialize(O2,
+    FusedSGD(lr=0.1, momentum=0.9, weight_decay=1e-4)) -> cast_params ->
+    opt.init -> make_train_step over mean(softmax_cross_entropy_with_
+    smoothing(logits, y, 0.1)). Random weights from seed 0, channels-last
+    layout for the convs."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import ResNet50
+    from apex_tpu_torch.ops import softmax_cross_entropy_with_smoothing
+    from apex_tpu_torch.optimizers import FusedSGD
+    model = ResNet50.init_params(num_classes=1000, dtype=torch.bfloat16,
+                                 generator=torch.Generator().manual_seed(0),
+                                 device="cuda")
+    model = model.to(memory_format=torch.channels_last)
+    amp_model, opt = amp.initialize(
+        model, FusedSGD(lr=0.1, momentum=0.9, weight_decay=1e-4),
+        opt_level="O2", verbosity=0)
+    amp_model.cast_params()
+    for name, p in model.named_parameters():
+        want = torch.float32 if "_BNWrap" in name else torch.bfloat16
+        check(p.dtype == want, f"O2 cast: {name} is {p.dtype}")
+    check(all(b.dtype == torch.float32 for b in model.buffers()),
+          "O2 cast: a running statistic is not fp32")
+    state = opt.init(model.parameters())
+
+    def loss_fn(m, x, y):
+        return softmax_cross_entropy_with_smoothing(amp_model(x), y,
+                                                    0.1).mean()
+
+    return model, amp_model, opt, state, loss_fn
+
+
+def run_rn50_path(torch):
+    from apex_tpu_torch import amp
+    # cuDNN picks its conv algorithms in the warm-up step
+    torch.backends.cudnn.benchmark = True
+    model, amp_model, opt, state, loss_fn = rn50_setup(torch)
+    step = amp.make_train_step(loss_fn, opt)
+    x, y = rn50_batch(torch)
+    sstate = opt._scaler.state
+    # warm-up: cuDNN's algorithm search and Triton's compiles stay out
+    _, state, sstate, _ = step(model, state, sstate, x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    reset_counters()
+    for _ in range(RN_STEPS):
+        t0 = time.perf_counter()
+        _, state, sstate, loss = step(model, state, sstate, x, y)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    launches = read_counters()
+    losses = [float(v) for v in losses]
+    check(all(np.isfinite(losses)), f"non-finite ResNet-50 loss: {losses}")
+    for k, per in RN_PER_STEP.items():
+        check(launches[k] == per * RN_STEPS,
+              f"train-rn50 {k}: {launches[k]} launches, expected "
+              f"{per * RN_STEPS}")
+    check(all(p.dtype == torch.float32 for n, p in model.named_parameters()
+              if "_BNWrap" in n)
+          and all(b.dtype == torch.float32 for b in model.buffers()),
+          "ResNet-50: batch-norm params or statistics are not fp32")
+    ms = [1e3 * t for t in times]
+    stats = dict(steps=RN_STEPS, batch=RN_B, image=224, losses=losses,
+                 loss_scale=float(sstate.loss_scale),
+                 step_ms_median=float(np.median(ms)),
+                 step_ms_p90=float(np.percentile(ms, 90)), step_ms_all=ms,
+                 images_per_s=RN_B / (np.median(ms) / 1e3),
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 launches=launches)
+    box = [state, sstate]
+
+    def one():
+        _, box[0], box[1], _ = step(model, box[0], box[1], x, y)
+
+    trace_rn = _profile(torch, one, 2)
+    return model, amp_model, opt, box[0], stats, trace_rn
+
+
+# ResNet-50 step through the kernels vs through the plain twin, same
+# params, deterministic cuDNN: the logits are identical, so the losses
+# differ only by the fp32 CE (kernel vs twin, equal in both readings on the
+# H100) and the gradients by the last-bit differences of the fp32 logits'
+# gradient, which flip bf16 roundings that 53 bf16 conv and batch-norm
+# backwards carry on. Per-parameter relative norm, read in three runs at
+# worst 5.9 %, 6.8 % and 9.6 % (each time the stem batch norm's bias, whose
+# gradient sums the whole stem activation; every other parameter <= 1.5 %)
+# and at median 0.97-0.99 %: held at 25 % for the worst and 3 % for the
+# median
+RN_LOSS_TOL = 1e-5
+RN_GRAD_NORM_TOL = 0.25
+RN_GRAD_MEDIAN_TOL = 0.03
+
+
+def rn50_grad_check(torch, model, amp_model):
+    from apex_tpu_torch.ops import fused_ce as xe
+    x, y = rn50_batch(torch)
+    params = list(model.named_parameters())
+    bench, det = torch.backends.cudnn.benchmark, \
+        torch.backends.cudnn.deterministic
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        loss = xe.softmax_cross_entropy_with_smoothing(amp_model(x), y,
+                                                       0.1).mean()
+        grads = torch.autograd.grad(loss, [p for _, p in params])
+        ref_loss = xe.softmax_cross_entropy_reference(amp_model(x), y,
+                                                      0.1).mean()
+        ref = torch.autograd.grad(ref_loss, [p for _, p in params])
+    finally:
+        torch.backends.cudnn.benchmark = bench
+        torch.backends.cudnn.deterministic = det
+    loss, ref_loss = loss.item(), ref_loss.item()
+    worst = sorted((((g.float() - r.float()).norm()
+                     / r.float().norm().clamp_min(1e-30)).item(), name)
+                   for (name, _), g, r in zip(params, grads, ref))[::-1]
+    out = dict(loss_kernels=loss, loss_plain=ref_loss,
+               loss_abs_diff=abs(loss - ref_loss), params=len(params),
+               worst_rel_norm=worst[:5],
+               median_rel_norm=float(np.median([w for w, _ in worst])))
+    log("train-rn50 grad check readings: " + json.dumps(out))
+    check(out["loss_abs_diff"] <= RN_LOSS_TOL,
+          f"ResNet-50 loss kernels {loss} vs plain {ref_loss}")
+    check(worst[0][0] <= RN_GRAD_NORM_TOL,
+          f"ResNet-50 grad {worst[0][1]}: relative norm error {worst[0][0]}")
+    check(out["median_rel_norm"] <= RN_GRAD_MEDIAN_TOL,
+          f"ResNet-50 grads: median relative norm error "
+          f"{out['median_rel_norm']}")
+    return out
+
+
+def rn50_overflow_check(torch, model, amp_model, opt, state):
+    """A step whose loss overflows under a dynamic scale (the O2 default
+    for bf16 is a static 1): masters, momentum buffers and their
+    ``initialized`` flag bitwise unchanged, the scale halved."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.ops import softmax_cross_entropy_with_smoothing
+    x, y = rn50_batch(torch)
+    dyn = amp.LossScaler("dynamic", device="cuda")
+    big = amp.make_train_step(
+        lambda m, xx, yy: softmax_cross_entropy_with_smoothing(
+            amp_model(xx), yy, 0.1).mean() * 1e38, opt, scaler=dyn)
+    g = state.groups[0]
+    before = (g.master.clone(), {k: v.clone() for k, v in g.slots.items()},
+              int(g.step), [p.detach().clone() for p in model.parameters()])
+    check(bool(g.slots["initialized"]), "momentum not initialized yet")
+    scale0 = float(dyn.state.loss_scale)
+    _, state2, sstate2, loss = big(model, state, dyn.state, x, y)
+    torch.cuda.synchronize()
+    g2 = state2.groups[0]
+    check(torch.equal(g2.master, before[0]), "RN50 overflow: master changed")
+    for k, v in before[1].items():
+        check(g2.slots[k].dtype == v.dtype and torch.equal(g2.slots[k], v),
+              f"RN50 overflow: {k} changed")
+    check(int(g2.step) == before[2], "RN50 overflow: step counter moved")
+    check(all(torch.equal(p, b) for p, b in zip(model.parameters(),
+                                                before[3])),
+          "RN50 overflow: model params changed")
+    check(bool(sstate2.overflow), "RN50 overflow: not detected")
+    check(float(sstate2.loss_scale) == scale0 / 2,
+          "RN50 overflow: scale not halved")
+    return dict(loss=float(loss), scale_before=scale0,
+                scale_after=float(sstate2.loss_scale), step=int(g2.step))
+
+
+_PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_kernel", "flash_dkdv_kernel",
+                 "flash_dq_kernel", "paged_decode_kernel",
+                 "_ln_fwd_body", "_ln_bwd_body", "_ce_fwd_body",
+                 "_ce_bwd_body", "ce_fwd_kernel",
                  "ce_bwd_de_kernel", "ce_bwd_dx_kernel",
                  "fp8_mm_skinny_kernel", "fp8_mm_reduce_kernel",
                  "fp8_mm_tc_kernel")
@@ -1087,6 +1553,11 @@ def _kernel_class(name: str) -> str:
         if k in name:
             return k
     low = name.lower()
+    if any(t in low for t in ("fprop", "dgrad", "wgrad", "conv")):
+        return "library conv"
+    if "batch_norm" in low or "batchnorm" in low or "bn_fw" in low \
+            or "bn_bw" in low:
+        return "library batch norm"
     if any(t in low for t in ("nvjet", "gemm", "xmma", "cutlass")):
         return "library GEMM"
     if low.startswith("memcpy") or low.startswith("memset"):
@@ -1198,12 +1669,18 @@ def main() -> int:
                check_paged_fp8(torch, timer), check_fp8_matmul(torch, timer),
                check_layer_norm(torch, timer), check_flash_bwd(torch, timer),
                check_layer_norm_bwd(torch, timer),
-               *check_lm_head_ce(torch, timer)]
+               *check_lm_head_ce(torch, timer),
+               *check_flash_split(torch, timer),
+               *check_xentropy(torch, timer)]
     for kr in kernels:
         log(f"kernel {kr['name']}: err {kr['max_abs_err']:.3g} "
             f"ms {kr['ms']:.4f} plain {kr['plain_ms']:.4f} "
             f"bound {kr['bound_ms']:.4f} ({kr['bound_by']}) "
             f"library {kr['library_ms']}")
+        for extra in ("split_ms", "single_pass_ms", "by_shape",
+                      "train_shape"):
+            if extra in kr:
+                log(f"  {kr['name']} {extra}: {json.dumps(kr[extra])}")
     del timer
     torch.cuda.empty_cache()
 
@@ -1271,12 +1748,32 @@ def main() -> int:
     log("grad check (kernels vs plain, tolerances: loss "
         f"{GRAD_LOSS_TOL}, relative norm {GRAD_NORM_TOL}): "
         + json.dumps(grad_check(torch, cfg)))
-    log("trace: " + json.dumps({**serve_trace, "train_step": train_trace}))
+    torch.cuda.empty_cache()
+
+    long_stats, long_trace = run_long_seq_path(torch)
+    log(f"train-gpt-s{LONG_S} path ({card}): " + json.dumps(long_stats))
+    torch.cuda.empty_cache()
+
+    model, amp_model, opt, state, rn_stats, rn_trace = run_rn50_path(torch)
+    log(f"train-rn50 path ({card}): " + json.dumps(rn_stats))
+    log("train-rn50 overflow: " + json.dumps(rn50_overflow_check(
+        torch, model, amp_model, opt, state)))
+    log("train-rn50 grad check (kernels vs plain twin, tolerances: loss "
+        f"{RN_LOSS_TOL}, relative norm {RN_GRAD_NORM_TOL}, median "
+        f"{RN_GRAD_MEDIAN_TOL}): "
+        + json.dumps(rn50_grad_check(torch, model, amp_model)))
+    del model, amp_model, opt, state
+    torch.cuda.empty_cache()
+    log("trace: " + json.dumps({**serve_trace, "train_step": train_trace,
+                                f"train_step_s{LONG_S}": long_trace,
+                                "train_step_rn50": rn_trace}))
 
     for kr in kernels:
         by_path = {path: st["launches"][kr["name"]]
                    for path, st in serve_stats.items()}
         by_path["train"] = tstats["launches"][kr["name"]]
+        by_path[f"train-gpt-s{LONG_S}"] = long_stats["launches"][kr["name"]]
+        by_path["train-rn50"] = rn_stats["launches"][kr["name"]]
         kr["launches"] = sum(by_path.values())
         kr["launches_by_path"] = by_path
         check(kr["launches"] > 0, f"{kr['name']} never launched on a main "

@@ -25,7 +25,12 @@ of the largest, dgamma/dbeta (fp32 sums over rows in another order) within
 1e-4 of the largest plus one ulp of their dtype. The LM-head CE statistics
 are fp32 sums of the same exact products in another order: within 1e-4
 relative; its gradients round the same g tile to bf16 (a logit an fp32 ulp
-apart can flip one rounding), held like the flash gradients.
+apart can flip one rounding), held like the flash gradients. The flash
+backward's two-kernel split (dk/dv, then dq without atomics) rounds at the
+same points as the single pass and is held the same way. The softmax
+cross entropy's fp32 losses are within 1e-5 relative of the plain twin's,
+its gradients within two ulps of the logits' dtype plus 1e-6 of the
+largest.
 """
 
 import numpy as np
@@ -34,6 +39,7 @@ import torch
 
 from apex_tpu_torch.amp import fp8
 from apex_tpu_torch.ops import flash_attention as fa
+from apex_tpu_torch.ops import fused_ce as xe
 from apex_tpu_torch.ops import fp8_matmul as mm
 from apex_tpu_torch.ops import layer_norm as ln
 from apex_tpu_torch.ops import lm_head_ce as ce
@@ -266,6 +272,117 @@ def test_flash_autograd_runs_both_kernels(gen):
     assert fa.flash_attention.launches == f0 + 1
     assert fa.flash_attention_bwd.launches == b0 + 1
     assert q.grad is not None and k.grad.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,seg", [
+    (1, 1, 1, 1, 64, True, False),
+    (2, 3, 65, 65, 64, True, True),
+    (1, 2, 17, 200, 128, True, False),       # sq < sk: end-aligned causal
+    (1, 2, 130, 90, 64, True, True),         # sq > sk: rows with no key
+    (3, 2, 100, 100, 32, False, True),
+    (1, 2, 2049, 2049, 64, True, True),      # past the gate: routed split
+])
+def test_flash_bwd_split_matches_plain(gen, b, h, sq, sk, d, causal, seg):
+    """The dk/dv and dq kernels (the split is forced below the gate) against
+    the plain backward, held like the single pass."""
+    q, k, v = _rand(gen, b, h, sq, d), _rand(gen, b, h, sk, d), \
+        _rand(gen, b, h, sk, d)
+    do = _rand(gen, b, h, sq, d)
+    sid_q = sid_kv = None
+    if seg:
+        rng = np.random.RandomState(b * sq + sk)
+        sid_q = np.sort(rng.randint(-1, 3, (b, sq)), axis=1)[:, ::-1]
+        sid_kv = np.sort(rng.randint(-1, 3, (b, sk)), axis=1)[:, ::-1]
+        sid_q = torch.from_numpy(sid_q.copy()).int().cuda()
+        sid_kv = torch.from_numpy(sid_kv.copy()).int().cuda()
+    out, lse = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal)
+    counts = (fa.flash_attention_bwd.launches,
+              fa.flash_attention_bwd.dkdv_launches,
+              fa.flash_attention_bwd.dq_launches)
+    dq, dk, dv = fa._flash_bwd_cuda(q, k, v, out, lse, do, sid_q, sid_kv,
+                                    causal, d ** -0.5, split=True)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bwd.launches,
+            fa.flash_attention_bwd.dkdv_launches,
+            fa.flash_attention_bwd.dq_launches) == (
+        counts[0], counts[1] + 1, counts[2] + 1)
+    rq, rk, rv = fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, do, causal=causal, segment_ids_q=sid_q,
+        segment_ids_kv=sid_kv)
+    for name, got, ref in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        _close_grad(got, ref, name)
+    if seg:
+        pad = (sid_q < 0)[:, None, :].expand(b, h, sq)
+        assert not bool(dq[pad].any())
+
+
+@pytest.mark.parametrize("s,split", [(2048, False), (2049, True)])
+def test_flash_autograd_routes_at_the_gate(gen, s, split):
+    q, k, v = (_rand(gen, 1, 2, s, 64).requires_grad_() for _ in range(3))
+    counts = (fa.flash_attention_bwd.launches,
+              fa.flash_attention_bwd.dkdv_launches,
+              fa.flash_attention_bwd.dq_launches)
+    fa.flash_attention(q, k, v, causal=True).float().square().sum() \
+        .backward()
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bwd.launches - counts[0],
+            fa.flash_attention_bwd.dkdv_launches - counts[1],
+            fa.flash_attention_bwd.dq_launches - counts[2]) == (
+        (0, 1, 1) if split else (1, 0, 0))
+
+
+@pytest.mark.parametrize("n,V,dtype", [
+    (256, 1000, torch.float32),              # the ResNet-50 head
+    (37, 1000, torch.bfloat16),
+    (1, 5, torch.float32),
+    (300, 32768, torch.bfloat16),            # the GPT vocabulary
+    (17, 5000, torch.float16),
+])
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+@pytest.mark.parametrize("padding_idx", [None, 0])
+def test_xentropy_matches_plain(gen, n, V, dtype, smoothing, padding_idx):
+    """The forward and backward kernels through the autograd function
+    against the plain twin: fp32 losses within 1e-5 relative (sums and
+    exponentials in another order), gradients within two ulps of the
+    logits' dtype plus 1e-6 of the largest."""
+    x = (3 * _rand(gen, n, V, dtype=torch.float32)).to(dtype)
+    y = torch.randint(0, V, (n,), generator=gen, device="cuda")
+    y[::7] = 0
+    dl = torch.rand(n, generator=gen, device="cuda")
+    counts = (xe.softmax_cross_entropy_with_smoothing.launches,
+              xe.softmax_cross_entropy_with_smoothing.bwd_launches)
+    xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+    la = xe.softmax_cross_entropy_with_smoothing(xa, y, smoothing,
+                                                 padding_idx)
+    ga, = torch.autograd.grad(la, xa, dl)
+    torch.cuda.synchronize()
+    assert (xe.softmax_cross_entropy_with_smoothing.launches,
+            xe.softmax_cross_entropy_with_smoothing.bwd_launches) == (
+        counts[0] + 1, counts[1] + 1)
+    lb = xe.softmax_cross_entropy_reference(xb, y, smoothing, padding_idx)
+    gb, = torch.autograd.grad(lb, xb, dl)
+    assert la.dtype == torch.float32 and ga.dtype == dtype
+    torch.testing.assert_close(la, lb, rtol=1e-5, atol=0)
+    ulp = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10,
+           torch.float32: 2.0 ** -22}[dtype]
+    d = (ga.float() - gb.float()).abs()
+    assert bool((d <= gb.float().abs() * 2 * ulp
+                 + 1e-6 * float(gb.float().abs().max()) + 1e-12).all()), \
+        float(d.max())
+    if padding_idx is not None:
+        assert not bool(la[::7].any()) and not bool(ga[::7].any())
+
+
+def test_xentropy_kernels_reject_what_they_do_not_take(gen):
+    x = _rand(gen, 8, 16, dtype=torch.float32)
+    y = torch.zeros(8, dtype=torch.int64, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        xe.softmax_cross_entropy_with_smoothing(x.t(), y[:16].repeat(2))
+    with pytest.raises(ValueError, match="logits dtype"):
+        xe._xent_fwd_cuda(x.double(), y.int(), 0.0)
+    with pytest.raises(ValueError, match="int32"):
+        xe._xent_fwd_cuda(x, y, 0.0)
 
 
 @pytest.mark.parametrize("n,h", [(1, 128), (3, 1000), (8192, 1024),

@@ -288,3 +288,81 @@ def test_flash_bwd_reference_matches_jax_bwd_math_sq_ne_sk():
                         scale=d ** -0.5, causal=True)
     for g, r in zip(got, ref):
         _close_grad(g, r, "float32")
+
+
+# ---------------------------------------------------------------------------
+# the two-kernel split past the JAX package's 2 MB gate: the port routes the
+# same shapes as JAX (the gate helper against the kernels JAX's backward
+# traces), and its plain backward — the same function on either route —
+# matches JAX's split Pallas kernels in interpret mode
+# ---------------------------------------------------------------------------
+
+def _jax_backward_kernels(s, d, causal):
+    """How many Pallas kernels the JAX backward launches at [1, 1, s, d]
+    bf16 with its default blocks: 1 (single pass) or 2 (the split)."""
+    def loss(q, k, v):
+        return jnp.sum(jfa.flash_attention(q, k, v, causal=causal,
+                                           interpret=True, autotune="off")
+                       .astype(jnp.float32))
+
+    aval = jax.ShapeDtypeStruct((1, 1, s, d), jnp.bfloat16)
+    fwd = str(jax.make_jaxpr(loss)(aval, aval, aval)).count("pallas_call")
+    both = str(jax.make_jaxpr(jax.grad(loss, argnums=(0, 1, 2)))(
+        aval, aval, aval)).count("pallas_call")
+    return both - fwd
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,kv_bytes,split", [
+    (1024, None, False), (2048, 1_572_864, False), (2049, 2_359_296, True),
+    (4096, 3_145_728, True)])
+def test_split_gate_routes_as_jax(s, kv_bytes, split, causal):
+    d = 64
+    got = tfa.backward_kv_bytes(s, s, d, 2, 2, causal)
+    if kv_bytes is not None:
+        assert got == kv_bytes
+    assert tfa.uses_split_backward(s, s, d, 2, 2, causal) is split
+    assert _jax_backward_kernels(s, d, causal) == (2 if split else 1)
+
+
+def test_split_gate_counts_bias_and_dropout_as_jax():
+    # bias and dropout each add a [block_q, block_k] fp32 block, and both
+    # together take 512 blocks: d64 s1536 counts 1.57 MB alone (sk padded
+    # to 2048 by 1024 blocks), 1.18 MB + 2 x 1 MB with both
+    assert tfa.backward_kv_bytes(1536, 1536, 64) == 2048 * 64 * 12
+    assert not tfa.uses_split_backward(1536, 1536, 64)
+    assert tfa.backward_kv_bytes(1536, 1536, 64, bias=True, dropout=True) \
+        == 1536 * 64 * 12 + 2 * 4 * 512 * 512
+    assert tfa.uses_split_backward(1536, 1536, 64, bias=True, dropout=True)
+    assert tfa._FUSED_BWD_MAX_KV_BYTES == jfa._FUSED_BWD_MAX_KV_BYTES
+
+
+@pytest.mark.parametrize("features", ["causal", "segments"])
+def test_plain_backward_matches_jax_two_kernel_split(features, monkeypatch):
+    """JAX forced onto its split (``_FUSED_BWD_MAX_KV_BYTES`` = 0, as
+    tests/test_flash_attention.py forces it), in interpret mode at s256
+    d32, fp32: within 1e-5 of the largest gradient."""
+    rng = np.random.RandomState(11)
+    b, h, s, d = 1, 2, 256, 32
+    q, k, v, do = (rng.randn(b, h, s, d).astype(np.float32)
+                   for _ in range(4))
+    kw = dict(causal=True)
+    tkw = dict(causal=True)
+    if features == "segments":
+        sid = (rng.randint(0, 3, (b, s)).cumsum(-1) // 2).astype(np.int32)
+        sid[:, -20:] = -1                                   # padding rows
+        kw.update(segment_ids_q=jnp.asarray(sid))
+        tkw.update(segment_ids_q=torch.from_numpy(sid))
+    monkeypatch.setattr(jfa, "_FUSED_BWD_MAX_KV_BYTES", 0)
+
+    def jf(qq, kk, vv):
+        return jfa.flash_attention(qq, kk, vv, block_q=128, block_k=128,
+                                   block_q_bwd=128, block_k_bwd=128,
+                                   interpret=True, autotune="off", **kw)
+
+    _, vjp = jax.vjp(jf, *(jnp.asarray(a) for a in (q, k, v)))
+    jgrads = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    tfa.flash_attention(tq, tk, tv, **tkw).backward(torch.from_numpy(do))
+    for got, ref in zip((tq.grad, tk.grad, tv.grad), jgrads):
+        _close_grad(got, ref, "float32")

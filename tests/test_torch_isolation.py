@@ -51,6 +51,9 @@ def test_importing_serve_loads_no_jax_and_builds_nothing():
         "import apex_tpu_torch.optimizers, apex_tpu_torch.utils\n"
         "import apex_tpu_torch.ops.lm_head_ce, apex_tpu_torch.ops.fp8_matmul\n"
         "import apex_tpu_torch.amp.fp8, apex_tpu_torch.serve.spec\n"
+        "import apex_tpu_torch.ops.fused_ce, apex_tpu_torch.ops.xentropy\n"
+        "import apex_tpu_torch.contrib.xentropy, apex_tpu_torch.models\n"
+        "import apex_tpu_torch.optimizers.fused_sgd\n"
         "from apex_tpu_torch.ops import _build\n"
         "mods = set(sys.modules)\n"
         "print(json.dumps({\n"
@@ -95,7 +98,11 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 def test_new_modules_are_checked_for_imports():
     checked = {str(p.relative_to(ROOT)) for p in _port_sources()}
     for mod in ("apex_tpu_torch/amp/fp8.py", "apex_tpu_torch/ops/fp8_matmul.py",
-                "apex_tpu_torch/serve/spec.py"):
+                "apex_tpu_torch/serve/spec.py", "apex_tpu_torch/ops/fused_ce.py",
+                "apex_tpu_torch/ops/xentropy.py",
+                "apex_tpu_torch/contrib/xentropy/__init__.py",
+                "apex_tpu_torch/optimizers/fused_sgd.py",
+                "apex_tpu_torch/models/resnet.py"):
         assert mod in checked
 
 
