@@ -19,8 +19,14 @@
   step reads nothing back to the host; the loss comes back as a device
   tensor.
 
+- ``initialize(..., zero=...)`` (``True``, a dict of keywords or a
+  ``ZeroShardedModel``) wraps the one model in a
+  :class:`~apex_tpu_torch.zero.ZeroShardedModel` that carries the amp
+  model's cast, and points each optimizer at it; ``zero.make_train_step``
+  is the sharded hot loop. ``zero=`` survives ``enabled=False``.
+
 Not ported yet (each raises ``NotImplementedError``): O1 (the autocast
-policy and cast lists), O4 / fp8 training, ``zero=`` sharding.
+policy and cast lists), O4 / fp8 training.
 """
 
 from __future__ import annotations
@@ -96,6 +102,11 @@ class AmpModel:
         ct = self.properties.cast_model_type
         if ct is None:
             return module
+        return cast_floating(module, ct, self._keep_fn(module))
+
+    def _keep_fn(self, module: nn.Module):
+        """The cast predicate: the explicit one, else the structural
+        running-statistics rule with the name rule as fallback."""
         keep = self._keep_fp32
         if self._keep_fp32_is_default and self.properties.keep_batchnorm_fp32:
             scopes = _batch_stats_scopes(module)
@@ -103,19 +114,50 @@ class AmpModel:
                 def keep(names, x, _scopes=scopes):
                     return not (names[:-1] in _scopes
                                 or _is_norm_param(names))
-        return cast_floating(module, ct, keep)
+        return keep
 
-    def __call__(self, *args, **kwargs):
+    def cast_tree(self, tree) -> dict:
+        """The same cast over a ``name -> tensor`` tree (the ZeRO resident
+        shards), out of place: cast leaves are new tensors, the others
+        pass through."""
+        ct = self.properties.cast_model_type
+        if ct is None:
+            return dict(tree)
+        keep = self._keep_fn(self.module)
+        out = {}
+        for name, x in tree.items():
+            if (x.is_floating_point() and x.dtype != ct
+                    and (keep is None or keep(path_names(name), x))):
+                x = x.to(ct)
+            out[name] = x
+        return out
+
+    def _cast_in(self, args, kwargs):
         p = self.properties
         half = (p.cast_model_type is not None
                 and p.cast_model_type != torch.float32)
         if half:
             args = _cast_tensors(args, p.cast_model_type)
             kwargs = _cast_tensors(kwargs, p.cast_model_type)
-        out = self.module(*args, **kwargs)
+        return half, args, kwargs
+
+    def _cast_out(self, out, half):
+        p = self.properties
         if p.cast_model_outputs is not None:
             return _cast_tensors(out, p.cast_model_outputs)
         return _cast_tensors(out, torch.float32) if half else out
+
+    def call_with(self, params, *args, **kwargs):
+        """The amp call with the module's parameters replaced by
+        ``params`` (``name -> tensor``) — the ZeRO forward."""
+        half, args, kwargs = self._cast_in(args, kwargs)
+        out = torch.func.functional_call(self.module, dict(params), args,
+                                         kwargs)
+        return self._cast_out(out, half)
+
+    def __call__(self, *args, **kwargs):
+        half, args, kwargs = self._cast_in(args, kwargs)
+        return self._cast_out(self.module(*args, **kwargs), half)
 
 
 def _model_device(models: List) -> torch.device:
@@ -139,13 +181,21 @@ def initialize(models, optimizers=None, enabled: bool = True,
     with the list-ness of the inputs. The loss scalers live on the device
     of the first model's parameters."""
     _amp_state.verbosity = verbosity
-    if zero is not None and zero is not False:
-        raise NotImplementedError("amp.initialize(zero=...) is not ported "
-                                  "yet (ZeRO slice)")
+    use_zero = zero is not None and zero is not False
+    opts_was_list = isinstance(optimizers, (list, tuple))
+    opt_list = (list(optimizers) if opts_was_list
+                else [optimizers] if optimizers is not None else [])
+    models_was_list = isinstance(models, (list, tuple))
+    model_list = list(models) if models_was_list else [models]
     if not enabled:
         _amp_state.enabled = False
         _amp_state.opt_properties = None
         _amp_state.loss_scalers = []
+        if use_zero:
+            # amp is inert, but the zero= surface survives: code written
+            # against ZeroShardedModel runs unchanged at full precision
+            zm = _wrap_zero(zero, model_list, opt_list)
+            models = [zm] if models_was_list else zm
         return models if optimizers is None else (models, optimizers)
     _amp_state.enabled = True
     if opt_level not in opt_levels:
@@ -175,8 +225,6 @@ def initialize(models, optimizers=None, enabled: bool = True,
         warn_or_err("master_weights requires cast_model_type (O2).")
     _amp_state.opt_properties = properties
 
-    models_was_list = isinstance(models, (list, tuple))
-    model_list = list(models) if models_was_list else [models]
     amp_models = [AmpModel(m, properties, keep_fp32_predicate)
                   for m in model_list]
     device = _model_device(model_list)
@@ -186,15 +234,45 @@ def initialize(models, optimizers=None, enabled: bool = True,
                for _ in range(num_losses)]
     _amp_state.loss_scalers = scalers
 
-    opts_was_list = isinstance(optimizers, (list, tuple))
-    opt_list = (list(optimizers) if opts_was_list
-                else [optimizers] if optimizers is not None else [])
     for opt in opt_list:
         opt.configure_amp(properties, scalers[0])
+    if use_zero:
+        amp_models = [_wrap_zero(zero, model_list, opt_list,
+                                 amp_model=amp_models[0])]
     out_models = amp_models if models_was_list else amp_models[0]
     if optimizers is None:
         return out_models
     return out_models, (opt_list if opts_was_list else opt_list[0])
+
+
+def _wrap_zero(zero, model_list, opt_list, amp_model=None):
+    """Wrap the (single) model in a :class:`~apex_tpu_torch.zero.
+    ZeroShardedModel` and point each optimizer at it —
+    ``zero.make_train_step`` takes its model from ``opt._zero_model``.
+    ``zero``: True, a dict of ``ZeroShardedModel`` keywords, or a
+    ``ZeroShardedModel`` (whose module is set to the model)."""
+    from apex_tpu_torch.zero import ZeroShardedModel
+    from apex_tpu_torch.zero.comm import same_group
+    if len(model_list) != 1:
+        raise ValueError(
+            "initialize(zero=...) supports exactly one model (the sharded "
+            f"parameter tree belongs to one forward); got {len(model_list)}")
+    if isinstance(zero, ZeroShardedModel):
+        zm = zero
+        zm.module = model_list[0]
+    else:
+        zm = ZeroShardedModel(model_list[0],
+                              **({} if zero is True else dict(zero)))
+    zm._amp_model = amp_model
+    for opt in opt_list:
+        if hasattr(opt, "group") and not same_group(opt.group, zm.group):
+            raise ValueError(
+                "initialize(zero=...): optimizer.group is not the zero "
+                "group — the shard update would run its collectives over "
+                "another group than the gradients; construct the optimizer "
+                "with the zero group")
+        opt._zero_model = zm
+    return zm
 
 
 def state_dict(destination: Optional[dict] = None) -> dict:

@@ -10,7 +10,7 @@ optimizers, which work on flat fp32 buffers.
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -58,3 +58,13 @@ def split_like(flat: torch.Tensor,
     """Views of ``flat`` shaped as ``like``."""
     return [c.view(t.shape) for c, t in
             zip(flat.split([t.numel() for t in like]), like)]
+
+
+def named_tensors(tree) -> Dict[str, torch.Tensor]:
+    """An ordered ``name -> tensor`` dict from a module (its named
+    parameters), a mapping, or a sequence (names ``"0"``, ``"1"``, ...)."""
+    if isinstance(tree, nn.Module):
+        return dict(tree.named_parameters())
+    if hasattr(tree, "items"):
+        return dict(tree.items())
+    return {str(i): t for i, t in enumerate(tree)}

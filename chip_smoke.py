@@ -63,7 +63,26 @@ Phases (any failure exits non-zero; no phase's error is caught):
     cross-entropy kernel per step and fp32 batch norms; prints images/s;
     traced; then an overflowing step (skipped bitwise: masters, momentum
     buffers and their flag; the scale halved) and one step's loss and
-    gradients through the kernels against the plain twin.
+    gradients through the kernels against the plain twin;
+11. ZeRO-3 path — the same GPT at b8 s1024 through ``amp.initialize(...,
+    zero=True)`` with ``ZeroOptimizer(adam, shard_params=True,
+    weight_decay=0.01)`` and ``zero.make_train_step`` at world 1: a warm-up
+    step, then 8 timed steps with the counters reset just before; asserts
+    finite falling losses and one fused-update (B13) launch a step; the
+    masters, m and v after the warm-up step and after all 9 against the
+    dense FusedAdam step of phase 5 from the same fp32 init; the step's
+    device time by phase beside the dense FusedAdam's in this run; traced;
+    then an
+    overflowing step (shards, masters, m, v, step bitwise unchanged, the
+    scale halved);
+12. tier-2 LAMB path — ``DistributedFusedLAMB(lr=1e-3, weight_decay=0.01,
+    max_grad_norm=1.0)`` through ``amp.make_train_step`` at O2: a warm-up,
+    3 counted steps (one B13 LAMB launch each), then one step on the card
+    against the same step of a CPU twin.
+
+The kernel phase holds B13 bitwise against its plain version in five
+modes and under a set skip flag, at the GPT's 185,759,744 parameters and a
+ragged n.
 
 The second-last line of standard output is the card as ``nvidia-smi``
 names it, the line before it the kernels' JSON record, and the last line
@@ -884,6 +903,108 @@ def check_xentropy(torch, timer):
     return out
 
 
+# the 12-layer h1024 GPT's parameters, every one in the ZeRO flat buffer
+# (148 leaves), and a ragged size that is no multiple of 4
+MTU_SIZES = (185_759_744, 1_000_003)
+MTU_BETAS = (0.9, 0.999)
+# (kind, adam_w_mode, weight_decay, bias_correction, grad_averaging)
+MTU_MODES = (("adam", True, 0.01, True, True),       # AdamW, the ZeRO path
+             ("adam", False, 0.01, True, True),      # L2 into the gradient
+             ("adam", True, 0.01, False, True),      # no bias correction
+             ("lamb", True, 0.01, True, True),       # LAMB, beta3 = 1 - b1
+             ("lamb", True, 0.01, True, False))      # LAMB, beta3 = 1
+
+
+def _mtu_hyper(mode):
+    kind, aw, wd, bc, ga = mode
+    return dict(kind=kind, betas=MTU_BETAS, eps=1e-8, weight_decay=wd,
+                adam_w_mode=aw, bias_correction=bc, grad_averaging=ga)
+
+
+def check_multi_tensor_update(torch, timer):
+    """B13 against its plain version (``zero/update.py`` + ``torch.where``
+    on skip), bitwise on every output, in each mode and with a set skip
+    flag, at the GPT's parameter count and at a ragged size; timed at the
+    GPT's size beside the plain version and one fused AdamW step of
+    ``torch.optim`` over the same buffers (timed only: it adds eps outside
+    the bias correction, apex inside)."""
+    from apex_tpu_torch.zero import fused_update as fu
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    lr = 3e-4
+    step = torch.full((), 7, dtype=torch.int32, device="cuda")
+    skip = torch.ones((), dtype=torch.bool, device="cuda")
+    checked = []
+    for n in MTU_SIZES:
+        def rand(scale):
+            return scale * torch.randn(n, generator=gen, device="cuda")
+        p, g, m = rand(0.05), rand(0.01), rand(1e-3)
+        v = rand(1e-2).square_()
+        for mode in MTU_MODES:
+            hyper = _mtu_hyper(mode)
+            scal = fu.update_scalars(lr, step, MTU_BETAS, hyper[
+                "bias_correction"], "cuda")
+            ref = fu.fused_shard_update_reference(
+                p, g, m, v, step, lr=scal[0], corrections=(scal[1], scal[2]),
+                **hyper)
+            kp, km, kv = p.clone(), m.clone(), v.clone()
+            got = fu.fused_shard_update(kp, g, km, kv, step, lr=lr, **hyper)
+            torch.cuda.synchronize()
+            for name, a, r in zip(("p/upd", "m", "v"), got, ref):
+                check(torch.equal(a, r), f"B13 {mode} n{n} {name}: max err "
+                      f"{(a - r).abs().max().item()}")
+            del ref, got
+            for dst, src in ((kp, p), (km, m), (kv, v)):
+                dst.copy_(src)
+            got = fu.fused_shard_update(kp, g, km, kv, step, lr=lr,
+                                        skip=skip, **hyper)
+            torch.cuda.synchronize()
+            check(torch.equal(kp, p) and torch.equal(km, m)
+                  and torch.equal(kv, v), f"B13 {mode} n{n}: skip wrote")
+            if hyper["kind"] == "lamb":
+                check(not bool(got[0].any()), "B13 LAMB skip: upd not zero")
+            checked.append(f"{mode[0]} aw{int(mode[1])} bc{int(mode[3])} "
+                           f"ga{int(mode[4])} n{n}")
+            del kp, km, kv, got
+        if n != MTU_SIZES[0]:
+            del p, g, m, v
+            continue
+        adamw = _mtu_hyper(MTU_MODES[0])
+        lamb = _mtu_hyper(MTU_MODES[3])
+        kp, km, kv = p.clone(), m.clone(), v.clone()
+        ms = timer(lambda: fu.fused_shard_update(kp, g, km, kv, step, lr=lr,
+                                                 **adamw), iters=20)
+        lamb_ms = timer(lambda: fu.fused_shard_update(kp, g, km, kv, step,
+                                                      lr=lr, **lamb),
+                        iters=20)
+        plain_ms = timer(lambda: fu.fused_shard_update_reference(
+            p, g, m, v, step, lr=lr, **adamw), iters=5, warmup=1)
+        del kp, km, kv
+        flat = torch.nn.Parameter(p.clone())
+        flat.grad = g
+        lib = torch.optim.AdamW([flat], lr=lr, betas=MTU_BETAS, eps=1e-8,
+                                weight_decay=0.01, fused=True)
+        lib_ms = timer(lib.step, iters=20)
+        del lib, flat
+        big = (n, ms, lamb_ms, plain_ms, lib_ms)
+        del p, g, m, v
+        torch.cuda.empty_cache()
+    n, ms, lamb_ms, plain_ms, lib_ms = big
+    # reads p, g, m, v and writes p (or upd), m, v: 7 fp32 buffers; ~15
+    # fp32 operations an element on the CUDA cores
+    t_bound, by = bound(15.0 * n, 7 * 4 * n, FP32_FLOPS_PER_S)
+    return dict(name="multi_tensor_update", route="cuda",
+                source="apex_tpu_torch/csrc/multi_tensor_update.cu",
+                replaces="apex_tpu/zero/fused_update.py:54",
+                shape=f"n{n} fp32 flat (the 12-layer h1024 GPT), in place; "
+                      f"also n{MTU_SIZES[1]}",
+                max_abs_err=0.0, tolerance="bitwise (torch.equal) on every "
+                "output, every mode, and under skip",
+                checked=checked, ms=ms, lamb_ms=lamb_ms, plain_ms=plain_ms,
+                bound_ms=t_bound, bound_by=by, library_ms=lib_ms,
+                library="torch.optim.AdamW(fused=True).step() over the same "
+                        "flat fp32 buffer (eps placement differs)")
+
+
 # ---------------------------------------------------------------------------
 # serve path
 # ---------------------------------------------------------------------------
@@ -923,6 +1044,7 @@ def counters():
     from apex_tpu_torch.ops import fused_ce as xe
     from apex_tpu_torch.ops import layer_norm as ln
     from apex_tpu_torch.ops import lm_head_ce as ce
+    from apex_tpu_torch.zero import fused_update as fu
     return {"flash_fwd": (fa.flash_attention, "launches"),
             "paged_decode": (fa.paged_decode_attention, "launches"),
             "paged_decode_fp8": (fa.paged_decode_attention, "fp8_launches"),
@@ -937,7 +1059,10 @@ def counters():
             "xentropy_fwd": (xe.softmax_cross_entropy_with_smoothing,
                              "launches"),
             "xentropy_bwd": (xe.softmax_cross_entropy_with_smoothing,
-                             "bwd_launches")}
+                             "bwd_launches"),
+            "multi_tensor_update": (fu.fused_shard_update, "launches"),
+            "multi_tensor_update_lamb": (fu.fused_shard_update,
+                                         "lamb_launches")}
 
 
 def reset_counters():
@@ -1140,7 +1265,8 @@ TRAIN_PER_STEP = {"flash_fwd": 12, "flash_bwd": 12, "layer_norm_fwd": 25,
                   "lm_head_ce_bwd": 1, "paged_decode": 0,
                   "paged_decode_fp8": 0, "fp8_matmul": 0,
                   "flash_bwd_dkdv": 0, "flash_bwd_dq": 0, "xentropy_fwd": 0,
-                  "xentropy_bwd": 0}
+                  "xentropy_bwd": 0, "multi_tensor_update": 0,
+                  "multi_tensor_update_lamb": 0}
 
 
 def train_batch(torch, cfg, b=TRAIN_B, s=TRAIN_S):
@@ -1536,13 +1662,341 @@ def rn50_overflow_check(torch, model, amp_model, opt, state):
                 scale_after=float(sstate2.loss_scale), step=int(g2.step))
 
 
+# ---------------------------------------------------------------------------
+# ZeRO-3 O2 training of the same GPT (world 1: one card), and tier 2 with
+# DistributedFusedLAMB
+# ---------------------------------------------------------------------------
+
+ZERO_WD = 0.01
+ZERO_PER_STEP = {**TRAIN_PER_STEP, "multi_tensor_update": 1}
+DFLAMB_STEPS, DFLAMB_LR = 3, 1e-3
+DFLAMB_PER_STEP = {**TRAIN_PER_STEP, "multi_tensor_update_lamb": 1}
+
+
+def zero3_setup(torch, cfg):
+    """The JAX flow (``amp/frontend.py:156-190``, ``zero/step.py``):
+    amp.initialize(model, ZeroOptimizer(adam, shard_params=True), O2,
+    zero=True) -> shard the fp32 params -> opt.init -> cast_params ->
+    zero.make_train_step over GPT.loss. Random weights from seed 0."""
+    from apex_tpu_torch import amp, zero
+    from apex_tpu_torch.models.gpt import GPT
+    model = GPT.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cuda")
+    zm, opt = amp.initialize(
+        model, zero.ZeroOptimizer(lr=LR, kind="adam", shard_params=True,
+                                  weight_decay=ZERO_WD),
+        opt_level="O2", loss_scale="dynamic", verbosity=0, zero=True)
+    shards32 = zm.shard()
+    state = opt.init(shards32, zm.spec)
+    shards = zm.cast_params(shards32)
+    del shards32
+    check({x.dtype for x in shards.values()} == {torch.bfloat16},
+          "ZeRO-3 O2: resident shards are not all bf16")
+    step = zero.make_train_step(lambda m, i, l: m.loss(i, l), optimizer=opt)
+    return model, zm, opt, shards, state, step
+
+
+def dense_twin(torch, cfg, ids, labels):
+    """The dense FusedAdam O2 step of the train path from the same fp32
+    init (its masters taken before the cast, as ZeroOptimizer takes them)
+    on the same batch: yields the state after each step."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models.gpt import GPT
+    from apex_tpu_torch.optimizers import FusedAdam
+    model = GPT.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cuda")
+    amp_model, opt = amp.initialize(model, FusedAdam(lr=LR,
+                                                     weight_decay=ZERO_WD),
+                                    opt_level="O2", loss_scale="dynamic",
+                                    verbosity=0)
+    state = opt.init(model.parameters())
+    amp_model.cast_params()
+    step = amp.make_train_step(lambda m, i, l: m.loss(i, l), opt)
+    sstate = opt._scaler.state
+    while True:
+        _, state, sstate, _ = step(model, state, sstate, ids, labels)
+        torch.cuda.synchronize()
+        yield model, opt, state, sstate
+
+
+def zero3_phases(torch, zm, opt, shards, state, sstate, ids, labels,
+                 reps=3):
+    """Device time of each phase of the ZeRO-3 step by CUDA events, the
+    functions ``zero.make_train_step`` calls one by one in its order:
+    materialize + forward + backward, unscale, the flag, the optimizer
+    (one B13 launch plus the cast into the bf16 shards), the scaler."""
+    from apex_tpu_torch.amp import scaler as scaler_mod
+    names = ("forward_backward", "unscale", "inf_flag", "optimizer",
+             "scaler_update")
+    ms = {k: [] for k in names}
+    floats = list(zm.spec.names)
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        leaves = {k: x.detach().requires_grad_() for k, x in shards.items()}
+        loss = zm.call(zm.materialize(leaves), lambda m, i, l: m.loss(i, l),
+                       ids, labels)
+        grads = torch.autograd.grad(scaler_mod.scale_value(loss, sstate),
+                                    [leaves[k] for k in floats])
+        ev[1].record()
+        g32, found_inf = scaler_mod.unscale(grads, sstate)
+        del grads, leaves
+        ev[2].record()
+        found_inf = found_inf.to(torch.int32) > 0
+        ev[3].record()
+        shards, state = opt.apply(state, shards, g32, skip=found_inf,
+                                  spec=zm.spec)
+        ev[4].record()
+        sstate = opt._scaler.update_state(sstate, found_inf)
+        ev[5].record()
+        torch.cuda.synchronize()
+        for i, k in enumerate(names):
+            ms[k].append(ev[i].elapsed_time(ev[i + 1]))
+    return {k: float(np.median(v)) for k, v in ms.items()}, shards, state, \
+        sstate
+
+
+# ZeRO-3 masters, m and v against the dense FusedAdam twin's: both run the
+# same kernels on the same batch from the same fp32 masters (bitwise on the
+# CPU, tests/test_torch_zero.py), so on the card they differ only where the
+# flash backward's dq, summed with fp32 atomics in a varying order, flips a
+# bf16 rounding of a gradient. Adam moves a master by ~lr a step whatever
+# its gradient's size, so a flipped near-zero gradient can put two masters
+# up to 2 * lr apart a step (the first step moves each by lr * g / (|g| +
+# eps), at most lr: read 5.99e-4 against 6e-4 on the H100), plus the
+# masters' own roundings, ZERO_TWIN_ULPS (an fp32 ulp of values up to 8).
+# After one step the moments are 0.1 g and 0.001 g^2: they differ as the
+# gradients do; after nine steps every gradient differs a little (the
+# masters already do), read at 1.7-2.6 % (m) and 1.5-2.2 % (v) in
+# relative norm on the H100 (PERF.md)
+ZERO_TWIN_FAR_FRAC = 0.01
+ZERO_TWIN_ULPS = 1e-6
+ZERO_TWIN_SLOT_REL_1, ZERO_TWIN_SLOT_REL = 1e-2, 5e-2
+
+
+def _zero3_twin_check(torch, st, dstate, steps):
+    """``st``: ``(master, m, v)`` flat buffers of the ZeRO-3 state after
+    ``steps`` steps, ``dstate`` the twin's after as many."""
+    g = dstate.groups[0]
+    out = {}
+    for name, a, r in (("master", st[0], g.master),
+                       ("m", st[1], g.slots["exp_avg"]),
+                       ("v", st[2], g.slots["exp_avg_sq"])):
+        a = a.to(r.device)
+        d = (a - r).abs()
+        out[name] = dict(bitwise=bool(torch.equal(a, r)),
+                         max_abs_diff=d.max().item(),
+                         rel_norm=(d.norm() / r.norm().clamp_min(1e-30))
+                         .item(),
+                         frac_differing=(d > 0).float().mean().item())
+        if name == "master":
+            out[name]["frac_over_half_lr"] = (d > LR / 2).float().mean()\
+                .item()
+        del d
+    log(f"train-zero3 vs dense FusedAdam twin after {steps} steps: "
+        + json.dumps(out))
+    check(out["master"]["max_abs_diff"] <= 2 * LR * steps + ZERO_TWIN_ULPS,
+          f"ZeRO-3 masters beyond 2 * lr * steps of the dense twin's: {out}")
+    check(out["master"]["frac_over_half_lr"] <= ZERO_TWIN_FAR_FRAC,
+          f"ZeRO-3 masters: too many far from the dense twin's: {out}")
+    for k in ("m", "v"):
+        limit = ZERO_TWIN_SLOT_REL_1 if steps == 1 else ZERO_TWIN_SLOT_REL
+        check(out[k]["rel_norm"] <= limit,
+              f"ZeRO-3 {k}: relative norm {out[k]['rel_norm']} from the "
+              f"dense twin's after {steps} steps")
+    return out
+
+
+def run_zero3_path(torch, cfg):
+    model, zm, opt, shards, state, step = zero3_setup(torch, cfg)
+    ids, labels = train_batch(torch, cfg)
+    sstate = opt._scaler.state
+    shards, state, sstate, _ = step(shards, state, sstate, ids, labels)
+    torch.cuda.synchronize()
+    # kept on the host, out of the timed steps' peak device memory
+    first = (state.master.flat.cpu(), state.m.flat.cpu(),
+             state.v.flat.cpu())
+    scale0 = float(sstate.loss_scale)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    reset_counters()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        shards, state, sstate, loss = step(shards, state, sstate, ids,
+                                           labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"non-finite ZeRO-3 loss: {losses}")
+    check(losses[-1] < losses[0], f"ZeRO-3 loss did not fall: {losses}")
+    check(float(sstate.loss_scale) == scale0 == 2.0 ** 16,
+          "ZeRO-3: the loss scale moved during the timed steps")
+    check(int(state.step) == TRAIN_STEPS + 1, "ZeRO-3 step counter")
+    for k, per in ZERO_PER_STEP.items():
+        check(launches[k] == per * TRAIN_STEPS,
+              f"train-zero3 {k}: {launches[k]} launches, expected "
+              f"{per * TRAIN_STEPS}")
+    ms = [1e3 * t for t in times]
+    stats = dict(steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S, world=1,
+                 leaves=len(zm.spec.names),
+                 flat_elements=int(state.master.flat.numel()),
+                 losses=losses, step_ms_median=float(np.median(ms)),
+                 step_ms_p90=float(np.percentile(ms, 90)), step_ms_all=ms,
+                 tokens_per_s=TRAIN_B * TRAIN_S / (np.median(ms) / 1e3),
+                 peak_mem_gb=peak, launches=launches)
+    # the dense twin from the same init: after the warm-up step, then after
+    # the same 1 + 8 steps
+    twin = dense_twin(torch, cfg, ids, labels)
+    dmodel, dopt, dstate, dss = next(twin)
+    stats["twin_after_1_step"] = _zero3_twin_check(torch, first, dstate, 1)
+    del first
+    for _ in range(TRAIN_STEPS):
+        dmodel, dopt, dstate, dss = next(twin)
+    del twin
+    stats["twin"] = _zero3_twin_check(
+        torch, (state.master.flat, state.m.flat, state.v.flat), dstate,
+        TRAIN_STEPS + 1)
+    box = [shards, state, sstate]
+
+    def one():
+        box[0], box[1], box[2], _ = step(box[0], box[1], box[2], ids,
+                                         labels)
+
+    trace_z = _profile(torch, one, 2)
+    phases, shards, state, sstate = zero3_phases(
+        torch, zm, opt, box[0], box[1], box[2], ids, labels)
+    dphases, _, _ = step_phases(torch, cfg, dmodel, dopt, dstate, dss)
+    stats["phases_ms"] = phases
+    stats["dense_fused_adam_phases_ms"] = dphases
+    del dmodel, dopt, dstate, dss
+    torch.cuda.empty_cache()
+    stats["overflow"] = zero3_overflow_check(torch, cfg, opt, shards, state,
+                                             sstate, ids, labels)
+    return stats, trace_z
+
+
+def zero3_overflow_check(torch, cfg, opt, shards, state, sstate, ids,
+                         labels):
+    """A step whose loss overflows: resident shards, masters, m, v and the
+    step bitwise unchanged (the kernel writes nothing under the flag), the
+    scale halved."""
+    from apex_tpu_torch import zero
+    big = zero.make_train_step(lambda m, i, l: m.loss(i, l) * 1e38,
+                               optimizer=opt)
+    before = ({k: v.clone() for k, v in shards.items()},
+              state.master.flat.clone(), state.m.flat.clone(),
+              state.v.flat.clone(), int(state.step))
+    scale0 = float(sstate.loss_scale)
+    shards2, state2, sstate2, loss = big(shards, state, sstate, ids, labels)
+    torch.cuda.synchronize()
+    check(all(torch.equal(shards2[k], v) for k, v in before[0].items()),
+          "ZeRO-3 overflow: a resident shard changed")
+    check(torch.equal(state2.master.flat, before[1]),
+          "ZeRO-3 overflow: master changed")
+    check(torch.equal(state2.m.flat, before[2]), "ZeRO-3 overflow: m changed")
+    check(torch.equal(state2.v.flat, before[3]), "ZeRO-3 overflow: v changed")
+    check(int(state2.step) == before[4], "ZeRO-3 overflow: step moved")
+    check(bool(sstate2.overflow), "ZeRO-3 overflow: not detected")
+    check(float(sstate2.loss_scale) == scale0 / 2,
+          "ZeRO-3 overflow: scale not halved")
+    return dict(loss=float(loss), scale_before=scale0,
+                scale_after=float(sstate2.loss_scale), step=int(state2.step))
+
+
+# tier-2 LAMB on the card against its plain twin on the CPU, one step from
+# the same state and gradient: the global grad norm and the per-leaf norms
+# are fp32 sums in other orders on the two devices, and torch's CPU sqrt
+# is not always correctly rounded, so every buffer is held within 1e-5 of
+# its largest value
+DFLAMB_TWIN_REL = 1e-5
+
+
+def run_dflamb_path(torch, cfg):
+    """Tier 2: ``DistributedFusedLAMB(lr=1e-3, weight_decay=0.01,
+    max_grad_norm=1.0)`` through ``amp.initialize`` at O2 and
+    ``amp.make_train_step`` on the same GPT; a warm-up, 3 counted steps,
+    then one more step on the card (its optimizer phase timed by CUDA
+    events) against the CPU twin."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.amp import scaler as scaler_mod
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedLAMB
+    from apex_tpu_torch.models.gpt import GPT
+    hyper = dict(lr=DFLAMB_LR, weight_decay=0.01, max_grad_norm=1.0)
+    model = GPT.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cuda")
+    amp_model, opt = amp.initialize(model, DistributedFusedLAMB(**hyper),
+                                    opt_level="O2", loss_scale="dynamic",
+                                    verbosity=0)
+    amp_model.cast_params()
+    state = opt.init(model)
+    step = amp.make_train_step(lambda m, i, l: m.loss(i, l), opt)
+    ids, labels = train_batch(torch, cfg)
+    sstate = opt._scaler.state
+    _, state, sstate, _ = step(model, state, sstate, ids, labels)  # warm-up
+    torch.cuda.synchronize()
+    reset_counters()
+    losses, times = [], []
+    for _ in range(DFLAMB_STEPS):
+        t0 = time.perf_counter()
+        _, state, sstate, loss = step(model, state, sstate, ids, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    launches = read_counters()
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"non-finite LAMB loss: {losses}")
+    for k, per in DFLAMB_PER_STEP.items():
+        check(launches[k] == per * DFLAMB_STEPS,
+              f"train-dflamb {k}: {launches[k]} launches, expected "
+              f"{per * DFLAMB_STEPS}")
+    # one more step's gradient, applied on the card and by the CPU twin
+    params = opt.param_groups[0]["params"]
+    loss = model.loss(ids, labels)
+    grads = torch.autograd.grad(scaler_mod.scale_value(loss, sstate),
+                                params)
+    g32, found_inf = scaler_mod.unscale(list(grads), sstate)
+    del grads
+    twin = DistributedFusedLAMB(**hyper)
+    cpu_params = [p.detach().cpu() for p in params]
+    twin.init(cpu_params)
+    cpu_state = type(state)(*(t.cpu() for t in state))
+    cpu_state = twin.apply_flat(cpu_state, g32.cpu(), skip=found_inf.cpu())
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    state = opt.apply_flat(state, g32, skip=found_inf)
+    ev[1].record()
+    torch.cuda.synchronize()
+    optimizer_ms = ev[0].elapsed_time(ev[1])
+    errs = {}
+    for name, a, r in (("master", state.master_shard, cpu_state.master_shard),
+                       ("m", state.m_shard, cpu_state.m_shard),
+                       ("v", state.v_shard, cpu_state.v_shard)):
+        a = a.cpu()
+        errs[name] = (a - r).abs().max().item() / max(r.abs().max().item(),
+                                                      1e-30)
+        check(errs[name] <= DFLAMB_TWIN_REL,
+              f"tier-2 LAMB {name} vs the CPU twin: {errs[name]} of max")
+    check(int(state.step) == int(cpu_state.step) == DFLAMB_STEPS + 2,
+          "tier-2 LAMB step counter")
+    ms = [1e3 * t for t in times]
+    return dict(steps=DFLAMB_STEPS, batch=TRAIN_B, seq=TRAIN_S, losses=losses,
+                step_ms_all=ms, step_ms_median=float(np.median(ms)),
+                optimizer_ms=optimizer_ms, twin_rel_err_of_max=errs,
+                launches=launches)
+
+
 _PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_kernel", "flash_dkdv_kernel",
                  "flash_dq_kernel", "paged_decode_kernel",
                  "_ln_fwd_body", "_ln_bwd_body", "_ce_fwd_body",
                  "_ce_bwd_body", "ce_fwd_kernel",
                  "ce_bwd_de_kernel", "ce_bwd_dx_kernel",
                  "fp8_mm_skinny_kernel", "fp8_mm_reduce_kernel",
-                 "fp8_mm_tc_kernel")
+                 "fp8_mm_tc_kernel", "mtu_kernel")
 
 
 def _kernel_class(name: str) -> str:
@@ -1654,7 +2108,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     sources = ["flash_fwd", "paged_decode", "flash_bwd", "lm_head_ce",
-               "fp8_matmul"]
+               "fp8_matmul", "multi_tensor_update"]
     _build.build_all(sources)
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name in sources:
@@ -1671,14 +2125,15 @@ def main() -> int:
                check_layer_norm_bwd(torch, timer),
                *check_lm_head_ce(torch, timer),
                *check_flash_split(torch, timer),
-               *check_xentropy(torch, timer)]
+               *check_xentropy(torch, timer),
+               check_multi_tensor_update(torch, timer)]
     for kr in kernels:
         log(f"kernel {kr['name']}: err {kr['max_abs_err']:.3g} "
             f"ms {kr['ms']:.4f} plain {kr['plain_ms']:.4f} "
             f"bound {kr['bound_ms']:.4f} ({kr['bound_by']}) "
             f"library {kr['library_ms']}")
         for extra in ("split_ms", "single_pass_ms", "by_shape",
-                      "train_shape"):
+                      "train_shape", "lamb_ms", "checked"):
             if extra in kr:
                 log(f"  {kr['name']} {extra}: {json.dumps(kr[extra])}")
     del timer
@@ -1764,9 +2219,16 @@ def main() -> int:
         + json.dumps(rn50_grad_check(torch, model, amp_model)))
     del model, amp_model, opt, state
     torch.cuda.empty_cache()
+    zero_stats, zero_trace = run_zero3_path(torch, cfg)
+    log(f"train-zero3 path ({card}): " + json.dumps(zero_stats))
+    torch.cuda.empty_cache()
+    lamb_stats = run_dflamb_path(torch, cfg)
+    log(f"train-dflamb path ({card}): " + json.dumps(lamb_stats))
+    torch.cuda.empty_cache()
     log("trace: " + json.dumps({**serve_trace, "train_step": train_trace,
                                 f"train_step_s{LONG_S}": long_trace,
-                                "train_step_rn50": rn_trace}))
+                                "train_step_rn50": rn_trace,
+                                "train_step_zero3": zero_trace}))
 
     for kr in kernels:
         by_path = {path: st["launches"][kr["name"]]
@@ -1774,6 +2236,11 @@ def main() -> int:
         by_path["train"] = tstats["launches"][kr["name"]]
         by_path[f"train-gpt-s{LONG_S}"] = long_stats["launches"][kr["name"]]
         by_path["train-rn50"] = rn_stats["launches"][kr["name"]]
+        by_path["train-zero3"] = zero_stats["launches"][kr["name"]]
+        by_path["train-dflamb"] = lamb_stats["launches"][kr["name"]]
+        if kr["name"] == "multi_tensor_update":     # its LAMB mode too
+            by_path["train-dflamb"] += lamb_stats["launches"][
+                "multi_tensor_update_lamb"]
         kr["launches"] = sum(by_path.values())
         kr["launches_by_path"] = by_path
         check(kr["launches"] > 0, f"{kr['name']} never launched on a main "

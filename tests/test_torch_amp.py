@@ -53,9 +53,11 @@ def test_unported_levels_and_options_raise():
     for level in ("O1", "O4"):
         with pytest.raises(NotImplementedError, match=level):
             amp.initialize(mod, FusedAdam(), opt_level=level, verbosity=0)
-    with pytest.raises(NotImplementedError, match="zero"):
-        amp.initialize(mod, FusedAdam(), opt_level="O2", zero=True,
-                       verbosity=0)
+    # zero= is ported (the ZeRO slice): it wraps the model instead
+    from apex_tpu_torch.zero import ZeroShardedModel
+    opt = FusedAdam()
+    zm, _ = amp.initialize(mod, opt, opt_level="O2", zero=True, verbosity=0)
+    assert isinstance(zm, ZeroShardedModel) and opt._zero_model is zm
     with pytest.raises(NotImplementedError, match="O4"):
         amp.make_train_step(lambda m: m, FusedAdam(), fp8=True)
 

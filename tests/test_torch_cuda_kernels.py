@@ -30,7 +30,8 @@ backward's two-kernel split (dk/dv, then dq without atomics) rounds at the
 same points as the single pass and is held the same way. The softmax
 cross entropy's fp32 losses are within 1e-5 relative of the plain twin's,
 its gradients within two ulps of the logits' dtype plus 1e-6 of the
-largest.
+largest. The fused multi-tensor optimizer update (B13) is bitwise its
+plain version in every mode, at ragged sizes and under a set skip flag.
 """
 
 import numpy as np
@@ -617,3 +618,132 @@ def test_fp8_engines_on_the_card(gen):
     spec, _ = run(spec_k=3)
     assert spec.spec_rounds > 0
     same(plain, spec, ids)
+
+
+# -- B13: the fused multi-tensor optimizer update --------------------------
+
+_MTU_MODES = [
+    dict(kind="adam", adam_w_mode=True, weight_decay=0.01,
+         bias_correction=True),
+    dict(kind="adam", adam_w_mode=False, weight_decay=0.01,
+         bias_correction=True),
+    dict(kind="adam", adam_w_mode=True, weight_decay=0.0,
+         bias_correction=False),
+    dict(kind="lamb", adam_w_mode=True, weight_decay=0.01,
+         bias_correction=True, grad_averaging=True),
+    dict(kind="lamb", adam_w_mode=False, weight_decay=0.01,
+         bias_correction=False, grad_averaging=False),
+]
+
+
+def _mtu_inputs(gen, n):
+    p = _rand(gen, n, dtype=torch.float32) * 0.05
+    g = _rand(gen, n, dtype=torch.float32) * 0.01
+    m = _rand(gen, n, dtype=torch.float32) * 1e-3
+    v = (_rand(gen, n, dtype=torch.float32) * 1e-2).square()
+    return p, g, m, v
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 1027, 1_000_003])
+@pytest.mark.parametrize("mode", range(len(_MTU_MODES)))
+def test_multi_tensor_update_matches_plain_bitwise(gen, n, mode):
+    from apex_tpu_torch.zero import fused_update as fu
+    hyper = dict(betas=(0.9, 0.999), eps=1e-8, **_MTU_MODES[mode])
+    p, g, m, v = _mtu_inputs(gen, n)
+    step = torch.full((), 5, dtype=torch.int32, device="cuda")
+    scal = fu.update_scalars(1e-3, step, hyper["betas"],
+                             hyper["bias_correction"], "cuda")
+    ref = fu.fused_shard_update_reference(
+        p, g, m, v, step, lr=scal[0], corrections=(scal[1], scal[2]),
+        **hyper)
+    kp, km, kv = p.clone(), m.clone(), v.clone()
+    counts = (fu.fused_shard_update.launches,
+              fu.fused_shard_update.lamb_launches)
+    got = fu.fused_shard_update(kp, g, km, kv, step, lr=1e-3, **hyper)
+    torch.cuda.synchronize()
+    lamb = hyper["kind"] == "lamb"
+    assert (fu.fused_shard_update.launches - counts[0],
+            fu.fused_shard_update.lamb_launches - counts[1]) == \
+        ((0, 1) if lamb else (1, 0))
+    assert got[1] is km and got[2] is kv and (got[0] is kp) != lamb
+    for a, r in zip(got, ref):
+        assert torch.equal(a, r)
+    if lamb:
+        assert torch.equal(kp, p)
+
+
+@pytest.mark.parametrize("mode", range(len(_MTU_MODES)))
+def test_multi_tensor_update_skip_writes_nothing(gen, mode):
+    from apex_tpu_torch.zero import fused_update as fu
+    hyper = dict(betas=(0.9, 0.999), eps=1e-8, **_MTU_MODES[mode])
+    p, g, m, v = _mtu_inputs(gen, 4099)
+    kp, km, kv = p.clone(), m.clone(), v.clone()
+    skip = torch.ones((), dtype=torch.bool, device="cuda")
+    out = fu.fused_shard_update(kp, g, km, kv, torch.ones(
+        (), dtype=torch.int32, device="cuda"), lr=1e-3, skip=skip, **hyper)
+    torch.cuda.synchronize()
+    assert torch.equal(kp, p) and torch.equal(km, m) and torch.equal(kv, v)
+    if hyper["kind"] == "lamb":
+        assert not bool(out[0].any())
+
+
+def test_multi_tensor_update_unaligned_views_and_rejects(gen):
+    """A view at an odd offset takes the scalar path, bitwise the same;
+    the wrapper refuses what the kernel does not take."""
+    from apex_tpu_torch.zero import fused_update as fu
+    hyper = dict(kind="adam", betas=(0.9, 0.999), eps=1e-8,
+                 weight_decay=0.01, adam_w_mode=True, bias_correction=True)
+    p, g, m, v = _mtu_inputs(gen, 1001)
+    step = torch.full((), 2, dtype=torch.int32, device="cuda")
+    ref = fu.fused_shard_update_reference(p[1:], g[1:], m[1:], v[1:], step,
+                                          lr=1e-3, **hyper)
+    kp, km, kv = p.clone(), m.clone(), v.clone()
+    got = fu.fused_shard_update(kp[1:], g[1:], km[1:], kv[1:], step,
+                                lr=1e-3, **hyper)
+    for a, r in zip(got, ref):
+        assert torch.equal(a, r)
+    assert torch.equal(kp[:1], p[:1])
+    with pytest.raises(ValueError, match="fp32"):
+        fu.fused_shard_update(p.half(), g, m, v, step, lr=1e-3, **hyper)
+    with pytest.raises(ValueError, match="contiguous"):
+        fu.fused_shard_update(p[::2], g[::2], m[::2], v[::2], step, lr=1e-3,
+                              **hyper)
+    with pytest.raises(ValueError, match="skip"):
+        fu.fused_shard_update(p, g, m, v, step, lr=1e-3,
+                              skip=torch.tensor(True), **hyper)
+
+
+def test_zero3_step_on_the_card_is_one_launch_and_skips(gen):
+    """The ZeRO-3 O2 step of a small GPT: one B13 launch a step, finite
+    losses; an overflowing step leaves everything bitwise unchanged."""
+    from apex_tpu_torch import amp, zero
+    from apex_tpu_torch.models.gpt import GPT, GPTConfig
+    from apex_tpu_torch.zero import fused_update as fu
+    cfg = GPTConfig(vocab_size=256, max_seq_len=64, hidden_size=128,
+                    num_layers=2, num_heads=2, dtype=torch.bfloat16)
+    model = GPT.init_params(cfg, torch.Generator().manual_seed(0))
+    zm, opt = amp.initialize(model, zero.ZeroOptimizer(lr=1e-3),
+                             opt_level="O2", loss_scale="dynamic",
+                             verbosity=0, zero=True)
+    st = opt.init(zm.shard(), zm.spec)
+    shards = zm.cast_params(zm.shard())
+    step = zero.make_train_step(lambda m, i, l: m.loss(i, l), optimizer=opt)
+    ids = torch.randint(0, 256, (2, 64), generator=gen, device="cuda")
+    labels = torch.roll(ids, -1, 1)
+    ss = opt._scaler.state
+    n0 = fu.fused_shard_update.launches
+    for _ in range(3):
+        shards, st, ss, loss = step(shards, st, ss, ids, labels)
+        assert bool(torch.isfinite(loss))
+    assert fu.fused_shard_update.launches - n0 == 3
+    before = (st.master.flat.clone(), st.m.flat.clone(), st.v.flat.clone(),
+              {k: v.clone() for k, v in shards.items()})
+    big = zero.make_train_step(lambda m, i, l: m.loss(i, l) * 1e38,
+                               optimizer=opt)
+    shards, st, ss2, _ = big(shards, st, ss, ids, labels)
+    assert torch.equal(st.master.flat, before[0])
+    assert torch.equal(st.m.flat, before[1])
+    assert torch.equal(st.v.flat, before[2])
+    assert all(torch.equal(shards[k], v) for k, v in before[3].items())
+    assert int(st.step) == 3
+    assert float(ss2.loss_scale) == float(ss.loss_scale) / 2

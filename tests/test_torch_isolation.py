@@ -54,6 +54,9 @@ def test_importing_serve_loads_no_jax_and_builds_nothing():
         "import apex_tpu_torch.ops.fused_ce, apex_tpu_torch.ops.xentropy\n"
         "import apex_tpu_torch.contrib.xentropy, apex_tpu_torch.models\n"
         "import apex_tpu_torch.optimizers.fused_sgd\n"
+        "import apex_tpu_torch.zero, apex_tpu_torch.zero.fused_update\n"
+        "import apex_tpu_torch.contrib.optimizers, apex_tpu_torch.utils.flat\n"
+        "import apex_tpu_torch.contrib.optimizers.zero_state\n"
         "from apex_tpu_torch.ops import _build\n"
         "mods = set(sys.modules)\n"
         "print(json.dumps({\n"
@@ -102,7 +105,21 @@ def test_new_modules_are_checked_for_imports():
                 "apex_tpu_torch/ops/xentropy.py",
                 "apex_tpu_torch/contrib/xentropy/__init__.py",
                 "apex_tpu_torch/optimizers/fused_sgd.py",
-                "apex_tpu_torch/models/resnet.py"):
+                "apex_tpu_torch/models/resnet.py",
+                "apex_tpu_torch/utils/flat.py",
+                "apex_tpu_torch/zero/__init__.py",
+                "apex_tpu_torch/zero/rules.py",
+                "apex_tpu_torch/zero/comm.py",
+                "apex_tpu_torch/zero/update.py",
+                "apex_tpu_torch/zero/fused_update.py",
+                "apex_tpu_torch/zero/core.py",
+                "apex_tpu_torch/zero/optimizer.py",
+                "apex_tpu_torch/zero/elastic.py",
+                "apex_tpu_torch/zero/step.py",
+                "apex_tpu_torch/contrib/optimizers/__init__.py",
+                "apex_tpu_torch/contrib/optimizers/distributed_fused_adam.py",
+                "apex_tpu_torch/contrib/optimizers/distributed_fused_lamb.py",
+                "apex_tpu_torch/contrib/optimizers/zero_state.py"):
         assert mod in checked
 
 
@@ -123,3 +140,32 @@ def test_fp8_serving_defaults_to_cuda_and_raises_without_it(monkeypatch):
         cache.init_cache(cache.CacheConfig(num_layers=1, kv_heads=2,
                                            head_dim=4, num_pages=4,
                                            page_size=8, fp8=True))
+
+
+def test_zero_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    """The ZeRO path's entry points follow the port's device rule: the
+    loss scaler that amp.initialize attaches lives on the model's device,
+    and a CUDA tensor handed to the fused update launches the kernel or
+    raises — never the plain version."""
+    from apex_tpu_torch import amp, zero
+    from apex_tpu_torch.models.gpt import GPT, GPTConfig
+    from apex_tpu_torch.zero import fused_update as fu
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = GPTConfig(vocab_size=16, max_seq_len=16, hidden_size=8,
+                    num_layers=1, num_heads=2, dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GPT.init_params(cfg)
+    model = GPT.init_params(cfg, device="cpu")
+    zm, opt = amp.initialize(model, zero.ZeroOptimizer(lr=1e-3),
+                             opt_level="O2", verbosity=0, zero=True)
+    assert opt._scaler.state.loss_scale.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        zero.make_train_step(lambda m: 0.0, zero.ZeroShardedModel(None),
+                             zero.ZeroOptimizer(lr=1e-3),
+                             scaler=amp.LossScaler("dynamic"))
+    z = torch.zeros(4, device="meta")
+    with pytest.raises(ValueError, match="not supported"):
+        fu.fused_shard_update(z, z, z, z, torch.zeros((), device="meta"),
+                              kind="adam", lr=1e-3, betas=(0.9, 0.999),
+                              eps=1e-8, weight_decay=0.0, adam_w_mode=True,
+                              bias_correction=False)
