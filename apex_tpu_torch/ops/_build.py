@@ -8,11 +8,20 @@ the checkout::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o lib<name>-<hash>.so <name>.cu
 
-The hash is of the source and the flags, so an edited source rebuilds and a
-stale library is never loaded. Nothing here runs at import: the first CUDA
+The hash is of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds and a stale library is never
+loaded. Nothing here runs at import: the first CUDA
 launch of a kernel calls :func:`load`. :func:`build_all` starts one
 ``nvcc`` per source at once, for callers that want every kernel ready
 before they time anything.
+
+A source that instantiates its kernels for bf16, fp16 and fp32 operands
+(:data:`DTYPE_SPLIT`) is built as three targets, ``<name>@bf16``,
+``<name>@f16`` and ``<name>@f32``, each compiled with ``-DAPEX_DTYPE=<code>``
+so that it holds one dtype's kernels (``csrc/frag.cuh``'s
+``APEX_HAS_DTYPE``): the three compile side by side instead of one after
+the other. Wrappers name the target of their operands' dtype
+(:func:`dtype_target`).
 
 Every C entry point returns the ``cudaError_t`` of its launch; wrappers pass
 the result to :func:`check` and raise on anything but 0.
@@ -41,6 +50,34 @@ FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
+# sources built once per operand dtype; the dtype codes of the C interfaces
+DTYPE_SPLIT = ("flash_fwd", "flash_bwd", "lm_head_ce", "paged_decode")
+DTYPE_VARIANTS = ("bf16", "f16", "f32")          # codes 0, 1, 2
+
+
+def dtype_target(name: str, code: int) -> str:
+    """The build target of source ``name`` for dtype code ``code``."""
+    return f"{name}@{DTYPE_VARIANTS[code]}"
+
+
+def targets(names: Iterable[str]) -> List[str]:
+    """``names`` with every :data:`DTYPE_SPLIT` source expanded into its
+    three dtype targets."""
+    out = []
+    for n in names:
+        if n in DTYPE_SPLIT:
+            out += [dtype_target(n, c) for c in range(len(DTYPE_VARIANTS))]
+        else:
+            out.append(n)
+    return out
+
+
+def _source_and_defines(target: str):
+    name, _, variant = target.partition("@")
+    defines = ([f"-DAPEX_DTYPE={DTYPE_VARIANTS.index(variant)}"]
+               if variant else [])
+    return SRC_DIR / f"{name}.cu", defines
+
 
 def nvcc_path() -> str:
     """``$CUDA_HOME/bin/nvcc``, else ``/usr/local/cuda/bin/nvcc``, else
@@ -61,15 +98,21 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+def library_path(target: str) -> Path:
+    """The library's path, keyed by the source, the shared headers
+    (``csrc/*.cuh``), the flags and the target's defines."""
+    src, defines = _source_and_defines(target)
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(FLAGS + defines).encode())
+    stem = target.replace("@", "-")
+    return BUILD_DIR / f"lib{stem}-{h.hexdigest()[:16]}.so"
 
 
-def nvcc_command(name: str, out: Path) -> List[str]:
-    return [nvcc_path(), *FLAGS, "-o", str(out), str(SRC_DIR / f"{name}.cu")]
+def nvcc_command(target: str, out: Path) -> List[str]:
+    src, defines = _source_and_defines(target)
+    return [nvcc_path(), *FLAGS, *defines, "-o", str(out), str(src)]
 
 
 def _start(name: str):

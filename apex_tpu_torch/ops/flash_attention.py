@@ -23,6 +23,16 @@ Port of ``apex_tpu/ops/flash_attention.py``:
   pool, or an e4m3 pool with one fp32 scale per (kv head, page); on the
   CPU it is :func:`paged_attention_reference`.
 
+Operands: the kernels take bf16, fp16 or fp32 (one dtype for q, k and v;
+fp32 through the SIMT product of ``csrc/frag.cuh``, for O0) and return the
+operands' dtype. The flash kernels are built for head dims 32, 64, 128 and
+256; any other d up to 256 runs zero-padded to the next of them with the
+caller's ``scale`` (:func:`kernel_head_dim`; the zeros add nothing to a
+score and the padded output columns are sliced off). The fp32 backward
+stops at d 128 (its shared-memory tiles), and d above 256 raises. Paged
+decode takes d 32, 64 or 128, any GQA group (past 8 in chunks of 8) and a
+pool of q's dtype or of e4m3.
+
 Shapes follow the JAX package: q [b, h, sq, d]; k, v [b, h, sk, d];
 segment ids int32 [b, sq] ([b, sk] for kv). Paged layout: q [b, kv, group,
 d]; pages [kv, num_pages, page_size, d]; block tables [b, m] int32 (page 0
@@ -49,6 +59,7 @@ import torch
 
 from apex_tpu_torch._compat import check_device_type
 from apex_tpu_torch.ops import _build
+from apex_tpu_torch.ops._pad import with_padded_last_dim
 
 _NEG_INF = -1e30
 
@@ -171,7 +182,23 @@ def paged_attention_reference(q, k_pages, v_pages, block_tables, seq_lens,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128, 256)            # the flash kernels' instantiations
+_PAGED_HEAD_DIMS = (32, 64, 128)
+_FP32_BWD_MAX_HEAD_DIM = 128
+# the kernels' dtype codes
+DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+
+
+def kernel_head_dim(d: int) -> int:
+    """The head dim the flash kernels run ``d`` at: the next of
+    ``(32, 64, 128, 256)``; above 256 raises (ROADMAP §C: the tiles of a
+    64-row block no longer fit a block's shared memory)."""
+    for kd in _HEAD_DIMS:
+        if d <= kd:
+            return kd
+    raise ValueError(f"flash_attention kernel: head dim {d} > 256 is not "
+                     "supported (a 64-row tile of q, k, v and do would not "
+                     "fit a block's 227 KB of shared memory)")
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -197,15 +224,20 @@ def _check_cuda_operands(what, named, dtype, device):
 
 
 # apex_flash_fwd(q, k, v, sid_q, sid_kv, out, lse, b, h, sq, sk, d, causal,
-#                scale, stream)
+#                scale, dtype, stream)
 _FLASH_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
+def _operand_dtype(what, q):
+    _require(q.dtype in DTYPE_CODES, what,
+             f"takes bfloat16, float16 or float32 operands, got {q.dtype}")
+    return q.dtype
 
 
 def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale):
     what = "flash_attention kernel"
-    _require(q.dtype == torch.bfloat16, what,
-             f"takes bfloat16 operands, got {q.dtype}")
+    dtype = _operand_dtype(what, q)
     _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, what,
              "q, k, v must be [b, h, s, d]")
     b, h, sq, d = q.shape
@@ -213,9 +245,8 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale):
     _require(k.shape == (b, h, sk, d) and v.shape == k.shape, what,
              f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q "
              f"{tuple(q.shape)}")
-    _require(d in _HEAD_DIMS, what, f"head dim {d} not in {_HEAD_DIMS}")
-    _check_cuda_operands(what, (("q", q), ("k", k), ("v", v)),
-                         torch.bfloat16, q.device)
+    _check_cuda_operands(what, (("q", q), ("k", k), ("v", v)), dtype,
+                         q.device)
     if segment_ids_q is not None:
         if segment_ids_kv is None:
             _require(sq == sk, what, "segment_ids_kv is needed when sq != sk")
@@ -226,15 +257,22 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale):
         _check_cuda_operands(what, (("segment_ids_q", segment_ids_q),
                                     ("segment_ids_kv", segment_ids_kv)),
                              torch.int32, q.device)
-    out = torch.empty_like(q)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    fn = _build.function("flash_fwd", "apex_flash_fwd", _FLASH_ARGS)
-    err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(segment_ids_q),
-             _ptr(segment_ids_kv), _ptr(out), _ptr(lse), b, h, sq, sk, d,
-             int(bool(causal)), float(scale), _stream(q))
-    _build.check(err, what)
-    flash_attention.launches += 1
-    return out, lse
+
+    def launch(q, k, v):
+        out = torch.empty_like(q)
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        fn = _build.function(_build.dtype_target(
+            "flash_fwd", DTYPE_CODES[dtype]), "apex_flash_fwd", _FLASH_ARGS)
+        err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(segment_ids_q),
+                 _ptr(segment_ids_kv), _ptr(out), _ptr(lse), b, h, sq, sk,
+                 q.shape[-1], int(bool(causal)), float(scale),
+                 DTYPE_CODES[dtype], _stream(q))
+        _build.check(err, what)
+        flash_attention.launches += 1
+        return out, lse
+
+    return with_padded_last_dim(launch, kernel_head_dim(d), (q, k, v),
+                                sliced=(0,))
 
 
 def flash_attention_fwd(q, k, v, segment_ids_q=None, segment_ids_kv=None,
@@ -297,16 +335,16 @@ def uses_split_backward(sq: int, sk: int, d: int, itemsize_k: int = 2,
 
 
 # apex_flash_bwd(q, k, v, do, lse, delta, sid_q, sid_kv, dq_acc, dk, dv, b,
-#                h, sq, sk, d, causal, scale, stream)
+#                h, sq, sk, d, causal, scale, dtype, stream)
 _FLASH_BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 # apex_flash_bwd_dkdv(q, k, v, do, lse, delta, sid_q, sid_kv, dk, dv, b, h,
-#                     sq, sk, d, causal, scale, stream), and
+#                     sq, sk, d, causal, scale, dtype, stream), and
 # apex_flash_bwd_dq(..., sid_kv, dq, b, ...) with one output pointer less
 _FLASH_DKDV_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _FLASH_DQ_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
@@ -315,8 +353,7 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
     :func:`uses_split_backward`; True or False forces the two-kernel split
     or the single pass (for comparing the two at one shape)."""
     what = "flash_attention_bwd kernel"
-    _require(q.dtype == torch.bfloat16, what,
-             f"takes bfloat16 operands, got {q.dtype}")
+    dtype = _operand_dtype(what, q)
     _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, what,
              "q, k, v must be [b, h, s, d]")
     b, h, sq, d = q.shape
@@ -325,9 +362,13 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
              and out.shape == q.shape and do.shape == q.shape, what,
              f"k {tuple(k.shape)} / v {tuple(v.shape)} / out / do do not "
              f"match q {tuple(q.shape)}")
-    _require(d in _HEAD_DIMS, what, f"head dim {d} not in {_HEAD_DIMS}")
+    dp = kernel_head_dim(d)
+    _require(dtype != torch.float32 or dp <= _FP32_BWD_MAX_HEAD_DIM, what,
+             f"float32 operands take head dims up to "
+             f"{_FP32_BWD_MAX_HEAD_DIM}, got {d} (the fp32 tiles of a "
+             "64-row block take 270 KB of shared memory at d 256)")
     _check_cuda_operands(what, (("q", q), ("k", k), ("v", v), ("out", out),
-                                ("do", do)), torch.bfloat16, q.device)
+                                ("do", do)), dtype, q.device)
     _require(lse.shape == (b, h, sq), what, "lse must be [b, h, sq]")
     _check_cuda_operands(what, (("lse", lse),), torch.float32, q.device)
     if segment_ids_q is not None:
@@ -346,22 +387,29 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
     if split is None:
         split = uses_split_backward(sq, sk, d, k.element_size(),
                                     v.element_size(), causal)
-    if split:
-        args = (q, k, v, do, lse, delta, segment_ids_q, segment_ids_kv,
-                causal, scale)
-        dk, dv = _flash_dkdv_cuda(*args)
-        return _flash_dq_cuda(*args), dk, dv
-    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    fn = _build.function("flash_bwd", "apex_flash_bwd", _FLASH_BWD_ARGS)
-    err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
-             _ptr(segment_ids_q), _ptr(segment_ids_kv), _ptr(dq_acc),
-             _ptr(dk), _ptr(dv), b, h, sq, sk, d, int(bool(causal)),
-             float(scale), _stream(q))
-    _build.check(err, what)
-    flash_attention_bwd.launches += 1
-    return dq_acc.to(q.dtype), dk, dv
+
+    def launch(q, k, v, do):
+        if split:
+            args = (q, k, v, do, lse, delta, segment_ids_q, segment_ids_kv,
+                    causal, scale)
+            dk, dv = _flash_dkdv_cuda(*args)
+            return _flash_dq_cuda(*args), dk, dv
+        dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dk = torch.empty_like(k)
+        dv = torch.empty_like(v)
+        fn = _build.function(_build.dtype_target(
+            "flash_bwd", DTYPE_CODES[dtype]), "apex_flash_bwd",
+            _FLASH_BWD_ARGS)
+        err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse),
+                 _ptr(delta), _ptr(segment_ids_q), _ptr(segment_ids_kv),
+                 _ptr(dq_acc), _ptr(dk), _ptr(dv), b, h, sq, sk,
+                 q.shape[-1], int(bool(causal)), float(scale),
+                 DTYPE_CODES[q.dtype], _stream(q))
+        _build.check(err, what)
+        flash_attention_bwd.launches += 1
+        return dq_acc.to(q.dtype), dk, dv
+
+    return with_padded_last_dim(launch, dp, (q, k, v, do), sliced=(0, 1, 2))
 
 
 def _split_operands(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale):
@@ -369,7 +417,7 @@ def _split_operands(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale):
     return ((_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
              _ptr(sid_q), _ptr(sid_kv)),
             (b, h, sq, k.shape[2], d, int(bool(causal)), float(scale),
-             _stream(q)))
+             DTYPE_CODES[q.dtype], _stream(q)))
 
 
 def _flash_dkdv_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale):
@@ -378,7 +426,9 @@ def _flash_dkdv_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     operands, tail = _split_operands(q, k, v, do, lse, delta, sid_q, sid_kv,
                                      causal, scale)
-    fn = _build.function("flash_bwd", "apex_flash_bwd_dkdv", _FLASH_DKDV_ARGS)
+    fn = _build.function(_build.dtype_target(
+        "flash_bwd", DTYPE_CODES[q.dtype]), "apex_flash_bwd_dkdv",
+        _FLASH_DKDV_ARGS)
     _build.check(fn(*operands, _ptr(dk), _ptr(dv), *tail),
                  "flash_attention_bwd dk/dv kernel")
     flash_attention_bwd.dkdv_launches += 1
@@ -390,7 +440,9 @@ def _flash_dq_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale):
     dq = torch.empty_like(q)
     operands, tail = _split_operands(q, k, v, do, lse, delta, sid_q, sid_kv,
                                      causal, scale)
-    fn = _build.function("flash_bwd", "apex_flash_bwd_dq", _FLASH_DQ_ARGS)
+    fn = _build.function(_build.dtype_target(
+        "flash_bwd", DTYPE_CODES[q.dtype]), "apex_flash_bwd_dq",
+        _FLASH_DQ_ARGS)
     _build.check(fn(*operands, _ptr(dq), *tail),
                  "flash_attention_bwd dq kernel")
     flash_attention_bwd.dq_launches += 1
@@ -474,10 +526,9 @@ flash_attention.launches = 0
 
 # apex_paged_decode(q, k_pages, v_pages, k_scales, v_scales, block_tables,
 #                   seq_lens, out, b, kv, group, d, num_pages, page_size, m,
-#                   scale, stream)
+#                   scale, dtype, stream)
 _PAGED_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
-    ctypes.c_float, ctypes.c_void_p]
-_MAX_GROUP = 8
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def _paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
@@ -487,18 +538,16 @@ def _paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
     b, kv, group, d = q.shape
     _, num_pages, page_size, _ = k_pages.shape
     m = block_tables.shape[1]
-    _require(q.dtype == torch.bfloat16, what,
-             f"takes a bfloat16 query, got {q.dtype}")
-    _require(d in _HEAD_DIMS, what, f"head dim {d} not in {_HEAD_DIMS}")
-    _require(group <= _MAX_GROUP, what, f"group {group} > {_MAX_GROUP}")
+    dtype = _operand_dtype(what, q)
+    _require(d in _PAGED_HEAD_DIMS, what,
+             f"head dim {d} not in {_PAGED_HEAD_DIMS}")
     _require(v_pages.shape == k_pages.shape, what,
              "k_pages and v_pages differ in shape")
     _require(block_tables.shape == (b, m) and seq_lens.shape == (b,), what,
              "block_tables must be [b, m] and seq_lens [b]")
-    _check_cuda_operands(what, (("q", q),), torch.bfloat16, q.device)
+    _check_cuda_operands(what, (("q", q),), dtype, q.device)
     _check_cuda_operands(what, (("k_pages", k_pages), ("v_pages", v_pages)),
-                         torch.float8_e4m3fn if fp8 else torch.bfloat16,
-                         q.device)
+                         torch.float8_e4m3fn if fp8 else dtype, q.device)
     if fp8:
         _require(k_scales.shape == (kv, num_pages)
                  and v_scales.shape == (kv, num_pages), what,
@@ -510,11 +559,12 @@ def _paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
                                 ("seq_lens", seq_lens)),
                          torch.int32, q.device)
     out = torch.empty_like(q)
-    fn = _build.function("paged_decode", "apex_paged_decode", _PAGED_ARGS)
+    fn = _build.function(_build.dtype_target(
+        "paged_decode", DTYPE_CODES[dtype]), "apex_paged_decode", _PAGED_ARGS)
     err = fn(_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_scales),
              _ptr(v_scales), _ptr(block_tables), _ptr(seq_lens), _ptr(out),
              b, kv, group, d, num_pages, page_size, m, float(scale),
-             _stream(q))
+             DTYPE_CODES[dtype], _stream(q))
     _build.check(err, what)
     if fp8:
         paged_decode_attention.fp8_launches += 1

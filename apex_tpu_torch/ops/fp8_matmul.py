@@ -18,7 +18,10 @@ product that consumes them:
   ``fp8_dequant_matmul.launches`` counts kernel launches.
 
 The kernel takes bf16 ``x`` and gives a bf16 result (``out_dtype`` must be
-``x.dtype``); ``K`` and ``N`` must be multiples of 16. The scale stays on
+``x.dtype``) and runs K and N in multiples of 16: any other K or N runs
+zero-padded (:func:`with_padded_kn`, as the JAX package pads to its blocks,
+``apex_tpu/ops/fp8_matmul.py:109-118``): zero rows of the weight meet zero
+columns of x, and the padded output columns are sliced off. The scale stays on
 the device: the kernel reads it, the host never does. The Pallas block
 knobs and the tuned-cache lookup of the JAX entry wait for the port's
 tuner.
@@ -34,6 +37,7 @@ import torch
 from apex_tpu_torch._compat import check_device_type
 from apex_tpu_torch.amp import fp8
 from apex_tpu_torch.ops import _build
+from apex_tpu_torch.ops._pad import pad_last_dim
 
 
 def quantize_weight(w: torch.Tensor, *, margin: float = 0.0):
@@ -77,12 +81,32 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"fp8_dequant_matmul kernel: {msg}")
 
 
+_ALIGN = 16      # the kernel's K and N granule
+
+
+def with_padded_kn(fn, x, q, scale, out_dtype):
+    """``fn(x, q, scale, out_dtype)`` at K and N rounded up to multiples of
+    16 with zeros (x's columns and q's rows past K, q's columns past N),
+    the result's padded columns sliced off."""
+    K, N = q.shape
+    Kp, Np = -(-K // _ALIGN) * _ALIGN, -(-N // _ALIGN) * _ALIGN
+    if (Kp, Np) == (K, N):
+        return fn(x, q, scale, out_dtype)
+    qp = pad_last_dim(pad_last_dim(q, Np).t(), Kp).t().contiguous()
+    y = fn(pad_last_dim(x, Kp).contiguous(), qp, scale, out_dtype)
+    return y[..., :N].contiguous()
+
+
 def _fp8_mm_cuda(x, q, scale, out_dtype):
+    return with_padded_kn(_fp8_mm_launch, x, q, scale, out_dtype)
+
+
+def _fp8_mm_launch(x, q, scale, out_dtype):
     K, N = q.shape
     _require(x.dtype == torch.bfloat16 and out_dtype == torch.bfloat16,
              f"takes a bfloat16 x and gives bfloat16, got x {x.dtype} -> "
              f"{out_dtype}")
-    _require(K % 16 == 0 and N % 16 == 0,
+    _require(K % _ALIGN == 0 and N % _ALIGN == 0,
              f"K and N must be multiples of 16, got q [{K}, {N}]")
     for name, t in (("x", x), ("q", q), ("scale", scale)):
         _require(t.device == x.device,

@@ -18,13 +18,19 @@ logits ever reaching device memory on the card:
 - :func:`fused_lm_head_cross_entropy` — the differentiable op
   (:class:`FusedLMHeadCEFunction`) at tensor-parallel world size 1.
 
-Numerics (as the JAX package): logits with bf16 operands and fp32
-accumulation, never rounded to bf16; fp32 reductions; the gradient tile
+Numerics (as the JAX package): logits with the operands' dtype (bf16,
+fp16 or fp32 — fp32 through the SIMT product of ``csrc/frag.cuh``, for O0)
+and fp32 accumulation, never rounded; fp32 reductions; the gradient tile
 ``(softmax - target) * dloss`` rounded to the activation dtype before both
 products; dE accumulated in fp32 and cast to the embedding's dtype. dx is
-summed over the whole vocabulary in fp32 (the JAX kernel adds bf16
-per-block partials). The plain versions compute the logits in fp32 from
-upcast operands, which is what the JAX package's interpret mode does.
+summed over the whole vocabulary in fp32 (the JAX kernel adds per-block
+partials). The plain versions compute the logits in fp32 from upcast
+operands, which is what the JAX package's interpret mode does.
+
+Any hidden size: the kernels hold at most ``kc`` columns of a tile in
+shared memory (:func:`hidden_chunks`), so the wrapper zero-pads h in x and
+the embedding to ``nch * kc`` (the zero columns change no logit and get a
+zero gradient, sliced off) and the kernels loop over the chunks.
 
 ``lm_head_ce_fwd.launches`` and ``lm_head_ce_bwd.launches`` count kernel
 calls (the backward's one call launches its two passes).
@@ -40,12 +46,25 @@ import torch
 
 from apex_tpu_torch._compat import check_device_type
 from apex_tpu_torch.ops import _build
-from apex_tpu_torch.ops.flash_attention import (_check_cuda_operands, _ptr,
+from apex_tpu_torch.ops._pad import with_padded_last_dim
+from apex_tpu_torch.ops.flash_attention import (DTYPE_CODES,
+                                                _check_cuda_operands, _ptr,
                                                 _require, _stream)
 
 _VOCAB_PER_BLOCK = 1024        # vocab rows per forward block (VT_FWD * TV)
-_BWD_HIDDEN = (128, 256, 512, 768, 1024)
-_FWD_MAX_HIDDEN = 1536
+_CHUNK = 64                    # kc is a multiple of the 8 warps' 8 columns
+# the most hidden columns of a 32-row tile the kernels hold in shared memory
+_MAX_CHUNK = {torch.bfloat16: 1024, torch.float16: 1024, torch.float32: 512}
+
+
+def hidden_chunks(h: int, dtype: torch.dtype):
+    """``(hp, kc)``: the kernels run hidden size ``h`` zero-padded to
+    ``hp = nch * kc`` in ``nch`` chunks of ``kc`` columns (a multiple of
+    64, at most 1024 for 16-bit operands and 512 for fp32, the fewest
+    chunks and then the least padding)."""
+    nch = -(-h // _MAX_CHUNK[dtype])
+    kc = -(-(-(-h // nch)) // _CHUNK) * _CHUNK
+    return nch * kc, kc
 
 
 # ---------------------------------------------------------------------------
@@ -100,21 +119,23 @@ def lm_head_ce_bwd_reference(x2d, e, tgt, m, l, dloss,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-# apex_lm_head_ce_fwd(x, e, tgt, m_part, l_part, p_part, s_part, n, V, h,
-#                     stream)
-_FWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-# apex_lm_head_ce_bwd(x, e, tgt, m, l, dl, de, dx, n, V, h, ls, ls_over_v,
-#                     stream)
-_BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
-    ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+# apex_lm_head_ce_fwd(x, e, tgt, m_part, l_part, p_part, s_part, n, V, hp,
+#                     kc, dtype, stream)
+_FWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# apex_lm_head_ce_bwd(x, e, tgt, m, l, dl, de, dx, n, V, hp, kc, ls,
+#                     ls_over_v, dtype, stream)
+_BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def _check_operands(what, x2d, e, tgt):
     _require(x2d.dim() == 2 and e.dim() == 2 and x2d.shape[1] == e.shape[1],
              what, f"x {tuple(x2d.shape)} / embedding {tuple(e.shape)} must "
              "be [n, h] and [V, h]")
-    _check_cuda_operands(what, (("x", x2d), ("embedding", e)),
-                         torch.bfloat16, x2d.device)
+    _require(x2d.dtype in DTYPE_CODES, what, "takes bfloat16, float16 or "
+             f"float32 operands, got {x2d.dtype}")
+    _check_cuda_operands(what, (("x", x2d), ("embedding", e)), x2d.dtype,
+                         x2d.device)
     _require(tgt.shape == (x2d.shape[0],), what, "targets must be [n]")
     _check_cuda_operands(what, (("targets", tgt),), torch.int32, x2d.device)
 
@@ -124,18 +145,24 @@ def _ce_fwd_cuda(x2d, e, tgt, with_ssum):
     _check_operands(what, x2d, e, tgt)
     n, h = x2d.shape
     V = e.shape[0]
-    _require(h % 16 == 0 and h <= _FWD_MAX_HIDDEN, what,
-             f"hidden size {h} must be a multiple of 16 up to "
-             f"{_FWD_MAX_HIDDEN}")
+    hp, kc = hidden_chunks(h, x2d.dtype)
     n_vb = -(-V // _VOCAB_PER_BLOCK)
-    parts = torch.empty((4 if with_ssum else 3, n_vb, n),
-                        dtype=torch.float32, device=x2d.device)
-    fn = _build.function("lm_head_ce", "apex_lm_head_ce_fwd", _FWD_ARGS)
-    err = fn(_ptr(x2d), _ptr(e), _ptr(tgt), _ptr(parts[0]), _ptr(parts[1]),
-             _ptr(parts[2]), _ptr(parts[3]) if with_ssum else None, n, V, h,
-             _stream(x2d))
-    _build.check(err, what)
-    lm_head_ce_fwd.launches += 1
+
+    def launch(x2d, e):
+        parts = torch.empty((4 if with_ssum else 3, n_vb, n),
+                            dtype=torch.float32, device=x2d.device)
+        fn = _build.function(_build.dtype_target(
+            "lm_head_ce", DTYPE_CODES[x2d.dtype]), "apex_lm_head_ce_fwd",
+            _FWD_ARGS)
+        err = fn(_ptr(x2d), _ptr(e), _ptr(tgt), _ptr(parts[0]),
+                 _ptr(parts[1]), _ptr(parts[2]),
+                 _ptr(parts[3]) if with_ssum else None, n, V, hp, kc,
+                 DTYPE_CODES[x2d.dtype], _stream(x2d))
+        _build.check(err, what)
+        lm_head_ce_fwd.launches += 1
+        return (parts,)
+
+    parts, = with_padded_last_dim(launch, hp, (x2d, e))
     m_p, l_p, p_p = parts[0], parts[1], parts[2]
     # combine the per-block online-softmax partials (tiny: [n_vb, n])
     m = m_p.amax(dim=0)
@@ -160,20 +187,27 @@ def _ce_bwd_cuda(x2d, e, tgt, m, l, dloss, label_smoothing):
     _check_operands(what, x2d, e, tgt)
     n, h = x2d.shape
     V = e.shape[0]
-    _require(h in _BWD_HIDDEN, what, f"hidden size {h} not in {_BWD_HIDDEN}")
     _require(m.shape == (n,) and l.shape == (n,) and dloss.shape == (n,),
              what, "m, l and dloss must be [n]")
     _check_cuda_operands(what, (("m", m), ("l", l), ("dloss", dloss)),
                          torch.float32, x2d.device)
-    de = torch.empty_like(e)
-    dx = torch.empty_like(x2d)
-    fn = _build.function("lm_head_ce", "apex_lm_head_ce_bwd", _BWD_ARGS)
+    hp, kc = hidden_chunks(h, x2d.dtype)
     ls = float(label_smoothing)
-    err = fn(_ptr(x2d), _ptr(e), _ptr(tgt), _ptr(m), _ptr(l), _ptr(dloss),
-             _ptr(de), _ptr(dx), n, V, h, ls, ls / V, _stream(x2d))
-    _build.check(err, what)
-    lm_head_ce_bwd.launches += 1
-    return dx, de
+
+    def launch(x2d, e):
+        de = torch.empty_like(e)
+        dx = torch.empty_like(x2d)
+        fn = _build.function(_build.dtype_target(
+            "lm_head_ce", DTYPE_CODES[x2d.dtype]), "apex_lm_head_ce_bwd",
+            _BWD_ARGS)
+        err = fn(_ptr(x2d), _ptr(e), _ptr(tgt), _ptr(m), _ptr(l),
+                 _ptr(dloss), _ptr(de), _ptr(dx), n, V, hp, kc, ls, ls / V,
+                 DTYPE_CODES[x2d.dtype], _stream(x2d))
+        _build.check(err, what)
+        lm_head_ce_bwd.launches += 1
+        return dx, de
+
+    return with_padded_last_dim(launch, hp, (x2d, e), sliced=(0, 1))
 
 
 def lm_head_ce_bwd(x2d, e, tgt, m, l, dloss, label_smoothing: float = 0.0):

@@ -1,0 +1,198 @@
+"""ResNet-50's conv2_x bottleneck in one kernel on the card, against its
+plain version and the cuDNN composition (``scripts/bottleneck_proto.py`` of
+the JAX package).
+
+Shape, the proto's: x [N, 56, 56, 256] NHWC bf16, batch norms folded to a
+scale and a shift::
+
+    x -> 1x1 w1 [256, 64] -> *g1 + b1 -> relu
+      -> 3x3 w2 [3, 3, 64, 64] (SAME) -> *g2 + b2 -> relu
+      -> 1x1 w3 [64, 256] -> *g3 + b3 -> + x -> relu
+
+- :func:`make_params` — the proto's parameters: the same ``RandomState``
+  draws, rounded to bf16, so the port's weights are the proto's numbers;
+- :func:`plain_block` — the counterpart of the proto's ``xla_block``:
+  fp32 products of the (bf16) operands, h1 and h2 rounded to the input's
+  dtype, the residual added in fp32, one rounding at the end;
+- :func:`fused_block` — the counterpart of ``pallas_block``: on CUDA the
+  kernel ``csrc/bottleneck.cu``, which replaces the Pallas ``_kernel``
+  (``scripts/bottleneck_proto.py:89``, launched at ``:157``), on the CPU
+  :func:`plain_block`; ``fused_block.launches`` counts kernel launches;
+- :func:`cudnn_block` — the library composition timed beside the kernel:
+  three ``F.conv2d`` in ``channels_last`` bf16 with the folded batch norms
+  and ReLUs as bf16 elementwise ops;
+- :func:`timed` — milliseconds per block (CUDA events around ``k``
+  back-to-back blocks, median of 5 windows).
+
+Run on a machine with a CUDA card::
+
+    python -m apex_tpu_torch.scripts.bottleneck_proto
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from apex_tpu_torch._compat import DeviceLike, check_device_type, resolve_device
+from apex_tpu_torch.ops import _build
+
+N, H, W, C, S = 32, 56, 56, 256, 64     # batch, spatial, channels, squeeze
+PARAM_NAMES = ("w1", "w2", "w3", "g1", "b1", "g2", "b2", "g3", "b3")
+
+
+def make_params(dtype=torch.bfloat16, seed: int = 0,
+                device: DeviceLike = None):
+    """The proto's parameters, from the same ``RandomState(seed)`` draws in
+    the same order: w1 [C, S], w2 [3, 3, S, S] (HWIO), w3 [S, C] and the
+    folded batch-norm vectors g1, b1, g2, b2 [S], g3, b3 [C]; on ``device``
+    (CUDA by default)."""
+    device = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    p = {
+        "w1": rng.randn(C, S) * (2.0 / C) ** 0.5,
+        "w2": rng.randn(3, 3, S, S) * (2.0 / (9 * S)) ** 0.5,
+        "w3": rng.randn(S, C) * (2.0 / S) ** 0.5,
+        "g1": 1.0 + 0.1 * rng.randn(S), "b1": 0.1 * rng.randn(S),
+        "g2": 1.0 + 0.1 * rng.randn(S), "b2": 0.1 * rng.randn(S),
+        "g3": 1.0 + 0.1 * rng.randn(C), "b3": 0.1 * rng.randn(C),
+    }
+    return {k: torch.from_numpy(v).to(dtype).to(device)
+            for k, v in p.items()}
+
+
+def make_input(n: int = N, seed: int = 1, dtype=torch.bfloat16,
+               device: DeviceLike = None):
+    """The proto's input: ``RandomState(seed).randn(n, H, W, C) * 0.5``, on
+    ``device`` (CUDA by default)."""
+    device = resolve_device(device)
+    x = np.random.RandomState(seed).randn(n, H, W, C) * 0.5
+    return torch.from_numpy(x).to(dtype).to(device)
+
+
+def _bn_relu(h, g, b, dtype):
+    return torch.relu(h * g.float() + b.float()).to(dtype)
+
+
+def plain_block(x, p):
+    """The plain version (the proto's ``xla_block``): x [n, 56, 56, 256]
+    NHWC -> the block's output in ``x.dtype``."""
+    dtype = x.dtype
+    h = torch.einsum("nhwc,cs->nhws", x.float(), p["w1"].float())
+    h = _bn_relu(h, p["g1"], p["b1"], dtype)
+    h = F.conv2d(h.float().permute(0, 3, 1, 2),
+                 p["w2"].float().permute(3, 2, 0, 1), padding=1)
+    h = _bn_relu(h.permute(0, 2, 3, 1), p["g2"], p["b2"], dtype)
+    h = torch.einsum("nhws,sc->nhwc", h.float(), p["w3"].float())
+    h = h * p["g3"].float() + p["b3"].float()
+    return torch.relu(h + x.float()).to(dtype)
+
+
+# apex_bottleneck(x, w1, w2, w3, g1, b1, g2, b2, g3, b3, out, n, stream)
+_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_void_p]
+_SHAPES = {"w1": (C, S), "w2": (3, 3, S, S), "w3": (S, C), "g1": (S,),
+           "b1": (S,), "g2": (S,), "b2": (S,), "g3": (C,), "b3": (C,)}
+
+
+def _fused_cuda(x, p):
+    what = "bottleneck kernel"
+    if x.dim() != 4 or tuple(x.shape[1:]) != (H, W, C):
+        raise ValueError(f"{what}: x must be [n, {H}, {W}, {C}] NHWC, got "
+                         f"{tuple(x.shape)}")
+    for name, t in [("x", x)] + [(k, p[k]) for k in PARAM_NAMES]:
+        if name != "x" and tuple(t.shape) != _SHAPES[name]:
+            raise ValueError(f"{what}: {name} must be {_SHAPES[name]}, got "
+                             f"{tuple(t.shape)}")
+        if (t.dtype != torch.bfloat16 or t.device != x.device
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{what}: {name} must be a contiguous, 16-byte "
+                             f"aligned bfloat16 tensor on {x.device}, got "
+                             f"{t.dtype} on {t.device}")
+    out = torch.empty_like(x)
+    fn = _build.function("bottleneck", "apex_bottleneck", _ARGS)
+    err = fn(*(ctypes.c_void_p(t.data_ptr())
+               for t in [x] + [p[k] for k in PARAM_NAMES] + [out]),
+             x.shape[0],
+             ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    _build.check(err, what)
+    fused_block.launches += 1
+    return out
+
+
+def fused_block(x, p):
+    """The fused bottleneck: the kernel on CUDA, :func:`plain_block` on the
+    CPU."""
+    if check_device_type(x, "fused_block") == "cpu":
+        return plain_block(x, p)
+    return _fused_cuda(x, p)
+
+
+fused_block.launches = 0
+
+
+def cudnn_weights(p):
+    """OIHW bf16 conv weights in ``channels_last`` for
+    :func:`cudnn_block`."""
+    cl = torch.channels_last
+    return {"w1": p["w1"].t()[:, :, None, None].contiguous(memory_format=cl),
+            "w2": p["w2"].permute(3, 2, 0, 1).contiguous(memory_format=cl),
+            "w3": p["w3"].t()[:, :, None, None].contiguous(memory_format=cl)}
+
+
+def cudnn_block(x, p, wts=None):
+    """The library composition: NHWC ``x`` seen as a ``channels_last`` NCHW
+    tensor, three bf16 ``F.conv2d`` calls with the folded batch norms and
+    ReLUs between them; returns NHWC."""
+    wts = cudnn_weights(p) if wts is None else wts
+    xc = x.permute(0, 3, 1, 2)                  # channels_last view
+
+    def bn(h, g, b):
+        return h * g[:, None, None] + b[:, None, None]
+
+    h = torch.relu(bn(F.conv2d(xc, wts["w1"]), p["g1"], p["b1"]))
+    h = torch.relu(bn(F.conv2d(h, wts["w2"], padding=1), p["g2"], p["b2"]))
+    h = bn(F.conv2d(h, wts["w3"]), p["g3"], p["b3"])
+    return torch.relu(h + xc).permute(0, 2, 3, 1)
+
+
+def timed(fn, x, p, k: int = 64, windows: int = 5) -> float:
+    """Milliseconds per call of ``fn(x, p)``: CUDA events around ``k``
+    back-to-back calls after a warm-up, median of ``windows``."""
+    fn(x, p)
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(k):
+            fn(x, p)
+        end.record()
+        torch.cuda.synchronize()
+        ts.append(start.elapsed_time(end) / k)
+    return sorted(ts)[windows // 2]
+
+
+if __name__ == "__main__":
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    p = make_params(device="cuda")
+    x = make_input(device="cuda")
+    wts = cudnn_weights(p)
+    y_plain = plain_block(x, p)
+    y_fused = fused_block(x, p)
+    y_lib = cudnn_block(x, p, wts)
+    err = float((y_fused.float() - y_plain.float()).abs().max())
+    err_lib = float((y_fused.float() - y_lib.float()).abs().max())
+    print("max abs err fused vs plain:", err)
+    print("max abs err fused vs cuDNN composition:", err_lib)
+    assert err_lib < 0.15, err_lib    # the proto's bf16 parity limit
+    t_lib = timed(lambda x, p: cudnn_block(x, p, wts), x, p)
+    t_fused = timed(fused_block, x, p)
+    t_plain = timed(plain_block, x, p, k=4)
+    print(f"cuDNN composition : {t_lib:.4f} ms")
+    print(f"fused kernel      : {t_fused:.4f} ms   ({t_lib / t_fused:.2f}x)")
+    print(f"plain version     : {t_plain:.4f} ms")

@@ -78,11 +78,34 @@ Phases (any failure exits non-zero; no phase's error is caught):
 12. tier-2 LAMB path — ``DistributedFusedLAMB(lr=1e-3, weight_decay=0.01,
     max_grad_norm=1.0)`` through ``amp.make_train_step`` at O2: a warm-up,
     3 counted steps (one B13 LAMB launch each), then one step on the card
-    against the same step of a CPU twin.
+    against the same step of a CPU twin;
+13. probe path — ``apex_tpu_torch.scripts.vpu_probe``'s run: each of the
+    six ops (B14) chained 16 times over [64, 512, 512] fp32 and summed,
+    timed as the script times it; asserts the launch count;
+14. bottleneck path — ``apex_tpu_torch.scripts.bottleneck_proto``'s run at
+    the proto's full shape (N 32, 56 x 56 x 256 bf16): the fused kernel
+    (B15) within the proto's 0.15 of the cuDNN composition, both timed;
+15. spatial path — ``contrib.bottleneck.SpatialBottleneck`` at world 1 at
+    ResNet-50's conv2_x width (x [32, 256, 56, 56] bf16, fp32 norms):
+    forward and backward against ``models.resnet.Bottleneck`` with the
+    same weights, then 4 O2 ``FusedSGD`` steps with a finite, falling
+    loss;
+16. O0 path — the GPT at full width with 2 layers in fp32 (b8 s1024): the
+    loss and every gradient through the kernels (fp32 flash, LayerNorm and
+    LM-head CE) against ``GPT.loss(reference=True)``, then 3 counted
+    ``FusedAdam`` steps through ``amp.make_train_step`` at O0.
 
-The kernel phase holds B13 bitwise against its plain version in five
-modes and under a set skip flag, at the GPT's 185,759,744 parameters and a
-ragged n.
+The kernel phase also holds the shapes and dtypes ROADMAP §C records as
+repaired against the plain versions: flash forward and backward (single
+pass and split) at fp16 and fp32 and at head dims 80, 96 and 256; paged
+decode at group 16 in both pool modes and with fp16/fp32 queries; the
+LM-head CE at h 64, 1536, 1600, 2048 and fp32; the fp8 matmul at
+K = N = 1000. And B15 (the fused bottleneck, N 32) within two bf16 ulps
+plus 2^-5 of its plain version and 0.15 of the cuDNN composition; B14
+bitwise (mul, max, where, iota_cmp_where) or within 2 ulps (exp, exp2).
+
+It holds B13 bitwise against its plain version in five modes and under a
+set skip flag, at the GPT's 185,759,744 parameters and a ragged n.
 
 The second-last line of standard output is the card as ``nvidia-smi``
 names it, the line before it the kernels' JSON record, and the last line
@@ -1044,6 +1067,8 @@ def counters():
     from apex_tpu_torch.ops import fused_ce as xe
     from apex_tpu_torch.ops import layer_norm as ln
     from apex_tpu_torch.ops import lm_head_ce as ce
+    from apex_tpu_torch.scripts import bottleneck_proto as bp
+    from apex_tpu_torch.scripts import vpu_probe as vp
     from apex_tpu_torch.zero import fused_update as fu
     return {"flash_fwd": (fa.flash_attention, "launches"),
             "paged_decode": (fa.paged_decode_attention, "launches"),
@@ -1062,7 +1087,9 @@ def counters():
                              "bwd_launches"),
             "multi_tensor_update": (fu.fused_shard_update, "launches"),
             "multi_tensor_update_lamb": (fu.fused_shard_update,
-                                         "lamb_launches")}
+                                         "lamb_launches"),
+            "bottleneck": (bp.fused_block, "launches"),
+            "vpu_probe": (vp.vpu_probe_kernel, "launches")}
 
 
 def reset_counters():
@@ -1663,6 +1690,533 @@ def rn50_overflow_check(torch, model, amp_model, opt, state):
 
 
 # ---------------------------------------------------------------------------
+# the repaired shapes and dtypes (ROADMAP §C): each kernel at what the JAX
+# package computes and the port raised on before
+# ---------------------------------------------------------------------------
+
+# 16-bit flash outputs: two ulps of the dtype (bf16 ulps bound fp16's) plus
+# the 4e-3 floor of the bf16 checks (p is rounded to the operands' dtype
+# before the PV product); fp32: both sides fp32, the kernel's exponentials
+# are __expf (2 ulps) and its sums run in another order
+FP32_FWD_TOL = 1e-5
+# fp32 gradients: relative norm and largest-value fraction (no rounding of
+# p or ds in fp32, so only summation order, __expf and the dq atomics)
+FP32_GRAD_TOL = 1e-4
+
+
+def _fp32_err(got, ref, what, tol):
+    got, ref = got.float(), ref.float()
+    diff = (got - ref).abs()
+    lim = tol * max(ref.abs().max().item(), 1.0)
+    check(diff.max().item() <= lim, f"{what}: max err {diff.max().item()} "
+          f"> {lim}")
+    rel = (diff.norm() / ref.norm().clamp_min(1e-30)).item()
+    check(rel <= tol, f"{what}: relative norm error {rel} > {tol}")
+    return diff.max().item()
+
+
+def check_flash_repairs(torch):
+    """Flash forward and backward (single pass and split) at fp16 and
+    fp32, and at head dims 80, 96 and 256 (padded to 128 and run at 256);
+    fp32 backward to d 128 (the kernels' shared memory, ROADMAP §C)."""
+    from apex_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cases = [(torch.bfloat16, 80), (torch.bfloat16, 96),
+             (torch.bfloat16, 256), (torch.float16, 64),
+             (torch.float16, 128), (torch.float16, 256),
+             (torch.float32, 64), (torch.float32, 128),
+             (torch.float32, 256)]
+    out = []
+    for dtype, d in cases:
+        b, h, s = 2, 4, 300
+        q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device="cuda",
+                                   dtype=dtype) for _ in range(4))
+        f0 = fa.flash_attention.launches
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+        ro, rl = fa.flash_attention_reference(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        check(fa.flash_attention.launches == f0 + 1, "flash repair: no "
+              "kernel launch")
+        name = f"flash {str(dtype)[6:]} d{d}"
+        rec = dict(dtype=str(dtype)[6:], d=d, shape=f"b{b} h{h} s{s} causal",
+                   kernel_head_dim=fa.kernel_head_dim(d))
+        if dtype == torch.float32:
+            rec["fwd_err"] = _fp32_err(o, ro, name, FP32_FWD_TOL)
+        else:
+            rec["fwd_err"] = bf16_err(o, ro, 4e-3, name)
+        check((lse - rl).abs().max().item() <= 1e-3, f"{name} lse")
+        if dtype == torch.float32 and d > 128:
+            out.append(rec)
+            continue
+        ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                               causal=True)
+        for split in (False, True):
+            grads = fa._flash_bwd_cuda(q, k, v, o, lse, do, None, None, True,
+                                       d ** -0.5, split=split)
+            torch.cuda.synchronize()
+            errs = []
+            for gname, g, r in zip(("dq", "dk", "dv"), grads, ref):
+                what = f"{name} {'split' if split else 'single'} {gname}"
+                errs.append(_fp32_err(g, r, what, FP32_GRAD_TOL)
+                            if dtype == torch.float32
+                            else grad_err(g, r, what))
+            rec["bwd_split_err" if split else "bwd_err"] = max(errs)
+        out.append(rec)
+    return out
+
+
+def check_paged_repairs(torch):
+    """Paged decode at GQA group 16 (chunks of 8 rows) in the bf16 and the
+    e4m3 pool mode, and with fp16 and fp32 queries over pools of their
+    dtype and over e4m3."""
+    from apex_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    out = []
+    for dtype, g, fp8 in ((torch.bfloat16, 16, False),
+                          (torch.bfloat16, 16, True),
+                          (torch.float16, 16, False),
+                          (torch.float16, 4, True),
+                          (torch.float32, 16, False),
+                          (torch.float32, 2, True)):
+        b, kv, d, page, m, num_pages = 4, 4, 64, 128, 8, 40
+        q, kp, vp, bt, sl = _paged_inputs(torch, gen, b, kv, g, d, page, m,
+                                          num_pages, [0, 129, 640, 1024])
+        q = q.to(dtype)
+        ks = vs = None
+        if fp8:
+            kp, ks = _fp8_pool(torch, gen, kv, num_pages, page, d)
+            vp, vs = _fp8_pool(torch, gen, kv, num_pages, page, d)
+        else:
+            kp, vp = kp.to(dtype), vp.to(dtype)
+        got = fa.paged_decode_attention(q, kp, vp, bt, sl, k_scales=ks,
+                                        v_scales=vs)
+        ref = fa.paged_attention_reference(q, kp, vp, bt, sl, k_scales=ks,
+                                           v_scales=vs)
+        torch.cuda.synchronize()
+        name = f"paged {str(dtype)[6:]} group {g} {'e4m3' if fp8 else ''}"
+        # p and the accumulators are fp32 in both: the output rounding
+        err = (_fp32_err(got, ref, name, FP32_FWD_TOL)
+               if dtype == torch.float32 else bf16_err(got, ref, 1e-3, name))
+        check(got[0].abs().max().item() == 0.0, f"{name}: dead slot")
+        out.append(dict(dtype=str(dtype)[6:], group=g, fp8_pool=fp8,
+                        max_abs_err=err))
+    return out
+
+
+def check_lm_head_ce_repairs(torch):
+    """The LM-head CE forward and backward at hidden sizes the kernels
+    used to refuse (64: the tests' tiny GPT; 1536, 1600, 2048) and at
+    fp32, at the GPT's vocabulary, held at the CE limits of PERF.md §2."""
+    from apex_tpu_torch.ops import lm_head_ce as ce
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    n, V = 1024, 32768
+    out = []
+    for dtype, h in ((torch.bfloat16, 64), (torch.bfloat16, 1536),
+                     (torch.bfloat16, 1600), (torch.bfloat16, 2048),
+                     (torch.float32, 64), (torch.float32, 1024)):
+        x = torch.randn(n, h, generator=gen, device="cuda").to(dtype)
+        e = (0.02 * torch.randn(V, h, generator=gen, device="cuda")).to(
+            dtype)
+        tgt = torch.randint(0, V, (n,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        dl = torch.full((n,), 1.0 / n, device="cuda")
+        name = f"lm_head_ce {str(dtype)[6:]} h{h}"
+        got = ce.lm_head_ce_fwd(x, e, tgt, True)
+        ref = ce.lm_head_ce_fwd_reference(x, e, tgt, True)
+        torch.cuda.synchronize()
+        fwd = 0.0
+        for sname, a, r in zip(("m", "l", "pred", "ssum"), got, ref):
+            err = (a - r).abs().max().item()
+            check(err <= 1e-4 * (r.abs().max().item() + 1.0),
+                  f"{name} fwd {sname} max err {err}")
+            fwd = max(fwd, err)
+        dx, de = ce.lm_head_ce_bwd(x, e, tgt, ref[0], ref[1], dl, 0.1)
+        rx, re = ce.lm_head_ce_bwd_reference(x, e, tgt, ref[0], ref[1], dl,
+                                             0.1)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            bwd = max(_fp32_err(dx, rx, f"{name} dx", FP32_GRAD_TOL),
+                      _fp32_err(de, re, f"{name} dE", FP32_GRAD_TOL))
+        else:
+            bwd = max(grad_err(dx, rx, f"{name} dx"),
+                      grad_err(de, re, f"{name} dE"))
+        hp, kc = ce.hidden_chunks(h, dtype)
+        out.append(dict(dtype=str(dtype)[6:], h=h, n=n, V=V, padded_h=hp,
+                        chunk=kc, fwd_err=fwd, bwd_err=bwd))
+    return out
+
+
+def check_fp8_repairs(torch):
+    """The fp8 dequant-matmul at K = N = 1000 (zero-padded to 1008) in the
+    decode and the prefill regime."""
+    from apex_tpu_torch.ops import fp8_matmul as mm
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    out = []
+    for m in (8, 512):
+        K = N = 1000
+        x = torch.randn(m, K, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        w = torch.randn(K, N, generator=gen, device="cuda") * K ** -0.5
+        q, scale = mm.quantize_weight(w)
+        y = mm.fp8_dequant_matmul(x, q, scale)
+        ref = mm.fp8_dequant_matmul_reference(x, q, scale)
+        torch.cuda.synchronize()
+        check(y.shape == (m, N), f"fp8 K=N=1000: shape {tuple(y.shape)}")
+        out.append(dict(m=m, K=K, N=N, max_abs_err=bf16_err(
+            y, ref, 1e-3, f"fp8_matmul m{m} K{K} N{N}")))
+    return out
+
+
+def check_repairs(torch):
+    return dict(flash=check_flash_repairs(torch),
+                paged_decode=check_paged_repairs(torch),
+                lm_head_ce=check_lm_head_ce_repairs(torch),
+                fp8_matmul=check_fp8_repairs(torch))
+
+
+# ---------------------------------------------------------------------------
+# B15, the fused bottleneck, and B14, the per-op probe: kernel phase
+# ---------------------------------------------------------------------------
+
+# the fused bottleneck against its plain version, both bf16 with the same
+# rounding points: two bf16 ulps plus a floor of 2^-5 — h1 and h2 are
+# rounded to bf16 in both, and one h2 value rounded the other way (an fp32
+# sum in another order) moves an output by |w3| times its ulp, summed over
+# the flips of a pixel
+BOTTLENECK_FLOOR = 2.0 ** -5
+BOTTLENECK_LIB_TOL = 0.15          # the proto's own limit against XLA
+
+
+def check_bottleneck(torch, timer):
+    from apex_tpu_torch.scripts import bottleneck_proto as bp
+    p = bp.make_params(device="cuda")
+    x = bp.make_input(bp.N, device="cuda")
+    wts = bp.cudnn_weights(p)
+    y = bp.fused_block(x, p)
+    ref = bp.plain_block(x, p)
+    lib = bp.cudnn_block(x, p, wts)
+    torch.cuda.synchronize()
+    err = bf16_err(y, ref, BOTTLENECK_FLOOR, "bottleneck vs plain")
+    lib_err = (y.float() - lib.float()).abs().max().item()
+    check(lib_err < BOTTLENECK_LIB_TOL, f"bottleneck vs the cuDNN "
+          f"composition: {lib_err} >= {BOTTLENECK_LIB_TOL}")
+    check(bool(torch.isfinite(y.float()).all()), "bottleneck: non-finite")
+    ms = timer(lambda: bp.fused_block(x, p))
+    plain_ms = timer(lambda: bp.plain_block(x, p), iters=10)
+    lib_ms = timer(lambda: bp.cudnn_block(x, p, wts))
+    px = bp.N * bp.H * bp.W
+    flops = 2.0 * px * (bp.C * bp.S + 9 * bp.S * bp.S + bp.S * bp.C)
+    nbytes = 2 * px * bp.C * 2 + sum(t.numel() * 2 for t in p.values())
+    t_bound, by = bound(flops, nbytes)
+    return dict(name="bottleneck", route="cuda",
+                source="apex_tpu_torch/csrc/bottleneck.cu",
+                replaces="scripts/bottleneck_proto.py:89",
+                shape=f"x [{bp.N}, {bp.H}, {bp.W}, {bp.C}] NHWC bf16, "
+                      f"squeeze {bp.S}, folded batch norms",
+                max_abs_err=err,
+                tolerance=f"2 bf16 ulp + {BOTTLENECK_FLOOR} vs plain; < "
+                          f"{BOTTLENECK_LIB_TOL} vs the cuDNN composition",
+                cudnn_composition_max_abs_err=lib_err,
+                ms=ms, plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
+                library_ms=lib_ms,
+                library="three channels_last bf16 F.conv2d with the folded "
+                        "batch norms, ReLUs and residual as bf16 "
+                        "elementwise ops")
+
+
+def check_vpu_probe(torch, timer):
+    """Each op's one launch against the plain loop on the same [64, 512,
+    512] input: mul, max, where, iota_cmp_where bitwise; exp, exp2 within
+    2 fp32 ulps (CUDA's expf/exp2f against torch's; read 0). The record's
+    times are the six launches' sums, its bound the larger of their bytes
+    and their operations summed; ``by_op`` has each op's."""
+    from apex_tpu_torch.scripts import vpu_probe as vp
+    x = torch.from_numpy(np.random.RandomState(0).randn(
+        64, vp.BQ, vp.BK).astype(np.float32)).cuda()
+    by_op = {}
+    for op in vp.OPS:
+        got = vp.vpu_probe_kernel(x, op)
+        ref = vp.vpu_probe_reference(x, op)
+        torch.cuda.synchronize()
+        ulps = (got.view(torch.int32).long()
+                - ref.view(torch.int32).long()).abs().max().item()
+        check(ulps <= (2 if op in ("exp", "exp2") else 0),
+              f"vpu_probe {op}: {ulps} ulps from the plain loop")
+        b = vp.bounds(op)
+        by_op[op] = dict(max_ulps=ulps,
+                         max_abs_err=(got - ref).abs().max().item(),
+                         ms=timer(lambda: vp.vpu_probe_kernel(x, op)),
+                         plain_ms=timer(lambda: vp.vpu_probe_reference(x, op),
+                                        iters=5),
+                         bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                         bytes_ms=b["bytes_ms"], ops_ms=b["ops_ms"],
+                         issue=b["issue"], rate_per_s=b["rate_per_s"])
+        del got, ref
+    total = {k: sum(r[k] for r in by_op.values())
+             for k in ("ms", "plain_ms", "bytes_ms", "ops_ms")}
+    # the six launches' bytes at the HBM rate against their operations at
+    # their units' rates (fp32 lanes, or the SFUs for exp and exp2)
+    t_bound = max(total["bytes_ms"], total["ops_ms"])
+    by = "bytes" if total["bytes_ms"] >= total["ops_ms"] else "operations"
+    return dict(name="vpu_probe", route="cuda",
+                source="apex_tpu_torch/csrc/vpu_probe.cu",
+                replaces="scripts/vpu_probe.py:18",
+                shape="x [64, 512, 512] fp32, 64 applications; ms, plain_ms "
+                      "and bound_ms cover one launch of each of the six ops",
+                max_abs_err=max(r["max_abs_err"] for r in by_op.values()),
+                tolerance="bitwise (mul, max, where, iota_cmp_where); 2 fp32 "
+                          "ulp (exp, exp2)",
+                ms=total["ms"], plain_ms=total["plain_ms"],
+                bound_ms=t_bound, bound_by=by,
+                library_ms=None,
+                library="no single PyTorch call applies an op 64 times",
+                sm_clock_hz=vp.sm_clock_hz(), by_op=by_op)
+
+
+# ---------------------------------------------------------------------------
+# the new paths: B14's probe, B15 at the proto's shape, SpatialBottleneck at
+# world 1, the O0 GPT step
+# ---------------------------------------------------------------------------
+
+def run_probe_path(torch):
+    """The probe script's run: each of the six ops chained 16 times over
+    [64, 512, 512] and summed, timed as the script times it."""
+    from apex_tpu_torch.scripts import vpu_probe as vp
+    reset_counters()
+    res = {op: vp.probe(op) for op in vp.OPS}
+    launches = read_counters()
+    # probe: one warm-up and five timed windows of scan_len launches
+    check(launches["vpu_probe"] == len(vp.OPS) * 6 * 16,
+          f"vpu probe path: {launches['vpu_probe']} launches")
+    return dict(by_op=res, launches=launches)
+
+
+def run_bottleneck_path(torch):
+    """The proto's run at N = 32: one checked block, then the script's
+    timed() of the kernel and of the cuDNN composition."""
+    from apex_tpu_torch.scripts import bottleneck_proto as bp
+    p = bp.make_params(device="cuda")
+    x = bp.make_input(bp.N, device="cuda")
+    wts = bp.cudnn_weights(p)
+    reset_counters()
+    y = bp.fused_block(x, p)
+    lib = bp.cudnn_block(x, p, wts)
+    torch.cuda.synchronize()
+    err = (y.float() - lib.float()).abs().max().item()
+    check(err < BOTTLENECK_LIB_TOL, f"bottleneck path: {err} from cuDNN")
+    t_fused = bp.timed(bp.fused_block, x, p)
+    t_lib = bp.timed(lambda a, b: bp.cudnn_block(a, b, wts), x, p)
+    launches = read_counters()
+    check(launches["bottleneck"] == 1 + 1 + 5 * 64,
+          f"bottleneck path: {launches['bottleneck']} launches")
+    return dict(n=bp.N, max_abs_err_vs_cudnn=err, fused_ms=t_fused,
+                cudnn_ms=t_lib, speedup=t_lib / t_fused, launches=launches)
+
+
+SPATIAL_N, SPATIAL_C, SPATIAL_F, SPATIAL_HW, SPATIAL_STEPS = 32, 256, 64, 56, 4
+# SpatialBottleneck against models.resnet.Bottleneck with the same weights.
+# In fp32 (TF32 off) the two differ only in their batch norms' fp32 sums
+# (SyncBatchNorm's own against cuDNN's): the forward within 1e-4 of the
+# largest value and in relative norm. A pre-activation that lands within
+# those last bits of a ReLU's zero switches the ReLU's mask, and with it
+# that element's whole gradient; such flips, a fraction f of the elements,
+# put ~sqrt(f) into the gradients' relative norm (read 5.8e-4 for dx at
+# 25.7 M elements): the fp32 gradients are held within 2e-3 in relative
+# norm with at most 1e-4 of their elements beyond 2^-6 of themselves plus
+# 1e-3 of the largest value. In the O2 set-up (bf16 convs, fp32 norms) the
+# two batch norms round their bf16 outputs and gradients at other points,
+# which flips more roundings and masks: the forward is held within 1 % in
+# relative norm with at most 0.1 % of elements beyond two bf16 ulps + 2 %
+# of the largest value; the gradients within 10 % in relative norm — this
+# block's bf16 gradients are 4-8 % from its fp32 gradients (measured on
+# the CPU, N 4 at 14 x 14), so two bf16 implementations agree no closer.
+SPATIAL_FP32_TOL = 1e-4
+SPATIAL_FP32_GRAD_TOL = 2e-3
+SPATIAL_FP32_FAR = 1e-4
+TWIN_NORM_TOL = 1e-2
+TWIN_FAR_FRAC = 1e-3
+TWIN_GRAD_NORM_TOL = 0.1
+
+
+def _close_twin(got, ref, what, norm_tol, far_frac=None, floor_frac=0.0,
+                elem_rel=2.0 ** -6):
+    """Relative-norm agreement within ``norm_tol``; with ``far_frac``, at
+    most that fraction of elements beyond ``elem_rel`` of themselves
+    (2^-6: two bf16 ulps) plus ``floor_frac`` of the largest value."""
+    got, ref = got.float(), ref.float()
+    diff = (got - ref).abs()
+    rel = (diff.norm() / ref.norm().clamp_min(1e-30)).item()
+    check(rel <= norm_tol, f"{what}: relative norm error {rel} > {norm_tol}")
+    far = 0.0
+    if far_frac is not None:
+        tol = ref.abs() * elem_rel + floor_frac * ref.abs().max()
+        far = (diff > tol).float().mean().item()
+        check(far <= far_frac, f"{what}: {far} of elements beyond {elem_rel} "
+              f"of themselves + {floor_frac} of the largest value")
+    return dict(max_abs_err=diff.max().item(), rel_norm=rel, frac_far=far)
+
+
+def _spatial_loss(m, x, t):
+    return ((m(x).float() - t) ** 2).mean()
+
+
+def _spatial_twins(torch, dtype, x, t):
+    """SpatialBottleneck and models.resnet.Bottleneck with the same random
+    conv weights (seed 15), computing in ``dtype``: forward and backward
+    of the loss on (x, t), then their readings against each other."""
+    from apex_tpu_torch.contrib.bottleneck import (Bottleneck,
+                                                   SpatialBottleneck)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    sp = SpatialBottleneck(SPATIAL_C, SPATIAL_F, dtype=dtype, device="cuda")
+    ref = Bottleneck(SPATIAL_C, SPATIAL_F, dtype=dtype, device="cuda")
+    pairs = (("conv1", sp.conv1, ref.Conv_0), ("conv2", sp.conv2, ref.Conv_1),
+             ("conv3", sp.conv3, ref.Conv_2))
+    with torch.no_grad():
+        for _, w, r in pairs:
+            w.copy_(torch.randn(w.shape, generator=gen, device="cuda")
+                    * (2.0 / w[0].numel()) ** 0.5)
+            r.copy_(w)
+    xs, xr = (x.to(dtype).clone().requires_grad_() for _ in range(2))
+    ys, yr = sp(xs), ref(xr)
+    ((ys.float() - t) ** 2).mean().backward()
+    ((yr.float() - t) ** 2).mean().backward()
+    torch.cuda.synchronize()
+    tag = f"spatial {str(dtype)[6:]}"
+    if dtype == torch.float32:
+        def grad_check_(g, r, what):
+            return _close_twin(g, r, what, SPATIAL_FP32_GRAD_TOL,
+                               SPATIAL_FP32_FAR, floor_frac=1e-3)
+        fwd = _close_twin(ys, yr, f"{tag} forward", SPATIAL_FP32_TOL, 0.0,
+                          floor_frac=SPATIAL_FP32_TOL, elem_rel=0.0)
+    else:
+        def grad_check_(g, r, what):
+            return _close_twin(g, r, what, TWIN_GRAD_NORM_TOL)
+        fwd = _close_twin(ys, yr, f"{tag} forward", TWIN_NORM_TOL,
+                          TWIN_FAR_FRAC, floor_frac=0.02)
+    out = {"y": fwd, "x": grad_check_(xs.grad, xr.grad, f"{tag} dx")}
+    for name, w, r in pairs:
+        out[name] = grad_check_(w.grad, r.grad, f"{tag} d{name}")
+    for pm in sp.parameters():
+        pm.grad = None
+    return sp, out
+
+
+def run_spatial_path(torch):
+    """SpatialBottleneck at world 1 and ResNet-50's conv2_x width (256 ->
+    64 -> 256, 56 x 56, N 32): forward and backward against the port's
+    models.resnet.Bottleneck with the same weights (the same function at
+    world 1) in fp32 and in the O2 set-up (bf16 convs, fp32 norms), then
+    O2 FusedSGD steps."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.optimizers import FusedSGD
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    shape = (SPATIAL_N, SPATIAL_C, SPATIAL_HW, SPATIAL_HW)
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    t = torch.randn(shape, generator=gen, device="cuda")
+    reset_counters()
+    _, fp32 = _spatial_twins(torch, torch.float32, x, t)
+    sp, bf16 = _spatial_twins(torch, torch.bfloat16, x, t)
+    amp_model, opt = amp.initialize(sp, FusedSGD(lr=0.1, momentum=0.9),
+                                    opt_level="O2", verbosity=0)
+    amp_model.cast_params()
+    check(sp.n1.weight.dtype == torch.float32
+          and sp.conv1.dtype == torch.bfloat16, "spatial: O2 cast")
+    state = opt.init(sp.parameters())
+    step = amp.make_train_step(_spatial_loss, opt)
+    sstate = opt._scaler.state
+    losses, times = [], []
+    for _ in range(SPATIAL_STEPS):
+        t0 = time.perf_counter()
+        _, state, sstate, loss = step(sp, state, sstate, x, t)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(loss))
+    launches = read_counters()
+    check(all(np.isfinite(losses)), f"spatial: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"spatial: loss did not fall {losses}")
+    return dict(n=SPATIAL_N, c=SPATIAL_C, filters=SPATIAL_F,
+                hw=SPATIAL_HW, against_bottleneck_fp32=fp32,
+                against_bottleneck_o2=bf16, losses=losses,
+                step_ms_all=times, step_ms_median=float(np.median(times[1:])),
+                launches=launches)
+
+
+O0_LAYERS, O0_B, O0_S, O0_STEPS = 2, 8, 1024, 3
+O0_PER_STEP = {**{k: 0 for k in TRAIN_PER_STEP}, "flash_fwd": O0_LAYERS,
+               "flash_bwd": O0_LAYERS, "layer_norm_fwd": 2 * O0_LAYERS + 1,
+               "layer_norm_bwd": 2 * O0_LAYERS + 1, "lm_head_ce_fwd": 1,
+               "lm_head_ce_bwd": 1}
+# the O0 step against GPT.loss(reference=True), both fp32 on the same
+# parameters: the kernels round nothing below fp32 (p, ds and the CE
+# gradient tile stay fp32), so only summation order, __expf and the dq
+# atomics differ
+O0_LOSS_TOL = 1e-5
+O0_GRAD_TOL = 1e-4
+
+
+def run_o0_path(torch):
+    """An O0 (fp32) GPT training step through the kernels: 2 layers at
+    full width (h1024, 16 heads, V32768), b8 s1024, FusedAdam through
+    amp.make_train_step; then the loss and every gradient against the
+    plain versions differentiated by autograd."""
+    import dataclasses
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models.gpt import GPT
+    from apex_tpu_torch.optimizers import FusedAdam
+    cfg = dataclasses.replace(gpt_config(), num_layers=O0_LAYERS,
+                              dtype=torch.float32)
+    model = GPT.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cuda")
+    ids, labels = train_batch(torch, cfg, O0_B, O0_S)
+    params = list(model.named_parameters())
+    loss = model.loss(ids, labels)
+    grads = torch.autograd.grad(loss, [p for _, p in params])
+    ref_loss = model.loss(ids, labels, reference=True)
+    ref = torch.autograd.grad(ref_loss, [p for _, p in params])
+    loss, ref_loss = loss.detach(), ref_loss.detach()
+    dloss = abs(float(loss) - float(ref_loss))
+    check(dloss <= O0_LOSS_TOL * abs(float(ref_loss)),
+          f"O0 loss kernels {float(loss)} vs plain {float(ref_loss)}")
+    worst = []
+    for (name, _), g, r in zip(params, grads, ref):
+        rel = ((g - r).norm() / r.norm().clamp_min(1e-30)).item()
+        worst.append((rel, name))
+        check(rel <= O0_GRAD_TOL, f"O0 grad {name}: relative norm {rel}")
+    worst.sort(reverse=True)
+    del grads, ref
+    amp_model, opt = amp.initialize(model, FusedAdam(lr=LR), opt_level="O0",
+                                    verbosity=0)
+    amp_model.cast_params()
+    state = opt.init(model.parameters())
+    step = amp.make_train_step(lambda m, i, l: m.loss(i, l), opt)
+    sstate = opt._scaler.state
+    _, state, sstate, _ = step(model, state, sstate, ids, labels)
+    torch.cuda.synchronize()
+    reset_counters()
+    losses, times = [], []
+    for _ in range(O0_STEPS):
+        t0 = time.perf_counter()
+        _, state, sstate, l_ = step(model, state, sstate, ids, labels)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(l_))
+    launches = read_counters()
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"O0 losses {losses}")
+    for k, per in O0_PER_STEP.items():
+        check(launches[k] == per * O0_STEPS,
+              f"O0 {k}: {launches[k]} launches, expected {per * O0_STEPS}")
+    return dict(layers=O0_LAYERS, batch=O0_B, seq=O0_S, dtype="float32",
+                loss_kernels=float(loss), loss_plain=float(ref_loss),
+                loss_abs_diff=dloss, worst_grad_rel_norm=worst[:5],
+                median_grad_rel_norm=float(np.median([w for w, _ in worst])),
+                losses=losses, step_ms_all=times,
+                step_ms_median=float(np.median(times)),
+                tokens_per_s=O0_B * O0_S / (np.median(times) / 1e3),
+                launches=launches)
+
+
+# ---------------------------------------------------------------------------
 # ZeRO-3 O2 training of the same GPT (world 1: one card), and tier 2 with
 # DistributedFusedLAMB
 # ---------------------------------------------------------------------------
@@ -2108,7 +2662,9 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     sources = ["flash_fwd", "paged_decode", "flash_bwd", "lm_head_ce",
-               "fp8_matmul", "multi_tensor_update"]
+               "fp8_matmul", "multi_tensor_update", "bottleneck",
+               "vpu_probe"]
+    sources = _build.targets(sources)       # the dtype-split sources x 3
     _build.build_all(sources)
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name in sources:
@@ -2126,17 +2682,21 @@ def main() -> int:
                *check_lm_head_ce(torch, timer),
                *check_flash_split(torch, timer),
                *check_xentropy(torch, timer),
-               check_multi_tensor_update(torch, timer)]
+               check_multi_tensor_update(torch, timer),
+               check_vpu_probe(torch, timer), check_bottleneck(torch, timer)]
     for kr in kernels:
         log(f"kernel {kr['name']}: err {kr['max_abs_err']:.3g} "
             f"ms {kr['ms']:.4f} plain {kr['plain_ms']:.4f} "
             f"bound {kr['bound_ms']:.4f} ({kr['bound_by']}) "
             f"library {kr['library_ms']}")
         for extra in ("split_ms", "single_pass_ms", "by_shape",
-                      "train_shape", "lamb_ms", "checked"):
+                      "train_shape", "lamb_ms", "checked", "by_op",
+                      "cudnn_composition_max_abs_err"):
             if extra in kr:
                 log(f"  {kr['name']} {extra}: {json.dumps(kr[extra])}")
     del timer
+    log("repaired shapes and dtypes (ROADMAP §C): "
+        + json.dumps(check_repairs(torch)))
     torch.cuda.empty_cache()
 
     cfg = gpt_config()
@@ -2225,6 +2785,14 @@ def main() -> int:
     lamb_stats = run_dflamb_path(torch, cfg)
     log(f"train-dflamb path ({card}): " + json.dumps(lamb_stats))
     torch.cuda.empty_cache()
+    new_paths = {}
+    for path, run in (("vpu-probe", run_probe_path),
+                      ("bottleneck-b32", run_bottleneck_path),
+                      ("spatial-bottleneck-b32", run_spatial_path),
+                      ("train-o0-gpt2", run_o0_path)):
+        new_paths[path] = run(torch)
+        log(f"{path} path ({card}): " + json.dumps(new_paths[path]))
+        torch.cuda.empty_cache()
     log("trace: " + json.dumps({**serve_trace, "train_step": train_trace,
                                 f"train_step_s{LONG_S}": long_trace,
                                 "train_step_rn50": rn_trace,
@@ -2238,6 +2806,8 @@ def main() -> int:
         by_path["train-rn50"] = rn_stats["launches"][kr["name"]]
         by_path["train-zero3"] = zero_stats["launches"][kr["name"]]
         by_path["train-dflamb"] = lamb_stats["launches"][kr["name"]]
+        for path, st in new_paths.items():
+            by_path[path] = st["launches"][kr["name"]]
         if kr["name"] == "multi_tensor_update":     # its LAMB mode too
             by_path["train-dflamb"] += lamb_stats["launches"][
                 "multi_tensor_update_lamb"]

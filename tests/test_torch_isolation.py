@@ -57,6 +57,9 @@ def test_importing_serve_loads_no_jax_and_builds_nothing():
         "import apex_tpu_torch.zero, apex_tpu_torch.zero.fused_update\n"
         "import apex_tpu_torch.contrib.optimizers, apex_tpu_torch.utils.flat\n"
         "import apex_tpu_torch.contrib.optimizers.zero_state\n"
+        "import apex_tpu_torch.parallel, apex_tpu_torch.contrib.bottleneck\n"
+        "import apex_tpu_torch.scripts.bottleneck_proto\n"
+        "import apex_tpu_torch.scripts.vpu_probe, apex_tpu_torch.ops._pad\n"
         "from apex_tpu_torch.ops import _build\n"
         "mods = set(sys.modules)\n"
         "print(json.dumps({\n"
@@ -119,7 +122,15 @@ def test_new_modules_are_checked_for_imports():
                 "apex_tpu_torch/contrib/optimizers/__init__.py",
                 "apex_tpu_torch/contrib/optimizers/distributed_fused_adam.py",
                 "apex_tpu_torch/contrib/optimizers/distributed_fused_lamb.py",
-                "apex_tpu_torch/contrib/optimizers/zero_state.py"):
+                "apex_tpu_torch/contrib/optimizers/zero_state.py",
+                "apex_tpu_torch/ops/_pad.py",
+                "apex_tpu_torch/parallel/__init__.py",
+                "apex_tpu_torch/parallel/sync_batchnorm.py",
+                "apex_tpu_torch/contrib/bottleneck/__init__.py",
+                "apex_tpu_torch/contrib/bottleneck/bottleneck.py",
+                "apex_tpu_torch/scripts/__init__.py",
+                "apex_tpu_torch/scripts/bottleneck_proto.py",
+                "apex_tpu_torch/scripts/vpu_probe.py"):
         assert mod in checked
 
 
@@ -169,3 +180,29 @@ def test_zero_defaults_to_cuda_and_raises_without_it(monkeypatch):
                               kind="adam", lr=1e-3, betas=(0.9, 0.999),
                               eps=1e-8, weight_decay=0.0, adam_w_mode=True,
                               bias_correction=False)
+
+
+def test_bottleneck_probe_and_syncbn_default_to_cuda_and_raise_without_it(
+        monkeypatch):
+    """The sixth slice's entry points follow the port's device rule: the
+    modules and the scripts' inputs are built on CUDA unless the caller
+    asks for the CPU, and a wrapper handed a tensor on another device
+    raises — it never falls back to the plain version."""
+    from apex_tpu_torch.contrib.bottleneck import SpatialBottleneck
+    from apex_tpu_torch.parallel import SyncBatchNorm
+    from apex_tpu_torch.scripts import bottleneck_proto as bp
+    from apex_tpu_torch.scripts import vpu_probe as vp
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda: SyncBatchNorm(8),
+                  lambda: SpatialBottleneck(16, 4),
+                  lambda: bp.make_params(),
+                  lambda: bp.make_input(1)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    assert SyncBatchNorm(8, device="cpu").weight.device.type == "cpu"
+    assert SpatialBottleneck(16, 4, device="cpu").conv1.device.type == "cpu"
+    p = bp.make_params(device="cpu")
+    with pytest.raises(ValueError, match="not supported"):
+        bp.fused_block(torch.zeros(1, 56, 56, 256, device="meta"), p)
+    with pytest.raises(ValueError, match="not supported"):
+        vp.vpu_probe_kernel(torch.zeros(1, 512, 512, device="meta"), "mul")
