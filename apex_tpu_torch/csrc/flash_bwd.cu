@@ -21,11 +21,13 @@
 // padding rows (lse -1e30) give zero dq and add nothing to dk or dv. As in
 // the Pallas kernels, p is rounded to the operands' dtype before the dv
 // product, ds = p * (dp - delta) is rounded once before the dk and the dq
-// products, and the softmax scale is applied at the finish. Head dims 32,
-// 64, 128 and 256 are instantiated (the wrapper zero-pads other d); fp32
-// stops at 128: its row-major q, k, v, do tiles alone would take
-// 4 * 64 * 264 * 4 = 270 KB of shared memory at d 256, past the 227 KB a
-// block can have.
+// products, and the softmax scale is applied at the finish. Over operands
+// of mixed dtypes the wrapper promotes them to their common dtype (fp32 for
+// any mix) and the fp32 kernels round where the Pallas kernels cast to a
+// narrower operand's dtype (`rounds`): p to dout's dtype before dv, ds to
+// q's before dk, and to q's then k's (single pass) or to k's (the split's
+// dq kernel) before dq. Head dims 32, 64, 128, 256 and 512 are
+// instantiated, for every dtype (the wrapper zero-pads other d).
 //
 // Bounds on the H100, per live (q, k) pair at head dim d: the single pass
 // does five products of 2 * d flops (s, dp, dv, dk, dq) — 42.9 GFLOP at the
@@ -43,7 +45,8 @@
 // operands) and the accumulator fragments of one product converted in
 // registers to the A operand of the next. The gradients' columns are split
 // in chunks of DC (d itself up to 128 for 16-bit operands and up to 64 for
-// fp32; 128 at d 256), one block per chunk: each recomputes s and dp over
+// fp32; 128 at 16-bit d 256, 64 at d 512), one block per chunk: each
+// recomputes s and dp over
 // the full d and accumulates only its DC columns, which bounds both the
 // registers (two [16, DC] accumulators a warp) and the transposed tiles.
 // - k-side blocks (single pass, dk/dv): K and V in shared memory; per q
@@ -62,9 +65,17 @@
 //   from its block's registers.
 // Tiles are loaded synchronously; the B operands that need a transposed
 // layout (the chunk's columns of Q, dO, K) are stored transposed as well,
-// so every fragment is one pair load. Shared memory (k side):
-// (4 * 64 * (d + 8) + 4 * DC * 72) elements + 1 KB — 200 KB at bf16 d 256,
-// 213 KB at fp32 d 128. wgmma/TMA and a pipelined ring are later work.
+// so every fragment is one pair load. The contractions of S and dP run
+// over d in chunks of KC columns (d itself up to 256 for 16-bit operands
+// and up to 128 for fp32, else 256 and 128): with one chunk the resident
+// side's rows stay in shared memory for the whole loop; past it every
+// chunk of both sides is staged in turn and S and dP accumulate in
+// registers over the chunks, so shared memory is set by KC, not by d.
+// Shared memory (k side): (4 * 64 * (KC + 8) + 4 * DC * 72) elements +
+// 1 KB — 200 KB for bf16 at d 256, 172 KB at d 512, 213 KB for fp32 at
+// d 128 and above. The fp32 S and dP products are rolled over their
+// k-steps (the SIMT product unrolled is what made the fp32 build the
+// slowest). wgmma/TMA and a pipelined ring are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -83,11 +94,21 @@ constexpr int PAD = 8;
 
 template <typename T, int D>
 struct Smem {
-  // gradient columns per block
-  static constexpr int DC = sizeof(T) == 4 ? (D < 64 ? D : 64)
-                                           : (D < 128 ? D : 128);
+  // gradient columns per block (64 for 16-bit operands at d 512, whose
+  // two [16, 128] accumulators a warp would spill)
+  static constexpr int DC = sizeof(T) == 4 || D > 256 ? (D < 64 ? D : 64)
+                                                      : (D < 128 ? D : 128);
   static constexpr int NCH = D / DC;
-  static constexpr int LDR = D + PAD;        // row-major [64][D + PAD]
+  // contraction columns of S and dP staged at once (the sums run over
+  // D / KC chunks)
+  static constexpr int KC = sizeof(T) == 4 ? (D < 128 ? D : 128)
+                                           : (D < 256 ? D : 256);
+  static constexpr int NKC = D / KC;
+  // the fp32 (SIMT) products of S and dP are rolled over their k-steps: no
+  // register array is indexed by the step, and unrolled they make the fp32
+  // build the slowest of all
+  static constexpr int KUNROLL = sizeof(T) == 4 ? 1 : KC / 16;
+  static constexpr int LDR = KC + PAD;       // row-major [64][KC + PAD]
   static constexpr int LDT = BLOCK_M + PAD;  // transposed [DC][64 + PAD]
   // sK sV sQ sDO, sKt sQt sDOt, sdS, lse delta sid_q sid_k
   static constexpr size_t bytes =
@@ -98,22 +119,30 @@ struct Smem {
       (size_t)(4 * 64 * LDR + DC * LDT) * sizeof(T) + (size_t)64 * 4;
 };
 
-// Row-major copy of rows [r0, r0 + 64) of src ([rows, D], zero past `rows`)
-// into dst [64][D + PAD].
+// Row-major copy of columns [c0, c0 + KC) of rows [r0, r0 + 64) of src
+// ([rows, D], zero past `rows`) into dst [64][KC + PAD].
 template <typename T, int D>
 __device__ __forceinline__ void load_rows(const T* src, int r0, int rows,
-                                          T* dst) {
+                                          int c0, T* dst) {
   constexpr int VEC = kVec<T>;
-  constexpr int CHUNKS = D / VEC;
+  constexpr int CHUNKS = Smem<T, D>::KC / VEC;
   constexpr int LDR = Smem<T, D>::LDR;
   for (int idx = threadIdx.x; idx < 64 * CHUNKS; idx += THREADS) {
     const int r = idx / CHUNKS, c = idx % CHUNKS;
     uint4 val = make_uint4(0, 0, 0, 0);
     if (r0 + r < rows)
-      val = *reinterpret_cast<const uint4*>(src + (long)(r0 + r) * D +
+      val = *reinterpret_cast<const uint4*>(src + (long)(r0 + r) * D + c0 +
                                             c * VEC);
     *reinterpret_cast<uint4*>(dst + r * LDR + c * VEC) = val;
   }
+}
+
+// The roundings of the fp32 kernels over promoted mixed operands, packed
+// as dtype codes (0 bf16, 1 fp16, 2 none) in `rounds`: bits 0-1 p before
+// the dv product (dout's dtype), 2-3 ds before the dk product (q's), 4-5
+// ds before the dq product (k's).
+__device__ __forceinline__ int round_code(int rounds, int which) {
+  return (rounds >> (2 * which)) & 3;
 }
 
 // Transpose of columns [c0, c0 + DC) of the same rows into dt [DC][64 + PAD]:
@@ -160,14 +189,14 @@ __device__ __forceinline__ void kv_block(
     const float* __restrict__ delta, const int32_t* __restrict__ sid_q,
     const int32_t* __restrict__ sid_kv, float* __restrict__ dq_acc,
     T* __restrict__ dk, T* __restrict__ dv, int h, int sq, int sk,
-    int causal, float scale) {
+    int causal, float scale, int rounds) {
   using F = Frag<T>;
   using P = typename F::pair;
   using S = Smem<T, D>;
   constexpr int LDR = S::LDR;
   constexpr int LDT = S::LDT;
   constexpr int DC = S::DC;
-  constexpr int KSTEPS = D / 16;         // k-steps of S^T = K Q^T
+  constexpr int KSTEPS = S::KC / 16;     // k-steps of S^T = K Q^T a chunk
   constexpr int DTILES = DC / 8;         // n-tiles over the chunk
   constexpr int QTILES = BLOCK_M / 8;    // n-tiles of S^T (q columns)
 
@@ -198,9 +227,11 @@ __device__ __forceinline__ void kv_block(
   const int offset = sk - sq;
   const bool use_seg = sid_q != nullptr;
 
-  load_rows<T, D>(kb, n0, sk, sK);
+  if constexpr (S::NKC == 1) {       // K and V stay for the whole loop
+    load_rows<T, D>(kb, n0, sk, 0, sK);
+    load_rows<T, D>(vb, n0, sk, 0, sV);
+  }
   if (WITH_DQ) load_cols_t<T, D>(kb, n0, sk, c0, sKt);
-  load_rows<T, D>(vb, n0, sk, sV);
   for (int r = tid; r < 64; r += THREADS)
     sSidK[r] = (use_seg && n0 + r < sk) ? sid_kv[(long)bi * sk + n0 + r] : -1;
 
@@ -218,37 +249,47 @@ __device__ __forceinline__ void kv_block(
 
   for (int qt = qt_begin; qt < n_qt; ++qt) {
     const int q0 = qt * BLOCK_M;
-    __syncthreads();  // every warp is done with the previous q tile
-    load_rows<T, D>(qb, q0, sq, sQ);
-    load_cols_t<T, D>(qb, q0, sq, c0, sQt);
-    load_rows<T, D>(dob, q0, sq, sDO);
-    load_cols_t<T, D>(dob, q0, sq, c0, sDOt);
-    for (int r = tid; r < 64; r += THREADS) {
-      const bool in = q0 + r < sq;
-      sLse[r] = in ? lse[bh * sq + q0 + r] : 0.f;
-      sDelta[r] = in ? delta[bh * sq + q0 + r] : 0.f;
-      sSidQ[r] = (use_seg && in) ? sid_q[(long)bi * sq + q0 + r] : -1;
-    }
-    __syncthreads();
-
-    // ---- S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x 64 q
+    // ---- S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x 64 q,
+    // summed over the contraction chunks (staged with K's and V's chunks
+    // past one chunk)
     float st[QTILES][4], dpt[QTILES][4];
 #pragma unroll
     for (int j = 0; j < QTILES; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+    for (int kc = 0; kc < S::NKC; ++kc) {
+      const int cc = kc * S::KC;
+      __syncthreads();  // every warp is done with the previous tiles
+      if constexpr (S::NKC > 1) {
+        load_rows<T, D>(kb, n0, sk, cc, sK);
+        load_rows<T, D>(vb, n0, sk, cc, sV);
+      }
+      load_rows<T, D>(qb, q0, sq, cc, sQ);
+      load_rows<T, D>(dob, q0, sq, cc, sDO);
+      if (kc == 0) {
+        load_cols_t<T, D>(qb, q0, sq, c0, sQt);
+        load_cols_t<T, D>(dob, q0, sq, c0, sDOt);
+        for (int r = tid; r < 64; r += THREADS) {
+          const bool in = q0 + r < sq;
+          sLse[r] = in ? lse[bh * sq + q0 + r] : 0.f;
+          sDelta[r] = in ? delta[bh * sq + q0 + r] : 0.f;
+          sSidQ[r] = (use_seg && in) ? sid_q[(long)bi * sq + q0 + r] : -1;
+        }
+      }
+      __syncthreads();
+#pragma unroll (S::KUNROLL)
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        P ak[4], av[4];
+        const int c = kk * 16 + tig * 2;
+        load_a<T>(sK, LDR, kw, c, ak);
+        load_a<T>(sV, LDR, kw, c, av);
 #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      P ak[4], av[4];
-      const int c = kk * 16 + tig * 2;
-      load_a<T>(sK, LDR, kw, c, ak);
-      load_a<T>(sV, LDR, kw, c, av);
-#pragma unroll
-      for (int j = 0; j < QTILES; ++j) {
-        const T* pq = sQ + (j * 8 + g) * LDR + c;
-        F::mma(st[j], ak, F::load(pq), F::load(pq + 8));
-        const T* pd = sDO + (j * 8 + g) * LDR + c;
-        F::mma(dpt[j], av, F::load(pd), F::load(pd + 8));
+        for (int j = 0; j < QTILES; ++j) {
+          const T* pq = sQ + (j * 8 + g) * LDR + c;
+          F::mma(st[j], ak, F::load(pq), F::load(pq + 8));
+          const T* pd = sDO + (j * 8 + g) * LDR + c;
+          F::mma(dpt[j], av, F::load(pd), F::load(pd + 8));
+        }
       }
     }
 
@@ -271,18 +312,44 @@ __device__ __forceinline__ void kv_block(
       }
     }
 
-    // ---- dV += P^T dO and dK += dS^T Q (k-steps over the 64 q rows)
+    // ---- dV += P^T dO and dK += dS^T Q (k-steps over the 64 q rows); the
+    // fp32 kernels round p and ds to the operands' own dtypes (`rounds`)
+    // where the wrapper promoted mixed operands, as the Pallas kernel casts
+    // p to dout's dtype and ds to q's; in fp32 the single pass keeps ds
+    // unrounded in dpt for the staging below
 #pragma unroll
     for (int kk = 0; kk < BLOCK_M / 16; ++kk) {
+      if constexpr (sizeof(T) == 4) {
+#pragma unroll
+        for (int jj = 2 * kk; jj < 2 * kk + 2; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            st[jj][e] = round_to(st[jj][e], round_code(rounds, 0));
+            if constexpr (!WITH_DQ)
+              dpt[jj][e] = round_to(dpt[jj][e], round_code(rounds, 1));
+          }
+      }
       P pa[4], da[4];
       pa[0] = F::pack(st[2 * kk][0], st[2 * kk][1]);
       pa[1] = F::pack(st[2 * kk][2], st[2 * kk][3]);
       pa[2] = F::pack(st[2 * kk + 1][0], st[2 * kk + 1][1]);
       pa[3] = F::pack(st[2 * kk + 1][2], st[2 * kk + 1][3]);
-      da[0] = F::pack(dpt[2 * kk][0], dpt[2 * kk][1]);
-      da[1] = F::pack(dpt[2 * kk][2], dpt[2 * kk][3]);
-      da[2] = F::pack(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]);
-      da[3] = F::pack(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3]);
+      if constexpr (sizeof(T) == 4 && WITH_DQ) {
+        const int rq = round_code(rounds, 1);
+        da[0] = F::pack(round_to(dpt[2 * kk][0], rq),
+                        round_to(dpt[2 * kk][1], rq));
+        da[1] = F::pack(round_to(dpt[2 * kk][2], rq),
+                        round_to(dpt[2 * kk][3], rq));
+        da[2] = F::pack(round_to(dpt[2 * kk + 1][0], rq),
+                        round_to(dpt[2 * kk + 1][1], rq));
+        da[3] = F::pack(round_to(dpt[2 * kk + 1][2], rq),
+                        round_to(dpt[2 * kk + 1][3], rq));
+      } else {
+        da[0] = F::pack(dpt[2 * kk][0], dpt[2 * kk][1]);
+        da[1] = F::pack(dpt[2 * kk][2], dpt[2 * kk][3]);
+        da[2] = F::pack(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]);
+        da[3] = F::pack(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3]);
+      }
 #pragma unroll
       for (int t = 0; t < DTILES; ++t) {
         const T* pd = sDOt + (t * 8 + g) * LDT + kk * 16 + tig * 2;
@@ -293,14 +360,20 @@ __device__ __forceinline__ void kv_block(
     }
 
     if constexpr (WITH_DQ) {
-      // ---- stage dS (rounded to T) as [q][key] for the dQ product
+      // ---- stage dS (rounded to T; in fp32 over mixed operands to q's
+      // dtype, then k's, as the Pallas kernel's dsc.astype(k.dtype)) as
+      // [q][key] for the dQ product
 #pragma unroll
       for (int j = 0; j < QTILES; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int ql = j * 8 + tig * 2 + (e & 1);
           const int kl = kw + g + (e < 2 ? 0 : 8);
-          sdS[ql * LDT + kl] = F::cvt(dpt[j][e]);
+          float ds = dpt[j][e];
+          if constexpr (sizeof(T) == 4)
+            ds = round_to(round_to(ds, round_code(rounds, 1)),
+                          round_code(rounds, 2));
+          sdS[ql * LDT + kl] = F::cvt(ds);
         }
       __syncthreads();
 
@@ -367,9 +440,9 @@ __device__ __forceinline__ void kv_block(
       const int32_t *__restrict__ sid_q,                                  \
       const int32_t *__restrict__ sid_kv, float *__restrict__ dq_acc,     \
       T *__restrict__ dk, T *__restrict__ dv, int h, int sq, int sk,      \
-      int causal, float scale
+      int causal, float scale, int rounds
 #define KV_PASS q, k, v, dout, lse, delta, sid_q, sid_kv, dq_acc, dk, dv, h, \
-                sq, sk, causal, scale
+                sq, sk, causal, scale, rounds
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) flash_bwd_kernel(KV_ARGS) {
@@ -393,14 +466,14 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const float* __restrict__ delta,
                 const int32_t* __restrict__ sid_q,
                 const int32_t* __restrict__ sid_kv, T* __restrict__ dq,
-                int h, int sq, int sk, int causal, float scale) {
+                int h, int sq, int sk, int causal, float scale, int rounds) {
   using F = Frag<T>;
   using P = typename F::pair;
   using S = Smem<T, D>;
   constexpr int LDR = S::LDR;
   constexpr int LDT = S::LDT;
   constexpr int DC = S::DC;
-  constexpr int KSTEPS = D / 16;         // k-steps of S = Q K^T over d
+  constexpr int KSTEPS = S::KC / 16;     // k-steps of S = Q K^T a chunk
   constexpr int DTILES = DC / 8;         // n-tiles of dq over the chunk
   constexpr int NTILES = BLOCK_N / 8;    // n-tiles of S (key columns)
 
@@ -419,13 +492,17 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int hh = blockIdx.y;
   const int bi = blockIdx.z / S::NCH, c0 = (blockIdx.z % S::NCH) * DC;
   const long bh = (long)bi * h + hh;
+  const T* qb = q + bh * sq * D;
+  const T* dob = dout + bh * sq * D;
   const T* kb = k + bh * sk * D;
   const T* vb = v + bh * sk * D;
   const int offset = sk - sq;
   const bool use_seg = sid_q != nullptr;
 
-  load_rows<T, D>(q + bh * sq * D, m0, sq, sQ);
-  load_rows<T, D>(dout + bh * sq * D, m0, sq, sDO);
+  if constexpr (S::NKC == 1) {       // Q and dO stay for the whole loop
+    load_rows<T, D>(qb, m0, sq, 0, sQ);
+    load_rows<T, D>(dob, m0, sq, 0, sDO);
+  }
 
   // this thread's two rows (g and g + 8 of the warp's 16)
   const int qw = warp * 16;
@@ -453,33 +530,42 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int kt = 0; kt < kt_end; ++kt) {
     const int n0 = kt * BLOCK_N;
-    __syncthreads();  // every warp is done with the previous k tile
-    load_rows<T, D>(kb, n0, sk, sK);
-    load_cols_t<T, D>(kb, n0, sk, c0, sKt);
-    load_rows<T, D>(vb, n0, sk, sV);
-    for (int r = tid; r < 64; r += THREADS)
-      sSidK[r] =
-          (use_seg && n0 + r < sk) ? sid_kv[(long)bi * sk + n0 + r] : -1;
-    __syncthreads();
-
-    // ---- S = Q K^T and dP = dO V^T for this warp's 16 rows x 64 keys
+    // ---- S = Q K^T and dP = dO V^T for this warp's 16 rows x 64 keys,
+    // summed over the contraction chunks
     float s[NTILES][4], dp[NTILES][4];
 #pragma unroll
     for (int j = 0; j < NTILES; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    for (int kc = 0; kc < S::NKC; ++kc) {
+      const int cc = kc * S::KC;
+      __syncthreads();  // every warp is done with the previous tiles
+      if constexpr (S::NKC > 1) {
+        load_rows<T, D>(qb, m0, sq, cc, sQ);
+        load_rows<T, D>(dob, m0, sq, cc, sDO);
+      }
+      load_rows<T, D>(kb, n0, sk, cc, sK);
+      load_rows<T, D>(vb, n0, sk, cc, sV);
+      if (kc == 0) {
+        load_cols_t<T, D>(kb, n0, sk, c0, sKt);
+        for (int r = tid; r < 64; r += THREADS)
+          sSidK[r] =
+              (use_seg && n0 + r < sk) ? sid_kv[(long)bi * sk + n0 + r] : -1;
+      }
+      __syncthreads();
+#pragma unroll (S::KUNROLL)
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        P aq[4], ad[4];
+        const int c = kk * 16 + tig * 2;
+        load_a<T>(sQ, LDR, qw, c, aq);
+        load_a<T>(sDO, LDR, qw, c, ad);
 #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      P aq[4], ad[4];
-      const int c = kk * 16 + tig * 2;
-      load_a<T>(sQ, LDR, qw, c, aq);
-      load_a<T>(sDO, LDR, qw, c, ad);
-#pragma unroll
-      for (int j = 0; j < NTILES; ++j) {
-        const T* pk = sK + (j * 8 + g) * LDR + c;
-        F::mma(s[j], aq, F::load(pk), F::load(pk + 8));
-        const T* pv = sV + (j * 8 + g) * LDR + c;
-        F::mma(dp[j], ad, F::load(pv), F::load(pv + 8));
+        for (int j = 0; j < NTILES; ++j) {
+          const T* pk = sK + (j * 8 + g) * LDR + c;
+          F::mma(s[j], aq, F::load(pk), F::load(pk + 8));
+          const T* pv = sV + (j * 8 + g) * LDR + c;
+          F::mma(dp[j], ad, F::load(pv), F::load(pv + 8));
+        }
       }
     }
 
@@ -502,7 +588,16 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
 
-    // ---- dQ += dS K (k-steps over the 64 keys; dS rounded to T)
+    // ---- dQ += dS K (k-steps over the 64 keys; dS rounded to T, or in
+    // fp32 over mixed operands to k's dtype, as the Pallas `_dq_kernel`'s
+    // ds.astype(k.dtype))
+    if constexpr (sizeof(T) == 4) {
+#pragma unroll
+      for (int j = 0; j < NTILES; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = round_to(s[j][e], round_code(rounds, 2));
+    }
 #pragma unroll
     for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
       P a[4];
@@ -537,6 +632,7 @@ struct Args {
   void *dq, *dk, *dv;       // dq: the fp32 workspace in the single pass
   int b, h, sq, sk, causal;
   float scale;
+  int rounds;
   cudaStream_t stream;
 };
 
@@ -558,7 +654,7 @@ cudaError_t launch(const Args& a) {
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
         static_cast<const int32_t*>(a.sid_q),
         static_cast<const int32_t*>(a.sid_kv), static_cast<T*>(a.dq), a.h,
-        a.sq, a.sk, a.causal, a.scale);
+        a.sq, a.sk, a.causal, a.scale, a.rounds);
     return cudaGetLastError();
   } else {
     err = cudaFuncSetAttribute(
@@ -572,7 +668,7 @@ cudaError_t launch(const Args& a) {
         static_cast<const int32_t*>(a.sid_q),
         static_cast<const int32_t*>(a.sid_kv), static_cast<float*>(a.dq),
         static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.h, a.sq, a.sk,
-        a.causal, a.scale);
+        a.causal, a.scale, a.rounds);
     return cudaGetLastError();
   }
 }
@@ -583,9 +679,8 @@ cudaError_t dispatch_dim(const Args& a, int d) {
     case 32: return launch<T, 32, KIND>(a);
     case 64: return launch<T, 64, KIND>(a);
     case 128: return launch<T, 128, KIND>(a);
-    case 256:
-      if constexpr (sizeof(T) == 4) return cudaErrorInvalidValue;
-      else return launch<T, 256, KIND>(a);
+    case 256: return launch<T, 256, KIND>(a);
+    case 512: return launch<T, 512, KIND>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -622,9 +717,10 @@ int dispatch(const Args& a, int d, int dtype) {
 // C interface (loaded with ctypes). Device pointers of contiguous tensors:
 // q, dout [b,h,sq,d] and k, v [b,h,sk,d] of one dtype (`dtype` 0 bf16,
 // 1 fp16, 2 fp32); lse, delta [b,h,sq] f32; sid_q [b,sq] and sid_kv [b,sk]
-// int32, or both null. Each returns the launch's cudaError_t
-// (cudaErrorInvalidValue for a head dim other than 32, 64, 128, 256, for
-// fp32 at d 256, or an unknown dtype).
+// int32, or both null; `rounds` the fp32 kernels' roundings over promoted
+// mixed operands (round_code; 0x2A rounds nothing). Each returns the
+// launch's cudaError_t (cudaErrorInvalidValue for a head dim other than 32,
+// 64, 128, 256, 512 or an unknown dtype).
 //
 // The single pass: dq_acc [b,h,sq,d] f32, ZEROED by the caller (the kernel
 // adds into it, scale applied); dk, dv [b,h,sk,d] (every element written).
@@ -634,9 +730,9 @@ extern "C" int apex_flash_bwd(const void* q, const void* k, const void* v,
                               const void* sid_kv, void* dq_acc, void* dk,
                               void* dv, int b, int h, int sq, int sk, int d,
                               int causal, float scale, int dtype,
-                              void* stream) {
+                              int rounds, void* stream) {
   const Args a{q, k, v, dout, lse, delta, sid_q, sid_kv, dq_acc, dk, dv,
-               b, h, sq, sk, causal, scale,
+               b, h, sq, sk, causal, scale, rounds,
                static_cast<cudaStream_t>(stream)};
   return dispatch<0>(a, d, dtype);
 }
@@ -648,9 +744,9 @@ extern "C" int apex_flash_bwd_dkdv(const void* q, const void* k,
                                    const void* sid_q, const void* sid_kv,
                                    void* dk, void* dv, int b, int h, int sq,
                                    int sk, int d, int causal, float scale,
-                                   int dtype, void* stream) {
+                                   int dtype, int rounds, void* stream) {
   const Args a{q, k, v, dout, lse, delta, sid_q, sid_kv, nullptr, dk, dv,
-               b, h, sq, sk, causal, scale,
+               b, h, sq, sk, causal, scale, rounds,
                static_cast<cudaStream_t>(stream)};
   return dispatch<1>(a, d, dtype);
 }
@@ -661,9 +757,10 @@ extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* delta, const void* sid_q,
                                  const void* sid_kv, void* dq, int b, int h,
                                  int sq, int sk, int d, int causal,
-                                 float scale, int dtype, void* stream) {
+                                 float scale, int dtype, int rounds,
+                                 void* stream) {
   const Args a{q, k, v, dout, lse, delta, sid_q, sid_kv, dq, nullptr, nullptr,
-               b, h, sq, sk, causal, scale,
+               b, h, sq, sk, causal, scale, rounds,
                static_cast<cudaStream_t>(stream)};
   return dispatch<2>(a, d, dtype);
 }

@@ -10,9 +10,12 @@
 // mask is false, so a row whose max is the fill sums to 0 and normalizes by
 // 1 instead of by its count). Like the Pallas kernel it keeps each
 // operand's own dtype: p is rounded to the dtype of v before the PV
-// product. Head dims 32, 64, 128 and 256 are instantiated; the wrapper
-// (ops/flash_attention.py) zero-pads any other d up to the next of them,
-// which changes no score and no output column it keeps.
+// product. Over operands of mixed dtypes the wrapper promotes q, k and v to
+// their common dtype (exact; it is fp32 for any mix) and passes v's own
+// dtype, to which the fp32 kernel rounds p (`p_round`); the output takes
+// q's dtype. Head dims 32, 64, 128, 256 and 512 are instantiated; the
+// wrapper (ops/flash_attention.py) zero-pads any other d up to the next of
+// them, which changes no score and no output column it keeps.
 //
 // Bound on the H100: the causal products do 4 d h s(s+1)/2 flops over
 // 4 s d h * 2 bytes (q, k, v read once, out written once), i.e. ~s/4 flops
@@ -37,12 +40,17 @@
 // registers for the whole loop; otherwise they are read from shared memory
 // at each step. Past 128 columns (d 256) the output is split in chunks of
 // 128, one block each, which recompute the scores (registers bound the
-// accumulators, not shared memory). V is stored transposed in shared
-// memory so that each B fragment is one pair load; rows are padded by 8
-// elements so the fragment loads spread over the banks. Tiles are loaded
-// synchronously, one at a time: wgmma, TMA and a multi-stage pipeline are
-// later work. Shared memory: (64 (d + 8) * 2 + dc * 72) elements + 256 B,
-// 104 KB at bf16 d 256 and 209 KB at fp32 d 256.
+// accumulators, not shared memory). The contraction of S = Q K^T is staged
+// in chunks of KC = min(d, 256) columns: up to d 256 the whole of K's tile
+// is in shared memory at once (and Q's for the whole loop), past it (d 512)
+// S accumulates in registers over the chunks, Q's and K's chunks staged
+// together, so shared memory is set by the chunk, not by d. V is stored
+// transposed in shared memory so that each B fragment is one pair load;
+// rows are padded by 8 elements so the fragment loads spread over the
+// banks. Tiles are loaded synchronously, one at a time: wgmma, TMA and a
+// multi-stage pipeline are later work. Shared memory: (64 (KC + 8) * 2 +
+// DC * 72) elements + 256 B: 86 KB for bf16 at d 256 and d 512, 172 KB for
+// fp32 at d 256 and 154 KB at d 512 (64 output columns a block there).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -62,35 +70,66 @@ constexpr float NEG_INF = -1e30f;
 
 template <typename T, int D>
 struct Cfg {
-  static constexpr int DC = D <= 128 ? D : 128;   // output columns a block
+  // output columns a block (64 for fp32 at d 512, whose [16, 128]
+  // accumulator a warp would spill)
+  static constexpr int DC = D <= 128 ? D : (sizeof(T) == 4 && D > 256 ? 64
+                                                                       : 128);
   static constexpr int NCH = D / DC;
+  // contraction columns of q and k staged at once (S sums over D / KC)
+  static constexpr int KC = D <= 256 ? D : 256;
+  static constexpr int NKC = D / KC;
   static constexpr bool Q_REGS = sizeof(T) == 2 && D <= 128;
-  static constexpr int LDQ = D + PAD;        // sQ, sK: [row][D + PAD]
+  // the fp32 (SIMT) product of S is rolled over its k-steps (Q_REGS, the
+  // one register array indexed by the step, is 16-bit only)
+  static constexpr int KUNROLL = sizeof(T) == 4 ? 1 : KC / 16;
+  // blocks an SM must hold: four for the 16-bit d <= 64 kernels (128
+  // registers a thread; left free, the GPT's d 64 took 135 registers,
+  // three blocks, and ran 11 % slower)
+  static constexpr int MIN_BLOCKS = sizeof(T) == 2 && D <= 64 ? 4 : 1;
+  static constexpr int LDQ = KC + PAD;       // sQ, sK: [row][KC + PAD]
   static constexpr int LDV = BLOCK_N + PAD;  // sVt:    [DC][BLOCK_N + PAD]
   static constexpr size_t bytes =
       (size_t)(BLOCK_M * LDQ + BLOCK_N * LDQ + DC * LDV) * sizeof(T) +
       (size_t)BLOCK_N * 4;
 };
 
+// Row-major copy of columns [c0, c0 + KC) of rows [r0, r0 + 64) of src
+// ([rows, D], zero past `rows`) into dst [64][KC + PAD], consecutive
+// threads on consecutive 16-byte chunks.
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void load_tile(const T* src, int r0, int rows,
+                                          int c0, T* dst) {
+  using C = Cfg<T, D>;
+  constexpr int VEC = kVec<T>;
+  constexpr int CHUNKS = C::KC / VEC;
+  for (int idx = threadIdx.x; idx < 64 * CHUNKS; idx += THREADS) {
+    const int r = idx / CHUNKS, c = idx % CHUNKS;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (r0 + r < rows)
+      val = *reinterpret_cast<const uint4*>(src + (long)(r0 + r) * D + c0 +
+                                            c * VEC);
+    *reinterpret_cast<uint4*>(dst + r * C::LDQ + c * VEC) = val;
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, Cfg<T, D>::MIN_BLOCKS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int32_t* __restrict__ sid_q,
                  const int32_t* __restrict__ sid_kv, T* __restrict__ out,
                  float* __restrict__ lse, int h, int sq, int sk, int causal,
-                 float scale) {
+                 float scale, int p_round) {
   using F = Frag<T>;
   using P = typename F::pair;
   using C = Cfg<T, D>;
   constexpr int LDQ = C::LDQ;
   constexpr int LDV = C::LDV;
   constexpr int DC = C::DC;
-  constexpr int KSTEPS = D / 16;      // k-steps of S = Q K^T
+  constexpr int KSTEPS = C::KC / 16;  // k-steps of S = Q K^T a chunk
   constexpr int DTILES = DC / 8;      // n-tiles of O
   constexpr int NTILES = BLOCK_N / 8; // n-tiles of S
   constexpr int VEC = kVec<T>;
-  constexpr int CHUNKS = D / VEC;     // 16-byte chunks per row
-  constexpr int VCHUNKS = DC / VEC;   // ... per row of this block's V slice
+  constexpr int VCHUNKS = DC / VEC;   // 16-byte chunks a row of V's slice
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);
@@ -111,15 +150,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int offset = sk - sq;       // aligns the sequence ends (causal)
   const bool use_seg = sid_q != nullptr;
 
-  // ---- Q tile -> shared (-> registers: A fragments kept for the loop)
-  for (int idx = tid; idx < BLOCK_M * CHUNKS; idx += THREADS) {
-    const int r = idx / CHUNKS, c = idx % CHUNKS;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (q0 + r < sq)
-      val = *reinterpret_cast<const uint4*>(qb + (long)(q0 + r) * D +
-                                            c * VEC);
-    *reinterpret_cast<uint4*>(sQ + r * LDQ + c * VEC) = val;
-  }
+  // ---- Q tile -> shared (-> registers: A fragments kept for the loop);
+  // past one contraction chunk, Q's chunks are staged with K's in the loop
+  if constexpr (C::NKC == 1) load_tile<T, D>(qb, q0, sq, 0, sQ);
   __syncthreads();
   const int rw = warp * 16;
   P qf[C::Q_REGS ? KSTEPS : 1][4];
@@ -157,54 +190,57 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int nb = 0; nb < n_blocks; ++nb) {
     const int n0 = nb * BLOCK_N;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    // K: row-major, consecutive threads on consecutive 16-byte chunks
-    for (int idx = tid; idx < BLOCK_N * CHUNKS; idx += THREADS) {
-      const int r = idx / CHUNKS, c = idx % CHUNKS;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (n0 + r < sk)
-        val = *reinterpret_cast<const uint4*>(kb + (long)(n0 + r) * D +
-                                              c * VEC);
-      *reinterpret_cast<uint4*>(sK + r * LDQ + c * VEC) = val;
-    }
-    // V (this block's columns): transposed; consecutive threads on
-    // consecutive keys, so a warp's element stores fall in distinct banks
-    for (int idx = tid; idx < BLOCK_N * VCHUNKS; idx += THREADS) {
-      const int vr = idx % BLOCK_N, vc = idx / BLOCK_N;
-      uint4 vv = make_uint4(0, 0, 0, 0);
-      if (n0 + vr < sk)
-        vv = *reinterpret_cast<const uint4*>(vb + (long)(n0 + vr) * D + c0 +
-                                             vc * VEC);
-      const T* ve = reinterpret_cast<const T*>(&vv);
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) sVt[(vc * VEC + e) * LDV + vr] = ve[e];
-    }
-    if (use_seg)
-      for (int r = tid; r < BLOCK_N; r += THREADS)
-        sSid[r] = n0 + r < sk ? sid_kv[(long)bi * sk + n0 + r] : -1;
-    __syncthreads();
-
-    // ---- S = Q K^T for this warp's 16 rows x 64 keys
     float s[NTILES][4];
+    // ---- S = Q K^T for this warp's 16 rows x 64 keys, summed over the
+    // contraction chunks (one chunk up to d 256, where K is staged whole)
 #pragma unroll
-    for (int j = 0; j < NTILES; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int kc = 0; kc < C::NKC; ++kc) {
+      __syncthreads();  // every warp is done with the previous tiles
+      if constexpr (C::NKC > 1) load_tile<T, D>(qb, q0, sq, kc * C::KC, sQ);
+      load_tile<T, D>(kb, n0, sk, kc * C::KC, sK);
+      if (kc == 0) {
+        // V (this block's columns): transposed; consecutive threads on
+        // consecutive keys, so a warp's element stores fall in distinct
+        // banks
+        for (int idx = tid; idx < BLOCK_N * VCHUNKS; idx += THREADS) {
+          const int vr = idx % BLOCK_N, vc = idx / BLOCK_N;
+          uint4 vv = make_uint4(0, 0, 0, 0);
+          if (n0 + vr < sk)
+            vv = *reinterpret_cast<const uint4*>(vb + (long)(n0 + vr) * D +
+                                                 c0 + vc * VEC);
+          const T* ve = reinterpret_cast<const T*>(&vv);
 #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      P a[4];
-      if constexpr (C::Q_REGS) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = qf[kk][i];
-      } else {
-        const T* p0 = sQ + (rw + g) * LDQ + kk * 16 + tig * 2;
-        a[0] = F::load(p0);
-        a[1] = F::load(p0 + 8 * LDQ);
-        a[2] = F::load(p0 + 8);
-        a[3] = F::load(p0 + 8 * LDQ + 8);
+          for (int e = 0; e < VEC; ++e) sVt[(vc * VEC + e) * LDV + vr] = ve[e];
+        }
+        if (use_seg)
+          for (int r = tid; r < BLOCK_N; r += THREADS)
+            sSid[r] = n0 + r < sk ? sid_kv[(long)bi * sk + n0 + r] : -1;
       }
+      __syncthreads();
+      if (kc == 0) {    // zeroed after the loads: s is not live across them
 #pragma unroll
-      for (int j = 0; j < NTILES; ++j) {
-        const T* pk = sK + (j * 8 + g) * LDQ + kk * 16 + tig * 2;
-        F::mma(s[j], a, F::load(pk), F::load(pk + 8));
+        for (int j = 0; j < NTILES; ++j)
+          s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      }
+
+#pragma unroll (C::KUNROLL)
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        P a[4];
+        if constexpr (C::Q_REGS) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) a[i] = qf[kk][i];
+        } else {
+          const T* p0 = sQ + (rw + g) * LDQ + kk * 16 + tig * 2;
+          a[0] = F::load(p0);
+          a[1] = F::load(p0 + 8 * LDQ);
+          a[2] = F::load(p0 + 8);
+          a[3] = F::load(p0 + 8 * LDQ + 8);
+        }
+#pragma unroll
+        for (int j = 0; j < NTILES; ++j) {
+          const T* pk = sK + (j * 8 + g) * LDQ + kk * 16 + tig * 2;
+          F::mma(s[j], a, F::load(pk), F::load(pk + 8));
+        }
       }
     }
 
@@ -267,7 +303,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     // ---- O += P V (P rounded to the operands' dtype, as the Pallas
-    // kernel rounds p to the dtype of v before its MXU product)
+    // kernel rounds p to the dtype of v before its MXU product; over mixed
+    // operands the fp32 kernel rounds it to v's own dtype, p_round)
+    if constexpr (sizeof(T) == 4) {
+#pragma unroll
+      for (int j = 0; j < NTILES; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = round_to(s[j][e], p_round);
+    }
 #pragma unroll
     for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
       P pa[4];
@@ -307,7 +350,7 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* sid_q, const void* sid_kv, void* out,
                    void* lse, int b, int h, int sq, int sk, int causal,
-                   float scale, cudaStream_t stream) {
+                   float scale, int p_round, cudaStream_t stream) {
   const size_t smem = Cfg<T, D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -318,7 +361,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(sid_q),
       static_cast<const int32_t*>(sid_kv), static_cast<T*>(out),
-      static_cast<float*>(lse), h, sq, sk, causal, scale);
+      static_cast<float*>(lse), h, sq, sk, causal, scale, p_round);
   return cudaGetLastError();
 }
 
@@ -326,20 +369,23 @@ template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const void* sid_q, const void* sid_kv, void* out,
                      void* lse, int b, int h, int sq, int sk, int d,
-                     int causal, float scale, cudaStream_t st) {
+                     int causal, float scale, int pr, cudaStream_t st) {
   switch (d) {
     case 32:
       return launch<T, 32>(q, k, v, sid_q, sid_kv, out, lse, b, h, sq, sk,
-                           causal, scale, st);
+                           causal, scale, pr, st);
     case 64:
       return launch<T, 64>(q, k, v, sid_q, sid_kv, out, lse, b, h, sq, sk,
-                           causal, scale, st);
+                           causal, scale, pr, st);
     case 128:
       return launch<T, 128>(q, k, v, sid_q, sid_kv, out, lse, b, h, sq, sk,
-                            causal, scale, st);
+                            causal, scale, pr, st);
     case 256:
       return launch<T, 256>(q, k, v, sid_q, sid_kv, out, lse, b, h, sq, sk,
-                            causal, scale, st);
+                            causal, scale, pr, st);
+    case 512:
+      return launch<T, 512>(q, k, v, sid_q, sid_kv, out, lse, b, h, sq, sk,
+                            causal, scale, pr, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -350,35 +396,37 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 // C interface (loaded with ctypes). Pointers are device pointers of
 // contiguous tensors: q [b,h,sq,d], k/v [b,h,sk,d] of one dtype (`dtype`
 // 0 bf16, 1 fp16, 2 fp32); sid_q [b,sq] and sid_kv [b,sk] int32, or both
-// null; out [b,h,sq,d] in the operands' dtype; lse [b,h,sq] f32. Returns
-// the launch's cudaError_t (cudaErrorInvalidValue for a head dim other than
-// 32, 64, 128, 256 or an unknown dtype).
+// null; out [b,h,sq,d] in the operands' dtype; lse [b,h,sq] f32. `pr`: the
+// dtype code p is rounded to before the PV product in the fp32 kernels (v's
+// own dtype when the caller promoted mixed operands; 2 rounds nothing).
+// Returns the launch's cudaError_t (cudaErrorInvalidValue for a head dim
+// other than 32, 64, 128, 256, 512 or an unknown dtype).
 extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                               const void* sid_q, const void* sid_kv,
                               void* out, void* lse, int b, int h, int sq,
                               int sk, int d, int causal, float scale,
-                              int dtype, void* stream) {
+                              int dtype, int pr, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (sq <= 0 || b <= 0 || h <= 0) return cudaSuccess;
   switch (dtype) {
     case 0:
 #if APEX_HAS_DTYPE(0)
       return dispatch<__nv_bfloat16>(q, k, v, sid_q, sid_kv, out, lse, b, h,
-                                     sq, sk, d, causal, scale, st);
+                                     sq, sk, d, causal, scale, pr, st);
 #else
       return cudaErrorInvalidValue;
 #endif
     case 1:
 #if APEX_HAS_DTYPE(1)
       return dispatch<__half>(q, k, v, sid_q, sid_kv, out, lse, b, h, sq, sk,
-                              d, causal, scale, st);
+                              d, causal, scale, pr, st);
 #else
       return cudaErrorInvalidValue;
 #endif
     case 2:
 #if APEX_HAS_DTYPE(2)
       return dispatch<float>(q, k, v, sid_q, sid_kv, out, lse, b, h, sq, sk,
-                             d, causal, scale, st);
+                             d, causal, scale, pr, st);
 #else
       return cudaErrorInvalidValue;
 #endif

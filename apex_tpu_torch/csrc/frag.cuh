@@ -1,6 +1,6 @@
 // Operand fragments of the m16n8k16 warp product for bf16, fp16 and fp32
-// tiles, shared by the port's matrix kernels (flash_fwd.cu, flash_bwd.cu,
-// lm_head_ce.cu, bottleneck.cu).
+// tiles, shared by the port's SIMT and mma.sync matrix kernels
+// (flash_fwd.cu, flash_bwd.cu, lm_head_ce.cu, bottleneck.cu).
 //
 // A kernel is written once against Frag<T>:
 //   Frag<T>::pair              two consecutive k values of one row
@@ -139,3 +139,13 @@ struct Frag<float> {
 // Elements of T in one 16-byte vector load.
 template <typename T>
 constexpr int kVec = 16 / (int)sizeof(T);
+
+// x rounded to the dtype of code `code` (the C interfaces' 0 bf16, 1 fp16;
+// 2, fp32, leaves it): an fp32 kernel over operands of mixed dtypes rounds
+// a product's operand where the JAX kernel casts it to a narrower operand's
+// dtype.
+__device__ __forceinline__ float round_to(float x, int code) {
+  if (code == 0) return __bfloat162float(__float2bfloat16_rn(x));
+  if (code == 1) return __half2float(__float2half_rn(x));
+  return x;
+}

@@ -1,7 +1,9 @@
-// Fused LM head + cross entropy for Hopper (sm_90a): the logits x E^T are
-// computed tile by tile and never written to memory.
+// Fused LM head + cross entropy for Hopper (sm_90a), fp32 operands (O0):
+// the logits x E^T are computed tile by tile and never written to memory.
+// bf16 and fp16 operands take lm_head_ce_sm90.cu (wgmma/TMA) instead: this
+// source is built for fp32 only (ops/_build.py).
 //
-// Replaces the two Pallas kernels of apex_tpu/ops/lm_head_ce.py:
+// Replaces the two Pallas kernels of apex_tpu/ops/lm_head_ce.py for fp32:
 //
 // - `_fwd_kernel` (:162, launched by `_fwd_partials` :250) ->
 //   ce_fwd_kernel: per (token tile, vocab chunk) the per-token online-
@@ -12,55 +14,47 @@
 // - `_bwd_kernel` (:198, launched by `_fused_ce_bwd` :316) -> two passes,
 //   ce_bwd_de_kernel and ce_bwd_dx_kernel, launched together by one C call.
 //   Each recomputes its logit tiles, forms g = (softmax - target) * dloss
-//   in fp32 and rounds it to the activation dtype (as :221 does), and
-//   contracts it: dE = g^T x in the first pass, dx = g E in the second,
-//   both accumulated in fp32 and written once in the operands' dtype.
+//   in fp32, and contracts it: dE = g^T x in the first pass, dx = g E in
+//   the second, both accumulated in fp32.
 //
-// Operands are bf16, fp16 or fp32 (x and E of one dtype, the JAX kernel's
-// "any dtype"). Numerics as in the JAX package: products with fp32
-// accumulation, logits never rounded, every reduction in fp32, vocab rows
-// past V masked out of every reduction (the JAX kernels mask by v_local),
-// label smoothing's target (1 - eps) * onehot + eps / V. dx here sums fp32
-// over the whole vocabulary instead of adding per-block partials.
+// Numerics as in the JAX package: exact fp32 products (the SIMT product of
+// frag.cuh: wgmma has no fp32 product, and TF32 would round the operands,
+// so the O0 loss stays bitwise the plain one), logits never rounded, every
+// reduction in fp32, vocab rows past V masked out of every reduction (the
+// JAX kernels mask by v_local), label smoothing's target
+// (1 - eps) * onehot + eps / V. dx here sums fp32 over the whole vocabulary
+// instead of adding per-block partials.
 //
-// Bound on the H100: operations. The forward is one product, 2 n V h flops
-// (550 GFLOP at n 8192, V 32768, h 1024: 0.556 ms at 989 TFLOP/s); the
-// backward function is three (the recomputed logits, dE, dx: 1.65 TFLOP,
-// 1.67 ms). Bytes are x, E and the per-token vectors once — tens of MB.
-// fp32 operands run the SIMT product of frag.cuh (exact fp32 products,
-// ~1/30 of the bf16 rate; O0).
+// Bound on the H100: operations at the fp32 rate outside the tensor cores.
+// The forward is one product, 2 n V h flops; the backward function three
+// (the recomputed logits, dE, dx). The SIMT product runs at the shuffle
+// rate, about 1/30 of the bf16 tensor-core rate; O0 is a correctness path.
 //
 // Design. The TPU kernels carry dE across their sequential token grid in
-// VMEM and emit [n_vb, n, h] dx partials (268 MB at the TPU's block of 2048
-// vocab rows; 4.3 GB at a GPU-sized tile of 128). A GPU grid has no order
-// and no such memory, so the backward is two passes with no atomics and no
+// VMEM and emit [n_vb, n, h] dx partials. A GPU grid has no order and no
+// such memory, so the backward is two passes with no atomics and no
 // partials: the first gives each block 32 vocab rows of E for the whole run
 // (dE rows in registers) and loops over the token tiles; the second gives
 // each block 32 tokens (dx rows in registers) and loops over the
-// vocabulary. Both recompute every logit tile, so the backward does four
-// products where the function needs three. Tiles are 32 x 32; eight warps
-// each compute one 16 x 8 piece of a logit tile through the m16n8k16
+// vocabulary. Both recompute every logit tile. Tiles are 32 x 32; eight
+// warps each compute one 16 x 8 piece of a logit tile through the m16n8k16
 // fragments of frag.cuh (two interleaved accumulators), and each warp owns
 // kc / 8 columns of the dE or dx rows, whose B operand is read as pairs
 // from the row-major tile.
 //
-// Any hidden size. The TPU kernel holds all of h in one block; shared
-// memory holds at most kc columns of a 32-row tile (kc <= 1024 for 16-bit
-// operands, <= 512 for fp32, a multiple of 64): the wrapper pads h with
-// zero columns in x and E to hp = nch * kc (zero columns change no logit
-// and get zero gradient) and the kernels loop over the nch chunks. The
-// forward accumulates each logit tile over the chunks. In the backward h is
-// also an output dimension: the grid's second axis gives each block one
-// output chunk, the block accumulates the logit tile over every chunk
-// (taking its own last, so the tile that stays in shared memory is the one
-// its product needs) and contracts g with its chunk only. With one chunk
-// (h <= kc) the tile of the block's own side stays resident for the whole
-// run, as before. Loads are synchronous; wgmma/TMA and larger tiles are
-// later work. Shared memory: 2 * 32 * (kc + 8) elements plus the g tile
-// and the statistics, 134 KB at bf16 kc 1024 and 135 KB at fp32 kc 512.
+// Any hidden size. Shared memory holds at most kc columns of a 32-row tile
+// (kc <= 512, a multiple of 64): the wrapper pads h with zero columns in x
+// and E to hp = nch * kc (zero columns change no logit and get zero
+// gradient) and the kernels loop over the nch chunks. The forward
+// accumulates each logit tile over the chunks. In the backward h is also an
+// output dimension: the grid's second axis gives each block one output
+// chunk, the block accumulates the logit tile over every chunk (taking its
+// own last, so the tile that stays in shared memory is the one its product
+// needs) and contracts g with its chunk only. With one chunk (h <= kc) the
+// tile of the block's own side stays resident for the whole run. Loads are
+// synchronous. Shared memory: 2 * 32 * (kc + 8) elements plus the g tile
+// and the statistics, 135 KB at kc 512.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -76,7 +70,7 @@ constexpr int PAD = 8;
 constexpr int VT_FWD = 32;      // vocab tiles per forward block (1024 rows)
 constexpr int LDG = TT + PAD;   // row stride of the staged g tile
 constexpr int LDS = TV + 1;     // row stride of the forward's fp32 tile
-constexpr int NT_MAX = 16;      // 8-column n-tiles a warp, kc / 64
+constexpr int NT_MAX = 8;       // 8-column n-tiles a warp, kc / 64
 constexpr float NEG_INF = -1e30f;
 
 // rows [r0, r0 + 32) x columns [c0, c0 + kc) of src [rows, hp] (zeros past
@@ -453,12 +447,10 @@ size_t bwd_smem(int kc) {
          (size_t)32 * LDG * sizeof(T) + (size_t)4 * TT * 4;
 }
 
-// kc must divide hp, be a multiple of 64 and at most 1024 (16-bit) or 512
-// (fp32) columns
+// kc must divide hp, be a multiple of 64 and at most 512 columns
 template <typename T>
 bool valid_chunks(int hp, int kc) {
-  const int kmax = sizeof(T) == 4 ? 512 : 1024;
-  return kc > 0 && kc % 64 == 0 && kc <= kmax && hp % kc == 0;
+  return kc > 0 && kc % 64 == 0 && kc <= 512 && hp % kc == 0;
 }
 
 template <typename T, bool ONE>
@@ -531,11 +523,11 @@ cudaError_t bwd_of(const void* x, const void* e, const void* tgt,
 }  // namespace
 
 // C interface (loaded with ctypes). Device pointers of contiguous tensors:
-// x [n, hp] and e [V, hp] of one dtype (`dtype` 0 bf16, 1 fp16, 2 fp32),
-// tgt [n] int32 (out-of-range ids match no vocab row); hp is a multiple of
-// the chunk kc (a multiple of 64, at most 1024 for 16-bit operands and 512
-// for fp32). Forward: m_part, l_part, p_part (and s_part, or null when no
-// label smoothing) [ceil(V / 1024), n] fp32.
+// x [n, hp] and e [V, hp] fp32 (`dtype` 2; any other code returns
+// cudaErrorInvalidValue), tgt [n] int32 (out-of-range ids match no vocab
+// row); hp is a multiple of the chunk kc (a multiple of 64, at most 512).
+// Forward: m_part, l_part, p_part (and s_part, or null when no label
+// smoothing) [ceil(V / 1024), n] fp32.
 extern "C" int apex_lm_head_ce_fwd(const void* x, const void* e,
                                    const void* tgt, void* m_part,
                                    void* l_part, void* p_part, void* s_part,
@@ -544,20 +536,6 @@ extern "C" int apex_lm_head_ce_fwd(const void* x, const void* e,
   if (n <= 0 || V <= 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0:
-#if APEX_HAS_DTYPE(0)
-      return launch_fwd<__nv_bfloat16>(x, e, tgt, m_part, l_part, p_part,
-                                       s_part, n, V, hp, kc, st);
-#else
-      return cudaErrorInvalidValue;
-#endif
-    case 1:
-#if APEX_HAS_DTYPE(1)
-      return launch_fwd<__half>(x, e, tgt, m_part, l_part, p_part, s_part, n,
-                                V, hp, kc, st);
-#else
-      return cudaErrorInvalidValue;
-#endif
     case 2:
 #if APEX_HAS_DTYPE(2)
       return launch_fwd<float>(x, e, tgt, m_part, l_part, p_part, s_part, n,
@@ -571,8 +549,7 @@ extern "C" int apex_lm_head_ce_fwd(const void* x, const void* e,
 }
 
 // Backward: m, l (the combined row max and sum-exp) and dl (dloss) [n]
-// fp32; writes de [V, hp] and dx [n, hp] in the operands' dtype (every
-// element).
+// fp32; writes de [V, hp] and dx [n, hp] (every element).
 extern "C" int apex_lm_head_ce_bwd(const void* x, const void* e,
                                    const void* tgt, const void* m,
                                    const void* l, const void* dl, void* de,
@@ -582,20 +559,6 @@ extern "C" int apex_lm_head_ce_bwd(const void* x, const void* e,
   if (n <= 0 || V <= 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0:
-#if APEX_HAS_DTYPE(0)
-      return bwd_of<__nv_bfloat16>(x, e, tgt, m, l, dl, de, dx, n, V, hp, kc,
-                                   ls, ls_over_v, st);
-#else
-      return cudaErrorInvalidValue;
-#endif
-    case 1:
-#if APEX_HAS_DTYPE(1)
-      return bwd_of<__half>(x, e, tgt, m, l, dl, de, dx, n, V, hp, kc, ls,
-                            ls_over_v, st);
-#else
-      return cudaErrorInvalidValue;
-#endif
     case 2:
 #if APEX_HAS_DTYPE(2)
       return bwd_of<float>(x, e, tgt, m, l, dl, de, dx, n, V, hp, kc, ls,

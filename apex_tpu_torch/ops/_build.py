@@ -15,13 +15,18 @@ launch of a kernel calls :func:`load`. :func:`build_all` starts one
 ``nvcc`` per source at once, for callers that want every kernel ready
 before they time anything.
 
-A source that instantiates its kernels for bf16, fp16 and fp32 operands
-(:data:`DTYPE_SPLIT`) is built as three targets, ``<name>@bf16``,
-``<name>@f16`` and ``<name>@f32``, each compiled with ``-DAPEX_DTYPE=<code>``
-so that it holds one dtype's kernels (``csrc/frag.cuh``'s
-``APEX_HAS_DTYPE``): the three compile side by side instead of one after
-the other. Wrappers name the target of their operands' dtype
-(:func:`dtype_target`).
+A source that instantiates its kernels per operand dtype
+(:data:`DTYPE_SPLIT`, with the dtypes it holds) is built as one target per
+dtype, ``<name>@bf16``, ``<name>@f16`` or ``<name>@f32``, each compiled with
+``-DAPEX_DTYPE=<code>`` so that it holds one dtype's kernels
+(``csrc/dtype.cuh``'s ``APEX_HAS_DTYPE``): the targets compile side by side
+instead of one after the other. ``lm_head_ce.cu`` keeps only the fp32 (SIMT)
+route and ``lm_head_ce_sm90.cu`` (wgmma/TMA) only bf16 and fp16. Wrappers
+name the target of their operands' dtype (:func:`dtype_target`).
+
+``lm_head_ce_sm90.cu`` encodes its TMA descriptors with the driver's
+``cuTensorMapEncodeTiled``, which it looks up at run time through the
+runtime's ``cudaGetDriverEntryPointByVersion``: no source links ``-lcuda``.
 
 Every C entry point returns the ``cudaError_t`` of its launch; wrappers pass
 the result to :func:`check` and raise on anything but 0.
@@ -50,23 +55,29 @@ FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
-# sources built once per operand dtype; the dtype codes of the C interfaces
-DTYPE_SPLIT = ("flash_fwd", "flash_bwd", "lm_head_ce", "paged_decode")
-DTYPE_VARIANTS = ("bf16", "f16", "f32")          # codes 0, 1, 2
+DTYPE_VARIANTS = ("bf16", "f16", "f32")    # the C interfaces' codes 0, 1, 2
+# sources built once per operand dtype, with the dtype codes each holds
+DTYPE_SPLIT = {"flash_fwd": (0, 1, 2), "flash_bwd": (0, 1, 2),
+               "paged_decode": (0, 1, 2), "lm_head_ce": (2,),
+               "lm_head_ce_sm90": (0, 1)}
 
 
 def dtype_target(name: str, code: int) -> str:
-    """The build target of source ``name`` for dtype code ``code``."""
+    """The build target of source ``name`` for dtype code ``code`` (a
+    ValueError for a dtype the source is not built for)."""
+    if code not in DTYPE_SPLIT[name]:
+        raise ValueError(f"{name}.cu is not built for "
+                         f"{DTYPE_VARIANTS[code]} operands")
     return f"{name}@{DTYPE_VARIANTS[code]}"
 
 
 def targets(names: Iterable[str]) -> List[str]:
     """``names`` with every :data:`DTYPE_SPLIT` source expanded into its
-    three dtype targets."""
+    dtype targets."""
     out = []
     for n in names:
         if n in DTYPE_SPLIT:
-            out += [dtype_target(n, c) for c in range(len(DTYPE_VARIANTS))]
+            out += [dtype_target(n, c) for c in DTYPE_SPLIT[n]]
         else:
             out.append(n)
     return out

@@ -23,15 +23,20 @@ Port of ``apex_tpu/ops/flash_attention.py``:
   pool, or an e4m3 pool with one fp32 scale per (kv head, page); on the
   CPU it is :func:`paged_attention_reference`.
 
-Operands: the kernels take bf16, fp16 or fp32 (one dtype for q, k and v;
-fp32 through the SIMT product of ``csrc/frag.cuh``, for O0) and return the
-operands' dtype. The flash kernels are built for head dims 32, 64, 128 and
-256; any other d up to 256 runs zero-padded to the next of them with the
-caller's ``scale`` (:func:`kernel_head_dim`; the zeros add nothing to a
-score and the padded output columns are sliced off). The fp32 backward
-stops at d 128 (its shared-memory tiles), and d above 256 raises. Paged
-decode takes d 32, 64 or 128, any GQA group (past 8 in chunks of 8) and a
-pool of q's dtype or of e4m3.
+Operands: the kernels take bf16, fp16 or fp32 (fp32 through the SIMT
+product of ``csrc/frag.cuh``, for O0). q, k and v may differ in dtype, as
+the JAX kernels take them: the wrappers promote them to their common dtype
+(exact; fp32 for any mix) and the fp32 kernels round where the JAX kernels
+cast to an operand's own dtype (p to v's before the PV product; in the
+backward p to dout's, ds to q's and k's; :func:`_mixed_rounds`); the output
+takes q's dtype and each gradient its input's. The flash kernels are built
+for head dims 32, 64, 128, 256 and 512, in every dtype; any other d up to
+512 runs zero-padded to the next of them with the caller's ``scale``
+(:func:`kernel_head_dim`; the zeros add nothing to a score and the padded
+output columns are sliced off), and d above 512 raises. Paged decode takes
+any d up to 512 (the pool is read in place, never padded), any GQA group
+(past 8 in chunks of 8) and a pool of bf16, fp16 or fp32 (whatever q's
+dtype) or of e4m3.
 
 Shapes follow the JAX package: q [b, h, sq, d]; k, v [b, h, sk, d];
 segment ids int32 [b, sq] ([b, sk] for kv). Paged layout: q [b, kv, group,
@@ -182,23 +187,23 @@ def paged_attention_reference(q, k_pages, v_pages, block_tables, seq_lens,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-_HEAD_DIMS = (32, 64, 128, 256)            # the flash kernels' instantiations
-_PAGED_HEAD_DIMS = (32, 64, 128)
-_FP32_BWD_MAX_HEAD_DIM = 128
+# the flash kernels' instantiations
+_HEAD_DIMS = (32, 64, 128, 256, 512)
+_MAX_HEAD_DIM = 512         # paged decode: any d up to this
 # the kernels' dtype codes
 DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 
 def kernel_head_dim(d: int) -> int:
     """The head dim the flash kernels run ``d`` at: the next of
-    ``(32, 64, 128, 256)``; above 256 raises (ROADMAP §C: the tiles of a
-    64-row block no longer fit a block's shared memory)."""
+    ``(32, 64, 128, 256, 512)``; above 512 raises (ROADMAP §C: no larger
+    head dim is instantiated; the contraction is staged in chunks, so only
+    the output accumulators' registers grow with d)."""
     for kd in _HEAD_DIMS:
         if d <= kd:
             return kd
-    raise ValueError(f"flash_attention kernel: head dim {d} > 256 is not "
-                     "supported (a 64-row tile of q, k, v and do would not "
-                     "fit a block's 227 KB of shared memory)")
+    raise ValueError(f"flash_attention kernel: head dim {d} > 512 is not "
+                     "supported (the kernels are instantiated up to 512)")
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -215,18 +220,43 @@ def _require(cond: bool, what: str, msg: str) -> None:
 
 
 def _check_cuda_operands(what, named, dtype, device):
+    """Each named tensor lies on ``device``, is contiguous and has
+    ``dtype`` (``None``: any of the kernels' bf16, fp16, fp32)."""
     for name, t in named:
         _require(t.device == device, what,
                  f"{name} lies on {t.device}, expected {device}")
-        _require(t.dtype == dtype, what,
-                 f"{name} has dtype {t.dtype}, the kernel takes {dtype}")
+        if dtype is None:
+            _require(t.dtype in DTYPE_CODES, what, f"{name} has dtype "
+                     f"{t.dtype}; the kernel takes bfloat16, float16 or "
+                     "float32")
+        else:
+            _require(t.dtype == dtype, what,
+                     f"{name} has dtype {t.dtype}, the kernel takes {dtype}")
         _require(t.is_contiguous(), what, f"{name} must be contiguous")
 
 
+def _promoted(*tensors):
+    """``(tensors, dtype)`` for operands of more than one dtype: the
+    tensors in their promotion, the dtype the kernels run them in (exact:
+    bf16 and fp16 promote to fp32)."""
+    dt = tensors[0].dtype
+    for t in tensors[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return tuple(t.to(dt) for t in tensors), dt
+
+
+def _mixed_rounds(q, k, do):
+    """The backward kernels' ``rounds`` (csrc/flash_bwd.cu): dtype codes of
+    p before the dv product (dout's), ds before dk (q's) and before dq
+    (k's), two bits each."""
+    return (DTYPE_CODES[do.dtype] | DTYPE_CODES[q.dtype] << 2
+            | DTYPE_CODES[k.dtype] << 4)
+
+
 # apex_flash_fwd(q, k, v, sid_q, sid_kv, out, lse, b, h, sq, sk, d, causal,
-#                scale, dtype, stream)
+#                scale, dtype, p_round, stream)
 _FLASH_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def _operand_dtype(what, q):
@@ -237,7 +267,6 @@ def _operand_dtype(what, q):
 
 def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale):
     what = "flash_attention kernel"
-    dtype = _operand_dtype(what, q)
     _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, what,
              "q, k, v must be [b, h, s, d]")
     b, h, sq, d = q.shape
@@ -245,8 +274,14 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale):
     _require(k.shape == (b, h, sk, d) and v.shape == k.shape, what,
              f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q "
              f"{tuple(q.shape)}")
-    _check_cuda_operands(what, (("q", q), ("k", k), ("v", v)), dtype,
+    _check_cuda_operands(what, (("q", q), ("k", k), ("v", v)), None,
                          q.device)
+    out_dtype, p_round = q.dtype, DTYPE_CODES[v.dtype]
+    mixed = k.dtype != out_dtype or v.dtype != out_dtype
+    if mixed:
+        (q, k, v), dtype = _promoted(q, k, v)
+    else:
+        dtype = out_dtype
     if segment_ids_q is not None:
         if segment_ids_kv is None:
             _require(sq == sk, what, "segment_ids_kv is needed when sq != sk")
@@ -266,13 +301,14 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale):
         err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(segment_ids_q),
                  _ptr(segment_ids_kv), _ptr(out), _ptr(lse), b, h, sq, sk,
                  q.shape[-1], int(bool(causal)), float(scale),
-                 DTYPE_CODES[dtype], _stream(q))
+                 DTYPE_CODES[dtype], p_round, _stream(q))
         _build.check(err, what)
         flash_attention.launches += 1
         return out, lse
 
-    return with_padded_last_dim(launch, kernel_head_dim(d), (q, k, v),
-                                sliced=(0,))
+    out, lse = with_padded_last_dim(launch, kernel_head_dim(d), (q, k, v),
+                                    sliced=(0,))
+    return (out.to(out_dtype) if mixed else out), lse
 
 
 def flash_attention_fwd(q, k, v, segment_ids_q=None, segment_ids_kv=None,
@@ -335,16 +371,16 @@ def uses_split_backward(sq: int, sk: int, d: int, itemsize_k: int = 2,
 
 
 # apex_flash_bwd(q, k, v, do, lse, delta, sid_q, sid_kv, dq_acc, dk, dv, b,
-#                h, sq, sk, d, causal, scale, dtype, stream)
+#                h, sq, sk, d, causal, scale, dtype, rounds, stream)
 _FLASH_BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 # apex_flash_bwd_dkdv(q, k, v, do, lse, delta, sid_q, sid_kv, dk, dv, b, h,
-#                     sq, sk, d, causal, scale, dtype, stream), and
+#                     sq, sk, d, causal, scale, dtype, rounds, stream), and
 # apex_flash_bwd_dq(..., sid_kv, dq, b, ...) with one output pointer less
 _FLASH_DKDV_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _FLASH_DQ_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
@@ -353,7 +389,6 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
     :func:`uses_split_backward`; True or False forces the two-kernel split
     or the single pass (for comparing the two at one shape)."""
     what = "flash_attention_bwd kernel"
-    dtype = _operand_dtype(what, q)
     _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, what,
              "q, k, v must be [b, h, s, d]")
     b, h, sq, d = q.shape
@@ -363,12 +398,8 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
              f"k {tuple(k.shape)} / v {tuple(v.shape)} / out / do do not "
              f"match q {tuple(q.shape)}")
     dp = kernel_head_dim(d)
-    _require(dtype != torch.float32 or dp <= _FP32_BWD_MAX_HEAD_DIM, what,
-             f"float32 operands take head dims up to "
-             f"{_FP32_BWD_MAX_HEAD_DIM}, got {d} (the fp32 tiles of a "
-             "64-row block take 270 KB of shared memory at d 256)")
     _check_cuda_operands(what, (("q", q), ("k", k), ("v", v), ("out", out),
-                                ("do", do)), dtype, q.device)
+                                ("do", do)), None, q.device)
     _require(lse.shape == (b, h, sq), what, "lse must be [b, h, sq]")
     _check_cuda_operands(what, (("lse", lse),), torch.float32, q.device)
     if segment_ids_q is not None:
@@ -387,11 +418,20 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
     if split is None:
         split = uses_split_backward(sq, sk, d, k.element_size(),
                                     v.element_size(), causal)
+    # mixed operands: promoted, with the JAX kernels' roundings; each
+    # gradient takes its input's dtype
+    dtypes = (q.dtype, k.dtype, v.dtype)
+    rounds = _mixed_rounds(q, k, do)
+    mixed = not q.dtype == k.dtype == v.dtype == do.dtype
+    if mixed:
+        (q, k, v, do), dtype = _promoted(q, k, v, do)
+    else:
+        dtype = q.dtype
 
     def launch(q, k, v, do):
         if split:
             args = (q, k, v, do, lse, delta, segment_ids_q, segment_ids_kv,
-                    causal, scale)
+                    causal, scale, rounds)
             dk, dv = _flash_dkdv_cuda(*args)
             return _flash_dq_cuda(*args), dk, dv
         dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
@@ -404,28 +444,34 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
                  _ptr(delta), _ptr(segment_ids_q), _ptr(segment_ids_kv),
                  _ptr(dq_acc), _ptr(dk), _ptr(dv), b, h, sq, sk,
                  q.shape[-1], int(bool(causal)), float(scale),
-                 DTYPE_CODES[q.dtype], _stream(q))
+                 DTYPE_CODES[q.dtype], rounds, _stream(q))
         _build.check(err, what)
         flash_attention_bwd.launches += 1
         return dq_acc.to(q.dtype), dk, dv
 
-    return with_padded_last_dim(launch, dp, (q, k, v, do), sliced=(0, 1, 2))
+    grads = with_padded_last_dim(launch, dp, (q, k, v, do),
+                                 sliced=(0, 1, 2))
+    if not mixed:
+        return grads
+    return tuple(g.to(dt) for g, dt in zip(grads, dtypes))
 
 
-def _split_operands(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale):
+def _split_operands(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
+                    rounds):
     b, h, sq, d = q.shape
     return ((_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
              _ptr(sid_q), _ptr(sid_kv)),
             (b, h, sq, k.shape[2], d, int(bool(causal)), float(scale),
-             DTYPE_CODES[q.dtype], _stream(q)))
+             DTYPE_CODES[q.dtype], rounds, _stream(q)))
 
 
-def _flash_dkdv_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale):
-    """The split's dk/dv kernel on operands ``_flash_bwd_cuda`` checked;
-    ``delta`` = rowsum(do * out) fp32 [b, h, sq]."""
+def _flash_dkdv_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
+                     rounds):
+    """The split's dk/dv kernel on operands ``_flash_bwd_cuda`` checked and
+    promoted; ``delta`` = rowsum(do * out) fp32 [b, h, sq]."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     operands, tail = _split_operands(q, k, v, do, lse, delta, sid_q, sid_kv,
-                                     causal, scale)
+                                     causal, scale, rounds)
     fn = _build.function(_build.dtype_target(
         "flash_bwd", DTYPE_CODES[q.dtype]), "apex_flash_bwd_dkdv",
         _FLASH_DKDV_ARGS)
@@ -435,11 +481,12 @@ def _flash_dkdv_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale):
     return dk, dv
 
 
-def _flash_dq_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale):
+def _flash_dq_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
+                   rounds):
     """The split's dq kernel, as :func:`_flash_dkdv_cuda`."""
     dq = torch.empty_like(q)
     operands, tail = _split_operands(q, k, v, do, lse, delta, sid_q, sid_kv,
-                                     causal, scale)
+                                     causal, scale, rounds)
     fn = _build.function(_build.dtype_target(
         "flash_bwd", DTYPE_CODES[q.dtype]), "apex_flash_bwd_dq",
         _FLASH_DQ_ARGS)
@@ -526,9 +573,9 @@ flash_attention.launches = 0
 
 # apex_paged_decode(q, k_pages, v_pages, k_scales, v_scales, block_tables,
 #                   seq_lens, out, b, kv, group, d, num_pages, page_size, m,
-#                   scale, dtype, stream)
+#                   scale, dtype, pool_dtype, stream)
 _PAGED_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def _paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
@@ -539,15 +586,19 @@ def _paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
     _, num_pages, page_size, _ = k_pages.shape
     m = block_tables.shape[1]
     dtype = _operand_dtype(what, q)
-    _require(d in _PAGED_HEAD_DIMS, what,
-             f"head dim {d} not in {_PAGED_HEAD_DIMS}")
+    _require(0 < d <= _MAX_HEAD_DIM, what,
+             f"head dim {d} is past {_MAX_HEAD_DIM} (the kernel is "
+             "instantiated up to 512)")
     _require(v_pages.shape == k_pages.shape, what,
              "k_pages and v_pages differ in shape")
     _require(block_tables.shape == (b, m) and seq_lens.shape == (b,), what,
              "block_tables must be [b, m] and seq_lens [b]")
     _check_cuda_operands(what, (("q", q),), dtype, q.device)
+    pool_dtype = torch.float8_e4m3fn if fp8 else k_pages.dtype
+    _require(fp8 or pool_dtype in DTYPE_CODES, what, f"k_pages has dtype "
+             f"{pool_dtype}; the kernel takes bfloat16, float16 or float32")
     _check_cuda_operands(what, (("k_pages", k_pages), ("v_pages", v_pages)),
-                         torch.float8_e4m3fn if fp8 else dtype, q.device)
+                         pool_dtype, q.device)
     if fp8:
         _require(k_scales.shape == (kv, num_pages)
                  and v_scales.shape == (kv, num_pages), what,
@@ -564,7 +615,8 @@ def _paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
     err = fn(_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_scales),
              _ptr(v_scales), _ptr(block_tables), _ptr(seq_lens), _ptr(out),
              b, kv, group, d, num_pages, page_size, m, float(scale),
-             DTYPE_CODES[dtype], _stream(q))
+             DTYPE_CODES[dtype], 0 if fp8 else DTYPE_CODES[k_pages.dtype],
+             _stream(q))
     _build.check(err, what)
     if fp8:
         paged_decode_attention.fp8_launches += 1

@@ -2,38 +2,51 @@
 versions (``apex_tpu/ops/lm_head_ce.py``).
 
 The per-token loss of ``x @ embedding^T`` without the ``[tokens, V]``
-logits ever reaching device memory on the card:
+logits ever reaching device memory in the forward:
 
 - :func:`lm_head_ce_fwd` — per-token row max ``m``, sum-exp ``l``, target
-  logit and (label smoothing) raw-logit row sum. On CUDA it launches
-  ``csrc/lm_head_ce.cu``'s forward, which replaces the Pallas
-  ``_fwd_kernel`` (``apex_tpu/ops/lm_head_ce.py:162``), and combines the
-  kernel's per-vocab-chunk partials in torch as the JAX package combines
-  its own (``:266-271``); on the CPU it is :func:`lm_head_ce_fwd_reference`.
+  logit and (label smoothing) raw-logit row sum. On CUDA it launches the
+  forward kernel, which replaces the Pallas ``_fwd_kernel``
+  (``apex_tpu/ops/lm_head_ce.py:162``), and combines the kernel's
+  per-vocab-slice partials in torch as the JAX package combines its own
+  (``:266-271``); on the CPU it is :func:`lm_head_ce_fwd_reference`.
 - :func:`lm_head_ce_bwd` — ``(dx, dE)`` from the saved ``m``, ``l`` and
-  the upstream gradient. On CUDA one call launches the source's two
-  backward passes (dE rows, then dx rows), which together replace the
-  Pallas ``_bwd_kernel`` (``:198``); on the CPU it is
-  :func:`lm_head_ce_bwd_reference`.
+  the upstream gradient. On CUDA one call launches the backward kernels,
+  which together replace the Pallas ``_bwd_kernel`` (``:198``); on the CPU
+  it is :func:`lm_head_ce_bwd_reference`.
 - :func:`fused_lm_head_cross_entropy` — the differentiable op
   (:class:`FusedLMHeadCEFunction`) at tensor-parallel world size 1.
 
-Numerics (as the JAX package): logits with the operands' dtype (bf16,
-fp16 or fp32 — fp32 through the SIMT product of ``csrc/frag.cuh``, for O0)
-and fp32 accumulation, never rounded; fp32 reductions; the gradient tile
+Two routes by operand dtype:
+
+- bf16 and fp16: ``csrc/lm_head_ce_sm90.cu``, wgmma/TMA products on the
+  shared core of ``csrc/wgmma_gemm.cuh``. The forward folds 128 x 128
+  logit tiles into per-token partials over :func:`vocab_slices` slices of
+  the vocabulary. The backward runs three products per chunk of
+  :func:`bwd_chunk_tokens` tokens: the logits, whose epilogue writes the
+  gradient tile g to a workspace ``[T_c, V]`` (at most
+  :data:`G_WORKSPACE_BYTES`) in the activation dtype; ``dx = g E``; and
+  ``dE += g^T x`` into an fp32 accumulator. The hidden size is
+  zero-padded to a multiple of 8 (:func:`wgmma_hidden`: TMA's 16-byte row
+  strides; the zero columns change no logit and get a zero gradient,
+  sliced off).
+- fp32 (O0): ``csrc/lm_head_ce.cu``, the SIMT product of ``csrc/frag.cuh``
+  (exact fp32 products, so the O0 loss is bitwise the plain one; wgmma has
+  no exact fp32 product). Its shared memory holds at most ``kc`` hidden
+  columns of a tile (:func:`hidden_chunks`): h is zero-padded to
+  ``nch * kc`` and the kernels loop over the chunks.
+
+Numerics (as the JAX package): logits with the operands' dtype and fp32
+accumulation, never rounded; fp32 reductions; the gradient tile
 ``(softmax - target) * dloss`` rounded to the activation dtype before both
-products; dE accumulated in fp32 and cast to the embedding's dtype. dx is
-summed over the whole vocabulary in fp32 (the JAX kernel adds per-block
+products; dE accumulated in fp32 and cast to the embedding's dtype once. dx
+is summed over the whole vocabulary in fp32 (the JAX kernel adds per-block
 partials). The plain versions compute the logits in fp32 from upcast
 operands, which is what the JAX package's interpret mode does.
 
-Any hidden size: the kernels hold at most ``kc`` columns of a tile in
-shared memory (:func:`hidden_chunks`), so the wrapper zero-pads h in x and
-the embedding to ``nch * kc`` (the zero columns change no logit and get a
-zero gradient, sliced off) and the kernels loop over the chunks.
-
 ``lm_head_ce_fwd.launches`` and ``lm_head_ce_bwd.launches`` count kernel
-calls (the backward's one call launches its two passes).
+calls (one a call; the backward's call launches its products chunk by
+chunk).
 """
 
 from __future__ import annotations
@@ -51,20 +64,54 @@ from apex_tpu_torch.ops.flash_attention import (DTYPE_CODES,
                                                 _check_cuda_operands, _ptr,
                                                 _require, _stream)
 
-_VOCAB_PER_BLOCK = 1024        # vocab rows per forward block (VT_FWD * TV)
-_CHUNK = 64                    # kc is a multiple of the 8 warps' 8 columns
-# the most hidden columns of a 32-row tile the kernels hold in shared memory
-_MAX_CHUNK = {torch.bfloat16: 1024, torch.float16: 1024, torch.float32: 512}
+_VOCAB_PER_BLOCK = 1024        # fp32 route: vocab rows per forward block
+_CHUNK = 64                    # fp32 route: kc is a multiple of 64
+_MAX_CHUNK = 512               # fp32 route: hidden columns a 32-row tile
+_SM90_DTYPES = (torch.bfloat16, torch.float16)
+_TILE = 128                    # the wgmma route's tile rows and columns
+# the wgmma backward's gradient workspace G [T_c, V] holds at most this
+# many bytes (about the [n_vb, n, h] dx partials the JAX kernel leaves in
+# HBM at its block of 2048 vocab rows)
+G_WORKSPACE_BYTES = 256 << 20
 
 
-def hidden_chunks(h: int, dtype: torch.dtype):
-    """``(hp, kc)``: the kernels run hidden size ``h`` zero-padded to
-    ``hp = nch * kc`` in ``nch`` chunks of ``kc`` columns (a multiple of
-    64, at most 1024 for 16-bit operands and 512 for fp32, the fewest
-    chunks and then the least padding)."""
-    nch = -(-h // _MAX_CHUNK[dtype])
-    kc = -(-(-(-h // nch)) // _CHUNK) * _CHUNK
+def _round_up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def hidden_chunks(h: int):
+    """``(hp, kc)`` of the fp32 (SIMT) route: its kernels run hidden size
+    ``h`` zero-padded to ``hp = nch * kc`` in ``nch`` chunks of ``kc``
+    columns, ``kc`` a multiple of 64, at most 512, the fewest chunks and
+    then the least padding."""
+    nch = -(-h // _MAX_CHUNK)
+    kc = _round_up(-(-h // nch), _CHUNK)
     return nch * kc, kc
+
+
+def wgmma_hidden(h: int) -> int:
+    """The hidden size the bf16/fp16 (wgmma) route runs ``h`` at: rounded
+    up to 8, for TMA's 16-byte row strides (the kernels stream h in
+    K-stages, so it takes no chunks)."""
+    return _round_up(h, 8)
+
+
+def bwd_chunk_tokens(n: int, V: int) -> int:
+    """Tokens per chunk of the wgmma backward: the most multiples of 128
+    whose 16-bit gradient workspace ``[T_c, V rounded up to 8]`` fits
+    :data:`G_WORKSPACE_BYTES` (at least 128), and no more than ``n``
+    needs."""
+    row = _round_up(V, 8) * 2
+    chunk = max(_TILE, G_WORKSPACE_BYTES // row // _TILE * _TILE)
+    return min(chunk, _round_up(n, _TILE))
+
+
+def vocab_slices(n: int, V: int, sms: int) -> int:
+    """Vocabulary slices of the wgmma forward: enough 128-token x slice
+    blocks for about two waves over ``sms`` SMs, between 1 and 8 and no
+    more than the vocabulary's 128-row tiles."""
+    tiles_m, tiles_v = -(-n // _TILE), -(-V // _TILE)
+    return max(1, min(8, tiles_v, round(2 * sms / tiles_m)))
 
 
 # ---------------------------------------------------------------------------
@@ -120,12 +167,22 @@ def lm_head_ce_bwd_reference(x2d, e, tgt, m, l, dloss,
 # ---------------------------------------------------------------------------
 
 # apex_lm_head_ce_fwd(x, e, tgt, m_part, l_part, p_part, s_part, n, V, hp,
-#                     kc, dtype, stream)
+#                     kc, dtype, stream)  (fp32)
 _FWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# apex_lm_head_ce_sm90_fwd(x, e, tgt, m_part, l_part, p_part, s_part, n, V,
+#                          hp, n_slices, dtype, stream)  (bf16, fp16)
+_SM90_FWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+    ctypes.c_void_p]
 # apex_lm_head_ce_bwd(x, e, tgt, m, l, dl, de, dx, n, V, hp, kc, ls,
-#                     ls_over_v, dtype, stream)
+#                     ls_over_v, dtype, stream)  (fp32)
 _BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+# apex_lm_head_ce_sm90_bwd(x, e, tgt, m, l, dl, g, de_acc, de, dx, n, V, hp,
+#                          vs, chunk, ls, ls_over_v, dtype, stream)
+_SM90_BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+# apex_wgmma_probe(a, b, c, M, N, K, a_mn, b_mn, dtype, stream)
+_PROBE_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def _check_operands(what, x2d, e, tgt):
@@ -140,31 +197,47 @@ def _check_operands(what, x2d, e, tgt):
     _check_cuda_operands(what, (("targets", tgt),), torch.int32, x2d.device)
 
 
+def _source(x2d):
+    """The build target of the operands' route: ``lm_head_ce_sm90`` for
+    bf16 and fp16, ``lm_head_ce`` for fp32."""
+    name = "lm_head_ce_sm90" if x2d.dtype in _SM90_DTYPES else "lm_head_ce"
+    return _build.dtype_target(name, DTYPE_CODES[x2d.dtype])
+
+
 def _ce_fwd_cuda(x2d, e, tgt, with_ssum):
     what = "lm_head_ce_fwd kernel"
     _check_operands(what, x2d, e, tgt)
     n, h = x2d.shape
     V = e.shape[0]
-    hp, kc = hidden_chunks(h, x2d.dtype)
-    n_vb = -(-V // _VOCAB_PER_BLOCK)
+    sm90 = x2d.dtype in _SM90_DTYPES
+    hp, kc = (wgmma_hidden(h), None) if sm90 else hidden_chunks(h)
+    n_part = (vocab_slices(n, V, torch.cuda.get_device_properties(
+        x2d.device).multi_processor_count) if sm90
+        else -(-V // _VOCAB_PER_BLOCK))
 
     def launch(x2d, e):
-        parts = torch.empty((4 if with_ssum else 3, n_vb, n),
+        parts = torch.empty((4 if with_ssum else 3, n_part, n),
                             dtype=torch.float32, device=x2d.device)
-        fn = _build.function(_build.dtype_target(
-            "lm_head_ce", DTYPE_CODES[x2d.dtype]), "apex_lm_head_ce_fwd",
-            _FWD_ARGS)
-        err = fn(_ptr(x2d), _ptr(e), _ptr(tgt), _ptr(parts[0]),
-                 _ptr(parts[1]), _ptr(parts[2]),
-                 _ptr(parts[3]) if with_ssum else None, n, V, hp, kc,
-                 DTYPE_CODES[x2d.dtype], _stream(x2d))
+        ptrs = (_ptr(x2d), _ptr(e), _ptr(tgt), _ptr(parts[0]),
+                _ptr(parts[1]), _ptr(parts[2]),
+                _ptr(parts[3]) if with_ssum else None)
+        if sm90:
+            fn = _build.function(_source(x2d), "apex_lm_head_ce_sm90_fwd",
+                                 _SM90_FWD_ARGS)
+            err = fn(*ptrs, n, V, hp, n_part, DTYPE_CODES[x2d.dtype],
+                     _stream(x2d))
+        else:
+            fn = _build.function(_source(x2d), "apex_lm_head_ce_fwd",
+                                 _FWD_ARGS)
+            err = fn(*ptrs, n, V, hp, kc, DTYPE_CODES[x2d.dtype],
+                     _stream(x2d))
         _build.check(err, what)
         lm_head_ce_fwd.launches += 1
         return (parts,)
 
     parts, = with_padded_last_dim(launch, hp, (x2d, e))
     m_p, l_p, p_p = parts[0], parts[1], parts[2]
-    # combine the per-block online-softmax partials (tiny: [n_vb, n])
+    # combine the per-slice online-softmax partials (tiny: [n_part, n])
     m = m_p.amax(dim=0)
     l = (l_p * torch.exp(m_p - m)).sum(dim=0)
     ssum = parts[3].sum(dim=0) if with_ssum else None
@@ -191,27 +264,45 @@ def _ce_bwd_cuda(x2d, e, tgt, m, l, dloss, label_smoothing):
              what, "m, l and dloss must be [n]")
     _check_cuda_operands(what, (("m", m), ("l", l), ("dloss", dloss)),
                          torch.float32, x2d.device)
-    hp, kc = hidden_chunks(h, x2d.dtype)
+    sm90 = x2d.dtype in _SM90_DTYPES
+    hp, kc = (wgmma_hidden(h), None) if sm90 else hidden_chunks(h)
     ls = float(label_smoothing)
+    code = DTYPE_CODES[x2d.dtype]
 
-    def launch(x2d, e):
+    def launch_sm90(x2d, e):
+        vs = _round_up(V, 8)
+        chunk = bwd_chunk_tokens(n, V)
+        g = torch.empty((chunk, vs), dtype=x2d.dtype, device=x2d.device)
+        de_acc = (torch.empty((V, hp), dtype=torch.float32,
+                              device=x2d.device) if n > chunk else None)
         de = torch.empty_like(e)
         dx = torch.empty_like(x2d)
-        fn = _build.function(_build.dtype_target(
-            "lm_head_ce", DTYPE_CODES[x2d.dtype]), "apex_lm_head_ce_bwd",
-            _BWD_ARGS)
+        fn = _build.function(_source(x2d), "apex_lm_head_ce_sm90_bwd",
+                             _SM90_BWD_ARGS)
         err = fn(_ptr(x2d), _ptr(e), _ptr(tgt), _ptr(m), _ptr(l),
-                 _ptr(dloss), _ptr(de), _ptr(dx), n, V, hp, kc, ls, ls / V,
-                 DTYPE_CODES[x2d.dtype], _stream(x2d))
+                 _ptr(dloss), _ptr(g), _ptr(de_acc), _ptr(de), _ptr(dx), n,
+                 V, hp, vs, chunk, ls, ls / V, code, _stream(x2d))
         _build.check(err, what)
         lm_head_ce_bwd.launches += 1
         return dx, de
 
-    return with_padded_last_dim(launch, hp, (x2d, e), sliced=(0, 1))
+    def launch_f32(x2d, e):
+        de = torch.empty_like(e)
+        dx = torch.empty_like(x2d)
+        fn = _build.function(_source(x2d), "apex_lm_head_ce_bwd", _BWD_ARGS)
+        err = fn(_ptr(x2d), _ptr(e), _ptr(tgt), _ptr(m), _ptr(l),
+                 _ptr(dloss), _ptr(de), _ptr(dx), n, V, hp, kc, ls, ls / V,
+                 code, _stream(x2d))
+        _build.check(err, what)
+        lm_head_ce_bwd.launches += 1
+        return dx, de
+
+    return with_padded_last_dim(launch_sm90 if sm90 else launch_f32, hp,
+                                (x2d, e), sliced=(0, 1))
 
 
 def lm_head_ce_bwd(x2d, e, tgt, m, l, dloss, label_smoothing: float = 0.0):
-    """``(dx, dE)``: the kernel's two passes on CUDA,
+    """``(dx, dE)``: the backward kernels on CUDA,
     :func:`lm_head_ce_bwd_reference` on the CPU."""
     if check_device_type(x2d, "lm_head_ce_bwd") == "cpu":
         return lm_head_ce_bwd_reference(x2d, e, tgt, m, l, dloss,
@@ -220,6 +311,28 @@ def lm_head_ce_bwd(x2d, e, tgt, m, l, dloss, label_smoothing: float = 0.0):
 
 
 lm_head_ce_bwd.launches = 0
+
+
+def wgmma_probe(a, b, a_mn: bool, b_mn: bool):
+    """The wgmma core of the 16-bit route alone, for the card tests of its
+    operand layouts: ``A B`` in fp32, with ``a`` [M, K] (``a_mn`` False) or
+    [K, M] (True) and ``b`` [N, K] (``b_mn`` False) or [K, N] (True), one
+    bf16 or fp16 dtype, every dim a multiple of 8."""
+    what = "wgmma probe"
+    _require(a.dtype in _SM90_DTYPES, what, f"takes bf16 or fp16, got "
+             f"{a.dtype}")
+    _check_cuda_operands(what, (("a", a), ("b", b)), a.dtype, a.device)
+    M, K = (a.shape[1], a.shape[0]) if a_mn else a.shape
+    N = b.shape[1] if b_mn else b.shape[0]
+    _require((b.shape[0] if b_mn else b.shape[1]) == K, what,
+             "a and b differ in K")
+    c = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    fn = _build.function(_build.dtype_target(
+        "lm_head_ce_sm90", DTYPE_CODES[a.dtype]), "apex_wgmma_probe",
+        _PROBE_ARGS)
+    _build.check(fn(_ptr(a), _ptr(b), _ptr(c), M, N, K, int(a_mn),
+                    int(b_mn), DTYPE_CODES[a.dtype], _stream(a)), what)
+    return c
 
 
 def _loss_from_stats(m, l, pred, ssum, V, label_smoothing):

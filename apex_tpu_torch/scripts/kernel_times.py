@@ -1,6 +1,7 @@
-"""Times the port's bf16 kernels at their main paths' shapes, for one
-checkout of the repository, so that two versions can be compared on one
-card in one run.
+"""Times the port's kernels at their main paths' shapes, for one checkout.
+
+bf16 kernels (and the LM-head CE's fp16 ones too), so that two versions
+of the repository can be compared on one card in one run.
 
 Run on a machine with a CUDA card, as a file (not with ``-m``), so that
 ``--root`` decides which checkout's ``apex_tpu_torch`` is imported::
@@ -9,10 +10,12 @@ Run on a machine with a CUDA card, as a file (not with ``-m``), so that
 
 Each kernel is called through its public wrapper (the same calls in every
 version since the wrappers' first slice): flash forward and the
-single-pass backward at b8 h16 s1024 d64 causal (the GPT train step),
-the split backward at b2 h16 s4096, paged decode over the serve path's
-batch (bf16 and e4m3 pools), the LM-head CE forward and backward at n8192
-V32768 h1024, the fp8 matmul at decode qkv (m8 K1024 N3072). Times are
+single-pass backward at b8 h16 s1024 d64 causal (the GPT train step) and
+at b2 h8 s1024 d256 (the largest head dim every version runs), the split
+backward at b2 h16 s4096, paged decode over the serve path's batch (bf16
+and e4m3 pools), the LM-head CE forward and backward at n8192 V32768
+h1024 in bf16 and fp16, the fp8 matmul at decode qkv (m8 K1024 N3072).
+Times are
 medians of CUDA-event pairs around single launches, the L2 flushed before
 each; the result is one JSON object (also written to ``--out``) with the
 card's name and power limit.
@@ -84,6 +87,13 @@ def main() -> int:
     res["flash_bwd single b8 s1024"] = timed(
         lambda: fa._flash_bwd_cuda(q, k, v, out, lse, do, None, None, True,
                                    0.125, split=False))
+    q, k, v, do = (rnd(2, 8, 1024, 256) for _ in range(4))
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    res["flash_fwd b2 s1024 d256"] = timed(
+        lambda: fa.flash_attention_fwd(q, k, v, causal=True))
+    res["flash_bwd single b2 s1024 d256"] = timed(
+        lambda: fa._flash_bwd_cuda(q, k, v, out, lse, do, None, None, True,
+                                   0.0625, split=False))
     q, k, v, do = (rnd(2, 16, 4096, 64) for _ in range(4))
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
     res["flash_bwd split b2 s4096"] = timed(
@@ -124,6 +134,11 @@ def main() -> int:
     res["lm_head_ce_fwd n8192 h1024"] = timed(
         lambda: ce.lm_head_ce_fwd(x, e, tgt), iters=10)
     res["lm_head_ce_bwd n8192 h1024"] = timed(
+        lambda: ce.lm_head_ce_bwd(x, e, tgt, mm_, ll, dl), iters=10)
+    x, e = x.half(), e.half()
+    res["lm_head_ce_fwd fp16 n8192 h1024"] = timed(
+        lambda: ce.lm_head_ce_fwd(x, e, tgt), iters=10)
+    res["lm_head_ce_bwd fp16 n8192 h1024"] = timed(
         lambda: ce.lm_head_ce_bwd(x, e, tgt, mm_, ll, dl), iters=10)
     del x, e
 

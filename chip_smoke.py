@@ -10,9 +10,11 @@ Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
 Phases (any failure exits non-zero; no phase's error is caught):
 
 1. set-up — build the CUDA kernels from ``apex_tpu_torch/csrc`` (one
-   ``nvcc`` per source, started together), turn TF32 off, print the card's
-   name and power limit; the fp8 codec's e4m3 cast and scale on the card
-   against the CPU's, bitwise;
+   ``nvcc`` per source and dtype, started together), count the ``HGMMA``
+   instructions in the wgmma LM-head CE libraries (``cuobjdump -sass``;
+   none fails), turn TF32 off, print the card's name and power limit; the
+   fp8 codec's e4m3 cast and scale on the card against the CPU's,
+   bitwise;
 2. kernels — each kernel's wrapper at its main path's shapes against its
    plain version on the same inputs, with the tolerance stated beside each
    check, timed with CUDA events (L2 flushed before every launch) beside
@@ -97,11 +99,17 @@ Phases (any failure exits non-zero; no phase's error is caught):
 
 The kernel phase also holds the shapes and dtypes ROADMAP §C records as
 repaired against the plain versions: flash forward and backward (single
-pass and split) at fp16 and fp32 and at head dims 80, 96 and 256; paged
-decode at group 16 in both pool modes and with fp16/fp32 queries; the
-LM-head CE at h 64, 1536, 1600, 2048 and fp32; the fp8 matmul at
-K = N = 1000. And B15 (the fused bottleneck, N 32) within two bf16 ulps
-plus 2^-5 of its plain version and 0.15 of the cuDNN composition; B14
+pass and split) at fp16 and fp32, at head dims 80, 96, 256, 320 and 512
+(fp32 included), and over q, k, v of mixed dtypes; paged decode at group
+16 in both pool modes, with fp16/fp32 queries, at head dims 80, 96, 100,
+256 and 512 in both pool modes and with queries over a pool of another
+dtype; the LM-head CE (B8 and B9 on wgmma/TMA for bf16 and fp16, the
+SIMT route for fp32) at h 64, 100, 1536, 1600, 2048, fp16 and fp32, and
+B9 bitwise on a second run, its device launches in one call counted by
+``torch.profiler`` (each of its three products once a token chunk, no
+other kernel); the fp8 matmul at K = N = 1000. And B15 (the fused
+bottleneck, N 32) within two bf16 ulps plus 2^-5 of its plain version and
+0.15 of the cuDNN composition; B14
 bitwise (mul, max, where, iota_cmp_where) or within 2 ulps (exp, exp2).
 
 It holds B13 bitwise against its plain version in five modes and under a
@@ -654,7 +662,37 @@ def check_layer_norm_bwd(torch, timer):
                 library="backward of F.layer_norm (bf16 w/b)")
 
 
+CE_PRODUCTS = ("GradEpi", "DxEpi", "DeEpi")   # B9's three epilogues
+
+
+def ce_bwd_products(torch, fn):
+    """torch.profiler over one call of ``fn`` (after one unprofiled): the
+    device kernels it launched, counted by the wgmma core's epilogue they
+    carry (``gemm_kernel<GradEpi<...>>`` and so on), ``other`` for the
+    rest."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(CE_PRODUCTS + ("other",), 0)
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        hit = [p for p in CE_PRODUCTS if p in ev.key]
+        counts[hit[0] if len(hit) == 1 else "other"] += ev.count
+    return counts
+
+
 def check_lm_head_ce(torch, timer):
+    """B8 and B9, the wgmma/TMA kernels of ``csrc/lm_head_ce_sm90.cu``, at
+    the GPT step's n 8192, V 32768, h 1024 in bf16: against the plain
+    versions (label smoothing 0 and 0.1), the backward's dx and dE bitwise
+    on a second run, its device launches counted by the profiler (three
+    products a token chunk and nothing else), then kernel, plain and
+    library timed."""
     import torch.nn.functional as F
     from apex_tpu_torch.ops import lm_head_ce as ce
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -684,8 +722,18 @@ def check_lm_head_ce(torch, timer):
         torch.cuda.synchronize()
         bwd_err = max(bwd_err, grad_err(dx, rx, f"CE bwd dx (ls {ls})"),
                       grad_err(de, re, f"CE bwd dE (ls {ls})"))
-        del got, ref, dx, de, rx, re
+        dx2, de2 = ce.lm_head_ce_bwd(x, e, tgt, m, l, dl, ls)
+        check(torch.equal(dx, dx2) and torch.equal(de, de2),
+              f"CE bwd (ls {ls}): two runs differ (no atomics: they must "
+              "not)")
+        del got, ref, dx, de, rx, re, dx2, de2
     m, l, _, _ = ce.lm_head_ce_fwd_reference(x, e, tgt)
+    chunks = -(-n // ce.bwd_chunk_tokens(n, V))
+    products = ce_bwd_products(torch, lambda: ce.lm_head_ce_bwd(
+        x, e, tgt, m, l, dl))
+    check(products == {**dict.fromkeys(CE_PRODUCTS, chunks), "other": 0},
+          f"CE bwd: device launches {products} in one call, expected each "
+          f"of {CE_PRODUCTS} once a chunk ({chunks} chunks) and no other")
     fwd_ms = timer(lambda: ce.lm_head_ce_fwd(x, e, tgt), iters=10)
     fwd_plain = timer(lambda: ce.lm_head_ce_fwd_reference(x, e, tgt),
                       iters=10)
@@ -701,7 +749,8 @@ def check_lm_head_ce(torch, timer):
     io = n * h * 2 + V * h * 2 + n * 4
     fb, fby = bound(prod, io + 4 * n * 4)
     bb, bby = bound(3 * prod, io + 3 * n * 4 + V * h * 2 + n * h * 2)
-    common = dict(route="cuda", source="apex_tpu_torch/csrc/lm_head_ce.cu",
+    common = dict(route="cuda",
+                  source="apex_tpu_torch/csrc/lm_head_ce_sm90.cu",
                   shape=f"n{n} V{V} h{h} bf16 x/E, int32 targets; label "
                         "smoothing 0 and 0.1 checked")
     return [
@@ -717,7 +766,7 @@ def check_lm_head_ce(torch, timer):
              ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bb, bound_by=bby,
              library_ms=bwd_lib,
              library="autograd backward of F.linear + F.cross_entropy",
-             passes_per_launch=2, **common),
+             device_launches_per_call=products, **common),
     ]
 
 
@@ -785,7 +834,8 @@ def check_flash_split(torch, timer):
                      for n, g, r in zip(("dq", "dk", "dv"), single, ref))
     del got, ref, single
     delta = (do.float() * out.float()).sum(dim=-1)
-    args = (q, k, v, do, lse, delta, None, None, True, scale)
+    args = (q, k, v, do, lse, delta, None, None, True, scale,
+            fa._mixed_rounds(q, k, do))
     dkdv_ms = timer(lambda: fa._flash_dkdv_cuda(*args), iters=10)
     dq_ms = timer(lambda: fa._flash_dq_cuda(*args), iters=10)
     split_ms = timer(lambda: fa._flash_bwd_cuda(
@@ -1717,37 +1767,43 @@ def _fp32_err(got, ref, what, tol):
 
 def check_flash_repairs(torch):
     """Flash forward and backward (single pass and split) at fp16 and
-    fp32, and at head dims 80, 96 and 256 (padded to 128 and run at 256);
-    fp32 backward to d 128 (the kernels' shared memory, ROADMAP §C)."""
+    fp32, at head dims 80, 96 and 256 (padded to 128 and run at 256), past
+    256 (320 padded to 512, and 512: the contraction staged in chunks) and
+    fp32 past 128; and over q, k, v of mixed dtypes (promoted, p and ds
+    rounded as the JAX kernels round them)."""
     from apex_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(11)
-    cases = [(torch.bfloat16, 80), (torch.bfloat16, 96),
-             (torch.bfloat16, 256), (torch.float16, 64),
-             (torch.float16, 128), (torch.float16, 256),
-             (torch.float32, 64), (torch.float32, 128),
-             (torch.float32, 256)]
+    bf, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    cases = [((bf,) * 3, 80), ((bf,) * 3, 96), ((bf,) * 3, 256),
+             ((f16,) * 3, 64), ((f16,) * 3, 128), ((f16,) * 3, 256),
+             ((f32,) * 3, 64), ((f32,) * 3, 128), ((f32,) * 3, 256),
+             ((bf,) * 3, 320), ((bf,) * 3, 512), ((f16,) * 3, 512),
+             ((f32,) * 3, 512), ((f32, bf, bf), 64), ((bf, f32, f32), 64),
+             ((bf, bf, f16), 64)]
     out = []
-    for dtype, d in cases:
+    for dtypes, d in cases:
         b, h, s = 2, 4, 300
         q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device="cuda",
-                                   dtype=dtype) for _ in range(4))
+                                   dtype=dt)
+                       for dt in (*dtypes, dtypes[0]))
+        dtype = dtypes[0] if len(set(dtypes)) == 1 else None
         f0 = fa.flash_attention.launches
         o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
         ro, rl = fa.flash_attention_reference(q, k, v, causal=True)
         torch.cuda.synchronize()
         check(fa.flash_attention.launches == f0 + 1, "flash repair: no "
               "kernel launch")
-        name = f"flash {str(dtype)[6:]} d{d}"
-        rec = dict(dtype=str(dtype)[6:], d=d, shape=f"b{b} h{h} s{s} causal",
+        dnames = "/".join(str(dt)[6:] for dt in dtypes) if dtype is None \
+            else str(dtype)[6:]
+        name = f"flash {dnames} d{d}"
+        rec = dict(dtype=dnames, d=d, shape=f"b{b} h{h} s{s} causal",
                    kernel_head_dim=fa.kernel_head_dim(d))
+        check(o.dtype == dtypes[0], f"{name}: output dtype {o.dtype}")
         if dtype == torch.float32:
             rec["fwd_err"] = _fp32_err(o, ro, name, FP32_FWD_TOL)
         else:
             rec["fwd_err"] = bf16_err(o, ro, 4e-3, name)
         check((lse - rl).abs().max().item() <= 1e-3, f"{name} lse")
-        if dtype == torch.float32 and d > 128:
-            out.append(rec)
-            continue
         ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
                                                causal=True)
         for split in (False, True):
@@ -1767,18 +1823,25 @@ def check_flash_repairs(torch):
 
 def check_paged_repairs(torch):
     """Paged decode at GQA group 16 (chunks of 8 rows) in the bf16 and the
-    e4m3 pool mode, and with fp16 and fp32 queries over pools of their
-    dtype and over e4m3."""
+    e4m3 pool mode, with fp16 and fp32 queries over pools of their dtype
+    and over e4m3, at head dims 80, 96, 100 (masked loads), 256 and 512 in
+    both pool modes (the pool read in place), and with queries over a
+    pool of another dtype."""
     from apex_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(12)
+    bf, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     out = []
-    for dtype, g, fp8 in ((torch.bfloat16, 16, False),
-                          (torch.bfloat16, 16, True),
-                          (torch.float16, 16, False),
-                          (torch.float16, 4, True),
-                          (torch.float32, 16, False),
-                          (torch.float32, 2, True)):
-        b, kv, d, page, m, num_pages = 4, 4, 64, 128, 8, 40
+    for dtype, g, pool, d in ((bf, 16, bf, 64), (bf, 16, "e4m3", 64),
+                              (f16, 16, f16, 64), (f16, 4, "e4m3", 64),
+                              (f32, 16, f32, 64), (f32, 2, "e4m3", 64),
+                              (bf, 4, bf, 80), (bf, 4, "e4m3", 80),
+                              (bf, 4, bf, 96), (bf, 4, "e4m3", 96),
+                              (bf, 4, bf, 100), (f32, 4, "e4m3", 100),
+                              (bf, 4, bf, 256), (bf, 4, "e4m3", 256),
+                              (bf, 8, bf, 512), (bf, 8, "e4m3", 512),
+                              (f32, 4, bf, 64), (bf, 4, f32, 64)):
+        fp8 = pool == "e4m3"
+        b, kv, page, m, num_pages = 4, 4, 128, 8, 40
         q, kp, vp, bt, sl = _paged_inputs(torch, gen, b, kv, g, d, page, m,
                                           num_pages, [0, 129, 640, 1024])
         q = q.to(dtype)
@@ -1787,32 +1850,34 @@ def check_paged_repairs(torch):
             kp, ks = _fp8_pool(torch, gen, kv, num_pages, page, d)
             vp, vs = _fp8_pool(torch, gen, kv, num_pages, page, d)
         else:
-            kp, vp = kp.to(dtype), vp.to(dtype)
+            kp, vp = kp.to(pool), vp.to(pool)
         got = fa.paged_decode_attention(q, kp, vp, bt, sl, k_scales=ks,
                                         v_scales=vs)
         ref = fa.paged_attention_reference(q, kp, vp, bt, sl, k_scales=ks,
                                            v_scales=vs)
         torch.cuda.synchronize()
-        name = f"paged {str(dtype)[6:]} group {g} {'e4m3' if fp8 else ''}"
+        pname = "e4m3" if fp8 else str(pool)[6:]
+        name = f"paged {str(dtype)[6:]} over {pname} d{d} group {g}"
         # p and the accumulators are fp32 in both: the output rounding
         err = (_fp32_err(got, ref, name, FP32_FWD_TOL)
                if dtype == torch.float32 else bf16_err(got, ref, 1e-3, name))
         check(got[0].abs().max().item() == 0.0, f"{name}: dead slot")
-        out.append(dict(dtype=str(dtype)[6:], group=g, fp8_pool=fp8,
+        out.append(dict(dtype=str(dtype)[6:], pool=pname, d=d, group=g,
                         max_abs_err=err))
     return out
 
 
 def check_lm_head_ce_repairs(torch):
-    """The LM-head CE forward and backward at hidden sizes the kernels
-    used to refuse (64: the tests' tiny GPT; 1536, 1600, 2048) and at
-    fp32, at the GPT's vocabulary, held at the CE limits of PERF.md §2."""
+    """The LM-head CE forward and backward at other hidden sizes (64: the
+    tests' tiny GPT; 100, 1536, 1600, 2048), fp16, and fp32 (the SIMT
+    route), at the GPT's vocabulary, held at the CE limits of PERF.md §2."""
     from apex_tpu_torch.ops import lm_head_ce as ce
     gen = torch.Generator(device="cuda").manual_seed(13)
     n, V = 1024, 32768
     out = []
-    for dtype, h in ((torch.bfloat16, 64), (torch.bfloat16, 1536),
-                     (torch.bfloat16, 1600), (torch.bfloat16, 2048),
+    for dtype, h in ((torch.bfloat16, 64), (torch.bfloat16, 100),
+                     (torch.bfloat16, 1536), (torch.bfloat16, 1600),
+                     (torch.bfloat16, 2048), (torch.float16, 1024),
                      (torch.float32, 64), (torch.float32, 1024)):
         x = torch.randn(n, h, generator=gen, device="cuda").to(dtype)
         e = (0.02 * torch.randn(V, h, generator=gen, device="cuda")).to(
@@ -1840,7 +1905,10 @@ def check_lm_head_ce_repairs(torch):
         else:
             bwd = max(grad_err(dx, rx, f"{name} dx"),
                       grad_err(de, re, f"{name} dE"))
-        hp, kc = ce.hidden_chunks(h, dtype)
+        if dtype == torch.float32:
+            hp, kc = ce.hidden_chunks(h)
+        else:
+            hp, kc = ce.wgmma_hidden(h), None
         out.append(dict(dtype=str(dtype)[6:], h=h, n=n, V=V, padded_h=hp,
                         chunk=kc, fwd_err=fwd, bwd_err=bwd))
     return out
@@ -2548,7 +2616,8 @@ _PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_kernel", "flash_dkdv_kernel",
                  "flash_dq_kernel", "paged_decode_kernel",
                  "_ln_fwd_body", "_ln_bwd_body", "_ce_fwd_body",
                  "_ce_bwd_body", "ce_fwd_kernel",
-                 "ce_bwd_de_kernel", "ce_bwd_dx_kernel",
+                 "ce_bwd_de_kernel", "ce_bwd_dx_kernel", "FwdEpi", "GradEpi",
+                 "DxEpi", "DeEpi",
                  "fp8_mm_skinny_kernel", "fp8_mm_reduce_kernel",
                  "fp8_mm_tc_kernel", "mtu_kernel")
 
@@ -2643,6 +2712,21 @@ def trace(torch, cfg, params, path="serve"):
             f"{path} prefill_512": _profile(torch, prefill, 2)}
 
 
+def hgmma_counts(build):
+    """``HGMMA`` instructions in the SASS of each wgmma library
+    (``cuobjdump -sass``): the LM-head CE's bf16/fp16 kernels run on the
+    tensor cores' warpgroup products or the check fails."""
+    out = {}
+    for name in build.targets(["lm_head_ce_sm90"]):
+        sass = subprocess.run(
+            [os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"),
+             "-sass", str(build.library_path(name))], capture_output=True,
+            text=True, timeout=300, check=True).stdout
+        out[name] = sum("HGMMA" in line for line in sass.splitlines())
+        check(out[name] > 0, f"{name}: no HGMMA in its SASS")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2662,16 +2746,18 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     sources = ["flash_fwd", "paged_decode", "flash_bwd", "lm_head_ce",
-               "fp8_matmul", "multi_tensor_update", "bottleneck",
-               "vpu_probe"]
-    sources = _build.targets(sources)       # the dtype-split sources x 3
+               "lm_head_ce_sm90", "fp8_matmul", "multi_tensor_update",
+               "bottleneck", "vpu_probe"]
+    sources = _build.targets(sources)       # the dtype-split sources
     _build.build_all(sources)
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name in sources:
         text = _build.library_path(name).with_suffix(".log").read_text()
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "setmaxnreg" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    log("wgmma in the LM-head CE libraries: " + json.dumps(
+        hgmma_counts(_build)))
 
     log("e4m3 cast, card against CPU: " + json.dumps(check_e4m3_cast(torch)))
     timer = Timer(torch)
@@ -2689,7 +2775,8 @@ def main() -> int:
             f"ms {kr['ms']:.4f} plain {kr['plain_ms']:.4f} "
             f"bound {kr['bound_ms']:.4f} ({kr['bound_by']}) "
             f"library {kr['library_ms']}")
-        for extra in ("split_ms", "single_pass_ms", "by_shape",
+        for extra in ("device_launches_per_call", "split_ms",
+                      "single_pass_ms", "by_shape",
                       "train_shape", "lamb_ms", "checked", "by_op",
                       "cudnn_composition_max_abs_err"):
             if extra in kr:

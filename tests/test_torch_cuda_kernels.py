@@ -161,13 +161,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
     q = _rand(gen, 1, 2, 16, 64)
     with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
         fa.flash_attention_fwd(q.double(), q.double(), q.double())
-    with pytest.raises(ValueError, match="dtype"):
-        fa.flash_attention_fwd(q, q.float(), q)
+    # mixed operand dtypes run, in q's dtype (ROADMAP §C, repaired)
+    assert fa.flash_attention_fwd(q, q.float(), q)[0].dtype == q.dtype
     qt = _rand(gen, 1, 16, 2, 64).transpose(1, 2)      # [1, 2, 16, 64]
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention_fwd(qt, qt, qt)
     with pytest.raises(ValueError, match="head dim"):
-        qq = _rand(gen, 1, 2, 16, 320)
+        qq = _rand(gen, 1, 2, 16, 520)
         fa.flash_attention_fwd(qq, qq, qq)
     with pytest.raises(NotImplementedError, match="bias"):
         fa.flash_attention(q, q, q, bias=torch.zeros(1, 2, 16, 16,
@@ -193,8 +193,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
         mm.fp8_dequant_matmul(_rand(gen, 8, 64), w8, one.double())
     with pytest.raises(ValueError, match="int32"):
         fa.paged_decode_attention(qp, pages, pages, bt.long(), sl)
-    with pytest.raises(ValueError, match="bfloat16"):     # pool != q's
-        fa.paged_decode_attention(qp.half(), pages, pages, bt, sl)
+    # a pool of another dtype than q's runs (ROADMAP §C, repaired); k and v
+    # pages of two dtypes do not
+    assert fa.paged_decode_attention(qp.half(), pages, pages, bt,
+                                     sl).dtype == torch.float16
+    with pytest.raises(ValueError, match="v_pages has dtype"):
+        fa.paged_decode_attention(qp, pages, pages.half(), bt, sl)
+    with pytest.raises(ValueError, match="head dim"):
+        qp5, p5 = _rand(gen, 2, 2, 1, 520), _rand(gen, 2, 4, 8, 520)
+        fa.paged_decode_attention(qp5, p5, p5, bt, sl)
     with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
         ln.fused_layer_norm_affine(q, torch.ones(64, device="cuda").double(),
                                    torch.zeros(64, device="cuda"), (64,),
@@ -205,10 +212,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
         fa.flash_attention_bwd(q.double(), q.double(), q.double(),
                                o.double(), lse, o.double())
+    # the fp32 backward past d 128 runs (ROADMAP §C, repaired)
     q200 = _rand(gen, 1, 2, 16, 200, dtype=torch.float32)
     o200, lse200 = fa.flash_attention_fwd(q200, q200, q200)
-    with pytest.raises(ValueError, match="head dims up to 128"):
-        fa.flash_attention_bwd(q200, q200, q200, o200, lse200, o200)
+    assert all(g.dtype == torch.float32 for g in fa.flash_attention_bwd(
+        q200, q200, q200, o200, lse200, o200))
     x = _rand(gen, 8, 256)
     e = _rand(gen, 100, 256)
     t = torch.zeros(8, dtype=torch.int32, device="cuda")
@@ -782,6 +790,8 @@ def _close_fp32(got, ref, tol=1e-4):
     (torch.bfloat16, 24), (torch.float16, 64), (torch.float16, 96),
     (torch.float16, 256), (torch.float32, 32), (torch.float32, 64),
     (torch.float32, 80), (torch.float32, 128), (torch.float32, 256),
+    (torch.bfloat16, 320), (torch.bfloat16, 512), (torch.float16, 512),
+    (torch.float32, 200), (torch.float32, 512),
 ])
 @pytest.mark.parametrize("split", [False, True])
 def test_flash_other_dtypes_and_head_dims_match_plain(gen, dtype, d, split):
@@ -798,10 +808,6 @@ def test_flash_other_dtypes_and_head_dims_match_plain(gen, dtype, d, split):
     else:
         _close(out, ref, 4e-3)
     assert float((lse - ref_lse).abs().max()) <= 1e-3
-    if dtype == torch.float32 and d > 128:
-        with pytest.raises(ValueError, match="head dims up to 128"):
-            fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
-        return
     grads = fa._flash_bwd_cuda(q, k, v, out, lse, do, None, None, True,
                                d ** -0.5, split=split)
     refs = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
@@ -947,3 +953,167 @@ def test_bottleneck_matches_plain_and_cudnn(gen, n):
     assert float((y.float() - lib.float()).abs().max()) < 0.15
     with pytest.raises(ValueError, match="NHWC"):
         bp.fused_block(x[:, :28].contiguous(), p)
+
+
+@pytest.mark.parametrize("dtypes", [
+    (torch.float32, torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32, torch.float32),
+    (torch.bfloat16, torch.bfloat16, torch.float16)])
+@pytest.mark.parametrize("split", [False, True])
+def test_flash_mixed_dtypes_match_plain(gen, dtypes, split):
+    """q, k, v of mixed dtypes (dout in q's): the kernels run the promoted
+    fp32 operands and round p and ds where the JAX kernels cast; the plain
+    versions keep fp32, so the bf16 limits hold."""
+    b, h, sq, sk, d = 2, 3, 97, 130, 64
+    q = _rand(gen, b, h, sq, d, dtype=dtypes[0])
+    k = _rand(gen, b, h, sk, d, dtype=dtypes[1])
+    v = _rand(gen, b, h, sk, d, dtype=dtypes[2])
+    do = _rand(gen, b, h, sq, d, dtype=dtypes[0])
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=True)
+    assert out.dtype == dtypes[0]
+    _close(out, ref, 4e-3)
+    assert float((lse - ref_lse).abs().max()) <= 1e-3
+    grads = fa._flash_bwd_cuda(q, k, v, out, lse, do, None, None, True,
+                               d ** -0.5, split=split)
+    refs = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                            causal=True)
+    for name, g, r, dt in zip(("dq", "dk", "dv"), grads, refs, dtypes):
+        assert g.dtype == dt and g.shape == r.shape
+        _close_grad(g, r, name)
+
+
+@pytest.mark.parametrize("d,q_dtype,pool", [
+    (80, torch.bfloat16, "same"), (80, torch.bfloat16, "e4m3"),
+    (96, torch.bfloat16, "same"), (96, torch.float16, "e4m3"),
+    (256, torch.bfloat16, "same"), (256, torch.bfloat16, "e4m3"),
+    (100, torch.bfloat16, "same"), (100, torch.float32, "e4m3"),
+    (512, torch.bfloat16, "same"), (512, torch.bfloat16, "e4m3"),
+    (64, torch.float32, torch.bfloat16), (64, torch.bfloat16, torch.float32),
+    (80, torch.float16, torch.bfloat16),
+])
+def test_paged_decode_any_head_dim_and_pool_dtype_matches_plain(
+        gen, d, q_dtype, pool):
+    """Any head dim (d % 8 != 0 takes the masked loads, d 512 two pieces a
+    lane) over the pool read in place, and queries over a pool of another
+    dtype; group 12 runs in chunks."""
+    b, kv, g, page, npg = 3, 2, 12, 16, 9
+    q = _rand(gen, b, kv, g, d, dtype=q_dtype)
+    pool_dtype = q_dtype if pool in ("same", "e4m3") else pool
+    kp = _rand(gen, kv, npg, page, d, dtype=pool_dtype)
+    vp = _rand(gen, kv, npg, page, d, dtype=pool_dtype)
+    bt = torch.tensor([[1, 2, 3, 0], [4, 0, 0, 0], [5, 6, 7, 8]],
+                      dtype=torch.int32, device="cuda")
+    sl = torch.tensor([40, 0, 64], dtype=torch.int32, device="cuda")
+    ks = vs = None
+    if pool == "e4m3":
+        ks = torch.rand(kv, npg, generator=gen, device="cuda") + 0.5
+        vs = torch.rand(kv, npg, generator=gen, device="cuda") + 0.5
+        kp = (kp.float() * ks[:, :, None, None]).to(torch.float8_e4m3fn)
+        vp = (vp.float() * vs[:, :, None, None]).to(torch.float8_e4m3fn)
+    out = fa.paged_decode_attention(q, kp, vp, bt, sl, k_scales=ks,
+                                    v_scales=vs)
+    ref = fa.paged_attention_reference(q, kp, vp, bt, sl, k_scales=ks,
+                                       v_scales=vs)
+    assert out.dtype == q_dtype and out.shape == q.shape
+    if q_dtype == torch.float32:
+        _close_fp32(out, ref, 1e-5)
+    else:
+        _close(out, ref, 1e-3)
+    assert float(out[1].abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# the wgmma/TMA LM-head CE (B8, B9): bf16 and fp16
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("M,N,K", [(128, 128, 64), (256, 384, 1024),
+                                   (200, 136, 72), (8, 8, 8)])
+def test_wgmma_core_layouts_match_matmul(gen, dtype, M, N, K):
+    """The shared GEMM core alone, each operand K-major or MN-major (the
+    transpose bits and the swizzled descriptors), ragged tiles included:
+    fp32 sums of exact products within 1e-5 of the largest |C|."""
+    A = _rand(gen, M, K, dtype=dtype)
+    B = _rand(gen, K, N, dtype=dtype)
+    ref = A.float() @ B.float()
+    for a_mn in (False, True):
+        for b_mn in (False, True):
+            a = A.t().contiguous() if a_mn else A
+            b = B if b_mn else B.t().contiguous()
+            c = ce.wgmma_probe(a, b, a_mn, b_mn)
+            assert float((c - ref).abs().max()) <= \
+                1e-5 * float(ref.abs().max()), (a_mn, b_mn)
+
+
+def _ce_inputs(gen, n, V, h, dtype, seed):
+    x = _rand(gen, n, h, dtype=dtype)
+    e = _rand(gen, V, h, dtype=dtype).mul(0.05)
+    # ids in [-1, V]: out-of-range targets at both ends match no row
+    tgt = torch.from_numpy(np.random.RandomState(seed).randint(
+        -1, V + 1, n).astype(np.int32)).cuda()
+    return x, e, tgt
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("n,V,h,ls", [
+    (8192, 32768, 1024, 0.0), (8192, 50257, 64, 0.1),
+    (8192, 1000, 1600, 0.0), (1000, 32768, 100, 0.1),
+    (1000, 50257, 1024, 0.0), (1000, 1000, 64, 0.1),
+    (1000, 32768, 1600, 0.1), (8192, 1000, 100, 0.1),
+])
+def test_lm_head_ce_sm90_matches_plain(gen, dtype, n, V, h, ls):
+    """The wgmma kernels (one launch count a call) against the plain
+    versions at the CE limits of PERF.md §2, V a multiple of 128 or not."""
+    x, e, tgt = _ce_inputs(gen, n, V, h, dtype, n + V + h)
+    f0, b0 = ce.lm_head_ce_fwd.launches, ce.lm_head_ce_bwd.launches
+    got = ce.lm_head_ce_fwd(x, e, tgt, ls > 0)
+    ref = ce.lm_head_ce_fwd_reference(x, e, tgt, ls > 0)
+    assert ce.lm_head_ce_fwd.launches == f0 + 1
+    for name, a, r in zip(("m", "l", "pred", "ssum"), got, ref):
+        if r is None:
+            assert a is None
+            continue
+        assert float((a - r).abs().max()) <= 1e-4 * (
+            float(r.abs().max()) + 1.0), name
+    dl = torch.rand(n, generator=gen, device="cuda") / n
+    dx, de = ce.lm_head_ce_bwd(x, e, tgt, ref[0], ref[1], dl, ls)
+    assert ce.lm_head_ce_bwd.launches == b0 + 1
+    rx, re = ce.lm_head_ce_bwd_reference(x, e, tgt, ref[0], ref[1], dl, ls)
+    assert dx.dtype == dtype and de.dtype == dtype
+    _close_grad(dx, rx, "dx")
+    _close_grad(de, re, "dE")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_lm_head_ce_bwd_many_chunks_and_bitwise_rerun(gen, dtype,
+                                                      monkeypatch):
+    """The workspace cap lowered so that 1000 tokens run in 4 chunks
+    (first, two middle, last fp32 dE passes): against the plain version and
+    against the uncapped run; two runs give the same bits (no atomics)."""
+    n, V, h = 1000, 5000, 200
+    x, e, tgt = _ce_inputs(gen, n, V, h, dtype, 7)
+    m, l, _, _ = ce.lm_head_ce_fwd_reference(x, e, tgt)
+    dl = torch.rand(n, generator=gen, device="cuda") / n
+    one = ce.lm_head_ce_bwd(x, e, tgt, m, l, dl, 0.1)
+    monkeypatch.setattr(ce, "G_WORKSPACE_BYTES", 256 * 5008 * 2)
+    assert -(-n // ce.bwd_chunk_tokens(n, V)) == 4
+    dx, de = ce.lm_head_ce_bwd(x, e, tgt, m, l, dl, 0.1)
+    dx2, de2 = ce.lm_head_ce_bwd(x, e, tgt, m, l, dl, 0.1)
+    assert torch.equal(dx, dx2) and torch.equal(de, de2)
+    assert torch.equal(dx, one[0])          # dx is per chunk either way
+    rx, re = ce.lm_head_ce_bwd_reference(x, e, tgt, m, l, dl, 0.1)
+    _close_grad(dx, rx, "dx")
+    _close_grad(de, re, "dE")
+    _close_grad(de, one[1], "dE one chunk")
+
+
+def test_lm_head_ce_bwd_gpt_shape_bitwise_rerun(gen):
+    """At the GPT step's n 8192, V 32768, h 1024 (two chunks): two runs give
+    the same dx and dE bits."""
+    x, e, tgt = _ce_inputs(gen, 8192, 32768, 1024, torch.bfloat16, 8)
+    m, l, _, _ = ce.lm_head_ce_fwd_reference(x, e, tgt)
+    dl = torch.full((8192,), 1.0 / 8192, device="cuda")
+    a = ce.lm_head_ce_bwd(x, e, tgt, m, l, dl)
+    b = ce.lm_head_ce_bwd(x, e, tgt, m, l, dl)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])

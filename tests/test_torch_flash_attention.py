@@ -366,3 +366,147 @@ def test_plain_backward_matches_jax_two_kernel_split(features, monkeypatch):
     tfa.flash_attention(tq, tk, tv, **tkw).backward(torch.from_numpy(do))
     for got, ref in zip((tq.grad, tk.grad, tv.grad), jgrads):
         _close_grad(got, ref, "float32")
+
+
+# ---------------------------------------------------------------------------
+# the shapes and dtypes the kernels used to refuse (ROADMAP §C faults 1-4):
+# head dims past 256, the fp32 backward past 128, paged decode at any head
+# dim, and operands of mixed dtypes. The port's plain versions against the
+# JAX package in interpret mode; on the card the kernels are held against
+# the plain versions (tests/test_torch_cuda_kernels.py).
+# ---------------------------------------------------------------------------
+
+def _arr(a, dtype):
+    """The same numbers as a JAX array and a torch tensor in ``dtype``
+    (a numpy dtype name)."""
+    j = jnp.asarray(a).astype(dtype)
+    t = torch.from_numpy(np.array(j.astype(jnp.float32))).to(
+        getattr(torch, dtype))
+    return j, t
+
+
+def _flash_both(dtypes, d, s=40, seed=6):
+    rng = np.random.RandomState(seed)
+    b, h = 1, 2
+    arrays = [0.5 * rng.randn(b, h, s, d).astype(np.float32)
+              for _ in range(4)]
+    pairs = [_arr(a, dt) for a, dt in zip(arrays, dtypes)]
+    scale = d ** -0.5
+
+    def jf(qq, kk, vv):
+        return jfa.flash_attention(qq, kk, vv, causal=True, scale=scale,
+                                   block_q=16, block_k=16, block_q_bwd=16,
+                                   block_k_bwd=16, interpret=True,
+                                   autotune="off")
+
+    jout, vjp = jax.vjp(jf, *(p[0] for p in pairs[:3]))
+    jgrads = vjp(pairs[3][0])
+    tq, tk, tv = (p[1].requires_grad_() for p in pairs[:3])
+    out = tfa.flash_attention(tq, tk, tv, causal=True, scale=scale)
+    out.backward(pairs[3][1])
+    return out, jout, (tq.grad, tk.grad, tv.grad), jgrads
+
+
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 320), ("bfloat16", 512),
+                                     ("float32", 256), ("float32", 512)])
+def test_flash_large_head_dims_match_jax_interpret(dtype, d):
+    """d 320 (run at 512 on the card), 512, and fp32 past d 128: forward
+    and backward."""
+    out, jout, grads, jgrads = _flash_both((dtype,) * 4, d)
+    assert out.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(_np(out.detach()), _np(jout),
+                               atol=TOL[dtype], rtol=0)
+    for got, ref in zip(grads, jgrads):
+        assert got.dtype == getattr(torch, dtype)
+        _close_grad(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtypes", [
+    ("float32", "bfloat16", "bfloat16", "float32"),
+    ("bfloat16", "float32", "float32", "bfloat16"),
+    ("bfloat16", "bfloat16", "float16", "bfloat16")])
+def test_flash_mixed_dtypes_match_jax_interpret(dtypes):
+    """The mixes the JAX kernels take (q, k, v, and dout in q's dtype): the
+    output in q's dtype, each gradient in its input's. The JAX kernels
+    round p to v's dtype (and in the backward to dout's, ds to q's and
+    k's) where the plain versions keep fp32, so both are held at the bf16
+    limits whenever a 16-bit operand is in the mix."""
+    out, jout, grads, jgrads = _flash_both(dtypes, 48)
+    assert out.dtype == getattr(torch, dtypes[0])
+    assert str(jout.dtype) == dtypes[0]
+    np.testing.assert_allclose(_np(out.detach()), _np(jout),
+                               atol=TOL["bfloat16"], rtol=0)
+    for got, ref, dt in zip(grads, jgrads, dtypes):
+        assert got.dtype == getattr(torch, dt) and str(ref.dtype) == dt
+        _close_grad(got, ref, "bfloat16")
+
+
+def test_mixed_dtype_promotion_and_roundings():
+    """The kernels run a mix in its promoted dtype (exact) and round where
+    the JAX kernels cast to an operand's dtype: codes 0 bf16, 1 fp16,
+    2 none, two bits each for p (dout's), ds before dk (q's) and before dq
+    (k's)."""
+    bf, f16, f32 = (torch.zeros(1, dtype=t) for t in
+                    (torch.bfloat16, torch.float16, torch.float32))
+    same, dt = tfa._promoted(bf, bf, bf)
+    assert dt == torch.bfloat16 and all(a is b for a, b in zip(same,
+                                                              (bf, bf, bf)))
+    assert tfa._promoted(bf, bf, f16)[1] == torch.float32
+    mixed, dt = tfa._promoted(f32, bf, bf)
+    assert dt == torch.float32 and all(t.dtype == dt for t in mixed)
+    assert tfa._mixed_rounds(f32, bf, f32) == 2 | 2 << 2 | 0 << 4
+    assert tfa._mixed_rounds(bf, f32, bf) == 0 | 0 << 2 | 2 << 4
+    assert tfa._mixed_rounds(f32, f32, f32) == 0x2A
+
+
+def _paged_pool(rng, kv, n_pages, page, d, mode):
+    """A pool in `mode` ('bfloat16', 'float32' or 'e4m3', one scale per
+    (kv head, page)) as (jax k, torch k, jax v, torch v, scales)."""
+    kp = (rng.randn(kv, n_pages, page, d) * 0.3).astype(np.float32)
+    vp = (rng.randn(kv, n_pages, page, d) * 0.3).astype(np.float32)
+    if mode != "e4m3":
+        (jk, tk), (jv, tv) = _arr(kp, mode), _arr(vp, mode)
+        return jk, tk, jv, tv, None
+    sc = (rng.rand(kv, n_pages) + 0.5).astype(np.float32)
+    out = []
+    for a in (kp, vp):
+        q8 = (a * sc[:, :, None, None]).astype(ml_dtypes.float8_e4m3fn)
+        out += [jnp.asarray(q8),
+                torch.from_numpy(q8.view(np.uint8)).view(torch.float8_e4m3fn)]
+    return (*out, sc)
+
+
+@pytest.mark.parametrize("d,q_dtype,pool", [
+    (80, "bfloat16", "bfloat16"), (80, "bfloat16", "e4m3"),
+    (96, "bfloat16", "bfloat16"), (96, "float32", "e4m3"),
+    (256, "bfloat16", "bfloat16"), (256, "bfloat16", "e4m3"),
+    (64, "float32", "bfloat16"), (64, "bfloat16", "float32")])
+def test_paged_decode_head_dims_and_mixed_dtypes_match_jax(d, q_dtype, pool):
+    """Head dims 80, 96 and 256 in both pool modes, and queries over a pool
+    of another dtype. Held within the output dtype's limit of the JAX
+    kernel in interpret mode (which rounds p to a 16-bit pool's dtype) and
+    of the JAX plain version (fp32 math on both sides: 1e-5 for fp32
+    queries)."""
+    rng = np.random.RandomState(d)
+    b, kv, g, page, n_pages, m = 3, 2, 3, 8, 9, 4
+    jq, tq = _arr((rng.randn(b, kv, g, d) * 0.3).astype(np.float32), q_dtype)
+    jk, tk, jv, tv, sc = _paged_pool(rng, kv, n_pages, page, d, pool)
+    bt = rng.randint(1, n_pages, (b, m)).astype(np.int32)
+    sl = np.asarray([13, 0, 32], np.int32)
+    jkw, tkw = {}, {}
+    if sc is not None:
+        jkw = dict(k_scales=jnp.asarray(sc), v_scales=jnp.asarray(sc))
+        tkw = dict(k_scales=torch.from_numpy(sc),
+                   v_scales=torch.from_numpy(sc))
+    ref = jfa.paged_decode_attention(jq, jk, jv, jnp.asarray(bt),
+                                     jnp.asarray(sl), interpret=True, **jkw)
+    jref = jfa.paged_attention_reference(jq, jk, jv, jnp.asarray(bt),
+                                         jnp.asarray(sl), **jkw)
+    got = tfa.paged_decode_attention(tq, tk, tv, torch.from_numpy(bt),
+                                     torch.from_numpy(sl), **tkw)
+    assert got.dtype == tq.dtype and tuple(got.shape) == (b, kv, g, d)
+    tol = TOL["float32"] if q_dtype == "float32" else TOL["bfloat16"]
+    np.testing.assert_allclose(_np(got), _np(jref), atol=tol, rtol=0)
+    kernel_tol = tol if pool in ("float32", "e4m3") else TOL["bfloat16"]
+    np.testing.assert_allclose(_np(got), _np(ref), atol=kernel_tol, rtol=0)
+    assert float(got[1].abs().max()) == 0.0          # inactive: exact zeros

@@ -162,3 +162,94 @@ def test_fused_loss_rejects_bad_smoothing_and_foreign_devices():
     with pytest.raises(ValueError, match="not supported"):
         tce.fused_lm_head_cross_entropy(x.to("meta"), e.to("meta"),
                                         t.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# the wgmma backward's schedule (bf16 and fp16 on the card): tokens in
+# chunks whose gradient workspace G [T_c, V] fits G_WORKSPACE_BYTES; per
+# chunk g rounded once, dx_c = g E, and dE summed over the chunks in fp32
+# ---------------------------------------------------------------------------
+
+def test_bwd_chunk_planner_caps_the_workspace(monkeypatch):
+    cap = tce.G_WORKSPACE_BYTES
+    assert cap == 256 << 20
+    # the GPT step: two chunks of 4096 tokens, 256 MiB of G each
+    assert tce.bwd_chunk_tokens(8192, 32768) == 4096
+    assert 4096 * 32768 * 2 <= cap
+    # V 50257: rows of 50264 (16-byte aligned), 2560 tokens (a multiple of
+    # 128) fit, 2688 would not
+    assert tce.bwd_chunk_tokens(8192, 50257) == 2560
+    assert 2560 * 50264 * 2 <= cap < 2688 * 50264 * 2
+    # ragged n: no more than n rounded up to a tile
+    assert tce.bwd_chunk_tokens(1000, 32768) == 1024
+    assert tce.bwd_chunk_tokens(1, 1000) == 128
+    # a lowered cap forces more chunks, never fewer than 128 tokens
+    monkeypatch.setattr(tce, "G_WORKSPACE_BYTES", 300 * 1024 * 2)
+    assert tce.bwd_chunk_tokens(1000, 1024) == 256
+    assert -(-1000 // tce.bwd_chunk_tokens(1000, 1024)) == 4
+    monkeypatch.setattr(tce, "G_WORKSPACE_BYTES", 1)
+    assert tce.bwd_chunk_tokens(1000, 1024) == 128
+
+
+def test_vocab_slices_fill_two_waves():
+    # 64 token tiles x 4 slices = 256 blocks on 132 SMs
+    assert tce.vocab_slices(8192, 32768, 132) == 4
+    assert tce.vocab_slices(1000, 32768, 132) == 8      # capped at 8
+    assert tce.vocab_slices(8192, 100, 132) == 1        # one vocab tile
+    assert tce.vocab_slices(65536, 32768, 132) == 1
+
+
+def _bwd_chunked(x2d, e, tgt, m, l, dloss, label_smoothing, chunk):
+    """The wgmma backward's schedule (csrc/lm_head_ce_sm90.cu) in plain
+    torch: per chunk of ``chunk`` tokens the fp32 logits, g rounded once
+    to ``x2d.dtype``, ``dx_c = g E`` cast once, and ``dE`` summed over the
+    chunks in fp32 and cast once to ``e.dtype``."""
+    n, V = x2d.shape[0], e.shape[0]
+    dx = torch.empty_like(x2d)
+    de = torch.zeros(e.shape, dtype=torch.float32)
+    cols = torch.arange(V)
+    for r0 in range(0, n, chunk):
+        xc = x2d[r0:r0 + chunk].float()
+        s = xc @ e.float().t()
+        p = torch.exp(s - m[r0:r0 + chunk, None]) / l[r0:r0 + chunk, None]
+        hit = (tgt[r0:r0 + chunk].long()[:, None] == cols[None, :]).float()
+        target = ((1.0 - label_smoothing) * hit + label_smoothing / V
+                  if label_smoothing > 0.0 else hit)
+        g = ((p - target) * dloss[r0:r0 + chunk].float()[:, None]).to(
+            x2d.dtype).float()
+        dx[r0:r0 + chunk] = (g @ e.float()).to(x2d.dtype)
+        de += g.t() @ xc
+    return dx, de.to(e.dtype)
+
+
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunked_backward_matches_plain_and_jax(dtype, smoothing):
+    """The three-product schedule in plain torch at three chunks (16, 16, 8
+    of the 40 tokens) against the plain one-pass backward (the same g,
+    rounded once: dx bitwise; dE within 1e-6 of the largest, plus one bf16
+    ulp of it for bf16 — fp32 sums over chunks in another order, then one
+    rounding) and against the JAX fused loss's gradient in interpret mode
+    (the tolerances above)."""
+    x, e, tgt, w = _inputs(3, dtype)
+    tx, te = _torch(x, dtype), _torch(e, dtype)
+    tt, tw = torch.from_numpy(tgt), torch.from_numpy(w)
+    m, l, _, _ = tce.lm_head_ce_fwd_reference(tx, te, tt)
+    dx, de = _bwd_chunked(tx, te, tt, m, l, tw, smoothing, chunk=16)
+    rx, re = tce.lm_head_ce_bwd_reference(tx, te, tt, m, l, tw, smoothing)
+    assert dx.dtype == tx.dtype and de.dtype == te.dtype
+    assert torch.equal(dx, rx)
+    np.testing.assert_allclose(de.float().numpy(), re.float().numpy(),
+                               atol=1e-6 * float(re.float().abs().max())
+                               + (2.0 ** -8 * float(re.float().abs().max())
+                                  if dtype == "bfloat16" else 0.0), rtol=0)
+
+    def jloss(xx, ee):
+        loss = jce.fused_lm_head_cross_entropy(
+            xx, ee, jnp.asarray(tgt), smoothing, block_t=16, block_v=128,
+            interpret=True, autotune="off")
+        return jnp.sum(loss * jnp.asarray(w))
+
+    jdx, jde = jax.grad(jloss, argnums=(0, 1))(_jax(x, dtype), _jax(e, dtype))
+    _close(dx.float().numpy(), jdx, dtype)
+    _close(de.float().numpy(), jde, dtype)

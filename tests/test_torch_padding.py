@@ -3,11 +3,13 @@ pad-and-slice helper, run with the plain version as the inner function,
 gives the unpadded plain result bit for bit.
 
 - flash attention: the head dim padded to the kernels' next instantiation
-  (``kernel_head_dim``: 80 and 96 -> 128, 48 -> 64, 200 -> 256), forward
-  and backward, with the caller's scale;
-- the LM-head CE: the hidden size padded to the kernels' chunk multiple
-  (``hidden_chunks``: 100 -> 128, 1600 -> 1664 in bf16 and 1792 in fp32),
-  forward statistics and both gradients;
+  (``kernel_head_dim``: 80 and 96 -> 128, 48 -> 64, 200 -> 256, 320 ->
+  512), forward and backward, with the caller's scale;
+- the LM-head CE: the hidden size padded to what the kernels take
+  (in bf16 ``wgmma_hidden``, a multiple of 8, 100 -> 104, for TMA's
+  16-byte rows; in fp32 ``hidden_chunks``, the SIMT kernels' chunk
+  multiple, 100 -> 128, 1600 -> 1792), forward statistics and both
+  gradients;
 - the fp8 dequant-matmul: K and N padded to multiples of 16
   (``with_padded_kn``), K = N = 1000 -> 1008.
 
@@ -36,12 +38,12 @@ def _dyadic(rng, *shape, scale=8, lo=-8, hi=9):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [48, 80, 96, 200])
+@pytest.mark.parametrize("d", [48, 80, 96, 200, 320])
 def test_flash_head_dim_padding_is_exact(dtype, d):
     rng = np.random.RandomState(d)
     q, k, v, do, o = (_dyadic(rng, 2, 3, 37, d).to(dtype) for _ in range(5))
     dp = fa.kernel_head_dim(d)
-    assert dp > d and dp in (64, 128, 256)
+    assert dp > d and dp in (64, 128, 256, 512)
     scale = d ** -0.5
 
     def fwd(q, k, v):
@@ -67,10 +69,10 @@ def test_flash_head_dim_padding_is_exact(dtype, d):
 
 def test_kernel_head_dim_steps_and_limit():
     assert [fa.kernel_head_dim(d) for d in (8, 32, 33, 64, 65, 128, 129,
-                                            256)] == [32, 32, 64, 64, 128,
-                                                      128, 256, 256]
-    with pytest.raises(ValueError, match="head dim 257"):
-        fa.kernel_head_dim(257)
+                                            256, 257, 512)] == [
+        32, 32, 64, 64, 128, 128, 256, 256, 512, 512]
+    with pytest.raises(ValueError, match="head dim 513"):
+        fa.kernel_head_dim(513)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -81,9 +83,13 @@ def test_lm_head_hidden_padding_is_exact(dtype, h):
     x = _dyadic(rng, n, h).to(dtype)
     e = _dyadic(rng, V, h, scale=64).to(dtype)
     tgt = torch.from_numpy(rng.randint(0, V, n).astype(np.int32))
-    hp, kc = ce.hidden_chunks(h, dtype)
-    assert hp % kc == 0 and kc % 64 == 0 and hp >= h
-    assert kc <= (512 if dtype == torch.float32 else 1024)
+    if dtype == torch.float32:
+        hp, kc = ce.hidden_chunks(h)
+        assert hp % kc == 0 and hp >= h
+        assert kc % 64 == 0 and kc <= 512
+    else:
+        hp = ce.wgmma_hidden(h)
+        assert hp % 8 == 0 and 0 <= hp - h < 8
 
     def fwd(x, e):
         return ce.lm_head_ce_fwd_reference(x, e, tgt, True)
@@ -106,13 +112,16 @@ def test_lm_head_hidden_padding_is_exact(dtype, h):
 
 
 def test_hidden_chunks_choose_fewest_chunks_then_least_padding():
-    bf, f32 = torch.bfloat16, torch.float32
-    assert ce.hidden_chunks(64, bf) == (64, 64)
-    assert ce.hidden_chunks(1024, bf) == (1024, 1024)
-    assert ce.hidden_chunks(1536, bf) == (1536, 768)
-    assert ce.hidden_chunks(1600, bf) == (1664, 832)
-    assert ce.hidden_chunks(2048, bf) == (2048, 1024)
-    assert ce.hidden_chunks(1024, f32) == (1024, 512)
+    # 16-bit operands (the wgmma route): no chunks, h rounded up to 8
+    assert [ce.wgmma_hidden(h) for h in (64, 100, 1600, 1601)] == [
+        64, 104, 1600, 1608]
+    # fp32 (the SIMT route): the fewest chunks of at most 512, then the
+    # least padding
+    assert ce.hidden_chunks(64) == (64, 64)
+    assert ce.hidden_chunks(1024) == (1024, 512)
+    assert ce.hidden_chunks(1536) == (1536, 512)
+    assert ce.hidden_chunks(1600) == (1792, 448)
+    assert ce.hidden_chunks(2048) == (2048, 512)
 
 
 @pytest.mark.parametrize("m,K,N", [(8, 1000, 1000), (5, 40, 24),
