@@ -11,12 +11,16 @@ Port of ``apex_tpu/ops/flash_attention.py``:
   :func:`flash_attention_bwd_reference` (the JAX ``_bwd_math``). The
   additive bias runs through the plain version on the CPU and raises on
   CUDA; in-kernel dropout is not ported yet. Past the JAX package's 2 MB
-  VMEM gate the backward is its two-kernel split: ``flash_dkdv_kernel``
-  and ``flash_dq_kernel`` of the same source replace ``_dkdv_kernel``
-  (``:558``) and ``_dq_kernel`` (``:671``). :func:`uses_split_backward`
-  is the gate, computed as the JAX package computes it at its default
-  backward blocks, so the two packages route the same shapes the same
-  way; the plain backward is the same function either way.
+  VMEM gate the backward is its two-kernel split, which replaces
+  ``_dkdv_kernel`` (``:558``) and ``_dq_kernel`` (``:671``) by one of two
+  routes, chosen by :func:`split_route` from the dtype and the kernel head
+  dim alone: ``flash_dkdv_sm90`` and ``flash_dq_sm90`` of
+  ``csrc/flash_bwd_sm90.cu`` (wgmma/TMA; bf16 and fp16 at head dims 64
+  and 128), else ``flash_dkdv_kernel`` and ``flash_dq_kernel`` of
+  ``csrc/flash_bwd.cu``. :func:`uses_split_backward` is the gate,
+  computed as the JAX package computes it at its default backward
+  blocks, so the two packages route the same shapes the same way; the
+  plain backward is the same function either way.
 - :func:`paged_decode_attention` — one query per sequence over the paged KV
   pool. On CUDA it launches ``csrc/paged_decode.cu``, which replaces the
   Pallas ``_paged_decode_kernel`` (``:986``) in both its modes: a bf16
@@ -50,9 +54,11 @@ the sequence ends (``causal_offset = sk - sq``).
 
 ``flash_attention.launches`` (forward), ``flash_attention_bwd.launches``
 (the single-pass backward), ``flash_attention_bwd.dkdv_launches`` and
-``.dq_launches`` (the split), ``paged_decode_attention.launches`` (bf16
-pool) and ``paged_decode_attention.fp8_launches`` (e4m3 pool) count kernel
-launches (the CPU path does not count).
+``.dq_launches`` (the split, either route),
+``flash_attention_bwd.wgmma_dkdv_launches`` and ``.wgmma_dq_launches``
+(the split's wgmma route alone), ``paged_decode_attention.launches``
+(bf16 pool) and ``paged_decode_attention.fp8_launches`` (e4m3 pool) count
+kernel launches (the CPU path does not count).
 """
 
 from __future__ import annotations
@@ -124,6 +130,19 @@ def mha_reference(q, k, v, *, causal=False, segment_ids_q=None,
     return out
 
 
+def _bwd_probs(q, k, lse, causal, segment_ids_q, segment_ids_kv, scale):
+    """The backward's fp32 probabilities p = exp(s * scale - lse), zero
+    where the mask is false."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    mask = _attention_mask(q.shape[2], k.shape[2], q.device, causal,
+                           segment_ids_q, segment_ids_kv)
+    if mask is None:
+        return torch.exp(s - lse[..., None])
+    s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
+    return torch.where(mask, torch.exp(s - lse[..., None]),
+                       torch.zeros_like(s))
+
+
 def flash_attention_bwd_reference(q, k, v, out, lse, do, *, causal=False,
                                   segment_ids_q=None, segment_ids_kv=None,
                                   scale=None):
@@ -132,15 +151,7 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, *, causal=False,
     ``(dq, dk, dv)`` in the input dtypes."""
     d = q.shape[-1]
     scale = d ** -0.5 if scale is None else scale
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    mask = _attention_mask(q.shape[2], k.shape[2], q.device, causal,
-                           segment_ids_q, segment_ids_kv)
-    if mask is None:
-        p = torch.exp(s - lse[..., None])
-    else:
-        s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
-        p = torch.where(mask, torch.exp(s - lse[..., None]),
-                        torch.zeros_like(s))
+    p = _bwd_probs(q, k, lse, causal, segment_ids_q, segment_ids_kv, scale)
     do32 = do.float()
     dv = torch.einsum("bhqk,bhqd->bhkd", p, do32)
     dp = torch.einsum("bhqd,bhkd->bhqk", do32, v.float())
@@ -149,6 +160,39 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, *, causal=False,
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_dq_reference(q, k, v, out, lse, do, *, causal=False,
+                           segment_ids_q=None, segment_ids_kv=None,
+                           scale=None):
+    """Plain version of the split's dq kernel with the delta fold (the
+    wgmma route's ``flash_dq_sm90``): ``(dq, delta)``, delta = rowsum(do *
+    out) fp32 [b, h, sq], computed from the forward's output as the kernel
+    computes it for its own rows, then dq = (p * (dp - delta)) k * scale
+    in fp32, in q's dtype."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    delta = (do.float() * out.float()).sum(dim=-1)
+    p = _bwd_probs(q, k, lse, causal, segment_ids_q, segment_ids_kv, scale)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
+    return dq.to(q.dtype), delta
+
+
+def flash_bwd_dkdv_reference(q, k, v, lse, delta, do, *, causal=False,
+                             segment_ids_q=None, segment_ids_kv=None,
+                             scale=None):
+    """Plain version of the split's dk/dv kernel: ``(dk, dv)`` from the
+    forward's ``lse`` and ``delta`` [b, h, sq] (the dq kernel's, on the
+    wgmma route), fp32 math, in k's and v's dtypes."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    p = _bwd_probs(q, k, lse, causal, segment_ids_q, segment_ids_kv, scale)
+    do32 = do.float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do32)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do32, v.float())
+    ds = p * (dp - delta[..., None]) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def paged_attention_reference(q, k_pages, v_pages, block_tables, seq_lens,
@@ -381,6 +425,28 @@ _FLASH_DKDV_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _FLASH_DQ_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# the wgmma route's apex_flash_bwd_sm90_dkdv: the same arguments without
+# ``rounds`` (it takes no mixed operands); apex_flash_bwd_sm90_dq(...,
+# sid_kv, dq, out, b, ...) also takes the forward's output (the delta fold)
+_SM90_DKDV_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_SM90_DQ_ARGS = _SM90_DKDV_ARGS
+
+# the split's wgmma route (csrc/flash_bwd_sm90.cu): its dtypes and kernel
+# head dims
+_SM90_DTYPES = (torch.bfloat16, torch.float16)
+_SM90_HEAD_DIMS = (64, 128)
+
+
+def split_route(dtype: torch.dtype, kd: int) -> str:
+    """The source whose kernels run the two-kernel split for operands of
+    ``dtype`` (after promotion) at kernel head dim ``kd``
+    (:func:`kernel_head_dim`): ``"flash_bwd_sm90"`` (wgmma/TMA) for bf16
+    and fp16 at 64 and 128, ``"flash_bwd"`` for everything else (fp32, so
+    mixed operands too; head dims 32, 256 and 512)."""
+    if dtype in _SM90_DTYPES and kd in _SM90_HEAD_DIMS:
+        return "flash_bwd_sm90"
+    return "flash_bwd"
 
 
 def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
@@ -412,9 +478,6 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
         _check_cuda_operands(what, (("segment_ids_q", segment_ids_q),
                                     ("segment_ids_kv", segment_ids_kv)),
                              torch.int32, q.device)
-    # delta = rowsum(do * o) in fp32, outside the kernels as in the JAX
-    # package (_flash_bwd_impl)
-    delta = (do.float() * out.float()).sum(dim=-1)
     if split is None:
         split = uses_split_backward(sq, sk, d, k.element_size(),
                                     v.element_size(), causal)
@@ -427,11 +490,24 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
         (q, k, v, do), dtype = _promoted(q, k, v, do)
     else:
         dtype = q.dtype
+    # delta = rowsum(do * o) in fp32: outside the kernels as in the JAX
+    # package (_flash_bwd_impl), except on the split's wgmma route, whose dq
+    # kernel computes it for its own rows (launched first: the delta fold)
+    fold = (split and split_route(dtype, dp) == "flash_bwd_sm90"
+            and out.dtype == dtype)
+    delta = None if fold else (do.float() * out.float()).sum(dim=-1)
 
-    def launch(q, k, v, do):
+    def launch(q, k, v, do, out=None):
         if split:
-            args = (q, k, v, do, lse, delta, segment_ids_q, segment_ids_kv,
+            dl = delta
+            if fold:
+                dl = torch.empty((b, h, sq), dtype=torch.float32,
+                                 device=q.device)
+            args = (q, k, v, do, lse, dl, segment_ids_q, segment_ids_kv,
                     causal, scale, rounds)
+            if fold:
+                dq = _flash_dq_cuda(*args, out=out)
+                return (dq, *_flash_dkdv_cuda(*args))
             dk, dv = _flash_dkdv_cuda(*args)
             return _flash_dq_cuda(*args), dk, dv
         dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
@@ -449,8 +525,8 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
         flash_attention_bwd.launches += 1
         return dq_acc.to(q.dtype), dk, dv
 
-    grads = with_padded_last_dim(launch, dp, (q, k, v, do),
-                                 sliced=(0, 1, 2))
+    grads = with_padded_last_dim(launch, dp, (q, k, v, do, out) if fold
+                                 else (q, k, v, do), sliced=(0, 1, 2))
     if not mixed:
         return grads
     return tuple(g.to(dt) for g, dt in zip(grads, dtypes))
@@ -458,11 +534,17 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
 
 def _split_operands(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
                     rounds):
+    """``(route, operands, tail)`` of a split kernel's C call: the route
+    (:func:`split_route`), the eight input pointers, and the sizes, flags
+    and stream after the output pointers."""
     b, h, sq, d = q.shape
-    return ((_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
-             _ptr(sid_q), _ptr(sid_kv)),
-            (b, h, sq, k.shape[2], d, int(bool(causal)), float(scale),
-             DTYPE_CODES[q.dtype], rounds, _stream(q)))
+    route = split_route(q.dtype, d)
+    tail = (b, h, sq, k.shape[2], d, int(bool(causal)), float(scale),
+            DTYPE_CODES[q.dtype])
+    tail += (_stream(q),) if route == "flash_bwd_sm90" else (rounds,
+                                                             _stream(q))
+    return route, (_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse),
+                   _ptr(delta), _ptr(sid_q), _ptr(sid_kv)), tail
 
 
 def _flash_dkdv_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
@@ -470,30 +552,75 @@ def _flash_dkdv_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
     """The split's dk/dv kernel on operands ``_flash_bwd_cuda`` checked and
     promoted; ``delta`` = rowsum(do * out) fp32 [b, h, sq]."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    operands, tail = _split_operands(q, k, v, do, lse, delta, sid_q, sid_kv,
-                                     causal, scale, rounds)
-    fn = _build.function(_build.dtype_target(
-        "flash_bwd", DTYPE_CODES[q.dtype]), "apex_flash_bwd_dkdv",
-        _FLASH_DKDV_ARGS)
+    route, operands, tail = _split_operands(q, k, v, do, lse, delta, sid_q,
+                                            sid_kv, causal, scale, rounds)
+    sm90 = route == "flash_bwd_sm90"
+    fn = _build.function(
+        _build.dtype_target(route, DTYPE_CODES[q.dtype]),
+        "apex_flash_bwd_sm90_dkdv" if sm90 else "apex_flash_bwd_dkdv",
+        _SM90_DKDV_ARGS if sm90 else _FLASH_DKDV_ARGS)
     _build.check(fn(*operands, _ptr(dk), _ptr(dv), *tail),
                  "flash_attention_bwd dk/dv kernel")
     flash_attention_bwd.dkdv_launches += 1
+    if sm90:
+        flash_attention_bwd.wgmma_dkdv_launches += 1
     return dk, dv
 
 
 def _flash_dq_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
-                   rounds):
-    """The split's dq kernel, as :func:`_flash_dkdv_cuda`."""
+                   rounds, out=None):
+    """The split's dq kernel, as :func:`_flash_dkdv_cuda`. With ``out``
+    (the forward's output, q's dtype; the wgmma route only) the kernel
+    computes delta itself and writes it into ``delta``."""
     dq = torch.empty_like(q)
-    operands, tail = _split_operands(q, k, v, do, lse, delta, sid_q, sid_kv,
-                                     causal, scale, rounds)
-    fn = _build.function(_build.dtype_target(
-        "flash_bwd", DTYPE_CODES[q.dtype]), "apex_flash_bwd_dq",
-        _FLASH_DQ_ARGS)
-    _build.check(fn(*operands, _ptr(dq), *tail),
+    route, operands, tail = _split_operands(q, k, v, do, lse, delta, sid_q,
+                                            sid_kv, causal, scale, rounds)
+    sm90 = route == "flash_bwd_sm90"
+    _require(out is None or (sm90 and out.dtype == q.dtype
+                             and out.shape == q.shape
+                             and out.is_contiguous()),
+             "flash_attention_bwd dq kernel",
+             "the delta fold takes the wgmma route's operands and an "
+             "output of q's dtype and shape")
+    fn = _build.function(
+        _build.dtype_target(route, DTYPE_CODES[q.dtype]),
+        "apex_flash_bwd_sm90_dq" if sm90 else "apex_flash_bwd_dq",
+        _SM90_DQ_ARGS if sm90 else _FLASH_DQ_ARGS)
+    outs = (_ptr(dq), _ptr(out)) if sm90 else (_ptr(dq),)
+    _build.check(fn(*operands, *outs, *tail),
                  "flash_attention_bwd dq kernel")
     flash_attention_bwd.dq_launches += 1
+    if sm90:
+        flash_attention_bwd.wgmma_dq_launches += 1
     return dq
+
+
+# apex_wgmma_rs_probe(a, b, c, n, k, b_mn, dtype, stream)
+_RS_PROBE_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+    ctypes.c_void_p]
+
+
+def wgmma_rs_probe(a: torch.Tensor, b: torch.Tensor,
+                   b_mn: bool) -> torch.Tensor:
+    """The register-A product of ``csrc/wgmma_attn.cuh`` alone, for the
+    card test of its descriptors: fp32 [64, n] = ``a`` [64, k] times B,
+    where ``b`` is B^T [n, k] (K-major) or, with ``b_mn``, B [k, n]
+    (MN-major); bf16 or fp16, n and k each 64 or 128. A is loaded into the
+    m64k16 register fragments, B by one TMA."""
+    what = "wgmma_rs_probe"
+    n, k = (b.shape[1], b.shape[0]) if b_mn else tuple(b.shape)
+    _require(a.shape == (64, k) and n in (64, 128) and k in (64, 128), what,
+             f"a {tuple(a.shape)} / b {tuple(b.shape)}: want a [64, k] and "
+             "n, k in (64, 128)")
+    _check_cuda_operands(what, (("a", a), ("b", b)), a.dtype, a.device)
+    _require(a.dtype in _SM90_DTYPES, what, "takes bfloat16 or float16")
+    c = torch.empty((64, n), dtype=torch.float32, device=a.device)
+    fn = _build.function(_build.dtype_target(
+        "flash_bwd_sm90", DTYPE_CODES[a.dtype]), "apex_wgmma_rs_probe",
+        _RS_PROBE_ARGS)
+    _build.check(fn(_ptr(a), _ptr(b), _ptr(c), n, k, int(bool(b_mn)),
+                    DTYPE_CODES[a.dtype], _stream(a)), what)
+    return c
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, segment_ids_q=None,
@@ -518,6 +645,8 @@ def flash_attention_bwd(q, k, v, out, lse, do, segment_ids_q=None,
 flash_attention_bwd.launches = 0
 flash_attention_bwd.dkdv_launches = 0
 flash_attention_bwd.dq_launches = 0
+flash_attention_bwd.wgmma_dkdv_launches = 0
+flash_attention_bwd.wgmma_dq_launches = 0
 
 
 class FlashAttentionFunction(torch.autograd.Function):

@@ -12,13 +12,15 @@ Each kernel is called through its public wrapper (the same calls in every
 version since the wrappers' first slice): flash forward and the
 single-pass backward at b8 h16 s1024 d64 causal (the GPT train step) and
 at b2 h8 s1024 d256 (the largest head dim every version runs), the split
-backward at b2 h16 s4096, paged decode over the serve path's batch (bf16
-and e4m3 pools), the LM-head CE forward and backward at n8192 V32768
-h1024 in bf16 and fp16, the fp8 matmul at decode qkv (m8 K1024 N3072).
-Times are
-medians of CUDA-event pairs around single launches, the L2 flushed before
-each; the result is one JSON object (also written to ``--out``) with the
-card's name and power limit.
+backward at b2 h16 s4096 as called (delta included) and its two kernels
+apart (``_flash_dkdv_cuda`` and ``_flash_dq_cuda`` on a given delta, the
+calls every version since the split's first slice takes), paged decode
+over the serve path's batch (bf16 and e4m3 pools), the LM-head CE forward
+and backward at n8192 V32768 h1024 in bf16 and fp16, the fp8 matmul at
+decode qkv (m8 K1024 N3072). Times are medians of CUDA-event pairs
+around single launches, the L2 flushed before each; the result is one
+JSON object (also written to ``--out``) with the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -99,6 +101,16 @@ def main() -> int:
     res["flash_bwd split b2 s4096"] = timed(
         lambda: fa._flash_bwd_cuda(q, k, v, out, lse, do, None, None, True,
                                    0.125, split=True), iters=10)
+    delta = (do.float() * out.float()).sum(dim=-1)
+    split_args = (q, k, v, do, lse, delta, None, None, True, 0.125,
+                  fa._mixed_rounds(q, k, do))
+    res["flash_bwd dkdv b2 s4096"] = timed(
+        lambda: fa._flash_dkdv_cuda(*split_args), iters=10)
+    res["flash_bwd dq b2 s4096"] = timed(
+        lambda: fa._flash_dq_cuda(*split_args), iters=10)
+    res["flash_bwd delta pass b2 s4096"] = timed(
+        lambda: (do.float() * out.float()).sum(dim=-1), iters=10)
+    del delta, split_args
     del q, k, v, do, out, lse
 
     kv, page, d, num_pages, m = 16, 128, 64, 72, 8

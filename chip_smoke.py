@@ -11,8 +11,9 @@ Phases (any failure exits non-zero; no phase's error is caught):
 
 1. set-up — build the CUDA kernels from ``apex_tpu_torch/csrc`` (one
    ``nvcc`` per source and dtype, started together), count the ``HGMMA``
-   instructions in the wgmma LM-head CE libraries (``cuobjdump -sass``;
-   none fails), turn TF32 off, print the card's name and power limit; the
+   instructions in the wgmma libraries, the LM-head CE's and the split
+   flash backward's (``cuobjdump -sass``; none fails), turn TF32 off, print
+   the card's name and power limit; the
    fp8 codec's e4m3 cast and scale on the card against the CPU's,
    bitwise;
 2. kernels — each kernel's wrapper at its main path's shapes against its
@@ -55,7 +56,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
    b2 s4096 (``bench.py``'s ``_bench_gpt_long_seq``), where the flash
    backward takes its two-kernel split: a warm-up step, then 4 timed steps
    with the counters reset just before; asserts finite losses and per
-   step 12 dk/dv and 12 dq launches and no single-pass one; traced;
+   step 12 dq and 12 dk/dv launches, every one on the wgmma route
+   (``csrc/flash_bwd_sm90.cu``), and no single-pass one; traced;
 10. ResNet-50 path — ``bench.py``'s ``_build_step`` at b256 224x224: O2
     (bf16 convs, fp32 batch norms and statistics, fp32 masters),
     ``FusedSGD(lr=0.1, momentum=0.9, weight_decay=1e-4)``, the mean of
@@ -95,7 +97,10 @@ Phases (any failure exits non-zero; no phase's error is caught):
 16. O0 path — the GPT at full width with 2 layers in fp32 (b8 s1024): the
     loss and every gradient through the kernels (fp32 flash, LayerNorm and
     LM-head CE) against ``GPT.loss(reference=True)``, then 3 counted
-    ``FusedAdam`` steps through ``amp.make_train_step`` at O0.
+    ``FusedAdam`` steps through ``amp.make_train_step`` at O0;
+17. O0 long path — the same 2-layer fp32 GPT at b2 s4096, past the
+    flash backward's gate: a warm-up and 2 counted O0 steps, every split
+    launch on ``csrc/flash_bwd.cu``'s route (fp32 takes no wgmma).
 
 The kernel phase also holds the shapes and dtypes ROADMAP §C records as
 repaired against the plain versions: flash forward and backward (single
@@ -113,7 +118,14 @@ bottleneck, N 32) within two bf16 ulps plus 2^-5 of its plain version and
 bitwise (mul, max, where, iota_cmp_where) or within 2 ulps (exp, exp2).
 
 It holds B13 bitwise against its plain version in five modes and under a
-set skip flag, at the GPT's 185,759,744 parameters and a ragged n.
+set skip flag, at the GPT's 185,759,744 parameters and a ragged n. The
+split flash backward (B3, B4) is held on both routes: the wgmma route
+(bf16, b2 h16 s4096 d64 causal and a b1 h4 s2304 segment case) kernel by
+kernel against its plain versions (dq with the delta it folds in, dk/dv
+from that delta), as a pair against the plain backward and bitwise on a
+rerun, with each kernel's ``ptxas`` register count; flash_bwd.cu's route
+in fp32 at the same shape; both timed apart, and the split beside the
+single pass at b8 h16 s1024.
 
 The second-last line of standard output is the card as ``nvidia-smi``
 names it, the line before it the kernels' JSON record, and the last line
@@ -773,19 +785,57 @@ def check_lm_head_ce(torch, timer):
 SPLIT_B, SPLIT_H, SPLIT_S, SPLIT_D = 2, 16, 4096, 64
 
 
+def _split_counts(fa):
+    f = fa.flash_attention_bwd
+    return (f.launches, f.dkdv_launches, f.dq_launches,
+            f.wgmma_dkdv_launches, f.wgmma_dq_launches)
+
+
+def _split_moved(fa, before, wgmma: bool):
+    """The split ran once on the named route and the single pass not."""
+    moved = tuple(a - b for a, b in zip(_split_counts(fa), before))
+    return moved == ((0, 1, 1, 1, 1) if wgmma else (0, 1, 1, 0, 0))
+
+
+def _sm90_registers(build):
+    """``ptxas -v``'s register count of each kernel in the wgmma split's
+    libraries (before ``setmaxnreg``: the producer warpgroup gives up to 40
+    a thread and the two consumer warpgroups take 232)."""
+    import re
+    regs = {}
+    for target in build.targets(["flash_bwd_sm90"]):
+        name = None
+        for line in build.library_path(target).with_suffix(".log") \
+                .read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:     # e.g. ...15flash_dkdv_sm90I13__nv_bfloat16Li64EE...
+                k = re.search(r"(flash_dkdv_sm90|flash_dq_sm90)I\d+\w+?"
+                              r"Li(\d+)E", m.group(1))
+                name = f"{target} {k.group(1)} d{k.group(2)}" if k else None
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                regs[name] = int(m.group(1))
+    return regs
+
+
 def check_flash_split(torch, timer):
-    """The two-kernel backward (dk/dv, then dq) at the long-sequence GPT's
-    attention shape, b2 h16 s4096 d64 causal, where the JAX package's gate
-    sends it; a ragged shape with padding segment ids; each kernel timed
-    apart, the pair beside the single-pass backward forced at the same
-    shape."""
+    """The two-kernel backward (dq, then dk/dv on the wgmma route; dk/dv,
+    then dq on flash_bwd.cu's) at the long-sequence GPT's attention shape,
+    b2 h16 s4096 d64 causal, where the JAX package's gate sends it. The
+    wgmma route (bf16): each kernel against its plain version (dq and the
+    delta it folds in; dk and dv from that delta), the pair against the
+    plain backward, a bitwise rerun, a ragged shape with padding segment
+    ids; each kernel timed apart, the pair beside the single-pass
+    backward forced at the same shape, and beside B2 at b8 h16 s1024.
+    flash_bwd.cu's route at the O0 long path's shape (fp32): against the
+    plain backward, timed."""
     import torch.nn.functional as F
+    from apex_tpu_torch.ops import _build
     from apex_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(11)
 
-    def rand(*shape):
-        return torch.randn(*shape, generator=gen, device="cuda",
-                           dtype=torch.bfloat16)
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
 
     # past the gate with segment ids: padding rows get zero dq
     b, h, s, d, live = 1, 4, 2304, 64, 2000
@@ -794,13 +844,13 @@ def check_flash_split(torch, timer):
     sid = sid.to(torch.int32)[None].contiguous()
     check(fa.uses_split_backward(s, s, d, 2, 2, True), "gate at s2304")
     out, lse = fa.flash_attention_fwd(q, k, v, sid, None, True)
-    n0 = fa.flash_attention_bwd.dkdv_launches
+    n0 = _split_counts(fa)
     got = fa.flash_attention_bwd(q, k, v, out, lse, do, sid, None, True)
     ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
                                            causal=True, segment_ids_q=sid)
     torch.cuda.synchronize()
-    check(fa.flash_attention_bwd.dkdv_launches == n0 + 1,
-          "s2304 did not take the split")
+    check(_split_moved(fa, n0, True),
+          "s2304 did not take the split's wgmma route")
     for name, g, r in zip(("dq", "dk", "dv"), got, ref):
         grad_err(g, r, f"flash split segments {name}")
     check(got[0][:, :, live:].abs().max().item() == 0.0,
@@ -812,16 +862,18 @@ def check_flash_split(torch, timer):
     scale = d ** -0.5
     check(fa.uses_split_backward(s, s, d, 2, 2, True), "gate at s4096")
     out, lse = fa.flash_attention_fwd(q, k, v, None, None, True, scale)
-    counts = (fa.flash_attention_bwd.launches,
-              fa.flash_attention_bwd.dkdv_launches,
-              fa.flash_attention_bwd.dq_launches)
+    n0 = _split_counts(fa)
     got = fa.flash_attention_bwd(q, k, v, out, lse, do, None, None, True,
                                  scale)
     torch.cuda.synchronize()
-    check((fa.flash_attention_bwd.launches - counts[0],
-           fa.flash_attention_bwd.dkdv_launches - counts[1],
-           fa.flash_attention_bwd.dq_launches - counts[2]) == (0, 1, 1),
-          "s4096 did not route to the split")
+    check(_split_moved(fa, n0, True),
+          "s4096 did not route to the split's wgmma route")
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, None, None, True,
+                                   scale)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          "flash split: a rerun gave other bits")
+    del again
     ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
                                            causal=True, scale=scale)
     torch.cuda.synchronize()
@@ -833,11 +885,26 @@ def check_flash_split(torch, timer):
     single_err = max(grad_err(g, r, f"flash single pass s{s} {n}")
                      for n, g, r in zip(("dq", "dk", "dv"), single, ref))
     del got, ref, single
-    delta = (do.float() * out.float()).sum(dim=-1)
-    args = (q, k, v, do, lse, delta, None, None, True, scale,
-            fa._mixed_rounds(q, k, do))
+    # each kernel against its plain version: dq (with the delta it folds
+    # in: fp32 sums of the same exact products, 1e-5 of the largest) and
+    # dk/dv from that delta
+    rounds = fa._mixed_rounds(q, k, do)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device="cuda")
+    args = (q, k, v, do, lse, delta, None, None, True, scale, rounds)
+    dq = fa._flash_dq_cuda(*args, out=out)
+    dk, dv = fa._flash_dkdv_cuda(*args)
+    rdq, rdelta = fa.flash_bwd_dq_reference(q, k, v, out, lse, do,
+                                            causal=True, scale=scale)
+    rdk, rdv = fa.flash_bwd_dkdv_reference(q, k, v, lse, delta, do,
+                                           causal=True, scale=scale)
+    torch.cuda.synchronize()
+    delta_err = _fp32_err(delta, rdelta, "flash split delta fold", 1e-5)
+    dq_err = grad_err(dq, rdq, "flash split dq kernel")
+    dkdv_err = max(grad_err(dk, rdk, "flash split dk kernel"),
+                   grad_err(dv, rdv, "flash split dv kernel"))
+    del dq, dk, dv, rdq, rdelta, rdk, rdv
     dkdv_ms = timer(lambda: fa._flash_dkdv_cuda(*args), iters=10)
-    dq_ms = timer(lambda: fa._flash_dq_cuda(*args), iters=10)
+    dq_ms = timer(lambda: fa._flash_dq_cuda(*args, out=out), iters=10)
     split_ms = timer(lambda: fa._flash_bwd_cuda(
         q, k, v, out, lse, do, None, None, True, scale, split=True), iters=10)
     single_ms = timer(lambda: fa._flash_bwd_cuda(
@@ -850,30 +917,94 @@ def check_flash_split(torch, timer):
                                        scale=scale)), (q, k, v), do),
         iters=10)
     pairs = b * h * s * (s + 1) // 2
-    io = 4 * b * h * s * d * 2 + 2 * b * h * s * 4
-    dkdv_bound = bound(4 * 2.0 * d * pairs, io + 2 * b * h * s * d * 2)
-    dq_bound = bound(3 * 2.0 * d * pairs, io + b * h * s * d * 2)
-    single_bound = bound(5 * 2.0 * d * pairs, io + 3 * b * h * s * d * 2)
-    common = dict(
-        route="cuda", source="apex_tpu_torch/csrc/flash_bwd.cu",
+    # dk/dv reads q, k, v, do, lse, delta and writes dk, dv; dq reads q, k,
+    # v, do, o, lse and writes dq and delta
+    sd2 = b * h * s * d * 2
+    dkdv_bound = bound(4 * 2.0 * d * pairs, 6 * sd2 + 2 * b * h * s * 4)
+    dq_bound = bound(3 * 2.0 * d * pairs, 6 * sd2 + 2 * b * h * s * 4)
+    single_bound = bound(5 * 2.0 * d * pairs, 7 * sd2 + 2 * b * h * s * 4)
+    del q, k, v, do, out, lse, delta, args
+
+    # the split beside B2 at the s1024 train cell's shape (the single pass
+    # runs there), as data for B2's redesign
+    q, k, v, do = (rand(8, h, 1024, d) for _ in range(4))
+    out, lse = fa.flash_attention_fwd(q, k, v, None, None, True, scale)
+    b8 = dict(split_ms=timer(lambda: fa._flash_bwd_cuda(
+        q, k, v, out, lse, do, None, None, True, scale, split=True)),
+        single_pass_ms=timer(lambda: fa._flash_bwd_cuda(
+            q, k, v, out, lse, do, None, None, True, scale, split=False)))
+    del q, k, v, do, out, lse
+
+    # flash_bwd.cu's split at the O0 long path's shape (fp32)
+    q, k, v, do = (rand(b, h, s, d, dtype=torch.float32) for _ in range(4))
+    out, lse = fa.flash_attention_fwd(q, k, v, None, None, True, scale)
+    n0 = _split_counts(fa)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, None, None, True,
+                                 scale)
+    torch.cuda.synchronize()
+    check(_split_moved(fa, n0, False),
+          "fp32 s4096 did not take flash_bwd.cu's split")
+    ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                           causal=True, scale=scale)
+    torch.cuda.synchronize()
+    f32_errs = {n: _fp32_err(g, r, f"flash split fp32 {n}", FP32_GRAD_TOL)
+                for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
+    del got, ref
+    delta = (do * out).sum(dim=-1)
+    args = (q, k, v, do, lse, delta, None, None, True, scale,
+            fa._mixed_rounds(q, k, do))
+    f32_dkdv_ms = timer(lambda: fa._flash_dkdv_cuda(*args), iters=5)
+    f32_dq_ms = timer(lambda: fa._flash_dq_cuda(*args), iters=5)
+    f32_plain_ms = timer(lambda: fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, do, causal=True, scale=scale), iters=3, warmup=1)
+    f32_lib_ms = timer(_grad_of(torch, lambda a, b_, c: (
+        F.scaled_dot_product_attention(a, b_, c, is_causal=True,
+                                       scale=scale)), (q, k, v), do),
+        iters=5)
+    sd4 = 2 * sd2
+    f32_dkdv_bound = bound(4 * 2.0 * d * pairs, 6 * sd4 + 2 * b * h * s * 4,
+                           FP32_FLOPS_PER_S)
+    f32_dq_bound = bound(3 * 2.0 * d * pairs, 5 * sd4 + 2 * b * h * s * 4,
+                         FP32_FLOPS_PER_S)
+    del q, k, v, do, out, lse, delta, args
+
+    wgmma = dict(
+        route="cuda", source="apex_tpu_torch/csrc/flash_bwd_sm90.cu",
         shape=f"b{b} h{h} s{s} d{d} bf16 causal (also b1 h4 s2304 with "
               "segment ids, padding from 2000)",
-        tolerance="2 bf16 ulp + 2% of max, 1% relative norm",
+        tolerance="2 bf16 ulp + 2% of max, 1% relative norm; the folded "
+                  "delta 1e-5 of max; a rerun bitwise",
         plain_ms=plain_ms, library_ms=lib_ms,
         plain="flash_attention_bwd_reference: dq, dk and dv together",
         library="backward of F.scaled_dot_product_attention(is_causal="
                 "True): dq, dk and dv together",
         split_ms=split_ms, single_pass_ms=single_ms,
-        single_pass_bound_ms=single_bound[0], single_pass_max_abs_err=
-        single_err)
+        single_pass_bound_ms=single_bound[0],
+        single_pass_max_abs_err=single_err, pair_max_abs_err=errs,
+        delta_fold_max_abs_err=delta_err, b8_s1024=b8,
+        registers=_sm90_registers(_build))
+    simt = dict(
+        route="cuda", source="apex_tpu_torch/csrc/flash_bwd.cu",
+        shape=f"b{b} h{h} s{s} d{d} fp32 causal (the O0 long path's)",
+        tolerance=f"{FP32_GRAD_TOL} of max and in relative norm",
+        plain_ms=f32_plain_ms, library_ms=f32_lib_ms,
+        plain="flash_attention_bwd_reference: dq, dk and dv together",
+        library="backward of F.scaled_dot_product_attention(is_causal="
+                "True), fp32: dq, dk and dv together")
     return [
+        dict(name="flash_bwd_dkdv_sm90", replaces="apex_tpu/ops/"
+             "flash_attention.py:558", max_abs_err=dkdv_err, ms=dkdv_ms,
+             bound_ms=dkdv_bound[0], bound_by=dkdv_bound[1], **wgmma),
+        dict(name="flash_bwd_dq_sm90", replaces="apex_tpu/ops/"
+             "flash_attention.py:671", max_abs_err=dq_err, ms=dq_ms,
+             bound_ms=dq_bound[0], bound_by=dq_bound[1], **wgmma),
         dict(name="flash_bwd_dkdv", replaces="apex_tpu/ops/flash_attention"
-             ".py:558", max_abs_err=max(errs["dk"], errs["dv"]),
-             ms=dkdv_ms, bound_ms=dkdv_bound[0], bound_by=dkdv_bound[1],
-             **common),
+             ".py:558", max_abs_err=max(f32_errs["dk"], f32_errs["dv"]),
+             ms=f32_dkdv_ms, bound_ms=f32_dkdv_bound[0],
+             bound_by=f32_dkdv_bound[1], **simt),
         dict(name="flash_bwd_dq", replaces="apex_tpu/ops/flash_attention.py"
-             ":671", max_abs_err=errs["dq"], ms=dq_ms, bound_ms=dq_bound[0],
-             bound_by=dq_bound[1], **common),
+             ":671", max_abs_err=f32_errs["dq"], ms=f32_dq_ms,
+             bound_ms=f32_dq_bound[0], bound_by=f32_dq_bound[1], **simt),
     ]
 
 
@@ -1111,7 +1242,10 @@ def make_engine(cfg, params, **kw):
 def counters():
     """Each kernel's launch counter as (wrapper, attribute): the fp8
     variant of paged decode counts apart from the bf16 kernel, the split
-    flash backward's two kernels apart from the single pass."""
+    flash backward's two kernels apart from the single pass, and the
+    split's wgmma route (``*_sm90``) apart from the pair as a whole
+    (``flash_bwd_dkdv``/``flash_bwd_dq``; :func:`read_counters` leaves
+    flash_bwd.cu's own launches there)."""
     from apex_tpu_torch.ops import flash_attention as fa
     from apex_tpu_torch.ops import fp8_matmul as mm
     from apex_tpu_torch.ops import fused_ce as xe
@@ -1131,6 +1265,10 @@ def counters():
             "fp8_matmul": (mm.fp8_dequant_matmul, "launches"),
             "flash_bwd_dkdv": (fa.flash_attention_bwd, "dkdv_launches"),
             "flash_bwd_dq": (fa.flash_attention_bwd, "dq_launches"),
+            "flash_bwd_dkdv_sm90": (fa.flash_attention_bwd,
+                                    "wgmma_dkdv_launches"),
+            "flash_bwd_dq_sm90": (fa.flash_attention_bwd,
+                                  "wgmma_dq_launches"),
             "xentropy_fwd": (xe.softmax_cross_entropy_with_smoothing,
                              "launches"),
             "xentropy_bwd": (xe.softmax_cross_entropy_with_smoothing,
@@ -1148,7 +1286,13 @@ def reset_counters():
 
 
 def read_counters():
-    return {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
+    """Launches by kernel since :func:`reset_counters`; the split's pair
+    counters less the wgmma route's, so that ``flash_bwd_dkdv`` and
+    ``flash_bwd_dq`` count flash_bwd.cu's kernels alone."""
+    out = {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
+    out["flash_bwd_dkdv"] -= out["flash_bwd_dkdv_sm90"]
+    out["flash_bwd_dq"] -= out["flash_bwd_dq_sm90"]
+    return out
 
 
 def serve_prompts(cfg):
@@ -1341,7 +1485,9 @@ TRAIN_PER_STEP = {"flash_fwd": 12, "flash_bwd": 12, "layer_norm_fwd": 25,
                   "layer_norm_bwd": 25, "lm_head_ce_fwd": 1,
                   "lm_head_ce_bwd": 1, "paged_decode": 0,
                   "paged_decode_fp8": 0, "fp8_matmul": 0,
-                  "flash_bwd_dkdv": 0, "flash_bwd_dq": 0, "xentropy_fwd": 0,
+                  "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
+                  "flash_bwd_dkdv_sm90": 0, "flash_bwd_dq_sm90": 0,
+                  "xentropy_fwd": 0,
                   "xentropy_bwd": 0, "multi_tensor_update": 0,
                   "multi_tensor_update_lamb": 0}
 
@@ -1513,8 +1659,10 @@ def overflow_check(torch, cfg, model, opt, state, sstate):
 # ---------------------------------------------------------------------------
 
 LONG_B, LONG_S, LONG_STEPS = 2, 4096, 4
-LONG_PER_STEP = {**TRAIN_PER_STEP, "flash_bwd": 0, "flash_bwd_dkdv": 12,
-                 "flash_bwd_dq": 12}
+# every split launch of the bf16 step takes the wgmma route
+LONG_PER_STEP = {**TRAIN_PER_STEP, "flash_bwd": 0, "flash_bwd_dkdv": 0,
+                 "flash_bwd_dq": 0, "flash_bwd_dkdv_sm90": 12,
+                 "flash_bwd_dq_sm90": 12}
 
 
 def run_long_seq_path(torch):
@@ -2284,6 +2432,53 @@ def run_o0_path(torch):
                 launches=launches)
 
 
+O0_LONG_S, O0_LONG_B, O0_LONG_STEPS = 4096, 2, 2
+# fp32 past the gate: the split on flash_bwd.cu's route
+O0_LONG_PER_STEP = {**O0_PER_STEP, "flash_bwd": 0,
+                    "flash_bwd_dkdv": O0_LAYERS, "flash_bwd_dq": O0_LAYERS}
+
+
+def run_o0_long_path(torch):
+    """The O0 GPT (2 layers at full width, fp32) at b2 s4096, past the
+    flash backward's gate: a warm-up, then 2 counted ``FusedAdam`` steps
+    through ``amp.make_train_step``, every split launch on flash_bwd.cu's
+    route (fp32 takes no wgmma)."""
+    import dataclasses
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models.gpt import GPT
+    from apex_tpu_torch.optimizers import FusedAdam
+    cfg = dataclasses.replace(gpt_config(max_seq_len=O0_LONG_S),
+                              num_layers=O0_LAYERS, dtype=torch.float32)
+    model = GPT.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cuda")
+    ids, labels = train_batch(torch, cfg, O0_LONG_B, O0_LONG_S)
+    amp_model, opt = amp.initialize(model, FusedAdam(lr=LR), opt_level="O0",
+                                    verbosity=0)
+    amp_model.cast_params()
+    state = opt.init(model.parameters())
+    step = amp.make_train_step(lambda m, i, l: m.loss(i, l), opt)
+    sstate = opt._scaler.state
+    _, state, sstate, _ = step(model, state, sstate, ids, labels)
+    torch.cuda.synchronize()
+    reset_counters()
+    losses, times = [], []
+    for _ in range(O0_LONG_STEPS):
+        t0 = time.perf_counter()
+        _, state, sstate, l_ = step(model, state, sstate, ids, labels)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(l_))
+    launches = read_counters()
+    check(all(np.isfinite(losses)), f"O0 s{O0_LONG_S} losses {losses}")
+    for k, per in O0_LONG_PER_STEP.items():
+        check(launches[k] == per * O0_LONG_STEPS,
+              f"O0 s{O0_LONG_S} {k}: {launches[k]} launches, expected "
+              f"{per * O0_LONG_STEPS}")
+    return dict(layers=O0_LAYERS, batch=O0_LONG_B, seq=O0_LONG_S,
+                dtype="float32", losses=losses, step_ms_all=times,
+                step_ms_median=float(np.median(times)), launches=launches)
+
+
 # ---------------------------------------------------------------------------
 # ZeRO-3 O2 training of the same GPT (world 1: one card), and tier 2 with
 # DistributedFusedLAMB
@@ -2613,7 +2808,8 @@ def run_dflamb_path(torch, cfg):
 
 
 _PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_kernel", "flash_dkdv_kernel",
-                 "flash_dq_kernel", "paged_decode_kernel",
+                 "flash_dq_kernel", "flash_dkdv_sm90", "flash_dq_sm90",
+                 "paged_decode_kernel",
                  "_ln_fwd_body", "_ln_bwd_body", "_ce_fwd_body",
                  "_ce_bwd_body", "ce_fwd_kernel",
                  "ce_bwd_de_kernel", "ce_bwd_dx_kernel", "FwdEpi", "GradEpi",
@@ -2714,10 +2910,11 @@ def trace(torch, cfg, params, path="serve"):
 
 def hgmma_counts(build):
     """``HGMMA`` instructions in the SASS of each wgmma library
-    (``cuobjdump -sass``): the LM-head CE's bf16/fp16 kernels run on the
-    tensor cores' warpgroup products or the check fails."""
+    (``cuobjdump -sass``): the LM-head CE's and the split flash
+    backward's bf16/fp16 kernels run on the tensor cores' warpgroup
+    products or the check fails."""
     out = {}
-    for name in build.targets(["lm_head_ce_sm90"]):
+    for name in build.targets(["lm_head_ce_sm90", "flash_bwd_sm90"]):
         sass = subprocess.run(
             [os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"),
              "-sass", str(build.library_path(name))], capture_output=True,
@@ -2745,9 +2942,9 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    sources = ["flash_fwd", "paged_decode", "flash_bwd", "lm_head_ce",
-               "lm_head_ce_sm90", "fp8_matmul", "multi_tensor_update",
-               "bottleneck", "vpu_probe"]
+    sources = ["flash_fwd", "paged_decode", "flash_bwd", "flash_bwd_sm90",
+               "lm_head_ce", "lm_head_ce_sm90", "fp8_matmul",
+               "multi_tensor_update", "bottleneck", "vpu_probe"]
     sources = _build.targets(sources)       # the dtype-split sources
     _build.build_all(sources)
     log(f"build: {time.perf_counter() - t0:.1f} s")
@@ -2756,8 +2953,8 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "setmaxnreg" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-    log("wgmma in the LM-head CE libraries: " + json.dumps(
-        hgmma_counts(_build)))
+    log("wgmma in the LM-head CE and split flash backward libraries: "
+        + json.dumps(hgmma_counts(_build)))
 
     log("e4m3 cast, card against CPU: " + json.dumps(check_e4m3_cast(torch)))
     timer = Timer(torch)
@@ -2776,7 +2973,8 @@ def main() -> int:
             f"bound {kr['bound_ms']:.4f} ({kr['bound_by']}) "
             f"library {kr['library_ms']}")
         for extra in ("device_launches_per_call", "split_ms",
-                      "single_pass_ms", "by_shape",
+                      "single_pass_ms", "b8_s1024", "registers",
+                      "delta_fold_max_abs_err", "by_shape",
                       "train_shape", "lamb_ms", "checked", "by_op",
                       "cudnn_composition_max_abs_err"):
             if extra in kr:
@@ -2876,7 +3074,8 @@ def main() -> int:
     for path, run in (("vpu-probe", run_probe_path),
                       ("bottleneck-b32", run_bottleneck_path),
                       ("spatial-bottleneck-b32", run_spatial_path),
-                      ("train-o0-gpt2", run_o0_path)):
+                      ("train-o0-gpt2", run_o0_path),
+                      (f"train-o0-gpt2-s{O0_LONG_S}", run_o0_long_path)):
         new_paths[path] = run(torch)
         log(f"{path} path ({card}): " + json.dumps(new_paths[path]))
         torch.cuda.empty_cache()

@@ -26,8 +26,10 @@ of the largest, dgamma/dbeta (fp32 sums over rows in another order) within
 are fp32 sums of the same exact products in another order: within 1e-4
 relative; its gradients round the same g tile to bf16 (a logit an fp32 ulp
 apart can flip one rounding), held like the flash gradients. The flash
-backward's two-kernel split (dk/dv, then dq without atomics) rounds at the
-same points as the single pass and is held the same way. The softmax
+backward's two-kernel split (dk/dv, then dq without atomics; on the wgmma
+route dq first, folding in delta) rounds at the same points as the single
+pass and is held the same way, bitwise on a rerun; the wgmma route's
+register-A product alone is held within 1e-5 of ``torch.matmul``. The softmax
 cross entropy's fp32 losses are within 1e-5 relative of the plain twin's,
 its gradients within two ulps of the logits' dtype plus 1e-6 of the
 largest. The fused multi-tensor optimizer update (B13) is bitwise its
@@ -297,20 +299,39 @@ def test_flash_autograd_runs_both_kernels(gen):
     assert q.grad is not None and k.grad.dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("b,h,sq,sk,d,causal,seg", [
-    (1, 1, 1, 1, 64, True, False),
-    (2, 3, 65, 65, 64, True, True),
-    (1, 2, 17, 200, 128, True, False),       # sq < sk: end-aligned causal
-    (1, 2, 130, 90, 64, True, True),         # sq > sk: rows with no key
-    (3, 2, 100, 100, 32, False, True),
-    (1, 2, 2049, 2049, 64, True, True),      # past the gate: routed split
+_BF, _F16 = torch.bfloat16, torch.float16
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,seg,dtype", [
+    (1, 1, 1, 1, 64, True, False, _BF),
+    (2, 3, 65, 65, 64, True, True, _BF),
+    (1, 2, 17, 200, 128, True, False, _BF),  # sq < sk: end-aligned causal
+    (1, 2, 130, 90, 64, True, True, _BF),    # sq > sk: rows with no key
+    (3, 2, 100, 100, 32, False, True, _BF),  # d 32: flash_bwd.cu's route
+    (1, 2, 2049, 2049, 64, True, True, _BF),  # past the gate: routed split
+    # the wgmma route's tile edges: 127/129 rows about its 64- and 128-row
+    # tiles, 4097 one past the s4096 cell, sq != sk both ways, d 64 and
+    # 128, fp16, segment ids with padding
+    (1, 2, 127, 127, 64, True, False, _BF),
+    (1, 2, 129, 129, 128, True, True, _BF),
+    (1, 2, 4097, 4097, 64, True, False, _BF),
+    (1, 1, 4097, 4097, 128, True, True, _F16),
+    (1, 2, 129, 300, 64, True, True, _BF),
+    (1, 2, 300, 129, 128, True, False, _BF),
+    (2, 2, 200, 77, 64, False, True, _F16),
+    (1, 3, 77, 200, 128, False, False, _F16),
+    (2, 2, 127, 129, 64, True, True, _F16),
+    (1, 2, 129, 127, 128, True, True, _F16),
 ])
-def test_flash_bwd_split_matches_plain(gen, b, h, sq, sk, d, causal, seg):
+def test_flash_bwd_split_matches_plain(gen, b, h, sq, sk, d, causal, seg,
+                                       dtype):
     """The dk/dv and dq kernels (the split is forced below the gate) against
-    the plain backward, held like the single pass."""
-    q, k, v = _rand(gen, b, h, sq, d), _rand(gen, b, h, sk, d), \
-        _rand(gen, b, h, sk, d)
-    do = _rand(gen, b, h, sq, d)
+    the plain backward, held like the single pass; the wgmma route's
+    counters move exactly where :func:`split_route` sends the shape."""
+    q, k, v = _rand(gen, b, h, sq, d, dtype=dtype), \
+        _rand(gen, b, h, sk, d, dtype=dtype), _rand(gen, b, h, sk, d,
+                                                     dtype=dtype)
+    do = _rand(gen, b, h, sq, d, dtype=dtype)
     sid_q = sid_kv = None
     if seg:
         rng = np.random.RandomState(b * sq + sk)
@@ -319,25 +340,87 @@ def test_flash_bwd_split_matches_plain(gen, b, h, sq, sk, d, causal, seg):
         sid_q = torch.from_numpy(sid_q.copy()).int().cuda()
         sid_kv = torch.from_numpy(sid_kv.copy()).int().cuda()
     out, lse = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal)
-    counts = (fa.flash_attention_bwd.launches,
-              fa.flash_attention_bwd.dkdv_launches,
-              fa.flash_attention_bwd.dq_launches)
+    f = fa.flash_attention_bwd
+    counts = (f.launches, f.dkdv_launches, f.dq_launches,
+              f.wgmma_dkdv_launches, f.wgmma_dq_launches)
     dq, dk, dv = fa._flash_bwd_cuda(q, k, v, out, lse, do, sid_q, sid_kv,
                                     causal, d ** -0.5, split=True)
     torch.cuda.synchronize()
-    assert (fa.flash_attention_bwd.launches,
-            fa.flash_attention_bwd.dkdv_launches,
-            fa.flash_attention_bwd.dq_launches) == (
-        counts[0], counts[1] + 1, counts[2] + 1)
+    wgmma = int(fa.split_route(dtype, fa.kernel_head_dim(d))
+                == "flash_bwd_sm90")
+    assert (f.launches, f.dkdv_launches, f.dq_launches,
+            f.wgmma_dkdv_launches, f.wgmma_dq_launches) == (
+        counts[0], counts[1] + 1, counts[2] + 1, counts[3] + wgmma,
+        counts[4] + wgmma)
     rq, rk, rv = fa.flash_attention_bwd_reference(
         q, k, v, out, lse, do, causal=causal, segment_ids_q=sid_q,
         segment_ids_kv=sid_kv)
     for name, got, ref in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
-        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        assert got.dtype == dtype and got.shape == ref.shape
         _close_grad(got, ref, name)
     if seg:
         pad = (sid_q < 0)[:, None, :].expand(b, h, sq)
         assert not bool(dq[pad].any())
+
+
+@pytest.mark.parametrize("d,dtype", [(64, _BF), (128, _F16), (80, _BF)])
+@pytest.mark.parametrize("seg", [False, True])
+def test_flash_bwd_split_wgmma_route_is_bitwise_on_a_rerun(gen, d, dtype,
+                                                          seg):
+    """No atomics on the wgmma route: two runs give the same dq, dk, dv
+    bits (d 80 runs zero-padded to 128), and its kernels hold against
+    their own plain versions: dq with the delta it folds in (fp32 sums of
+    the same products, 1e-5 of the largest), dk/dv from that delta."""
+    b, h, s = 2, 3, 777
+    q, k, v, do = (_rand(gen, b, h, s, d, dtype=dtype) for _ in range(4))
+    sid = None
+    if seg:
+        sid = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+        sid[:, 300:] = 1
+        sid[1, 700:] = -1
+    out, lse = fa.flash_attention_fwd(q, k, v, sid, None, True)
+    w0 = fa.flash_attention_bwd.wgmma_dq_launches
+    one = fa._flash_bwd_cuda(q, k, v, out, lse, do, sid, None, True,
+                             d ** -0.5, split=True)
+    two = fa._flash_bwd_cuda(q, k, v, out, lse, do, sid, None, True,
+                             d ** -0.5, split=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.wgmma_dq_launches == w0 + 2
+    for x, y in zip(one, two):
+        assert torch.equal(x, y)
+    if d in (64, 128):
+        delta = torch.empty(b, h, s, dtype=torch.float32, device="cuda")
+        args = (q, k, v, do, lse, delta, sid, sid, True, d ** -0.5, 0x2A)
+        dq = fa._flash_dq_cuda(*args, out=out)
+        dk, dv = fa._flash_dkdv_cuda(*args)
+        rdq, rdelta = fa.flash_bwd_dq_reference(
+            q, k, v, out, lse, do, causal=True, segment_ids_q=sid)
+        rdk, rdv = fa.flash_bwd_dkdv_reference(
+            q, k, v, lse, delta, do, causal=True, segment_ids_q=sid)
+        torch.cuda.synchronize()
+        assert float((delta - rdelta).abs().max()) <= \
+            1e-5 * float(rdelta.abs().max())
+        for name, got, ref in (("dq", dq, rdq), ("dk", dk, rdk),
+                               ("dv", dv, rdv)):
+            _close_grad(got, ref, name)
+        assert torch.equal(dq, one[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("n,k", [(64, 64), (64, 128), (128, 64),
+                                 (128, 128)])
+@pytest.mark.parametrize("b_mn", [False, True])
+def test_wgmma_register_a_product_matches_matmul(gen, dtype, n, k, b_mn):
+    """The register-A product of csrc/wgmma_attn.cuh alone (A in the
+    m64k16 register fragments, B K-major or MN-major through the
+    transpose bit, loaded by the 3-D TMA map): fp32 sums of exact products
+    within 1e-5 of the largest |C|."""
+    A = _rand(gen, 64, k, dtype=dtype)
+    B = _rand(gen, k, n, dtype=dtype)
+    ref = A.float() @ B.float()
+    c = fa.wgmma_rs_probe(A, B if b_mn else B.t().contiguous(), b_mn)
+    assert c.shape == (64, n) and c.dtype == torch.float32
+    assert float((c - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
 
 
 @pytest.mark.parametrize("s,split", [(2048, False), (2049, True)])
