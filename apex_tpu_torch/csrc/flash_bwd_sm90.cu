@@ -1,16 +1,19 @@
-// The flash-attention backward's two-kernel split for Hopper (sm_90a), bf16
-// and fp16 operands at head dims 64 and 128, on wgmma and TMA
-// (wgmma_attn.cuh over wgmma_gemm.cuh's primitives):
+// The flash-attention backward for Hopper (sm_90a), bf16 and fp16 operands
+// at head dims 64 and 128, on wgmma and TMA (wgmma_attn.cuh over
+// wgmma_gemm.cuh's primitives): the two-kernel split and the single pass.
 //
 // - flash_dkdv_sm90 replaces `_dkdv_kernel` (apex_tpu/ops/flash_attention.py
 //   :558, launched at :805): dk, dv [b, h, sk, d];
 // - flash_dq_sm90 replaces `_dq_kernel` (:671, launched at :820): dq
 //   [b, h, sq, d];
-// both from q, do [b, h, sq, d], k, v [b, h, sk, d], the forward's lse and
+// - flash_bwd_fused_sm90 replaces the single-pass `_bwd_fused_kernel`
+//   (:604, launched at :787): dk, dv, and dq summed into an fp32 workspace
+//   [b, h, sq, d] that the wrapper zeroes and casts;
+// all from q, do [b, h, sq, d], k, v [b, h, sk, d], the forward's lse and
 // delta = rowsum(do * out) [b, h, sq] (fp32). The wrapper
-// (ops/flash_attention.py, `split_route`) sends the split here by dtype and
-// kernel head dim alone; fp32, mixed operands (promoted to fp32), head dims
-// 32, 256 and 512 and the single pass stay on flash_bwd.cu.
+// (ops/flash_attention.py, `sm90_route`) sends the backward here by dtype
+// and kernel head dim alone; fp32, mixed operands (promoted to fp32) and
+// head dims 32, 256 and 512 stay on flash_bwd.cu.
 //
 // Numerics as in the Pallas kernels (:585-597) and flash_bwd.cu: p =
 // exp(s * scale - lse) in fp32, zero wherever the mask is false; p rounded
@@ -20,14 +23,19 @@
 // end-aligned offset sk - sq (rows with no key when sq > sk), segment ids
 // whose negative values are padding (such rows get exactly zero dq and add
 // nothing to dk or dv), ragged sq and sk (TMA fills rows past s with zeros;
-// lse, delta and the segment ids are masked by index). No atomics: every
-// output element is written once, by the block that owns it, so dq, dk and
-// dv are the same bits from run to run.
+// lse, delta and the segment ids are masked by index). The split has no
+// atomics: every output element is written once, by the block that owns
+// it, so dq, dk and dv are the same bits from run to run. The single pass
+// writes dk and dv once (the same bits from run to run) and adds each
+// block's dq partials into the fp32 workspace by TMA bulk reductions, in
+// an order that varies from run to run, as flash_bwd.cu's atomics do.
 //
 // Bound on the H100, per live (q, k) pair at head dim d: dk/dv does four
-// products of 2 d flops (s, dp, dv, dk), dq three (s, dp, dq). At b2 h16
-// s4096 d64 causal (268 M live pairs) that is 137 and 103 GFLOP, 0.139 and
-// 0.104 ms at 989 TFLOP/s, against 0.02 ms of bytes: bound by operations.
+// products of 2 d flops (s, dp, dv, dk), dq three (s, dp, dq), the single
+// pass five (s, dp, dv, dk, dq). At b2 h16 s4096 d64 causal (268 M live
+// pairs) the split's are 137 and 103 GFLOP, 0.139 and 0.104 ms at 989
+// TFLOP/s, against 0.02 ms of bytes: bound by operations; at b8 h16 s1024
+// (67 M pairs) the single pass's 43 GFLOP take 0.0435 ms.
 //
 // Design. A block is one warpgroup of producer (warp 0 issues the TMA loads
 // and stages lse, delta and segment ids; setmaxnreg 40) and two consumer
@@ -63,6 +71,28 @@
 //   out, and the wrapper launches dq before dk/dv, which reads it: the
 //   separate delta pass (two fp32 copies and a reduction, 13 % of the
 //   first version's pair at b2 h16 s4096 d64 on an H100) is gone.
+// - The single pass is the dk/dv kernel with a fifth product: a block owns
+//   128 keys (K, V resident), query tiles of 64 rows stream through the
+//   ring, each consumer forms P^T and dS^T in registers and accumulates dV
+//   and dK as above. dS^T also goes to shared memory, 128-byte swizzled as
+//   TMA lays a tile out, and dQ_tile = dS K runs from shared memory with
+//   both operands MN-major (the two transpose bits): at d 64 each
+//   warpgroup over its own 64 keys, after a barrier of its own 128
+//   threads, both adding their partial; at d 128 over the block's 128
+//   keys, after a barrier of both warpgroups, warpgroup cw taking the
+//   columns 64 cw .. 64 cw + 63 (dS^T in two alternating buffers, so a
+//   warpgroup can write the next tile's while the other still reads
+//   this one's; dV and dK complete before dQ is issued, whose
+//   accumulators and their A fragments do not fit in a thread's
+//   registers together). The partial, times the scale, goes to shared
+//   memory in the layout of an fp32 TMA map over the workspace and is
+//   added into it by one bulk reduction a 32-column box
+//   (`cp.reduce.async.bulk.tensor`), which runs on while the next tile
+//   is computed; per-thread vector reductions of each element pair were a
+//   first version's largest cost.
+//   64-row tiles at both head dims: at d 64 the 128-row tiles of the
+//   split's dk/dv kernel left S^T, dP^T, dK, dV and dQ too few registers
+//   (ptxas serialized every product and spilled).
 // - The 3-D TMA map over [b h, s, d] keeps a tile inside its head and
 //   zero-fills past s. lse is kept as lse * log2(e), so p = 2^(s * scale *
 //   log2(e) - lse * log2(e)) is one FMA and one ex2.
@@ -107,8 +137,9 @@ struct Params {
   float* delta;        // written by the dq kernel when `o` is set
   const int32_t* sid_q;
   const int32_t* sid_kv;
-  void* out0;          // dk (dk/dv) or dq (dq)
-  void* out1;          // dv (dk/dv)
+  void* out0;          // dk (dk/dv, single pass) or dq (dq)
+  void* out1;          // dv (dk/dv, single pass)
+  void* out2;          // the single pass: dq_acc, fp32 [b, h, sq, d]
   const void* o;       // dq: the forward's output, or null (delta given)
   const void* dout;    // dq: do, for delta
   int h, sq, sk, causal;
@@ -618,6 +649,341 @@ flash_dq_sm90(const __grid_constant__ CUtensorMap map_q,
 }
 
 // ---------------------------------------------------------------------------
+// the single pass: a block owns 128 keys; query tiles stream; dq is summed
+// into an fp32 workspace
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct FusedLayout {
+  // 64-row query tiles at both head dims: five products' operands and
+  // accumulators in a consumer's registers (at d 64 a 128-row tile's S^T
+  // and dP^T alone take 128 of them, and ptxas serialized the products
+  // and spilled)
+  static constexpr int TILE = 64;
+  static constexpr int STAGES = D == 64 ? 3 : 2;
+  static constexpr int RES_BYTES = Layout<D>::RES_BYTES;
+  static constexpr int TILE_BYTES = TILE * D * 2;
+  // dS^T: at d 64 one 64 x 64 tile a warpgroup (its keys x the tile's
+  // rows), at d 128 the block's 128 keys x the tile's rows, two buffers
+  static constexpr int DS_BYTES = 2 * 64 * TILE * 2;
+  static constexpr int DS_BUFFERS = D == 64 ? 1 : 2;
+  // a warpgroup's fp32 dQ partial, [64 rows, 64 columns] as two 32-column
+  // boxes of the accumulator's map
+  static constexpr int DQ_BYTES = 64 * 64 * 4;
+  // K, V, STAGES x (Q, dO), dS^T, the dQ partials, STAGES x three side
+  // arrays, barriers, alignment
+  static constexpr size_t SMEM =
+      (size_t)2 * RES_BYTES + (size_t)STAGES * 2 * TILE_BYTES +
+      DS_BUFFERS * DS_BYTES + CONSUMERS * DQ_BYTES + STAGES * 3 * TILE * 4 +
+      (2 * STAGES + 1) * 8 + 1024;
+};
+
+// the two consumer warpgroups (named barrier 3, 256 threads)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 3, 256;\n" ::: "memory");
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     const __grid_constant__ CUtensorMap map_do,
+                     const __grid_constant__ CUtensorMap map_dq,
+                     const Params p) {
+  using FL = FusedLayout<D>;
+  constexpr int TILE = FL::TILE, ST = FL::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = aligned_smem(smem_raw);
+  uint8_t* sK = base;
+  uint8_t* sV = base + FL::RES_BYTES;
+  uint8_t* ring = base + 2 * FL::RES_BYTES;   // stage s: Q then dO
+  uint8_t* sDS = ring + ST * 2 * FL::TILE_BYTES;        // 1024-aligned
+  uint8_t* sDQ = sDS + FL::DS_BUFFERS * FL::DS_BYTES;   // 1024-aligned
+  float* sLse = reinterpret_cast<float*>(sDQ + CONSUMERS * FL::DQ_BYTES);
+  float* sDelta = sLse + ST * TILE;
+  int32_t* sSid = reinterpret_cast<int32_t*>(sDelta + ST * TILE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sSid + ST * TILE);
+  uint64_t* empty = full + ST;
+  uint64_t* res = empty + ST;
+
+  const int bh = blockIdx.x, bi = bh / p.h;
+  const int n0 = blockIdx.y * RES_ROWS;
+  const int sq = p.sq, sk = p.sk, offset = sk - sq;
+  const bool causal = p.causal != 0, use_seg = p.sid_q != nullptr;
+  const int n_qt = (sq + TILE - 1) / TILE;
+  const int qt_begin = causal ? min(n_qt, max(0, n0 - offset) / TILE) : 0;
+
+  if (threadIdx.x == 0) {
+    wg::prefetch_map(&map_q);
+    wg::prefetch_map(&map_k);
+    wg::prefetch_map(&map_v);
+    wg::prefetch_map(&map_do);
+    wg::prefetch_map(&map_dq);
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      wg::mbar_init(&full[s], 32);
+      wg::mbar_init(&empty[s], CONSUMERS);
+    }
+    wg::mbar_init(res, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 0) {
+    // ---- producer: warp 0 keeps the ring full (as in the dk/dv kernel)
+    wg::setmaxnreg_dec<40>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        wg::mbar_expect_tx(res, 2 * FL::RES_BYTES);
+#pragma unroll
+        for (int a = 0; a < D / 64; ++a) {
+          wg::tma_load_3d(sK + a * RES_ROWS * 128, &map_k, res, 64 * a, n0,
+                          bh);
+          wg::tma_load_3d(sV + a * RES_ROWS * 128, &map_v, res, 64 * a, n0,
+                          bh);
+        }
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int qt = qt_begin; qt < n_qt; ++qt) {
+        wg::mbar_wait(&empty[stage], phase ^ 1);
+        const int q0 = qt * TILE;
+        // the tile's lse, delta and segment ids: every lane's loads issued
+        // before its stores
+        float lv[TILE / 32], dv_[TILE / 32];
+        int32_t sv[TILE / 32];
+#pragma unroll
+        for (int i = 0; i < TILE / 32; ++i) {
+          const int row = q0 + lane + 32 * i;
+          const bool in = row < sq;
+          const long at = (long)bh * sq + row;
+          lv[i] = in ? p.lse[at] * LOG2E : 0.f;
+          dv_[i] = in ? p.delta[at] : 0.f;
+          sv[i] = (use_seg && in) ? p.sid_q[(long)bi * sq + row] : -1;
+        }
+#pragma unroll
+        for (int i = 0; i < TILE / 32; ++i) {
+          sLse[stage * TILE + lane + 32 * i] = lv[i];
+          sDelta[stage * TILE + lane + 32 * i] = dv_[i];
+          sSid[stage * TILE + lane + 32 * i] = sv[i];
+        }
+        uint8_t* tq = ring + stage * 2 * FL::TILE_BYTES;
+        if (lane == 0) {
+          wg::mbar_expect_tx(&full[stage], 2 * FL::TILE_BYTES);
+#pragma unroll
+          for (int a = 0; a < D / 64; ++a) {
+            wg::tma_load_3d(tq + a * TILE * 128, &map_q, &full[stage],
+                            64 * a, q0, bh);
+            wg::tma_load_3d(tq + FL::TILE_BYTES + a * TILE * 128, &map_do,
+                            &full[stage], 64 * a, q0, bh);
+          }
+        } else {
+          wg::mbar_arrive(&full[stage]);
+        }
+        if (++stage == ST) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 keys each
+    wg::setmaxnreg_inc<232>();
+    const int cw = wgi - 1, t = threadIdx.x % 128;
+    const int warp = t / 32, g = (t % 32) / 4, tig = t % 4;
+    const int n0w = n0 + 64 * cw;
+    const int key0 = n0w + 16 * warp + g, key1 = key0 + 8;
+    int sid0 = -1, sid1 = -1;
+    if (use_seg) {
+      if (key0 < sk) sid0 = p.sid_kv[(long)bi * sk + key0];
+      if (key1 < sk) sid1 = p.sid_kv[(long)bi * sk + key1];
+    }
+    const float sl2 = p.scale * LOG2E;
+    uint8_t* dqs = sDQ + cw * FL::DQ_BYTES;    // this warpgroup's partial
+    float dv[D / 2], dk[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dv[i] = dk[i] = 0.f;
+
+    wg::mbar_wait(res, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int qt = qt_begin; qt < n_qt; ++qt) {
+      const int q0 = qt * TILE;
+      wg::mbar_wait(&full[stage], phase);
+      const uint8_t* tq = ring + stage * 2 * FL::TILE_BYTES;
+      const uint8_t* tdo = tq + FL::TILE_BYTES;
+      // S^T = K Q^T and dP^T = V dO^T. No warpgroup skips a tile of the
+      // block's range: at d 128 the dQ product needs both halves of dS^T,
+      // and a half whose keys no row of the tile sees is zero by the mask.
+      float s[TILE / 2], dp[TILE / 2];
+      wg::wgmma_fence();
+      scores<T, D, TILE>(s, dp, sK, sV, tq, tdo, cw);
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+      wg::fence_regs(s);
+      wg::fence_regs(dp);
+
+      // p^T = exp(s^T * scale - lse), ds^T = p^T (dp^T - delta); the mask
+      // only on diagonal, ragged or segment tiles
+      const float* lse = sLse + stage * TILE;
+      const float* dl = sDelta + stage * TILE;
+      const int32_t* sidq = sSid + stage * TILE;
+      auto probs = [&](auto masked) {
+#pragma unroll
+        for (int nb = 0; nb < TILE / 8; ++nb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int ql = 8 * nb + 2 * tig + e;
+            const float l = lse[ql], de = dl[ql];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int i = 4 * nb + 2 * r + e;
+              float pv = ex2(fmaf(s[i], sl2, -l));
+              if constexpr (decltype(masked)::value) {
+                const int key = r ? key1 : key0, qrow = q0 + ql;
+                bool ok = qrow < sq && key < sk &&
+                          (!causal || key <= qrow + offset);
+                if (use_seg) {
+                  const int sr = sidq[ql];
+                  ok = ok && sr >= 0 && sr == (r ? sid1 : sid0);
+                }
+                pv = ok ? pv : 0.f;
+              }
+              s[i] = pv;
+              dp[i] = pv * (dp[i] - de);
+            }
+          }
+      };
+      if (use_seg || q0 + TILE > sq || n0w + 64 > sk ||
+          (causal && n0w + 63 > q0 + offset))
+        probs(std::true_type{});
+      else
+        probs(std::false_type{});
+
+      // p rounded to do's dtype, ds once to q's (it feeds dK and dQ)
+      uint32_t pa[TILE / 16][4], da[TILE / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < TILE / 16; ++kk) {
+        wg::acc_to_a<T>(s, kk, pa[kk]);
+        wg::acc_to_a<T>(dp, kk, da[kk]);
+      }
+      // dS^T to shared memory, 128-byte swizzled as TMA would lay it out:
+      // a row a key, the tile's 64 query rows its columns; word (nb, r) of
+      // this thread is da[nb / 2][2 (nb % 2) + r], columns 8 nb + 2 tig
+      // and + 1 of its key row. At d 64 a warpgroup's own 64 keys (rows
+      // 0..63 of its tile), at d 128 the block's 128 (one buffer a tile,
+      // alternating).
+      const int kr0 = (D == 64 ? 0 : 64 * cw) + 16 * warp + g;
+      uint8_t* ds = D == 64 ? sDS + cw * FL::DS_BYTES / 2
+                            : sDS + ((qt - qt_begin) & 1) * FL::DS_BYTES;
+#pragma unroll
+      for (int nb = 0; nb < TILE / 8; ++nb)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int kr = kr0 + 8 * r;
+          *reinterpret_cast<uint32_t*>(ds + kr * 128 +
+                                       ((nb ^ (kr % 8)) << 4) + 4 * tig) =
+              da[nb / 2][2 * (nb % 2) + r];
+        }
+      wg::fence_proxy_async();
+      // the previous tile's dQ reduction has read this warpgroup's partial
+      // buffer before the barrier lets anyone write it again
+      if (t == 0) wg::bulk_wait_read<0>();
+      if constexpr (D == 64)
+        wg_sync(cw);               // the warpgroup's dS^T is in
+      else
+        consumers_sync();          // both halves of dS^T are in
+
+      // dV += P^T dO, dK += dS^T Q (A in registers, B MN-major), then
+      // dQ_tile = dS K with both operands MN-major: at d 64 each
+      // warpgroup over its own 64 keys (both add their partial), at d 128
+      // over the block's 128 keys, warpgroup cw the columns 64 cw ..
+      // 64 cw + 63, issued once dV and dK are done (their A fragments and
+      // dQ's accumulators do not fit in a thread's registers together)
+      wg::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TILE / 16; ++kk)
+        wg::mma_rs<T, D, 1>(dv, pa[kk], wg::mnmajor_desc<TILE>(tdo, kk));
+#pragma unroll
+      for (int kk = 0; kk < TILE / 16; ++kk)
+        wg::mma_rs<T, D, 1>(dk, da[kk], wg::mnmajor_desc<TILE>(tq, kk));
+      if constexpr (D == 128) {
+        wg::wgmma_commit();
+        wg::wgmma_wait<0>();
+        wg::fence_regs(dv);
+        wg::fence_regs(dk);
+#pragma unroll
+        for (int kk = 0; kk < TILE / 16; ++kk) {
+          wg::fence_frag(pa[kk]);
+          wg::fence_frag(da[kk]);
+        }
+        wg::wgmma_fence();
+      }
+      float dq[32];
+      constexpr int DQ_ROWS = D == 64 ? 64 : RES_ROWS;   // keys summed
+      const uint8_t* b_k = D == 64 ? sK + cw * 64 * 128
+                                   : sK + cw * (RES_ROWS * 128);
+      wg::mma_ss64_tt<T, 0>(dq, wg::mnmajor_desc<DQ_ROWS>(ds, 0),
+                            wg::mnmajor_desc<RES_ROWS>(b_k, 0));
+#pragma unroll
+      for (int j = 1; j < DQ_ROWS / 16; ++j)
+        wg::mma_ss64_tt<T, 1>(dq, wg::mnmajor_desc<DQ_ROWS>(ds, j),
+                              wg::mnmajor_desc<RES_ROWS>(b_k, j));
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+      wg::fence_regs(dv);
+      wg::fence_regs(dk);
+      wg::fence_regs(dq);
+#pragma unroll
+      for (int kk = 0; kk < TILE / 16; ++kk) {
+        wg::fence_frag(pa[kk]);
+        wg::fence_frag(da[kk]);
+      }
+
+      // scale * dQ_tile to the partial buffer, laid out as the
+      // accumulator map's two 32-column boxes (128-byte swizzled), then one
+      // bulk reduction a box into dq_acc (rows past sq are not written)
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = 16 * warp + g + 8 * r;
+          const int chunk = 2 * (nb % 4) + tig / 2;
+          *reinterpret_cast<float2*>(dqs + (nb / 4) * (64 * 128) +
+                                     row * 128 +
+                                     ((chunk ^ (row % 8)) << 4) +
+                                     8 * (tig % 2)) =
+              make_float2(dq[4 * nb + 2 * r] * p.scale,
+                          dq[4 * nb + 2 * r + 1] * p.scale);
+        }
+      wg::fence_proxy_async();
+      wg_sync(cw);             // the partial is in; the stage is read
+      if (t == 0) {
+        const int c0 = D == 64 ? 0 : 64 * cw;
+        wg::tma_reduce_add_3d(&map_dq, dqs, c0, q0, bh);
+        wg::tma_reduce_add_3d(&map_dq, dqs + 64 * 128, c0 + 32, q0, bh);
+        wg::bulk_commit();
+        wg::mbar_arrive(&empty[stage]);
+      }
+      if (++stage == ST) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    // the last reductions have read their partials before the block ends
+    if (t == 0) wg::bulk_wait<0>();
+
+    // ---- finish: dk (scaled) and dv, once
+    const long at = (long)bh * sk * D;
+    store_rows<T, D>(static_cast<T*>(p.out0) + at, dk, key0, sk, p.scale);
+    store_rows<T, D>(static_cast<T*>(p.out1) + at, dv, key0, sk, 1.f);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // the register-A product alone (the card test of its descriptors)
 // ---------------------------------------------------------------------------
 
@@ -716,19 +1082,24 @@ struct Args {
   const void *q, *k, *v, *dout, *lse;
   void* delta;          // written by the dq kernel when `o` is set
   const void *sid_q, *sid_kv;
-  void *out0, *out1;    // dk, dv (dk/dv) or dq (dq)
+  void *out0, *out1;    // dk, dv (dk/dv, single pass) or dq (dq)
+  void* out2;           // the single pass: dq_acc
   const void* o;        // dq: the forward's output (the delta fold), or null
   int b, h, sq, sk, causal;
   float scale;
   cudaStream_t stream;
 };
 
-template <typename T, int D, bool DQ>
+// which kernel: the split's two, or the single pass
+enum Kind { DKDV, DQ, FUSED };
+
+template <typename T, int D, Kind K>
 cudaError_t launch(const Args& a) {
   const long bh = (long)a.b * a.h;
-  // the resident side's boxes are 128 rows, the streamed side's 64
-  constexpr int TILE = Layout<D>::TILE;
-  const int rows_q = DQ ? RES_ROWS : TILE, rows_k = DQ ? TILE : RES_ROWS;
+  // the resident side's boxes are 128 rows, the streamed side's its TILE
+  constexpr int TILE = K == FUSED ? FusedLayout<D>::TILE : Layout<D>::TILE;
+  const int rows_q = K == DQ ? RES_ROWS : TILE;
+  const int rows_k = K == DQ ? TILE : RES_ROWS;
   CUtensorMap mq, mk, mv, mdo;
   if (!wg::attn_map<T>(&mq, a.q, bh, a.sq, D, rows_q) ||
       !wg::attn_map<T>(&mdo, a.dout, bh, a.sq, D, rows_q) ||
@@ -739,45 +1110,58 @@ cudaError_t launch(const Args& a) {
                  static_cast<float*>(a.delta),
                  static_cast<const int32_t*>(a.sid_q),
                  static_cast<const int32_t*>(a.sid_kv),
-                 a.out0, a.out1, a.o, a.dout, a.h, a.sq, a.sk, a.causal,
-                 a.scale};
-  const size_t smem = Layout<D>::SMEM;
-  auto kern = DQ ? flash_dq_sm90<T, D> : flash_dkdv_sm90<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int s = DQ ? a.sq : a.sk;
+                 a.out0, a.out1, a.out2, a.o, a.dout, a.h, a.sq, a.sk,
+                 a.causal, a.scale};
+  const int s = K == DQ ? a.sq : a.sk;
   const dim3 grid((unsigned)bh, (s + RES_ROWS - 1) / RES_ROWS);
-  kern<<<grid, THREADS, smem, a.stream>>>(mq, mk, mv, mdo, p);
+  if constexpr (K == FUSED) {
+    CUtensorMap mdq;
+    if (!wg::acc_map(&mdq, static_cast<const float*>(a.out2), bh, a.sq, D,
+                     64))
+      return MAP_REFUSED;
+    const size_t smem = FusedLayout<D>::SMEM;
+    auto kern = flash_bwd_fused_sm90<T, D>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, THREADS, smem, a.stream>>>(mq, mk, mv, mdo, mdq, p);
+  } else {
+    const size_t smem = Layout<D>::SMEM;
+    auto kern = K == DQ ? flash_dq_sm90<T, D> : flash_dkdv_sm90<T, D>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, THREADS, smem, a.stream>>>(mq, mk, mv, mdo, p);
+  }
   return cudaGetLastError();
 }
 
-template <bool DQ>
+template <Kind K>
 int dispatch(const Args& a, int d, int dtype) {
   if (d != 64 && d != 128) return cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   const long bh = (long)a.b * a.h;
-  const int own = DQ ? a.sq : a.sk, other = DQ ? a.sk : a.sq;
+  const int own = K == DQ ? a.sq : a.sk, other = K == DQ ? a.sk : a.sq;
   if (bh <= 0 || own <= 0) return cudaSuccess;
   if (other <= 0) {       // no pair: the gradients are zero (and no
-                          // kernel reads delta)
+                          // kernel reads delta; dq_acc stays zero)
     const size_t bytes = (size_t)bh * own * d * 2;
     cudaError_t err = cudaMemsetAsync(a.out0, 0, bytes, a.stream);
-    if (err == cudaSuccess && !DQ)
+    if (err == cudaSuccess && K != DQ)
       err = cudaMemsetAsync(a.out1, 0, bytes, a.stream);
     return err;
   }
   switch (dtype) {
     case 0:
 #if APEX_HAS_DTYPE(0)
-      return d == 64 ? launch<__nv_bfloat16, 64, DQ>(a)
-                     : launch<__nv_bfloat16, 128, DQ>(a);
+      return d == 64 ? launch<__nv_bfloat16, 64, K>(a)
+                     : launch<__nv_bfloat16, 128, K>(a);
 #else
       return cudaErrorInvalidValue;
 #endif
     case 1:
 #if APEX_HAS_DTYPE(1)
-      return d == 64 ? launch<__half, 64, DQ>(a) : launch<__half, 128, DQ>(a);
+      return d == 64 ? launch<__half, 64, K>(a) : launch<__half, 128, K>(a);
 #else
       return cudaErrorInvalidValue;
 #endif
@@ -806,9 +1190,9 @@ extern "C" int apex_flash_bwd_sm90_dkdv(const void* q, const void* k,
                                         float scale, int dtype,
                                         void* stream) {
   const Args a{q, k, v, dout, lse, const_cast<void*>(delta), sid_q, sid_kv,
-               dk, dv, nullptr, b, h, sq, sk, causal, scale,
+               dk, dv, nullptr, nullptr, b, h, sq, sk, causal, scale,
                static_cast<cudaStream_t>(stream)};
-  return dispatch<false>(a, d, dtype);
+  return dispatch<DKDV>(a, d, dtype);
 }
 
 // dq [b,h,sq,d] (every element written). With `out` (the forward's output
@@ -822,10 +1206,29 @@ extern "C" int apex_flash_bwd_sm90_dq(const void* q, const void* k,
                                       void* dq, const void* out, int b, int h,
                                       int sq, int sk, int d, int causal,
                                       float scale, int dtype, void* stream) {
-  const Args a{q, k, v, dout, lse, delta, sid_q, sid_kv, dq, nullptr, out,
-               b, h, sq, sk, causal, scale,
+  const Args a{q, k, v, dout, lse, delta, sid_q, sid_kv, dq, nullptr,
+               nullptr, out, b, h, sq, sk, causal, scale,
                static_cast<cudaStream_t>(stream)};
-  return dispatch<true>(a, d, dtype);
+  return dispatch<DQ>(a, d, dtype);
+}
+
+// The single pass: dk, dv [b,h,sk,d] (every element written) and dq added,
+// times `scale`, into dq_acc [b,h,sq,d] fp32, which the caller zeroes; from
+// a given delta (rowsum(do * out), computed outside as the JAX package
+// computes it).
+extern "C" int apex_flash_bwd_sm90_fused(const void* q, const void* k,
+                                         const void* v, const void* dout,
+                                         const void* lse, const void* delta,
+                                         const void* sid_q,
+                                         const void* sid_kv, void* dq_acc,
+                                         void* dk, void* dv, int b, int h,
+                                         int sq, int sk, int d, int causal,
+                                         float scale, int dtype,
+                                         void* stream) {
+  const Args a{q, k, v, dout, lse, const_cast<void*>(delta), sid_q, sid_kv,
+               dk, dv, dq_acc, nullptr, b, h, sq, sk, causal, scale,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch<FUSED>(a, d, dtype);
 }
 
 // The register-A product alone: c [64, n] fp32 = a [64, k] b with b [n, k]

@@ -1,5 +1,6 @@
 // What attention adds to the wgmma/TMA core of wgmma_gemm.cuh (sm_90a),
-// for the flash backward of flash_bwd_sm90.cu. wgmma_gemm.cuh itself is
+// for the flash backward of flash_bwd_sm90.cu and the forward of
+// flash_fwd_sm90.cu. wgmma_gemm.cuh itself is
 // unchanged, so the kernels built on it alone (lm_head_ce_sm90.cu) compile
 // to what they did.
 //
@@ -18,6 +19,9 @@
 //   become its K), rounded to the operand dtype. The A fragment of
 //   m64k16 is mma.sync's m16n8k16 A fragment per warp (warp w: rows 16 w ..
 //   16 w + 15), so the conversion is a repack of registers in place.
+// - mma_ss64_tt<T, ACCUM>: m64n64k16 with A and B from shared memory, both
+//   MN-major (the two transpose bits): the single-pass backward's dQ = dS K
+//   from the dS^T tile its consumer warpgroups write and the resident K.
 // - kmajor_desc / mnmajor_desc: wgmma descriptors of k-step j of a
 //   128-byte-swizzled tile of R rows whose 64-column atoms lie one after
 //   the other (R x 128 bytes each), K-major (K along the row) or MN-major
@@ -25,6 +29,10 @@
 // - tma_load_3d and attn_map: a 3-D TMA map over a [b h, s, d] tensor with
 //   boxes of 64 columns x `rows` rows x 1 head: a tile never reaches into
 //   the next head, and rows past s arrive as zeros.
+// - tma_reduce_add_3d and acc_map: the same map over an fp32 accumulator
+//   (boxes of 32 columns), into which a block adds a box from shared memory
+//   in one bulk reduction (the single pass's dq), with the bulk-group
+//   commit and waits and the proxy fence its writers need.
 
 #pragma once
 
@@ -114,6 +122,20 @@ __device__ __forceinline__ void fence_frag(uint32_t (&a)[4]) {
       "}\n"                                                               \
       : AT_OUT64                                                          \
       : "l"(da), "l"(db), "r"(ACCUM))
+// d[32] = A[64 x 16] B[16 x 64] (+ d when ACCUM), both from shared memory
+// and both MN-major (the two transpose bits): dQ = dS K in the single-pass
+// backward, dS from the dS^T tile the warpgroups wrote, K from its resident
+// tile
+#define AT_SS64_TT(TYPE)                                                  \
+  asm volatile(                                                           \
+      "{\n"                                                               \
+      ".reg .pred p;\n"                                                   \
+      "setp.ne.b32 p, %34, 0;\n"                                          \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TYPE "." TYPE " "     \
+      AT_S32 ", %32, %33, p, 1, 1, 1, 1;\n"                               \
+      "}\n"                                                               \
+      : AT_OUT32                                                          \
+      : "l"(da), "l"(db), "r"(ACCUM))
 // d[N / 2] += A[64 x 16] (registers) B[16 x N] (shared memory); TB: B is
 // MN-major
 #define AT_RS64(TYPE)                                                     \
@@ -159,6 +181,16 @@ __device__ __forceinline__ void mma_ss128(float (&d)[64], uint64_t da,
   }
 }
 
+template <typename T, int ACCUM>
+__device__ __forceinline__ void mma_ss64_tt(float (&d)[32], uint64_t da,
+                                            uint64_t db) {
+  if constexpr (std::is_same<T, __half>::value) {
+    AT_SS64_TT("f16");
+  } else {
+    AT_SS64_TT("bf16");
+  }
+}
+
 template <typename T, int N, int TB>
 __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
                                        const uint32_t (&a)[4], uint64_t db) {
@@ -179,6 +211,7 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
 }
 #undef AT_SS64
 #undef AT_SS128
+#undef AT_SS64_TT
 #undef AT_RS64
 #undef AT_RS128
 #undef AT_S32
@@ -196,6 +229,54 @@ __device__ __forceinline__ void acc_to_a(const float (&acc)[NACC], int kk,
   a[1] = Frag<T>::pack(acc[8 * kk + 2], acc[8 * kk + 3]);
   a[2] = Frag<T>::pack(acc[8 * kk + 4], acc[8 * kk + 5]);
   a[3] = Frag<T>::pack(acc[8 * kk + 6], acc[8 * kk + 7]);
+}
+
+// 3-D TMA reduction: the box at (c0 inner, c1, c2 outer) of the tensor is
+// added, element by element, the box in shared memory at src (fp32 add by
+// the map's type); completes into the thread's bulk group
+__device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map,
+                                                  const void* src, int c0,
+                                                  int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// the thread's bulk groups but the last N have read their shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// ... and completed
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// generic-proxy writes to shared memory become visible to the async proxy
+// (wgmma and TMA reads)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The map of an fp32 [bh, s, d] accumulator (row-major) for boxes of 32
+// columns (128 bytes, swizzled) x `rows` rows x 1 head, for TMA reductions
+// into it; rows past s are not written. False when the driver refuses it.
+inline bool acc_map(CUtensorMap* map, const float* ptr, long bh, long s,
+                    long d, int rows) {
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 4, (cuuint64_t)s * d * 4};
+  const cuuint32_t box[3] = {32, (cuuint32_t)rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(ptr),
+            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // The map of a [bh, s, d] tensor (row-major, d a multiple of 64) for boxes

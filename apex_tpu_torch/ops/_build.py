@@ -22,14 +22,15 @@ dtype, ``<name>@bf16``, ``<name>@f16`` or ``<name>@f32``, each compiled with
 (``csrc/dtype.cuh``'s ``APEX_HAS_DTYPE``): the targets compile side by side
 instead of one after the other. ``lm_head_ce.cu`` keeps only the fp32 (SIMT)
 route and ``lm_head_ce_sm90.cu`` (wgmma/TMA) only bf16 and fp16, as
-``flash_bwd_sm90.cu`` (the split flash backward on wgmma/TMA) holds only
-bf16 and fp16 beside ``flash_bwd.cu``'s three dtypes. Wrappers name the
-target of their operands' dtype (:func:`dtype_target`).
+``flash_fwd_sm90.cu`` and ``flash_bwd_sm90.cu`` (the flash forward and
+backward on wgmma/TMA) hold only bf16 and fp16 beside ``flash_fwd.cu``'s
+and ``flash_bwd.cu``'s three dtypes. Wrappers name the target of their
+operands' dtype (:func:`dtype_target`).
 
-``lm_head_ce_sm90.cu`` and ``flash_bwd_sm90.cu`` encode their TMA
-descriptors with the driver's ``cuTensorMapEncodeTiled``, which they look
-up at run time through the runtime's ``cudaGetDriverEntryPointByVersion``:
-no source links ``-lcuda``.
+``lm_head_ce_sm90.cu``, ``flash_fwd_sm90.cu`` and ``flash_bwd_sm90.cu``
+encode their TMA descriptors with the driver's ``cuTensorMapEncodeTiled``,
+which they look up at run time through the runtime's
+``cudaGetDriverEntryPointByVersion``: no source links ``-lcuda``.
 
 Every C entry point returns the ``cudaError_t`` of its launch; wrappers pass
 the result to :func:`check` and raise on anything but 0.
@@ -62,7 +63,8 @@ DTYPE_VARIANTS = ("bf16", "f16", "f32")    # the C interfaces' codes 0, 1, 2
 # sources built once per operand dtype, with the dtype codes each holds
 DTYPE_SPLIT = {"flash_fwd": (0, 1, 2), "flash_bwd": (0, 1, 2),
                "paged_decode": (0, 1, 2), "lm_head_ce": (2,),
-               "lm_head_ce_sm90": (0, 1), "flash_bwd_sm90": (0, 1)}
+               "lm_head_ce_sm90": (0, 1), "flash_bwd_sm90": (0, 1),
+               "flash_fwd_sm90": (0, 1)}
 
 
 def dtype_target(name: str, code: int) -> str:

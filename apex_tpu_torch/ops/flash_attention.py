@@ -4,23 +4,26 @@ kernels beside their plain PyTorch versions.
 Port of ``apex_tpu/ops/flash_attention.py``:
 
 - :func:`flash_attention` — differentiable attention. On CUDA the forward
-  launches ``csrc/flash_fwd.cu``, which replaces the Pallas ``_fwd_kernel``
-  (``apex_tpu/ops/flash_attention.py:251``), and the backward
-  ``csrc/flash_bwd.cu``, which replaces the single-pass ``_bwd_fused_kernel``
-  (``:604``); on the CPU they are :func:`flash_attention_reference` and
-  :func:`flash_attention_bwd_reference` (the JAX ``_bwd_math``). The
-  additive bias runs through the plain version on the CPU and raises on
-  CUDA; in-kernel dropout is not ported yet. Past the JAX package's 2 MB
-  VMEM gate the backward is its two-kernel split, which replaces
-  ``_dkdv_kernel`` (``:558``) and ``_dq_kernel`` (``:671``) by one of two
-  routes, chosen by :func:`split_route` from the dtype and the kernel head
-  dim alone: ``flash_dkdv_sm90`` and ``flash_dq_sm90`` of
-  ``csrc/flash_bwd_sm90.cu`` (wgmma/TMA; bf16 and fp16 at head dims 64
-  and 128), else ``flash_dkdv_kernel`` and ``flash_dq_kernel`` of
-  ``csrc/flash_bwd.cu``. :func:`uses_split_backward` is the gate,
-  computed as the JAX package computes it at its default backward
-  blocks, so the two packages route the same shapes the same way; the
-  plain backward is the same function either way.
+  replaces the Pallas ``_fwd_kernel`` (``apex_tpu/ops/flash_attention.py
+  :251``) and the backward the single-pass ``_bwd_fused_kernel`` (``:604``),
+  each by one of two routes chosen by :func:`sm90_route` from the dtype
+  and the kernel head dim alone: ``csrc/flash_fwd_sm90.cu`` and
+  ``flash_bwd_fused_sm90`` of ``csrc/flash_bwd_sm90.cu`` (wgmma/TMA; bf16
+  and fp16 at head dims 64 and 128), else ``csrc/flash_fwd.cu`` and
+  ``csrc/flash_bwd.cu``; on the CPU they are
+  :func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`
+  (the JAX ``_bwd_math``). The additive bias runs through the plain version
+  on the CPU and raises on CUDA; in-kernel dropout is not ported yet. Past
+  the JAX package's 2 MB VMEM gate the backward is its two-kernel split,
+  which replaces ``_dkdv_kernel`` (``:558``) and ``_dq_kernel`` (``:671``)
+  on the same two routes (:func:`split_route`): ``flash_dkdv_sm90`` and
+  ``flash_dq_sm90`` of ``csrc/flash_bwd_sm90.cu``, else
+  ``flash_dkdv_kernel`` and ``flash_dq_kernel`` of ``csrc/flash_bwd.cu``.
+  :func:`uses_split_backward` is the gate, computed as the JAX package
+  computes it at its default backward blocks, so the two packages route
+  the same shapes the same way; the plain backward is the same function
+  either way. No route gives way to another: a build or launch error
+  raises.
 - :func:`paged_decode_attention` — one query per sequence over the paged KV
   pool. On CUDA it launches ``csrc/paged_decode.cu``, which replaces the
   Pallas ``_paged_decode_kernel`` (``:986``) in both its modes: a bf16
@@ -52,8 +55,10 @@ a negative segment id is padding — it matches nothing, not even another
 padding id — and its output row is exactly zero; causal attention aligns
 the sequence ends (``causal_offset = sk - sq``).
 
-``flash_attention.launches`` (forward), ``flash_attention_bwd.launches``
-(the single-pass backward), ``flash_attention_bwd.dkdv_launches`` and
+``flash_attention.launches`` (forward, either route) and
+``.wgmma_launches`` (its wgmma route alone), ``flash_attention_bwd.launches``
+(the single-pass backward, either route) and ``.wgmma_launches`` (its
+wgmma route alone), ``flash_attention_bwd.dkdv_launches`` and
 ``.dq_launches`` (the split, either route),
 ``flash_attention_bwd.wgmma_dkdv_launches`` and ``.wgmma_dq_launches``
 (the split's wgmma route alone), ``paged_decode_attention.launches``
@@ -309,7 +314,46 @@ def _operand_dtype(what, q):
     return q.dtype
 
 
-def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale):
+# apex_flash_fwd_sm90(q, k, v, sid_q, sid_kv, out, lse, b, h, sq, sk, d,
+#                     causal, scale, dtype, block_m, stream): the wgmma
+# route's forward, without ``p_round`` (it takes no mixed operands) and with
+# the rows a block
+_SM90_FWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+# the wgmma/TMA kernels' dtypes and kernel head dims (csrc/flash_fwd_sm90.cu
+# and csrc/flash_bwd_sm90.cu)
+_SM90_DTYPES = (torch.bfloat16, torch.float16)
+_SM90_HEAD_DIMS = (64, 128)
+
+
+def sm90_route(dtype: torch.dtype, kd: int) -> bool:
+    """Whether operands of ``dtype`` (after promotion) at kernel head dim
+    ``kd`` (:func:`kernel_head_dim`) run the wgmma/TMA kernels: the forward
+    of ``csrc/flash_fwd_sm90.cu``, the single-pass backward and the split
+    of ``csrc/flash_bwd_sm90.cu`` — bf16 and fp16 at 64 and 128. Everything
+    else (fp32, so mixed operands too; head dims 32, 256 and 512) runs
+    ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``. The one predicate of
+    both routes."""
+    return dtype in _SM90_DTYPES and kd in _SM90_HEAD_DIMS
+
+
+def fwd_block_rows(bh: int, sq: int, kd: int, sms: int) -> int:
+    """Query rows a block of the wgmma forward, from the shape: 64 (one
+    consumer warpgroup) at kernel head dim 64, where two such blocks share
+    an SM and overlap one's prologue and epilogue with the other's loop,
+    and wherever ``bh * ceil(sq / 128)`` blocks of 128 rows would not fill
+    ``sms`` SMs (the serve prefill's b1 h16 s512 makes 64 of them for the
+    H100's 132 SMs, 128 of 64); else 128 (two consumer warpgroups, one
+    block an SM)."""
+    return 64 if kd == 64 or bh * -(-sq // 128) < sms else 128
+
+
+def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
+                    block_rows: Optional[int] = None):
+    """The forward kernel. ``block_rows`` (the wgmma route only) forces 64
+    or 128 query rows a block, for comparing the two at one shape; None
+    takes :func:`fwd_block_rows`."""
     what = "flash_attention kernel"
     _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, what,
              "q, k, v must be [b, h, s, d]")
@@ -337,21 +381,37 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale):
                                     ("segment_ids_kv", segment_ids_kv)),
                              torch.int32, q.device)
 
+    kd = kernel_head_dim(d)
+    sm90 = sm90_route(dtype, kd)
+    _require(block_rows is None or (sm90 and block_rows in (64, 128)), what,
+             "block_rows takes 64 or 128, on the wgmma route only")
+    if sm90 and block_rows is None:
+        block_rows = fwd_block_rows(
+            b * h, sq, kd, torch.cuda.get_device_properties(
+                q.device).multi_processor_count)
+
     def launch(q, k, v):
         out = torch.empty_like(q)
         lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-        fn = _build.function(_build.dtype_target(
-            "flash_fwd", DTYPE_CODES[dtype]), "apex_flash_fwd", _FLASH_ARGS)
-        err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(segment_ids_q),
-                 _ptr(segment_ids_kv), _ptr(out), _ptr(lse), b, h, sq, sk,
-                 q.shape[-1], int(bool(causal)), float(scale),
-                 DTYPE_CODES[dtype], p_round, _stream(q))
+        code = DTYPE_CODES[dtype]
+        args = (_ptr(q), _ptr(k), _ptr(v), _ptr(segment_ids_q),
+                _ptr(segment_ids_kv), _ptr(out), _ptr(lse), b, h, sq, sk,
+                q.shape[-1], int(bool(causal)), float(scale), code)
+        if sm90:
+            fn = _build.function(_build.dtype_target("flash_fwd_sm90", code),
+                                 "apex_flash_fwd_sm90", _SM90_FWD_ARGS)
+            err = fn(*args, block_rows, _stream(q))
+        else:
+            fn = _build.function(_build.dtype_target("flash_fwd", code),
+                                 "apex_flash_fwd", _FLASH_ARGS)
+            err = fn(*args, p_round, _stream(q))
         _build.check(err, what)
         flash_attention.launches += 1
+        if sm90:
+            flash_attention.wgmma_launches += 1
         return out, lse
 
-    out, lse = with_padded_last_dim(launch, kernel_head_dim(d), (q, k, v),
-                                    sliced=(0,))
+    out, lse = with_padded_last_dim(launch, kd, (q, k, v), sliced=(0,))
     return (out.to(out_dtype) if mixed else out), lse
 
 
@@ -432,21 +492,20 @@ _SM90_DKDV_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _SM90_DQ_ARGS = _SM90_DKDV_ARGS
 
-# the split's wgmma route (csrc/flash_bwd_sm90.cu): its dtypes and kernel
-# head dims
-_SM90_DTYPES = (torch.bfloat16, torch.float16)
-_SM90_HEAD_DIMS = (64, 128)
+# the wgmma route's single pass, apex_flash_bwd_sm90_fused: the single
+# pass's arguments without ``rounds``
+_SM90_FUSED_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def split_route(dtype: torch.dtype, kd: int) -> str:
-    """The source whose kernels run the two-kernel split for operands of
-    ``dtype`` (after promotion) at kernel head dim ``kd``
-    (:func:`kernel_head_dim`): ``"flash_bwd_sm90"`` (wgmma/TMA) for bf16
-    and fp16 at 64 and 128, ``"flash_bwd"`` for everything else (fp32, so
-    mixed operands too; head dims 32, 256 and 512)."""
-    if dtype in _SM90_DTYPES and kd in _SM90_HEAD_DIMS:
-        return "flash_bwd_sm90"
-    return "flash_bwd"
+    """The source whose kernels run the backward (the two-kernel split and
+    the single pass) for operands of ``dtype`` (after promotion) at kernel
+    head dim ``kd`` (:func:`kernel_head_dim`): ``"flash_bwd_sm90"``
+    (wgmma/TMA) where :func:`sm90_route` holds, ``"flash_bwd"`` for
+    everything else (fp32, so mixed operands too; head dims 32, 256 and
+    512)."""
+    return "flash_bwd_sm90" if sm90_route(dtype, kd) else "flash_bwd"
 
 
 def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
@@ -495,7 +554,9 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
     # kernel computes it for its own rows (launched first: the delta fold)
     fold = (split and split_route(dtype, dp) == "flash_bwd_sm90"
             and out.dtype == dtype)
-    delta = None if fold else (do.float() * out.float()).sum(dim=-1)
+    # (out is promoted inside the product: the same exact fp32 products and
+    # sum as out.float(), one pass fewer)
+    delta = None if fold else (do.float() * out).sum(dim=-1)
 
     def launch(q, k, v, do, out=None):
         if split:
@@ -511,6 +572,11 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
             dk, dv = _flash_dkdv_cuda(*args)
             return _flash_dq_cuda(*args), dk, dv
         dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        if sm90_route(dtype, dp):
+            dk, dv = _flash_bwd_fused_cuda(q, k, v, do, lse, delta,
+                                           segment_ids_q, segment_ids_kv,
+                                           causal, scale, dq_acc)
+            return dq_acc.to(q.dtype), dk, dv
         dk = torch.empty_like(k)
         dv = torch.empty_like(v)
         fn = _build.function(_build.dtype_target(
@@ -530,6 +596,27 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
     if not mixed:
         return grads
     return tuple(g.to(dt) for g, dt in zip(grads, dtypes))
+
+
+def _flash_bwd_fused_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal,
+                          scale, dq_acc):
+    """The wgmma route's single pass (``flash_bwd_fused_sm90``) on operands
+    ``_flash_bwd_cuda`` checked: ``(dk, dv)``, and dq times ``scale`` added
+    into ``dq_acc`` (fp32, q's shape; the caller zeroes it). ``delta`` =
+    rowsum(do * out) fp32 [b, h, sq], given."""
+    b, h, sq, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    code = DTYPE_CODES[q.dtype]
+    fn = _build.function(_build.dtype_target("flash_bwd_sm90", code),
+                         "apex_flash_bwd_sm90_fused", _SM90_FUSED_ARGS)
+    _build.check(fn(_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse),
+                    _ptr(delta), _ptr(sid_q), _ptr(sid_kv), _ptr(dq_acc),
+                    _ptr(dk), _ptr(dv), b, h, sq, k.shape[2], d,
+                    int(bool(causal)), float(scale), code, _stream(q)),
+                 "flash_attention_bwd single-pass kernel")
+    flash_attention_bwd.launches += 1
+    flash_attention_bwd.wgmma_launches += 1
+    return dk, dv
 
 
 def _split_operands(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
@@ -630,8 +717,9 @@ def flash_attention_bwd(q, k, v, out, lse, do, segment_ids_q=None,
     ``lse``: on CUDA the single-pass kernel, or past the JAX package's gate
     (:func:`uses_split_backward`) the dk/dv kernel then the dq kernel; on
     the CPU :func:`flash_attention_bwd_reference`.
-    ``flash_attention_bwd.launches`` counts single-pass launches,
-    ``.dkdv_launches`` and ``.dq_launches`` the split's."""
+    ``flash_attention_bwd.launches`` counts single-pass launches
+    (``.wgmma_launches`` those on the wgmma route), ``.dkdv_launches`` and
+    ``.dq_launches`` the split's."""
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     if check_device_type(q, "flash_attention_bwd") == "cpu":
         return flash_attention_bwd_reference(
@@ -643,6 +731,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, segment_ids_q=None,
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.wgmma_launches = 0
 flash_attention_bwd.dkdv_launches = 0
 flash_attention_bwd.dq_launches = 0
 flash_attention_bwd.wgmma_dkdv_launches = 0
@@ -698,6 +787,7 @@ def flash_attention(q, k, v, segment_ids_q=None, segment_ids_kv=None,
 
 
 flash_attention.launches = 0
+flash_attention.wgmma_launches = 0
 
 
 # apex_paged_decode(q, k_pages, v_pages, k_scales, v_scales, block_tables,

@@ -9,16 +9,25 @@ Run on a machine with a CUDA card, as a file (not with ``-m``), so that
     python3 apex_tpu_torch/scripts/kernel_times.py [--root DIR] [--out F]
 
 Each kernel is called through its public wrapper (the same calls in every
-version since the wrappers' first slice): flash forward and the
-single-pass backward at b8 h16 s1024 d64 causal (the GPT train step) and
-at b2 h8 s1024 d256 (the largest head dim every version runs), the split
-backward at b2 h16 s4096 as called (delta included) and its two kernels
-apart (``_flash_dkdv_cuda`` and ``_flash_dq_cuda`` on a given delta, the
-calls every version since the split's first slice takes), paged decode
-over the serve path's batch (bf16 and e4m3 pools), the LM-head CE forward
-and backward at n8192 V32768 h1024 in bf16 and fp16, the fp8 matmul at
+version since the wrappers' first slice): flash forward at the serve
+prefill's b1 h16 s512 (causal, segment ids -1 from 300), at b8 h16 s1024
+d64 causal (the GPT train step) and b2 h16 s4096 (the long-sequence
+step), the first three also at both block heights of the wgmma forward
+where the checkout has it (``block_rows`` 64 and 128), and at b2 h8
+s1024 d256 (the largest head dim every version runs); the single-pass backward at b8 h16 s1024 and b2 h8 s1024 d256 as
+called (delta pass, dq accumulator and cast included) and alone at b8
+h16 s1024 on a given delta and zeroed fp32 dq accumulator (the C entry
+of whichever kernel the checkout routes bf16 d64 to); the split backward
+at b2 h16 s4096 as called (delta included) and its two kernels apart
+(``_flash_dkdv_cuda`` and ``_flash_dq_cuda`` on a given delta, the calls
+every version since the split's first slice takes), paged decode over
+the serve path's batch (bf16 and e4m3 pools), the LM-head CE forward and
+backward at n8192 V32768 h1024 in bf16 and fp16, the fp8 matmul at
 decode qkv (m8 K1024 N3072). Times are medians of CUDA-event pairs
-around single launches, the L2 flushed before each; the result is one
+around single launches, the L2 flushed before each. They are device
+times: a ``torch.cuda._sleep`` queued between the flush and the start
+event keeps the card busy while the host records the start event and
+runs the wrapper, so the pair holds no host time. The result is one
 JSON object (also written to ``--out``) with the card's name and power
 limit.
 """
@@ -26,6 +35,7 @@ limit.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -58,6 +68,8 @@ def main() -> int:
     from apex_tpu_torch.ops import lm_head_ce as ce
     torch.backends.cuda.matmul.allow_tf32 = False
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    # ~150 us at the H100's 1.98 GHz: more than a wrapper's host time
+    sleep_cycles = 300_000
 
     def timed(fn, iters=30):
         for _ in range(3):
@@ -66,6 +78,7 @@ def main() -> int:
         ev = []
         for _ in range(iters):
             flush.zero_()
+            torch.cuda._sleep(sleep_cycles)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -82,13 +95,51 @@ def main() -> int:
                                     device="cuda")).to(torch.bfloat16)
 
     res = {}
+    q, k, v = (rnd(1, 16, 512, 64) for _ in range(3))
+    sid = torch.where(torch.arange(512, device="cuda") < 300, 0, -1).to(
+        torch.int32)[None].contiguous()
+    res["flash_fwd serve b1 s512 seg"] = timed(
+        lambda: fa.flash_attention_fwd(q, k, v, sid, None, True))
+    # the wgmma forward at both block heights, where the checkout has it
+    rows = ((64, 128) if "block_rows" in inspect.signature(
+        fa._flash_fwd_cuda).parameters else ())
+
+    def fwd_rows(name, q, k, v, sid, iters=30):
+        for r in rows:
+            res[f"{name} rows{r}"] = timed(lambda: fa._flash_fwd_cuda(
+                q, k, v, sid, None, True, 0.125, block_rows=r), iters)
+
+    fwd_rows("flash_fwd serve b1 s512 seg", q, k, v, sid)
+    q, k, v = (rnd(2, 16, 4096, 64) for _ in range(3))
+    res["flash_fwd b2 s4096"] = timed(
+        lambda: fa.flash_attention_fwd(q, k, v, causal=True), iters=10)
+    fwd_rows("flash_fwd b2 s4096", q, k, v, None, iters=10)
     q, k, v, do = (rnd(8, 16, 1024, 64) for _ in range(4))
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
     res["flash_fwd b8 s1024"] = timed(
         lambda: fa.flash_attention_fwd(q, k, v, causal=True))
+    fwd_rows("flash_fwd b8 s1024", q, k, v, None)
     res["flash_bwd single b8 s1024"] = timed(
         lambda: fa._flash_bwd_cuda(q, k, v, out, lse, do, None, None, True,
                                    0.125, split=False))
+    delta = (do.float() * out.float()).sum(dim=-1)
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
+    if hasattr(fa, "_flash_bwd_fused_cuda"):        # the wgmma route
+        def single_alone():
+            fa._flash_bwd_fused_cuda(q, k, v, do, lse, delta, None, None,
+                                     True, 0.125, dq_acc)
+    else:                                           # flash_bwd.cu
+        fn = fa._build.function("flash_bwd@bf16", "apex_flash_bwd",
+                                fa._FLASH_BWD_ARGS)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+
+        def single_alone():
+            fn(fa._ptr(q), fa._ptr(k), fa._ptr(v), fa._ptr(do), fa._ptr(lse),
+               fa._ptr(delta), None, None, fa._ptr(dq_acc), fa._ptr(dk),
+               fa._ptr(dv), 8, 16, 1024, 1024, 64, 1, 0.125, 0,
+               fa._mixed_rounds(q, k, do), fa._stream(q))
+    res["flash_bwd single alone b8 s1024"] = timed(single_alone)
+    del delta, dq_acc
     q, k, v, do = (rnd(2, 8, 1024, 256) for _ in range(4))
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
     res["flash_fwd b2 s1024 d256"] = timed(

@@ -11,14 +11,16 @@ Phases (any failure exits non-zero; no phase's error is caught):
 
 1. set-up — build the CUDA kernels from ``apex_tpu_torch/csrc`` (one
    ``nvcc`` per source and dtype, started together), count the ``HGMMA``
-   instructions in the wgmma libraries, the LM-head CE's and the split
-   flash backward's (``cuobjdump -sass``; none fails), turn TF32 off, print
-   the card's name and power limit; the
+   instructions in the wgmma libraries, the LM-head CE's and the flash
+   forward's and backward's (``cuobjdump -sass``; none fails), turn TF32
+   off, print the card's name and power limit; the
    fp8 codec's e4m3 cast and scale on the card against the CPU's,
    bitwise;
 2. kernels — each kernel's wrapper at its main path's shapes against its
    plain version on the same inputs, with the tolerance stated beside each
-   check, timed with CUDA events (L2 flushed before every launch) beside
+   check, timed with CUDA events (L2 flushed before every launch, and a
+   device sleep queued before the start event, so that the pair holds
+   device time only) beside
    its plain version, a PyTorch library call where one computes the same
    function, and its bound (the least time for its bytes at 3.35 TB/s or
    its operations at 989 TFLOP/s bf16, whichever is larger);
@@ -40,7 +42,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
    ``amp.make_train_step`` on one fixed b8 s1024 batch: a warm-up step,
    then 8 timed steps with the launch counters reset just before; asserts
    the losses are finite and fall, the scale never moved and each kernel's
-   launches per step; prints step-time median, p90 and tokens/s;
+   launches per step (every flash forward and single-pass backward on the
+   wgmma route); prints step-time median, p90 and tokens/s;
 6. gradient check — from the same initial parameters, the loss and every
    parameter's gradient through the kernels against
    ``GPT.loss(reference=True)`` (the plain versions, differentiated by
@@ -117,6 +120,15 @@ bottleneck, N 32) within two bf16 ulps plus 2^-5 of its plain version and
 0.15 of the cuDNN composition; B14
 bitwise (mul, max, where, iota_cmp_where) or within 2 ulps (exp, exp2).
 
+The flash forward and single-pass backward are held on both routes: the
+wgmma route (``csrc/flash_fwd_sm90.cu``; ``flash_bwd_fused_sm90`` of
+``csrc/flash_bwd_sm90.cu``) at the serve prefill's, the s1024 and the
+s4096 train cells' shapes, ragged shapes, fp16 and a padded head dim, the
+forward and the single pass's dk and dv bitwise on a rerun, with ptxas's
+registers and no spill; flash_fwd.cu's and flash_bwd.cu's in fp32 at the
+O0 path's shape. Every bf16 main path (the GPT cells, ZeRO-3, LAMB,
+serve) takes the wgmma route for every flash launch, the O0 paths none.
+
 It holds B13 bitwise against its plain version in five modes and under a
 set skip flag, at the GPT's 185,759,744 parameters and a ragged n. The
 split flash backward (B3, B4) is held on both routes: the wgmma route
@@ -138,6 +150,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -204,9 +217,18 @@ def grad_err(got, ref, what: str, floor_frac: float = 0.02,
     return diff.max().item()
 
 
+# cycles of ``torch.cuda._sleep`` queued before each timed launch: ~150 us
+# at the H100's 1.98 GHz, more than a wrapper's 25-72 us of host time
+SLEEP_CYCLES = 300_000
+
+
 class Timer:
     """Median milliseconds of ``fn`` over ``iters`` launches, each timed by
-    its own CUDA events after an L2 flush."""
+    its own CUDA events after an L2 flush. Device time only: a
+    ``torch.cuda._sleep`` queued after the flush and before the start event
+    keeps the card busy while the host records the start event and runs
+    the wrapper, so the kernel is queued before the card reaches the start
+    event and the pair holds no host time."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -228,6 +250,7 @@ class Timer:
         events = []
         for _ in range(iters):
             self.flush.zero_()
+            torch.cuda._sleep(SLEEP_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -242,85 +265,162 @@ class Timer:
 # kernel phase
 # ---------------------------------------------------------------------------
 
+def _fwd_bound(b, h, sq, sk, d, causal, itemsize, peak=BF16_FLOPS_PER_S,
+               live_rows=None):
+    """The forward's bound: two products of 2 d flops per live (q, k) pair
+    (causal: the end-aligned lower triangle; rows past ``live_rows`` see no
+    key), q, k, v read once, out and the fp32 lse written once."""
+    rows = sq if live_rows is None else live_rows
+    if causal:
+        off = sk - sq
+        pairs = sum(max(0, min(sk, r + off + 1)) for r in range(rows))
+    else:
+        pairs = rows * sk
+    flops = 4.0 * b * h * d * pairs
+    nbytes = (2 * b * h * sq * d + 2 * b * h * sk * d) * itemsize \
+        + b * h * sq * 4
+    return bound(flops, nbytes, peak)
+
+
 def check_flash(torch, timer):
+    """The flash forward on both routes. The wgmma route
+    (``csrc/flash_fwd_sm90.cu``; bf16 and fp16 at kernel head dims 64 and
+    128): the serve prefill's shape (b1 h16 s512 causal, segment ids
+    padding from 300; both block heights timed), the train cells' b8 h16
+    s1024 and b2 h16 s4096, ragged shapes, sq != sk, fp16 and a padded
+    head dim, a bitwise rerun. flash_fwd.cu's route at the O0 path's
+    shape (fp32 b8 h16 s1024) and bf16 d32."""
     import torch.nn.functional as F
     from apex_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(1)
 
-    def rand(*shape):
-        return torch.randn(*shape, generator=gen, device="cuda",
-                           dtype=torch.bfloat16)
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
 
-    # extra shapes for the ragged edges and the other head dims: a q tile
-    # past sq, keys past sk, sq < sk, no segment ids
-    for b, h, sq, sk, d, causal in ((2, 3, 77, 77, 64, True),
-                                    (1, 2, 40, 130, 128, True),
-                                    (2, 2, 100, 100, 32, False)):
-        q, k, v = rand(b, h, sq, d), rand(b, h, sk, d), rand(b, h, sk, d)
+    def wgmma_moved(w0, f0):
+        return (fa.flash_attention.wgmma_launches - w0,
+                fa.flash_attention.launches - f0)
+
+    # the ragged edges: a q tile past sq, keys past sk, sq < sk, sq > sk,
+    # fp16, d 80 (padded to 128), and d 32 (flash_fwd.cu's route)
+    for b, h, sq, sk, d, causal, dtype, wgmma in (
+            (2, 3, 77, 77, 64, True, torch.bfloat16, True),
+            (1, 2, 40, 130, 128, True, torch.bfloat16, True),
+            (1, 2, 300, 129, 128, True, torch.float16, True),
+            (2, 2, 257, 257, 80, True, torch.bfloat16, True),
+            (2, 2, 100, 100, 32, False, torch.bfloat16, False)):
+        q, k, v = (rand(b, h, s_, d, dtype=dtype) for s_ in (sq, sk, sk))
+        n0 = (fa.flash_attention.wgmma_launches, fa.flash_attention.launches)
         out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        check(wgmma_moved(*n0) == (int(wgmma), 1),
+              f"flash b{b} sq{sq} sk{sk} d{d} {dtype}: wrong route")
         ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal)
         bf16_err(out, ref, 4e-3, f"flash b{b} h{h} sq{sq} sk{sk} d{d}")
         check((lse - ref_lse).abs().max().item() <= 1e-3, "flash lse")
 
+    # the serve prefill's shape: b1 h16 s512 causal, padding from 300
     b, h, s, d, live = 1, 16, 512, 64, 300
     q, k, v = rand(b, h, s, d), rand(b, h, s, d), rand(b, h, s, d)
     sid = torch.where(torch.arange(s, device="cuda") < live, 0, -1)
     sid = sid.to(torch.int32)[None].contiguous()
     scale = d ** -0.5
+    n0 = (fa.flash_attention.wgmma_launches, fa.flash_attention.launches)
     out, lse = fa.flash_attention_fwd(q, k, v, sid, None, True, scale)
+    check(wgmma_moved(*n0) == (1, 1), "flash serve shape: not the wgmma "
+          "route")
+    again = fa.flash_attention_fwd(q, k, v, sid, None, True, scale)
     ref, ref_lse = fa.flash_attention_reference(
         q, k, v, causal=True, segment_ids_q=sid, scale=scale)
     torch.cuda.synchronize()
+    check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+          "flash forward: a rerun gave other bits")
     err = bf16_err(out, ref, 4e-3, "flash")
     lse_err = (lse - ref_lse).abs().max().item()
-    # lse is fp32 in both: only the summation order and __expf differ
+    # lse is fp32 in both: only the summation order and ex2 differ
     check(lse_err <= 1e-3, f"flash lse max err {lse_err} > 1e-3")
     check(out[:, :, live:].abs().max().item() == 0.0,
           "flash: padded rows are not exactly zero")
+    rows = fa.fwd_block_rows(b * h, s, d, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    by_rows = {r: timer(lambda: fa._flash_fwd_cuda(
+        q, k, v, sid, None, True, scale, block_rows=r)) for r in (64, 128)}
     ms = timer(lambda: fa.flash_attention_fwd(q, k, v, sid, None, True,
                                               scale))
     plain_ms = timer(lambda: fa.flash_attention_reference(
         q, k, v, causal=True, segment_ids_q=sid, scale=scale))
     lib_ms = timer(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, scale=scale))
-    pairs = s * (s + 1) // 2                     # causal (q, k) pairs
-    flops = 4.0 * b * h * d * pairs
-    nbytes = 4 * b * h * s * d * 2 + b * h * s * 4 + b * s * 4
-    t_bound, by = bound(flops, nbytes)
+    t_bound, by = _fwd_bound(b, h, s, s, d, True, 2, live_rows=live)
 
-    # the train path's shape: b8 h16 s1024 causal, no segment ids
-    tb, ts = 8, 1024
-    tq, tk, tv = (rand(tb, h, ts, d) for _ in range(3))
-    tout, tlse = fa.flash_attention_fwd(tq, tk, tv, None, None, True, scale)
-    tref, tref_lse = fa.flash_attention_reference(tq, tk, tv, causal=True,
-                                                  scale=scale)
+    def train_shape(tb, ts, iters=30):
+        """The forward at a train cell's shape (causal, no segment ids)."""
+        tq, tk, tv = (rand(tb, h, ts, d) for _ in range(3))
+        tout, tlse = fa.flash_attention_fwd(tq, tk, tv, None, None, True,
+                                            scale)
+        tref, tref_lse = fa.flash_attention_reference(tq, tk, tv,
+                                                      causal=True,
+                                                      scale=scale)
+        torch.cuda.synchronize()
+        t_err = bf16_err(tout, tref, 4e-3, f"flash b{tb} s{ts}")
+        check((tlse - tref_lse).abs().max().item() <= 1e-3,
+              f"flash b{tb} s{ts} lse")
+        del tout, tref, tlse, tref_lse
+        tb_ms, tb_by = _fwd_bound(tb, h, ts, ts, d, True, 2)
+        return dict(
+            shape=f"b{tb} h{h} s{ts} d{d} causal", max_abs_err=t_err,
+            ms=timer(lambda: fa.flash_attention_fwd(tq, tk, tv, None, None,
+                                                    True, scale), iters),
+            plain_ms=timer(lambda: fa.flash_attention_reference(
+                tq, tk, tv, causal=True, scale=scale), iters=5),
+            library_ms=timer(lambda: F.scaled_dot_product_attention(
+                tq, tk, tv, is_causal=True, scale=scale), iters),
+            bound_ms=tb_ms, bound_by=tb_by)
+
+    wgmma = dict(
+        name="flash_fwd_sm90", route="cuda",
+        source="apex_tpu_torch/csrc/flash_fwd_sm90.cu",
+        replaces="apex_tpu/ops/flash_attention.py:251",
+        shape=f"b{b} h{h} s{s} d{d} bf16 causal, segment ids -1 from "
+              f"{live}; {rows}-row blocks (fwd_block_rows)",
+        max_abs_err=err, tolerance="2 bf16 ulp + 4e-3; lse 1e-3; a rerun "
+                                   "bitwise",
+        lse_max_abs_err=lse_err, ms=ms, plain_ms=plain_ms,
+        bound_ms=t_bound, bound_by=by, library_ms=lib_ms,
+        library="F.scaled_dot_product_attention(is_causal=True), no "
+                "segment ids",
+        ms_by_block_rows=by_rows, train_shape=train_shape(8, 1024),
+        long_shape=train_shape(2, 4096, iters=10))
+    del q, k, v, out, lse, again, ref, ref_lse
+
+    # flash_fwd.cu: fp32 at the O0 path's shape (b8 h16 s1024 d64 causal)
+    b, s = 8, 1024
+    q, k, v = (rand(b, h, s, d, dtype=torch.float32) for _ in range(3))
+    n0 = (fa.flash_attention.wgmma_launches, fa.flash_attention.launches)
+    out, lse = fa.flash_attention_fwd(q, k, v, None, None, True, scale)
+    check(wgmma_moved(*n0) == (0, 1), "flash fp32: not flash_fwd.cu")
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=True,
+                                                scale=scale)
     torch.cuda.synchronize()
-    t_err = bf16_err(tout, tref, 4e-3, "flash train shape")
-    check((tlse - tref_lse).abs().max().item() <= 1e-3, "flash train lse")
-    del tout, tref, tlse, tref_lse
-    t_pairs = tb * h * ts * (ts + 1) // 2
-    tb_ms, tb_by = bound(4.0 * d * t_pairs, 4 * tb * h * ts * d * 2
-                         + tb * h * ts * 4)
-    train_shape = dict(
-        shape=f"b{tb} h{h} s{ts} d{d} causal", max_abs_err=t_err,
-        ms=timer(lambda: fa.flash_attention_fwd(tq, tk, tv, None, None, True,
-                                                scale)),
+    f32_err = _fp32_err(out, ref, "flash fp32", FP32_FWD_TOL)
+    check((lse - ref_lse).abs().max().item() <= 1e-3, "flash fp32 lse")
+    f32_bound = _fwd_bound(b, h, s, s, d, True, 4, FP32_FLOPS_PER_S)
+    simt = dict(
+        name="flash_fwd", route="cuda",
+        source="apex_tpu_torch/csrc/flash_fwd.cu",
+        replaces="apex_tpu/ops/flash_attention.py:251",
+        shape=f"b{b} h{h} s{s} d{d} fp32 causal (the O0 path's; also bf16 "
+              "d32 above)",
+        max_abs_err=f32_err, tolerance=f"{FP32_FWD_TOL} of max and in "
+                                       "relative norm",
+        ms=timer(lambda: fa.flash_attention_fwd(q, k, v, None, None, True,
+                                                scale), iters=10),
         plain_ms=timer(lambda: fa.flash_attention_reference(
-            tq, tk, tv, causal=True, scale=scale), iters=10),
+            q, k, v, causal=True, scale=scale), iters=5),
         library_ms=timer(lambda: F.scaled_dot_product_attention(
-            tq, tk, tv, is_causal=True, scale=scale)),
-        bound_ms=tb_ms, bound_by=tb_by)
-    return dict(name="flash_fwd", route="cuda",
-                source="apex_tpu_torch/csrc/flash_fwd.cu",
-                replaces="apex_tpu/ops/flash_attention.py:251",
-                shape=f"b{b} h{h} s{s} d{d} bf16 causal, segment ids -1 "
-                      f"from {live}",
-                max_abs_err=err, tolerance="2 bf16 ulp + 4e-3",
-                lse_max_abs_err=lse_err,
-                ms=ms, plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
-                library_ms=lib_ms,
-                library="F.scaled_dot_product_attention(is_causal=True), "
-                        "no segment ids", train_shape=train_shape)
+            q, k, v, is_causal=True, scale=scale), iters=10),
+        library="F.scaled_dot_product_attention(is_causal=True), fp32",
+        bound_ms=f32_bound[0], bound_by=f32_bound[1])
+    return [wgmma, simt]
 
 
 def _paged_inputs(torch, gen, b, kv, g, d, page, m, num_pages, seq_lens):
@@ -564,14 +664,35 @@ def _grad_of(torch, fn, inputs, dout):
     return lambda: torch.autograd.grad(out, ins, dout, retain_graph=True)
 
 
+def _bwd_bound(b, h, s, d, itemsize, peak=BF16_FLOPS_PER_S):
+    """The single pass's bound at a causal self-attention shape: five
+    products of 2 d flops per live pair (s, dp, dv, dk, dq); q, k, v, out,
+    do read and dq, dk, dv written once, lse and delta read once (fp32)."""
+    pairs = s * (s + 1) // 2
+    return bound(5 * 2.0 * b * h * d * pairs,
+                 8 * b * h * s * d * itemsize + 2 * b * h * s * 4, peak)
+
+
 def check_flash_bwd(torch, timer):
+    """The single-pass backward on both routes. The wgmma route
+    (``flash_bwd_fused_sm90`` of ``csrc/flash_bwd_sm90.cu``) at the train
+    cell's b8 h16 s1024 d64 causal: as called (the delta pass, dq_acc's
+    zeroing and cast included) and alone on a given delta and dq_acc,
+    beside the split forced at the same shape and SDPA's backward; dk and
+    dv bitwise on a rerun (dq, summed by bulk reductions in a varying
+    order, is held to the tolerance); segment ids with padding rows, whose
+    dq is exactly zero (ptxas's registers and spills: check_flash_split).
+    flash_bwd.cu's single pass at the O0 path's shape (fp32)."""
     import torch.nn.functional as F
     from apex_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(5)
+    f = fa.flash_attention_bwd
 
-    def rand(*shape):
-        return torch.randn(*shape, generator=gen, device="cuda",
-                           dtype=torch.bfloat16)
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
+
+    def moved(n0):
+        return (f.wgmma_launches - n0[0], f.launches - n0[1])
 
     # segment ids with padding rows, at the training width
     b, h, s, d, live = 2, 16, 1024, 64, 700
@@ -579,8 +700,10 @@ def check_flash_bwd(torch, timer):
     sid = torch.where(torch.arange(s, device="cuda") < live, 0, -1)
     sid = sid.to(torch.int32)[None].expand(b, s).contiguous()
     out, lse = fa.flash_attention_fwd(q, k, v, sid, None, True)
+    n0 = (f.wgmma_launches, f.launches)
     dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, do, sid, None,
                                         True)
+    check(moved(n0) == (1, 1), "flash_bwd segments: not the wgmma route")
     ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
                                            causal=True, segment_ids_q=sid)
     torch.cuda.synchronize()
@@ -596,34 +719,78 @@ def check_flash_bwd(torch, timer):
     out, lse = fa.flash_attention_fwd(q, k, v, None, None, True, scale)
     got = fa.flash_attention_bwd(q, k, v, out, lse, do, None, None, True,
                                  scale)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, None, None, True,
+                                   scale)
     ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
                                            causal=True, scale=scale)
     torch.cuda.synchronize()
+    check(torch.equal(got[1], again[1]) and torch.equal(got[2], again[2]),
+          "flash_bwd: dk or dv changed on a rerun")
     err = max(grad_err(g, r, f"flash_bwd {n}")
               for n, g, r in zip(("dq", "dk", "dv"), got, ref))
-    del got, ref
+    del got, again, ref
+    delta = (do.float() * out.float()).sum(dim=-1)
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
+    alone_ms = timer(lambda: fa._flash_bwd_fused_cuda(
+        q, k, v, do, lse, delta, None, None, True, scale, dq_acc))
     ms = timer(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, None,
                                               None, True, scale))
+    split_ms = timer(lambda: fa._flash_bwd_cuda(
+        q, k, v, out, lse, do, None, None, True, scale, split=True))
     plain_ms = timer(lambda: fa.flash_attention_bwd_reference(
         q, k, v, out, lse, do, causal=True, scale=scale), iters=10)
     lib_ms = timer(_grad_of(torch, lambda a, b_, c: (
         F.scaled_dot_product_attention(a, b_, c, is_causal=True,
                                        scale=scale)), (q, k, v), do))
-    pairs = s * (s + 1) // 2
-    flops = 5 * 2.0 * b * h * d * pairs          # s, dp, dv, dk, dq
-    nbytes = 8 * b * h * s * d * 2 + 2 * b * h * s * 4
-    t_bound, by = bound(flops, nbytes)
-    return dict(name="flash_bwd", route="cuda",
-                source="apex_tpu_torch/csrc/flash_bwd.cu",
-                replaces="apex_tpu/ops/flash_attention.py:604",
-                shape=f"b{b} h{h} s{s} d{d} bf16 causal (also b2 with "
-                      f"segment ids, padding from {live})",
-                max_abs_err=err,
-                tolerance="2 bf16 ulp + 2% of max, 1% relative norm",
-                ms=ms, plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
-                library_ms=lib_ms,
-                library="backward of F.scaled_dot_product_attention("
-                        "is_causal=True)")
+    t_bound, by = _bwd_bound(b, h, s, d, 2)
+    wgmma = dict(
+        name="flash_bwd_fused_sm90", route="cuda",
+        source="apex_tpu_torch/csrc/flash_bwd_sm90.cu",
+        replaces="apex_tpu/ops/flash_attention.py:604",
+        shape=f"b{b} h{h} s{s} d{d} bf16 causal (also b2 with segment ids, "
+              f"padding from {live})",
+        max_abs_err=err,
+        tolerance="2 bf16 ulp + 2% of max, 1% relative norm (dq summed in "
+                  "a varying order); dk, dv bitwise on a rerun",
+        ms=alone_ms, as_called_ms=ms, split_ms=split_ms, plain_ms=plain_ms,
+        bound_ms=t_bound, bound_by=by, library_ms=lib_ms,
+        library="backward of F.scaled_dot_product_attention("
+                "is_causal=True)")
+    del q, k, v, do, out, lse, delta, dq_acc
+
+    # flash_bwd.cu: fp32 at the O0 path's shape
+    q, k, v, do = (rand(b, h, s, d, dtype=torch.float32) for _ in range(4))
+    out, lse = fa.flash_attention_fwd(q, k, v, None, None, True, scale)
+    n0 = (f.wgmma_launches, f.launches)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, None, None, True,
+                                 scale)
+    check(moved(n0) == (0, 1), "flash_bwd fp32: not flash_bwd.cu")
+    ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                           causal=True, scale=scale)
+    torch.cuda.synchronize()
+    f32_err = max(_fp32_err(g, r, f"flash_bwd fp32 {n}", FP32_GRAD_TOL)
+                  for n, g, r in zip(("dq", "dk", "dv"), got, ref))
+    del got, ref
+    f32_bound = _bwd_bound(b, h, s, d, 4, FP32_FLOPS_PER_S)
+    simt = dict(
+        name="flash_bwd", route="cuda",
+        source="apex_tpu_torch/csrc/flash_bwd.cu",
+        replaces="apex_tpu/ops/flash_attention.py:604",
+        shape=f"b{b} h{h} s{s} d{d} fp32 causal (the O0 path's)",
+        max_abs_err=f32_err,
+        tolerance=f"{FP32_GRAD_TOL} of max and in relative norm",
+        ms=timer(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, None,
+                                                None, True, scale), iters=5),
+        plain_ms=timer(lambda: fa.flash_attention_bwd_reference(
+            q, k, v, out, lse, do, causal=True, scale=scale), iters=5),
+        library_ms=timer(_grad_of(torch, lambda a, b_, c: (
+            F.scaled_dot_product_attention(a, b_, c, is_causal=True,
+                                           scale=scale)), (q, k, v), do),
+            iters=5),
+        library="backward of F.scaled_dot_product_attention("
+                "is_causal=True), fp32",
+        bound_ms=f32_bound[0], bound_by=f32_bound[1])
+    return [wgmma, simt]
 
 
 def check_layer_norm_bwd(torch, timer):
@@ -797,24 +964,45 @@ def _split_moved(fa, before, wgmma: bool):
     return moved == ((0, 1, 1, 1, 1) if wgmma else (0, 1, 1, 0, 0))
 
 
+# the wgmma flash kernels in ptxas's log: the split's two, the forward (its
+# second parameter the rows a block: 1 or 2 consumer warpgroups) and the
+# single pass
+_SM90_KERNEL = re.compile(r"(flash_dkdv_sm90|flash_dq_sm90|flash_fwd_sm90|"
+                          r"flash_bwd_fused_sm90)I\d+\w+?Li(\d+)E(?:Li(\d+)E)?")
+# the kernels held to no spill (the split's dk/dv kernel at d 64 spills 8
+# bytes: ROADMAP §C)
+_NO_SPILL = ("flash_fwd_sm90", "flash_bwd_fused_sm90")
+
+
 def _sm90_registers(build):
-    """``ptxas -v``'s register count of each kernel in the wgmma split's
-    libraries (before ``setmaxnreg``: the producer warpgroup gives up to 40
-    a thread and the two consumer warpgroups take 232)."""
-    import re
+    """``ptxas -v``'s register count and spill bytes of each kernel in the
+    wgmma flash libraries (before ``setmaxnreg``: the producer warpgroup
+    gives up to 40 a thread and the consumer warpgroups take 232); fails
+    on a spill in this slice's kernels."""
     regs = {}
-    for target in build.targets(["flash_bwd_sm90"]):
+    for target in build.targets(["flash_fwd_sm90", "flash_bwd_sm90"]):
         name = None
         for line in build.library_path(target).with_suffix(".log") \
                 .read_text().splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:     # e.g. ...15flash_dkdv_sm90I13__nv_bfloat16Li64EE...
-                k = re.search(r"(flash_dkdv_sm90|flash_dq_sm90)I\d+\w+?"
-                              r"Li(\d+)E", m.group(1))
-                name = f"{target} {k.group(1)} d{k.group(2)}" if k else None
+                k = _SM90_KERNEL.search(m.group(1))
+                name = None
+                if k:
+                    name = f"{target} {k.group(1)} d{k.group(2)}"
+                    if k.group(3):
+                        name += f" rows{64 * int(k.group(3))}"
+                    regs[name] = {}
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and name:
+                spill = int(m.group(1)) + int(m.group(2))
+                regs[name]["spill_bytes"] = spill
+                check(spill == 0 or not name.split()[1] in _NO_SPILL,
+                      f"{name}: ptxas spills {spill} bytes")
             m = re.search(r"Used (\d+) registers", line)
             if m and name:
-                regs[name] = int(m.group(1))
+                regs[name]["registers"] = int(m.group(1))
     return regs
 
 
@@ -1243,9 +1431,11 @@ def counters():
     """Each kernel's launch counter as (wrapper, attribute): the fp8
     variant of paged decode counts apart from the bf16 kernel, the split
     flash backward's two kernels apart from the single pass, and the
-    split's wgmma route (``*_sm90``) apart from the pair as a whole
-    (``flash_bwd_dkdv``/``flash_bwd_dq``; :func:`read_counters` leaves
-    flash_bwd.cu's own launches there)."""
+    wgmma route of the flash forward, the single pass and the split
+    (``*_sm90``) apart from both routes together (``flash_fwd``,
+    ``flash_bwd``, ``flash_bwd_dkdv``/``flash_bwd_dq``;
+    :func:`read_counters` leaves flash_fwd.cu's and flash_bwd.cu's own
+    launches there)."""
     from apex_tpu_torch.ops import flash_attention as fa
     from apex_tpu_torch.ops import fp8_matmul as mm
     from apex_tpu_torch.ops import fused_ce as xe
@@ -1255,10 +1445,13 @@ def counters():
     from apex_tpu_torch.scripts import vpu_probe as vp
     from apex_tpu_torch.zero import fused_update as fu
     return {"flash_fwd": (fa.flash_attention, "launches"),
+            "flash_fwd_sm90": (fa.flash_attention, "wgmma_launches"),
             "paged_decode": (fa.paged_decode_attention, "launches"),
             "paged_decode_fp8": (fa.paged_decode_attention, "fp8_launches"),
             "layer_norm_fwd": (ln.fused_layer_norm_affine, "launches"),
             "flash_bwd": (fa.flash_attention_bwd, "launches"),
+            "flash_bwd_fused_sm90": (fa.flash_attention_bwd,
+                                     "wgmma_launches"),
             "layer_norm_bwd": (ln.layer_norm_bwd, "launches"),
             "lm_head_ce_fwd": (ce.lm_head_ce_fwd, "launches"),
             "lm_head_ce_bwd": (ce.lm_head_ce_bwd, "launches"),
@@ -1286,10 +1479,13 @@ def reset_counters():
 
 
 def read_counters():
-    """Launches by kernel since :func:`reset_counters`; the split's pair
-    counters less the wgmma route's, so that ``flash_bwd_dkdv`` and
-    ``flash_bwd_dq`` count flash_bwd.cu's kernels alone."""
+    """Launches by kernel since :func:`reset_counters`; the flash
+    counters of both routes less the wgmma route's, so that ``flash_fwd``,
+    ``flash_bwd``, ``flash_bwd_dkdv`` and ``flash_bwd_dq`` count
+    flash_fwd.cu's and flash_bwd.cu's kernels alone."""
     out = {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
+    out["flash_fwd"] -= out["flash_fwd_sm90"]
+    out["flash_bwd"] -= out["flash_bwd_fused_sm90"]
     out["flash_bwd_dkdv"] -= out["flash_bwd_dkdv_sm90"]
     out["flash_bwd_dq"] -= out["flash_bwd_dq_sm90"]
     return out
@@ -1310,7 +1506,7 @@ def expected_serve_launches(path, eng, n_prefill, n_decode):
     L = eng.cfg.num_layers
     exp = {k: 0 for k in counters()}
     steps = n_prefill + n_decode
-    exp["flash_fwd"] = L * n_prefill
+    exp["flash_fwd_sm90"] = L * n_prefill       # bf16 d64: the wgmma route
     exp["layer_norm_fwd"] = (2 * L + 1) * steps
     decode = "paged_decode_fp8" if eng.ccfg.fp8 else "paged_decode"
     exp[decode] = L * n_decode
@@ -1481,7 +1677,9 @@ TF_TIE = 2 * TF_TOL
 # ---------------------------------------------------------------------------
 
 TRAIN_B, TRAIN_S, TRAIN_STEPS, LR = 8, 1024, 8, 3e-4
-TRAIN_PER_STEP = {"flash_fwd": 12, "flash_bwd": 12, "layer_norm_fwd": 25,
+# every flash launch of the bf16 d64 step on the wgmma route
+TRAIN_PER_STEP = {"flash_fwd": 0, "flash_fwd_sm90": 12, "flash_bwd": 0,
+                  "flash_bwd_fused_sm90": 12, "layer_norm_fwd": 25,
                   "layer_norm_bwd": 25, "lm_head_ce_fwd": 1,
                   "lm_head_ce_bwd": 1, "paged_decode": 0,
                   "paged_decode_fp8": 0, "fp8_matmul": 0,
@@ -1660,7 +1858,8 @@ def overflow_check(torch, cfg, model, opt, state, sstate):
 
 LONG_B, LONG_S, LONG_STEPS = 2, 4096, 4
 # every split launch of the bf16 step takes the wgmma route
-LONG_PER_STEP = {**TRAIN_PER_STEP, "flash_bwd": 0, "flash_bwd_dkdv": 0,
+LONG_PER_STEP = {**TRAIN_PER_STEP, "flash_bwd_fused_sm90": 0,
+                 "flash_bwd_dkdv": 0,
                  "flash_bwd_dq": 0, "flash_bwd_dkdv_sm90": 12,
                  "flash_bwd_dq_sm90": 12}
 
@@ -2808,7 +3007,8 @@ def run_dflamb_path(torch, cfg):
 
 
 _PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_kernel", "flash_dkdv_kernel",
-                 "flash_dq_kernel", "flash_dkdv_sm90", "flash_dq_sm90",
+                 "flash_dq_kernel", "flash_fwd_sm90", "flash_bwd_fused_sm90",
+                 "flash_dkdv_sm90", "flash_dq_sm90",
                  "paged_decode_kernel",
                  "_ln_fwd_body", "_ln_bwd_body", "_ce_fwd_body",
                  "_ce_bwd_body", "ce_fwd_kernel",
@@ -2910,11 +3110,12 @@ def trace(torch, cfg, params, path="serve"):
 
 def hgmma_counts(build):
     """``HGMMA`` instructions in the SASS of each wgmma library
-    (``cuobjdump -sass``): the LM-head CE's and the split flash
+    (``cuobjdump -sass``): the LM-head CE's and the flash forward's and
     backward's bf16/fp16 kernels run on the tensor cores' warpgroup
     products or the check fails."""
     out = {}
-    for name in build.targets(["lm_head_ce_sm90", "flash_bwd_sm90"]):
+    for name in build.targets(["lm_head_ce_sm90", "flash_fwd_sm90",
+                               "flash_bwd_sm90"]):
         sass = subprocess.run(
             [os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"),
              "-sass", str(build.library_path(name))], capture_output=True,
@@ -2942,7 +3143,8 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    sources = ["flash_fwd", "paged_decode", "flash_bwd", "flash_bwd_sm90",
+    sources = ["flash_fwd", "flash_fwd_sm90", "paged_decode", "flash_bwd",
+               "flash_bwd_sm90",
                "lm_head_ce", "lm_head_ce_sm90", "fp8_matmul",
                "multi_tensor_update", "bottleneck", "vpu_probe"]
     sources = _build.targets(sources)       # the dtype-split sources
@@ -2953,14 +3155,15 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "setmaxnreg" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-    log("wgmma in the LM-head CE and split flash backward libraries: "
+    log("wgmma in the LM-head CE and flash libraries: "
         + json.dumps(hgmma_counts(_build)))
 
     log("e4m3 cast, card against CPU: " + json.dumps(check_e4m3_cast(torch)))
     timer = Timer(torch)
-    kernels = [check_flash(torch, timer), check_paged(torch, timer),
+    kernels = [*check_flash(torch, timer), check_paged(torch, timer),
                check_paged_fp8(torch, timer), check_fp8_matmul(torch, timer),
-               check_layer_norm(torch, timer), check_flash_bwd(torch, timer),
+               check_layer_norm(torch, timer),
+               *check_flash_bwd(torch, timer),
                check_layer_norm_bwd(torch, timer),
                *check_lm_head_ce(torch, timer),
                *check_flash_split(torch, timer),
@@ -2974,6 +3177,7 @@ def main() -> int:
             f"library {kr['library_ms']}")
         for extra in ("device_launches_per_call", "split_ms",
                       "single_pass_ms", "b8_s1024", "registers",
+                      "as_called_ms", "ms_by_block_rows", "long_shape",
                       "delta_fold_max_abs_err", "by_shape",
                       "train_shape", "lamb_ms", "checked", "by_op",
                       "cudnn_composition_max_abs_err"):

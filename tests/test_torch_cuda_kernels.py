@@ -35,6 +35,12 @@ its gradients within two ulps of the logits' dtype plus 1e-6 of the
 largest. The fused multi-tensor optimizer update (B13) is bitwise its
 plain version in every mode, at ragged sizes and under a set skip flag.
 
+The wgmma/TMA forward and single pass (``csrc/flash_fwd_sm90.cu``,
+``flash_bwd_fused_sm90``) are held at the same tolerances, over ragged s,
+sq != sk, segment padding, d 64/128 and padded, bf16 and fp16; the forward
+and the single pass's dk, dv bitwise on a rerun, its dq not (bulk
+reductions into an fp32 accumulator in a varying order).
+
 The shapes and dtypes ROADMAP §C records as repaired: fp16 flash, paged
 decode and LM-head CE are held like bf16 (two bf16 ulps bound two fp16
 ulps); fp32 kernels round nothing below fp32, so their outputs are held
@@ -404,6 +410,129 @@ def test_flash_bwd_split_wgmma_route_is_bitwise_on_a_rerun(gen, d, dtype,
                                ("dv", dv, rdv)):
             _close_grad(got, ref, name)
         assert torch.equal(dq, one[0])
+
+
+_WGMMA_CASES = [
+    # ragged s about the 64/128-row tiles, sq < sk and sq > sk causal,
+    # segment ids with padding rows, d 64, 128 and a padded d (80 -> 128,
+    # 40 -> 64), bf16 and fp16
+    (1, 1, 1, 1, 64, True, False, _BF),
+    (2, 3, 65, 65, 64, True, True, _BF),
+    (1, 2, 127, 127, 64, True, False, _F16),
+    (1, 2, 129, 129, 128, True, True, _BF),
+    (1, 2, 17, 200, 128, True, False, _BF),   # sq < sk: end-aligned causal
+    (1, 2, 130, 90, 64, True, True, _BF),     # sq > sk: rows with no key
+    (1, 2, 300, 129, 128, True, False, _F16),
+    (2, 2, 200, 77, 64, False, True, _F16),
+    (2, 2, 257, 257, 80, True, True, _BF),
+    (1, 3, 333, 333, 40, True, False, _F16),
+    (2, 4, 512, 512, 64, True, True, _BF),
+    (1, 2, 777, 777, 128, True, True, _F16),
+]
+
+
+def _wgmma_inputs(gen, b, h, sq, sk, d, seg, dtype):
+    q, k, v, do = (_rand(gen, b, h, s_, d, dtype=dtype)
+                   for s_ in (sq, sk, sk, sq))
+    sid_q = sid_kv = None
+    if seg:
+        rng = np.random.RandomState(b * sq + sk)
+        sid_q = np.sort(rng.randint(-1, 3, (b, sq)), axis=1)[:, ::-1]
+        sid_kv = np.sort(rng.randint(-1, 3, (b, sk)), axis=1)[:, ::-1]
+        sid_q = torch.from_numpy(sid_q.copy()).int().cuda()
+        sid_kv = torch.from_numpy(sid_kv.copy()).int().cuda()
+    return q, k, v, do, sid_q, sid_kv
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,seg,dtype", _WGMMA_CASES)
+@pytest.mark.parametrize("rows", [64, 128])
+def test_flash_fwd_wgmma_route_matches_plain(gen, b, h, sq, sk, d, causal,
+                                             seg, dtype, rows):
+    """The wgmma forward (csrc/flash_fwd_sm90.cu) at both block heights
+    against the plain version (two bf16 ulps + 4e-3, lse 1e-3); padding
+    rows exactly zero; the same bits on a rerun (no atomics); one launch
+    on the wgmma counter."""
+    q, k, v, _, sid_q, sid_kv = _wgmma_inputs(gen, b, h, sq, sk, d, seg,
+                                              dtype)
+    f = fa.flash_attention
+    n0 = (f.launches, f.wgmma_launches)
+    out, lse = fa._flash_fwd_cuda(q, k, v, sid_q, sid_kv, causal, d ** -0.5,
+                                  block_rows=rows)
+    again = fa._flash_fwd_cuda(q, k, v, sid_q, sid_kv, causal, d ** -0.5,
+                               block_rows=rows)
+    torch.cuda.synchronize()
+    assert (f.launches, f.wgmma_launches) == (n0[0] + 2, n0[1] + 2)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    ref, ref_lse = fa.flash_attention_reference(
+        q, k, v, causal=causal, segment_ids_q=sid_q, segment_ids_kv=sid_kv)
+    assert out.dtype == dtype
+    _close(out, ref, 4e-3)
+    assert float((lse - ref_lse).abs().max()) <= 1e-3
+    if seg:
+        pad = (sid_q < 0)[:, None, :].expand(b, h, sq)
+        assert not bool(out[pad].any())
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,seg,dtype", _WGMMA_CASES)
+def test_flash_bwd_fused_wgmma_route_matches_plain(gen, b, h, sq, sk, d,
+                                                   causal, seg, dtype):
+    """The wgmma single pass (flash_bwd_fused_sm90) against the plain
+    backward, held like the other backward kernels; dk and dv are the
+    same bits on a rerun (each written once by the block that owns its
+    keys), dq is not required to be: the blocks of one head add their
+    partials into the fp32 dq accumulator by TMA bulk reductions whose
+    order varies from run to run. Padding rows get exactly zero dq."""
+    q, k, v, do, sid_q, sid_kv = _wgmma_inputs(gen, b, h, sq, sk, d, seg,
+                                               dtype)
+    out, lse = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal)
+    f = fa.flash_attention_bwd
+    n0 = (f.launches, f.wgmma_launches, f.dkdv_launches)
+    one = fa._flash_bwd_cuda(q, k, v, out, lse, do, sid_q, sid_kv, causal,
+                             d ** -0.5, split=False)
+    two = fa._flash_bwd_cuda(q, k, v, out, lse, do, sid_q, sid_kv, causal,
+                             d ** -0.5, split=False)
+    torch.cuda.synchronize()
+    assert (f.launches, f.wgmma_launches, f.dkdv_launches) == (
+        n0[0] + 2, n0[1] + 2, n0[2])
+    assert torch.equal(one[1], two[1]) and torch.equal(one[2], two[2])
+    ref = fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, do, causal=causal, segment_ids_q=sid_q,
+        segment_ids_kv=sid_kv)
+    for name, got, r in zip(("dq", "dk", "dv"), one, ref):
+        assert got.dtype == dtype and got.shape == r.shape
+        _close_grad(got, r, name)
+    _close_grad(two[0], ref[0], "dq rerun")
+    if seg:
+        pad = (sid_q < 0)[:, None, :].expand(b, h, sq)
+        assert not bool(one[0][pad].any())
+
+
+def test_gpt_autograd_runs_the_wgmma_flash_kernels(gen):
+    """A GPT at head dim 64 (2 layers, h256, 4 heads) at b8 s1024 in bf16:
+    every flash launch of its forward and backward takes the wgmma route,
+    and its loss and gradients hold against the plain versions as the
+    train step's are held in chip_smoke.py."""
+    from apex_tpu_torch.models.gpt import GPT, GPTConfig
+    cfg = GPTConfig(vocab_size=512, max_seq_len=1024, hidden_size=256,
+                    num_layers=2, num_heads=4, dtype=torch.bfloat16)
+    model = GPT.init_params(cfg, torch.Generator().manual_seed(0))
+    ids = torch.randint(0, 512, (8, 1024), generator=gen, device="cuda")
+    labels = torch.roll(ids, -1, 1)
+    params = [p for _, p in model.named_parameters()]
+    f, b = fa.flash_attention, fa.flash_attention_bwd
+    n0 = (f.launches, f.wgmma_launches, b.launches, b.wgmma_launches)
+    loss = model.loss(ids, labels)
+    grads = torch.autograd.grad(loss, params)
+    torch.cuda.synchronize()
+    assert (f.launches, f.wgmma_launches, b.launches, b.wgmma_launches) == (
+        n0[0] + 2, n0[1] + 2, n0[2] + 2, n0[3] + 2)
+    ref_loss = model.loss(ids, labels, reference=True)
+    refs = torch.autograd.grad(ref_loss, params)
+    assert abs(float(loss) - float(ref_loss)) <= 1e-3 * float(ref_loss)
+    for g, r in zip(grads, refs):
+        rel = float((g.float() - r.float()).norm()
+                    / r.float().norm().clamp_min(1e-30))
+        assert rel <= 3e-2, rel
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
