@@ -24,37 +24,61 @@
 // clip(x * page_scale) in e4m3, one scale per (kv head, page). The score is
 // s = (q . k) / ks[kh, page] * scale, and the value term (p . v) / vs[kh,
 // page] with p kept in fp32 (folded here as p / vs into the p that
-// multiplies v). The bf16 mode's arithmetic is untouched.
+// multiplies v). The bf16 mode's arithmetic is untouched. The kernel's
+// divides (these two and the final acc / sum) are div.approx.f32
+// (__fdividef, within 2 fp32 ulps): the IEEE divide's slow path is a
+// subroutine call, whose calling convention spills registers to local
+// memory.
 //
 // Bound on the H100: HBM bytes. Each live K and V row is read once and used
 // for 2*group flops per element, so at group 1 the kernel does ~1 flop per
 // byte (~2 in fp8 mode): the time is the live pages' bytes over the memory
 // rate.
 //
-// Design. One thread block (128 threads) per (kv head, sequence, chunk of
-// up to 8 query rows of the group): the block loads its own block-table row
-// and seq_len, which replaces the TPU's scalar prefetch, and walks only the
-// live pages. The head dim runs at its instantiation DP, the next of 32,
-// 64, 128, 256 and 512 at or above d: DP/8 threads share one key row (32 at
-// DP 512, each holding two pieces), each loading 8 contiguous elements, so
-// a warp reads whole rows and a page (contiguous in the pool) streams
-// coalesced. While d % 8 == 0 a piece is one vector load (16 bytes of
-// bf16, 8 of e4m3); otherwise rows start at any element and the pieces are
-// masked element loads, zeros past d. The pool is read in place, never
-// padded. The serve engine's case — d equal to its instantiation over a
-// pool of q's dtype or of e4m3 — is a compile-time path (constant row
-// strides, one vector load a piece); other d and pool dtypes take the
-// general one (runtime d, the pool's dtype a warp-uniform branch). Per page: scores for every live key into shared memory (a
-// shuffle reduction over the row's lanes), then one warp per query row
-// takes the page max, the exponentials and the sum and publishes the
-// rescale factor, then every thread folds its keys' p * v into fp32
-// accumulators held in registers. The accumulators of the key lanes are
-// summed through shared memory once, after the last page. A group of more
-// than 8 rows (the JAX kernel pads the group to a multiple of 8, :1097) runs
-// in chunks of 8 (4 at DP 512), one block each, which read the same pages:
-// the accumulators of 8 rows x 8 columns a thread are what the registers
-// hold. Splitting a sequence across blocks (flash-decoding) and deeper load
-// pipelining are later work.
+// Design: flash-decoding, one launch. Each (kv head, sequence, chunk of up to
+// 8 query rows of the group) is a thread-block cluster of `splits` blocks
+// along x (at most 8; the wrapper takes 4); the row's live keys are cut into
+// `splits` pieces of c = ceil(n_live / splits) keys rounded up to `granule`,
+// block r taking keys [r c, (r + 1) c). The cut depends on the row's own
+// seq_len and on (splits, granule), which the wrapper fixes from (page_size,
+// d, pool dtype) alone: never on b, on the other rows or on how many are
+// active, so a row's result is bitwise the same whatever rows come with it
+// (decode replay after a preemption, a speculative-verify row against the
+// plain-decode row). A block past its row's live keys leaves at once; a row of
+// one piece writes its output from its block directly.
+//
+// A block: four consumer warps and one producer warp. The producer warp reads
+// the row's length and its first 32 block-table entries in one round trip,
+// keeps the piece's pages in shared memory and, on the exact path (d equal to
+// its instantiation DP, a pool of q's dtype or e4m3: the serve engine's case),
+// one of its lanes at once streams the piece's K and V rows into a 4-stage
+// shared-memory ring with cp.async.bulk (1-D TMA, one copy per page part: a
+// page of one head is contiguous in the pool), one mbarrier a stage, ~8 KB a
+// stage, refilling a stage when its consumers release it; the fp8 scales are
+// fetched while the rows are in flight and handed over by a named barrier.
+// Consumers score from shared memory. On the general path (a runtime d, or a
+// pool dtype other than q's) the consumers read K and V from the pool
+// directly, by vector loads while d % 8 == 0 and masked element loads
+// otherwise (rows then start at any element); the pool is read in place, never
+// padded.
+//
+// DP/8 lanes share one key row (32 at DP 512, each holding two 8-element
+// pieces), so a warp scores 32 / (DP/8) keys at a time ("slots"); key i of
+// the piece goes to warp (i % (4 slots)) / slots, slot i % slots, and a
+// lane takes two keys a step where its registers allow. The lanes of a key
+// sum their partial scores through shared memory in lane order (no warp
+// shuffles: their divergent-warp fallback code spilled registers). Each
+// slot keeps its own running max, sum and fp32 accumulators per query row
+// (the online softmax), so no block-wide barrier runs per page. At the end
+// the block merges its slots in slot order through shared memory, and,
+// for a row of more than one piece, every other piece's block stores its
+// (max, sum, accumulators) into rank 0's shared memory (st.async,
+// completing on rank 0's mbarrier: no cluster-wide barrier on the way
+// out), and rank 0 sums them in rank order, each weighted by exp(its max -
+// the row's max). p and every accumulator stay fp32. No atomics: a rerun
+// is bitwise the same. A group of more than 8 rows runs in chunks of 8 (4
+// at DP 512): the accumulators
+// of 8 rows x 8 columns a lane are what the registers hold.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -62,13 +86,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "dtype.cuh"
+#include "dsmem.cuh"        // the cluster's pushes
+#include "wgmma_gemm.cuh"   // mbarrier primitives
 
 namespace {
 
-constexpr int THREADS = 128;
+constexpr int WARPS = 4;                    // consumer warps
+constexpr int THREADS = 32 * (WARPS + 1);   // + the producer warp
+constexpr int RING = 4;                     // stages of the exact path
+constexpr int STAGE_BYTES = 8192;           // K + V bytes a stage aims at
+constexpr int MAX_SPLITS = 8;               // a portable cluster
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ void bf16x8_to_float(const uint4& u, float* f) {
@@ -211,11 +242,89 @@ __device__ __forceinline__ float from_float<float>(float x) {
 }
 
 // DP: the head dim's instantiation (the next of 32 .. 512 at or above the
-// runtime d); NV 8-element pieces a thread of a key row (2 at DP 512).
-// GENERAL: a runtime d and pool dtype (else d == DP and the pool is q's
-// dtype or e4m3).
+// runtime d); G: query rows a block. GENERAL: a runtime d and pool dtype
+// (else d == DP and the pool is q's dtype or e4m3).
 template <typename T, int DP, int G, bool FP8, bool GENERAL>
-__global__ void __launch_bounds__(THREADS)
+struct Cfg {
+  static constexpr int NV = DP > 256 ? 2 : 1;     // 8-element pieces a lane
+  static constexpr int TPK = DP / (8 * NV);       // lanes a key row
+  static constexpr int SLOTS = 32 / TPK;          // keys a warp step
+  static constexpr int STEP = WARPS * SLOTS;      // keys a block step
+  static constexpr int E = 8 * NV;                // elements a lane of a row
+  using P = typename std::conditional<FP8, E4M3, T>::type;  // exact pool
+  static constexpr int ELEM = FP8 ? 1 : (int)sizeof(T);
+  static constexpr int ROW = DP * ELEM;           // bytes of a pool row
+  // keys a ring stage: ~STAGE_BYTES of K and V, whole block steps
+  static constexpr int KEYS =
+      STAGE_BYTES / (2 * ROW) > STEP ? STAGE_BYTES / (2 * ROW) : STEP;
+  static constexpr int RING_BYTES = GENERAL ? 0 : RING * 2 * KEYS * ROW;
+  // a piece's state: max [G], sum [G], acc [G][DP] fp32, in 16-byte units
+  static constexpr int SLOT_BYTES = (G * (DP + 2) * 4 + 15) / 16 * 16;
+  // keys a lane takes per step: two where the registers allow
+  static constexpr int NK = G * E <= 32 ? 2 : 1;
+  static constexpr int NS = WARPS * SLOTS;          // slots of a block
+  // the ring; the pieces' states (rank 0 gathers them, slot r from rank r;
+  // every block builds its own in slot 0); the slots' states [NS][G] max,
+  // sum, [NS][G][DP] acc; the lanes' partial scores [WARPS][2][32][G][NK];
+  // the block-table prefetch [32]; the piece's pages and scales [pg_cap]
+  // each; the barriers (ring full and empty, the gather)
+  static size_t smem_bytes(int pg_cap) {
+    const size_t b = (size_t)RING_BYTES + (size_t)MAX_SPLITS * SLOT_BYTES +
+                     (size_t)NS * G * (DP + 2) * 4 +
+                     (size_t)WARPS * 2 * 32 * G * NK * 4 + 32 * 4 +
+                     (size_t)pg_cap * 12;
+    return (b + 7) / 8 * 8 + (2 * RING + 1) * 8;
+  }
+};
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(wg::smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(wg::smem_u32(bar))
+      : "memory");
+}
+
+// Stage s of a piece (keys [k_lo, k_hi)) into the ring: its K and V rows,
+// one bulk copy a page part each, on the stage's full barrier
+template <int KEYS, int ROW>
+__device__ __forceinline__ void issue_stage(
+    int s, const void* kp, const void* vp, uint8_t* ring_k, uint8_t* ring_v,
+    uint64_t* full, const int* pages, int k_lo, int k_hi, int pg_lo, int kh,
+    int num_pages, int page_size) {
+  const int st = s % RING;
+  const int key0 = k_lo + s * KEYS;
+  const int key1 = min(k_hi, key0 + KEYS);
+  wg::mbar_expect_tx(&full[st], (uint32_t)(key1 - key0) * 2 * ROW);
+  for (int k = key0; k < key1;) {
+    const int off = k % page_size;
+    const int n = min(key1 - k, page_size - off);
+    const long row =
+        ((long)kh * num_pages + pages[k / page_size - pg_lo]) * page_size +
+        off;
+    const long dst = ((long)st * KEYS + (k - key0)) * ROW;
+    bulk_load(ring_k + dst, static_cast<const uint8_t*>(kp) + row * ROW,
+              n * ROW, &full[st]);
+    bulk_load(ring_v + dst, static_cast<const uint8_t*>(vp) + row * ROW,
+              n * ROW, &full[st]);
+    k += n;
+  }
+}
+
+// The (max, sum, accumulator) merge of two softmax states: the other's
+// weight is exp(its max - the new max).
+__device__ __forceinline__ void merge_into(float& m, float& l, float& acc,
+                                           float mo, float lo, float acco) {
+  const float mn = fmaxf(m, mo);
+  const float a = __expf(m - mn), b = __expf(mo - mn);
+  l = l * a + lo * b;
+  acc = acc * a + acco * b;
+  m = mn;
+}
+
+template <typename T, int DP, int G, bool FP8, bool GENERAL>
+__global__ void __launch_bounds__(THREADS, 1)
 paged_decode_kernel(const T* __restrict__ q,
                     const void* __restrict__ kp,
                     const void* __restrict__ vp,
@@ -225,177 +334,327 @@ paged_decode_kernel(const T* __restrict__ q,
                     const int32_t* __restrict__ seq_lens,
                     T* __restrict__ out, int kv, int num_pages,
                     int page_size, int m, int group_all, int d_rt,
-                    int pool_code, float scale) {
-  constexpr int NV = DP > 256 ? 2 : 1;
-  constexpr int TPK = DP / (8 * NV);     // threads per key row
-  constexpr int KPI = THREADS / TPK;     // keys per iteration
-  constexpr int WARPS = THREADS / 32;
-  constexpr int E = 8 * NV;              // elements a thread of a row
+                    int pool_code, float scale, int granule, int pg_cap) {
+  using C = Cfg<T, DP, G, FP8, GENERAL>;
+  constexpr int NV = C::NV, TPK = C::TPK, SLOTS = C::SLOTS, E = C::E;
+  constexpr int KEYS = C::KEYS;
 
-  extern __shared__ float smem[];
-  float* sP = smem;                      // [G][page_size] scores, then p
-  float* sRed = smem + G * page_size;    // [KPI][DP] final reduction
-  __shared__ float sM[G], sL[G], sAlpha[G];
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* ring_k = smem;                               // [RING][KEYS][ROW]
+  uint8_t* ring_v = smem + C::RING_BYTES / 2;
+  uint8_t* gst = smem + C::RING_BYTES;                  // [splits][SLOT]
+  constexpr int NS = C::NS, NK = C::NK;
+  float* wm = reinterpret_cast<float*>(gst + MAX_SPLITS * C::SLOT_BYTES);
+  float* wl = wm + NS * G;                              // [NS][G]
+  float* wacc = wl + NS * G;                            // [NS][G][DP]
+  float* part_s = wacc + NS * G * DP;                   // [WARPS][2][32][G][NK]
+  int* bt_pre = reinterpret_cast<int*>(part_s + WARPS * 2 * 32 * G * NK);
+  int* pages = bt_pre + 32;                             // [pg_cap]
+  float* pks = reinterpret_cast<float*>(pages + pg_cap);
+  float* pvs = pks + pg_cap;
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      (reinterpret_cast<uintptr_t>(pvs + pg_cap) + 7) & ~uintptr_t(7));
+  uint64_t* empty = full + RING;
+  uint64_t* gbar = empty + RING;
+  float* bm = reinterpret_cast<float*>(gst);            // this piece's state
+  float* bl = bm + G;
+  float* bacc = bl + G;
 
-  const int kh = blockIdx.x, bi = blockIdx.y;
+  const int rank = blockIdx.x, splits = gridDim.x;      // the cluster
+  const int kh = blockIdx.y % kv, chunk = blockIdx.y / kv;
+  const int bi = blockIdx.z;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int kl = tid / TPK, c = tid % TPK;
   const int d = GENERAL ? d_rt : DP;
   const bool vec = !GENERAL || d % 8 == 0;
-  // this block's rows of the group: [g0, g0 + group)
-  const int g0 = blockIdx.z * G;
+  const int g0 = chunk * G;                 // rows [g0, g0 + group)
   const int group = min(G, group_all - g0);
   const long qrow = ((long)bi * kv + kh) * group_all + g0;
 
-  const int n_live = min(seq_lens[bi], m * page_size);
-  if (n_live <= 0) {                     // inactive slot: exact zeros
-    for (int i = tid; i < group * d; i += THREADS)
-      out[qrow * d + i] = from_float<T>(0.f);
-    return;
+  // the row's length and, speculatively, its first 32 block-table entries
+  // (one round trip for both); the queries
+  const int seq_len = seq_lens[bi];
+  if (warp == WARPS && lane < m)
+    bt_pre[lane] = block_tables[(long)bi * m + lane];
+  if (tid == 0) {
+    for (int s = 0; s < RING; ++s) {
+      wg::mbar_init(&full[s], 1);
+      wg::mbar_init(&empty[s], WARPS);
+    }
+    wg::mbar_init(gbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-
+  const int kl = lane / TPK, cc = lane % TPK;
   float qf[G][E];
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi) {
-#pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      if (gi < group) {
-        load_cols<T>(q, (qrow + gi) * d, (j * TPK + c) * 8, d, vec,
-                     qf[gi] + 8 * j);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) qf[gi][8 * j + e] = 0.f;
-      }
-    }
-  }
-  float acc[G][E];
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi)
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[gi][e] = 0.f;
-  if (tid < G) {
-    sM[tid] = NEG_INF;
-    sL[tid] = 0.f;
-  }
-
-  const int n_pages = (n_live + page_size - 1) / page_size;
-  for (int j = 0; j < n_pages; ++j) {
-    int page = block_tables[(long)bi * m + j];
-    page = min(max(page, 0), num_pages - 1);   // clamp like an XLA gather
-    const long base = ((long)kh * num_pages + page) * page_size * d;
-    const int live = min(page_size, n_live - j * page_size);
-    float ks = 1.f, vs = 1.f;
-    if constexpr (FP8) {
-      ks = k_scales[(long)kh * num_pages + page];
-      vs = v_scales[(long)kh * num_pages + page];
-    }
-
-    // ---- scores of the live keys: s = (q . k) * scale
-    for (int t0 = 0; t0 < live; t0 += KPI) {
-      const int t = t0 + kl;
-      float kf[E];
-#pragma unroll
-      for (int v8 = 0; v8 < NV; ++v8) {
-        if (t < live) {
-          load_kv<T, FP8, GENERAL>(kp, pool_code, base + (long)t * d,
-                                   (v8 * TPK + c) * 8, d, vec, kf + 8 * v8);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) kf[8 * v8 + e] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int gi = 0; gi < G; ++gi) {
-        float part = 0.f;
-#pragma unroll
-        for (int e = 0; e < E; ++e) part += qf[gi][e] * kf[e];
-#pragma unroll
-        for (int off = 1; off < TPK; off <<= 1)
-          part += __shfl_xor_sync(0xffffffffu, part, off);
-        if (c == 0 && t < live && gi < group) {
-          if constexpr (FP8)
-            sP[gi * page_size + t] = part / ks * scale;
-          else
-            sP[gi * page_size + t] = part * scale;
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---- one warp per query row: page max, p = exp(s - m_new), sum
-    for (int gi = warp; gi < group; gi += WARPS) {
-      float* row = sP + gi * page_size;
-      float mx = NEG_INF;
-      for (int t = lane; t < live; t += 32) mx = fmaxf(mx, row[t]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = sM[gi];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int t = lane; t < live; t += 32) {
-        const float p = __expf(row[t] - m_new);
-        if constexpr (FP8)
-          row[t] = p / vs;
-        else
-          row[t] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = __expf(m_old - m_new);
-        sAlpha[gi] = alpha;
-        sL[gi] = alpha * sL[gi] + sum;
-        sM[gi] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // ---- acc = acc * alpha + sum_t p[t] * v[t]
+  if (warp < WARPS) {
 #pragma unroll
     for (int gi = 0; gi < G; ++gi) {
-      const float a = gi < group ? sAlpha[gi] : 1.f;
 #pragma unroll
-      for (int e = 0; e < E; ++e) acc[gi][e] *= a;
-    }
-    for (int t = kl; t < live; t += KPI) {
-      float vf[E];
-#pragma unroll
-      for (int v8 = 0; v8 < NV; ++v8)
-        load_kv<T, FP8, GENERAL>(vp, pool_code, base + (long)t * d,
-                                 (v8 * TPK + c) * 8, d, vec, vf + 8 * v8);
-#pragma unroll
-      for (int gi = 0; gi < G; ++gi) {
+      for (int j = 0; j < NV; ++j) {
         if (gi < group) {
-          const float p = sP[gi * page_size + t];
+          load_cols<T>(q, (qrow + gi) * d, (j * TPK + cc) * 8, d, vec,
+                       qf[gi] + 8 * j);
+        } else {
 #pragma unroll
-          for (int e = 0; e < E; ++e) acc[gi][e] += p * vf[e];
+          for (int e = 0; e < 8; ++e) qf[gi][8 * j + e] = 0.f;
         }
       }
     }
-    __syncthreads();  // sP is rewritten by the next page
   }
+  __syncthreads();
 
-  // ---- sum the key lanes' partial accumulators, normalize, store
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi) {
-    if (gi >= group) break;
-#pragma unroll
-    for (int v8 = 0; v8 < NV; ++v8)
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        sRed[kl * DP + (v8 * TPK + c) * 8 + e] = acc[gi][8 * v8 + e];
-    __syncthreads();
-    for (int col = tid; col < d; col += THREADS) {
-      float tot = 0.f;
-      for (int r = 0; r < KPI; ++r) tot += sRed[r * DP + col];
-      const float l = sL[gi];
-      out[(qrow + gi) * d + col] = from_float<T>(tot / (l > 0.f ? l : 1.f));
+  const int n_live = min(seq_len, m * page_size);
+  if (n_live <= 0) {                        // inactive slot: exact zeros
+    if (rank == 0)
+      for (int i = tid; i < group * d; i += THREADS)
+        out[qrow * d + i] = from_float<T>(0.f);
+    return;
+  }
+  // this row's pieces: c keys each, whole granules
+  int c = (n_live + splits - 1) / splits;
+  c = (c + granule - 1) / granule * granule;
+  const int busy = (n_live + c - 1) / c;
+  if (rank >= busy) return;
+  const int k_lo = rank * c, k_hi = min(n_live, k_lo + c);
+  const int pg_lo = k_lo / page_size;
+  const int npg = (k_hi - 1) / page_size - pg_lo + 1;
+  const int nst = (k_hi - k_lo + KEYS - 1) / KEYS;
+  if (busy > 1) dsmem::cluster_arrive();    // the pieces meet at rank 0
+  // consumers need the pages (general path) or the scales (fp8) in shared
+  // memory: named barrier 1, which the producer warp arrives at
+  constexpr bool META = FP8 || GENERAL;
+
+  if (warp == WARPS) {
+    // ---- producer warp: the piece's pages, clamped like an XLA gather
+    for (int i = lane; i < npg; i += 32) {
+      const int pslot = pg_lo + i;
+      const int page = pslot < 32 ? bt_pre[pslot]
+                                  : block_tables[(long)bi * m + pslot];
+      pages[i] = min(max(page, 0), num_pages - 1);
     }
-    __syncthreads();
+    __syncwarp();
+    // exact path: lane 0 streams the piece's K and V rows through the ring
+    if constexpr (!GENERAL) {
+      if (lane == 0)
+        for (int s = 0; s < min(nst, RING); ++s)
+          issue_stage<C::KEYS, C::ROW>(s, kp, vp, ring_k, ring_v, full, pages,
+                                       k_lo, k_hi, pg_lo, kh, num_pages,
+                                       page_size);
+    }
+    if constexpr (FP8) {          // the scales, while the rows are in flight
+      for (int i = lane; i < npg; i += 32) {
+        pks[i] = k_scales[(long)kh * num_pages + pages[i]];
+        pvs[i] = v_scales[(long)kh * num_pages + pages[i]];
+      }
+    }
+    if constexpr (META) {
+      __syncwarp();
+      asm volatile("bar.arrive 1, %0;\n" ::"n"(THREADS) : "memory");
+    }
+    if constexpr (!GENERAL) {     // deeper pieces: refill freed stages
+      if (lane == 0)
+        for (int s = RING; s < nst; ++s) {
+          wg::mbar_wait(&empty[s % RING], ((s / RING) - 1) & 1);
+          issue_stage<C::KEYS, C::ROW>(s, kp, vp, ring_k, ring_v, full, pages,
+                                       k_lo, k_hi, pg_lo, kh, num_pages,
+                                       page_size);
+        }
+    }
+  } else {
+    if constexpr (META)
+      asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
+    // ---- consumers: key i of a stage to warp (i % STEP) / SLOTS, slot kl
+    float mx[G], sl[G], acc[G][E];
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      mx[gi] = NEG_INF;
+      sl[gi] = 0.f;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[gi][e] = 0.f;
+    }
+    int it = 0;                      // the warp's steps, for parity
+    for (int s = 0; s < nst; ++s) {
+      const int st = s % RING;
+      if constexpr (!GENERAL) wg::mbar_wait(&full[st], (s / RING) & 1);
+      const int key0 = k_lo + s * KEYS;
+      const int nkeys = min(KEYS, k_hi - key0);
+      // NK keys a lane at a time (i, i + STEP, ...): independent chains.
+      // A lane past the live keys reads the stage's first key and selects
+      // zeros and a zero weight.
+      for (int i0 = warp * SLOTS; i0 < nkeys; i0 += NK * C::STEP) {
+        float kf[NK][E], vf[NK][E], ks[NK], vs[NK];
+        bool live[NK];
+#pragma unroll
+        for (int n = 0; n < NK; ++n) {
+          const int i_live = i0 + n * C::STEP + kl;
+          live[n] = i_live < nkeys;
+          const int i = live[n] ? i_live : 0;
+          const int key = key0 + i;
+          const int slot = key / page_size - pg_lo;
+          ks[n] = FP8 ? pks[slot] : 1.f;
+          vs[n] = FP8 ? pvs[slot] : 1.f;
+#pragma unroll
+          for (int v8 = 0; v8 < NV; ++v8) {
+            const int col = (v8 * TPK + cc) * 8;
+            float* kd = kf[n] + 8 * v8;
+            float* vd = vf[n] + 8 * v8;
+            if constexpr (GENERAL) {
+              const long row = (((long)kh * num_pages + pages[slot]) *
+                                page_size + key % page_size) * d;
+              load_kv<T, FP8, true>(kp, pool_code, row, col, d, vec, kd);
+              load_kv<T, FP8, true>(vp, pool_code, row, col, d, vec, vd);
+            } else {
+              const long at = ((long)st * KEYS + i) * C::ROW;
+              load8<typename C::P>(ring_k + at, col, kd);
+              load8<typename C::P>(ring_v + at, col, vd);
+            }
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              kd[e] = live[n] ? kd[e] : 0.f;
+              vd[e] = live[n] ? vd[e] : 0.f;
+            }
+          }
+        }
+        // the partial scores of the key's lanes, summed in lane order
+        // through shared memory; two buffers by step parity
+        float* ps = part_s + ((warp * 2 + (it & 1)) * 32) * G * NK;
+        ++it;
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+          for (int n = 0; n < NK; ++n) {
+            float part = 0.f;
+#pragma unroll
+            for (int e = 0; e < E; ++e) part += qf[gi][e] * kf[n][e];
+            ps[(lane * G + gi) * NK + n] = part;
+          }
+        __syncwarp();
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi) {
+          float sc[NK];
+#pragma unroll
+          for (int n = 0; n < NK; ++n) {
+            float tot = 0.f;
+#pragma unroll
+            for (int l = 0; l < TPK; ++l)
+              tot += ps[((kl * TPK + l) * G + gi) * NK + n];
+            sc[n] = tot;
+          }
+          if (gi < group) {              // uniform across the warp
+            // a dead key: score -inf and weight 0, so the state is kept
+            float mn = mx[gi];
+#pragma unroll
+            for (int n = 0; n < NK; ++n) {
+              sc[n] = !live[n] ? NEG_INF
+                      : FP8    ? __fdividef(sc[n], ks[n]) * scale
+                               : sc[n] * scale;
+              mn = fmaxf(mn, sc[n]);
+            }
+            const float a = __expf(mx[gi] - mn);
+            float l = sl[gi] * a;
+#pragma unroll
+            for (int e = 0; e < E; ++e) acc[gi][e] *= a;
+#pragma unroll
+            for (int n = 0; n < NK; ++n) {
+              const float p = live[n] ? __expf(sc[n] - mn) : 0.f;
+              l += p;
+              const float pv = FP8 ? __fdividef(p, vs[n]) : p;
+#pragma unroll
+              for (int e = 0; e < E; ++e) acc[gi][e] += pv * vf[n][e];
+            }
+            sl[gi] = l;
+            mx[gi] = mn;
+          }
+        }
+      }
+      if constexpr (!GENERAL) {
+        __syncwarp();
+        if (lane == 0) wg::mbar_arrive(&empty[st]);
+      }
+    }
+    // each slot's state to shared memory (its lanes' columns; the max and
+    // the sum from the slot's first lane)
+    const int slot_id = warp * SLOTS + kl;
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+#pragma unroll
+      for (int v8 = 0; v8 < NV; ++v8)
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          wacc[(slot_id * G + gi) * DP + (v8 * TPK + cc) * 8 + e] =
+              acc[gi][8 * v8 + e];
+      if (cc == 0) {
+        wm[slot_id * G + gi] = mx[gi];
+        wl[slot_id * G + gi] = sl[gi];
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- the piece's state: its slots in slot order; a row of one piece
+  // writes its output, the other pieces' states go to rank 0's slots
+  if (busy > 1) dsmem::cluster_wait();      // every piece's block started
+  float* slot = reinterpret_cast<float*>(gst + rank * C::SLOT_BYTES);
+  for (int o = tid; o < group * DP; o += THREADS) {
+    const int gi = o / DP, col = o % DP;
+    float M = wm[gi], L = wl[gi], A = wacc[gi * DP + col];
+#pragma unroll
+    for (int w = 1; w < NS; ++w)
+      merge_into(M, L, A, wm[w * G + gi], wl[w * G + gi],
+                 wacc[(w * G + gi) * DP + col]);
+    if (busy == 1) {                        // one piece: the output
+      if (col < d)
+        out[(qrow + gi) * d + col] = from_float<T>(__fdividef(A, L));
+    } else if (rank == 0) {
+      bacc[gi * DP + col] = A;
+      if (col == 0) {
+        bm[gi] = M;
+        bl[gi] = L;
+      }
+    } else {
+      dsmem::store_to_rank(slot + 2 * G + gi * DP + col, A, gbar, 0);
+      if (col == 0) {
+        dsmem::store_to_rank(slot + gi, M, gbar, 0);
+        dsmem::store_to_rank(slot + G + gi, L, gbar, 0);
+      }
+    }
+  }
+  if (busy == 1 || rank > 0) return;
+
+  // ---- rank 0: the row's pieces, summed in rank order
+  if (tid == 0)
+    wg::mbar_expect_tx(gbar, (uint32_t)((busy - 1) * group * (DP + 2) * 4));
+  __syncthreads();
+  wg::mbar_wait(gbar, 0);
+  for (int o = tid; o < group * d; o += THREADS) {
+    const int gi = o / d, col = o % d;
+    // every piece's state, weighted by exp(its max - the row's max) and
+    // summed in rank order
+    float mr[MAX_SPLITS], lr[MAX_SPLITS], ar[MAX_SPLITS];
+#pragma unroll
+    for (int r = 0; r < MAX_SPLITS; ++r) {
+      mr[r] = NEG_INF;
+      lr[r] = ar[r] = 0.f;
+      if (r < busy) {
+        const float* rb = reinterpret_cast<const float*>(
+            gst + r * C::SLOT_BYTES);
+        mr[r] = rb[gi];
+        lr[r] = rb[G + gi];
+        ar[r] = rb[2 * G + gi * DP + col];
+      }
+    }
+    float M = mr[0];
+#pragma unroll
+    for (int r = 1; r < MAX_SPLITS; ++r) M = fmaxf(M, mr[r]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int r = 0; r < MAX_SPLITS; ++r) {
+      if (r < busy) {
+        const float e = __expf(mr[r] - M);
+        L += lr[r] * e;
+        A += ar[r] * e;
+      }
+    }
+    out[(qrow + gi) * d + col] = from_float<T>(__fdividef(A, L));
   }
 }
 
@@ -404,26 +663,37 @@ struct Args {
   void* out;
   int b, kv, num_pages, page_size, m, group, d, pool_code;
   float scale;
+  int splits, granule, pg_cap;
   cudaStream_t stream;
 };
 
 template <typename T, int DP, int G, bool FP8, bool GENERAL>
 cudaError_t launch(const Args& a) {
-  constexpr int NV = DP > 256 ? 2 : 1;
-  constexpr int KPI = THREADS / (DP / (8 * NV));
-  const size_t smem = ((size_t)G * a.page_size + (size_t)KPI * DP) * 4;
+  using C = Cfg<T, DP, G, FP8, GENERAL>;
+  auto kernel = paged_decode_kernel<T, DP, G, FP8, GENERAL>;
+  const size_t smem = C::smem_bytes(a.pg_cap);
   cudaError_t err = cudaFuncSetAttribute(
-      paged_decode_kernel<T, DP, G, FP8, GENERAL>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(a.kv, a.b, (a.group + G - 1) / G);
-  paged_decode_kernel<T, DP, G, FP8, GENERAL>
-      <<<grid, THREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.q), a.kp, a.vp,
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.splits, a.kv * ((a.group + G - 1) / G), a.b);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(a.q), a.kp, a.vp,
       static_cast<const float*>(a.ks), static_cast<const float*>(a.vs),
       static_cast<const int32_t*>(a.bt), static_cast<const int32_t*>(a.sl),
-      static_cast<T*>(a.out), a.kv, a.num_pages, a.page_size,
-      a.m, a.group, a.d, a.pool_code, a.scale);
+      static_cast<T*>(a.out), a.kv, a.num_pages, a.page_size, a.m, a.group,
+      a.d, a.pool_code, a.scale, a.granule, a.pg_cap);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -471,8 +741,10 @@ cudaError_t dispatch_pool(const Args& a, bool fp8, int code) {
 // C interface (loaded with ctypes); see the contract at the top. `dtype` is
 // q's (0 bf16, 1 fp16, 2 fp32). Null k_scales/v_scales select a pool of
 // `pool_dtype` (0 bf16, 1 fp16, 2 fp32; any of them with any q dtype),
-// non-null the e4m3 pool. Any head dim d up to 512. Returns the launch's
-// cudaError_t (cudaErrorInvalidValue for d past 512 or an unknown dtype).
+// non-null the e4m3 pool. Any head dim d up to 512. `splits` (1 to 8, the
+// blocks of a cluster) and `granule` (> 0) cut each row's live keys (see
+// the design note). Returns the launch's cudaError_t (cudaErrorInvalidValue
+// for d past 512, an unknown dtype or a cut outside those bounds).
 extern "C" int apex_paged_decode(const void* q, const void* k_pages,
                                  const void* v_pages, const void* k_scales,
                                  const void* v_scales,
@@ -480,12 +752,24 @@ extern "C" int apex_paged_decode(const void* q, const void* k_pages,
                                  const void* seq_lens, void* out, int b,
                                  int kv, int group, int d, int num_pages,
                                  int page_size, int m, float scale,
-                                 int dtype, int pool_dtype, void* stream) {
+                                 int dtype, int pool_dtype, int splits,
+                                 int granule, void* stream) {
   if (b <= 0 || kv <= 0 || group <= 0) return cudaSuccess;
   if (pool_dtype < 0 || pool_dtype > 2) return cudaErrorInvalidValue;
+  if (splits < 1 || splits > MAX_SPLITS || granule < 1 || page_size < 1 ||
+      m < 1)
+    return cudaErrorInvalidValue;
+  // the most pages a piece spans: its keys (at most c of the longest row a
+  // table holds) across page boundaries
+  const long c_max =
+      ((long)m * page_size + splits - 1) / splits;
+  const long c_round = (c_max + granule - 1) / granule * granule;
+  const int pg_cap =
+      (int)std::min<long>(m, (c_round + page_size - 1) / page_size + 1);
   const Args a{q, k_pages, v_pages, k_scales, v_scales, block_tables,
                seq_lens, out, b, kv, num_pages, page_size, m, group, d,
-               pool_dtype, scale, static_cast<cudaStream_t>(stream)};
+               pool_dtype, scale, splits, granule, pg_cap,
+               static_cast<cudaStream_t>(stream)};
   if ((k_scales == nullptr) != (v_scales == nullptr))
     return cudaErrorInvalidValue;
   const bool fp8 = k_scales != nullptr;

@@ -28,7 +28,9 @@ Port of ``apex_tpu/ops/flash_attention.py``:
   pool. On CUDA it launches ``csrc/paged_decode.cu``, which replaces the
   Pallas ``_paged_decode_kernel`` (``:986``) in both its modes: a bf16
   pool, or an e4m3 pool with one fp32 scale per (kv head, page); on the
-  CPU it is :func:`paged_attention_reference`.
+  CPU it is :func:`paged_attention_reference`. One launch a call: each row's
+  live keys are cut into pieces (:func:`paged_decode_pieces`) that the
+  blocks of one cluster take and merge on chip.
 
 Operands: the kernels take bf16, fp16 or fp32 (fp32 through the SIMT
 product of ``csrc/frag.cuh``, for O0). q, k and v may differ in dtype, as
@@ -69,7 +71,7 @@ kernel launches (the CPU path does not count).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -792,9 +794,42 @@ flash_attention.wgmma_launches = 0
 
 # apex_paged_decode(q, k_pages, v_pages, k_scales, v_scales, block_tables,
 #                   seq_lens, out, b, kv, group, d, num_pages, page_size, m,
-#                   scale, dtype, pool_dtype, stream)
+#                   scale, dtype, pool_dtype, splits, granule, stream)
 _PAGED_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# The cut of a row, chosen by measurement on the H100 (PERF.md, §6):
+# clusters of 4 launch and drain faster than clusters of 8 at the serve
+# engine's batch of 8 rows x 16 kv heads, and 16-key granules cut a
+# speculative draft or verify row into four busy pieces
+_DECODE_SPLITS = 4        # pieces of a row at most: the blocks of a cluster
+_DECODE_GRANULE = 16      # a piece's keys, in whole multiples of this
+
+
+def paged_decode_split_plan(page_size: int, d: int,
+                            pool_dtype: torch.dtype) -> Tuple[int, int]:
+    """``(splits, granule)`` of the paged decode kernel's cut of a row: at
+    most ``splits`` pieces of whole ``granule``s of keys (at least the keys
+    a block scores in one step at ``d``'s instantiation). Constants of
+    (page_size, d, pool dtype) alone, never of the batch."""
+    dp = kernel_head_dim(d)
+    lanes = dp // (16 if dp > 256 else 8)        # lanes of one key row
+    step = 4 * (32 // lanes)                     # keys of a block step
+    return _DECODE_SPLITS, max(_DECODE_GRANULE, step)
+
+
+def paged_decode_pieces(seq_len: int, page_size: int, d: int,
+                        pool_dtype: torch.dtype) -> List[Tuple[int, int]]:
+    """The key ranges ``[lo, hi)`` the kernel cuts a row of ``seq_len``
+    live keys into, in the order it merges them: ``c = ceil(seq_len /
+    splits)`` rounded up to the granule, block r taking ``[r c, (r + 1)
+    c)``; a row of no key has none. (The kernel first clamps seq_len to
+    the keys its block-table row holds.)"""
+    if seq_len <= 0:
+        return []
+    splits, granule = paged_decode_split_plan(page_size, d, pool_dtype)
+    c = -(-seq_len // splits)
+    c = -(-c // granule) * granule
+    return [(lo, min(seq_len, lo + c)) for lo in range(0, seq_len, c)]
 
 
 def _paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
@@ -835,7 +870,7 @@ def _paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens, scale,
              _ptr(v_scales), _ptr(block_tables), _ptr(seq_lens), _ptr(out),
              b, kv, group, d, num_pages, page_size, m, float(scale),
              DTYPE_CODES[dtype], 0 if fp8 else DTYPE_CODES[k_pages.dtype],
-             _stream(q))
+             *paged_decode_split_plan(page_size, d, pool_dtype), _stream(q))
     _build.check(err, what)
     if fp8:
         paged_decode_attention.fp8_launches += 1

@@ -15,7 +15,9 @@ product that consumes them:
   contraction), then on CUDA the kernel ``csrc/fp8_matmul.cu``, which
   replaces the Pallas ``_fp8_mm_kernel`` (``apex_tpu/ops/fp8_matmul.py:76``)
   and never writes a dequantized weight; on the CPU the plain version.
-  ``fp8_dequant_matmul.launches`` counts kernel launches.
+  ``fp8_dequant_matmul.launches`` counts kernel launches. At m <= 8 (the
+  decode regime) a call is one device launch with no workspace: the K
+  splits of a column tile (:func:`_splits`) meet on chip.
 
 The kernel takes bf16 ``x`` and gives a bf16 result (``out_dtype`` must be
 ``x.dtype``) and runs K and N in multiples of 16: any other K or N runs
@@ -57,23 +59,29 @@ def fp8_dequant_matmul_reference(x, q, scale, out_dtype=None):
     return (x.float() @ w).to(out_dtype)
 
 
-# apex_fp8_matmul(x, q, scale, y, ws, m, K, N, splits, stream)
-_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_SKINNY_M = 8            # the decode regime of the kernel: m <= 8
-_SKINNY_BN = 128         # columns per block there
-_MAX_KC = 512            # rows of one K split (the kernel's shared x tile)
-_WAVE = 132              # blocks to aim at: one per SM of an H100
+# apex_fp8_matmul(x, q, scale, y, m, K, N, splits, kc, stream)
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_TILE_N = 64             # the decode regime's columns a block
+_STAGE_K = 64            # weight rows of one stage of its TMA ring
+_MAX_SPLITS = 8          # a portable cluster
+_MIN_SPLIT_K = 128       # rows a split takes at least (two stages)
+_FILL = 128              # blocks to aim at: about one per SM of an H100
 
 
-def _splits(K: int, N: int) -> int:
-    """The decode regime's K split, from (K, N) alone so that a row's sum
-    order never depends on how many rows come with it: about one wave of
-    blocks, at least 64 rows and at most ``_MAX_KC`` rows per split."""
-    n_tiles = -(-N // _SKINNY_BN)
-    splits = max(1, min(-(-_WAVE // n_tiles), K // 64))
-    kc = -(-K // splits)
-    kc = min(_MAX_KC, -(-kc // 16) * 16)
-    return -(-K // kc)
+def _splits(K: int, N: int):
+    """The decode regime's K split ``(splits, kc)``: the K splits of a
+    column tile (one thread-block cluster of 1, 2, 4 or 8 blocks, so that
+    each owns a whole share of the tile's 64 columns; the fewest that give
+    about one block an SM) and the rows each takes (whole 64-row stages;
+    ``splits * kc >= K``). A function of (K, N) alone, so a row's sum
+    order never depends on how many rows come with it."""
+    tiles = -(-N // _TILE_N)
+    splits = 1
+    while (splits < _MAX_SPLITS and tiles * splits < _FILL
+           and 2 * splits * _MIN_SPLIT_K <= K):
+        splits *= 2
+    kc = -(-K // (splits * _STAGE_K)) * _STAGE_K
+    return splits, kc
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -120,14 +128,11 @@ def _fp8_mm_launch(x, q, scale, out_dtype):
     lead = x.shape[:-1]
     m = x.numel() // K
     y = torch.empty((m, N), dtype=torch.bfloat16, device=x.device)
-    splits = _splits(K, N)
-    ws = (torch.empty((splits, m, N), dtype=torch.float32, device=x.device)
-          if 0 < m <= _SKINNY_M else None)
+    splits, kc = _splits(K, N)
     fn = _build.function("fp8_matmul", "apex_fp8_matmul", _ARGS)
     err = fn(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(q.data_ptr()),
              ctypes.c_void_p(scale.data_ptr()), ctypes.c_void_p(y.data_ptr()),
-             None if ws is None else ctypes.c_void_p(ws.data_ptr()),
-             m, K, N, splits,
+             m, K, N, splits, kc,
              ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
     _build.check(err, "fp8_dequant_matmul kernel")
     fp8_dequant_matmul.launches += 1

@@ -21,15 +21,17 @@ of whichever kernel the checkout routes bf16 d64 to); the split backward
 at b2 h16 s4096 as called (delta included) and its two kernels apart
 (``_flash_dkdv_cuda`` and ``_flash_dq_cuda`` on a given delta, the calls
 every version since the split's first slice takes), paged decode over
-the serve path's batch (bf16 and e4m3 pools), the LM-head CE forward and
-backward at n8192 V32768 h1024 in bf16 and fp16, the fp8 matmul at
-decode qkv (m8 K1024 N3072). Times are medians of CUDA-event pairs
-around single launches, the L2 flushed before each. They are device
-times: a ``torch.cuda._sleep`` queued between the flush and the start
-event keeps the card busy while the host records the start event and
-runs the wrapper, so the pair holds no host time. The result is one
-JSON object (also written to ``--out``) with the card's name and power
-limit.
+the serve path's mixed batch and the speculative engine's draft and verify
+calls (bf16 and e4m3 pools), the LM-head CE forward and backward at n8192
+V32768 h1024 in bf16 and fp16, the fp8 matmul at the decode batch (m8) at
+the GPT's four block linears (K1024 N3072, K1024 N1024, K1024 N4096,
+K4096 N1024), and the timer's own floor (a one-element add). Times are
+medians of CUDA-event pairs around single launches, the L2 flushed before
+each. They are device times: a ``torch.cuda._sleep`` queued between the
+flush and the start event keeps the card busy while the host records the
+start event and runs the wrapper, so the pair holds no host time. The
+result is one JSON object (also written to ``--out``) with the card's name
+and power limit.
 """
 
 from __future__ import annotations
@@ -95,6 +97,9 @@ def main() -> int:
                                     device="cuda")).to(torch.bfloat16)
 
     res = {}
+    # the timer's own floor: a one-element add
+    tiny = torch.zeros(1, device="cuda")
+    res["timer floor: one-element add"] = timed(lambda: tiny.add_(1.0))
     q, k, v = (rnd(1, 16, 512, 64) for _ in range(3))
     sid = torch.where(torch.arange(512, device="cuda") < 300, 0, -1).to(
         torch.int32)[None].contiguous()
@@ -165,28 +170,35 @@ def main() -> int:
     del q, k, v, do, out, lse
 
     kv, page, d, num_pages, m = 16, 128, 64, 72, 8
-    seq_lens = [0, 1, 127, 128, 129, 300, 640, 1024]
-    qd = rnd(8, kv, 1, d)
-    kp, vp = rnd(kv, num_pages, page, d), rnd(kv, num_pages, page, d)
-    rng = np.random.RandomState(2)
-    pages = rng.permutation(np.arange(1, num_pages))
-    bt = np.zeros((8, m), np.int32)
-    used = 0
-    for i, n in enumerate(seq_lens):
-        need = -(-n // page)
-        bt[i, :need] = pages[used:used + need]
-        used += need
-    bt = torch.from_numpy(bt).cuda()
-    sl = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
-    res["paged_decode bf16"] = timed(
-        lambda: fa.paged_decode_attention(qd, kp, vp, bt, sl))
-    ks = fp8.compute_scale(kp.float().abs().amax(dim=(2, 3)), fp8.E4M3_MAX,
-                           2.0)
-    k8 = fp8.quantize(kp.float(), ks[..., None, None], fp8.E4M3)
-    v8 = fp8.quantize(vp.float(), ks[..., None, None], fp8.E4M3)
-    res["paged_decode e4m3"] = timed(
-        lambda: fa.paged_decode_attention(qd, k8, v8, bt, sl, k_scales=ks,
-                                          v_scales=ks))
+    # the serve engines' decode calls: the mixed batch, the speculative
+    # engine's draft call (one active row) and verify call (five rows of
+    # one sequence over one block table)
+    for name, seq_lens, one_table in (
+            ("", [0, 1, 127, 128, 129, 300, 640, 1024], False),
+            (" spec draft", [300, 0, 0, 0, 0, 0, 0, 0], False),
+            (" spec verify", [300, 301, 302, 303, 304, 0, 0, 0], True)):
+        qd = rnd(8, kv, 1, d)
+        kp, vp = rnd(kv, num_pages, page, d), rnd(kv, num_pages, page, d)
+        rng = np.random.RandomState(2)
+        pages = rng.permutation(np.arange(1, num_pages))
+        bt = np.zeros((8, m), np.int32)
+        used = 0
+        for i, n in enumerate(seq_lens):
+            need = -(-n // page)
+            bt[i, :need] = pages[:need] if one_table else \
+                pages[used:used + need]
+            used += 0 if one_table else need
+        bt = torch.from_numpy(bt).cuda()
+        sl = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
+        res[f"paged_decode bf16{name}"] = timed(
+            lambda: fa.paged_decode_attention(qd, kp, vp, bt, sl))
+        ks = fp8.compute_scale(kp.float().abs().amax(dim=(2, 3)),
+                               fp8.E4M3_MAX, 2.0)
+        k8 = fp8.quantize(kp.float(), ks[..., None, None], fp8.E4M3)
+        v8 = fp8.quantize(vp.float(), ks[..., None, None], fp8.E4M3)
+        res[f"paged_decode e4m3{name}"] = timed(
+            lambda: fa.paged_decode_attention(qd, k8, v8, bt, sl,
+                                              k_scales=ks, v_scales=ks))
 
     n, V, h = 8192, 32768, 1024
     x, e = rnd(n, h), rnd(V, h, scale=0.02)
@@ -205,11 +217,13 @@ def main() -> int:
         lambda: ce.lm_head_ce_bwd(x, e, tgt, mm_, ll, dl), iters=10)
     del x, e
 
-    xq = rnd(8, 1024)
-    wq, sc = mm.quantize_weight(torch.randn(1024, 3072, generator=gen,
-                                            device="cuda") / 32)
-    res["fp8_matmul m8 K1024 N3072"] = timed(
-        lambda: mm.fp8_dequant_matmul(xq, wq, sc))
+    # the four block linears of the GPT at the decode batch
+    for K, N in ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024)):
+        xq = rnd(8, K)
+        wq, sc = mm.quantize_weight(torch.randn(K, N, generator=gen,
+                                                device="cuda") * K ** -0.5)
+        res[f"fp8_matmul m8 K{K} N{N}"] = timed(
+            lambda: mm.fp8_dequant_matmul(xq, wq, sc))
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,

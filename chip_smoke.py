@@ -139,6 +139,17 @@ rerun, with each kernel's ``ptxas`` register count; flash_bwd.cu's route
 in fp32 at the same shape; both timed apart, and the split beside the
 single pass at b8 h16 s1024.
 
+The decode kernels (B12's decode regime, ``csrc/fp8_matmul.cu``; B5,
+``csrc/paged_decode.cu``) are held at the serve engines' shapes: B12 at
+the four block linears at m 8 beside bf16 ``torch.matmul`` on the
+unquantized weight, B5 in both pool modes at the mixed batch, the
+speculative engine's draft call (one active row of 300 keys) and verify
+call (five rows of one sequence at 300-304 keys), each beside its bound;
+``torch.profiler`` counts one device launch a call of each, and ptxas's
+log shows no spill in any of their kernels. The speculative engine's
+recorded logits rows must all be bitwise the plain engine's, and each
+serve engine's decode step is traced (device time beside wall time).
+
 The second-last line of standard output is the card as ``nvidia-smi``
 names it, the line before it the kernels' JSON record, and the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -423,7 +434,11 @@ def check_flash(torch, timer):
     return [wgmma, simt]
 
 
-def _paged_inputs(torch, gen, b, kv, g, d, page, m, num_pages, seq_lens):
+def _paged_inputs(torch, gen, b, kv, g, d, page, m, num_pages, seq_lens,
+                  one_table=False):
+    """bf16 q and pools; a block table with pages of their own for each row
+    (from a seeded permutation), or, with ``one_table``, every row over the
+    same pages (a speculative verify call: rows of one sequence)."""
     q = torch.randn(b, kv, g, d, generator=gen, device="cuda",
                     dtype=torch.bfloat16)
     kp = torch.randn(kv, num_pages, page, d, generator=gen, device="cuda",
@@ -436,49 +451,11 @@ def _paged_inputs(torch, gen, b, kv, g, d, page, m, num_pages, seq_lens):
     used = 0
     for i, n in enumerate(seq_lens):
         need = -(-n // page)
-        bt[i, :need] = pages[used:used + need]
-        used += need
+        bt[i, :need] = pages[:need] if one_table else pages[used:used + need]
+        used += 0 if one_table else need
     bt = torch.from_numpy(bt).cuda()
     sl = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
     return q, kp, vp, bt, sl
-
-
-def check_paged(torch, timer):
-    from apex_tpu_torch.ops import flash_attention as fa
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    # GQA group 3, a dead slot, a partial page
-    q, kp, vp, bt, sl = _paged_inputs(torch, gen, 3, 2, 3, 64, 16, 4, 9,
-                                      [13, 0, 64])
-    out = fa.paged_decode_attention(q, kp, vp, bt, sl)
-    ref = fa.paged_attention_reference(q, kp, vp, bt, sl)
-    bf16_err(out, ref, 1e-3, "paged GQA group 3")
-    check(out[1].abs().max().item() == 0.0, "paged: dead slot not zero")
-
-    b, kv, g, d, page, m, num_pages = 8, 16, 1, 64, 128, 8, 72
-    seq_lens = [0, 1, 127, 128, 129, 300, 640, 1024]
-    q, kp, vp, bt, sl = _paged_inputs(torch, gen, b, kv, g, d, page, m,
-                                      num_pages, seq_lens)
-    out = fa.paged_decode_attention(q, kp, vp, bt, sl)
-    ref = fa.paged_attention_reference(q, kp, vp, bt, sl)
-    torch.cuda.synchronize()
-    # p and the accumulators stay fp32 in both: only the output rounding
-    err = bf16_err(out, ref, 1e-3, "paged")
-    check(out[0].abs().max().item() == 0.0, "paged: inactive slot not zero")
-    ms = timer(lambda: fa.paged_decode_attention(q, kp, vp, bt, sl))
-    plain_ms = timer(lambda: fa.paged_attention_reference(q, kp, vp, bt, sl))
-    live = sum(seq_lens)
-    flops = 4.0 * kv * g * d * live
-    nbytes = (2 * kv * d * 2 * live + 2 * b * kv * g * d * 2
-              + b * m * 4 + b * 4)
-    t_bound, by = bound(flops, nbytes)
-    return dict(name="paged_decode", route="cuda",
-                source="apex_tpu_torch/csrc/paged_decode.cu",
-                replaces="apex_tpu/ops/flash_attention.py:986",
-                shape=f"b{b} kv{kv} g{g} d{d} page{page} m{m} "
-                      f"seq_lens {seq_lens}",
-                max_abs_err=err, tolerance="2 bf16 ulp + 1e-3", ms=ms,
-                plain_ms=plain_ms,
-                bound_ms=t_bound, bound_by=by, library_ms=None)
 
 
 def _fp8_pool(torch, gen, kv, num_pages, page, d):
@@ -490,42 +467,115 @@ def _fp8_pool(torch, gen, kv, num_pages, page, d):
     return fp8.quantize(x, s[..., None, None], fp8.E4M3), s
 
 
-def check_paged_fp8(torch, timer):
+# the serve engines' decode calls: the mixed batch of the bf16 and fp8
+# engines, the speculative engine's draft call (one active row in the fixed
+# batch of 8) and its verify call (k + 1 = 5 rows of one sequence)
+PAGED_SHAPES = (("mixed", [0, 1, 127, 128, 129, 300, 640, 1024], False),
+                ("spec_draft", [300, 0, 0, 0, 0, 0, 0, 0], False),
+                ("spec_verify", [300, 301, 302, 303, 304, 0, 0, 0], True))
+
+
+def _paged_bound(bt, seq_lens, kv, g, d, page, item, fp8):
+    """Each live K and V row read once (rows that share a page, as a verify
+    call's do, once), q and out, the tables, and the fp8 scales of the live
+    pages; 4 flops a live key, query row and column."""
+    bt = bt.cpu().numpy()
+    rows, pages = set(), set()
+    for i, n in enumerate(seq_lens):
+        for t in range(n):
+            rows.add((int(bt[i, t // page]), t % page))
+            pages.add(int(bt[i, t // page]))
+    b, m = bt.shape
+    nbytes = (2 * kv * d * item * len(rows) + 2 * b * kv * g * d * 2
+              + b * m * 4 + b * 4 + (2 * kv * len(pages) * 4 if fp8 else 0))
+    return bound(4.0 * kv * g * d * sum(seq_lens), nbytes)
+
+
+def _paged_mode(torch, timer, fp8):
+    """B5 at the serve engines' shapes (b8, kv16, g1, d64, page 128, m8) in
+    one pool mode: each against its plain version (p and the accumulators
+    fp32 on both sides: only summation order and the bf16 output rounding),
+    the dead rows exact zeros, then kernel and plain timed beside the
+    bound; and its device launches in one call."""
     from apex_tpu_torch.ops import flash_attention as fa
-    gen = torch.Generator(device="cuda").manual_seed(8)
-    b, kv, g, d, page, m, num_pages = 8, 16, 1, 64, 128, 8, 72
-    seq_lens = [0, 1, 127, 128, 129, 300, 640, 1024]
-    q, _, _, bt, sl = _paged_inputs(torch, gen, b, kv, g, d, page, m,
-                                    num_pages, seq_lens)
-    (kp, ks), (vp, vs) = (_fp8_pool(torch, gen, kv, num_pages, page, d)
-                          for _ in range(2))
-    out = fa.paged_decode_attention(q, kp, vp, bt, sl, k_scales=ks,
-                                    v_scales=vs)
-    ref = fa.paged_attention_reference(q, kp, vp, bt, sl, k_scales=ks,
-                                       v_scales=vs)
-    torch.cuda.synchronize()
-    # the same e4m3 values dequantized by the same fp32 divides, p and the
-    # accumulators fp32 in both: only summation order and the bf16 output
-    err = bf16_err(out, ref, 1e-3, "paged fp8")
-    check(out[0].abs().max().item() == 0.0, "paged fp8: inactive slot")
-    ms = timer(lambda: fa.paged_decode_attention(q, kp, vp, bt, sl,
-                                                 k_scales=ks, v_scales=vs))
-    plain_ms = timer(lambda: fa.paged_attention_reference(
-        q, kp, vp, bt, sl, k_scales=ks, v_scales=vs))
-    live = sum(seq_lens)
-    live_pages = sum(-(-n // page) for n in seq_lens)
-    flops = 4.0 * kv * g * d * live
-    nbytes = (2 * kv * d * 1 * live + 2 * kv * live_pages * 4
-              + 2 * b * kv * g * d * 2 + b * m * 4 + b * 4)
-    t_bound, by = bound(flops, nbytes)
+    gen = torch.Generator(device="cuda").manual_seed(8 if fp8 else 3)
+    kv, g, d, page, m, num_pages = 16, 1, 64, 128, 8, 72
+    what = "paged fp8" if fp8 else "paged"
+    shapes, launches = [], None
+    for name, seq_lens, one_table in PAGED_SHAPES:
+        q, kp, vp, bt, sl = _paged_inputs(torch, gen, 8, kv, g, d, page, m,
+                                          num_pages, seq_lens, one_table)
+        sc = {}
+        if fp8:
+            (kp, ks), (vp, vs) = (_fp8_pool(torch, gen, kv, num_pages, page,
+                                            d) for _ in range(2))
+            sc = dict(k_scales=ks, v_scales=vs)
+        out = fa.paged_decode_attention(q, kp, vp, bt, sl, **sc)
+        ref = fa.paged_attention_reference(q, kp, vp, bt, sl, **sc)
+        torch.cuda.synchronize()
+        err = bf16_err(out, ref, 1e-3, f"{what} {name}")
+        for i, n in enumerate(seq_lens):
+            check(n > 0 or out[i].abs().max().item() == 0.0,
+                  f"{what} {name}: inactive slot {i} not zero")
+        ms = timer(lambda: fa.paged_decode_attention(q, kp, vp, bt, sl,
+                                                     **sc))
+        plain_ms = timer(lambda: fa.paged_attention_reference(
+            q, kp, vp, bt, sl, **sc))
+        t_bound, by = _paged_bound(bt, seq_lens, kv, g, d, page,
+                                   1 if fp8 else 2, fp8)
+        shapes.append(dict(shape=name, seq_lens=seq_lens, max_abs_err=err,
+                           ms=ms, plain_ms=plain_ms, bound_ms=t_bound,
+                           bound_by=by))
+        if launches is None:
+            launches = device_launches(torch, lambda: fa.paged_decode_attention(
+                q, kp, vp, bt, sl, **sc), ("paged_decode_kernel",))
+            check(launches == {"paged_decode_kernel": 1, "other": 0},
+                  f"{what}: device launches {launches} in one call, "
+                  "expected one paged_decode_kernel and nothing else")
+    return shapes, launches
+
+
+def check_paged(torch, timer):
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    # GQA group 3, a dead slot, a partial page
+    q, kp, vp, bt, sl = _paged_inputs(torch, gen, 3, 2, 3, 64, 16, 4, 9,
+                                      [13, 0, 64])
+    out = fa.paged_decode_attention(q, kp, vp, bt, sl)
+    ref = fa.paged_attention_reference(q, kp, vp, bt, sl)
+    bf16_err(out, ref, 1e-3, "paged GQA group 3")
+    check(out[1].abs().max().item() == 0.0, "paged: dead slot not zero")
+    shapes, launches = _paged_mode(torch, timer, fp8=False)
+    main = shapes[0]
+    return dict(name="paged_decode", route="cuda",
+                source="apex_tpu_torch/csrc/paged_decode.cu",
+                replaces="apex_tpu/ops/flash_attention.py:986",
+                shape=f"b8 kv16 g1 d64 page128 m8 seq_lens "
+                      f"{main['seq_lens']} (by_shape: the spec draft and "
+                      "verify calls too)",
+                max_abs_err=max(x["max_abs_err"] for x in shapes),
+                tolerance="2 bf16 ulp + 1e-3", ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=None, by_shape=shapes,
+                device_launches_per_call=launches,
+                registers=_decode_registers(_build, "paged_decode"))
+
+
+def check_paged_fp8(torch, timer):
+    shapes, launches = _paged_mode(torch, timer, fp8=True)
+    main = shapes[0]
     return dict(name="paged_decode_fp8", route="cuda",
                 source="apex_tpu_torch/csrc/paged_decode.cu",
                 replaces="apex_tpu/ops/flash_attention.py:986",
-                shape=f"b{b} kv{kv} g{g} d{d} page{page} m{m} e4m3 pool, "
-                      f"[kv, pages] fp32 scales, seq_lens {seq_lens}",
-                max_abs_err=err, tolerance="2 bf16 ulp + 1e-3", ms=ms,
-                plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
-                library_ms=None)
+                shape=f"b8 kv16 g1 d64 page128 m8 e4m3 pool, [kv, pages] "
+                      f"fp32 scales, seq_lens {main['seq_lens']} (by_shape: "
+                      "the spec draft and verify calls too)",
+                max_abs_err=max(x["max_abs_err"] for x in shapes),
+                tolerance="2 bf16 ulp + 1e-3", ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=None, by_shape=shapes,
+                device_launches_per_call=launches)
 
 
 # the block linears of the 12-layer h1024 GPT, [in, out]
@@ -534,9 +584,10 @@ FP8_SHAPES = (("qkv", 1024, 3072), ("proj", 1024, 1024), ("fc1", 1024, 4096),
 
 
 def check_fp8_matmul(torch, timer):
+    from apex_tpu_torch.ops import _build
     from apex_tpu_torch.ops import fp8_matmul as mm
     gen = torch.Generator(device="cuda").manual_seed(9)
-    shapes = []
+    shapes, launches = [], None
     # decode (m = 8, the fixed batch) at the four linears, prefill (m = 512,
     # one padded prompt) at fc1, then decode qkv once more: the spread of
     # the same measurement within one run
@@ -564,6 +615,12 @@ def check_fp8_matmul(torch, timer):
         shapes.append(dict(linear=lin, m=m, K=K, N=N, max_abs_err=err,
                            ms=ms, plain_ms=plain_ms, bound_ms=t_bound,
                            bound_by=by, bf16_matmul_ms=bf16_ms))
+        if launches is None:           # the decode regime: one launch a call
+            launches = device_launches(torch, lambda: mm.fp8_dequant_matmul(
+                x, q, scale), ("fp8_mm_decode_kernel",))
+            check(launches == {"fp8_mm_decode_kernel": 1, "other": 0},
+                  f"fp8_matmul m{m}: device launches {launches} in one "
+                  "call, expected one fp8_mm_decode_kernel and nothing else")
     main = shapes[0]                       # decode qkv
     return dict(name="fp8_matmul", route="cuda",
                 source="apex_tpu_torch/csrc/fp8_matmul.cu",
@@ -579,7 +636,9 @@ def check_fp8_matmul(torch, timer):
                         "torch.matmul on the unquantized bf16 weight, what "
                         "fp8 streaming competes with",
                 bf16_matmul_ms=main["bf16_matmul_ms"],
-                ms_repeat=shapes[-1]["ms"], by_shape=shapes)
+                ms_repeat=shapes[-1]["ms"], by_shape=shapes,
+                device_launches_per_call=launches,
+                registers=_decode_registers(_build, "fp8_matmul"))
 
 
 def check_e4m3_cast(torch):
@@ -844,11 +903,10 @@ def check_layer_norm_bwd(torch, timer):
 CE_PRODUCTS = ("GradEpi", "DxEpi", "DeEpi")   # B9's three epilogues
 
 
-def ce_bwd_products(torch, fn):
+def device_launches(torch, fn, names):
     """torch.profiler over one call of ``fn`` (after one unprofiled): the
-    device kernels it launched, counted by the wgmma core's epilogue they
-    carry (``gemm_kernel<GradEpi<...>>`` and so on), ``other`` for the
-    rest."""
+    device kernels it launched, counted by which of ``names`` their name
+    holds (each kernel must hold at most one), ``other`` for the rest."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -856,11 +914,11 @@ def ce_bwd_products(torch, fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    counts = dict.fromkeys(CE_PRODUCTS + ("other",), 0)
+    counts = dict.fromkeys(tuple(names) + ("other",), 0)
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        hit = [p for p in CE_PRODUCTS if p in ev.key]
+        hit = [p for p in names if p in ev.key]
         counts[hit[0] if len(hit) == 1 else "other"] += ev.count
     return counts
 
@@ -908,8 +966,10 @@ def check_lm_head_ce(torch, timer):
         del got, ref, dx, de, rx, re, dx2, de2
     m, l, _, _ = ce.lm_head_ce_fwd_reference(x, e, tgt)
     chunks = -(-n // ce.bwd_chunk_tokens(n, V))
-    products = ce_bwd_products(torch, lambda: ce.lm_head_ce_bwd(
-        x, e, tgt, m, l, dl))
+    # B9's launches, by the wgmma core's epilogue they carry
+    # (``gemm_kernel<GradEpi<...>>`` and so on)
+    products = device_launches(torch, lambda: ce.lm_head_ce_bwd(
+        x, e, tgt, m, l, dl), CE_PRODUCTS)
     check(products == {**dict.fromkeys(CE_PRODUCTS, chunks), "other": 0},
           f"CE bwd: device launches {products} in one call, expected each "
           f"of {CE_PRODUCTS} once a chunk ({chunks} chunks) and no other")
@@ -1003,6 +1063,51 @@ def _sm90_registers(build):
             m = re.search(r"Used (\d+) registers", line)
             if m and name:
                 regs[name]["registers"] = int(m.group(1))
+    return regs
+
+
+# the decode kernels in ptxas's log: B12's decode regime (one kernel) and
+# every instantiation of B5 (q dtype, head dim, rows a block, e4m3 pool,
+# general path)
+_DECODE_KERNEL = re.compile(
+    r"(fp8_mm_decode_kernel)|paged_decode_kernelI(13__nv_bfloat16|6__half|f)"
+    r"Li(\d+)ELi(\d+)ELb([01])ELb([01])E")
+_DTYPE_NAMES = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
+
+
+def _decode_registers(build, source):
+    """``ptxas -v``'s registers and spill bytes of each kernel of the decode
+    library ``source`` (``fp8_matmul`` or ``paged_decode``, every dtype
+    target); fails on any spill in them."""
+    regs = {}
+    for target in build.targets([source]):
+        name = None
+        for line in build.library_path(target).with_suffix(".log") \
+                .read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                k = _DECODE_KERNEL.search(m.group(1))
+                name = None
+                if k and k.group(1):
+                    name = k.group(1)
+                elif k:
+                    name = (f"paged_decode_kernel {_DTYPE_NAMES[k.group(2)]} "
+                            f"d{k.group(3)} g{k.group(4)}"
+                            + (" e4m3" if k.group(5) == "1" else "")
+                            + (" general" if k.group(6) == "1" else ""))
+                if name:
+                    regs[name] = {}
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and name:
+                spill = int(m.group(1)) + int(m.group(2))
+                regs[name]["spill_bytes"] = spill
+                check(spill == 0, f"{target} {name}: ptxas spills {spill} "
+                      "bytes")
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                regs[name]["registers"] = int(m.group(1))
+    check(len(regs) > 0, f"{source}: no decode kernel in ptxas's log")
     return regs
 
 
@@ -3014,8 +3119,7 @@ _PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_kernel", "flash_dkdv_kernel",
                  "_ce_bwd_body", "ce_fwd_kernel",
                  "ce_bwd_de_kernel", "ce_bwd_dx_kernel", "FwdEpi", "GradEpi",
                  "DxEpi", "DeEpi",
-                 "fp8_mm_skinny_kernel", "fp8_mm_reduce_kernel",
-                 "fp8_mm_tc_kernel", "mtu_kernel")
+                 "fp8_mm_decode_kernel", "fp8_mm_tc_kernel", "mtu_kernel")
 
 
 def _kernel_class(name: str) -> str:
@@ -3084,15 +3188,18 @@ def trace_train(torch, cfg, model, state, sstate, step):
 
 
 def trace(torch, cfg, params, path="serve"):
-    """torch.profiler over 4 steady decode steps at batch 8 and over two
-    prefills of the engine of ``path``: device time by kernel and the
-    device-busy share of the wall time (``None`` when the profiler records
-    no device time)."""
+    """torch.profiler over 4 steady decode steps at batch 8 (under
+    speculation a step is one draft-and-verify round for each of the 8
+    sequences) and over two prefills of the engine of ``path``: device time
+    by kernel and the device-busy share of the wall time (``None`` when the
+    profiler records no device time)."""
     from apex_tpu_torch.serve import model as model_mod
     eng = make_engine(cfg, params, **SERVE_PATHS[path])
     rng = np.random.RandomState(1)
+    new = 64 if eng.spec_k else 16      # rounds take up to k + 1 tokens
     for _ in range(eng.max_batch):
-        eng.add_request(rng.randint(0, cfg.vocab_size, size=256).tolist(), 16)
+        eng.add_request(rng.randint(0, cfg.vocab_size, size=256).tolist(),
+                        new)
     eng.step()                          # 8 prefills + the first decode
     ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, size=512)).cuda()
     # pages of its own for the extra prefill (400 live tokens)
@@ -3230,11 +3337,22 @@ def main() -> int:
         + json.dumps(ident))
     check(ident["first_token_divergence"] is None,
           f"speculative tokens differ from plain decode: {ident}")
+    check(ident["logits_rows_compared"] > 0 and
+          ident["logits_rows_bitwise_equal"] == ident["logits_rows_compared"],
+          f"speculative logits rows differ from plain decode: {ident}")
     del spec
     torch.cuda.empty_cache()
 
     serve_trace = {**trace(torch, cfg, params, "serve"),
-                   **trace(torch, cfg, params, "serve-fp8")}
+                   **trace(torch, cfg, params, "serve-fp8"),
+                   **trace(torch, cfg, params, "serve-spec-fp8w")}
+    log(f"serve decode step, device against wall time (trace, {card}): "
+        + json.dumps({path: {k: serve_trace[f"{path} decode_step_b8"][k]
+                             for k in ("device_ms_per_call",
+                                       "wall_ms_per_call",
+                                       "device_busy_share",
+                                       "kernel_launches_per_call")}
+                      for path in SERVE_PATHS}))
     del params
     torch.cuda.empty_cache()
 

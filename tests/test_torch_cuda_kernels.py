@@ -1329,3 +1329,129 @@ def test_lm_head_ce_bwd_gpt_shape_bitwise_rerun(gen):
     a = ce.lm_head_ce_bwd(x, e, tgt, m, l, dl)
     b = ce.lm_head_ce_bwd(x, e, tgt, m, l, dl)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+# ---------------------------------------------------------------------------
+# the decode kernels' cuts (B12's K splits, B5's pieces): a row is bitwise
+# the same whatever rows come with it, and on a rerun
+# ---------------------------------------------------------------------------
+
+def _paged_case(gen, b, kv, g, d, page, m, seq_lens, fp8_pool=False, bt=None,
+                num_pages=None):
+    num_pages = num_pages or 1 + b * m
+    q = _rand(gen, b, kv, g, d)
+    ks = vs = None
+    if fp8_pool:
+        x = _rand(gen, 2, kv, num_pages, page, d, dtype=torch.float32)
+        s = fp8.compute_scale(x.abs().amax(dim=(3, 4)), fp8.E4M3_MAX, 2.0)
+        pools = fp8.quantize(x, s[..., None, None], fp8.E4M3)
+        kp, vp = pools[0], pools[1]
+        ks, vs = s[0].contiguous(), s[1].contiguous()
+    else:
+        kp = _rand(gen, kv, num_pages, page, d)
+        vp = _rand(gen, kv, num_pages, page, d)
+    if bt is None:
+        rng = np.random.RandomState(sum(seq_lens) + b)
+        bt = rng.permutation(np.arange(1, num_pages))[:b * m].reshape(b, m)
+        bt = torch.from_numpy(bt.astype(np.int32)).cuda()
+    sl = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
+    return q, kp, vp, bt, sl, dict(k_scales=ks, v_scales=vs)
+
+
+@pytest.mark.parametrize("fp8_pool", [False, True])
+def test_paged_decode_row_is_bitwise_independent_of_other_rows(gen,
+                                                               fp8_pool):
+    """Row 5's output is bitwise the same when every other row changes
+    (other seq_lens, other pages, other queries) and alone in a batch of
+    one, and every output is bitwise the same on a rerun."""
+    b, kv, g, d, page, m = 8, 16, 1, 64, 128, 8
+    q, kp, vp, bt, sl, sc = _paged_case(
+        gen, b, kv, g, d, page, m, [0, 1, 127, 128, 129, 300, 640, 1024],
+        fp8_pool)
+    out = fa.paged_decode_attention(q, kp, vp, bt, sl, **sc)
+    assert torch.equal(out, fa.paged_decode_attention(q, kp, vp, bt, sl,
+                                                      **sc))
+    _close(out, fa.paged_attention_reference(q, kp, vp, bt, sl, **sc), 1e-3)
+    q2 = _rand(gen, b, kv, g, d)
+    q2[5] = q[5]
+    bt2 = torch.roll(bt, 1, dims=0).contiguous()
+    bt2[5] = bt[5]
+    sl2 = torch.tensor([700, 0, 5, 1000, 2, 300, 0, 64], dtype=torch.int32,
+                       device="cuda")
+    out2 = fa.paged_decode_attention(q2, kp, vp, bt2, sl2, **sc)
+    assert torch.equal(out2[5], out[5])
+    one = fa.paged_decode_attention(q[5:6].contiguous(), kp, vp,
+                                    bt[5:6].contiguous(), sl[5:6], **sc)
+    assert torch.equal(one[0], out[5])
+
+
+@pytest.mark.parametrize("page", [8, 16, 128])
+@pytest.mark.parametrize("fp8_pool", [False, True])
+def test_paged_decode_serve_shapes_match_plain(gen, page, fp8_pool):
+    """The spec engine's shapes: a draft call (one active row of 300 keys in
+    the fixed batch of 8) and a verify call (five rows of one sequence at
+    300-304 keys over one block table), each row of the verify call bitwise
+    the row of a plain decode call at the same position."""
+    b, kv, g, d = 8, 16, 1, 64
+    m = -(-1024 // page)
+    row = torch.arange(1, m + 1, dtype=torch.int32, device="cuda")
+    bt = torch.zeros(b, m, dtype=torch.int32, device="cuda")
+    bt[:5] = row
+    q, kp, vp, bt, _, sc = _paged_case(gen, b, kv, g, d, page, m, [0] * b,
+                                       fp8_pool, bt=bt, num_pages=1 + m)
+    for lens in ([300, 0, 0, 0, 0, 0, 0, 0],
+                 [300, 301, 302, 303, 304, 0, 0, 0]):
+        sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        out = fa.paged_decode_attention(q, kp, vp, bt, sl, **sc)
+        ref = fa.paged_attention_reference(q, kp, vp, bt, sl, **sc)
+        _close(out, ref, 1e-3)
+        for i, n in enumerate(lens):
+            if n == 0:
+                assert float(out[i].abs().max()) == 0.0
+    # verify row i against the plain-decode call that carries the same
+    # sequence at the same position among other sequences
+    for i in range(5):
+        sl1 = torch.tensor([17, 0, 300 + i, 1000, 0, 0, 129, 1],
+                           dtype=torch.int32, device="cuda")
+        q1, bt1 = q.clone(), bt.clone()
+        q1[2] = q[i]
+        bt1[2] = row
+        bt1[[0, 3, 6, 7]] = torch.roll(row, 1)
+        plain = fa.paged_decode_attention(q1, kp, vp, bt1, sl1, **sc)
+        assert torch.equal(plain[2], out[i])
+
+
+def test_paged_decode_general_path_rows_are_bitwise_independent(gen):
+    """The general path (d 100, a pool of another dtype, group 12 in
+    chunks): rows bitwise independent of the others and on a rerun."""
+    b, kv, g, d, page, m = 3, 2, 12, 100, 16, 9
+    q, kp, vp, bt, sl, _ = _paged_case(gen, b, kv, g, d, page, m,
+                                       [40, 0, 140])
+    kp, vp = kp.float(), vp.float()
+    out = fa.paged_decode_attention(q, kp, vp, bt, sl)
+    _close(out, fa.paged_attention_reference(q, kp, vp, bt, sl), 1e-3)
+    assert torch.equal(out, fa.paged_decode_attention(q, kp, vp, bt, sl))
+    one = fa.paged_decode_attention(q[2:3].contiguous(), kp, vp,
+                                    bt[2:3].contiguous(), sl[2:3])
+    assert torch.equal(one[0], out[2])
+
+
+@pytest.mark.parametrize("K,N", [(1024, 3072), (1024, 1024), (1024, 4096),
+                                 (4096, 1024)])
+def test_fp8_matmul_decode_rows_bitwise_independent_and_rerun(gen, K, N):
+    """A decode-regime row is bitwise the same when the other rows of x
+    change, and alone (m 1 against m 8); the whole product is bitwise the
+    same on a rerun (no atomics)."""
+    x = _rand(gen, 8, K)
+    q, scale = mm.quantize_weight(_rand(gen, K, N, dtype=torch.float32)
+                                  * K ** -0.5)
+    y = mm.fp8_dequant_matmul(x, q, scale)
+    assert torch.equal(y, mm.fp8_dequant_matmul(x, q, scale))
+    x2 = _rand(gen, 8, K)
+    x2[6] = x[6]
+    assert torch.equal(mm.fp8_dequant_matmul(x2, q, scale)[6], y[6])
+    for r in (0, 6, 7):
+        y1 = mm.fp8_dequant_matmul(x[r:r + 1].contiguous(), q, scale)
+        assert torch.equal(y1[0], y[r])
+    y3 = mm.fp8_dequant_matmul(x[2:5].contiguous(), q, scale)
+    assert torch.equal(y3, y[2:5])

@@ -199,15 +199,22 @@ def test_dequant_matmul_bf16_out_and_guards():
                                  (4096, 1024), (64, 192), (256, 64),
                                  (48, 16), (100000, 16)])
 def test_dequant_matmul_k_split_depends_on_k_and_n_only(K, N):
-    """The decode regime's K split: about one wave of blocks, whole
-    16-row multiples, at most 512 rows per split, covering K — and a
+    """The decode regime's K split: one thread-block cluster of 1, 2, 4 or
+    8 splits a column tile, the fewest that give about one block an SM
+    (unless K runs out first), each of whole 64-row stages and at least
+    two of them unless K is smaller, covering K with no split idle — and a
     function of (K, N) alone, so a row's sum order never depends on the
     batch it comes in."""
-    splits = tmm._splits(K, N)
-    kc = -(-K // splits)
-    assert 1 <= splits and kc <= tmm._MAX_KC and splits * kc >= K
-    if K >= 64 * 132:
-        assert splits * -(-N // tmm._SKINNY_BN) >= tmm._WAVE
+    splits, kc = tmm._splits(K, N)
+    tiles = -(-N // tmm._TILE_N)
+    assert splits in (1, 2, 4, 8) and splits <= tmm._MAX_SPLITS
+    assert kc % tmm._STAGE_K == 0 and splits * kc >= K
+    assert (splits - 1) * kc < K                 # the last split has rows
+    assert kc >= tmm._MIN_SPLIT_K or splits == 1
+    if splits < tmm._MAX_SPLITS and 2 * splits * tmm._MIN_SPLIT_K <= K:
+        assert tiles * splits >= tmm._FILL
+    assert splits == 1 or tiles * (splits // 2) < tmm._FILL
+    assert tmm._splits(K, N) == (splits, kc)
 
 
 # ---------------------------------------------------------------------------
