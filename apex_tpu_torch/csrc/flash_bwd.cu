@@ -53,12 +53,18 @@
 //   tile each warp computes S^T = K Q^T and dP^T = V dO^T for its 16 keys,
 //   forms P^T and dS^T in registers and accumulates dV += P^T dO and
 //   dK += dS^T Q. The single pass then stages dS in shared memory,
-//   computes the tile's [64, DC] share dS K and adds it with fp32 atomicAdd
-//   into a zeroed [b, h, sq, d] fp32 workspace that the caller casts to the
-//   operands' dtype (the atomics make dq's summation order vary from run to
-//   run, a last-bit effect in fp32). The dk/dv kernel stops before that
-//   staging: it keeps no state beyond its own 64 keys at any sequence
-//   length, which is what the split buys.
+//   computes the tile's [64, DC] share dS K and adds it into a zeroed
+//   [b, h, sq, d] fp32 workspace that the caller casts to the operands'
+//   dtype, in a fixed order (turns.cuh): the key tiles that reach a query
+//   tile add their shares from the last down to the first, each after the
+//   one before it has published its sum, with plain loads and stores, so
+//   dq is the same bits on every run. The grid runs the key tiles in
+//   reverse, so a block waits only for one dispatched before it, and
+//   under a causal mask the block of key tile j + 1 is one query tile
+//   ahead of key tile j's from its start, so a block seldom waits. The
+//   dk/dv kernel stops before that staging: it keeps no
+//   state beyond its own 64 keys at any sequence length, which is what
+//   the split buys.
 // - q-side blocks (dq): Q and dO in shared memory; per k tile each warp
 //   computes S = Q K^T and dP = dO V^T for its 16 rows, forms dS in
 //   registers and accumulates dQ += dS K. No atomics: dq is written once,
@@ -83,6 +89,7 @@
 #include <stdint.h>
 
 #include "frag.cuh"
+#include "turns.cuh"
 
 namespace {
 
@@ -180,7 +187,8 @@ __device__ __forceinline__ void load_a(const T* base, int ld, int r, int c,
 
 // One block of 64 keys of one (batch, head), gradient columns
 // [c0, c0 + DC): dk and dv, and with WITH_DQ the block's dq share added
-// into dq_acc by atomics (the single pass).
+// into dq_acc in its turn (the single pass; `dq_turns` one zeroed counter a
+// (batch x chunk, head, q tile), the grid's key tiles in reverse).
 template <typename T, int D, bool WITH_DQ>
 __device__ __forceinline__ void kv_block(
     unsigned char* smem_raw, const T* __restrict__ q,
@@ -188,8 +196,8 @@ __device__ __forceinline__ void kv_block(
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, const int32_t* __restrict__ sid_q,
     const int32_t* __restrict__ sid_kv, float* __restrict__ dq_acc,
-    T* __restrict__ dk, T* __restrict__ dv, int h, int sq, int sk,
-    int causal, float scale, int rounds) {
+    int* __restrict__ dq_turns, T* __restrict__ dk, T* __restrict__ dv, int h,
+    int sq, int sk, int causal, float scale, int rounds) {
   using F = Frag<T>;
   using P = typename F::pair;
   using S = Smem<T, D>;
@@ -216,7 +224,9 @@ __device__ __forceinline__ void kv_block(
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, tig = lane % 4;
-  const int n0 = blockIdx.x * BLOCK_N;
+  const int n_kt = gridDim.x;
+  const int jt = WITH_DQ ? n_kt - 1 - blockIdx.x : blockIdx.x;
+  const int n0 = jt * BLOCK_N;
   const int hh = blockIdx.y;
   const int bi = blockIdx.z / S::NCH, c0 = (blockIdx.z % S::NCH) * DC;
   const long bh = (long)bi * h + hh;
@@ -394,21 +404,39 @@ __device__ __forceinline__ void kv_block(
           F::mma(dqa[t], a, F::load(pk), F::load(pk + 8));
         }
       }
+      // ---- the block's turn on this q tile: the key tiles that reach it
+      // add in descending order, the last (causal: min(n_kt - 1, the
+      // tile's last row + offset over 64)) first; loads and stores at L2
+      // (no stale L1 line), published before the turn passes on
+      int* turn = dq_turns + ((long)blockIdx.z * h + hh) * n_qt + qt;
+      if (tid == 0) {
+        const int last =
+            causal ? min(n_kt - 1, (q0 + BLOCK_M - 1 + offset) / BLOCK_N)
+                   : n_kt - 1;
+        turns::wait(turn, last - jt);
+      }
+      __syncthreads();
       const int qr0 = q0 + qw + g, qr1 = qr0 + 8;
 #pragma unroll
       for (int t = 0; t < DTILES; ++t) {
         const int col = c0 + t * 8 + tig * 2;
         if (qr0 < sq) {
-          float* dst = dq_acc + (bh * sq + qr0) * D + col;
-          atomicAdd(dst, dqa[t][0] * scale);
-          atomicAdd(dst + 1, dqa[t][1] * scale);
+          float2* dst =
+              reinterpret_cast<float2*>(dq_acc + (bh * sq + qr0) * D + col);
+          const float2 cur = __ldcg(dst);
+          __stcg(dst, make_float2(cur.x + dqa[t][0] * scale,
+                                  cur.y + dqa[t][1] * scale));
         }
         if (qr1 < sq) {
-          float* dst = dq_acc + (bh * sq + qr1) * D + col;
-          atomicAdd(dst, dqa[t][2] * scale);
-          atomicAdd(dst + 1, dqa[t][3] * scale);
+          float2* dst =
+              reinterpret_cast<float2*>(dq_acc + (bh * sq + qr1) * D + col);
+          const float2 cur = __ldcg(dst);
+          __stcg(dst, make_float2(cur.x + dqa[t][2] * scale,
+                                  cur.y + dqa[t][3] * scale));
         }
       }
+      __syncthreads();    // the block's stores, published by the release
+      if (tid == 0) turns::pass(turn);
     }
   }
 
@@ -439,10 +467,10 @@ __device__ __forceinline__ void kv_block(
       const float *__restrict__ lse, const float *__restrict__ delta,     \
       const int32_t *__restrict__ sid_q,                                  \
       const int32_t *__restrict__ sid_kv, float *__restrict__ dq_acc,     \
-      T *__restrict__ dk, T *__restrict__ dv, int h, int sq, int sk,      \
-      int causal, float scale, int rounds
-#define KV_PASS q, k, v, dout, lse, delta, sid_q, sid_kv, dq_acc, dk, dv, h, \
-                sq, sk, causal, scale, rounds
+      int *__restrict__ dq_turns, T *__restrict__ dk, T *__restrict__ dv,    \
+      int h, int sq, int sk, int causal, float scale, int rounds
+#define KV_PASS q, k, v, dout, lse, delta, sid_q, sid_kv, dq_acc, dq_turns, \
+                dk, dv, h, sq, sk, causal, scale, rounds
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) flash_bwd_kernel(KV_ARGS) {
@@ -630,6 +658,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta, *sid_q, *sid_kv;
   void *dq, *dk, *dv;       // dq: the fp32 workspace in the single pass
+  void* turns;              // the single pass's turn counters
   int b, h, sq, sk, causal;
   float scale;
   int rounds;
@@ -667,8 +696,9 @@ cudaError_t launch(const Args& a) {
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
         static_cast<const int32_t*>(a.sid_q),
         static_cast<const int32_t*>(a.sid_kv), static_cast<float*>(a.dq),
-        static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.h, a.sq, a.sk,
-        a.causal, a.scale, a.rounds);
+        static_cast<int*>(a.turns), static_cast<T*>(a.dk),
+        static_cast<T*>(a.dv), a.h, a.sq, a.sk, a.causal, a.scale,
+        a.rounds);
     return cudaGetLastError();
   }
 }
@@ -723,16 +753,19 @@ int dispatch(const Args& a, int d, int dtype) {
 // 64, 128, 256, 512 or an unknown dtype).
 //
 // The single pass: dq_acc [b,h,sq,d] f32, ZEROED by the caller (the kernel
-// adds into it, scale applied); dk, dv [b,h,sk,d] (every element written).
+// adds into it, scale applied, in a fixed order); turns, b * h *
+// ceil(sq / 64) * (d / 32) int32 ZEROED by the caller (one counter a
+// query tile and gradient-column chunk; left at each tile's count of
+// contributors); dk, dv [b,h,sk,d] (every element written).
 extern "C" int apex_flash_bwd(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* delta, const void* sid_q,
-                              const void* sid_kv, void* dq_acc, void* dk,
-                              void* dv, int b, int h, int sq, int sk, int d,
-                              int causal, float scale, int dtype,
-                              int rounds, void* stream) {
+                              const void* sid_kv, void* dq_acc, void* turns,
+                              void* dk, void* dv, int b, int h, int sq,
+                              int sk, int d, int causal, float scale,
+                              int dtype, int rounds, void* stream) {
   const Args a{q, k, v, dout, lse, delta, sid_q, sid_kv, dq_acc, dk, dv,
-               b, h, sq, sk, causal, scale, rounds,
+               turns, b, h, sq, sk, causal, scale, rounds,
                static_cast<cudaStream_t>(stream)};
   return dispatch<0>(a, d, dtype);
 }
@@ -746,7 +779,7 @@ extern "C" int apex_flash_bwd_dkdv(const void* q, const void* k,
                                    int sk, int d, int causal, float scale,
                                    int dtype, int rounds, void* stream) {
   const Args a{q, k, v, dout, lse, delta, sid_q, sid_kv, nullptr, dk, dv,
-               b, h, sq, sk, causal, scale, rounds,
+               nullptr, b, h, sq, sk, causal, scale, rounds,
                static_cast<cudaStream_t>(stream)};
   return dispatch<1>(a, d, dtype);
 }
@@ -760,7 +793,7 @@ extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  float scale, int dtype, int rounds,
                                  void* stream) {
   const Args a{q, k, v, dout, lse, delta, sid_q, sid_kv, dq, nullptr, nullptr,
-               b, h, sq, sk, causal, scale, rounds,
+               nullptr, b, h, sq, sk, causal, scale, rounds,
                static_cast<cudaStream_t>(stream)};
   return dispatch<2>(a, d, dtype);
 }

@@ -7,8 +7,8 @@
 // - flash_dq_sm90 replaces `_dq_kernel` (:671, launched at :820): dq
 //   [b, h, sq, d];
 // - flash_bwd_fused_sm90 replaces the single-pass `_bwd_fused_kernel`
-//   (:604, launched at :787): dk, dv, and dq summed into an fp32 workspace
-//   [b, h, sq, d] that the wrapper zeroes and casts;
+//   (:604, launched at :787): dk, dv, and dq summed in a fixed order into
+//   an fp32 workspace [b, h, sq, d] that the wrapper zeroes and casts;
 // all from q, do [b, h, sq, d], k, v [b, h, sk, d], the forward's lse and
 // delta = rowsum(do * out) [b, h, sq] (fp32). The wrapper
 // (ops/flash_attention.py, `sm90_route`) sends the backward here by dtype
@@ -26,9 +26,10 @@
 // lse, delta and the segment ids are masked by index). The split has no
 // atomics: every output element is written once, by the block that owns
 // it, so dq, dk and dv are the same bits from run to run. The single pass
-// writes dk and dv once (the same bits from run to run) and adds each
-// block's dq partials into the fp32 workspace by TMA bulk reductions, in
-// an order that varies from run to run, as flash_bwd.cu's atomics do.
+// writes dk and dv once and adds each block's dq partials into the fp32
+// workspace by TMA bulk reductions in a fixed order (turns.cuh: the key
+// blocks that reach a query tile in descending order), so its dq is the
+// same bits from run to run too.
 //
 // Bound on the H100, per live (q, k) pair at head dim d: dk/dv does four
 // products of 2 d flops (s, dp, dv, dk), dq three (s, dp, dq), the single
@@ -85,11 +86,26 @@
 //   this one's; dV and dK complete before dQ is issued, whose
 //   accumulators and their A fragments do not fit in a thread's
 //   registers together). The partial, times the scale, goes to shared
-//   memory in the layout of an fp32 TMA map over the workspace and is
-//   added into it by one bulk reduction a 32-column box
-//   (`cp.reduce.async.bulk.tensor`), which runs on while the next tile
-//   is computed; per-thread vector reductions of each element pair were a
-//   first version's largest cost.
+//   memory in the layout of an fp32 TMA map over the workspace; per-thread
+//   vector reductions of each element pair were a first version's
+//   largest cost.
+// - The dq writer: warp 1 of the producer warpgroup adds the partials
+//   into the workspace in the block's turn, so the consumers never wait
+//   for a turn or a reduction. Per tile it waits until the partials are
+//   in (an mbarrier each; at d 64 warpgroup 1 has added warpgroup 0's
+//   into its own, in registers: one region, one reduction, no pass of a
+//   single warp over shared memory), waits for the block's turn on the
+//   tile (turns.cuh: key block j after
+//   key block j + 1, which the grid dispatches before it and which, under
+//   a causal mask, starts two query tiles later: in one wave it runs ahead
+//   of j, across waves it has long finished), adds by one bulk reduction
+//   a 32-column box
+//   (`cp.reduce.async.bulk.tensor`), frees the partial buffers once the
+//   reduction has read them, and passes the turn as soon as it has
+//   completed (a turn passed a tile later, to hide that latency, held
+//   back the key blocks that wait for it when they share a wave). The
+//   order costs the single pass a few percent at the train cells' shape,
+//   about half of it the reversed dispatch (PERF.md).
 //   64-row tiles at both head dims: at d 64 the 128-row tiles of the
 //   split's dk/dv kernel left S^T, dP^T, dK, dV and dQ too few registers
 //   (ptxas serialized every product and spilled).
@@ -105,6 +121,7 @@
 #include <type_traits>
 
 #include "dtype.cuh"
+#include "turns.cuh"
 #include "wgmma_attn.cuh"
 
 namespace {
@@ -140,6 +157,7 @@ struct Params {
   void* out0;          // dk (dk/dv, single pass) or dq (dq)
   void* out1;          // dv (dk/dv, single pass)
   void* out2;          // the single pass: dq_acc, fp32 [b, h, sq, d]
+  int* turns;          // the single pass: a turn counter a query tile
   const void* o;       // dq: the forward's output, or null (delta given)
   const void* dout;    // dq: do, for delta
   int h, sq, sk, causal;
@@ -671,11 +689,12 @@ struct FusedLayout {
   // boxes of the accumulator's map
   static constexpr int DQ_BYTES = 64 * 64 * 4;
   // K, V, STAGES x (Q, dO), dS^T, the dQ partials, STAGES x three side
-  // arrays, barriers, alignment
+  // arrays, barriers (the ring's, the resident operands', the partials'
+  // full and free), alignment
   static constexpr size_t SMEM =
       (size_t)2 * RES_BYTES + (size_t)STAGES * 2 * TILE_BYTES +
       DS_BUFFERS * DS_BYTES + CONSUMERS * DQ_BYTES + STAGES * 3 * TILE * 4 +
-      (2 * STAGES + 1) * 8 + 1024;
+      (2 * STAGES + 1 + 2 * CONSUMERS) * 8 + 1024;
 };
 
 // the two consumer warpgroups (named barrier 3, 256 threads)
@@ -706,9 +725,16 @@ flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap map_q,
   uint64_t* full = reinterpret_cast<uint64_t*>(sSid + ST * TILE);
   uint64_t* empty = full + ST;
   uint64_t* res = empty + ST;
+  uint64_t* dq_full = res + 1;              // a consumer's partial is in
+  uint64_t* dq_free = dq_full + CONSUMERS;  // ... and has been read
 
+  // the key blocks in reverse on the grid's slow axis: the shortest
+  // causal loops first, each wave's blocks of one length (a grid of
+  // several waves ends with the longest, all together), and the block a
+  // turn waits for dispatched before the one waiting
   const int bh = blockIdx.x, bi = bh / p.h;
-  const int n0 = blockIdx.y * RES_ROWS;
+  const int n_kb = gridDim.y, kb = n_kb - 1 - blockIdx.y;
+  const int n0 = kb * RES_ROWS;
   const int sq = p.sq, sk = p.sk, offset = sk - sq;
   const bool causal = p.causal != 0, use_seg = p.sid_q != nullptr;
   const int n_qt = (sq + TILE - 1) / TILE;
@@ -721,6 +747,11 @@ flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap map_q,
     wg::prefetch_map(&map_do);
     wg::prefetch_map(&map_dq);
 #pragma unroll
+    for (int c = 0; c < CONSUMERS; ++c) {
+      wg::mbar_init(&dq_full[c], 1);
+      wg::mbar_init(&dq_free[c], 1);
+    }
+#pragma unroll
     for (int s = 0; s < ST; ++s) {
       wg::mbar_init(&full[s], 32);
       wg::mbar_init(&empty[s], CONSUMERS);
@@ -732,7 +763,8 @@ flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap map_q,
 
   const int wgi = threadIdx.x / 128;
   if (wgi == 0) {
-    // ---- producer: warp 0 keeps the ring full (as in the dk/dv kernel)
+    // ---- producer: warp 0 keeps the ring full (as in the dk/dv kernel),
+    // warp 1 adds the dQ partials into dq_acc in the block's turn
     wg::setmaxnreg_dec<40>();
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
@@ -787,6 +819,47 @@ flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap map_q,
           stage = 0;
           phase ^= 1;
         }
+      }
+    } else if (threadIdx.x < 64) {
+      const int lane = threadIdx.x - 32;
+      uint32_t ph = 0;
+      for (int qt = qt_begin; qt < n_qt; ++qt) {
+        // the key blocks that reach the tile add in descending order, the
+        // last (causal: the tile's last row + offset over 128) first
+        int* turn = p.turns + (long)bh * n_qt + qt;
+        if (lane == 0) {
+          const int last = causal ? min(n_kb - 1, (qt * TILE + TILE - 1 +
+                                                   offset) / RES_ROWS)
+                                  : n_kb - 1;
+          turns::wait(turn, last - kb);
+        }
+        // the partials to add: at d 64 warpgroup 1's (it holds the pair's
+        // sum), at d 128 both (their own columns)
+        constexpr int C0 = D == 64 ? 1 : 0;
+#pragma unroll
+        for (int c = C0; c < CONSUMERS; ++c) wg::mbar_wait(&dq_full[c], ph);
+        if (lane == 0) {
+          turns::fence_async_global();
+          const int q0 = qt * TILE;
+#pragma unroll
+          for (int c = C0; c < CONSUMERS; ++c) {
+            const uint8_t* src = sDQ + c * FL::DQ_BYTES;
+            const int col = D == 64 ? 0 : 64 * c;
+            wg::tma_reduce_add_3d(&map_dq, src, col, q0, bh);
+            wg::tma_reduce_add_3d(&map_dq, src + 64 * 128, col + 32, q0, bh);
+          }
+          wg::bulk_commit();
+          wg::bulk_wait_read<0>();
+#pragma unroll
+          for (int c = C0; c < CONSUMERS; ++c) wg::mbar_arrive(&dq_free[c]);
+          // the reduction has completed: pass the turn at once (the next
+          // key block may be waiting for it)
+          wg::bulk_wait<0>();
+          turns::fence_async_global();
+          turns::pass(turn);
+        }
+        __syncwarp();
+        ph ^= 1;
       }
     }
   } else {
@@ -889,9 +962,9 @@ flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap map_q,
               da[nb / 2][2 * (nb % 2) + r];
         }
       wg::fence_proxy_async();
-      // the previous tile's dQ reduction has read this warpgroup's partial
-      // buffer before the barrier lets anyone write it again
-      if (t == 0) wg::bulk_wait_read<0>();
+      // the writer has read this warpgroup's previous partial before the
+      // barrier lets anyone write the buffer again
+      if (t == 0) wg::mbar_wait(&dq_free[cw], ((qt - qt_begin) & 1) ^ 1);
       if constexpr (D == 64)
         wg_sync(cw);               // the warpgroup's dS^T is in
       else
@@ -943,29 +1016,35 @@ flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap map_q,
         wg::fence_frag(da[kk]);
       }
 
-      // scale * dQ_tile to the partial buffer, laid out as the
-      // accumulator map's two 32-column boxes (128-byte swizzled), then one
-      // bulk reduction a box into dq_acc (rows past sq are not written)
+      // scale * dQ_tile to the partial buffer, laid out as the accumulator
+      // map's two 32-column boxes (128-byte swizzled); the writer adds it
+      // into dq_acc (rows past sq are not written). At d 64 both
+      // warpgroups' partials cover the tile's 64 columns: warpgroup 1 adds
+      // warpgroup 0's (the same positions it writes) before writing, so
+      // the writer has one region to add, and hands buffer 0 back.
+      const bool pair = D == 64 && cw == 1;
+      if (pair) wg::mbar_wait(&dq_full[0], (qt - qt_begin) & 1);
 #pragma unroll
       for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int row = 16 * warp + g + 8 * r;
           const int chunk = 2 * (nb % 4) + tig / 2;
-          *reinterpret_cast<float2*>(dqs + (nb / 4) * (64 * 128) +
-                                     row * 128 +
-                                     ((chunk ^ (row % 8)) << 4) +
-                                     8 * (tig % 2)) =
-              make_float2(dq[4 * nb + 2 * r] * p.scale,
-                          dq[4 * nb + 2 * r + 1] * p.scale);
+          const int at_ = (nb / 4) * (64 * 128) + row * 128 +
+                          ((chunk ^ (row % 8)) << 4) + 8 * (tig % 2);
+          float2 v = make_float2(dq[4 * nb + 2 * r] * p.scale,
+                                 dq[4 * nb + 2 * r + 1] * p.scale);
+          if (pair) {
+            const float2 o = *reinterpret_cast<const float2*>(sDQ + at_);
+            v = make_float2(o.x + v.x, o.y + v.y);
+          }
+          *reinterpret_cast<float2*>(dqs + at_) = v;
         }
       wg::fence_proxy_async();
       wg_sync(cw);             // the partial is in; the stage is read
       if (t == 0) {
-        const int c0 = D == 64 ? 0 : 64 * cw;
-        wg::tma_reduce_add_3d(&map_dq, dqs, c0, q0, bh);
-        wg::tma_reduce_add_3d(&map_dq, dqs + 64 * 128, c0 + 32, q0, bh);
-        wg::bulk_commit();
+        wg::mbar_arrive(&dq_full[cw]);
+        if (pair) wg::mbar_arrive(&dq_free[0]);   // buffer 0 is read
         wg::mbar_arrive(&empty[stage]);
       }
       if (++stage == ST) {
@@ -973,8 +1052,6 @@ flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap map_q,
         phase ^= 1;
       }
     }
-    // the last reductions have read their partials before the block ends
-    if (t == 0) wg::bulk_wait<0>();
 
     // ---- finish: dk (scaled) and dv, once
     const long at = (long)bh * sk * D;
@@ -1084,6 +1161,7 @@ struct Args {
   const void *sid_q, *sid_kv;
   void *out0, *out1;    // dk, dv (dk/dv, single pass) or dq (dq)
   void* out2;           // the single pass: dq_acc
+  void* turns;          // the single pass: its turn counters
   const void* o;        // dq: the forward's output (the delta fold), or null
   int b, h, sq, sk, causal;
   float scale;
@@ -1110,8 +1188,8 @@ cudaError_t launch(const Args& a) {
                  static_cast<float*>(a.delta),
                  static_cast<const int32_t*>(a.sid_q),
                  static_cast<const int32_t*>(a.sid_kv),
-                 a.out0, a.out1, a.out2, a.o, a.dout, a.h, a.sq, a.sk,
-                 a.causal, a.scale};
+                 a.out0, a.out1, a.out2, static_cast<int*>(a.turns), a.o,
+                 a.dout, a.h, a.sq, a.sk, a.causal, a.scale};
   const int s = K == DQ ? a.sq : a.sk;
   const dim3 grid((unsigned)bh, (s + RES_ROWS - 1) / RES_ROWS);
   if constexpr (K == FUSED) {
@@ -1190,8 +1268,8 @@ extern "C" int apex_flash_bwd_sm90_dkdv(const void* q, const void* k,
                                         float scale, int dtype,
                                         void* stream) {
   const Args a{q, k, v, dout, lse, const_cast<void*>(delta), sid_q, sid_kv,
-               dk, dv, nullptr, nullptr, b, h, sq, sk, causal, scale,
-               static_cast<cudaStream_t>(stream)};
+               dk, dv, nullptr, nullptr, nullptr, b, h, sq, sk, causal,
+               scale, static_cast<cudaStream_t>(stream)};
   return dispatch<DKDV>(a, d, dtype);
 }
 
@@ -1207,26 +1285,28 @@ extern "C" int apex_flash_bwd_sm90_dq(const void* q, const void* k,
                                       int sq, int sk, int d, int causal,
                                       float scale, int dtype, void* stream) {
   const Args a{q, k, v, dout, lse, delta, sid_q, sid_kv, dq, nullptr,
-               nullptr, out, b, h, sq, sk, causal, scale,
+               nullptr, nullptr, out, b, h, sq, sk, causal, scale,
                static_cast<cudaStream_t>(stream)};
   return dispatch<DQ>(a, d, dtype);
 }
 
 // The single pass: dk, dv [b,h,sk,d] (every element written) and dq added,
-// times `scale`, into dq_acc [b,h,sq,d] fp32, which the caller zeroes; from
-// a given delta (rowsum(do * out), computed outside as the JAX package
-// computes it).
+// times `scale`, in a fixed order into dq_acc [b,h,sq,d] fp32, which the
+// caller zeroes, as it zeroes `turns` (b * h * ceil(sq / 64) int32, one
+// counter a 64-row query tile, left at the tile's count of key blocks);
+// from a given delta (rowsum(do * out), computed outside as the JAX
+// package computes it).
 extern "C" int apex_flash_bwd_sm90_fused(const void* q, const void* k,
                                          const void* v, const void* dout,
                                          const void* lse, const void* delta,
                                          const void* sid_q,
                                          const void* sid_kv, void* dq_acc,
-                                         void* dk, void* dv, int b, int h,
-                                         int sq, int sk, int d, int causal,
-                                         float scale, int dtype,
+                                         void* turns, void* dk, void* dv,
+                                         int b, int h, int sq, int sk, int d,
+                                         int causal, float scale, int dtype,
                                          void* stream) {
   const Args a{q, k, v, dout, lse, const_cast<void*>(delta), sid_q, sid_kv,
-               dk, dv, dq_acc, nullptr, b, h, sq, sk, causal, scale,
+               dk, dv, dq_acc, turns, nullptr, b, h, sq, sk, causal, scale,
                static_cast<cudaStream_t>(stream)};
   return dispatch<FUSED>(a, d, dtype);
 }

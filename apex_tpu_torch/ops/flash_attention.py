@@ -13,7 +13,8 @@ Port of ``apex_tpu/ops/flash_attention.py``:
   ``csrc/flash_bwd.cu``; on the CPU they are
   :func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`
   (the JAX ``_bwd_math``). The additive bias runs through the plain version
-  on the CPU and raises on CUDA; in-kernel dropout is not ported yet. Past
+  on the CPU, with an exactly zero gradient of its own as in the JAX
+  package, and raises on CUDA; in-kernel dropout is not ported yet. Past
   the JAX package's 2 MB VMEM gate the backward is its two-kernel split,
   which replaces ``_dkdv_kernel`` (``:558``) and ``_dq_kernel`` (``:671``)
   on the same two routes (:func:`split_route`): ``flash_dkdv_sm90`` and
@@ -476,9 +477,9 @@ def uses_split_backward(sq: int, sk: int, d: int, itemsize_k: int = 2,
                              bias, dropout) > _FUSED_BWD_MAX_KV_BYTES
 
 
-# apex_flash_bwd(q, k, v, do, lse, delta, sid_q, sid_kv, dq_acc, dk, dv, b,
-#                h, sq, sk, d, causal, scale, dtype, rounds, stream)
-_FLASH_BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
+# apex_flash_bwd(q, k, v, do, lse, delta, sid_q, sid_kv, dq_acc, turns, dk,
+#                dv, b, h, sq, sk, d, causal, scale, dtype, rounds, stream)
+_FLASH_BWD_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 # apex_flash_bwd_dkdv(q, k, v, do, lse, delta, sid_q, sid_kv, dk, dv, b, h,
 #                     sq, sk, d, causal, scale, dtype, rounds, stream), and
@@ -496,8 +497,56 @@ _SM90_DQ_ARGS = _SM90_DKDV_ARGS
 
 # the wgmma route's single pass, apex_flash_bwd_sm90_fused: the single
 # pass's arguments without ``rounds``
-_SM90_FUSED_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
+_SM90_FUSED_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+_TURN_ROWS = 64     # the single pass's query tiles: a turn counter each
+
+
+def single_pass_turns(b: int, h: int, sq: int, kd: int, sm90: bool) -> int:
+    """The int32 turn counters the single-pass backward needs
+    (``csrc/turns.cuh``): one a 64-row query tile of each (batch, head),
+    times, on ``csrc/flash_bwd.cu``'s route, the kernel's gradient-column
+    chunks a block (at most ``kd / 32``, kd the kernel head dim). Each
+    tile's dq is summed in a fixed order of its key tiles, so dq is the
+    same bits on every run."""
+    tiles = b * h * -(-sq // _TURN_ROWS)
+    return tiles if sm90 else tiles * (kd // 32)
+
+
+def single_pass_dq_order(sq: int, sk: int, causal: bool,
+                         sm90: bool) -> List[List[int]]:
+    """The order in which the single-pass kernels add their dq partials
+    (``csrc/turns.cuh``): for each 64-row query tile, the key blocks that
+    reach it, first to last. A key block reaches every query tile from the
+    first whose last row sees its first key (causal: the end-aligned offset
+    ``sk - sq``) to the last, so the blocks that reach a tile are blocks
+    0 .. J, and both routes add them in descending order: block j after
+    block j + 1, whose first tile under a causal mask is later than j's,
+    so that it runs ahead of j when both are resident. Each route's grid
+    runs its key blocks in reverse (the wgmma route: 128 keys a block,
+    grid (b h, key block); ``csrc/flash_bwd.cu``: 64 keys a block on the
+    grid's fast axis), so a block waits only for one the hardware
+    dispatched before it."""
+    keys = 128 if sm90 else 64
+    n_qt, n_kb = -(-sq // _TURN_ROWS), -(-sk // keys)
+    order = []
+    for qt in range(n_qt):
+        blocks = [j for j in range(n_kb)
+                  if not causal
+                  or max(0, keys * j - (sk - sq)) // _TURN_ROWS <= qt]
+        order.append(blocks[::-1])
+    return order
+
+
+def _dq_workspace(q, kd: int, sm90: bool):
+    """``(dq_acc, turns)``: the single pass's zeroed fp32 dq accumulator in
+    q's shape and its zeroed turn counters, cut from one buffer (one
+    zeroing pass for both)."""
+    b, h, sq, _ = q.shape
+    ws = torch.zeros(q.numel() + single_pass_turns(b, h, sq, kd, sm90),
+                     dtype=torch.float32, device=q.device)
+    return ws[:q.numel()].view(q.shape), ws[q.numel():].view(torch.int32)
 
 
 def split_route(dtype: torch.dtype, kd: int) -> str:
@@ -573,11 +622,12 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
                 return (dq, *_flash_dkdv_cuda(*args))
             dk, dv = _flash_dkdv_cuda(*args)
             return _flash_dq_cuda(*args), dk, dv
-        dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-        if sm90_route(dtype, dp):
+        sm90 = sm90_route(dtype, dp)
+        dq_acc, turns = _dq_workspace(q, dp, sm90)
+        if sm90:
             dk, dv = _flash_bwd_fused_cuda(q, k, v, do, lse, delta,
                                            segment_ids_q, segment_ids_kv,
-                                           causal, scale, dq_acc)
+                                           causal, scale, dq_acc, turns)
             return dq_acc.to(q.dtype), dk, dv
         dk = torch.empty_like(k)
         dv = torch.empty_like(v)
@@ -586,8 +636,8 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
             _FLASH_BWD_ARGS)
         err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse),
                  _ptr(delta), _ptr(segment_ids_q), _ptr(segment_ids_kv),
-                 _ptr(dq_acc), _ptr(dk), _ptr(dv), b, h, sq, sk,
-                 q.shape[-1], int(bool(causal)), float(scale),
+                 _ptr(dq_acc), _ptr(turns), _ptr(dk), _ptr(dv), b, h, sq,
+                 sk, q.shape[-1], int(bool(causal)), float(scale),
                  DTYPE_CODES[q.dtype], rounds, _stream(q))
         _build.check(err, what)
         flash_attention_bwd.launches += 1
@@ -601,19 +651,24 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
 
 
 def _flash_bwd_fused_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal,
-                          scale, dq_acc):
+                          scale, dq_acc, turns=None):
     """The wgmma route's single pass (``flash_bwd_fused_sm90``) on operands
     ``_flash_bwd_cuda`` checked: ``(dk, dv)``, and dq times ``scale`` added
-    into ``dq_acc`` (fp32, q's shape; the caller zeroes it). ``delta`` =
+    in a fixed order into ``dq_acc`` (fp32, q's shape; the caller zeroes
+    it). ``turns``: the zeroed int32 turn counters
+    (:func:`single_pass_turns`), allocated here when None. ``delta`` =
     rowsum(do * out) fp32 [b, h, sq], given."""
     b, h, sq, d = q.shape
+    if turns is None:
+        turns = torch.zeros(single_pass_turns(b, h, sq, d, True),
+                            dtype=torch.int32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     code = DTYPE_CODES[q.dtype]
     fn = _build.function(_build.dtype_target("flash_bwd_sm90", code),
                          "apex_flash_bwd_sm90_fused", _SM90_FUSED_ARGS)
     _build.check(fn(_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse),
                     _ptr(delta), _ptr(sid_q), _ptr(sid_kv), _ptr(dq_acc),
-                    _ptr(dk), _ptr(dv), b, h, sq, k.shape[2], d,
+                    _ptr(turns), _ptr(dk), _ptr(dv), b, h, sq, k.shape[2], d,
                     int(bool(causal)), float(scale), code, _stream(q)),
                  "flash_attention_bwd single-pass kernel")
     flash_attention_bwd.launches += 1
@@ -763,6 +818,36 @@ class FlashAttentionFunction(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+class BiasedAttentionFunction(torch.autograd.Function):
+    """The plain attention under an additive bias (the CPU route): the
+    gradients of q, k and v are autograd's through
+    :func:`mha_reference`, and the bias's is exactly zero in its own shape
+    (the JAX op's ``dbias = zeros_like(bias)``, ``_fa_bwd``: the bias is
+    an additive mask, non-differentiable by contract)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, segment_ids_q, segment_ids_kv, causal,
+                scale):
+        ctx.save_for_backward(q, k, v, bias, segment_ids_q, segment_ids_kv)
+        ctx.causal, ctx.scale = causal, scale
+        return mha_reference(q, k, v, causal=causal,
+                             segment_ids_q=segment_ids_q,
+                             segment_ids_kv=segment_ids_kv, scale=scale,
+                             bias=bias)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, sid_q, sid_kv = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = mha_reference(*qkv, causal=ctx.causal,
+                                segment_ids_q=sid_q, segment_ids_kv=sid_kv,
+                                scale=ctx.scale, bias=bias.detach())
+            dq, dk, dv = torch.autograd.grad(out, qkv, do)
+        dbias = torch.zeros_like(bias) if ctx.needs_input_grad[3] else None
+        return dq, dk, dv, dbias, None, None, None, None
+
+
 def flash_attention(q, k, v, segment_ids_q=None, segment_ids_kv=None,
                     causal: bool = False, scale: Optional[float] = None,
                     bias=None, dropout_rate: float = 0.0, dropout_seed=None):
@@ -770,8 +855,10 @@ def flash_attention(q, k, v, segment_ids_q=None, segment_ids_kv=None,
     [b, h, sq, d] in ``q.dtype``.
 
     ``segment_ids_*``: tokens attend only within equal non-negative ids;
-    negative ids are padding and give zero rows. ``bias`` runs through the
-    plain version on the CPU and is not supported by the kernels yet;
+    negative ids are padding and give zero rows. ``bias`` ([b|1, h|1, sq,
+    sk], added to the scaled scores) runs through the plain version on the
+    CPU (:class:`BiasedAttentionFunction`: its gradient is exactly zero,
+    as in the JAX package) and is not supported by the kernels yet;
     ``dropout_rate > 0`` is not ported yet."""
     if dropout_rate:
         raise NotImplementedError("attention dropout is not ported yet")
@@ -779,10 +866,15 @@ def flash_attention(q, k, v, segment_ids_q=None, segment_ids_kv=None,
         if check_device_type(q, "flash_attention") == "cuda":
             raise NotImplementedError("flash_attention: the additive bias "
                                       "is not in the CUDA kernels yet")
-        return mha_reference(q, k, v, causal=causal,
-                             segment_ids_q=segment_ids_q,
-                             segment_ids_kv=segment_ids_kv, scale=scale,
-                             bias=bias)
+        b, h, sq, sk = q.shape[0], q.shape[1], q.shape[2], k.shape[2]
+        if (bias.dim() != 4 or bias.shape[0] not in (1, b)
+                or bias.shape[1] not in (1, h)
+                or tuple(bias.shape[2:]) != (sq, sk)):
+            raise ValueError(f"bias must broadcast to [{b}, {h}, {sq}, "
+                             f"{sk}], got {tuple(bias.shape)}")
+        return BiasedAttentionFunction.apply(q, k, v, bias, segment_ids_q,
+                                             segment_ids_kv, bool(causal),
+                                             scale)
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     return FlashAttentionFunction.apply(q, k, v, segment_ids_q,
                                         segment_ids_kv, bool(causal), scale)

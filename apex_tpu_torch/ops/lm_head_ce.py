@@ -30,11 +30,17 @@ Two routes by operand dtype:
   zero-padded to a multiple of 8 (:func:`wgmma_hidden`: TMA's 16-byte row
   strides; the zero columns change no logit and get a zero gradient,
   sliced off).
-- fp32 (O0): ``csrc/lm_head_ce.cu``, the SIMT product of ``csrc/frag.cuh``
-  (exact fp32 products, so the O0 loss is bitwise the plain one; wgmma has
-  no exact fp32 product). Its shared memory holds at most ``kc`` hidden
-  columns of a tile (:func:`hidden_chunks`): h is zero-padded to
-  ``nch * kc`` and the kernels loop over the chunks.
+- fp32 (O0): ``csrc/lm_head_ce.cu``, on the register-blocked FFMA core of
+  ``csrc/simt_f32.cuh`` (exact fp32 products: wgmma has no exact fp32
+  product, and TF32 would round the operands of the mode users compare
+  against). Each call transposes x and E once into workspaces (the
+  core takes operands k-row by k-row). The forward folds 128 x 128 logit
+  tiles into per-token partials over :func:`f32_vocab_slices` slices; the
+  backward runs three products a chunk of :func:`f32_chunk_tokens`
+  tokens: the logits, whose epilogue writes g in fp32 in two layouts (G
+  and G^T, together at most :data:`F32_WORKSPACE_BYTES`); ``dx = G E``;
+  and ``dE += G^T x``, in place in fp32 (E's dtype). The hidden size is
+  zero-padded to a multiple of 4 (:func:`f32_hidden`: 16-byte rows).
 
 Numerics (as the JAX package): logits with the operands' dtype and fp32
 accumulation, never rounded; fp32 reductions; the gradient tile
@@ -45,8 +51,8 @@ partials). The plain versions compute the logits in fp32 from upcast
 operands, which is what the JAX package's interpret mode does.
 
 ``lm_head_ce_fwd.launches`` and ``lm_head_ce_bwd.launches`` count kernel
-calls (one a call; the backward's call launches its products chunk by
-chunk).
+calls on either route (one a call; the backward's call launches its
+products chunk by chunk), ``.f32_launches`` those of the fp32 route.
 """
 
 from __future__ import annotations
@@ -64,29 +70,46 @@ from apex_tpu_torch.ops.flash_attention import (DTYPE_CODES,
                                                 _check_cuda_operands, _ptr,
                                                 _require, _stream)
 
-_VOCAB_PER_BLOCK = 1024        # fp32 route: vocab rows per forward block
-_CHUNK = 64                    # fp32 route: kc is a multiple of 64
-_MAX_CHUNK = 512               # fp32 route: hidden columns a 32-row tile
 _SM90_DTYPES = (torch.bfloat16, torch.float16)
-_TILE = 128                    # the wgmma route's tile rows and columns
+_TILE = 128                    # both routes' tile rows and columns
 # the wgmma backward's gradient workspace G [T_c, V] holds at most this
 # many bytes (about the [n_vb, n, h] dx partials the JAX kernel leaves in
 # HBM at its block of 2048 vocab rows)
 G_WORKSPACE_BYTES = 256 << 20
+# the fp32 backward's G [T_c, V] and G^T [V, T_c] together hold at most
+# this many bytes: 4096 tokens a chunk at V 32768, so that dx's grid (128
+# token rows x 128 hidden columns a block) fills the H100's 132 SMs twice
+# at h 1024; the library composition it stands beside keeps 1 GB of fp32
+# logits and 1 GB of their gradient at that shape
+F32_WORKSPACE_BYTES = 1 << 30
 
 
 def _round_up(a: int, b: int) -> int:
     return -(-a // b) * b
 
 
-def hidden_chunks(h: int):
-    """``(hp, kc)`` of the fp32 (SIMT) route: its kernels run hidden size
-    ``h`` zero-padded to ``hp = nch * kc`` in ``nch`` chunks of ``kc``
-    columns, ``kc`` a multiple of 64, at most 512, the fewest chunks and
-    then the least padding."""
-    nch = -(-h // _MAX_CHUNK)
-    kc = _round_up(-(-h // nch), _CHUNK)
-    return nch * kc, kc
+def f32_hidden(h: int) -> int:
+    """The hidden size the fp32 route runs ``h`` at: rounded up to 4, for
+    the 16-byte copies of its rows (the kernels take any such h)."""
+    return _round_up(h, 4)
+
+
+def f32_vocab_slices(n: int, V: int, sms: int) -> int:
+    """Vocabulary slices of the fp32 forward: enough 128-token x slice
+    blocks for about two a SM (the core runs two blocks an SM), at least
+    1 and no more than the vocabulary's 128-row tiles."""
+    tiles_m, tiles_v = -(-n // _TILE), -(-V // _TILE)
+    return max(1, min(tiles_v, round(2 * sms / tiles_m)))
+
+
+def f32_chunk_tokens(n: int, V: int) -> int:
+    """Tokens a chunk of the fp32 backward: the most multiples of 128
+    whose fp32 G and G^T (``2 x T_c x round4(V)`` floats) fit
+    :data:`F32_WORKSPACE_BYTES` (at least 128), and no more than ``n``
+    needs."""
+    row = 2 * _round_up(V, 4) * 4
+    chunk = max(_TILE, F32_WORKSPACE_BYTES // row // _TILE * _TILE)
+    return min(chunk, _round_up(n, _TILE))
 
 
 def wgmma_hidden(h: int) -> int:
@@ -166,16 +189,16 @@ def lm_head_ce_bwd_reference(x2d, e, tgt, m, l, dloss,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-# apex_lm_head_ce_fwd(x, e, tgt, m_part, l_part, p_part, s_part, n, V, hp,
-#                     kc, dtype, stream)  (fp32)
-_FWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# apex_lm_head_ce_fwd(x, e, tgt, xt, et, m_part, l_part, p_part, s_part, n,
+#                     V, hp, n_slices, dtype, stream)  (fp32)
+_FWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 # apex_lm_head_ce_sm90_fwd(x, e, tgt, m_part, l_part, p_part, s_part, n, V,
 #                          hp, n_slices, dtype, stream)  (bf16, fp16)
 _SM90_FWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
     ctypes.c_void_p]
-# apex_lm_head_ce_bwd(x, e, tgt, m, l, dl, de, dx, n, V, hp, kc, ls,
-#                     ls_over_v, dtype, stream)  (fp32)
-_BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+# apex_lm_head_ce_bwd(x, e, tgt, m, l, dl, xt, et, g, gt, de, dx, n, V, hp,
+#                     chunk, ls, ls_over_v, dtype, stream)  (fp32)
+_BWD_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 # apex_lm_head_ce_sm90_bwd(x, e, tgt, m, l, dl, g, de_acc, de, dx, n, V, hp,
 #                          vs, chunk, ls, ls_over_v, dtype, stream)
@@ -197,6 +220,15 @@ def _check_operands(what, x2d, e, tgt):
     _check_cuda_operands(what, (("targets", tgt),), torch.int32, x2d.device)
 
 
+def _f32_transposes(n, V, hp, device):
+    """The fp32 route's workspaces for x^T [hp, round4(n)] and E^T [hp,
+    round4(V)] (the kernels write every element, zeros past n and V)."""
+    return (torch.empty((hp, _round_up(n, 4)), dtype=torch.float32,
+                        device=device),
+            torch.empty((hp, _round_up(V, 4)), dtype=torch.float32,
+                        device=device))
+
+
 def _source(x2d):
     """The build target of the operands' route: ``lm_head_ce_sm90`` for
     bf16 and fp16, ``lm_head_ce`` for fp32."""
@@ -210,37 +242,47 @@ def _ce_fwd_cuda(x2d, e, tgt, with_ssum):
     n, h = x2d.shape
     V = e.shape[0]
     sm90 = x2d.dtype in _SM90_DTYPES
-    hp, kc = (wgmma_hidden(h), None) if sm90 else hidden_chunks(h)
-    n_part = (vocab_slices(n, V, torch.cuda.get_device_properties(
-        x2d.device).multi_processor_count) if sm90
-        else -(-V // _VOCAB_PER_BLOCK))
+    sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
+    hp = wgmma_hidden(h) if sm90 else f32_hidden(h)
+    n_part = vocab_slices(n, V, sms) if sm90 else f32_vocab_slices(n, V, sms)
 
     def launch(x2d, e):
         parts = torch.empty((4 if with_ssum else 3, n_part, n),
                             dtype=torch.float32, device=x2d.device)
-        ptrs = (_ptr(x2d), _ptr(e), _ptr(tgt), _ptr(parts[0]),
-                _ptr(parts[1]), _ptr(parts[2]),
+        outs = (_ptr(parts[0]), _ptr(parts[1]), _ptr(parts[2]),
                 _ptr(parts[3]) if with_ssum else None)
+        code = DTYPE_CODES[x2d.dtype]
         if sm90:
             fn = _build.function(_source(x2d), "apex_lm_head_ce_sm90_fwd",
                                  _SM90_FWD_ARGS)
-            err = fn(*ptrs, n, V, hp, n_part, DTYPE_CODES[x2d.dtype],
-                     _stream(x2d))
+            err = fn(_ptr(x2d), _ptr(e), _ptr(tgt), *outs, n, V, hp, n_part,
+                     code, _stream(x2d))
         else:
+            xt, et = _f32_transposes(n, V, hp, x2d.device)
             fn = _build.function(_source(x2d), "apex_lm_head_ce_fwd",
                                  _FWD_ARGS)
-            err = fn(*ptrs, n, V, hp, kc, DTYPE_CODES[x2d.dtype],
-                     _stream(x2d))
+            err = fn(_ptr(x2d), _ptr(e), _ptr(tgt), _ptr(xt), _ptr(et),
+                     *outs, n, V, hp, n_part, code, _stream(x2d))
         _build.check(err, what)
         lm_head_ce_fwd.launches += 1
+        if not sm90:
+            lm_head_ce_fwd.f32_launches += 1
         return (parts,)
 
     parts, = with_padded_last_dim(launch, hp, (x2d, e))
+    return combine_partials(parts)
+
+
+def combine_partials(parts):
+    """``(m, l, pred, ssum | None)`` from the forward kernels' per-slice
+    online-softmax partials ``parts`` [3 or 4, n_slices, n] (m, l, pred,
+    and ssum under label smoothing; tiny), as the JAX package combines its
+    own (``:266-271``). A slice that saw no vocabulary row holds m = -1e30,
+    l = 0 and adds nothing."""
     m_p, l_p, p_p = parts[0], parts[1], parts[2]
-    # combine the per-slice online-softmax partials (tiny: [n_part, n])
     m = m_p.amax(dim=0)
     l = (l_p * torch.exp(m_p - m)).sum(dim=0)
-    ssum = parts[3].sum(dim=0) if with_ssum else None
+    ssum = parts[3].sum(dim=0) if parts.shape[0] == 4 else None
     return m, l, p_p.sum(dim=0), ssum
 
 
@@ -253,6 +295,7 @@ def lm_head_ce_fwd(x2d, e, tgt, with_ssum: bool = False):
 
 
 lm_head_ce_fwd.launches = 0
+lm_head_ce_fwd.f32_launches = 0
 
 
 def _ce_bwd_cuda(x2d, e, tgt, m, l, dloss, label_smoothing):
@@ -265,7 +308,7 @@ def _ce_bwd_cuda(x2d, e, tgt, m, l, dloss, label_smoothing):
     _check_cuda_operands(what, (("m", m), ("l", l), ("dloss", dloss)),
                          torch.float32, x2d.device)
     sm90 = x2d.dtype in _SM90_DTYPES
-    hp, kc = (wgmma_hidden(h), None) if sm90 else hidden_chunks(h)
+    hp = wgmma_hidden(h) if sm90 else f32_hidden(h)
     ls = float(label_smoothing)
     code = DTYPE_CODES[x2d.dtype]
 
@@ -287,14 +330,22 @@ def _ce_bwd_cuda(x2d, e, tgt, m, l, dloss, label_smoothing):
         return dx, de
 
     def launch_f32(x2d, e):
+        chunk = f32_chunk_tokens(n, V)
+        vp = _round_up(V, 4)
+        xt, et = _f32_transposes(n, V, hp, x2d.device)
+        g = torch.empty((chunk, vp), dtype=torch.float32, device=x2d.device)
+        gt = torch.empty((vp, chunk), dtype=torch.float32,
+                         device=x2d.device)
         de = torch.empty_like(e)
         dx = torch.empty_like(x2d)
         fn = _build.function(_source(x2d), "apex_lm_head_ce_bwd", _BWD_ARGS)
         err = fn(_ptr(x2d), _ptr(e), _ptr(tgt), _ptr(m), _ptr(l),
-                 _ptr(dloss), _ptr(de), _ptr(dx), n, V, hp, kc, ls, ls / V,
-                 code, _stream(x2d))
+                 _ptr(dloss), _ptr(xt), _ptr(et), _ptr(g), _ptr(gt),
+                 _ptr(de), _ptr(dx), n, V, hp, chunk, ls, ls / V, code,
+                 _stream(x2d))
         _build.check(err, what)
         lm_head_ce_bwd.launches += 1
+        lm_head_ce_bwd.f32_launches += 1
         return dx, de
 
     return with_padded_last_dim(launch_sm90 if sm90 else launch_f32, hp,
@@ -311,6 +362,7 @@ def lm_head_ce_bwd(x2d, e, tgt, m, l, dloss, label_smoothing: float = 0.0):
 
 
 lm_head_ce_bwd.launches = 0
+lm_head_ce_bwd.f32_launches = 0
 
 
 def wgmma_probe(a, b, a_mn: bool, b_mn: bool):

@@ -1,7 +1,8 @@
 """Times the port's kernels at their main paths' shapes, for one checkout.
 
-bf16 kernels (and the LM-head CE's fp16 ones too), so that two versions
-of the repository can be compared on one card in one run.
+bf16 kernels (and the LM-head CE's fp16 ones too) and the fp32 (O0)
+ones, so that two versions of the repository can be compared on one card
+in one run.
 
 Run on a machine with a CUDA card, as a file (not with ``-m``), so that
 ``--root`` decides which checkout's ``apex_tpu_torch`` is imported::
@@ -25,7 +26,17 @@ the serve path's mixed batch and the speculative engine's draft and verify
 calls (bf16 and e4m3 pools), the LM-head CE forward and backward at n8192
 V32768 h1024 in bf16 and fp16, the fp8 matmul at the decode batch (m8) at
 the GPT's four block linears (K1024 N3072, K1024 N1024, K1024 N4096,
-K4096 N1024), and the timer's own floor (a one-element add). Times are
+K4096 N1024), and the timer's own floor (a one-element add).
+
+The fp32 (O0) rows, each beside the PyTorch call or composition that
+computes the same function in exact fp32 (TF32 off, float32 matmul
+precision "highest", both recorded): the LM-head CE forward and backward
+at n8192 V32768 h1024 (``F.cross_entropy(F.linear(x, e), t)`` and its
+autograd backward), the flash forward and single pass at b8 h16 s1024 d64
+causal and the split's two kernels at b2 h16 s4096 (SDPA forward and
+backward); and one O0 step of the 2-layer GPT (h1024, V32768, b8 s1024,
+``FusedAdam``) under ``torch.profiler``, its device time by kernel class
+and its host-clock time. Times are
 medians of CUDA-event pairs around single launches, the L2 flushed before
 each. They are device times: a ``torch.cuda._sleep`` queued between the
 flush and the start event keeps the card busy while the host records the
@@ -54,6 +65,132 @@ def _args():
     return ap.parse_args()
 
 
+def _grad_closure(torch, fn, inputs, dout):
+    """A closure running the autograd backward of ``fn(*inputs)`` (the
+    forward runs once, outside the timed call)."""
+    ins = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*ins)
+    return lambda: torch.autograd.grad(out, ins, dout, retain_graph=True)
+
+
+def _fp32_rows(torch, F, fa, ce, timed, x, e, tgt, dl):
+    """The fp32 kernels of the O0 paths beside their library calls."""
+    res = {}
+    n = x.shape[0]
+    m, l, _, _ = ce.lm_head_ce_fwd_reference(x, e, tgt)
+    res["lm_head_ce_fwd fp32 n8192 h1024"] = timed(
+        lambda: ce.lm_head_ce_fwd(x, e, tgt), iters=5)
+    res["lm_head_ce_bwd fp32 n8192 h1024"] = timed(
+        lambda: ce.lm_head_ce_bwd(x, e, tgt, m, l, dl), iters=5)
+    res["library fp32 CE fwd: F.cross_entropy(F.linear)"] = timed(
+        lambda: F.cross_entropy(F.linear(x, e), tgt.long()), iters=5)
+    res["library fp32 CE bwd: autograd of the same"] = timed(
+        _grad_closure(torch, lambda a, w: F.cross_entropy(
+            F.linear(a, w), tgt.long()), (x, e),
+            torch.ones((), device="cuda")), iters=5)
+    del m, l
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def sdpa(a, b, c):
+        return F.scaled_dot_product_attention(a, b, c, is_causal=True,
+                                              scale=0.125)
+
+    q, k, v, do = (rnd(8, 16, 1024, 64) for _ in range(4))
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    res["flash_fwd fp32 b8 s1024"] = timed(
+        lambda: fa.flash_attention_fwd(q, k, v, causal=True), iters=5)
+    res["library fp32 SDPA fwd b8 s1024"] = timed(lambda: sdpa(q, k, v),
+                                                  iters=5)
+    res["flash_bwd single fp32 b8 s1024"] = timed(
+        lambda: fa._flash_bwd_cuda(q, k, v, out, lse, do, None, None, True,
+                                   0.125, split=False), iters=5)
+    res["library fp32 SDPA bwd b8 s1024"] = timed(
+        _grad_closure(torch, sdpa, (q, k, v), do), iters=5)
+    del q, k, v, do, out, lse
+    q, k, v, do = (rnd(2, 16, 4096, 64) for _ in range(4))
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    delta = (do * out).sum(dim=-1)
+    args = (q, k, v, do, lse, delta, None, None, True, 0.125,
+            fa._mixed_rounds(q, k, do))
+    res["flash_bwd dkdv fp32 b2 s4096"] = timed(
+        lambda: fa._flash_dkdv_cuda(*args), iters=3)
+    res["flash_bwd dq fp32 b2 s4096"] = timed(
+        lambda: fa._flash_dq_cuda(*args), iters=3)
+    res["library fp32 SDPA bwd b2 s4096"] = timed(
+        _grad_closure(torch, sdpa, (q, k, v), do), iters=3)
+    return res
+
+
+# kernel classes of the O0 step's trace, by a part of the kernel's name
+_O0_CLASSES = (
+    ("LM-head CE (B8, B9)", ("ce_fwd_kernel", "ce_bwd_de_kernel",
+                             "ce_bwd_dx_kernel", "ce32_")),
+    ("flash forward (B1)", ("flash_fwd",)),
+    ("flash backward (B2)", ("flash_bwd", "flash_dkdv", "flash_dq")),
+    ("LayerNorm (B6, B7)", ("_ln_fwd", "_ln_bwd")),
+    ("library GEMM", ("gemm", "nvjet", "xmma", "cutlass")),
+    ("memcpy/memset", ("Memcpy", "Memset", "memcpy", "memset")),
+)
+
+
+def _o0_step(torch):
+    """One O0 step (2-layer fp32 GPT at h1024 V32768, b8 s1024,
+    ``FusedAdam`` through ``amp.make_train_step``) after a warm-up:
+    the host-clock median of 3 steps, then one step under
+    ``torch.profiler``, device ms and launches by kernel class."""
+    import dataclasses
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models.gpt import GPT, GPTConfig
+    from apex_tpu_torch.optimizers import FusedAdam
+    cfg = dataclasses.replace(
+        GPTConfig(vocab_size=32768, max_seq_len=1024, hidden_size=1024,
+                  num_layers=12, num_heads=16, dtype=torch.bfloat16),
+        num_layers=2, dtype=torch.float32)
+    model = GPT.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cuda")
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (8, 1024)).astype(np.int64)).cuda()
+    labels = torch.roll(ids, -1, dims=1)
+    amp_model, opt = amp.initialize(model, FusedAdam(lr=3e-4),
+                                    opt_level="O0", verbosity=0)
+    amp_model.cast_params()
+    box = [opt.init(model.parameters()), opt._scaler.state]
+    step = amp.make_train_step(lambda m, i, l: m.loss(i, l), opt)
+
+    def one():
+        _, box[0], box[1], _ = step(model, box[0], box[1], ids, labels)
+        torch.cuda.synchronize()
+
+    one()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        one()
+        times.append(1e3 * (time.perf_counter() - t0))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        one()
+    by_class = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        cls = next((c for c, keys in _O0_CLASSES
+                    if any(k in ev.key for k in keys)),
+                   "other PyTorch kernels")
+        ms, count = by_class.get(cls, (0.0, 0))
+        by_class[cls] = (ms + ev.self_device_time_total / 1e3,
+                         count + ev.count)
+    return dict(step_ms_median=float(np.median(times)), step_ms_all=times,
+                device_ms=sum(ms for ms, _ in by_class.values()),
+                device_ms_and_launches_by_class=dict(sorted(
+                    by_class.items(), key=lambda kv: -kv[1][0])))
+
+
 def main() -> int:
     args = _args()
     here = os.path.dirname(os.path.abspath(__file__))
@@ -61,6 +198,7 @@ def main() -> int:
     sys.path.insert(0, root)
     import numpy as np
     import torch
+    import torch.nn.functional as F
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
         return 2
@@ -69,6 +207,7 @@ def main() -> int:
     from apex_tpu_torch.ops import fp8_matmul as mm
     from apex_tpu_torch.ops import lm_head_ce as ce
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     # ~150 us at the H100's 1.98 GHz: more than a wrapper's host time
     sleep_cycles = 300_000
@@ -210,12 +349,15 @@ def main() -> int:
         lambda: ce.lm_head_ce_fwd(x, e, tgt), iters=10)
     res["lm_head_ce_bwd n8192 h1024"] = timed(
         lambda: ce.lm_head_ce_bwd(x, e, tgt, mm_, ll, dl), iters=10)
+    x32, e32 = x.float(), e.float()
     x, e = x.half(), e.half()
     res["lm_head_ce_fwd fp16 n8192 h1024"] = timed(
         lambda: ce.lm_head_ce_fwd(x, e, tgt), iters=10)
     res["lm_head_ce_bwd fp16 n8192 h1024"] = timed(
         lambda: ce.lm_head_ce_bwd(x, e, tgt, mm_, ll, dl), iters=10)
     del x, e
+    res.update(_fp32_rows(torch, F, fa, ce, timed, x32, e32, tgt, dl))
+    del x32, e32
 
     # the four block linears of the GPT at the decode batch
     for K, N in ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024)):
@@ -225,10 +367,15 @@ def main() -> int:
         res[f"fp8_matmul m8 K{K} N{N}"] = timed(
             lambda: mm.fp8_dequant_matmul(xq, wq, sc))
 
+    o0 = _o0_step(torch)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    out = dict(root=root, card=card, ms=res, at=time.time())
+    out = dict(root=root, card=card, ms=res, o0_step=o0,
+               fp32_matmul=dict(
+                   allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+                   precision=torch.get_float32_matmul_precision()),
+               at=time.time())
     text = json.dumps(out)
     print(text, flush=True)
     if args.out:

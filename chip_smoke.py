@@ -100,7 +100,9 @@ Phases (any failure exits non-zero; no phase's error is caught):
 16. O0 path — the GPT at full width with 2 layers in fp32 (b8 s1024): the
     loss and every gradient through the kernels (fp32 flash, LayerNorm and
     LM-head CE) against ``GPT.loss(reference=True)``, then 3 counted
-    ``FusedAdam`` steps through ``amp.make_train_step`` at O0;
+    ``FusedAdam`` steps through ``amp.make_train_step`` at O0 (the CE on
+    its fp32 kernels), and one more under ``torch.profiler``: its device
+    time by kernel class;
 17. O0 long path — the same 2-layer fp32 GPT at b2 s4096, past the
     flash backward's gate: a warm-up and 2 counted O0 steps, every split
     launch on ``csrc/flash_bwd.cu``'s route (fp32 takes no wgmma).
@@ -112,10 +114,11 @@ pass and split) at fp16 and fp32, at head dims 80, 96, 256, 320 and 512
 16 in both pool modes, with fp16/fp32 queries, at head dims 80, 96, 100,
 256 and 512 in both pool modes and with queries over a pool of another
 dtype; the LM-head CE (B8 and B9 on wgmma/TMA for bf16 and fp16, the
-SIMT route for fp32) at h 64, 100, 1536, 1600, 2048, fp16 and fp32, and
-B9 bitwise on a second run, its device launches in one call counted by
-``torch.profiler`` (each of its three products once a token chunk, no
-other kernel); the fp8 matmul at K = N = 1000. And B15 (the fused
+FFMA route for fp32) at h 64, 100, 1536, 1600, 2048, fp16 and fp32 (and
+fp32 at 1601 over a ragged 1000 x 1003), and B9 bitwise on a second run,
+its device launches in one call counted by ``torch.profiler`` (each of
+its three products once a token chunk, no other kernel); the fp8 matmul
+at K = N = 1000. And B15 (the fused
 bottleneck, N 32) within two bf16 ulps plus 2^-5 of its plain version and
 0.15 of the cuDNN composition; B14
 bitwise (mul, max, where, iota_cmp_where) or within 2 ulps (exp, exp2).
@@ -128,6 +131,14 @@ forward and the single pass's dk and dv bitwise on a rerun, with ptxas's
 registers and no spill; flash_fwd.cu's and flash_bwd.cu's in fp32 at the
 O0 path's shape. Every bf16 main path (the GPT cells, ZeRO-3, LAMB,
 serve) takes the wgmma route for every flash launch, the O0 paths none.
+
+B8 and B9's fp32 route (``csrc/lm_head_ce.cu`` on the exact-FFMA core of
+``csrc/simt_f32.cuh``) is held at the O0 path's n 8192, V 32768, h 1024
+against its plain versions, bitwise on a rerun, with its device launches
+counted and ptxas's log showing no spill, and timed beside the fp32
+library composition (TF32 off). The single-pass flash backward's dq is
+bitwise on a rerun on both routes and, for one batch, the same bits run
+alone.
 
 It holds B13 bitwise against its plain version in five modes and under a
 set skip flag, at the GPT's 185,759,744 parameters and a ragged n. The
@@ -216,7 +227,7 @@ def grad_err(got, ref, what: str, floor_frac: float = 0.02,
     element-wise, and ``norm_tol`` in relative norm. The backward kernels
     round p, ds (flash) and the softmax gradient tile (LM-head CE) to bf16
     before their products, as the TPU kernels do, where the plain versions
-    keep fp32; the flash dq sums with atomics in a varying order."""
+    keep fp32, and sum in other orders (fixed ones: a rerun is bitwise)."""
     got, ref = got.float(), ref.float()
     diff = (got - ref).abs()
     floor = floor_frac * ref.abs().max().item() + 1e-12
@@ -735,13 +746,15 @@ def _bwd_bound(b, h, s, d, itemsize, peak=BF16_FLOPS_PER_S):
 def check_flash_bwd(torch, timer):
     """The single-pass backward on both routes. The wgmma route
     (``flash_bwd_fused_sm90`` of ``csrc/flash_bwd_sm90.cu``) at the train
-    cell's b8 h16 s1024 d64 causal: as called (the delta pass, dq_acc's
-    zeroing and cast included) and alone on a given delta and dq_acc,
-    beside the split forced at the same shape and SDPA's backward; dk and
-    dv bitwise on a rerun (dq, summed by bulk reductions in a varying
-    order, is held to the tolerance); segment ids with padding rows, whose
-    dq is exactly zero (ptxas's registers and spills: check_flash_split).
-    flash_bwd.cu's single pass at the O0 path's shape (fp32)."""
+    cell's b8 h16 s1024 d64 causal: as called (the delta pass, the zeroing
+    of dq_acc and its turn counters, and the cast included) and alone on a
+    given delta and dq_acc, beside the split forced at the same shape and
+    SDPA's backward; dq, dk and dv bitwise on a rerun and, for the first
+    batch, bitwise the same run alone (dq is summed in a fixed order of
+    key blocks); segment ids with padding rows, whose dq is exactly zero
+    (ptxas's registers and spills: check_flash_split). flash_bwd.cu's
+    single pass at the O0 path's shape (fp32), dq, dk and dv bitwise on a
+    rerun and for the first batch alone."""
     import torch.nn.functional as F
     from apex_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -783,8 +796,10 @@ def check_flash_bwd(torch, timer):
     ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
                                            causal=True, scale=scale)
     torch.cuda.synchronize()
-    check(torch.equal(got[1], again[1]) and torch.equal(got[2], again[2]),
-          "flash_bwd: dk or dv changed on a rerun")
+    check(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
+          "flash_bwd: dq, dk or dv changed on a rerun")
+    _check_first_batch_alone(torch, fa, got, q, k, v, out, lse, do, scale,
+                             "flash_bwd")
     err = max(grad_err(g, r, f"flash_bwd {n}")
               for n, g, r in zip(("dq", "dk", "dv"), got, ref))
     del got, again, ref
@@ -809,8 +824,8 @@ def check_flash_bwd(torch, timer):
         shape=f"b{b} h{h} s{s} d{d} bf16 causal (also b2 with segment ids, "
               f"padding from {live})",
         max_abs_err=err,
-        tolerance="2 bf16 ulp + 2% of max, 1% relative norm (dq summed in "
-                  "a varying order); dk, dv bitwise on a rerun",
+        tolerance="2 bf16 ulp + 2% of max, 1% relative norm; dq, dk, dv "
+                  "bitwise on a rerun and for one batch alone",
         ms=alone_ms, as_called_ms=ms, split_ms=split_ms, plain_ms=plain_ms,
         bound_ms=t_bound, bound_by=by, library_ms=lib_ms,
         library="backward of F.scaled_dot_product_attention("
@@ -824,12 +839,18 @@ def check_flash_bwd(torch, timer):
     got = fa.flash_attention_bwd(q, k, v, out, lse, do, None, None, True,
                                  scale)
     check(moved(n0) == (0, 1), "flash_bwd fp32: not flash_bwd.cu")
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, None, None, True,
+                                   scale)
     ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
                                            causal=True, scale=scale)
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
+          "flash_bwd fp32: dq, dk or dv changed on a rerun")
+    _check_first_batch_alone(torch, fa, got, q, k, v, out, lse, do, scale,
+                             "flash_bwd fp32")
     f32_err = max(_fp32_err(g, r, f"flash_bwd fp32 {n}", FP32_GRAD_TOL)
                   for n, g, r in zip(("dq", "dk", "dv"), got, ref))
-    del got, ref
+    del got, again, ref
     f32_bound = _bwd_bound(b, h, s, d, 4, FP32_FLOPS_PER_S)
     simt = dict(
         name="flash_bwd", route="cuda",
@@ -837,7 +858,8 @@ def check_flash_bwd(torch, timer):
         replaces="apex_tpu/ops/flash_attention.py:604",
         shape=f"b{b} h{h} s{s} d{d} fp32 causal (the O0 path's)",
         max_abs_err=f32_err,
-        tolerance=f"{FP32_GRAD_TOL} of max and in relative norm",
+        tolerance=f"{FP32_GRAD_TOL} of max and in relative norm; dq, dk, "
+                  "dv bitwise on a rerun and for one batch alone",
         ms=timer(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, None,
                                                 None, True, scale), iters=5),
         plain_ms=timer(lambda: fa.flash_attention_bwd_reference(
@@ -850,6 +872,18 @@ def check_flash_bwd(torch, timer):
                 "is_causal=True), fp32",
         bound_ms=f32_bound[0], bound_by=f32_bound[1])
     return [wgmma, simt]
+
+
+def _check_first_batch_alone(torch, fa, got, q, k, v, out, lse, do, scale,
+                             what):
+    """The single pass's gradients of the first batch, run alone, are the
+    same bits as in the full batch's run: each query tile's dq is summed in
+    an order of its own key blocks, whatever else shares the grid."""
+    one = fa.flash_attention_bwd(q[:1], k[:1], v[:1], out[:1], lse[:1],
+                                 do[:1], None, None, True, scale)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b_[:1]) for a, b_ in zip(one, got)),
+          f"{what}: the first batch's gradients differ run alone")
 
 
 def check_layer_norm_bwd(torch, timer):
@@ -1006,6 +1040,147 @@ def check_lm_head_ce(torch, timer):
              library_ms=bwd_lib,
              library="autograd backward of F.linear + F.cross_entropy",
              device_launches_per_call=products, **common),
+    ]
+
+
+# B8 and B9's fp32 kernels (csrc/lm_head_ce.cu) by name
+CE32_KERNELS = ("ce32_transpose_kernel", "ce32_fwd_kernel",
+                "ce32_grad_kernel", "ce32_product_kernel")
+
+
+def _ce32_registers(build):
+    """``ptxas -v``'s registers and spill bytes of each fp32 CE kernel;
+    fails on a spill."""
+    regs, name = {}, None
+    log_text = build.library_path(build.dtype_target("lm_head_ce", 2)) \
+        .with_suffix(".log").read_text()
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = next((k for k in CE32_KERNELS if k in m.group(1)), None)
+            if name:
+                regs[name] = {}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            regs[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            check(regs[name]["spill_bytes"] == 0,
+                  f"lm_head_ce@f32 {name}: ptxas spills "
+                  f"{regs[name]['spill_bytes']} bytes")
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs[name]["registers"] = int(m.group(1))
+    check(set(regs) == set(CE32_KERNELS),
+          f"lm_head_ce@f32: kernels in ptxas's log {sorted(regs)}")
+    return regs
+
+
+def check_lm_head_ce_f32(torch, timer):
+    """B8 and B9's fp32 route (``csrc/lm_head_ce.cu`` on the FFMA core of
+    ``csrc/simt_f32.cuh``) at the O0 path's n 8192, V 32768, h 1024:
+    against the plain versions (label smoothing 0 and 0.1; the statistics
+    within 1e-4 of the largest, the gradients FP32_GRAD_TOL), dx and dE
+    bitwise on a second run, the device launches of one call counted by
+    the profiler (the forward: two transposes and one product kernel; the
+    backward: two transposes, then a logits kernel and two products a
+    token chunk, and nothing else), ptxas's registers with no spill; then
+    kernel, plain and library timed, the library in exact fp32 (TF32 off,
+    float32 matmul precision "highest", both recorded)."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.ops import lm_head_ce as ce
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    n, V, h = 8192, 32768, 1024
+    x = torch.randn(n, h, generator=gen, device="cuda")
+    e = 0.02 * torch.randn(V, h, generator=gen, device="cuda")
+    tgt = torch.randint(0, V, (n,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    dl = torch.full((n,), 1.0 / n, device="cuda")
+    fwd_err, bwd_err = 0.0, 0.0
+    for ls in (0.0, 0.1):
+        n0 = (ce.lm_head_ce_fwd.f32_launches, ce.lm_head_ce_bwd.f32_launches)
+        got = ce.lm_head_ce_fwd(x, e, tgt, ls > 0)
+        ref = ce.lm_head_ce_fwd_reference(x, e, tgt, ls > 0)
+        torch.cuda.synchronize()
+        # fp32 sums of the same exact products in another order
+        for name, a, r in zip(("m", "l", "pred", "ssum"), got, ref):
+            if r is None:
+                continue
+            err = (a - r).abs().max().item()
+            check(err <= 1e-4 * (r.abs().max().item() + 1.0),
+                  f"CE fp32 fwd {name} (ls {ls}) max err {err}")
+            fwd_err = max(fwd_err, err)
+        m, l = ref[0], ref[1]
+        dx, de = ce.lm_head_ce_bwd(x, e, tgt, m, l, dl, ls)
+        rx, re_ = ce.lm_head_ce_bwd_reference(x, e, tgt, m, l, dl, ls)
+        dx2, de2 = ce.lm_head_ce_bwd(x, e, tgt, m, l, dl, ls)
+        torch.cuda.synchronize()
+        bwd_err = max(bwd_err,
+                      _fp32_err(dx, rx, f"CE fp32 dx (ls {ls})",
+                                FP32_GRAD_TOL),
+                      _fp32_err(de, re_, f"CE fp32 dE (ls {ls})",
+                                FP32_GRAD_TOL))
+        check(torch.equal(dx, dx2) and torch.equal(de, de2),
+              f"CE fp32 bwd (ls {ls}): two runs differ")
+        check((ce.lm_head_ce_fwd.f32_launches - n0[0],
+               ce.lm_head_ce_bwd.f32_launches - n0[1]) == (1, 2),
+              "CE fp32: not the fp32 route")
+        del got, ref, dx, de, rx, re_, dx2, de2
+    m, l, _, _ = ce.lm_head_ce_fwd_reference(x, e, tgt)
+    chunks = -(-n // ce.f32_chunk_tokens(n, V))
+    fwd_dev = device_launches(torch, lambda: ce.lm_head_ce_fwd(x, e, tgt),
+                              CE32_KERNELS)
+    check({k: fwd_dev[k] for k in CE32_KERNELS} == {
+        "ce32_transpose_kernel": 2, "ce32_fwd_kernel": 1,
+        "ce32_grad_kernel": 0, "ce32_product_kernel": 0},
+        f"CE fp32 fwd: device launches {fwd_dev} in one call")
+    bwd_dev = device_launches(torch, lambda: ce.lm_head_ce_bwd(
+        x, e, tgt, m, l, dl), CE32_KERNELS)
+    check(bwd_dev == {"ce32_transpose_kernel": 2, "ce32_fwd_kernel": 0,
+                      "ce32_grad_kernel": chunks,
+                      "ce32_product_kernel": 2 * chunks, "other": 0},
+          f"CE fp32 bwd: device launches {bwd_dev} in one call, expected "
+          f"two transposes, then a logits kernel and two products a chunk "
+          f"({chunks} chunks), and no other")
+    fwd_ms = timer(lambda: ce.lm_head_ce_fwd(x, e, tgt), iters=10)
+    fwd_plain = timer(lambda: ce.lm_head_ce_fwd_reference(x, e, tgt),
+                      iters=5)
+    fwd_lib = timer(lambda: F.cross_entropy(F.linear(x, e), tgt.long()),
+                    iters=10)
+    bwd_ms = timer(lambda: ce.lm_head_ce_bwd(x, e, tgt, m, l, dl), iters=5)
+    bwd_plain = timer(lambda: ce.lm_head_ce_bwd_reference(
+        x, e, tgt, m, l, dl), iters=3, warmup=1)
+    bwd_lib = timer(_grad_of(torch, lambda a, w: F.cross_entropy(
+        F.linear(a, w), tgt.long()), (x, e), torch.ones((), device="cuda")),
+        iters=5)
+    prod = 2.0 * n * V * h
+    io = n * h * 4 + V * h * 4 + n * 4
+    fb, fby = bound(prod, io + 4 * n * 4, FP32_FLOPS_PER_S)
+    bb, bby = bound(3 * prod, io + 3 * n * 4 + V * h * 4 + n * h * 4,
+                    FP32_FLOPS_PER_S)
+    fp32_matmul = dict(allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+                       precision=torch.get_float32_matmul_precision())
+    common = dict(route="cuda", source="apex_tpu_torch/csrc/lm_head_ce.cu",
+                  shape=f"n{n} V{V} h{h} fp32 x/E, int32 targets (the O0 "
+                        "path's); label smoothing 0 and 0.1 checked",
+                  fp32_matmul=fp32_matmul, registers=_ce32_registers(_build))
+    return [
+        dict(name="lm_head_ce_fwd_f32",
+             replaces="apex_tpu/ops/lm_head_ce.py:162", max_abs_err=fwd_err,
+             tolerance="1e-4 of max (fp32 stats)", ms=fwd_ms,
+             plain_ms=fwd_plain, bound_ms=fb, bound_by=fby,
+             library_ms=fwd_lib, tflops=prod / fwd_ms / 1e9,
+             library="F.cross_entropy(F.linear(x, e), t), exact fp32",
+             device_launches_per_call=fwd_dev, **common),
+        dict(name="lm_head_ce_bwd_f32",
+             replaces="apex_tpu/ops/lm_head_ce.py:198", max_abs_err=bwd_err,
+             tolerance=f"{FP32_GRAD_TOL} of max and in relative norm; dx, "
+                       "dE bitwise on a rerun",
+             ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bb, bound_by=bby,
+             library_ms=bwd_lib, tflops=3 * prod / bwd_ms / 1e9,
+             library="autograd backward of F.linear + F.cross_entropy, "
+                     "exact fp32",
+             device_launches_per_call=bwd_dev, **common),
     ]
 
 
@@ -1560,6 +1735,8 @@ def counters():
             "layer_norm_bwd": (ln.layer_norm_bwd, "launches"),
             "lm_head_ce_fwd": (ce.lm_head_ce_fwd, "launches"),
             "lm_head_ce_bwd": (ce.lm_head_ce_bwd, "launches"),
+            "lm_head_ce_fwd_f32": (ce.lm_head_ce_fwd, "f32_launches"),
+            "lm_head_ce_bwd_f32": (ce.lm_head_ce_bwd, "f32_launches"),
             "fp8_matmul": (mm.fp8_dequant_matmul, "launches"),
             "flash_bwd_dkdv": (fa.flash_attention_bwd, "dkdv_launches"),
             "flash_bwd_dq": (fa.flash_attention_bwd, "dq_launches"),
@@ -1587,8 +1764,13 @@ def read_counters():
     """Launches by kernel since :func:`reset_counters`; the flash
     counters of both routes less the wgmma route's, so that ``flash_fwd``,
     ``flash_bwd``, ``flash_bwd_dkdv`` and ``flash_bwd_dq`` count
-    flash_fwd.cu's and flash_bwd.cu's kernels alone."""
+    flash_fwd.cu's and flash_bwd.cu's kernels alone, and the LM-head CE's
+    less the fp32 route's, so that ``lm_head_ce_fwd``/``_bwd`` count the
+    wgmma route's (``lm_head_ce_sm90.cu``) and ``*_f32`` the fp32 route's
+    (``lm_head_ce.cu``)."""
     out = {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
+    out["lm_head_ce_fwd"] -= out["lm_head_ce_fwd_f32"]
+    out["lm_head_ce_bwd"] -= out["lm_head_ce_bwd_f32"]
     out["flash_fwd"] -= out["flash_fwd_sm90"]
     out["flash_bwd"] -= out["flash_bwd_fused_sm90"]
     out["flash_bwd_dkdv"] -= out["flash_bwd_dkdv_sm90"]
@@ -1786,7 +1968,8 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS, LR = 8, 1024, 8, 3e-4
 TRAIN_PER_STEP = {"flash_fwd": 0, "flash_fwd_sm90": 12, "flash_bwd": 0,
                   "flash_bwd_fused_sm90": 12, "layer_norm_fwd": 25,
                   "layer_norm_bwd": 25, "lm_head_ce_fwd": 1,
-                  "lm_head_ce_bwd": 1, "paged_decode": 0,
+                  "lm_head_ce_bwd": 1, "lm_head_ce_fwd_f32": 0,
+                  "lm_head_ce_bwd_f32": 0, "paged_decode": 0,
                   "paged_decode_fp8": 0, "fp8_matmul": 0,
                   "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
                   "flash_bwd_dkdv_sm90": 0, "flash_bwd_dq_sm90": 0,
@@ -2202,7 +2385,7 @@ def rn50_overflow_check(torch, model, amp_model, opt, state):
 # are __expf (2 ulps) and its sums run in another order
 FP32_FWD_TOL = 1e-5
 # fp32 gradients: relative norm and largest-value fraction (no rounding of
-# p or ds in fp32, so only summation order, __expf and the dq atomics)
+# p or ds in fp32, so only summation order and __expf)
 FP32_GRAD_TOL = 1e-4
 
 
@@ -2321,16 +2504,25 @@ def check_paged_repairs(torch):
 
 def check_lm_head_ce_repairs(torch):
     """The LM-head CE forward and backward at other hidden sizes (64: the
-    tests' tiny GPT; 100, 1536, 1600, 2048), fp16, and fp32 (the SIMT
-    route), at the GPT's vocabulary, held at the CE limits of PERF.md §2."""
+    tests' tiny GPT; 100, 1536, 1600, 2048), fp16, and fp32 (the FFMA
+    route at h 64, 100, 1024, 1536, 2048 and a ragged 1000 x 1003 x 1601),
+    at the GPT's vocabulary, held at the CE limits of PERF.md §2, the fp32
+    route's backward bitwise on a rerun."""
     from apex_tpu_torch.ops import lm_head_ce as ce
     gen = torch.Generator(device="cuda").manual_seed(13)
-    n, V = 1024, 32768
     out = []
-    for dtype, h in ((torch.bfloat16, 64), (torch.bfloat16, 100),
-                     (torch.bfloat16, 1536), (torch.bfloat16, 1600),
-                     (torch.bfloat16, 2048), (torch.float16, 1024),
-                     (torch.float32, 64), (torch.float32, 1024)):
+    for dtype, h, n, V in ((torch.bfloat16, 64, 1024, 32768),
+                           (torch.bfloat16, 100, 1024, 32768),
+                           (torch.bfloat16, 1536, 1024, 32768),
+                           (torch.bfloat16, 1600, 1024, 32768),
+                           (torch.bfloat16, 2048, 1024, 32768),
+                           (torch.float16, 1024, 1024, 32768),
+                           (torch.float32, 64, 1024, 32768),
+                           (torch.float32, 100, 1024, 32768),
+                           (torch.float32, 1024, 1024, 32768),
+                           (torch.float32, 1536, 1024, 32768),
+                           (torch.float32, 2048, 1024, 32768),
+                           (torch.float32, 1601, 1000, 1003)):
         x = torch.randn(n, h, generator=gen, device="cuda").to(dtype)
         e = (0.02 * torch.randn(V, h, generator=gen, device="cuda")).to(
             dtype)
@@ -2354,15 +2546,16 @@ def check_lm_head_ce_repairs(torch):
         if dtype == torch.float32:
             bwd = max(_fp32_err(dx, rx, f"{name} dx", FP32_GRAD_TOL),
                       _fp32_err(de, re, f"{name} dE", FP32_GRAD_TOL))
+            dx2, de2 = ce.lm_head_ce_bwd(x, e, tgt, ref[0], ref[1], dl, 0.1)
+            check(torch.equal(dx, dx2) and torch.equal(de, de2),
+                  f"{name}: two runs of the backward differ")
         else:
             bwd = max(grad_err(dx, rx, f"{name} dx"),
                       grad_err(de, re, f"{name} dE"))
-        if dtype == torch.float32:
-            hp, kc = ce.hidden_chunks(h)
-        else:
-            hp, kc = ce.wgmma_hidden(h), None
+        hp = ce.f32_hidden(h) if dtype == torch.float32 \
+            else ce.wgmma_hidden(h)
         out.append(dict(dtype=str(dtype)[6:], h=h, n=n, V=V, padded_h=hp,
-                        chunk=kc, fwd_err=fwd, bwd_err=bwd))
+                        fwd_err=fwd, bwd_err=bwd))
     return out
 
 
@@ -2664,12 +2857,11 @@ def run_spatial_path(torch):
 O0_LAYERS, O0_B, O0_S, O0_STEPS = 2, 8, 1024, 3
 O0_PER_STEP = {**{k: 0 for k in TRAIN_PER_STEP}, "flash_fwd": O0_LAYERS,
                "flash_bwd": O0_LAYERS, "layer_norm_fwd": 2 * O0_LAYERS + 1,
-               "layer_norm_bwd": 2 * O0_LAYERS + 1, "lm_head_ce_fwd": 1,
-               "lm_head_ce_bwd": 1}
+               "layer_norm_bwd": 2 * O0_LAYERS + 1, "lm_head_ce_fwd_f32": 1,
+               "lm_head_ce_bwd_f32": 1}
 # the O0 step against GPT.loss(reference=True), both fp32 on the same
 # parameters: the kernels round nothing below fp32 (p, ds and the CE
-# gradient tile stay fp32), so only summation order, __expf and the dq
-# atomics differ
+# gradient tile stay fp32), so only summation order and __expf differ
 O0_LOSS_TOL = 1e-5
 O0_GRAD_TOL = 1e-4
 
@@ -2726,7 +2918,15 @@ def run_o0_path(torch):
     for k, per in O0_PER_STEP.items():
         check(launches[k] == per * O0_STEPS,
               f"O0 {k}: {launches[k]} launches, expected {per * O0_STEPS}")
+    box = [state, sstate]
+
+    def one():
+        _, box[0], box[1], _ = step(model, box[0], box[1], ids, labels)
+
+    # one more step under torch.profiler: device time by kernel class
+    trace_one = _profile(torch, one, 1)
     return dict(layers=O0_LAYERS, batch=O0_B, seq=O0_S, dtype="float32",
+                trace=trace_one,
                 loss_kernels=float(loss), loss_plain=float(ref_loss),
                 loss_abs_diff=dloss, worst_grad_rel_norm=worst[:5],
                 median_grad_rel_norm=float(np.median([w for w, _ in worst])),
@@ -2880,9 +3080,9 @@ def zero3_phases(torch, zm, opt, shards, state, sstate, ids, labels,
 
 # ZeRO-3 masters, m and v against the dense FusedAdam twin's: both run the
 # same kernels on the same batch from the same fp32 masters (bitwise on the
-# CPU, tests/test_torch_zero.py), so on the card they differ only where the
-# flash backward's dq, summed with fp32 atomics in a varying order, flips a
-# bf16 rounding of a gradient. Adam moves a master by ~lr a step whatever
+# CPU, tests/test_torch_zero.py), so on the card they may differ only where
+# a gradient is summed in another order in the two steps and a bf16
+# rounding flips. Adam moves a master by ~lr a step whatever
 # its gradient's size, so a flipped near-zero gradient can put two masters
 # up to 2 * lr apart a step (the first step moves each by lr * g / (|g| +
 # eps), at most lr: read 5.99e-4 against 6e-4 on the H100), plus the
@@ -3116,9 +3316,9 @@ _PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_kernel", "flash_dkdv_kernel",
                  "flash_dkdv_sm90", "flash_dq_sm90",
                  "paged_decode_kernel",
                  "_ln_fwd_body", "_ln_bwd_body", "_ce_fwd_body",
-                 "_ce_bwd_body", "ce_fwd_kernel",
-                 "ce_bwd_de_kernel", "ce_bwd_dx_kernel", "FwdEpi", "GradEpi",
-                 "DxEpi", "DeEpi",
+                 "_ce_bwd_body", "ce32_fwd_kernel", "ce32_grad_kernel",
+                 "ce32_product_kernel", "ce32_transpose_kernel", "FwdEpi",
+                 "GradEpi", "DxEpi", "DeEpi",
                  "fp8_mm_decode_kernel", "fp8_mm_tc_kernel", "mtu_kernel")
 
 
@@ -3273,6 +3473,7 @@ def main() -> int:
                *check_flash_bwd(torch, timer),
                check_layer_norm_bwd(torch, timer),
                *check_lm_head_ce(torch, timer),
+               *check_lm_head_ce_f32(torch, timer),
                *check_flash_split(torch, timer),
                *check_xentropy(torch, timer),
                check_multi_tensor_update(torch, timer),
@@ -3282,7 +3483,7 @@ def main() -> int:
             f"ms {kr['ms']:.4f} plain {kr['plain_ms']:.4f} "
             f"bound {kr['bound_ms']:.4f} ({kr['bound_by']}) "
             f"library {kr['library_ms']}")
-        for extra in ("device_launches_per_call", "split_ms",
+        for extra in ("device_launches_per_call", "split_ms", "tflops",
                       "single_pass_ms", "b8_s1024", "registers",
                       "as_called_ms", "ms_by_block_rows", "long_shape",
                       "delta_fold_max_abs_err", "by_shape",

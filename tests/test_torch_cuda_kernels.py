@@ -477,11 +477,10 @@ def test_flash_fwd_wgmma_route_matches_plain(gen, b, h, sq, sk, d, causal,
 def test_flash_bwd_fused_wgmma_route_matches_plain(gen, b, h, sq, sk, d,
                                                    causal, seg, dtype):
     """The wgmma single pass (flash_bwd_fused_sm90) against the plain
-    backward, held like the other backward kernels; dk and dv are the
-    same bits on a rerun (each written once by the block that owns its
-    keys), dq is not required to be: the blocks of one head add their
-    partials into the fp32 dq accumulator by TMA bulk reductions whose
-    order varies from run to run. Padding rows get exactly zero dq."""
+    backward, held like the other backward kernels; dq, dk and dv are the
+    same bits on a rerun (dk and dv written once by the block that owns
+    its keys, dq's partials added in a fixed order of key blocks).
+    Padding rows get exactly zero dq."""
     q, k, v, do, sid_q, sid_kv = _wgmma_inputs(gen, b, h, sq, sk, d, seg,
                                                dtype)
     out, lse = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal)
@@ -494,17 +493,55 @@ def test_flash_bwd_fused_wgmma_route_matches_plain(gen, b, h, sq, sk, d,
     torch.cuda.synchronize()
     assert (f.launches, f.wgmma_launches, f.dkdv_launches) == (
         n0[0] + 2, n0[1] + 2, n0[2])
-    assert torch.equal(one[1], two[1]) and torch.equal(one[2], two[2])
+    assert all(torch.equal(a, b_) for a, b_ in zip(one, two))
     ref = fa.flash_attention_bwd_reference(
         q, k, v, out, lse, do, causal=causal, segment_ids_q=sid_q,
         segment_ids_kv=sid_kv)
     for name, got, r in zip(("dq", "dk", "dv"), one, ref):
         assert got.dtype == dtype and got.shape == r.shape
         _close_grad(got, r, name)
-    _close_grad(two[0], ref[0], "dq rerun")
     if seg:
         pad = (sid_q < 0)[:, None, :].expand(b, h, sq)
         assert not bool(one[0][pad].any())
+
+
+@pytest.mark.parametrize("dtype,d,sm90", [
+    (_BF, 64, True), (_F16, 128, True), (_BF, 256, False),
+    (torch.float32, 64, False), (torch.float32, 128, False),
+    (_F16, 32, False)])
+@pytest.mark.parametrize("sq,sk,causal", [(1024, 1024, True),
+                                          (300, 700, True), (700, 300, True),
+                                          (257, 513, False)])
+def test_flash_bwd_single_pass_dq_is_bitwise_on_a_rerun_and_alone(
+        gen, dtype, d, sm90, sq, sk, causal):
+    """The single pass on both routes (csrc/turns.cuh): dq, dk and dv the
+    same bits on a rerun, and the first batch's the same bits run alone
+    (each query tile's dq summed in an order of its own key blocks,
+    whatever else shares the grid); within the plain version's limits."""
+    b, h = 3, 4
+    q = _rand(gen, b, h, sq, d, dtype=dtype)
+    k, v = (_rand(gen, b, h, sk, d, dtype=dtype) for _ in range(2))
+    do = _rand(gen, b, h, sq, d, dtype=dtype)
+    assert fa.sm90_route(dtype, fa.kernel_head_dim(d)) == sm90
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+
+    def run(sl):
+        return fa._flash_bwd_cuda(q[sl], k[sl], v[sl], out[sl], lse[sl],
+                                  do[sl], None, None, causal, d ** -0.5,
+                                  split=False)
+
+    one, two = run(slice(None)), run(slice(None))
+    first = run(slice(0, 1))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip(one, two))
+    assert all(torch.equal(a, b_[:1]) for a, b_ in zip(first, one))
+    ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                           causal=causal)
+    for name, got, r in zip(("dq", "dk", "dv"), one, ref):
+        if dtype == torch.float32:
+            _close_fp32(got, r)
+        else:
+            _close_grad(got, r, name)
 
 
 def test_gpt_autograd_runs_the_wgmma_flash_kernels(gen):
@@ -1072,6 +1109,7 @@ def test_paged_decode_groups_and_dtypes_match_plain(gen, dtype, g, fp8):
     (torch.bfloat16, 64), (torch.bfloat16, 100), (torch.bfloat16, 1536),
     (torch.bfloat16, 1600), (torch.bfloat16, 2048), (torch.float16, 256),
     (torch.float32, 64), (torch.float32, 1024), (torch.float32, 1600),
+    (torch.float32, 2048),
 ])
 def test_lm_head_ce_any_hidden_size_and_dtype_matches_plain(gen, dtype, h):
     n, V = 130, 3000
@@ -1318,6 +1356,64 @@ def test_lm_head_ce_bwd_many_chunks_and_bitwise_rerun(gen, dtype,
     _close_grad(dx, rx, "dx")
     _close_grad(de, re, "dE")
     _close_grad(de, one[1], "dE one chunk")
+
+
+@pytest.mark.parametrize("h", [64, 100, 1024, 1536, 2048])
+@pytest.mark.parametrize("ls", [0.0, 0.1])
+def test_lm_head_ce_f32_route_matches_plain_and_reruns_bitwise(gen, h, ls):
+    """The fp32 route (csrc/lm_head_ce.cu on the FFMA core) at ragged n and
+    V: the statistics within 1e-4 of the largest, dx and dE within 1e-4 of
+    the largest and in norm, both the same bits on a rerun; one launch a
+    call on the fp32 counters."""
+    n, V = 300, 3001
+    x = _rand(gen, n, h, dtype=torch.float32)
+    e = _rand(gen, V, h, dtype=torch.float32).mul(0.05)
+    tgt = torch.from_numpy(np.random.RandomState(h).randint(
+        -1, V, n).astype(np.int32)).cuda()
+    n0 = (ce.lm_head_ce_fwd.f32_launches, ce.lm_head_ce_bwd.f32_launches)
+    got = ce.lm_head_ce_fwd(x, e, tgt, ls > 0)
+    ref = ce.lm_head_ce_fwd_reference(x, e, tgt, ls > 0)
+    for name, a, r in zip(("m", "l", "pred", "ssum"), got, ref):
+        if r is None:
+            assert a is None
+            continue
+        assert float((a - r).abs().max()) <= 1e-4 * (
+            float(r.abs().max()) + 1.0), name
+    dl = torch.rand(n, generator=gen, device="cuda") / n
+    dx, de = ce.lm_head_ce_bwd(x, e, tgt, ref[0], ref[1], dl, ls)
+    dx2, de2 = ce.lm_head_ce_bwd(x, e, tgt, ref[0], ref[1], dl, ls)
+    torch.cuda.synchronize()
+    assert (ce.lm_head_ce_fwd.f32_launches - n0[0],
+            ce.lm_head_ce_bwd.f32_launches - n0[1]) == (1, 2)
+    assert torch.equal(dx, dx2) and torch.equal(de, de2)
+    rx, re = ce.lm_head_ce_bwd_reference(x, e, tgt, ref[0], ref[1], dl, ls)
+    _close_fp32(dx, rx)
+    _close_fp32(de, re)
+
+
+def test_lm_head_ce_f32_bwd_many_chunks(gen, monkeypatch):
+    """The fp32 workspace cap lowered so that 1000 tokens run in 4 chunks
+    (dE stored by the first, added in place by the others, in order):
+    dx bitwise the one-chunk run's, dE within the fp32 limits of it and of
+    the plain version, the same bits on a rerun."""
+    n, V, h = 1000, 5003, 200
+    x = _rand(gen, n, h, dtype=torch.float32)
+    e = _rand(gen, V, h, dtype=torch.float32).mul(0.05)
+    tgt = torch.from_numpy(np.random.RandomState(5).randint(
+        0, V, n).astype(np.int32)).cuda()
+    m, l, _, _ = ce.lm_head_ce_fwd_reference(x, e, tgt)
+    dl = torch.rand(n, generator=gen, device="cuda") / n
+    one = ce.lm_head_ce_bwd(x, e, tgt, m, l, dl, 0.1)
+    monkeypatch.setattr(ce, "F32_WORKSPACE_BYTES", 2 * 256 * 5004 * 4)
+    assert -(-n // ce.f32_chunk_tokens(n, V)) == 4
+    dx, de = ce.lm_head_ce_bwd(x, e, tgt, m, l, dl, 0.1)
+    dx2, de2 = ce.lm_head_ce_bwd(x, e, tgt, m, l, dl, 0.1)
+    assert torch.equal(dx, dx2) and torch.equal(de, de2)
+    assert torch.equal(dx, one[0])
+    rx, re = ce.lm_head_ce_bwd_reference(x, e, tgt, m, l, dl, 0.1)
+    _close_fp32(dx, rx)
+    _close_fp32(de, re)
+    _close_fp32(de, one[1])
 
 
 def test_lm_head_ce_bwd_gpt_shape_bitwise_rerun(gen):

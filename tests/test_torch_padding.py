@@ -7,8 +7,8 @@ gives the unpadded plain result bit for bit.
   512), forward and backward, with the caller's scale;
 - the LM-head CE: the hidden size padded to what the kernels take
   (in bf16 ``wgmma_hidden``, a multiple of 8, 100 -> 104, for TMA's
-  16-byte rows; in fp32 ``hidden_chunks``, the SIMT kernels' chunk
-  multiple, 100 -> 128, 1600 -> 1792), forward statistics and both
+  16-byte rows; in fp32 ``f32_hidden``, a multiple of 4 for the FFMA
+  core's 16-byte copies, 1601 -> 1604), forward statistics and both
   gradients;
 - the fp8 dequant-matmul: K and N padded to multiples of 16
   (``with_padded_kn``), K = N = 1000 -> 1008.
@@ -76,7 +76,7 @@ def test_kernel_head_dim_steps_and_limit():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h", [64, 100, 1600])
+@pytest.mark.parametrize("h", [64, 100, 1600, 1601])
 def test_lm_head_hidden_padding_is_exact(dtype, h):
     rng = np.random.RandomState(h)
     n, V = 33, 70
@@ -84,9 +84,8 @@ def test_lm_head_hidden_padding_is_exact(dtype, h):
     e = _dyadic(rng, V, h, scale=64).to(dtype)
     tgt = torch.from_numpy(rng.randint(0, V, n).astype(np.int32))
     if dtype == torch.float32:
-        hp, kc = ce.hidden_chunks(h)
-        assert hp % kc == 0 and hp >= h
-        assert kc % 64 == 0 and kc <= 512
+        hp = ce.f32_hidden(h)
+        assert hp % 4 == 0 and 0 <= hp - h < 4
     else:
         hp = ce.wgmma_hidden(h)
         assert hp % 8 == 0 and 0 <= hp - h < 8
@@ -115,13 +114,11 @@ def test_hidden_chunks_choose_fewest_chunks_then_least_padding():
     # 16-bit operands (the wgmma route): no chunks, h rounded up to 8
     assert [ce.wgmma_hidden(h) for h in (64, 100, 1600, 1601)] == [
         64, 104, 1600, 1608]
-    # fp32 (the SIMT route): the fewest chunks of at most 512, then the
-    # least padding
-    assert ce.hidden_chunks(64) == (64, 64)
-    assert ce.hidden_chunks(1024) == (1024, 512)
-    assert ce.hidden_chunks(1536) == (1536, 512)
-    assert ce.hidden_chunks(1600) == (1792, 448)
-    assert ce.hidden_chunks(2048) == (2048, 512)
+    # fp32 (the FFMA core): no chunks any more (the core streams h in
+    # k-stages), h rounded up to 4 for its 16-byte copies
+    assert [ce.f32_hidden(h) for h in (64, 100, 1024, 1536, 1600, 1601,
+                                       2048)] == [64, 100, 1024, 1536,
+                                                  1600, 1604, 2048]
 
 
 @pytest.mark.parametrize("m,K,N", [(8, 1000, 1000), (5, 40, 24),
