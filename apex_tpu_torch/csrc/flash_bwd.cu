@@ -27,7 +27,12 @@
 // narrower operand's dtype (`rounds`): p to dout's dtype before dv, ds to
 // q's before dk, and to q's then k's (single pass) or to k's (the split's
 // dq kernel) before dq. Head dims 32, 64, 128, 256 and 512 are
-// instantiated, for every dtype (the wrapper zero-pads other d).
+// instantiated, for every dtype (the wrapper zero-pads other d). The fp32
+// build also holds the single pass and the dk/dv kernel of
+// flash_bwd_f32.cuh (an exact-FFMA core, behind apex_flash_bwd_f32 and
+// apex_flash_bwd_f32_dkdv): the wrapper sends fp32 operands at head dims
+// 64 and 128 that round nothing there, and the kernels below take the
+// rest of fp32 (d 32/256/512, mixed operands) and the dq kernel.
 //
 // Bounds on the H100, per live (q, k) pair at head dim d: the single pass
 // does five products of 2 * d flops (s, dp, dv, dk, dq) — 42.9 GFLOP at the
@@ -35,7 +40,7 @@
 // ~135 MB of q, k, v, do, dq, dk, dv, lse, delta (0.040 ms): nearly
 // balanced. The split recomputes s and dp in both kernels: four products
 // in dk/dv (s, dp, dv, dk), three in dq (s, dp, dq), seven in all. fp32 runs
-// the SIMT product of frag.cuh, ~1/30 of the bf16 rate (O0).
+// the SIMT product of frag.cuh here, ~1/30 of the bf16 rate.
 //
 // Design. The TPU kernels keep fp32 accumulators in VMEM across a
 // sequential grid; a GPU grid has no order. Here a thread block of four
@@ -90,6 +95,9 @@
 
 #include "frag.cuh"
 #include "turns.cuh"
+#if APEX_HAS_DTYPE(2)
+#include "flash_bwd_f32.cuh"
+#endif
 
 namespace {
 
@@ -796,4 +804,102 @@ extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v,
                nullptr, b, h, sq, sk, causal, scale, rounds,
                static_cast<cudaStream_t>(stream)};
   return dispatch<2>(a, d, dtype);
+}
+
+#if APEX_HAS_DTYPE(2)
+namespace {
+
+template <bool WITH_DQ>
+int f32_dispatch(const void* q, const void* k, const void* v,
+                 const void* dout, const void* out, const void* lse,
+                 const void* delta,
+                 const void* sid_q, const void* sid_kv, void* ws,
+                 void* dq_acc, void* turns, void* dk, void* dv, int b, int h,
+                 int sq, int sk, int d, int causal, float scale,
+                 void* stream) {
+  if (b <= 0 || h <= 0 || sq < 0) return cudaSuccess;
+  if (sk <= 0)   // no key: dq is zero (dk and dv are empty)
+    return WITH_DQ && sq > 0
+               ? cudaMemsetAsync(dq_acc, 0, (size_t)b * h * sq * d * 4,
+                                 static_cast<cudaStream_t>(stream))
+               : cudaSuccess;
+  fa32::Params p{};
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.sid_q = static_cast<const int32_t*>(sid_q);
+  p.sid_kv = static_cast<const int32_t*>(sid_kv);
+  p.dq_acc = static_cast<float*>(dq_acc);
+  p.turns = static_cast<int*>(turns);
+  p.dk = static_cast<float*>(dk);
+  p.dv = static_cast<float*>(dv);
+  p.h = h;
+  p.sq = sq;
+  p.sk = sk;
+  p.causal = causal;
+  p.scale = scale;
+  const float* qf = static_cast<const float*>(q);
+  const float* df = static_cast<const float*>(dout);
+  const float* of = static_cast<const float*>(out);
+  float* wf = static_cast<float*>(ws);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64: return fa32::launch<64, WITH_DQ>(qf, df, of, wf, p, b, st);
+    case 128: return fa32::launch<128, WITH_DQ>(qf, df, of, wf, p, b, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+#endif
+
+// The fp32 exact-FFMA route (flash_bwd_f32.cuh; the fp32 build only,
+// cudaErrorInvalidValue elsewhere and for a head dim other than 64 or
+// 128): fp32 q, dout [b,h,sq,d], k, v [b,h,sk,d]; lse, delta [b,h,sq];
+// out, the forward's output [b,h,sq,d], or null: given, the prologue
+// writes delta = rowsum(dout * out) (the delta fold), else delta is read;
+// sid_q [b,sq] and sid_kv [b,sk] int32, or both null; ws, 2 * b * h * d *
+// ((sq + 3) / 4 * 4) fp32 of scratch (q and dout transposed). The single
+// pass: dq_acc [b,h,sq,d] fp32 (dq times scale; every element written: the
+// key blocks that reach a query tile add into it in a fixed order, the
+// first storing) and turns, b * h * ceil(sq / 64) int32, ZEROED by the
+// caller;
+// dk, dv [b,h,sk,d] (every element written). Each returns the first
+// failing launch's cudaError_t.
+extern "C" int apex_flash_bwd_f32(const void* q, const void* k,
+                                  const void* v, const void* dout,
+                                  const void* out, const void* lse,
+                                  void* delta,
+                                  const void* sid_q, const void* sid_kv,
+                                  void* ws, void* dq_acc, void* turns,
+                                  void* dk, void* dv, int b, int h, int sq,
+                                  int sk, int d, int causal, float scale,
+                                  void* stream) {
+#if APEX_HAS_DTYPE(2)
+  return f32_dispatch<true>(q, k, v, dout, out, lse, delta, sid_q, sid_kv,
+                            ws, dq_acc, turns, dk, dv, b, h, sq, sk, d,
+                            causal, scale, stream);
+#else
+  return cudaErrorInvalidValue;
+#endif
+}
+
+// The split's dk/dv half on the same route: dk, dv [b,h,sk,d].
+extern "C" int apex_flash_bwd_f32_dkdv(const void* q, const void* k,
+                                       const void* v, const void* dout,
+                                       const void* out, const void* lse,
+                                       void* delta,
+                                       const void* sid_q,
+                                       const void* sid_kv, void* ws,
+                                       void* dk, void* dv, int b, int h,
+                                       int sq, int sk, int d, int causal,
+                                       float scale, void* stream) {
+#if APEX_HAS_DTYPE(2)
+  return f32_dispatch<false>(q, k, v, dout, out, lse, delta, sid_q,
+                             sid_kv, ws, nullptr, nullptr, dk, dv, b, h, sq,
+                             sk, d, causal, scale, stream);
+#else
+  return cudaErrorInvalidValue;
+#endif
 }

@@ -1,0 +1,584 @@
+// Flash-attention backward for fp32 operands (O0) on the CUDA cores of
+// Hopper (sm_90a): the key-side kernels of flash_bwd.cu's fp32 route at
+// head dims 64 and 128, on the register-blocked FFMA form of
+// simt_f32.cuh. Included by flash_bwd.cu and built into its fp32 target.
+//
+// - flash_bwd_f32_kernel replaces `_bwd_fused_kernel`
+//   (apex_tpu/ops/flash_attention.py:604, launched by `_flash_bwd_impl`
+//   :787), the single pass: dk and dv, and each key block's share of dq
+//   added into a zeroed fp32 workspace in a fixed order (turns.cuh);
+// - flash_dkdv_f32_kernel replaces `_dkdv_kernel` (:558, launched at
+//   :805), the split's dk/dv half.
+//
+// Numerics: every product is an fmaf of fp32 operands, summed in a fixed
+// k order (no TF32, no tensor core): dk, dv and dq are the same bits on
+// every run. p = exp(s * scale - lse), zero where the mask is false (the
+// end-aligned causal offset sk - sq, negative segment ids as padding), so
+// padding rows (lse -1e30) add nothing; ds = p * (dp - delta); the scale
+// is applied at the finish. Nothing is rounded below fp32: operands of
+// mixed dtypes, whose JAX kernels round p and ds, stay on flash_bwd.cu's
+// kernels (ops/flash_attention.py, f32_core_route).
+//
+// Bound on the H100: operations at the fp32 rate outside the tensor cores
+// (67 TFLOP/s). Per live causal (q, key) pair five products of 2 d flops
+// in the single pass (S, dP, dV, dK, dQ: 0.642 ms at b8 h16 s1024 d64),
+// four in dk/dv (2.05 ms at b2 h16 s4096 d64).
+//
+// Design. A block of 256 threads owns BN keys (128 at d 64, 64 at d 128,
+// where two [BN, 128] accumulators a lane would not fit beside the score
+// tiles) of one (batch, head) and walks the query tiles of 64 rows that
+// reach them. Per tile, with the products in simt_f32.cuh's form (a lane
+// accumulates an outer product of a float4-loaded column of A and one of
+// B for every k, in k order):
+//   S^T = K Q^T and dP^T = V dO^T over d (a lane 8 keys x 4 queries at
+//     d 64, 4 x 4 at d 128; K^T and V^T resident, Q^T and dO^T staged);
+//   P^T and dS^T in registers, stored as [query][key] in shared memory;
+//   dV += P^T dO and dK += dS^T Q over the tile's queries (a lane the same
+//     keys x d / 16 columns, accumulated across the tiles in registers);
+//   the single pass only: dQ = dS K over the block's keys (a lane 4
+//     queries x d / 16 columns), added into the workspace in its turn.
+// Every operand reaches the core k-row by k-row. The S and dP products
+// contract over d, along which q, k, v and dO are stored: the C entry
+// transposes q and dO once a call into [b, h, d, sq] copies (padded to 4
+// query columns; the same prologue launch computes delta = rowsum(dO * O)
+// when given the forward's output), streamed a tile at a time by 16-byte cp.async copies
+// (two stages at d 64, so a tile's copies run under the previous tile's
+// products; one at d 128), and each block transposes its own K and V
+// into shared memory once. The other products read those transposed
+// tiles "K-major": a lane's gradient columns are strided (lx + 8 jj), so
+// for 4 consecutive k the 8 lanes of a quarter-warp read 8 float4s from 8
+// distinct 16-byte bank groups (rows padded to an odd number of them),
+// as many loads as the MN-major form. P and dS are stored with their
+// 16-byte granules XOR-swizzled by (query / 4) % 8, so that the lanes
+// that store a [key][query] register tile into [query][key], and the
+// lanes that read dS by query rows for dQ, fall in distinct bank groups.
+// Shared memory: 198.5 KB at d 64 (K^T, V^T; two stages of Q^T, dO^T;
+// P, dS), 168 KB at d 128, and the single pass's dq tile (16 and 32 KB
+// more): one block an SM, up to 255 registers a thread.
+//
+// The grid is (b h, key block): every (batch, head)'s block j runs in one
+// round of b h blocks, so under a causal mask, where block j walks more
+// query tiles than block j + 1, each round's blocks are of one length and
+// the rounds fill the card evenly (a grid with the key blocks on its fast
+// axis mixes every length in each wave and leaves a tail of the longest).
+// The single pass's dq order: the key blocks that reach a query tile add
+// their partials from the last down to the first, each after the one
+// before it has published its sum; its grid runs the rounds in reverse
+// (the shortest first), so a block waits only for one dispatched before
+// it, and under a causal mask key block j + 1 reaches a tile two tiles
+// (d 64) ahead of block j. The dk/dv kernel runs its rounds in order (the
+// longest causal walks first) and keeps nothing beyond its own keys.
+
+#pragma once
+
+#include <stdint.h>
+
+#include "simt_f32.cuh"
+#include "turns.cuh"
+
+namespace fa32 {
+
+constexpr int BQ = 64;         // query rows a tile (one turn counter each)
+constexpr int LDQ = BQ + 4;    // a staged Q^T / dO^T row: 17 granules
+
+template <int D>
+struct Cfg {
+  static_assert(D == 64 || D == 128, "head dims 64 and 128");
+  static constexpr int THREADS = 256;             // 8 warps
+  static constexpr int WK = THREADS / 64;         // warp rows (keys)
+  static constexpr int BN = D == 64 ? 128 : 64;   // keys a block
+  static constexpr int SK = BN / (4 * WK);        // a lane's keys
+  static_assert(SK % 4 == 0, "a lane's keys come in runs of 4");
+  static constexpr int GC = D / 16;               // a lane's gradient cols
+  static constexpr int STAGES = D == 64 ? 2 : 1;  // Q^T / dO^T stages
+  static constexpr int LDK = BN + 4;              // odd count of granules
+  static constexpr int KT = D * LDK;              // floats of K^T (V^T)
+  static constexpr int QT = D * LDQ;              // floats of Q^T (dO^T)
+  static constexpr int PS = BQ * BN;              // floats of P (dS)
+  static constexpr int DQ = BQ * D;               // floats of a dq tile
+  // the dk/dv kernel's; the single pass stages a dq tile after them
+  static constexpr size_t SMEM_BYTES =
+      (size_t)(2 * KT + 2 * STAGES * QT + 2 * PS) * 4 + (size_t)BN * 4;
+};
+
+struct Params {
+  const float* k;        // [b, h, sk, D]
+  const float* v;
+  const float* qt;       // [b, h, D, sqp]: q transposed, zero past sq
+  const float* dot;      // dout, the same
+  const float* lse;      // [b, h, sq]
+  const float* delta;
+  const int32_t* sid_q;  // [b, sq] and [b, sk], or null
+  const int32_t* sid_kv;
+  float* dq_acc;         // [b, h, sq, D] (the single pass; every element
+                         // written: the first contributor stores)
+  int* turns;            // [b, h, ceil(sq / 64)], zeroed (the single pass)
+  float* dk;             // [b, h, sk, D]
+  float* dv;
+  int h, sq, sk, sqp, causal;
+  float scale;
+};
+
+// element (query, key) of a [BQ][BN] tile: 16-byte granules XOR-swizzled
+// by (query / 4) % 8
+template <int BN>
+__device__ __forceinline__ int swz(int q, int granule) {
+  return q * BN + ((granule ^ ((q >> 2) & 7)) << 2);
+}
+
+__device__ __forceinline__ float at(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// a turn counter's value, read without ordering (the acquire is a fence
+// after it, once the value is the awaited one)
+__device__ __forceinline__ int load_relaxed(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void fence_acq_rel() {
+  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+}
+__device__ __forceinline__ void add_relaxed(int* p) {
+  asm volatile("red.relaxed.gpu.global.add.s32 [%0], 1;\n" ::"l"(p)
+               : "memory");
+}
+// generic-proxy writes to shared memory become visible to the async proxy
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// dst[i] += src[i] (add) or dst[i] = src[i] for the `bytes` / 4 floats at
+// src (shared memory): one bulk reduction or copy of the async proxy, in
+// the thread's bulk group
+__device__ __forceinline__ void bulk_put(float* dst, const float* src,
+                                         int bytes, bool add) {
+  if (add)
+    asm volatile(
+        "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], "
+        "[%1], %2;\n" ::"l"(dst),
+        "r"(simt::smem_addr(src)), "r"(bytes)
+        : "memory");
+  else
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+            dst),
+        "r"(simt::smem_addr(src)), "r"(bytes)
+        : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// the thread's bulk reductions have read their shared memory / completed
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+template <int D, bool WITH_DQ>
+__device__ __forceinline__ void kv_block(float* smem, const Params& p) {
+  using C = Cfg<D>;
+  constexpr int BN = C::BN, SK = C::SK, GC = C::GC, LDK = C::LDK;
+  constexpr int THREADS = C::THREADS;
+  float* sKt = smem;                          // [D][LDK]
+  float* sVt = sKt + C::KT;
+  float* sQ0 = sVt + C::KT;                   // stage s: Q^T then dO^T
+  float* sP = sQ0 + 2 * C::STAGES * C::QT;    // [BQ][BN], swizzled
+  float* sdS = sP + C::PS;
+  int* sSidK = reinterpret_cast<int*>(sdS + C::PS);
+  float* sDQ = reinterpret_cast<float*>(sSidK + BN);   // [BQ][D]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ly = lane / 8, lx = lane % 8;
+  const int n_kb = gridDim.y;
+  const int j = WITH_DQ ? n_kb - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const int n0 = j * BN;
+  const long bh = blockIdx.x;
+  const int bi = (int)(bh / p.h);
+  const int sq = p.sq, sk = p.sk, off = sk - sq;
+  const bool seg = p.sid_q != nullptr;
+  const int n_qt = (sq + BQ - 1) / BQ;
+  const int qt0 = p.causal ? max(0, n0 - off) / BQ : 0;
+
+  // lane maps: keys (S/dP and dK/dV), queries (S/dP), gradient columns
+  // (dK/dV, dQ), query rows (dQ)
+  const int kw = (warp / 2) * 4 * SK + 4 * ly;   // + 16 (i / 4) + i % 4
+  const int qw = (warp % 2) * 32 + 4 * lx;       // + j
+  const int cw = (warp % 2) * (D / 2) + lx;      // + 8 jj
+  constexpr int QR = BQ / (4 * C::WK);           // a lane's dQ rows
+  const int rw = (warp / 2) * 4 * QR + QR * ly;  // + ii
+
+  const float* qtb = p.qt + bh * D * p.sqp;
+  const float* dtb = p.dot + bh * D * p.sqp;
+  auto load_tile = [&](int qt, int stage) {
+    float* dq_ = sQ0 + stage * 2 * C::QT;
+    float* dd_ = dq_ + C::QT;
+    const int q0 = qt * BQ;
+#pragma unroll
+    for (int i = 0; i < D * (BQ / 4) / THREADS; ++i) {
+      const int c = tid + THREADS * i;
+      const int r = c / (BQ / 4), col = 4 * (c % (BQ / 4));
+      const bool ok = q0 + col < p.sqp;
+      const long g = (long)r * p.sqp + q0 + col;
+      simt::copy16(dq_ + r * LDQ + col, ok ? qtb + g : qtb, ok);
+      simt::copy16(dd_ + r * LDQ + col, ok ? dtb + g : dtb, ok);
+    }
+    simt::commit();
+  };
+  if (qt0 < n_qt) load_tile(qt0, 0);
+
+  // K and V of the block's keys, transposed into shared memory (zeros
+  // past sk): consecutive threads on consecutive keys
+#pragma unroll
+  for (int i = 0; i < BN * (D / 4) / THREADS; ++i) {   // loads in flight
+    const int idx = tid + THREADS * i;
+    const int key = idx % BN, c4 = 4 * (idx / BN);
+    float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
+    if (n0 + key < sk) {
+      const long g = (bh * sk + n0 + key) * D + c4;
+      kv = __ldg(reinterpret_cast<const float4*>(p.k + g));
+      vv = __ldg(reinterpret_cast<const float4*>(p.v + g));
+    }
+    sKt[(c4 + 0) * LDK + key] = kv.x;
+    sKt[(c4 + 1) * LDK + key] = kv.y;
+    sKt[(c4 + 2) * LDK + key] = kv.z;
+    sKt[(c4 + 3) * LDK + key] = kv.w;
+    sVt[(c4 + 0) * LDK + key] = vv.x;
+    sVt[(c4 + 1) * LDK + key] = vv.y;
+    sVt[(c4 + 2) * LDK + key] = vv.z;
+    sVt[(c4 + 3) * LDK + key] = vv.w;
+  }
+  for (int r = tid; r < BN; r += THREADS)
+    sSidK[r] = (seg && n0 + r < sk) ? p.sid_kv[(long)bi * sk + n0 + r] : -1;
+
+  float dka[SK][GC], dva[SK][GC];
+#pragma unroll
+  for (int i = 0; i < SK; ++i)
+#pragma unroll
+    for (int c = 0; c < GC; ++c) dka[i][c] = dva[i][c] = 0.f;
+  int* passed = nullptr;   // thread 0: the turn its last reduction holds
+
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int q0 = qt * BQ;
+    const int stage = C::STAGES == 2 ? (qt - qt0) & 1 : 0;
+    const float* sQt = sQ0 + stage * 2 * C::QT;
+    const float* sDOt = sQt + C::QT;
+    simt::wait_groups<0>();
+    if (WITH_DQ && tid == 0) bulk_wait_read();   // sDQ is free again
+    __syncthreads();   // the tile is in; every thread is done with the last
+    if (C::STAGES == 2 && qt + 1 < n_qt) load_tile(qt + 1, stage ^ 1);
+
+    // the lane's query rows: lse, delta, segment ids (used after S, dP)
+    float lse_r[4], dl_r[4];
+    int sid_r[4];
+#pragma unroll
+    for (int jq = 0; jq < 4; ++jq) {
+      const int qr = q0 + qw + jq;
+      const bool in = qr < sq;
+      lse_r[jq] = in ? __ldg(p.lse + bh * sq + qr) : 0.f;
+      dl_r[jq] = in ? __ldg(p.delta + bh * sq + qr) : 0.f;
+      sid_r[jq] = (seg && in) ? __ldg(p.sid_q + (long)bi * sq + qr) : -1;
+    }
+
+    // ---- S^T = K Q^T and dP^T = V dO^T over d
+    float s[SK][4], dp[SK][4];
+#pragma unroll
+    for (int i = 0; i < SK; ++i)
+#pragma unroll
+      for (int jq = 0; jq < 4; ++jq) s[i][jq] = dp[i][jq] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D; ++kk) {
+      float ak[SK], av[SK];
+#pragma unroll
+      for (int g = 0; g < SK / 4; ++g) {
+        const float4 a = *reinterpret_cast<const float4*>(
+            sKt + kk * LDK + kw + 16 * g);
+        const float4 b = *reinterpret_cast<const float4*>(
+            sVt + kk * LDK + kw + 16 * g);
+        ak[4 * g] = a.x; ak[4 * g + 1] = a.y;
+        ak[4 * g + 2] = a.z; ak[4 * g + 3] = a.w;
+        av[4 * g] = b.x; av[4 * g + 1] = b.y;
+        av[4 * g + 2] = b.z; av[4 * g + 3] = b.w;
+      }
+      const float4 bq =
+          *reinterpret_cast<const float4*>(sQt + kk * LDQ + qw);
+      const float4 bd =
+          *reinterpret_cast<const float4*>(sDOt + kk * LDQ + qw);
+      const float vq[4] = {bq.x, bq.y, bq.z, bq.w};
+      const float vd[4] = {bd.x, bd.y, bd.z, bd.w};
+#pragma unroll
+      for (int i = 0; i < SK; ++i)
+#pragma unroll
+        for (int jq = 0; jq < 4; ++jq) {
+          s[i][jq] = fmaf(ak[i], vq[jq], s[i][jq]);
+          dp[i][jq] = fmaf(av[i], vd[jq], dp[i][jq]);
+        }
+    }
+
+    // ---- mask, p = exp(s * scale - lse), ds = p * (dp - delta); stored
+    // as [query][key]
+#pragma unroll
+    for (int jq = 0; jq < 4; ++jq) {
+      const int ql = qw + jq, qr = q0 + ql;
+#pragma unroll
+      for (int i = 0; i < SK; ++i) {
+        const int kl = kw + 16 * (i / 4) + i % 4, key = n0 + kl;
+        bool ok = qr < sq && key < sk && (!p.causal || key <= qr + off);
+        if (seg) ok = ok && sid_r[jq] >= 0 && sid_r[jq] == sSidK[kl];
+        const float pv = ok ? __expf(s[i][jq] * p.scale - lse_r[jq]) : 0.f;
+        s[i][jq] = pv;
+        dp[i][jq] = pv * (dp[i][jq] - dl_r[jq]);
+      }
+#pragma unroll
+      for (int g = 0; g < SK / 4; ++g) {
+        const int e = swz<BN>(ql, (kw + 16 * g) >> 2);
+        *reinterpret_cast<float4*>(sP + e) =
+            make_float4(s[4 * g][jq], s[4 * g + 1][jq], s[4 * g + 2][jq],
+                        s[4 * g + 3][jq]);
+        *reinterpret_cast<float4*>(sdS + e) =
+            make_float4(dp[4 * g][jq], dp[4 * g + 1][jq], dp[4 * g + 2][jq],
+                        dp[4 * g + 3][jq]);
+      }
+    }
+    __syncthreads();
+
+    // ---- dV += P^T dO, dK += dS^T Q over the tile's queries (dO and Q
+    // read K-major from their transposed tiles)
+#pragma unroll 2
+    for (int q4 = 0; q4 < BQ / 4; ++q4) {
+      float4 bd[GC], bq[GC];
+#pragma unroll
+      for (int c = 0; c < GC; ++c) {
+        bd[c] = *reinterpret_cast<const float4*>(
+            sDOt + (cw + 8 * c) * LDQ + 4 * q4);
+        bq[c] = *reinterpret_cast<const float4*>(
+            sQt + (cw + 8 * c) * LDQ + 4 * q4);
+      }
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) {
+        const int ql = 4 * q4 + qq;
+        float pa[SK], da[SK];
+#pragma unroll
+        for (int g = 0; g < SK / 4; ++g) {
+          const int e = swz<BN>(ql, (kw + 16 * g) >> 2);
+          const float4 a = *reinterpret_cast<const float4*>(sP + e);
+          const float4 b = *reinterpret_cast<const float4*>(sdS + e);
+          pa[4 * g] = a.x; pa[4 * g + 1] = a.y;
+          pa[4 * g + 2] = a.z; pa[4 * g + 3] = a.w;
+          da[4 * g] = b.x; da[4 * g + 1] = b.y;
+          da[4 * g + 2] = b.z; da[4 * g + 3] = b.w;
+        }
+#pragma unroll
+        for (int i = 0; i < SK; ++i)
+#pragma unroll
+          for (int c = 0; c < GC; ++c) {
+            dva[i][c] = fmaf(pa[i], at(bd[c], qq), dva[i][c]);
+            dka[i][c] = fmaf(da[i], at(bq[c], qq), dka[i][c]);
+          }
+      }
+    }
+
+    if (C::STAGES == 1 && qt + 1 < n_qt) {
+      __syncthreads();   // every thread is done with the stage
+      load_tile(qt + 1, 0);
+    }
+
+    if constexpr (WITH_DQ) {
+      // ---- dQ = dS K over the block's keys (dS read K-major by query
+      // rows, K K-major from K^T); the tile's turn counter read meanwhile
+      int* turn = p.turns + bh * n_qt + qt;
+      const int mine =
+          (p.causal ? min(n_kb - 1, (q0 + BQ - 1 + off) / BN) : n_kb - 1) -
+          j;
+      int seen = tid == 0 ? load_relaxed(turn) : mine;
+      float dqa[QR][GC];
+#pragma unroll
+      for (int ii = 0; ii < QR; ++ii)
+#pragma unroll
+        for (int c = 0; c < GC; ++c) dqa[ii][c] = 0.f;
+#pragma unroll 4
+      for (int k4 = 0; k4 < BN / 4; ++k4) {
+        float4 a[QR], b[GC];
+#pragma unroll
+        for (int ii = 0; ii < QR; ++ii)
+          a[ii] = *reinterpret_cast<const float4*>(sdS + swz<BN>(rw + ii, k4));
+#pragma unroll
+        for (int c = 0; c < GC; ++c)
+          b[c] = *reinterpret_cast<const float4*>(sKt + (cw + 8 * c) * LDK +
+                                                  4 * k4);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int ii = 0; ii < QR; ++ii)
+#pragma unroll
+            for (int c = 0; c < GC; ++c)
+              dqa[ii][c] = fmaf(at(a[ii], kk), at(b[c], kk), dqa[ii][c]);
+      }
+      // ---- the block's turn on this tile: the key blocks that reach it
+      // add in descending order, the last (causal: min(n_kb - 1, the
+      // tile's last row + offset over BN)) first. The partial is staged in
+      // shared memory and stored (the first) or added (the others: an fp32
+      // add an element at L2) by one bulk copy or reduction that thread 0
+      // issues in the block's turn; it passes the turn at the next tile's
+      // (or the walk's end), once the copy has long completed, so no warp
+      // waits for it here
+#pragma unroll
+      for (int ii = 0; ii < QR; ++ii)
+#pragma unroll
+        for (int c = 0; c < GC; ++c)
+          sDQ[(rw + ii) * D + cw + 8 * c] = dqa[ii][c] * p.scale;
+      fence_proxy_async_shared();
+      __syncthreads();
+      if (tid == 0) {
+        bulk_wait();               // the last tile's reduction completed
+        while (seen != mine) {     // seldom: the blocks after run ahead
+          __nanosleep(64);
+          seen = load_relaxed(turn);
+        }
+        // acquire (this tile's predecessors' sums) and release (the last
+        // tile's sum, then its turn passes) in one fence, the async
+        // proxy's accesses ordered on both sides of it
+        turns::fence_async_global();
+        fence_acq_rel();
+        if (passed != nullptr) add_relaxed(passed);
+        turns::fence_async_global();
+        bulk_put(p.dq_acc + (bh * sq + q0) * D, sDQ,
+                 min(BQ, sq - q0) * D * 4, mine > 0);
+        passed = turn;
+      }
+    }
+  }
+  if (WITH_DQ && tid == 0 && passed != nullptr) {
+    bulk_wait();
+    turns::fence_async_global();
+    fence_acq_rel();
+    add_relaxed(passed);
+  }
+
+  // ---- finish: dk (scaled) and dv of the lane's keys and columns
+#pragma unroll
+  for (int i = 0; i < SK; ++i) {
+    const int key = n0 + kw + 16 * (i / 4) + i % 4;
+    if (key < sk) {
+      float* dkr = p.dk + (bh * sk + key) * D + cw;
+      float* dvr = p.dv + (bh * sk + key) * D + cw;
+#pragma unroll
+      for (int c = 0; c < GC; ++c) {
+        dkr[8 * c] = dka[i][c] * p.scale;
+        dvr[8 * c] = dva[i][c];
+      }
+    }
+  }
+}
+
+// The call's prologue, one launch: q and dout [n][rows][D] transposed into
+// q_t and do_t [n][D][rows_p] (zeros for rows in [rows, rows_p), rows_p a
+// multiple of 4), and, given the forward's output (o non-null), delta =
+// rowsum(dout * o) into delta [n][rows] (fp32, each row's D products
+// summed in a fixed order: four by a thread, then a butterfly over the
+// D / 4 lanes that hold the row). Given dq (non-null), it also zeroes its
+// first zero_rows rows of each matrix: the rows no key block reaches (a
+// causal mask with sq > sk), whose tiles no block stores. grid (2 n, row
+// blocks of 64): x < n transposes q, x >= n dout (and delta, and dq's
+// rows). A thread moves float4s, D / 16 in and D / 16 out.
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_f32_prologue_kernel(const float* __restrict__ q,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ o,
+                          float* __restrict__ q_t, float* __restrict__ do_t,
+                          float* __restrict__ delta, float* __restrict__ dq,
+                          int zero_rows, int n, int rows, int rows_p) {
+  constexpr int L = D / 4;           // lanes of one row
+  __shared__ float t[D][65];
+  const bool second = (long)blockIdx.x >= n;
+  const long m = second ? (long)blockIdx.x - n : (long)blockIdx.x;
+  const float* in = (second ? dout : q) + m * rows * D;
+  float* out = (second ? do_t : q_t) + m * D * rows_p;
+  const int r0 = blockIdx.y * 64;
+  const bool fold = second && o != nullptr;
+#pragma unroll
+  for (int i = 0; i < 64 * L / 256; ++i) {
+    const int idx = threadIdx.x + 256 * i, r = idx / L, c = 4 * (idx % L);
+    const int row = r0 + r;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < rows)
+      v = __ldg(reinterpret_cast<const float4*>(in + (long)row * D + c));
+    t[c][r] = v.x;
+    t[c + 1][r] = v.y;
+    t[c + 2][r] = v.z;
+    t[c + 3][r] = v.w;
+    if (second && dq != nullptr && row < zero_rows)
+      *reinterpret_cast<float4*>(dq + (m * rows + row) * D + c) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    if (fold) {
+      float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row < rows)
+        w = __ldg(reinterpret_cast<const float4*>(o + (m * rows + row) * D +
+                                                  c));
+      float sum = fmaf(v.w, w.w, fmaf(v.z, w.z, fmaf(v.y, w.y, v.x * w.x)));
+#pragma unroll
+      for (int off = 1; off < L; off <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (c == 0 && row < rows) delta[m * rows + row] = sum;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 64 * L / 256; ++i) {
+    const int idx = threadIdx.x + 256 * i, c = idx / 16, r = 4 * (idx % 16);
+    if (r0 + r < rows_p)
+      *reinterpret_cast<float4*>(out + (long)c * rows_p + r0 + r) =
+          make_float4(t[c][r], t[c][r + 1], t[c][r + 2], t[c][r + 3]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
+flash_bwd_f32_kernel(const Params p) {
+  extern __shared__ __align__(16) float smem[];
+  kv_block<D, true>(smem, p);
+}
+
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
+flash_dkdv_f32_kernel(const Params p) {
+  extern __shared__ __align__(16) float smem[];
+  kv_block<D, false>(smem, p);
+}
+
+// q and dout [b h, sq, D] transposed into ws [2][b h][D][sqp] (and, given
+// the forward's output o, delta into p.delta), then one of the two kernels
+// over grid (b h, key blocks)
+template <int D, bool WITH_DQ>
+cudaError_t launch(const float* q, const float* dout, const float* o,
+                   float* ws, Params p, int b, cudaStream_t stream) {
+  const int bh = b * p.h;
+  p.sqp = (p.sq + 3) & ~3;
+  float* qt = ws;
+  float* dot = ws + (long)bh * D * p.sqp;
+  p.qt = qt;
+  p.dot = dot;
+  if (p.sq > 0) {
+    flash_f32_prologue_kernel<D><<<dim3(2 * bh, (p.sqp + 63) / 64), 256,
+                                   0, stream>>>(
+        q, dout, o, qt, dot, const_cast<float*>(p.delta),
+        WITH_DQ ? p.dq_acc : nullptr,
+        p.causal ? min(p.sq, max(0, p.sq - p.sk)) : 0, bh, p.sq, p.sqp);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  auto kernel = WITH_DQ ? flash_bwd_f32_kernel<D> : flash_dkdv_f32_kernel<D>;
+  const size_t smem = Cfg<D>::SMEM_BYTES + (WITH_DQ ? Cfg<D>::DQ * 4 : 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int n_kb = (p.sk + Cfg<D>::BN - 1) / Cfg<D>::BN;
+  kernel<<<dim3(bh, n_kb), Cfg<D>::THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace fa32

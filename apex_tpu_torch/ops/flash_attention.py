@@ -20,7 +20,12 @@ Port of ``apex_tpu/ops/flash_attention.py``:
   on the same two routes (:func:`split_route`): ``flash_dkdv_sm90`` and
   ``flash_dq_sm90`` of ``csrc/flash_bwd_sm90.cu``, else
   ``flash_dkdv_kernel`` and ``flash_dq_kernel`` of ``csrc/flash_bwd.cu``.
-  :func:`uses_split_backward` is the gate, computed as the JAX package
+  fp32 operands at kernel head dims 64 and 128 that round nothing below
+  fp32 (:func:`f32_core_route`) take a third route for the single pass and
+  the split's dk/dv: ``flash_bwd_f32_kernel`` and ``flash_dkdv_f32_kernel``
+  of ``csrc/flash_bwd_f32.cuh`` (an exact-FFMA core, built into
+  ``flash_bwd.cu``'s fp32 target); the split's dq stays on
+  ``flash_dq_kernel``. :func:`uses_split_backward` is the gate, computed as the JAX package
   computes it at its default backward blocks, so the two packages route
   the same shapes the same way; the plain backward is the same function
   either way. No route gives way to another: a build or launch error
@@ -34,7 +39,9 @@ Port of ``apex_tpu/ops/flash_attention.py``:
   blocks of one cluster take and merge on chip.
 
 Operands: the kernels take bf16, fp16 or fp32 (fp32 through the SIMT
-product of ``csrc/frag.cuh``, for O0). q, k and v may differ in dtype, as
+product of ``csrc/frag.cuh``, for O0; the backward's fp32 route at head
+dims 64 and 128 on the register-blocked FFMA core of
+``csrc/flash_bwd_f32.cuh``). q, k and v may differ in dtype, as
 the JAX kernels take them: the wrappers promote them to their common dtype
 (exact; fp32 for any mix) and the fp32 kernels round where the JAX kernels
 cast to an operand's own dtype (p to v's before the PV product; in the
@@ -60,11 +67,12 @@ the sequence ends (``causal_offset = sk - sq``).
 
 ``flash_attention.launches`` (forward, either route) and
 ``.wgmma_launches`` (its wgmma route alone), ``flash_attention_bwd.launches``
-(the single-pass backward, either route) and ``.wgmma_launches`` (its
-wgmma route alone), ``flash_attention_bwd.dkdv_launches`` and
-``.dq_launches`` (the split, either route),
-``flash_attention_bwd.wgmma_dkdv_launches`` and ``.wgmma_dq_launches``
-(the split's wgmma route alone), ``paged_decode_attention.launches``
+(the single-pass backward, every route), ``.wgmma_launches`` (its wgmma
+route alone) and ``.f32_launches`` (its FFMA route alone),
+``flash_attention_bwd.dkdv_launches`` and ``.dq_launches`` (the split,
+every route), ``flash_attention_bwd.wgmma_dkdv_launches`` and
+``.wgmma_dq_launches`` (the split's wgmma route alone),
+``flash_attention_bwd.f32_dkdv_launches`` (its FFMA dk/dv alone), ``paged_decode_attention.launches``
 (bf16 pool) and ``paged_decode_attention.fp8_launches`` (e4m3 pool) count
 kernel launches (the CPU path does not count).
 """
@@ -502,33 +510,78 @@ _SM90_FUSED_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
 
 _TURN_ROWS = 64     # the single pass's query tiles: a turn counter each
 
+# the FFMA route (csrc/flash_bwd_f32.cuh): fp32 operands at these kernel
+# head dims, when the wrapper's roundings (``_mixed_rounds``) round nothing
+_F32_CORE_HEAD_DIMS = (64, 128)
+_NO_ROUNDS = 0x2A       # every field 2: fp32, no rounding (csrc/flash_bwd.cu)
+_F32 = "flash_bwd_f32"  # the FFMA route's name where a route is named
 
-def single_pass_turns(b: int, h: int, sq: int, kd: int, sm90: bool) -> int:
+
+def f32_core_route(dtype: torch.dtype, kd: int, rounds: int) -> bool:
+    """Whether the single-pass backward and the split's dk/dv run the
+    exact-FFMA kernels of ``csrc/flash_bwd_f32.cuh`` (built into
+    ``flash_bwd.cu``'s fp32 target): operands of ``dtype`` fp32 after
+    promotion, kernel head dim ``kd`` 64 or 128, and ``rounds`` (the
+    wrapper's :func:`_mixed_rounds` code) rounding nothing below fp32 —
+    operands whose JAX kernels round p or ds to a narrower operand's dtype
+    stay on ``csrc/flash_bwd.cu``'s kernels, as fp32 at kernel head dims
+    32, 256 and 512 does. The one predicate of the route; the split's dq
+    kernel is ``flash_bwd.cu``'s for all fp32."""
+    return (dtype == torch.float32 and kd in _F32_CORE_HEAD_DIMS
+            and rounds == _NO_ROUNDS)
+
+
+def f32_core_keys(kd: int) -> int:
+    """Keys a block of the FFMA route at kernel head dim ``kd``: 128 at 64;
+    64 at 128, where two [128, 128] fp32 accumulators a block would not
+    fit in registers beside the score tiles."""
+    return 128 if kd == 64 else 64
+
+
+def _route_name(route) -> str:
+    """A single-pass route by name: True is the wgmma route, False
+    ``csrc/flash_bwd.cu``'s, or a name (``"flash_bwd_sm90"``,
+    ``"flash_bwd"``, ``"flash_bwd_f32"``)."""
+    if route is True:
+        return "flash_bwd_sm90"
+    if route is False:
+        return "flash_bwd"
+    return route
+
+
+def single_pass_turns(b: int, h: int, sq: int, kd: int, route) -> int:
     """The int32 turn counters the single-pass backward needs
     (``csrc/turns.cuh``): one a 64-row query tile of each (batch, head),
-    times, on ``csrc/flash_bwd.cu``'s route, the kernel's gradient-column
-    chunks a block (at most ``kd / 32``, kd the kernel head dim). Each
-    tile's dq is summed in a fixed order of its key tiles, so dq is the
-    same bits on every run."""
+    times, on ``csrc/flash_bwd.cu``'s route (``route`` False), the
+    kernel's gradient-column chunks a block (at most ``kd / 32``, kd the
+    kernel head dim); the wgmma route (True) and the FFMA route
+    (``"flash_bwd_f32"``) keep every column in one block. Each tile's dq
+    is summed in a fixed order of its key tiles, so dq is the same bits on
+    every run."""
     tiles = b * h * -(-sq // _TURN_ROWS)
-    return tiles if sm90 else tiles * (kd // 32)
+    return tiles * (kd // 32) if _route_name(route) == "flash_bwd" \
+        else tiles
 
 
-def single_pass_dq_order(sq: int, sk: int, causal: bool,
-                         sm90: bool) -> List[List[int]]:
+def single_pass_dq_order(sq: int, sk: int, causal: bool, route,
+                         kd: int = 64) -> List[List[int]]:
     """The order in which the single-pass kernels add their dq partials
     (``csrc/turns.cuh``): for each 64-row query tile, the key blocks that
     reach it, first to last. A key block reaches every query tile from the
     first whose last row sees its first key (causal: the end-aligned offset
     ``sk - sq``) to the last, so the blocks that reach a tile are blocks
-    0 .. J, and both routes add them in descending order: block j after
+    0 .. J, and every route adds them in descending order: block j after
     block j + 1, whose first tile under a causal mask is later than j's,
     so that it runs ahead of j when both are resident. Each route's grid
-    runs its key blocks in reverse (the wgmma route: 128 keys a block,
-    grid (b h, key block); ``csrc/flash_bwd.cu``: 64 keys a block on the
-    grid's fast axis), so a block waits only for one the hardware
-    dispatched before it."""
-    keys = 128 if sm90 else 64
+    runs its key blocks in reverse (the wgmma route, ``route`` True: 128
+    keys a block, grid (b h, key block); ``csrc/flash_bwd.cu``, False: 64
+    keys a block on the grid's fast axis; the FFMA route,
+    ``"flash_bwd_f32"``: :func:`f32_core_keys` of ``kd`` a block, grid
+    (b h, key block) as the wgmma route's), so a block waits only for one
+    the hardware dispatched before it."""
+    name = _route_name(route)
+    keys = (128 if name == "flash_bwd_sm90" else
+            f32_core_keys(kd) if name == _F32 else 64)
     n_qt, n_kb = -(-sq // _TURN_ROWS), -(-sk // keys)
     order = []
     for qt in range(n_qt):
@@ -539,12 +592,20 @@ def single_pass_dq_order(sq: int, sk: int, causal: bool,
     return order
 
 
-def _dq_workspace(q, kd: int, sm90: bool):
-    """``(dq_acc, turns)``: the single pass's zeroed fp32 dq accumulator in
-    q's shape and its zeroed turn counters, cut from one buffer (one
-    zeroing pass for both)."""
+def _dq_workspace(q, kd: int, route):
+    """``(dq_acc, turns)``: the single pass's fp32 dq accumulator in q's
+    shape and its zeroed turn counters for ``route``
+    (:func:`single_pass_turns`). The wgmma route and ``csrc/flash_bwd.cu``'s
+    add into a zeroed accumulator, cut from one buffer with the counters
+    (one zeroing pass for both); the FFMA route (``"flash_bwd_f32"``)
+    writes every element (each tile's first contributor stores), so only
+    its counters are zeroed."""
     b, h, sq, _ = q.shape
-    ws = torch.zeros(q.numel() + single_pass_turns(b, h, sq, kd, sm90),
+    if _route_name(route) == _F32:
+        return (torch.empty(q.shape, dtype=torch.float32, device=q.device),
+                torch.zeros(single_pass_turns(b, h, sq, kd, route),
+                            dtype=torch.int32, device=q.device))
+    ws = torch.zeros(q.numel() + single_pass_turns(b, h, sq, kd, route),
                      dtype=torch.float32, device=q.device)
     return ws[:q.numel()].view(q.shape), ws[q.numel():].view(torch.int32)
 
@@ -602,33 +663,45 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
         dtype = q.dtype
     # delta = rowsum(do * o) in fp32: outside the kernels as in the JAX
     # package (_flash_bwd_impl), except on the split's wgmma route, whose dq
-    # kernel computes it for its own rows (launched first: the delta fold)
+    # kernel computes it for its own rows (launched first: the delta fold),
+    # and on the FFMA route, whose prologue computes it beside the
+    # transposes of q and do (the single pass, and the split's dk/dv, which
+    # runs before dq)
     fold = (split and split_route(dtype, dp) == "flash_bwd_sm90"
             and out.dtype == dtype)
+    f32_fold = (f32_core_route(dtype, dp, rounds)
+                and out.dtype == torch.float32)
     # (out is promoted inside the product: the same exact fp32 products and
     # sum as out.float(), one pass fewer)
-    delta = None if fold else (do.float() * out).sum(dim=-1)
+    delta = None if fold or f32_fold else (do.float() * out).sum(dim=-1)
 
     def launch(q, k, v, do, out=None):
+        dl = delta
+        if fold or f32_fold:
+            dl = torch.empty((b, h, sq), dtype=torch.float32,
+                             device=q.device)
         if split:
-            dl = delta
-            if fold:
-                dl = torch.empty((b, h, sq), dtype=torch.float32,
-                                 device=q.device)
             args = (q, k, v, do, lse, dl, segment_ids_q, segment_ids_kv,
                     causal, scale, rounds)
             if fold:
                 dq = _flash_dq_cuda(*args, out=out)
                 return (dq, *_flash_dkdv_cuda(*args))
-            dk, dv = _flash_dkdv_cuda(*args)
+            dk, dv = _flash_dkdv_cuda(*args, out=out)
             return _flash_dq_cuda(*args), dk, dv
         sm90 = sm90_route(dtype, dp)
-        dq_acc, turns = _dq_workspace(q, dp, sm90)
+        f32 = f32_core_route(dtype, dp, rounds)
+        dq_acc, turns = _dq_workspace(q, dp, sm90 or (_F32 if f32
+                                                      else False))
         if sm90:
             dk, dv = _flash_bwd_fused_cuda(q, k, v, do, lse, delta,
                                            segment_ids_q, segment_ids_kv,
                                            causal, scale, dq_acc, turns)
             return dq_acc.to(q.dtype), dk, dv
+        if f32:
+            dk, dv = _flash_bwd_f32_cuda(q, k, v, do, out, lse, dl,
+                                         segment_ids_q, segment_ids_kv,
+                                         causal, scale, dq_acc, turns)
+            return dq_acc, dk, dv
         dk = torch.empty_like(k)
         dv = torch.empty_like(v)
         fn = _build.function(_build.dtype_target(
@@ -643,8 +716,9 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
         flash_attention_bwd.launches += 1
         return dq_acc.to(q.dtype), dk, dv
 
-    grads = with_padded_last_dim(launch, dp, (q, k, v, do, out) if fold
-                                 else (q, k, v, do), sliced=(0, 1, 2))
+    grads = with_padded_last_dim(launch, dp, (q, k, v, do, out)
+                                 if fold or f32_fold else (q, k, v, do),
+                                 sliced=(0, 1, 2))
     if not mixed:
         return grads
     return tuple(g.to(dt) for g, dt in zip(grads, dtypes))
@@ -676,6 +750,68 @@ def _flash_bwd_fused_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal,
     return dk, dv
 
 
+# apex_flash_bwd_f32(q, k, v, do, out, lse, delta, sid_q, sid_kv, ws,
+#                    dq_acc, turns, dk, dv, b, h, sq, sk, d, causal, scale,
+#                    stream) and apex_flash_bwd_f32_dkdv(..., sid_kv, ws, dk,
+# dv, b, ...): the FFMA route, fp32 only, with the scratch of q and do
+# transposed (no dtype, no ``rounds``); ``out`` null reads a given delta
+_F32_BWD_ARGS = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_void_p]
+_F32_DKDV_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_void_p]
+
+
+def _f32_transposes(q):
+    """The FFMA route's scratch: q and do transposed, [2, b, h, d, sqp]
+    fp32 with sqp = sq rounded up to 4 (16-byte rows); the kernels write
+    every element they read."""
+    b, h, sq, d = q.shape
+    return torch.empty(2 * b * h * d * (-(-sq // 4) * 4),
+                       dtype=torch.float32, device=q.device)
+
+
+def _f32_call(symbol, q, k, v, do, out, lse, delta, sid_q, sid_kv, causal,
+              scale, outs):
+    """One C call of the FFMA route (``symbol`` with its argument types)
+    on fp32 operands ``_flash_bwd_cuda`` checked: the prologue (the
+    transposes of q and do, and with ``out``, the forward's fp32 output,
+    delta written into ``delta``), then the kernel; ``outs`` the output
+    pointers after the scratch."""
+    b, h, sq, d = q.shape
+    _require(out is None or (out.dtype == torch.float32
+                             and out.shape == q.shape
+                             and out.is_contiguous()),
+             "flash_attention_bwd FFMA route", "the delta fold takes an fp32 "
+             "output of q's shape")
+    name, argtypes = symbol
+    fn = _build.function(_build.dtype_target("flash_bwd", 2), name, argtypes)
+    ws = _f32_transposes(q)
+    _build.check(fn(_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(out),
+                    _ptr(lse), _ptr(delta), _ptr(sid_q), _ptr(sid_kv),
+                    _ptr(ws), *outs,
+                    b, h, sq, k.shape[2], d, int(bool(causal)), float(scale),
+                    _stream(q)), f"flash_attention_bwd {name}")
+
+
+def _flash_bwd_f32_cuda(q, k, v, do, out, lse, delta, sid_q, sid_kv, causal,
+                        scale, dq_acc, turns):
+    """The FFMA route's single pass (``flash_bwd_f32_kernel``) on fp32
+    operands ``_flash_bwd_cuda`` checked, at kernel head dim 64 or 128:
+    ``(dk, dv)``, and dq times ``scale`` written into ``dq_acc`` (fp32, q's
+    shape; every element: each query tile's key blocks add in a fixed
+    order, the first storing). ``turns``: the zeroed int32 turn counters
+    (:func:`single_pass_turns`). The call writes delta = rowsum(do * out)
+    (fp32 [b, h, sq]) into ``delta`` from ``out``, the forward's
+    output."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _f32_call(("apex_flash_bwd_f32", _F32_BWD_ARGS), q, k, v, do, out, lse,
+              delta, sid_q, sid_kv, causal, scale,
+              (_ptr(dq_acc), _ptr(turns), _ptr(dk), _ptr(dv)))
+    flash_attention_bwd.launches += 1
+    flash_attention_bwd.f32_launches += 1
+    return dk, dv
+
+
 def _split_operands(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
                     rounds):
     """``(route, operands, tail)`` of a split kernel's C call: the route
@@ -692,10 +828,22 @@ def _split_operands(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
 
 
 def _flash_dkdv_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
-                     rounds):
+                     rounds, out=None):
     """The split's dk/dv kernel on operands ``_flash_bwd_cuda`` checked and
-    promoted; ``delta`` = rowsum(do * out) fp32 [b, h, sq]."""
+    promoted; ``delta`` = rowsum(do * out) fp32 [b, h, sq]. The FFMA
+    route's (``flash_dkdv_f32_kernel``) where :func:`f32_core_route`
+    holds; there, given ``out`` (the forward's output), the call computes
+    delta and writes it into ``delta`` for the dq kernel after it."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if f32_core_route(q.dtype, q.shape[-1], rounds):
+        _f32_call(("apex_flash_bwd_f32_dkdv", _F32_DKDV_ARGS), q, k, v, do,
+                  out, lse, delta, sid_q, sid_kv, causal, scale,
+                  (_ptr(dk), _ptr(dv)))
+        flash_attention_bwd.dkdv_launches += 1
+        flash_attention_bwd.f32_dkdv_launches += 1
+        return dk, dv
+    _require(out is None, "flash_attention_bwd dk/dv kernel",
+             "only the FFMA route folds delta into the dk/dv call")
     route, operands, tail = _split_operands(q, k, v, do, lse, delta, sid_q,
                                             sid_kv, causal, scale, rounds)
     sm90 = route == "flash_bwd_sm90"
@@ -775,8 +923,9 @@ def flash_attention_bwd(q, k, v, out, lse, do, segment_ids_q=None,
     (:func:`uses_split_backward`) the dk/dv kernel then the dq kernel; on
     the CPU :func:`flash_attention_bwd_reference`.
     ``flash_attention_bwd.launches`` counts single-pass launches
-    (``.wgmma_launches`` those on the wgmma route), ``.dkdv_launches`` and
-    ``.dq_launches`` the split's."""
+    (``.wgmma_launches`` those on the wgmma route, ``.f32_launches`` those
+    on the FFMA route), ``.dkdv_launches`` and ``.dq_launches`` the
+    split's (``.f32_dkdv_launches`` its dk/dv on the FFMA route)."""
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     if check_device_type(q, "flash_attention_bwd") == "cpu":
         return flash_attention_bwd_reference(
@@ -793,6 +942,8 @@ flash_attention_bwd.dkdv_launches = 0
 flash_attention_bwd.dq_launches = 0
 flash_attention_bwd.wgmma_dkdv_launches = 0
 flash_attention_bwd.wgmma_dq_launches = 0
+flash_attention_bwd.f32_launches = 0
+flash_attention_bwd.f32_dkdv_launches = 0
 
 
 class FlashAttentionFunction(torch.autograd.Function):

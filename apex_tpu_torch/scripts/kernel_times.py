@@ -33,10 +33,14 @@ computes the same function in exact fp32 (TF32 off, float32 matmul
 precision "highest", both recorded): the LM-head CE forward and backward
 at n8192 V32768 h1024 (``F.cross_entropy(F.linear(x, e), t)`` and its
 autograd backward), the flash forward and single pass at b8 h16 s1024 d64
-causal and the split's two kernels at b2 h16 s4096 (SDPA forward and
-backward); and one O0 step of the 2-layer GPT (h1024, V32768, b8 s1024,
-``FusedAdam``) under ``torch.profiler``, its device time by kernel class
-and its host-clock time. Times are
+causal (the single pass also at d128) and the split's two kernels at b2
+h16 s4096 (SDPA forward and backward); the single pass and the split's
+dk/dv of ``csrc/flash_bwd.cu`` (the shuffle-product kernels) through
+their C entries at the same shapes, whichever kernel the checkout routes
+fp32 to, so that a checkout's route is timed beside the kernels every
+version has; and one O0 step of the 2-layer GPT (h1024, V32768, FusedAdam)
+at b8 s1024 and at b2 s4096 under ``torch.profiler``, its device time by
+kernel class and its host-clock time. Times are
 medians of CUDA-event pairs around single launches, the L2 flushed before
 each. They are device times: a ``torch.cuda._sleep`` queued between the
 flush and the start event keeps the card busy while the host records the
@@ -109,6 +113,18 @@ def _fp32_rows(torch, F, fa, ce, timed, x, e, tgt, dl):
                                    0.125, split=False), iters=5)
     res["library fp32 SDPA bwd b8 s1024"] = timed(
         _grad_closure(torch, sdpa, (q, k, v), do), iters=5)
+    res["flash_bwd.cu single fp32 b8 s1024 (C entry)"] = timed(
+        _shuffle_single(torch, fa, q, k, v, out, lse, do), iters=3)
+    del q, k, v, do, out, lse
+    q, k, v, do = (rnd(8, 16, 1024, 128) for _ in range(4))
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    res["flash_bwd single fp32 b8 s1024 d128"] = timed(
+        lambda: fa._flash_bwd_cuda(q, k, v, out, lse, do, None, None, True,
+                                   128 ** -0.5, split=False), iters=5)
+    res["library fp32 SDPA bwd b8 s1024 d128"] = timed(
+        _grad_closure(torch, lambda a, b, c: F.scaled_dot_product_attention(
+            a, b, c, is_causal=True, scale=128 ** -0.5), (q, k, v), do),
+        iters=5)
     del q, k, v, do, out, lse
     q, k, v, do = (rnd(2, 16, 4096, 64) for _ in range(4))
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
@@ -117,6 +133,14 @@ def _fp32_rows(torch, F, fa, ce, timed, x, e, tgt, dl):
             fa._mixed_rounds(q, k, do))
     res["flash_bwd dkdv fp32 b2 s4096"] = timed(
         lambda: fa._flash_dkdv_cuda(*args), iters=3)
+    dkdv = fa._build.function("flash_bwd@f32", "apex_flash_bwd_dkdv",
+                              fa._FLASH_DKDV_ARGS)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    res["flash_bwd.cu dkdv fp32 b2 s4096 (C entry)"] = timed(
+        lambda: dkdv(fa._ptr(q), fa._ptr(k), fa._ptr(v), fa._ptr(do),
+                     fa._ptr(lse), fa._ptr(delta), None, None, fa._ptr(dk),
+                     fa._ptr(dv), 2, 16, 4096, 4096, 64, 1, 0.125, 2,
+                     args[-1], fa._stream(q)), iters=3)
     res["flash_bwd dq fp32 b2 s4096"] = timed(
         lambda: fa._flash_dq_cuda(*args), iters=3)
     res["library fp32 SDPA bwd b2 s4096"] = timed(
@@ -124,20 +148,47 @@ def _fp32_rows(torch, F, fa, ce, timed, x, e, tgt, dl):
     return res
 
 
+def _shuffle_single(torch, fa, q, k, v, out, lse, do):
+    """A closure running ``csrc/flash_bwd.cu``'s fp32 single pass through
+    its C entry at kernel head dim 64 (delta and a zeroed dq workspace
+    made outside: the turn counters must start at zero on every call)."""
+    b, h, s, d = q.shape
+    fn = fa._build.function("flash_bwd@f32", "apex_flash_bwd",
+                            fa._FLASH_BWD_ARGS)
+    delta = (do * out).sum(dim=-1)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    rounds = fa._mixed_rounds(q, k, do)
+    ws = [fa._dq_workspace(q, d, False) for _ in range(8)]
+    box = [0]
+
+    def run():
+        dq_acc, turns = ws[box[0] % len(ws)]
+        box[0] += 1
+        dq_acc.zero_()
+        turns.zero_()
+        fn(fa._ptr(q), fa._ptr(k), fa._ptr(v), fa._ptr(do), fa._ptr(lse),
+           fa._ptr(delta), None, None, fa._ptr(dq_acc), fa._ptr(turns),
+           fa._ptr(dk), fa._ptr(dv), b, h, s, s, d, 1, d ** -0.5, 2, rounds,
+           fa._stream(q))
+
+    return run
+
+
 # kernel classes of the O0 step's trace, by a part of the kernel's name
 _O0_CLASSES = (
     ("LM-head CE (B8, B9)", ("ce_fwd_kernel", "ce_bwd_de_kernel",
                              "ce_bwd_dx_kernel", "ce32_")),
     ("flash forward (B1)", ("flash_fwd",)),
-    ("flash backward (B2)", ("flash_bwd", "flash_dkdv", "flash_dq")),
+    ("flash backward (B2, B3, B4)", ("flash_bwd", "flash_dkdv", "flash_dq",
+                                     "flash_f32_prologue")),
     ("LayerNorm (B6, B7)", ("_ln_fwd", "_ln_bwd")),
     ("library GEMM", ("gemm", "nvjet", "xmma", "cutlass")),
     ("memcpy/memset", ("Memcpy", "Memset", "memcpy", "memset")),
 )
 
 
-def _o0_step(torch):
-    """One O0 step (2-layer fp32 GPT at h1024 V32768, b8 s1024,
+def _o0_step(torch, b=8, s=1024):
+    """One O0 step (2-layer fp32 GPT at h1024 V32768, b8 s1024 or b2 s4096,
     ``FusedAdam`` through ``amp.make_train_step``) after a warm-up:
     the host-clock median of 3 steps, then one step under
     ``torch.profiler``, device ms and launches by kernel class."""
@@ -148,13 +199,13 @@ def _o0_step(torch):
     from apex_tpu_torch.models.gpt import GPT, GPTConfig
     from apex_tpu_torch.optimizers import FusedAdam
     cfg = dataclasses.replace(
-        GPTConfig(vocab_size=32768, max_seq_len=1024, hidden_size=1024,
+        GPTConfig(vocab_size=32768, max_seq_len=s, hidden_size=1024,
                   num_layers=12, num_heads=16, dtype=torch.bfloat16),
         num_layers=2, dtype=torch.float32)
     model = GPT.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cuda")
     ids = torch.from_numpy(np.random.RandomState(0).randint(
-        0, cfg.vocab_size, (8, 1024)).astype(np.int64)).cuda()
+        0, cfg.vocab_size, (b, s)).astype(np.int64)).cuda()
     labels = torch.roll(ids, -1, dims=1)
     amp_model, opt = amp.initialize(model, FusedAdam(lr=3e-4),
                                     opt_level="O0", verbosity=0)
@@ -368,10 +419,12 @@ def main() -> int:
             lambda: mm.fp8_dequant_matmul(xq, wq, sc))
 
     o0 = _o0_step(torch)
+    o0_long = _o0_step(torch, 2, 4096)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     out = dict(root=root, card=card, ms=res, o0_step=o0,
+               o0_step_s4096=o0_long,
                fp32_matmul=dict(
                    allow_tf32=torch.backends.cuda.matmul.allow_tf32,
                    precision=torch.get_float32_matmul_precision()),

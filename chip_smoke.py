@@ -100,12 +100,14 @@ Phases (any failure exits non-zero; no phase's error is caught):
 16. O0 path — the GPT at full width with 2 layers in fp32 (b8 s1024): the
     loss and every gradient through the kernels (fp32 flash, LayerNorm and
     LM-head CE) against ``GPT.loss(reference=True)``, then 3 counted
-    ``FusedAdam`` steps through ``amp.make_train_step`` at O0 (the CE on
-    its fp32 kernels), and one more under ``torch.profiler``: its device
-    time by kernel class;
+    ``FusedAdam`` steps through ``amp.make_train_step`` at O0 (the CE and
+    the flash backward on their FFMA routes), and one more under
+    ``torch.profiler``: its device time by kernel class;
 17. O0 long path — the same 2-layer fp32 GPT at b2 s4096, past the
-    flash backward's gate: a warm-up and 2 counted O0 steps, every split
-    launch on ``csrc/flash_bwd.cu``'s route (fp32 takes no wgmma).
+    flash backward's gate: a warm-up and 2 counted O0 steps, every split's
+    dk/dv on the fp32 FFMA route (``csrc/flash_bwd_f32.cuh``) and its dq on
+    ``csrc/flash_bwd.cu``'s; then one step under ``torch.profiler``, its
+    device time by kernel class.
 
 The kernel phase also holds the shapes and dtypes ROADMAP §C records as
 repaired against the plain versions: flash forward and backward (single
@@ -128,9 +130,20 @@ wgmma route (``csrc/flash_fwd_sm90.cu``; ``flash_bwd_fused_sm90`` of
 ``csrc/flash_bwd_sm90.cu``) at the serve prefill's, the s1024 and the
 s4096 train cells' shapes, ragged shapes, fp16 and a padded head dim, the
 forward and the single pass's dk and dv bitwise on a rerun, with ptxas's
-registers and no spill; flash_fwd.cu's and flash_bwd.cu's in fp32 at the
-O0 path's shape. Every bf16 main path (the GPT cells, ZeRO-3, LAMB,
-serve) takes the wgmma route for every flash launch, the O0 paths none.
+registers and no spill; flash_fwd.cu's in fp32 at the O0 path's shape.
+Every bf16 main path (the GPT cells, ZeRO-3, LAMB, serve) takes the wgmma
+route for every flash launch, the O0 paths none.
+
+The fp32 backward's FFMA route (``csrc/flash_bwd_f32.cuh``: the single
+pass, B2, and the split's dk/dv, B3) is held at the O0 paths' shapes and
+at ragged s (1000 x 1003, sq != sk), rows with no key, padded head dims
+(40 -> 64, 80 -> 128), non-causal and padding segment ids (their dq
+exactly zero) against the plain backward, dq, dk and dv bitwise on a
+rerun and (single pass) for one batch alone, its device launches of one
+call counted by the profiler, ptxas's log showing no spill, and timed
+beside SDPA's fp32 backward and the shuffle-product kernels of
+``csrc/flash_bwd.cu`` it replaced there (through their C entries). Every
+O0 flash backward launch takes it: the split's dq stays on flash_bwd.cu.
 
 B8 and B9's fp32 route (``csrc/lm_head_ce.cu`` on the exact-FFMA core of
 ``csrc/simt_f32.cuh``) is held at the O0 path's n 8192, V 32768, h 1024
@@ -146,9 +159,10 @@ split flash backward (B3, B4) is held on both routes: the wgmma route
 (bf16, b2 h16 s4096 d64 causal and a b1 h4 s2304 segment case) kernel by
 kernel against its plain versions (dq with the delta it folds in, dk/dv
 from that delta), as a pair against the plain backward and bitwise on a
-rerun, with each kernel's ``ptxas`` register count; flash_bwd.cu's route
-in fp32 at the same shape; both timed apart, and the split beside the
-single pass at b8 h16 s1024.
+rerun, with each kernel's ``ptxas`` register count; in fp32 at the same
+shape, its dk/dv on the FFMA route (above) and its dq on flash_bwd.cu's
+kernel; each timed apart, and the split beside the single pass at b8 h16
+s1024.
 
 The decode kernels (B12's decode regime, ``csrc/fp8_matmul.cu``; B5,
 ``csrc/paged_decode.cu``) are held at the serve engines' shapes: B12 at
@@ -752,9 +766,8 @@ def check_flash_bwd(torch, timer):
     SDPA's backward; dq, dk and dv bitwise on a rerun and, for the first
     batch, bitwise the same run alone (dq is summed in a fixed order of
     key blocks); segment ids with padding rows, whose dq is exactly zero
-    (ptxas's registers and spills: check_flash_split). flash_bwd.cu's
-    single pass at the O0 path's shape (fp32), dq, dk and dv bitwise on a
-    rerun and for the first batch alone."""
+    (ptxas's registers and spills: check_flash_split). The fp32 single
+    pass (the O0 path's): :func:`check_flash_f32`."""
     import torch.nn.functional as F
     from apex_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -832,46 +845,7 @@ def check_flash_bwd(torch, timer):
                 "is_causal=True)")
     del q, k, v, do, out, lse, delta, dq_acc
 
-    # flash_bwd.cu: fp32 at the O0 path's shape
-    q, k, v, do = (rand(b, h, s, d, dtype=torch.float32) for _ in range(4))
-    out, lse = fa.flash_attention_fwd(q, k, v, None, None, True, scale)
-    n0 = (f.wgmma_launches, f.launches)
-    got = fa.flash_attention_bwd(q, k, v, out, lse, do, None, None, True,
-                                 scale)
-    check(moved(n0) == (0, 1), "flash_bwd fp32: not flash_bwd.cu")
-    again = fa.flash_attention_bwd(q, k, v, out, lse, do, None, None, True,
-                                   scale)
-    ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
-                                           causal=True, scale=scale)
-    torch.cuda.synchronize()
-    check(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
-          "flash_bwd fp32: dq, dk or dv changed on a rerun")
-    _check_first_batch_alone(torch, fa, got, q, k, v, out, lse, do, scale,
-                             "flash_bwd fp32")
-    f32_err = max(_fp32_err(g, r, f"flash_bwd fp32 {n}", FP32_GRAD_TOL)
-                  for n, g, r in zip(("dq", "dk", "dv"), got, ref))
-    del got, again, ref
-    f32_bound = _bwd_bound(b, h, s, d, 4, FP32_FLOPS_PER_S)
-    simt = dict(
-        name="flash_bwd", route="cuda",
-        source="apex_tpu_torch/csrc/flash_bwd.cu",
-        replaces="apex_tpu/ops/flash_attention.py:604",
-        shape=f"b{b} h{h} s{s} d{d} fp32 causal (the O0 path's)",
-        max_abs_err=f32_err,
-        tolerance=f"{FP32_GRAD_TOL} of max and in relative norm; dq, dk, "
-                  "dv bitwise on a rerun and for one batch alone",
-        ms=timer(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, None,
-                                                None, True, scale), iters=5),
-        plain_ms=timer(lambda: fa.flash_attention_bwd_reference(
-            q, k, v, out, lse, do, causal=True, scale=scale), iters=5),
-        library_ms=timer(_grad_of(torch, lambda a, b_, c: (
-            F.scaled_dot_product_attention(a, b_, c, is_causal=True,
-                                           scale=scale)), (q, k, v), do),
-            iters=5),
-        library="backward of F.scaled_dot_product_attention("
-                "is_causal=True), fp32",
-        bound_ms=f32_bound[0], bound_by=f32_bound[1])
-    return [wgmma, simt]
+    return wgmma
 
 
 def _check_first_batch_alone(torch, fa, got, q, k, v, out, lse, do, scale,
@@ -1190,13 +1164,242 @@ SPLIT_B, SPLIT_H, SPLIT_S, SPLIT_D = 2, 16, 4096, 64
 def _split_counts(fa):
     f = fa.flash_attention_bwd
     return (f.launches, f.dkdv_launches, f.dq_launches,
-            f.wgmma_dkdv_launches, f.wgmma_dq_launches)
+            f.wgmma_dkdv_launches, f.wgmma_dq_launches, f.f32_dkdv_launches)
 
 
 def _split_moved(fa, before, wgmma: bool):
-    """The split ran once on the named route and the single pass not."""
+    """The split ran once on the named route (the wgmma route, or fp32's:
+    dk/dv on the FFMA route, dq on flash_bwd.cu) and the single pass
+    not."""
     moved = tuple(a - b for a, b in zip(_split_counts(fa), before))
-    return moved == ((0, 1, 1, 1, 1) if wgmma else (0, 1, 1, 0, 0))
+    return moved == ((0, 1, 1, 1, 1, 0) if wgmma else (0, 1, 1, 0, 0, 1))
+
+
+# the fp32 route's kernels (csrc/flash_bwd_f32.cuh, in flash_bwd.cu's fp32
+# build), and flash_bwd.cu's own backward kernels, by name
+F32_CORE_KERNELS = ("flash_f32_prologue_kernel", "flash_bwd_f32_kernel",
+                    "flash_dkdv_f32_kernel")
+FLASH_BWD_KERNELS = ("flash_bwd_kernel", "flash_dkdv_kernel",
+                     "flash_dq_kernel")
+# (b, h, sq, sk, d, causal, segment ids) beside the O0 shapes: ragged and sq
+# != sk with padding rows, rows with no key, padded head dims, non-causal
+F32_CORE_SHAPES = ((2, 2, 1000, 1003, 64, True, True),
+                   (1, 4, 100, 300, 64, True, False),
+                   (1, 4, 300, 100, 64, True, False),
+                   (1, 4, 500, 500, 40, True, False),
+                   (1, 4, 500, 500, 80, True, True),
+                   (2, 4, 700, 700, 64, False, True))
+F32_PAD_ROWS = 40      # padding rows (segment id -1) at the end of each row
+
+
+def _f32_core_registers(build):
+    """``ptxas -v``'s registers and spill bytes of the FFMA route's kernels
+    (each head dim); fails on a spill."""
+    regs, name = {}, None
+    text = build.library_path(build.dtype_target("flash_bwd", 2)) \
+        .with_suffix(".log").read_text()
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(%s)(?:ILi(\d+)E)?" % "|".join(F32_CORE_KERNELS),
+                          m.group(1))
+            name = None
+            if k:
+                name = k.group(1) + (f" d{k.group(2)}" if k.group(2) else "")
+                regs[name] = {}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            regs[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            check(regs[name]["spill_bytes"] == 0,
+                  f"flash_bwd@f32 {name}: ptxas spills "
+                  f"{regs[name]['spill_bytes']} bytes")
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs[name]["registers"] = int(m.group(1))
+    check(len(regs) == 6, f"flash_bwd@f32: FFMA kernels in ptxas's log "
+          f"{sorted(regs)}")
+    return regs
+
+
+def check_flash_f32(torch, timer, split: bool):
+    """The fp32 backward on the FFMA route (``csrc/flash_bwd_f32.cuh``):
+    the single pass (``split`` False) at the O0 path's b8 h16 s1024 d64
+    causal, or the split at the O0 long path's b2 h16 s4096, dk/dv on the
+    route and dq on ``flash_bwd.cu``'s ``flash_dq_kernel``. Each against the
+    plain backward (FP32_GRAD_TOL) at F32_CORE_SHAPES and the O0 shape,
+    with the padding rows' dq exactly zero, dq, dk and dv bitwise on a
+    rerun and (single pass) the first batch's the same bits run alone;
+    the device launches of one call counted by the profiler (a transpose
+    of q and dO and the kernel, none of flash_bwd.cu's but the split's
+    dq); ptxas's registers with no spill; timed beside the plain version,
+    SDPA's fp32 backward (TF32 off) and the shuffle-product kernel the
+    route replaces (``flash_bwd.cu``'s, through its C entry). The split
+    returns the dq kernel's record too."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(13 if split else 12)
+    f = fa.flash_attention_bwd
+    counter = "f32_dkdv_launches" if split else "f32_launches"
+    what = "flash fp32 split" if split else "flash fp32 single pass"
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def seg_ids(b, s):
+        sid = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+        sid[:, s // 2:] = 1
+        sid[:, s - F32_PAD_ROWS:] = -1
+        return sid
+
+    checked = []
+    for b, h, sq, sk, d, causal, seg in F32_CORE_SHAPES:
+        q, do = rand(b, h, sq, d), rand(b, h, sq, d)
+        k, v = rand(b, h, sk, d), rand(b, h, sk, d)
+        sid_q, sid_kv = (seg_ids(b, sq), seg_ids(b, sk)) if seg else (None,
+                                                                     None)
+        out, lse = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal)
+        n0 = getattr(f, counter)
+        got = fa._flash_bwd_cuda(q, k, v, out, lse, do, sid_q, sid_kv,
+                                 causal, d ** -0.5, split=split)
+        again = fa._flash_bwd_cuda(q, k, v, out, lse, do, sid_q, sid_kv,
+                                   causal, d ** -0.5, split=split)
+        ref = fa.flash_attention_bwd_reference(
+            q, k, v, out, lse, do, causal=causal, segment_ids_q=sid_q,
+            segment_ids_kv=sid_kv)
+        torch.cuda.synchronize()
+        shape = f"b{b} h{h} sq{sq} sk{sk} d{d}" + (" causal" if causal
+                                                   else "") + \
+            (" segments" if seg else "")
+        check(getattr(f, counter) - n0 == 2, f"{what} {shape}: not the FFMA "
+              "route")
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"{what} {shape}: a rerun gave other bits")
+        err = max(_fp32_err(g, r, f"{what} {shape} {n}", FP32_GRAD_TOL)
+                  for n, g, r in zip(("dq", "dk", "dv"), got, ref))
+        if seg:
+            check(got[0][:, :, sq - F32_PAD_ROWS:].abs().max().item() == 0.0,
+                  f"{what} {shape}: padding rows got a nonzero dq")
+        checked.append(dict(shape=shape, max_abs_err=err))
+        del q, k, v, do, out, lse, got, again, ref
+
+    b, h, s, d = (2, 16, 4096, 64) if split else (8, 16, 1024, 64)
+    scale = d ** -0.5
+    q, k, v, do = (rand(b, h, s, d) for _ in range(4))
+    out, lse = fa.flash_attention_fwd(q, k, v, None, None, True, scale)
+    check(fa.uses_split_backward(s, s, d, 4, 4, True) is split,
+          f"{what}: the gate at s{s}")
+    n0 = getattr(f, counter)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, None, None, True,
+                                 scale)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, None, None, True,
+                                   scale)
+    torch.cuda.synchronize()
+    check(getattr(f, counter) - n0 == 2, f"{what} s{s}: not the FFMA route")
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"{what} s{s}: dq, dk or dv changed on a rerun")
+    del again
+    if not split:
+        _check_first_batch_alone(torch, fa, got, q, k, v, out, lse, do,
+                                 scale, what)
+    ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                           causal=True, scale=scale)
+    torch.cuda.synchronize()
+    errs = {n: _fp32_err(g, r, f"{what} s{s} {n}", FP32_GRAD_TOL)
+            for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
+    del got, ref
+    dev = device_launches(torch, lambda: fa.flash_attention_bwd(
+        q, k, v, out, lse, do, None, None, True, scale),
+        F32_CORE_KERNELS + FLASH_BWD_KERNELS)
+    want = {"flash_f32_prologue_kernel": 1,
+            "flash_bwd_f32_kernel": int(not split),
+            "flash_dkdv_f32_kernel": int(split), "flash_bwd_kernel": 0,
+            "flash_dkdv_kernel": 0, "flash_dq_kernel": int(split)}
+    check({k_: dev[k_] for k_ in want} == want,
+          f"{what} s{s}: device launches {dev} in one call, expected {want}")
+
+    delta = (do * out).sum(dim=-1)
+    args = (q, k, v, do, lse, delta, None, None, True, scale,
+            fa._mixed_rounds(q, k, do))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if split:
+        ms = timer(lambda: fa._flash_dkdv_cuda(*args), iters=10)
+        old = _build.function("flash_bwd@f32", "apex_flash_bwd_dkdv",
+                              fa._FLASH_DKDV_ARGS)
+
+        def shuffle():
+            old(fa._ptr(q), fa._ptr(k), fa._ptr(v), fa._ptr(do),
+                fa._ptr(lse), fa._ptr(delta), None, None, fa._ptr(dk),
+                fa._ptr(dv), b, h, s, s, d, 1, scale, 2, args[-1],
+                fa._stream(q))
+    else:
+        ms = timer(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, do, None, None, True, scale), iters=10)
+        old = _build.function("flash_bwd@f32", "apex_flash_bwd",
+                              fa._FLASH_BWD_ARGS)
+
+        def shuffle():
+            # a zeroed workspace each call: the turn counters must start
+            # at zero
+            dq_acc, turns = fa._dq_workspace(q, d, False)
+            old(fa._ptr(q), fa._ptr(k), fa._ptr(v), fa._ptr(do),
+                fa._ptr(lse), fa._ptr(delta), None, None, fa._ptr(dq_acc),
+                fa._ptr(turns), fa._ptr(dk), fa._ptr(dv), b, h, s, s, d, 1,
+                scale, 2, args[-1], fa._stream(q))
+    shuffle_ms = timer(shuffle, iters=3)
+    plain_ms = timer(lambda: fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, do, causal=True, scale=scale), iters=3, warmup=1)
+    lib_ms = timer(_grad_of(torch, lambda a, b_, c: (
+        F.scaled_dot_product_attention(a, b_, c, is_causal=True,
+                                       scale=scale)), (q, k, v), do),
+        iters=5)
+    pairs = b * h * s * (s + 1) // 2
+    sd4 = b * h * s * d * 4
+    products = 4 if split else 5
+    if split:
+        kb = bound(4 * 2.0 * d * pairs, 6 * sd4 + 2 * b * h * s * 4,
+                   FP32_FLOPS_PER_S)
+    else:
+        kb = _bwd_bound(b, h, s, d, 4, FP32_FLOPS_PER_S)
+    common = dict(
+        route="cuda", shape=f"b{b} h{h} s{s} d{d} fp32 causal (the O0 "
+        f"{'long ' if split else ''}path's), and {len(checked)} shapes "
+        "more (checked)",
+        tolerance=f"{FP32_GRAD_TOL} of max and in relative norm; padding "
+                  "rows' dq exactly 0; dq, dk, dv bitwise on a rerun"
+                  + ("" if split else " and for one batch alone"),
+        plain_ms=plain_ms, library_ms=lib_ms,
+        plain="flash_attention_bwd_reference: dq, dk and dv together",
+        library="backward of F.scaled_dot_product_attention(is_causal="
+                "True), exact fp32: dq, dk and dv together")
+    rec = dict(
+        name="flash_bwd_f32_dkdv" if split else "flash_bwd_f32",
+        source="apex_tpu_torch/csrc/flash_bwd_f32.cuh",
+        replaces="apex_tpu/ops/flash_attention.py:" + ("558" if split
+                                                      else "604"),
+        max_abs_err=max(errs["dk"], errs["dv"]) if split
+        else max(errs.values()),
+        ms=ms, bound_ms=kb[0], bound_by=kb[1],
+        tflops=products * 2.0 * d * pairs / ms / 1e9,
+        as_called="_flash_dkdv_cuda on a given delta (two transposes and "
+                  "the kernel)" if split else "flash_attention_bwd (delta, "
+                  "the zeroed dq workspace, two transposes, the kernel)",
+        shuffle_kernel_ms=shuffle_ms, checked=checked,
+        device_launches_per_call=dev,
+        registers=_f32_core_registers(_build), **common)
+    if not split:
+        del q, k, v, do, out, lse, delta, args, dk, dv
+        return [rec]
+    dq_ms = timer(lambda: fa._flash_dq_cuda(*args), iters=5)
+    dq_bound = bound(3 * 2.0 * d * pairs, 5 * sd4 + 2 * b * h * s * 4,
+                     FP32_FLOPS_PER_S)
+    del q, k, v, do, out, lse, delta, args, dk, dv
+    return [rec, dict(
+        name="flash_bwd_dq", source="apex_tpu_torch/csrc/flash_bwd.cu",
+        replaces="apex_tpu/ops/flash_attention.py:671",
+        max_abs_err=errs["dq"], ms=dq_ms, bound_ms=dq_bound[0],
+        bound_by=dq_bound[1], **common)]
 
 
 # the wgmma flash kernels in ptxas's log: the split's two, the forward (its
@@ -1294,9 +1497,8 @@ def check_flash_split(torch, timer):
     delta it folds in; dk and dv from that delta), the pair against the
     plain backward, a bitwise rerun, a ragged shape with padding segment
     ids; each kernel timed apart, the pair beside the single-pass
-    backward forced at the same shape, and beside B2 at b8 h16 s1024.
-    flash_bwd.cu's route at the O0 long path's shape (fp32): against the
-    plain backward, timed."""
+    backward forced at the same shape, and beside B2 at b8 h16 s1024. The
+    fp32 split (the O0 long path's): :func:`check_flash_f32`."""
     import torch.nn.functional as F
     from apex_tpu_torch.ops import _build
     from apex_tpu_torch.ops import flash_attention as fa
@@ -1403,39 +1605,6 @@ def check_flash_split(torch, timer):
             q, k, v, out, lse, do, None, None, True, scale, split=False)))
     del q, k, v, do, out, lse
 
-    # flash_bwd.cu's split at the O0 long path's shape (fp32)
-    q, k, v, do = (rand(b, h, s, d, dtype=torch.float32) for _ in range(4))
-    out, lse = fa.flash_attention_fwd(q, k, v, None, None, True, scale)
-    n0 = _split_counts(fa)
-    got = fa.flash_attention_bwd(q, k, v, out, lse, do, None, None, True,
-                                 scale)
-    torch.cuda.synchronize()
-    check(_split_moved(fa, n0, False),
-          "fp32 s4096 did not take flash_bwd.cu's split")
-    ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
-                                           causal=True, scale=scale)
-    torch.cuda.synchronize()
-    f32_errs = {n: _fp32_err(g, r, f"flash split fp32 {n}", FP32_GRAD_TOL)
-                for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
-    del got, ref
-    delta = (do * out).sum(dim=-1)
-    args = (q, k, v, do, lse, delta, None, None, True, scale,
-            fa._mixed_rounds(q, k, do))
-    f32_dkdv_ms = timer(lambda: fa._flash_dkdv_cuda(*args), iters=5)
-    f32_dq_ms = timer(lambda: fa._flash_dq_cuda(*args), iters=5)
-    f32_plain_ms = timer(lambda: fa.flash_attention_bwd_reference(
-        q, k, v, out, lse, do, causal=True, scale=scale), iters=3, warmup=1)
-    f32_lib_ms = timer(_grad_of(torch, lambda a, b_, c: (
-        F.scaled_dot_product_attention(a, b_, c, is_causal=True,
-                                       scale=scale)), (q, k, v), do),
-        iters=5)
-    sd4 = 2 * sd2
-    f32_dkdv_bound = bound(4 * 2.0 * d * pairs, 6 * sd4 + 2 * b * h * s * 4,
-                           FP32_FLOPS_PER_S)
-    f32_dq_bound = bound(3 * 2.0 * d * pairs, 5 * sd4 + 2 * b * h * s * 4,
-                         FP32_FLOPS_PER_S)
-    del q, k, v, do, out, lse, delta, args
-
     wgmma = dict(
         route="cuda", source="apex_tpu_torch/csrc/flash_bwd_sm90.cu",
         shape=f"b{b} h{h} s{s} d{d} bf16 causal (also b1 h4 s2304 with "
@@ -1451,14 +1620,6 @@ def check_flash_split(torch, timer):
         single_pass_max_abs_err=single_err, pair_max_abs_err=errs,
         delta_fold_max_abs_err=delta_err, b8_s1024=b8,
         registers=_sm90_registers(_build))
-    simt = dict(
-        route="cuda", source="apex_tpu_torch/csrc/flash_bwd.cu",
-        shape=f"b{b} h{h} s{s} d{d} fp32 causal (the O0 long path's)",
-        tolerance=f"{FP32_GRAD_TOL} of max and in relative norm",
-        plain_ms=f32_plain_ms, library_ms=f32_lib_ms,
-        plain="flash_attention_bwd_reference: dq, dk and dv together",
-        library="backward of F.scaled_dot_product_attention(is_causal="
-                "True), fp32: dq, dk and dv together")
     return [
         dict(name="flash_bwd_dkdv_sm90", replaces="apex_tpu/ops/"
              "flash_attention.py:558", max_abs_err=dkdv_err, ms=dkdv_ms,
@@ -1466,13 +1627,6 @@ def check_flash_split(torch, timer):
         dict(name="flash_bwd_dq_sm90", replaces="apex_tpu/ops/"
              "flash_attention.py:671", max_abs_err=dq_err, ms=dq_ms,
              bound_ms=dq_bound[0], bound_by=dq_bound[1], **wgmma),
-        dict(name="flash_bwd_dkdv", replaces="apex_tpu/ops/flash_attention"
-             ".py:558", max_abs_err=max(f32_errs["dk"], f32_errs["dv"]),
-             ms=f32_dkdv_ms, bound_ms=f32_dkdv_bound[0],
-             bound_by=f32_dkdv_bound[1], **simt),
-        dict(name="flash_bwd_dq", replaces="apex_tpu/ops/flash_attention.py"
-             ":671", max_abs_err=f32_errs["dq"], ms=f32_dq_ms,
-             bound_ms=f32_dq_bound[0], bound_by=f32_dq_bound[1], **simt),
     ]
 
 
@@ -1732,6 +1886,7 @@ def counters():
             "flash_bwd": (fa.flash_attention_bwd, "launches"),
             "flash_bwd_fused_sm90": (fa.flash_attention_bwd,
                                      "wgmma_launches"),
+            "flash_bwd_f32": (fa.flash_attention_bwd, "f32_launches"),
             "layer_norm_bwd": (ln.layer_norm_bwd, "launches"),
             "lm_head_ce_fwd": (ce.lm_head_ce_fwd, "launches"),
             "lm_head_ce_bwd": (ce.lm_head_ce_bwd, "launches"),
@@ -1744,6 +1899,8 @@ def counters():
                                     "wgmma_dkdv_launches"),
             "flash_bwd_dq_sm90": (fa.flash_attention_bwd,
                                   "wgmma_dq_launches"),
+            "flash_bwd_f32_dkdv": (fa.flash_attention_bwd,
+                                   "f32_dkdv_launches"),
             "xentropy_fwd": (xe.softmax_cross_entropy_with_smoothing,
                              "launches"),
             "xentropy_bwd": (xe.softmax_cross_entropy_with_smoothing,
@@ -1762,9 +1919,11 @@ def reset_counters():
 
 def read_counters():
     """Launches by kernel since :func:`reset_counters`; the flash
-    counters of both routes less the wgmma route's, so that ``flash_fwd``,
-    ``flash_bwd``, ``flash_bwd_dkdv`` and ``flash_bwd_dq`` count
-    flash_fwd.cu's and flash_bwd.cu's kernels alone, and the LM-head CE's
+    counters of every route less the wgmma route's and the fp32 FFMA
+    route's (``flash_bwd_f32``, ``flash_bwd_f32_dkdv``), so that
+    ``flash_fwd``, ``flash_bwd``, ``flash_bwd_dkdv`` and ``flash_bwd_dq``
+    count flash_fwd.cu's and flash_bwd.cu's own kernels alone, and the
+    LM-head CE's
     less the fp32 route's, so that ``lm_head_ce_fwd``/``_bwd`` count the
     wgmma route's (``lm_head_ce_sm90.cu``) and ``*_f32`` the fp32 route's
     (``lm_head_ce.cu``)."""
@@ -1772,8 +1931,9 @@ def read_counters():
     out["lm_head_ce_fwd"] -= out["lm_head_ce_fwd_f32"]
     out["lm_head_ce_bwd"] -= out["lm_head_ce_bwd_f32"]
     out["flash_fwd"] -= out["flash_fwd_sm90"]
-    out["flash_bwd"] -= out["flash_bwd_fused_sm90"]
-    out["flash_bwd_dkdv"] -= out["flash_bwd_dkdv_sm90"]
+    out["flash_bwd"] -= out["flash_bwd_fused_sm90"] + out["flash_bwd_f32"]
+    out["flash_bwd_dkdv"] -= out["flash_bwd_dkdv_sm90"] + \
+        out["flash_bwd_f32_dkdv"]
     out["flash_bwd_dq"] -= out["flash_bwd_dq_sm90"]
     return out
 
@@ -1973,6 +2133,7 @@ TRAIN_PER_STEP = {"flash_fwd": 0, "flash_fwd_sm90": 12, "flash_bwd": 0,
                   "paged_decode_fp8": 0, "fp8_matmul": 0,
                   "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
                   "flash_bwd_dkdv_sm90": 0, "flash_bwd_dq_sm90": 0,
+                  "flash_bwd_f32": 0, "flash_bwd_f32_dkdv": 0,
                   "xentropy_fwd": 0,
                   "xentropy_bwd": 0, "multi_tensor_update": 0,
                   "multi_tensor_update_lamb": 0}
@@ -2855,8 +3016,10 @@ def run_spatial_path(torch):
 
 
 O0_LAYERS, O0_B, O0_S, O0_STEPS = 2, 8, 1024, 3
+# every flash backward on the fp32 FFMA route (csrc/flash_bwd_f32.cuh)
 O0_PER_STEP = {**{k: 0 for k in TRAIN_PER_STEP}, "flash_fwd": O0_LAYERS,
-               "flash_bwd": O0_LAYERS, "layer_norm_fwd": 2 * O0_LAYERS + 1,
+               "flash_bwd_f32": O0_LAYERS,
+               "layer_norm_fwd": 2 * O0_LAYERS + 1,
                "layer_norm_bwd": 2 * O0_LAYERS + 1, "lm_head_ce_fwd_f32": 1,
                "lm_head_ce_bwd_f32": 1}
 # the O0 step against GPT.loss(reference=True), both fp32 on the same
@@ -2937,16 +3100,18 @@ def run_o0_path(torch):
 
 
 O0_LONG_S, O0_LONG_B, O0_LONG_STEPS = 4096, 2, 2
-# fp32 past the gate: the split on flash_bwd.cu's route
-O0_LONG_PER_STEP = {**O0_PER_STEP, "flash_bwd": 0,
-                    "flash_bwd_dkdv": O0_LAYERS, "flash_bwd_dq": O0_LAYERS}
+# fp32 past the gate: the split, dk/dv on the FFMA route, dq on flash_bwd.cu
+O0_LONG_PER_STEP = {**O0_PER_STEP, "flash_bwd_f32": 0,
+                    "flash_bwd_f32_dkdv": O0_LAYERS,
+                    "flash_bwd_dq": O0_LAYERS}
 
 
 def run_o0_long_path(torch):
     """The O0 GPT (2 layers at full width, fp32) at b2 s4096, past the
     flash backward's gate: a warm-up, then 2 counted ``FusedAdam`` steps
-    through ``amp.make_train_step``, every split launch on flash_bwd.cu's
-    route (fp32 takes no wgmma)."""
+    through ``amp.make_train_step``, every split's dk/dv on the FFMA route
+    and its dq on flash_bwd.cu's (fp32 takes no wgmma), and one step under
+    ``torch.profiler``."""
     import dataclasses
     from apex_tpu_torch import amp
     from apex_tpu_torch.models.gpt import GPT
@@ -2978,8 +3143,15 @@ def run_o0_long_path(torch):
         check(launches[k] == per * O0_LONG_STEPS,
               f"O0 s{O0_LONG_S} {k}: {launches[k]} launches, expected "
               f"{per * O0_LONG_STEPS}")
+    box = [state, sstate]
+
+    def one():
+        _, box[0], box[1], _ = step(model, box[0], box[1], ids, labels)
+
+    # one more step under torch.profiler: device time by kernel class
     return dict(layers=O0_LAYERS, batch=O0_LONG_B, seq=O0_LONG_S,
-                dtype="float32", losses=losses, step_ms_all=times,
+                dtype="float32", trace=_profile(torch, one, 1),
+                losses=losses, step_ms_all=times,
                 step_ms_median=float(np.median(times)), launches=launches)
 
 
@@ -3312,7 +3484,9 @@ def run_dflamb_path(torch, cfg):
 
 
 _PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_kernel", "flash_dkdv_kernel",
-                 "flash_dq_kernel", "flash_fwd_sm90", "flash_bwd_fused_sm90",
+                 "flash_dq_kernel", "flash_bwd_f32_kernel",
+                 "flash_dkdv_f32_kernel", "flash_f32_prologue_kernel",
+                 "flash_fwd_sm90", "flash_bwd_fused_sm90",
                  "flash_dkdv_sm90", "flash_dq_sm90",
                  "paged_decode_kernel",
                  "_ln_fwd_body", "_ln_bwd_body", "_ce_fwd_body",
@@ -3470,11 +3644,13 @@ def main() -> int:
     kernels = [*check_flash(torch, timer), check_paged(torch, timer),
                check_paged_fp8(torch, timer), check_fp8_matmul(torch, timer),
                check_layer_norm(torch, timer),
-               *check_flash_bwd(torch, timer),
+               check_flash_bwd(torch, timer),
+               *check_flash_f32(torch, timer, split=False),
                check_layer_norm_bwd(torch, timer),
                *check_lm_head_ce(torch, timer),
                *check_lm_head_ce_f32(torch, timer),
                *check_flash_split(torch, timer),
+               *check_flash_f32(torch, timer, split=True),
                *check_xentropy(torch, timer),
                check_multi_tensor_update(torch, timer),
                check_vpu_probe(torch, timer), check_bottleneck(torch, timer)]
@@ -3484,10 +3660,11 @@ def main() -> int:
             f"bound {kr['bound_ms']:.4f} ({kr['bound_by']}) "
             f"library {kr['library_ms']}")
         for extra in ("device_launches_per_call", "split_ms", "tflops",
+                      "shuffle_kernel_ms", "checked",
                       "single_pass_ms", "b8_s1024", "registers",
                       "as_called_ms", "ms_by_block_rows", "long_shape",
                       "delta_fold_max_abs_err", "by_shape",
-                      "train_shape", "lamb_ms", "checked", "by_op",
+                      "train_shape", "lamb_ms", "by_op",
                       "cudnn_composition_max_abs_err"):
             if extra in kr:
                 log(f"  {kr['name']} {extra}: {json.dumps(kr[extra])}")

@@ -35,6 +35,15 @@ its gradients within two ulps of the logits' dtype plus 1e-6 of the
 largest. The fused multi-tensor optimizer update (B13) is bitwise its
 plain version in every mode, at ragged sizes and under a set skip flag.
 
+The fp32 backward's FFMA route (``csrc/flash_bwd_f32.cuh``: the single
+pass and the split's dk/dv at kernel head dims 64 and 128) is held within
+1e-4 of the plain backward (fp32 on both sides, sums in another order,
+``__expf``) over ragged s, sq != sk, rows with no key, padded head dims,
+segment padding (its dq exactly zero) and non-causal masks; dq, dk and dv
+bitwise on a rerun and for one batch alone; and an fp32 GPT's autograd
+runs every flash backward on it (the split's dq on flash_bwd.cu's dq
+kernel), its loss within 1e-5 and its gradients 1e-4 of the plain path.
+
 The wgmma/TMA forward and single pass (``csrc/flash_fwd_sm90.cu``,
 ``flash_bwd_fused_sm90``) are held at the same tolerances, over ragged s,
 sq != sk, segment padding, d 64/128 and padded, bf16 and fp16; the forward
@@ -1551,3 +1560,116 @@ def test_fp8_matmul_decode_rows_bitwise_independent_and_rerun(gen, K, N):
         assert torch.equal(y1[0], y[r])
     y3 = mm.fp8_dequant_matmul(x[2:5].contiguous(), q, scale)
     assert torch.equal(y3, y[2:5])
+
+
+# ---------------------------------------------------------------------------
+# the fp32 backward's FFMA route (csrc/flash_bwd_f32.cuh): B2 and B3
+# ---------------------------------------------------------------------------
+
+def _f32_seg(b, s, pad):
+    sid = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+    sid[:, s // 2:] = 1
+    if pad:
+        sid[:, s - pad:] = -1
+    return sid
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,seg", [
+    (1, 1, 1, 5, 64, True, False),           # one query row
+    (2, 3, 65, 65, 64, True, True),
+    (1, 2, 127, 129, 64, True, False),       # about the 64-row tiles
+    (1, 2, 129, 127, 128, True, True),
+    (1, 2, 17, 300, 64, True, False),        # sq < sk: end-aligned causal
+    (1, 2, 300, 90, 64, True, True),         # sq > sk: rows with no key
+    (2, 2, 1000, 1003, 64, True, True),      # ragged, sq != sk
+    (1, 2, 257, 257, 40, True, False),       # d 40 -> 64
+    (1, 2, 300, 300, 80, False, True),       # d 80 -> 128, non-causal
+    (2, 2, 200, 77, 64, False, True),
+    (1, 1, 2049, 2049, 64, True, False),     # past the gate
+    (1, 1, 4097, 4100, 128, True, True),
+    (2048, 17, 8, 8, 64, True, False),       # b h past 65535 / 2
+])
+@pytest.mark.parametrize("split", [False, True])
+def test_flash_bwd_f32_route_matches_plain(gen, b, h, sq, sk, d, causal,
+                                           seg, split):
+    """fp32 operands at kernel head dims 64 and 128 take the FFMA route
+    (the single pass, or the split's dk/dv beside flash_bwd.cu's dq
+    kernel): within 1e-4 of the plain backward; padding rows' dq exactly
+    zero."""
+    f32 = torch.float32
+    q, do = _rand(gen, b, h, sq, d, dtype=f32), _rand(gen, b, h, sq, d,
+                                                      dtype=f32)
+    k, v = _rand(gen, b, h, sk, d, dtype=f32), _rand(gen, b, h, sk, d,
+                                                     dtype=f32)
+    sid_q = _f32_seg(b, sq, min(20, sq // 4)) if seg else None
+    sid_kv = _f32_seg(b, sk, 0) if seg else None
+    out, lse = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal)
+    f = fa.flash_attention_bwd
+    n0 = (f.f32_launches, f.f32_dkdv_launches, f.dq_launches)
+    grads = fa._flash_bwd_cuda(q, k, v, out, lse, do, sid_q, sid_kv, causal,
+                               d ** -0.5, split=split)
+    torch.cuda.synchronize()
+    assert (f.f32_launches - n0[0], f.f32_dkdv_launches - n0[1],
+            f.dq_launches - n0[2]) == ((0, 1, 1) if split else (1, 0, 0))
+    refs = fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, do, causal=causal, segment_ids_q=sid_q,
+        segment_ids_kv=sid_kv)
+    for g, r in zip(grads, refs):
+        assert g.dtype == f32 and g.shape == r.shape
+        _close_fp32(g, r)
+    if seg:
+        assert not bool(grads[0][(sid_q < 0)[:, None, :].expand(
+            b, h, sq)].any())
+
+
+@pytest.mark.parametrize("d,split", [(64, False), (128, False), (64, True),
+                                     (128, True)])
+def test_flash_bwd_f32_route_is_bitwise_on_a_rerun_and_alone(gen, d, split):
+    """dq, dk and dv are the same bits on a rerun (every product an fmaf in
+    a fixed order, dq summed in a fixed order of key blocks) and, for one
+    batch, the same bits run alone."""
+    f32 = torch.float32
+    b, h, s = 3, 2, 700
+    q, k, v, do = (_rand(gen, b, h, s, d, dtype=f32) for _ in range(4))
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    args = (None, None, True, d ** -0.5)
+    got = fa._flash_bwd_cuda(q, k, v, out, lse, do, *args, split=split)
+    again = fa._flash_bwd_cuda(q, k, v, out, lse, do, *args, split=split)
+    one = fa._flash_bwd_cuda(q[1:2], k[1:2], v[1:2], out[1:2], lse[1:2],
+                             do[1:2], *args, split=split)
+    torch.cuda.synchronize()
+    for g, a, o in zip(got, again, one):
+        assert torch.equal(g, a)
+        assert torch.equal(g[1:2], o)
+
+
+@pytest.mark.parametrize("s", [1024, 4096])
+def test_o0_gpt_autograd_runs_every_flash_backward_on_the_f32_route(gen, s):
+    """An fp32 GPT (2 layers, h256, 4 heads: head dim 64) at s1024 (the
+    single pass) and s4096 (past the gate: the split): every flash
+    backward launch takes the FFMA route (the split's dq flash_bwd.cu's),
+    none flash_bwd.cu's single pass or dk/dv; loss within 1e-5 and
+    gradients within 1e-4 in relative norm of the plain versions."""
+    from apex_tpu_torch.models.gpt import GPT, GPTConfig
+    cfg = GPTConfig(vocab_size=512, max_seq_len=s, hidden_size=256,
+                    num_layers=2, num_heads=4, dtype=torch.float32)
+    model = GPT.init_params(cfg, torch.Generator().manual_seed(0))
+    ids = torch.randint(0, 512, (8192 // s, s), generator=gen, device="cuda")
+    labels = torch.roll(ids, -1, 1)
+    params = [p for _, p in model.named_parameters()]
+    f = fa.flash_attention_bwd
+    names = ("launches", "f32_launches", "dkdv_launches",
+             "f32_dkdv_launches", "dq_launches", "wgmma_launches")
+    n0 = [getattr(f, n) for n in names]
+    loss = model.loss(ids, labels)
+    grads = torch.autograd.grad(loss, params)
+    torch.cuda.synchronize()
+    moved = [getattr(f, n) - a for n, a in zip(names, n0)]
+    want = [0, 0, 2, 2, 2, 0] if s == 4096 else [2, 2, 0, 0, 0, 0]
+    assert moved == want, moved
+    ref_loss = model.loss(ids, labels, reference=True)
+    refs = torch.autograd.grad(ref_loss, params)
+    assert abs(float(loss) - float(ref_loss)) <= 1e-5 * float(ref_loss)
+    for g, r in zip(grads, refs):
+        rel = float((g - r).norm() / r.norm().clamp_min(1e-30))
+        assert rel <= 1e-4, rel
