@@ -28,11 +28,11 @@
 // q's before dk, and to q's then k's (single pass) or to k's (the split's
 // dq kernel) before dq. Head dims 32, 64, 128, 256 and 512 are
 // instantiated, for every dtype (the wrapper zero-pads other d). The fp32
-// build also holds the single pass and the dk/dv kernel of
-// flash_bwd_f32.cuh (an exact-FFMA core, behind apex_flash_bwd_f32 and
-// apex_flash_bwd_f32_dkdv): the wrapper sends fp32 operands at head dims
-// 64 and 128 that round nothing there, and the kernels below take the
-// rest of fp32 (d 32/256/512, mixed operands) and the dq kernel.
+// build also holds the kernels of flash_bwd_f32.cuh (an exact-FFMA core:
+// the single pass, the split's dk/dv and its dq, behind apex_flash_bwd_f32,
+// apex_flash_bwd_f32_dkdv and apex_flash_bwd_f32_dq): the wrapper sends
+// fp32 operands at head dims 64 and 128 that round nothing there, and the
+// kernels below take the rest of fp32 (d 32/256/512, mixed operands).
 //
 // Bounds on the H100, per live (q, k) pair at head dim d: the single pass
 // does five products of 2 * d flops (s, dp, dv, dk, dq) — 42.9 GFLOP at the
@@ -899,6 +899,50 @@ extern "C" int apex_flash_bwd_f32_dkdv(const void* q, const void* k,
   return f32_dispatch<false>(q, k, v, dout, out, lse, delta, sid_q,
                              sid_kv, ws, nullptr, nullptr, dk, dv, b, h, sq,
                              sk, d, causal, scale, stream);
+#else
+  return cudaErrorInvalidValue;
+#endif
+}
+
+// The split's dq half on the same route: dq [b,h,sq,d] fp32 (every
+// element written, times scale); delta read (the dk/dv call's fold wrote
+// it); ws as above: with `transposed` non-zero it already holds q and dout
+// transposed (the dk/dv call's prologue, on the same q and dout), else
+// this call's prologue writes them first.
+extern "C" int apex_flash_bwd_f32_dq(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const void* lse, const void* delta,
+                                     const void* sid_q, const void* sid_kv,
+                                     void* ws, int transposed, void* dq,
+                                     int b, int h, int sq, int sk, int d,
+                                     int causal, float scale, void* stream) {
+#if APEX_HAS_DTYPE(2)
+  if (b <= 0 || h <= 0 || sq <= 0) return cudaSuccess;
+  fa32::Params p{};
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.sid_q = static_cast<const int32_t*>(sid_q);
+  p.sid_kv = static_cast<const int32_t*>(sid_kv);
+  p.h = h;
+  p.sq = sq;
+  p.sk = sk < 0 ? 0 : sk;
+  p.causal = causal;
+  p.scale = scale;
+  const float* qf = static_cast<const float*>(q);
+  const float* df = static_cast<const float*>(dout);
+  float* wf = static_cast<float*>(ws);
+  float* out = static_cast<float*>(dq);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64:
+      return fa32::launch_dq<64>(qf, df, wf, transposed != 0, p, out, b, st);
+    case 128:
+      return fa32::launch_dq<128>(qf, df, wf, transposed != 0, p, out, b,
+                                  st);
+    default: return cudaErrorInvalidValue;
+  }
 #else
   return cudaErrorInvalidValue;
 #endif

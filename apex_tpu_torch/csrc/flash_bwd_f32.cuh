@@ -1,14 +1,17 @@
 // Flash-attention backward for fp32 operands (O0) on the CUDA cores of
-// Hopper (sm_90a): the key-side kernels of flash_bwd.cu's fp32 route at
-// head dims 64 and 128, on the register-blocked FFMA form of
-// simt_f32.cuh. Included by flash_bwd.cu and built into its fp32 target.
+// Hopper (sm_90a): the kernels of flash_bwd.cu's fp32 route at head dims
+// 64 and 128, on the register-blocked FFMA form of simt_f32.cuh. Included
+// by flash_bwd.cu and built into its fp32 target.
 //
 // - flash_bwd_f32_kernel replaces `_bwd_fused_kernel`
 //   (apex_tpu/ops/flash_attention.py:604, launched by `_flash_bwd_impl`
 //   :787), the single pass: dk and dv, and each key block's share of dq
 //   added into a zeroed fp32 workspace in a fixed order (turns.cuh);
 // - flash_dkdv_f32_kernel replaces `_dkdv_kernel` (:558, launched at
-//   :805), the split's dk/dv half.
+//   :805), the split's dk/dv half;
+// - flash_dq_f32_kernel replaces `_dq_kernel` (:671, launched at :820),
+//   the split's dq half: a query-side block (its design below, before the
+//   kernel).
 //
 // Numerics: every product is an fmaf of fp32 operands, summed in a fixed
 // k order (no TF32, no tensor core): dk, dv and dq are the same bits on
@@ -24,12 +27,12 @@
 // in the single pass (S, dP, dV, dK, dQ: 0.642 ms at b8 h16 s1024 d64),
 // four in dk/dv (2.05 ms at b2 h16 s4096 d64).
 //
-// Design. A block of 256 threads owns BN keys (128 at d 64, 64 at d 128,
-// where two [BN, 128] accumulators a lane would not fit beside the score
-// tiles) of one (batch, head) and walks the query tiles of 64 rows that
-// reach them. Per tile, with the products in simt_f32.cuh's form (a lane
-// accumulates an outer product of a float4-loaded column of A and one of
-// B for every k, in k order):
+// Design of the key-side kernels. A block of 256 threads owns BN keys
+// (128 at d 64, 64 at d 128, where two [BN, 128] accumulators a lane
+// would not fit beside the score tiles) of one (batch, head) and walks
+// the query tiles of 64 rows that reach them. Per tile, with the products
+// in simt_f32.cuh's form (a lane accumulates an outer product of a
+// float4-loaded column of A and one of B for every k, in k order):
 //   S^T = K Q^T and dP^T = V dO^T over d (a lane 8 keys x 4 queries at
 //     d 64, 4 x 4 at d 128; K^T and V^T resident, Q^T and dO^T staged);
 //   P^T and dS^T in registers, stored as [query][key] in shared memory;
@@ -578,6 +581,309 @@ cudaError_t launch(const float* q, const float* dout, const float* o,
   if (err != cudaSuccess) return err;
   const int n_kb = (p.sk + Cfg<D>::BN - 1) / Cfg<D>::BN;
   kernel<<<dim3(bh, n_kb), Cfg<D>::THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The split's dq: flash_dq_f32_kernel replaces `_dq_kernel` (:671,
+// launched at :820), a query-side block.
+//
+// Bound: three products of 2 d flops a live pair (S, dP, dQ), 1.54 ms at
+// b2 h16 s4096 d64 causal.
+//
+// A block of 256 threads owns BQ query rows of one (batch, head) (128 at
+// d 64, 64 at d 128) and streams the key tiles of 64 that reach them
+// through a cp.async ring (3 stages at d 64, 2 at d 128: shared memory).
+// Q^T and dO^T of its rows are resident: the [b h, D, sqp] copies the
+// split's dk/dv prologue wrote (called alone, the call's own prologue
+// writes them). Per key tile, in simt_f32.cuh's form C = A^T B:
+//   S = Q K^T and dP = dO V^T over d: A = Q^T, dO^T (k-row by k-row);
+//     B = K, V read "K-major" from their own [key][d] tiles, a float4
+//     along d for each of a lane's strided keys (lx + 8 j; rows padded to
+//     an odd count of 16-byte granules, so a quarter-warp's 8 float4s hit
+//     8 bank groups);
+//   dS = P o (dP - delta), P = exp(S scale - lse) where the mask holds, in
+//     registers, stored [key][query] (rows of odd granule counts: the 8
+//     keys of a quarter-warp's stores fall in 8 bank groups);
+//   dQ += dS K over the tile's keys: A = dS [key][query], B = K [key][d]
+//     in its own layout (MN-major, k = key).
+// So K and V are never transposed. A warp owns 16 QI query rows and half
+// of the tile's keys (S, dP) or half of dq's columns (dQ): the two warps
+// of a warp row exchange dS through a named barrier of 64 threads. dq is
+// written once, from registers, times scale: no atomics, no turns, the
+// same bits on every run. Under a causal mask a warp row skips the key
+// tiles its rows see no key of. The grid is (b h, query tile), the query
+// tiles in reverse under a causal mask: each round of b h blocks walks one
+// length of keys, the longest first. 8 warps of up to 255 registers and
+// 202 KB (d 64) or 217.5 KB (d 128) of shared memory: one block an SM
+// (4-warp blocks of 32-key tiles, two an SM, were slower).
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct DqCfg {
+  static_assert(D == 64 || D == 128, "head dims 64 and 128");
+  static constexpr int THREADS = 256;   // 4 warp rows x 2 warps
+  static constexpr int BQ = D == 64 ? 128 : 64;   // resident query rows
+  static constexpr int BN = 64;                   // keys a streamed tile
+  static constexpr int STAGES = D == 64 ? 3 : 2;
+  static constexpr int QI = BQ / 64;   // a lane's runs of 4 query rows
+  static constexpr int KJ = 4;         // a lane's keys of S, dP: lx + 8 j
+  static constexpr int CJ = D / 64;    // a lane's runs of 4 dq columns
+  static constexpr int LDQ = BQ + 4;   // Q^T, dO^T, dS rows: odd granules
+  static constexpr int LDK = D + 4;    // K, V rows
+  static constexpr int QT = D * LDQ;   // floats of Q^T (dO^T)
+  static constexpr int KV = BN * LDK;  // floats of a K (V) tile
+  static constexpr int DS = BN * LDQ;  // floats of dS
+  static constexpr size_t SMEM_BYTES =
+      (size_t)(2 * QT + STAGES * 2 * KV + DS) * 4 + (size_t)STAGES * BN * 4;
+};
+
+// the threads of warp row `row` (two warps) meet: named barrier 1 + row
+__device__ __forceinline__ void pair_sync(int row) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + row) : "memory");
+}
+
+template <int D>
+__global__ void __launch_bounds__(DqCfg<D>::THREADS, 1)
+flash_dq_f32_kernel(const Params p, float* __restrict__ dq) {
+  using C = DqCfg<D>;
+  constexpr int BQ = C::BQ, BN = C::BN, QI = C::QI, KJ = C::KJ, CJ = C::CJ;
+  constexpr int LDQ = C::LDQ, LDK = C::LDK, STAGES = C::STAGES;
+  constexpr int THREADS = C::THREADS;
+  extern __shared__ __align__(16) float smem[];
+  float* sQt = smem;                          // [D][LDQ]
+  float* sDt = sQt + C::QT;
+  float* sKV = sDt + C::QT;                   // stage s: K, then V
+  float* sdS = sKV + STAGES * 2 * C::KV;      // [BN][LDQ]
+  int* sSid = reinterpret_cast<int*>(sdS + C::DS);   // [STAGES][BN]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ly = lane / 8, lx = lane % 8;
+  const int wq = warp / 2, wk = warp % 2;
+  const long bh = blockIdx.x;
+  const int bi = (int)(bh / p.h);
+  const int sq = p.sq, sk = p.sk, off = sk - sq;
+  const int n_qt = gridDim.y;
+  const int qt = p.causal ? n_qt - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const int q0 = qt * BQ;
+  const bool seg = p.sid_q != nullptr;
+  const int n_kt = (sk + BN - 1) / BN;
+  int kt_end = n_kt;
+  if (p.causal) {   // the tile's last row's last key
+    const int last = min(sq - 1, q0 + BQ - 1) + off;
+    kt_end = last < 0 ? 0 : min(n_kt, last / BN + 1);
+  }
+
+  // lane maps: query rows (S, dP and dQ), keys (S, dP), dq columns
+  const int qw = wq * 16 * QI + 4 * ly;   // + 16 i + 0..3
+  const int kw = wk * 8 * KJ + lx;        // + 8 j
+  const int cw = wk * 32 * CJ + 4 * lx;   // + 32 j + 0..3
+
+  auto load_kv = [&](int kt, int stage) {
+    float* sk_ = sKV + stage * 2 * C::KV;
+    float* sv_ = sk_ + C::KV;
+    const int n0 = kt * BN;
+#pragma unroll
+    for (int i = 0; i < BN * (D / 4) / THREADS; ++i) {
+      const int c = tid + THREADS * i;
+      const int r = c / (D / 4), col = 4 * (c % (D / 4));
+      const bool ok = n0 + r < sk;
+      const long g = (bh * sk + n0 + r) * D + col;
+      simt::copy16(sk_ + r * LDK + col, ok ? p.k + g : p.k, ok);
+      simt::copy16(sv_ + r * LDK + col, ok ? p.v + g : p.v, ok);
+    }
+    if (seg && tid < BN) {
+      const bool ok = n0 + tid < sk;
+      simt::copy4(sSid + stage * BN + tid,
+            ok ? p.sid_kv + (long)bi * sk + n0 + tid : p.sid_kv, ok);
+    }
+  };
+
+  // group 0: Q^T and dO^T of the block's rows (zeros past sqp) and the
+  // first key tile; then the ring's other stages but one
+  if (kt_end > 0) {
+    const float* qtb = p.qt + bh * D * p.sqp;
+    const float* dtb = p.dot + bh * D * p.sqp;
+#pragma unroll
+    for (int i = 0; i < D * (BQ / 4) / THREADS; ++i) {
+      const int c = tid + THREADS * i;
+      const int r = c / (BQ / 4), col = 4 * (c % (BQ / 4));
+      const bool ok = q0 + col < p.sqp;
+      const long g = (long)r * p.sqp + q0 + col;
+      simt::copy16(sQt + r * LDQ + col, ok ? qtb + g : qtb, ok);
+      simt::copy16(sDt + r * LDQ + col, ok ? dtb + g : dtb, ok);
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < kt_end) load_kv(s, s);
+    simt::commit();
+  }
+
+  // the lane's query rows: lse, delta, segment ids
+  float lse_r[4 * QI], dl_r[4 * QI];
+  int sid_r[4 * QI];
+#pragma unroll
+  for (int r = 0; r < 4 * QI; ++r) {
+    const int qr = q0 + qw + 16 * (r / 4) + r % 4;
+    const bool in = qr < sq;
+    lse_r[r] = in ? __ldg(p.lse + bh * sq + qr) : 0.f;
+    dl_r[r] = in ? __ldg(p.delta + bh * sq + qr) : 0.f;
+    sid_r[r] = (seg && in) ? __ldg(p.sid_q + (long)bi * sq + qr) : -1;
+  }
+
+  float dqa[4 * QI][4 * CJ];
+#pragma unroll
+  for (int r = 0; r < 4 * QI; ++r)
+#pragma unroll
+    for (int c = 0; c < 4 * CJ; ++c) dqa[r][c] = 0.f;
+
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int stage = kt % STAGES;
+    simt::wait_groups<STAGES - 2>();
+    __syncthreads();   // the tile is in; every thread is done with kt - 1
+    {
+      const int nxt = kt + STAGES - 1;
+      if (nxt < kt_end) load_kv(nxt, nxt % STAGES);
+      simt::commit();
+    }
+    const int n0 = kt * BN;
+    // under a causal mask a warp row whose rows see none of the tile's
+    // keys skips it (exactly: its dS would be 0)
+    if (p.causal && n0 > q0 + (wq + 1) * 16 * QI - 1 + off) continue;
+    const float* sK = sKV + stage * 2 * C::KV;
+    const float* sV = sK + C::KV;
+
+    // ---- S = Q K^T and dP = dO V^T over d
+    float s[4 * QI][KJ], dp[4 * QI][KJ];
+#pragma unroll
+    for (int r = 0; r < 4 * QI; ++r)
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) s[r][j] = dp[r][j] = 0.f;
+#pragma unroll
+    for (int k4 = 0; k4 < D / 4; ++k4) {
+      float4 kb[KJ], vb[KJ];
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        kb[j] = *reinterpret_cast<const float4*>(sK + (kw + 8 * j) * LDK +
+                                                 4 * k4);
+        vb[j] = *reinterpret_cast<const float4*>(sV + (kw + 8 * j) * LDK +
+                                                 4 * k4);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kk = 4 * k4 + e;
+        float qa[4 * QI], da[4 * QI];
+#pragma unroll
+        for (int i = 0; i < QI; ++i) {
+          const float4 a =
+              *reinterpret_cast<const float4*>(sQt + kk * LDQ + qw + 16 * i);
+          const float4 b =
+              *reinterpret_cast<const float4*>(sDt + kk * LDQ + qw + 16 * i);
+          qa[4 * i] = a.x; qa[4 * i + 1] = a.y;
+          qa[4 * i + 2] = a.z; qa[4 * i + 3] = a.w;
+          da[4 * i] = b.x; da[4 * i + 1] = b.y;
+          da[4 * i + 2] = b.z; da[4 * i + 3] = b.w;
+        }
+#pragma unroll
+        for (int r = 0; r < 4 * QI; ++r)
+#pragma unroll
+          for (int j = 0; j < KJ; ++j) {
+            s[r][j] = fmaf(qa[r], at(kb[j], e), s[r][j]);
+            dp[r][j] = fmaf(da[r], at(vb[j], e), dp[r][j]);
+          }
+      }
+    }
+
+    // ---- mask, p = exp(s * scale - lse), ds = p * (dp - delta); stored
+    // as [key][query]
+#pragma unroll
+    for (int r = 0; r < 4 * QI; ++r) {
+      const int qr = q0 + qw + 16 * (r / 4) + r % 4;
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        const int key = n0 + kw + 8 * j;
+        bool ok = qr < sq && key < sk && (!p.causal || key <= qr + off);
+        if (seg)
+          ok = ok && sid_r[r] >= 0 &&
+               sid_r[r] == sSid[stage * BN + kw + 8 * j];
+        const float pv = ok ? __expf(s[r][j] * p.scale - lse_r[r]) : 0.f;
+        dp[r][j] = pv * (dp[r][j] - dl_r[r]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < KJ; ++j)
+#pragma unroll
+      for (int i = 0; i < QI; ++i)
+        *reinterpret_cast<float4*>(sdS + (kw + 8 * j) * LDQ + qw + 16 * i) =
+            make_float4(dp[4 * i][j], dp[4 * i + 1][j], dp[4 * i + 2][j],
+                        dp[4 * i + 3][j]);
+    pair_sync(wq);   // the warp row's dS over all BN keys is in
+
+    // ---- dQ += dS K over the tile's keys (both k-row by k-row)
+#pragma unroll 4
+    for (int kk = 0; kk < BN; ++kk) {
+      float4 a[QI], b[CJ];
+#pragma unroll
+      for (int i = 0; i < QI; ++i)
+        a[i] = *reinterpret_cast<const float4*>(sdS + kk * LDQ + qw + 16 * i);
+#pragma unroll
+      for (int j = 0; j < CJ; ++j)
+        b[j] = *reinterpret_cast<const float4*>(sK + kk * LDK + cw + 32 * j);
+#pragma unroll
+      for (int r = 0; r < 4 * QI; ++r)
+#pragma unroll
+        for (int c = 0; c < 4 * CJ; ++c)
+          dqa[r][c] = fmaf(at(a[r / 4], r % 4), at(b[c / 4], c % 4),
+                           dqa[r][c]);
+    }
+  }
+  simt::wait_groups<0>();
+
+  // ---- finish: dq (scaled) of the lane's rows and columns; rows no key
+  // reaches are zeros
+#pragma unroll
+  for (int r = 0; r < 4 * QI; ++r) {
+    const int qr = q0 + qw + 16 * (r / 4) + r % 4;
+    if (qr < sq) {
+      float* row = dq + (bh * sq + qr) * D + cw;
+#pragma unroll
+      for (int j = 0; j < CJ; ++j)
+        *reinterpret_cast<float4*>(row + 32 * j) = make_float4(
+            dqa[r][4 * j] * p.scale, dqa[r][4 * j + 1] * p.scale,
+            dqa[r][4 * j + 2] * p.scale, dqa[r][4 * j + 3] * p.scale);
+    }
+  }
+}
+
+// The split's dq: given `transposed`, ws already holds q^T and dO^T (the
+// dk/dv call's prologue wrote them); else this call's prologue writes
+// them (no delta: it is read). Then flash_dq_f32_kernel over grid (b h,
+// query tiles).
+template <int D>
+cudaError_t launch_dq(const float* q, const float* dout, float* ws,
+                      bool transposed, Params p, float* dq, int b,
+                      cudaStream_t stream) {
+  using C = DqCfg<D>;
+  const int bh = b * p.h;
+  p.sqp = (p.sq + 3) & ~3;
+  p.qt = ws;
+  p.dot = ws + (long)bh * D * p.sqp;
+  if (!transposed) {
+    flash_f32_prologue_kernel<D><<<dim3(2 * bh, (p.sqp + 63) / 64), 256,
+                                   0, stream>>>(
+        q, dout, nullptr, const_cast<float*>(p.qt),
+        const_cast<float*>(p.dot), nullptr, nullptr, 0, bh, p.sq, p.sqp);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_dq_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)C::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (p.sq + C::BQ - 1) / C::BQ;
+  flash_dq_f32_kernel<D><<<dim3(bh, n_qt), C::THREADS, C::SMEM_BYTES,
+                           stream>>>(p, dq);
   return cudaGetLastError();
 }
 

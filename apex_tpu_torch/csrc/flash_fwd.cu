@@ -26,7 +26,11 @@
 // its own latency there. The online softmax keeps the [sq, sk] scores out of
 // HBM, so the bytes stay q, k, v, out once each at every length. fp32 runs
 // the SIMT product of frag.cuh (exact fp32 products, ~1/30 of the bf16
-// rate): it serves O0, where correctness, not speed, is the point.
+// rate) here; the fp32 build also holds flash_fwd_f32.cuh's kernel (an
+// exact-FFMA core, behind apex_flash_fwd_f32), which the wrapper sends
+// fp32 operands at head dims 64 and 128 that round nothing before the PV
+// product, and this kernel keeps the rest of fp32 (d 32/256/512, p
+// rounded to a narrower v).
 //
 // Design. One thread block per (q tile of 64 rows, head, batch, output
 // chunk) with four warps, each owning 16 q rows. The Pallas grid's
@@ -58,6 +62,9 @@
 #include <stdint.h>
 
 #include "frag.cuh"
+#if APEX_HAS_DTYPE(2)
+#include "flash_fwd_f32.cuh"
+#endif
 
 namespace {
 
@@ -433,4 +440,40 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The fp32 exact-FFMA route (flash_fwd_f32.cuh; the fp32 build only,
+// cudaErrorInvalidValue elsewhere and for a head dim other than 64 or
+// 128): fp32 q [b,h,sq,d], k, v [b,h,sk,d]; sid_q [b,sq] and sid_kv
+// [b,sk] int32, or both null; out [b,h,sq,d] fp32 and lse [b,h,sq] fp32
+// (every element written). p is not rounded before the PV product.
+extern "C" int apex_flash_fwd_f32(const void* q, const void* k,
+                                  const void* v, const void* sid_q,
+                                  const void* sid_kv, void* out, void* lse,
+                                  int b, int h, int sq, int sk, int d,
+                                  int causal, float scale, void* stream) {
+#if APEX_HAS_DTYPE(2)
+  if (sq <= 0 || b <= 0 || h <= 0) return cudaSuccess;
+  fwd32::Params p{};
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.sid_q = static_cast<const int32_t*>(sid_q);
+  p.sid_kv = static_cast<const int32_t*>(sid_kv);
+  p.out = static_cast<float*>(out);
+  p.lse = static_cast<float*>(lse);
+  p.h = h;
+  p.sq = sq;
+  p.sk = sk < 0 ? 0 : sk;
+  p.causal = causal;
+  p.scale = scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64: return fwd32::launch<64>(p, b, st);
+    case 128: return fwd32::launch<128>(p, b, st);
+    default: return cudaErrorInvalidValue;
+  }
+#else
+  return cudaErrorInvalidValue;
+#endif
 }

@@ -78,6 +78,14 @@ __device__ __forceinline__ void copy16(float* dst, const float* src,
                "l"(src), "r"(valid ? 16 : 0)
                : "memory");
 }
+// 4 bytes global -> shared, or 4 zero bytes when !valid
+__device__ __forceinline__ void copy4(void* dst, const void* src,
+                                      bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

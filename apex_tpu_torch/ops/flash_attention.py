@@ -21,11 +21,14 @@ Port of ``apex_tpu/ops/flash_attention.py``:
   ``flash_dq_sm90`` of ``csrc/flash_bwd_sm90.cu``, else
   ``flash_dkdv_kernel`` and ``flash_dq_kernel`` of ``csrc/flash_bwd.cu``.
   fp32 operands at kernel head dims 64 and 128 that round nothing below
-  fp32 (:func:`f32_core_route`) take a third route for the single pass and
-  the split's dk/dv: ``flash_bwd_f32_kernel`` and ``flash_dkdv_f32_kernel``
-  of ``csrc/flash_bwd_f32.cuh`` (an exact-FFMA core, built into
-  ``flash_bwd.cu``'s fp32 target); the split's dq stays on
-  ``flash_dq_kernel``. :func:`uses_split_backward` is the gate, computed as the JAX package
+  fp32 take a third route, on exact-FFMA cores built into the fp32
+  targets: the forward ``flash_fwd_f32_kernel`` of
+  ``csrc/flash_fwd_f32.cuh`` (:func:`f32_fwd_route`), and the whole
+  backward (:func:`f32_core_route`) — the single pass, the split's dk/dv
+  and its dq, ``flash_bwd_f32_kernel``, ``flash_dkdv_f32_kernel`` and
+  ``flash_dq_f32_kernel`` of ``csrc/flash_bwd_f32.cuh``, the split's two
+  kernels reading one scratch of q and do transposed.
+  :func:`uses_split_backward` is the gate, computed as the JAX package
   computes it at its default backward blocks, so the two packages route
   the same shapes the same way; the plain backward is the same function
   either way. No route gives way to another: a build or launch error
@@ -39,9 +42,10 @@ Port of ``apex_tpu/ops/flash_attention.py``:
   blocks of one cluster take and merge on chip.
 
 Operands: the kernels take bf16, fp16 or fp32 (fp32 through the SIMT
-product of ``csrc/frag.cuh``, for O0; the backward's fp32 route at head
-dims 64 and 128 on the register-blocked FFMA core of
-``csrc/flash_bwd_f32.cuh``). q, k and v may differ in dtype, as
+product of ``csrc/frag.cuh``, for O0; the fp32 forward and backward at
+kernel head dims 64 and 128 on the register-blocked FFMA cores of
+``csrc/flash_fwd_f32.cuh`` and ``csrc/flash_bwd_f32.cuh``). q, k and v
+may differ in dtype, as
 the JAX kernels take them: the wrappers promote them to their common dtype
 (exact; fp32 for any mix) and the fp32 kernels round where the JAX kernels
 cast to an operand's own dtype (p to v's before the PV product; in the
@@ -65,14 +69,16 @@ a negative segment id is padding — it matches nothing, not even another
 padding id — and its output row is exactly zero; causal attention aligns
 the sequence ends (``causal_offset = sk - sq``).
 
-``flash_attention.launches`` (forward, either route) and
-``.wgmma_launches`` (its wgmma route alone), ``flash_attention_bwd.launches``
+``flash_attention.launches`` (forward, every route),
+``.wgmma_launches`` (its wgmma route alone) and ``.f32_launches`` (its
+FFMA route alone), ``flash_attention_bwd.launches``
 (the single-pass backward, every route), ``.wgmma_launches`` (its wgmma
 route alone) and ``.f32_launches`` (its FFMA route alone),
 ``flash_attention_bwd.dkdv_launches`` and ``.dq_launches`` (the split,
 every route), ``flash_attention_bwd.wgmma_dkdv_launches`` and
 ``.wgmma_dq_launches`` (the split's wgmma route alone),
-``flash_attention_bwd.f32_dkdv_launches`` (its FFMA dk/dv alone), ``paged_decode_attention.launches``
+``flash_attention_bwd.f32_dkdv_launches`` and ``.f32_dq_launches`` (the
+split's FFMA route alone), ``paged_decode_attention.launches``
 (bf16 pool) and ``paged_decode_attention.fp8_launches`` (e4m3 pool) count
 kernel launches (the CPU path does not count).
 """
@@ -360,6 +366,31 @@ def fwd_block_rows(bh: int, sq: int, kd: int, sms: int) -> int:
     return 64 if kd == 64 or bh * -(-sq // 128) < sms else 128
 
 
+# the exact-FFMA forward (csrc/flash_fwd_f32.cuh) and the split's FFMA dq
+# kernel (csrc/flash_bwd_f32.cuh): fp32 operands at these kernel head dims
+_F32_CORE_HEAD_DIMS = (64, 128)
+
+
+def f32_fwd_route(dtype: torch.dtype, kd: int, p_round: int) -> bool:
+    """Whether the forward runs the exact-FFMA kernel of
+    ``csrc/flash_fwd_f32.cuh`` (built into ``flash_fwd.cu``'s fp32
+    target): operands of ``dtype`` fp32 after promotion, kernel head dim
+    ``kd`` 64 or 128, and ``p_round`` (the dtype code p is rounded to
+    before the PV product: v's own) fp32, so nothing is rounded — over a
+    narrower v the JAX kernel rounds p, and fp32 at kernel head dims 32,
+    256 and 512 stays on ``flash_fwd.cu``'s kernel too. The one predicate
+    of the route (:func:`sm90_route` takes bf16 and fp16)."""
+    return (dtype == torch.float32 and kd in _F32_CORE_HEAD_DIMS
+            and p_round == DTYPE_CODES[torch.float32])
+
+
+# apex_flash_fwd_f32(q, k, v, sid_q, sid_kv, out, lse, b, h, sq, sk, d,
+#                    causal, scale, stream): the FFMA route's forward, fp32
+# only (no dtype, no ``p_round``)
+_F32_FWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_void_p]
+
+
 def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
                     block_rows: Optional[int] = None):
     """The forward kernel. ``block_rows`` (the wgmma route only) forces 64
@@ -394,6 +425,7 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
 
     kd = kernel_head_dim(d)
     sm90 = sm90_route(dtype, kd)
+    f32 = f32_fwd_route(dtype, kd, p_round)
     _require(block_rows is None or (sm90 and block_rows in (64, 128)), what,
              "block_rows takes 64 or 128, on the wgmma route only")
     if sm90 and block_rows is None:
@@ -412,6 +444,10 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
             fn = _build.function(_build.dtype_target("flash_fwd_sm90", code),
                                  "apex_flash_fwd_sm90", _SM90_FWD_ARGS)
             err = fn(*args, block_rows, _stream(q))
+        elif f32:
+            fn = _build.function(_build.dtype_target("flash_fwd", code),
+                                 "apex_flash_fwd_f32", _F32_FWD_ARGS)
+            err = fn(*args[:-1], _stream(q))
         else:
             fn = _build.function(_build.dtype_target("flash_fwd", code),
                                  "apex_flash_fwd", _FLASH_ARGS)
@@ -420,6 +456,8 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
         flash_attention.launches += 1
         if sm90:
             flash_attention.wgmma_launches += 1
+        if f32:
+            flash_attention.f32_launches += 1
         return out, lse
 
     out, lse = with_padded_last_dim(launch, kd, (q, k, v), sliced=(0,))
@@ -510,23 +548,22 @@ _SM90_FUSED_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
 
 _TURN_ROWS = 64     # the single pass's query tiles: a turn counter each
 
-# the FFMA route (csrc/flash_bwd_f32.cuh): fp32 operands at these kernel
-# head dims, when the wrapper's roundings (``_mixed_rounds``) round nothing
-_F32_CORE_HEAD_DIMS = (64, 128)
+# the backward's FFMA route (csrc/flash_bwd_f32.cuh) takes those head dims
+# when the wrapper's roundings (``_mixed_rounds``) round nothing
 _NO_ROUNDS = 0x2A       # every field 2: fp32, no rounding (csrc/flash_bwd.cu)
 _F32 = "flash_bwd_f32"  # the FFMA route's name where a route is named
 
 
 def f32_core_route(dtype: torch.dtype, kd: int, rounds: int) -> bool:
-    """Whether the single-pass backward and the split's dk/dv run the
-    exact-FFMA kernels of ``csrc/flash_bwd_f32.cuh`` (built into
-    ``flash_bwd.cu``'s fp32 target): operands of ``dtype`` fp32 after
+    """Whether the backward — the single pass, and the split's dk/dv and
+    dq — runs the exact-FFMA kernels of ``csrc/flash_bwd_f32.cuh`` (built
+    into ``flash_bwd.cu``'s fp32 target): operands of ``dtype`` fp32 after
     promotion, kernel head dim ``kd`` 64 or 128, and ``rounds`` (the
     wrapper's :func:`_mixed_rounds` code) rounding nothing below fp32 —
     operands whose JAX kernels round p or ds to a narrower operand's dtype
     stay on ``csrc/flash_bwd.cu``'s kernels, as fp32 at kernel head dims
-    32, 256 and 512 does. The one predicate of the route; the split's dq
-    kernel is ``flash_bwd.cu``'s for all fp32."""
+    32, 256 and 512 does. The one predicate of the route: the whole fp32
+    backward at those head dims runs on it."""
     return (dtype == torch.float32 and kd in _F32_CORE_HEAD_DIMS
             and rounds == _NO_ROUNDS)
 
@@ -686,8 +723,11 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
             if fold:
                 dq = _flash_dq_cuda(*args, out=out)
                 return (dq, *_flash_dkdv_cuda(*args))
-            dk, dv = _flash_dkdv_cuda(*args, out=out)
-            return _flash_dq_cuda(*args), dk, dv
+            # the FFMA route: the dk/dv call's prologue transposes q and do
+            # into one scratch, which the dq kernel reads after it
+            ws = _f32_transposes(q) if f32_fold else None
+            dk, dv = _flash_dkdv_cuda(*args, out=out, ws=ws)
+            return _flash_dq_cuda(*args, ws=ws), dk, dv
         sm90 = sm90_route(dtype, dp)
         f32 = f32_core_route(dtype, dp, rounds)
         dq_acc, turns = _dq_workspace(q, dp, sm90 or (_F32 if f32
@@ -759,6 +799,12 @@ _F32_BWD_ARGS = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_void_p]
 _F32_DKDV_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_void_p]
+# apex_flash_bwd_f32_dq(q, k, v, do, lse, delta, sid_q, sid_kv, ws,
+#                       transposed, dq, b, h, sq, sk, d, causal, scale,
+#                       stream): the split's FFMA dq; ``transposed`` 1 when
+# ws already holds q and do transposed
+_F32_DQ_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p] + [
+    ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def _f32_transposes(q):
@@ -771,12 +817,13 @@ def _f32_transposes(q):
 
 
 def _f32_call(symbol, q, k, v, do, out, lse, delta, sid_q, sid_kv, causal,
-              scale, outs):
+              scale, outs, ws=None):
     """One C call of the FFMA route (``symbol`` with its argument types)
     on fp32 operands ``_flash_bwd_cuda`` checked: the prologue (the
-    transposes of q and do, and with ``out``, the forward's fp32 output,
-    delta written into ``delta``), then the kernel; ``outs`` the output
-    pointers after the scratch."""
+    transposes of q and do into ``ws``, :func:`_f32_transposes`, allocated
+    here when None; and with ``out``, the forward's fp32 output, delta
+    written into ``delta``), then the kernel; ``outs`` the output pointers
+    after the scratch."""
     b, h, sq, d = q.shape
     _require(out is None or (out.dtype == torch.float32
                              and out.shape == q.shape
@@ -785,7 +832,8 @@ def _f32_call(symbol, q, k, v, do, out, lse, delta, sid_q, sid_kv, causal,
              "output of q's shape")
     name, argtypes = symbol
     fn = _build.function(_build.dtype_target("flash_bwd", 2), name, argtypes)
-    ws = _f32_transposes(q)
+    if ws is None:
+        ws = _f32_transposes(q)
     _build.check(fn(_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(out),
                     _ptr(lse), _ptr(delta), _ptr(sid_q), _ptr(sid_kv),
                     _ptr(ws), *outs,
@@ -828,22 +876,26 @@ def _split_operands(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
 
 
 def _flash_dkdv_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
-                     rounds, out=None):
+                     rounds, out=None, ws=None):
     """The split's dk/dv kernel on operands ``_flash_bwd_cuda`` checked and
     promoted; ``delta`` = rowsum(do * out) fp32 [b, h, sq]. The FFMA
     route's (``flash_dkdv_f32_kernel``) where :func:`f32_core_route`
     holds; there, given ``out`` (the forward's output), the call computes
-    delta and writes it into ``delta`` for the dq kernel after it."""
+    delta and writes it into ``delta`` for the dq kernel after it, and its
+    prologue writes q and do transposed into ``ws``
+    (:func:`_f32_transposes`; allocated here when None), which the dq
+    kernel after it may read (:func:`_flash_dq_cuda`'s ``ws``)."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if f32_core_route(q.dtype, q.shape[-1], rounds):
         _f32_call(("apex_flash_bwd_f32_dkdv", _F32_DKDV_ARGS), q, k, v, do,
                   out, lse, delta, sid_q, sid_kv, causal, scale,
-                  (_ptr(dk), _ptr(dv)))
+                  (_ptr(dk), _ptr(dv)), ws)
         flash_attention_bwd.dkdv_launches += 1
         flash_attention_bwd.f32_dkdv_launches += 1
         return dk, dv
-    _require(out is None, "flash_attention_bwd dk/dv kernel",
-             "only the FFMA route folds delta into the dk/dv call")
+    _require(out is None and ws is None, "flash_attention_bwd dk/dv kernel",
+             "only the FFMA route folds delta into the dk/dv call and "
+             "transposes q and do")
     route, operands, tail = _split_operands(q, k, v, do, lse, delta, sid_q,
                                             sid_kv, causal, scale, rounds)
     sm90 = route == "flash_bwd_sm90"
@@ -860,11 +912,32 @@ def _flash_dkdv_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
 
 
 def _flash_dq_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
-                   rounds, out=None):
+                   rounds, out=None, ws=None):
     """The split's dq kernel, as :func:`_flash_dkdv_cuda`. With ``out``
     (the forward's output, q's dtype; the wgmma route only) the kernel
-    computes delta itself and writes it into ``delta``."""
+    computes delta itself and writes it into ``delta``. The FFMA route's
+    (``flash_dq_f32_kernel``) where :func:`f32_core_route` holds; there
+    ``ws`` is the scratch the dk/dv call before it filled with q and do
+    transposed (the split passes it), or None: this call's own prologue
+    transposes them first."""
     dq = torch.empty_like(q)
+    if f32_core_route(q.dtype, q.shape[-1], rounds):
+        _require(out is None, "flash_attention_bwd dq kernel", "the FFMA "
+                 "route's dq reads delta (the dk/dv call folds it)")
+        b, h, sq, d = q.shape
+        fn = _build.function(_build.dtype_target("flash_bwd", 2),
+                             "apex_flash_bwd_f32_dq", _F32_DQ_ARGS)
+        _build.check(fn(_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse),
+                        _ptr(delta), _ptr(sid_q), _ptr(sid_kv),
+                        _ptr(_f32_transposes(q) if ws is None else ws),
+                        int(ws is not None), _ptr(dq), b, h, sq, k.shape[2],
+                        d, int(bool(causal)), float(scale), _stream(q)),
+                     "flash_attention_bwd apex_flash_bwd_f32_dq")
+        flash_attention_bwd.dq_launches += 1
+        flash_attention_bwd.f32_dq_launches += 1
+        return dq
+    _require(ws is None, "flash_attention_bwd dq kernel",
+             "only the FFMA route reads transposed q and do")
     route, operands, tail = _split_operands(q, k, v, do, lse, delta, sid_q,
                                             sid_kv, causal, scale, rounds)
     sm90 = route == "flash_bwd_sm90"
@@ -925,7 +998,8 @@ def flash_attention_bwd(q, k, v, out, lse, do, segment_ids_q=None,
     ``flash_attention_bwd.launches`` counts single-pass launches
     (``.wgmma_launches`` those on the wgmma route, ``.f32_launches`` those
     on the FFMA route), ``.dkdv_launches`` and ``.dq_launches`` the
-    split's (``.f32_dkdv_launches`` its dk/dv on the FFMA route)."""
+    split's (``.f32_dkdv_launches`` and ``.f32_dq_launches`` those on the
+    FFMA route)."""
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     if check_device_type(q, "flash_attention_bwd") == "cpu":
         return flash_attention_bwd_reference(
@@ -944,6 +1018,7 @@ flash_attention_bwd.wgmma_dkdv_launches = 0
 flash_attention_bwd.wgmma_dq_launches = 0
 flash_attention_bwd.f32_launches = 0
 flash_attention_bwd.f32_dkdv_launches = 0
+flash_attention_bwd.f32_dq_launches = 0
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -1033,6 +1108,7 @@ def flash_attention(q, k, v, segment_ids_q=None, segment_ids_kv=None,
 
 flash_attention.launches = 0
 flash_attention.wgmma_launches = 0
+flash_attention.f32_launches = 0
 
 
 # apex_paged_decode(q, k_pages, v_pages, k_scales, v_scales, block_tables,

@@ -32,16 +32,19 @@ The fp32 (O0) rows, each beside the PyTorch call or composition that
 computes the same function in exact fp32 (TF32 off, float32 matmul
 precision "highest", both recorded): the LM-head CE forward and backward
 at n8192 V32768 h1024 (``F.cross_entropy(F.linear(x, e), t)`` and its
-autograd backward), the flash forward and single pass at b8 h16 s1024 d64
-causal (the single pass also at d128) and the split's two kernels at b2
-h16 s4096 (SDPA forward and backward); the single pass and the split's
-dk/dv of ``csrc/flash_bwd.cu`` (the shuffle-product kernels) through
-their C entries at the same shapes, whichever kernel the checkout routes
-fp32 to, so that a checkout's route is timed beside the kernels every
-version has; and one O0 step of the 2-layer GPT (h1024, V32768, FusedAdam)
-at b8 s1024 and at b2 s4096 under ``torch.profiler``, its device time by
-kernel class and its host-clock time. Times are
-medians of CUDA-event pairs around single launches, the L2 flushed before
+autograd backward), the flash forward at b8 h16 s1024 d64 and d128 and
+b2 h16 s4096 d64 causal, the single pass at b8 h16 s1024 d64 and d128,
+the split's two kernels at b2 h16 s4096 (the dq kernel also as the split
+calls it, on the scratch its dk/dv call transposed q and dO into, where
+the checkout has one) and the split as called (SDPA forward and
+backward); the forward, the single pass and the split's dk/dv and dq of
+``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (the shuffle-product
+kernels) through their C entries at the same shapes, whichever kernel
+the checkout routes fp32 to, so that a checkout's route is timed beside
+the kernels every version has; and one O0 step of the 2-layer GPT
+(h1024, V32768, FusedAdam) at b8 s1024 and at b2 s4096 under
+``torch.profiler``, its device time by kernel class and its host-clock
+time. Times are medians of CUDA-event pairs around single launches, the L2 flushed before
 each. They are device times: a ``torch.cuda._sleep`` queued between the
 flush and the start event keeps the card busy while the host records the
 start event and runs the wrapper, so the pair holds no host time. The
@@ -108,6 +111,8 @@ def _fp32_rows(torch, F, fa, ce, timed, x, e, tgt, dl):
         lambda: fa.flash_attention_fwd(q, k, v, causal=True), iters=5)
     res["library fp32 SDPA fwd b8 s1024"] = timed(lambda: sdpa(q, k, v),
                                                   iters=5)
+    res["flash_fwd.cu fp32 b8 s1024 (C entry)"] = timed(
+        _shuffle_fwd(torch, fa, q, k, v), iters=3)
     res["flash_bwd single fp32 b8 s1024"] = timed(
         lambda: fa._flash_bwd_cuda(q, k, v, out, lse, do, None, None, True,
                                    0.125, split=False), iters=5)
@@ -118,6 +123,13 @@ def _fp32_rows(torch, F, fa, ce, timed, x, e, tgt, dl):
     del q, k, v, do, out, lse
     q, k, v, do = (rnd(8, 16, 1024, 128) for _ in range(4))
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    res["flash_fwd fp32 b8 s1024 d128"] = timed(
+        lambda: fa.flash_attention_fwd(q, k, v, causal=True), iters=5)
+    res["library fp32 SDPA fwd b8 s1024 d128"] = timed(
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               scale=128 ** -0.5), iters=5)
+    res["flash_fwd.cu fp32 b8 s1024 d128 (C entry)"] = timed(
+        _shuffle_fwd(torch, fa, q, k, v), iters=3)
     res["flash_bwd single fp32 b8 s1024 d128"] = timed(
         lambda: fa._flash_bwd_cuda(q, k, v, out, lse, do, None, None, True,
                                    128 ** -0.5, split=False), iters=5)
@@ -128,6 +140,12 @@ def _fp32_rows(torch, F, fa, ce, timed, x, e, tgt, dl):
     del q, k, v, do, out, lse
     q, k, v, do = (rnd(2, 16, 4096, 64) for _ in range(4))
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    res["flash_fwd fp32 b2 s4096"] = timed(
+        lambda: fa.flash_attention_fwd(q, k, v, causal=True), iters=3)
+    res["library fp32 SDPA fwd b2 s4096"] = timed(lambda: sdpa(q, k, v),
+                                                  iters=3)
+    res["flash_fwd.cu fp32 b2 s4096 (C entry)"] = timed(
+        _shuffle_fwd(torch, fa, q, k, v), iters=3)
     delta = (do * out).sum(dim=-1)
     args = (q, k, v, do, lse, delta, None, None, True, 0.125,
             fa._mixed_rounds(q, k, do))
@@ -143,9 +161,44 @@ def _fp32_rows(torch, F, fa, ce, timed, x, e, tgt, dl):
                      args[-1], fa._stream(q)), iters=3)
     res["flash_bwd dq fp32 b2 s4096"] = timed(
         lambda: fa._flash_dq_cuda(*args), iters=3)
+    # the dq kernel as the split calls it: on the scratch its dk/dv call
+    # filled with q and do transposed, where the checkout has one
+    if "ws" in inspect.signature(fa._flash_dq_cuda).parameters:
+        ws = fa._f32_transposes(q)
+        fa._flash_dkdv_cuda(*args, ws=ws)
+        res["flash_bwd dq fp32 b2 s4096 in the split"] = timed(
+            lambda: fa._flash_dq_cuda(*args, ws=ws), iters=3)
+    else:
+        res["flash_bwd dq fp32 b2 s4096 in the split"] = res[
+            "flash_bwd dq fp32 b2 s4096"]
+    dq_old = fa._build.function("flash_bwd@f32", "apex_flash_bwd_dq",
+                                fa._FLASH_DQ_ARGS)
+    dq = torch.empty_like(q)
+    res["flash_bwd.cu dq fp32 b2 s4096 (C entry)"] = timed(
+        lambda: dq_old(fa._ptr(q), fa._ptr(k), fa._ptr(v), fa._ptr(do),
+                       fa._ptr(lse), fa._ptr(delta), None, None, fa._ptr(dq),
+                       2, 16, 4096, 4096, 64, 1, 0.125, 2, args[-1],
+                       fa._stream(q)), iters=3)
+    res["flash_bwd split fp32 b2 s4096"] = timed(
+        lambda: fa._flash_bwd_cuda(q, k, v, out, lse, do, None, None, True,
+                                   0.125, split=True), iters=3)
     res["library fp32 SDPA bwd b2 s4096"] = timed(
         _grad_closure(torch, sdpa, (q, k, v), do), iters=3)
     return res
+
+
+def _shuffle_fwd(torch, fa, q, k, v):
+    """A closure running ``csrc/flash_fwd.cu``'s fp32 forward (the
+    shuffle-product kernel) through its C entry, causal, at q's head dim
+    (64 or 128)."""
+    b, h, s, d = q.shape
+    fn = fa._build.function("flash_fwd@f32", "apex_flash_fwd",
+                            fa._FLASH_ARGS)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    return lambda: fn(fa._ptr(q), fa._ptr(k), fa._ptr(v), None, None,
+                      fa._ptr(out), fa._ptr(lse), b, h, s, s, d, 1,
+                      d ** -0.5, 2, 2, fa._stream(q))
 
 
 def _shuffle_single(torch, fa, q, k, v, out, lse, do):

@@ -100,14 +100,14 @@ Phases (any failure exits non-zero; no phase's error is caught):
 16. O0 path — the GPT at full width with 2 layers in fp32 (b8 s1024): the
     loss and every gradient through the kernels (fp32 flash, LayerNorm and
     LM-head CE) against ``GPT.loss(reference=True)``, then 3 counted
-    ``FusedAdam`` steps through ``amp.make_train_step`` at O0 (the CE and
-    the flash backward on their FFMA routes), and one more under
-    ``torch.profiler``: its device time by kernel class;
+    ``FusedAdam`` steps through ``amp.make_train_step`` at O0 (the CE, the
+    flash forward and the flash backward on their FFMA routes), and one
+    more under ``torch.profiler``: its device time by kernel class;
 17. O0 long path — the same 2-layer fp32 GPT at b2 s4096, past the
-    flash backward's gate: a warm-up and 2 counted O0 steps, every split's
-    dk/dv on the fp32 FFMA route (``csrc/flash_bwd_f32.cuh``) and its dq on
-    ``csrc/flash_bwd.cu``'s; then one step under ``torch.profiler``, its
-    device time by kernel class.
+    flash backward's gate: a warm-up and 2 counted O0 steps, every forward
+    (``csrc/flash_fwd_f32.cuh``) and every split's dk/dv and dq
+    (``csrc/flash_bwd_f32.cuh``) on the fp32 FFMA routes; then one step
+    under ``torch.profiler``, its device time by kernel class.
 
 The kernel phase also holds the shapes and dtypes ROADMAP §C records as
 repaired against the plain versions: flash forward and backward (single
@@ -130,20 +130,30 @@ wgmma route (``csrc/flash_fwd_sm90.cu``; ``flash_bwd_fused_sm90`` of
 ``csrc/flash_bwd_sm90.cu``) at the serve prefill's, the s1024 and the
 s4096 train cells' shapes, ragged shapes, fp16 and a padded head dim, the
 forward and the single pass's dk and dv bitwise on a rerun, with ptxas's
-registers and no spill; flash_fwd.cu's in fp32 at the O0 path's shape.
-Every bf16 main path (the GPT cells, ZeRO-3, LAMB, serve) takes the wgmma
-route for every flash launch, the O0 paths none.
+registers and no spill. Every bf16 main path (the GPT cells, ZeRO-3,
+LAMB, serve) takes the wgmma route for every flash launch, the O0 paths
+none.
+
+The fp32 forward's FFMA route (``csrc/flash_fwd_f32.cuh``, B1) is held at
+the O0 paths' b8 h16 s1024 and b2 h16 s4096 d64 causal and at the shapes
+below against the plain version (out 1e-5, lse 1e-5 relative), bitwise on
+a rerun and for one batch alone, padding rows exactly zero, one device
+launch a call (profiler), no spill, and timed beside SDPA's fp32 forward
+and flash_fwd.cu's shuffle-product kernel (its C entry), also at d 128.
 
 The fp32 backward's FFMA route (``csrc/flash_bwd_f32.cuh``: the single
 pass, B2, and the split's dk/dv, B3) is held at the O0 paths' shapes and
 at ragged s (1000 x 1003, sq != sk), rows with no key, padded head dims
 (40 -> 64, 80 -> 128), non-causal and padding segment ids (their dq
 exactly zero) against the plain backward, dq, dk and dv bitwise on a
-rerun and (single pass) for one batch alone, its device launches of one
-call counted by the profiler, ptxas's log showing no spill, and timed
+rerun and for one batch alone, its device launches of one call counted
+by the profiler (the split: one prologue, dk/dv, then dq on the dk/dv
+call's transposed scratch), ptxas's log showing no spill, and timed
 beside SDPA's fp32 backward and the shuffle-product kernels of
 ``csrc/flash_bwd.cu`` it replaced there (through their C entries). Every
-O0 flash backward launch takes it: the split's dq stays on flash_bwd.cu.
+O0 flash launch takes an FFMA route: the split's dq (B4) is
+``flash_dq_f32_kernel``, held also at b8 h16 s1024 and timed as the
+split calls it and alone.
 
 B8 and B9's fp32 route (``csrc/lm_head_ce.cu`` on the exact-FFMA core of
 ``csrc/simt_f32.cuh``) is held at the O0 path's n 8192, V 32768, h 1024
@@ -160,9 +170,8 @@ split flash backward (B3, B4) is held on both routes: the wgmma route
 kernel against its plain versions (dq with the delta it folds in, dk/dv
 from that delta), as a pair against the plain backward and bitwise on a
 rerun, with each kernel's ``ptxas`` register count; in fp32 at the same
-shape, its dk/dv on the FFMA route (above) and its dq on flash_bwd.cu's
-kernel; each timed apart, and the split beside the single pass at b8 h16
-s1024.
+shape both kernels on the FFMA route (above); each timed apart, and the
+split beside the single pass at b8 h16 s1024.
 
 The decode kernels (B12's decode regime, ``csrc/fp8_matmul.cu``; B5,
 ``csrc/paged_decode.cu``) are held at the serve engines' shapes: B12 at
@@ -324,8 +333,8 @@ def check_flash(torch, timer):
     128): the serve prefill's shape (b1 h16 s512 causal, segment ids
     padding from 300; both block heights timed), the train cells' b8 h16
     s1024 and b2 h16 s4096, ragged shapes, sq != sk, fp16 and a padded
-    head dim, a bitwise rerun. flash_fwd.cu's route at the O0 path's
-    shape (fp32 b8 h16 s1024) and bf16 d32."""
+    head dim, a bitwise rerun. flash_fwd.cu's route at bf16 d32; the fp32
+    forward (the O0 paths'): :func:`check_flash_fwd_f32`."""
     import torch.nn.functional as F
     from apex_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -428,35 +437,7 @@ def check_flash(torch, timer):
         long_shape=train_shape(2, 4096, iters=10))
     del q, k, v, out, lse, again, ref, ref_lse
 
-    # flash_fwd.cu: fp32 at the O0 path's shape (b8 h16 s1024 d64 causal)
-    b, s = 8, 1024
-    q, k, v = (rand(b, h, s, d, dtype=torch.float32) for _ in range(3))
-    n0 = (fa.flash_attention.wgmma_launches, fa.flash_attention.launches)
-    out, lse = fa.flash_attention_fwd(q, k, v, None, None, True, scale)
-    check(wgmma_moved(*n0) == (0, 1), "flash fp32: not flash_fwd.cu")
-    ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=True,
-                                                scale=scale)
-    torch.cuda.synchronize()
-    f32_err = _fp32_err(out, ref, "flash fp32", FP32_FWD_TOL)
-    check((lse - ref_lse).abs().max().item() <= 1e-3, "flash fp32 lse")
-    f32_bound = _fwd_bound(b, h, s, s, d, True, 4, FP32_FLOPS_PER_S)
-    simt = dict(
-        name="flash_fwd", route="cuda",
-        source="apex_tpu_torch/csrc/flash_fwd.cu",
-        replaces="apex_tpu/ops/flash_attention.py:251",
-        shape=f"b{b} h{h} s{s} d{d} fp32 causal (the O0 path's; also bf16 "
-              "d32 above)",
-        max_abs_err=f32_err, tolerance=f"{FP32_FWD_TOL} of max and in "
-                                       "relative norm",
-        ms=timer(lambda: fa.flash_attention_fwd(q, k, v, None, None, True,
-                                                scale), iters=10),
-        plain_ms=timer(lambda: fa.flash_attention_reference(
-            q, k, v, causal=True, scale=scale), iters=5),
-        library_ms=timer(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, scale=scale), iters=10),
-        library="F.scaled_dot_product_attention(is_causal=True), fp32",
-        bound_ms=f32_bound[0], bound_by=f32_bound[1])
-    return [wgmma, simt]
+    return [wgmma]
 
 
 def _paged_inputs(torch, gen, b, kv, g, d, page, m, num_pages, seq_lens,
@@ -1176,11 +1157,14 @@ def _split_moved(fa, before, wgmma: bool):
 
 
 # the fp32 route's kernels (csrc/flash_bwd_f32.cuh, in flash_bwd.cu's fp32
-# build), and flash_bwd.cu's own backward kernels, by name
+# build; csrc/flash_fwd_f32.cuh, in flash_fwd.cu's), and flash_bwd.cu's and
+# flash_fwd.cu's own kernels, by name
 F32_CORE_KERNELS = ("flash_f32_prologue_kernel", "flash_bwd_f32_kernel",
-                    "flash_dkdv_f32_kernel")
+                    "flash_dkdv_f32_kernel", "flash_dq_f32_kernel")
+F32_FWD_KERNELS = ("flash_fwd_f32_kernel",)
 FLASH_BWD_KERNELS = ("flash_bwd_kernel", "flash_dkdv_kernel",
                      "flash_dq_kernel")
+FLASH_FWD_KERNELS = ("flash_fwd_kernel", "flash_fwd_sm90")
 # (b, h, sq, sk, d, causal, segment ids) beside the O0 shapes: ragged and sq
 # != sk with padding rows, rows with no key, padded head dims, non-causal
 F32_CORE_SHAPES = ((2, 2, 1000, 1003, 64, True, True),
@@ -1192,16 +1176,17 @@ F32_CORE_SHAPES = ((2, 2, 1000, 1003, 64, True, True),
 F32_PAD_ROWS = 40      # padding rows (segment id -1) at the end of each row
 
 
-def _f32_core_registers(build):
-    """``ptxas -v``'s registers and spill bytes of the FFMA route's kernels
-    (each head dim); fails on a spill."""
+def _ffma_registers(build, source, kernels):
+    """``ptxas -v``'s registers and spill bytes of the FFMA route's
+    ``kernels`` (each head dim) in ``source``'s fp32 build; fails on a
+    spill, and unless each kernel is there at d 64 and d 128."""
     regs, name = {}, None
-    text = build.library_path(build.dtype_target("flash_bwd", 2)) \
+    text = build.library_path(build.dtype_target(source, 2)) \
         .with_suffix(".log").read_text()
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(%s)(?:ILi(\d+)E)?" % "|".join(F32_CORE_KERNELS),
+            k = re.search(r"(%s)(?:ILi(\d+)E)?" % "|".join(kernels),
                           m.group(1))
             name = None
             if k:
@@ -1212,55 +1197,203 @@ def _f32_core_registers(build):
         if m and name:
             regs[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
             check(regs[name]["spill_bytes"] == 0,
-                  f"flash_bwd@f32 {name}: ptxas spills "
+                  f"{source}@f32 {name}: ptxas spills "
                   f"{regs[name]['spill_bytes']} bytes")
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             regs[name]["registers"] = int(m.group(1))
-    check(len(regs) == 6, f"flash_bwd@f32: FFMA kernels in ptxas's log "
-          f"{sorted(regs)}")
+    check(len(regs) == 2 * len(kernels), f"{source}@f32: FFMA kernels in "
+          f"ptxas's log {sorted(regs)}")
     return regs
+
+
+def _f32_inputs(torch, gen, b, h, sq, sk, d, seg):
+    """fp32 q, k, v, do and the segment ids of an F32_CORE_SHAPES case
+    (two segments, the last F32_PAD_ROWS query rows padding)."""
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def seg_ids(s, pad):
+        sid = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+        sid[:, s // 2:] = 1
+        if pad:
+            sid[:, s - F32_PAD_ROWS:] = -1
+        return sid
+
+    q, do = rand(b, h, sq, d), rand(b, h, sq, d)
+    k, v = rand(b, h, sk, d), rand(b, h, sk, d)
+    sids = (seg_ids(sq, True), seg_ids(sk, sq == sk)) if seg else (None,
+                                                                    None)
+    return q, k, v, do, sids
+
+
+def _lse_err(lse, ref, what):
+    """fp32 lse within FP32_FWD_TOL relative on rows that see a key, and
+    the -1e30 fill exactly on rows that see none."""
+    live = ref > -1e29
+    err = ((lse - ref).abs() / ref.abs().clamp_min(1.0))[live]
+    e = err.max().item() if err.numel() else 0.0
+    check(e <= FP32_FWD_TOL, f"{what} lse: relative err {e}")
+    check(bool((lse[~live] == ref[~live]).all()),
+          f"{what} lse: rows with no key are not the fill")
+    return e
+
+
+def check_flash_fwd_f32(torch, timer):
+    """The fp32 forward on the FFMA route (``csrc/flash_fwd_f32.cuh``), the
+    O0 paths': at F32_CORE_SHAPES and at the O0 paths' b8 h16 s1024 and b2
+    h16 s4096 d64 causal against the plain version (out FP32_FWD_TOL of
+    the largest and in relative norm, lse FP32_FWD_TOL relative, padding
+    rows exactly zero), bitwise on a rerun and, for the first batch, the
+    same bits run alone; the device launches of one call counted by the
+    profiler (the kernel, nothing else); ptxas's registers with no spill;
+    timed beside the plain version, SDPA's fp32 forward (TF32 off) and the
+    shuffle-product kernel it replaces (``flash_fwd.cu``'s, through its C
+    entry), also at d 128."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    f = fa.flash_attention
+    what = "flash fp32 forward"
+
+    checked = []
+    for b, h, sq, sk, d, causal, seg in F32_CORE_SHAPES:
+        q, k, v, _, (sid_q, sid_kv) = _f32_inputs(torch, gen, b, h, sq, sk,
+                                                   d, seg)
+        n0 = f.f32_launches
+        out, lse = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal)
+        again = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal)
+        ref, ref_lse = fa.flash_attention_reference(
+            q, k, v, causal=causal, segment_ids_q=sid_q,
+            segment_ids_kv=sid_kv)
+        torch.cuda.synchronize()
+        shape = f"b{b} h{h} sq{sq} sk{sk} d{d}" + (" causal" if causal
+                                                   else "") + \
+            (" segments" if seg else "")
+        check(f.f32_launches - n0 == 2, f"{what} {shape}: not the FFMA "
+              "route")
+        check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+              f"{what} {shape}: a rerun gave other bits")
+        err = _fp32_err(out, ref, f"{what} {shape}", FP32_FWD_TOL)
+        lse_err = _lse_err(lse, ref_lse, f"{what} {shape}")
+        if seg:
+            check(out[:, :, sq - F32_PAD_ROWS:].abs().max().item() == 0.0,
+                  f"{what} {shape}: padding rows are not exactly zero")
+        checked.append(dict(shape=shape, max_abs_err=err,
+                            lse_rel_err=lse_err))
+        del q, k, v, out, lse, again, ref, ref_lse
+
+    def o0_shape(b, s, d, iters):
+        """The forward at an O0 path's shape: checked, then timed beside
+        the plain version, SDPA and flash_fwd.cu's kernel."""
+        h, scale = 16, d ** -0.5
+        q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda")
+                   for _ in range(3))
+        n0 = f.f32_launches
+        out, lse = fa.flash_attention_fwd(q, k, v, None, None, True, scale)
+        again = fa.flash_attention_fwd(q, k, v, None, None, True, scale)
+        one = fa.flash_attention_fwd(q[:1], k[:1], v[:1], None, None, True,
+                                     scale)
+        torch.cuda.synchronize()
+        check(f.f32_launches - n0 == 3, f"{what} b{b} s{s}: not the FFMA "
+              "route")
+        check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+              f"{what} b{b} s{s}: a rerun gave other bits")
+        check(torch.equal(out[:1], one[0]) and torch.equal(lse[:1], one[1]),
+              f"{what} b{b} s{s}: the first batch differs run alone")
+        del again, one
+        ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=True,
+                                                    scale=scale)
+        torch.cuda.synchronize()
+        err = _fp32_err(out, ref, f"{what} b{b} s{s} d{d}", FP32_FWD_TOL)
+        lse_err = _lse_err(lse, ref_lse, f"{what} b{b} s{s} d{d}")
+        del ref, ref_lse
+        dev = device_launches(torch, lambda: fa.flash_attention_fwd(
+            q, k, v, None, None, True, scale),
+            F32_FWD_KERNELS + FLASH_FWD_KERNELS)
+        check(dev == {"flash_fwd_f32_kernel": 1, "flash_fwd_kernel": 0,
+                      "flash_fwd_sm90": 0, "other": 0},
+              f"{what} b{b} s{s}: device launches {dev} in one call")
+        old = _build.function("flash_fwd@f32", "apex_flash_fwd",
+                              fa._FLASH_ARGS)
+        o2, l2 = torch.empty_like(out), torch.empty_like(lse)
+
+        def shuffle():
+            old(fa._ptr(q), fa._ptr(k), fa._ptr(v), None, None, fa._ptr(o2),
+                fa._ptr(l2), b, h, s, s, d, 1, scale, 2, 2, fa._stream(q))
+
+        ms = timer(lambda: fa.flash_attention_fwd(q, k, v, None, None, True,
+                                                  scale), iters)
+        t_bound = _fwd_bound(b, h, s, s, d, True, 4, FP32_FLOPS_PER_S)
+        rec = dict(
+            shape=f"b{b} h{h} s{s} d{d} fp32 causal", max_abs_err=err,
+            lse_rel_err=lse_err, ms=ms,
+            shuffle_kernel_ms=timer(shuffle, iters=3),
+            plain_ms=timer(lambda: fa.flash_attention_reference(
+                q, k, v, causal=True, scale=scale), iters=3, warmup=1),
+            library_ms=timer(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, scale=scale), iters),
+            bound_ms=t_bound[0], bound_by=t_bound[1],
+            tflops=4.0 * b * h * d * s * (s + 1) / 2 / ms / 1e9,
+            device_launches_per_call=dev)
+        del q, k, v, out, lse, o2, l2
+        return rec
+
+    main = o0_shape(8, 1024, 64, 10)
+    long_ = o0_shape(2, 4096, 64, 5)
+    d128 = o0_shape(8, 1024, 128, 5)
+    return [dict(
+        name="flash_fwd_f32", route="cuda",
+        source="apex_tpu_torch/csrc/flash_fwd_f32.cuh",
+        replaces="apex_tpu/ops/flash_attention.py:251",
+        tolerance=f"out {FP32_FWD_TOL} of max and in relative norm; lse "
+                  f"{FP32_FWD_TOL} relative; padding rows exactly 0; a "
+                  "rerun and one batch alone bitwise",
+        library="F.scaled_dot_product_attention(is_causal=True), exact "
+                "fp32",
+        plain="flash_attention_reference",
+        **main, long_shape=long_, d128_shape=d128, checked=checked,
+        registers=_ffma_registers(_build, "flash_fwd", F32_FWD_KERNELS))]
 
 
 def check_flash_f32(torch, timer, split: bool):
     """The fp32 backward on the FFMA route (``csrc/flash_bwd_f32.cuh``):
     the single pass (``split`` False) at the O0 path's b8 h16 s1024 d64
-    causal, or the split at the O0 long path's b2 h16 s4096, dk/dv on the
-    route and dq on ``flash_bwd.cu``'s ``flash_dq_kernel``. Each against the
-    plain backward (FP32_GRAD_TOL) at F32_CORE_SHAPES and the O0 shape,
-    with the padding rows' dq exactly zero, dq, dk and dv bitwise on a
-    rerun and (single pass) the first batch's the same bits run alone;
+    causal, or the split at the O0 long path's b2 h16 s4096, dk/dv and dq
+    on the route (dq reading the dk/dv call's transposed scratch). Each
+    against the plain backward (FP32_GRAD_TOL) at F32_CORE_SHAPES and the
+    O0 shape, with the padding rows' dq exactly zero, dq, dk and dv
+    bitwise on a rerun and the first batch's the same bits run alone;
     the device launches of one call counted by the profiler (a transpose
-    of q and dO and the kernel, none of flash_bwd.cu's but the split's
-    dq); ptxas's registers with no spill; timed beside the plain version,
-    SDPA's fp32 backward (TF32 off) and the shuffle-product kernel the
-    route replaces (``flash_bwd.cu``'s, through its C entry). The split
-    returns the dq kernel's record too."""
+    of q and dO and the kernels, none of flash_bwd.cu's); ptxas's
+    registers with no spill; timed beside the plain version, SDPA's fp32
+    backward (TF32 off) and the shuffle-product kernels the route replaces
+    (``flash_bwd.cu``'s, through their C entries). The split returns the
+    dq kernel's record too."""
     import torch.nn.functional as F
     from apex_tpu_torch.ops import _build
     from apex_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(13 if split else 12)
     f = fa.flash_attention_bwd
-    counter = "f32_dkdv_launches" if split else "f32_launches"
+    counters_ = (("f32_dkdv_launches", "f32_dq_launches") if split
+                 else ("f32_launches",))
     what = "flash fp32 split" if split else "flash fp32 single pass"
+
+    def moved(n0):
+        return tuple(getattr(f, c) - n for c, n in zip(counters_, n0))
 
     def rand(*shape):
         return torch.randn(*shape, generator=gen, device="cuda")
 
-    def seg_ids(b, s):
-        sid = torch.zeros(b, s, dtype=torch.int32, device="cuda")
-        sid[:, s // 2:] = 1
-        sid[:, s - F32_PAD_ROWS:] = -1
-        return sid
-
     checked = []
-    for b, h, sq, sk, d, causal, seg in F32_CORE_SHAPES:
-        q, do = rand(b, h, sq, d), rand(b, h, sq, d)
-        k, v = rand(b, h, sk, d), rand(b, h, sk, d)
-        sid_q, sid_kv = (seg_ids(b, sq), seg_ids(b, sk)) if seg else (None,
-                                                                     None)
+    # the split also at the O0 s1024 shape (forced past its gate)
+    extra = ((8, 16, 1024, 1024, 64, True, False),) if split else ()
+    for b, h, sq, sk, d, causal, seg in F32_CORE_SHAPES + extra:
+        q, k, v, do, (sid_q, sid_kv) = _f32_inputs(torch, gen, b, h, sq, sk,
+                                                    d, seg)
         out, lse = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal)
-        n0 = getattr(f, counter)
+        n0 = tuple(getattr(f, c) for c in counters_)
         got = fa._flash_bwd_cuda(q, k, v, out, lse, do, sid_q, sid_kv,
                                  causal, d ** -0.5, split=split)
         again = fa._flash_bwd_cuda(q, k, v, out, lse, do, sid_q, sid_kv,
@@ -1272,8 +1405,8 @@ def check_flash_f32(torch, timer, split: bool):
         shape = f"b{b} h{h} sq{sq} sk{sk} d{d}" + (" causal" if causal
                                                    else "") + \
             (" segments" if seg else "")
-        check(getattr(f, counter) - n0 == 2, f"{what} {shape}: not the FFMA "
-              "route")
+        check(moved(n0) == (2,) * len(counters_), f"{what} {shape}: not "
+              "the FFMA route")
         check(all(torch.equal(x, y) for x, y in zip(got, again)),
               f"{what} {shape}: a rerun gave other bits")
         err = max(_fp32_err(g, r, f"{what} {shape} {n}", FP32_GRAD_TOL)
@@ -1290,19 +1423,19 @@ def check_flash_f32(torch, timer, split: bool):
     out, lse = fa.flash_attention_fwd(q, k, v, None, None, True, scale)
     check(fa.uses_split_backward(s, s, d, 4, 4, True) is split,
           f"{what}: the gate at s{s}")
-    n0 = getattr(f, counter)
+    n0 = tuple(getattr(f, c) for c in counters_)
     got = fa.flash_attention_bwd(q, k, v, out, lse, do, None, None, True,
                                  scale)
     again = fa.flash_attention_bwd(q, k, v, out, lse, do, None, None, True,
                                    scale)
     torch.cuda.synchronize()
-    check(getattr(f, counter) - n0 == 2, f"{what} s{s}: not the FFMA route")
+    check(moved(n0) == (2,) * len(counters_), f"{what} s{s}: not the FFMA "
+          "route")
     check(all(torch.equal(x, y) for x, y in zip(got, again)),
           f"{what} s{s}: dq, dk or dv changed on a rerun")
     del again
-    if not split:
-        _check_first_batch_alone(torch, fa, got, q, k, v, out, lse, do,
-                                 scale, what)
+    _check_first_batch_alone(torch, fa, got, q, k, v, out, lse, do, scale,
+                             what)
     ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
                                            causal=True, scale=scale)
     torch.cuda.synchronize()
@@ -1312,10 +1445,12 @@ def check_flash_f32(torch, timer, split: bool):
     dev = device_launches(torch, lambda: fa.flash_attention_bwd(
         q, k, v, out, lse, do, None, None, True, scale),
         F32_CORE_KERNELS + FLASH_BWD_KERNELS)
+    # one prologue (the split's dq reads the dk/dv call's transposes)
     want = {"flash_f32_prologue_kernel": 1,
             "flash_bwd_f32_kernel": int(not split),
-            "flash_dkdv_f32_kernel": int(split), "flash_bwd_kernel": 0,
-            "flash_dkdv_kernel": 0, "flash_dq_kernel": int(split)}
+            "flash_dkdv_f32_kernel": int(split),
+            "flash_dq_f32_kernel": int(split), "flash_bwd_kernel": 0,
+            "flash_dkdv_kernel": 0, "flash_dq_kernel": 0}
     check({k_: dev[k_] for k_ in want} == want,
           f"{what} s{s}: device launches {dev} in one call, expected {want}")
 
@@ -1362,20 +1497,22 @@ def check_flash_f32(torch, timer, split: bool):
                    FP32_FLOPS_PER_S)
     else:
         kb = _bwd_bound(b, h, s, d, 4, FP32_FLOPS_PER_S)
+    registers = _ffma_registers(_build, "flash_bwd", F32_CORE_KERNELS)
     common = dict(
-        route="cuda", shape=f"b{b} h{h} s{s} d{d} fp32 causal (the O0 "
+        route="cuda", source="apex_tpu_torch/csrc/flash_bwd_f32.cuh",
+        shape=f"b{b} h{h} s{s} d{d} fp32 causal (the O0 "
         f"{'long ' if split else ''}path's), and {len(checked)} shapes "
         "more (checked)",
         tolerance=f"{FP32_GRAD_TOL} of max and in relative norm; padding "
-                  "rows' dq exactly 0; dq, dk, dv bitwise on a rerun"
-                  + ("" if split else " and for one batch alone"),
+                  "rows' dq exactly 0; dq, dk, dv bitwise on a rerun and "
+                  "for one batch alone",
         plain_ms=plain_ms, library_ms=lib_ms,
         plain="flash_attention_bwd_reference: dq, dk and dv together",
         library="backward of F.scaled_dot_product_attention(is_causal="
-                "True), exact fp32: dq, dk and dv together")
+                "True), exact fp32: dq, dk and dv together",
+        checked=checked, device_launches_per_call=dev, registers=registers)
     rec = dict(
         name="flash_bwd_f32_dkdv" if split else "flash_bwd_f32",
-        source="apex_tpu_torch/csrc/flash_bwd_f32.cuh",
         replaces="apex_tpu/ops/flash_attention.py:" + ("558" if split
                                                       else "604"),
         max_abs_err=max(errs["dk"], errs["dv"]) if split
@@ -1385,21 +1522,39 @@ def check_flash_f32(torch, timer, split: bool):
         as_called="_flash_dkdv_cuda on a given delta (two transposes and "
                   "the kernel)" if split else "flash_attention_bwd (delta, "
                   "the zeroed dq workspace, two transposes, the kernel)",
-        shuffle_kernel_ms=shuffle_ms, checked=checked,
-        device_launches_per_call=dev,
-        registers=_f32_core_registers(_build), **common)
+        shuffle_kernel_ms=shuffle_ms, **common)
     if not split:
         del q, k, v, do, out, lse, delta, args, dk, dv
         return [rec]
-    dq_ms = timer(lambda: fa._flash_dq_cuda(*args), iters=5)
+    # the dq kernel as the split calls it: on the scratch the dk/dv call
+    # filled; and alone (its own prologue); flash_bwd.cu's dq kernel
+    ws = fa._f32_transposes(q)
+    fa._flash_dkdv_cuda(*args, ws=ws)
+    dq_ms = timer(lambda: fa._flash_dq_cuda(*args, ws=ws), iters=10)
+    dq_alone_ms = timer(lambda: fa._flash_dq_cuda(*args), iters=10)
+    old_dq = _build.function("flash_bwd@f32", "apex_flash_bwd_dq",
+                             fa._FLASH_DQ_ARGS)
+    dq2 = torch.empty_like(q)
+    dq_shuffle_ms = timer(lambda: old_dq(
+        fa._ptr(q), fa._ptr(k), fa._ptr(v), fa._ptr(do), fa._ptr(lse),
+        fa._ptr(delta), None, None, fa._ptr(dq2), b, h, s, s, d, 1, scale,
+        2, args[-1], fa._stream(q)), iters=3)
+    dq_plain_ms = timer(lambda: fa.flash_bwd_dq_reference(
+        q, k, v, out, lse, do, causal=True, scale=scale), iters=3, warmup=1)
+    split_ms = timer(lambda: fa.flash_attention_bwd(
+        q, k, v, out, lse, do, None, None, True, scale), iters=10)
     dq_bound = bound(3 * 2.0 * d * pairs, 5 * sd4 + 2 * b * h * s * 4,
                      FP32_FLOPS_PER_S)
-    del q, k, v, do, out, lse, delta, args, dk, dv
+    del q, k, v, do, out, lse, delta, args, dk, dv, ws, dq2
     return [rec, dict(
-        name="flash_bwd_dq", source="apex_tpu_torch/csrc/flash_bwd.cu",
+        name="flash_bwd_f32_dq",
         replaces="apex_tpu/ops/flash_attention.py:671",
         max_abs_err=errs["dq"], ms=dq_ms, bound_ms=dq_bound[0],
-        bound_by=dq_bound[1], **common)]
+        bound_by=dq_bound[1], tflops=3 * 2.0 * d * pairs / dq_ms / 1e9,
+        as_called="_flash_dq_cuda on a given delta and the scratch the "
+                  "dk/dv call transposed q and dO into (the split's call)",
+        alone_ms=dq_alone_ms, shuffle_kernel_ms=dq_shuffle_ms,
+        split_as_called_ms=split_ms, plain_dq_ms=dq_plain_ms, **common)]
 
 
 # the wgmma flash kernels in ptxas's log: the split's two, the forward (its
@@ -1880,6 +2035,7 @@ def counters():
     from apex_tpu_torch.zero import fused_update as fu
     return {"flash_fwd": (fa.flash_attention, "launches"),
             "flash_fwd_sm90": (fa.flash_attention, "wgmma_launches"),
+            "flash_fwd_f32": (fa.flash_attention, "f32_launches"),
             "paged_decode": (fa.paged_decode_attention, "launches"),
             "paged_decode_fp8": (fa.paged_decode_attention, "fp8_launches"),
             "layer_norm_fwd": (ln.fused_layer_norm_affine, "launches"),
@@ -1901,6 +2057,7 @@ def counters():
                                   "wgmma_dq_launches"),
             "flash_bwd_f32_dkdv": (fa.flash_attention_bwd,
                                    "f32_dkdv_launches"),
+            "flash_bwd_f32_dq": (fa.flash_attention_bwd, "f32_dq_launches"),
             "xentropy_fwd": (xe.softmax_cross_entropy_with_smoothing,
                              "launches"),
             "xentropy_bwd": (xe.softmax_cross_entropy_with_smoothing,
@@ -1920,7 +2077,8 @@ def reset_counters():
 def read_counters():
     """Launches by kernel since :func:`reset_counters`; the flash
     counters of every route less the wgmma route's and the fp32 FFMA
-    route's (``flash_bwd_f32``, ``flash_bwd_f32_dkdv``), so that
+    route's (``flash_fwd_f32``, ``flash_bwd_f32``, ``flash_bwd_f32_dkdv``,
+    ``flash_bwd_f32_dq``), so that
     ``flash_fwd``, ``flash_bwd``, ``flash_bwd_dkdv`` and ``flash_bwd_dq``
     count flash_fwd.cu's and flash_bwd.cu's own kernels alone, and the
     LM-head CE's
@@ -1930,11 +2088,11 @@ def read_counters():
     out = {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
     out["lm_head_ce_fwd"] -= out["lm_head_ce_fwd_f32"]
     out["lm_head_ce_bwd"] -= out["lm_head_ce_bwd_f32"]
-    out["flash_fwd"] -= out["flash_fwd_sm90"]
+    out["flash_fwd"] -= out["flash_fwd_sm90"] + out["flash_fwd_f32"]
     out["flash_bwd"] -= out["flash_bwd_fused_sm90"] + out["flash_bwd_f32"]
     out["flash_bwd_dkdv"] -= out["flash_bwd_dkdv_sm90"] + \
         out["flash_bwd_f32_dkdv"]
-    out["flash_bwd_dq"] -= out["flash_bwd_dq_sm90"]
+    out["flash_bwd_dq"] -= out["flash_bwd_dq_sm90"] + out["flash_bwd_f32_dq"]
     return out
 
 
@@ -2125,7 +2283,8 @@ TF_TIE = 2 * TF_TOL
 
 TRAIN_B, TRAIN_S, TRAIN_STEPS, LR = 8, 1024, 8, 3e-4
 # every flash launch of the bf16 d64 step on the wgmma route
-TRAIN_PER_STEP = {"flash_fwd": 0, "flash_fwd_sm90": 12, "flash_bwd": 0,
+TRAIN_PER_STEP = {"flash_fwd": 0, "flash_fwd_sm90": 12, "flash_fwd_f32": 0,
+                  "flash_bwd": 0,
                   "flash_bwd_fused_sm90": 12, "layer_norm_fwd": 25,
                   "layer_norm_bwd": 25, "lm_head_ce_fwd": 1,
                   "lm_head_ce_bwd": 1, "lm_head_ce_fwd_f32": 0,
@@ -2134,7 +2293,7 @@ TRAIN_PER_STEP = {"flash_fwd": 0, "flash_fwd_sm90": 12, "flash_bwd": 0,
                   "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
                   "flash_bwd_dkdv_sm90": 0, "flash_bwd_dq_sm90": 0,
                   "flash_bwd_f32": 0, "flash_bwd_f32_dkdv": 0,
-                  "xentropy_fwd": 0,
+                  "flash_bwd_f32_dq": 0, "xentropy_fwd": 0,
                   "xentropy_bwd": 0, "multi_tensor_update": 0,
                   "multi_tensor_update_lamb": 0}
 
@@ -3016,8 +3175,9 @@ def run_spatial_path(torch):
 
 
 O0_LAYERS, O0_B, O0_S, O0_STEPS = 2, 8, 1024, 3
-# every flash backward on the fp32 FFMA route (csrc/flash_bwd_f32.cuh)
-O0_PER_STEP = {**{k: 0 for k in TRAIN_PER_STEP}, "flash_fwd": O0_LAYERS,
+# every flash forward and backward on the fp32 FFMA route
+# (csrc/flash_fwd_f32.cuh, csrc/flash_bwd_f32.cuh), none on frag.cuh's
+O0_PER_STEP = {**{k: 0 for k in TRAIN_PER_STEP}, "flash_fwd_f32": O0_LAYERS,
                "flash_bwd_f32": O0_LAYERS,
                "layer_norm_fwd": 2 * O0_LAYERS + 1,
                "layer_norm_bwd": 2 * O0_LAYERS + 1, "lm_head_ce_fwd_f32": 1,
@@ -3100,17 +3260,17 @@ def run_o0_path(torch):
 
 
 O0_LONG_S, O0_LONG_B, O0_LONG_STEPS = 4096, 2, 2
-# fp32 past the gate: the split, dk/dv on the FFMA route, dq on flash_bwd.cu
+# fp32 past the gate: the split, dk/dv and dq on the FFMA route
 O0_LONG_PER_STEP = {**O0_PER_STEP, "flash_bwd_f32": 0,
                     "flash_bwd_f32_dkdv": O0_LAYERS,
-                    "flash_bwd_dq": O0_LAYERS}
+                    "flash_bwd_f32_dq": O0_LAYERS}
 
 
 def run_o0_long_path(torch):
     """The O0 GPT (2 layers at full width, fp32) at b2 s4096, past the
     flash backward's gate: a warm-up, then 2 counted ``FusedAdam`` steps
-    through ``amp.make_train_step``, every split's dk/dv on the FFMA route
-    and its dq on flash_bwd.cu's (fp32 takes no wgmma), and one step under
+    through ``amp.make_train_step``, every forward and every split's dk/dv
+    and dq on the FFMA route (fp32 takes no wgmma), and one step under
     ``torch.profiler``."""
     import dataclasses
     from apex_tpu_torch import amp
@@ -3486,6 +3646,7 @@ def run_dflamb_path(torch, cfg):
 _PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_kernel", "flash_dkdv_kernel",
                  "flash_dq_kernel", "flash_bwd_f32_kernel",
                  "flash_dkdv_f32_kernel", "flash_f32_prologue_kernel",
+                 "flash_fwd_f32_kernel", "flash_dq_f32_kernel",
                  "flash_fwd_sm90", "flash_bwd_fused_sm90",
                  "flash_dkdv_sm90", "flash_dq_sm90",
                  "paged_decode_kernel",
@@ -3641,7 +3802,8 @@ def main() -> int:
 
     log("e4m3 cast, card against CPU: " + json.dumps(check_e4m3_cast(torch)))
     timer = Timer(torch)
-    kernels = [*check_flash(torch, timer), check_paged(torch, timer),
+    kernels = [*check_flash(torch, timer), *check_flash_fwd_f32(torch, timer),
+               check_paged(torch, timer),
                check_paged_fp8(torch, timer), check_fp8_matmul(torch, timer),
                check_layer_norm(torch, timer),
                check_flash_bwd(torch, timer),
@@ -3664,7 +3826,8 @@ def main() -> int:
                       "single_pass_ms", "b8_s1024", "registers",
                       "as_called_ms", "ms_by_block_rows", "long_shape",
                       "delta_fold_max_abs_err", "by_shape",
-                      "train_shape", "lamb_ms", "by_op",
+                      "train_shape", "lamb_ms", "by_op", "d128_shape",
+                      "alone_ms", "split_as_called_ms",
                       "cudnn_composition_max_abs_err"):
             if extra in kr:
                 log(f"  {kr['name']} {extra}: {json.dumps(kr[extra])}")
@@ -3778,6 +3941,11 @@ def main() -> int:
                       (f"train-o0-gpt2-s{O0_LONG_S}", run_o0_long_path)):
         new_paths[path] = run(torch)
         log(f"{path} path ({card}): " + json.dumps(new_paths[path]))
+        if "trace" in new_paths[path]:
+            tr = new_paths[path]["trace"]
+            log(f"{path} step by kernel class, device ms and launches "
+                f"({card}): device {tr['device_ms_per_call']:.3f} ms, "
+                + json.dumps(tr["device_ms_and_launches_by_class_per_call"]))
         torch.cuda.empty_cache()
     log("trace: " + json.dumps({**serve_trace, "train_step": train_trace,
                                 f"train_step_s{LONG_S}": long_trace,

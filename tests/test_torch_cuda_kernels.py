@@ -41,8 +41,15 @@ pass and the split's dk/dv at kernel head dims 64 and 128) is held within
 ``__expf``) over ragged s, sq != sk, rows with no key, padded head dims,
 segment padding (its dq exactly zero) and non-causal masks; dq, dk and dv
 bitwise on a rerun and for one batch alone; and an fp32 GPT's autograd
-runs every flash backward on it (the split's dq on flash_bwd.cu's dq
-kernel), its loss within 1e-5 and its gradients 1e-4 of the plain path.
+runs every flash forward and backward on the FFMA routes (the split's dq
+included), its loss within 1e-5 and its gradients 1e-4 of the plain path.
+
+The fp32 forward's FFMA route (``csrc/flash_fwd_f32.cuh``, kernel head
+dims 64 and 128) is held within 1e-5 of the plain version (lse 1e-5
+relative) and the split's dq on the FFMA route (``flash_dq_f32_kernel``,
+reading the dk/dv call's transposed scratch, or alone its own) within
+1e-4, over the same shapes; both bitwise on a rerun and for one batch
+alone, padding rows exactly zero.
 
 The wgmma/TMA forward and single pass (``csrc/flash_fwd_sm90.cu``,
 ``flash_bwd_fused_sm90``) are held at the same tolerances, over ragged s,
@@ -1030,6 +1037,131 @@ def test_zero3_step_on_the_card_is_one_launch_and_skips(gen):
 
 
 # ---------------------------------------------------------------------------
+# the fp32 forward (csrc/flash_fwd_f32.cuh, B1) and the split's dq
+# (flash_dq_f32_kernel of csrc/flash_bwd_f32.cuh, B4) on the FFMA route
+# ---------------------------------------------------------------------------
+
+_F32_FWD_DQ_SHAPES = [
+    (1, 1, 1, 5, 64, True, False),           # one query row
+    (2, 3, 65, 65, 64, True, True),
+    (1, 2, 127, 129, 64, True, False),       # about the query tiles
+    (1, 2, 257, 255, 64, True, True),
+    (1, 2, 129, 127, 128, True, True),
+    (1, 2, 17, 300, 64, True, False),        # sq < sk: end-aligned causal
+    (1, 2, 300, 90, 64, True, True),         # sq > sk: rows with no key
+    (2, 2, 1000, 1003, 64, True, True),      # ragged, sq != sk
+    (1, 2, 257, 257, 40, True, False),       # d 40 -> 64
+    (1, 2, 300, 300, 80, False, True),       # d 80 -> 128, non-causal
+    (2, 2, 200, 77, 64, False, True),
+    (1, 1, 4097, 4100, 128, True, True),
+]
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,seg", _F32_FWD_DQ_SHAPES)
+def test_flash_fwd_f32_route_matches_plain(gen, b, h, sq, sk, d, causal,
+                                           seg):
+    """fp32 operands at kernel head dims 64 and 128 take the FFMA forward:
+    out within 1e-5 of the plain version, lse within 1e-5 relative (the
+    -1e30 fill exactly on rows that see no key), padding rows exactly
+    zero; the same bits on a rerun and for the last batch alone."""
+    f32 = torch.float32
+    q = _rand(gen, b, h, sq, d, dtype=f32)
+    k, v = _rand(gen, b, h, sk, d, dtype=f32), _rand(gen, b, h, sk, d,
+                                                     dtype=f32)
+    sid_q = _f32_seg(b, sq, min(20, sq // 4)) if seg else None
+    sid_kv = _f32_seg(b, sk, 0) if seg else None
+    f = fa.flash_attention
+    n0 = (f.launches, f.f32_launches)
+    out, lse = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal)
+    again = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal)
+    last = fa.flash_attention_fwd(
+        q[-1:], k[-1:], v[-1:], None if sid_q is None else sid_q[-1:],
+        None if sid_kv is None else sid_kv[-1:], causal)
+    torch.cuda.synchronize()
+    assert (f.launches - n0[0], f.f32_launches - n0[1]) == (3, 3)
+    ref, ref_lse = fa.flash_attention_reference(
+        q, k, v, causal=causal, segment_ids_q=sid_q, segment_ids_kv=sid_kv)
+    assert out.dtype == f32 and out.shape == ref.shape
+    _close_fp32(out, ref, 1e-5)
+    live = ref_lse > -1e29
+    if bool(live.any()):
+        rel = (lse - ref_lse).abs() / ref_lse.abs().clamp_min(1.0)
+        assert float(rel[live].max()) <= 1e-5
+    assert torch.equal(lse[~live], ref_lse[~live])
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    assert torch.equal(out[-1:], last[0]) and torch.equal(lse[-1:], last[1])
+    if seg:
+        assert not bool(out[(sid_q < 0)[:, None, :].expand(b, h, sq)].any())
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,seg", _F32_FWD_DQ_SHAPES)
+def test_flash_dq_f32_route_matches_plain(gen, b, h, sq, sk, d, causal,
+                                          seg):
+    """The split's dq on the FFMA route: as the split calls it (on the
+    scratch its dk/dv call transposed q and dO into) and alone (its own
+    prologue), within 1e-4 of the plain dq kernel's version; the two the
+    same bits, a rerun the same bits, the last batch alone the same bits,
+    padding rows exactly zero."""
+    f32 = torch.float32
+    q, do = _rand(gen, b, h, sq, d, dtype=f32), _rand(gen, b, h, sq, d,
+                                                      dtype=f32)
+    k, v = _rand(gen, b, h, sk, d, dtype=f32), _rand(gen, b, h, sk, d,
+                                                     dtype=f32)
+    sid_q = _f32_seg(b, sq, min(20, sq // 4)) if seg else None
+    sid_kv = _f32_seg(b, sk, 0) if seg else None
+    out, lse = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal)
+    kd = fa.kernel_head_dim(d)
+    pad = [0, kd - d]
+    qp, kp, vp, dop = (torch.nn.functional.pad(t, pad).contiguous()
+                       for t in (q, k, v, do))
+    delta = (do * out).sum(-1)
+    args = (qp, kp, vp, dop, lse, delta, sid_q, sid_kv, causal, d ** -0.5,
+            fa._mixed_rounds(q, k, do))
+    f = fa.flash_attention_bwd
+    n0 = (f.dq_launches, f.f32_dq_launches)
+    ws = fa._f32_transposes(qp)
+    fa._flash_dkdv_cuda(*args, ws=ws)
+    got = fa._flash_dq_cuda(*args, ws=ws)
+    alone = fa._flash_dq_cuda(*args)
+    again = fa._flash_dq_cuda(*args)
+    last = fa._flash_dq_cuda(*(t[-1:] if isinstance(t, torch.Tensor)
+                               else t for t in args))
+    torch.cuda.synchronize()
+    assert (f.dq_launches - n0[0], f.f32_dq_launches - n0[1]) == (4, 4)
+    assert torch.equal(got, alone) and torch.equal(got, again)
+    assert torch.equal(got[-1:], last)
+    ref, _ = fa.flash_bwd_dq_reference(q, k, v, out, lse, do, causal=causal,
+                                       segment_ids_q=sid_q,
+                                       segment_ids_kv=sid_kv)
+    got = got[..., :d]
+    assert got.dtype == f32 and got.shape == ref.shape
+    _close_fp32(got, ref)
+    if seg:
+        assert not bool(got[(sid_q < 0)[:, None, :].expand(b, h, sq)].any())
+
+
+@pytest.mark.parametrize("s", [1024, 4096])
+def test_flash_f32_split_is_bitwise_on_a_rerun_and_alone(gen, s):
+    """The fp32 split as autograd calls it (dk/dv, then dq on its
+    scratch): dq, dk and dv the same bits on a rerun and for one batch
+    alone, the forward's out and lse too."""
+    f32 = torch.float32
+    b, h, d = 2, 2, 64
+    q, k, v, do = (_rand(gen, b, h, s, d, dtype=f32) for _ in range(4))
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    one = fa.flash_attention_fwd(q[1:], k[1:], v[1:], causal=True)
+    assert torch.equal(out[1:], one[0]) and torch.equal(lse[1:], one[1])
+    args = (None, None, True, d ** -0.5)
+    got = fa._flash_bwd_cuda(q, k, v, out, lse, do, *args, split=True)
+    again = fa._flash_bwd_cuda(q, k, v, out, lse, do, *args, split=True)
+    alone = fa._flash_bwd_cuda(q[1:], k[1:], v[1:], out[1:], lse[1:],
+                               do[1:], *args, split=True)
+    torch.cuda.synchronize()
+    for g, a, o in zip(got, again, alone):
+        assert torch.equal(g, a) and torch.equal(g[1:], o)
+
+
+# ---------------------------------------------------------------------------
 # the repaired shapes and dtypes (ROADMAP §C), B14 and B15
 # ---------------------------------------------------------------------------
 
@@ -1647,9 +1779,9 @@ def test_flash_bwd_f32_route_is_bitwise_on_a_rerun_and_alone(gen, d, split):
 def test_o0_gpt_autograd_runs_every_flash_backward_on_the_f32_route(gen, s):
     """An fp32 GPT (2 layers, h256, 4 heads: head dim 64) at s1024 (the
     single pass) and s4096 (past the gate: the split): every flash
-    backward launch takes the FFMA route (the split's dq flash_bwd.cu's),
-    none flash_bwd.cu's single pass or dk/dv; loss within 1e-5 and
-    gradients within 1e-4 in relative norm of the plain versions."""
+    forward and backward launch takes the FFMA route (the split's dk/dv
+    and dq both), none flash_fwd.cu's or flash_bwd.cu's; loss within 1e-5
+    and gradients within 1e-4 in relative norm of the plain versions."""
     from apex_tpu_torch.models.gpt import GPT, GPTConfig
     cfg = GPTConfig(vocab_size=512, max_seq_len=s, hidden_size=256,
                     num_layers=2, num_heads=4, dtype=torch.float32)
@@ -1657,16 +1789,20 @@ def test_o0_gpt_autograd_runs_every_flash_backward_on_the_f32_route(gen, s):
     ids = torch.randint(0, 512, (8192 // s, s), generator=gen, device="cuda")
     labels = torch.roll(ids, -1, 1)
     params = [p for _, p in model.named_parameters()]
-    f = fa.flash_attention_bwd
+    f, fwd = fa.flash_attention_bwd, fa.flash_attention
     names = ("launches", "f32_launches", "dkdv_launches",
-             "f32_dkdv_launches", "dq_launches", "wgmma_launches")
+             "f32_dkdv_launches", "dq_launches", "wgmma_launches",
+             "f32_dq_launches")
     n0 = [getattr(f, n) for n in names]
+    fwd0 = (fwd.launches, fwd.f32_launches)
     loss = model.loss(ids, labels)
     grads = torch.autograd.grad(loss, params)
     torch.cuda.synchronize()
     moved = [getattr(f, n) - a for n, a in zip(names, n0)]
-    want = [0, 0, 2, 2, 2, 0] if s == 4096 else [2, 2, 0, 0, 0, 0]
+    want = [0, 0, 2, 2, 2, 0, 2] if s == 4096 else [2, 2, 0, 0, 0, 0, 0]
     assert moved == want, moved
+    # every forward on the FFMA route (csrc/flash_fwd_f32.cuh)
+    assert (fwd.launches - fwd0[0], fwd.f32_launches - fwd0[1]) == (2, 2)
     ref_loss = model.loss(ids, labels, reference=True)
     refs = torch.autograd.grad(ref_loss, params)
     assert abs(float(loss) - float(ref_loss)) <= 1e-5 * float(ref_loss)
