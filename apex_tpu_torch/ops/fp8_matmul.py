@@ -15,15 +15,20 @@ product that consumes them:
   contraction), then on CUDA the kernel ``csrc/fp8_matmul.cu``, which
   replaces the Pallas ``_fp8_mm_kernel`` (``apex_tpu/ops/fp8_matmul.py:76``)
   and never writes a dequantized weight; on the CPU the plain version.
-  ``fp8_dequant_matmul.launches`` counts kernel launches. At m <= 8 (the
-  decode regime) a call is one device launch with no workspace: the K
-  splits of a column tile (:func:`_splits`) meet on chip.
+  ``fp8_dequant_matmul.launches`` counts kernel launches,
+  ``.prefill_launches`` those of the prefill regime. Every call is
+  one device launch with no workspace: at m <= 8 (the decode regime) the
+  K splits of a 64-column tile (:func:`_splits`) meet on chip; at m > 8
+  (the prefill regime, wgmma/TMA) blocks of 128 columns by 128 or 64 rows,
+  K split across a cluster of two where :func:`_prefill_plan` says so.
 
 The kernel takes bf16 ``x`` and gives a bf16 result (``out_dtype`` must be
-``x.dtype``) and runs K and N in multiples of 16: any other K or N runs
-zero-padded (:func:`with_padded_kn`, as the JAX package pads to its blocks,
-``apex_tpu/ops/fp8_matmul.py:109-118``): zero rows of the weight meet zero
-columns of x, and the padded output columns are sliced off. The scale stays on
+``x.dtype``; the serve engines run bf16, and another x raises where the JAX
+package takes any float x: ROADMAP §C) and runs K and N in multiples of 16:
+any other K or N runs zero-padded (:func:`with_padded_kn`, as the JAX
+package pads to its blocks, ``apex_tpu/ops/fp8_matmul.py:109-118``): zero
+rows of the weight meet zero columns of x, and the padded output columns
+are sliced off. The scale stays on
 the device: the kernel reads it, the host never does. The Pallas block
 knobs and the tuned-cache lookup of the JAX entry wait for the port's
 tuner.
@@ -59,8 +64,8 @@ def fp8_dequant_matmul_reference(x, q, scale, out_dtype=None):
     return (x.float() @ w).to(out_dtype)
 
 
-# apex_fp8_matmul(x, q, scale, y, m, K, N, splits, kc, stream)
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# apex_fp8_matmul(x, q, scale, y, m, K, N, bm, splits, kc, stream)
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _TILE_N = 64             # the decode regime's columns a block
 _STAGE_K = 64            # weight rows of one stage of its TMA ring
 _MAX_SPLITS = 8          # a portable cluster
@@ -82,6 +87,45 @@ def _splits(K: int, N: int):
         splits *= 2
     kc = -(-K // (splits * _STAGE_K)) * _STAGE_K
     return splits, kc
+
+
+_PF_TILE_N = 128         # the prefill regime's columns a block
+_PF_ROWS = 512           # the serve engines' prefill rows (max_prompt_len)
+_PF_SMS = 132            # an H100's SMs: blocks of one wave at _PF_ROWS
+_PF_FULL = 96            # blocks that fill the card well enough at 128 rows
+
+
+def _prefill_plan(K: int, N: int):
+    """The prefill regime's tiles and K split ``(bm, splits, kc)``, sized
+    for the engines' prefill (every prompt is padded to 512 rows): 128 rows
+    a block where an m512 call then has at least ``_PF_FULL`` blocks; else
+    64 rows and two splits (a thread-block cluster of two blocks along K
+    per tile, each split at least two 64-row stages) where that keeps the
+    blocks in one wave of the card's SMs (a cluster of four, 30 of which
+    fit on an H100 at once, would run two waves); else the row tile with
+    more blocks in one wave; and the rows each split takes (whole stages;
+    ``splits * kc >= K``). A function of (K, N) alone: a row's sum order
+    never depends on m, so its bits do not depend on the rows that come
+    with it."""
+    tiles = -(-_PF_ROWS // 128) * -(-N // _PF_TILE_N)     # at 128 rows
+    if tiles >= _PF_FULL:
+        bm, splits = 128, 1
+    elif 2 * 2 * tiles <= _PF_SMS and K >= 4 * _STAGE_K:
+        bm, splits = 64, 2
+    else:
+        bm, splits = (64, 1) if 2 * tiles <= _PF_SMS else (128, 1)
+    kc = -(-K // (splits * _STAGE_K)) * _STAGE_K
+    return bm, splits, kc
+
+
+def launch_plan(m: int, K: int, N: int):
+    """``(regime, bm, splits, kc)`` of a call over ``m`` rows: the decode
+    regime (m <= 8, all rows in one block: :func:`_splits`) or the prefill
+    regime (:func:`_prefill_plan`), as the wrapper hands them to the
+    kernel."""
+    if m <= 8:
+        return ("decode", 8) + _splits(K, N)
+    return ("prefill",) + _prefill_plan(K, N)
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -128,14 +172,16 @@ def _fp8_mm_launch(x, q, scale, out_dtype):
     lead = x.shape[:-1]
     m = x.numel() // K
     y = torch.empty((m, N), dtype=torch.bfloat16, device=x.device)
-    splits, kc = _splits(K, N)
+    _, bm, splits, kc = launch_plan(m, K, N)
     fn = _build.function("fp8_matmul", "apex_fp8_matmul", _ARGS)
     err = fn(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(q.data_ptr()),
              ctypes.c_void_p(scale.data_ptr()), ctypes.c_void_p(y.data_ptr()),
-             m, K, N, splits, kc,
+             m, K, N, bm, splits, kc,
              ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
     _build.check(err, "fp8_dequant_matmul kernel")
     fp8_dequant_matmul.launches += 1
+    if m > 8:
+        fp8_dequant_matmul.prefill_launches += 1
     return y.reshape(lead + (N,))
 
 
@@ -156,3 +202,4 @@ def fp8_dequant_matmul(x, q, scale, out_dtype: Optional[torch.dtype] = None):
 
 
 fp8_dequant_matmul.launches = 0
+fp8_dequant_matmul.prefill_launches = 0

@@ -1,5 +1,5 @@
-"""Fused LayerNorm, forward and backward: Triton kernels beside their plain
-PyTorch versions.
+"""Fused LayerNorm, forward and backward: a Triton forward and a CUDA backward
+kernel beside their plain PyTorch versions.
 
 Port of ``apex_tpu/ops/layer_norm.py``. The forward kernel replaces the Pallas
 ``_ln_fwd_kernel`` (``apex_tpu/ops/layer_norm.py:131``, launched by
@@ -16,17 +16,21 @@ dtype, so ``x`` crosses HBM once and no statistics are stored. Triton is
 used because the kernel is one reduction plus an elementwise epilogue; a
 CUDA version would move the same bytes with more code.
 
-The backward kernel replaces the Pallas ``_ln_bwd_kernel`` (``:141``,
-launched by ``_ln_pallas_bwd`` ``:197``): ``dx`` and the dgamma/dbeta sums
-from one read of ``x`` and ``dy``. Bound: bytes — x, dy read and dx written
-once (3 x 16 MB in bf16 at the training shape [8192, 1024]), about 20
-flops per element. As the Pallas kernel does, it recomputes mean and
-invvar from ``x`` instead of saving them, so the autograd function keeps
-only ``(x, weight)``. The TPU kernel carries dgamma/dbeta across its
-sequential row grid in VMEM; GPU programs run in no order, so each program
-walks ``ROWS`` rows, keeps its dgamma/dbeta partial in fp32 registers and
-writes it to an ``[n_programs, h]`` fp32 buffer that a torch ``sum`` over
-the programs reduces (the second pass), then casts to the parameter dtype.
+The backward kernel, ``csrc/layer_norm_bwd.cu`` (CUDA C++), replaces the
+Pallas ``_ln_bwd_kernel`` (``:141``, launched by ``_ln_pallas_bwd``
+``:197``): ``dx`` and the dgamma/dbeta sums from one read of ``x`` and
+``dy``, in one launch. Bound: bytes — x, dy read and dx written once (3 x
+16 MB in bf16 at the training shape [8192, 1024]), about 20 flops per
+element. As the Pallas kernel does, it recomputes mean and invvar from
+``x`` instead of saving them, so the autograd function keeps only ``(x,
+weight)``. The TPU kernel carries dgamma/dbeta across its sequential row
+grid in VMEM; on the card a warp (h <= 1024) or a block (larger h) owns a
+row, blocks walk contiguous row ranges (:func:`_ln_bwd_plan`) keeping
+their partials in fp32, and the blocks' partials meet in the same launch,
+in block order, behind a grid barrier (a cooperative launch): the kernel
+writes dgamma and dbeta in their dtypes, with no second pass. Why CUDA and
+not Triton: the cross-block sum in a fixed order inside one launch and the
+explicit prefetch of the next rows do not fit Triton's one-program model.
 
 Dispatch: a CUDA tensor launches the kernels (or raises), a CPU tensor
 takes :func:`fused_layer_norm_affine_reference` and
@@ -36,11 +40,14 @@ differentiable through :class:`FusedLayerNormAffineFunction`.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Sequence, Union
 
 import torch
 
 from apex_tpu_torch._compat import check_device_type
+from apex_tpu_torch.ops import _build
 
 # ``triton.language`` is bound here on the first CUDA launch: the kernel
 # body below resolves ``tl`` through this module's globals, and importing
@@ -89,40 +96,6 @@ def _ln_fwd_body(X, W, B, Y, h, eps, BLOCK: "tl.constexpr"):
     tl.store(Y + row * h + cols, y.to(Y.dtype.element_ty), mask=live)
 
 
-def _ln_bwd_body(X, W, DY, DX, DWP, DBP, n, h, eps, ROWS: "tl.constexpr",
-                 BLOCK: "tl.constexpr"):
-    pid = tl.program_id(0)
-    cols = tl.arange(0, BLOCK)
-    live = cols < h
-    w = tl.load(W + cols, mask=live, other=0.0).to(tl.float32)
-    dw = tl.zeros([BLOCK], dtype=tl.float32)
-    db = tl.zeros([BLOCK], dtype=tl.float32)
-    for r in range(ROWS):
-        row = pid * ROWS + r
-        ok = live & (row < n)
-        off = row.to(tl.int64) * h
-        # rows past n load zeros: dy = 0 adds nothing to dgamma/dbeta
-        x = tl.load(X + off + cols, mask=ok, other=0.0).to(tl.float32)
-        dy = tl.load(DY + off + cols, mask=ok, other=0.0).to(tl.float32)
-        mean = tl.sum(x, axis=0) / h
-        xc = tl.where(live, x - mean, 0.0)
-        var = tl.sum(xc * xc, axis=0) / h
-        rstd = tl.math.rsqrt(var + eps)
-        xhat = xc * rstd
-        dxhat = dy * w
-        s1 = tl.sum(dxhat, axis=0)
-        s2 = tl.sum(dxhat * xhat, axis=0)
-        dx = (rstd / h) * (h * dxhat - s1 - xhat * s2)
-        tl.store(DX + off + cols, dx.to(DX.dtype.element_ty), mask=ok)
-        dw += dy * xhat
-        db += dy
-    tl.store(DWP + pid * h + cols, dw, mask=live)
-    tl.store(DBP + pid * h + cols, db, mask=live)
-
-
-_BWD_KERNEL = None
-
-
 def _kernel():
     global _KERNEL, tl
     if _KERNEL is None:
@@ -133,17 +106,9 @@ def _kernel():
     return _KERNEL
 
 
-def _bwd_kernel():
-    global _BWD_KERNEL
-    if _BWD_KERNEL is None:
-        import triton
-        _kernel()                         # binds ``tl``
-        _BWD_KERNEL = triton.jit(_ln_bwd_body)
-    return _BWD_KERNEL
-
-
 _KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 _MAX_H = 16384          # one row per program, held in registers
+_DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 
 def _ln_fwd_cuda(x, weight, bias, eps, out_dtype):
@@ -208,6 +173,39 @@ def layer_norm_bwd_reference(x, weight, dy, normalized_shape, eps=1e-5,
     return dx.to(x.dtype), dw.to(weight.dtype), db.to(bias_dtype)
 
 
+# apex_layer_norm_bwd(x, w, dy, dx, ws, dw, db, n, h, eps, variant, blocks,
+#                     rows_per_block, xc, wc, dyc, dwc, dbc, stream)
+_BWD_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_float]
+             + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+_WARP_ROWS_MAX_H = 1024   # a warp holds a row: 32 lanes x 8 columns x 4
+_BWD_WARPS = 8            # the warp-rows kernel's warps a block
+_SMS = 132                # an H100's SMs: the plan's default
+
+
+def _ln_bwd_plan(n: int, h: int, sms: int = _SMS):
+    """``(variant, blocks, rows_per_block)`` of the backward kernel:
+    ``"warp_rows"`` (a warp a row, h <= 1024) or ``"block_rows"`` (a block
+    a row); at most one block an SM (the blocks meet behind a grid
+    barrier), each walking ``rows_per_block`` consecutive rows — the fewest
+    rows that give every block of the launch work (one block and no row at
+    n = 0). The rows' order within a block and the blocks' order fix every
+    fp32 sum of dgamma and dbeta: warp by warp over its rows (warp w takes
+    the block's rows w, w + 8, ...), the warps in order, the blocks in
+    order."""
+    variant = "warp_rows" if h <= _WARP_ROWS_MAX_H else "block_rows"
+    unit = _BWD_WARPS if variant == "warp_rows" else 1
+    blocks = max(1, min(sms, -(-n // unit)))
+    rows = -(-n // blocks)
+    if rows:
+        blocks = -(-n // rows)
+    return variant, blocks, rows
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _ln_bwd_cuda(x, weight, dy, eps, bias_dtype):
     h = x.shape[-1]
     what = "layer_norm_bwd kernel"
@@ -219,6 +217,8 @@ def _ln_bwd_cuda(x, weight, dy, eps, bias_dtype):
                              f"{x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
+    if bias_dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"{what}: unsupported bias dtype {bias_dtype}")
     if dy.shape != x.shape or weight.shape != (h,):
         raise ValueError(f"{what}: dy {tuple(dy.shape)} / weight "
                          f"{tuple(weight.shape)} do not match x "
@@ -226,31 +226,33 @@ def _ln_bwd_cuda(x, weight, dy, eps, bias_dtype):
     if h > _MAX_H:
         raise ValueError(f"{what}: h={h} exceeds {_MAX_H}")
     n = x.numel() // h
+    variant, blocks, rows = _ln_bwd_plan(n, h, _sm_count(x.device))
     dx = torch.empty_like(x)
-    # ~512 programs: each walks ROWS rows and keeps one fp32 partial row
-    rows = min(64, 1 << max(0, (-(-n // 512) - 1).bit_length()))
-    n_prog = max(1, -(-n // rows))
-    dwp = torch.empty((n_prog, h), dtype=torch.float32, device=x.device)
-    dbp = torch.empty((n_prog, h), dtype=torch.float32, device=x.device)
-    if n == 0:
-        dwp.zero_()
-        dbp.zero_()
-    else:
-        block = 1 << (h - 1).bit_length()
-        warps = max(1, min(16, block // 256))
-        _bwd_kernel()[(n_prog,)](x, weight, dy, dx, dwp, dbp, n, h,
-                                 float(eps), ROWS=rows, BLOCK=block,
-                                 num_warps=warps)
-        layer_norm_bwd.launches += 1
-    # the second pass over the programs' partials
-    return dx, dwp.sum(0).to(weight.dtype), dbp.sum(0).to(bias_dtype)
+    ws = torch.empty((blocks, 2, h), dtype=torch.float32, device=x.device)
+    dw = torch.empty((h,), dtype=weight.dtype, device=x.device)
+    db = torch.empty((h,), dtype=bias_dtype, device=x.device)
+    fn = _build.function("layer_norm_bwd", "apex_layer_norm_bwd", _BWD_ARGS)
+    err = fn(*(ctypes.c_void_p(t.data_ptr())
+               for t in (x, weight, dy, dx, ws, dw, db)),
+             n, h, float(eps), 0 if variant == "warp_rows" else 1, blocks,
+             rows, _DTYPE_CODES[x.dtype], _DTYPE_CODES[weight.dtype],
+             _DTYPE_CODES[dy.dtype], _DTYPE_CODES[weight.dtype],
+             _DTYPE_CODES[bias_dtype],
+             ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    _build.check(err, what)
+    layer_norm_bwd.launches += 1
+    if variant == "block_rows":
+        layer_norm_bwd.block_rows_launches += 1
+    return dx, dw, db
 
 
 def layer_norm_bwd(x, weight, dy, normalized_shape, eps=1e-5,
                    bias_dtype=None):
-    """``(dx, dweight, dbias)`` of the affine LayerNorm: the Triton kernel
-    on CUDA (one trailing normalized axis), :func:`layer_norm_bwd_reference`
-    on the CPU. ``layer_norm_bwd.launches`` counts kernel launches."""
+    """``(dx, dweight, dbias)`` of the affine LayerNorm: the CUDA kernel
+    ``csrc/layer_norm_bwd.cu`` on CUDA (one trailing normalized axis, one
+    launch a call), :func:`layer_norm_bwd_reference` on the CPU.
+    ``layer_norm_bwd.launches`` counts kernel launches,
+    ``.block_rows_launches`` those of the block-rows kernel (h > 1024)."""
     shape = _check_shape(x, normalized_shape)
     bias_dtype = weight.dtype if bias_dtype is None else bias_dtype
     if check_device_type(x, "layer_norm_bwd") == "cpu":
@@ -263,6 +265,7 @@ def layer_norm_bwd(x, weight, dy, normalized_shape, eps=1e-5,
 
 
 layer_norm_bwd.launches = 0
+layer_norm_bwd.block_rows_launches = 0
 
 
 def _ln_fwd(x, weight, bias, shape, eps, out_dtype):
@@ -298,8 +301,9 @@ def fused_layer_norm_affine(x, weight, bias, normalized_shape: Union[
     """Affine LayerNorm over the trailing ``normalized_shape`` axes,
     differentiable in ``x``, ``weight`` and ``bias``.
 
-    CUDA: the Triton kernels (one trailing normalized axis; params in
-    fp32, bf16 or fp16). CPU: the plain versions.
+    CUDA: the Triton forward and the CUDA backward (one trailing
+    normalized axis; params in fp32, bf16 or fp16). CPU: the plain
+    versions.
     ``fused_layer_norm_affine.launches`` counts forward launches,
     ``layer_norm_bwd.launches`` backward ones."""
     shape = _check_shape(x, normalized_shape)

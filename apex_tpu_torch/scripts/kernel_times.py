@@ -24,9 +24,13 @@ at b2 h16 s4096 as called (delta included) and its two kernels apart
 every version since the split's first slice takes), paged decode over
 the serve path's mixed batch and the speculative engine's draft and verify
 calls (bf16 and e4m3 pools), the LM-head CE forward and backward at n8192
-V32768 h1024 in bf16 and fp16, the fp8 matmul at the decode batch (m8) at
-the GPT's four block linears (K1024 N3072, K1024 N1024, K1024 N4096,
-K4096 N1024), and the timer's own floor (a one-element add).
+V32768 h1024 in bf16 and fp16, the fp8 matmul at the decode batch (m8)
+and at one padded prompt (m512, its prefill regime) at the GPT's four
+block linears (K1024 N3072, K1024 N1024, K1024 N4096, K4096 N1024), the
+prompt's beside bf16 ``torch.matmul`` on the unquantized weight, the
+LayerNorm backward at the train step's n8192 h1024 (bf16 x and dy; bf16
+and fp32 parameters) beside ``F.layer_norm``'s autograd backward, and the
+timer's own floor (a one-element add).
 
 The fp32 (O0) rows, each beside the PyTorch call or composition that
 computes the same function in exact fp32 (TF32 off, float32 matmul
@@ -234,7 +238,7 @@ _O0_CLASSES = (
     ("flash forward (B1)", ("flash_fwd",)),
     ("flash backward (B2, B3, B4)", ("flash_bwd", "flash_dkdv", "flash_dq",
                                      "flash_f32_prologue")),
-    ("LayerNorm (B6, B7)", ("_ln_fwd", "_ln_bwd")),
+    ("LayerNorm (B6, B7)", ("_ln_fwd", "_ln_bwd", "ln_bwd_")),
     ("library GEMM", ("gemm", "nvjet", "xmma", "cutlass")),
     ("memcpy/memset", ("Memcpy", "Memset", "memcpy", "memset")),
 )
@@ -463,13 +467,33 @@ def main() -> int:
     res.update(_fp32_rows(torch, F, fa, ce, timed, x32, e32, tgt, dl))
     del x32, e32
 
-    # the four block linears of the GPT at the decode batch
+    # the four block linears of the GPT at the decode batch and at one
+    # padded prompt (the prefill regime), the prompt's beside bf16 matmul
     for K, N in ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024)):
-        xq = rnd(8, K)
-        wq, sc = mm.quantize_weight(torch.randn(K, N, generator=gen,
-                                                device="cuda") * K ** -0.5)
-        res[f"fp8_matmul m8 K{K} N{N}"] = timed(
-            lambda: mm.fp8_dequant_matmul(xq, wq, sc))
+        wf = torch.randn(K, N, generator=gen, device="cuda") * K ** -0.5
+        wq, sc = mm.quantize_weight(wf)
+        for m in (8, 512):
+            xq = rnd(m, K)
+            res[f"fp8_matmul m{m} K{K} N{N}"] = timed(
+                lambda: mm.fp8_dequant_matmul(xq, wq, sc))
+        wb = wf.to(torch.bfloat16)
+        res[f"library bf16 matmul m512 K{K} N{N}"] = timed(
+            lambda: torch.matmul(xq, wb))
+    del xq, wq, wb, wf
+
+    # the LayerNorm backward at the train step's shape
+    from apex_tpu_torch.ops import layer_norm as ln
+    xl, dyl = rnd(8192, 1024), rnd(8192, 1024)
+    for p_dtype in (torch.bfloat16, torch.float32):
+        wl = (1 + 0.1 * torch.randn(1024, generator=gen, device="cuda")).to(
+            p_dtype)
+        res[f"layer_norm_bwd n8192 h1024 {str(p_dtype)[6:]} params"] = timed(
+            lambda: ln.layer_norm_bwd(xl, wl, dyl, (1024,), 1e-5))
+    wl = wl.to(torch.bfloat16)
+    res["library F.layer_norm bwd n8192 h1024"] = timed(_grad_closure(
+        torch, lambda a, ww, bb: F.layer_norm(a, (1024,), ww, bb, 1e-5),
+        (xl, wl, torch.zeros_like(wl)), dyl))
+    del xl, dyl, wl
 
     o0 = _o0_step(torch)
     o0_long = _o0_step(torch, 2, 4096)

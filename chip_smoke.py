@@ -11,8 +11,9 @@ Phases (any failure exits non-zero; no phase's error is caught):
 
 1. set-up — build the CUDA kernels from ``apex_tpu_torch/csrc`` (one
    ``nvcc`` per source and dtype, started together), count the ``HGMMA``
-   instructions in the wgmma libraries, the LM-head CE's and the flash
-   forward's and backward's (``cuobjdump -sass``; none fails), turn TF32
+   instructions in the wgmma libraries, the LM-head CE's, the flash
+   forward's and backward's and the fp8 matmul's (``cuobjdump -sass``;
+   none fails), turn TF32
    off, print the card's name and power limit; the
    fp8 codec's e4m3 cast and scale on the card against the CPU's,
    bitwise;
@@ -172,6 +173,21 @@ from that delta), as a pair against the plain backward and bitwise on a
 rerun, with each kernel's ``ptxas`` register count; in fp32 at the same
 shape both kernels on the FFMA route (above); each timed apart, and the
 split beside the single pass at b8 h16 s1024.
+
+B12's prefill regime (``fp8_mm_prefill_kernel`` in
+``csrc/fp8_matmul.cu``: wgmma/TMA, the e4m3 weight converted to bf16 in
+registers as the products' A operand, x the B operand; 128 or 64 rows a
+block and a cluster of two along K where ``_prefill_plan`` says so) is
+held at the four block linears at m 512 beside bf16 ``torch.matmul``, its
+plain version and its bound, bitwise on a rerun, the rows of a 9-row call
+bitwise the same rows of the 512-row call, one device launch a call
+(profiler), ``HGMMA`` in its SASS and no spill; the serve engines' fp8
+prefill is traced (device time of one 512-token prompt). B7
+(``csrc/layer_norm_bwd.cu``, one cooperative launch: a warp a row to h
+1024, a block a row past it, the blocks' dgamma/dbeta partials summed in
+block order behind a grid barrier) is held at n8192 h1024 (bf16 and fp32
+parameters) and h4096 against its plain version, bitwise on a rerun, one
+device launch a call, no spill in any of its kernels.
 
 The decode kernels (B12's decode regime, ``csrc/fp8_matmul.cu``; B5,
 ``csrc/paged_decode.cu``) are held at the serve engines' shapes: B12 at
@@ -590,16 +606,24 @@ FP8_SHAPES = (("qkv", 1024, 3072), ("proj", 1024, 1024), ("fc1", 1024, 4096),
 
 
 def check_fp8_matmul(torch, timer):
+    """B12 in both regimes at the four block linears: the decode regime at
+    the fixed batch (m8) and the prefill regime at one padded prompt
+    (m512), each beside bf16 ``torch.matmul`` on the unquantized weight,
+    the plain version and its bound; one device launch a call of each
+    (profiler); the prefill regime bitwise on a rerun and row-independent
+    (the rows of a 9-row call are the bits of the same rows of the 512-row
+    call)."""
     from apex_tpu_torch.ops import _build
     from apex_tpu_torch.ops import fp8_matmul as mm
     gen = torch.Generator(device="cuda").manual_seed(9)
-    shapes, launches = [], None
-    # decode (m = 8, the fixed batch) at the four linears, prefill (m = 512,
-    # one padded prompt) at fc1, then decode qkv once more: the spread of
-    # the same measurement within one run
-    plan = ([(8, s) for s in FP8_SHAPES] + [(512, FP8_SHAPES[2]),
-                                            (8, FP8_SHAPES[0])])
+    by_regime = {"decode": [], "prefill": []}
+    launches = {}
+    # decode (m = 8) and prefill (m = 512) at the four linears, then decode
+    # qkv once more: the spread of the same measurement within one run
+    plan = ([(8, s_) for s_ in FP8_SHAPES] + [(512, s_) for s_ in FP8_SHAPES]
+            + [(8, FP8_SHAPES[0])])
     for m, (lin, K, N) in plan:
+        regime = "decode" if m <= 8 else "prefill"
         x = torch.randn(m, K, generator=gen, device="cuda",
                         dtype=torch.bfloat16)
         w = torch.randn(K, N, generator=gen, device="cuda") * K ** -0.5
@@ -618,33 +642,62 @@ def check_fp8_matmul(torch, timer):
         bf16_ms = timer(lambda: torch.matmul(x, wb))
         nbytes = K * N + m * K * 2 + m * N * 2 + 4
         t_bound, by = bound(2.0 * m * K * N, nbytes)
-        shapes.append(dict(linear=lin, m=m, K=K, N=N, max_abs_err=err,
-                           ms=ms, plain_ms=plain_ms, bound_ms=t_bound,
-                           bound_by=by, bf16_matmul_ms=bf16_ms))
-        if launches is None:           # the decode regime: one launch a call
-            launches = device_launches(torch, lambda: mm.fp8_dequant_matmul(
-                x, q, scale), ("fp8_mm_decode_kernel",))
-            check(launches == {"fp8_mm_decode_kernel": 1, "other": 0},
-                  f"fp8_matmul m{m}: device launches {launches} in one "
-                  "call, expected one fp8_mm_decode_kernel and nothing else")
-    main = shapes[0]                       # decode qkv
-    return dict(name="fp8_matmul", route="cuda",
-                source="apex_tpu_torch/csrc/fp8_matmul.cu",
-                replaces="apex_tpu/ops/fp8_matmul.py:76",
-                shape="m8 K1024 N3072 (decode qkv): bf16 x, e4m3 [K, N] "
-                      "weight, fp32 device scale (by_shape: the four decode "
-                      "linears and prefill fc1 at m512)",
-                max_abs_err=max(s["max_abs_err"] for s in shapes),
-                tolerance="2 bf16 ulp + 1e-3", ms=main["ms"],
-                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
-                bound_by=main["bound_by"], library_ms=None,
-                library="none computes it in one call; bf16_matmul_ms is "
-                        "torch.matmul on the unquantized bf16 weight, what "
-                        "fp8 streaming competes with",
-                bf16_matmul_ms=main["bf16_matmul_ms"],
-                ms_repeat=shapes[-1]["ms"], by_shape=shapes,
-                device_launches_per_call=launches,
-                registers=_decode_registers(_build, "fp8_matmul"))
+        row = dict(linear=lin, m=m, K=K, N=N, max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
+                   bf16_matmul_ms=bf16_ms,
+                   tflops=2.0 * m * K * N / ms / 1e9,
+                   plan=list(mm.launch_plan(m, K, N)))
+        by_regime[regime].append(row)
+        kernel = ("fp8_mm_decode_kernel" if regime == "decode"
+                  else "fp8_mm_prefill_kernel")
+        if (regime, lin) not in launches:
+            got = device_launches(torch, lambda: mm.fp8_dequant_matmul(
+                x, q, scale), (kernel,))
+            check(got == {kernel: 1, "other": 0},
+                  f"fp8_matmul {lin} m{m}: device launches {got} in one "
+                  f"call, expected one {kernel} and nothing else")
+            launches[(regime, lin)] = got
+        if regime == "prefill":
+            # a rerun, and rows 300..308 alone, bitwise
+            check(torch.equal(y, mm.fp8_dequant_matmul(x, q, scale)),
+                  f"fp8_matmul {lin} m{m}: a rerun differs")
+            part = mm.fp8_dequant_matmul(x[300:309].contiguous(), q, scale)
+            check(torch.equal(part, y[300:309]),
+                  f"fp8_matmul {lin}: rows 300..308 alone differ from the "
+                  "same rows of the m512 call")
+    regs = _decode_registers(_build, "fp8_matmul")
+    common = dict(route="cuda", source="apex_tpu_torch/csrc/fp8_matmul.cu",
+                  replaces="apex_tpu/ops/fp8_matmul.py:76",
+                  tolerance="2 bf16 ulp + 1e-3", library_ms=None,
+                  library="none computes it in one call; bf16_matmul_ms is "
+                          "torch.matmul on the unquantized bf16 weight, "
+                          "what fp8 streaming competes with",
+                  registers=regs)
+    dec, pre = by_regime["decode"], by_regime["prefill"]
+    main = dec[0]                          # decode qkv
+    decode = dict(
+        name="fp8_matmul", **common,
+        shape="m8 K1024 N3072 (decode qkv): bf16 x, e4m3 [K, N] weight, "
+              "fp32 device scale (by_shape: the four decode linears)",
+        max_abs_err=max(r["max_abs_err"] for r in dec), ms=main["ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], bf16_matmul_ms=main["bf16_matmul_ms"],
+        ms_repeat=dec[-1]["ms"], by_shape=dec,
+        device_launches_per_call=launches[("decode", "qkv")])
+    main = pre[2]                          # prefill fc1
+    prefill = dict(
+        name="fp8_matmul_prefill", **common,
+        shape="m512 K1024 N4096 (prefill fc1, one padded prompt): bf16 x, "
+              "e4m3 [K, N] weight, fp32 device scale (by_shape: the four "
+              "prefill linears)",
+        max_abs_err=max(r["max_abs_err"] for r in pre), ms=main["ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], bf16_matmul_ms=main["bf16_matmul_ms"],
+        by_shape=pre, device_launches_per_call={
+            lin: launches[("prefill", lin)] for lin, _, _ in FP8_SHAPES},
+        checked="bitwise on a rerun; a 9-row call's rows bitwise the same "
+                "rows of the m512 call")
+    return [decode, prefill]
 
 
 def check_e4m3_cast(torch):
@@ -842,32 +895,55 @@ def _check_first_batch_alone(torch, fa, got, q, k, v, out, lse, do, scale,
 
 
 def check_layer_norm_bwd(torch, timer):
+    """B7 (``csrc/layer_norm_bwd.cu``) at the O2 train path's n8192 h1024
+    with bf16 and fp32 parameters, and at h4096 (the block-rows kernel):
+    against the plain version, bitwise on a rerun, one device launch a call
+    (dgamma and dbeta summed and cast in the same launch); timed beside the
+    plain version and ``F.layer_norm``'s autograd backward."""
     import torch.nn.functional as F
+    from apex_tpu_torch.ops import _build
     from apex_tpu_torch.ops import layer_norm as ln
     gen = torch.Generator(device="cuda").manual_seed(6)
     n, h = 8192, 1024
     x = torch.randn(n, h, generator=gen, device="cuda").to(torch.bfloat16)
     dy = torch.randn(n, h, generator=gen, device="cuda").to(torch.bfloat16)
-    errs = []
-    for p_dtype in (torch.float32, torch.bfloat16):
-        w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(
+    errs, kernels = [], {}
+    for hh, p_dtype in ((h, torch.float32), (4096, torch.bfloat16),
+                        (h, torch.bfloat16)):
+        xx = x if hh == h else torch.randn(
+            n, hh, generator=gen, device="cuda").to(torch.bfloat16)
+        dd = dy if hh == h else torch.randn(
+            n, hh, generator=gen, device="cuda").to(torch.bfloat16)
+        w = (1 + 0.1 * torch.randn(hh, generator=gen, device="cuda")).to(
             p_dtype)
-        got = ln.layer_norm_bwd(x, w, dy, (h,), 1e-5, p_dtype)
-        ref = ln.layer_norm_bwd_reference(x, w, dy, (h,), 1e-5, p_dtype)
+        got = ln.layer_norm_bwd(xx, w, dd, (hh,), 1e-5, p_dtype)
+        ref = ln.layer_norm_bwd_reference(xx, w, dd, (hh,), 1e-5, p_dtype)
         torch.cuda.synchronize()
         # dx: fp32 math on both sides, one rounding to bf16 (one ulp);
         # dgamma/dbeta: fp32 sums over 8192 rows in another order
         d = (got[0].float() - ref[0].float()).abs()
         check(bool((d <= ref[0].float().abs() * 2.0 ** -7 + 1e-6).all()),
-              f"LN bwd dx beyond one bf16 ulp (max err {d.max().item()})")
+              f"LN bwd h{hh} dx beyond one bf16 ulp (max err "
+              f"{d.max().item()})")
         for name, g, r in zip(("dw", "db"), got[1:], ref[1:]):
             ulp = 2.0 ** -7 if p_dtype == torch.bfloat16 else 0.0
             d = (g.float() - r.float()).abs()
             tol = r.float().abs() * ulp + 1e-4 * r.float().abs().max().item()
             check(bool((d <= tol).all()),
-                  f"LN bwd {name} ({p_dtype}) max err {d.max().item()}")
+                  f"LN bwd h{hh} {name} ({p_dtype}) max err {d.max().item()}")
         errs.append(max((a.float() - b.float()).abs().max().item()
                         for a, b in zip(got, ref)))
+        again = ln.layer_norm_bwd(xx, w, dd, (hh,), 1e-5, p_dtype)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"LN bwd h{hh}: a rerun differs")
+        variant = ln._ln_bwd_plan(n, hh, ln._sm_count(x.device))[0]
+        name = f"ln_bwd_{variant}"
+        got = device_launches(torch, lambda: ln.layer_norm_bwd(
+            xx, w, dd, (hh,), 1e-5, p_dtype), (name,))
+        check(got == {name: 1, "other": 0},
+              f"LN bwd h{hh}: device launches {got} in one call, expected "
+              f"one {name} and nothing else")
+        kernels[f"h{hh} {p_dtype}"] = got
     # w is the bf16 weight of the O2 main path from here on
     b_ = torch.zeros(h, device="cuda", dtype=torch.bfloat16)
     ms = timer(lambda: ln.layer_norm_bwd(x, w, dy, (h,), 1e-5))
@@ -877,39 +953,64 @@ def check_layer_norm_bwd(torch, timer):
         a, (h,), ww, bb, 1e-5), (x, w, b_), dy))
     nbytes = 3 * n * h * 2 + 3 * h * 2
     t_bound, by = bound(20.0 * n * h, nbytes)
-    return dict(name="layer_norm_bwd", route="triton",
-                source="apex_tpu_torch/ops/layer_norm.py",
+    return dict(name="layer_norm_bwd", route="cuda",
+                source="apex_tpu_torch/csrc/layer_norm_bwd.cu",
                 replaces="apex_tpu/ops/layer_norm.py:141",
-                shape=f"n{n} h{h} bf16 x/dy, bf16 params (and fp32 params)",
+                shape=f"n{n} h{h} bf16 x/dy, bf16 params (and fp32 params; "
+                      "h4096 on the block-rows kernel)",
                 max_abs_err=max(errs),
                 tolerance="dx one bf16 ulp; dgamma/dbeta one ulp + 1e-4 of "
                           "max",
                 ms=ms, plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
                 library_ms=lib_ms,
-                library="backward of F.layer_norm (bf16 w/b)")
+                library="backward of F.layer_norm (bf16 w/b)",
+                checked="bitwise on a rerun at each shape",
+                device_launches_per_call=kernels,
+                plan=list(ln._ln_bwd_plan(n, h, ln._sm_count(x.device))),
+                registers=_ln_bwd_registers(_build))
 
 
 CE_PRODUCTS = ("GradEpi", "DxEpi", "DeEpi")   # B9's three epilogues
 
 
-def device_launches(torch, fn, names):
+def device_launches(torch, fn, names, sessions=8):
     """torch.profiler over one call of ``fn`` (after one unprofiled): the
     device kernels it launched, counted by which of ``names`` their name
-    holds (each kernel must hold at most one), ``other`` for the rest."""
+    holds (each kernel must hold at most one), ``other`` for the rest.
+    A call's launches are fixed, but a profiler session has been seen to
+    miss every device record of the call (twice in a row), or to hold some
+    of another: a session with no device record is dropped as missed (every
+    caller's ``fn`` launches at least one kernel), and up to ``sessions``
+    sessions of one call each are taken until two of the others agree;
+    those counts are returned (a RuntimeError if no two agree)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    counts = dict.fromkeys(tuple(names) + ("other",), 0)
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+    seen, missed = [], 0
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts = dict.fromkeys(tuple(names) + ("other",), 0)
+        for ev in prof.key_averages():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            hit = [p for p in names if p in ev.key]
+            counts[hit[0] if len(hit) == 1 else "other"] += ev.count
+        if not any(counts.values()):
+            missed += 1
             continue
-        hit = [p for p in names if p in ev.key]
-        counts[hit[0] if len(hit) == 1 else "other"] += ev.count
-    return counts
+        if counts in seen:
+            if missed:
+                print(f"device launches: {missed} profiler session(s) "
+                      "recorded no device kernel and were taken again",
+                      flush=True)
+            return counts
+        seen.append(counts)
+    raise RuntimeError(f"device launches: no two of {sessions} profiler "
+                       f"sessions agree ({missed} recorded no device "
+                       f"kernel): {seen}")
 
 
 def check_lm_head_ce(torch, timer):
@@ -1605,6 +1706,10 @@ def _sm90_registers(build):
 _DECODE_KERNEL = re.compile(
     r"(fp8_mm_decode_kernel)|paged_decode_kernelI(13__nv_bfloat16|6__half|f)"
     r"Li(\d+)ELi(\d+)ELb([01])ELb([01])E")
+# the prefill regime's kernels (rows a block, splits) and the LayerNorm
+# backward's (template arguments as mangled)
+_PREFILL_KERNEL = re.compile(r"fp8_mm_prefill_kernelILi(\d+)ELi(\d+)E")
+_LN_BWD_KERNEL = re.compile(r"(ln_bwd_warp_rows|ln_bwd_block_rows)I(\w+?)EEv")
 _DTYPE_NAMES = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
 
 
@@ -1620,8 +1725,12 @@ def _decode_registers(build, source):
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 k = _DECODE_KERNEL.search(m.group(1))
+                p = _PREFILL_KERNEL.search(m.group(1))
                 name = None
-                if k and k.group(1):
+                if p:
+                    name = f"fp8_mm_prefill_kernel bm{p.group(1)} " \
+                        f"splits{p.group(2)}"
+                elif k and k.group(1):
                     name = k.group(1)
                 elif k:
                     name = (f"paged_decode_kernel {_DTYPE_NAMES[k.group(2)]} "
@@ -1641,6 +1750,32 @@ def _decode_registers(build, source):
             if m and name:
                 regs[name]["registers"] = int(m.group(1))
     check(len(regs) > 0, f"{source}: no decode kernel in ptxas's log")
+    return regs
+
+
+def _ln_bwd_registers(build):
+    """``ptxas -v``'s registers and spill bytes of each LayerNorm backward
+    kernel (``csrc/layer_norm_bwd.cu``); fails on any spill."""
+    regs, name = {}, None
+    for line in build.library_path("layer_norm_bwd").with_suffix(".log") \
+            .read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = _LN_BWD_KERNEL.search(m.group(1))
+            name = f"{k.group(1)}<{k.group(2)}>" if k else None
+            if name:
+                regs[name] = {}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spill = int(m.group(1)) + int(m.group(2))
+            regs[name]["spill_bytes"] = spill
+            check(spill == 0, f"layer_norm_bwd {name}: ptxas spills {spill} "
+                  "bytes")
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs[name]["registers"] = int(m.group(1))
+    check(len(regs) > 0, "layer_norm_bwd: no kernel in ptxas's log")
     return regs
 
 
@@ -2049,6 +2184,8 @@ def counters():
             "lm_head_ce_fwd_f32": (ce.lm_head_ce_fwd, "f32_launches"),
             "lm_head_ce_bwd_f32": (ce.lm_head_ce_bwd, "f32_launches"),
             "fp8_matmul": (mm.fp8_dequant_matmul, "launches"),
+            "fp8_matmul_prefill": (mm.fp8_dequant_matmul,
+                                   "prefill_launches"),
             "flash_bwd_dkdv": (fa.flash_attention_bwd, "dkdv_launches"),
             "flash_bwd_dq": (fa.flash_attention_bwd, "dq_launches"),
             "flash_bwd_dkdv_sm90": (fa.flash_attention_bwd,
@@ -2084,8 +2221,11 @@ def read_counters():
     LM-head CE's
     less the fp32 route's, so that ``lm_head_ce_fwd``/``_bwd`` count the
     wgmma route's (``lm_head_ce_sm90.cu``) and ``*_f32`` the fp32 route's
-    (``lm_head_ce.cu``)."""
+    (``lm_head_ce.cu``); the fp8 matmul's less its prefill regime's, so
+    that ``fp8_matmul`` counts the decode regime and
+    ``fp8_matmul_prefill`` the prefill regime."""
     out = {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
+    out["fp8_matmul"] -= out["fp8_matmul_prefill"]
     out["lm_head_ce_fwd"] -= out["lm_head_ce_fwd_f32"]
     out["lm_head_ce_bwd"] -= out["lm_head_ce_bwd_f32"]
     out["flash_fwd"] -= out["flash_fwd_sm90"] + out["flash_fwd_f32"]
@@ -2107,7 +2247,9 @@ def expected_serve_launches(path, eng, n_prefill, n_decode):
     forward per prefill and one paged decode per decode step (verify call
     under speculation), 2 LayerNorms per layer plus the final one per
     forward, 4 block linears per layer through the fp8 matmul with fp8
-    weights; a draft call runs the draft's layers the same way."""
+    weights (a prefill in its prefill regime, a decode step in its decode
+    regime); a draft call runs the draft's layers the same way, in the
+    decode regime."""
     L = eng.cfg.num_layers
     exp = {k: 0 for k in counters()}
     steps = n_prefill + n_decode
@@ -2116,7 +2258,10 @@ def expected_serve_launches(path, eng, n_prefill, n_decode):
     decode = "paged_decode_fp8" if eng.ccfg.fp8 else "paged_decode"
     exp[decode] = L * n_decode
     if eng.fp8_weights:
-        exp["fp8_matmul"] = 4 * L * steps
+        # a prefill runs one padded prompt (m 512: the prefill regime), a
+        # decode step the fixed batch of 8 rows (the decode regime)
+        exp["fp8_matmul"] = 4 * L * n_decode
+        exp["fp8_matmul_prefill"] = 4 * L * n_prefill
     if eng.spec_k:
         Ld, calls = eng.draft_cfg.num_layers, eng.draft_calls
         exp["paged_decode"] += Ld * calls
@@ -2161,7 +2306,9 @@ def run_serve_path(torch, cfg, params, path, n_requests=N_REQUESTS):
         check(launches[k] == expect[k],
               f"{path} {k}: {launches[k]} launches, expected {expect[k]}")
     if eng.fp8_weights:
-        check(launches["fp8_matmul"] > 0, f"{path}: fp8 matmul never ran")
+        check(launches["fp8_matmul"] > 0 and
+              launches["fp8_matmul_prefill"] > 0,
+              f"{path}: a regime of the fp8 matmul never ran")
     if eng.ccfg.fp8:
         check(launches["paged_decode_fp8"] > 0 and
               launches["paged_decode"] == 0,
@@ -2290,7 +2437,7 @@ TRAIN_PER_STEP = {"flash_fwd": 0, "flash_fwd_sm90": 12, "flash_fwd_f32": 0,
                   "lm_head_ce_bwd": 1, "lm_head_ce_fwd_f32": 0,
                   "lm_head_ce_bwd_f32": 0, "paged_decode": 0,
                   "paged_decode_fp8": 0, "fp8_matmul": 0,
-                  "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
+                  "fp8_matmul_prefill": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
                   "flash_bwd_dkdv_sm90": 0, "flash_bwd_dq_sm90": 0,
                   "flash_bwd_f32": 0, "flash_bwd_f32_dkdv": 0,
                   "flash_bwd_f32_dq": 0, "xentropy_fwd": 0,
@@ -3650,11 +3797,13 @@ _PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_kernel", "flash_dkdv_kernel",
                  "flash_fwd_sm90", "flash_bwd_fused_sm90",
                  "flash_dkdv_sm90", "flash_dq_sm90",
                  "paged_decode_kernel",
-                 "_ln_fwd_body", "_ln_bwd_body", "_ce_fwd_body",
+                 "_ln_fwd_body", "ln_bwd_warp_rows", "ln_bwd_block_rows",
+                 "_ce_fwd_body",
                  "_ce_bwd_body", "ce32_fwd_kernel", "ce32_grad_kernel",
                  "ce32_product_kernel", "ce32_transpose_kernel", "FwdEpi",
                  "GradEpi", "DxEpi", "DeEpi",
-                 "fp8_mm_decode_kernel", "fp8_mm_tc_kernel", "mtu_kernel")
+                 "fp8_mm_decode_kernel", "fp8_mm_prefill_kernel",
+                 "mtu_kernel")
 
 
 def _kernel_class(name: str) -> str:
@@ -3677,19 +3826,27 @@ def _kernel_class(name: str) -> str:
     return "other PyTorch kernels"
 
 
-def _profile(torch, fn, reps):
+def _profile(torch, fn, reps, sessions=3):
+    """torch.profiler over ``reps`` calls of ``fn`` (after one unprofiled),
+    by kernel class. A session that recorded no device kernel missed the
+    calls' records (see ``device_launches``) and is taken again."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kern:
+            break
+    check(bool(kern), f"profiler: no device kernel recorded in {sessions} "
+          "sessions")
     dev_us = sum(e.self_device_time_total for e in kern)
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:12]
     by_class = {}
@@ -3752,12 +3909,12 @@ def trace(torch, cfg, params, path="serve"):
 
 def hgmma_counts(build):
     """``HGMMA`` instructions in the SASS of each wgmma library
-    (``cuobjdump -sass``): the LM-head CE's and the flash forward's and
-    backward's bf16/fp16 kernels run on the tensor cores' warpgroup
-    products or the check fails."""
+    (``cuobjdump -sass``): the LM-head CE's, the flash forward's and
+    backward's bf16/fp16 kernels and the fp8 matmul's prefill regime run on
+    the tensor cores' warpgroup products or the check fails."""
     out = {}
     for name in build.targets(["lm_head_ce_sm90", "flash_fwd_sm90",
-                               "flash_bwd_sm90"]):
+                               "flash_bwd_sm90", "fp8_matmul"]):
         sass = subprocess.run(
             [os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"),
              "-sass", str(build.library_path(name))], capture_output=True,
@@ -3788,7 +3945,8 @@ def main() -> int:
     sources = ["flash_fwd", "flash_fwd_sm90", "paged_decode", "flash_bwd",
                "flash_bwd_sm90",
                "lm_head_ce", "lm_head_ce_sm90", "fp8_matmul",
-               "multi_tensor_update", "bottleneck", "vpu_probe"]
+               "layer_norm_bwd", "multi_tensor_update", "bottleneck",
+               "vpu_probe"]
     sources = _build.targets(sources)       # the dtype-split sources
     _build.build_all(sources)
     log(f"build: {time.perf_counter() - t0:.1f} s")
@@ -3797,14 +3955,14 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "setmaxnreg" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-    log("wgmma in the LM-head CE and flash libraries: "
+    log("wgmma in the LM-head CE, flash and fp8 matmul libraries: "
         + json.dumps(hgmma_counts(_build)))
 
     log("e4m3 cast, card against CPU: " + json.dumps(check_e4m3_cast(torch)))
     timer = Timer(torch)
     kernels = [*check_flash(torch, timer), *check_flash_fwd_f32(torch, timer),
                check_paged(torch, timer),
-               check_paged_fp8(torch, timer), check_fp8_matmul(torch, timer),
+               check_paged_fp8(torch, timer), *check_fp8_matmul(torch, timer),
                check_layer_norm(torch, timer),
                check_flash_bwd(torch, timer),
                *check_flash_f32(torch, timer, split=False),
@@ -3828,7 +3986,7 @@ def main() -> int:
                       "delta_fold_max_abs_err", "by_shape",
                       "train_shape", "lamb_ms", "by_op", "d128_shape",
                       "alone_ms", "split_as_called_ms",
-                      "cudnn_composition_max_abs_err"):
+                      "cudnn_composition_max_abs_err", "plan"):
             if extra in kr:
                 log(f"  {kr['name']} {extra}: {json.dumps(kr[extra])}")
     del timer
@@ -3887,6 +4045,13 @@ def main() -> int:
     serve_trace = {**trace(torch, cfg, params, "serve"),
                    **trace(torch, cfg, params, "serve-fp8"),
                    **trace(torch, cfg, params, "serve-spec-fp8w")}
+    log(f"serve prefill of one 512-token prompt, device against wall time "
+        f"(trace, {card}): "
+        + json.dumps({path: {k: serve_trace[f"{path} prefill_512"][k]
+                             for k in ("device_ms_per_call",
+                                       "wall_ms_per_call",
+                                       "kernel_launches_per_call")}
+                      for path in SERVE_PATHS}))
     log(f"serve decode step, device against wall time (trace, {card}): "
         + json.dumps({path: {k: serve_trace[f"{path} decode_step_b8"][k]
                              for k in ("device_ms_per_call",

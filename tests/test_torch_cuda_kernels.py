@@ -57,6 +57,14 @@ sq != sk, segment padding, d 64/128 and padded, bf16 and fp16; the forward
 and the single pass's dk, dv bitwise on a rerun, its dq not (bulk
 reductions into an fp32 accumulator in a varying order).
 
+The fp8 dequant-matmul's prefill regime (m > 8, wgmma/TMA with the
+weight converted in registers, ``_prefill_plan``) is held like its decode
+regime at the serve linears and padded K, N, bitwise on a rerun, each row
+bitwise the same whatever rows come with it, one device launch a call. The
+LayerNorm backward (``csrc/layer_norm_bwd.cu``: a warp a row to h 1024, a
+block a row past it) is held at every shape and dtype the kernel takes,
+bitwise on a rerun, one device launch a call (no second pass).
+
 The shapes and dtypes ROADMAP §C records as repaired: fp16 flash, paged
 decode and LM-head CE are held like bf16 (two bf16 ulps bound two fp16
 ulps); fp32 kernels round nothing below fp32, so their outputs are held
@@ -1809,3 +1817,114 @@ def test_o0_gpt_autograd_runs_every_flash_backward_on_the_f32_route(gen, s):
     for g, r in zip(grads, refs):
         rel = float((g - r).norm() / r.norm().clamp_min(1e-30))
         assert rel <= 1e-4, rel
+
+
+# ---------------------------------------------------------------------------
+# B12's prefill regime (wgmma/TMA) and B7 (csrc/layer_norm_bwd.cu)
+# ---------------------------------------------------------------------------
+
+_SERVE_LINEARS = [(1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024)]
+
+
+def _device_kernels(fn):
+    """The device kernels one call of ``fn`` launches (after one unprofiled
+    call), as {name: count}."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("m", [9, 16, 100, 512, 2048])
+@pytest.mark.parametrize("K,N", _SERVE_LINEARS + [(1000, 1000)])
+def test_fp8_matmul_prefill_matches_plain(gen, m, K, N):
+    x = _rand(gen, m, K)
+    q, scale = mm.quantize_weight(_rand(gen, K, N, dtype=torch.float32)
+                                  * K ** -0.5)
+    before = mm.fp8_dequant_matmul.launches
+    y = mm.fp8_dequant_matmul(x, q, scale)
+    assert mm.fp8_dequant_matmul.launches == before + 1
+    assert y.dtype == torch.bfloat16 and y.shape == (m, N)
+    _close(y, mm.fp8_dequant_matmul_reference(x, q, scale), 1e-3)
+
+
+@pytest.mark.parametrize("K,N", _SERVE_LINEARS)
+def test_fp8_matmul_prefill_rows_bitwise_independent_and_rerun(gen, K, N):
+    """A prefill-regime row is bitwise the same on a rerun and in any call
+    of more than 8 rows that holds it (the plan is a function of K and N
+    alone), and the call is one device launch."""
+    x = _rand(gen, 512, K)
+    q, scale = mm.quantize_weight(_rand(gen, K, N, dtype=torch.float32)
+                                  * K ** -0.5)
+    y = mm.fp8_dequant_matmul(x, q, scale)
+    assert torch.equal(y, mm.fp8_dequant_matmul(x, q, scale))
+    for r0 in (0, 5, 127, 300, 503):
+        part = mm.fp8_dequant_matmul(x[r0:r0 + 9].contiguous(), q, scale)
+        assert torch.equal(part, y[r0:r0 + 9]), r0
+    assert torch.equal(mm.fp8_dequant_matmul(x[100:230].contiguous(), q,
+                                             scale), y[100:230])
+    kernels = _device_kernels(lambda: mm.fp8_dequant_matmul(x, q, scale))
+    assert sum(kernels.values()) == 1 and "fp8_mm_prefill_kernel" in \
+        next(iter(kernels)), kernels
+
+
+def _ln_bwd_check(gen, n, h, x_dtype, p_dtype, dy_dtype=None):
+    dy_dtype = x_dtype if dy_dtype is None else dy_dtype
+    x = _rand(gen, n, h, dtype=torch.float32).mul(2).add(0.5).to(x_dtype)
+    w = (1 + 0.1 * _rand(gen, h, dtype=torch.float32)).to(p_dtype)
+    dy = _rand(gen, n, h, dtype=torch.float32).to(dy_dtype)
+    got = ln.layer_norm_bwd(x, w, dy, (h,), 1e-5)
+    torch.cuda.synchronize()
+    ref = ln.layer_norm_bwd_reference(x, w, dy, (h,), 1e-5)
+    ulp = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10,
+           torch.float32: 2.0 ** -22}
+    assert [g.dtype for g in got] == [r.dtype for r in ref]
+    if n:
+        d = (got[0].float() - ref[0].float()).abs()
+        assert bool((d <= ref[0].float().abs() * 2 * ulp[x_dtype]
+                     + 1e-5 * float(ref[0].float().abs().max()) + 1e-6
+                     ).all()), float(d.max())
+    for g, r in zip(got[1:], ref[1:]):
+        d = (g.float() - r.float()).abs()
+        assert bool((d <= r.float().abs() * ulp[p_dtype]
+                     + 1e-4 * float(r.float().abs().max()) + 1e-6
+                     ).all()), float(d.max())
+    return x, w, dy, got
+
+
+@pytest.mark.parametrize("x_dtype,p_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float16, torch.float32), (torch.float32, torch.float32)])
+@pytest.mark.parametrize("h", [64, 1000, 1024, 4096, 16384])
+@pytest.mark.parametrize("n", [0, 1, 7, 8192, 8193])
+def test_layer_norm_bwd_kernel_shapes_match_plain(gen, n, h, x_dtype,
+                                                  p_dtype):
+    """Both kernels (a warp a row to h 1024, a block a row past it) at the
+    Triton kernel's whole range: masked tails, n 0, rows past a block's
+    share; ``.block_rows_launches`` names the kernel that ran."""
+    b0 = ln.layer_norm_bwd.block_rows_launches
+    _ln_bwd_check(gen, n, h, x_dtype, p_dtype)
+    assert ln.layer_norm_bwd.block_rows_launches == b0 + (h > 1024)
+
+
+@pytest.mark.parametrize("n,h", [(40, 100), (8192, 1024), (9, 2000)])
+def test_layer_norm_bwd_mixed_dtypes_match_plain(gen, n, h):
+    """x, dy and the parameters of three dtypes (dy fp32 beside a bf16 x,
+    as a bf16 LayerNorm with fp32 output gives it)."""
+    _ln_bwd_check(gen, n, h, torch.bfloat16, torch.float16, torch.float32)
+
+
+@pytest.mark.parametrize("h", [1024, 4096])
+def test_layer_norm_bwd_is_one_launch_and_bitwise_on_a_rerun(gen, h):
+    x, w, dy, got = _ln_bwd_check(gen, 8192, h, torch.bfloat16,
+                                  torch.bfloat16)
+    again = ln.layer_norm_bwd(x, w, dy, (h,), 1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    kernels = _device_kernels(lambda: ln.layer_norm_bwd(x, w, dy, (h,),
+                                                        1e-5))
+    assert sum(kernels.values()) == 1 and "ln_bwd_" in next(iter(kernels)), \
+        kernels
