@@ -18,6 +18,9 @@ scale and a shift::
   kernel ``csrc/bottleneck.cu``, which replaces the Pallas ``_kernel``
   (``scripts/bottleneck_proto.py:89``, launched at ``:157``), on the CPU
   :func:`plain_block`; ``fused_block.launches`` counts kernel launches;
+- :func:`bottleneck_plan` — the kernel's schedule and shared-memory budget
+  in Python (grid, segment length), which the wrapper launches with;
+  :func:`plan_schedule` lists what a block loads and computes, in order;
 - :func:`cudnn_block` — the library composition timed beside the kernel:
   three ``F.conv2d`` in ``channels_last`` bf16 with the folded batch norms
   and ReLUs as bf16 elementwise ops;
@@ -32,6 +35,7 @@ Run on a machine with a CUDA card::
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -91,8 +95,102 @@ def plain_block(x, p):
     return torch.relu(h + x.float()).to(dtype)
 
 
-# apex_bottleneck(x, w1, w2, w3, g1, b1, g2, b2, g3, b3, out, n, stream)
-_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_void_p]
+# The fused kernel's schedule (csrc/bottleneck.cu mirrors it). An image is
+# cut into STRIPS column strips of STRIP output columns, each strip into
+# BANDS bands of BAND output rows; a unit of work is a segment of
+# ``seg_bands`` consecutive bands of one strip. A block loads the weights
+# once, then walks its units (block b: units b, b + grid, ...); each unit
+# starts with one phase-1-only step (the h1 rows above its first band) and
+# then, band by band, computes BAND new h1 rows over the strip's HALO_W
+# columns and the band's output.
+BAND, STRIP = 4, 14
+HALO_W = STRIP + 2
+STRIPS, BANDS = W // STRIP, H // BAND
+SMS = 132                                 # the H100's SMs
+X_STAGES = 4
+SMEM_LIMIT = 232_448                      # shared memory a block may use
+# the kernel's shared memory, in its order (bytes)
+SMEM_LAYOUT = (
+    ("w1", C * S * 2), ("w2", 9 * S * S * 2), ("w3", S * C * 2),
+    ("x ring", X_STAGES * BAND * HALO_W * 64 * 2),
+    ("residual/output", BAND * STRIP * C * 2),
+    ("h1 window", 8 * (6 * HALO_W + 8) * 16),
+    ("h2", BAND * HALO_W * S * 2),
+    ("folded vectors", (4 * S + 2 * C) * 4),
+    ("barriers", 256), ("alignment slack", 1024))
+SMEM_BYTES = sum(b for _, b in SMEM_LAYOUT)
+
+
+@dataclass(frozen=True)
+class Plan:
+    n: int
+    grid: int            # blocks, at most one an SM
+    seg_bands: int       # bands a unit
+    segs: int            # units a strip
+    units: int
+    smem_bytes: int
+
+
+def bottleneck_plan(n: int, sms: int = SMS) -> Plan:
+    """The launch of ``n`` images on ``sms`` SMs: the segment length whose
+    slowest block runs the fewest steps (a band counting 2, a unit's
+    phase-1-only first step 1), longer segments on a tie (less
+    recompute); the grid is ``min(sms, units)``."""
+    if n < 1:
+        raise ValueError(f"bottleneck_plan: n must be >= 1, got {n}")
+    best = None
+    for seg in range(BANDS, 0, -1):
+        segs = -(-BANDS // seg)
+        units = n * STRIPS * segs
+        grid = min(sms, units)
+        cost = -(-units // grid) * (2 * seg + 1)
+        if best is None or cost < best[0]:
+            best = (cost, Plan(n, grid, seg, segs, units, SMEM_BYTES))
+    return best[1]
+
+
+def plan_units(plan: Plan, block: int):
+    """(image, strip, first band, bands) of each unit of ``block``, in the
+    order it runs them."""
+    out = []
+    for u in range(block, plan.units, plan.grid):
+        img, rest = divmod(u, STRIPS * plan.segs)
+        strip, seg = divmod(rest, plan.segs)
+        first = seg * plan.seg_bands
+        out.append((img, strip, first, min(plan.seg_bands, BANDS - first)))
+    return out
+
+
+def plan_schedule(plan: Plan, block: int):
+    """What ``block`` does, in order: ``("weights", name)`` for each weight
+    it loads (the kernel issues w2 and w3 after the first step's x boxes),
+    ``("h1", image, strip, first row)`` for each phase-1 product
+    (BAND h1 rows from ``first row`` over the strip's HALO_W columns, rows
+    outside the image zero), ``("tile", image, strip, band)`` for each
+    output band it computes."""
+    ev = [("weights", name) for name in ("w1", "w2", "w3")]
+    for img, strip, first, bands in plan_units(plan, block):
+        for b in range(first - 1, first + bands):
+            ev.append(("h1", img, strip, b * BAND + 1))
+            if b >= first:
+                ev.append(("tile", img, strip, b))
+    return ev
+
+
+def recompute_ratio(plan: Plan) -> float:
+    """h1 pixels phase 1 computes over output pixels (the halo's share)."""
+    h1 = sum(e[0] == "h1" for b in range(plan.grid)
+             for e in plan_schedule(plan, b)) * BAND * HALO_W
+    return h1 / (plan.n * H * W)
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# apex_bottleneck(x, w1, w2, w3, g1, b1, g2, b2, g3, b3, out, n, grid,
+#                 seg_bands, smem, stream)
+_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _SHAPES = {"w1": (C, S), "w2": (3, 3, S, S), "w3": (S, C), "g1": (S,),
            "b1": (S,), "g2": (S,), "b2": (S,), "g3": (C,), "b3": (C,)}
 
@@ -112,10 +210,13 @@ def _fused_cuda(x, p):
                              f"aligned bfloat16 tensor on {x.device}, got "
                              f"{t.dtype} on {t.device}")
     out = torch.empty_like(x)
+    if x.shape[0] == 0:
+        return out
+    plan = bottleneck_plan(x.shape[0], _sm_count(x.device))
     fn = _build.function("bottleneck", "apex_bottleneck", _ARGS)
     err = fn(*(ctypes.c_void_p(t.data_ptr())
                for t in [x] + [p[k] for k in PARAM_NAMES] + [out]),
-             x.shape[0],
+             x.shape[0], plan.grid, plan.seg_bands, plan.smem_bytes,
              ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
     _build.check(err, what)
     fused_block.launches += 1

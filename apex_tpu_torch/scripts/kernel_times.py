@@ -29,8 +29,20 @@ and at one padded prompt (m512, its prefill regime) at the GPT's four
 block linears (K1024 N3072, K1024 N1024, K1024 N4096, K4096 N1024), the
 prompt's beside bf16 ``torch.matmul`` on the unquantized weight, the
 LayerNorm backward at the train step's n8192 h1024 (bf16 x and dy; bf16
-and fp32 parameters) beside ``F.layer_norm``'s autograd backward, and the
-timer's own floor (a one-element add).
+and fp32 parameters) beside ``F.layer_norm``'s autograd backward, the
+fused bottleneck (B15, ``scripts/bottleneck_proto.py``'s ``fused_block``)
+at N 32 beside its cuDNN composition, and the timer's own floor (a
+one-element add).
+
+µs-scale kernels read near the event pair's floor, so the Triton kernels
+B6 (LayerNorm forward at m 8, 512 and 8192, h 1024, bf16 x; and m 8192 in
+fp32, the O0 step's), B10 and B11 (softmax cross entropy forward and
+backward at ResNet-50's [256, 1000] fp32 logits) are also timed by
+``torch.profiler``'s CUPTI kernel durations (the L2 flushed before each
+call, as for the event pairs), beside their event times and their bounds
+(bytes at 3.35 TB/s against fp32 operations at 67 TFLOP/s), and so is the
+one-element add, the profiler's own floor: the ``profiled`` object of the
+result.
 
 The fp32 (O0) rows, each beside the PyTorch call or composition that
 computes the same function in exact fp32 (TF32 off, float32 matmul
@@ -299,6 +311,78 @@ def _o0_step(torch, b=8, s=1024):
                     by_class.items(), key=lambda kv: -kv[1][0])))
 
 
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
+FP32_FLOPS_PER_S = 67e12        # fp32 outside the tensor cores
+
+
+def _profiled_ms(torch, fn, key, flush, calls=20):
+    """Mean CUPTI duration (ms) of the device kernels whose name holds
+    ``key``, over ``calls`` calls of ``fn`` under ``torch.profiler``, the
+    L2 flushed before each; and the launches seen (``calls`` expected)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us, count = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and key in ev.key:
+            us += ev.self_device_time_total
+            count += ev.count
+    return (us / 1e3 / count if count else None), count
+
+
+def _triton_rows(torch, timed, flush):
+    """B6, B10 and B11 by event pair and by the profiler, with bounds."""
+    from apex_tpu_torch.ops import fused_ce as xe
+    from apex_tpu_torch.ops import layer_norm as ln
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+
+    def row(name, fn, key, nbytes, flops):
+        prof_ms, seen = _profiled_ms(torch, fn, key, flush)
+        out[name] = dict(event_ms=timed(fn), profiler_ms=prof_ms,
+                         profiler_launches=seen,
+                         bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                                      flops / FP32_FLOPS_PER_S) * 1e3,
+                         bound_by="bytes" if nbytes / HBM_BYTES_PER_S >=
+                         flops / FP32_FLOPS_PER_S else "operations")
+
+    # the floor: a one-element add (its kernel's name holds "_add")
+    tiny = torch.zeros(1, device="cuda")
+    row("timer floor: one-element add", lambda: tiny.add_(1.0),
+        "_add", 8, 1.0)
+    h = 1024
+    for m, x_dt, p_dt in ((8, torch.bfloat16, torch.float32),
+                          (512, torch.bfloat16, torch.float32),
+                          (8192, torch.bfloat16, torch.bfloat16),
+                          (8192, torch.float32, torch.float32)):
+        x = torch.randn(m, h, generator=gen, device="cuda").to(x_dt)
+        w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(p_dt)
+        b = (0.1 * torch.randn(h, generator=gen, device="cuda")).to(p_dt)
+        row(f"B6 LN fwd m{m} h{h} {str(x_dt)[6:]} x, {str(p_dt)[6:]} params",
+            lambda: ln.fused_layer_norm_affine(x, w, b, (h,), 1e-5, x_dt),
+            "_ln_fwd", 2 * m * h * x.element_size() + 2 * h * w.element_size(),
+            10.0 * m * h)
+    n, V, ls = 256, 1000, 0.1
+    x = 3 * torch.randn(n, V, generator=gen, device="cuda")
+    tgt = torch.randint(0, V, (n,), generator=gen, device="cuda").to(
+        torch.int32)
+    dl = torch.full((n,), 1.0 / n, device="cuda")
+    _, m_, l_ = xe._xent_fwd_cuda(x, tgt, ls)
+    row("B10 softmax CE fwd [256, 1000] fp32",
+        lambda: xe._xent_fwd_cuda(x, tgt, ls), "_ce_fwd",
+        n * V * 4 + n * 4 + 3 * n * 4, 12.0 * n * V)
+    row("B11 softmax CE bwd [256, 1000] fp32",
+        lambda: xe._xent_bwd_cuda(x, tgt, m_, l_, dl, ls), "_ce_bwd",
+        2 * n * V * 4 + 4 * n * 4, 7.0 * n * V)
+    return out
+
+
 def main() -> int:
     args = _args()
     here = os.path.dirname(os.path.abspath(__file__))
@@ -495,12 +579,24 @@ def main() -> int:
         (xl, wl, torch.zeros_like(wl)), dyl))
     del xl, dyl, wl
 
+    # the fused bottleneck at the proto's N 32, beside the cuDNN composition
+    from apex_tpu_torch.scripts import bottleneck_proto as bp
+    torch.backends.cudnn.allow_tf32 = False
+    pb = bp.make_params(device="cuda")
+    xb = bp.make_input(bp.N, device="cuda")
+    wts = bp.cudnn_weights(pb)
+    res["bottleneck B15 n32"] = timed(lambda: bp.fused_block(xb, pb))
+    res["library cuDNN composition n32"] = timed(
+        lambda: bp.cudnn_block(xb, pb, wts))
+    del xb, pb, wts
+    profiled = _triton_rows(torch, timed, flush)
+
     o0 = _o0_step(torch)
     o0_long = _o0_step(torch, 2, 4096)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    out = dict(root=root, card=card, ms=res, o0_step=o0,
+    out = dict(root=root, card=card, ms=res, profiled=profiled, o0_step=o0,
                o0_step_s4096=o0_long,
                fp32_matmul=dict(
                    allow_tf32=torch.backends.cuda.matmul.allow_tf32,

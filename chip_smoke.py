@@ -12,8 +12,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
 1. set-up — build the CUDA kernels from ``apex_tpu_torch/csrc`` (one
    ``nvcc`` per source and dtype, started together), count the ``HGMMA``
    instructions in the wgmma libraries, the LM-head CE's, the flash
-   forward's and backward's and the fp8 matmul's (``cuobjdump -sass``;
-   none fails), turn TF32
+   forward's and backward's, the fp8 matmul's and the fused bottleneck's
+   (``cuobjdump -sass``; none fails), turn TF32
    off, print the card's name and power limit; the
    fp8 codec's e4m3 cast and scale on the card against the CPU's,
    bitwise;
@@ -122,8 +122,12 @@ fp32 at 1601 over a ragged 1000 x 1003), and B9 bitwise on a second run,
 its device launches in one call counted by ``torch.profiler`` (each of
 its three products once a token chunk, no other kernel); the fp8 matmul
 at K = N = 1000. And B15 (the fused
-bottleneck, N 32) within two bf16 ulps plus 2^-5 of its plain version and
-0.15 of the cuDNN composition; B14
+bottleneck, ``csrc/bottleneck.cu``: persistent, weights resident in
+shared memory, wgmma/TMA) at N 32 within two bf16 ulps plus 2^-5 of its
+plain version and 0.15 of the cuDNN composition, bitwise on a rerun, at
+n 3 against the plain version, each image of an n 5 batch bitwise the same
+image alone, one device launch a call (profiler, in a fresh process),
+``HGMMA`` in its SASS and no spill; B14
 bitwise (mul, max, where, iota_cmp_where) or within 2 ulps (exp, exp2).
 
 The flash forward and single-pass backward are held on both routes: the
@@ -3067,7 +3071,55 @@ BOTTLENECK_FLOOR = 2.0 ** -5
 BOTTLENECK_LIB_TOL = 0.15          # the proto's own limit against XLA
 
 
+def _bottleneck_registers(build):
+    """``ptxas -v``'s registers and spill bytes of ``bottleneck_kernel``;
+    fails on a spill."""
+    regs = {}
+    for line in build.library_path("bottleneck").with_suffix(".log") \
+            .read_text().splitlines():
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            regs["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs["registers"] = int(m.group(1))
+    check(regs.get("spill_bytes") == 0,
+          f"bottleneck_kernel: ptxas spills {regs.get('spill_bytes')} bytes")
+    return regs
+
+
+# B15's device launches a call, counted by device_launches in a fresh
+# process. In the kernel phase's process every profiler session of this
+# call has recorded no device kernel at all (8 of 8 on an H100), while a
+# fresh process records the kernel in every session.
+_B15_LAUNCHES = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as cs
+from apex_tpu_torch.scripts import bottleneck_proto as bp
+p = bp.make_params(device="cuda")
+x = bp.make_input(bp.N, device="cuda")
+print(json.dumps(cs.device_launches(torch, lambda: bp.fused_block(x, p),
+                                    ["bottleneck_kernel"])))
+"""
+
+
+def bottleneck_device_launches():
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run([sys.executable, "-c", _B15_LAUNCHES, root],
+                         capture_output=True, text=True, timeout=600,
+                         check=True, cwd=root)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
 def check_bottleneck(torch, timer):
+    """B15 at N 32 against its plain version and the cuDNN composition;
+    bitwise on a rerun; n 3 against the plain version; each image of an n 5
+    batch bitwise the same image alone; one device launch a call
+    (profiler, in a fresh process); no spill."""
+    from apex_tpu_torch.ops import _build
     from apex_tpu_torch.scripts import bottleneck_proto as bp
     p = bp.make_params(device="cuda")
     x = bp.make_input(bp.N, device="cuda")
@@ -3081,6 +3133,21 @@ def check_bottleneck(torch, timer):
     check(lib_err < BOTTLENECK_LIB_TOL, f"bottleneck vs the cuDNN "
           f"composition: {lib_err} >= {BOTTLENECK_LIB_TOL}")
     check(bool(torch.isfinite(y.float()).all()), "bottleneck: non-finite")
+    check(torch.equal(y, bp.fused_block(x, p)),
+          "bottleneck: a rerun is not bitwise the first call")
+    del ref, lib
+    x3 = bp.make_input(3, device="cuda")
+    err3 = bf16_err(bp.fused_block(x3, p), bp.plain_block(x3, p),
+                    BOTTLENECK_FLOOR, "bottleneck n 3 vs plain")
+    x5 = bp.make_input(5, device="cuda")
+    y5 = bp.fused_block(x5, p)
+    for i in range(5):
+        check(torch.equal(y5[i:i + 1],
+                          bp.fused_block(x5[i:i + 1].contiguous(), p)),
+              f"bottleneck: image {i} of n 5 differs alone")
+    launches = bottleneck_device_launches()
+    check(launches == {"bottleneck_kernel": 1, "other": 0},
+          f"bottleneck: device launches {launches}")
     ms = timer(lambda: bp.fused_block(x, p))
     plain_ms = timer(lambda: bp.plain_block(x, p), iters=10)
     lib_ms = timer(lambda: bp.cudnn_block(x, p, wts))
@@ -3097,6 +3164,11 @@ def check_bottleneck(torch, timer):
                 tolerance=f"2 bf16 ulp + {BOTTLENECK_FLOOR} vs plain; < "
                           f"{BOTTLENECK_LIB_TOL} vs the cuDNN composition",
                 cudnn_composition_max_abs_err=lib_err,
+                checked="bitwise on a rerun; n 3 vs plain (max err "
+                        f"{err3:.3g}); each image of n 5 bitwise alone",
+                device_launches_per_call=launches,
+                plan=dict(vars(bp.bottleneck_plan(bp.N))),
+                registers=_bottleneck_registers(_build),
                 ms=ms, plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
                 library_ms=lib_ms,
                 library="three channels_last bf16 F.conv2d with the folded "
@@ -3910,11 +3982,13 @@ def trace(torch, cfg, params, path="serve"):
 def hgmma_counts(build):
     """``HGMMA`` instructions in the SASS of each wgmma library
     (``cuobjdump -sass``): the LM-head CE's, the flash forward's and
-    backward's bf16/fp16 kernels and the fp8 matmul's prefill regime run on
-    the tensor cores' warpgroup products or the check fails."""
+    backward's bf16/fp16 kernels, the fp8 matmul's prefill regime and the
+    fused bottleneck run on the tensor cores' warpgroup products or the
+    check fails."""
     out = {}
     for name in build.targets(["lm_head_ce_sm90", "flash_fwd_sm90",
-                               "flash_bwd_sm90", "fp8_matmul"]):
+                               "flash_bwd_sm90", "fp8_matmul",
+                               "bottleneck"]):
         sass = subprocess.run(
             [os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"),
              "-sass", str(build.library_path(name))], capture_output=True,
@@ -3950,12 +4024,18 @@ def main() -> int:
     sources = _build.targets(sources)       # the dtype-split sources
     _build.build_all(sources)
     log(f"build: {time.perf_counter() - t0:.1f} s")
+    # every library loaded before the first profiler session: a library
+    # first loaded into a process after many sessions has lost every device
+    # record of the process's later sessions (observed on an H100)
+    for name in sources:
+        _build.load(name)
     for name in sources:
         text = _build.library_path(name).with_suffix(".log").read_text()
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "setmaxnreg" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-    log("wgmma in the LM-head CE, flash and fp8 matmul libraries: "
+    log("wgmma in the LM-head CE, flash, fp8 matmul and bottleneck "
+        "libraries: "
         + json.dumps(hgmma_counts(_build)))
 
     log("e4m3 cast, card against CPU: " + json.dumps(check_e4m3_cast(torch)))
