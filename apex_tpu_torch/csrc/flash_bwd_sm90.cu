@@ -112,6 +112,22 @@
 // - The 3-D TMA map over [b h, s, d] keeps a tile inside its head and
 //   zero-fills past s. lse is kept as lse * log2(e), so p = 2^(s * scale *
 //   log2(e) - lse * log2(e)) is one FMA and one ex2.
+//
+// Attention dropout, in the single pass only (the split refuses it in the
+// wrapper): the `_p_dp_ds` rule (:526-555). A variant of the kernel (DROP,
+// chosen by the C entry when the keep threshold is not 0; the code without
+// dropout is unchanged) regenerates the forward's keep bit of each (query
+// row, key) element from dropout_hash.cuh, takes dp = keep ? dp / (1 -
+// rate) : 0 before ds = p (dp - delta) with the undropped p, and puts the
+// dropped p (0, or p / (1 - rate)) in S^T's registers for the dV product.
+// delta is rowsum(do * out) of the dropped output, as given. Each consumer
+// hashes its own elements in the probabilities loop (the key's part of the
+// hash computed once a tile: one xor and one fmix32 an element). At 232
+// registers a consumer thread spilled with the hash at d 128, so the
+// variant takes 240 and leaves the producer warpgroup 24 (the same total).
+// Hashing on the producer's two idle warps instead, into a word of keep
+// bits a consumer thread and stage, was slower: two warps at 24 registers
+// fell behind the consumers.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -120,6 +136,7 @@
 
 #include <type_traits>
 
+#include "dropout_hash.cuh"
 #include "dtype.cuh"
 #include "turns.cuh"
 #include "wgmma_attn.cuh"
@@ -162,6 +179,10 @@ struct Params {
   const void* dout;    // dq: do, for delta
   int h, sq, sk, causal;
   float scale;
+  // the single pass's dropout (its DROP variant): the seed, the keep
+  // threshold, 1 / (1 - rate)
+  uint32_t seed, threshold;
+  float inv;
 };
 
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -702,7 +723,7 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 3, 256;\n" ::: "memory");
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
@@ -764,8 +785,10 @@ flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap map_q,
   const int wgi = threadIdx.x / 128;
   if (wgi == 0) {
     // ---- producer: warp 0 keeps the ring full (as in the dk/dv kernel),
-    // warp 1 adds the dQ partials into dq_acc in the block's turn
-    wg::setmaxnreg_dec<40>();
+    // warp 1 adds the dQ partials into dq_acc in the block's turn. The
+    // dropout variant moves 8 registers a thread from the producer (24) to
+    // the consumers (240): with the hash they spilled at 232 at d 128
+    wg::setmaxnreg_dec<DROP ? 24 : 40>();
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
       if (lane == 0) {
@@ -864,7 +887,7 @@ flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap map_q,
     }
   } else {
     // ---- consumers: 64 keys each
-    wg::setmaxnreg_inc<232>();
+    wg::setmaxnreg_inc<DROP ? 240 : 232>();
     const int cw = wgi - 1, t = threadIdx.x % 128;
     const int warp = t / 32, g = (t % 32) / 4, tig = t % 4;
     const int n0w = n0 + 64 * cw;
@@ -904,6 +927,14 @@ flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap map_q,
       const float* lse = sLse + stage * TILE;
       const float* dl = sDelta + stage * TILE;
       const int32_t* sidq = sSid + stage * TILE;
+      // dropout: the hash's (seed, batch, head, key) terms of the two keys,
+      // a tile at a time (held across the loop they cost registers)
+      uint32_t dkey[2];
+      if constexpr (DROP) {
+        const uint32_t hb = dropout::base(p.seed, bi, bh - bi * p.h);
+        dkey[0] = hb ^ dropout::k_term(key0);
+        dkey[1] = hb ^ dropout::k_term(key1);
+      }
       auto probs = [&](auto masked) {
 #pragma unroll
         for (int nb = 0; nb < TILE / 8; ++nb)
@@ -925,8 +956,15 @@ flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap map_q,
                 }
                 pv = ok ? pv : 0.f;
               }
-              s[i] = pv;
-              dp[i] = pv * (dp[i] - de);
+              if constexpr (DROP) {   // dV takes p dropped, ds p undropped
+                const bool kept = dropout::keep(
+                    dkey[r] ^ dropout::q_term(q0 + ql), p.threshold);
+                dp[i] = pv * ((kept ? dp[i] * p.inv : 0.f) - de);
+                s[i] = kept ? pv * p.inv : 0.f;
+              } else {
+                s[i] = pv;
+                dp[i] = pv * (dp[i] - de);
+              }
             }
           }
       };
@@ -1166,12 +1204,14 @@ struct Args {
   int b, h, sq, sk, causal;
   float scale;
   cudaStream_t stream;
+  uint32_t seed = 0, threshold = 0;   // the single pass's dropout
+  float inv = 1.f;
 };
 
 // which kernel: the split's two, or the single pass
 enum Kind { DKDV, DQ, FUSED };
 
-template <typename T, int D, Kind K>
+template <typename T, int D, Kind K, bool DROP = false>
 cudaError_t launch(const Args& a) {
   const long bh = (long)a.b * a.h;
   // the resident side's boxes are 128 rows, the streamed side's its TILE
@@ -1189,7 +1229,8 @@ cudaError_t launch(const Args& a) {
                  static_cast<const int32_t*>(a.sid_q),
                  static_cast<const int32_t*>(a.sid_kv),
                  a.out0, a.out1, a.out2, static_cast<int*>(a.turns), a.o,
-                 a.dout, a.h, a.sq, a.sk, a.causal, a.scale};
+                 a.dout, a.h, a.sq, a.sk, a.causal, a.scale, a.seed,
+                 a.threshold, a.inv};
   const int s = K == DQ ? a.sq : a.sk;
   const dim3 grid((unsigned)bh, (s + RES_ROWS - 1) / RES_ROWS);
   if constexpr (K == FUSED) {
@@ -1198,7 +1239,7 @@ cudaError_t launch(const Args& a) {
                      64))
       return MAP_REFUSED;
     const size_t smem = FusedLayout<D>::SMEM;
-    auto kern = flash_bwd_fused_sm90<T, D>;
+    auto kern = flash_bwd_fused_sm90<T, D, DROP>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -1212,6 +1253,30 @@ cudaError_t launch(const Args& a) {
     kern<<<grid, THREADS, smem, a.stream>>>(mq, mk, mv, mdo, p);
   }
   return cudaGetLastError();
+}
+
+// the kernel of kind K (and, for the single pass, variant DROP) of the
+// operands' dtype and head dim
+template <Kind K, bool DROP>
+int launch_of(const Args& a, int d, int dtype) {
+  switch (dtype) {
+    case 0:
+#if APEX_HAS_DTYPE(0)
+      return d == 64 ? launch<__nv_bfloat16, 64, K, DROP>(a)
+                     : launch<__nv_bfloat16, 128, K, DROP>(a);
+#else
+      return cudaErrorInvalidValue;
+#endif
+    case 1:
+#if APEX_HAS_DTYPE(1)
+      return d == 64 ? launch<__half, 64, K, DROP>(a)
+                     : launch<__half, 128, K, DROP>(a);
+#else
+      return cudaErrorInvalidValue;
+#endif
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <Kind K>
@@ -1229,23 +1294,12 @@ int dispatch(const Args& a, int d, int dtype) {
       err = cudaMemsetAsync(a.out1, 0, bytes, a.stream);
     return err;
   }
-  switch (dtype) {
-    case 0:
-#if APEX_HAS_DTYPE(0)
-      return d == 64 ? launch<__nv_bfloat16, 64, K>(a)
-                     : launch<__nv_bfloat16, 128, K>(a);
-#else
-      return cudaErrorInvalidValue;
-#endif
-    case 1:
-#if APEX_HAS_DTYPE(1)
-      return d == 64 ? launch<__half, 64, K>(a) : launch<__half, 128, K>(a);
-#else
-      return cudaErrorInvalidValue;
-#endif
-    default:
-      return cudaErrorInvalidValue;
+  // the single pass's variant with dropout where the threshold keeps
+  // fewer than all
+  if constexpr (K == FUSED) {
+    if (a.threshold) return launch_of<K, true>(a, d, dtype);
   }
+  return launch_of<K, false>(a, d, dtype);
 }
 
 }  // namespace
@@ -1295,19 +1349,17 @@ extern "C" int apex_flash_bwd_sm90_dq(const void* q, const void* k,
 // caller zeroes, as it zeroes `turns` (b * h * ceil(sq / 64) int32, one
 // counter a 64-row query tile, left at the tile's count of key blocks);
 // from a given delta (rowsum(do * out), computed outside as the JAX
-// package computes it).
-extern "C" int apex_flash_bwd_sm90_fused(const void* q, const void* k,
-                                         const void* v, const void* dout,
-                                         const void* lse, const void* delta,
-                                         const void* sid_q,
-                                         const void* sid_kv, void* dq_acc,
-                                         void* turns, void* dk, void* dv,
-                                         int b, int h, int sq, int sk, int d,
-                                         int causal, float scale, int dtype,
-                                         void* stream) {
+// package computes it). Dropout as the forward's C entry takes it: `seed`,
+// `threshold` (0: no dropout) and `inv` = 1 / (1 - rate).
+extern "C" int apex_flash_bwd_sm90_fused(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* sid_q,
+    const void* sid_kv, void* dq_acc, void* turns, void* dk, void* dv, int b,
+    int h, int sq, int sk, int d, int causal, float scale, int dtype,
+    unsigned int seed, unsigned int threshold, float inv, void* stream) {
   const Args a{q, k, v, dout, lse, const_cast<void*>(delta), sid_q, sid_kv,
                dk, dv, dq_acc, turns, nullptr, b, h, sq, sk, causal, scale,
-               static_cast<cudaStream_t>(stream)};
+               static_cast<cudaStream_t>(stream), seed, threshold, inv};
   return dispatch<FUSED>(a, d, dtype);
 }
 

@@ -65,6 +65,18 @@
 //   longest loops (the last rows) first.
 // - The 3-D TMA map over [b h, s, d] keeps a tile inside its head and
 //   zero-fills rows past s; segment ids are masked by index.
+//
+// Attention dropout (the `_fwd_kernel`'s, :305-308 and :334-339): a variant
+// of the kernel (DROP, chosen by the C entry when the keep threshold is not
+// 0, so the code without dropout is the same instructions as before) keeps
+// l on the undropped p, then replaces each p by 0 where the element is
+// dropped and by p / (1 - rate) where it is kept, before the register-A
+// conversion to v's dtype for P V; lse is unchanged. The keep bit is
+// dropout_hash.cuh's hash of (seed, batch, head, query row, key), the
+// row's part hoisted out of the loop: one xor and one fmix32 an element,
+// about ten integer operations beside the element's two products of 2 d
+// flops, computed into two words of keep bits while the tile's S product
+// runs. A tile runs its products whatever its keep bits.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -73,6 +85,7 @@
 
 #include <type_traits>
 
+#include "dropout_hash.cuh"
 #include "dtype.cuh"
 #include "wgmma_attn.cuh"
 
@@ -107,6 +120,9 @@ struct Params {
   float* lse;
   int h, sq, sk, causal;
   float scale;
+  // dropout (the DROP variant): the seed, the keep threshold, 1 / (1 - rate)
+  uint32_t seed, threshold;
+  float inv;
 };
 
 __device__ __forceinline__ float ex2(float x) {
@@ -129,7 +145,7 @@ __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
 // thread; the 64-row block (two) from 128, so that two blocks share an SM
 // (setmaxnreg then gives its consumer 216): one block's prologue and
 // epilogue run while the other's loop does
-template <typename T, int D, int CONS>
+template <typename T, int D, int CONS, bool DROP>
 __global__ void __launch_bounds__(CONS == 1 ? 256 : MAX_THREADS,
                                   CONS == 1 ? 2 : 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q,
@@ -228,10 +244,14 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q,
     const int m0w = m0 + 64 * cw;
     const int row0 = m0w + 16 * warp + g;
     int sid[2];
+    uint32_t drow[2];    // dropout: the hash's (seed, batch, head, row) terms
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
       sid[r] = (use_seg && row < sq) ? p.sid_q[(long)bi * sq + row] : -1;
+      if constexpr (DROP)
+        drow[r] = dropout::base(p.seed, bi, bh - bi * p.h) ^
+                  dropout::q_term(row);
     }
     // the last key this warpgroup's rows see (causal)
     const int last_w = min(sq - 1, m0w + 63) + offset;
@@ -257,6 +277,23 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q,
       for (int j = 1; j < D / 16; ++j)
         wg::mma_ss128<T, 1>(s, wg::kmajor_desc<BM>(sQ, 64 * cw, j),
                             wg::kmajor_desc<KT>(tk, 0, j));
+    };
+    // dropout: the keep bits of the tile from key n0 (bit i % 32 of
+    // kb[i / 32]: element i, key n0 + 8 (i / 4) + 2 tig + i % 2), computed
+    // while the tile's S product runs (in the softmax they spilled at d 128)
+    uint32_t kb[2];
+    auto keep_bits = [&](int n0) {
+      if constexpr (DROP) {
+        kb[0] = kb[1] = 0u;
+#pragma unroll
+        for (int i = 0; i < KT / 2; ++i) {
+          const int key = n0 + 8 * (i / 4) + 2 * tig + i % 2;
+          kb[i / 32] |= (uint32_t)dropout::keep(
+                            drow[(i / 2) % 2] ^ dropout::k_term(key),
+                            p.threshold)
+                        << (i % 32);
+        }
+      }
     };
     // O += P V over the tile in `st` (p rounded to v's dtype), V MN-major
     uint32_t pa[KT / 16][4];
@@ -336,9 +373,11 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
       for (int i = 0; i < KT / 2; ++i) {
         const int r = (i / 2) % 2;
-        const float pv = dead[r] ? 0.f : ex2(s[i] - mn[r]);
-        s[i] = pv;
+        float pv = dead[r] ? 0.f : ex2(s[i] - mn[r]);
         l[r] += pv;
+        if constexpr (DROP)     // l took the undropped p; P V the dropped
+          pv = (kb[i / 32] >> (i % 32)) & 1u ? pv * p.inv : 0.f;
+        s[i] = pv;
       }
     };
 
@@ -359,6 +398,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q,
       wg::wgmma_fence();
       issue_s(s, stage);
       wg::wgmma_commit();
+      keep_bits(0);
       wg::wgmma_wait<0>();
       wg::fence_regs(s);
       softmax(s, 0, stage, alpha);
@@ -375,6 +415,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q,
         wg::wgmma_commit();
         issue_pv(held);
         wg::wgmma_commit();
+        keep_bits(kt * KT);
         wg::wgmma_wait<1>();       // S is done; P V may run on
         wg::fence_regs(s);
         softmax(s, kt * KT, stage, alpha);
@@ -431,7 +472,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <typename T, int D, int CONS>
+template <typename T, int D, int CONS, bool DROP>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const Params& p, int b, cudaStream_t stream) {
   using L = Layout<D, CONS>;
@@ -442,7 +483,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       !wg::attn_map<T>(&mk, k, bh, p.sk > 0 ? p.sk : 1, D, KT) ||
       !wg::attn_map<T>(&mv, v, bh, p.sk > 0 ? p.sk : 1, D, KT))
     return MAP_REFUSED;
-  auto kern = flash_fwd_sm90<T, D, CONS>;
+  auto kern = flash_fwd_sm90<T, D, CONS, DROP>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
   if (err != cudaSuccess) return err;
@@ -451,15 +492,25 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <typename T, bool DROP>
+cudaError_t dispatch_variant(const void* q, const void* k, const void* v,
+                             const Params& p, int b, int d, int block_m,
+                             cudaStream_t st) {
+  if (d == 64)
+    return block_m == 64 ? launch<T, 64, 1, DROP>(q, k, v, p, b, st)
+                         : launch<T, 64, 2, DROP>(q, k, v, p, b, st);
+  return block_m == 64 ? launch<T, 128, 1, DROP>(q, k, v, p, b, st)
+                       : launch<T, 128, 2, DROP>(q, k, v, p, b, st);
+}
+
+// the variant with dropout where the threshold keeps fewer than all
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const Params& p, int b, int d, int block_m,
                      cudaStream_t st) {
-  if (d == 64)
-    return block_m == 64 ? launch<T, 64, 1>(q, k, v, p, b, st)
-                         : launch<T, 64, 2>(q, k, v, p, b, st);
-  return block_m == 64 ? launch<T, 128, 1>(q, k, v, p, b, st)
-                       : launch<T, 128, 2>(q, k, v, p, b, st);
+  return p.threshold
+             ? dispatch_variant<T, true>(q, k, v, p, b, d, block_m, st)
+             : dispatch_variant<T, false>(q, k, v, p, b, d, block_m, st);
 }
 
 }  // namespace
@@ -471,19 +522,25 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 // [b,h,sq] f32 (every element written). `block_m`: query rows a block, 64
 // or 128. Returns the launch's cudaError_t: cudaErrorInvalidValue for
 // another d, dtype or block_m, cudaErrorNotSupported (801) when the driver
-// refuses a TMA map (a base address not 16-byte aligned).
+// refuses a TMA map (a base address not 16-byte aligned). Dropout: `seed`
+// (the int32 seed as uint32), `threshold` (an element is kept where its
+// hash reaches it; 0 keeps every element and runs the kernel without
+// dropout) and `inv` = 1 / (1 - rate).
 extern "C" int apex_flash_fwd_sm90(const void* q, const void* k,
                                    const void* v, const void* sid_q,
                                    const void* sid_kv, void* out, void* lse,
                                    int b, int h, int sq, int sk, int d,
                                    int causal, float scale, int dtype,
-                                   int block_m, void* stream) {
+                                   int block_m, unsigned int seed,
+                                   unsigned int threshold, float inv,
+                                   void* stream) {
   if (d != 64 && d != 128) return cudaErrorInvalidValue;
   if (block_m != 64 && block_m != 128) return cudaErrorInvalidValue;
   if (sq <= 0 || b <= 0 || h <= 0) return cudaSuccess;
   const Params p{static_cast<const int32_t*>(sid_q),
                  static_cast<const int32_t*>(sid_kv), out,
-                 static_cast<float*>(lse), h, sq, sk, causal, scale};
+                 static_cast<float*>(lse), h, sq, sk, causal, scale, seed,
+                 threshold, inv};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:

@@ -28,9 +28,21 @@ kernel — differentiated by autograd — on any device: the oracle the
 kernels are held against on the card. The serve path
 (``apex_tpu_torch.serve``) runs its forwards under ``torch.no_grad()``.
 
-Not ported yet (raise ``NotImplementedError``): ``remat_blocks``, dropout
-above 0, ``attention_impl="fused_softmax"``, mixture-of-experts and
-sequence parallelism.
+Training mode: ``deterministic=False`` with a host ``torch.Generator``
+takes the place of the JAX ``apply(..., deterministic=False,
+rngs={"dropout": key})``, with Megatron's dropout knobs
+(``attention_dropout``, ``hidden_dropout``). Attention dropout runs inside
+the flash kernels from a per-layer int32 seed drawn from the generator on
+the host (the JAX model's ``randint(0, 2**30 - 1)`` plus the tensor-parallel
+rank, 0 at the port's tp = 1), so no draw waits for the device; hidden
+dropout drops each residual branch's output with a plain torch mask from a
+device generator seeded from the same host generator (flax's bernoulli
+stream is not reproduced). ``deterministic=True``, the default, runs no
+dropout, as the JAX ``GPT.loss`` does.
+
+Not ported yet (raise ``NotImplementedError``): ``remat_blocks``,
+``attention_impl="fused_softmax"``, mixture-of-experts and sequence
+parallelism.
 """
 
 from __future__ import annotations
@@ -80,12 +92,14 @@ class GPTConfig:
         if self.attention_impl not in ("flash", "fused_softmax"):
             raise ValueError("attention_impl must be 'flash' or "
                              f"'fused_softmax', got {self.attention_impl!r}")
+        for what in ("attention_dropout", "hidden_dropout"):
+            if not 0.0 <= getattr(self, what) < 1.0:
+                raise ValueError(f"{what} must be in [0, 1), got "
+                                 f"{getattr(self, what)}")
         unported = {
             "remat_blocks": self.remat_blocks,
             "attention_impl='fused_softmax'":
                 self.attention_impl == "fused_softmax",
-            "attention_dropout > 0": self.attention_dropout > 0,
-            "hidden_dropout > 0": self.hidden_dropout > 0,
             "sequence_parallel": self.sequence_parallel,
             "moe_num_experts > 0": self.moe_num_experts > 0,
         }
@@ -161,7 +175,17 @@ class GPT(nn.Module):
                 mod.dtype)
         return mod(x)
 
-    def _block_forward(self, blk: GPTBlock, x, reference: bool):
+    def _hdrop(self, y, rngs):
+        """The hidden dropout of a residual branch's output (flax's
+        ``Dropout``: kept elements ``y / (1 - rate)`` in ``y``'s dtype, the
+        rest 0); ``y`` itself without ``rngs`` or at rate 0."""
+        rate = self.cfg.hidden_dropout
+        if rngs is None or rate == 0.0:
+            return y
+        keep = torch.rand(y.shape, device=y.device, generator=rngs[1]) >= rate
+        return torch.where(keep, y / (1.0 - rate), torch.zeros_like(y))
+
+    def _block_forward(self, blk: GPTBlock, x, reference: bool, rngs=None):
         cfg = self.cfg
         b, s, h = x.shape
         d = cfg.head_dim
@@ -169,38 +193,71 @@ class GPT(nn.Module):
         qkv = blk.attn.qkv(y).reshape(b, s, cfg.num_heads, 3 * d)
         q, k, v = (t.transpose(1, 2).contiguous()
                    for t in qkv.split(d, dim=-1))          # [b, heads, s, d]
+        rate, seed = 0.0, None
+        if rngs is not None and cfg.attention_dropout > 0:
+            # the JAX model's seed plus the tensor-parallel rank (0 here)
+            rate = cfg.attention_dropout
+            seed = int(torch.randint(0, 2 ** 30 - 1, (), generator=rngs[0]))
         attend = mha_reference if reference else flash_attention
-        ctx = attend(q, k, v, causal=True, scale=d ** -0.5)
-        x = x + blk.attn.proj(ctx.transpose(1, 2).reshape(b, s, h))
+        ctx = attend(q, k, v, causal=True, scale=d ** -0.5,
+                     dropout_rate=rate, dropout_seed=seed)
+        x = x + self._hdrop(
+            blk.attn.proj(ctx.transpose(1, 2).reshape(b, s, h)), rngs)
         y = self._ln(blk.ln2, x, reference)
         y = blk.mlp.fc1(y)
         y = F.gelu(y.float(), approximate="tanh").to(x.dtype)
-        return x + blk.mlp.fc2(y)
+        return x + self._hdrop(blk.mlp.fc2(y), rngs)
+
+    def _dropout_rngs(self, deterministic: bool,
+                      generator: Optional[torch.Generator]):
+        """``(host generator, device generator)`` of a training forward
+        with dropout, or None (deterministic, or both rates 0)."""
+        cfg = self.cfg
+        if deterministic or (cfg.attention_dropout == 0.0
+                             and cfg.hidden_dropout == 0.0):
+            return None
+        if generator is None or generator.device.type != "cpu":
+            raise ValueError(
+                "GPT: deterministic=False with dropout needs a host (CPU) "
+                "torch.Generator (its draws never wait for the device)")
+        dev = torch.Generator(device=self.device)
+        dev.manual_seed(int(torch.randint(0, 2 ** 62, (),
+                                          generator=generator)))
+        return generator, dev
 
     def forward(self, ids, return_hidden: bool = False,
-                reference: bool = False):
+                reference: bool = False, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         """Logits ``[b, s, V]`` in ``cfg.dtype`` (the tied LM head), or
         with ``return_hidden`` the final LayerNorm's output ``[b, s, h]``.
-        ``ids``: ``[b, s]`` int."""
+        ``ids``: ``[b, s]`` int. ``deterministic=False`` trains with the
+        config's dropout, drawn from ``generator`` (module docstring): the
+        same generator state gives the same masks, through the kernels or
+        (``reference=True``) their plain versions."""
         cfg = self.cfg
+        rngs = self._dropout_rngs(deterministic, generator)
         s = ids.shape[1]
         x = self.wte(ids).to(cfg.dtype) + self.wpe[:s].to(cfg.dtype)[None]
         for i in range(cfg.num_layers):
-            x = self._block_forward(self.block(i), x, reference)
+            x = self._block_forward(self.block(i), x, reference, rngs)
         x = self._ln(self.ln_f, x, reference)
         if return_hidden:
             return x
         return self.wte.attend(x)
 
-    def loss(self, ids, labels, reference: bool = False):
+    def loss(self, ids, labels, reference: bool = False,
+             deterministic: bool = True,
+             generator: Optional[torch.Generator] = None):
         """Mean next-token cross entropy over all ``b * s`` tokens (fp32
-        scalar)."""
+        scalar); ``deterministic``/``generator`` as :meth:`forward`."""
+        kw = dict(reference=reference, deterministic=deterministic,
+                  generator=generator)
         if self.cfg.fused_lm_head:
-            x = self.forward(ids, return_hidden=True, reference=reference)
+            x = self.forward(ids, return_hidden=True, **kw)
             ce = (lm_head_cross_entropy_reference if reference
                   else fused_lm_head_cross_entropy)
             return ce(x, self.wte.embedding, labels).mean()
-        logits = self.forward(ids, reference=reference)
+        logits = self.forward(ids, **kw)
         return vocab_parallel_cross_entropy(logits, labels).mean()
 
     @classmethod

@@ -14,7 +14,11 @@ Port of ``apex_tpu/ops/flash_attention.py``:
   :func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`
   (the JAX ``_bwd_math``). The additive bias runs through the plain version
   on the CPU, with an exactly zero gradient of its own as in the JAX
-  package, and raises on CUDA; in-kernel dropout is not ported yet. Past
+  package, and raises on CUDA. In-kernel attention dropout (the JAX
+  kernels' counter hash, :func:`dropout_keep_reference`) runs in the
+  wgmma route's forward and single pass (a variant of each kernel chosen
+  at compile time) and in the plain versions; every other CUDA route
+  raises (:func:`dropout_refusal`). Past
   the JAX package's 2 MB VMEM gate the backward is its two-kernel split,
   which replaces ``_dkdv_kernel`` (``:558``) and ``_dq_kernel`` (``:671``)
   on the same two routes (:func:`split_route`): ``flash_dkdv_sm90`` and
@@ -78,7 +82,9 @@ route alone) and ``.f32_launches`` (its FFMA route alone),
 every route), ``flash_attention_bwd.wgmma_dkdv_launches`` and
 ``.wgmma_dq_launches`` (the split's wgmma route alone),
 ``flash_attention_bwd.f32_dkdv_launches`` and ``.f32_dq_launches`` (the
-split's FFMA route alone), ``paged_decode_attention.launches``
+split's FFMA route alone), ``flash_attention.dropout_launches`` and
+``flash_attention_bwd.dropout_launches`` (the wgmma forward's and single
+pass's dropout variants), ``paged_decode_attention.launches``
 (bf16 pool) and ``paged_decode_attention.fp8_launches`` (e4m3 pool) count
 kernel launches (the CPU path does not count).
 """
@@ -90,7 +96,8 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from apex_tpu_torch._compat import check_device_type
+from apex_tpu_torch._compat import (DeviceLike, check_device_type,
+                                    resolve_device)
 from apex_tpu_torch.ops import _build
 from apex_tpu_torch.ops._pad import with_padded_last_dim
 
@@ -116,11 +123,107 @@ def _attention_mask(sq, sk, device, causal, segment_ids_q, segment_ids_kv):
     return mask
 
 
+# ---------------------------------------------------------------------------
+# attention dropout: the keep mask of the JAX kernels, bit for bit
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(h, c: int):
+    """``h * c`` mod 2^32 for ``h`` in [0, 2^32) (a Python int or an int64
+    tensor) and a 32-bit constant ``c``, in two 16-bit halves of ``c`` so
+    that no int64 product overflows (torch has no uint32 arithmetic)."""
+    return (h * (c & 0xFFFF) + (((h * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix32(h):
+    """The murmur3 finalizer in uint32 arithmetic (the JAX ``_fmix32``,
+    ``apex_tpu/ops/flash_attention.py:140``)."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def dropout_threshold(dropout_rate: float) -> int:
+    """The uint32 threshold an element's 32 hash bits must reach to be
+    kept, computed on the host exactly as the JAX kernels compute it."""
+    return min(int(dropout_rate * 4294967296.0), 4294967295)
+
+
+def _keep_from_positions(seed: int, bi: int, hi: int, q_pos, k_pos,
+                         dropout_rate: float):
+    """The JAX ``_keep_from_positions`` (``:150``): a pure hash of (seed,
+    batch, head, global q position, global k position), so the forward and
+    the backward regenerate one mask whatever their blocks. ``seed`` is an
+    int32 taken as uint32 the way ``jnp.uint32`` takes it (wrapping);
+    ``hi`` an int or an int64 tensor of heads, and ``q_pos`` and ``k_pos``
+    int64 tensors of non-negative positions, all broadcasting together."""
+    base = _fmix32((seed & _M32) ^ _mul32(bi, 0x9E3779B1)
+                   ^ _mul32(hi, 0xB5297A4D))
+    h = _mul32(q_pos, 0x9E3779B1) ^ _mul32(k_pos, 0x85EBCA77) ^ base
+    return _fmix32(h) >= dropout_threshold(dropout_rate)
+
+
+def dropout_keep_reference(seed: int, b: int, h: int, sq: int, sk: int,
+                           dropout_rate: float,
+                           device: DeviceLike = None) -> torch.Tensor:
+    """[b, h, sq, sk] bool keep mask exactly as the kernels generate it
+    (the JAX ``dropout_keep_reference``, ``:172``), on ``device``
+    (:func:`~apex_tpu_torch._compat.resolve_device`: CUDA by default)."""
+    seed = int(seed)
+    device = resolve_device(device)
+    q_pos = torch.arange(sq, dtype=torch.int64, device=device)[:, None]
+    k_pos = torch.arange(sk, dtype=torch.int64, device=device)[None, :]
+    heads = torch.arange(h, dtype=torch.int64, device=device)[:, None, None]
+    keep = torch.empty((b, h, sq, sk), dtype=torch.bool, device=device)
+    for bi in range(b):          # a batch at a time: [h, sq, sk] int64
+        keep[bi] = _keep_from_positions(seed, bi, heads, q_pos, k_pos,
+                                        dropout_rate)
+    return keep
+
+
+def _check_dropout(dropout_rate: float, dropout_seed) -> None:
+    """The JAX ``flash_attention``'s checks (``:1202-1203``,
+    ``:1285-1288``): a rate in [0, 1), and a seed with a rate above 0."""
+    if dropout_rate >= 1.0 or dropout_rate < 0.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
+    if dropout_rate > 0.0 and dropout_seed is None:
+        raise ValueError("dropout_rate > 0 requires dropout_seed")
+    if dropout_rate > 0.0 and not -2 ** 31 <= int(dropout_seed) < 2 ** 31:
+        raise ValueError(f"dropout_seed must be an int32, got {dropout_seed}")
+
+
+def _keep_mask(q, k, dropout_rate, dropout_seed):
+    """The keep mask of attention between ``q`` and ``k`` ([b, h, s, d]),
+    or None at rate 0."""
+    if not dropout_rate:
+        return None
+    b, h, sq, _ = q.shape
+    return dropout_keep_reference(dropout_seed, b, h, sq, k.shape[2],
+                                  dropout_rate, device=q.device)
+
+
+def _dropped(x, keep, dropout_rate):
+    """``x`` [b, h, sq, sk] fp32 with the dropped elements zero and the kept
+    ones times ``1 / (1 - rate)`` (``x`` itself when ``keep`` is None)."""
+    if keep is None:
+        return x
+    return torch.where(keep, x, torch.zeros_like(x)) * (
+        1.0 / (1.0 - dropout_rate))
+
+
 def flash_attention_reference(q, k, v, *, causal=False, segment_ids_q=None,
-                              segment_ids_kv=None, scale=None, bias=None):
+                              segment_ids_kv=None, scale=None, bias=None,
+                              dropout_rate=0.0, dropout_seed=None):
     """Plain attention returning ``(out, lse)`` like the forward kernel:
     fp32 scores and softmax, ``out`` in ``q.dtype``, ``lse`` fp32
-    [b, h, sq] (``-1e30`` on rows that see no key)."""
+    [b, h, sq] (``-1e30`` on rows that see no key). With ``dropout_rate``
+    the JAX kernel's rule: the normaliser and lse take the undropped p,
+    and p is masked (:func:`dropout_keep_reference` of ``dropout_seed``)
+    and scaled by ``1 / (1 - rate)`` before the PV product."""
     d = q.shape[-1]
     scale = d ** -0.5 if scale is None else scale
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
@@ -137,18 +240,28 @@ def flash_attention_reference(q, k, v, *, causal=False, segment_ids_q=None,
         p = torch.where(mask, p, torch.zeros_like(p))
     l = p.sum(dim=-1, keepdim=True)
     safe_l = torch.where(l > 0, l, torch.ones_like(l))
-    out = torch.einsum("bhqk,bhkd->bhqd", p / safe_l, v.float())
     lse = (mx + torch.log(safe_l))[..., 0]
+    if dropout_rate:
+        # the JAX kernel's rounding (:334-339): the dropped p, scaled up,
+        # in v's dtype for the PV product (no longer exact where p is 1)
+        p = _dropped(p, _keep_mask(q, k, dropout_rate, dropout_seed),
+                     dropout_rate).to(v.dtype).float()
+        out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / safe_l
+        return out.to(q.dtype), lse
+    out = torch.einsum("bhqk,bhkd->bhqd", p / safe_l, v.float())
     return out.to(q.dtype), lse
 
 
 def mha_reference(q, k, v, *, causal=False, segment_ids_q=None,
-                  segment_ids_kv=None, scale=None, bias=None):
+                  segment_ids_kv=None, scale=None, bias=None,
+                  dropout_rate=0.0, dropout_seed=None):
     """Plain multi-head attention (the JAX ``mha_reference``): fp32 math,
-    output in ``q.dtype``; padding rows (segment id < 0) are zero."""
+    output in ``q.dtype``; padding rows (segment id < 0) are zero; the
+    kernels' attention dropout with ``dropout_rate``/``dropout_seed``."""
     out, _ = flash_attention_reference(
         q, k, v, causal=causal, segment_ids_q=segment_ids_q,
-        segment_ids_kv=segment_ids_kv, scale=scale, bias=bias)
+        segment_ids_kv=segment_ids_kv, scale=scale, bias=bias,
+        dropout_rate=dropout_rate, dropout_seed=dropout_seed)
     return out
 
 
@@ -167,16 +280,23 @@ def _bwd_probs(q, k, lse, causal, segment_ids_q, segment_ids_kv, scale):
 
 def flash_attention_bwd_reference(q, k, v, out, lse, do, *, causal=False,
                                   segment_ids_q=None, segment_ids_kv=None,
-                                  scale=None):
+                                  scale=None, dropout_rate=0.0,
+                                  dropout_seed=None):
     """Plain attention backward — the JAX ``_bwd_math`` operation for
     operation: p from the saved ``lse`` (zero where masked), fp32 math,
-    ``(dq, dk, dv)`` in the input dtypes."""
+    ``(dq, dk, dv)`` in the input dtypes. With ``dropout_rate`` the JAX
+    ``_p_dp_ds`` rule: dv takes the dropped p, dp is masked and rescaled,
+    ds = p (dp - delta) with the undropped p, and delta = rowsum(do *
+    out) of the dropped ``out``."""
     d = q.shape[-1]
     scale = d ** -0.5 if scale is None else scale
     p = _bwd_probs(q, k, lse, causal, segment_ids_q, segment_ids_kv, scale)
+    keep = _keep_mask(q, k, dropout_rate, dropout_seed)
     do32 = do.float()
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, do32)
-    dp = torch.einsum("bhqd,bhkd->bhqk", do32, v.float())
+    dv = torch.einsum("bhqk,bhqd->bhkd", _dropped(p, keep, dropout_rate),
+                      do32)
+    dp = _dropped(torch.einsum("bhqd,bhkd->bhqk", do32, v.float()), keep,
+                  dropout_rate)
     delta = (do32 * out.float()).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta) * scale
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
@@ -301,13 +421,19 @@ def _check_cuda_operands(what, named, dtype, device):
         _require(t.is_contiguous(), what, f"{name} must be contiguous")
 
 
-def _promoted(*tensors):
-    """``(tensors, dtype)`` for operands of more than one dtype: the
-    tensors in their promotion, the dtype the kernels run them in (exact:
-    bf16 and fp16 promote to fp32)."""
+def _promoted_dtype(*tensors) -> torch.dtype:
+    """The dtype the kernels run operands of these dtypes in (exact: bf16
+    and fp16 promote to fp32)."""
     dt = tensors[0].dtype
     for t in tensors[1:]:
         dt = torch.promote_types(dt, t.dtype)
+    return dt
+
+
+def _promoted(*tensors):
+    """``(tensors, dtype)`` for operands of more than one dtype: the
+    tensors in their promotion, the dtype the kernels run them in."""
+    dt = _promoted_dtype(*tensors)
     return tuple(t.to(dt) for t in tensors), dt
 
 
@@ -331,12 +457,17 @@ def _operand_dtype(what, q):
     return q.dtype
 
 
+# the wgmma kernels' dropout arguments (:func:`_dropout_args`): the seed as
+# uint32, the keep threshold, 1 / (1 - rate)
+_DROPOUT_ARGS = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float]
+
 # apex_flash_fwd_sm90(q, k, v, sid_q, sid_kv, out, lse, b, h, sq, sk, d,
-#                     causal, scale, dtype, block_m, stream): the wgmma
-# route's forward, without ``p_round`` (it takes no mixed operands) and with
-# the rows a block
+#                     causal, scale, dtype, block_m, seed, threshold, inv,
+#                     stream): the wgmma route's forward, without ``p_round``
+# (it takes no mixed operands) and with the rows a block and the dropout
 _SM90_FWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_int, ctypes.c_int] + _DROPOUT_ARGS + [
+    ctypes.c_void_p]
 
 # the wgmma/TMA kernels' dtypes and kernel head dims (csrc/flash_fwd_sm90.cu
 # and csrc/flash_bwd_sm90.cu)
@@ -353,6 +484,43 @@ def sm90_route(dtype: torch.dtype, kd: int) -> bool:
     ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``. The one predicate of
     both routes."""
     return dtype in _SM90_DTYPES and kd in _SM90_HEAD_DIMS
+
+
+def dropout_refusal(dtype: torch.dtype, kd: int, split: bool) -> Optional[str]:
+    """None where the CUDA kernels take attention dropout: the wgmma route
+    (:func:`sm90_route` of the promoted ``dtype`` and the kernel head dim
+    ``kd``) with the single-pass backward (``split`` False:
+    :func:`uses_split_backward` with ``dropout=True`` keeps the shape under
+    the gate). Else the route that does not take it yet, by name, for the
+    ``NotImplementedError`` its caller raises (ROADMAP §B1)."""
+    if sm90_route(dtype, kd):
+        return ("the split backward (B3/B4: flash_dkdv_sm90, flash_dq_sm90)"
+                if split else None)
+    if dtype == torch.float32 and kd in _F32_CORE_HEAD_DIMS:
+        return ("the fp32 FFMA route (f32_fwd_route / f32_core_route: "
+                "csrc/flash_fwd_f32.cuh, csrc/flash_bwd_f32.cuh)")
+    return ("the frag.cuh kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu: "
+            "fp32 over narrower operands and head dims 32, 256, 512)")
+
+
+def _refuse_dropout(dtype: torch.dtype, kd: int, split: bool) -> None:
+    refused = dropout_refusal(dtype, kd, split)
+    if refused is not None:
+        raise NotImplementedError(f"flash_attention: attention dropout is "
+                                  f"not in {refused} yet")
+
+
+def _dropout_args(dropout_rate: float, dropout_seed) -> Tuple[int, int,
+                                                              float]:
+    """The wgmma kernels' ``(seed, threshold, inv)``: the int32 seed as
+    uint32, :func:`dropout_threshold` and ``1 / (1 - rate)`` (rounded to
+    fp32 by ctypes, as the JAX kernels' weak-typed multiply rounds it).
+    ``(0, 0, 1.0)`` at rate 0: threshold 0 keeps every element, and the
+    kernels take their code without dropout."""
+    if not dropout_rate:
+        return 0, 0, 1.0
+    return (int(dropout_seed) & _M32, dropout_threshold(dropout_rate),
+            1.0 / (1.0 - dropout_rate))
 
 
 def fwd_block_rows(bh: int, sq: int, kd: int, sms: int) -> int:
@@ -392,10 +560,12 @@ _F32_FWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
 
 
 def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
-                    block_rows: Optional[int] = None):
+                    block_rows: Optional[int] = None,
+                    dropout_rate: float = 0.0, dropout_seed=None):
     """The forward kernel. ``block_rows`` (the wgmma route only) forces 64
     or 128 query rows a block, for comparing the two at one shape; None
-    takes :func:`fwd_block_rows`."""
+    takes :func:`fwd_block_rows`. Attention dropout runs on the wgmma
+    route alone (:func:`dropout_refusal`)."""
     what = "flash_attention kernel"
     _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, what,
              "q, k, v must be [b, h, s, d]")
@@ -426,6 +596,8 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
     kd = kernel_head_dim(d)
     sm90 = sm90_route(dtype, kd)
     f32 = f32_fwd_route(dtype, kd, p_round)
+    if dropout_rate:
+        _refuse_dropout(dtype, kd, split=False)
     _require(block_rows is None or (sm90 and block_rows in (64, 128)), what,
              "block_rows takes 64 or 128, on the wgmma route only")
     if sm90 and block_rows is None:
@@ -443,7 +615,8 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
         if sm90:
             fn = _build.function(_build.dtype_target("flash_fwd_sm90", code),
                                  "apex_flash_fwd_sm90", _SM90_FWD_ARGS)
-            err = fn(*args, block_rows, _stream(q))
+            err = fn(*args, block_rows,
+                     *_dropout_args(dropout_rate, dropout_seed), _stream(q))
         elif f32:
             fn = _build.function(_build.dtype_target("flash_fwd", code),
                                  "apex_flash_fwd_f32", _F32_FWD_ARGS)
@@ -456,6 +629,8 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
         flash_attention.launches += 1
         if sm90:
             flash_attention.wgmma_launches += 1
+            if dropout_rate:
+                flash_attention.dropout_launches += 1
         if f32:
             flash_attention.f32_launches += 1
         return out, lse
@@ -465,16 +640,20 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
 
 
 def flash_attention_fwd(q, k, v, segment_ids_q=None, segment_ids_kv=None,
-                        causal: bool = False, scale: Optional[float] = None):
+                        causal: bool = False, scale: Optional[float] = None,
+                        dropout_rate: float = 0.0, dropout_seed=None):
     """``(out, lse)`` of the attention forward: the kernel on CUDA,
     :func:`flash_attention_reference` on the CPU."""
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    _check_dropout(dropout_rate, dropout_seed)
     if check_device_type(q, "flash_attention") == "cpu":
         return flash_attention_reference(
             q, k, v, causal=causal, segment_ids_q=segment_ids_q,
-            segment_ids_kv=segment_ids_kv, scale=scale)
+            segment_ids_kv=segment_ids_kv, scale=scale,
+            dropout_rate=dropout_rate, dropout_seed=dropout_seed)
     return _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal,
-                           scale)
+                           scale, dropout_rate=dropout_rate,
+                           dropout_seed=dropout_seed)
 
 
 # The JAX package runs its single-pass backward while the per-(b, h) dk/dv
@@ -523,6 +702,25 @@ def uses_split_backward(sq: int, sk: int, d: int, itemsize_k: int = 2,
                              bias, dropout) > _FUSED_BWD_MAX_KV_BYTES
 
 
+def _bwd_route(q, k, v, causal, dropout_rate, do=None,
+               split: Optional[bool] = None) -> Tuple[bool, torch.dtype]:
+    """The backward's route, decided in one place for
+    :func:`flash_attention` (before the forward, where ``do`` is not yet
+    known: it takes the output's dtype, q's) and :func:`_flash_bwd_cuda`:
+    ``(split, dtype)``, the two-kernel split or the single pass
+    (:func:`uses_split_backward` where ``split`` is None) and the dtype the
+    kernels run the operands in. Raises ``NotImplementedError`` where
+    attention dropout is asked of a route that does not take it."""
+    if split is None:
+        split = uses_split_backward(q.shape[2], k.shape[2], q.shape[-1],
+                                    k.element_size(), v.element_size(),
+                                    causal, dropout=bool(dropout_rate))
+    dtype = _promoted_dtype(q, k, v, q if do is None else do)
+    if dropout_rate:
+        _refuse_dropout(dtype, kernel_head_dim(q.shape[-1]), split)
+    return split, dtype
+
+
 # apex_flash_bwd(q, k, v, do, lse, delta, sid_q, sid_kv, dq_acc, turns, dk,
 #                dv, b, h, sq, sk, d, causal, scale, dtype, rounds, stream)
 _FLASH_BWD_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
@@ -541,10 +739,12 @@ _SM90_DKDV_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _SM90_DQ_ARGS = _SM90_DKDV_ARGS
 
-# the wgmma route's single pass, apex_flash_bwd_sm90_fused: the single
-# pass's arguments without ``rounds``
+# the wgmma route's single pass, apex_flash_bwd_sm90_fused(q, k, v, do, lse,
+# delta, sid_q, sid_kv, dq_acc, turns, dk, dv, b, h, sq, sk, d, causal,
+# scale, dtype, seed, threshold, inv, stream): the single pass's arguments
+# without ``rounds``, with the dropout
 _SM90_FUSED_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_int] + _DROPOUT_ARGS + [ctypes.c_void_p]
 
 _TURN_ROWS = 64     # the single pass's query tiles: a turn counter each
 
@@ -658,10 +858,13 @@ def split_route(dtype: torch.dtype, kd: int) -> str:
 
 
 def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
-                    causal, scale, split: Optional[bool] = None):
+                    causal, scale, split: Optional[bool] = None,
+                    dropout_rate: float = 0.0, dropout_seed=None):
     """The backward kernels. ``split=None`` routes by
     :func:`uses_split_backward`; True or False forces the two-kernel split
-    or the single pass (for comparing the two at one shape)."""
+    or the single pass (for comparing the two at one shape). Attention
+    dropout runs on the wgmma route's single pass alone
+    (:func:`dropout_refusal`)."""
     what = "flash_attention_bwd kernel"
     _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, what,
              "q, k, v must be [b, h, s, d]")
@@ -686,18 +889,14 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
         _check_cuda_operands(what, (("segment_ids_q", segment_ids_q),
                                     ("segment_ids_kv", segment_ids_kv)),
                              torch.int32, q.device)
-    if split is None:
-        split = uses_split_backward(sq, sk, d, k.element_size(),
-                                    v.element_size(), causal)
+    split, dtype = _bwd_route(q, k, v, causal, dropout_rate, do, split)
     # mixed operands: promoted, with the JAX kernels' roundings; each
     # gradient takes its input's dtype
     dtypes = (q.dtype, k.dtype, v.dtype)
     rounds = _mixed_rounds(q, k, do)
     mixed = not q.dtype == k.dtype == v.dtype == do.dtype
     if mixed:
-        (q, k, v, do), dtype = _promoted(q, k, v, do)
-    else:
-        dtype = q.dtype
+        q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
     # delta = rowsum(do * o) in fp32: outside the kernels as in the JAX
     # package (_flash_bwd_impl), except on the split's wgmma route, whose dq
     # kernel computes it for its own rows (launched first: the delta fold),
@@ -733,9 +932,10 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
         dq_acc, turns = _dq_workspace(q, dp, sm90 or (_F32 if f32
                                                       else False))
         if sm90:
-            dk, dv = _flash_bwd_fused_cuda(q, k, v, do, lse, delta,
-                                           segment_ids_q, segment_ids_kv,
-                                           causal, scale, dq_acc, turns)
+            dk, dv = _flash_bwd_fused_cuda(
+                q, k, v, do, lse, delta, segment_ids_q, segment_ids_kv,
+                causal, scale, dq_acc, turns,
+                _dropout_args(dropout_rate, dropout_seed))
             return dq_acc.to(q.dtype), dk, dv
         if f32:
             dk, dv = _flash_bwd_f32_cuda(q, k, v, do, out, lse, dl,
@@ -765,13 +965,15 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
 
 
 def _flash_bwd_fused_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal,
-                          scale, dq_acc, turns=None):
+                          scale, dq_acc, turns=None,
+                          dropout=(0, 0, 1.0)):
     """The wgmma route's single pass (``flash_bwd_fused_sm90``) on operands
     ``_flash_bwd_cuda`` checked: ``(dk, dv)``, and dq times ``scale`` added
     in a fixed order into ``dq_acc`` (fp32, q's shape; the caller zeroes
     it). ``turns``: the zeroed int32 turn counters
     (:func:`single_pass_turns`), allocated here when None. ``delta`` =
-    rowsum(do * out) fp32 [b, h, sq], given."""
+    rowsum(do * out) fp32 [b, h, sq], given (``out`` the dropped output
+    under dropout). ``dropout``: :func:`_dropout_args`."""
     b, h, sq, d = q.shape
     if turns is None:
         turns = torch.zeros(single_pass_turns(b, h, sq, d, True),
@@ -783,10 +985,13 @@ def _flash_bwd_fused_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal,
     _build.check(fn(_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse),
                     _ptr(delta), _ptr(sid_q), _ptr(sid_kv), _ptr(dq_acc),
                     _ptr(turns), _ptr(dk), _ptr(dv), b, h, sq, k.shape[2], d,
-                    int(bool(causal)), float(scale), code, _stream(q)),
+                    int(bool(causal)), float(scale), code, *dropout,
+                    _stream(q)),
                  "flash_attention_bwd single-pass kernel")
     flash_attention_bwd.launches += 1
     flash_attention_bwd.wgmma_launches += 1
+    if dropout[1]:
+        flash_attention_bwd.dropout_launches += 1
     return dk, dv
 
 
@@ -990,7 +1195,8 @@ def wgmma_rs_probe(a: torch.Tensor, b: torch.Tensor,
 
 def flash_attention_bwd(q, k, v, out, lse, do, segment_ids_q=None,
                         segment_ids_kv=None, causal: bool = False,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None,
+                        dropout_rate: float = 0.0, dropout_seed=None):
     """``(dq, dk, dv)`` of the attention from the forward's ``out`` and
     ``lse``: on CUDA the single-pass kernel, or past the JAX package's gate
     (:func:`uses_split_backward`) the dk/dv kernel then the dq kernel; on
@@ -999,15 +1205,21 @@ def flash_attention_bwd(q, k, v, out, lse, do, segment_ids_q=None,
     (``.wgmma_launches`` those on the wgmma route, ``.f32_launches`` those
     on the FFMA route), ``.dkdv_launches`` and ``.dq_launches`` the
     split's (``.f32_dkdv_launches`` and ``.f32_dq_launches`` those on the
-    FFMA route)."""
+    FFMA route); ``.dropout_launches`` the single passes with dropout.
+    ``dropout_rate``/``dropout_seed`` are the forward's: the kernel
+    regenerates its mask."""
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    _check_dropout(dropout_rate, dropout_seed)
     if check_device_type(q, "flash_attention_bwd") == "cpu":
         return flash_attention_bwd_reference(
             q, k, v, out, lse, do, causal=causal,
             segment_ids_q=segment_ids_q, segment_ids_kv=segment_ids_kv,
-            scale=scale)
+            scale=scale, dropout_rate=dropout_rate,
+            dropout_seed=dropout_seed)
     return _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q,
-                           segment_ids_kv, causal, scale)
+                           segment_ids_kv, causal, scale,
+                           dropout_rate=dropout_rate,
+                           dropout_seed=dropout_seed)
 
 
 flash_attention_bwd.launches = 0
@@ -1019,20 +1231,25 @@ flash_attention_bwd.wgmma_dq_launches = 0
 flash_attention_bwd.f32_launches = 0
 flash_attention_bwd.f32_dkdv_launches = 0
 flash_attention_bwd.f32_dq_launches = 0
+flash_attention_bwd.dropout_launches = 0
 
 
 class FlashAttentionFunction(torch.autograd.Function):
     """Forward kernel + backward kernel as one differentiable op. Saves
-    ``(q, k, v, out, lse)`` and the segment ids; segment ids get no
-    gradient."""
+    ``(q, k, v, out, lse)`` and the segment ids, and carries the dropout
+    rate and seed to the backward, which regenerates the mask; segment ids
+    get no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, segment_ids_q, segment_ids_kv, causal, scale):
+    def forward(ctx, q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
+                dropout_rate, dropout_seed):
         out, lse = flash_attention_fwd(q, k, v, segment_ids_q,
-                                       segment_ids_kv, causal, scale)
+                                       segment_ids_kv, causal, scale,
+                                       dropout_rate, dropout_seed)
         ctx.save_for_backward(q, k, v, out, lse, segment_ids_q,
                               segment_ids_kv)
         ctx.causal, ctx.scale = causal, scale
+        ctx.dropout = (dropout_rate, dropout_seed)
         return out
 
     @staticmethod
@@ -1040,8 +1257,8 @@ class FlashAttentionFunction(torch.autograd.Function):
         q, k, v, out, lse, sid_q, sid_kv = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
                                          sid_q, sid_kv, ctx.causal,
-                                         ctx.scale)
-        return dq, dk, dv, None, None, None, None
+                                         ctx.scale, *ctx.dropout)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 class BiasedAttentionFunction(torch.autograd.Function):
@@ -1049,17 +1266,20 @@ class BiasedAttentionFunction(torch.autograd.Function):
     gradients of q, k and v are autograd's through
     :func:`mha_reference`, and the bias's is exactly zero in its own shape
     (the JAX op's ``dbias = zeros_like(bias)``, ``_fa_bwd``: the bias is
-    an additive mask, non-differentiable by contract)."""
+    an additive mask, non-differentiable by contract); with the kernels'
+    attention dropout where ``dropout_rate`` is above 0."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, segment_ids_q, segment_ids_kv, causal,
-                scale):
+                scale, dropout_rate, dropout_seed):
         ctx.save_for_backward(q, k, v, bias, segment_ids_q, segment_ids_kv)
         ctx.causal, ctx.scale = causal, scale
+        ctx.dropout = dict(dropout_rate=dropout_rate,
+                           dropout_seed=dropout_seed)
         return mha_reference(q, k, v, causal=causal,
                              segment_ids_q=segment_ids_q,
                              segment_ids_kv=segment_ids_kv, scale=scale,
-                             bias=bias)
+                             bias=bias, **ctx.dropout)
 
     @staticmethod
     def backward(ctx, do):
@@ -1068,10 +1288,11 @@ class BiasedAttentionFunction(torch.autograd.Function):
             qkv = [t.detach().requires_grad_() for t in (q, k, v)]
             out = mha_reference(*qkv, causal=ctx.causal,
                                 segment_ids_q=sid_q, segment_ids_kv=sid_kv,
-                                scale=ctx.scale, bias=bias.detach())
+                                scale=ctx.scale, bias=bias.detach(),
+                                **ctx.dropout)
             dq, dk, dv = torch.autograd.grad(out, qkv, do)
         dbias = torch.zeros_like(bias) if ctx.needs_input_grad[3] else None
-        return dq, dk, dv, dbias, None, None, None, None
+        return dq, dk, dv, dbias, None, None, None, None, None, None
 
 
 def flash_attention(q, k, v, segment_ids_q=None, segment_ids_kv=None,
@@ -1084,14 +1305,26 @@ def flash_attention(q, k, v, segment_ids_q=None, segment_ids_kv=None,
     negative ids are padding and give zero rows. ``bias`` ([b|1, h|1, sq,
     sk], added to the scaled scores) runs through the plain version on the
     CPU (:class:`BiasedAttentionFunction`: its gradient is exactly zero,
-    as in the JAX package) and is not supported by the kernels yet;
-    ``dropout_rate > 0`` is not ported yet."""
-    if dropout_rate:
-        raise NotImplementedError("attention dropout is not ported yet")
+    as in the JAX package) and is not supported by the kernels yet.
+
+    ``dropout_rate``/``dropout_seed`` (an int32): in-kernel attention
+    dropout, the keep mask a hash of (seed, batch, head, q position, k
+    position) that the backward regenerates
+    (:func:`dropout_keep_reference`, bit for bit the JAX package's); pass a
+    fresh seed a step. On CUDA the wgmma route's forward and single pass
+    take it; every other route raises ``NotImplementedError`` naming
+    itself (:func:`dropout_refusal`), before the forward where the
+    backward's route would refuse it."""
+    _check_dropout(dropout_rate, dropout_seed)
+    dropout_rate = float(dropout_rate)
+    dropout_seed = int(dropout_seed) if dropout_rate > 0 else None
+    cuda = check_device_type(q, "flash_attention") == "cuda"
     if bias is not None:
-        if check_device_type(q, "flash_attention") == "cuda":
-            raise NotImplementedError("flash_attention: the additive bias "
-                                      "is not in the CUDA kernels yet")
+        if cuda:
+            raise NotImplementedError(
+                "flash_attention: the additive bias is not in the CUDA "
+                "kernels yet" + (", with or without attention dropout"
+                                 if dropout_rate else ""))
         b, h, sq, sk = q.shape[0], q.shape[1], q.shape[2], k.shape[2]
         if (bias.dim() != 4 or bias.shape[0] not in (1, b)
                 or bias.shape[1] not in (1, h)
@@ -1100,15 +1333,21 @@ def flash_attention(q, k, v, segment_ids_q=None, segment_ids_kv=None,
                              f"{sk}], got {tuple(bias.shape)}")
         return BiasedAttentionFunction.apply(q, k, v, bias, segment_ids_q,
                                              segment_ids_kv, bool(causal),
-                                             scale)
+                                             scale, dropout_rate,
+                                             dropout_seed)
+    if cuda and dropout_rate and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        _bwd_route(q, k, v, bool(causal), dropout_rate)
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     return FlashAttentionFunction.apply(q, k, v, segment_ids_q,
-                                        segment_ids_kv, bool(causal), scale)
+                                        segment_ids_kv, bool(causal), scale,
+                                        dropout_rate, dropout_seed)
 
 
 flash_attention.launches = 0
 flash_attention.wgmma_launches = 0
 flash_attention.f32_launches = 0
+flash_attention.dropout_launches = 0
 
 
 # apex_paged_decode(q, k_pages, v_pages, k_scales, v_scales, block_tables,

@@ -52,17 +52,30 @@ Phases (any failure exits non-zero; no phase's error is caught):
 7. overflow — one step whose gradients overflow fp32 leaves the master
    weights, the moments and the step counter bitwise unchanged and halves
    the scale;
-8. trace — ``torch.profiler`` over decode steps and prefills of the bf16
-   and the fp8 engine and over train steps, and the train step's device
+8. dropout train path — the same O2 step in training mode with Megatron's
+   ``attention_dropout`` and ``hidden_dropout`` 0.1, on the train path's
+   model and optimizer state (its GPT carries the rates and its
+   deterministic steps ignore them; one host generator for the attention
+   seeds and the hidden masks): a warm-up step, then 4 timed steps with
+   the counters reset just before; asserts finite, falling losses and
+   every flash launch on the wgmma dropout variants (12 forwards and 12
+   single passes a step); prints step time and tokens/s beside the step
+   without dropout; then, on the gradient check's model after its
+   deterministic check, the loss and every gradient through the kernels
+   against ``reference=True`` with a generator in the same state (the
+   same seeds and hidden masks; loss 1e-3, gradients 3 %);
+9. trace — ``torch.profiler`` over decode steps and prefills of the bf16
+   and the fp8 engine and over train steps (the s1024 step with and
+   without dropout among them), and the train step's device
    time by phase (forward + backward, unscale, optimizer, scaler update)
    from CUDA events;
-9. long-sequence train path — the same GPT at O2 with ``FusedAdam`` at
+10. long-sequence train path — the same GPT at O2 with ``FusedAdam`` at
    b2 s4096 (``bench.py``'s ``_bench_gpt_long_seq``), where the flash
    backward takes its two-kernel split: a warm-up step, then 4 timed steps
    with the counters reset just before; asserts finite losses and per
    step 12 dq and 12 dk/dv launches, every one on the wgmma route
    (``csrc/flash_bwd_sm90.cu``), and no single-pass one; traced;
-10. ResNet-50 path — ``bench.py``'s ``_build_step`` at b256 224x224: O2
+11. ResNet-50 path — ``bench.py``'s ``_build_step`` at b256 224x224: O2
     (bf16 convs, fp32 batch norms and statistics, fp32 masters),
     ``FusedSGD(lr=0.1, momentum=0.9, weight_decay=1e-4)``, the mean of
     ``softmax_cross_entropy_with_smoothing(logits, y, 0.1)``, inputs and
@@ -72,7 +85,7 @@ Phases (any failure exits non-zero; no phase's error is caught):
     traced; then an overflowing step (skipped bitwise: masters, momentum
     buffers and their flag; the scale halved) and one step's loss and
     gradients through the kernels against the plain twin;
-11. ZeRO-3 path — the same GPT at b8 s1024 through ``amp.initialize(...,
+12. ZeRO-3 path — the same GPT at b8 s1024 through ``amp.initialize(...,
     zero=True)`` with ``ZeroOptimizer(adam, shard_params=True,
     weight_decay=0.01)`` and ``zero.make_train_step`` at world 1: a warm-up
     step, then 8 timed steps with the counters reset just before; asserts
@@ -83,28 +96,28 @@ Phases (any failure exits non-zero; no phase's error is caught):
     then an
     overflowing step (shards, masters, m, v, step bitwise unchanged, the
     scale halved);
-12. tier-2 LAMB path — ``DistributedFusedLAMB(lr=1e-3, weight_decay=0.01,
+13. tier-2 LAMB path — ``DistributedFusedLAMB(lr=1e-3, weight_decay=0.01,
     max_grad_norm=1.0)`` through ``amp.make_train_step`` at O2: a warm-up,
     3 counted steps (one B13 LAMB launch each), then one step on the card
     against the same step of a CPU twin;
-13. probe path — ``apex_tpu_torch.scripts.vpu_probe``'s run: each of the
+14. probe path — ``apex_tpu_torch.scripts.vpu_probe``'s run: each of the
     six ops (B14) chained 16 times over [64, 512, 512] fp32 and summed,
     timed as the script times it; asserts the launch count;
-14. bottleneck path — ``apex_tpu_torch.scripts.bottleneck_proto``'s run at
+15. bottleneck path — ``apex_tpu_torch.scripts.bottleneck_proto``'s run at
     the proto's full shape (N 32, 56 x 56 x 256 bf16): the fused kernel
     (B15) within the proto's 0.15 of the cuDNN composition, both timed;
-15. spatial path — ``contrib.bottleneck.SpatialBottleneck`` at world 1 at
+16. spatial path — ``contrib.bottleneck.SpatialBottleneck`` at world 1 at
     ResNet-50's conv2_x width (x [32, 256, 56, 56] bf16, fp32 norms):
     forward and backward against ``models.resnet.Bottleneck`` with the
     same weights, then 4 O2 ``FusedSGD`` steps with a finite, falling
     loss;
-16. O0 path — the GPT at full width with 2 layers in fp32 (b8 s1024): the
+17. O0 path — the GPT at full width with 2 layers in fp32 (b8 s1024): the
     loss and every gradient through the kernels (fp32 flash, LayerNorm and
     LM-head CE) against ``GPT.loss(reference=True)``, then 3 counted
     ``FusedAdam`` steps through ``amp.make_train_step`` at O0 (the CE, the
     flash forward and the flash backward on their FFMA routes), and one
     more under ``torch.profiler``: its device time by kernel class;
-17. O0 long path — the same 2-layer fp32 GPT at b2 s4096, past the
+18. O0 long path — the same 2-layer fp32 GPT at b2 s4096, past the
     flash backward's gate: a warm-up and 2 counted O0 steps, every forward
     (``csrc/flash_fwd_f32.cuh``) and every split's dk/dv and dq
     (``csrc/flash_bwd_f32.cuh``) on the fp32 FFMA routes; then one step
@@ -126,9 +139,19 @@ bottleneck, ``csrc/bottleneck.cu``: persistent, weights resident in
 shared memory, wgmma/TMA) at N 32 within two bf16 ulps plus 2^-5 of its
 plain version and 0.15 of the cuDNN composition, bitwise on a rerun, at
 n 3 against the plain version, each image of an n 5 batch bitwise the same
-image alone, one device launch a call (profiler, in a fresh process),
+image alone, one device launch a call (profiler),
 ``HGMMA`` in its SASS and no spill; B14
 bitwise (mul, max, where, iota_cmp_where) or within 2 ulps (exp, exp2).
+
+B1's and B2's dropout variants (``flash_fwd_sm90`` and
+``flash_bwd_fused_sm90`` built with the keep hash of
+``csrc/dropout_hash.cuh``) are held at the dropout step's b8 h16 s1024 d64
+causal, rate 0.1, against the plain versions with the same seed (the
+bf16 forwards' and backwards' limits), bitwise on a rerun, another seed
+another result, and by a mask check (rate 0.5, non-causal, sk = d keys, v
+the identity: the zero pattern of the output is the plain mask bit for
+bit); each timed with and without dropout beside SDPA's dropout call, and
+ptxas shows no spill in either variant.
 
 The flash forward and single-pass backward are held on both routes: the
 wgmma route (``csrc/flash_fwd_sm90.cu``; ``flash_bwd_fused_sm90`` of
@@ -203,6 +226,13 @@ call (five rows of one sequence at 300-304 keys), each beside its bound;
 log shows no spill in any of their kernels. The speculative engine's
 recorded logits rows must all be bitwise the plain engine's, and each
 serve engine's decode step is traced (device time beside wall time).
+
+Each profiler session (the device-launch counts of ``device_launches``,
+the traces of ``_profile``) counts only if it recorded the whole of its
+calls: a session loses the records of its first launches (none to all,
+more as the process ages), so 256 marker kernels are launched before the
+calls and 2 after, and a session counts when more than 2 markers are in
+it; one with fewer is taken again after a longer wait.
 
 The second-last line of standard output is the card as ``nvidia-smi``
 names it, the line before it the kernels' JSON record, and the last line
@@ -553,8 +583,9 @@ def _paged_mode(torch, timer, fp8):
                            ms=ms, plain_ms=plain_ms, bound_ms=t_bound,
                            bound_by=by))
         if launches is None:
-            launches = device_launches(torch, lambda: fa.paged_decode_attention(
-                q, kp, vp, bt, sl, **sc), ("paged_decode_kernel",))
+            launches = device_launches(
+                torch, fa.paged_decode_attention, (q, kp, vp, bt, sl),
+                ("paged_decode_kernel",), sc)
             check(launches == {"paged_decode_kernel": 1, "other": 0},
                   f"{what}: device launches {launches} in one call, "
                   "expected one paged_decode_kernel and nothing else")
@@ -655,8 +686,8 @@ def check_fp8_matmul(torch, timer):
         kernel = ("fp8_mm_decode_kernel" if regime == "decode"
                   else "fp8_mm_prefill_kernel")
         if (regime, lin) not in launches:
-            got = device_launches(torch, lambda: mm.fp8_dequant_matmul(
-                x, q, scale), (kernel,))
+            got = device_launches(torch, mm.fp8_dequant_matmul,
+                                  (x, q, scale), (kernel,))
             check(got == {kernel: 1, "other": 0},
                   f"fp8_matmul {lin} m{m}: device launches {got} in one "
                   f"call, expected one {kernel} and nothing else")
@@ -886,6 +917,156 @@ def check_flash_bwd(torch, timer):
     return wgmma
 
 
+# Megatron's --attention-dropout and --hidden-dropout defaults
+# (apex/transformer/tensor_parallel/tests/arguments.py:345-348)
+DROPOUT_RATE = 0.1
+# integer operations of the keep hash an element (csrc/dropout_hash.cuh):
+# the xor of the row's and the key's terms, fmix32's three shifts, three
+# xors and two multiplies, the compare with the threshold; counted at the
+# card's CUDA-core rate (67 TFLOP/s fp32, data sheet), which its int32 rate
+# does not exceed, so the bound stays a least time
+DROPOUT_HASH_OPS = 10
+
+
+def _with_hash(t_bound, by, pairs):
+    """A flash kernel's bound with its dropout hash: the larger of its
+    bytes and products' bound and the hash's integer operations over
+    ``pairs`` live elements (separate units: the larger, not the sum)."""
+    t_hash = pairs * DROPOUT_HASH_OPS / FP32_FLOPS_PER_S * 1e3
+    return (t_hash, "operations") if t_hash > t_bound else (t_bound, by)
+
+
+def check_flash_dropout(torch, timer):
+    """B1's and B2's dropout variants (``flash_fwd_sm90<..., DROP>``,
+    ``flash_bwd_fused_sm90<..., DROP>``) at the dropout step's b8 h16 s1024
+    d64 bf16 causal, rate 0.1: against the plain versions with the same
+    seed (the forward at the bf16 forwards' limits, the plain forward
+    rounding the dropped p to bf16 as the kernel does; the gradients at the
+    bf16 backwards'); bitwise on a rerun with the seed, another seed
+    another result; the mask check (rate 0.5, non-causal, sk = d keys, v
+    the identity: out is zero exactly where the plain mask drops, bit for
+    bit); each timed with and without dropout beside SDPA's dropout call."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    f, g = fa.flash_attention, fa.flash_attention_bwd
+    b, h, s, d = TRAIN_B, 16, TRAIN_S, 64
+    scale, seed = d ** -0.5, 20261018
+    drop = dict(dropout_rate=DROPOUT_RATE, dropout_seed=seed)
+    q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    n0 = (f.dropout_launches, g.dropout_launches)
+    out, lse = fa.flash_attention_fwd(q, k, v, None, None, True, scale,
+                                      **drop)
+    again = fa.flash_attention_fwd(q, k, v, None, None, True, scale, **drop)
+    other = fa.flash_attention_fwd(q, k, v, None, None, True, scale,
+                                   DROPOUT_RATE, seed ^ 1)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, None, None, True,
+                                   scale, **drop)
+    grads2 = fa.flash_attention_bwd(q, k, v, out, lse, do, None, None, True,
+                                    scale, **drop)
+    other_grads = fa.flash_attention_bwd(q, k, v, other[0], other[1], do,
+                                         None, None, True, scale,
+                                         DROPOUT_RATE, seed ^ 1)
+    torch.cuda.synchronize()
+    check((f.dropout_launches - n0[0], g.dropout_launches - n0[1])
+          == (3, 3), "flash dropout: the dropout variants did not launch")
+    check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+          "flash dropout forward: a rerun gave other bits")
+    check(all(torch.equal(a, b_) for a, b_ in zip(grads, grads2)),
+          "flash dropout backward: a rerun gave other bits")
+    check(not torch.equal(out, other[0])
+          and not torch.equal(grads[2], other_grads[2]),
+          "flash dropout: another seed gave the same result")
+    del again, other, grads2, other_grads
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=True,
+                                                scale=scale, **drop)
+    err = bf16_err(out, ref, 4e-3, "flash dropout forward")
+    lse_err = (lse - ref_lse).abs().max().item()
+    check(lse_err <= 1e-3, f"flash dropout lse max err {lse_err}")
+    del ref, ref_lse
+    ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                           causal=True, scale=scale, **drop)
+    berr = max(grad_err(gr, r, f"flash dropout backward {n}")
+               for n, gr, r in zip(("dq", "dk", "dv"), grads, ref))
+    del grads, ref
+    torch.cuda.empty_cache()
+
+    # the mask check: p > 0 everywhere (no mask but dropout), v the
+    # identity, so out[q, key] != 0 exactly where the key is kept
+    mq, mk = (torch.randn(b, h, n_, d, generator=gen, device="cuda",
+                          dtype=torch.bfloat16) for n_ in (s, d))
+    eye = torch.eye(d, device="cuda", dtype=torch.bfloat16).expand(
+        b, h, d, d).contiguous()
+    mout, _ = fa.flash_attention_fwd(mq, mk, eye, None, None, False, scale,
+                                     0.5, seed)
+    keep = fa.dropout_keep_reference(seed, b, h, s, d, 0.5, device="cuda")
+    check(torch.equal(mout != 0, keep),
+          "flash dropout: the kernel's mask is not the plain mask")
+    mask = dict(shape=f"b{b} h{h} sq{s} sk{d} d{d}, rate 0.5, v = I",
+                elements=keep.numel(),
+                keep_share=keep.float().mean().item(), bitwise=True)
+    del mq, mk, eye, mout, keep
+
+    pairs = b * h * s * (s + 1) // 2
+    f_bound, f_by = _with_hash(*_fwd_bound(b, h, s, s, d, True, 2), pairs)
+    fwd = dict(
+        name="flash_fwd_sm90_dropout", route="cuda",
+        source="apex_tpu_torch/csrc/flash_fwd_sm90.cu",
+        replaces="apex_tpu/ops/flash_attention.py:251",
+        shape=f"b{b} h{h} s{s} d{d} bf16 causal, dropout {DROPOUT_RATE}",
+        max_abs_err=err, lse_max_abs_err=lse_err,
+        tolerance="2 bf16 ulp + 4e-3 of the plain forward with the same "
+                  "seed (the dropped p rounded to bf16 as in the kernel); "
+                  "lse 1e-3; a rerun bitwise; the mask bitwise",
+        ms=timer(lambda: fa.flash_attention_fwd(q, k, v, None, None, True,
+                                                scale, **drop)),
+        no_dropout_ms=timer(lambda: fa.flash_attention_fwd(
+            q, k, v, None, None, True, scale)),
+        plain_ms=timer(lambda: fa.flash_attention_reference(
+            q, k, v, causal=True, scale=scale, **drop), iters=5),
+        library_ms=timer(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale, dropout_p=DROPOUT_RATE)),
+        library="F.scaled_dot_product_attention(is_causal=True, "
+                f"dropout_p={DROPOUT_RATE}): its own random stream, a "
+                "yardstick only",
+        bound_ms=f_bound, bound_by=f_by, mask_check=mask)
+    delta = (do.float() * out.float()).sum(dim=-1)
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
+    args = fa._dropout_args(DROPOUT_RATE, seed)
+    b_bound, b_by = _with_hash(*_bwd_bound(b, h, s, d, 2), pairs)
+    bwd = dict(
+        name="flash_bwd_fused_sm90_dropout", route="cuda",
+        source="apex_tpu_torch/csrc/flash_bwd_sm90.cu",
+        replaces="apex_tpu/ops/flash_attention.py:604",
+        shape=f"b{b} h{h} s{s} d{d} bf16 causal, dropout {DROPOUT_RATE}",
+        max_abs_err=berr,
+        tolerance="2 bf16 ulp + 2% of max, 1% relative norm, of the plain "
+                  "backward with the same seed; dq, dk, dv bitwise on a "
+                  "rerun",
+        ms=timer(lambda: fa._flash_bwd_fused_cuda(
+            q, k, v, do, lse, delta, None, None, True, scale, dq_acc, None,
+            args)),
+        no_dropout_ms=timer(lambda: fa._flash_bwd_fused_cuda(
+            q, k, v, do, lse, delta, None, None, True, scale, dq_acc)),
+        as_called_ms=timer(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, do, None, None, True, scale, **drop)),
+        plain_ms=timer(lambda: fa.flash_attention_bwd_reference(
+            q, k, v, out, lse, do, causal=True, scale=scale, **drop),
+            iters=5),
+        library_ms=timer(_grad_of(torch, lambda a, b_, c: (
+            F.scaled_dot_product_attention(a, b_, c, is_causal=True,
+                                           scale=scale,
+                                           dropout_p=DROPOUT_RATE)),
+            (q, k, v), do)),
+        library="backward of F.scaled_dot_product_attention("
+                f"is_causal=True, dropout_p={DROPOUT_RATE})",
+        bound_ms=b_bound, bound_by=b_by)
+    del q, k, v, do, out, lse, delta, dq_acc
+    torch.cuda.empty_cache()
+    return [fwd, bwd]
+
+
 def _check_first_batch_alone(torch, fa, got, q, k, v, out, lse, do, scale,
                              what):
     """The single pass's gradients of the first batch, run alone, are the
@@ -942,8 +1123,8 @@ def check_layer_norm_bwd(torch, timer):
               f"LN bwd h{hh}: a rerun differs")
         variant = ln._ln_bwd_plan(n, hh, ln._sm_count(x.device))[0]
         name = f"ln_bwd_{variant}"
-        got = device_launches(torch, lambda: ln.layer_norm_bwd(
-            xx, w, dd, (hh,), 1e-5, p_dtype), (name,))
+        got = device_launches(torch, ln.layer_norm_bwd,
+                              (xx, w, dd, (hh,), 1e-5, p_dtype), (name,))
         check(got == {name: 1, "other": 0},
               f"LN bwd h{hh}: device launches {got} in one call, expected "
               f"one {name} and nothing else")
@@ -977,44 +1158,81 @@ def check_layer_norm_bwd(torch, timer):
 CE_PRODUCTS = ("GradEpi", "DxEpi", "DeEpi")   # B9's three epilogues
 
 
-def device_launches(torch, fn, names, sessions=8):
-    """torch.profiler over one call of ``fn`` (after one unprofiled): the
-    device kernels it launched, counted by which of ``names`` their name
-    holds (each kernel must hold at most one), ``other`` for the rest.
-    A call's launches are fixed, but a profiler session has been seen to
-    miss every device record of the call (twice in a row), or to hold some
-    of another: a session with no device record is dropped as missed (every
-    caller's ``fn`` launches at least one kernel), and up to ``sessions``
-    sessions of one call each are taken until two of the others agree;
-    those counts are returned (a RuntimeError if no two agree)."""
+# torch.cuda._sleep's kernel: launched LEAD_MARKERS times just before the
+# profiled calls of each session and TAIL_MARKERS times just after, it
+# shows whether the session recorded them all
+MARKER = "spin_kernel"
+LEAD_MARKERS, TAIL_MARKERS = 256, 2
+# host seconds each profiler session waits before its first launch, one
+# session after the other
+LEADS = (0.1, 0.2, 0.4, 0.8, 1.6, 1.6, 1.6, 1.6)
+# profiler sessions taken: every marker recorded, the first markers'
+# records lost (still whole), dropped
+SESSIONS = {"all markers": 0, "first markers lost": 0, "dropped": 0}
+
+
+def _whole_sessions(torch, fn):
+    """torch.profiler sessions over one run of ``fn``, one for each of
+    :data:`LEADS`, yielding ``(kernels, wall_us)`` (its device events
+    without the markers, the host time of ``fn`` and a synchronize) for
+    each session that recorded the whole run. A session loses the records
+    of its first launches, none to all of them, the more the longer the
+    process has run (seen on an H100: the first one in every session after
+    a few minutes of this script, hundreds or every one in some). So
+    :data:`LEAD_MARKERS` marker kernels are launched before ``fn`` and
+    :data:`TAIL_MARKERS` after, and a session counts when more than the
+    tail's are recorded: then the losses ended before ``fn``. A session
+    with fewer is dropped, and the next waits longer before it starts."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    seen, missed = [], 0
-    for _ in range(sessions):
+    for lead in LEADS:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(lead)
+            for _ in range(LEAD_MARKERS):
+                torch.cuda._sleep(1000)
+            t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+            for _ in range(TAIL_MARKERS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        marks = sum(e.count for e in kern if MARKER in e.key)
+        if marks > TAIL_MARKERS:
+            SESSIONS["all markers" if marks == LEAD_MARKERS + TAIL_MARKERS
+                     else "first markers lost"] += 1
+            yield [e for e in kern if MARKER not in e.key], wall_us
+        else:
+            SESSIONS["dropped"] += 1
+            print(f"profiler: a session with a {lead} s lead recorded "
+                  f"{marks} of its {LEAD_MARKERS + TAIL_MARKERS} markers; "
+                  "taken again", flush=True)
+
+
+def device_launches(torch, func, args, names, kwargs=None):
+    """torch.profiler over one call ``func(*args, **kwargs)`` (after one
+    unprofiled): the device kernels it launched, counted by which of
+    ``names`` their name holds (each kernel must hold at most one),
+    ``other`` for the rest: the counts two profiler sessions that recorded
+    the whole call (:func:`_whole_sessions`) agree on."""
+    def fn():
+        func(*args, **(kwargs or {}))
+
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for kern, _ in _whole_sessions(torch, fn):
         counts = dict.fromkeys(tuple(names) + ("other",), 0)
-        for ev in prof.key_averages():
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
+        for ev in kern:
             hit = [p for p in names if p in ev.key]
             counts[hit[0] if len(hit) == 1 else "other"] += ev.count
-        if not any(counts.values()):
-            missed += 1
-            continue
         if counts in seen:
-            if missed:
-                print(f"device launches: {missed} profiler session(s) "
-                      "recorded no device kernel and were taken again",
-                      flush=True)
             return counts
         seen.append(counts)
-    raise RuntimeError(f"device launches: no two of {sessions} profiler "
-                       f"sessions agree ({missed} recorded no device "
-                       f"kernel): {seen}")
+    check(False, f"device launches of {func.__name__}: no two of the "
+          f"profiler sessions that recorded the whole call agree: {seen}")
 
 
 def check_lm_head_ce(torch, timer):
@@ -1062,8 +1280,8 @@ def check_lm_head_ce(torch, timer):
     chunks = -(-n // ce.bwd_chunk_tokens(n, V))
     # B9's launches, by the wgmma core's epilogue they carry
     # (``gemm_kernel<GradEpi<...>>`` and so on)
-    products = device_launches(torch, lambda: ce.lm_head_ce_bwd(
-        x, e, tgt, m, l, dl), CE_PRODUCTS)
+    products = device_launches(torch, ce.lm_head_ce_bwd,
+                               (x, e, tgt, m, l, dl), CE_PRODUCTS)
     check(products == {**dict.fromkeys(CE_PRODUCTS, chunks), "other": 0},
           f"CE bwd: device launches {products} in one call, expected each "
           f"of {CE_PRODUCTS} once a chunk ({chunks} chunks) and no other")
@@ -1188,14 +1406,14 @@ def check_lm_head_ce_f32(torch, timer):
         del got, ref, dx, de, rx, re_, dx2, de2
     m, l, _, _ = ce.lm_head_ce_fwd_reference(x, e, tgt)
     chunks = -(-n // ce.f32_chunk_tokens(n, V))
-    fwd_dev = device_launches(torch, lambda: ce.lm_head_ce_fwd(x, e, tgt),
+    fwd_dev = device_launches(torch, ce.lm_head_ce_fwd, (x, e, tgt),
                               CE32_KERNELS)
     check({k: fwd_dev[k] for k in CE32_KERNELS} == {
         "ce32_transpose_kernel": 2, "ce32_fwd_kernel": 1,
         "ce32_grad_kernel": 0, "ce32_product_kernel": 0},
         f"CE fp32 fwd: device launches {fwd_dev} in one call")
-    bwd_dev = device_launches(torch, lambda: ce.lm_head_ce_bwd(
-        x, e, tgt, m, l, dl), CE32_KERNELS)
+    bwd_dev = device_launches(torch, ce.lm_head_ce_bwd,
+                              (x, e, tgt, m, l, dl), CE32_KERNELS)
     check(bwd_dev == {"ce32_transpose_kernel": 2, "ce32_fwd_kernel": 0,
                       "ce32_grad_kernel": chunks,
                       "ce32_product_kernel": 2 * chunks, "other": 0},
@@ -1414,9 +1632,9 @@ def check_flash_fwd_f32(torch, timer):
         err = _fp32_err(out, ref, f"{what} b{b} s{s} d{d}", FP32_FWD_TOL)
         lse_err = _lse_err(lse, ref_lse, f"{what} b{b} s{s} d{d}")
         del ref, ref_lse
-        dev = device_launches(torch, lambda: fa.flash_attention_fwd(
-            q, k, v, None, None, True, scale),
-            F32_FWD_KERNELS + FLASH_FWD_KERNELS)
+        dev = device_launches(torch, fa.flash_attention_fwd,
+                              (q, k, v, None, None, True, scale),
+                              F32_FWD_KERNELS + FLASH_FWD_KERNELS)
         check(dev == {"flash_fwd_f32_kernel": 1, "flash_fwd_kernel": 0,
                       "flash_fwd_sm90": 0, "other": 0},
               f"{what} b{b} s{s}: device launches {dev} in one call")
@@ -1547,9 +1765,9 @@ def check_flash_f32(torch, timer, split: bool):
     errs = {n: _fp32_err(g, r, f"{what} s{s} {n}", FP32_GRAD_TOL)
             for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
     del got, ref
-    dev = device_launches(torch, lambda: fa.flash_attention_bwd(
-        q, k, v, out, lse, do, None, None, True, scale),
-        F32_CORE_KERNELS + FLASH_BWD_KERNELS)
+    dev = device_launches(torch, fa.flash_attention_bwd,
+                          (q, k, v, out, lse, do, None, None, True, scale),
+                          F32_CORE_KERNELS + FLASH_BWD_KERNELS)
     # one prologue (the split's dq reads the dk/dv call's transposes)
     want = {"flash_f32_prologue_kernel": 1,
             "flash_bwd_f32_kernel": int(not split),
@@ -1666,7 +1884,8 @@ def check_flash_f32(torch, timer, split: bool):
 # second parameter the rows a block: 1 or 2 consumer warpgroups) and the
 # single pass
 _SM90_KERNEL = re.compile(r"(flash_dkdv_sm90|flash_dq_sm90|flash_fwd_sm90|"
-                          r"flash_bwd_fused_sm90)I\d+\w+?Li(\d+)E(?:Li(\d+)E)?")
+                          r"flash_bwd_fused_sm90)I\d+\w+?Li(\d+)E(?:Li(\d+)E)?"
+                          r"(?:Lb([01])E)?")
 # the kernels held to no spill (the split's dk/dv kernel at d 64 spills 8
 # bytes: ROADMAP §C)
 _NO_SPILL = ("flash_fwd_sm90", "flash_bwd_fused_sm90")
@@ -1676,7 +1895,8 @@ def _sm90_registers(build):
     """``ptxas -v``'s register count and spill bytes of each kernel in the
     wgmma flash libraries (before ``setmaxnreg``: the producer warpgroup
     gives up to 40 a thread and the consumer warpgroups take 232); fails
-    on a spill in this slice's kernels."""
+    on a spill in the forward's and the single pass's kernels, their
+    dropout variants (`` dropout``) included."""
     regs = {}
     for target in build.targets(["flash_fwd_sm90", "flash_bwd_sm90"]):
         name = None
@@ -1690,6 +1910,8 @@ def _sm90_registers(build):
                     name = f"{target} {k.group(1)} d{k.group(2)}"
                     if k.group(3):
                         name += f" rows{64 * int(k.group(3))}"
+                    if k.group(4) == "1":
+                        name += " dropout"
                     regs[name] = {}
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
@@ -2163,7 +2385,8 @@ def counters():
     (``*_sm90``) apart from both routes together (``flash_fwd``,
     ``flash_bwd``, ``flash_bwd_dkdv``/``flash_bwd_dq``;
     :func:`read_counters` leaves flash_fwd.cu's and flash_bwd.cu's own
-    launches there)."""
+    launches there), and the wgmma forward's and single pass's dropout
+    variants (``*_dropout``) apart from their variants without."""
     from apex_tpu_torch.ops import flash_attention as fa
     from apex_tpu_torch.ops import fp8_matmul as mm
     from apex_tpu_torch.ops import fused_ce as xe
@@ -2174,6 +2397,8 @@ def counters():
     from apex_tpu_torch.zero import fused_update as fu
     return {"flash_fwd": (fa.flash_attention, "launches"),
             "flash_fwd_sm90": (fa.flash_attention, "wgmma_launches"),
+            "flash_fwd_sm90_dropout": (fa.flash_attention,
+                                       "dropout_launches"),
             "flash_fwd_f32": (fa.flash_attention, "f32_launches"),
             "paged_decode": (fa.paged_decode_attention, "launches"),
             "paged_decode_fp8": (fa.paged_decode_attention, "fp8_launches"),
@@ -2181,6 +2406,8 @@ def counters():
             "flash_bwd": (fa.flash_attention_bwd, "launches"),
             "flash_bwd_fused_sm90": (fa.flash_attention_bwd,
                                      "wgmma_launches"),
+            "flash_bwd_fused_sm90_dropout": (fa.flash_attention_bwd,
+                                             "dropout_launches"),
             "flash_bwd_f32": (fa.flash_attention_bwd, "f32_launches"),
             "layer_norm_bwd": (ln.layer_norm_bwd, "launches"),
             "lm_head_ce_fwd": (ce.lm_head_ce_fwd, "launches"),
@@ -2227,7 +2454,10 @@ def read_counters():
     wgmma route's (``lm_head_ce_sm90.cu``) and ``*_f32`` the fp32 route's
     (``lm_head_ce.cu``); the fp8 matmul's less its prefill regime's, so
     that ``fp8_matmul`` counts the decode regime and
-    ``fp8_matmul_prefill`` the prefill regime."""
+    ``fp8_matmul_prefill`` the prefill regime; the wgmma forward's and
+    single pass's less their dropout variants', so that
+    ``flash_fwd_sm90`` and ``flash_bwd_fused_sm90`` count the kernels
+    without dropout and ``*_dropout`` those with."""
     out = {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
     out["fp8_matmul"] -= out["fp8_matmul_prefill"]
     out["lm_head_ce_fwd"] -= out["lm_head_ce_fwd_f32"]
@@ -2237,6 +2467,8 @@ def read_counters():
     out["flash_bwd_dkdv"] -= out["flash_bwd_dkdv_sm90"] + \
         out["flash_bwd_f32_dkdv"]
     out["flash_bwd_dq"] -= out["flash_bwd_dq_sm90"] + out["flash_bwd_f32_dq"]
+    out["flash_fwd_sm90"] -= out["flash_fwd_sm90_dropout"]
+    out["flash_bwd_fused_sm90"] -= out["flash_bwd_fused_sm90_dropout"]
     return out
 
 
@@ -2435,8 +2667,9 @@ TF_TIE = 2 * TF_TOL
 TRAIN_B, TRAIN_S, TRAIN_STEPS, LR = 8, 1024, 8, 3e-4
 # every flash launch of the bf16 d64 step on the wgmma route
 TRAIN_PER_STEP = {"flash_fwd": 0, "flash_fwd_sm90": 12, "flash_fwd_f32": 0,
-                  "flash_bwd": 0,
-                  "flash_bwd_fused_sm90": 12, "layer_norm_fwd": 25,
+                  "flash_fwd_sm90_dropout": 0, "flash_bwd": 0,
+                  "flash_bwd_fused_sm90": 12,
+                  "flash_bwd_fused_sm90_dropout": 0, "layer_norm_fwd": 25,
                   "layer_norm_bwd": 25, "lm_head_ce_fwd": 1,
                   "lm_head_ce_bwd": 1, "lm_head_ce_fwd_f32": 0,
                   "lm_head_ce_bwd_f32": 0, "paged_decode": 0,
@@ -2557,29 +2790,46 @@ GRAD_LOSS_TOL = 1e-3
 GRAD_NORM_TOL = 3e-2
 
 
-def grad_check(torch, cfg):
+def grad_check(torch, cfg, dropout_seed):
+    """The loss and every gradient through the kernels against
+    ``reference=True``, on one fresh O2 GPT of ``cfg`` (which may carry
+    dropout rates): first deterministic, then in training mode with the
+    config's dropout from a host generator of ``dropout_seed`` on both
+    sides (the same attention seeds and hidden masks). Returns the two
+    checks' records."""
     model, _, _, _ = o2_setup(torch, cfg)
     ids, labels = train_batch(torch, cfg)
     params = list(model.named_parameters())
-    loss = model.loss(ids, labels)
-    grads = torch.autograd.grad(loss, [p for _, p in params])
-    ref_loss = model.loss(ids, labels, reference=True)
-    ref = torch.autograd.grad(ref_loss, [p for _, p in params])
-    loss, ref_loss = loss.detach(), ref_loss.detach()
-    dloss = abs(float(loss) - float(ref_loss))
-    check(dloss <= GRAD_LOSS_TOL, f"loss kernels {float(loss)} vs plain "
-          f"{float(ref_loss)}")
-    worst = []
-    for (name, _), g, r in zip(params, grads, ref):
-        rel = ((g.float() - r.float()).norm()
-               / r.float().norm().clamp_min(1e-30)).item()
-        worst.append((rel, name))
-        check(rel <= GRAD_NORM_TOL, f"grad {name}: relative norm error {rel}")
-    worst.sort(reverse=True)
-    return dict(layers=cfg.num_layers, loss_kernels=float(loss),
-                loss_plain=float(ref_loss), loss_abs_diff=dloss,
-                params=len(params), worst_rel_norm=worst[:5],
-                median_rel_norm=float(np.median([w for w, _ in worst])))
+
+    def one(what, **kw):
+        def loss_of(reference):
+            if kw:
+                kw["generator"] = torch.Generator().manual_seed(dropout_seed)
+            return model.loss(ids, labels, reference=reference, **kw)
+
+        loss = loss_of(False)
+        grads = torch.autograd.grad(loss, [p for _, p in params])
+        ref_loss = loss_of(True)
+        ref = torch.autograd.grad(ref_loss, [p for _, p in params])
+        loss, ref_loss = loss.detach(), ref_loss.detach()
+        dloss = abs(float(loss) - float(ref_loss))
+        check(dloss <= GRAD_LOSS_TOL, f"{what}loss kernels {float(loss)} vs "
+              f"plain {float(ref_loss)}")
+        worst = []
+        for (name, _), g, r in zip(params, grads, ref):
+            rel = ((g.float() - r.float()).norm()
+                   / r.float().norm().clamp_min(1e-30)).item()
+            worst.append((rel, name))
+            check(rel <= GRAD_NORM_TOL,
+                  f"{what}grad {name}: relative norm error {rel}")
+        worst.sort(reverse=True)
+        del grads, ref
+        return dict(layers=cfg.num_layers, loss_kernels=float(loss),
+                    loss_plain=float(ref_loss), loss_abs_diff=dloss,
+                    params=len(params), worst_rel_norm=worst[:5],
+                    median_rel_norm=float(np.median([w for w, _ in worst])))
+
+    return one(""), one("dropout ", deterministic=False)
 
 
 def overflow_check(torch, cfg, model, opt, state, sstate):
@@ -2608,6 +2858,69 @@ def overflow_check(torch, cfg, model, opt, state, sstate):
           "halved")
     return dict(loss=float(loss), scale_before=scale0,
                 scale_after=float(sstate2.loss_scale), step=int(g2.step))
+
+
+# ---------------------------------------------------------------------------
+# the s1024 O2 step in training mode with Megatron's dropout: attention
+# dropout in B1's and B2's dropout variants, hidden dropout on both residual
+# branches, from one host generator
+# ---------------------------------------------------------------------------
+
+DROP_STEPS = 4
+DROP_GEN_SEED = 0
+DROP_PER_STEP = {**TRAIN_PER_STEP, "flash_fwd_sm90": 0,
+                 "flash_bwd_fused_sm90": 0, "flash_fwd_sm90_dropout": 12,
+                 "flash_bwd_fused_sm90_dropout": 12}
+
+
+def dropout_config(cfg):
+    """``cfg`` with Megatron's attention and hidden dropout."""
+    import dataclasses
+    return dataclasses.replace(cfg, attention_dropout=DROPOUT_RATE,
+                               hidden_dropout=DROPOUT_RATE)
+
+
+def run_dropout_path(torch, model, opt, state, sstate):
+    """The O2 ``FusedAdam`` step of :func:`run_train_path` in training mode,
+    on its model (of :func:`dropout_config`) and optimizer state: a second
+    ``make_train_step`` over ``GPT.loss(deterministic=False)`` with one
+    host generator; a warm-up, then :data:`DROP_STEPS` timed steps with the
+    counters reset just before; finite, falling losses and every flash
+    launch on the dropout variants. Returns the stats, the state and the
+    step."""
+    from apex_tpu_torch import amp
+    gen = torch.Generator().manual_seed(DROP_GEN_SEED)
+    step = amp.make_train_step(lambda m, i, l: m.loss(
+        i, l, deterministic=False, generator=gen), opt)
+    ids, labels = train_batch(torch, model.cfg)
+    _, state, sstate, _ = step(model, state, sstate, ids, labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    reset_counters()
+    for _ in range(DROP_STEPS):
+        t0 = time.perf_counter()
+        _, state, sstate, loss = step(model, state, sstate, ids, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    launches = read_counters()
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"non-finite dropout loss: {losses}")
+    check(losses[-1] < losses[0], f"dropout loss did not fall: {losses}")
+    for k, per in DROP_PER_STEP.items():
+        check(launches[k] == per * DROP_STEPS,
+              f"train-dropout {k}: {launches[k]} launches, expected "
+              f"{per * DROP_STEPS}")
+    ms = [1e3 * t for t in times]
+    stats = dict(steps=DROP_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+                 attention_dropout=DROPOUT_RATE, hidden_dropout=DROPOUT_RATE,
+                 losses=losses, step_ms_median=float(np.median(ms)),
+                 step_ms_p90=float(np.percentile(ms, 90)), step_ms_all=ms,
+                 tokens_per_s=TRAIN_B * TRAIN_S / (np.median(ms) / 1e3),
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 launches=launches)
+    return stats, state, sstate, step
 
 
 # ---------------------------------------------------------------------------
@@ -3089,36 +3402,11 @@ def _bottleneck_registers(build):
     return regs
 
 
-# B15's device launches a call, counted by device_launches in a fresh
-# process. In the kernel phase's process every profiler session of this
-# call has recorded no device kernel at all (8 of 8 on an H100), while a
-# fresh process records the kernel in every session.
-_B15_LAUNCHES = """
-import json, sys
-sys.path.insert(0, sys.argv[1])
-import torch
-import chip_smoke as cs
-from apex_tpu_torch.scripts import bottleneck_proto as bp
-p = bp.make_params(device="cuda")
-x = bp.make_input(bp.N, device="cuda")
-print(json.dumps(cs.device_launches(torch, lambda: bp.fused_block(x, p),
-                                    ["bottleneck_kernel"])))
-"""
-
-
-def bottleneck_device_launches():
-    root = os.path.dirname(os.path.abspath(__file__))
-    out = subprocess.run([sys.executable, "-c", _B15_LAUNCHES, root],
-                         capture_output=True, text=True, timeout=600,
-                         check=True, cwd=root)
-    return json.loads(out.stdout.strip().splitlines()[-1])
-
-
 def check_bottleneck(torch, timer):
     """B15 at N 32 against its plain version and the cuDNN composition;
     bitwise on a rerun; n 3 against the plain version; each image of an n 5
     batch bitwise the same image alone; one device launch a call
-    (profiler, in a fresh process); no spill."""
+    (profiler); no spill."""
     from apex_tpu_torch.ops import _build
     from apex_tpu_torch.scripts import bottleneck_proto as bp
     p = bp.make_params(device="cuda")
@@ -3145,7 +3433,8 @@ def check_bottleneck(torch, timer):
         check(torch.equal(y5[i:i + 1],
                           bp.fused_block(x5[i:i + 1].contiguous(), p)),
               f"bottleneck: image {i} of n 5 differs alone")
-    launches = bottleneck_device_launches()
+    launches = device_launches(torch, bp.fused_block, (x, p),
+                               ("bottleneck_kernel",))
     check(launches == {"bottleneck_kernel": 1, "other": 0},
           f"bottleneck: device launches {launches}")
     ms = timer(lambda: bp.fused_block(x, p))
@@ -3898,27 +4187,20 @@ def _kernel_class(name: str) -> str:
     return "other PyTorch kernels"
 
 
-def _profile(torch, fn, reps, sessions=3):
+def _profile(torch, fn, reps):
     """torch.profiler over ``reps`` calls of ``fn`` (after one unprofiled),
-    by kernel class. A session that recorded no device kernel missed the
-    calls' records (see ``device_launches``) and is taken again."""
-    from torch.profiler import ProfilerActivity, profile
+    by kernel class, from the first session that recorded them all
+    (:func:`_whole_sessions`)."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(sessions):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        kern = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        if kern:
-            break
-    check(bool(kern), f"profiler: no device kernel recorded in {sessions} "
-          "sessions")
+
+    def calls():
+        for _ in range(reps):
+            fn()
+
+    kern, wall_us = next(_whole_sessions(torch, calls), (None, None))
+    check(kern is not None, f"profiler: no session of {len(LEADS)} "
+          "recorded the whole of the traced calls")
     dev_us = sum(e.self_device_time_total for e in kern)
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:12]
     by_class = {}
@@ -4045,6 +4327,7 @@ def main() -> int:
                check_paged_fp8(torch, timer), *check_fp8_matmul(torch, timer),
                check_layer_norm(torch, timer),
                check_flash_bwd(torch, timer),
+               *check_flash_dropout(torch, timer),
                *check_flash_f32(torch, timer, split=False),
                check_layer_norm_bwd(torch, timer),
                *check_lm_head_ce(torch, timer),
@@ -4065,7 +4348,8 @@ def main() -> int:
                       "as_called_ms", "ms_by_block_rows", "long_shape",
                       "delta_fold_max_abs_err", "by_shape",
                       "train_shape", "lamb_ms", "by_op", "d128_shape",
-                      "alone_ms", "split_as_called_ms",
+                      "alone_ms", "split_as_called_ms", "no_dropout_ms",
+                      "mask_check",
                       "cudnn_composition_max_abs_err", "plan"):
             if extra in kr:
                 log(f"  {kr['name']} {extra}: {json.dumps(kr[extra])}")
@@ -4142,7 +4426,12 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    model, opt, state, sstate, step, tstats = run_train_path(torch, cfg)
+    # the train path's GPT carries Megatron's dropout: its deterministic
+    # steps are bitwise those of the config without
+    # (tests/test_torch_gpt_dropout.py), and the dropout steps run on the
+    # same model and optimizer state
+    model, opt, state, sstate, step, tstats = run_train_path(
+        torch, dropout_config(cfg))
     log(f"train path ({card}): " + json.dumps(tstats))
     train_trace, state, sstate = trace_train(torch, cfg, model, state,
                                              sstate, step)
@@ -4151,11 +4440,30 @@ def main() -> int:
     log(f"train step phases, device ms ({card}): " + json.dumps(phases))
     log("overflow: " + json.dumps(overflow_check(torch, cfg, model, opt,
                                                  state, sstate)))
-    del model, opt, state, sstate, step
+    drop_stats, state, sstate, drop_step = run_dropout_path(
+        torch, model, opt, state, sstate)
+    drop_stats["without_dropout"] = {
+        k: tstats[k] for k in ("step_ms_median", "step_ms_p90",
+                               "tokens_per_s")}
+    log(f"train-dropout path ({card}): " + json.dumps(drop_stats))
+    drop_trace, state, sstate = trace_train(torch, cfg, model, state, sstate,
+                                            drop_step)
+    log(f"train step with and without dropout, device ms and launches by "
+        f"kernel class (trace, {card}): " + json.dumps({
+            name: {k: tr[k] for k in (
+                "device_ms_per_call", "wall_ms_per_call",
+                "device_ms_and_launches_by_class_per_call")}
+            for name, tr in (("train_step", train_trace),
+                             ("train_step_dropout", drop_trace))}))
+    del model, opt, state, sstate, step, drop_step
     torch.cuda.empty_cache()
+    det, drop = grad_check(torch, dropout_config(cfg), DROP_GEN_SEED + 1)
     log("grad check (kernels vs plain, tolerances: loss "
         f"{GRAD_LOSS_TOL}, relative norm {GRAD_NORM_TOL}): "
-        + json.dumps(grad_check(torch, cfg)))
+        + json.dumps(det))
+    log("dropout grad check (kernels vs plain, the same seeds and hidden "
+        f"masks; tolerances: loss {GRAD_LOSS_TOL}, relative norm "
+        f"{GRAD_NORM_TOL}): " + json.dumps(drop))
     torch.cuda.empty_cache()
 
     long_stats, long_trace = run_long_seq_path(torch)
@@ -4193,6 +4501,7 @@ def main() -> int:
                 + json.dumps(tr["device_ms_and_launches_by_class_per_call"]))
         torch.cuda.empty_cache()
     log("trace: " + json.dumps({**serve_trace, "train_step": train_trace,
+                                "train_step_dropout": drop_trace,
                                 f"train_step_s{LONG_S}": long_trace,
                                 "train_step_rn50": rn_trace,
                                 "train_step_zero3": zero_trace}))
@@ -4201,6 +4510,7 @@ def main() -> int:
         by_path = {path: st["launches"][kr["name"]]
                    for path, st in serve_stats.items()}
         by_path["train"] = tstats["launches"][kr["name"]]
+        by_path["train-dropout"] = drop_stats["launches"][kr["name"]]
         by_path[f"train-gpt-s{LONG_S}"] = long_stats["launches"][kr["name"]]
         by_path["train-rn50"] = rn_stats["launches"][kr["name"]]
         by_path["train-zero3"] = zero_stats["launches"][kr["name"]]
@@ -4215,6 +4525,7 @@ def main() -> int:
         check(kr["launches"] > 0, f"{kr['name']} never launched on a main "
               "path")
 
+    log("profiler sessions: " + json.dumps(SESSIONS))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -57,6 +57,13 @@ sq != sk, segment padding, d 64/128 and padded, bf16 and fp16; the forward
 and the single pass's dk, dv bitwise on a rerun, its dq not (bulk
 reductions into an fp32 accumulator in a varying order).
 
+Attention dropout on the wgmma route (the forward's and the single pass's
+dropout variants) is held at the same limits against the plain versions
+with the same seed, whose forward rounds the dropped p to v's dtype before
+the PV product as the kernel does (scaled by 1 / (1 - rate), the largest p
+of a row is no longer exactly 1 in bf16); bitwise on a rerun; and the
+kernel's mask is the plain mask bit for bit (v the identity).
+
 The fp8 dequant-matmul's prefill regime (m > 8, wgmma/TMA with the
 weight converted in registers, ``_prefill_plan``) is held like its decode
 regime at the serve linears and padded K, N, bitwise on a rerun, each row
@@ -527,6 +534,98 @@ def test_flash_bwd_fused_wgmma_route_matches_plain(gen, b, h, sq, sk, d,
     if seg:
         pad = (sid_q < 0)[:, None, :].expand(b, h, sq)
         assert not bool(one[0][pad].any())
+
+
+# attention dropout on the wgmma route: the forward and the single pass
+# regenerate the plain version's mask (dropout_keep_reference) bit for bit
+_DROPOUT_CASES = [
+    (2, 3, 77, 77, 64, True, False, _BF, 0.1, 1234),
+    (1, 2, 300, 129, 128, True, False, _F16, 0.1, -7),
+    (2, 2, 257, 257, 80, False, True, _BF, 0.3, 2 ** 31 - 1),
+    (1, 2, 17, 200, 128, True, True, _BF, 0.5, 0),
+    (2, 4, 512, 512, 64, True, True, _F16, 0.9, 99),
+]
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,seg,dtype,rate,seed",
+                         _DROPOUT_CASES)
+def test_flash_dropout_wgmma_route_matches_plain(gen, b, h, sq, sk, d,
+                                                 causal, seg, dtype, rate,
+                                                 seed):
+    """The forward's and the single pass's dropout variants against the
+    plain versions with the same seed, at the no-dropout cases' limits
+    (the plain forward rounds the dropped p to v's dtype as the kernel
+    does); both bitwise on a rerun, another seed another output; one
+    launch of each on the dropout counters."""
+    q, k, v, do, sid_q, sid_kv = _wgmma_inputs(gen, b, h, sq, sk, d, seg,
+                                               dtype)
+    f, g = fa.flash_attention, fa.flash_attention_bwd
+    n0 = (f.dropout_launches, g.dropout_launches)
+    drop = dict(dropout_rate=rate, dropout_seed=seed)
+    out, lse = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal,
+                                      **drop)
+    again = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal, **drop)
+    other = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal,
+                                   dropout_rate=rate, dropout_seed=seed ^ 1)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, sid_q, sid_kv,
+                                   causal, **drop)
+    grads2 = fa.flash_attention_bwd(q, k, v, out, lse, do, sid_q, sid_kv,
+                                    causal, **drop)
+    torch.cuda.synchronize()
+    assert (f.dropout_launches, g.dropout_launches) == (n0[0] + 3,
+                                                        n0[1] + 2)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    assert not torch.equal(out, other[0])
+    assert all(torch.equal(a, b_) for a, b_ in zip(grads, grads2))
+    ref, ref_lse = fa.flash_attention_reference(
+        q, k, v, causal=causal, segment_ids_q=sid_q, segment_ids_kv=sid_kv,
+        **drop)
+    _close(out, ref, 4e-3)
+    assert float((lse - ref_lse).abs().max()) <= 1e-3
+    ref_grads = fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, do, causal=causal, segment_ids_q=sid_q,
+        segment_ids_kv=sid_kv, **drop)
+    for name, got, r in zip(("dq", "dk", "dv"), grads, ref_grads):
+        assert got.dtype == dtype
+        _close_grad(got, r, name)
+
+
+@pytest.mark.parametrize("dtype,d", [(_BF, 64), (_F16, 128)])
+@pytest.mark.parametrize("seed", [5, -3])
+def test_flash_dropout_mask_is_the_plain_mask(gen, dtype, d, seed):
+    """q = k = 0 and v = I over sk = d keys, non-causal, rate 0.5: out[q, k]
+    is 2 / sk where the key is kept and exactly 0 where it is dropped, so
+    the zero pattern is the kernel's mask, bitwise the plain one."""
+    b, h, sq = 2, 3, 333
+    q = torch.zeros(b, h, sq, d, device="cuda", dtype=dtype)
+    k = torch.zeros(b, h, d, d, device="cuda", dtype=dtype)
+    v = torch.eye(d, device="cuda", dtype=dtype).expand(b, h, d, d)
+    out, _ = fa.flash_attention_fwd(q, k, v.contiguous(), None, None, False,
+                                    1.0, 0.5, seed)
+    keep = fa.dropout_keep_reference(seed, b, h, sq, d, 0.5, device="cuda")
+    assert torch.equal(out != 0, keep)
+    assert torch.equal(out[keep].float(),
+                       torch.full_like(out[keep].float(), 2.0 / d))
+
+
+def test_flash_dropout_refuses_the_unported_routes_on_the_card(gen):
+    """Dropout on a route without it raises before any launch, naming the
+    route; so does a bias with dropout."""
+    q = _rand(gen, 1, 2, 64, 64)
+    with pytest.raises(NotImplementedError, match="FFMA"):
+        fa.flash_attention(q.float(), q.float(), q.float(),
+                           dropout_rate=0.1, dropout_seed=1)
+    q32 = _rand(gen, 1, 2, 64, 32)
+    with pytest.raises(NotImplementedError, match="frag.cuh"):
+        fa.flash_attention(q32, q32, q32, dropout_rate=0.1, dropout_seed=1)
+    qs = _rand(gen, 1, 1, 4096, 64).requires_grad_()
+    with pytest.raises(NotImplementedError, match="split"):
+        fa.flash_attention(qs, qs, qs, causal=True, dropout_rate=0.1,
+                           dropout_seed=1)
+    with pytest.raises(NotImplementedError, match="bias"):
+        fa.flash_attention(q, q, q, bias=torch.zeros(1, 2, 64, 64,
+                                                     device="cuda"),
+                           dropout_rate=0.1, dropout_seed=1)
 
 
 @pytest.mark.parametrize("dtype,d,sm90", [
