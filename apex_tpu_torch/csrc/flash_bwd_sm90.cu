@@ -113,21 +113,38 @@
 //   zero-fills past s. lse is kept as lse * log2(e), so p = 2^(s * scale *
 //   log2(e) - lse * log2(e)) is one FMA and one ex2.
 //
-// Attention dropout, in the single pass only (the split refuses it in the
-// wrapper): the `_p_dp_ds` rule (:526-555). A variant of the kernel (DROP,
-// chosen by the C entry when the keep threshold is not 0; the code without
+// Attention dropout: the `_p_dp_ds` rule (:526-555), in the single pass
+// and in both kernels of the split. A variant of each kernel (DROP, chosen
+// by its C entry when the keep threshold is not 0; the code without
 // dropout is unchanged) regenerates the forward's keep bit of each (query
-// row, key) element from dropout_hash.cuh, takes dp = keep ? dp / (1 -
-// rate) : 0 before ds = p (dp - delta) with the undropped p, and puts the
-// dropped p (0, or p / (1 - rate)) in S^T's registers for the dV product.
-// delta is rowsum(do * out) of the dropped output, as given. Each consumer
-// hashes its own elements in the probabilities loop (the key's part of the
-// hash computed once a tile: one xor and one fmix32 an element). At 232
-// registers a consumer thread spilled with the hash at d 128, so the
-// variant takes 240 and leaves the producer warpgroup 24 (the same total).
+// row, key) element from dropout_hash.cuh, by global positions (the tiles
+// here are not the forward's), takes dp = keep ? dp / (1 - rate) : 0
+// before ds = p (dp - delta) with the undropped p, and, where dV is formed,
+// puts the dropped p (0, or p / (1 - rate)) in S^T's registers for the dV
+// product. delta is rowsum(do * out) of the dropped output: given to the
+// single pass and to dk/dv, folded by the dq kernel from that output
+// unchanged. Each consumer thread hashes its own elements in the
+// probabilities loop; the terms of its resident positions (dk/dv: its two
+// keys; dq: its two query rows; the single pass: its two keys, once a
+// tile) are xored once a block, so an element costs one xor of the
+// streamed position's term and one fmix32. Registers: each DROP variant
+// takes 240 a consumer thread and leaves the producer warpgroup 24 (the
+// same total; at 232 the single pass spilled with the hash at d 128; 32
+// and 240, which fill the register file exactly, hung setmaxnreg.inc).
+// The split's variants (compared on an H100 at b2 h16 s4096, PERF.md):
+// - the keep bits of a tile computed while its S and dP products run, as
+//   the forward does, or before the products were slower than hashing in
+//   the loop and spilled more;
+// - dk/dv takes 64-row tiles at d 64 (at 128 rows it spilled); its
+//   producer splits the work, warp 0's lane 0 issuing the loads and warp 1
+//   staging lse, delta and the segment ids (the full barriers count 33
+//   arrivals), and its consumers read the keys' segment ids in each masked
+//   tile: one producer warp doing both at 24 registers, and the ids held
+//   across the loop, each spilled at d 128;
+// - dq keeps its tiles (64-row ones were slower).
 // Hashing on the producer's two idle warps instead, into a word of keep
-// bits a consumer thread and stage, was slower: two warps at 24 registers
-// fell behind the consumers.
+// bits a consumer thread and stage, was slower in the single pass: two
+// warps at 24 registers fell behind the consumers.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -150,12 +167,24 @@ constexpr int RES_ROWS = 128;      // the resident side's rows a block
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr cudaError_t MAP_REFUSED = cudaErrorNotSupported;
 
+// rows of a streamed tile of the split: 128 at d 64 (half the waits and
+// barrier round trips per flop), 64 at d 128, where the accumulators of a
+// wider tile would not fit in a consumer's registers
 template <int D>
+struct SplitTile {
+  static constexpr int value = D == 64 ? 128 : 64;
+};
+
+// the dk/dv kernel's: 64 rows in the dropout variant at d 64 (at 128 the
+// hash's registers beside S^T, dP^T, dV and dK spilled)
+template <int D, bool DROP>
+struct DkdvTile {
+  static constexpr int value = D == 64 && DROP ? 64 : SplitTile<D>::value;
+};
+
+template <int D, int TILE_ROWS = SplitTile<D>::value>
 struct Layout {
-  // rows of a streamed tile: 128 at d 64 (half the waits and barrier
-  // round trips per flop), 64 at d 128, where the accumulators of a wider
-  // tile would not fit in a consumer's registers
-  static constexpr int TILE = D == 64 ? 128 : 64;
+  static constexpr int TILE = TILE_ROWS;
   static constexpr int RES_BYTES = RES_ROWS * D * 2;   // one resident operand
   static constexpr int TILE_BYTES = TILE * D * 2;      // one streamed operand
   // two resident operands, STAGES x two streamed ones, STAGES x three
@@ -179,8 +208,8 @@ struct Params {
   const void* dout;    // dq: do, for delta
   int h, sq, sk, causal;
   float scale;
-  // the single pass's dropout (its DROP variant): the seed, the keep
-  // threshold, 1 / (1 - rate)
+  // dropout (the DROP variants): the seed, the keep threshold, 1 / (1 -
+  // rate)
   uint32_t seed, threshold;
   float inv;
 };
@@ -219,7 +248,7 @@ __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da,
     wg::mma_ss128<T, ACCUM>(d, da, db);
 }
 
-template <typename T, int D, int N = Layout<D>::TILE>
+template <typename T, int D, int N>
 __device__ __forceinline__ void scores(float (&s)[N / 2], float (&dp)[N / 2],
                                        const uint8_t* a, const uint8_t* a2,
                                        const uint8_t* b, const uint8_t* b2,
@@ -262,13 +291,13 @@ __device__ __forceinline__ void store_rows(T* out, const float (&acc)[D / 2],
 // dk, dv: a block owns 128 keys; query tiles stream
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_dkdv_sm90(const __grid_constant__ CUtensorMap map_q,
                 const __grid_constant__ CUtensorMap map_k,
                 const __grid_constant__ CUtensorMap map_v,
                 const __grid_constant__ CUtensorMap map_do, const Params p) {
-  using L = Layout<D>;
+  using L = Layout<D, DkdvTile<D, DROP>::value>;
   constexpr int TILE = L::TILE;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = aligned_smem(smem_raw);
@@ -297,7 +326,8 @@ flash_dkdv_sm90(const __grid_constant__ CUtensorMap map_q,
     wg::prefetch_map(&map_do);
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
-      wg::mbar_init(&full[s], 32);          // the producer warp's lanes
+      // the producer warp's lanes (dropout: warp 0's lane 0 and warp 1)
+      wg::mbar_init(&full[s], DROP ? 33 : 32);
       wg::mbar_init(&empty[s], CONSUMERS);
     }
     wg::mbar_init(res, 1);
@@ -307,8 +337,11 @@ flash_dkdv_sm90(const __grid_constant__ CUtensorMap map_q,
 
   const int wgi = threadIdx.x / 128;
   if (wgi == 0) {
-    // ---- producer: warp 0 keeps the ring full
-    wg::setmaxnreg_dec<40>();
+    // ---- producer: warp 0 keeps the ring full. The dropout variant takes
+    // 24 registers a thread (its consumers 240) and splits the work: warp
+    // 0's lane 0 issues the loads, warp 1 stages lse, delta and the
+    // segment ids (one warp doing both spilled at 24 registers)
+    wg::setmaxnreg_dec<DROP ? 24 : 40>();
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
       if (lane == 0) {
@@ -324,16 +357,19 @@ flash_dkdv_sm90(const __grid_constant__ CUtensorMap map_q,
       int stage = 0;
       uint32_t phase = 0;
       for (int qt = qt_begin; qt < n_qt; ++qt) {
+        if (DROP && lane != 0) break;
         wg::mbar_wait(&empty[stage], phase ^ 1);
         const int q0 = qt * TILE;
-        for (int r = lane; r < TILE; r += 32) {
-          const int row = q0 + r;
-          const bool in = row < sq;
-          const long at = (long)bh * sq + row;
-          sLse[stage * TILE + r] = in ? p.lse[at] * LOG2E : 0.f;
-          sDelta[stage * TILE + r] = in ? p.delta[at] : 0.f;
-          sSid[stage * TILE + r] =
-              (use_seg && in) ? p.sid_q[(long)bi * sq + row] : -1;
+        if constexpr (!DROP) {
+          for (int r = lane; r < TILE; r += 32) {
+            const int row = q0 + r;
+            const bool in = row < sq;
+            const long at = (long)bh * sq + row;
+            sLse[stage * TILE + r] = in ? p.lse[at] * LOG2E : 0.f;
+            sDelta[stage * TILE + r] = in ? p.delta[at] : 0.f;
+            sSid[stage * TILE + r] =
+                (use_seg && in) ? p.sid_q[(long)bi * sq + row] : -1;
+          }
         }
         uint8_t* tq = ring + stage * 2 * L::TILE_BYTES;
         if (lane == 0) {
@@ -353,18 +389,59 @@ flash_dkdv_sm90(const __grid_constant__ CUtensorMap map_q,
           phase ^= 1;
         }
       }
+    } else if (DROP && threadIdx.x < 64) {
+      const int lane = threadIdx.x - 32;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int qt = qt_begin; qt < n_qt; ++qt) {
+        wg::mbar_wait(&empty[stage], phase ^ 1);
+        const int q0 = qt * TILE;
+        // every lane's loads issued before its stores
+        float lv[TILE / 32], dv_[TILE / 32];
+        int32_t sv[TILE / 32];
+#pragma unroll
+        for (int i = 0; i < TILE / 32; ++i) {
+          const int row = q0 + lane + 32 * i;
+          const bool in = row < sq;
+          const long at = (long)bh * sq + row;
+          lv[i] = in ? p.lse[at] * LOG2E : 0.f;
+          dv_[i] = in ? p.delta[at] : 0.f;
+          sv[i] = (use_seg && in) ? p.sid_q[(long)bi * sq + row] : -1;
+        }
+#pragma unroll
+        for (int i = 0; i < TILE / 32; ++i) {
+          sLse[stage * TILE + lane + 32 * i] = lv[i];
+          sDelta[stage * TILE + lane + 32 * i] = dv_[i];
+          sSid[stage * TILE + lane + 32 * i] = sv[i];
+        }
+        wg::mbar_arrive(&full[stage]);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
     }
   } else {
     // ---- consumers: 64 keys each
-    wg::setmaxnreg_inc<232>();
+    wg::setmaxnreg_inc<DROP ? 240 : 232>();
     const int cw = wgi - 1, t = threadIdx.x % 128;
     const int warp = t / 32, g = (t % 32) / 4, tig = t % 4;
     const int n0w = n0 + 64 * cw;
     const int key0 = n0w + 16 * warp + g, key1 = key0 + 8;
+    // the keys' segment ids (the dropout variant reads them in each masked
+    // tile: held across the loop they spilled at d 128)
     int sid0 = -1, sid1 = -1;
-    if (use_seg) {
+    if (use_seg && !DROP) {
       if (key0 < sk) sid0 = p.sid_kv[(long)bi * sk + key0];
       if (key1 < sk) sid1 = p.sid_kv[(long)bi * sk + key1];
+    }
+    // dropout: the hash's (seed, batch, head, key) terms of the thread's
+    // two keys, for the whole block
+    uint32_t dkey[2];
+    if constexpr (DROP) {
+      const uint32_t hb = dropout::base(p.seed, bi, bh - bi * p.h);
+      dkey[0] = hb ^ dropout::k_term(key0);
+      dkey[1] = hb ^ dropout::k_term(key1);
     }
     const float sl2 = p.scale * LOG2E;
     float dv[D / 2], dk[D / 2];
@@ -386,7 +463,7 @@ flash_dkdv_sm90(const __grid_constant__ CUtensorMap map_q,
         const uint8_t* tdo = tq + L::TILE_BYTES;
         float s[TILE / 2], dp[TILE / 2];
         wg::wgmma_fence();
-        scores<T, D>(s, dp, sK, sV, tq, tdo, cw);
+        scores<T, D, TILE>(s, dp, sK, sV, tq, tdo, cw);
         wg::wgmma_commit();
         wg::wgmma_wait<0>();
         wg::fence_regs(s);
@@ -399,6 +476,13 @@ flash_dkdv_sm90(const __grid_constant__ CUtensorMap map_q,
         const int32_t* sidq = sSid + stage * TILE;
         // one straight-line version each, chosen once a tile
         auto probs = [&](auto masked) {
+          int ks0 = sid0, ks1 = sid1;
+          if constexpr (DROP && decltype(masked)::value) {
+            if (use_seg) {
+              ks0 = key0 < sk ? p.sid_kv[(long)bi * sk + key0] : -1;
+              ks1 = key1 < sk ? p.sid_kv[(long)bi * sk + key1] : -1;
+            }
+          }
 #pragma unroll
           for (int nb = 0; nb < TILE / 8; ++nb)
 #pragma unroll
@@ -415,12 +499,19 @@ flash_dkdv_sm90(const __grid_constant__ CUtensorMap map_q,
                             (!causal || key <= qrow + offset);
                   if (use_seg) {
                     const int sr = sidq[ql];
-                    ok = ok && sr >= 0 && sr == (r ? sid1 : sid0);
+                    ok = ok && sr >= 0 && sr == (r ? ks1 : ks0);
                   }
                   pv = ok ? pv : 0.f;
                 }
-                s[i] = pv;
-                dp[i] = pv * (dp[i] - de);
+                if constexpr (DROP) {   // dV takes p dropped, ds p undropped
+                  const bool kept = dropout::keep(
+                      dkey[r] ^ dropout::q_term(q0 + ql), p.threshold);
+                  dp[i] = pv * ((kept ? dp[i] * p.inv : 0.f) - de);
+                  s[i] = kept ? pv * p.inv : 0.f;
+                } else {
+                  s[i] = pv;
+                  dp[i] = pv * (dp[i] - de);
+                }
               }
             }
         };
@@ -473,7 +564,7 @@ flash_dkdv_sm90(const __grid_constant__ CUtensorMap map_q,
 // dq: a block owns 128 query rows; key tiles stream
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_dq_sm90(const __grid_constant__ CUtensorMap map_q,
               const __grid_constant__ CUtensorMap map_k,
@@ -521,7 +612,7 @@ flash_dq_sm90(const __grid_constant__ CUtensorMap map_q,
 
   const int wgi = threadIdx.x / 128;
   if (wgi == 0) {
-    wg::setmaxnreg_dec<40>();
+    wg::setmaxnreg_dec<DROP ? 24 : 40>();   // as in the dk/dv kernel
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
       if (lane == 0) {
@@ -564,13 +655,21 @@ flash_dq_sm90(const __grid_constant__ CUtensorMap map_q,
     }
   } else {
     // ---- consumers: 64 query rows each
-    wg::setmaxnreg_inc<232>();
+    wg::setmaxnreg_inc<DROP ? 240 : 232>();
     const int cw = wgi - 1, t = threadIdx.x % 128;
     const int warp = t / 32, g = (t % 32) / 4, tig = t % 4;
     const int m0w = m0 + 64 * cw;
     const int row0 = m0w + 16 * warp + g;
     float lse[2], dl[2];
     int sid[2];
+    // dropout: the hash's (seed, batch, head, row) terms of the thread's
+    // two rows, for the whole block
+    uint32_t drow[2];
+    if constexpr (DROP) {
+      const uint32_t hb = dropout::base(p.seed, bi, bh - bi * p.h);
+      drow[0] = hb ^ dropout::q_term(row0);
+      drow[1] = hb ^ dropout::q_term(row0 + 8);
+    }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
@@ -624,7 +723,7 @@ flash_dq_sm90(const __grid_constant__ CUtensorMap map_q,
         const uint8_t* tv = tk + L::TILE_BYTES;
         float s[TILE / 2], dp[TILE / 2];
         wg::wgmma_fence();
-        scores<T, D>(s, dp, sQ, sDO, tk, tv, cw);
+        scores<T, D, TILE>(s, dp, sQ, sDO, tk, tv, cw);
         wg::wgmma_commit();
         wg::wgmma_wait<0>();
         wg::fence_regs(s);
@@ -649,7 +748,13 @@ flash_dq_sm90(const __grid_constant__ CUtensorMap map_q,
                     ok = ok && sid[r] >= 0 && sid[r] == sidk[kl];
                   pv = ok ? pv : 0.f;
                 }
-                s[i] = pv * (dp[i] - dl[r]);
+                if constexpr (DROP) {   // dp dropped, ds p undropped
+                  const bool kept = dropout::keep(
+                      drow[r] ^ dropout::k_term(key), p.threshold);
+                  s[i] = pv * ((kept ? dp[i] * p.inv : 0.f) - dl[r]);
+                } else {
+                  s[i] = pv * (dp[i] - dl[r]);
+                }
               }
             }
         };
@@ -1204,7 +1309,7 @@ struct Args {
   int b, h, sq, sk, causal;
   float scale;
   cudaStream_t stream;
-  uint32_t seed = 0, threshold = 0;   // the single pass's dropout
+  uint32_t seed = 0, threshold = 0;   // dropout (0: none)
   float inv = 1.f;
 };
 
@@ -1215,7 +1320,9 @@ template <typename T, int D, Kind K, bool DROP = false>
 cudaError_t launch(const Args& a) {
   const long bh = (long)a.b * a.h;
   // the resident side's boxes are 128 rows, the streamed side's its TILE
-  constexpr int TILE = K == FUSED ? FusedLayout<D>::TILE : Layout<D>::TILE;
+  constexpr int TILE = K == FUSED  ? FusedLayout<D>::TILE
+                       : K == DKDV ? DkdvTile<D, DROP>::value
+                                   : SplitTile<D>::value;
   const int rows_q = K == DQ ? RES_ROWS : TILE;
   const int rows_k = K == DQ ? TILE : RES_ROWS;
   CUtensorMap mq, mk, mv, mdo;
@@ -1245,8 +1352,9 @@ cudaError_t launch(const Args& a) {
     if (err != cudaSuccess) return err;
     kern<<<grid, THREADS, smem, a.stream>>>(mq, mk, mv, mdo, mdq, p);
   } else {
-    const size_t smem = Layout<D>::SMEM;
-    auto kern = K == DQ ? flash_dq_sm90<T, D> : flash_dkdv_sm90<T, D>;
+    const size_t smem = Layout<D, TILE>::SMEM;
+    auto kern =
+        K == DQ ? flash_dq_sm90<T, D, DROP> : flash_dkdv_sm90<T, D, DROP>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -1255,8 +1363,7 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-// the kernel of kind K (and, for the single pass, variant DROP) of the
-// operands' dtype and head dim
+// the kernel of kind K and variant DROP of the operands' dtype and head dim
 template <Kind K, bool DROP>
 int launch_of(const Args& a, int d, int dtype) {
   switch (dtype) {
@@ -1294,11 +1401,8 @@ int dispatch(const Args& a, int d, int dtype) {
       err = cudaMemsetAsync(a.out1, 0, bytes, a.stream);
     return err;
   }
-  // the single pass's variant with dropout where the threshold keeps
-  // fewer than all
-  if constexpr (K == FUSED) {
-    if (a.threshold) return launch_of<K, true>(a, d, dtype);
-  }
+  // the variant with dropout where the threshold keeps fewer than all
+  if (a.threshold) return launch_of<K, true>(a, d, dtype);
   return launch_of<K, false>(a, d, dtype);
 }
 
@@ -1312,35 +1416,36 @@ int dispatch(const Args& a, int d, int dtype) {
 // dtype, cudaErrorNotSupported (801) when the driver refuses a TMA map (a
 // base address not 16-byte aligned).
 
+// Dropout as the forward's C entry takes it: `seed`, `threshold` (0: no
+// dropout) and `inv` = 1 / (1 - rate).
+
 // dk, dv [b,h,sk,d] (every element written)
-extern "C" int apex_flash_bwd_sm90_dkdv(const void* q, const void* k,
-                                        const void* v, const void* dout,
-                                        const void* lse, const void* delta,
-                                        const void* sid_q, const void* sid_kv,
-                                        void* dk, void* dv, int b, int h,
-                                        int sq, int sk, int d, int causal,
-                                        float scale, int dtype,
-                                        void* stream) {
+extern "C" int apex_flash_bwd_sm90_dkdv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* sid_q,
+    const void* sid_kv, void* dk, void* dv, int b, int h, int sq, int sk,
+    int d, int causal, float scale, int dtype, unsigned int seed,
+    unsigned int threshold, float inv, void* stream) {
   const Args a{q, k, v, dout, lse, const_cast<void*>(delta), sid_q, sid_kv,
                dk, dv, nullptr, nullptr, nullptr, b, h, sq, sk, causal,
-               scale, static_cast<cudaStream_t>(stream)};
+               scale, static_cast<cudaStream_t>(stream), seed, threshold,
+               inv};
   return dispatch<DKDV>(a, d, dtype);
 }
 
 // dq [b,h,sq,d] (every element written). With `out` (the forward's output
-// [b,h,sq,d], q's dtype) the kernel computes delta = rowsum(do * out) itself
-// and writes it into `delta` for the dk/dv kernel launched after it; with
-// `out` null it reads `delta`.
-extern "C" int apex_flash_bwd_sm90_dq(const void* q, const void* k,
-                                      const void* v, const void* dout,
-                                      const void* lse, void* delta,
-                                      const void* sid_q, const void* sid_kv,
-                                      void* dq, const void* out, int b, int h,
-                                      int sq, int sk, int d, int causal,
-                                      float scale, int dtype, void* stream) {
+// [b,h,sq,d], q's dtype; the dropped output under dropout) the kernel
+// computes delta = rowsum(do * out) itself and writes it into `delta` for
+// the dk/dv kernel launched after it; with `out` null it reads `delta`.
+extern "C" int apex_flash_bwd_sm90_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, void* delta, const void* sid_q, const void* sid_kv,
+    void* dq, const void* out, int b, int h, int sq, int sk, int d,
+    int causal, float scale, int dtype, unsigned int seed,
+    unsigned int threshold, float inv, void* stream) {
   const Args a{q, k, v, dout, lse, delta, sid_q, sid_kv, dq, nullptr,
                nullptr, nullptr, out, b, h, sq, sk, causal, scale,
-               static_cast<cudaStream_t>(stream)};
+               static_cast<cudaStream_t>(stream), seed, threshold, inv};
   return dispatch<DQ>(a, d, dtype);
 }
 
@@ -1349,8 +1454,7 @@ extern "C" int apex_flash_bwd_sm90_dq(const void* q, const void* k,
 // caller zeroes, as it zeroes `turns` (b * h * ceil(sq / 64) int32, one
 // counter a 64-row query tile, left at the tile's count of key blocks);
 // from a given delta (rowsum(do * out), computed outside as the JAX
-// package computes it). Dropout as the forward's C entry takes it: `seed`,
-// `threshold` (0: no dropout) and `inv` = 1 / (1 - rate).
+// package computes it); dropout as the split's entries take it.
 extern "C" int apex_flash_bwd_sm90_fused(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* sid_q,

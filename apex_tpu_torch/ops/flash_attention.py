@@ -16,9 +16,9 @@ Port of ``apex_tpu/ops/flash_attention.py``:
   on the CPU, with an exactly zero gradient of its own as in the JAX
   package, and raises on CUDA. In-kernel attention dropout (the JAX
   kernels' counter hash, :func:`dropout_keep_reference`) runs in the
-  wgmma route's forward and single pass (a variant of each kernel chosen
-  at compile time) and in the plain versions; every other CUDA route
-  raises (:func:`dropout_refusal`). Past
+  wgmma route's forward, single pass and split (a variant of each kernel
+  chosen at compile time) and in the plain versions; every other CUDA
+  route raises (:func:`dropout_refusal`). Past
   the JAX package's 2 MB VMEM gate the backward is its two-kernel split,
   which replaces ``_dkdv_kernel`` (``:558``) and ``_dq_kernel`` (``:671``)
   on the same two routes (:func:`split_route`): ``flash_dkdv_sm90`` and
@@ -84,7 +84,9 @@ every route), ``flash_attention_bwd.wgmma_dkdv_launches`` and
 ``flash_attention_bwd.f32_dkdv_launches`` and ``.f32_dq_launches`` (the
 split's FFMA route alone), ``flash_attention.dropout_launches`` and
 ``flash_attention_bwd.dropout_launches`` (the wgmma forward's and single
-pass's dropout variants), ``paged_decode_attention.launches``
+pass's dropout variants), ``flash_attention_bwd.dropout_dkdv_launches``
+and ``.dropout_dq_launches`` (the split's dropout variants),
+``paged_decode_attention.launches``
 (bf16 pool) and ``paged_decode_attention.fp8_launches`` (e4m3 pool) count
 kernel launches (the CPU path does not count).
 """
@@ -306,16 +308,20 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, *, causal=False,
 
 def flash_bwd_dq_reference(q, k, v, out, lse, do, *, causal=False,
                            segment_ids_q=None, segment_ids_kv=None,
-                           scale=None):
+                           scale=None, dropout_rate=0.0, dropout_seed=None):
     """Plain version of the split's dq kernel with the delta fold (the
     wgmma route's ``flash_dq_sm90``): ``(dq, delta)``, delta = rowsum(do *
     out) fp32 [b, h, sq], computed from the forward's output as the kernel
     computes it for its own rows, then dq = (p * (dp - delta)) k * scale
-    in fp32, in q's dtype."""
+    in fp32, in q's dtype. With ``dropout_rate`` the JAX ``_p_dp_ds``
+    rule: dp masked and rescaled, p undropped (``out`` is the dropped
+    output, as the forward gives it)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     delta = (do.float() * out.float()).sum(dim=-1)
     p = _bwd_probs(q, k, lse, causal, segment_ids_q, segment_ids_kv, scale)
-    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    keep = _keep_mask(q, k, dropout_rate, dropout_seed)
+    dp = _dropped(torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float()),
+                  keep, dropout_rate)
     ds = p * (dp - delta[..., None]) * scale
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
     return dq.to(q.dtype), delta
@@ -323,15 +329,20 @@ def flash_bwd_dq_reference(q, k, v, out, lse, do, *, causal=False,
 
 def flash_bwd_dkdv_reference(q, k, v, lse, delta, do, *, causal=False,
                              segment_ids_q=None, segment_ids_kv=None,
-                             scale=None):
+                             scale=None, dropout_rate=0.0, dropout_seed=None):
     """Plain version of the split's dk/dv kernel: ``(dk, dv)`` from the
     forward's ``lse`` and ``delta`` [b, h, sq] (the dq kernel's, on the
-    wgmma route), fp32 math, in k's and v's dtypes."""
+    wgmma route), fp32 math, in k's and v's dtypes. With ``dropout_rate``
+    the JAX ``_p_dp_ds`` rule: dv takes the dropped p, dp is masked and
+    rescaled, ds = p (dp - delta) with the undropped p."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     p = _bwd_probs(q, k, lse, causal, segment_ids_q, segment_ids_kv, scale)
+    keep = _keep_mask(q, k, dropout_rate, dropout_seed)
     do32 = do.float()
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, do32)
-    dp = torch.einsum("bhqd,bhkd->bhqk", do32, v.float())
+    dv = torch.einsum("bhqk,bhqd->bhkd", _dropped(p, keep, dropout_rate),
+                      do32)
+    dp = _dropped(torch.einsum("bhqd,bhkd->bhqk", do32, v.float()), keep,
+                  dropout_rate)
     ds = p * (dp - delta[..., None]) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -486,16 +497,14 @@ def sm90_route(dtype: torch.dtype, kd: int) -> bool:
     return dtype in _SM90_DTYPES and kd in _SM90_HEAD_DIMS
 
 
-def dropout_refusal(dtype: torch.dtype, kd: int, split: bool) -> Optional[str]:
+def dropout_refusal(dtype: torch.dtype, kd: int) -> Optional[str]:
     """None where the CUDA kernels take attention dropout: the wgmma route
     (:func:`sm90_route` of the promoted ``dtype`` and the kernel head dim
-    ``kd``) with the single-pass backward (``split`` False:
-    :func:`uses_split_backward` with ``dropout=True`` keeps the shape under
-    the gate). Else the route that does not take it yet, by name, for the
+    ``kd``: the forward, the single-pass backward and the split). Else the
+    route that does not take it yet, by name, for the
     ``NotImplementedError`` its caller raises (ROADMAP §B1)."""
     if sm90_route(dtype, kd):
-        return ("the split backward (B3/B4: flash_dkdv_sm90, flash_dq_sm90)"
-                if split else None)
+        return None
     if dtype == torch.float32 and kd in _F32_CORE_HEAD_DIMS:
         return ("the fp32 FFMA route (f32_fwd_route / f32_core_route: "
                 "csrc/flash_fwd_f32.cuh, csrc/flash_bwd_f32.cuh)")
@@ -503,8 +512,8 @@ def dropout_refusal(dtype: torch.dtype, kd: int, split: bool) -> Optional[str]:
             "fp32 over narrower operands and head dims 32, 256, 512)")
 
 
-def _refuse_dropout(dtype: torch.dtype, kd: int, split: bool) -> None:
-    refused = dropout_refusal(dtype, kd, split)
+def _refuse_dropout(dtype: torch.dtype, kd: int) -> None:
+    refused = dropout_refusal(dtype, kd)
     if refused is not None:
         raise NotImplementedError(f"flash_attention: attention dropout is "
                                   f"not in {refused} yet")
@@ -597,7 +606,7 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
     sm90 = sm90_route(dtype, kd)
     f32 = f32_fwd_route(dtype, kd, p_round)
     if dropout_rate:
-        _refuse_dropout(dtype, kd, split=False)
+        _refuse_dropout(dtype, kd)
     _require(block_rows is None or (sm90 and block_rows in (64, 128)), what,
              "block_rows takes 64 or 128, on the wgmma route only")
     if sm90 and block_rows is None:
@@ -710,14 +719,15 @@ def _bwd_route(q, k, v, causal, dropout_rate, do=None,
     ``(split, dtype)``, the two-kernel split or the single pass
     (:func:`uses_split_backward` where ``split`` is None) and the dtype the
     kernels run the operands in. Raises ``NotImplementedError`` where
-    attention dropout is asked of a route that does not take it."""
+    attention dropout is asked of a route that does not take it (the
+    route is the dtype's and head dim's, split or not)."""
     if split is None:
         split = uses_split_backward(q.shape[2], k.shape[2], q.shape[-1],
                                     k.element_size(), v.element_size(),
                                     causal, dropout=bool(dropout_rate))
     dtype = _promoted_dtype(q, k, v, q if do is None else do)
     if dropout_rate:
-        _refuse_dropout(dtype, kernel_head_dim(q.shape[-1]), split)
+        _refuse_dropout(dtype, kernel_head_dim(q.shape[-1]))
     return split, dtype
 
 
@@ -733,10 +743,11 @@ _FLASH_DKDV_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
 _FLASH_DQ_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 # the wgmma route's apex_flash_bwd_sm90_dkdv: the same arguments without
-# ``rounds`` (it takes no mixed operands); apex_flash_bwd_sm90_dq(...,
-# sid_kv, dq, out, b, ...) also takes the forward's output (the delta fold)
+# ``rounds`` (it takes no mixed operands), with the dropout (seed,
+# threshold, inv) before the stream; apex_flash_bwd_sm90_dq(..., sid_kv,
+# dq, out, b, ...) also takes the forward's output (the delta fold)
 _SM90_DKDV_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_int] + _DROPOUT_ARGS + [ctypes.c_void_p]
 _SM90_DQ_ARGS = _SM90_DKDV_ARGS
 
 # the wgmma route's single pass, apex_flash_bwd_sm90_fused(q, k, v, do, lse,
@@ -863,7 +874,7 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
     """The backward kernels. ``split=None`` routes by
     :func:`uses_split_backward`; True or False forces the two-kernel split
     or the single pass (for comparing the two at one shape). Attention
-    dropout runs on the wgmma route's single pass alone
+    dropout runs on the wgmma route alone, split or single pass
     (:func:`dropout_refusal`)."""
     what = "flash_attention_bwd kernel"
     _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, what,
@@ -911,6 +922,8 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
     # sum as out.float(), one pass fewer)
     delta = None if fold or f32_fold else (do.float() * out).sum(dim=-1)
 
+    drop = _dropout_args(dropout_rate, dropout_seed)
+
     def launch(q, k, v, do, out=None):
         dl = delta
         if fold or f32_fold:
@@ -920,8 +933,8 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
             args = (q, k, v, do, lse, dl, segment_ids_q, segment_ids_kv,
                     causal, scale, rounds)
             if fold:
-                dq = _flash_dq_cuda(*args, out=out)
-                return (dq, *_flash_dkdv_cuda(*args))
+                dq = _flash_dq_cuda(*args, out=out, dropout=drop)
+                return (dq, *_flash_dkdv_cuda(*args, dropout=drop))
             # the FFMA route: the dk/dv call's prologue transposes q and do
             # into one scratch, which the dq kernel reads after it
             ws = _f32_transposes(q) if f32_fold else None
@@ -934,8 +947,7 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
         if sm90:
             dk, dv = _flash_bwd_fused_cuda(
                 q, k, v, do, lse, delta, segment_ids_q, segment_ids_kv,
-                causal, scale, dq_acc, turns,
-                _dropout_args(dropout_rate, dropout_seed))
+                causal, scale, dq_acc, turns, drop)
             return dq_acc.to(q.dtype), dk, dv
         if f32:
             dk, dv = _flash_bwd_f32_cuda(q, k, v, do, out, lse, dl,
@@ -1066,30 +1078,35 @@ def _flash_bwd_f32_cuda(q, k, v, do, out, lse, delta, sid_q, sid_kv, causal,
 
 
 def _split_operands(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
-                    rounds):
+                    rounds, dropout):
     """``(route, operands, tail)`` of a split kernel's C call: the route
-    (:func:`split_route`), the eight input pointers, and the sizes, flags
-    and stream after the output pointers."""
+    (:func:`split_route`), the eight input pointers, and the sizes, flags,
+    the wgmma route's ``dropout`` (:func:`_dropout_args`) and the stream
+    after the output pointers."""
     b, h, sq, d = q.shape
     route = split_route(q.dtype, d)
     tail = (b, h, sq, k.shape[2], d, int(bool(causal)), float(scale),
             DTYPE_CODES[q.dtype])
-    tail += (_stream(q),) if route == "flash_bwd_sm90" else (rounds,
-                                                             _stream(q))
+    tail += ((*dropout, _stream(q)) if route == "flash_bwd_sm90"
+             else (rounds, _stream(q)))
     return route, (_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse),
                    _ptr(delta), _ptr(sid_q), _ptr(sid_kv)), tail
 
 
 def _flash_dkdv_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
-                     rounds, out=None, ws=None):
+                     rounds, out=None, ws=None, dropout=(0, 0, 1.0)):
     """The split's dk/dv kernel on operands ``_flash_bwd_cuda`` checked and
-    promoted; ``delta`` = rowsum(do * out) fp32 [b, h, sq]. The FFMA
+    promoted; ``delta`` = rowsum(do * out) fp32 [b, h, sq] (``out`` the
+    dropped output under dropout). The FFMA
     route's (``flash_dkdv_f32_kernel``) where :func:`f32_core_route`
     holds; there, given ``out`` (the forward's output), the call computes
     delta and writes it into ``delta`` for the dq kernel after it, and its
     prologue writes q and do transposed into ``ws``
     (:func:`_f32_transposes`; allocated here when None), which the dq
-    kernel after it may read (:func:`_flash_dq_cuda`'s ``ws``)."""
+    kernel after it may read (:func:`_flash_dq_cuda`'s ``ws``).
+    ``dropout``: :func:`_dropout_args`, the wgmma route's alone."""
+    if dropout[1]:
+        _refuse_dropout(q.dtype, q.shape[-1])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if f32_core_route(q.dtype, q.shape[-1], rounds):
         _f32_call(("apex_flash_bwd_f32_dkdv", _F32_DKDV_ARGS), q, k, v, do,
@@ -1102,7 +1119,8 @@ def _flash_dkdv_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
              "only the FFMA route folds delta into the dk/dv call and "
              "transposes q and do")
     route, operands, tail = _split_operands(q, k, v, do, lse, delta, sid_q,
-                                            sid_kv, causal, scale, rounds)
+                                            sid_kv, causal, scale, rounds,
+                                            dropout)
     sm90 = route == "flash_bwd_sm90"
     fn = _build.function(
         _build.dtype_target(route, DTYPE_CODES[q.dtype]),
@@ -1113,18 +1131,23 @@ def _flash_dkdv_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
     flash_attention_bwd.dkdv_launches += 1
     if sm90:
         flash_attention_bwd.wgmma_dkdv_launches += 1
+        if dropout[1]:
+            flash_attention_bwd.dropout_dkdv_launches += 1
     return dk, dv
 
 
 def _flash_dq_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
-                   rounds, out=None, ws=None):
+                   rounds, out=None, ws=None, dropout=(0, 0, 1.0)):
     """The split's dq kernel, as :func:`_flash_dkdv_cuda`. With ``out``
     (the forward's output, q's dtype; the wgmma route only) the kernel
     computes delta itself and writes it into ``delta``. The FFMA route's
     (``flash_dq_f32_kernel``) where :func:`f32_core_route` holds; there
     ``ws`` is the scratch the dk/dv call before it filled with q and do
     transposed (the split passes it), or None: this call's own prologue
-    transposes them first."""
+    transposes them first. ``dropout``: :func:`_dropout_args`, the wgmma
+    route's alone."""
+    if dropout[1]:
+        _refuse_dropout(q.dtype, q.shape[-1])
     dq = torch.empty_like(q)
     if f32_core_route(q.dtype, q.shape[-1], rounds):
         _require(out is None, "flash_attention_bwd dq kernel", "the FFMA "
@@ -1144,7 +1167,8 @@ def _flash_dq_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
     _require(ws is None, "flash_attention_bwd dq kernel",
              "only the FFMA route reads transposed q and do")
     route, operands, tail = _split_operands(q, k, v, do, lse, delta, sid_q,
-                                            sid_kv, causal, scale, rounds)
+                                            sid_kv, causal, scale, rounds,
+                                            dropout)
     sm90 = route == "flash_bwd_sm90"
     _require(out is None or (sm90 and out.dtype == q.dtype
                              and out.shape == q.shape
@@ -1162,6 +1186,8 @@ def _flash_dq_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
     flash_attention_bwd.dq_launches += 1
     if sm90:
         flash_attention_bwd.wgmma_dq_launches += 1
+        if dropout[1]:
+            flash_attention_bwd.dropout_dq_launches += 1
     return dq
 
 
@@ -1205,7 +1231,8 @@ def flash_attention_bwd(q, k, v, out, lse, do, segment_ids_q=None,
     (``.wgmma_launches`` those on the wgmma route, ``.f32_launches`` those
     on the FFMA route), ``.dkdv_launches`` and ``.dq_launches`` the
     split's (``.f32_dkdv_launches`` and ``.f32_dq_launches`` those on the
-    FFMA route); ``.dropout_launches`` the single passes with dropout.
+    FFMA route); ``.dropout_launches`` the single passes with dropout,
+    ``.dropout_dkdv_launches`` and ``.dropout_dq_launches`` the split's.
     ``dropout_rate``/``dropout_seed`` are the forward's: the kernel
     regenerates its mask."""
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
@@ -1232,6 +1259,8 @@ flash_attention_bwd.f32_launches = 0
 flash_attention_bwd.f32_dkdv_launches = 0
 flash_attention_bwd.f32_dq_launches = 0
 flash_attention_bwd.dropout_launches = 0
+flash_attention_bwd.dropout_dkdv_launches = 0
+flash_attention_bwd.dropout_dq_launches = 0
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -1311,10 +1340,10 @@ def flash_attention(q, k, v, segment_ids_q=None, segment_ids_kv=None,
     dropout, the keep mask a hash of (seed, batch, head, q position, k
     position) that the backward regenerates
     (:func:`dropout_keep_reference`, bit for bit the JAX package's); pass a
-    fresh seed a step. On CUDA the wgmma route's forward and single pass
-    take it; every other route raises ``NotImplementedError`` naming
-    itself (:func:`dropout_refusal`), before the forward where the
-    backward's route would refuse it."""
+    fresh seed a step. On CUDA the wgmma route's forward and backward
+    (single pass and split) take it; every other route raises
+    ``NotImplementedError`` naming itself (:func:`dropout_refusal`), before
+    the forward where the backward's route would refuse it."""
     _check_dropout(dropout_rate, dropout_seed)
     dropout_rate = float(dropout_rate)
     dropout_seed = int(dropout_seed) if dropout_rate > 0 else None

@@ -74,7 +74,18 @@ Phases (any failure exits non-zero; no phase's error is caught):
    backward takes its two-kernel split: a warm-up step, then 4 timed steps
    with the counters reset just before; asserts finite losses and per
    step 12 dq and 12 dk/dv launches, every one on the wgmma route
-   (``csrc/flash_bwd_sm90.cu``), and no single-pass one; traced;
+   (``csrc/flash_bwd_sm90.cu``), and no single-pass one; traced; then the
+   same step in training mode with Megatron's dropout 0.1 on its model and
+   state (train-dropout-gpt12-h1024-b2s4096, one host generator): a
+   warm-up, 4 timed steps with the counters reset just before, 2 traced;
+   finite, falling losses and per step 12 launches each of B1's, B3's and
+   B4's dropout variants and none without dropout; then, on a fresh
+   2-layer GPT at full width (the depth cut: the plain attention of 12
+   layers would hold ~2 GB fp32 tensors several times a layer), the loss
+   and every gradient at b2 s4096 through the kernels against
+   ``reference=True``, deterministic and with dropout from a generator in
+   the same state on both sides (loss 1e-3, gradients 3 %; peak memory
+   logged);
 11. ResNet-50 path — ``bench.py``'s ``_build_step`` at b256 224x224: O2
     (bf16 convs, fp32 batch norms and statistics, fp32 masters),
     ``FusedSGD(lr=0.1, momentum=0.9, weight_decay=1e-4)``, the mean of
@@ -151,7 +162,19 @@ bf16 forwards' and backwards' limits), bitwise on a rerun, another seed
 another result, and by a mask check (rate 0.5, non-causal, sk = d keys, v
 the identity: the zero pattern of the output is the plain mask bit for
 bit); each timed with and without dropout beside SDPA's dropout call, and
-ptxas shows no spill in either variant.
+ptxas shows no spill in either variant. B1's variant is also held and
+timed at the long-sequence step's b2 h16 s4096. B3's and B4's dropout
+variants (``flash_dkdv_sm90`` and ``flash_dq_sm90`` with the keep hash)
+are held at b2 h16 s4096 d64 causal, rate 0.1, where the gate sends the
+backward with dropout to the split: the pair against the plain backward
+and each kernel against its plain version with the same seed (the bf16
+backwards' limits; the folded delta 1e-5), bitwise on a rerun, another
+seed another result, and their masks bit for bit at rate 0.5 (dk/dv with
+q = 0 and do = I, so dv is the dropped p transposed; dq with k = I and a
+zero output, so dq is zero exactly where a key is dropped); each timed
+with and without dropout beside its plain version and SDPA's dropout
+backward; ptxas shows no spill in B4's variants and no more in B3's than
+in the same kernel without dropout.
 
 The flash forward and single-pass backward are held on both routes: the
 wgmma route (``csrc/flash_fwd_sm90.cu``; ``flash_bwd_fused_sm90`` of
@@ -243,6 +266,7 @@ result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -945,7 +969,10 @@ def check_flash_dropout(torch, timer):
     bf16 backwards'); bitwise on a rerun with the seed, another seed
     another result; the mask check (rate 0.5, non-causal, sk = d keys, v
     the identity: out is zero exactly where the plain mask drops, bit for
-    bit); each timed with and without dropout beside SDPA's dropout call."""
+    bit); each timed with and without dropout beside SDPA's dropout call.
+    The forward's variant also at the long-sequence step's b2 h16 s4096
+    (``long_shape``): against the plain forward, a bitwise rerun, timed
+    the same way."""
     import torch.nn.functional as F
     from apex_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -1030,7 +1057,8 @@ def check_flash_dropout(torch, timer):
         library="F.scaled_dot_product_attention(is_causal=True, "
                 f"dropout_p={DROPOUT_RATE}): its own random stream, a "
                 "yardstick only",
-        bound_ms=f_bound, bound_by=f_by, mask_check=mask)
+        bound_ms=f_bound, bound_by=f_by, mask_check=mask,
+        long_shape=_fwd_dropout_long(torch, timer, gen, seed))
     delta = (do.float() * out.float()).sum(dim=-1)
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
     args = fa._dropout_args(DROPOUT_RATE, seed)
@@ -1065,6 +1093,51 @@ def check_flash_dropout(torch, timer):
     del q, k, v, do, out, lse, delta, dq_acc
     torch.cuda.empty_cache()
     return [fwd, bwd]
+
+
+def _fwd_dropout_long(torch, timer, gen, seed):
+    """B1's dropout variant at the long-sequence step's attention shape
+    (b2 h16 s4096 d64 bf16 causal, rate 0.1): against the plain forward
+    with the same seed, a bitwise rerun, timed with and without dropout
+    beside SDPA's dropout call."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import flash_attention as fa
+    b, h, s, d = SPLIT_B, SPLIT_H, SPLIT_S, SPLIT_D
+    scale = d ** -0.5
+    drop = dict(dropout_rate=DROPOUT_RATE, dropout_seed=seed)
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    n0 = fa.flash_attention.dropout_launches
+    out, lse = fa.flash_attention_fwd(q, k, v, None, None, True, scale,
+                                      **drop)
+    again = fa.flash_attention_fwd(q, k, v, None, None, True, scale, **drop)
+    torch.cuda.synchronize()
+    check(fa.flash_attention.dropout_launches - n0 == 2,
+          f"flash dropout s{s}: not the dropout variant")
+    check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+          f"flash dropout forward s{s}: a rerun gave other bits")
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=True,
+                                                scale=scale, **drop)
+    err = bf16_err(out, ref, 4e-3, f"flash dropout forward s{s}")
+    lse_err = (lse - ref_lse).abs().max().item()
+    check(lse_err <= 1e-3, f"flash dropout s{s} lse max err {lse_err}")
+    del out, lse, again, ref, ref_lse
+    torch.cuda.empty_cache()
+    t_bound, by = _with_hash(*_fwd_bound(b, h, s, s, d, True, 2),
+                             b * h * s * (s + 1) // 2)
+    return dict(
+        shape=f"b{b} h{h} s{s} d{d} bf16 causal, dropout {DROPOUT_RATE}",
+        max_abs_err=err, lse_max_abs_err=lse_err,
+        ms=timer(lambda: fa.flash_attention_fwd(q, k, v, None, None, True,
+                                                scale, **drop), iters=10),
+        no_dropout_ms=timer(lambda: fa.flash_attention_fwd(
+            q, k, v, None, None, True, scale), iters=10),
+        plain_ms=timer(lambda: fa.flash_attention_reference(
+            q, k, v, causal=True, scale=scale, **drop), iters=3, warmup=1),
+        library_ms=timer(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale, dropout_p=DROPOUT_RATE),
+            iters=10),
+        bound_ms=t_bound, bound_by=by)
 
 
 def _check_first_batch_alone(torch, fa, got, q, k, v, out, lse, do, scale,
@@ -1886,17 +1959,20 @@ def check_flash_f32(torch, timer, split: bool):
 _SM90_KERNEL = re.compile(r"(flash_dkdv_sm90|flash_dq_sm90|flash_fwd_sm90|"
                           r"flash_bwd_fused_sm90)I\d+\w+?Li(\d+)E(?:Li(\d+)E)?"
                           r"(?:Lb([01])E)?")
-# the kernels held to no spill (the split's dk/dv kernel at d 64 spills 8
-# bytes: ROADMAP §C)
+# the kernels held to no spill, with their dropout variants, and every
+# dropout variant but the split's dk/dv (the dk/dv kernel at d 64 spills 8
+# bytes: ROADMAP §C), which may spill no more than its twin without
 _NO_SPILL = ("flash_fwd_sm90", "flash_bwd_fused_sm90")
 
 
 def _sm90_registers(build):
     """``ptxas -v``'s register count and spill bytes of each kernel in the
     wgmma flash libraries (before ``setmaxnreg``: the producer warpgroup
-    gives up to 40 a thread and the consumer warpgroups take 232); fails
-    on a spill in the forward's and the single pass's kernels, their
-    dropout variants (`` dropout``) included."""
+    gives up to 40 a thread, 24 in a dropout variant, and the consumer
+    warpgroups take 232, 240); fails on a spill in the forward's and the
+    single pass's kernels and in every dropout variant (`` dropout``), but
+    for the split's dk/dv, which fails where it spills more than the same
+    kernel without dropout."""
     regs = {}
     for target in build.targets(["flash_fwd_sm90", "flash_bwd_sm90"]):
         name = None
@@ -1918,11 +1994,23 @@ def _sm90_registers(build):
             if m and name:
                 spill = int(m.group(1)) + int(m.group(2))
                 regs[name]["spill_bytes"] = spill
-                check(spill == 0 or not name.split()[1] in _NO_SPILL,
+                check(spill == 0 or not (name.split()[1] in _NO_SPILL or (
+                    name.endswith(" dropout")
+                    and name.split()[1] != "flash_dkdv_sm90")),
                       f"{name}: ptxas spills {spill} bytes")
             m = re.search(r"Used (\d+) registers", line)
             if m and name:
                 regs[name]["registers"] = int(m.group(1))
+    for name, reg in regs.items():
+        if name.endswith(" dropout"):
+            twin = regs[name[:-len(" dropout")]]
+            check(reg["spill_bytes"] <= twin["spill_bytes"],
+                  f"{name}: ptxas spills {reg['spill_bytes']} bytes, its "
+                  f"twin without dropout {twin['spill_bytes']}")
+    # the split's variants: two dtypes, two kernels, two head dims
+    check(sum(n.endswith(" dropout") and n.split()[1] in (
+        "flash_dkdv_sm90", "flash_dq_sm90") for n in regs) == 8,
+          f"the split's dropout variants in ptxas's log: {sorted(regs)}")
     return regs
 
 
@@ -2143,6 +2231,179 @@ def check_flash_split(torch, timer):
         dict(name="flash_bwd_dq_sm90", replaces="apex_tpu/ops/"
              "flash_attention.py:671", max_abs_err=dq_err, ms=dq_ms,
              bound_ms=dq_bound[0], bound_by=dq_bound[1], **wgmma),
+    ]
+
+
+def check_flash_split_dropout(torch, timer):
+    """B3's and B4's dropout variants (``flash_dkdv_sm90<..., DROP>``,
+    ``flash_dq_sm90<..., DROP>``) at the long-sequence step's b2 h16 s4096
+    d64 bf16 causal, rate 0.1, where the gate sends the backward with
+    dropout to the split: the pair as routed against the plain backward
+    with the same seed, each kernel against its plain version (dq and the
+    delta it folds in from the dropped output; dk, dv from that delta) at
+    the bf16 backwards' limits; a bitwise rerun, another seed another
+    result; the masks bitwise at rate 0.5 with no attention mask (dk/dv:
+    q = 0 and do = I over sq = d rows, so dv is the dropped p, 2 / sk,
+    transposed; dq: k = I
+    over sk = d keys and out = 0, so delta = 0 and dq is zero exactly
+    where a key is dropped); each kernel timed with and without dropout
+    beside its plain version and SDPA's dropout backward (ptxas's spills:
+    :func:`_sm90_registers`)."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    g = fa.flash_attention_bwd
+    b, h, s, d = SPLIT_B, SPLIT_H, SPLIT_S, SPLIT_D
+    scale, seed = d ** -0.5, 20261019
+    drop = dict(dropout_rate=DROPOUT_RATE, dropout_seed=seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    def counts():
+        return (g.launches, g.dropout_launches, g.dkdv_launches,
+                g.dq_launches, g.dropout_dkdv_launches,
+                g.dropout_dq_launches)
+
+    check(fa.uses_split_backward(s, s, d, 2, 2, True, dropout=True),
+          f"gate at s{s} with dropout")
+    q, k, v, do = (rand(b, h, s, d) for _ in range(4))
+    out, lse = fa.flash_attention_fwd(q, k, v, None, None, True, scale,
+                                      **drop)
+    other_out, other_lse = fa.flash_attention_fwd(
+        q, k, v, None, None, True, scale, DROPOUT_RATE, seed ^ 1)
+    n0 = counts()
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, None, None, True,
+                                 scale, **drop)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, None, None, True,
+                                   scale, **drop)
+    other = fa.flash_attention_bwd(q, k, v, other_out, other_lse, do, None,
+                                   None, True, scale, DROPOUT_RATE, seed ^ 1)
+    torch.cuda.synchronize()
+    moved = tuple(a - b_ for a, b_ in zip(counts(), n0))
+    check(moved == (0, 0, 3, 3, 3, 3), f"flash split dropout s{s}: "
+          f"launches (single pass, its dropout, dk/dv, dq, their dropout) "
+          f"{moved}, expected the split's dropout variants 3 times each")
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          "flash split dropout: a rerun gave other bits")
+    check(not torch.equal(got[0], other[0])
+          and not torch.equal(got[2], other[2]),
+          "flash split dropout: another seed gave the same dq or dv")
+    del again, other, other_out, other_lse
+    ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                           causal=True, scale=scale, **drop)
+    pair_errs = {n: grad_err(gr, r, f"flash split dropout {n}")
+                 for n, gr, r in zip(("dq", "dk", "dv"), got, ref)}
+    del got, ref
+    torch.cuda.empty_cache()
+
+    # each kernel against its plain version
+    rounds = fa._mixed_rounds(q, k, do)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device="cuda")
+    args = (q, k, v, do, lse, delta, None, None, True, scale, rounds)
+    dargs = fa._dropout_args(DROPOUT_RATE, seed)
+    dq = fa._flash_dq_cuda(*args, out=out, dropout=dargs)
+    dk, dv = fa._flash_dkdv_cuda(*args, dropout=dargs)
+    rdq, rdelta = fa.flash_bwd_dq_reference(q, k, v, out, lse, do,
+                                            causal=True, scale=scale, **drop)
+    torch.cuda.synchronize()
+    delta_err = _fp32_err(delta, rdelta, "flash split dropout delta fold",
+                          1e-5)
+    dq_err = grad_err(dq, rdq, "flash split dropout dq kernel")
+    del dq, rdq, rdelta
+    rdk, rdv = fa.flash_bwd_dkdv_reference(q, k, v, lse, delta, do,
+                                           causal=True, scale=scale, **drop)
+    dkdv_err = max(grad_err(dk, rdk, "flash split dropout dk kernel"),
+                   grad_err(dv, rdv, "flash split dropout dv kernel"))
+    del dk, dv, rdk, rdv
+    torch.cuda.empty_cache()
+
+    # the masks, bitwise, at rate 0.5 with no attention mask (p > 0)
+    mseed, half = seed ^ 0x5A5A, fa._dropout_args(0.5, seed ^ 0x5A5A)
+    eye = torch.eye(d, device="cuda", dtype=torch.bfloat16).expand(
+        b, h, d, d).contiguous()
+    mq = torch.zeros(b, h, d, d, device="cuda", dtype=torch.bfloat16)
+    mk, mv = rand(b, h, s, d), rand(b, h, s, d)
+    _, mlse = fa.flash_attention_fwd(mq, mk, mv, None, None, False, scale)
+    zero = torch.zeros((b, h, d), dtype=torch.float32, device="cuda")
+    _, mdv = fa._flash_dkdv_cuda(mq, mk, mv, eye, mlse, zero, None, None,
+                                 False, scale, rounds, dropout=half)
+    keep = fa.dropout_keep_reference(mseed, b, h, d, s, 0.5, device="cuda")
+    check(torch.equal(mdv != 0, keep.transpose(-1, -2)),
+          "flash split dropout: the dk/dv kernel's mask is not the plain "
+          "mask")
+    dkdv_mask = keep.numel()
+    del mq, mk, mv, mlse, zero, mdv, keep
+    mq, mv, mdo = rand(b, h, s, d), rand(b, h, d, d), rand(b, h, s, d)
+    _, mlse = fa.flash_attention_fwd(mq, eye, mv, None, None, False, scale)
+    mdelta = torch.empty((b, h, s), dtype=torch.float32, device="cuda")
+    mdq = fa._flash_dq_cuda(mq, eye, mv, mdo, mlse, mdelta, None, None,
+                            False, scale, rounds,
+                            out=torch.zeros_like(mq), dropout=half)
+    keep = fa.dropout_keep_reference(mseed, b, h, s, d, 0.5, device="cuda")
+    check(mdelta.abs().max().item() == 0.0,
+          "flash split dropout: the folded delta of out = 0 is not 0")
+    check(torch.equal(mdq != 0, keep),
+          "flash split dropout: the dq kernel's mask is not the plain mask")
+    masks = dict(rate=0.5, dkdv=f"b{b} h{h} sq{d} sk{s}, do = I: dv is "
+                 "the dropped p transposed", dkdv_elements=dkdv_mask,
+                 dq=f"b{b} h{h} sq{s} sk{d}, k = I, out = 0",
+                 dq_elements=keep.numel(),
+                 keep_share=keep.float().mean().item(), bitwise=True)
+    del mq, mv, mdo, mlse, mdelta, mdq, keep, eye
+    torch.cuda.empty_cache()
+
+    dkdv_ms = timer(lambda: fa._flash_dkdv_cuda(*args, dropout=dargs),
+                    iters=10)
+    dkdv_nd_ms = timer(lambda: fa._flash_dkdv_cuda(*args), iters=10)
+    dq_ms = timer(lambda: fa._flash_dq_cuda(*args, out=out, dropout=dargs),
+                  iters=10)
+    dq_nd_ms = timer(lambda: fa._flash_dq_cuda(*args, out=out), iters=10)
+    as_called_ms = timer(lambda: fa.flash_attention_bwd(
+        q, k, v, out, lse, do, None, None, True, scale, **drop), iters=10)
+    dq_plain_ms = timer(lambda: fa.flash_bwd_dq_reference(
+        q, k, v, out, lse, do, causal=True, scale=scale, **drop), iters=3,
+        warmup=1)
+    dkdv_plain_ms = timer(lambda: fa.flash_bwd_dkdv_reference(
+        q, k, v, lse, delta, do, causal=True, scale=scale, **drop), iters=3,
+        warmup=1)
+    lib_ms = timer(_grad_of(torch, lambda a, b_, c: (
+        F.scaled_dot_product_attention(a, b_, c, is_causal=True,
+                                       scale=scale,
+                                       dropout_p=DROPOUT_RATE)),
+        (q, k, v), do), iters=10)
+    pairs = b * h * s * (s + 1) // 2
+    sd2 = b * h * s * d * 2
+    dkdv_bound = _with_hash(*bound(4 * 2.0 * d * pairs,
+                                   6 * sd2 + 2 * b * h * s * 4), pairs)
+    dq_bound = _with_hash(*bound(3 * 2.0 * d * pairs,
+                                 6 * sd2 + 2 * b * h * s * 4), pairs)
+    del q, k, v, do, out, lse, delta, args
+    torch.cuda.empty_cache()
+    common = dict(
+        route="cuda", source="apex_tpu_torch/csrc/flash_bwd_sm90.cu",
+        shape=f"b{b} h{h} s{s} d{d} bf16 causal, dropout {DROPOUT_RATE}",
+        tolerance="2 bf16 ulp + 2% of max, 1% relative norm, of the plain "
+                  "versions with the same seed; the folded delta 1e-5 of "
+                  "max; a rerun bitwise; the masks bitwise",
+        library_ms=lib_ms,
+        library="backward of F.scaled_dot_product_attention(is_causal="
+                f"True, dropout_p={DROPOUT_RATE}): dq, dk and dv together, "
+                "its own random stream",
+        as_called_ms=as_called_ms, pair_max_abs_err=pair_errs,
+        delta_fold_max_abs_err=delta_err, mask_check=masks)
+    return [
+        dict(name="flash_bwd_dkdv_sm90_dropout",
+             replaces="apex_tpu/ops/flash_attention.py:558",
+             max_abs_err=dkdv_err, ms=dkdv_ms, no_dropout_ms=dkdv_nd_ms,
+             plain_ms=dkdv_plain_ms, plain="flash_bwd_dkdv_reference",
+             bound_ms=dkdv_bound[0], bound_by=dkdv_bound[1], **common),
+        dict(name="flash_bwd_dq_sm90_dropout",
+             replaces="apex_tpu/ops/flash_attention.py:671",
+             max_abs_err=dq_err, ms=dq_ms, no_dropout_ms=dq_nd_ms,
+             plain_ms=dq_plain_ms, plain="flash_bwd_dq_reference",
+             bound_ms=dq_bound[0], bound_by=dq_bound[1], **common),
     ]
 
 
@@ -2385,8 +2646,8 @@ def counters():
     (``*_sm90``) apart from both routes together (``flash_fwd``,
     ``flash_bwd``, ``flash_bwd_dkdv``/``flash_bwd_dq``;
     :func:`read_counters` leaves flash_fwd.cu's and flash_bwd.cu's own
-    launches there), and the wgmma forward's and single pass's dropout
-    variants (``*_dropout``) apart from their variants without."""
+    launches there), and the wgmma forward's, single pass's and split's
+    dropout variants (``*_dropout``) apart from their variants without."""
     from apex_tpu_torch.ops import flash_attention as fa
     from apex_tpu_torch.ops import fp8_matmul as mm
     from apex_tpu_torch.ops import fused_ce as xe
@@ -2423,6 +2684,10 @@ def counters():
                                     "wgmma_dkdv_launches"),
             "flash_bwd_dq_sm90": (fa.flash_attention_bwd,
                                   "wgmma_dq_launches"),
+            "flash_bwd_dkdv_sm90_dropout": (fa.flash_attention_bwd,
+                                            "dropout_dkdv_launches"),
+            "flash_bwd_dq_sm90_dropout": (fa.flash_attention_bwd,
+                                          "dropout_dq_launches"),
             "flash_bwd_f32_dkdv": (fa.flash_attention_bwd,
                                    "f32_dkdv_launches"),
             "flash_bwd_f32_dq": (fa.flash_attention_bwd, "f32_dq_launches"),
@@ -2454,10 +2719,11 @@ def read_counters():
     wgmma route's (``lm_head_ce_sm90.cu``) and ``*_f32`` the fp32 route's
     (``lm_head_ce.cu``); the fp8 matmul's less its prefill regime's, so
     that ``fp8_matmul`` counts the decode regime and
-    ``fp8_matmul_prefill`` the prefill regime; the wgmma forward's and
-    single pass's less their dropout variants', so that
-    ``flash_fwd_sm90`` and ``flash_bwd_fused_sm90`` count the kernels
-    without dropout and ``*_dropout`` those with."""
+    ``fp8_matmul_prefill`` the prefill regime; the wgmma forward's, single
+    pass's and split's less their dropout variants', so that
+    ``flash_fwd_sm90``, ``flash_bwd_fused_sm90``, ``flash_bwd_dkdv_sm90``
+    and ``flash_bwd_dq_sm90`` count the kernels without dropout and
+    ``*_dropout`` those with."""
     out = {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
     out["fp8_matmul"] -= out["fp8_matmul_prefill"]
     out["lm_head_ce_fwd"] -= out["lm_head_ce_fwd_f32"]
@@ -2469,6 +2735,8 @@ def read_counters():
     out["flash_bwd_dq"] -= out["flash_bwd_dq_sm90"] + out["flash_bwd_f32_dq"]
     out["flash_fwd_sm90"] -= out["flash_fwd_sm90_dropout"]
     out["flash_bwd_fused_sm90"] -= out["flash_bwd_fused_sm90_dropout"]
+    out["flash_bwd_dkdv_sm90"] -= out["flash_bwd_dkdv_sm90_dropout"]
+    out["flash_bwd_dq_sm90"] -= out["flash_bwd_dq_sm90_dropout"]
     return out
 
 
@@ -2676,6 +2944,8 @@ TRAIN_PER_STEP = {"flash_fwd": 0, "flash_fwd_sm90": 12, "flash_fwd_f32": 0,
                   "paged_decode_fp8": 0, "fp8_matmul": 0,
                   "fp8_matmul_prefill": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
                   "flash_bwd_dkdv_sm90": 0, "flash_bwd_dq_sm90": 0,
+                  "flash_bwd_dkdv_sm90_dropout": 0,
+                  "flash_bwd_dq_sm90_dropout": 0,
                   "flash_bwd_f32": 0, "flash_bwd_f32_dkdv": 0,
                   "flash_bwd_f32_dq": 0, "xentropy_fwd": 0,
                   "xentropy_bwd": 0, "multi_tensor_update": 0,
@@ -2790,15 +3060,16 @@ GRAD_LOSS_TOL = 1e-3
 GRAD_NORM_TOL = 3e-2
 
 
-def grad_check(torch, cfg, dropout_seed):
+def grad_check(torch, cfg, dropout_seed, b=TRAIN_B, s=TRAIN_S):
     """The loss and every gradient through the kernels against
     ``reference=True``, on one fresh O2 GPT of ``cfg`` (which may carry
-    dropout rates): first deterministic, then in training mode with the
-    config's dropout from a host generator of ``dropout_seed`` on both
-    sides (the same attention seeds and hidden masks). Returns the two
-    checks' records."""
+    dropout rates) at batch ``b`` and sequence ``s``: first deterministic,
+    then in training mode with the config's dropout from a host generator
+    of ``dropout_seed`` on both sides (the same attention seeds and hidden
+    masks). Returns the two checks' records, each with the peak device
+    memory of its check."""
     model, _, _, _ = o2_setup(torch, cfg)
-    ids, labels = train_batch(torch, cfg)
+    ids, labels = train_batch(torch, cfg, b, s)
     params = list(model.named_parameters())
 
     def one(what, **kw):
@@ -2807,6 +3078,8 @@ def grad_check(torch, cfg, dropout_seed):
                 kw["generator"] = torch.Generator().manual_seed(dropout_seed)
             return model.loss(ids, labels, reference=reference, **kw)
 
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         loss = loss_of(False)
         grads = torch.autograd.grad(loss, [p for _, p in params])
         ref_loss = loss_of(True)
@@ -2824,10 +3097,12 @@ def grad_check(torch, cfg, dropout_seed):
                   f"{what}grad {name}: relative norm error {rel}")
         worst.sort(reverse=True)
         del grads, ref
-        return dict(layers=cfg.num_layers, loss_kernels=float(loss),
+        return dict(layers=cfg.num_layers, batch=b, seq=s,
+                    loss_kernels=float(loss),
                     loss_plain=float(ref_loss), loss_abs_diff=dloss,
                     params=len(params), worst_rel_norm=worst[:5],
-                    median_rel_norm=float(np.median([w for w, _ in worst])))
+                    median_rel_norm=float(np.median([w for w, _ in worst])),
+                    peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
 
     return one(""), one("dropout ", deterministic=False)
 
@@ -2875,24 +3150,25 @@ DROP_PER_STEP = {**TRAIN_PER_STEP, "flash_fwd_sm90": 0,
 
 def dropout_config(cfg):
     """``cfg`` with Megatron's attention and hidden dropout."""
-    import dataclasses
     return dataclasses.replace(cfg, attention_dropout=DROPOUT_RATE,
                                hidden_dropout=DROPOUT_RATE)
 
 
-def run_dropout_path(torch, model, opt, state, sstate):
-    """The O2 ``FusedAdam`` step of :func:`run_train_path` in training mode,
-    on its model (of :func:`dropout_config`) and optimizer state: a second
+def run_dropout_path(torch, model, opt, state, sstate, b=TRAIN_B,
+                     s=TRAIN_S, per_step=DROP_PER_STEP, what="train-dropout"):
+    """The O2 ``FusedAdam`` step of :func:`run_train_path` (or, at ``b``
+    and ``s``, of :func:`run_long_seq_path`) in training mode, on its model
+    (of :func:`dropout_config`) and optimizer state: a second
     ``make_train_step`` over ``GPT.loss(deterministic=False)`` with one
     host generator; a warm-up, then :data:`DROP_STEPS` timed steps with the
-    counters reset just before; finite, falling losses and every flash
-    launch on the dropout variants. Returns the stats, the state and the
-    step."""
+    counters reset just before; finite, falling losses and each kernel's
+    launches a step as ``per_step`` has them (every flash launch on the
+    dropout variants). Returns the stats, the state and the step."""
     from apex_tpu_torch import amp
     gen = torch.Generator().manual_seed(DROP_GEN_SEED)
     step = amp.make_train_step(lambda m, i, l: m.loss(
         i, l, deterministic=False, generator=gen), opt)
-    ids, labels = train_batch(torch, model.cfg)
+    ids, labels = train_batch(torch, model.cfg, b, s)
     _, state, sstate, _ = step(model, state, sstate, ids, labels)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2906,18 +3182,18 @@ def run_dropout_path(torch, model, opt, state, sstate):
         losses.append(loss)
     launches = read_counters()
     losses = [float(x) for x in losses]
-    check(all(np.isfinite(losses)), f"non-finite dropout loss: {losses}")
-    check(losses[-1] < losses[0], f"dropout loss did not fall: {losses}")
-    for k, per in DROP_PER_STEP.items():
+    check(all(np.isfinite(losses)), f"non-finite {what} loss: {losses}")
+    check(losses[-1] < losses[0], f"{what} loss did not fall: {losses}")
+    for k, per in per_step.items():
         check(launches[k] == per * DROP_STEPS,
-              f"train-dropout {k}: {launches[k]} launches, expected "
+              f"{what} {k}: {launches[k]} launches, expected "
               f"{per * DROP_STEPS}")
     ms = [1e3 * t for t in times]
-    stats = dict(steps=DROP_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+    stats = dict(steps=DROP_STEPS, batch=b, seq=s,
                  attention_dropout=DROPOUT_RATE, hidden_dropout=DROPOUT_RATE,
                  losses=losses, step_ms_median=float(np.median(ms)),
                  step_ms_p90=float(np.percentile(ms, 90)), step_ms_all=ms,
-                 tokens_per_s=TRAIN_B * TRAIN_S / (np.median(ms) / 1e3),
+                 tokens_per_s=b * s / (np.median(ms) / 1e3),
                  peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
                  launches=launches)
     return stats, state, sstate, step
@@ -2934,10 +3210,22 @@ LONG_PER_STEP = {**TRAIN_PER_STEP, "flash_bwd_fused_sm90": 0,
                  "flash_bwd_dkdv": 0,
                  "flash_bwd_dq": 0, "flash_bwd_dkdv_sm90": 12,
                  "flash_bwd_dq_sm90": 12}
+# the same step in training mode: every flash launch on a dropout variant
+LONG_DROP_PER_STEP = {**LONG_PER_STEP, "flash_fwd_sm90": 0,
+                      "flash_fwd_sm90_dropout": 12,
+                      "flash_bwd_dkdv_sm90": 0, "flash_bwd_dq_sm90": 0,
+                      "flash_bwd_dkdv_sm90_dropout": 12,
+                      "flash_bwd_dq_sm90_dropout": 12}
+# the s4096 gradient check's depth: the width stays, the plain attention
+# of 12 layers would hold ~2 GB fp32 tensors several times a layer
+LONG_GRAD_LAYERS = 2
 
 
 def run_long_seq_path(torch):
-    cfg = gpt_config(max_seq_len=LONG_S)
+    """The O2 step at b2 s4096 on a GPT of :func:`dropout_config` (its
+    deterministic steps ignore the rates); returns the stats, the trace
+    and ``(model, opt, state, sstate)`` for the dropout steps after it."""
+    cfg = dropout_config(gpt_config(max_seq_len=LONG_S))
     model, opt, state, step = o2_setup(torch, cfg)
     ids, labels = train_batch(torch, cfg, LONG_B, LONG_S)
     sstate = opt._scaler.state
@@ -2971,7 +3259,7 @@ def run_long_seq_path(torch):
     def one():
         _, box[0], box[1], _ = step(model, box[0], box[1], ids, labels)
 
-    return stats, _profile(torch, one, 2)
+    return stats, _profile(torch, one, 2), (model, opt, box[0], box[1])
 
 
 # ---------------------------------------------------------------------------
@@ -4221,10 +4509,11 @@ def _profile(torch, fn, reps):
             for e in top])
 
 
-def trace_train(torch, cfg, model, state, sstate, step):
-    """torch.profiler over 2 train steps (after one unprofiled); returns
-    the trace and the state after them."""
-    ids, labels = train_batch(torch, cfg)
+def trace_train(torch, cfg, model, state, sstate, step, b=TRAIN_B,
+                s=TRAIN_S):
+    """torch.profiler over 2 train steps at batch ``b`` and sequence ``s``
+    (after one unprofiled); returns the trace and the state after them."""
+    ids, labels = train_batch(torch, cfg, b, s)
     box = [state, sstate]
 
     def one():
@@ -4333,6 +4622,7 @@ def main() -> int:
                *check_lm_head_ce(torch, timer),
                *check_lm_head_ce_f32(torch, timer),
                *check_flash_split(torch, timer),
+               *check_flash_split_dropout(torch, timer),
                *check_flash_f32(torch, timer, split=True),
                *check_xentropy(torch, timer),
                check_multi_tensor_update(torch, timer),
@@ -4349,7 +4639,7 @@ def main() -> int:
                       "delta_fold_max_abs_err", "by_shape",
                       "train_shape", "lamb_ms", "by_op", "d128_shape",
                       "alone_ms", "split_as_called_ms", "no_dropout_ms",
-                      "mask_check",
+                      "mask_check", "pair_max_abs_err",
                       "cudnn_composition_max_abs_err", "plan"):
             if extra in kr:
                 log(f"  {kr['name']} {extra}: {json.dumps(kr[extra])}")
@@ -4466,8 +4756,39 @@ def main() -> int:
         f"{GRAD_NORM_TOL}): " + json.dumps(drop))
     torch.cuda.empty_cache()
 
-    long_stats, long_trace = run_long_seq_path(torch)
+    long_stats, long_trace, (model, opt, state, sstate) = \
+        run_long_seq_path(torch)
     log(f"train-gpt-s{LONG_S} path ({card}): " + json.dumps(long_stats))
+    ldrop_stats, state, sstate, drop_step = run_dropout_path(
+        torch, model, opt, state, sstate, LONG_B, LONG_S, LONG_DROP_PER_STEP,
+        f"train-dropout-s{LONG_S}")
+    ldrop_stats["without_dropout"] = {
+        k: long_stats[k] for k in ("step_ms_median", "step_ms_p90",
+                                   "tokens_per_s")}
+    log(f"train-dropout-s{LONG_S} path ({card}): " + json.dumps(ldrop_stats))
+    ldrop_trace, state, sstate = trace_train(
+        torch, model.cfg, model, state, sstate, drop_step, LONG_B, LONG_S)
+    log(f"train step s{LONG_S} with and without dropout, device ms and "
+        f"launches by kernel class (trace, {card}): " + json.dumps({
+            name: {k: tr[k] for k in (
+                "device_ms_per_call", "wall_ms_per_call",
+                "device_ms_and_launches_by_class_per_call")}
+            for name, tr in ((f"train_step_s{LONG_S}", long_trace),
+                             (f"train_step_dropout_s{LONG_S}",
+                              ldrop_trace))}))
+    del model, opt, state, sstate, drop_step
+    torch.cuda.empty_cache()
+    ldet, ldrop = grad_check(
+        torch, dataclasses.replace(dropout_config(gpt_config(LONG_S)),
+                                   num_layers=LONG_GRAD_LAYERS),
+        DROP_GEN_SEED + 2, LONG_B, LONG_S)
+    log(f"s{LONG_S} grad check, {LONG_GRAD_LAYERS} layers at full width "
+        f"(kernels vs plain; tolerances: loss {GRAD_LOSS_TOL}, relative "
+        f"norm {GRAD_NORM_TOL}): " + json.dumps(ldet))
+    log(f"s{LONG_S} dropout grad check, {LONG_GRAD_LAYERS} layers at full "
+        f"width (kernels vs plain, the same seeds and hidden masks; "
+        f"tolerances: loss {GRAD_LOSS_TOL}, relative norm "
+        f"{GRAD_NORM_TOL}): " + json.dumps(ldrop))
     torch.cuda.empty_cache()
 
     model, amp_model, opt, state, rn_stats, rn_trace = run_rn50_path(torch)
@@ -4503,6 +4824,7 @@ def main() -> int:
     log("trace: " + json.dumps({**serve_trace, "train_step": train_trace,
                                 "train_step_dropout": drop_trace,
                                 f"train_step_s{LONG_S}": long_trace,
+                                f"train_step_dropout_s{LONG_S}": ldrop_trace,
                                 "train_step_rn50": rn_trace,
                                 "train_step_zero3": zero_trace}))
 
@@ -4512,6 +4834,8 @@ def main() -> int:
         by_path["train"] = tstats["launches"][kr["name"]]
         by_path["train-dropout"] = drop_stats["launches"][kr["name"]]
         by_path[f"train-gpt-s{LONG_S}"] = long_stats["launches"][kr["name"]]
+        by_path[f"train-dropout-s{LONG_S}"] = \
+            ldrop_stats["launches"][kr["name"]]
         by_path["train-rn50"] = rn_stats["launches"][kr["name"]]
         by_path["train-zero3"] = zero_stats["launches"][kr["name"]]
         by_path["train-dflamb"] = lamb_stats["launches"][kr["name"]]

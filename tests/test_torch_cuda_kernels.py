@@ -57,12 +57,14 @@ sq != sk, segment padding, d 64/128 and padded, bf16 and fp16; the forward
 and the single pass's dk, dv bitwise on a rerun, its dq not (bulk
 reductions into an fp32 accumulator in a varying order).
 
-Attention dropout on the wgmma route (the forward's and the single pass's
-dropout variants) is held at the same limits against the plain versions
-with the same seed, whose forward rounds the dropped p to v's dtype before
-the PV product as the kernel does (scaled by 1 / (1 - rate), the largest p
-of a row is no longer exactly 1 in bf16); bitwise on a rerun; and the
-kernel's mask is the plain mask bit for bit (v the identity).
+Attention dropout on the wgmma route (the forward's, the single pass's and
+the split's dropout variants) is held at the same limits against the plain
+versions with the same seed, whose forward rounds the dropped p to v's
+dtype before the PV product as the kernel does (scaled by 1 / (1 - rate),
+the largest p of a row is no longer exactly 1 in bf16); bitwise on a
+rerun; and each kernel's mask is the plain mask bit for bit (the forward:
+v the identity; the split's dk/dv: do the identity; its dq: k the
+identity and a zero output).
 
 The fp8 dequant-matmul's prefill regime (m > 8, wgmma/TMA with the
 weight converted in registers, ``_prefill_plan``) is held like its decode
@@ -608,9 +610,127 @@ def test_flash_dropout_mask_is_the_plain_mask(gen, dtype, d, seed):
                        torch.full_like(out[keep].float(), 2.0 / d))
 
 
+# the split's dropout variants: bf16 and fp16, d 64 and 128 (and a padded
+# d), causal, non-causal and ragged with segment ids, sq != sk both ways;
+# the last case is one the gate itself sends to the split (split None)
+_SPLIT_DROPOUT_CASES = [
+    (2, 3, 300, 300, 64, True, False, _BF, 0.1, 1234, True),
+    (1, 2, 257, 129, 128, False, False, _F16, 0.3, -7, True),
+    (2, 2, 333, 333, 64, True, True, _F16, 0.5, 2 ** 31 - 1, True),
+    (1, 2, 129, 300, 128, True, True, _BF, 0.1, 0, True),
+    (2, 2, 200, 77, 64, False, True, _BF, 0.9, 99, True),
+    (1, 2, 777, 777, 80, True, True, _F16, 0.2, -2 ** 31, True),
+    (2, 8, 1024, 1024, 128, True, False, _BF, 0.1, 5, None),
+]
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,seg,dtype,rate,seed,split",
+                         _SPLIT_DROPOUT_CASES)
+def test_flash_split_dropout_wgmma_route_matches_plain(
+        gen, b, h, sq, sk, d, causal, seg, dtype, rate, seed, split):
+    """The split's dropout variants (dq with the delta fold, then dk/dv)
+    against the plain backward with the same seed, and each kernel against
+    its own plain version, at the bf16 backward limits; bitwise on a
+    rerun, another seed another result; one launch on each dropout
+    counter a call, none on the single pass."""
+    q, k, v, do, sid_q, sid_kv = _wgmma_inputs(gen, b, h, sq, sk, d, seg,
+                                               dtype)
+    if split is None:
+        assert fa.uses_split_backward(sq, sk, d, 2, 2, causal, dropout=True)
+        assert not fa.uses_split_backward(sq, sk, d, 2, 2, causal)
+    g = fa.flash_attention_bwd
+    drop = dict(dropout_rate=rate, dropout_seed=seed)
+    out, lse = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal,
+                                      **drop)
+
+    def counts():
+        return (g.launches, g.dropout_dkdv_launches, g.dropout_dq_launches,
+                g.wgmma_dkdv_launches, g.wgmma_dq_launches)
+
+    def bwd(o, l_, **kw):
+        return fa._flash_bwd_cuda(q, k, v, o, l_, do, sid_q, sid_kv, causal,
+                                  d ** -0.5, split=split, **kw)
+
+    n0 = counts()
+    grads = bwd(out, lse, **drop)
+    torch.cuda.synchronize()
+    assert tuple(a - b_ for a, b_ in zip(counts(), n0)) == (0, 1, 1, 1, 1)
+    assert all(torch.equal(x, y) for x, y in zip(grads, bwd(out, lse,
+                                                          **drop)))
+    other_out, other_lse = fa.flash_attention_fwd(
+        q, k, v, sid_q, sid_kv, causal, dropout_rate=rate,
+        dropout_seed=seed ^ 1)
+    other = bwd(other_out, other_lse, dropout_rate=rate,
+                dropout_seed=seed ^ 1)
+    assert not torch.equal(grads[2], other[2])
+    ref = fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, do, causal=causal, segment_ids_q=sid_q,
+        segment_ids_kv=sid_kv, **drop)
+    for name, got, r in zip(("dq", "dk", "dv"), grads, ref):
+        assert got.dtype == dtype
+        _close_grad(got, r, name)
+    if seg:
+        pad = (sid_q < 0)[:, None, :].expand(b, h, sq)
+        assert not bool(grads[0][pad].any())
+    kd = fa.kernel_head_dim(d)
+    if kd == d:       # each kernel alone, against its plain version
+        delta = torch.empty(b, h, sq, dtype=torch.float32, device="cuda")
+        args = (q, k, v, do, lse, delta, sid_q, sid_kv, causal, d ** -0.5,
+                fa._mixed_rounds(q, k, do))
+        dargs = fa._dropout_args(rate, seed)
+        dq = fa._flash_dq_cuda(*args, out=out, dropout=dargs)
+        dk, dv = fa._flash_dkdv_cuda(*args, dropout=dargs)
+        kw = dict(causal=causal, segment_ids_q=sid_q, segment_ids_kv=sid_kv,
+                  **drop)
+        rdq, rdelta = fa.flash_bwd_dq_reference(q, k, v, out, lse, do, **kw)
+        rdk, rdv = fa.flash_bwd_dkdv_reference(q, k, v, lse, delta, do,
+                                               **kw)
+        torch.cuda.synchronize()
+        assert float((delta - rdelta).abs().max()) <= \
+            1e-5 * float(rdelta.abs().max())
+        for name, got, r in (("dq", dq, rdq), ("dk", dk, rdk),
+                             ("dv", dv, rdv)):
+            _close_grad(got, r, name)
+        assert all(torch.equal(x, y) for x, y in zip((dq, dk, dv), grads))
+
+
+@pytest.mark.parametrize("dtype,d", [(_BF, 64), (_F16, 128)])
+@pytest.mark.parametrize("seed", [5, -3])
+def test_flash_split_dropout_masks_are_the_plain_mask(gen, dtype, d, seed):
+    """Rate 0.5, no attention mask (p > 0 everywhere): dk/dv with q = 0
+    (p = 1 / sk, no fp16 underflow) and do = I over sq = d rows gives dv =
+    the dropped p transposed; dq with k = I
+    over sk = d keys and out = 0 (so the folded delta is 0) is zero
+    exactly where a key is dropped. Both zero patterns are the plain mask
+    bit for bit."""
+    b, h, s = 2, 3, 333
+    eye = torch.eye(d, device="cuda", dtype=dtype).expand(b, h, d, d)
+    eye = eye.contiguous()
+    half = fa._dropout_args(0.5, seed)
+    rounds = fa._mixed_rounds(eye, eye, eye)
+    k, v = (_rand(gen, b, h, s, d, dtype=dtype) for _ in range(2))
+    q = torch.zeros(b, h, d, d, device="cuda", dtype=dtype)
+    _, lse = fa.flash_attention_fwd(q, k, v, None, None, False, 1.0)
+    zero = torch.zeros(b, h, d, dtype=torch.float32, device="cuda")
+    _, dv = fa._flash_dkdv_cuda(q, k, v, eye, lse, zero, None, None, False,
+                                1.0, rounds, dropout=half)
+    keep = fa.dropout_keep_reference(seed, b, h, d, s, 0.5, device="cuda")
+    assert torch.equal(dv != 0, keep.transpose(-1, -2))
+    q, v, do = (_rand(gen, b, h, n, d, dtype=dtype) for n in (s, d, s))
+    _, lse = fa.flash_attention_fwd(q, eye, v, None, None, False, 1.0)
+    delta = torch.empty(b, h, s, dtype=torch.float32, device="cuda")
+    dq = fa._flash_dq_cuda(q, eye, v, do, lse, delta, None, None, False,
+                           1.0, rounds, out=torch.zeros_like(q),
+                           dropout=half)
+    keep = fa.dropout_keep_reference(seed, b, h, s, d, 0.5, device="cuda")
+    assert float(delta.abs().max()) == 0.0
+    assert torch.equal(dq != 0, keep)
+
+
 def test_flash_dropout_refuses_the_unported_routes_on_the_card(gen):
     """Dropout on a route without it raises before any launch, naming the
-    route; so does a bias with dropout."""
+    route; so does a bias with dropout. The split at s4096 takes it on the
+    wgmma route."""
     q = _rand(gen, 1, 2, 64, 64)
     with pytest.raises(NotImplementedError, match="FFMA"):
         fa.flash_attention(q.float(), q.float(), q.float(),
@@ -619,9 +739,14 @@ def test_flash_dropout_refuses_the_unported_routes_on_the_card(gen):
     with pytest.raises(NotImplementedError, match="frag.cuh"):
         fa.flash_attention(q32, q32, q32, dropout_rate=0.1, dropout_seed=1)
     qs = _rand(gen, 1, 1, 4096, 64).requires_grad_()
-    with pytest.raises(NotImplementedError, match="split"):
-        fa.flash_attention(qs, qs, qs, causal=True, dropout_rate=0.1,
-                           dropout_seed=1)
+    g = fa.flash_attention_bwd
+    n0 = (g.dropout_dkdv_launches, g.dropout_dq_launches)
+    fa.flash_attention(qs, qs, qs, causal=True, dropout_rate=0.1,
+                       dropout_seed=1).float().sum().backward()
+    torch.cuda.synchronize()
+    assert (g.dropout_dkdv_launches, g.dropout_dq_launches) == (n0[0] + 1,
+                                                                n0[1] + 1)
+    assert bool(torch.isfinite(qs.grad).all())
     with pytest.raises(NotImplementedError, match="bias"):
         fa.flash_attention(q, q, q, bias=torch.zeros(1, 2, 64, 64,
                                                      device="cuda"),

@@ -12,7 +12,8 @@ The plain forward, its lse and the q/k/v gradients are held against
 both sides, so within 1e-5 (forward, lse) and 1e-4 of the largest gradient
 (summation order). The CUDA routes that do not take dropout yet are
 checked through their route predicate and the wrappers' refusals before
-any launch: no card is needed.
+any launch, and the split's wgmma route through its C calls' arguments
+(the library stubbed): no card is needed.
 """
 
 import ctypes
@@ -218,8 +219,8 @@ def test_validation_errors_match_jax(kw, match):
 @pytest.mark.parametrize("dtype,kd,split,route", [
     (torch.bfloat16, 64, False, None),
     (torch.float16, 128, False, None),
-    (torch.bfloat16, 64, True, "split"),
-    (torch.float16, 128, True, "split"),
+    (torch.bfloat16, 64, True, None),
+    (torch.float16, 128, True, None),
     (torch.float32, 64, False, "FFMA"),
     (torch.float32, 128, True, "FFMA"),
     (torch.bfloat16, 32, False, "frag.cuh"),
@@ -228,11 +229,24 @@ def test_validation_errors_match_jax(kw, match):
 ])
 def test_dropout_route_predicate_names_each_unported_route(dtype, kd, split,
                                                            route):
-    refused = tfa.dropout_refusal(dtype, kd, split)
+    """The route takes dropout or not by dtype and head dim alone: the
+    backward's route agrees at a shape that splits (s4096) and one that
+    does not (s64)."""
+    refused = tfa.dropout_refusal(dtype, kd)
     if route is None:
         assert refused is None
     else:
         assert route in refused
+    s = 4096 if split else 64
+    q = torch.zeros(1, 1, s, kd, dtype=dtype)
+    assert tfa.uses_split_backward(s, s, kd, q.element_size(),
+                                   q.element_size(), True,
+                                   dropout=True) == split
+    if route is None:
+        assert tfa._bwd_route(q, q, q, True, 0.1) == (split, dtype)
+    else:
+        with pytest.raises(NotImplementedError, match=route):
+            tfa._bwd_route(q, q, q, True, 0.1)
 
 
 def test_the_train_shape_keeps_the_single_pass_with_dropout():
@@ -245,11 +259,32 @@ def test_the_train_shape_keeps_the_single_pass_with_dropout():
     assert tfa.uses_split_backward(4096, 4096, 64, causal=True, dropout=True)
 
 
-def test_cuda_wrappers_refuse_unported_routes_before_any_launch():
+def _stub_library(monkeypatch):
+    """The C calls the wrappers make, recorded instead of run: ``(symbol,
+    args)`` with the argument count checked against the argument types
+    (CPU tensors stand for the card's; the stream is None)."""
+    calls = []
+
+    def function(target, symbol, argtypes):
+        def fn(*args):
+            assert len(args) == len(argtypes), symbol
+            calls.append((target, symbol, args))
+            return 0
+        return fn
+
+    monkeypatch.setattr(tfa._build, "function", function)
+    monkeypatch.setattr(tfa, "_stream", lambda t: None)
+    return calls
+
+
+def test_cuda_wrappers_refuse_unported_routes_before_any_launch(
+        monkeypatch):
     """The kernel wrappers raise ``NotImplementedError`` naming the route
     before they reach the card (CPU tensors reach the check and stop
-    there): fp32 forward and backward (FFMA), bf16 at d 32 (frag.cuh),
-    and the split backward at s4096."""
+    there): fp32 forward and backward (FFMA), bf16 at d 32 (frag.cuh);
+    the split backward at s4096 takes the wgmma split, dq (with the delta
+    fold) then dk/dv, each with the dropout's seed, threshold and 1 / (1 -
+    rate) and counted on its dropout counter."""
     q = torch.zeros(1, 2, 16, 64)
     with pytest.raises(NotImplementedError, match="FFMA"):
         tfa._flash_fwd_cuda(q, q, q, None, None, True, 0.125,
@@ -264,23 +299,40 @@ def test_cuda_wrappers_refuse_unported_routes_before_any_launch():
                             dropout_rate=0.1, dropout_seed=1)
     qs = torch.zeros(1, 1, 4096, 64, dtype=torch.bfloat16)
     lse = torch.zeros(1, 1, 4096)
-    with pytest.raises(NotImplementedError, match="split"):
-        tfa._flash_bwd_cuda(qs, qs, qs, qs, lse, qs, None, None, True,
-                            0.125, dropout_rate=0.1, dropout_seed=1)
+    calls = _stub_library(monkeypatch)
+    g = tfa.flash_attention_bwd
+    n0 = (g.dropout_dkdv_launches, g.dropout_dq_launches,
+          g.dropout_launches, g.launches)
+    tfa._flash_bwd_cuda(qs, qs, qs, qs, lse, qs, None, None, True, 0.125,
+                        dropout_rate=0.1, dropout_seed=-1)
+    assert [c[1] for c in calls] == ["apex_flash_bwd_sm90_dq",
+                                     "apex_flash_bwd_sm90_dkdv"]
+    drop = tfa._dropout_args(0.1, -1)
+    for target, _, args in calls:
+        assert target == "flash_bwd_sm90@bf16"
+        assert args[-4:-1] == drop and args[-1] is None
+    assert (g.dropout_dkdv_launches - n0[0], g.dropout_dq_launches - n0[1],
+            g.dropout_launches - n0[2], g.launches - n0[3]) == (1, 1, 0, 0)
+    # rate 0 keeps threshold 0: the kernels' code without dropout
+    calls.clear()
+    tfa._flash_bwd_cuda(qs, qs, qs, qs, lse, qs, None, None, True, 0.125)
+    assert [c[2][-4:-1] for c in calls] == [(0, 0, 1.0)] * 2
+    assert (g.dropout_dkdv_launches, g.dropout_dq_launches) == (
+        n0[0] + 1, n0[1] + 1)
 
 
 def test_backward_route_is_decided_once_for_the_wrapper_and_the_kernels():
     """``_bwd_route`` is what ``flash_attention`` checks before the forward
     and what ``_flash_bwd_cuda`` routes by: the single pass in bf16 at the
-    train shape, the split refused at s4096, and mixed operands promoted to
-    fp32 (the FFMA route) whatever ``do`` is."""
+    train shape, the split at s4096 with dropout as without, and mixed
+    operands promoted to fp32 (the FFMA route, refused) whatever ``do``
+    is."""
     q = torch.zeros(8, 16, 1024, 64, dtype=torch.bfloat16)
     assert tfa._bwd_route(q, q, q, True, 0.1) == (False, torch.bfloat16)
     assert tfa._bwd_route(q, q, q, True, 0.1, q) == (False, torch.bfloat16)
     qs = torch.zeros(1, 1, 4096, 64, dtype=torch.bfloat16)
     assert tfa._bwd_route(qs, qs, qs, True, 0.0) == (True, torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="split"):
-        tfa._bwd_route(qs, qs, qs, True, 0.1)
+    assert tfa._bwd_route(qs, qs, qs, True, 0.1) == (True, torch.bfloat16)
     k32 = torch.zeros(8, 16, 1024, 64)
     for do in (None, q, k32):
         with pytest.raises(NotImplementedError, match="FFMA"):
