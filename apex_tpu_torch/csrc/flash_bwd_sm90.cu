@@ -145,6 +145,23 @@
 // Hashing on the producer's two idle warps instead, into a word of keep
 // bits a consumer thread and stage, was slower in the single pass: two
 // warps at 24 registers fell behind the consumers.
+//
+// The additive bias, in the single pass only (`_recompute_p` with its bias,
+// :500-523, as `_bwd_fused_kernel` calls it): a variant (BIAS, chosen by
+// the C entry when the bias pointer is not null; the code without it is
+// unchanged) recomputes p^T = 2^((s^T + bias / scale) scale log2(e) - lse
+// log2(e)) with bias[b', h', q, k] (fp32 [b|1, h|1, sq, sk], the last two
+// dims contiguous, broadcast by zero strides), the mask as without it. As
+// in the forward, each thread loads its elements of the tile's bias, times
+// 1 / scale, into S^T's accumulators while it waits for the tile, and the
+// S^T product's first k-step adds to them: the probabilities loop is the
+// code without a bias, and no register is held beyond S^T's (holding the
+// bias in registers of its own spilled at head dim 128). Here a thread's
+// rows are keys and its columns queries, so each element is a scalar
+// load (a query's row of the bias is sk floats from the next). The delta
+// pass and the ordered dq are unchanged; no dbias is computed (the JAX op
+// returns zeros for it). No variant takes a bias with dropout, and the
+// split takes no bias.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -214,6 +231,19 @@ struct Params {
   float inv;
 };
 
+// the single pass's parameters: its BIAS variant's add the bias, fp32
+// [b|1, h|1, sq, sk], its batch and head strides in elements (0 for a
+// broadcast dim) and 1 / scale; the others' are Params alone, laid out as
+// the split's
+template <bool BIAS>
+struct FusedParams : Params {};
+template <>
+struct FusedParams<true> : Params {
+  const float* bias;
+  long bias_sb, bias_sh;
+  float inv_scale;
+};
+
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
@@ -238,7 +268,8 @@ __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
 // S = A B^T and dP = A' B'^T of one consumer warpgroup (m64n64, both
 // products in one group): A and A' its 64 rows of the resident tiles, B
 // and B' the streamed tiles, all K-major; the first k-step writes the
-// accumulators, the rest add.
+// accumulators, the rest add (with S_ADD, S's first adds too: S holds the
+// bias).
 template <typename T, int ACCUM, int N>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da,
                                        uint64_t db) {
@@ -248,13 +279,13 @@ __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da,
     wg::mma_ss128<T, ACCUM>(d, da, db);
 }
 
-template <typename T, int D, int N>
+template <typename T, int D, int N, bool S_ADD = false>
 __device__ __forceinline__ void scores(float (&s)[N / 2], float (&dp)[N / 2],
                                        const uint8_t* a, const uint8_t* a2,
                                        const uint8_t* b, const uint8_t* b2,
                                        int cw) {
-  mma_ss<T, 0, N>(s, wg::kmajor_desc<RES_ROWS>(a, 64 * cw, 0),
-                  wg::kmajor_desc<N>(b, 0, 0));
+  mma_ss<T, S_ADD ? 1 : 0, N>(s, wg::kmajor_desc<RES_ROWS>(a, 64 * cw, 0),
+                              wg::kmajor_desc<N>(b, 0, 0));
 #pragma unroll
   for (int j = 1; j < D / 16; ++j)
     mma_ss<T, 1, N>(s, wg::kmajor_desc<RES_ROWS>(a, 64 * cw, j),
@@ -797,6 +828,13 @@ flash_dq_sm90(const __grid_constant__ CUtensorMap map_q,
 // into an fp32 workspace
 // ---------------------------------------------------------------------------
 
+// column groups of the bias's loads issued together in the single pass's
+// BIAS variant: all 8 at d 64; at d 128 two batches of 4 (one batch of 32
+// loads spilled beside dV's and dK's accumulators; batches were slower at
+// d 64, PERF.md)
+template <int D>
+constexpr int kBiasUnroll = D == 64 ? 8 : 4;
+
 template <int D>
 struct FusedLayout {
   // 64-row query tiles at both head dims: five products' operands and
@@ -828,14 +866,14 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 3, 256;\n" ::: "memory");
 }
 
-template <typename T, int D, bool DROP>
+template <typename T, int D, bool DROP, bool BIAS>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
                      const __grid_constant__ CUtensorMap map_v,
                      const __grid_constant__ CUtensorMap map_do,
                      const __grid_constant__ CUtensorMap map_dq,
-                     const Params p) {
+                     const FusedParams<BIAS> p) {
   using FL = FusedLayout<D>;
   constexpr int TILE = FL::TILE, ST = FL::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -891,9 +929,10 @@ flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap map_q,
   if (wgi == 0) {
     // ---- producer: warp 0 keeps the ring full (as in the dk/dv kernel),
     // warp 1 adds the dQ partials into dq_acc in the block's turn. The
-    // dropout variant moves 8 registers a thread from the producer (24) to
-    // the consumers (240): with the hash they spilled at 232 at d 128
-    wg::setmaxnreg_dec<DROP ? 24 : 40>();
+    // dropout and bias variants move 8 registers a thread from the
+    // producer (24) to the consumers (240): with the hash, or the bias's
+    // loads, they spilled at 232 at d 128
+    wg::setmaxnreg_dec<DROP || BIAS ? 24 : 40>();
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
       if (lane == 0) {
@@ -992,7 +1031,7 @@ flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap map_q,
     }
   } else {
     // ---- consumers: 64 keys each
-    wg::setmaxnreg_inc<DROP ? 240 : 232>();
+    wg::setmaxnreg_inc<DROP || BIAS ? 240 : 232>();
     const int cw = wgi - 1, t = threadIdx.x % 128;
     const int warp = t / 32, g = (t % 32) / 4, tig = t % 4;
     const int n0w = n0 + 64 * cw;
@@ -1013,15 +1052,33 @@ flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap map_q,
     uint32_t phase = 0;
     for (int qt = qt_begin; qt < n_qt; ++qt) {
       const int q0 = qt * TILE;
-      wg::mbar_wait(&full[stage], phase);
-      const uint8_t* tq = ring + stage * 2 * FL::TILE_BYTES;
-      const uint8_t* tdo = tq + FL::TILE_BYTES;
       // S^T = K Q^T and dP^T = V dO^T. No warpgroup skips a tile of the
       // block's range: at d 128 the dQ product needs both halves of dS^T,
       // and a half whose keys no row of the tile sees is zero by the mask.
       float s[TILE / 2], dp[TILE / 2];
+      if constexpr (BIAS) {
+        // the tile's bias / scale into S^T (element 4 nb + 2 r + e: key
+        // key0 + 8 r, query row q0 + 8 nb + 2 tig + e), which the S^T
+        // product adds to; keys past sk and rows past sq clamped to the
+        // last (both masked)
+        const float* b0 = p.bias + (long)bi * p.bias_sb +
+                          (long)(bh - bi * p.h) * p.bias_sh +
+                          min(key0, sk - 1);
+        const int d1 = min(key1, sk - 1) - min(key0, sk - 1);
+#pragma unroll (kBiasUnroll<D>)
+        for (int nb = 0; nb < TILE / 8; ++nb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int off = min(q0 + 8 * nb + 2 * tig + e, sq - 1) * sk;
+            s[4 * nb + e] = __ldg(b0 + off) * p.inv_scale;
+            s[4 * nb + 2 + e] = __ldg(b0 + off + d1) * p.inv_scale;
+          }
+      }
+      wg::mbar_wait(&full[stage], phase);
+      const uint8_t* tq = ring + stage * 2 * FL::TILE_BYTES;
+      const uint8_t* tdo = tq + FL::TILE_BYTES;
       wg::wgmma_fence();
-      scores<T, D, TILE>(s, dp, sK, sV, tq, tdo, cw);
+      scores<T, D, TILE, BIAS>(s, dp, sK, sV, tq, tdo, cw);
       wg::wgmma_commit();
       wg::wgmma_wait<0>();
       wg::fence_regs(s);
@@ -1311,13 +1368,16 @@ struct Args {
   cudaStream_t stream;
   uint32_t seed = 0, threshold = 0;   // dropout (0: none)
   float inv = 1.f;
+  const void* bias = nullptr;         // the single pass's bias, or null
+  long bias_sb = 0, bias_sh = 0;
 };
 
 // which kernel: the split's two, or the single pass
 enum Kind { DKDV, DQ, FUSED };
 
-template <typename T, int D, Kind K, bool DROP = false>
+template <typename T, int D, Kind K, bool DROP = false, bool BIAS = false>
 cudaError_t launch(const Args& a) {
+  static_assert(K == FUSED || !BIAS, "the split takes no bias");
   const long bh = (long)a.b * a.h;
   // the resident side's boxes are 128 rows, the streamed side's its TILE
   constexpr int TILE = K == FUSED  ? FusedLayout<D>::TILE
@@ -1346,11 +1406,19 @@ cudaError_t launch(const Args& a) {
                      64))
       return MAP_REFUSED;
     const size_t smem = FusedLayout<D>::SMEM;
-    auto kern = flash_bwd_fused_sm90<T, D, DROP>;
+    auto kern = flash_bwd_fused_sm90<T, D, DROP, BIAS>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    kern<<<grid, THREADS, smem, a.stream>>>(mq, mk, mv, mdo, mdq, p);
+    FusedParams<BIAS> fp;
+    static_cast<Params&>(fp) = p;
+    if constexpr (BIAS) {
+      fp.bias = static_cast<const float*>(a.bias);
+      fp.bias_sb = a.bias_sb;
+      fp.bias_sh = a.bias_sh;
+      fp.inv_scale = 1.f / a.scale;
+    }
+    kern<<<grid, THREADS, smem, a.stream>>>(mq, mk, mv, mdo, mdq, fp);
   } else {
     const size_t smem = Layout<D, TILE>::SMEM;
     auto kern =
@@ -1363,21 +1431,22 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-// the kernel of kind K and variant DROP of the operands' dtype and head dim
-template <Kind K, bool DROP>
+// the kernel of kind K and variant DROP, BIAS of the operands' dtype and
+// head dim
+template <Kind K, bool DROP, bool BIAS = false>
 int launch_of(const Args& a, int d, int dtype) {
   switch (dtype) {
     case 0:
 #if APEX_HAS_DTYPE(0)
-      return d == 64 ? launch<__nv_bfloat16, 64, K, DROP>(a)
-                     : launch<__nv_bfloat16, 128, K, DROP>(a);
+      return d == 64 ? launch<__nv_bfloat16, 64, K, DROP, BIAS>(a)
+                     : launch<__nv_bfloat16, 128, K, DROP, BIAS>(a);
 #else
       return cudaErrorInvalidValue;
 #endif
     case 1:
 #if APEX_HAS_DTYPE(1)
-      return d == 64 ? launch<__half, 64, K, DROP>(a)
-                     : launch<__half, 128, K, DROP>(a);
+      return d == 64 ? launch<__half, 64, K, DROP, BIAS>(a)
+                     : launch<__half, 128, K, DROP, BIAS>(a);
 #else
       return cudaErrorInvalidValue;
 #endif
@@ -1400,6 +1469,13 @@ int dispatch(const Args& a, int d, int dtype) {
     if (err == cudaSuccess && K != DQ)
       err = cudaMemsetAsync(a.out1, 0, bytes, a.stream);
     return err;
+  }
+  // the single pass's variant with the bias where there is one (with
+  // dropout: no such variant)
+  if constexpr (K == FUSED) {
+    if (a.bias)
+      return a.threshold ? cudaErrorInvalidValue
+                         : launch_of<K, false, true>(a, d, dtype);
   }
   // the variant with dropout where the threshold keeps fewer than all
   if (a.threshold) return launch_of<K, true>(a, d, dtype);
@@ -1454,16 +1530,22 @@ extern "C" int apex_flash_bwd_sm90_dq(
 // caller zeroes, as it zeroes `turns` (b * h * ceil(sq / 64) int32, one
 // counter a 64-row query tile, left at the tile's count of key blocks);
 // from a given delta (rowsum(do * out), computed outside as the JAX
-// package computes it); dropout as the split's entries take it.
+// package computes it); the bias as the forward's entry takes it (null:
+// none); dropout as the split's entries take it (not with a bias:
+// cudaErrorInvalidValue).
 extern "C" int apex_flash_bwd_sm90_fused(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* sid_q,
     const void* sid_kv, void* dq_acc, void* turns, void* dk, void* dv, int b,
     int h, int sq, int sk, int d, int causal, float scale, int dtype,
-    unsigned int seed, unsigned int threshold, float inv, void* stream) {
-  const Args a{q, k, v, dout, lse, const_cast<void*>(delta), sid_q, sid_kv,
-               dk, dv, dq_acc, turns, nullptr, b, h, sq, sk, causal, scale,
-               static_cast<cudaStream_t>(stream), seed, threshold, inv};
+    const void* bias, long bias_sb, long bias_sh, unsigned int seed,
+    unsigned int threshold, float inv, void* stream) {
+  Args a{q, k, v, dout, lse, const_cast<void*>(delta), sid_q, sid_kv,
+         dk, dv, dq_acc, turns, nullptr, b, h, sq, sk, causal, scale,
+         static_cast<cudaStream_t>(stream), seed, threshold, inv};
+  a.bias = bias;
+  a.bias_sb = bias_sb;
+  a.bias_sh = bias_sh;
   return dispatch<FUSED>(a, d, dtype);
 }
 

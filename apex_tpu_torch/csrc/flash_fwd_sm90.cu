@@ -77,6 +77,27 @@
 // about ten integer operations beside the element's two products of 2 d
 // flops, computed into two words of keep bits while the tile's S product
 // runs. A tile runs its products whatever its keep bits.
+//
+// The additive bias (the `_fwd_kernel`'s `use_bias`, :282-283): a variant
+// (BIAS, chosen by the C entry when the bias pointer is not null; the code
+// without it is the same instructions as before) adds bias[b', h', q, k]
+// (fp32, [b|1, h|1, sq, sk], the last two dims contiguous; b' = b or 0
+// and h' = h or 0 by the strides the wrapper passes, 0 for a broadcast
+// dim) to each scaled score before the mask, so m, l and lse are those of
+// the biased scores. It costs the softmax nothing: before a tile's S
+// product each thread loads its own elements of the tile's bias, times
+// 1 / scale, into S's accumulators (8-byte pairs where sk is even, scalar
+// loads where it is odd; keys past sk read as 0, masked), and the
+// product's first k-step adds to them instead of overwriting, so S holds
+// q k^T + bias / scale and the softmax's s scale log2(e) is the biased
+// score in base 2. The loads run while the thread waits for the tile's
+// K and V, and take no register beyond S's (a first version held the
+// bias in registers of its own beside S: it spilled at head dim 128 and
+// was much slower, PERF.md). A -inf bias gives an exact 0
+// (ex2.approx.ftz(-inf)), and a row whose every biased score is -inf (or
+// below -1e30 in base-2 units) keeps m at the fill and is a dead row: out
+// 0, lse -1e30, as the Pallas kernel's guard gives it. No bias with
+// dropout: that variant is not instantiated.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -125,6 +146,32 @@ struct Params {
   float inv;
 };
 
+// the kernel's parameters: the BIAS variant's add the bias, fp32 [b|1, h|1,
+// sq, sk], its batch and head strides in elements (0 for a broadcast dim)
+// and 1 / scale; the others' are Params alone, laid out as before the
+// variant
+template <bool BIAS>
+struct KernelParams : Params {};
+template <>
+struct KernelParams<true> : Params {
+  const float* bias;
+  long bias_sb, bias_sh;
+  float inv_scale;
+};
+
+// bias[key], bias[key + 1] of a row: one 8-byte load where sk is even (key
+// is even and the row 8-byte aligned), else two; 0 past sk where `guard`
+// (such keys are masked)
+__device__ __forceinline__ float2 bias_pair(const float* row, int key,
+                                            int sk, bool even, bool guard) {
+  if (even) {
+    if (guard && key >= sk) return make_float2(0.f, 0.f);
+    return __ldg(reinterpret_cast<const float2*>(row + key));
+  }
+  return make_float2(!guard || key < sk ? __ldg(row + key) : 0.f,
+                     !guard || key + 1 < sk ? __ldg(row + key + 1) : 0.f);
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -145,12 +192,13 @@ __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
 // thread; the 64-row block (two) from 128, so that two blocks share an SM
 // (setmaxnreg then gives its consumer 216): one block's prologue and
 // epilogue run while the other's loop does
-template <typename T, int D, int CONS, bool DROP>
+template <typename T, int D, int CONS, bool DROP, bool BIAS>
 __global__ void __launch_bounds__(CONS == 1 ? 256 : MAX_THREADS,
                                   CONS == 1 ? 2 : 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q,
                const __grid_constant__ CUtensorMap map_k,
-               const __grid_constant__ CUtensorMap map_v, const Params p) {
+               const __grid_constant__ CUtensorMap map_v,
+               const KernelParams<BIAS> p) {
   using L = Layout<D, CONS>;
   constexpr int BM = L::BM, STAGES = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -253,6 +301,16 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q,
         drow[r] = dropout::base(p.seed, bi, bh - bi * p.h) ^
                   dropout::q_term(row);
     }
+    // the bias: this thread's two rows of the (batch, head)'s [sq, sk]
+    // slice, a row past sq clamped to the last (its scores are masked)
+    const float* brow[2];
+    if constexpr (BIAS) {
+      const float* bb = p.bias + (long)bi * p.bias_sb +
+                        (long)(bh - bi * p.h) * p.bias_sh;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        brow[r] = bb + (long)min(row0 + 8 * r, sq - 1) * sk;
+    }
     // the last key this warpgroup's rows see (causal)
     const int last_w = min(sq - 1, m0w + 63) + offset;
     const float sl2 = p.scale * LOG2E;
@@ -268,11 +326,13 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q,
     if (causal && n_live > 0)
       n_live = last_w < 0 ? 0 : min(kt_end, last_w / KT + 1);
 
-    // S = Q K^T of the tile in `stage` (the caller fences and commits)
+    // S = Q K^T of the tile in `stage` (the caller fences and commits);
+    // the bias variant adds it to the tile's bias / scale, which
+    // `bias_into` loaded into S (the others' first k-step overwrites)
     auto issue_s = [&](float (&s)[KT / 2], int st) {
       const uint8_t* tk = ring + st * 2 * L::KV_BYTES;
-      wg::mma_ss128<T, 0>(s, wg::kmajor_desc<BM>(sQ, 64 * cw, 0),
-                          wg::kmajor_desc<KT>(tk, 0, 0));
+      wg::mma_ss128<T, BIAS ? 1 : 0>(s, wg::kmajor_desc<BM>(sQ, 64 * cw, 0),
+                                     wg::kmajor_desc<KT>(tk, 0, 0));
 #pragma unroll
       for (int j = 1; j < D / 16; ++j)
         wg::mma_ss128<T, 1>(s, wg::kmajor_desc<BM>(sQ, 64 * cw, j),
@@ -293,6 +353,23 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q,
                             p.threshold)
                         << (i % 32);
         }
+      }
+    };
+    // the bias variant: the tile from key n0's bias / scale into S's
+    // accumulators (element 4 nb + 2 r + e: row row0 + 8 r, key n0 + 8 nb
+    // + 2 tig + e; keys past sk read as 0: they are masked)
+    auto bias_into = [&](float (&s)[KT / 2], int n0) {
+      if constexpr (BIAS) {
+        const bool even = (sk & 1) == 0, guard = n0 + KT > sk;
+#pragma unroll
+        for (int nb = 0; nb < KT / 8; ++nb)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float2 bv =
+                bias_pair(brow[r], n0 + 8 * nb + 2 * tig, sk, even, guard);
+            s[4 * nb + 2 * r] = bv.x * p.inv_scale;
+            s[4 * nb + 2 * r + 1] = bv.y * p.inv_scale;
+          }
       }
     };
     // O += P V over the tile in `st` (p rounded to v's dtype), V MN-major
@@ -394,6 +471,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q,
       // the first tile alone: S, then its softmax; its P V goes out with
       // the next tile's S
       float s[KT / 2], alpha[2];
+      bias_into(s, 0);
       wg::mbar_wait(&full[stage], phase);
       wg::wgmma_fence();
       issue_s(s, stage);
@@ -409,6 +487,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q,
       // each later tile: its S and the held tile's P V in flight together,
       // the softmax of S while P V runs, then O takes alpha
       for (int kt = 1; kt < n_live; ++kt) {
+        bias_into(s, kt * KT);
         wg::mbar_wait(&full[stage], phase);
         wg::wgmma_fence();
         issue_s(s, stage);
@@ -472,9 +551,16 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <typename T, int D, int CONS, bool DROP>
+// the bias operand of the C entry: null, or fp32 with its strides
+struct BiasArg {
+  const float* ptr;
+  long sb, sh;
+};
+
+template <typename T, int D, int CONS, bool DROP, bool BIAS>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const Params& p, int b, cudaStream_t stream) {
+                   const Params& p, const BiasArg& bias, int b,
+                   cudaStream_t stream) {
   using L = Layout<D, CONS>;
   const long bh = (long)b * p.h;
   // a map over at least one row: with sk 0 no key tile is loaded
@@ -483,34 +569,50 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       !wg::attn_map<T>(&mk, k, bh, p.sk > 0 ? p.sk : 1, D, KT) ||
       !wg::attn_map<T>(&mv, v, bh, p.sk > 0 ? p.sk : 1, D, KT))
     return MAP_REFUSED;
-  auto kern = flash_fwd_sm90<T, D, CONS, DROP>;
+  auto kern = flash_fwd_sm90<T, D, CONS, DROP, BIAS>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)bh, (p.sq + L::BM - 1) / L::BM);
-  kern<<<grid, L::THREADS, L::SMEM, stream>>>(mq, mk, mv, p);
+  KernelParams<BIAS> kp;
+  static_cast<Params&>(kp) = p;
+  if constexpr (BIAS) {
+    kp.bias = bias.ptr;
+    kp.bias_sb = bias.sb;
+    kp.bias_sh = bias.sh;
+    kp.inv_scale = 1.f / p.scale;
+  }
+  kern<<<grid, L::THREADS, L::SMEM, stream>>>(mq, mk, mv, kp);
   return cudaGetLastError();
 }
 
-template <typename T, bool DROP>
+template <typename T, bool DROP, bool BIAS>
 cudaError_t dispatch_variant(const void* q, const void* k, const void* v,
-                             const Params& p, int b, int d, int block_m,
-                             cudaStream_t st) {
+                             const Params& p, const BiasArg& bs, int b,
+                             int d, int block_m, cudaStream_t st) {
   if (d == 64)
-    return block_m == 64 ? launch<T, 64, 1, DROP>(q, k, v, p, b, st)
-                         : launch<T, 64, 2, DROP>(q, k, v, p, b, st);
-  return block_m == 64 ? launch<T, 128, 1, DROP>(q, k, v, p, b, st)
-                       : launch<T, 128, 2, DROP>(q, k, v, p, b, st);
+    return block_m == 64
+               ? launch<T, 64, 1, DROP, BIAS>(q, k, v, p, bs, b, st)
+               : launch<T, 64, 2, DROP, BIAS>(q, k, v, p, bs, b, st);
+  return block_m == 64 ? launch<T, 128, 1, DROP, BIAS>(q, k, v, p, bs, b, st)
+                       : launch<T, 128, 2, DROP, BIAS>(q, k, v, p, bs, b, st);
 }
 
-// the variant with dropout where the threshold keeps fewer than all
+// the variant with dropout where the threshold keeps fewer than all, the
+// variant with the bias where there is one (not both: refused)
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v,
-                     const Params& p, int b, int d, int block_m,
-                     cudaStream_t st) {
+                     const Params& p, const BiasArg& bs, int b, int d,
+                     int block_m, cudaStream_t st) {
+  if (bs.ptr)
+    return p.threshold ? cudaErrorInvalidValue
+                       : dispatch_variant<T, false, true>(q, k, v, p, bs, b,
+                                                          d, block_m, st);
   return p.threshold
-             ? dispatch_variant<T, true>(q, k, v, p, b, d, block_m, st)
-             : dispatch_variant<T, false>(q, k, v, p, b, d, block_m, st);
+             ? dispatch_variant<T, true, false>(q, k, v, p, bs, b, d,
+                                                block_m, st)
+             : dispatch_variant<T, false, false>(q, k, v, p, bs, b, d,
+                                                 block_m, st);
 }
 
 }  // namespace
@@ -522,18 +624,23 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 // [b,h,sq] f32 (every element written). `block_m`: query rows a block, 64
 // or 128. Returns the launch's cudaError_t: cudaErrorInvalidValue for
 // another d, dtype or block_m, cudaErrorNotSupported (801) when the driver
-// refuses a TMA map (a base address not 16-byte aligned). Dropout: `seed`
-// (the int32 seed as uint32), `threshold` (an element is kept where its
-// hash reaches it; 0 keeps every element and runs the kernel without
-// dropout) and `inv` = 1 / (1 - rate).
+// refuses a TMA map (a base address not 16-byte aligned). The bias:
+// `bias` fp32 with its last two dims [sq, sk] contiguous and an 8-byte
+// aligned base, `bias_sb` and `bias_sh` its batch and head strides in
+// elements (0 for a broadcast dim), or null (the kernel without it).
+// Dropout: `seed` (the int32 seed as uint32), `threshold` (an element is
+// kept where its hash reaches it; 0 keeps every element and runs the
+// kernel without dropout) and `inv` = 1 / (1 - rate). A bias with a
+// threshold above 0 returns cudaErrorInvalidValue (no such variant).
 extern "C" int apex_flash_fwd_sm90(const void* q, const void* k,
                                    const void* v, const void* sid_q,
                                    const void* sid_kv, void* out, void* lse,
                                    int b, int h, int sq, int sk, int d,
                                    int causal, float scale, int dtype,
-                                   int block_m, unsigned int seed,
-                                   unsigned int threshold, float inv,
-                                   void* stream) {
+                                   int block_m, const void* bias,
+                                   long bias_sb, long bias_sh,
+                                   unsigned int seed, unsigned int threshold,
+                                   float inv, void* stream) {
   if (d != 64 && d != 128) return cudaErrorInvalidValue;
   if (block_m != 64 && block_m != 128) return cudaErrorInvalidValue;
   if (sq <= 0 || b <= 0 || h <= 0) return cudaSuccess;
@@ -541,17 +648,18 @@ extern "C" int apex_flash_fwd_sm90(const void* q, const void* k,
                  static_cast<const int32_t*>(sid_kv), out,
                  static_cast<float*>(lse), h, sq, sk, causal, scale, seed,
                  threshold, inv};
+  const BiasArg bs{static_cast<const float*>(bias), bias_sb, bias_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
 #if APEX_HAS_DTYPE(0)
-      return dispatch<__nv_bfloat16>(q, k, v, p, b, d, block_m, st);
+      return dispatch<__nv_bfloat16>(q, k, v, p, bs, b, d, block_m, st);
 #else
       return cudaErrorInvalidValue;
 #endif
     case 1:
 #if APEX_HAS_DTYPE(1)
-      return dispatch<__half>(q, k, v, p, b, d, block_m, st);
+      return dispatch<__half>(q, k, v, p, bs, b, d, block_m, st);
 #else
       return cudaErrorInvalidValue;
 #endif

@@ -12,9 +12,14 @@ Port of ``apex_tpu/ops/flash_attention.py``:
   and fp16 at head dims 64 and 128), else ``csrc/flash_fwd.cu`` and
   ``csrc/flash_bwd.cu``; on the CPU they are
   :func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`
-  (the JAX ``_bwd_math``). The additive bias runs through the plain version
-  on the CPU, with an exactly zero gradient of its own as in the JAX
-  package, and raises on CUDA. In-kernel attention dropout (the JAX
+  (the JAX ``_bwd_math``). The additive bias ([b|1, h|1, sq, sk], added to
+  the scaled fp32 scores) runs in a variant of the wgmma route's forward
+  and single pass (read as fp32 with its broadcast dims' strides 0, never
+  expanded), in the plain versions, and on the CPU through
+  :class:`BiasedAttentionFunction`; its gradient is exactly zero in its
+  own shape, as in the JAX package; every other CUDA route, the split and
+  a bias with dropout raise (:func:`bias_refusal`). In-kernel attention
+  dropout (the JAX
   kernels' counter hash, :func:`dropout_keep_reference`) runs in the
   wgmma route's forward, single pass and split (a variant of each kernel
   chosen at compile time) and in the plain versions; every other CUDA
@@ -86,6 +91,8 @@ split's FFMA route alone), ``flash_attention.dropout_launches`` and
 ``flash_attention_bwd.dropout_launches`` (the wgmma forward's and single
 pass's dropout variants), ``flash_attention_bwd.dropout_dkdv_launches``
 and ``.dropout_dq_launches`` (the split's dropout variants),
+``flash_attention.bias_launches`` and ``flash_attention_bwd.bias_launches``
+(the wgmma forward's and single pass's bias variants),
 ``paged_decode_attention.launches``
 (bf16 pool) and ``paged_decode_attention.fp8_launches`` (e4m3 pool) count
 kernel launches (the CPU path does not count).
@@ -267,10 +274,13 @@ def mha_reference(q, k, v, *, causal=False, segment_ids_q=None,
     return out
 
 
-def _bwd_probs(q, k, lse, causal, segment_ids_q, segment_ids_kv, scale):
-    """The backward's fp32 probabilities p = exp(s * scale - lse), zero
-    where the mask is false."""
+def _bwd_probs(q, k, lse, causal, segment_ids_q, segment_ids_kv, scale,
+               bias=None):
+    """The backward's fp32 probabilities p = exp(s * scale + bias - lse),
+    zero where the mask is false (the JAX ``_recompute_p``)."""
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        s = s + bias.float()
     mask = _attention_mask(q.shape[2], k.shape[2], q.device, causal,
                            segment_ids_q, segment_ids_kv)
     if mask is None:
@@ -283,16 +293,18 @@ def _bwd_probs(q, k, lse, causal, segment_ids_q, segment_ids_kv, scale):
 def flash_attention_bwd_reference(q, k, v, out, lse, do, *, causal=False,
                                   segment_ids_q=None, segment_ids_kv=None,
                                   scale=None, dropout_rate=0.0,
-                                  dropout_seed=None):
+                                  dropout_seed=None, bias=None):
     """Plain attention backward — the JAX ``_bwd_math`` operation for
-    operation: p from the saved ``lse`` (zero where masked), fp32 math,
+    operation: p from the saved ``lse`` (zero where masked; with ``bias``,
+    added to the scaled scores as ``_recompute_p`` adds it), fp32 math,
     ``(dq, dk, dv)`` in the input dtypes. With ``dropout_rate`` the JAX
     ``_p_dp_ds`` rule: dv takes the dropped p, dp is masked and rescaled,
     ds = p (dp - delta) with the undropped p, and delta = rowsum(do *
     out) of the dropped ``out``."""
     d = q.shape[-1]
     scale = d ** -0.5 if scale is None else scale
-    p = _bwd_probs(q, k, lse, causal, segment_ids_q, segment_ids_kv, scale)
+    p = _bwd_probs(q, k, lse, causal, segment_ids_q, segment_ids_kv, scale,
+                   bias)
     keep = _keep_mask(q, k, dropout_rate, dropout_seed)
     do32 = do.float()
     dv = torch.einsum("bhqk,bhqd->bhkd", _dropped(p, keep, dropout_rate),
@@ -308,17 +320,20 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, *, causal=False,
 
 def flash_bwd_dq_reference(q, k, v, out, lse, do, *, causal=False,
                            segment_ids_q=None, segment_ids_kv=None,
-                           scale=None, dropout_rate=0.0, dropout_seed=None):
+                           scale=None, dropout_rate=0.0, dropout_seed=None,
+                           bias=None):
     """Plain version of the split's dq kernel with the delta fold (the
     wgmma route's ``flash_dq_sm90``): ``(dq, delta)``, delta = rowsum(do *
     out) fp32 [b, h, sq], computed from the forward's output as the kernel
     computes it for its own rows, then dq = (p * (dp - delta)) k * scale
     in fp32, in q's dtype. With ``dropout_rate`` the JAX ``_p_dp_ds``
     rule: dp masked and rescaled, p undropped (``out`` is the dropped
-    output, as the forward gives it)."""
+    output, as the forward gives it). ``bias`` as in
+    :func:`flash_attention_bwd_reference`."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     delta = (do.float() * out.float()).sum(dim=-1)
-    p = _bwd_probs(q, k, lse, causal, segment_ids_q, segment_ids_kv, scale)
+    p = _bwd_probs(q, k, lse, causal, segment_ids_q, segment_ids_kv, scale,
+                   bias)
     keep = _keep_mask(q, k, dropout_rate, dropout_seed)
     dp = _dropped(torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float()),
                   keep, dropout_rate)
@@ -329,14 +344,17 @@ def flash_bwd_dq_reference(q, k, v, out, lse, do, *, causal=False,
 
 def flash_bwd_dkdv_reference(q, k, v, lse, delta, do, *, causal=False,
                              segment_ids_q=None, segment_ids_kv=None,
-                             scale=None, dropout_rate=0.0, dropout_seed=None):
+                             scale=None, dropout_rate=0.0, dropout_seed=None,
+                             bias=None):
     """Plain version of the split's dk/dv kernel: ``(dk, dv)`` from the
     forward's ``lse`` and ``delta`` [b, h, sq] (the dq kernel's, on the
     wgmma route), fp32 math, in k's and v's dtypes. With ``dropout_rate``
     the JAX ``_p_dp_ds`` rule: dv takes the dropped p, dp is masked and
-    rescaled, ds = p (dp - delta) with the undropped p."""
+    rescaled, ds = p (dp - delta) with the undropped p. ``bias`` as in
+    :func:`flash_attention_bwd_reference`."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    p = _bwd_probs(q, k, lse, causal, segment_ids_q, segment_ids_kv, scale)
+    p = _bwd_probs(q, k, lse, causal, segment_ids_q, segment_ids_kv, scale,
+                   bias)
     keep = _keep_mask(q, k, dropout_rate, dropout_seed)
     do32 = do.float()
     dv = torch.einsum("bhqk,bhqd->bhkd", _dropped(p, keep, dropout_rate),
@@ -471,14 +489,19 @@ def _operand_dtype(what, q):
 # the wgmma kernels' dropout arguments (:func:`_dropout_args`): the seed as
 # uint32, the keep threshold, 1 / (1 - rate)
 _DROPOUT_ARGS = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float]
+# the wgmma forward's and single pass's bias arguments
+# (:func:`_bias_operand`): the fp32 bias or null, its batch and head
+# strides in elements (0 for a broadcast dim)
+_BIAS_ARGS = [ctypes.c_void_p, ctypes.c_long, ctypes.c_long]
 
 # apex_flash_fwd_sm90(q, k, v, sid_q, sid_kv, out, lse, b, h, sq, sk, d,
-#                     causal, scale, dtype, block_m, seed, threshold, inv,
-#                     stream): the wgmma route's forward, without ``p_round``
-# (it takes no mixed operands) and with the rows a block and the dropout
+#                     causal, scale, dtype, block_m, bias, bias_sb, bias_sh,
+#                     seed, threshold, inv, stream): the wgmma route's
+# forward, without ``p_round`` (it takes no mixed operands) and with the
+# rows a block, the bias and the dropout
 _SM90_FWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_int] + _DROPOUT_ARGS + [
-    ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_int, ctypes.c_int] + _BIAS_ARGS + \
+    _DROPOUT_ARGS + [ctypes.c_void_p]
 
 # the wgmma/TMA kernels' dtypes and kernel head dims (csrc/flash_fwd_sm90.cu
 # and csrc/flash_bwd_sm90.cu)
@@ -517,6 +540,69 @@ def _refuse_dropout(dtype: torch.dtype, kd: int) -> None:
     if refused is not None:
         raise NotImplementedError(f"flash_attention: attention dropout is "
                                   f"not in {refused} yet")
+
+
+def bias_refusal(dtype: torch.dtype, kd: int, split: bool = False,
+                 dropout: bool = False) -> Optional[str]:
+    """None where the CUDA kernels take the additive bias: the wgmma
+    route's forward (``split`` False) and single-pass backward, without
+    attention dropout (:func:`sm90_route` of the promoted ``dtype`` and the
+    kernel head dim ``kd``). Else the refused route by name, for the
+    ``NotImplementedError`` its caller raises (ROADMAP §B1): the fp32 FFMA
+    route, the ``frag.cuh`` kernels, a bias with dropout (no variant of
+    B1-B4 takes both), the split backward."""
+    refused = dropout_refusal(dtype, kd)
+    if refused is not None:
+        return refused
+    if dropout:
+        return ("the kernels with attention dropout (no variant of the "
+                "wgmma kernels takes a bias and dropout together)")
+    if split:
+        return ("the split backward (B3/B4: flash_dkdv_sm90, flash_dq_sm90 "
+                "of csrc/flash_bwd_sm90.cu)")
+    return None
+
+
+def _refuse_bias(dtype: torch.dtype, kd: int, split: bool = False,
+                 dropout: bool = False) -> None:
+    refused = bias_refusal(dtype, kd, split, dropout)
+    if refused is not None:
+        raise NotImplementedError(f"flash_attention: the additive bias is "
+                                  f"not taken by {refused} yet")
+
+
+def _check_bias_shape(bias, b, h, sq, sk) -> None:
+    if (bias.dim() != 4 or bias.shape[0] not in (1, b)
+            or bias.shape[1] not in (1, h)
+            or tuple(bias.shape[2:]) != (sq, sk)):
+        raise ValueError(f"bias must broadcast to [{b}, {h}, {sq}, {sk}], "
+                         f"got {tuple(bias.shape)}")
+
+
+def _bias_operand(bias, b, h, sq, sk, device, scale=1.0):
+    """``(fp32 bias, batch stride, head stride)`` as the wgmma kernels take
+    it, or ``(None, 0, 0)``: ``bias`` ([b|1, h|1, sq, sk], any float dtype)
+    cast to fp32 without expanding a broadcast dim (a dim of stride 0 is
+    taken at size 1 first), its last two dims contiguous, the base 16-byte
+    aligned; the stride of a dim of size 1 is 0. The kernels add bias /
+    ``scale`` to the unscaled scores, so a bias needs a nonzero scale."""
+    if bias is None:
+        return None, 0, 0
+    what = "flash_attention kernel"
+    _check_bias_shape(bias, b, h, sq, sk)
+    _require(scale != 0, what, "a bias needs a nonzero scale")
+    _require(bias.device == device, what,
+             f"bias lies on {bias.device}, expected {device}")
+    _require(bias.is_floating_point(), what,
+             f"bias has dtype {bias.dtype}; a float bias is added")
+    for dim in (0, 1):
+        if bias.shape[dim] > 1 and bias.stride(dim) == 0:
+            bias = bias.narrow(dim, 0, 1)
+    bias = bias.float().contiguous()
+    if bias.data_ptr() % 16:
+        bias = bias.clone()
+    return (bias, bias.stride(0) if bias.shape[0] > 1 else 0,
+            bias.stride(1) if bias.shape[1] > 1 else 0)
 
 
 def _dropout_args(dropout_rate: float, dropout_seed) -> Tuple[int, int,
@@ -570,11 +656,13 @@ _F32_FWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
 
 def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
                     block_rows: Optional[int] = None,
-                    dropout_rate: float = 0.0, dropout_seed=None):
+                    dropout_rate: float = 0.0, dropout_seed=None,
+                    bias=None):
     """The forward kernel. ``block_rows`` (the wgmma route only) forces 64
     or 128 query rows a block, for comparing the two at one shape; None
     takes :func:`fwd_block_rows`. Attention dropout runs on the wgmma
-    route alone (:func:`dropout_refusal`)."""
+    route alone (:func:`dropout_refusal`), and so does the additive
+    ``bias``, without dropout (:func:`bias_refusal`)."""
     what = "flash_attention kernel"
     _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, what,
              "q, k, v must be [b, h, s, d]")
@@ -605,8 +693,12 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
     kd = kernel_head_dim(d)
     sm90 = sm90_route(dtype, kd)
     f32 = f32_fwd_route(dtype, kd, p_round)
-    if dropout_rate:
+    if bias is not None:
+        _refuse_bias(dtype, kd, dropout=bool(dropout_rate))
+    elif dropout_rate:
         _refuse_dropout(dtype, kd)
+    bias, bias_sb, bias_sh = _bias_operand(bias, b, h, sq, sk, q.device,
+                                           scale)
     _require(block_rows is None or (sm90 and block_rows in (64, 128)), what,
              "block_rows takes 64 or 128, on the wgmma route only")
     if sm90 and block_rows is None:
@@ -624,7 +716,7 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
         if sm90:
             fn = _build.function(_build.dtype_target("flash_fwd_sm90", code),
                                  "apex_flash_fwd_sm90", _SM90_FWD_ARGS)
-            err = fn(*args, block_rows,
+            err = fn(*args, block_rows, _ptr(bias), bias_sb, bias_sh,
                      *_dropout_args(dropout_rate, dropout_seed), _stream(q))
         elif f32:
             fn = _build.function(_build.dtype_target("flash_fwd", code),
@@ -640,6 +732,8 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
             flash_attention.wgmma_launches += 1
             if dropout_rate:
                 flash_attention.dropout_launches += 1
+            if bias is not None:
+                flash_attention.bias_launches += 1
         if f32:
             flash_attention.f32_launches += 1
         return out, lse
@@ -650,19 +744,21 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
 
 def flash_attention_fwd(q, k, v, segment_ids_q=None, segment_ids_kv=None,
                         causal: bool = False, scale: Optional[float] = None,
-                        dropout_rate: float = 0.0, dropout_seed=None):
+                        dropout_rate: float = 0.0, dropout_seed=None,
+                        bias=None):
     """``(out, lse)`` of the attention forward: the kernel on CUDA,
-    :func:`flash_attention_reference` on the CPU."""
+    :func:`flash_attention_reference` on the CPU; ``bias`` [b|1, h|1, sq,
+    sk] added to the scaled scores."""
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     _check_dropout(dropout_rate, dropout_seed)
     if check_device_type(q, "flash_attention") == "cpu":
         return flash_attention_reference(
             q, k, v, causal=causal, segment_ids_q=segment_ids_q,
-            segment_ids_kv=segment_ids_kv, scale=scale,
+            segment_ids_kv=segment_ids_kv, scale=scale, bias=bias,
             dropout_rate=dropout_rate, dropout_seed=dropout_seed)
     return _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal,
                            scale, dropout_rate=dropout_rate,
-                           dropout_seed=dropout_seed)
+                           dropout_seed=dropout_seed, bias=bias)
 
 
 # The JAX package runs its single-pass backward while the per-(b, h) dk/dv
@@ -712,22 +808,29 @@ def uses_split_backward(sq: int, sk: int, d: int, itemsize_k: int = 2,
 
 
 def _bwd_route(q, k, v, causal, dropout_rate, do=None,
-               split: Optional[bool] = None) -> Tuple[bool, torch.dtype]:
+               split: Optional[bool] = None,
+               bias: bool = False) -> Tuple[bool, torch.dtype]:
     """The backward's route, decided in one place for
     :func:`flash_attention` (before the forward, where ``do`` is not yet
     known: it takes the output's dtype, q's) and :func:`_flash_bwd_cuda`:
     ``(split, dtype)``, the two-kernel split or the single pass
-    (:func:`uses_split_backward` where ``split`` is None) and the dtype the
-    kernels run the operands in. Raises ``NotImplementedError`` where
-    attention dropout is asked of a route that does not take it (the
-    route is the dtype's and head dim's, split or not)."""
+    (:func:`uses_split_backward` where ``split`` is None, counting a bias
+    and dropout as the JAX gate counts them) and the dtype the kernels run
+    the operands in. Raises ``NotImplementedError`` where attention
+    dropout is asked of a route that does not take it (the route is the
+    dtype's and head dim's, split or not), and where a ``bias`` is
+    (:func:`bias_refusal`: the split among them)."""
     if split is None:
         split = uses_split_backward(q.shape[2], k.shape[2], q.shape[-1],
                                     k.element_size(), v.element_size(),
-                                    causal, dropout=bool(dropout_rate))
+                                    causal, bias=bias,
+                                    dropout=bool(dropout_rate))
     dtype = _promoted_dtype(q, k, v, q if do is None else do)
-    if dropout_rate:
-        _refuse_dropout(dtype, kernel_head_dim(q.shape[-1]))
+    kd = kernel_head_dim(q.shape[-1])
+    if bias:
+        _refuse_bias(dtype, kd, split, bool(dropout_rate))
+    elif dropout_rate:
+        _refuse_dropout(dtype, kd)
     return split, dtype
 
 
@@ -752,10 +855,11 @@ _SM90_DQ_ARGS = _SM90_DKDV_ARGS
 
 # the wgmma route's single pass, apex_flash_bwd_sm90_fused(q, k, v, do, lse,
 # delta, sid_q, sid_kv, dq_acc, turns, dk, dv, b, h, sq, sk, d, causal,
-# scale, dtype, seed, threshold, inv, stream): the single pass's arguments
-# without ``rounds``, with the dropout
+# scale, dtype, bias, bias_sb, bias_sh, seed, threshold, inv, stream): the
+# single pass's arguments without ``rounds``, with the bias and the dropout
 _SM90_FUSED_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_int] + _DROPOUT_ARGS + [ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_int] + _BIAS_ARGS + _DROPOUT_ARGS + [
+    ctypes.c_void_p]
 
 _TURN_ROWS = 64     # the single pass's query tiles: a turn counter each
 
@@ -870,12 +974,14 @@ def split_route(dtype: torch.dtype, kd: int) -> str:
 
 def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
                     causal, scale, split: Optional[bool] = None,
-                    dropout_rate: float = 0.0, dropout_seed=None):
+                    dropout_rate: float = 0.0, dropout_seed=None,
+                    bias=None):
     """The backward kernels. ``split=None`` routes by
     :func:`uses_split_backward`; True or False forces the two-kernel split
     or the single pass (for comparing the two at one shape). Attention
     dropout runs on the wgmma route alone, split or single pass
-    (:func:`dropout_refusal`)."""
+    (:func:`dropout_refusal`); the additive ``bias`` in its single pass
+    alone, without dropout (:func:`bias_refusal`)."""
     what = "flash_attention_bwd kernel"
     _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, what,
              "q, k, v must be [b, h, s, d]")
@@ -900,7 +1006,9 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
         _check_cuda_operands(what, (("segment_ids_q", segment_ids_q),
                                     ("segment_ids_kv", segment_ids_kv)),
                              torch.int32, q.device)
-    split, dtype = _bwd_route(q, k, v, causal, dropout_rate, do, split)
+    split, dtype = _bwd_route(q, k, v, causal, dropout_rate, do, split,
+                              bias is not None)
+    bias_op = _bias_operand(bias, b, h, sq, sk, q.device, scale)
     # mixed operands: promoted, with the JAX kernels' roundings; each
     # gradient takes its input's dtype
     dtypes = (q.dtype, k.dtype, v.dtype)
@@ -947,7 +1055,7 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
         if sm90:
             dk, dv = _flash_bwd_fused_cuda(
                 q, k, v, do, lse, delta, segment_ids_q, segment_ids_kv,
-                causal, scale, dq_acc, turns, drop)
+                causal, scale, dq_acc, turns, drop, bias_op)
             return dq_acc.to(q.dtype), dk, dv
         if f32:
             dk, dv = _flash_bwd_f32_cuda(q, k, v, do, out, lse, dl,
@@ -978,15 +1086,18 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
 
 def _flash_bwd_fused_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal,
                           scale, dq_acc, turns=None,
-                          dropout=(0, 0, 1.0)):
+                          dropout=(0, 0, 1.0), bias=(None, 0, 0)):
     """The wgmma route's single pass (``flash_bwd_fused_sm90``) on operands
     ``_flash_bwd_cuda`` checked: ``(dk, dv)``, and dq times ``scale`` added
     in a fixed order into ``dq_acc`` (fp32, q's shape; the caller zeroes
     it). ``turns``: the zeroed int32 turn counters
     (:func:`single_pass_turns`), allocated here when None. ``delta`` =
     rowsum(do * out) fp32 [b, h, sq], given (``out`` the dropped output
-    under dropout). ``dropout``: :func:`_dropout_args`."""
+    under dropout). ``dropout``: :func:`_dropout_args`; ``bias``:
+    :func:`_bias_operand`'s ``(fp32 bias or None, batch stride, head
+    stride)``, not with dropout."""
     b, h, sq, d = q.shape
+    bias_t, bias_sb, bias_sh = bias
     if turns is None:
         turns = torch.zeros(single_pass_turns(b, h, sq, d, True),
                             dtype=torch.int32, device=q.device)
@@ -997,13 +1108,15 @@ def _flash_bwd_fused_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal,
     _build.check(fn(_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse),
                     _ptr(delta), _ptr(sid_q), _ptr(sid_kv), _ptr(dq_acc),
                     _ptr(turns), _ptr(dk), _ptr(dv), b, h, sq, k.shape[2], d,
-                    int(bool(causal)), float(scale), code, *dropout,
-                    _stream(q)),
+                    int(bool(causal)), float(scale), code, _ptr(bias_t),
+                    bias_sb, bias_sh, *dropout, _stream(q)),
                  "flash_attention_bwd single-pass kernel")
     flash_attention_bwd.launches += 1
     flash_attention_bwd.wgmma_launches += 1
     if dropout[1]:
         flash_attention_bwd.dropout_launches += 1
+    if bias_t is not None:
+        flash_attention_bwd.bias_launches += 1
     return dk, dv
 
 
@@ -1222,7 +1335,8 @@ def wgmma_rs_probe(a: torch.Tensor, b: torch.Tensor,
 def flash_attention_bwd(q, k, v, out, lse, do, segment_ids_q=None,
                         segment_ids_kv=None, causal: bool = False,
                         scale: Optional[float] = None,
-                        dropout_rate: float = 0.0, dropout_seed=None):
+                        dropout_rate: float = 0.0, dropout_seed=None,
+                        bias=None):
     """``(dq, dk, dv)`` of the attention from the forward's ``out`` and
     ``lse``: on CUDA the single-pass kernel, or past the JAX package's gate
     (:func:`uses_split_backward`) the dk/dv kernel then the dq kernel; on
@@ -1232,9 +1346,10 @@ def flash_attention_bwd(q, k, v, out, lse, do, segment_ids_q=None,
     on the FFMA route), ``.dkdv_launches`` and ``.dq_launches`` the
     split's (``.f32_dkdv_launches`` and ``.f32_dq_launches`` those on the
     FFMA route); ``.dropout_launches`` the single passes with dropout,
-    ``.dropout_dkdv_launches`` and ``.dropout_dq_launches`` the split's.
-    ``dropout_rate``/``dropout_seed`` are the forward's: the kernel
-    regenerates its mask."""
+    ``.dropout_dkdv_launches`` and ``.dropout_dq_launches`` the split's,
+    ``.bias_launches`` the single passes with a bias.
+    ``dropout_rate``/``dropout_seed`` and ``bias`` are the forward's: the
+    kernel regenerates its mask and recomputes p with the bias."""
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     _check_dropout(dropout_rate, dropout_seed)
     if check_device_type(q, "flash_attention_bwd") == "cpu":
@@ -1242,11 +1357,11 @@ def flash_attention_bwd(q, k, v, out, lse, do, segment_ids_q=None,
             q, k, v, out, lse, do, causal=causal,
             segment_ids_q=segment_ids_q, segment_ids_kv=segment_ids_kv,
             scale=scale, dropout_rate=dropout_rate,
-            dropout_seed=dropout_seed)
+            dropout_seed=dropout_seed, bias=bias)
     return _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q,
                            segment_ids_kv, causal, scale,
                            dropout_rate=dropout_rate,
-                           dropout_seed=dropout_seed)
+                           dropout_seed=dropout_seed, bias=bias)
 
 
 flash_attention_bwd.launches = 0
@@ -1261,33 +1376,37 @@ flash_attention_bwd.f32_dq_launches = 0
 flash_attention_bwd.dropout_launches = 0
 flash_attention_bwd.dropout_dkdv_launches = 0
 flash_attention_bwd.dropout_dq_launches = 0
+flash_attention_bwd.bias_launches = 0
 
 
 class FlashAttentionFunction(torch.autograd.Function):
     """Forward kernel + backward kernel as one differentiable op. Saves
-    ``(q, k, v, out, lse)`` and the segment ids, and carries the dropout
-    rate and seed to the backward, which regenerates the mask; segment ids
-    get no gradient."""
+    ``(q, k, v, out, lse)``, the segment ids and the bias, and carries the
+    dropout rate and seed to the backward, which regenerates the mask;
+    segment ids get no gradient, the bias an exactly zero one in its own
+    shape (the JAX ``_fa_bwd``'s ``zeros_like(bias)``: an additive mask,
+    non-differentiable by contract)."""
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
-                dropout_rate, dropout_seed):
+                dropout_rate, dropout_seed, bias=None):
         out, lse = flash_attention_fwd(q, k, v, segment_ids_q,
                                        segment_ids_kv, causal, scale,
-                                       dropout_rate, dropout_seed)
+                                       dropout_rate, dropout_seed, bias)
         ctx.save_for_backward(q, k, v, out, lse, segment_ids_q,
-                              segment_ids_kv)
+                              segment_ids_kv, bias)
         ctx.causal, ctx.scale = causal, scale
         ctx.dropout = (dropout_rate, dropout_seed)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse, sid_q, sid_kv = ctx.saved_tensors
+        q, k, v, out, lse, sid_q, sid_kv, bias = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
                                          sid_q, sid_kv, ctx.causal,
-                                         ctx.scale, *ctx.dropout)
-        return dq, dk, dv, None, None, None, None, None, None
+                                         ctx.scale, *ctx.dropout, bias=bias)
+        dbias = torch.zeros_like(bias) if ctx.needs_input_grad[9] else None
+        return dq, dk, dv, None, None, None, None, None, None, dbias
 
 
 class BiasedAttentionFunction(torch.autograd.Function):
@@ -1332,9 +1451,14 @@ def flash_attention(q, k, v, segment_ids_q=None, segment_ids_kv=None,
 
     ``segment_ids_*``: tokens attend only within equal non-negative ids;
     negative ids are padding and give zero rows. ``bias`` ([b|1, h|1, sq,
-    sk], added to the scaled scores) runs through the plain version on the
-    CPU (:class:`BiasedAttentionFunction`: its gradient is exactly zero,
-    as in the JAX package) and is not supported by the kernels yet.
+    sk], any float dtype, added to the scaled fp32 scores; -inf entries
+    allowed) gets an exactly zero gradient, as in the JAX package. On CUDA
+    the wgmma route's forward and single pass take it
+    (:class:`FlashAttentionFunction`); the split, a bias with dropout and
+    every other route raise ``NotImplementedError`` naming the route
+    (:func:`bias_refusal`), before the forward where the backward's route
+    would refuse it. On the CPU it runs through the plain version
+    (:class:`BiasedAttentionFunction`).
 
     ``dropout_rate``/``dropout_seed`` (an int32): in-kernel attention
     dropout, the keep mask a hash of (seed, batch, head, q position, k
@@ -1349,34 +1473,28 @@ def flash_attention(q, k, v, segment_ids_q=None, segment_ids_kv=None,
     dropout_seed = int(dropout_seed) if dropout_rate > 0 else None
     cuda = check_device_type(q, "flash_attention") == "cuda"
     if bias is not None:
-        if cuda:
-            raise NotImplementedError(
-                "flash_attention: the additive bias is not in the CUDA "
-                "kernels yet" + (", with or without attention dropout"
-                                 if dropout_rate else ""))
-        b, h, sq, sk = q.shape[0], q.shape[1], q.shape[2], k.shape[2]
-        if (bias.dim() != 4 or bias.shape[0] not in (1, b)
-                or bias.shape[1] not in (1, h)
-                or tuple(bias.shape[2:]) != (sq, sk)):
-            raise ValueError(f"bias must broadcast to [{b}, {h}, {sq}, "
-                             f"{sk}], got {tuple(bias.shape)}")
-        return BiasedAttentionFunction.apply(q, k, v, bias, segment_ids_q,
-                                             segment_ids_kv, bool(causal),
-                                             scale, dropout_rate,
-                                             dropout_seed)
-    if cuda and dropout_rate and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v)):
-        _bwd_route(q, k, v, bool(causal), dropout_rate)
+        _check_bias_shape(bias, q.shape[0], q.shape[1], q.shape[2],
+                          k.shape[2])
+        if not cuda:
+            return BiasedAttentionFunction.apply(
+                q, k, v, bias, segment_ids_q, segment_ids_kv, bool(causal),
+                scale, dropout_rate, dropout_seed)
+    if cuda and (dropout_rate or bias is not None) \
+            and torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)):
+        _bwd_route(q, k, v, bool(causal), dropout_rate,
+                   bias=bias is not None)
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     return FlashAttentionFunction.apply(q, k, v, segment_ids_q,
                                         segment_ids_kv, bool(causal), scale,
-                                        dropout_rate, dropout_seed)
+                                        dropout_rate, dropout_seed, bias)
 
 
 flash_attention.launches = 0
 flash_attention.wgmma_launches = 0
 flash_attention.f32_launches = 0
 flash_attention.dropout_launches = 0
+flash_attention.bias_launches = 0
 
 
 # apex_paged_decode(q, k_pages, v_pages, k_scales, v_scales, block_tables,

@@ -132,7 +132,29 @@ Phases (any failure exits non-zero; no phase's error is caught):
     flash backward's gate: a warm-up and 2 counted O0 steps, every forward
     (``csrc/flash_fwd_f32.cuh``) and every split's dk/dv and dq
     (``csrc/flash_bwd_f32.cuh``) on the fp32 FFMA routes; then one step
-    under ``torch.profiler``, its device time by kernel class.
+    under ``torch.profiler``, its device time by kernel class;
+19. train-mha18-e1024-b16s512-bias — ``contrib.multihead_attn``: 18
+    ``SelfMultiheadAttn(1024, 16, use_bias=True, include_norm_add=True,
+    impl="fast")`` layers in sequence (apex's own perf harness widths,
+    ``apex/contrib/examples/multihead_attn/perf_test_multihead_attn.py``)
+    at O2 with ``FusedAdam`` and a dynamic scale through
+    ``amp.make_train_step``, x [512, 16, 1024] bf16 from seed 0, key
+    padding of 384-512 real tokens a sequence, fairseq's additive future
+    mask [512, 512] (-inf above the diagonal) as ``attn_mask``, the mean
+    squared error against a fixed random target: a warm-up, 4 timed steps
+    with the counters reset just before, 2 traced; finite, falling losses
+    and per step 18 launches of B1's and of B2's bias variants, 18 of each
+    LayerNorm kernel and no other flash launch;
+20. train-mha18-e1024-b120s64-dropout — the harness's largest point: the
+    same recipe over 18 layers at ``dropout=0.1`` (no masks, no norm_add,
+    no projection biases: the stack adds each attention sublayer's output
+    to its input) on 120 sequences of 64 tokens, one host generator: 18
+    launches a step of B1's and of B2's dropout variants and no bias
+    launch; then the 2-layer full-width grad checks of both
+    configurations (the kernels against ``reference=True``, the same
+    generator on both sides) and one ``EncdecMultiheadAttn(1024, 16)`` at
+    sq 256, sk 512, b16 with a finite [16, 1, 256, 512] bias and key
+    padding (loss 1e-3, gradients 3 %).
 
 The kernel phase also holds the shapes and dtypes ROADMAP §C records as
 repaired against the plain versions: flash forward and backward (single
@@ -153,6 +175,20 @@ n 3 against the plain version, each image of an n 5 batch bitwise the same
 image alone, one device launch a call (profiler),
 ``HGMMA`` in its SASS and no spill; B14
 bitwise (mul, max, where, iota_cmp_where) or within 2 ulps (exp, exp2).
+
+B1's and B2's bias variants (``flash_fwd_sm90`` and
+``flash_bwd_fused_sm90`` with their ``BIAS`` parameter: the tile's bias /
+scale loaded into the S accumulators, which the S product adds to) are
+held at the train-mha18 path's attention (b16 h16 s512 d64 bf16, the
+future mask as a [1, 1, 512, 512] fp32 bias, key padding as segment ids)
+against the plain versions with the same bias (the bf16 forwards' and
+backwards' limits), bitwise on a rerun, their positions bitwise (one-hot
+bias rows: out is v permuted and dv is do permuted, bit for bit), over
+bf16 and fp16, head dims 64 and 128, the four broadcast shapes, sq != sk,
+odd sk, segment padding and a row whose bias is -inf everywhere (out 0,
+lse -1e30, dq 0); each timed with and without the bias beside its plain
+version and SDPA with the same mask as ``attn_mask``; ptxas shows no
+spill in either variant.
 
 B1's and B2's dropout variants (``flash_fwd_sm90`` and
 ``flash_bwd_fused_sm90`` built with the keep hash of
@@ -1140,6 +1176,276 @@ def _fwd_dropout_long(torch, timer, gen, seed):
         bound_ms=t_bound, bound_by=by)
 
 
+# ---------------------------------------------------------------------------
+# the additive bias in B1 and B2 (their BIAS variants), at the shapes of the
+# train-mha18 path's attention: b16 h16 s512 d64, fairseq's future mask as a
+# [1, 1, 512, 512] fp32 bias, key padding as segment ids
+# ---------------------------------------------------------------------------
+
+MHA_E, MHA_HEADS, MHA_S, MHA_B, MHA_LAYERS = 1024, 16, 512, 16, 18
+MHA_MIN_LEN = 384            # each sequence 384-512 real tokens
+
+
+def mha_lengths(seed=0):
+    """The real tokens of each of the path's :data:`MHA_B` sequences."""
+    return np.random.RandomState(seed).randint(MHA_MIN_LEN, MHA_S + 1,
+                                               MHA_B)
+
+
+def future_mask(torch, s, device="cuda"):
+    """fairseq's additive future mask: [s, s] fp32, 0 on and below the
+    diagonal, -inf above it."""
+    return torch.triu(torch.full((s, s), float("-inf"), device=device), 1)
+
+
+def _bias_live_pairs(torch, bias, sid_kv, h):
+    """The (query, key) pairs this run's data needs: a finite bias and a
+    real key, summed over the batch and the heads."""
+    finite = torch.isfinite(bias).expand(sid_kv.shape[0], -1, -1, -1)
+    real = (sid_kv >= 0)[:, None, None, :]
+    per = (finite & real).sum(dim=(2, 3)).double()          # [b, h|1]
+    return float(per.sum() * (h if bias.shape[1] == 1 else 1))
+
+
+def _bias_cases(torch):
+    """Shapes the bias variants are held at beside the path's: bf16 and
+    fp16, head dims 64 and 128, the four broadcast shapes, sq != sk, odd
+    sk, segment ids with padding, a row whose bias is -inf everywhere."""
+    bf, f16 = torch.bfloat16, torch.float16
+    # (dtype, d, bias dims, b, h, sq, sk, causal, segment ids, dead row)
+    return [(bf, 64, (1, 1), 2, 4, 512, 512, False, False, 7),
+            (f16, 64, (1, 4), 2, 4, 300, 700, True, False, None),
+            (bf, 128, (2, 1), 2, 4, 257, 513, False, True, None),
+            (f16, 128, (2, 4), 2, 4, 640, 333, False, False, 100),
+            (bf, 64, (3, 2), 3, 2, 128, 129, True, True, None),
+            (bf, 128, (1, 1), 2, 16, 1024, 1024, False, True, 3)]
+
+
+def _bias_case(torch, fa, gen, case):
+    """One :func:`_bias_cases` shape: the forward at both block heights and
+    the single pass (forced: the gate would split some of these) against
+    the plain versions with the same bias, the dead row exactly zero with
+    lse -1e30; returns the largest forward and gradient errors."""
+    dtype, d, (bb, bh), b, h, sq, sk, causal, seg, dead = case
+    q, do = (torch.randn(b, h, sq, d, generator=gen, device="cuda",
+                         dtype=dtype) for _ in range(2))
+    k, v = (torch.randn(b, h, sk, d, generator=gen, device="cuda",
+                        dtype=dtype) for _ in range(2))
+    bias = 2 * torch.randn(bb, bh, sq, sk, generator=gen, device="cuda")
+    bias[torch.rand(bias.shape, generator=gen, device="cuda") < 0.2] = \
+        float("-inf")
+    bias[..., 0] = 0.0
+    if dead is not None:
+        bias[:, :, dead] = float("-inf")
+    sid_q = sid_kv = None
+    if seg:
+        sid_q = torch.zeros(b, sq, dtype=torch.int32, device="cuda")
+        sid_q[-1, sq - 5:] = -1
+        sid_kv = torch.zeros(b, sk, dtype=torch.int32, device="cuda")
+        sid_kv[0, sk - 9:] = -1
+    scale = d ** -0.5
+    what = f"flash bias {str(dtype)[6:]} d{d} {bb}x{bh} b{b} h{h} " \
+           f"sq{sq} sk{sk}{' causal' if causal else ''}"
+    ref, ref_lse = fa.flash_attention_reference(
+        q, k, v, causal=causal, segment_ids_q=sid_q, segment_ids_kv=sid_kv,
+        scale=scale, bias=bias)
+    err = 0.0
+    for rows in (64, 128):
+        out, lse = fa._flash_fwd_cuda(q, k, v, sid_q, sid_kv, causal, scale,
+                                      block_rows=rows, bias=bias)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out.float()).all()),
+              f"{what} rows{rows}: a non-finite output")
+        err = max(err, bf16_err(out, ref, 4e-3, f"{what} rows{rows}"))
+        lse_err = (lse - ref_lse).abs().max().item()
+        check(lse_err <= 1e-3, f"{what} rows{rows}: lse max err {lse_err}")
+        if dead is not None:
+            check(out[:, :, dead].abs().max().item() == 0.0
+                  and bool((lse[:, :, dead] == -1e30).all()),
+                  f"{what}: the row with no live key is not zero, -1e30")
+    grads = fa._flash_bwd_cuda(q, k, v, out, lse, do, sid_q, sid_kv, causal,
+                               scale, split=False, bias=bias)
+    rgrads = fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, do, causal=causal, segment_ids_q=sid_q,
+        segment_ids_kv=sid_kv, scale=scale, bias=bias)
+    torch.cuda.synchronize()
+    gerr = max(grad_err(g, r, f"{what} {n}") for n, g, r in
+               zip(("dq", "dk", "dv"), grads, rgrads))
+    if dead is not None:
+        check(grads[0][:, :, dead].abs().max().item() == 0.0,
+              f"{what}: the row with no live key got a nonzero dq")
+    return what, err, gerr
+
+
+# the positions check's dq and dk: exactly 0 in exact arithmetic, rounding
+# noise of O(1) fp32 sums on both sides (1.3e-6 on an H100)
+POSITIONS_DQ_TOL = 1e-4
+
+
+def _bias_positions(torch, fa, gen):
+    """The bias's positions, bitwise: one-hot rows (0 at key pi(q), a
+    different permutation for each (batch, head), -inf elsewhere), so
+    each row's p is exactly 1 at pi(q): out is v[pi(q)] bit for bit, lse is
+    the score s[q, pi(q)] * scale (1e-3), and in the backward dv is do
+    permuted bit for bit (p rounds to exactly 1 in do's dtype). dq and dk
+    are exactly 0 in exact arithmetic (ds = p (dp - delta) with dp = delta
+    where p is 1): both sides give rounding noise of delta and dp, summed
+    in other orders, held below :data:`POSITIONS_DQ_TOL`."""
+    b, h, s, d = 2, 3, 256, 64
+    q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    perm = torch.stack([torch.randperm(s, generator=gen, device="cuda")
+                        for _ in range(b * h)]).view(b, h, s)
+    bias = torch.full((b, h, s, s), float("-inf"), device="cuda")
+    bias.scatter_(3, perm[..., None], 0.0)
+    scale = d ** -0.5
+    out, lse = fa.flash_attention_fwd(q, k, v, scale=scale, bias=bias)
+    idx = perm[..., None].expand(b, h, s, d)
+    check(torch.equal(out, v.gather(2, idx)),
+          "flash bias positions: out is not v[pi(q)] bit for bit")
+    score = (q.float() * k.float().gather(2, idx)).sum(-1) * scale
+    lse_err = (lse - score).abs().max().item()
+    check(lse_err <= 1e-3, f"flash bias positions: lse max err {lse_err}")
+    dq, dk, dv = fa._flash_bwd_cuda(q, k, v, out, lse, do, None, None, False,
+                                    scale, split=False, bias=bias)
+    want = torch.empty_like(do).scatter_(2, idx, do)
+    torch.cuda.synchronize()
+    check(torch.equal(dv, want),
+          "flash bias positions: dv is not do permuted bit for bit")
+    ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                           scale=scale, bias=bias)
+    noise = max(t.float().abs().max().item()
+                for t in (dq, dk, ref[0], ref[1]))
+    check(noise <= POSITIONS_DQ_TOL, f"flash bias positions: dq or dk "
+          f"{noise}, exactly 0 in exact arithmetic")
+    return dict(shape=f"b{b} h{h} s{s} d{d} bf16, [b, h, s, s] one-hot "
+                      "rows", out_bitwise=True, dv_bitwise=True,
+                lse_max_abs_err=lse_err, dq_dk_max_abs=noise)
+
+
+def check_flash_bias(torch, timer):
+    """B1's and B2's bias variants (``flash_fwd_sm90<..., BIAS>``,
+    ``flash_bwd_fused_sm90<..., BIAS>``) at the train-mha18 path's
+    attention (b16 h16 s512 d64 bf16, the [1, 1, 512, 512] future mask as
+    the bias, key padding as segment ids): against the plain versions with
+    the same bias (the bf16 forwards' and backwards' limits), a rerun
+    bitwise; the positions check (:func:`_bias_positions`) and the other
+    shapes (:func:`_bias_cases`); each timed with and without the bias
+    beside its plain version and SDPA with the mask as ``attn_mask``."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    f, g = fa.flash_attention, fa.flash_attention_bwd
+    checked = [_bias_case(torch, fa, gen, c) for c in _bias_cases(torch)]
+    positions = _bias_positions(torch, fa, gen)
+    torch.cuda.empty_cache()
+
+    b, h, s, d = MHA_B, MHA_HEADS, MHA_S, MHA_E // MHA_HEADS
+    scale = d ** -0.5
+    q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    bias = future_mask(torch, s)[None, None]
+    lens = torch.from_numpy(mha_lengths()).cuda()
+    sid_kv = torch.where(torch.arange(s, device="cuda")[None] < lens[:, None],
+                         0, -1).to(torch.int32)
+    sid_q = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+    seg = (sid_q, sid_kv)
+    n0 = (f.bias_launches, g.bias_launches)
+    out, lse = fa.flash_attention_fwd(q, k, v, *seg, False, scale, bias=bias)
+    again = fa.flash_attention_fwd(q, k, v, *seg, False, scale, bias=bias)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, *seg, False, scale,
+                                   bias=bias)
+    grads2 = fa.flash_attention_bwd(q, k, v, out, lse, do, *seg, False,
+                                    scale, bias=bias)
+    torch.cuda.synchronize()
+    check((f.bias_launches - n0[0], g.bias_launches - n0[1]) == (2, 2),
+          "flash bias: the bias variants did not launch")
+    check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+          "flash bias forward: a rerun gave other bits")
+    check(all(torch.equal(a, b_) for a, b_ in zip(grads, grads2)),
+          "flash bias backward: a rerun gave other bits")
+    del again, grads2
+    ref, ref_lse = fa.flash_attention_reference(
+        q, k, v, segment_ids_q=sid_q, segment_ids_kv=sid_kv, scale=scale,
+        bias=bias)
+    err = bf16_err(out, ref, 4e-3, "flash bias forward")
+    lse_err = (lse - ref_lse).abs().max().item()
+    check(lse_err <= 1e-3, f"flash bias lse max err {lse_err}")
+    del ref, ref_lse
+    ref = fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, do, segment_ids_q=sid_q, segment_ids_kv=sid_kv,
+        scale=scale, bias=bias)
+    berr = max(grad_err(gr, r, f"flash bias backward {n}")
+               for n, gr, r in zip(("dq", "dk", "dv"), grads, ref))
+    del grads, ref
+    torch.cuda.empty_cache()
+
+    # SDPA's yardstick: the same function with the bias and the padding as
+    # one additive mask [b, 1, s, s] in q's dtype
+    mask = (bias + torch.where(sid_kv < 0, float("-inf"), 0.0)[:, None, None]
+            ).to(torch.bfloat16)
+    pairs = _bias_live_pairs(torch, bias, sid_kv, h)
+    bias_bytes = bias.numel() * 4 + 2 * b * s * 4          # and the ids
+    f_bound = bound(4.0 * d * pairs,
+                    (4 * b * h * s * d) * 2 + b * h * s * 4 + bias_bytes)
+    b_bound = bound(10.0 * d * pairs,
+                    8 * b * h * s * d * 2 + 2 * b * h * s * 4 + bias_bytes)
+    shape = (f"b{b} h{h} s{s} d{d} bf16, bias [1, 1, {s}, {s}] fp32 (future "
+             f"mask), key padding {MHA_MIN_LEN}-{s}")
+    fwd = dict(
+        name="flash_fwd_sm90_bias", route="cuda",
+        source="apex_tpu_torch/csrc/flash_fwd_sm90.cu",
+        replaces="apex_tpu/ops/flash_attention.py:251",
+        shape=shape, max_abs_err=err, lse_max_abs_err=lse_err,
+        tolerance="2 bf16 ulp + 4e-3 of the plain forward with the same "
+                  "bias; lse 1e-3; a rerun bitwise; the positions bitwise",
+        ms=timer(lambda: fa.flash_attention_fwd(q, k, v, *seg, False, scale,
+                                                bias=bias)),
+        no_bias_ms=timer(lambda: fa.flash_attention_fwd(q, k, v, *seg, False,
+                                                        scale)),
+        plain_ms=timer(lambda: fa.flash_attention_reference(
+            q, k, v, segment_ids_q=sid_q, segment_ids_kv=sid_kv,
+            scale=scale, bias=bias), iters=5),
+        library_ms=timer(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale)),
+        library="F.scaled_dot_product_attention(attn_mask=the bias and the "
+                "padding as one [b, 1, s, s] bf16 mask)",
+        bound_ms=f_bound[0], bound_by=f_bound[1], live_pairs=pairs,
+        positions=positions,
+        checked=[dict(case=w, max_abs_err=e, grad_max_abs_err=ge)
+                 for w, e, ge in checked])
+    delta = (do.float() * out.float()).sum(dim=-1)
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
+    bop = fa._bias_operand(bias, b, h, s, s, q.device)
+    bwd = dict(
+        name="flash_bwd_fused_sm90_bias", route="cuda",
+        source="apex_tpu_torch/csrc/flash_bwd_sm90.cu",
+        replaces="apex_tpu/ops/flash_attention.py:604",
+        shape=shape, max_abs_err=berr,
+        tolerance="2 bf16 ulp + 2% of max, 1% relative norm, of the plain "
+                  "backward with the same bias; dq, dk, dv bitwise on a "
+                  "rerun; dv of the positions check bitwise",
+        ms=timer(lambda: fa._flash_bwd_fused_cuda(
+            q, k, v, do, lse, delta, *seg, False, scale, dq_acc, None,
+            (0, 0, 1.0), bop)),
+        no_bias_ms=timer(lambda: fa._flash_bwd_fused_cuda(
+            q, k, v, do, lse, delta, *seg, False, scale, dq_acc)),
+        as_called_ms=timer(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, do, *seg, False, scale, bias=bias)),
+        plain_ms=timer(lambda: fa.flash_attention_bwd_reference(
+            q, k, v, out, lse, do, segment_ids_q=sid_q,
+            segment_ids_kv=sid_kv, scale=scale, bias=bias), iters=5),
+        library_ms=timer(_grad_of(torch, lambda a, b_, c: (
+            F.scaled_dot_product_attention(a, b_, c, attn_mask=mask,
+                                           scale=scale)), (q, k, v), do)),
+        library="backward of F.scaled_dot_product_attention(attn_mask=the "
+                "same mask)",
+        bound_ms=b_bound[0], bound_by=b_bound[1], live_pairs=pairs)
+    del q, k, v, do, out, lse, delta, dq_acc, mask, bop
+    torch.cuda.empty_cache()
+    return [fwd, bwd]
+
+
 def _check_first_batch_alone(torch, fa, got, q, k, v, out, lse, do, scale,
                              what):
     """The single pass's gradients of the first batch, run alone, are the
@@ -1955,10 +2261,10 @@ def check_flash_f32(torch, timer, split: bool):
 
 # the wgmma flash kernels in ptxas's log: the split's two, the forward (its
 # second parameter the rows a block: 1 or 2 consumer warpgroups) and the
-# single pass
+# single pass; their DROP and (forward, single pass) BIAS parameters
 _SM90_KERNEL = re.compile(r"(flash_dkdv_sm90|flash_dq_sm90|flash_fwd_sm90|"
                           r"flash_bwd_fused_sm90)I\d+\w+?Li(\d+)E(?:Li(\d+)E)?"
-                          r"(?:Lb([01])E)?")
+                          r"(?:Lb([01])E)?(?:Lb([01])E)?")
 # the kernels held to no spill, with their dropout variants, and every
 # dropout variant but the split's dk/dv (the dk/dv kernel at d 64 spills 8
 # bytes: ROADMAP §C), which may spill no more than its twin without
@@ -1968,9 +2274,10 @@ _NO_SPILL = ("flash_fwd_sm90", "flash_bwd_fused_sm90")
 def _sm90_registers(build):
     """``ptxas -v``'s register count and spill bytes of each kernel in the
     wgmma flash libraries (before ``setmaxnreg``: the producer warpgroup
-    gives up to 40 a thread, 24 in a dropout variant, and the consumer
-    warpgroups take 232, 240); fails on a spill in the forward's and the
-    single pass's kernels and in every dropout variant (`` dropout``), but
+    gives up to 40 a thread, 24 in a dropout or the single pass's bias
+    variant, and the consumer warpgroups take 232, 240); fails on a spill
+    in the forward's and the single pass's kernels (their bias variants,
+    `` bias``, among them) and in every dropout variant (`` dropout``), but
     for the split's dk/dv, which fails where it spills more than the same
     kernel without dropout."""
     regs = {}
@@ -1988,6 +2295,8 @@ def _sm90_registers(build):
                         name += f" rows{64 * int(k.group(3))}"
                     if k.group(4) == "1":
                         name += " dropout"
+                    if k.group(5) == "1":
+                        name += " bias"
                     regs[name] = {}
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
@@ -2011,6 +2320,10 @@ def _sm90_registers(build):
     check(sum(n.endswith(" dropout") and n.split()[1] in (
         "flash_dkdv_sm90", "flash_dq_sm90") for n in regs) == 8,
           f"the split's dropout variants in ptxas's log: {sorted(regs)}")
+    # the bias variants: two dtypes; the forward at two head dims and two
+    # block heights, the single pass at two head dims
+    check(sum(n.endswith(" bias") for n in regs) == 12,
+          f"the bias variants in ptxas's log: {sorted(regs)}")
     return regs
 
 
@@ -2647,7 +2960,9 @@ def counters():
     ``flash_bwd``, ``flash_bwd_dkdv``/``flash_bwd_dq``;
     :func:`read_counters` leaves flash_fwd.cu's and flash_bwd.cu's own
     launches there), and the wgmma forward's, single pass's and split's
-    dropout variants (``*_dropout``) apart from their variants without."""
+    dropout variants (``*_dropout``) apart from their variants without,
+    and the wgmma forward's and single pass's bias variants (``*_bias``)
+    apart from both."""
     from apex_tpu_torch.ops import flash_attention as fa
     from apex_tpu_torch.ops import fp8_matmul as mm
     from apex_tpu_torch.ops import fused_ce as xe
@@ -2660,6 +2975,7 @@ def counters():
             "flash_fwd_sm90": (fa.flash_attention, "wgmma_launches"),
             "flash_fwd_sm90_dropout": (fa.flash_attention,
                                        "dropout_launches"),
+            "flash_fwd_sm90_bias": (fa.flash_attention, "bias_launches"),
             "flash_fwd_f32": (fa.flash_attention, "f32_launches"),
             "paged_decode": (fa.paged_decode_attention, "launches"),
             "paged_decode_fp8": (fa.paged_decode_attention, "fp8_launches"),
@@ -2669,6 +2985,8 @@ def counters():
                                      "wgmma_launches"),
             "flash_bwd_fused_sm90_dropout": (fa.flash_attention_bwd,
                                              "dropout_launches"),
+            "flash_bwd_fused_sm90_bias": (fa.flash_attention_bwd,
+                                          "bias_launches"),
             "flash_bwd_f32": (fa.flash_attention_bwd, "f32_launches"),
             "layer_norm_bwd": (ln.layer_norm_bwd, "launches"),
             "lm_head_ce_fwd": (ce.lm_head_ce_fwd, "launches"),
@@ -2723,7 +3041,8 @@ def read_counters():
     pass's and split's less their dropout variants', so that
     ``flash_fwd_sm90``, ``flash_bwd_fused_sm90``, ``flash_bwd_dkdv_sm90``
     and ``flash_bwd_dq_sm90`` count the kernels without dropout and
-    ``*_dropout`` those with."""
+    ``*_dropout`` those with; and the wgmma forward's and single pass's
+    less their bias variants' (``*_bias``)."""
     out = {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
     out["fp8_matmul"] -= out["fp8_matmul_prefill"]
     out["lm_head_ce_fwd"] -= out["lm_head_ce_fwd_f32"]
@@ -2733,8 +3052,10 @@ def read_counters():
     out["flash_bwd_dkdv"] -= out["flash_bwd_dkdv_sm90"] + \
         out["flash_bwd_f32_dkdv"]
     out["flash_bwd_dq"] -= out["flash_bwd_dq_sm90"] + out["flash_bwd_f32_dq"]
-    out["flash_fwd_sm90"] -= out["flash_fwd_sm90_dropout"]
-    out["flash_bwd_fused_sm90"] -= out["flash_bwd_fused_sm90_dropout"]
+    out["flash_fwd_sm90"] -= out["flash_fwd_sm90_dropout"] + \
+        out["flash_fwd_sm90_bias"]
+    out["flash_bwd_fused_sm90"] -= out["flash_bwd_fused_sm90_dropout"] + \
+        out["flash_bwd_fused_sm90_bias"]
     out["flash_bwd_dkdv_sm90"] -= out["flash_bwd_dkdv_sm90_dropout"]
     out["flash_bwd_dq_sm90"] -= out["flash_bwd_dq_sm90_dropout"]
     return out
@@ -2935,9 +3256,10 @@ TF_TIE = 2 * TF_TOL
 TRAIN_B, TRAIN_S, TRAIN_STEPS, LR = 8, 1024, 8, 3e-4
 # every flash launch of the bf16 d64 step on the wgmma route
 TRAIN_PER_STEP = {"flash_fwd": 0, "flash_fwd_sm90": 12, "flash_fwd_f32": 0,
-                  "flash_fwd_sm90_dropout": 0, "flash_bwd": 0,
-                  "flash_bwd_fused_sm90": 12,
-                  "flash_bwd_fused_sm90_dropout": 0, "layer_norm_fwd": 25,
+                  "flash_fwd_sm90_dropout": 0, "flash_fwd_sm90_bias": 0,
+                  "flash_bwd": 0, "flash_bwd_fused_sm90": 12,
+                  "flash_bwd_fused_sm90_dropout": 0,
+                  "flash_bwd_fused_sm90_bias": 0, "layer_norm_fwd": 25,
                   "layer_norm_bwd": 25, "lm_head_ce_fwd": 1,
                   "lm_head_ce_bwd": 1, "lm_head_ce_fwd_f32": 0,
                   "lm_head_ce_bwd_f32": 0, "paged_decode": 0,
@@ -3260,6 +3582,226 @@ def run_long_seq_path(torch):
         _, box[0], box[1], _ = step(model, box[0], box[1], ids, labels)
 
     return stats, _profile(torch, one, 2), (model, opt, box[0], box[1])
+
+
+# ---------------------------------------------------------------------------
+# contrib.multihead_attn: O2 training of an 18-layer SelfMultiheadAttn stack
+# at hidden 1024 and 16 heads (apex's perf_test_multihead_attn.py widths),
+# with fairseq's future mask as the kernels' bias and key padding; then the
+# harness's largest point with attention dropout
+# ---------------------------------------------------------------------------
+
+MHA_STEPS = 4
+# the bias path: the LayerNorm pair of norm_add and the flash bias variants
+MHA_BIAS_PER_STEP = {**{k: 0 for k in TRAIN_PER_STEP},
+                     "flash_fwd_sm90_bias": MHA_LAYERS,
+                     "flash_bwd_fused_sm90_bias": MHA_LAYERS,
+                     "layer_norm_fwd": MHA_LAYERS,
+                     "layer_norm_bwd": MHA_LAYERS}
+# the dropout path (no norm_add, no masks): the flash dropout variants
+MHA_DROP_B, MHA_DROP_S = 120, 64
+MHA_DROP_PER_STEP = {**{k: 0 for k in TRAIN_PER_STEP},
+                     "flash_fwd_sm90_dropout": MHA_LAYERS,
+                     "flash_bwd_fused_sm90_dropout": MHA_LAYERS}
+MHA_BIAS_KW = dict(dropout=0.0, use_bias=True, include_norm_add=True,
+                   impl="fast")
+MHA_DROP_KW = dict(dropout=DROPOUT_RATE, use_bias=False,
+                   include_norm_add=False, impl="fast")
+MHA_GRAD_LAYERS = 2
+
+
+def mha_stack(torch, layers, kw):
+    """``layers`` ``SelfMultiheadAttn(1024, 16, **kw)`` on the card, their
+    parameters from the flax initialisers' distributions (seed 0)."""
+    from torch import nn
+    from apex_tpu_torch.contrib.multihead_attn import SelfMultiheadAttn
+    gen = torch.Generator().manual_seed(0)
+    return nn.ModuleList([SelfMultiheadAttn(MHA_E, MHA_HEADS, device="cuda",
+                                            generator=gen, **kw)
+                          for _ in range(layers)])
+
+
+def mha_loss(stack, x, target, kpm, mask, generator=None, reference=False):
+    """The stack in sequence over ``x`` [s, b, e], then the mean squared
+    error against ``target`` in fp32. A layer with norm_add adds its own
+    residual; one without is the attention sublayer alone, so the stack
+    adds its output to its input, as a transformer composes it (18
+    sublayers chained without a residual pass a vanishing signal, and no
+    step could lower the loss)."""
+    for layer in stack:
+        y = layer(x, key_padding_mask=kpm, attn_mask=mask,
+                  generator=generator, reference=reference)
+        x = y if layer.include_norm_add else x + y
+    return (x.float() - target).square().mean()
+
+
+def mha_batch(torch, s, b, bias: bool):
+    """``(x, target, key_padding_mask, attn_mask)``: x bf16 from numpy seed
+    0, the target fp32 from seed 1; with ``bias`` the padding of
+    :func:`mha_lengths` and fairseq's future mask, else neither."""
+    x = torch.from_numpy(np.random.RandomState(0).randn(
+        s, b, MHA_E).astype(np.float32)).cuda().bfloat16()
+    target = torch.from_numpy(np.random.RandomState(1).randn(
+        s, b, MHA_E).astype(np.float32)).cuda()
+    if not bias:
+        return x, target, None, None
+    lens = torch.from_numpy(mha_lengths()).cuda()
+    kpm = torch.arange(s, device="cuda")[None] >= lens[:, None]
+    return x, target, kpm, future_mask(torch, s)
+
+
+def run_mha_path(torch, kw, s, b, per_step, what, bias):
+    """The O2 ``FusedAdam`` step (dynamic scale, ``amp.make_train_step``)
+    of an :data:`MHA_LAYERS`-layer stack: a warm-up, then
+    :data:`MHA_STEPS` timed steps with the counters reset just before, 2
+    traced; finite, falling losses and each kernel's launches a step as
+    ``per_step`` has them. Attention dropout from one host generator."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.optimizers import FusedAdam
+    stack = mha_stack(torch, MHA_LAYERS, kw)
+    amp_model, opt = amp.initialize(stack, FusedAdam(lr=LR), opt_level="O2",
+                                    loss_scale="dynamic", verbosity=0)
+    amp_model.cast_params()
+    state = opt.init(stack.parameters())
+    sstate = opt._scaler.state
+    gen = torch.Generator().manual_seed(DROP_GEN_SEED)
+    step = amp.make_train_step(
+        lambda m, x, t, kpm, mask: mha_loss(m, x, t, kpm, mask, gen), opt)
+    batch = mha_batch(torch, s, b, bias)
+    _, state, sstate, _ = step(stack, state, sstate, *batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    reset_counters()
+    for _ in range(MHA_STEPS):
+        t0 = time.perf_counter()
+        _, state, sstate, loss = step(stack, state, sstate, *batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    launches = read_counters()
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"non-finite {what} loss: {losses}")
+    check(losses[-1] < losses[0], f"{what} loss did not fall: {losses}")
+    for k, per in per_step.items():
+        check(launches[k] == per * MHA_STEPS,
+              f"{what} {k}: {launches[k]} launches, expected "
+              f"{per * MHA_STEPS}")
+    ms = [1e3 * t for t in times]
+    box = [state, sstate]
+
+    def one():
+        _, box[0], box[1], _ = step(stack, box[0], box[1], *batch)
+
+    trace = _profile(torch, one, 2)
+    stats = dict(layers=MHA_LAYERS, embed=MHA_E, heads=MHA_HEADS, batch=b,
+                 seq=s, module_options=kw, steps=MHA_STEPS, losses=losses,
+                 step_ms_median=float(np.median(ms)),
+                 step_ms_p90=float(np.percentile(ms, 90)), step_ms_all=ms,
+                 tokens_per_s=b * s / (np.median(ms) / 1e3),
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 launches=launches, trace=trace)
+    del stack, opt, state, sstate, step, box
+    torch.cuda.empty_cache()
+    return stats
+
+
+def run_mha_bias_path(torch):
+    return run_mha_path(torch, MHA_BIAS_KW, MHA_S, MHA_B, MHA_BIAS_PER_STEP,
+                        "train-mha18-bias", True)
+
+
+def run_mha_dropout_path(torch):
+    return run_mha_path(torch, MHA_DROP_KW, MHA_DROP_S, MHA_DROP_B,
+                        MHA_DROP_PER_STEP, "train-mha18-dropout", False)
+
+
+def _twin_grads(torch, what, params, loss_of):
+    """The loss and every gradient (``params``: name -> tensor) through the
+    kernels against the plain versions (``loss_of(reference)``): loss
+    :data:`GRAD_LOSS_TOL`, each gradient :data:`GRAD_NORM_TOL` in relative
+    norm."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    names, ts = zip(*params.items())
+    loss = loss_of(False)
+    grads = torch.autograd.grad(loss, ts)
+    ref_loss = loss_of(True)
+    ref = torch.autograd.grad(ref_loss, ts)
+    loss, ref_loss = loss.detach(), ref_loss.detach()
+    dloss = abs(float(loss) - float(ref_loss))
+    check(dloss <= GRAD_LOSS_TOL, f"{what}: loss kernels {float(loss)} vs "
+          f"plain {float(ref_loss)}")
+    worst = []
+    for name, g, r in zip(names, grads, ref):
+        rel = ((g.float() - r.float()).norm()
+               / r.float().norm().clamp_min(1e-30)).item()
+        worst.append((rel, name))
+        check(rel <= GRAD_NORM_TOL, f"{what} grad {name}: relative norm "
+              f"error {rel}")
+    worst.sort(reverse=True)
+    return dict(loss_kernels=float(loss), loss_plain=float(ref_loss),
+                loss_abs_diff=dloss, grads=len(names),
+                worst_rel_norm=worst[:5],
+                median_rel_norm=float(np.median([w for w, _ in worst])),
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def mha_grad_checks(torch):
+    """The 2-layer full-width grad checks (the depth cut; the width is the
+    paths'): each configuration's stack, cast to bf16 as O2 casts it,
+    through the kernels against ``reference=True`` with a host generator in
+    the same state on both sides; and one ``EncdecMultiheadAttn(1024, 16)``
+    at sq 256, sk 512, b16 with a finite [16, 1, 256, 512] bias and key
+    padding, its inputs' and parameters' gradients."""
+    from apex_tpu_torch.contrib.multihead_attn import EncdecMultiheadAttn
+    from apex_tpu_torch.ops import flash_attention as fa
+    out = {}
+    for name, kw, s, b, bias in (
+            ("bias", MHA_BIAS_KW, MHA_S, MHA_B, True),
+            ("dropout", MHA_DROP_KW, MHA_DROP_S, MHA_DROP_B, False)):
+        stack = mha_stack(torch, MHA_GRAD_LAYERS, kw).bfloat16()
+        batch = mha_batch(torch, s, b, bias)
+
+        def loss_of(reference):
+            gen = torch.Generator().manual_seed(DROP_GEN_SEED + 3)
+            return mha_loss(stack, *batch, generator=gen,
+                            reference=reference)
+
+        out[name] = _twin_grads(torch, f"mha grad check {name}",
+                                dict(stack.named_parameters()), loss_of)
+        del stack, batch
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    sq, sk, b = 256, 512, MHA_B
+    m = EncdecMultiheadAttn(MHA_E, MHA_HEADS, use_bias=True,
+                            include_norm_add=True, device="cuda",
+                            generator=torch.Generator().manual_seed(1))
+    m = m.bfloat16()
+    xq = torch.randn(sq, b, MHA_E, generator=gen, device="cuda").bfloat16()
+    xk = torch.randn(sk, b, MHA_E, generator=gen, device="cuda").bfloat16()
+    bias = torch.randn(b, 1, sq, sk, generator=gen, device="cuda")
+    lens = torch.from_numpy(np.random.RandomState(2).randint(
+        sk // 2, sk + 1, b)).cuda()
+    kpm = torch.arange(sk, device="cuda")[None] >= lens[:, None]
+    target = torch.randn(sq, b, MHA_E, generator=gen, device="cuda")
+    params = {"query": xq.requires_grad_(), "key": xk.requires_grad_(),
+              **dict(m.named_parameters())}
+    f, g = fa.flash_attention, fa.flash_attention_bwd
+    n0 = (f.bias_launches, g.bias_launches)
+
+    def loss_of(reference):
+        y = m(xq, xk, key_padding_mask=kpm, attn_mask=bias,
+              is_training=False, reference=reference)
+        return (y.float() - target).square().mean()
+
+    out["encdec"] = _twin_grads(torch, "encdec grad check", params, loss_of)
+    check((f.bias_launches - n0[0], g.bias_launches - n0[1]) == (1, 1),
+          "encdec grad check: not the bias variants")
+    out["encdec"]["shape"] = (f"sq{sq} sk{sk} b{b} e{MHA_E} h{MHA_HEADS}, "
+                              f"bias [{b}, 1, {sq}, {sk}], key padding")
+    del m, params
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4617,6 +5159,7 @@ def main() -> int:
                check_layer_norm(torch, timer),
                check_flash_bwd(torch, timer),
                *check_flash_dropout(torch, timer),
+               *check_flash_bias(torch, timer),
                *check_flash_f32(torch, timer, split=False),
                check_layer_norm_bwd(torch, timer),
                *check_lm_head_ce(torch, timer),
@@ -4639,7 +5182,8 @@ def main() -> int:
                       "delta_fold_max_abs_err", "by_shape",
                       "train_shape", "lamb_ms", "by_op", "d128_shape",
                       "alone_ms", "split_as_called_ms", "no_dropout_ms",
-                      "mask_check", "pair_max_abs_err",
+                      "mask_check", "pair_max_abs_err", "no_bias_ms",
+                      "positions", "live_pairs",
                       "cudnn_composition_max_abs_err", "plan"):
             if extra in kr:
                 log(f"  {kr['name']} {extra}: {json.dumps(kr[extra])}")
@@ -4812,7 +5356,10 @@ def main() -> int:
                       ("bottleneck-b32", run_bottleneck_path),
                       ("spatial-bottleneck-b32", run_spatial_path),
                       ("train-o0-gpt2", run_o0_path),
-                      (f"train-o0-gpt2-s{O0_LONG_S}", run_o0_long_path)):
+                      (f"train-o0-gpt2-s{O0_LONG_S}", run_o0_long_path),
+                      ("train-mha18-e1024-b16s512-bias", run_mha_bias_path),
+                      ("train-mha18-e1024-b120s64-dropout",
+                       run_mha_dropout_path)):
         new_paths[path] = run(torch)
         log(f"{path} path ({card}): " + json.dumps(new_paths[path]))
         if "trace" in new_paths[path]:
@@ -4821,6 +5368,11 @@ def main() -> int:
                 f"({card}): device {tr['device_ms_per_call']:.3f} ms, "
                 + json.dumps(tr["device_ms_and_launches_by_class_per_call"]))
         torch.cuda.empty_cache()
+    log("multihead attention grad checks, 2 layers at full width and the "
+        "encdec module (kernels vs plain, the same host generator; "
+        f"tolerances: loss {GRAD_LOSS_TOL}, relative norm {GRAD_NORM_TOL}): "
+        + json.dumps(mha_grad_checks(torch)))
+    torch.cuda.empty_cache()
     log("trace: " + json.dumps({**serve_trace, "train_step": train_trace,
                                 "train_step_dropout": drop_trace,
                                 f"train_step_s{LONG_S}": long_trace,

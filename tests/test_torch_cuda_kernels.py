@@ -66,6 +66,14 @@ rerun; and each kernel's mask is the plain mask bit for bit (the forward:
 v the identity; the split's dk/dv: do the identity; its dq: k the
 identity and a zero output).
 
+The additive bias on the wgmma route (the forward's and the single pass's
+bias variants) is held at the same limits against the plain versions with
+the same bias, over bf16 and fp16, head dims 64 and 128, the four
+broadcast shapes, sq != sk, odd sk, segment padding, -inf entries and a
+row that is -inf everywhere (out 0, lse -1e30, dq 0); bitwise on a rerun;
+its positions bitwise through one-hot rows (out is v permuted, dv is do
+permuted); the refused routes raise before any launch, naming the route.
+
 The fp8 dequant-matmul's prefill regime (m > 8, wgmma/TMA with the
 weight converted in registers, ``_prefill_plan``) is held like its decode
 regime at the serve linears and padded K, N, bitwise on a rerun, each row
@@ -210,9 +218,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="head dim"):
         qq = _rand(gen, 1, 2, 16, 520)
         fa.flash_attention_fwd(qq, qq, qq)
-    with pytest.raises(NotImplementedError, match="bias"):
-        fa.flash_attention(q, q, q, bias=torch.zeros(1, 2, 16, 16,
-                                                     device="cuda"))
+    # an additive bias runs on the wgmma route (B1's bias variant): a zero
+    # bias gives the kernel's result without one, bit for bit
+    n0 = fa.flash_attention.bias_launches
+    got = fa.flash_attention(q, q, q, bias=torch.zeros(1, 2, 16, 16,
+                                                       device="cuda"))
+    assert fa.flash_attention.bias_launches == n0 + 1
+    assert torch.equal(got, fa.flash_attention(q, q, q))
     qp = _rand(gen, 2, 2, 1, 64)
     pages = _rand(gen, 2, 4, 8, 64)
     bt = torch.zeros(2, 2, dtype=torch.int32, device="cuda")
@@ -2175,3 +2187,154 @@ def test_layer_norm_bwd_is_one_launch_and_bitwise_on_a_rerun(gen, h):
                                                         1e-5))
     assert sum(kernels.values()) == 1 and "ln_bwd_" in next(iter(kernels)), \
         kernels
+
+
+# ---------------------------------------------------------------------------
+# the additive bias in the forward and the single pass (bias variants)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,d,bdims,b,h,sq,sk,causal,seg,dead", [
+    (_BF, 64, (1, 1), 2, 4, 512, 512, False, False, 7),
+    (_F16, 64, (1, 4), 2, 4, 300, 700, True, False, None),
+    (_BF, 128, (2, 1), 2, 4, 257, 513, False, True, None),
+    (_F16, 128, (2, 4), 2, 4, 640, 333, False, False, 100),
+    (_BF, 64, (3, 2), 3, 2, 128, 129, True, True, None),
+    (_BF, 80, (1, 1), 1, 2, 96, 77, False, False, 0),     # padded head dim
+])
+@pytest.mark.parametrize("rows", [64, 128])
+def test_flash_bias_variants_match_plain(gen, dtype, d, bdims, b, h, sq,
+                                         sk, causal, seg, dead, rows):
+    q, do = (_rand(gen, b, h, sq, d, dtype=dtype) for _ in range(2))
+    k, v = (_rand(gen, b, h, sk, d, dtype=dtype) for _ in range(2))
+    bias = 2 * _rand(gen, *bdims, sq, sk, dtype=torch.float32)
+    bias[torch.rand(bias.shape, generator=gen, device="cuda") < 0.2] = \
+        float("-inf")
+    bias[..., 0] = 0.0
+    if dead is not None:
+        bias[:, :, dead] = float("-inf")
+    sid_q = sid_kv = None
+    if seg:
+        sid_q = torch.zeros(b, sq, dtype=torch.int32, device="cuda")
+        sid_q[-1, sq - 5:] = -1
+        sid_kv = torch.zeros(b, sk, dtype=torch.int32, device="cuda")
+        sid_kv[0, sk - 9:] = -1
+    scale = d ** -0.5
+    f, g = fa.flash_attention, fa.flash_attention_bwd
+    n0 = (f.bias_launches, g.bias_launches)
+    out, lse = fa._flash_fwd_cuda(q, k, v, sid_q, sid_kv, causal, scale,
+                                  block_rows=rows, bias=bias)
+    grads = fa._flash_bwd_cuda(q, k, v, out, lse, do, sid_q, sid_kv, causal,
+                               scale, split=False, bias=bias)
+    torch.cuda.synchronize()
+    assert (f.bias_launches - n0[0], g.bias_launches - n0[1]) == (1, 1)
+    ref, ref_lse = fa.flash_attention_reference(
+        q, k, v, causal=causal, segment_ids_q=sid_q, segment_ids_kv=sid_kv,
+        scale=scale, bias=bias)
+    _close(out, ref, 4e-3)
+    assert float((lse - ref_lse).abs().max()) <= 1e-3
+    rgrads = fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, do, causal=causal, segment_ids_q=sid_q,
+        segment_ids_kv=sid_kv, scale=scale, bias=bias)
+    for name, got, r in zip(("dq", "dk", "dv"), grads, rgrads):
+        assert bool(torch.isfinite(got.float()).all()), name
+        _close_grad(got, r, name)
+    if dead is not None:
+        assert float(out[:, :, dead].abs().max()) == 0.0
+        assert bool((lse[:, :, dead] == -1e30).all())
+        assert float(grads[0][:, :, dead].abs().max()) == 0.0
+
+
+def test_flash_bias_is_bitwise_on_a_rerun(gen):
+    """At the train-mha18 path's attention: the future mask as a [1, 1, s,
+    s] bias, key padding as segment ids."""
+    b, h, s, d = 4, 16, 512, 64
+    q, k, v, do = (_rand(gen, b, h, s, d) for _ in range(4))
+    bias = torch.triu(torch.full((s, s), float("-inf"), device="cuda"),
+                      1)[None, None]
+    sid_kv = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+    sid_kv[1, 400:] = -1
+    seg = (torch.zeros_like(sid_kv), sid_kv)
+    one = fa.flash_attention_fwd(q, k, v, *seg, False, bias=bias)
+    two = fa.flash_attention_fwd(q, k, v, *seg, False, bias=bias)
+    g1 = fa.flash_attention_bwd(q, k, v, *one, do, *seg, False, bias=bias)
+    g2 = fa.flash_attention_bwd(q, k, v, *one, do, *seg, False, bias=bias)
+    assert all(torch.equal(a, b_) for a, b_ in zip(one + g1, two + g2))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bias_positions_are_bitwise(gen, d):
+    """One-hot bias rows (0 at key pi(q), a permutation per (batch, head),
+    -inf elsewhere): out is v[pi(q)] and dv is do permuted, bit for bit."""
+    b, h, s = 2, 3, 256
+    q, k, v, do = (_rand(gen, b, h, s, d) for _ in range(4))
+    perm = torch.stack([torch.randperm(s, generator=gen, device="cuda")
+                        for _ in range(b * h)]).view(b, h, s)
+    bias = torch.full((b, h, s, s), float("-inf"), device="cuda")
+    bias.scatter_(3, perm[..., None], 0.0)
+    out, lse = fa.flash_attention_fwd(q, k, v, bias=bias)
+    idx = perm[..., None].expand(b, h, s, d)
+    assert torch.equal(out, v.gather(2, idx))
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, do, bias=bias)
+    assert torch.equal(dv, torch.empty_like(do).scatter_(2, idx, do))
+
+
+def test_flash_bias_refuses_the_unported_routes_on_the_card(gen):
+    qs = _rand(gen, 1, 1, 640, 64).requires_grad_()
+    bias = torch.zeros(1, 1, 640, 640, device="cuda")
+    n0 = fa.flash_attention.launches
+    with pytest.raises(NotImplementedError, match="split backward"):
+        fa.flash_attention(qs, qs, qs, bias=bias)
+    # forward only: the split is not asked for
+    fa.flash_attention(qs.detach(), qs.detach(), qs.detach(), bias=bias)
+    q32 = _rand(gen, 1, 2, 64, 64, dtype=torch.float32)
+    b64 = torch.zeros(1, 1, 64, 64, device="cuda")
+    with pytest.raises(NotImplementedError, match="FFMA"):
+        fa.flash_attention(q32, q32, q32, bias=b64)
+    qd = _rand(gen, 1, 2, 64, 32)
+    with pytest.raises(NotImplementedError, match="frag.cuh"):
+        fa.flash_attention(qd, qd, qd, bias=b64)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 1
+
+
+def test_multihead_attn_modules_run_the_bias_kernels(gen):
+    """SelfMultiheadAttn with an additive mask and key padding, and
+    EncdecMultiheadAttn at sq != sk, in bf16 on the card: every attention
+    on the bias variants, the loss and gradients within the train step's
+    limits of the plain versions (``reference=True``)."""
+    from apex_tpu_torch.contrib.multihead_attn import (EncdecMultiheadAttn,
+                                                       SelfMultiheadAttn)
+    e, heads, s, b = 256, 4, 128, 3
+    m = SelfMultiheadAttn(e, heads, use_bias=True, include_norm_add=True,
+                          generator=torch.Generator().manual_seed(0))
+    m = m.bfloat16()
+    x = _rand(gen, s, b, e)
+    kpm = torch.zeros(b, s, dtype=torch.bool, device="cuda")
+    kpm[1, 100:] = True
+    mask = torch.triu(torch.full((s, s), float("-inf"), device="cuda"), 1)
+    n0 = (fa.flash_attention.bias_launches,
+          fa.flash_attention_bwd.bias_launches)
+    y = m(x, key_padding_mask=kpm, attn_mask=mask, is_training=False)
+    grads = torch.autograd.grad(y.float().square().mean(),
+                                list(m.parameters()))
+    yr = m(x, key_padding_mask=kpm, attn_mask=mask, is_training=False,
+           reference=True)
+    refs = torch.autograd.grad(yr.float().square().mean(),
+                               list(m.parameters()))
+    assert (fa.flash_attention.bias_launches - n0[0],
+            fa.flash_attention_bwd.bias_launches - n0[1]) == (1, 1)
+
+    def rel(a, r):
+        return float((a.float() - r.float()).norm()
+                     / r.float().norm().clamp_min(1e-30))
+
+    assert rel(y, yr) <= 1e-2
+    for g, r in zip(grads, refs):
+        assert rel(g, r) <= 3e-2
+    enc = EncdecMultiheadAttn(e, heads, generator=torch.Generator()
+                              .manual_seed(1)).bfloat16()
+    xk = _rand(gen, 2 * s, b, e)
+    bias = _rand(gen, b, 1, s, 2 * s, dtype=torch.float32)
+    out = enc(x, xk, attn_mask=bias, is_training=False)
+    ref = enc(x, xk, attn_mask=bias, is_training=False, reference=True)
+    assert rel(out, ref) <= 1e-2

@@ -7,6 +7,20 @@ exactly zero bias gradient in the bias's own broadcast shape, and dq, dk
 and dv within 1e-5 of ``jax.grad`` through
 ``apex_tpu.ops.flash_attention.flash_attention`` (Pallas interpret mode
 on the CPU). Inputs from numpy seeds, fp32 on both sides.
+
+The plain versions the card's bias variants are held against
+(``flash_attention_reference`` and ``flash_attention_bwd_reference`` with
+``bias``) give out, lse, dq, dk and dv against the JAX kernels in
+interpret mode over the four broadcast shapes, sq != sk, segment ids,
+causal and not, -inf entries and a row that is -inf everywhere (out
+exactly 0, lse -1e30, no NaN): fp32 within 1e-5 (out, lse) and 1e-5 of the
+largest gradient; bf16 operands within two bf16 ulps plus 4e-3 (out: the
+JAX kernel rounds p to bf16 before the PV product, the plain version does
+not) and two bf16 ulps plus 2 % of the largest gradient (the JAX kernel
+rounds p and ds to bf16 before its products). The gate counts the bias as
+the JAX gate does, ``bias_refusal`` names every route that still refuses
+it, and the CUDA wrappers' C calls (the library stubbed: no card needed)
+carry the fp32 bias with its broadcast strides, never expanded.
 """
 
 import importlib
@@ -76,3 +90,290 @@ def test_bias_of_a_shape_that_does_not_broadcast_raises():
     q = torch.zeros(2, 2, S, D)
     with pytest.raises(ValueError, match="broadcast"):
         tfa.flash_attention(q, q, q, bias=torch.zeros(3, 1, S, S))
+
+
+# ---------------------------------------------------------------------------
+# the plain forward and backward with a bias against the JAX kernels
+# ---------------------------------------------------------------------------
+
+B, H, DH = 2, 2, 16
+
+
+def _segments(b, s):
+    sid = np.zeros((b, s), np.int32)
+    sid[0, s - 3:] = -1
+    sid[1, s // 2:] = 1
+    return sid
+
+
+def _jax_fwd_bwd(q, k, v, do, bias, causal, sid, scale):
+    """out, lse and (dq, dk, dv) of the JAX kernels (interpret mode, 16-row
+    blocks: the single pass, as the port's bias route)."""
+    jsid = None if sid is None else jnp.asarray(sid)
+    jbias = jnp.asarray(bias)
+
+    def jf(qq, kk, vv):
+        return jfa.flash_attention(
+            qq, kk, vv, segment_ids_q=jsid, bias=jbias, causal=causal,
+            scale=scale, block_q=16, block_k=16, block_q_bwd=16,
+            block_k_bwd=16, interpret=True, autotune="off")
+
+    jout, vjp = jax.vjp(jf, *map(jnp.asarray, (q, k, v)))
+    jgrads = vjp(jnp.asarray(do))
+    _, jlse = jfa._flash_fwd_impl(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jsid, None, jbias,
+        jnp.zeros((1,), jnp.int32), scale, causal, 0.0, 16, 16, True)
+    return (np.asarray(jout, np.float32), np.asarray(jlse),
+            [np.asarray(g, np.float32) for g in jgrads])
+
+
+def _port_fwd_bwd(q, k, v, do, bias, causal, sid, scale, dtype):
+    t = [torch.from_numpy(a).to(dtype) for a in (q, k, v, do)]
+    tsid = None if sid is None else torch.from_numpy(sid)
+    tbias = torch.from_numpy(bias)
+    out, lse = tfa.flash_attention_reference(
+        *t[:3], causal=causal, segment_ids_q=tsid, scale=scale, bias=tbias)
+    grads = tfa.flash_attention_bwd_reference(
+        *t[:3], out, lse, t[3], causal=causal, segment_ids_q=tsid,
+        scale=scale, bias=tbias)
+    return out, lse, grads
+
+
+@pytest.mark.parametrize("bias_shape,causal,sq,sk,seg", [
+    ((1, 1), False, 16, 16, False),
+    ((1, H), True, 16, 16, False),
+    ((B, 1), False, 24, 40, False),      # sq != sk
+    ((B, H), True, 40, 24, False),       # sq > sk: rows past sk see no key
+    ((1, 1), True, 32, 32, True),        # segment ids with padding
+    ((B, H), False, 32, 32, True),
+])
+def test_plain_bias_forward_and_backward_match_jax(bias_shape, causal, sq,
+                                                   sk, seg):
+    rng = np.random.RandomState(21)
+    q, do = (rng.randn(B, H, sq, DH).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(B, H, sk, DH).astype(np.float32) for _ in range(2))
+    bias = rng.randn(*bias_shape, sq, sk).astype(np.float32)
+    sid = _segments(B, sq) if seg else None
+    scale = DH ** -0.5
+    jout, jlse, jgrads = _jax_fwd_bwd(q, k, v, do, bias, causal, sid, scale)
+    out, lse, grads = _port_fwd_bwd(q, k, v, do, bias, causal, sid, scale,
+                                    torch.float32)
+    np.testing.assert_allclose(out.numpy(), jout, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), jlse, atol=1e-5, rtol=1e-5)
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, jgrads):
+        np.testing.assert_allclose(got.numpy(), ref,
+                                   atol=1e-5 * max(1.0, np.abs(ref).max()),
+                                   rtol=0, err_msg=name)
+
+
+def _neg_inf_bias(rng, sq, sk, dead_row):
+    """A [1, H, sq, sk] bias with -inf entries (a future mask in head 0,
+    random -inf in head 1) and one row -inf everywhere in both heads."""
+    bias = rng.randn(1, H, sq, sk).astype(np.float32)
+    bias[0, 0][np.triu(np.ones((sq, sk), bool), 1)] = -np.inf
+    bias[0, 1][rng.rand(sq, sk) < 0.3] = -np.inf
+    bias[0, :, :, 0] = 0.0            # every row but the dead one sees a key
+    bias[0, :, dead_row] = -np.inf
+    return bias
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_bias_with_neg_inf_and_a_dead_row_matches_jax(causal):
+    rng = np.random.RandomState(22)
+    s, dead = 32, 5
+    q, k, v, do = (rng.randn(B, H, s, DH).astype(np.float32)
+                   for _ in range(4))
+    bias = _neg_inf_bias(rng, s, s, dead)
+    scale = DH ** -0.5
+    jout, jlse, jgrads = _jax_fwd_bwd(q, k, v, do, bias, causal, None,
+                                      scale)
+    out, lse, grads = _port_fwd_bwd(q, k, v, do, bias, causal, None, scale,
+                                    torch.float32)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert torch.count_nonzero(out[:, :, dead]).item() == 0
+    assert bool((lse[:, :, dead] == -1e30).all())
+    assert torch.count_nonzero(grads[0][:, :, dead]).item() == 0
+    np.testing.assert_array_equal(jout[:, :, dead], 0.0)
+    np.testing.assert_allclose(out.numpy(), jout, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), jlse, atol=1e-5, rtol=1e-5)
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, jgrads):
+        np.testing.assert_allclose(got.numpy(), ref,
+                                   atol=1e-5 * max(1.0, np.abs(ref).max()),
+                                   rtol=0, err_msg=name)
+
+
+def test_plain_bias_in_bf16_matches_jax_within_the_bf16_limits():
+    """bf16 operands: both sides take the same bf16 inputs and an fp32 bias;
+    the JAX kernel rounds p (and in the backward ds) to bf16 before its
+    products where the plain version keeps fp32."""
+    rng = np.random.RandomState(23)
+    s = 32
+    q, k, v, do = (rng.randn(B, H, s, DH).astype(np.float32)
+                   for _ in range(4))
+    q, k, v, do = (torch.from_numpy(a).bfloat16().float().numpy()
+                   for a in (q, k, v, do))
+    bias = _neg_inf_bias(rng, s, s, 3)
+    scale = DH ** -0.5
+    jq, jk, jv, jdo = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, do))
+
+    def jf(qq, kk, vv):
+        return jfa.flash_attention(
+            qq, kk, vv, bias=jnp.asarray(bias), causal=True, scale=scale,
+            block_q=16, block_k=16, block_q_bwd=16, block_k_bwd=16,
+            interpret=True, autotune="off")
+
+    jout, vjp = jax.vjp(jf, jq, jk, jv)
+    jgrads = [np.asarray(g.astype(jnp.float32)) for g in vjp(jdo)]
+    jout = np.asarray(jout.astype(jnp.float32))
+    out, _, grads = _port_fwd_bwd(q, k, v, do, bias, True, None, scale,
+                                  torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    got = out.float().numpy()
+    assert np.all(np.abs(got - jout) <= np.abs(jout) * 2.0 ** -6 + 4e-3)
+    for name, g, ref in zip(("dq", "dk", "dv"), grads, jgrads):
+        g = g.float().numpy()
+        floor = 0.02 * np.abs(ref).max()
+        assert np.all(np.abs(g - ref) <= np.abs(ref) * 2.0 ** -6 + floor), \
+            name
+
+
+# ---------------------------------------------------------------------------
+# routes: the gate, the refusals, the wrappers' C calls
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("s,d,split", [(512, 64, False), (608, 64, False),
+                                       (640, 64, True), (544, 128, False),
+                                       (576, 128, True)])
+def test_gate_counts_the_bias_as_the_jax_gate_does(s, d, split):
+    """A [block_q, block_k] fp32 block for the bias (the JAX
+    ``_flash_bwd_impl`` gate, :775-784): bf16, non-causal (the additive
+    future mask is a bias, not the causal flag)."""
+    assert tfa.uses_split_backward(s, s, d, bias=True) == split
+    assert not tfa.uses_split_backward(s, s, d)
+    bq, bk = min(1024, s), min(1024, s)
+    kv = s * d * 12 + 4 * bq * bk
+    assert tfa.backward_kv_bytes(s, s, d, bias=True) == kv
+    assert (kv > jfa._FUSED_BWD_MAX_KV_BYTES) == split
+
+
+def test_bias_refusal_names_each_refused_route():
+    bf, f32 = torch.bfloat16, torch.float32
+    assert tfa.bias_refusal(bf, 64) is None
+    assert tfa.bias_refusal(torch.float16, 128) is None
+    assert "split" in tfa.bias_refusal(bf, 64, split=True)
+    assert "dropout" in tfa.bias_refusal(bf, 64, dropout=True)
+    assert "dropout" in tfa.bias_refusal(bf, 128, split=True, dropout=True)
+    assert "FFMA" in tfa.bias_refusal(f32, 64)
+    assert "frag.cuh" in tfa.bias_refusal(bf, 32)
+    assert "frag.cuh" in tfa.bias_refusal(f32, 256)
+
+
+def _stub_library(monkeypatch):
+    """The C calls the wrappers make, recorded instead of run (CPU tensors
+    stand for the card's): ``(target, symbol, args)``."""
+    calls = []
+
+    def function(target, symbol, argtypes):
+        def fn(*args):
+            assert len(args) == len(argtypes), symbol
+            calls.append((target, symbol, args))
+            return 0
+        return fn
+
+    monkeypatch.setattr(tfa._build, "function", function)
+    monkeypatch.setattr(tfa, "_stream", lambda t: None)
+    return calls
+
+
+@pytest.mark.parametrize("shape,strides", [
+    ((1, 1), (0, 0)), ((1, 3), (0, 16 * 24)), ((2, 1), (16 * 24, 0)),
+    ((2, 3), (3 * 16 * 24, 16 * 24))])
+def test_wrappers_pass_the_fp32_bias_with_its_broadcast_strides(
+        monkeypatch, shape, strides):
+    calls = _stub_library(monkeypatch)
+    q = torch.zeros(2, 3, 16, 64, dtype=torch.bfloat16)
+    k = torch.zeros(2, 3, 24, 64, dtype=torch.bfloat16)
+    bias = torch.randn(*shape, 16, 24).bfloat16()
+    f, g = tfa.flash_attention, tfa.flash_attention_bwd
+    n0 = (f.bias_launches, g.bias_launches, f.dropout_launches)
+    out, lse = tfa._flash_fwd_cuda(q, k, k, None, None, False, 0.125,
+                                   block_rows=64, bias=bias)
+    tfa._flash_bwd_cuda(q, k, k, out, lse, q, None, None, False, 0.125,
+                        bias=bias)
+    assert [c[1] for c in calls] == ["apex_flash_fwd_sm90",
+                                     "apex_flash_bwd_sm90_fused"]
+    for _, symbol, args in calls:
+        ptr, sb, sh = args[-7:-4]
+        assert (sb, sh) == strides and ptr is not None
+        assert args[-4:-1] == (0, 0, 1.0)      # no dropout
+    assert (f.bias_launches - n0[0], g.bias_launches - n0[1],
+            f.dropout_launches - n0[2]) == (1, 1, 0)
+    # without a bias: a null pointer, the kernels' code without it
+    calls.clear()
+    tfa._flash_fwd_cuda(q, k, k, None, None, False, 0.125, block_rows=64)
+    assert calls[0][2][-7:-4] == (None, 0, 0)
+
+
+def test_bias_operand_is_cast_without_expanding_a_broadcast_dim():
+    base = torch.randn(1, 1, 8, 12, dtype=torch.float16)
+    wide = base.expand(4, 5, 8, 12)               # strides 0: a broadcast
+    t, sb, sh = tfa._bias_operand(wide, 4, 5, 8, 12, torch.device("cpu"))
+    assert t.dtype == torch.float32 and tuple(t.shape) == (1, 1, 8, 12)
+    assert (sb, sh) == (0, 0) and torch.equal(t, base.float())
+    f32 = torch.randn(1, 5, 8, 12)
+    t, sb, sh = tfa._bias_operand(f32, 4, 5, 8, 12, torch.device("cpu"))
+    assert t.data_ptr() == f32.data_ptr() and (sb, sh) == (0, 96)
+    odd = torch.randn(8 * 12 + 1)[1:].view(1, 1, 8, 12)     # 4-byte offset
+    t, _, _ = tfa._bias_operand(odd, 1, 1, 8, 12, torch.device("cpu"))
+    assert t.data_ptr() % 16 == 0 and torch.equal(t, odd)
+    with pytest.raises(ValueError, match="broadcast"):
+        tfa._bias_operand(torch.zeros(1, 1, 8, 11), 1, 1, 8, 12,
+                          torch.device("cpu"))
+
+
+@pytest.mark.parametrize("make,match", [
+    # the gate sends s640 d64 with a bias to the split
+    (lambda: (torch.zeros(1, 1, 640, 64, dtype=torch.bfloat16), {}),
+     "split backward"),
+    (lambda: (torch.zeros(1, 1, 64, 64, dtype=torch.bfloat16),
+              dict(dropout_rate=0.1, dropout_seed=1)), "dropout"),
+    (lambda: (torch.zeros(1, 1, 64, 64), {}), "FFMA"),
+    (lambda: (torch.zeros(1, 1, 64, 32, dtype=torch.bfloat16), {}),
+     "frag.cuh"),
+])
+def test_cuda_bias_refusals_raise_before_any_launch(monkeypatch, make,
+                                                    match):
+    """Each refused route raises ``NotImplementedError`` naming it, before
+    the forward, whenever grads are needed (the device check answers
+    CUDA; the library is stubbed, and no call reaches it)."""
+    calls = _stub_library(monkeypatch)
+    monkeypatch.setattr(tfa, "check_device_type", lambda t, what: "cuda")
+    q, kw = make()
+    q.requires_grad_()
+    bias = torch.zeros(1, 1, q.shape[2], q.shape[2])
+    with pytest.raises(NotImplementedError, match=match) as err:
+        tfa.flash_attention(q, q, q, bias=bias, **kw)
+    assert "bias" in str(err.value) and calls == []
+
+
+def test_cuda_bias_autograd_runs_the_bias_variants_and_a_zero_dbias(
+        monkeypatch):
+    """Through ``flash_attention`` (the device check answers CUDA, the
+    library is stubbed): the forward and the single pass take the bias;
+    its gradient is exactly zero in its own shape and dtype."""
+    calls = _stub_library(monkeypatch)
+    monkeypatch.setattr(tfa, "check_device_type", lambda t, what: "cuda")
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: type("P", (), {
+                            "multi_processor_count": 132})())
+    q = torch.zeros(2, 4, 32, 64, dtype=torch.bfloat16, requires_grad=True)
+    bias = torch.zeros(1, 1, 32, 32, dtype=torch.bfloat16,
+                       requires_grad=True)
+    out = tfa.flash_attention(q, q, q, bias=bias)
+    out.float().sum().backward()
+    assert [c[1] for c in calls] == ["apex_flash_fwd_sm90",
+                                     "apex_flash_bwd_sm90_fused"]
+    assert bias.grad is not None and bias.grad.dtype == torch.bfloat16
+    assert tuple(bias.grad.shape) == (1, 1, 32, 32)
+    assert torch.count_nonzero(bias.grad).item() == 0
