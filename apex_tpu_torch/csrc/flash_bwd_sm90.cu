@@ -146,22 +146,39 @@
 // bits a consumer thread and stage, was slower in the single pass: two
 // warps at 24 registers fell behind the consumers.
 //
-// The additive bias, in the single pass only (`_recompute_p` with its bias,
-// :500-523, as `_bwd_fused_kernel` calls it): a variant (BIAS, chosen by
-// the C entry when the bias pointer is not null; the code without it is
-// unchanged) recomputes p^T = 2^((s^T + bias / scale) scale log2(e) - lse
-// log2(e)) with bias[b', h', q, k] (fp32 [b|1, h|1, sq, sk], the last two
-// dims contiguous, broadcast by zero strides), the mask as without it. As
-// in the forward, each thread loads its elements of the tile's bias, times
-// 1 / scale, into S^T's accumulators while it waits for the tile, and the
-// S^T product's first k-step adds to them: the probabilities loop is the
-// code without a bias, and no register is held beyond S^T's (holding the
-// bias in registers of its own spilled at head dim 128). Here a thread's
-// rows are keys and its columns queries, so each element is a scalar
-// load (a query's row of the bias is sk floats from the next). The delta
-// pass and the ordered dq are unchanged; no dbias is computed (the JAX op
-// returns zeros for it). No variant takes a bias with dropout, and the
-// split takes no bias.
+// The additive bias (`_recompute_p` with its bias, :500-523, as
+// `_bwd_fused_kernel`, `_dkdv_kernel` and `_dq_kernel` call it; the split's
+// kernels read bias_ref at :563 and :676), in the single pass and in both
+// kernels of the split: a variant of each (BIAS, chosen by the C entry when
+// the bias pointer is not null; the code without it is the parent's SASS)
+// recomputes p = 2^((s + bias / scale) scale log2(e) - lse log2(e)) with
+// bias[b', h', q, k] (fp32 [b|1, h|1, sq, sk], the last two dims
+// contiguous, broadcast by zero strides), the mask as without it. As in
+// the forward, each thread loads its elements of a live tile's bias, times
+// 1 / scale, into S's accumulators while it waits for the tile, and the S
+// product's first k-step adds to them: the probabilities loop is the code
+// without a bias, and no register is held beyond S's (holding the bias in
+// registers of its own spilled at head dim 128). In the single pass and
+// dk/dv a thread's rows are keys and its columns queries, so each element
+// is a scalar load (a query's row of the bias is sk floats from the next;
+// keys past sk and rows past sq clamped to the last, both masked); in dq
+// its rows are queries and its columns key pairs, one 8-byte load a pair
+// where sk is even and the tile lies inside sk, else a load an element.
+// A -inf element gives p = ex2(-inf) = +0 on the unmasked path too, and ds
+// 0; a row whose bias is -inf everywhere has lse -1e30 from the forward,
+// so its p is 0 everywhere: its dq and its share of dk and dv are exactly
+// 0. The delta pass and fold and the ordered dq are unchanged; no dbias is
+// computed (the JAX op returns zeros for it). No variant takes a bias with
+// dropout. Registers and loads (variants timed on an H100, PERF.md): the
+// single pass loads at d 128 in batches of four column groups
+// (kBiasUnroll); the split's variants issue a tile's loads at once
+// (batches of a partly unrolled loop put S in local memory, and were far
+// slower). dk/dv takes 64-row tiles at d 64 (at 128 rows the loads spilled
+// more than its twin) and at d 128 the dropout variant's register split,
+// 240/24 (at 232 it spilled, its twin not), with one pointer for the rows
+// of a tile inside sq. dq keeps its twin's tiles and registers and chooses
+// its loads once a tile (8-byte pairs where sk is even: a choice per pair
+// made the loads wait for one another, several times slower).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -192,11 +209,12 @@ struct SplitTile {
   static constexpr int value = D == 64 ? 128 : 64;
 };
 
-// the dk/dv kernel's: 64 rows in the dropout variant at d 64 (at 128 the
-// hash's registers beside S^T, dP^T, dV and dK spilled)
-template <int D, bool DROP>
+// the dk/dv kernel's: 64 rows in the dropout and bias variants at d 64 (at
+// 128 the hash's registers, or the bias's loads, beside S^T, dP^T, dV and
+// dK spilled)
+template <int D, bool VARIANT>
 struct DkdvTile {
-  static constexpr int value = D == 64 && DROP ? 64 : SplitTile<D>::value;
+  static constexpr int value = D == 64 && VARIANT ? 64 : SplitTile<D>::value;
 };
 
 template <int D, int TILE_ROWS = SplitTile<D>::value>
@@ -231,18 +249,19 @@ struct Params {
   float inv;
 };
 
-// the single pass's parameters: its BIAS variant's add the bias, fp32
-// [b|1, h|1, sq, sk], its batch and head strides in elements (0 for a
-// broadcast dim) and 1 / scale; the others' are Params alone, laid out as
-// the split's
+// a kernel's parameters: the BIAS variants' add the bias, fp32 [b|1, h|1,
+// sq, sk], its batch and head strides in elements (0 for a broadcast dim)
+// and 1 / scale; the others' are Params alone (fields added to Params made
+// the variants without a bias spill)
 template <bool BIAS>
-struct FusedParams : Params {};
+struct BiasParams : Params {};
 template <>
-struct FusedParams<true> : Params {
+struct BiasParams<true> : Params {
   const float* bias;
   long bias_sb, bias_sh;
   float inv_scale;
 };
+
 
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -322,14 +341,20 @@ __device__ __forceinline__ void store_rows(T* out, const float (&acc)[D / 2],
 // dk, dv: a block owns 128 keys; query tiles stream
 // ---------------------------------------------------------------------------
 
-template <typename T, int D, bool DROP>
+template <typename T, int D, bool DROP, bool BIAS>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_dkdv_sm90(const __grid_constant__ CUtensorMap map_q,
                 const __grid_constant__ CUtensorMap map_k,
                 const __grid_constant__ CUtensorMap map_v,
-                const __grid_constant__ CUtensorMap map_do, const Params p) {
-  using L = Layout<D, DkdvTile<D, DROP>::value>;
+                const __grid_constant__ CUtensorMap map_do,
+                const BiasParams<BIAS> p) {
+  using L = Layout<D, DkdvTile<D, DROP || BIAS>::value>;
   constexpr int TILE = L::TILE;
+  // the dropout variant, and the bias variant at d 128, give the consumers
+  // 240 registers a thread and the producer 24 (at 232 they spilled): the
+  // producer then splits its work over two warps, and the consumers read
+  // the keys' segment ids in each masked tile
+  constexpr bool WIDE = DROP || (BIAS && D == 128);
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = aligned_smem(smem_raw);
   uint8_t* sK = base;
@@ -357,8 +382,8 @@ flash_dkdv_sm90(const __grid_constant__ CUtensorMap map_q,
     wg::prefetch_map(&map_do);
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
-      // the producer warp's lanes (dropout: warp 0's lane 0 and warp 1)
-      wg::mbar_init(&full[s], DROP ? 33 : 32);
+      // the producer warp's lanes (WIDE: warp 0's lane 0 and warp 1)
+      wg::mbar_init(&full[s], WIDE ? 33 : 32);
       wg::mbar_init(&empty[s], CONSUMERS);
     }
     wg::mbar_init(res, 1);
@@ -368,11 +393,11 @@ flash_dkdv_sm90(const __grid_constant__ CUtensorMap map_q,
 
   const int wgi = threadIdx.x / 128;
   if (wgi == 0) {
-    // ---- producer: warp 0 keeps the ring full. The dropout variant takes
-    // 24 registers a thread (its consumers 240) and splits the work: warp
-    // 0's lane 0 issues the loads, warp 1 stages lse, delta and the
-    // segment ids (one warp doing both spilled at 24 registers)
-    wg::setmaxnreg_dec<DROP ? 24 : 40>();
+    // ---- producer: warp 0 keeps the ring full. At 24 registers a thread
+    // (WIDE) it splits the work: warp 0's lane 0 issues the loads, warp 1
+    // stages lse, delta and the segment ids (one warp doing both spilled
+    // at 24 registers)
+    wg::setmaxnreg_dec<WIDE ? 24 : 40>();
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
       if (lane == 0) {
@@ -388,10 +413,10 @@ flash_dkdv_sm90(const __grid_constant__ CUtensorMap map_q,
       int stage = 0;
       uint32_t phase = 0;
       for (int qt = qt_begin; qt < n_qt; ++qt) {
-        if (DROP && lane != 0) break;
+        if (WIDE && lane != 0) break;
         wg::mbar_wait(&empty[stage], phase ^ 1);
         const int q0 = qt * TILE;
-        if constexpr (!DROP) {
+        if constexpr (!WIDE) {
           for (int r = lane; r < TILE; r += 32) {
             const int row = q0 + r;
             const bool in = row < sq;
@@ -420,7 +445,7 @@ flash_dkdv_sm90(const __grid_constant__ CUtensorMap map_q,
           phase ^= 1;
         }
       }
-    } else if (DROP && threadIdx.x < 64) {
+    } else if (WIDE && threadIdx.x < 64) {
       const int lane = threadIdx.x - 32;
       int stage = 0;
       uint32_t phase = 0;
@@ -454,15 +479,15 @@ flash_dkdv_sm90(const __grid_constant__ CUtensorMap map_q,
     }
   } else {
     // ---- consumers: 64 keys each
-    wg::setmaxnreg_inc<DROP ? 240 : 232>();
+    wg::setmaxnreg_inc<WIDE ? 240 : 232>();
     const int cw = wgi - 1, t = threadIdx.x % 128;
     const int warp = t / 32, g = (t % 32) / 4, tig = t % 4;
     const int n0w = n0 + 64 * cw;
     const int key0 = n0w + 16 * warp + g, key1 = key0 + 8;
-    // the keys' segment ids (the dropout variant reads them in each masked
-    // tile: held across the loop they spilled at d 128)
+    // the keys' segment ids (WIDE reads them in each masked tile: held
+    // across the loop they spilled at d 128)
     int sid0 = -1, sid1 = -1;
-    if (use_seg && !DROP) {
+    if (use_seg && !WIDE) {
       if (key0 < sk) sid0 = p.sid_kv[(long)bi * sk + key0];
       if (key1 < sk) sid1 = p.sid_kv[(long)bi * sk + key1];
     }
@@ -484,6 +509,40 @@ flash_dkdv_sm90(const __grid_constant__ CUtensorMap map_q,
     uint32_t phase = 0;
     for (int qt = qt_begin; qt < n_qt; ++qt) {
       const int q0 = qt * TILE;
+      float s[TILE / 2], dp[TILE / 2];
+      if constexpr (BIAS) {
+        // a live tile's bias / scale into S^T (element 4 nb + 2 r + e: key
+        // key0 + 8 r, query row q0 + 8 nb + 2 tig + e: the bias's row is
+        // the query, its column the key), which the S^T product adds to;
+        // keys past sk and rows past sq clamped to the last (both masked)
+        if (n0w < sk && !(causal && n0w > q0 + TILE - 1 + offset)) {
+          const int k0 = min(key0, sk - 1), d1 = min(key1, sk - 1) - k0;
+          const float* b0 = p.bias + (long)bi * p.bias_sb +
+                            (long)(bh - bi * p.h) * p.bias_sh + k0;
+          if (q0 + TILE <= sq) {
+            // the tile inside sq: its rows from one pointer (the clamped
+            // offsets' registers spilled at d 128)
+            const float* r0 = b0 + (long)(q0 + 2 * tig) * sk;
+#pragma unroll
+            for (int nb = 0; nb < TILE / 8; ++nb)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float* at = r0 + (long)(8 * nb + e) * sk;
+                s[4 * nb + e] = __ldg(at) * p.inv_scale;
+                s[4 * nb + 2 + e] = __ldg(at + d1) * p.inv_scale;
+              }
+          } else {
+#pragma unroll
+            for (int nb = 0; nb < TILE / 8; ++nb)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int off = min(q0 + 8 * nb + 2 * tig + e, sq - 1) * sk;
+                s[4 * nb + e] = __ldg(b0 + off) * p.inv_scale;
+                s[4 * nb + 2 + e] = __ldg(b0 + off + d1) * p.inv_scale;
+              }
+          }
+        }
+      }
       wg::mbar_wait(&full[stage], phase);
       // a live pair: a key of this warpgroup below sk that the tile's last
       // row reaches
@@ -492,9 +551,8 @@ flash_dkdv_sm90(const __grid_constant__ CUtensorMap map_q,
       if (live) {
         const uint8_t* tq = ring + stage * 2 * L::TILE_BYTES;
         const uint8_t* tdo = tq + L::TILE_BYTES;
-        float s[TILE / 2], dp[TILE / 2];
         wg::wgmma_fence();
-        scores<T, D, TILE>(s, dp, sK, sV, tq, tdo, cw);
+        scores<T, D, TILE, BIAS>(s, dp, sK, sV, tq, tdo, cw);
         wg::wgmma_commit();
         wg::wgmma_wait<0>();
         wg::fence_regs(s);
@@ -508,7 +566,7 @@ flash_dkdv_sm90(const __grid_constant__ CUtensorMap map_q,
         // one straight-line version each, chosen once a tile
         auto probs = [&](auto masked) {
           int ks0 = sid0, ks1 = sid1;
-          if constexpr (DROP && decltype(masked)::value) {
+          if constexpr (WIDE && decltype(masked)::value) {
             if (use_seg) {
               ks0 = key0 < sk ? p.sid_kv[(long)bi * sk + key0] : -1;
               ks1 = key1 < sk ? p.sid_kv[(long)bi * sk + key1] : -1;
@@ -595,12 +653,13 @@ flash_dkdv_sm90(const __grid_constant__ CUtensorMap map_q,
 // dq: a block owns 128 query rows; key tiles stream
 // ---------------------------------------------------------------------------
 
-template <typename T, int D, bool DROP>
+template <typename T, int D, bool DROP, bool BIAS>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_dq_sm90(const __grid_constant__ CUtensorMap map_q,
               const __grid_constant__ CUtensorMap map_k,
               const __grid_constant__ CUtensorMap map_v,
-              const __grid_constant__ CUtensorMap map_do, const Params p) {
+              const __grid_constant__ CUtensorMap map_do,
+              const BiasParams<BIAS> p) {
   using L = Layout<D>;
   constexpr int TILE = L::TILE;
   extern __shared__ uint8_t smem_raw[];
@@ -747,14 +806,51 @@ flash_dq_sm90(const __grid_constant__ CUtensorMap map_q,
     uint32_t phase = 0;
     for (int kt = 0; kt < kt_end; ++kt) {
       const int n0 = kt * TILE;
+      float s[TILE / 2], dp[TILE / 2];
+      if constexpr (BIAS) {
+        // a live tile's bias / scale into S (element 4 nb + 2 r + e: row
+        // row0 + 8 r, key n0 + 8 nb + 2 tig + e; a row past sq clamped to
+        // the last: it is masked), which the S product adds to
+        if (m0w < sq && !(causal && n0 > last_w)) {
+          const float* bb = p.bias + (long)bi * p.bias_sb +
+                            (long)(bh - bi * p.h) * p.bias_sh;
+          const float* brow[2] = {bb + (long)min(row0, sq - 1) * sk,
+                                  bb + (long)min(row0 + 8, sq - 1) * sk};
+          if ((sk & 1) == 0 && n0 + TILE <= sk) {
+            // one 8-byte load a key pair (sk even: the pair and the row
+            // 8-byte aligned), chosen once a tile (chosen a pair at a time,
+            // the loads waited for one another)
+#pragma unroll
+            for (int nb = 0; nb < TILE / 8; ++nb)
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                const float2 bv = __ldg(reinterpret_cast<const float2*>(
+                    brow[r] + n0 + 8 * nb + 2 * tig));
+                s[4 * nb + 2 * r] = bv.x * p.inv_scale;
+                s[4 * nb + 2 * r + 1] = bv.y * p.inv_scale;
+              }
+          } else {
+            // odd sk or the ragged last tile: a load an element, keys past
+            // sk clamped to the last (they are masked)
+#pragma unroll
+            for (int nb = 0; nb < TILE / 8; ++nb)
+#pragma unroll
+              for (int r = 0; r < 2; ++r)
+#pragma unroll
+                for (int e = 0; e < 2; ++e)
+                  s[4 * nb + 2 * r + e] =
+                      __ldg(brow[r] + min(n0 + 8 * nb + 2 * tig + e,
+                                          sk - 1)) * p.inv_scale;
+          }
+        }
+      }
       wg::mbar_wait(&full[stage], phase);
       const bool live = m0w < sq && !(causal && n0 > last_w);
       if (live) {
         const uint8_t* tk = ring + stage * 2 * L::TILE_BYTES;
         const uint8_t* tv = tk + L::TILE_BYTES;
-        float s[TILE / 2], dp[TILE / 2];
         wg::wgmma_fence();
-        scores<T, D, TILE>(s, dp, sQ, sDO, tk, tv, cw);
+        scores<T, D, TILE, BIAS>(s, dp, sQ, sDO, tk, tv, cw);
         wg::wgmma_commit();
         wg::wgmma_wait<0>();
         wg::fence_regs(s);
@@ -873,7 +969,7 @@ flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_v,
                      const __grid_constant__ CUtensorMap map_do,
                      const __grid_constant__ CUtensorMap map_dq,
-                     const FusedParams<BIAS> p) {
+                     const BiasParams<BIAS> p) {
   using FL = FusedLayout<D>;
   constexpr int TILE = FL::TILE, ST = FL::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -1368,7 +1464,7 @@ struct Args {
   cudaStream_t stream;
   uint32_t seed = 0, threshold = 0;   // dropout (0: none)
   float inv = 1.f;
-  const void* bias = nullptr;         // the single pass's bias, or null
+  const void* bias = nullptr;         // the bias, or null
   long bias_sb = 0, bias_sh = 0;
 };
 
@@ -1377,11 +1473,10 @@ enum Kind { DKDV, DQ, FUSED };
 
 template <typename T, int D, Kind K, bool DROP = false, bool BIAS = false>
 cudaError_t launch(const Args& a) {
-  static_assert(K == FUSED || !BIAS, "the split takes no bias");
   const long bh = (long)a.b * a.h;
   // the resident side's boxes are 128 rows, the streamed side's its TILE
   constexpr int TILE = K == FUSED  ? FusedLayout<D>::TILE
-                       : K == DKDV ? DkdvTile<D, DROP>::value
+                       : K == DKDV ? DkdvTile<D, DROP || BIAS>::value
                                    : SplitTile<D>::value;
   const int rows_q = K == DQ ? RES_ROWS : TILE;
   const int rows_k = K == DQ ? TILE : RES_ROWS;
@@ -1398,6 +1493,14 @@ cudaError_t launch(const Args& a) {
                  a.out0, a.out1, a.out2, static_cast<int*>(a.turns), a.o,
                  a.dout, a.h, a.sq, a.sk, a.causal, a.scale, a.seed,
                  a.threshold, a.inv};
+  BiasParams<BIAS> bp;
+  static_cast<Params&>(bp) = p;
+  if constexpr (BIAS) {
+    bp.bias = static_cast<const float*>(a.bias);
+    bp.bias_sb = a.bias_sb;
+    bp.bias_sh = a.bias_sh;
+    bp.inv_scale = 1.f / a.scale;
+  }
   const int s = K == DQ ? a.sq : a.sk;
   const dim3 grid((unsigned)bh, (s + RES_ROWS - 1) / RES_ROWS);
   if constexpr (K == FUSED) {
@@ -1410,23 +1513,15 @@ cudaError_t launch(const Args& a) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    FusedParams<BIAS> fp;
-    static_cast<Params&>(fp) = p;
-    if constexpr (BIAS) {
-      fp.bias = static_cast<const float*>(a.bias);
-      fp.bias_sb = a.bias_sb;
-      fp.bias_sh = a.bias_sh;
-      fp.inv_scale = 1.f / a.scale;
-    }
-    kern<<<grid, THREADS, smem, a.stream>>>(mq, mk, mv, mdo, mdq, fp);
+    kern<<<grid, THREADS, smem, a.stream>>>(mq, mk, mv, mdo, mdq, bp);
   } else {
     const size_t smem = Layout<D, TILE>::SMEM;
-    auto kern =
-        K == DQ ? flash_dq_sm90<T, D, DROP> : flash_dkdv_sm90<T, D, DROP>;
+    auto kern = K == DQ ? flash_dq_sm90<T, D, DROP, BIAS>
+                        : flash_dkdv_sm90<T, D, DROP, BIAS>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    kern<<<grid, THREADS, smem, a.stream>>>(mq, mk, mv, mdo, p);
+    kern<<<grid, THREADS, smem, a.stream>>>(mq, mk, mv, mdo, bp);
   }
   return cudaGetLastError();
 }
@@ -1470,13 +1565,11 @@ int dispatch(const Args& a, int d, int dtype) {
       err = cudaMemsetAsync(a.out1, 0, bytes, a.stream);
     return err;
   }
-  // the single pass's variant with the bias where there is one (with
-  // dropout: no such variant)
-  if constexpr (K == FUSED) {
-    if (a.bias)
-      return a.threshold ? cudaErrorInvalidValue
-                         : launch_of<K, false, true>(a, d, dtype);
-  }
+  // the variant with the bias where there is one (with dropout: no such
+  // variant)
+  if (a.bias)
+    return a.threshold ? cudaErrorInvalidValue
+                       : launch_of<K, false, true>(a, d, dtype);
   // the variant with dropout where the threshold keeps fewer than all
   if (a.threshold) return launch_of<K, true>(a, d, dtype);
   return launch_of<K, false>(a, d, dtype);
@@ -1492,20 +1585,27 @@ int dispatch(const Args& a, int d, int dtype) {
 // dtype, cudaErrorNotSupported (801) when the driver refuses a TMA map (a
 // base address not 16-byte aligned).
 
-// Dropout as the forward's C entry takes it: `seed`, `threshold` (0: no
-// dropout) and `inv` = 1 / (1 - rate).
+// The bias as the forward's C entry takes it: `bias` fp32 [b|1, h|1, sq,
+// sk] with its last two dims contiguous and an 8-byte aligned base, or
+// null (none); `bias_sb` and `bias_sh` its batch and head strides in
+// elements (0 for a broadcast dim). Dropout as the forward's C entry takes
+// it: `seed`, `threshold` (0: no dropout) and `inv` = 1 / (1 - rate); not
+// with a bias (cudaErrorInvalidValue).
 
 // dk, dv [b,h,sk,d] (every element written)
 extern "C" int apex_flash_bwd_sm90_dkdv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* sid_q,
     const void* sid_kv, void* dk, void* dv, int b, int h, int sq, int sk,
-    int d, int causal, float scale, int dtype, unsigned int seed,
-    unsigned int threshold, float inv, void* stream) {
-  const Args a{q, k, v, dout, lse, const_cast<void*>(delta), sid_q, sid_kv,
-               dk, dv, nullptr, nullptr, nullptr, b, h, sq, sk, causal,
-               scale, static_cast<cudaStream_t>(stream), seed, threshold,
-               inv};
+    int d, int causal, float scale, int dtype, const void* bias,
+    long bias_sb, long bias_sh, unsigned int seed, unsigned int threshold,
+    float inv, void* stream) {
+  Args a{q, k, v, dout, lse, const_cast<void*>(delta), sid_q, sid_kv,
+         dk, dv, nullptr, nullptr, nullptr, b, h, sq, sk, causal,
+         scale, static_cast<cudaStream_t>(stream), seed, threshold, inv};
+  a.bias = bias;
+  a.bias_sb = bias_sb;
+  a.bias_sh = bias_sh;
   return dispatch<DKDV>(a, d, dtype);
 }
 
@@ -1517,11 +1617,15 @@ extern "C" int apex_flash_bwd_sm90_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, void* delta, const void* sid_q, const void* sid_kv,
     void* dq, const void* out, int b, int h, int sq, int sk, int d,
-    int causal, float scale, int dtype, unsigned int seed,
-    unsigned int threshold, float inv, void* stream) {
-  const Args a{q, k, v, dout, lse, delta, sid_q, sid_kv, dq, nullptr,
-               nullptr, nullptr, out, b, h, sq, sk, causal, scale,
-               static_cast<cudaStream_t>(stream), seed, threshold, inv};
+    int causal, float scale, int dtype, const void* bias, long bias_sb,
+    long bias_sh, unsigned int seed, unsigned int threshold, float inv,
+    void* stream) {
+  Args a{q, k, v, dout, lse, delta, sid_q, sid_kv, dq, nullptr,
+         nullptr, nullptr, out, b, h, sq, sk, causal, scale,
+         static_cast<cudaStream_t>(stream), seed, threshold, inv};
+  a.bias = bias;
+  a.bias_sb = bias_sb;
+  a.bias_sh = bias_sh;
   return dispatch<DQ>(a, d, dtype);
 }
 
@@ -1530,9 +1634,8 @@ extern "C" int apex_flash_bwd_sm90_dq(
 // caller zeroes, as it zeroes `turns` (b * h * ceil(sq / 64) int32, one
 // counter a 64-row query tile, left at the tile's count of key blocks);
 // from a given delta (rowsum(do * out), computed outside as the JAX
-// package computes it); the bias as the forward's entry takes it (null:
-// none); dropout as the split's entries take it (not with a bias:
-// cudaErrorInvalidValue).
+// package computes it); the bias and dropout as the split's entries take
+// them.
 extern "C" int apex_flash_bwd_sm90_fused(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* sid_q,

@@ -13,12 +13,12 @@ Port of ``apex_tpu/ops/flash_attention.py``:
   ``csrc/flash_bwd.cu``; on the CPU they are
   :func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`
   (the JAX ``_bwd_math``). The additive bias ([b|1, h|1, sq, sk], added to
-  the scaled fp32 scores) runs in a variant of the wgmma route's forward
-  and single pass (read as fp32 with its broadcast dims' strides 0, never
-  expanded), in the plain versions, and on the CPU through
-  :class:`BiasedAttentionFunction`; its gradient is exactly zero in its
-  own shape, as in the JAX package; every other CUDA route, the split and
-  a bias with dropout raise (:func:`bias_refusal`). In-kernel attention
+  the scaled fp32 scores) runs in a variant of each of the wgmma route's
+  kernels, the forward, the single pass and the split's two (read as fp32
+  with its broadcast dims' strides 0, never expanded), in the plain
+  versions, and on the CPU through :class:`BiasedAttentionFunction`; its
+  gradient is exactly zero in its own shape, as in the JAX package; every
+  other CUDA route and a bias with dropout raise (:func:`bias_refusal`). In-kernel attention
   dropout (the JAX
   kernels' counter hash, :func:`dropout_keep_reference`) runs in the
   wgmma route's forward, single pass and split (a variant of each kernel
@@ -93,6 +93,8 @@ pass's dropout variants), ``flash_attention_bwd.dropout_dkdv_launches``
 and ``.dropout_dq_launches`` (the split's dropout variants),
 ``flash_attention.bias_launches`` and ``flash_attention_bwd.bias_launches``
 (the wgmma forward's and single pass's bias variants),
+``flash_attention_bwd.bias_dkdv_launches`` and ``.bias_dq_launches`` (the
+split's bias variants),
 ``paged_decode_attention.launches``
 (bf16 pool) and ``paged_decode_attention.fp8_launches`` (e4m3 pool) count
 kernel launches (the CPU path does not count).
@@ -489,9 +491,8 @@ def _operand_dtype(what, q):
 # the wgmma kernels' dropout arguments (:func:`_dropout_args`): the seed as
 # uint32, the keep threshold, 1 / (1 - rate)
 _DROPOUT_ARGS = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float]
-# the wgmma forward's and single pass's bias arguments
-# (:func:`_bias_operand`): the fp32 bias or null, its batch and head
-# strides in elements (0 for a broadcast dim)
+# the wgmma kernels' bias arguments (:func:`_bias_operand`): the fp32 bias
+# or null, its batch and head strides in elements (0 for a broadcast dim)
 _BIAS_ARGS = [ctypes.c_void_p, ctypes.c_long, ctypes.c_long]
 
 # apex_flash_fwd_sm90(q, k, v, sid_q, sid_kv, out, lse, b, h, sq, sk, d,
@@ -542,30 +543,26 @@ def _refuse_dropout(dtype: torch.dtype, kd: int) -> None:
                                   f"not in {refused} yet")
 
 
-def bias_refusal(dtype: torch.dtype, kd: int, split: bool = False,
+def bias_refusal(dtype: torch.dtype, kd: int,
                  dropout: bool = False) -> Optional[str]:
     """None where the CUDA kernels take the additive bias: the wgmma
-    route's forward (``split`` False) and single-pass backward, without
+    route's forward and backward, single pass and split alike, without
     attention dropout (:func:`sm90_route` of the promoted ``dtype`` and the
     kernel head dim ``kd``). Else the refused route by name, for the
     ``NotImplementedError`` its caller raises (ROADMAP §B1): the fp32 FFMA
     route, the ``frag.cuh`` kernels, a bias with dropout (no variant of
-    B1-B4 takes both), the split backward."""
+    B1-B4 takes both)."""
     refused = dropout_refusal(dtype, kd)
     if refused is not None:
         return refused
     if dropout:
         return ("the kernels with attention dropout (no variant of the "
                 "wgmma kernels takes a bias and dropout together)")
-    if split:
-        return ("the split backward (B3/B4: flash_dkdv_sm90, flash_dq_sm90 "
-                "of csrc/flash_bwd_sm90.cu)")
     return None
 
 
-def _refuse_bias(dtype: torch.dtype, kd: int, split: bool = False,
-                 dropout: bool = False) -> None:
-    refused = bias_refusal(dtype, kd, split, dropout)
+def _refuse_bias(dtype: torch.dtype, kd: int, dropout: bool = False) -> None:
+    refused = bias_refusal(dtype, kd, dropout)
     if refused is not None:
         raise NotImplementedError(f"flash_attention: the additive bias is "
                                   f"not taken by {refused} yet")
@@ -817,9 +814,9 @@ def _bwd_route(q, k, v, causal, dropout_rate, do=None,
     (:func:`uses_split_backward` where ``split`` is None, counting a bias
     and dropout as the JAX gate counts them) and the dtype the kernels run
     the operands in. Raises ``NotImplementedError`` where attention
-    dropout is asked of a route that does not take it (the route is the
-    dtype's and head dim's, split or not), and where a ``bias`` is
-    (:func:`bias_refusal`: the split among them)."""
+    dropout or a ``bias`` is asked of a route that does not take it (the
+    route is the dtype's and head dim's, split or not:
+    :func:`dropout_refusal`, :func:`bias_refusal`)."""
     if split is None:
         split = uses_split_backward(q.shape[2], k.shape[2], q.shape[-1],
                                     k.element_size(), v.element_size(),
@@ -828,7 +825,7 @@ def _bwd_route(q, k, v, causal, dropout_rate, do=None,
     dtype = _promoted_dtype(q, k, v, q if do is None else do)
     kd = kernel_head_dim(q.shape[-1])
     if bias:
-        _refuse_bias(dtype, kd, split, bool(dropout_rate))
+        _refuse_bias(dtype, kd, bool(dropout_rate))
     elif dropout_rate:
         _refuse_dropout(dtype, kd)
     return split, dtype
@@ -846,11 +843,13 @@ _FLASH_DKDV_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
 _FLASH_DQ_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 # the wgmma route's apex_flash_bwd_sm90_dkdv: the same arguments without
-# ``rounds`` (it takes no mixed operands), with the dropout (seed,
-# threshold, inv) before the stream; apex_flash_bwd_sm90_dq(..., sid_kv,
-# dq, out, b, ...) also takes the forward's output (the delta fold)
+# ``rounds`` (it takes no mixed operands), with the bias (bias, bias_sb,
+# bias_sh) and the dropout (seed, threshold, inv) before the stream;
+# apex_flash_bwd_sm90_dq(..., sid_kv, dq, out, b, ...) also takes the
+# forward's output (the delta fold)
 _SM90_DKDV_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_int] + _DROPOUT_ARGS + [ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_int] + _BIAS_ARGS + _DROPOUT_ARGS + [
+    ctypes.c_void_p]
 _SM90_DQ_ARGS = _SM90_DKDV_ARGS
 
 # the wgmma route's single pass, apex_flash_bwd_sm90_fused(q, k, v, do, lse,
@@ -980,8 +979,8 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
     :func:`uses_split_backward`; True or False forces the two-kernel split
     or the single pass (for comparing the two at one shape). Attention
     dropout runs on the wgmma route alone, split or single pass
-    (:func:`dropout_refusal`); the additive ``bias`` in its single pass
-    alone, without dropout (:func:`bias_refusal`)."""
+    (:func:`dropout_refusal`), and so does the additive ``bias``, without
+    dropout (:func:`bias_refusal`)."""
     what = "flash_attention_bwd kernel"
     _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, what,
              "q, k, v must be [b, h, s, d]")
@@ -1041,8 +1040,10 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
             args = (q, k, v, do, lse, dl, segment_ids_q, segment_ids_kv,
                     causal, scale, rounds)
             if fold:
-                dq = _flash_dq_cuda(*args, out=out, dropout=drop)
-                return (dq, *_flash_dkdv_cuda(*args, dropout=drop))
+                dq = _flash_dq_cuda(*args, out=out, dropout=drop,
+                                    bias=bias_op)
+                return (dq, *_flash_dkdv_cuda(*args, dropout=drop,
+                                              bias=bias_op))
             # the FFMA route: the dk/dv call's prologue transposes q and do
             # into one scratch, which the dq kernel reads after it
             ws = _f32_transposes(q) if f32_fold else None
@@ -1190,24 +1191,38 @@ def _flash_bwd_f32_cuda(q, k, v, do, out, lse, delta, sid_q, sid_kv, causal,
     return dk, dv
 
 
+def _refuse_split_variants(q, dropout, bias) -> None:
+    """Raises ``NotImplementedError`` before a split kernel's call where
+    its route does not take the ``dropout`` or the ``bias`` it is given
+    (:func:`dropout_refusal`, :func:`bias_refusal`)."""
+    if bias[0] is not None:
+        _refuse_bias(q.dtype, q.shape[-1], bool(dropout[1]))
+    elif dropout[1]:
+        _refuse_dropout(q.dtype, q.shape[-1])
+
+
 def _split_operands(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
-                    rounds, dropout):
+                    rounds, dropout, bias):
     """``(route, operands, tail)`` of a split kernel's C call: the route
     (:func:`split_route`), the eight input pointers, and the sizes, flags,
-    the wgmma route's ``dropout`` (:func:`_dropout_args`) and the stream
-    after the output pointers."""
+    the wgmma route's ``bias`` (:func:`_bias_operand`) and ``dropout``
+    (:func:`_dropout_args`) and the stream after the output pointers."""
     b, h, sq, d = q.shape
     route = split_route(q.dtype, d)
     tail = (b, h, sq, k.shape[2], d, int(bool(causal)), float(scale),
             DTYPE_CODES[q.dtype])
-    tail += ((*dropout, _stream(q)) if route == "flash_bwd_sm90"
-             else (rounds, _stream(q)))
+    if route == "flash_bwd_sm90":
+        bias_t, bias_sb, bias_sh = bias
+        tail += (_ptr(bias_t), bias_sb, bias_sh, *dropout, _stream(q))
+    else:
+        tail += (rounds, _stream(q))
     return route, (_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse),
                    _ptr(delta), _ptr(sid_q), _ptr(sid_kv)), tail
 
 
 def _flash_dkdv_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
-                     rounds, out=None, ws=None, dropout=(0, 0, 1.0)):
+                     rounds, out=None, ws=None, dropout=(0, 0, 1.0),
+                     bias=(None, 0, 0)):
     """The split's dk/dv kernel on operands ``_flash_bwd_cuda`` checked and
     promoted; ``delta`` = rowsum(do * out) fp32 [b, h, sq] (``out`` the
     dropped output under dropout). The FFMA
@@ -1217,9 +1232,10 @@ def _flash_dkdv_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
     prologue writes q and do transposed into ``ws``
     (:func:`_f32_transposes`; allocated here when None), which the dq
     kernel after it may read (:func:`_flash_dq_cuda`'s ``ws``).
-    ``dropout``: :func:`_dropout_args`, the wgmma route's alone."""
-    if dropout[1]:
-        _refuse_dropout(q.dtype, q.shape[-1])
+    ``dropout``: :func:`_dropout_args`; ``bias``: :func:`_bias_operand`'s
+    ``(fp32 bias or None, batch stride, head stride)``, not with dropout;
+    both the wgmma route's alone."""
+    _refuse_split_variants(q, dropout, bias)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if f32_core_route(q.dtype, q.shape[-1], rounds):
         _f32_call(("apex_flash_bwd_f32_dkdv", _F32_DKDV_ARGS), q, k, v, do,
@@ -1233,7 +1249,7 @@ def _flash_dkdv_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
              "transposes q and do")
     route, operands, tail = _split_operands(q, k, v, do, lse, delta, sid_q,
                                             sid_kv, causal, scale, rounds,
-                                            dropout)
+                                            dropout, bias)
     sm90 = route == "flash_bwd_sm90"
     fn = _build.function(
         _build.dtype_target(route, DTYPE_CODES[q.dtype]),
@@ -1246,21 +1262,23 @@ def _flash_dkdv_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
         flash_attention_bwd.wgmma_dkdv_launches += 1
         if dropout[1]:
             flash_attention_bwd.dropout_dkdv_launches += 1
+        if bias[0] is not None:
+            flash_attention_bwd.bias_dkdv_launches += 1
     return dk, dv
 
 
 def _flash_dq_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
-                   rounds, out=None, ws=None, dropout=(0, 0, 1.0)):
+                   rounds, out=None, ws=None, dropout=(0, 0, 1.0),
+                   bias=(None, 0, 0)):
     """The split's dq kernel, as :func:`_flash_dkdv_cuda`. With ``out``
     (the forward's output, q's dtype; the wgmma route only) the kernel
     computes delta itself and writes it into ``delta``. The FFMA route's
     (``flash_dq_f32_kernel``) where :func:`f32_core_route` holds; there
     ``ws`` is the scratch the dk/dv call before it filled with q and do
     transposed (the split passes it), or None: this call's own prologue
-    transposes them first. ``dropout``: :func:`_dropout_args`, the wgmma
-    route's alone."""
-    if dropout[1]:
-        _refuse_dropout(q.dtype, q.shape[-1])
+    transposes them first. ``dropout`` and ``bias`` as
+    :func:`_flash_dkdv_cuda` takes them."""
+    _refuse_split_variants(q, dropout, bias)
     dq = torch.empty_like(q)
     if f32_core_route(q.dtype, q.shape[-1], rounds):
         _require(out is None, "flash_attention_bwd dq kernel", "the FFMA "
@@ -1281,7 +1299,7 @@ def _flash_dq_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
              "only the FFMA route reads transposed q and do")
     route, operands, tail = _split_operands(q, k, v, do, lse, delta, sid_q,
                                             sid_kv, causal, scale, rounds,
-                                            dropout)
+                                            dropout, bias)
     sm90 = route == "flash_bwd_sm90"
     _require(out is None or (sm90 and out.dtype == q.dtype
                              and out.shape == q.shape
@@ -1301,6 +1319,8 @@ def _flash_dq_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
         flash_attention_bwd.wgmma_dq_launches += 1
         if dropout[1]:
             flash_attention_bwd.dropout_dq_launches += 1
+        if bias[0] is not None:
+            flash_attention_bwd.bias_dq_launches += 1
     return dq
 
 
@@ -1347,7 +1367,8 @@ def flash_attention_bwd(q, k, v, out, lse, do, segment_ids_q=None,
     split's (``.f32_dkdv_launches`` and ``.f32_dq_launches`` those on the
     FFMA route); ``.dropout_launches`` the single passes with dropout,
     ``.dropout_dkdv_launches`` and ``.dropout_dq_launches`` the split's,
-    ``.bias_launches`` the single passes with a bias.
+    ``.bias_launches`` the single passes with a bias,
+    ``.bias_dkdv_launches`` and ``.bias_dq_launches`` the split's.
     ``dropout_rate``/``dropout_seed`` and ``bias`` are the forward's: the
     kernel regenerates its mask and recomputes p with the bias."""
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
@@ -1377,6 +1398,8 @@ flash_attention_bwd.dropout_launches = 0
 flash_attention_bwd.dropout_dkdv_launches = 0
 flash_attention_bwd.dropout_dq_launches = 0
 flash_attention_bwd.bias_launches = 0
+flash_attention_bwd.bias_dkdv_launches = 0
+flash_attention_bwd.bias_dq_launches = 0
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -1453,9 +1476,9 @@ def flash_attention(q, k, v, segment_ids_q=None, segment_ids_kv=None,
     negative ids are padding and give zero rows. ``bias`` ([b|1, h|1, sq,
     sk], any float dtype, added to the scaled fp32 scores; -inf entries
     allowed) gets an exactly zero gradient, as in the JAX package. On CUDA
-    the wgmma route's forward and single pass take it
-    (:class:`FlashAttentionFunction`); the split, a bias with dropout and
-    every other route raise ``NotImplementedError`` naming the route
+    the wgmma route's forward and backward take it, single pass and split
+    (:class:`FlashAttentionFunction`); a bias with dropout and every other
+    route raise ``NotImplementedError`` naming the route
     (:func:`bias_refusal`), before the forward where the backward's route
     would refuse it. On the CPU it runs through the plain version
     (:class:`BiasedAttentionFunction`).

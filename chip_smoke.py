@@ -150,11 +150,23 @@ Phases (any failure exits non-zero; no phase's error is caught):
     no projection biases: the stack adds each attention sublayer's output
     to its input) on 120 sequences of 64 tokens, one host generator: 18
     launches a step of B1's and of B2's dropout variants and no bias
-    launch; then the 2-layer full-width grad checks of both
-    configurations (the kernels against ``reference=True``, the same
-    generator on both sides) and one ``EncdecMultiheadAttn(1024, 16)`` at
-    sq 256, sk 512, b16 with a finite [16, 1, 256, 512] bias and key
-    padding (loss 1e-3, gradients 3 %).
+    launch;
+21. train-mha16-e1024h8-b1s3072-bias — fairseq's ``transformer_lm_wiki103``
+    widths and context (16 decoder layers, embed 1024, 8 heads, one
+    3072-token sample a step, ``--sample-break-mode none``): 16
+    ``SelfMultiheadAttn(1024, 8, use_bias=True, include_norm_add=True,
+    impl="fast")`` layers through the same recipe over x [3072, 1, 1024]
+    bf16 with no padding, the future mask as the bias: per step 16
+    launches each of B1's, B3's and B4's bias variants (the gate splits
+    every biased backward at s3072 d128), 16 of each LayerNorm kernel and
+    no other flash launch; then the 2-layer full-width grad checks (the
+    kernels against ``reference=True``, the same generator on both sides;
+    loss 1e-3, gradients 3 %) of both train-mha18 configurations, of this
+    one at s3072, of ``SelfMultiheadAttn(1024, 16)`` at b8 s1024 with the
+    future mask and key padding of 768-1024 tokens (the split at d 64),
+    and of ``EncdecMultiheadAttn(1024, 16)`` at sq 256, sk 512 (the single
+    pass) and sq 512, sk 1024 (the split), b16, each with a finite [16, 1,
+    sq, sk] bias and key padding; each asserts which bias variants ran.
 
 The kernel phase also holds the shapes and dtypes ROADMAP §C records as
 repaired against the plain versions: flash forward and backward (single
@@ -188,7 +200,16 @@ bf16 and fp16, head dims 64 and 128, the four broadcast shapes, sq != sk,
 odd sk, segment padding and a row whose bias is -inf everywhere (out 0,
 lse -1e30, dq 0); each timed with and without the bias beside its plain
 version and SDPA with the same mask as ``attn_mask``; ptxas shows no
-spill in either variant.
+spill in either variant. B3's and B4's bias variants (``flash_dkdv_sm90``
+and ``flash_dq_sm90`` with their ``BIAS`` parameter) are held kernel by
+kernel against their plain versions over the same shapes, their
+positions bitwise (one-hot rows into sk > sq keys, v = e_0 and a zero
+output: dq, dk and dv exact products), then at b8 h16 s1024 d64 (key
+padding) and at the train-mha16 path's b1 h8 s3072 d128 the pair as
+routed against the plain backward, bitwise on a rerun, each timed with
+and without the bias beside its plain version and SDPA's backward with
+the mask (B1's bias variant beside SDPA's forward there too); ptxas
+shows no spill in B4's and no more in B3's than in their twins.
 
 B1's and B2's dropout variants (``flash_fwd_sm90`` and
 ``flash_bwd_fused_sm90`` built with the keep hash of
@@ -1183,6 +1204,14 @@ def _fwd_dropout_long(torch, timer, gen, seed):
 # ---------------------------------------------------------------------------
 
 MHA_E, MHA_HEADS, MHA_S, MHA_B, MHA_LAYERS = 1024, 16, 512, 16, 18
+# train-mha16-e1024h8-b1s3072-bias: fairseq's transformer_lm_wiki103 widths
+# and context (16 layers, embed 1024, 8 heads, one 3072-token sample)
+MHA16_LAYERS, MHA16_HEADS, MHA16_S, MHA16_B = 16, 8, 3072, 1
+# its learning rate: at the other paths' 3e-4, Adam's first steps on the
+# one sample overshoot (the loss rose for three steps, through the kernels
+# and through the plain versions alike, to 4-5 digits: the dynamics, not
+# the kernels); the source warms its rate up from 1e-7
+MHA16_LR = 1e-4
 MHA_MIN_LEN = 384            # each sequence 384-512 real tokens
 
 
@@ -1221,11 +1250,10 @@ def _bias_cases(torch):
             (bf, 128, (1, 1), 2, 16, 1024, 1024, False, True, 3)]
 
 
-def _bias_case(torch, fa, gen, case):
-    """One :func:`_bias_cases` shape: the forward at both block heights and
-    the single pass (forced: the gate would split some of these) against
-    the plain versions with the same bias, the dead row exactly zero with
-    lse -1e30; returns the largest forward and gradient errors."""
+def _bias_case_inputs(torch, gen, case, what):
+    """One :func:`_bias_cases` shape's q, k, v, do, bias (2 x randn with a
+    fifth of its elements -inf, key 0 finite in every row, the dead row
+    -inf everywhere), segment ids (or None) and scale, and its name."""
     dtype, d, (bb, bh), b, h, sq, sk, causal, seg, dead = case
     q, do = (torch.randn(b, h, sq, d, generator=gen, device="cuda",
                          dtype=dtype) for _ in range(2))
@@ -1243,9 +1271,19 @@ def _bias_case(torch, fa, gen, case):
         sid_q[-1, sq - 5:] = -1
         sid_kv = torch.zeros(b, sk, dtype=torch.int32, device="cuda")
         sid_kv[0, sk - 9:] = -1
-    scale = d ** -0.5
-    what = f"flash bias {str(dtype)[6:]} d{d} {bb}x{bh} b{b} h{h} " \
-           f"sq{sq} sk{sk}{' causal' if causal else ''}"
+    name = f"{what} {str(dtype)[6:]} d{d} {bb}x{bh} b{b} h{h} sq{sq} " \
+           f"sk{sk}{' causal' if causal else ''}"
+    return q, k, v, do, bias, sid_q, sid_kv, d ** -0.5, name
+
+
+def _bias_case(torch, fa, gen, case):
+    """One :func:`_bias_cases` shape: the forward at both block heights and
+    the single pass (forced: the gate would split some of these) against
+    the plain versions with the same bias, the dead row exactly zero with
+    lse -1e30; returns the largest forward and gradient errors."""
+    *_, causal, _, dead = case
+    q, k, v, do, bias, sid_q, sid_kv, scale, what = _bias_case_inputs(
+        torch, gen, case, "flash bias")
     ref, ref_lse = fa.flash_attention_reference(
         q, k, v, causal=causal, segment_ids_q=sid_q, segment_ids_kv=sid_kv,
         scale=scale, bias=bias)
@@ -2265,10 +2303,12 @@ def check_flash_f32(torch, timer, split: bool):
 _SM90_KERNEL = re.compile(r"(flash_dkdv_sm90|flash_dq_sm90|flash_fwd_sm90|"
                           r"flash_bwd_fused_sm90)I\d+\w+?Li(\d+)E(?:Li(\d+)E)?"
                           r"(?:Lb([01])E)?(?:Lb([01])E)?")
-# the kernels held to no spill, with their dropout variants, and every
-# dropout variant but the split's dk/dv (the dk/dv kernel at d 64 spills 8
-# bytes: ROADMAP §C), which may spill no more than its twin without
+# the kernels held to no spill, with their dropout and bias variants, and
+# every dropout and bias variant but the split's dk/dv (the dk/dv kernel at
+# d 64 spills 8 bytes: ROADMAP §C), which may spill no more than its twin
+# without
 _NO_SPILL = ("flash_fwd_sm90", "flash_bwd_fused_sm90")
+_VARIANTS = (" dropout", " bias")
 
 
 def _sm90_registers(build):
@@ -2276,10 +2316,10 @@ def _sm90_registers(build):
     wgmma flash libraries (before ``setmaxnreg``: the producer warpgroup
     gives up to 40 a thread, 24 in a dropout or the single pass's bias
     variant, and the consumer warpgroups take 232, 240); fails on a spill
-    in the forward's and the single pass's kernels (their bias variants,
-    `` bias``, among them) and in every dropout variant (`` dropout``), but
-    for the split's dk/dv, which fails where it spills more than the same
-    kernel without dropout."""
+    in the forward's and the single pass's kernels and in every dropout
+    (`` dropout``) and bias (`` bias``) variant, but for the split's
+    dk/dv, which fails where a variant spills more than the same kernel
+    without it."""
     regs = {}
     for target in build.targets(["flash_fwd_sm90", "flash_bwd_sm90"]):
         name = None
@@ -2304,25 +2344,29 @@ def _sm90_registers(build):
                 spill = int(m.group(1)) + int(m.group(2))
                 regs[name]["spill_bytes"] = spill
                 check(spill == 0 or not (name.split()[1] in _NO_SPILL or (
-                    name.endswith(" dropout")
+                    name.endswith(_VARIANTS)
                     and name.split()[1] != "flash_dkdv_sm90")),
                       f"{name}: ptxas spills {spill} bytes")
             m = re.search(r"Used (\d+) registers", line)
             if m and name:
                 regs[name]["registers"] = int(m.group(1))
     for name, reg in regs.items():
-        if name.endswith(" dropout"):
-            twin = regs[name[:-len(" dropout")]]
-            check(reg["spill_bytes"] <= twin["spill_bytes"],
-                  f"{name}: ptxas spills {reg['spill_bytes']} bytes, its "
-                  f"twin without dropout {twin['spill_bytes']}")
+        for variant in _VARIANTS:
+            if name.endswith(variant):
+                twin = regs[name[:-len(variant)]]
+                check(reg["spill_bytes"] <= twin["spill_bytes"],
+                      f"{name}: ptxas spills {reg['spill_bytes']} bytes, "
+                      f"its twin without{variant} {twin['spill_bytes']}")
     # the split's variants: two dtypes, two kernels, two head dims
-    check(sum(n.endswith(" dropout") and n.split()[1] in (
-        "flash_dkdv_sm90", "flash_dq_sm90") for n in regs) == 8,
-          f"the split's dropout variants in ptxas's log: {sorted(regs)}")
+    for variant in _VARIANTS:
+        check(sum(n.endswith(variant) and n.split()[1] in (
+            "flash_dkdv_sm90", "flash_dq_sm90") for n in regs) == 8,
+              f"the split's{variant} variants in ptxas's log: "
+              f"{sorted(regs)}")
     # the bias variants: two dtypes; the forward at two head dims and two
-    # block heights, the single pass at two head dims
-    check(sum(n.endswith(" bias") for n in regs) == 12,
+    # block heights, the single pass and the split's two kernels at two
+    # head dims
+    check(sum(n.endswith(" bias") for n in regs) == 20,
           f"the bias variants in ptxas's log: {sorted(regs)}")
     return regs
 
@@ -2720,6 +2764,258 @@ def check_flash_split_dropout(torch, timer):
     ]
 
 
+def _split_bias_case(torch, fa, gen, case):
+    """One :func:`_bias_cases` shape through the split's bias variants
+    (forced): dq with the delta it folds in, then dk/dv from that delta,
+    each against its plain version with the same bias (the bf16
+    backwards' limits; the delta 1e-5); a dead row's dq exactly zero, no
+    non-finite gradient; returns the largest gradient error."""
+    _, _, _, b, h, sq, sk, causal, _, dead = case
+    q, k, v, do, bias, sid_q, sid_kv, scale, what = _bias_case_inputs(
+        torch, gen, case, "flash split bias")
+    kw = dict(causal=causal, segment_ids_q=sid_q, segment_ids_kv=sid_kv,
+              scale=scale, bias=bias)
+    out, lse = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal, scale,
+                                      bias=bias)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device="cuda")
+    args = (q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
+            fa._mixed_rounds(q, k, do))
+    bop = fa._bias_operand(bias, b, h, sq, sk, q.device, scale)
+    dq = fa._flash_dq_cuda(*args, out=out, bias=bop)
+    dk, dv = fa._flash_dkdv_cuda(*args, bias=bop)
+    rdq, rdelta = fa.flash_bwd_dq_reference(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    _fp32_err(delta, rdelta, f"{what} delta fold", 1e-5)
+    rdk, rdv = fa.flash_bwd_dkdv_reference(q, k, v, lse, delta, do, **kw)
+    check(all(bool(torch.isfinite(t.float()).all()) for t in (dq, dk, dv)),
+          f"{what}: a non-finite gradient")
+    gerr = max(grad_err(g, r, f"{what} {n}") for n, g, r in
+               zip(("dq", "dk", "dv"), (dq, dk, dv), (rdq, rdk, rdv)))
+    if dead is not None:
+        check(dq[:, :, dead].abs().max().item() == 0.0,
+              f"{what}: the row with no live key got a nonzero dq")
+    return what, gerr
+
+
+def _split_bias_positions(torch, fa, gen, dtype, d, sq, sk):
+    """The split's bias positions, bitwise: one-hot bias rows (0 at key
+    pi(q) of an injective map of the queries into the keys, a different
+    one for each (batch, head), -inf elsewhere), v = e_0 (each key's value
+    the first unit vector) and a zero output (the folded delta 0), so p is
+    1 at (q, pi(q)) and 0 elsewhere, dp = do[q, 0] and ds = p dp: dv is do
+    scattered to the keys pi(q), dk the keys pi(q)'s do[q, 0] q[q] scale
+    and dq do[q, 0] k[pi(q)] scale, each exact in fp32 (a product of two
+    operands of 8 or 11 bits, times a power of two) and so bit for bit."""
+    b, h, scale = 2, 3, 0.125
+    q, k, do = (torch.randn(b, h, s, d, generator=gen, device="cuda",
+                            dtype=dtype) for s in (sq, sk, sq))
+    v = torch.zeros(b, h, sk, d, device="cuda", dtype=dtype)
+    v[..., 0] = 1
+    pi = torch.stack([torch.randperm(sk, generator=gen, device="cuda")[:sq]
+                      for _ in range(b * h)]).view(b, h, sq)
+    bias = torch.full((b, h, sq, sk), float("-inf"), device="cuda")
+    bias.scatter_(3, pi[..., None], 0.0)
+    _, lse = fa.flash_attention_fwd(q, k, v, scale=scale, bias=bias)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device="cuda")
+    args = (q, k, v, do, lse, delta, None, None, False, scale,
+            fa._mixed_rounds(q, k, do))
+    bop = fa._bias_operand(bias, b, h, sq, sk, q.device, scale)
+    dq = fa._flash_dq_cuda(*args, out=torch.zeros_like(q), bias=bop)
+    dk, dv = fa._flash_dkdv_cuda(*args, bias=bop)
+    idx = pi[..., None].expand(b, h, sq, d)
+    d0 = do[..., :1].float()
+    want_dv = torch.zeros_like(v).scatter_(2, idx, do)
+    want_dk = torch.zeros_like(k).scatter_(2, idx, (d0 * q.float() * scale)
+                                           .to(dtype))
+    want_dq = (d0 * k.float().gather(2, idx) * scale).to(dtype)
+    torch.cuda.synchronize()
+    what = f"flash split bias positions {str(dtype)[6:]} d{d} sq{sq} sk{sk}"
+    check(delta.abs().max().item() == 0.0, f"{what}: the delta of out = 0")
+    check(torch.equal(dv, want_dv), f"{what}: dv is not do scattered to "
+          "pi(q) bit for bit")
+    check(torch.equal(dk, want_dk), f"{what}: dk is not do[q, 0] q scale "
+          "at pi(q) bit for bit")
+    check(torch.equal(dq, want_dq), f"{what}: dq is not do[q, 0] k[pi(q)] "
+          "scale bit for bit")
+    return f"b{b} h{h} sq{sq} sk{sk} d{d} {str(dtype)[6:]}, [b, h, sq, sk] " \
+           "one-hot rows: dq, dk, dv bitwise"
+
+
+# the shapes the split's bias variants are timed at: the d 64 grad check's
+# (b8 h16 s1024, the future mask and key padding of 768-1024 tokens) and
+# the train-mha16 path's attention (b1 h8 s3072 d128, the future mask)
+SPLIT_BIAS_SHAPES = ((8, 16, 1024, 64, 768), (MHA16_B, MHA16_HEADS,
+                                             MHA16_S, MHA_E // MHA16_HEADS,
+                                             None))
+
+
+def _split_bias_timed(torch, fa, F, timer, gen, b, h, s, d, min_len):
+    """The split's bias variants at one :data:`SPLIT_BIAS_SHAPES` shape,
+    each timed with and without the bias (its twin, the same kernel with
+    a null bias), the pair as called, their plain versions and SDPA's
+    backward with the same mask; with their bounds (the live pairs this
+    run's data needs: a finite bias and a real key; the bias's bytes read
+    once). Also B1's bias variant beside SDPA's forward."""
+    scale = d ** -0.5
+    q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    bias = future_mask(torch, s)[None, None]
+    sid_q = sid_kv = None
+    if min_len is not None:
+        lens = torch.from_numpy(np.random.RandomState(4).randint(
+            min_len, s + 1, b)).cuda()
+        sid_kv = torch.where(torch.arange(s, device="cuda")[None]
+                             < lens[:, None], 0, -1).to(torch.int32)
+        sid_q = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+        pad = torch.where(sid_kv < 0, float("-inf"), 0.0)[:, None, None]
+    else:
+        sid_kv = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+        pad = 0.0
+    check(fa.uses_split_backward(s, s, d, bias=True),
+          f"the gate at s{s} d{d} with a bias")
+    seg = (sid_q, sid_kv) if min_len is not None else (None, None)
+    out, lse = fa.flash_attention_fwd(q, k, v, *seg, False, scale, bias=bias)
+    g = fa.flash_attention_bwd
+    n0 = (g.launches, g.bias_dkdv_launches, g.bias_dq_launches)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, *seg, False, scale,
+                                 bias=bias)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, *seg, False, scale,
+                                   bias=bias)
+    torch.cuda.synchronize()
+    moved = tuple(a - b_ for a, b_ in zip(
+        (g.launches, g.bias_dkdv_launches, g.bias_dq_launches), n0))
+    what = f"flash split bias b{b} h{h} s{s} d{d}"
+    check(moved == (0, 2, 2), f"{what}: launches (single pass, bias dk/dv, "
+          f"bias dq) {moved}, expected the split's bias variants twice")
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"{what}: a rerun gave other bits")
+    del again
+    ref = fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, do, segment_ids_q=seg[0], segment_ids_kv=seg[1],
+        scale=scale, bias=bias)
+    pair_errs = {n: grad_err(gr, r, f"{what} {n}")
+                 for n, gr, r in zip(("dq", "dk", "dv"), got, ref)}
+    del got, ref
+    torch.cuda.empty_cache()
+
+    delta = torch.empty((b, h, s), dtype=torch.float32, device="cuda")
+    args = (q, k, v, do, lse, delta, *seg, False, scale,
+            fa._mixed_rounds(q, k, do))
+    bop = fa._bias_operand(bias, b, h, s, s, q.device, scale)
+    dq = fa._flash_dq_cuda(*args, out=out, bias=bop)
+    dk, dv = fa._flash_dkdv_cuda(*args, bias=bop)
+    kw = dict(segment_ids_q=seg[0], segment_ids_kv=seg[1], scale=scale,
+              bias=bias)
+    rdq, _ = fa.flash_bwd_dq_reference(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    dq_err = grad_err(dq, rdq, f"{what} dq kernel")
+    del dq, rdq
+    rdk, rdv = fa.flash_bwd_dkdv_reference(q, k, v, lse, delta, do, **kw)
+    dkdv_err = max(grad_err(dk, rdk, f"{what} dk kernel"),
+                   grad_err(dv, rdv, f"{what} dv kernel"))
+    del dk, dv, rdk, rdv
+    torch.cuda.empty_cache()
+
+    mask = (bias + pad).to(torch.bfloat16)
+    pairs = _bias_live_pairs(torch, bias, sid_kv, h)
+    sd2, side = b * h * s * d * 2, b * h * s * 4
+    bias_bytes = bias.numel() * 4 + (0 if min_len is None else 2 * b * s * 4)
+    # dq: q, k, v, do, out read (the delta fold), dq and delta written, lse
+    # read; dk/dv: q, k, v, do read, dk and dv written, lse and delta read
+    dq_bound = bound(3 * 2.0 * d * pairs, 6 * sd2 + 2 * side + bias_bytes)
+    dkdv_bound = bound(4 * 2.0 * d * pairs, 6 * sd2 + 2 * side + bias_bytes)
+    f_bound = bound(4.0 * d * pairs, 4 * sd2 + side + bias_bytes)
+    row = dict(
+        shape=f"b{b} h{h} s{s} d{d} bf16, bias [1, 1, {s}, {s}] fp32 (future "
+              "mask)" + ("" if min_len is None else
+                         f", key padding {min_len}-{s}"),
+        live_pairs=pairs, pair_max_abs_err=pair_errs,
+        dq_max_abs_err=dq_err, dkdv_max_abs_err=dkdv_err,
+        dq_ms=timer(lambda: fa._flash_dq_cuda(*args, out=out, bias=bop),
+                    iters=10),
+        dq_no_bias_ms=timer(lambda: fa._flash_dq_cuda(*args, out=out),
+                            iters=10),
+        dkdv_ms=timer(lambda: fa._flash_dkdv_cuda(*args, bias=bop),
+                      iters=10),
+        dkdv_no_bias_ms=timer(lambda: fa._flash_dkdv_cuda(*args), iters=10),
+        as_called_ms=timer(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, do, *seg, False, scale, bias=bias), iters=10),
+        dq_plain_ms=timer(lambda: fa.flash_bwd_dq_reference(
+            q, k, v, out, lse, do, **kw), iters=3, warmup=1),
+        dkdv_plain_ms=timer(lambda: fa.flash_bwd_dkdv_reference(
+            q, k, v, lse, delta, do, **kw), iters=3, warmup=1),
+        library_ms=timer(_grad_of(torch, lambda a, b_, c: (
+            F.scaled_dot_product_attention(a, b_, c, attn_mask=mask,
+                                           scale=scale)), (q, k, v), do),
+            iters=10),
+        dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
+        dkdv_bound_ms=dkdv_bound[0], dkdv_bound_by=dkdv_bound[1],
+        fwd_bias_ms=timer(lambda: fa.flash_attention_fwd(
+            q, k, v, *seg, False, scale, bias=bias), iters=10),
+        fwd_library_ms=timer(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale), iters=10),
+        fwd_bound_ms=f_bound[0], fwd_bound_by=f_bound[1])
+    del q, k, v, do, out, lse, delta, args, bop, mask
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_flash_split_bias(torch, timer):
+    """B3's and B4's bias variants (``flash_dkdv_sm90<..., BIAS>``,
+    ``flash_dq_sm90<..., BIAS>``: the tile's bias / scale loaded into the
+    S accumulators, which the S product adds to) at :func:`_bias_cases`'
+    shapes (bf16 and fp16, head dims 64 and 128, the four broadcast
+    shapes, sq != sk, odd sk, segment padding, a row -inf everywhere;
+    unmasked tiles with -inf entries beside masked ones), each kernel
+    against its plain version with the same bias at the bf16 backwards'
+    limits; the positions bitwise (:func:`_split_bias_positions`); then at
+    :data:`SPLIT_BIAS_SHAPES` the pair as routed against the plain
+    backward, a bitwise rerun, each kernel against its plain version, and
+    the times (:func:`_split_bias_timed`). The rows' numbers are the
+    train-mha16 path's shape (the last)."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    checked = [_split_bias_case(torch, fa, gen, c) for c in _bias_cases(torch)]
+    positions = [_split_bias_positions(torch, fa, gen, torch.bfloat16, 64,
+                                       256, 321),
+                 _split_bias_positions(torch, fa, gen, torch.float16, 128,
+                                       300, 512)]
+    torch.cuda.empty_cache()
+    by_shape = [_split_bias_timed(torch, fa, F, timer, gen, *shape)
+                for shape in SPLIT_BIAS_SHAPES]
+    main = by_shape[-1]
+    common = dict(
+        route="cuda", source="apex_tpu_torch/csrc/flash_bwd_sm90.cu",
+        shape=main["shape"],
+        tolerance="2 bf16 ulp + 2% of max, 1% relative norm, of the plain "
+                  "versions with the same bias; the folded delta 1e-5 of "
+                  "max; a rerun bitwise; the positions bitwise",
+        library_ms=main["library_ms"],
+        library="backward of F.scaled_dot_product_attention(attn_mask=the "
+                "bias and the padding as one bf16 mask): dq, dk and dv "
+                "together",
+        as_called_ms=main["as_called_ms"], live_pairs=main["live_pairs"],
+        pair_max_abs_err=main["pair_max_abs_err"], positions=positions,
+        checked=[dict(case=w, grad_max_abs_err=e) for w, e in checked],
+        by_shape=by_shape)
+    return [
+        dict(name="flash_bwd_dkdv_sm90_bias",
+             replaces="apex_tpu/ops/flash_attention.py:558",
+             max_abs_err=main["dkdv_max_abs_err"], ms=main["dkdv_ms"],
+             no_bias_ms=main["dkdv_no_bias_ms"],
+             plain_ms=main["dkdv_plain_ms"], plain="flash_bwd_dkdv_reference",
+             bound_ms=main["dkdv_bound_ms"], bound_by=main["dkdv_bound_by"],
+             **common),
+        dict(name="flash_bwd_dq_sm90_bias",
+             replaces="apex_tpu/ops/flash_attention.py:671",
+             max_abs_err=main["dq_max_abs_err"], ms=main["dq_ms"],
+             no_bias_ms=main["dq_no_bias_ms"], plain_ms=main["dq_plain_ms"],
+             plain="flash_bwd_dq_reference", bound_ms=main["dq_bound_ms"],
+             bound_by=main["dq_bound_by"], **common),
+    ]
+
+
 # the ResNet-50 head (n256 V1000 fp32, the bench's smoothing) and the GPT's
 # vocabulary at its token count (n8192 V32768 bf16, smoothing 0.1 and 0)
 XENT_SHAPES = ((256, 1000, "float32", (0.1,)),
@@ -2961,8 +3257,8 @@ def counters():
     :func:`read_counters` leaves flash_fwd.cu's and flash_bwd.cu's own
     launches there), and the wgmma forward's, single pass's and split's
     dropout variants (``*_dropout``) apart from their variants without,
-    and the wgmma forward's and single pass's bias variants (``*_bias``)
-    apart from both."""
+    and the wgmma forward's, single pass's and split's bias variants
+    (``*_bias``) apart from both."""
     from apex_tpu_torch.ops import flash_attention as fa
     from apex_tpu_torch.ops import fp8_matmul as mm
     from apex_tpu_torch.ops import fused_ce as xe
@@ -3006,6 +3302,10 @@ def counters():
                                             "dropout_dkdv_launches"),
             "flash_bwd_dq_sm90_dropout": (fa.flash_attention_bwd,
                                           "dropout_dq_launches"),
+            "flash_bwd_dkdv_sm90_bias": (fa.flash_attention_bwd,
+                                         "bias_dkdv_launches"),
+            "flash_bwd_dq_sm90_bias": (fa.flash_attention_bwd,
+                                       "bias_dq_launches"),
             "flash_bwd_f32_dkdv": (fa.flash_attention_bwd,
                                    "f32_dkdv_launches"),
             "flash_bwd_f32_dq": (fa.flash_attention_bwd, "f32_dq_launches"),
@@ -3041,8 +3341,8 @@ def read_counters():
     pass's and split's less their dropout variants', so that
     ``flash_fwd_sm90``, ``flash_bwd_fused_sm90``, ``flash_bwd_dkdv_sm90``
     and ``flash_bwd_dq_sm90`` count the kernels without dropout and
-    ``*_dropout`` those with; and the wgmma forward's and single pass's
-    less their bias variants' (``*_bias``)."""
+    ``*_dropout`` those with; and the wgmma forward's, single pass's and
+    split's less their bias variants' (``*_bias``)."""
     out = {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
     out["fp8_matmul"] -= out["fp8_matmul_prefill"]
     out["lm_head_ce_fwd"] -= out["lm_head_ce_fwd_f32"]
@@ -3056,8 +3356,10 @@ def read_counters():
         out["flash_fwd_sm90_bias"]
     out["flash_bwd_fused_sm90"] -= out["flash_bwd_fused_sm90_dropout"] + \
         out["flash_bwd_fused_sm90_bias"]
-    out["flash_bwd_dkdv_sm90"] -= out["flash_bwd_dkdv_sm90_dropout"]
-    out["flash_bwd_dq_sm90"] -= out["flash_bwd_dq_sm90_dropout"]
+    out["flash_bwd_dkdv_sm90"] -= out["flash_bwd_dkdv_sm90_dropout"] + \
+        out["flash_bwd_dkdv_sm90_bias"]
+    out["flash_bwd_dq_sm90"] -= out["flash_bwd_dq_sm90_dropout"] + \
+        out["flash_bwd_dq_sm90_bias"]
     return out
 
 
@@ -3268,6 +3570,8 @@ TRAIN_PER_STEP = {"flash_fwd": 0, "flash_fwd_sm90": 12, "flash_fwd_f32": 0,
                   "flash_bwd_dkdv_sm90": 0, "flash_bwd_dq_sm90": 0,
                   "flash_bwd_dkdv_sm90_dropout": 0,
                   "flash_bwd_dq_sm90_dropout": 0,
+                  "flash_bwd_dkdv_sm90_bias": 0,
+                  "flash_bwd_dq_sm90_bias": 0,
                   "flash_bwd_f32": 0, "flash_bwd_f32_dkdv": 0,
                   "flash_bwd_f32_dq": 0, "xentropy_fwd": 0,
                   "xentropy_bwd": 0, "multi_tensor_update": 0,
@@ -3608,15 +3912,24 @@ MHA_BIAS_KW = dict(dropout=0.0, use_bias=True, include_norm_add=True,
 MHA_DROP_KW = dict(dropout=DROPOUT_RATE, use_bias=False,
                    include_norm_add=False, impl="fast")
 MHA_GRAD_LAYERS = 2
+# the long-context path: the flash forward's and the split's bias variants
+# (the gate splits every biased backward at s3072 d128) and the LayerNorm
+# pair of norm_add
+MHA16_PER_STEP = {**{k: 0 for k in TRAIN_PER_STEP},
+                  "flash_fwd_sm90_bias": MHA16_LAYERS,
+                  "flash_bwd_dkdv_sm90_bias": MHA16_LAYERS,
+                  "flash_bwd_dq_sm90_bias": MHA16_LAYERS,
+                  "layer_norm_fwd": MHA16_LAYERS,
+                  "layer_norm_bwd": MHA16_LAYERS}
 
 
-def mha_stack(torch, layers, kw):
-    """``layers`` ``SelfMultiheadAttn(1024, 16, **kw)`` on the card, their
-    parameters from the flax initialisers' distributions (seed 0)."""
+def mha_stack(torch, layers, kw, heads=MHA_HEADS):
+    """``layers`` ``SelfMultiheadAttn(1024, heads, **kw)`` on the card,
+    their parameters from the flax initialisers' distributions (seed 0)."""
     from torch import nn
     from apex_tpu_torch.contrib.multihead_attn import SelfMultiheadAttn
     gen = torch.Generator().manual_seed(0)
-    return nn.ModuleList([SelfMultiheadAttn(MHA_E, MHA_HEADS, device="cuda",
+    return nn.ModuleList([SelfMultiheadAttn(MHA_E, heads, device="cuda",
                                             generator=gen, **kw)
                           for _ in range(layers)])
 
@@ -3635,31 +3948,33 @@ def mha_loss(stack, x, target, kpm, mask, generator=None, reference=False):
     return (x.float() - target).square().mean()
 
 
-def mha_batch(torch, s, b, bias: bool):
+def mha_batch(torch, s, b, mask: bool, lens=None):
     """``(x, target, key_padding_mask, attn_mask)``: x bf16 from numpy seed
-    0, the target fp32 from seed 1; with ``bias`` the padding of
-    :func:`mha_lengths` and fairseq's future mask, else neither."""
+    0, the target fp32 from seed 1; with ``mask`` fairseq's future mask,
+    with ``lens`` (each sequence's real tokens) the key padding."""
     x = torch.from_numpy(np.random.RandomState(0).randn(
         s, b, MHA_E).astype(np.float32)).cuda().bfloat16()
     target = torch.from_numpy(np.random.RandomState(1).randn(
         s, b, MHA_E).astype(np.float32)).cuda()
-    if not bias:
-        return x, target, None, None
-    lens = torch.from_numpy(mha_lengths()).cuda()
-    kpm = torch.arange(s, device="cuda")[None] >= lens[:, None]
-    return x, target, kpm, future_mask(torch, s)
+    kpm = None
+    if lens is not None:
+        kpm = (torch.arange(s, device="cuda")[None]
+               >= torch.from_numpy(lens).cuda()[:, None])
+    return x, target, kpm, future_mask(torch, s) if mask else None
 
 
-def run_mha_path(torch, kw, s, b, per_step, what, bias):
+def run_mha_path(torch, kw, s, b, per_step, what, mask, lens=None,
+                 layers=MHA_LAYERS, heads=MHA_HEADS, lr=LR):
     """The O2 ``FusedAdam`` step (dynamic scale, ``amp.make_train_step``)
-    of an :data:`MHA_LAYERS`-layer stack: a warm-up, then
-    :data:`MHA_STEPS` timed steps with the counters reset just before, 2
-    traced; finite, falling losses and each kernel's launches a step as
-    ``per_step`` has them. Attention dropout from one host generator."""
+    of a ``layers``-layer stack of ``heads`` heads over
+    :func:`mha_batch`'s batch: a warm-up, then :data:`MHA_STEPS` timed
+    steps with the counters reset just before, 2 traced; finite, falling
+    losses and each kernel's launches a step as ``per_step`` has them.
+    Attention dropout from one host generator."""
     from apex_tpu_torch import amp
     from apex_tpu_torch.optimizers import FusedAdam
-    stack = mha_stack(torch, MHA_LAYERS, kw)
-    amp_model, opt = amp.initialize(stack, FusedAdam(lr=LR), opt_level="O2",
+    stack = mha_stack(torch, layers, kw, heads)
+    amp_model, opt = amp.initialize(stack, FusedAdam(lr=lr), opt_level="O2",
                                     loss_scale="dynamic", verbosity=0)
     amp_model.cast_params()
     state = opt.init(stack.parameters())
@@ -3667,7 +3982,7 @@ def run_mha_path(torch, kw, s, b, per_step, what, bias):
     gen = torch.Generator().manual_seed(DROP_GEN_SEED)
     step = amp.make_train_step(
         lambda m, x, t, kpm, mask: mha_loss(m, x, t, kpm, mask, gen), opt)
-    batch = mha_batch(torch, s, b, bias)
+    batch = mha_batch(torch, s, b, mask, lens)
     _, state, sstate, _ = step(stack, state, sstate, *batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3694,7 +4009,7 @@ def run_mha_path(torch, kw, s, b, per_step, what, bias):
         _, box[0], box[1], _ = step(stack, box[0], box[1], *batch)
 
     trace = _profile(torch, one, 2)
-    stats = dict(layers=MHA_LAYERS, embed=MHA_E, heads=MHA_HEADS, batch=b,
+    stats = dict(layers=layers, embed=MHA_E, heads=heads, batch=b, lr=lr,
                  seq=s, module_options=kw, steps=MHA_STEPS, losses=losses,
                  step_ms_median=float(np.median(ms)),
                  step_ms_p90=float(np.percentile(ms, 90)), step_ms_all=ms,
@@ -3708,12 +4023,20 @@ def run_mha_path(torch, kw, s, b, per_step, what, bias):
 
 def run_mha_bias_path(torch):
     return run_mha_path(torch, MHA_BIAS_KW, MHA_S, MHA_B, MHA_BIAS_PER_STEP,
-                        "train-mha18-bias", True)
+                        "train-mha18-bias", True, mha_lengths())
 
 
 def run_mha_dropout_path(torch):
     return run_mha_path(torch, MHA_DROP_KW, MHA_DROP_S, MHA_DROP_B,
                         MHA_DROP_PER_STEP, "train-mha18-dropout", False)
+
+
+def run_mha16_path(torch):
+    """train-mha16-e1024h8-b1s3072-bias: one 3072-token sample a step with
+    no padding (``--sample-break-mode none``) under the future mask."""
+    return run_mha_path(torch, MHA_BIAS_KW, MHA16_S, MHA16_B, MHA16_PER_STEP,
+                        "train-mha16-s3072-bias", True,
+                        layers=MHA16_LAYERS, heads=MHA16_HEADS, lr=MHA16_LR)
 
 
 def _twin_grads(torch, what, params, loss_of):
@@ -3747,32 +4070,22 @@ def _twin_grads(torch, what, params, loss_of):
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
-def mha_grad_checks(torch):
-    """The 2-layer full-width grad checks (the depth cut; the width is the
-    paths'): each configuration's stack, cast to bf16 as O2 casts it,
-    through the kernels against ``reference=True`` with a host generator in
-    the same state on both sides; and one ``EncdecMultiheadAttn(1024, 16)``
-    at sq 256, sk 512, b16 with a finite [16, 1, 256, 512] bias and key
-    padding, its inputs' and parameters' gradients."""
+def _bias_routes(fa):
+    """The bias variants' counters: the forward's, the single pass's and
+    the split's two."""
+    f, g = fa.flash_attention, fa.flash_attention_bwd
+    return (f.bias_launches, g.bias_launches, g.bias_dkdv_launches,
+            g.bias_dq_launches)
+
+
+def _encdec_grad_check(torch, fa, what, sq, sk, b, routes):
+    """One ``EncdecMultiheadAttn(1024, 16)`` at sq x sk, batch ``b``, with a
+    finite [b, 1, sq, sk] bias and key padding of sk / 2 to sk tokens: its
+    inputs' and parameters' gradients through the kernels against
+    ``reference=True``; ``routes`` the bias variants' launches
+    (:func:`_bias_routes`) the kernels' run must make."""
     from apex_tpu_torch.contrib.multihead_attn import EncdecMultiheadAttn
-    from apex_tpu_torch.ops import flash_attention as fa
-    out = {}
-    for name, kw, s, b, bias in (
-            ("bias", MHA_BIAS_KW, MHA_S, MHA_B, True),
-            ("dropout", MHA_DROP_KW, MHA_DROP_S, MHA_DROP_B, False)):
-        stack = mha_stack(torch, MHA_GRAD_LAYERS, kw).bfloat16()
-        batch = mha_batch(torch, s, b, bias)
-
-        def loss_of(reference):
-            gen = torch.Generator().manual_seed(DROP_GEN_SEED + 3)
-            return mha_loss(stack, *batch, generator=gen,
-                            reference=reference)
-
-        out[name] = _twin_grads(torch, f"mha grad check {name}",
-                                dict(stack.named_parameters()), loss_of)
-        del stack, batch
     gen = torch.Generator(device="cuda").manual_seed(23)
-    sq, sk, b = 256, 512, MHA_B
     m = EncdecMultiheadAttn(MHA_E, MHA_HEADS, use_bias=True,
                             include_norm_add=True, device="cuda",
                             generator=torch.Generator().manual_seed(1))
@@ -3786,21 +4099,72 @@ def mha_grad_checks(torch):
     target = torch.randn(sq, b, MHA_E, generator=gen, device="cuda")
     params = {"query": xq.requires_grad_(), "key": xk.requires_grad_(),
               **dict(m.named_parameters())}
-    f, g = fa.flash_attention, fa.flash_attention_bwd
-    n0 = (f.bias_launches, g.bias_launches)
+    n0 = _bias_routes(fa)
 
     def loss_of(reference):
         y = m(xq, xk, key_padding_mask=kpm, attn_mask=bias,
               is_training=False, reference=reference)
         return (y.float() - target).square().mean()
 
-    out["encdec"] = _twin_grads(torch, "encdec grad check", params, loss_of)
-    check((f.bias_launches - n0[0], g.bias_launches - n0[1]) == (1, 1),
-          "encdec grad check: not the bias variants")
-    out["encdec"]["shape"] = (f"sq{sq} sk{sk} b{b} e{MHA_E} h{MHA_HEADS}, "
-                              f"bias [{b}, 1, {sq}, {sk}], key padding")
+    out = _twin_grads(torch, what, params, loss_of)
+    moved = tuple(a - b_ for a, b_ in zip(_bias_routes(fa), n0))
+    check(moved == routes, f"{what}: bias launches (forward, single pass, "
+          f"split dk/dv, split dq) {moved}, expected {routes}")
+    out["shape"] = (f"sq{sq} sk{sk} b{b} e{MHA_E} h{MHA_HEADS}, bias [{b}, "
+                    f"1, {sq}, {sk}], key padding")
     del m, params
     torch.cuda.empty_cache()
+    return out
+
+
+def mha_grad_checks(torch):
+    """The 2-layer full-width grad checks (the depth cut; the width is the
+    paths'): each configuration's stack, cast to bf16 as O2 casts it,
+    through the kernels against ``reference=True`` with a host generator in
+    the same state on both sides — the train-mha18 paths' two, the
+    train-mha16 path's at s3072 (d 128: the split's bias variants over
+    unmasked tiles), and ``SelfMultiheadAttn(1024, 16)`` at b8 s1024 with
+    the future mask and key padding of 768-1024 tokens (d 64: masked
+    tiles; the gate splits only for the bias); and
+    ``EncdecMultiheadAttn(1024, 16)`` at sq 256, sk 512, b16 (the single
+    pass) and at sq 512, sk 1024, b16 (sq != sk on the split), each with a
+    finite [16, 1, sq, sk] bias and key padding, its inputs' and
+    parameters' gradients. Each check asserts which bias variants ran."""
+    from apex_tpu_torch.ops import flash_attention as fa
+    out = {}
+    single, split = (1, 1, 0, 0), (1, 0, 1, 1)
+    lens1024 = np.random.RandomState(5).randint(768, 1025, 8)
+    for name, kw, s, b, heads, mask, lens, routes in (
+            ("bias", MHA_BIAS_KW, MHA_S, MHA_B, MHA_HEADS, True,
+             mha_lengths(), single),
+            ("dropout", MHA_DROP_KW, MHA_DROP_S, MHA_DROP_B, MHA_HEADS,
+             False, None, (0, 0, 0, 0)),
+            ("bias-s3072-h8", MHA_BIAS_KW, MHA16_S, MHA16_B, MHA16_HEADS,
+             True, None, split),
+            ("bias-s1024-h16", MHA_BIAS_KW, 1024, 8, MHA_HEADS, True,
+             lens1024, split)):
+        stack = mha_stack(torch, MHA_GRAD_LAYERS, kw, heads).bfloat16()
+        batch = mha_batch(torch, s, b, mask, lens)
+
+        def loss_of(reference):
+            gen = torch.Generator().manual_seed(DROP_GEN_SEED + 3)
+            return mha_loss(stack, *batch, generator=gen,
+                            reference=reference)
+
+        n0 = _bias_routes(fa)
+        out[name] = _twin_grads(torch, f"mha grad check {name}",
+                                dict(stack.named_parameters()), loss_of)
+        moved = tuple(a - b_ for a, b_ in zip(_bias_routes(fa), n0))
+        want = tuple(MHA_GRAD_LAYERS * r for r in routes)
+        check(moved == want, f"mha grad check {name}: bias launches "
+              f"(forward, single pass, split dk/dv, split dq) {moved}, "
+              f"expected {want}")
+        out[name]["shape"] = f"s{s} b{b} h{heads}"
+        del stack, batch
+    out["encdec"] = _encdec_grad_check(torch, fa, "encdec grad check", 256,
+                                       512, MHA_B, single)
+    out["encdec-sq512-sk1024"] = _encdec_grad_check(
+        torch, fa, "encdec grad check sq512 sk1024", 512, 1024, MHA_B, split)
     return out
 
 
@@ -5166,6 +5530,7 @@ def main() -> int:
                *check_lm_head_ce_f32(torch, timer),
                *check_flash_split(torch, timer),
                *check_flash_split_dropout(torch, timer),
+               *check_flash_split_bias(torch, timer),
                *check_flash_f32(torch, timer, split=True),
                *check_xentropy(torch, timer),
                check_multi_tensor_update(torch, timer),
@@ -5359,7 +5724,8 @@ def main() -> int:
                       (f"train-o0-gpt2-s{O0_LONG_S}", run_o0_long_path),
                       ("train-mha18-e1024-b16s512-bias", run_mha_bias_path),
                       ("train-mha18-e1024-b120s64-dropout",
-                       run_mha_dropout_path)):
+                       run_mha_dropout_path),
+                      ("train-mha16-e1024h8-b1s3072-bias", run_mha16_path)):
         new_paths[path] = run(torch)
         log(f"{path} path ({card}): " + json.dumps(new_paths[path]))
         if "trace" in new_paths[path]:

@@ -66,13 +66,15 @@ rerun; and each kernel's mask is the plain mask bit for bit (the forward:
 v the identity; the split's dk/dv: do the identity; its dq: k the
 identity and a zero output).
 
-The additive bias on the wgmma route (the forward's and the single pass's
-bias variants) is held at the same limits against the plain versions with
-the same bias, over bf16 and fp16, head dims 64 and 128, the four
-broadcast shapes, sq != sk, odd sk, segment padding, -inf entries and a
-row that is -inf everywhere (out 0, lse -1e30, dq 0); bitwise on a rerun;
+The additive bias on the wgmma route (the forward's, the single pass's and
+the split's bias variants) is held at the same limits against the plain
+versions with the same bias, over bf16 and fp16, head dims 64 and 128, the
+four broadcast shapes, sq != sk, odd sk, segment padding, -inf entries and
+a row that is -inf everywhere (out 0, lse -1e30, dq 0); bitwise on a rerun;
 its positions bitwise through one-hot rows (out is v permuted, dv is do
-permuted); the refused routes raise before any launch, naming the route.
+permuted; through the split with v = e_0 and a zero output, dq, dk and dv
+are exact products and so bitwise); the refused routes raise before any
+launch, naming the route.
 
 The fp8 dequant-matmul's prefill regime (m > 8, wgmma/TMA with the
 weight converted in registers, ``_prefill_plan``) is held like its decode
@@ -2193,17 +2195,10 @@ def test_layer_norm_bwd_is_one_launch_and_bitwise_on_a_rerun(gen, h):
 # the additive bias in the forward and the single pass (bias variants)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("dtype,d,bdims,b,h,sq,sk,causal,seg,dead", [
-    (_BF, 64, (1, 1), 2, 4, 512, 512, False, False, 7),
-    (_F16, 64, (1, 4), 2, 4, 300, 700, True, False, None),
-    (_BF, 128, (2, 1), 2, 4, 257, 513, False, True, None),
-    (_F16, 128, (2, 4), 2, 4, 640, 333, False, False, 100),
-    (_BF, 64, (3, 2), 3, 2, 128, 129, True, True, None),
-    (_BF, 80, (1, 1), 1, 2, 96, 77, False, False, 0),     # padded head dim
-])
-@pytest.mark.parametrize("rows", [64, 128])
-def test_flash_bias_variants_match_plain(gen, dtype, d, bdims, b, h, sq,
-                                         sk, causal, seg, dead, rows):
+def _bias_inputs(gen, dtype, d, bdims, b, h, sq, sk, seg, dead):
+    """q, k, v, do, a bias of ``bdims`` (2 x randn, a fifth of it -inf, key
+    0 finite in every row, row ``dead`` -inf everywhere) and segment ids
+    with padding (or None)."""
     q, do = (_rand(gen, b, h, sq, d, dtype=dtype) for _ in range(2))
     k, v = (_rand(gen, b, h, sk, d, dtype=dtype) for _ in range(2))
     bias = 2 * _rand(gen, *bdims, sq, sk, dtype=torch.float32)
@@ -2218,6 +2213,22 @@ def test_flash_bias_variants_match_plain(gen, dtype, d, bdims, b, h, sq,
         sid_q[-1, sq - 5:] = -1
         sid_kv = torch.zeros(b, sk, dtype=torch.int32, device="cuda")
         sid_kv[0, sk - 9:] = -1
+    return q, k, v, do, bias, sid_q, sid_kv
+
+
+@pytest.mark.parametrize("dtype,d,bdims,b,h,sq,sk,causal,seg,dead", [
+    (_BF, 64, (1, 1), 2, 4, 512, 512, False, False, 7),
+    (_F16, 64, (1, 4), 2, 4, 300, 700, True, False, None),
+    (_BF, 128, (2, 1), 2, 4, 257, 513, False, True, None),
+    (_F16, 128, (2, 4), 2, 4, 640, 333, False, False, 100),
+    (_BF, 64, (3, 2), 3, 2, 128, 129, True, True, None),
+    (_BF, 80, (1, 1), 1, 2, 96, 77, False, False, 0),     # padded head dim
+])
+@pytest.mark.parametrize("rows", [64, 128])
+def test_flash_bias_variants_match_plain(gen, dtype, d, bdims, b, h, sq,
+                                         sk, causal, seg, dead, rows):
+    q, k, v, do, bias, sid_q, sid_kv = _bias_inputs(
+        gen, dtype, d, bdims, b, h, sq, sk, seg, dead)
     scale = d ** -0.5
     f, g = fa.flash_attention, fa.flash_attention_bwd
     n0 = (f.bias_launches, g.bias_launches)
@@ -2279,13 +2290,18 @@ def test_flash_bias_positions_are_bitwise(gen, d):
 
 
 def test_flash_bias_refuses_the_unported_routes_on_the_card(gen):
+    """s640 d64 with a bias splits, and the split takes the bias; the FFMA
+    and frag.cuh routes refuse it before any launch."""
     qs = _rand(gen, 1, 1, 640, 64).requires_grad_()
     bias = torch.zeros(1, 1, 640, 640, device="cuda")
+    g = fa.flash_attention_bwd
     n0 = fa.flash_attention.launches
-    with pytest.raises(NotImplementedError, match="split backward"):
-        fa.flash_attention(qs, qs, qs, bias=bias)
-    # forward only: the split is not asked for
-    fa.flash_attention(qs.detach(), qs.detach(), qs.detach(), bias=bias)
+    s0 = (g.launches, g.bias_dkdv_launches, g.bias_dq_launches)
+    fa.flash_attention(qs, qs, qs, bias=bias).float().sum().backward()
+    torch.cuda.synchronize()
+    assert (g.launches, g.bias_dkdv_launches, g.bias_dq_launches) == (
+        s0[0], s0[1] + 1, s0[2] + 1)
+    assert bool(torch.isfinite(qs.grad).all())
     q32 = _rand(gen, 1, 2, 64, 64, dtype=torch.float32)
     b64 = torch.zeros(1, 1, 64, 64, device="cuda")
     with pytest.raises(NotImplementedError, match="FFMA"):
@@ -2295,6 +2311,81 @@ def test_flash_bias_refuses_the_unported_routes_on_the_card(gen):
         fa.flash_attention(qd, qd, qd, bias=b64)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == n0 + 1
+
+
+# ---------------------------------------------------------------------------
+# the additive bias in the split (B3, B4 bias variants)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,d,bdims,b,h,sq,sk,causal,seg,dead", [
+    (_BF, 64, (1, 1), 2, 4, 512, 512, False, False, 7),   # unmasked tiles
+    (_F16, 64, (1, 4), 2, 4, 300, 700, True, False, None),
+    (_BF, 128, (2, 1), 2, 4, 257, 513, False, True, None),
+    (_F16, 128, (2, 4), 2, 4, 640, 333, False, False, 100),
+    (_BF, 64, (3, 2), 3, 2, 128, 129, True, True, None),
+    (_F16, 128, (1, 1), 1, 8, 1024, 1024, False, False, 3),
+])
+def test_flash_split_bias_variants_match_plain(gen, dtype, d, bdims, b, h,
+                                               sq, sk, causal, seg, dead):
+    """Each kernel of the split with a bias against its plain version (dq
+    with the delta it folds in, dk/dv from that delta); a dead row's dq
+    exactly 0; a rerun bitwise."""
+    q, k, v, do, bias, sid_q, sid_kv = _bias_inputs(
+        gen, dtype, d, bdims, b, h, sq, sk, seg, dead)
+    scale = d ** -0.5
+    kw = dict(causal=causal, segment_ids_q=sid_q, segment_ids_kv=sid_kv,
+              scale=scale, bias=bias)
+    out, lse = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal, scale,
+                                      bias=bias)
+    g = fa.flash_attention_bwd
+    n0 = (g.launches, g.bias_dkdv_launches, g.bias_dq_launches)
+    grads = fa._flash_bwd_cuda(q, k, v, out, lse, do, sid_q, sid_kv, causal,
+                               scale, split=True, bias=bias)
+    again = fa._flash_bwd_cuda(q, k, v, out, lse, do, sid_q, sid_kv, causal,
+                               scale, split=True, bias=bias)
+    torch.cuda.synchronize()
+    assert (g.launches, g.bias_dkdv_launches, g.bias_dq_launches) == (
+        n0[0], n0[1] + 2, n0[2] + 2)
+    assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+    rdq, rdelta = fa.flash_bwd_dq_reference(q, k, v, out, lse, do, **kw)
+    rdk, rdv = fa.flash_bwd_dkdv_reference(q, k, v, lse, rdelta, do, **kw)
+    for name, got, r in zip(("dq", "dk", "dv"), grads, (rdq, rdk, rdv)):
+        assert bool(torch.isfinite(got.float()).all()), name
+        _close_grad(got, r, name)
+    if dead is not None:
+        assert float(grads[0][:, :, dead].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype,d,sq,sk", [(_BF, 64, 256, 321),
+                                           (_F16, 128, 300, 512)])
+def test_flash_split_bias_positions_are_bitwise(gen, dtype, d, sq, sk):
+    """One-hot bias rows (0 at key pi(q) of an injective map of the queries
+    into the keys, one per (batch, head)), v = e_0 and a zero output (the
+    folded delta 0): dv is do scattered to pi(q), dk is do[q, 0] q scale
+    there and dq do[q, 0] k[pi(q)] scale, exact products, bit for bit."""
+    b, h, scale = 2, 3, 0.125
+    q, do = (_rand(gen, b, h, sq, d, dtype=dtype) for _ in range(2))
+    k = _rand(gen, b, h, sk, d, dtype=dtype)
+    v = torch.zeros(b, h, sk, d, device="cuda", dtype=dtype)
+    v[..., 0] = 1
+    pi = torch.stack([torch.randperm(sk, generator=gen, device="cuda")[:sq]
+                      for _ in range(b * h)]).view(b, h, sq)
+    bias = torch.full((b, h, sq, sk), float("-inf"), device="cuda")
+    bias.scatter_(3, pi[..., None], 0.0)
+    _, lse = fa.flash_attention_fwd(q, k, v, scale=scale, bias=bias)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device="cuda")
+    args = (q, k, v, do, lse, delta, None, None, False, scale,
+            fa._mixed_rounds(q, k, do))
+    bop = fa._bias_operand(bias, b, h, sq, sk, q.device, scale)
+    dq = fa._flash_dq_cuda(*args, out=torch.zeros_like(q), bias=bop)
+    dk, dv = fa._flash_dkdv_cuda(*args, bias=bop)
+    idx = pi[..., None].expand(b, h, sq, d)
+    d0 = do[..., :1].float()
+    assert float(delta.abs().max()) == 0.0
+    assert torch.equal(dv, torch.zeros_like(v).scatter_(2, idx, do))
+    assert torch.equal(dk, torch.zeros_like(k).scatter_(
+        2, idx, (d0 * q.float() * scale).to(dtype)))
+    assert torch.equal(dq, (d0 * k.float().gather(2, idx) * scale).to(dtype))
 
 
 def test_multihead_attn_modules_run_the_bias_kernels(gen):

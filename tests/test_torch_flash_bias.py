@@ -19,8 +19,9 @@ JAX kernel rounds p to bf16 before the PV product, the plain version does
 not) and two bf16 ulps plus 2 % of the largest gradient (the JAX kernel
 rounds p and ds to bf16 before its products). The gate counts the bias as
 the JAX gate does, ``bias_refusal`` names every route that still refuses
-it, and the CUDA wrappers' C calls (the library stubbed: no card needed)
-carry the fp32 bias with its broadcast strides, never expanded.
+it (the split takes it), and the CUDA wrappers' C calls (the library
+stubbed: no card needed) carry the fp32 bias with its broadcast strides,
+never expanded.
 """
 
 import importlib
@@ -258,12 +259,18 @@ def test_gate_counts_the_bias_as_the_jax_gate_does(s, d, split):
 
 
 def test_bias_refusal_names_each_refused_route():
+    """The wgmma route takes the bias in the single pass and the split
+    alike: the route a bias shape takes (s640 d64 splits) is not refused;
+    dropout with it, the FFMA route and the frag.cuh kernels are."""
     bf, f32 = torch.bfloat16, torch.float32
     assert tfa.bias_refusal(bf, 64) is None
     assert tfa.bias_refusal(torch.float16, 128) is None
-    assert "split" in tfa.bias_refusal(bf, 64, split=True)
+    q = torch.zeros(1, 1, 640, 64, dtype=bf)
+    assert tfa._bwd_route(q, q, q, False, 0.0, bias=True) == (True, bf)
     assert "dropout" in tfa.bias_refusal(bf, 64, dropout=True)
-    assert "dropout" in tfa.bias_refusal(bf, 128, split=True, dropout=True)
+    assert "dropout" in tfa.bias_refusal(bf, 128, dropout=True)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        tfa._bwd_route(q, q, q, False, 0.1, bias=True)
     assert "FFMA" in tfa.bias_refusal(f32, 64)
     assert "frag.cuh" in tfa.bias_refusal(bf, 32)
     assert "frag.cuh" in tfa.bias_refusal(f32, 256)
@@ -333,9 +340,9 @@ def test_bias_operand_is_cast_without_expanding_a_broadcast_dim():
 
 
 @pytest.mark.parametrize("make,match", [
-    # the gate sends s640 d64 with a bias to the split
-    (lambda: (torch.zeros(1, 1, 640, 64, dtype=torch.bfloat16), {}),
-     "split backward"),
+    # the gate sends s640 d64 with a bias to the split: with dropout too
+    (lambda: (torch.zeros(1, 1, 640, 64, dtype=torch.bfloat16),
+              dict(dropout_rate=0.1, dropout_seed=1)), "dropout"),
     (lambda: (torch.zeros(1, 1, 64, 64, dtype=torch.bfloat16),
               dict(dropout_rate=0.1, dropout_seed=1)), "dropout"),
     (lambda: (torch.zeros(1, 1, 64, 64), {}), "FFMA"),
@@ -376,4 +383,45 @@ def test_cuda_bias_autograd_runs_the_bias_variants_and_a_zero_dbias(
                                      "apex_flash_bwd_sm90_fused"]
     assert bias.grad is not None and bias.grad.dtype == torch.bfloat16
     assert tuple(bias.grad.shape) == (1, 1, 32, 32)
+    assert torch.count_nonzero(bias.grad).item() == 0
+
+
+def test_cuda_split_bias_calls_dq_then_dkdv_with_the_bias(monkeypatch):
+    """s640 d64 with a bias and grads (the gate splits it): through
+    ``flash_attention`` (the device check answers CUDA, the library is
+    stubbed) the forward's bias variant, then the split's dq and dk/dv,
+    each handed the bias pointer and its two strides, and no dropout; the
+    split's bias counters move, the single pass's not; dbias exactly zero
+    in the bias's own shape and dtype."""
+    calls = _stub_library(monkeypatch)
+    monkeypatch.setattr(tfa, "check_device_type", lambda t, what: "cuda")
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: type("P", (), {
+                            "multi_processor_count": 132})())
+    b, h, s = 2, 3, 640
+    q = torch.zeros(b, h, s, 64, dtype=torch.bfloat16, requires_grad=True)
+    bias = torch.zeros(b, 1, s, s, dtype=torch.bfloat16, requires_grad=True)
+    assert tfa.uses_split_backward(s, s, 64, bias=True)
+    g = tfa.flash_attention_bwd
+    n0 = (g.bias_launches, g.bias_dkdv_launches, g.bias_dq_launches,
+          g.dropout_dkdv_launches, g.dropout_dq_launches)
+    out = tfa.flash_attention(q, q, q, bias=bias)
+    out.float().sum().backward()
+    assert [c[1] for c in calls] == ["apex_flash_fwd_sm90",
+                                     "apex_flash_bwd_sm90_dq",
+                                     "apex_flash_bwd_sm90_dkdv"]
+    ptrs = []
+    for _, symbol, args in calls:
+        ptr, sb, sh = args[-7:-4]
+        ptrs.append(ptr.value)
+        assert ptr.value is not None, symbol
+        assert (sb, sh) == (s * s, 0), symbol
+        assert args[-4:-1] == (0, 0, 1.0), symbol     # no dropout
+    assert ptrs[1] == ptrs[2]      # one fp32 copy for the backward's pair
+    moved = tuple(a - b_ for a, b_ in zip(
+        (g.bias_launches, g.bias_dkdv_launches, g.bias_dq_launches,
+         g.dropout_dkdv_launches, g.dropout_dq_launches), n0))
+    assert moved == (0, 1, 1, 0, 0)
+    assert bias.grad is not None and bias.grad.dtype == torch.bfloat16
+    assert tuple(bias.grad.shape) == (b, 1, s, s)
     assert torch.count_nonzero(bias.grad).item() == 0
