@@ -168,8 +168,8 @@
 // 0; a row whose bias is -inf everywhere has lse -1e30 from the forward,
 // so its p is 0 everywhere: its dq and its share of dk and dv are exactly
 // 0. The delta pass and fold and the ordered dq are unchanged; no dbias is
-// computed (the JAX op returns zeros for it). No variant takes a bias with
-// dropout. Registers and loads (variants timed on an H100, PERF.md): the
+// computed (the JAX op returns zeros for it). Registers and loads
+// (variants timed on an H100, PERF.md): the
 // single pass loads at d 128 in batches of four column groups
 // (kBiasUnroll); the split's variants issue a tile's loads at once
 // (batches of a partly unrolled loop put S in local memory, and were far
@@ -179,6 +179,22 @@
 // of a tile inside sq. dq keeps its twin's tiles and registers and chooses
 // its loads once a tile (8-byte pairs where sk is even: a choice per pair
 // made the loads wait for one another, several times slower).
+//
+// The bias with dropout (`_p_dp_ds` over `_recompute_p` with its bias,
+// :500-555): in both kernels of the split, a variant with both (DROP and
+// BIAS, chosen by the C entry when the bias pointer is set and the
+// threshold is above 0) composes the two above: p recomputed from the
+// biased scores, dp = keep ? dp / (1 - rate) : 0, ds = p (dp - delta) with
+// the undropped p, and in dk/dv the dropped p in S^T's registers for the
+// dV product. It takes the dropout variant's register split and the bias
+// variant's loads (dk/dv: 240/24 and the producer's two warps; dq:
+// 240/24), and the dropout variant's 64-row tiles, but for dk/dv at d 128:
+// there 48-row tiles (m64n48 score products, 24 accumulators each), since
+// at 64 rows it spilled whatever held the hash's terms, the bias's
+// offsets or the keys' segment ids (in registers, a tile at a time or in
+// shared memory: variants compiled on an H100, PERF.md); at 32 rows it
+// was slower. The single pass has no such variant (its C entry
+// returns cudaErrorInvalidValue for a bias with a threshold).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -211,10 +227,14 @@ struct SplitTile {
 
 // the dk/dv kernel's: 64 rows in the dropout and bias variants at d 64 (at
 // 128 the hash's registers, or the bias's loads, beside S^T, dP^T, dV and
-// dK spilled)
-template <int D, bool VARIANT>
+// dK spilled); 48 in the variant with both at d 128 (at 64 it spilled, in
+// the probabilities loop too; at 32 it was slower)
+template <int D, bool DROP, bool BIAS>
 struct DkdvTile {
-  static constexpr int value = D == 64 && VARIANT ? 64 : SplitTile<D>::value;
+  static constexpr int value =
+      D == 64 && (DROP || BIAS)
+          ? 64
+          : (D == 128 && DROP && BIAS ? 48 : SplitTile<D>::value);
 };
 
 template <int D, int TILE_ROWS = SplitTile<D>::value>
@@ -292,7 +312,9 @@ __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
 template <typename T, int ACCUM, int N>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da,
                                        uint64_t db) {
-  if constexpr (N == 64)
+  if constexpr (N == 48)
+    wg::mma_ss48<T, ACCUM>(d, da, db);
+  else if constexpr (N == 64)
     wg::mma_ss64<T, ACCUM>(d, da, db);
   else
     wg::mma_ss128<T, ACCUM>(d, da, db);
@@ -348,7 +370,7 @@ flash_dkdv_sm90(const __grid_constant__ CUtensorMap map_q,
                 const __grid_constant__ CUtensorMap map_v,
                 const __grid_constant__ CUtensorMap map_do,
                 const BiasParams<BIAS> p) {
-  using L = Layout<D, DkdvTile<D, DROP || BIAS>::value>;
+  using L = Layout<D, DkdvTile<D, DROP, BIAS>::value>;
   constexpr int TILE = L::TILE;
   // the dropout variant, and the bias variant at d 128, give the consumers
   // 240 registers a thread and the producer 24 (at 232 they spilled): the
@@ -452,11 +474,13 @@ flash_dkdv_sm90(const __grid_constant__ CUtensorMap map_q,
       for (int qt = qt_begin; qt < n_qt; ++qt) {
         wg::mbar_wait(&empty[stage], phase ^ 1);
         const int q0 = qt * TILE;
-        // every lane's loads issued before its stores
-        float lv[TILE / 32], dv_[TILE / 32];
-        int32_t sv[TILE / 32];
+        // every lane's loads issued before its stores (a tile of 48 rows:
+        // the lanes below 16 take a second row)
+        constexpr int PER = (TILE + 31) / 32;
+        float lv[PER], dv_[PER];
+        int32_t sv[PER];
 #pragma unroll
-        for (int i = 0; i < TILE / 32; ++i) {
+        for (int i = 0; i < PER; ++i) {
           const int row = q0 + lane + 32 * i;
           const bool in = row < sq;
           const long at = (long)bh * sq + row;
@@ -465,10 +489,12 @@ flash_dkdv_sm90(const __grid_constant__ CUtensorMap map_q,
           sv[i] = (use_seg && in) ? p.sid_q[(long)bi * sq + row] : -1;
         }
 #pragma unroll
-        for (int i = 0; i < TILE / 32; ++i) {
-          sLse[stage * TILE + lane + 32 * i] = lv[i];
-          sDelta[stage * TILE + lane + 32 * i] = dv_[i];
-          sSid[stage * TILE + lane + 32 * i] = sv[i];
+        for (int i = 0; i < PER; ++i) {
+          if (TILE % 32 == 0 || lane + 32 * i < TILE) {
+            sLse[stage * TILE + lane + 32 * i] = lv[i];
+            sDelta[stage * TILE + lane + 32 * i] = dv_[i];
+            sSid[stage * TILE + lane + 32 * i] = sv[i];
+          }
         }
         wg::mbar_arrive(&full[stage]);
         if (++stage == STAGES) {
@@ -1476,7 +1502,7 @@ cudaError_t launch(const Args& a) {
   const long bh = (long)a.b * a.h;
   // the resident side's boxes are 128 rows, the streamed side's its TILE
   constexpr int TILE = K == FUSED  ? FusedLayout<D>::TILE
-                       : K == DKDV ? DkdvTile<D, DROP || BIAS>::value
+                       : K == DKDV ? DkdvTile<D, DROP, BIAS>::value
                                    : SplitTile<D>::value;
   const int rows_q = K == DQ ? RES_ROWS : TILE;
   const int rows_k = K == DQ ? TILE : RES_ROWS;
@@ -1565,11 +1591,15 @@ int dispatch(const Args& a, int d, int dtype) {
       err = cudaMemsetAsync(a.out1, 0, bytes, a.stream);
     return err;
   }
-  // the variant with the bias where there is one (with dropout: no such
-  // variant)
-  if (a.bias)
-    return a.threshold ? cudaErrorInvalidValue
-                       : launch_of<K, false, true>(a, d, dtype);
+  // the variant with the bias where there is one; with dropout too, the
+  // split's variant with both (the single pass has none)
+  if (a.bias) {
+    if (!a.threshold) return launch_of<K, false, true>(a, d, dtype);
+    if constexpr (K == FUSED)
+      return cudaErrorInvalidValue;
+    else
+      return launch_of<K, true, true>(a, d, dtype);
+  }
   // the variant with dropout where the threshold keeps fewer than all
   if (a.threshold) return launch_of<K, true>(a, d, dtype);
   return launch_of<K, false>(a, d, dtype);
@@ -1589,8 +1619,9 @@ int dispatch(const Args& a, int d, int dtype) {
 // sk] with its last two dims contiguous and an 8-byte aligned base, or
 // null (none); `bias_sb` and `bias_sh` its batch and head strides in
 // elements (0 for a broadcast dim). Dropout as the forward's C entry takes
-// it: `seed`, `threshold` (0: no dropout) and `inv` = 1 / (1 - rate); not
-// with a bias (cudaErrorInvalidValue).
+// it: `seed`, `threshold` (0: no dropout) and `inv` = 1 / (1 - rate). The
+// split's entries take a bias with dropout (the variant with both); the
+// single pass's returns cudaErrorInvalidValue for it.
 
 // dk, dv [b,h,sk,d] (every element written)
 extern "C" int apex_flash_bwd_sm90_dkdv(

@@ -96,8 +96,18 @@
 // was much slower, PERF.md). A -inf bias gives an exact 0
 // (ex2.approx.ftz(-inf)), and a row whose every biased score is -inf (or
 // below -1e30 in base-2 units) keeps m at the fill and is a dead row: out
-// 0, lse -1e30, as the Pallas kernel's guard gives it. No bias with
-// dropout: that variant is not instantiated.
+// 0, lse -1e30, as the Pallas kernel's guard gives it.
+//
+// The bias with dropout (the `_fwd_kernel` with both, :282-283 then
+// :305-308 / :334-339): the variant with both (DROP and BIAS, chosen by the
+// C entry when the bias pointer is set and the threshold is above 0) runs
+// the two as above, in the Pallas kernel's order: the bias loaded into S
+// before the S product, the keep bits computed while it runs, then the
+// mask, m and l on the biased, undropped scores, and the dropout on p
+// before the conversion for P V. A dead row's p is 0 whatever its keep
+// bits, so its output stays exactly 0. In 64-row blocks its consumers take
+// 232 registers and the producer 24 (the block's share of the SM's file,
+// as 216 and 40): at 216 it spilled at head dim 128.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -239,8 +249,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q,
 
   const int wgi = threadIdx.x / 128;
   if (wgi == 0) {
-    // ---- producer: warp 0 keeps the ring full
-    wg::setmaxnreg_dec<40>();
+    // ---- producer: warp 0 keeps the ring full (at 24 registers in the
+    // 64-row variant with both, whose consumers take 232)
+    wg::setmaxnreg_dec<(DROP && BIAS && CONS == 1) ? 24 : 40>();
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
       if (lane == 0) {
@@ -286,7 +297,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q,
     }
   } else {
     // ---- consumers: 64 query rows each
-    wg::setmaxnreg_inc<CONS == 1 ? 216 : 232>();
+    wg::setmaxnreg_inc<CONS == 1 ? (DROP && BIAS ? 232 : 216) : 232>();
     const int cw = wgi - 1, t = threadIdx.x % 128;
     const int warp = t / 32, g = (t % 32) / 4, tig = t % 4;
     const int m0w = m0 + 64 * cw;
@@ -599,15 +610,18 @@ cudaError_t dispatch_variant(const void* q, const void* k, const void* v,
 }
 
 // the variant with dropout where the threshold keeps fewer than all, the
-// variant with the bias where there is one (not both: refused)
+// variant with the bias where there is one, the variant with both where
+// both are asked
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const Params& p, const BiasArg& bs, int b, int d,
                      int block_m, cudaStream_t st) {
   if (bs.ptr)
-    return p.threshold ? cudaErrorInvalidValue
-                       : dispatch_variant<T, false, true>(q, k, v, p, bs, b,
-                                                          d, block_m, st);
+    return p.threshold
+               ? dispatch_variant<T, true, true>(q, k, v, p, bs, b, d,
+                                                 block_m, st)
+               : dispatch_variant<T, false, true>(q, k, v, p, bs, b, d,
+                                                  block_m, st);
   return p.threshold
              ? dispatch_variant<T, true, false>(q, k, v, p, bs, b, d,
                                                 block_m, st)
@@ -631,7 +645,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 // Dropout: `seed` (the int32 seed as uint32), `threshold` (an element is
 // kept where its hash reaches it; 0 keeps every element and runs the
 // kernel without dropout) and `inv` = 1 / (1 - rate). A bias with a
-// threshold above 0 returns cudaErrorInvalidValue (no such variant).
+// threshold above 0 runs the variant with both.
 extern "C" int apex_flash_fwd_sm90(const void* q, const void* k,
                                    const void* v, const void* sid_q,
                                    const void* sid_kv, void* out, void* lse,

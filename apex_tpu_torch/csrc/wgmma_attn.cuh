@@ -84,8 +84,12 @@ __device__ __forceinline__ void fence_frag(uint32_t (&a)[4]) {
 #define AT_R8(i)                                                          \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define AT_OUT24 AT_R8(0), AT_R8(8), AT_R8(16)
 #define AT_OUT32 AT_R8(0), AT_R8(8), AT_R8(16), AT_R8(24)
 #define AT_OUT64 AT_OUT32, AT_R8(32), AT_R8(40), AT_R8(48), AT_R8(56)
+#define AT_S24                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23}"
 #define AT_S32                                                            \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
   "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
@@ -110,6 +114,17 @@ __device__ __forceinline__ void fence_frag(uint32_t (&a)[4]) {
       AT_S32 ", %32, %33, p, 1, 1, 0, 0;\n"                               \
       "}\n"                                                               \
       : AT_OUT32                                                          \
+      : "l"(da), "l"(db), "r"(ACCUM))
+// the same at N 48: d[24]
+#define AT_SS48(TYPE)                                                     \
+  asm volatile(                                                           \
+      "{\n"                                                               \
+      ".reg .pred p;\n"                                                   \
+      "setp.ne.b32 p, %26, 0;\n"                                          \
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32." TYPE "." TYPE " "     \
+      AT_S24 ", %24, %25, p, 1, 1, 0, 0;\n"                               \
+      "}\n"                                                               \
+      : AT_OUT24                                                          \
       : "l"(da), "l"(db), "r"(ACCUM))
 // the same at N 128: d[64]
 #define AT_SS128(TYPE)                                                    \
@@ -172,6 +187,16 @@ __device__ __forceinline__ void mma_ss64(float (&d)[32], uint64_t da,
 }
 
 template <typename T, int ACCUM>
+__device__ __forceinline__ void mma_ss48(float (&d)[24], uint64_t da,
+                                         uint64_t db) {
+  if constexpr (std::is_same<T, __half>::value) {
+    AT_SS48("f16");
+  } else {
+    AT_SS48("bf16");
+  }
+}
+
+template <typename T, int ACCUM>
 __device__ __forceinline__ void mma_ss128(float (&d)[64], uint64_t da,
                                           uint64_t db) {
   if constexpr (std::is_same<T, __half>::value) {
@@ -210,12 +235,15 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
   }
 }
 #undef AT_SS64
+#undef AT_SS48
 #undef AT_SS128
 #undef AT_SS64_TT
 #undef AT_RS64
 #undef AT_RS128
+#undef AT_S24
 #undef AT_S32
 #undef AT_S64
+#undef AT_OUT24
 #undef AT_OUT32
 #undef AT_OUT64
 #undef AT_R8

@@ -18,12 +18,15 @@ Port of ``apex_tpu/ops/flash_attention.py``:
   with its broadcast dims' strides 0, never expanded), in the plain
   versions, and on the CPU through :class:`BiasedAttentionFunction`; its
   gradient is exactly zero in its own shape, as in the JAX package; every
-  other CUDA route and a bias with dropout raise (:func:`bias_refusal`). In-kernel attention
+  other CUDA route raises (:func:`bias_refusal`). In-kernel attention
   dropout (the JAX
   kernels' counter hash, :func:`dropout_keep_reference`) runs in the
   wgmma route's forward, single pass and split (a variant of each kernel
   chosen at compile time) and in the plain versions; every other CUDA
-  route raises (:func:`dropout_refusal`). Past
+  route raises (:func:`dropout_refusal`). The bias with dropout runs in a
+  variant with both of the wgmma forward and of the split's two kernels;
+  the single pass refuses it (:func:`_bwd_route`, before the forward).
+  Past
   the JAX package's 2 MB VMEM gate the backward is its two-kernel split,
   which replaces ``_dkdv_kernel`` (``:558``) and ``_dq_kernel`` (``:671``)
   on the same two routes (:func:`split_route`): ``flash_dkdv_sm90`` and
@@ -94,7 +97,10 @@ and ``.dropout_dq_launches`` (the split's dropout variants),
 ``flash_attention.bias_launches`` and ``flash_attention_bwd.bias_launches``
 (the wgmma forward's and single pass's bias variants),
 ``flash_attention_bwd.bias_dkdv_launches`` and ``.bias_dq_launches`` (the
-split's bias variants),
+split's bias variants), ``flash_attention.bias_dropout_launches``,
+``flash_attention_bwd.bias_dropout_dkdv_launches`` and
+``.bias_dropout_dq_launches`` (the variants with both; the bias and dropout
+counters above count the variants with one alone),
 ``paged_decode_attention.launches``
 (bf16 pool) and ``paged_decode_attention.fp8_launches`` (e4m3 pool) count
 kernel launches (the CPU path does not count).
@@ -543,29 +549,31 @@ def _refuse_dropout(dtype: torch.dtype, kd: int) -> None:
                                   f"not in {refused} yet")
 
 
-def bias_refusal(dtype: torch.dtype, kd: int,
-                 dropout: bool = False) -> Optional[str]:
+def bias_refusal(dtype: torch.dtype, kd: int) -> Optional[str]:
     """None where the CUDA kernels take the additive bias: the wgmma
-    route's forward and backward, single pass and split alike, without
-    attention dropout (:func:`sm90_route` of the promoted ``dtype`` and the
-    kernel head dim ``kd``). Else the refused route by name, for the
-    ``NotImplementedError`` its caller raises (ROADMAP §B1): the fp32 FFMA
-    route, the ``frag.cuh`` kernels, a bias with dropout (no variant of
-    B1-B4 takes both)."""
-    refused = dropout_refusal(dtype, kd)
-    if refused is not None:
-        return refused
-    if dropout:
-        return ("the kernels with attention dropout (no variant of the "
-                "wgmma kernels takes a bias and dropout together)")
-    return None
+    route's forward and backward, single pass and split alike, with
+    attention dropout or without (:func:`sm90_route` of the promoted
+    ``dtype`` and the kernel head dim ``kd``; the single pass alone has no
+    variant with both, which :func:`_bwd_route` refuses). Else the refused
+    route by name, for the ``NotImplementedError`` its caller raises
+    (ROADMAP §B1): the fp32 FFMA route, the ``frag.cuh`` kernels."""
+    return dropout_refusal(dtype, kd)
 
 
-def _refuse_bias(dtype: torch.dtype, kd: int, dropout: bool = False) -> None:
-    refused = bias_refusal(dtype, kd, dropout)
+def _refuse_bias(dtype: torch.dtype, kd: int) -> None:
+    refused = bias_refusal(dtype, kd)
     if refused is not None:
         raise NotImplementedError(f"flash_attention: the additive bias is "
                                   f"not taken by {refused} yet")
+
+
+def _refuse_single_pass_bias_dropout() -> None:
+    """The wgmma single pass has no variant that takes a bias with dropout
+    (ROADMAP §B1): raised where the backward would run it."""
+    raise NotImplementedError(
+        "flash_attention: the additive bias with attention dropout is not "
+        "taken by the single-pass backward (flash_bwd_fused_sm90) yet "
+        "(ROADMAP §B1); the split takes both (sq, sk past the JAX gate)")
 
 
 def _check_bias_shape(bias, b, h, sq, sk) -> None:
@@ -659,7 +667,8 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
     or 128 query rows a block, for comparing the two at one shape; None
     takes :func:`fwd_block_rows`. Attention dropout runs on the wgmma
     route alone (:func:`dropout_refusal`), and so does the additive
-    ``bias``, without dropout (:func:`bias_refusal`)."""
+    ``bias`` (:func:`bias_refusal`), with dropout or without: the bias with
+    dropout in the variant with both, at any length."""
     what = "flash_attention kernel"
     _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, what,
              "q, k, v must be [b, h, s, d]")
@@ -691,7 +700,7 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
     sm90 = sm90_route(dtype, kd)
     f32 = f32_fwd_route(dtype, kd, p_round)
     if bias is not None:
-        _refuse_bias(dtype, kd, dropout=bool(dropout_rate))
+        _refuse_bias(dtype, kd)
     elif dropout_rate:
         _refuse_dropout(dtype, kd)
     bias, bias_sb, bias_sh = _bias_operand(bias, b, h, sq, sk, q.device,
@@ -727,9 +736,11 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
         flash_attention.launches += 1
         if sm90:
             flash_attention.wgmma_launches += 1
-            if dropout_rate:
+            if dropout_rate and bias is not None:
+                flash_attention.bias_dropout_launches += 1
+            elif dropout_rate:
                 flash_attention.dropout_launches += 1
-            if bias is not None:
+            elif bias is not None:
                 flash_attention.bias_launches += 1
         if f32:
             flash_attention.f32_launches += 1
@@ -816,7 +827,8 @@ def _bwd_route(q, k, v, causal, dropout_rate, do=None,
     the operands in. Raises ``NotImplementedError`` where attention
     dropout or a ``bias`` is asked of a route that does not take it (the
     route is the dtype's and head dim's, split or not:
-    :func:`dropout_refusal`, :func:`bias_refusal`)."""
+    :func:`dropout_refusal`, :func:`bias_refusal`), and where both are
+    asked of the single pass, which has no variant with both."""
     if split is None:
         split = uses_split_backward(q.shape[2], k.shape[2], q.shape[-1],
                                     k.element_size(), v.element_size(),
@@ -825,7 +837,9 @@ def _bwd_route(q, k, v, causal, dropout_rate, do=None,
     dtype = _promoted_dtype(q, k, v, q if do is None else do)
     kd = kernel_head_dim(q.shape[-1])
     if bias:
-        _refuse_bias(dtype, kd, bool(dropout_rate))
+        _refuse_bias(dtype, kd)
+        if dropout_rate and not split:
+            _refuse_single_pass_bias_dropout()
     elif dropout_rate:
         _refuse_dropout(dtype, kd)
     return split, dtype
@@ -979,8 +993,9 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
     :func:`uses_split_backward`; True or False forces the two-kernel split
     or the single pass (for comparing the two at one shape). Attention
     dropout runs on the wgmma route alone, split or single pass
-    (:func:`dropout_refusal`), and so does the additive ``bias``, without
-    dropout (:func:`bias_refusal`)."""
+    (:func:`dropout_refusal`), and so does the additive ``bias``
+    (:func:`bias_refusal`); the bias with dropout on the split alone
+    (:func:`_bwd_route`)."""
     what = "flash_attention_bwd kernel"
     _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, what,
              "q, k, v must be [b, h, s, d]")
@@ -1096,9 +1111,11 @@ def _flash_bwd_fused_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal,
     rowsum(do * out) fp32 [b, h, sq], given (``out`` the dropped output
     under dropout). ``dropout``: :func:`_dropout_args`; ``bias``:
     :func:`_bias_operand`'s ``(fp32 bias or None, batch stride, head
-    stride)``, not with dropout."""
+    stride)``, not with dropout (refused)."""
     b, h, sq, d = q.shape
     bias_t, bias_sb, bias_sh = bias
+    if bias_t is not None and dropout[1]:
+        _refuse_single_pass_bias_dropout()
     if turns is None:
         turns = torch.zeros(single_pass_turns(b, h, sq, d, True),
                             dtype=torch.int32, device=q.device)
@@ -1194,9 +1211,10 @@ def _flash_bwd_f32_cuda(q, k, v, do, out, lse, delta, sid_q, sid_kv, causal,
 def _refuse_split_variants(q, dropout, bias) -> None:
     """Raises ``NotImplementedError`` before a split kernel's call where
     its route does not take the ``dropout`` or the ``bias`` it is given
-    (:func:`dropout_refusal`, :func:`bias_refusal`)."""
+    (:func:`dropout_refusal`, :func:`bias_refusal`); the wgmma route takes
+    either and both."""
     if bias[0] is not None:
-        _refuse_bias(q.dtype, q.shape[-1], bool(dropout[1]))
+        _refuse_bias(q.dtype, q.shape[-1])
     elif dropout[1]:
         _refuse_dropout(q.dtype, q.shape[-1])
 
@@ -1233,8 +1251,8 @@ def _flash_dkdv_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
     (:func:`_f32_transposes`; allocated here when None), which the dq
     kernel after it may read (:func:`_flash_dq_cuda`'s ``ws``).
     ``dropout``: :func:`_dropout_args`; ``bias``: :func:`_bias_operand`'s
-    ``(fp32 bias or None, batch stride, head stride)``, not with dropout;
-    both the wgmma route's alone."""
+    ``(fp32 bias or None, batch stride, head stride)``, alone or with
+    ``dropout`` (the variant with both); both the wgmma route's alone."""
     _refuse_split_variants(q, dropout, bias)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if f32_core_route(q.dtype, q.shape[-1], rounds):
@@ -1260,9 +1278,11 @@ def _flash_dkdv_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
     flash_attention_bwd.dkdv_launches += 1
     if sm90:
         flash_attention_bwd.wgmma_dkdv_launches += 1
-        if dropout[1]:
+        if dropout[1] and bias[0] is not None:
+            flash_attention_bwd.bias_dropout_dkdv_launches += 1
+        elif dropout[1]:
             flash_attention_bwd.dropout_dkdv_launches += 1
-        if bias[0] is not None:
+        elif bias[0] is not None:
             flash_attention_bwd.bias_dkdv_launches += 1
     return dk, dv
 
@@ -1317,9 +1337,11 @@ def _flash_dq_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
     flash_attention_bwd.dq_launches += 1
     if sm90:
         flash_attention_bwd.wgmma_dq_launches += 1
-        if dropout[1]:
+        if dropout[1] and bias[0] is not None:
+            flash_attention_bwd.bias_dropout_dq_launches += 1
+        elif dropout[1]:
             flash_attention_bwd.dropout_dq_launches += 1
-        if bias[0] is not None:
+        elif bias[0] is not None:
             flash_attention_bwd.bias_dq_launches += 1
     return dq
 
@@ -1368,9 +1390,12 @@ def flash_attention_bwd(q, k, v, out, lse, do, segment_ids_q=None,
     FFMA route); ``.dropout_launches`` the single passes with dropout,
     ``.dropout_dkdv_launches`` and ``.dropout_dq_launches`` the split's,
     ``.bias_launches`` the single passes with a bias,
-    ``.bias_dkdv_launches`` and ``.bias_dq_launches`` the split's.
-    ``dropout_rate``/``dropout_seed`` and ``bias`` are the forward's: the
-    kernel regenerates its mask and recomputes p with the bias."""
+    ``.bias_dkdv_launches`` and ``.bias_dq_launches`` the split's,
+    ``.bias_dropout_dkdv_launches`` and ``.bias_dropout_dq_launches`` the
+    split's with both (which the single pass refuses; a launch with both
+    counts there alone). ``dropout_rate``/``dropout_seed`` and ``bias`` are
+    the forward's: the kernel regenerates its mask and recomputes p with
+    the bias."""
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     _check_dropout(dropout_rate, dropout_seed)
     if check_device_type(q, "flash_attention_bwd") == "cpu":
@@ -1400,15 +1425,20 @@ flash_attention_bwd.dropout_dq_launches = 0
 flash_attention_bwd.bias_launches = 0
 flash_attention_bwd.bias_dkdv_launches = 0
 flash_attention_bwd.bias_dq_launches = 0
+flash_attention_bwd.bias_dropout_dkdv_launches = 0
+flash_attention_bwd.bias_dropout_dq_launches = 0
 
 
 class FlashAttentionFunction(torch.autograd.Function):
     """Forward kernel + backward kernel as one differentiable op. Saves
     ``(q, k, v, out, lse)``, the segment ids and the bias, and carries the
-    dropout rate and seed to the backward, which regenerates the mask;
-    segment ids get no gradient, the bias an exactly zero one in its own
-    shape (the JAX ``_fa_bwd``'s ``zeros_like(bias)``: an additive mask,
-    non-differentiable by contract)."""
+    dropout rate and seed to the backward, which regenerates the mask
+    (with a bias too: the forward's and the split's variants with both;
+    the single pass refuses both before the forward, in
+    :func:`flash_attention`); segment ids get no gradient, the bias an
+    exactly zero one in its own shape (the JAX ``_fa_bwd``'s
+    ``zeros_like(bias)``: an additive mask, non-differentiable by
+    contract)."""
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
@@ -1477,10 +1507,15 @@ def flash_attention(q, k, v, segment_ids_q=None, segment_ids_kv=None,
     sk], any float dtype, added to the scaled fp32 scores; -inf entries
     allowed) gets an exactly zero gradient, as in the JAX package. On CUDA
     the wgmma route's forward and backward take it, single pass and split
-    (:class:`FlashAttentionFunction`); a bias with dropout and every other
-    route raise ``NotImplementedError`` naming the route
-    (:func:`bias_refusal`), before the forward where the backward's route
-    would refuse it. On the CPU it runs through the plain version
+    (:class:`FlashAttentionFunction`); every other route raises
+    ``NotImplementedError`` naming the route (:func:`bias_refusal`),
+    before the forward where the backward's route would refuse it. With
+    dropout too, the forward runs its variant with both at any length and
+    the backward the split's (past the JAX gate, which with both counts
+    512-row blocks: s512 at d 64, s448 at d 128); where the backward would
+    take the single pass, a call that wants gradients raises
+    ``NotImplementedError`` naming ``flash_bwd_fused_sm90`` before the
+    forward. On the CPU it runs through the plain version
     (:class:`BiasedAttentionFunction`).
 
     ``dropout_rate``/``dropout_seed`` (an int32): in-kernel attention
@@ -1518,6 +1553,7 @@ flash_attention.wgmma_launches = 0
 flash_attention.f32_launches = 0
 flash_attention.dropout_launches = 0
 flash_attention.bias_launches = 0
+flash_attention.bias_dropout_launches = 0
 
 
 # apex_paged_decode(q, k_pages, v_pages, k_scales, v_scales, block_tables,

@@ -166,7 +166,18 @@ Phases (any failure exits non-zero; no phase's error is caught):
     future mask and key padding of 768-1024 tokens (the split at d 64),
     and of ``EncdecMultiheadAttn(1024, 16)`` at sq 256, sk 512 (the single
     pass) and sq 512, sk 1024 (the split), b16, each with a finite [16, 1,
-    sq, sk] bias and key padding; each asserts which bias variants ran.
+    sq, sk] bias and key padding; each asserts which bias variants ran;
+22. train-mha16-e1024h8-b1s3072-bias-dropout — the same path at
+    ``dropout=0.1`` (``transformer_lm_wiki103``'s ``attention_dropout``;
+    apex's module has one ``dropout``, which also drives norm_add's
+    residual dropout), one host generator: per step 16 launches each of
+    B1's, B3's and B4's variants with both, 16 of each LayerNorm kernel and
+    no other flash launch; then, among the grad checks above, three with
+    the bias and dropout 0.1 together, each asserting that the variants
+    with both ran: this path's configuration at s3072 (d 128),
+    ``SelfMultiheadAttn(1024, 16)`` at b16 s512 with the future mask and
+    key padding of 384-512 tokens (d 64; with both the gate splits s512)
+    and ``EncdecMultiheadAttn(1024, 16)`` at sq 512, sk 1024, b16.
 
 The kernel phase also holds the shapes and dtypes ROADMAP §C records as
 repaired against the plain versions: flash forward and backward (single
@@ -210,6 +221,23 @@ routed against the plain backward, bitwise on a rerun, each timed with
 and without the bias beside its plain version and SDPA's backward with
 the mask (B1's bias variant beside SDPA's forward there too); ptxas
 shows no spill in B4's and no more in B3's than in their twins.
+
+B1's, B3's and B4's variants with both the bias and dropout
+(``flash_fwd_sm90``, ``flash_dkdv_sm90`` and ``flash_dq_sm90`` with
+``DROP`` and ``BIAS``; the single pass has none and refuses) are held at
+the bias variants' shapes with dropout 0.1 against the plain versions with
+the same bias and seed (the bf16 limits; the folded delta 1e-5), each
+bitwise on a rerun, dead rows exactly zero; at rate 0.5 their keep pattern
+bitwise through identity operands under a bias finite everywhere, and
+their positions bitwise through one-hot bias rows (the kept elements
+doubled, exact products); then at b16 h16 s512 d64 (train-mha18's
+attention with key padding) and at b1 h8 s3072 d128 (the
+train-mha16-bias-dropout path's) the forward and the pair as routed
+against the plain versions, each timed beside its twins with the bias
+alone and with dropout alone, its plain version, and SDPA with the mask as
+``attn_mask`` and ``dropout_p=0.1``, forward and backward; ptxas shows no
+spill in B1's and B4's and no more in B3's than in its twin without a
+variant.
 
 B1's and B2's dropout variants (``flash_fwd_sm90`` and
 ``flash_bwd_fused_sm90`` built with the keep hash of
@@ -2306,9 +2334,14 @@ _SM90_KERNEL = re.compile(r"(flash_dkdv_sm90|flash_dq_sm90|flash_fwd_sm90|"
 # the kernels held to no spill, with their dropout and bias variants, and
 # every dropout and bias variant but the split's dk/dv (the dk/dv kernel at
 # d 64 spills 8 bytes: ROADMAP §C), which may spill no more than its twin
-# without
+# without; the variants by their names' suffixes, both first
 _NO_SPILL = ("flash_fwd_sm90", "flash_bwd_fused_sm90")
-_VARIANTS = (" dropout", " bias")
+_VARIANTS = (" dropout bias", " dropout", " bias")
+
+
+def _variant(name):
+    """The variant suffix of a :func:`_sm90_registers` name, or ''."""
+    return next((v for v in _VARIANTS if name.endswith(v)), "")
 
 
 def _sm90_registers(build):
@@ -2317,9 +2350,9 @@ def _sm90_registers(build):
     gives up to 40 a thread, 24 in a dropout or the single pass's bias
     variant, and the consumer warpgroups take 232, 240); fails on a spill
     in the forward's and the single pass's kernels and in every dropout
-    (`` dropout``) and bias (`` bias``) variant, but for the split's
-    dk/dv, which fails where a variant spills more than the same kernel
-    without it."""
+    (`` dropout``), bias (`` bias``) and both (`` dropout bias``)
+    variant, but for the split's dk/dv, which fails where a variant spills
+    more than the same kernel without a variant."""
     regs = {}
     for target in build.targets(["flash_fwd_sm90", "flash_bwd_sm90"]):
         name = None
@@ -2344,30 +2377,38 @@ def _sm90_registers(build):
                 spill = int(m.group(1)) + int(m.group(2))
                 regs[name]["spill_bytes"] = spill
                 check(spill == 0 or not (name.split()[1] in _NO_SPILL or (
-                    name.endswith(_VARIANTS)
+                    _variant(name)
                     and name.split()[1] != "flash_dkdv_sm90")),
                       f"{name}: ptxas spills {spill} bytes")
             m = re.search(r"Used (\d+) registers", line)
             if m and name:
                 regs[name]["registers"] = int(m.group(1))
     for name, reg in regs.items():
-        for variant in _VARIANTS:
-            if name.endswith(variant):
-                twin = regs[name[:-len(variant)]]
-                check(reg["spill_bytes"] <= twin["spill_bytes"],
-                      f"{name}: ptxas spills {reg['spill_bytes']} bytes, "
-                      f"its twin without{variant} {twin['spill_bytes']}")
+        variant = _variant(name)
+        if variant:
+            twin = regs[name[:-len(variant)]]
+            check(reg["spill_bytes"] <= twin["spill_bytes"],
+                  f"{name}: ptxas spills {reg['spill_bytes']} bytes, "
+                  f"its twin without{variant} {twin['spill_bytes']}")
     # the split's variants: two dtypes, two kernels, two head dims
     for variant in _VARIANTS:
-        check(sum(n.endswith(variant) and n.split()[1] in (
+        check(sum(_variant(n) == variant and n.split()[1] in (
             "flash_dkdv_sm90", "flash_dq_sm90") for n in regs) == 8,
               f"the split's{variant} variants in ptxas's log: "
               f"{sorted(regs)}")
     # the bias variants: two dtypes; the forward at two head dims and two
     # block heights, the single pass and the split's two kernels at two
     # head dims
-    check(sum(n.endswith(" bias") for n in regs) == 20,
+    check(sum(_variant(n) == " bias" for n in regs) == 20,
           f"the bias variants in ptxas's log: {sorted(regs)}")
+    # the variants with both: two dtypes, two head dims; the forward at two
+    # block heights (8), the split's dk/dv (4) and dq (4); none of the
+    # single pass
+    both = [n for n in regs if _variant(n) == " dropout bias"]
+    check(len(both) == 16 and sum(n.split()[1] == "flash_fwd_sm90"
+                                  for n in both) == 8
+          and not any(n.split()[1] == "flash_bwd_fused_sm90" for n in both),
+          f"the variants with both in ptxas's log: {sorted(regs)}")
     return regs
 
 
@@ -3016,6 +3057,399 @@ def check_flash_split_bias(torch, timer):
     ]
 
 
+# ---------------------------------------------------------------------------
+# the bias with dropout (B1's, B3's and B4's variants with both), at the
+# train-mha16 path's attention with dropout 0.1 (b1 h8 s3072 d128, the
+# future mask) and at train-mha18's with dropout 0.1 (b16 h16 s512 d64, the
+# future mask and key padding), both of which the gate splits
+# ---------------------------------------------------------------------------
+
+BIAS_DROPOUT_SEED = 20261021
+BIAS_DROPOUT_SHAPES = ((MHA_B, MHA_HEADS, MHA_S, MHA_E // MHA_HEADS,
+                        MHA_MIN_LEN),
+                       (MHA16_B, MHA16_HEADS, MHA16_S, MHA_E // MHA16_HEADS,
+                        None))
+
+
+def _bias_dropout_case(torch, fa, gen, case):
+    """One :func:`_bias_cases` shape with dropout 0.1: the forward at both
+    block heights and the split (forced: dq with the delta it folds in from
+    the dropped output, then dk/dv from that delta) against their plain
+    versions with the same bias and seed (the bf16 limits; the delta
+    1e-5), each bitwise on a rerun, a dead row's output and dq exactly 0;
+    returns the largest forward and gradient errors."""
+    _, _, _, b, h, sq, sk, causal, _, dead = case
+    q, k, v, do, bias, sid_q, sid_kv, scale, what = _bias_case_inputs(
+        torch, gen, case, "flash bias dropout")
+    drop = dict(dropout_rate=DROPOUT_RATE, dropout_seed=BIAS_DROPOUT_SEED)
+    kw = dict(causal=causal, segment_ids_q=sid_q, segment_ids_kv=sid_kv,
+              scale=scale, bias=bias, **drop)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
+    err = 0.0
+    for rows in (64, 128):
+        out, lse = fa._flash_fwd_cuda(q, k, v, sid_q, sid_kv, causal, scale,
+                                      block_rows=rows, bias=bias, **drop)
+        again = fa._flash_fwd_cuda(q, k, v, sid_q, sid_kv, causal, scale,
+                                   block_rows=rows, bias=bias, **drop)
+        torch.cuda.synchronize()
+        check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+              f"{what} rows{rows}: a rerun gave other bits")
+        err = max(err, bf16_err(out, ref, 4e-3, f"{what} rows{rows}"))
+        lse_err = (lse - ref_lse).abs().max().item()
+        check(lse_err <= 1e-3, f"{what} rows{rows}: lse max err {lse_err}")
+        if dead is not None:
+            check(out[:, :, dead].abs().max().item() == 0.0
+                  and bool((lse[:, :, dead] == -1e30).all()),
+                  f"{what}: the row with no live key is not zero, -1e30")
+    del ref, ref_lse, again
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device="cuda")
+    args = (q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
+            fa._mixed_rounds(q, k, do))
+    bop = fa._bias_operand(bias, b, h, sq, sk, q.device, scale)
+    dargs = fa._dropout_args(DROPOUT_RATE, BIAS_DROPOUT_SEED)
+    dq = fa._flash_dq_cuda(*args, out=out, dropout=dargs, bias=bop)
+    dk, dv = fa._flash_dkdv_cuda(*args, dropout=dargs, bias=bop)
+    dq2 = fa._flash_dq_cuda(*args, out=out, dropout=dargs, bias=bop)
+    dk2, dv2 = fa._flash_dkdv_cuda(*args, dropout=dargs, bias=bop)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in
+              zip((dq, dk, dv), (dq2, dk2, dv2))),
+          f"{what}: the split's rerun gave other bits")
+    rdq, rdelta = fa.flash_bwd_dq_reference(q, k, v, out, lse, do, **kw)
+    _fp32_err(delta, rdelta, f"{what} delta fold", 1e-5)
+    rdk, rdv = fa.flash_bwd_dkdv_reference(q, k, v, lse, delta, do, **kw)
+    check(all(bool(torch.isfinite(t.float()).all()) for t in (dq, dk, dv)),
+          f"{what}: a non-finite gradient")
+    gerr = max(grad_err(g, r, f"{what} {n}") for n, g, r in
+               zip(("dq", "dk", "dv"), (dq, dk, dv), (rdq, rdk, rdv)))
+    if dead is not None:
+        check(dq[:, :, dead].abs().max().item() == 0.0,
+              f"{what}: the row with no live key got a nonzero dq")
+    return what, err, gerr
+
+
+def _bias_dropout_bitwise(torch, fa, gen, dtype, d, seed):
+    """At rate 0.5 (1 / (1 - rate) = 2, exact), the keep pattern and the
+    positions bit for bit. Keep pattern, under a bias in [-1, 1)
+    everywhere (p > 0): the forward with q = k = 0 and v = I over sk = d
+    keys is zero exactly where an element is dropped; the split's dk/dv
+    with q = 0 and do = I over sq = d rows gives dv = the dropped p
+    transposed; its dq with k = I over sk = d keys and a zero output (the
+    folded delta 0) is zero exactly where a key is dropped. Positions,
+    through one-hot bias rows (0 at key pi(q) of an injective map into sk
+    > sq keys, -inf elsewhere), v = e_0 and a zero output: p is 1 at (q,
+    pi(q)), so out is 2 v[pi(q)] where kept, dv 2 do[q] at pi(q), dk 2
+    do[q, 0] q scale there and dq 2 do[q, 0] k[pi(q)] scale, each 0 where
+    dropped: exact products."""
+    b, h, s = 2, 3, 333
+    half = fa._dropout_args(0.5, seed)
+    eye = torch.eye(d, device="cuda", dtype=dtype).expand(b, h, d, d)
+    eye = eye.contiguous()
+    rounds = fa._mixed_rounds(eye, eye, eye)
+    what = f"flash bias dropout bitwise {str(dtype)[6:]} d{d}"
+
+    def unit(*shape):
+        return 2 * torch.rand(*shape, generator=gen, device="cuda") - 1
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
+
+    zq = torch.zeros(b, h, s, d, device="cuda", dtype=dtype)
+    zk = torch.zeros(b, h, d, d, device="cuda", dtype=dtype)
+    out, _ = fa.flash_attention_fwd(zq, zk, eye, None, None, False, 1.0, 0.5,
+                                    seed, bias=unit(1, h, s, d))
+    keep = fa.dropout_keep_reference(seed, b, h, s, d, 0.5, device="cuda")
+    check(torch.equal(out != 0, keep),
+          f"{what}: the forward's keep pattern is not the plain mask")
+    n_fwd = keep.numel()
+    k, v = rand(b, h, s, d), rand(b, h, s, d)
+    bias = unit(b, 1, d, s)
+    _, lse = fa.flash_attention_fwd(zk, k, v, None, None, False, 1.0,
+                                    bias=bias)
+    zero = torch.zeros(b, h, d, dtype=torch.float32, device="cuda")
+    _, dv = fa._flash_dkdv_cuda(zk, k, v, eye, lse, zero, None, None, False,
+                                1.0, rounds, dropout=half,
+                                bias=fa._bias_operand(bias, b, h, d, s,
+                                                      k.device, 1.0))
+    keep = fa.dropout_keep_reference(seed, b, h, d, s, 0.5, device="cuda")
+    check(torch.equal(dv != 0, keep.transpose(-1, -2)),
+          f"{what}: the dk/dv kernel's keep pattern is not the plain mask")
+    q, v, do = rand(b, h, s, d), rand(b, h, d, d), rand(b, h, s, d)
+    bias = unit(1, 1, s, d)
+    _, lse = fa.flash_attention_fwd(q, eye, v, None, None, False, 1.0,
+                                    bias=bias)
+    delta = torch.empty(b, h, s, dtype=torch.float32, device="cuda")
+    dq = fa._flash_dq_cuda(q, eye, v, do, lse, delta, None, None, False,
+                           1.0, rounds, out=torch.zeros_like(q),
+                           dropout=half, bias=fa._bias_operand(
+                               bias, b, h, s, d, q.device, 1.0))
+    keep = fa.dropout_keep_reference(seed, b, h, s, d, 0.5, device="cuda")
+    check(delta.abs().max().item() == 0.0 and torch.equal(dq != 0, keep),
+          f"{what}: the dq kernel's keep pattern is not the plain mask")
+
+    sq, sk, scale = 300, 513, 0.125
+    q, do, k = rand(b, h, sq, d), rand(b, h, sq, d), rand(b, h, sk, d)
+    v = torch.zeros(b, h, sk, d, device="cuda", dtype=dtype)
+    v[..., 0] = 1
+    pi = torch.stack([torch.randperm(sk, generator=gen, device="cuda")[:sq]
+                      for _ in range(b * h)]).view(b, h, sq)
+    bias = torch.full((b, h, sq, sk), float("-inf"), device="cuda")
+    bias.scatter_(3, pi[..., None], 0.0)
+    out, lse = fa.flash_attention_fwd(q, k, v, None, None, False, scale, 0.5,
+                                      seed, bias=bias)
+    kept = fa.dropout_keep_reference(seed, b, h, sq, sk, 0.5,
+                                     device="cuda").gather(3, pi[..., None])
+    idx = pi[..., None].expand(b, h, sq, d)
+    two = torch.where(kept, 2.0, 0.0)
+    check(torch.equal(out, (two * v.float().gather(2, idx)).to(dtype)),
+          f"{what}: out is not 2 v[pi(q)] where kept, bit for bit")
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device="cuda")
+    args = (q, k, v, do, lse, delta, None, None, False, scale, rounds)
+    bop = fa._bias_operand(bias, b, h, sq, sk, q.device, scale)
+    dq = fa._flash_dq_cuda(*args, out=torch.zeros_like(q), dropout=half,
+                           bias=bop)
+    dk, dv = fa._flash_dkdv_cuda(*args, dropout=half, bias=bop)
+    d0 = two * do[..., :1].float()
+    torch.cuda.synchronize()
+    check(torch.equal(dv, torch.zeros_like(v).scatter_(
+        2, idx, (two * do.float()).to(dtype))),
+          f"{what}: dv is not 2 do at pi(q) where kept, bit for bit")
+    check(torch.equal(dk, torch.zeros_like(k).scatter_(
+        2, idx, (d0 * q.float() * scale).to(dtype))),
+          f"{what}: dk is not 2 do[q, 0] q scale at pi(q), bit for bit")
+    check(torch.equal(dq, (d0 * k.float().gather(2, idx) * scale)
+                      .to(dtype)),
+          f"{what}: dq is not 2 do[q, 0] k[pi(q)] scale, bit for bit")
+    return dict(case=what, rate=0.5, keep_elements=n_fwd + 2 * keep.numel(),
+                kept_positions=int(kept.sum()),
+                positions=f"b{b} h{h} sq{sq} sk{sk} one-hot rows",
+                bitwise=True)
+
+
+def _bias_dropout_timed(torch, fa, F, timer, gen, b, h, s, d, min_len):
+    """The variants with both at one :data:`BIAS_DROPOUT_SHAPES` shape
+    (the future mask as a [1, 1, s, s] fp32 bias, key padding where
+    ``min_len``, dropout 0.1): the forward and the pair as routed against
+    the plain versions with the same bias and seed, each split kernel
+    against its plain version, a bitwise rerun; each kernel timed beside
+    its twins (the same kernel with the bias alone and with dropout alone)
+    and its plain version, the pair as called, SDPA with the mask as
+    ``attn_mask`` and ``dropout_p=0.1`` forward and backward; with the
+    bounds (the live pairs this run's data needs: a finite bias and a real
+    key; the bias read once; the hash's integer operations on each live
+    pair)."""
+    scale = d ** -0.5
+    drop = dict(dropout_rate=DROPOUT_RATE, dropout_seed=BIAS_DROPOUT_SEED)
+    dargs = fa._dropout_args(DROPOUT_RATE, BIAS_DROPOUT_SEED)
+    q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    bias = future_mask(torch, s)[None, None]
+    if min_len is not None:
+        lens = torch.from_numpy(mha_lengths()).cuda()
+        sid_kv = torch.where(torch.arange(s, device="cuda")[None]
+                             < lens[:, None], 0, -1).to(torch.int32)
+        sid_q = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+        seg = (sid_q, sid_kv)
+        pad = torch.where(sid_kv < 0, float("-inf"), 0.0)[:, None, None]
+    else:
+        sid_kv = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+        seg, pad = (None, None), 0.0
+    what = f"flash bias dropout b{b} h{h} s{s} d{d}"
+    check(fa.uses_split_backward(s, s, d, bias=True, dropout=True),
+          f"the gate at s{s} d{d} with a bias and dropout")
+    f, g = fa.flash_attention, fa.flash_attention_bwd
+
+    def counts():
+        return (f.bias_dropout_launches, g.bias_dropout_dkdv_launches,
+                g.bias_dropout_dq_launches, f.bias_launches,
+                f.dropout_launches, g.bias_dkdv_launches,
+                g.dropout_dkdv_launches, g.launches)
+
+    n0 = counts()
+    out, lse = fa.flash_attention_fwd(q, k, v, *seg, False, scale, bias=bias,
+                                      **drop)
+    again = fa.flash_attention_fwd(q, k, v, *seg, False, scale, bias=bias,
+                                   **drop)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, *seg, False, scale,
+                                 bias=bias, **drop)
+    grads2 = fa.flash_attention_bwd(q, k, v, out, lse, do, *seg, False,
+                                    scale, bias=bias, **drop)
+    torch.cuda.synchronize()
+    moved = tuple(a - b_ for a, b_ in zip(counts(), n0))
+    check(moved == (2, 2, 2, 0, 0, 0, 0, 0), f"{what}: launches (both: "
+          f"forward, dk/dv, dq; bias forward, dropout forward, bias dk/dv, "
+          f"dropout dk/dv, single pass) {moved}")
+    check(torch.equal(out, again[0]) and torch.equal(lse, again[1])
+          and all(torch.equal(x, y) for x, y in zip(got, grads2)),
+          f"{what}: a rerun gave other bits")
+    del again, grads2
+    kw = dict(segment_ids_q=seg[0], segment_ids_kv=seg[1], scale=scale,
+              bias=bias, **drop)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
+    fwd_err = bf16_err(out, ref, 4e-3, f"{what} forward")
+    lse_err = (lse - ref_lse).abs().max().item()
+    check(lse_err <= 1e-3, f"{what}: lse max err {lse_err}")
+    del ref, ref_lse
+    ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, **kw)
+    pair_errs = {n: grad_err(gr, r, f"{what} {n}")
+                 for n, gr, r in zip(("dq", "dk", "dv"), got, ref)}
+    del got, ref
+    torch.cuda.empty_cache()
+
+    delta = torch.empty((b, h, s), dtype=torch.float32, device="cuda")
+    args = (q, k, v, do, lse, delta, *seg, False, scale,
+            fa._mixed_rounds(q, k, do))
+    bop = fa._bias_operand(bias, b, h, s, s, q.device, scale)
+    dq = fa._flash_dq_cuda(*args, out=out, dropout=dargs, bias=bop)
+    dk, dv = fa._flash_dkdv_cuda(*args, dropout=dargs, bias=bop)
+    rdq, rdelta = fa.flash_bwd_dq_reference(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    delta_err = _fp32_err(delta, rdelta, f"{what} delta fold", 1e-5)
+    dq_err = grad_err(dq, rdq, f"{what} dq kernel")
+    del dq, rdq, rdelta
+    rdk, rdv = fa.flash_bwd_dkdv_reference(q, k, v, lse, delta, do, **kw)
+    dkdv_err = max(grad_err(dk, rdk, f"{what} dk kernel"),
+                   grad_err(dv, rdv, f"{what} dv kernel"))
+    del dk, dv, rdk, rdv
+    torch.cuda.empty_cache()
+
+    mask = (bias + pad).to(torch.bfloat16)
+    pairs = _bias_live_pairs(torch, bias, sid_kv, h)
+    sd2, side = b * h * s * d * 2, b * h * s * 4
+    bias_bytes = bias.numel() * 4 + (0 if min_len is None else 2 * b * s * 4)
+    f_bound = _with_hash(*bound(4.0 * d * pairs,
+                                4 * sd2 + side + bias_bytes), pairs)
+    dq_bound = _with_hash(*bound(3 * 2.0 * d * pairs,
+                                 6 * sd2 + 2 * side + bias_bytes), pairs)
+    dkdv_bound = _with_hash(*bound(4 * 2.0 * d * pairs,
+                                   6 * sd2 + 2 * side + bias_bytes), pairs)
+    fwd = fa.flash_attention_fwd
+    row = dict(
+        shape=f"b{b} h{h} s{s} d{d} bf16, bias [1, 1, {s}, {s}] fp32 (future "
+              f"mask), dropout {DROPOUT_RATE}" + (
+                  "" if min_len is None else f", key padding {min_len}-{s}"),
+        live_pairs=pairs, fwd_max_abs_err=fwd_err, lse_max_abs_err=lse_err,
+        pair_max_abs_err=pair_errs, delta_fold_max_abs_err=delta_err,
+        dq_max_abs_err=dq_err, dkdv_max_abs_err=dkdv_err,
+        fwd_ms=timer(lambda: fwd(q, k, v, *seg, False, scale, bias=bias,
+                                 **drop), iters=10),
+        fwd_bias_only_ms=timer(lambda: fwd(q, k, v, *seg, False, scale,
+                                           bias=bias), iters=10),
+        fwd_dropout_only_ms=timer(lambda: fwd(q, k, v, *seg, False, scale,
+                                              **drop), iters=10),
+        fwd_plain_ms=timer(lambda: fa.flash_attention_reference(
+            q, k, v, **kw), iters=3, warmup=1),
+        fwd_library_ms=timer(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale, dropout_p=DROPOUT_RATE),
+            iters=10),
+        dq_ms=timer(lambda: fa._flash_dq_cuda(*args, out=out, dropout=dargs,
+                                              bias=bop), iters=10),
+        dq_bias_only_ms=timer(lambda: fa._flash_dq_cuda(*args, out=out,
+                                                        bias=bop), iters=10),
+        dq_dropout_only_ms=timer(lambda: fa._flash_dq_cuda(
+            *args, out=out, dropout=dargs), iters=10),
+        dq_plain_ms=timer(lambda: fa.flash_bwd_dq_reference(
+            q, k, v, out, lse, do, **kw), iters=3, warmup=1),
+        dkdv_ms=timer(lambda: fa._flash_dkdv_cuda(*args, dropout=dargs,
+                                                  bias=bop), iters=10),
+        dkdv_bias_only_ms=timer(lambda: fa._flash_dkdv_cuda(*args, bias=bop),
+                                iters=10),
+        dkdv_dropout_only_ms=timer(lambda: fa._flash_dkdv_cuda(
+            *args, dropout=dargs), iters=10),
+        dkdv_plain_ms=timer(lambda: fa.flash_bwd_dkdv_reference(
+            q, k, v, lse, delta, do, **kw), iters=3, warmup=1),
+        as_called_ms=timer(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, do, *seg, False, scale, bias=bias, **drop),
+            iters=10),
+        library_ms=timer(_grad_of(torch, lambda a, b_, c: (
+            F.scaled_dot_product_attention(a, b_, c, attn_mask=mask,
+                                           scale=scale,
+                                           dropout_p=DROPOUT_RATE)),
+            (q, k, v), do), iters=10),
+        fwd_bound_ms=f_bound[0], fwd_bound_by=f_bound[1],
+        dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
+        dkdv_bound_ms=dkdv_bound[0], dkdv_bound_by=dkdv_bound[1])
+    del q, k, v, do, out, lse, delta, args, bop, mask
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_flash_bias_dropout(torch, timer):
+    """B1's, B3's and B4's variants with both (``flash_fwd_sm90<..., DROP,
+    BIAS>``, ``flash_dkdv_sm90<..., DROP, BIAS>``, ``flash_dq_sm90<...,
+    DROP, BIAS>``) at :func:`_bias_cases`' shapes with dropout 0.1 (bf16
+    and fp16, head dims 64 and 128, the four broadcast shapes, sq != sk,
+    odd sk, segment padding, a row -inf everywhere) against their plain
+    versions with the same bias and seed (:func:`_bias_dropout_case`); the
+    keep pattern and the positions bitwise (:func:`_bias_dropout_bitwise`);
+    then at :data:`BIAS_DROPOUT_SHAPES` the checks and the times
+    (:func:`_bias_dropout_timed`). The rows' numbers are the
+    train-mha16-bias-dropout path's shape (the last)."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    checked = [_bias_dropout_case(torch, fa, gen, c)
+               for c in _bias_cases(torch)]
+    bitwise = [_bias_dropout_bitwise(torch, fa, gen, torch.bfloat16, 64, 5),
+               _bias_dropout_bitwise(torch, fa, gen, torch.float16, 128, -3)]
+    torch.cuda.empty_cache()
+    by_shape = [_bias_dropout_timed(torch, fa, F, timer, gen, *shape)
+                for shape in BIAS_DROPOUT_SHAPES]
+    main = by_shape[-1]
+    common = dict(
+        route="cuda", shape=main["shape"], live_pairs=main["live_pairs"],
+        bitwise=bitwise, by_shape=by_shape,
+        checked=[dict(case=w, max_abs_err=e, grad_max_abs_err=ge)
+                 for w, e, ge in checked])
+    bwd = dict(
+        source="apex_tpu_torch/csrc/flash_bwd_sm90.cu",
+        tolerance="2 bf16 ulp + 2% of max, 1% relative norm, of the plain "
+                  "versions with the same bias and seed; the folded delta "
+                  "1e-5 of max; a rerun bitwise; the keep pattern and the "
+                  "positions bitwise",
+        library_ms=main["library_ms"],
+        library="backward of F.scaled_dot_product_attention(attn_mask=the "
+                f"bias as a bf16 mask, dropout_p={DROPOUT_RATE}): dq, dk and "
+                "dv together, its own random stream",
+        as_called_ms=main["as_called_ms"],
+        pair_max_abs_err=main["pair_max_abs_err"],
+        delta_fold_max_abs_err=main["delta_fold_max_abs_err"], **common)
+    return [
+        dict(name="flash_fwd_sm90_bias_dropout",
+             source="apex_tpu_torch/csrc/flash_fwd_sm90.cu",
+             replaces="apex_tpu/ops/flash_attention.py:251",
+             max_abs_err=main["fwd_max_abs_err"],
+             lse_max_abs_err=main["lse_max_abs_err"],
+             tolerance="2 bf16 ulp + 4e-3 of the plain forward with the same "
+                       "bias and seed; lse 1e-3; a rerun bitwise; the keep "
+                       "pattern and the positions bitwise",
+             ms=main["fwd_ms"], bias_only_ms=main["fwd_bias_only_ms"],
+             dropout_only_ms=main["fwd_dropout_only_ms"],
+             plain_ms=main["fwd_plain_ms"], library_ms=main["fwd_library_ms"],
+             library="F.scaled_dot_product_attention(attn_mask=the bias as a "
+                     f"bf16 mask, dropout_p={DROPOUT_RATE}): its own random "
+                     "stream",
+             bound_ms=main["fwd_bound_ms"], bound_by=main["fwd_bound_by"],
+             **common),
+        dict(name="flash_bwd_dkdv_sm90_bias_dropout",
+             replaces="apex_tpu/ops/flash_attention.py:558",
+             max_abs_err=main["dkdv_max_abs_err"], ms=main["dkdv_ms"],
+             bias_only_ms=main["dkdv_bias_only_ms"],
+             dropout_only_ms=main["dkdv_dropout_only_ms"],
+             plain_ms=main["dkdv_plain_ms"], plain="flash_bwd_dkdv_reference",
+             bound_ms=main["dkdv_bound_ms"], bound_by=main["dkdv_bound_by"],
+             **bwd),
+        dict(name="flash_bwd_dq_sm90_bias_dropout",
+             replaces="apex_tpu/ops/flash_attention.py:671",
+             max_abs_err=main["dq_max_abs_err"], ms=main["dq_ms"],
+             bias_only_ms=main["dq_bias_only_ms"],
+             dropout_only_ms=main["dq_dropout_only_ms"],
+             plain_ms=main["dq_plain_ms"], plain="flash_bwd_dq_reference",
+             bound_ms=main["dq_bound_ms"], bound_by=main["dq_bound_by"],
+             **bwd),
+    ]
+
+
 # the ResNet-50 head (n256 V1000 fp32, the bench's smoothing) and the GPT's
 # vocabulary at its token count (n8192 V32768 bf16, smoothing 0.1 and 0)
 XENT_SHAPES = ((256, 1000, "float32", (0.1,)),
@@ -3258,7 +3692,8 @@ def counters():
     launches there), and the wgmma forward's, single pass's and split's
     dropout variants (``*_dropout``) apart from their variants without,
     and the wgmma forward's, single pass's and split's bias variants
-    (``*_bias``) apart from both."""
+    (``*_bias``) apart from both, and the wgmma forward's and split's
+    variants with both (``*_bias_dropout``) apart from all three."""
     from apex_tpu_torch.ops import flash_attention as fa
     from apex_tpu_torch.ops import fp8_matmul as mm
     from apex_tpu_torch.ops import fused_ce as xe
@@ -3272,6 +3707,8 @@ def counters():
             "flash_fwd_sm90_dropout": (fa.flash_attention,
                                        "dropout_launches"),
             "flash_fwd_sm90_bias": (fa.flash_attention, "bias_launches"),
+            "flash_fwd_sm90_bias_dropout": (fa.flash_attention,
+                                            "bias_dropout_launches"),
             "flash_fwd_f32": (fa.flash_attention, "f32_launches"),
             "paged_decode": (fa.paged_decode_attention, "launches"),
             "paged_decode_fp8": (fa.paged_decode_attention, "fp8_launches"),
@@ -3306,6 +3743,10 @@ def counters():
                                          "bias_dkdv_launches"),
             "flash_bwd_dq_sm90_bias": (fa.flash_attention_bwd,
                                        "bias_dq_launches"),
+            "flash_bwd_dkdv_sm90_bias_dropout": (
+                fa.flash_attention_bwd, "bias_dropout_dkdv_launches"),
+            "flash_bwd_dq_sm90_bias_dropout": (fa.flash_attention_bwd,
+                                               "bias_dropout_dq_launches"),
             "flash_bwd_f32_dkdv": (fa.flash_attention_bwd,
                                    "f32_dkdv_launches"),
             "flash_bwd_f32_dq": (fa.flash_attention_bwd, "f32_dq_launches"),
@@ -3342,7 +3783,8 @@ def read_counters():
     ``flash_fwd_sm90``, ``flash_bwd_fused_sm90``, ``flash_bwd_dkdv_sm90``
     and ``flash_bwd_dq_sm90`` count the kernels without dropout and
     ``*_dropout`` those with; and the wgmma forward's, single pass's and
-    split's less their bias variants' (``*_bias``)."""
+    split's less their bias variants' (``*_bias``) and the variants with
+    both (``*_bias_dropout``; a launch with both counts there alone)."""
     out = {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
     out["fp8_matmul"] -= out["fp8_matmul_prefill"]
     out["lm_head_ce_fwd"] -= out["lm_head_ce_fwd_f32"]
@@ -3353,13 +3795,14 @@ def read_counters():
         out["flash_bwd_f32_dkdv"]
     out["flash_bwd_dq"] -= out["flash_bwd_dq_sm90"] + out["flash_bwd_f32_dq"]
     out["flash_fwd_sm90"] -= out["flash_fwd_sm90_dropout"] + \
-        out["flash_fwd_sm90_bias"]
+        out["flash_fwd_sm90_bias"] + out["flash_fwd_sm90_bias_dropout"]
     out["flash_bwd_fused_sm90"] -= out["flash_bwd_fused_sm90_dropout"] + \
         out["flash_bwd_fused_sm90_bias"]
     out["flash_bwd_dkdv_sm90"] -= out["flash_bwd_dkdv_sm90_dropout"] + \
-        out["flash_bwd_dkdv_sm90_bias"]
+        out["flash_bwd_dkdv_sm90_bias"] + \
+        out["flash_bwd_dkdv_sm90_bias_dropout"]
     out["flash_bwd_dq_sm90"] -= out["flash_bwd_dq_sm90_dropout"] + \
-        out["flash_bwd_dq_sm90_bias"]
+        out["flash_bwd_dq_sm90_bias"] + out["flash_bwd_dq_sm90_bias_dropout"]
     return out
 
 
@@ -3572,6 +4015,9 @@ TRAIN_PER_STEP = {"flash_fwd": 0, "flash_fwd_sm90": 12, "flash_fwd_f32": 0,
                   "flash_bwd_dq_sm90_dropout": 0,
                   "flash_bwd_dkdv_sm90_bias": 0,
                   "flash_bwd_dq_sm90_bias": 0,
+                  "flash_fwd_sm90_bias_dropout": 0,
+                  "flash_bwd_dkdv_sm90_bias_dropout": 0,
+                  "flash_bwd_dq_sm90_bias_dropout": 0,
                   "flash_bwd_f32": 0, "flash_bwd_f32_dkdv": 0,
                   "flash_bwd_f32_dq": 0, "xentropy_fwd": 0,
                   "xentropy_bwd": 0, "multi_tensor_update": 0,
@@ -3921,6 +4367,16 @@ MHA16_PER_STEP = {**{k: 0 for k in TRAIN_PER_STEP},
                   "flash_bwd_dq_sm90_bias": MHA16_LAYERS,
                   "layer_norm_fwd": MHA16_LAYERS,
                   "layer_norm_bwd": MHA16_LAYERS}
+# the same path at fairseq transformer_lm_wiki103's attention dropout 0.1
+# (apex's module has one ``dropout``, which also drives norm_add's residual
+# dropout): the forward's and the split's variants with both
+MHA_BIAS_DROP_KW = dict(MHA_BIAS_KW, dropout=DROPOUT_RATE)
+MHA16_DROP_PER_STEP = {**{k: 0 for k in TRAIN_PER_STEP},
+                       "flash_fwd_sm90_bias_dropout": MHA16_LAYERS,
+                       "flash_bwd_dkdv_sm90_bias_dropout": MHA16_LAYERS,
+                       "flash_bwd_dq_sm90_bias_dropout": MHA16_LAYERS,
+                       "layer_norm_fwd": MHA16_LAYERS,
+                       "layer_norm_bwd": MHA16_LAYERS}
 
 
 def mha_stack(torch, layers, kw, heads=MHA_HEADS):
@@ -4039,6 +4495,16 @@ def run_mha16_path(torch):
                         layers=MHA16_LAYERS, heads=MHA16_HEADS, lr=MHA16_LR)
 
 
+def run_mha16_dropout_path(torch):
+    """train-mha16-e1024h8-b1s3072-bias-dropout: the train-mha16 path at
+    attention dropout 0.1, one host generator for the attention seeds and
+    the residual dropout's masks."""
+    return run_mha_path(torch, MHA_BIAS_DROP_KW, MHA16_S, MHA16_B,
+                        MHA16_DROP_PER_STEP, "train-mha16-s3072-bias-dropout",
+                        True, layers=MHA16_LAYERS, heads=MHA16_HEADS,
+                        lr=MHA16_LR)
+
+
 def _twin_grads(torch, what, params, loss_of):
     """The loss and every gradient (``params``: name -> tensor) through the
     kernels against the plain versions (``loss_of(reference)``): loss
@@ -4072,21 +4538,33 @@ def _twin_grads(torch, what, params, loss_of):
 
 def _bias_routes(fa):
     """The bias variants' counters: the forward's, the single pass's and
+    the split's two; then the variants with dropout too: the forward's and
     the split's two."""
     f, g = fa.flash_attention, fa.flash_attention_bwd
     return (f.bias_launches, g.bias_launches, g.bias_dkdv_launches,
-            g.bias_dq_launches)
+            g.bias_dq_launches, f.bias_dropout_launches,
+            g.bias_dropout_dkdv_launches, g.bias_dropout_dq_launches)
 
 
-def _encdec_grad_check(torch, fa, what, sq, sk, b, routes):
-    """One ``EncdecMultiheadAttn(1024, 16)`` at sq x sk, batch ``b``, with a
-    finite [b, 1, sq, sk] bias and key padding of sk / 2 to sk tokens: its
-    inputs' and parameters' gradients through the kernels against
-    ``reference=True``; ``routes`` the bias variants' launches
-    (:func:`_bias_routes`) the kernels' run must make."""
+# :func:`_bias_routes` of one attention: the single pass with the bias, the
+# split with the bias, the split with the bias and dropout, and none
+ROUTES_SINGLE = (1, 1, 0, 0, 0, 0, 0)
+ROUTES_SPLIT = (1, 0, 1, 1, 0, 0, 0)
+ROUTES_BOTH = (0, 0, 0, 0, 1, 1, 1)
+ROUTES_NONE = (0,) * 7
+
+
+def _encdec_grad_check(torch, fa, what, sq, sk, b, routes, dropout=0.0):
+    """One ``EncdecMultiheadAttn(1024, 16, dropout=dropout)`` at sq x sk,
+    batch ``b``, with a finite [b, 1, sq, sk] bias and key padding of sk /
+    2 to sk tokens (in training where ``dropout``, a host generator in the
+    same state on both sides): its inputs' and parameters' gradients
+    through the kernels against ``reference=True``; ``routes`` the bias
+    variants' launches (:func:`_bias_routes`) the kernels' run must
+    make."""
     from apex_tpu_torch.contrib.multihead_attn import EncdecMultiheadAttn
     gen = torch.Generator(device="cuda").manual_seed(23)
-    m = EncdecMultiheadAttn(MHA_E, MHA_HEADS, use_bias=True,
+    m = EncdecMultiheadAttn(MHA_E, MHA_HEADS, dropout=dropout, use_bias=True,
                             include_norm_add=True, device="cuda",
                             generator=torch.Generator().manual_seed(1))
     m = m.bfloat16()
@@ -4103,15 +4581,17 @@ def _encdec_grad_check(torch, fa, what, sq, sk, b, routes):
 
     def loss_of(reference):
         y = m(xq, xk, key_padding_mask=kpm, attn_mask=bias,
-              is_training=False, reference=reference)
+              is_training=dropout > 0, reference=reference,
+              generator=torch.Generator().manual_seed(DROP_GEN_SEED + 4))
         return (y.float() - target).square().mean()
 
     out = _twin_grads(torch, what, params, loss_of)
     moved = tuple(a - b_ for a, b_ in zip(_bias_routes(fa), n0))
     check(moved == routes, f"{what}: bias launches (forward, single pass, "
-          f"split dk/dv, split dq) {moved}, expected {routes}")
+          f"split dk/dv, split dq; with dropout: forward, split dk/dv, split "
+          f"dq) {moved}, expected {routes}")
     out["shape"] = (f"sq{sq} sk{sk} b{b} e{MHA_E} h{MHA_HEADS}, bias [{b}, "
-                    f"1, {sq}, {sk}], key padding")
+                    f"1, {sq}, {sk}], key padding, dropout {dropout}")
     del m, params
     torch.cuda.empty_cache()
     return out
@@ -4129,20 +4609,29 @@ def mha_grad_checks(torch):
     ``EncdecMultiheadAttn(1024, 16)`` at sq 256, sk 512, b16 (the single
     pass) and at sq 512, sk 1024, b16 (sq != sk on the split), each with a
     finite [16, 1, sq, sk] bias and key padding, its inputs' and
-    parameters' gradients. Each check asserts which bias variants ran."""
+    parameters' gradients; then with the bias and dropout 0.1 together
+    (the forward's and the split's variants with both): the train-mha16
+    path's configuration at s3072 (d 128), ``SelfMultiheadAttn(1024, 16)``
+    at b16 s512 with the future mask and key padding of 384-512 tokens
+    (d 64: the gate splits s512 with both) and ``EncdecMultiheadAttn(1024,
+    16)`` at sq 512, sk 1024, b16. Each check asserts which bias variants
+    ran."""
     from apex_tpu_torch.ops import flash_attention as fa
     out = {}
-    single, split = (1, 1, 0, 0), (1, 0, 1, 1)
     lens1024 = np.random.RandomState(5).randint(768, 1025, 8)
     for name, kw, s, b, heads, mask, lens, routes in (
             ("bias", MHA_BIAS_KW, MHA_S, MHA_B, MHA_HEADS, True,
-             mha_lengths(), single),
+             mha_lengths(), ROUTES_SINGLE),
             ("dropout", MHA_DROP_KW, MHA_DROP_S, MHA_DROP_B, MHA_HEADS,
-             False, None, (0, 0, 0, 0)),
+             False, None, ROUTES_NONE),
             ("bias-s3072-h8", MHA_BIAS_KW, MHA16_S, MHA16_B, MHA16_HEADS,
-             True, None, split),
+             True, None, ROUTES_SPLIT),
             ("bias-s1024-h16", MHA_BIAS_KW, 1024, 8, MHA_HEADS, True,
-             lens1024, split)):
+             lens1024, ROUTES_SPLIT),
+            ("bias-dropout-s3072-h8", MHA_BIAS_DROP_KW, MHA16_S, MHA16_B,
+             MHA16_HEADS, True, None, ROUTES_BOTH),
+            ("bias-dropout-s512-h16", MHA_BIAS_DROP_KW, MHA_S, MHA_B,
+             MHA_HEADS, True, mha_lengths(), ROUTES_BOTH)):
         stack = mha_stack(torch, MHA_GRAD_LAYERS, kw, heads).bfloat16()
         batch = mha_batch(torch, s, b, mask, lens)
 
@@ -4157,14 +4646,18 @@ def mha_grad_checks(torch):
         moved = tuple(a - b_ for a, b_ in zip(_bias_routes(fa), n0))
         want = tuple(MHA_GRAD_LAYERS * r for r in routes)
         check(moved == want, f"mha grad check {name}: bias launches "
-              f"(forward, single pass, split dk/dv, split dq) {moved}, "
-              f"expected {want}")
-        out[name]["shape"] = f"s{s} b{b} h{heads}"
+              f"(forward, single pass, split dk/dv, split dq; with dropout: "
+              f"forward, split dk/dv, split dq) {moved}, expected {want}")
+        out[name]["shape"] = f"s{s} b{b} h{heads}, dropout {kw['dropout']}"
         del stack, batch
     out["encdec"] = _encdec_grad_check(torch, fa, "encdec grad check", 256,
-                                       512, MHA_B, single)
+                                       512, MHA_B, ROUTES_SINGLE)
     out["encdec-sq512-sk1024"] = _encdec_grad_check(
-        torch, fa, "encdec grad check sq512 sk1024", 512, 1024, MHA_B, split)
+        torch, fa, "encdec grad check sq512 sk1024", 512, 1024, MHA_B,
+        ROUTES_SPLIT)
+    out["encdec-sq512-sk1024-dropout"] = _encdec_grad_check(
+        torch, fa, "encdec grad check sq512 sk1024 dropout", 512, 1024,
+        MHA_B, ROUTES_BOTH, dropout=DROPOUT_RATE)
     return out
 
 
@@ -5531,6 +6024,7 @@ def main() -> int:
                *check_flash_split(torch, timer),
                *check_flash_split_dropout(torch, timer),
                *check_flash_split_bias(torch, timer),
+               *check_flash_bias_dropout(torch, timer),
                *check_flash_f32(torch, timer, split=True),
                *check_xentropy(torch, timer),
                check_multi_tensor_update(torch, timer),
@@ -5548,7 +6042,8 @@ def main() -> int:
                       "train_shape", "lamb_ms", "by_op", "d128_shape",
                       "alone_ms", "split_as_called_ms", "no_dropout_ms",
                       "mask_check", "pair_max_abs_err", "no_bias_ms",
-                      "positions", "live_pairs",
+                      "positions", "live_pairs", "bias_only_ms",
+                      "dropout_only_ms", "bitwise",
                       "cudnn_composition_max_abs_err", "plan"):
             if extra in kr:
                 log(f"  {kr['name']} {extra}: {json.dumps(kr[extra])}")
@@ -5725,7 +6220,9 @@ def main() -> int:
                       ("train-mha18-e1024-b16s512-bias", run_mha_bias_path),
                       ("train-mha18-e1024-b120s64-dropout",
                        run_mha_dropout_path),
-                      ("train-mha16-e1024h8-b1s3072-bias", run_mha16_path)):
+                      ("train-mha16-e1024h8-b1s3072-bias", run_mha16_path),
+                      ("train-mha16-e1024h8-b1s3072-bias-dropout",
+                       run_mha16_dropout_path)):
         new_paths[path] = run(torch)
         log(f"{path} path ({card}): " + json.dumps(new_paths[path]))
         if "trace" in new_paths[path]:

@@ -74,7 +74,12 @@ a row that is -inf everywhere (out 0, lse -1e30, dq 0); bitwise on a rerun;
 its positions bitwise through one-hot rows (out is v permuted, dv is do
 permuted; through the split with v = e_0 and a zero output, dq, dk and dv
 are exact products and so bitwise); the refused routes raise before any
-launch, naming the route.
+launch, naming the route. The bias with dropout (the forward's and the
+split's variants with both) is held the same way against the plain
+versions with the same bias and seed, its keep pattern bitwise through the
+identity operands above under a bias finite everywhere and its positions
+through one-hot rows at rate 0.5 (the kept elements doubled, exactly); the
+single pass, which has no such variant, refuses before any launch.
 
 The fp8 dequant-matmul's prefill regime (m > 8, wgmma/TMA with the
 weight converted in registers, ``_prefill_plan``) is held like its decode
@@ -743,8 +748,8 @@ def test_flash_split_dropout_masks_are_the_plain_mask(gen, dtype, d, seed):
 
 def test_flash_dropout_refuses_the_unported_routes_on_the_card(gen):
     """Dropout on a route without it raises before any launch, naming the
-    route; so does a bias with dropout. The split at s4096 takes it on the
-    wgmma route."""
+    route; so does a bias with dropout where gradients would take the
+    single pass. The split at s4096 takes it on the wgmma route."""
     q = _rand(gen, 1, 2, 64, 64)
     with pytest.raises(NotImplementedError, match="FFMA"):
         fa.flash_attention(q.float(), q.float(), q.float(),
@@ -761,9 +766,10 @@ def test_flash_dropout_refuses_the_unported_routes_on_the_card(gen):
     assert (g.dropout_dkdv_launches, g.dropout_dq_launches) == (n0[0] + 1,
                                                                 n0[1] + 1)
     assert bool(torch.isfinite(qs.grad).all())
+    qg = q.detach().requires_grad_()
     with pytest.raises(NotImplementedError, match="bias"):
-        fa.flash_attention(q, q, q, bias=torch.zeros(1, 2, 64, 64,
-                                                     device="cuda"),
+        fa.flash_attention(qg, qg, qg, bias=torch.zeros(1, 2, 64, 64,
+                                                        device="cuda"),
                            dropout_rate=0.1, dropout_seed=1)
 
 
@@ -2290,18 +2296,35 @@ def test_flash_bias_positions_are_bitwise(gen, d):
 
 
 def test_flash_bias_refuses_the_unported_routes_on_the_card(gen):
-    """s640 d64 with a bias splits, and the split takes the bias; the FFMA
-    and frag.cuh routes refuse it before any launch."""
+    """s640 d64 with a bias splits, and the split takes the bias, with
+    dropout too (one launch each of the dk/dv and dq variants with both);
+    the single pass with both (s448 d64, under the gate) and the FFMA and
+    frag.cuh routes refuse it before any launch."""
     qs = _rand(gen, 1, 1, 640, 64).requires_grad_()
     bias = torch.zeros(1, 1, 640, 640, device="cuda")
     g = fa.flash_attention_bwd
     n0 = fa.flash_attention.launches
-    s0 = (g.launches, g.bias_dkdv_launches, g.bias_dq_launches)
+
+    def counts():
+        return (g.launches, g.bias_dkdv_launches, g.bias_dq_launches,
+                g.bias_dropout_dkdv_launches, g.bias_dropout_dq_launches)
+
+    s0 = counts()
     fa.flash_attention(qs, qs, qs, bias=bias).float().sum().backward()
     torch.cuda.synchronize()
-    assert (g.launches, g.bias_dkdv_launches, g.bias_dq_launches) == (
-        s0[0], s0[1] + 1, s0[2] + 1)
+    assert counts() == (s0[0], s0[1] + 1, s0[2] + 1, s0[3], s0[4])
     assert bool(torch.isfinite(qs.grad).all())
+    qs.grad = None
+    fa.flash_attention(qs, qs, qs, bias=bias, dropout_rate=0.1,
+                       dropout_seed=5).float().sum().backward()
+    torch.cuda.synchronize()
+    assert counts() == (s0[0], s0[1] + 1, s0[2] + 1, s0[3] + 1, s0[4] + 1)
+    assert bool(torch.isfinite(qs.grad).all())
+    q448 = _rand(gen, 1, 1, 448, 64).requires_grad_()
+    with pytest.raises(NotImplementedError, match="flash_bwd_fused_sm90"):
+        fa.flash_attention(q448, q448, q448,
+                           bias=torch.zeros(1, 1, 448, 448, device="cuda"),
+                           dropout_rate=0.1, dropout_seed=5)
     q32 = _rand(gen, 1, 2, 64, 64, dtype=torch.float32)
     b64 = torch.zeros(1, 1, 64, 64, device="cuda")
     with pytest.raises(NotImplementedError, match="FFMA"):
@@ -2310,7 +2333,7 @@ def test_flash_bias_refuses_the_unported_routes_on_the_card(gen):
     with pytest.raises(NotImplementedError, match="frag.cuh"):
         fa.flash_attention(qd, qd, qd, bias=b64)
     torch.cuda.synchronize()
-    assert fa.flash_attention.launches == n0 + 1
+    assert fa.flash_attention.launches == n0 + 2
 
 
 # ---------------------------------------------------------------------------
@@ -2383,6 +2406,161 @@ def test_flash_split_bias_positions_are_bitwise(gen, dtype, d, sq, sk):
     d0 = do[..., :1].float()
     assert float(delta.abs().max()) == 0.0
     assert torch.equal(dv, torch.zeros_like(v).scatter_(2, idx, do))
+    assert torch.equal(dk, torch.zeros_like(k).scatter_(
+        2, idx, (d0 * q.float() * scale).to(dtype)))
+    assert torch.equal(dq, (d0 * k.float().gather(2, idx) * scale).to(dtype))
+
+
+# ---------------------------------------------------------------------------
+# the bias with dropout (B1's, B3's and B4's variants with both)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,d,bdims,b,h,sq,sk,causal,seg,dead", [
+    (_BF, 64, (1, 1), 2, 4, 512, 512, False, False, 7),   # unmasked tiles
+    (_F16, 64, (1, 4), 2, 4, 300, 700, True, False, None),
+    (_BF, 128, (2, 1), 2, 4, 257, 513, False, True, None),
+    (_F16, 128, (2, 4), 2, 4, 640, 333, False, False, 100),
+    (_BF, 64, (3, 2), 3, 2, 128, 129, True, True, None),
+    (_F16, 128, (1, 1), 1, 8, 1024, 1024, True, False, 3),
+])
+def test_flash_bias_dropout_variants_match_plain(gen, dtype, d, bdims, b, h,
+                                                 sq, sk, causal, seg, dead):
+    """The forward (both block heights) and each kernel of the split with
+    a bias and dropout 0.1 against their plain versions with the same bias
+    and seed (dq with the delta it folds in from the dropped output, dk/dv
+    from that delta); a dead row's output and dq exactly 0; each bitwise on
+    a rerun; the counters of the variants with both alone move."""
+    q, k, v, do, bias, sid_q, sid_kv = _bias_inputs(
+        gen, dtype, d, bdims, b, h, sq, sk, seg, dead)
+    scale, seed = d ** -0.5, 1234
+    kw = dict(causal=causal, segment_ids_q=sid_q, segment_ids_kv=sid_kv,
+              scale=scale, bias=bias, dropout_rate=0.1, dropout_seed=seed)
+    f, g = fa.flash_attention, fa.flash_attention_bwd
+
+    def counts():
+        return (f.bias_dropout_launches, g.bias_dropout_dkdv_launches,
+                g.bias_dropout_dq_launches, f.bias_launches,
+                f.dropout_launches, g.bias_dkdv_launches,
+                g.dropout_dkdv_launches, g.launches)
+
+    n0 = counts()
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
+    for rows in (64, 128):
+        out, lse = fa._flash_fwd_cuda(q, k, v, sid_q, sid_kv, causal, scale,
+                                      block_rows=rows, bias=bias,
+                                      dropout_rate=0.1, dropout_seed=seed)
+        again = fa._flash_fwd_cuda(q, k, v, sid_q, sid_kv, causal, scale,
+                                   block_rows=rows, bias=bias,
+                                   dropout_rate=0.1, dropout_seed=seed)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        _close(out, ref, 4e-3)
+        assert float((lse - ref_lse).abs().max()) <= 1e-3
+        if dead is not None:
+            assert float(out[:, :, dead].abs().max()) == 0.0
+            assert bool((lse[:, :, dead] == -1e30).all())
+    grads = fa._flash_bwd_cuda(q, k, v, out, lse, do, sid_q, sid_kv, causal,
+                               scale, split=True, bias=bias,
+                               dropout_rate=0.1, dropout_seed=seed)
+    again = fa._flash_bwd_cuda(q, k, v, out, lse, do, sid_q, sid_kv, causal,
+                               scale, split=True, bias=bias,
+                               dropout_rate=0.1, dropout_seed=seed)
+    torch.cuda.synchronize()
+    assert tuple(a - b_ for a, b_ in zip(counts(), n0)) == (4, 2, 2, 0, 0, 0,
+                                                            0, 0)
+    assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+    rdq, rdelta = fa.flash_bwd_dq_reference(q, k, v, out, lse, do, **kw)
+    rdk, rdv = fa.flash_bwd_dkdv_reference(q, k, v, lse, rdelta, do, **kw)
+    for name, got, r in zip(("dq", "dk", "dv"), grads, (rdq, rdk, rdv)):
+        assert bool(torch.isfinite(got.float()).all()), name
+        _close_grad(got, r, name)
+    if dead is not None:
+        assert float(grads[0][:, :, dead].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype,d", [(_BF, 64), (_F16, 128)])
+@pytest.mark.parametrize("seed", [5, -3])
+def test_flash_bias_dropout_keep_pattern_and_positions_are_bitwise(
+        gen, dtype, d, seed):
+    """Rate 0.5. The keep pattern, under a bias in [-1, 1) everywhere (p >
+    0, no fp16 underflow): the forward with q = k = 0 and v the identity
+    over sk = d keys is zero exactly where an element is dropped; the
+    split's dk/dv with q = 0 and do = I over sq = d rows gives dv = the
+    dropped p transposed; its dq with k = I over sk = d keys and a zero
+    output is zero exactly where a key is dropped.
+    The positions, through one-hot bias rows (0 at key pi(q) of an
+    injective map into sk > sq keys, -inf elsewhere), v = e_0 and a zero
+    output: p is 1 at (q, pi(q)), so out is 2 v[pi(q)] where kept, dv 2
+    do[q] at pi(q), dk 2 do[q, 0] q scale there and dq 2 do[q, 0] k[pi(q)]
+    scale, each 0 where dropped: exact products, bit for bit."""
+    b, h, s = 2, 3, 333
+    half = fa._dropout_args(0.5, seed)
+    eye = torch.eye(d, device="cuda", dtype=dtype).expand(b, h, d, d)
+    eye = eye.contiguous()
+    rounds = fa._mixed_rounds(eye, eye, eye)
+
+    def unit(*shape):           # a bias in [-1, 1)
+        return 2 * torch.rand(*shape, generator=gen, device="cuda") - 1
+
+    # the forward: q = k = 0, v = I, sk = d
+    q = torch.zeros(b, h, s, d, device="cuda", dtype=dtype)
+    k = torch.zeros(b, h, d, d, device="cuda", dtype=dtype)
+    bias = unit(1, h, s, d)
+    out, _ = fa.flash_attention_fwd(q, k, eye, None, None, False, 1.0,
+                                    0.5, seed, bias=bias)
+    keep = fa.dropout_keep_reference(seed, b, h, s, d, 0.5, device="cuda")
+    assert torch.equal(out != 0, keep)
+    # dk/dv: q = 0, do = I over sq = d rows
+    k, v = (_rand(gen, b, h, s, d, dtype=dtype) for _ in range(2))
+    q = torch.zeros(b, h, d, d, device="cuda", dtype=dtype)
+    bias = unit(b, 1, d, s)
+    _, lse = fa.flash_attention_fwd(q, k, v, None, None, False, 1.0,
+                                    bias=bias)
+    zero = torch.zeros(b, h, d, dtype=torch.float32, device="cuda")
+    bop = fa._bias_operand(bias, b, h, d, s, q.device, 1.0)
+    _, dv = fa._flash_dkdv_cuda(q, k, v, eye, lse, zero, None, None, False,
+                                1.0, rounds, dropout=half, bias=bop)
+    keep = fa.dropout_keep_reference(seed, b, h, d, s, 0.5, device="cuda")
+    assert torch.equal(dv != 0, keep.transpose(-1, -2))
+    # dq: k = I over sk = d keys, out = 0
+    q, v, do = (_rand(gen, b, h, n, d, dtype=dtype) for n in (s, d, s))
+    bias = unit(1, 1, s, d)
+    _, lse = fa.flash_attention_fwd(q, eye, v, None, None, False, 1.0,
+                                    bias=bias)
+    delta = torch.empty(b, h, s, dtype=torch.float32, device="cuda")
+    bop = fa._bias_operand(bias, b, h, s, d, q.device, 1.0)
+    dq = fa._flash_dq_cuda(q, eye, v, do, lse, delta, None, None, False,
+                           1.0, rounds, out=torch.zeros_like(q),
+                           dropout=half, bias=bop)
+    keep = fa.dropout_keep_reference(seed, b, h, s, d, 0.5, device="cuda")
+    assert float(delta.abs().max()) == 0.0
+    assert torch.equal(dq != 0, keep)
+    # the positions
+    sq, sk, scale = 300, 513, 0.125
+    q, do = (_rand(gen, b, h, sq, d, dtype=dtype) for _ in range(2))
+    k = _rand(gen, b, h, sk, d, dtype=dtype)
+    v = torch.zeros(b, h, sk, d, device="cuda", dtype=dtype)
+    v[..., 0] = 1
+    pi = torch.stack([torch.randperm(sk, generator=gen, device="cuda")[:sq]
+                      for _ in range(b * h)]).view(b, h, sq)
+    bias = torch.full((b, h, sq, sk), float("-inf"), device="cuda")
+    bias.scatter_(3, pi[..., None], 0.0)
+    out, lse = fa.flash_attention_fwd(q, k, v, None, None, False, scale,
+                                      0.5, seed, bias=bias)
+    kept = fa.dropout_keep_reference(seed, b, h, sq, sk, 0.5,
+                                     device="cuda").gather(3, pi[..., None])
+    idx = pi[..., None].expand(b, h, sq, d)
+    two = torch.where(kept, 2.0, 0.0)
+    assert torch.equal(out, (two * v.float().gather(2, idx)).to(dtype))
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device="cuda")
+    args = (q, k, v, do, lse, delta, None, None, False, scale, rounds)
+    bop = fa._bias_operand(bias, b, h, sq, sk, q.device, scale)
+    dq = fa._flash_dq_cuda(*args, out=torch.zeros_like(q), dropout=half,
+                           bias=bop)
+    dk, dv = fa._flash_dkdv_cuda(*args, dropout=half, bias=bop)
+    d0 = two * do[..., :1].float()
+    assert torch.equal(dv, torch.zeros_like(v).scatter_(
+        2, idx, (two * do.float()).to(dtype)))
     assert torch.equal(dk, torch.zeros_like(k).scatter_(
         2, idx, (d0 * q.float() * scale).to(dtype)))
     assert torch.equal(dq, (d0 * k.float().gather(2, idx) * scale).to(dtype))

@@ -19,9 +19,10 @@ JAX kernel rounds p to bf16 before the PV product, the plain version does
 not) and two bf16 ulps plus 2 % of the largest gradient (the JAX kernel
 rounds p and ds to bf16 before its products). The gate counts the bias as
 the JAX gate does, ``bias_refusal`` names every route that still refuses
-it (the split takes it), and the CUDA wrappers' C calls (the library
-stubbed: no card needed) carry the fp32 bias with its broadcast strides,
-never expanded.
+it (the split takes it, and the wgmma route takes it with dropout but for
+the single pass), and the CUDA wrappers' C calls (the library stubbed: no
+card needed) carry the fp32 bias with its broadcast strides, never
+expanded.
 """
 
 import importlib
@@ -260,16 +261,22 @@ def test_gate_counts_the_bias_as_the_jax_gate_does(s, d, split):
 
 def test_bias_refusal_names_each_refused_route():
     """The wgmma route takes the bias in the single pass and the split
-    alike: the route a bias shape takes (s640 d64 splits) is not refused;
-    dropout with it, the FFMA route and the frag.cuh kernels are."""
+    alike: the route a bias shape takes (s640 d64 splits) is not refused.
+    With dropout too it takes the bias where the backward splits (the gate
+    counts 512-row blocks with both: s512 at d 64, s448 at d 128), and the
+    single pass (s448 at d 64) refuses it, naming itself; the FFMA route
+    and the frag.cuh kernels refuse the bias."""
     bf, f32 = torch.bfloat16, torch.float32
     assert tfa.bias_refusal(bf, 64) is None
     assert tfa.bias_refusal(torch.float16, 128) is None
     q = torch.zeros(1, 1, 640, 64, dtype=bf)
     assert tfa._bwd_route(q, q, q, False, 0.0, bias=True) == (True, bf)
-    assert "dropout" in tfa.bias_refusal(bf, 64, dropout=True)
-    assert "dropout" in tfa.bias_refusal(bf, 128, dropout=True)
-    with pytest.raises(NotImplementedError, match="dropout"):
+    for s, d in ((512, 64), (448, 128)):
+        q = torch.zeros(1, 1, s, d, dtype=bf)
+        assert tfa._bwd_route(q, q, q, False, 0.1, bias=True) == (True, bf)
+    q = torch.zeros(1, 1, 448, 64, dtype=bf)
+    with pytest.raises(NotImplementedError,
+                       match="single-pass backward .flash_bwd_fused_sm90"):
         tfa._bwd_route(q, q, q, False, 0.1, bias=True)
     assert "FFMA" in tfa.bias_refusal(f32, 64)
     assert "frag.cuh" in tfa.bias_refusal(bf, 32)
@@ -278,7 +285,13 @@ def test_bias_refusal_names_each_refused_route():
 
 def _stub_library(monkeypatch):
     """The C calls the wrappers make, recorded instead of run (CPU tensors
-    stand for the card's): ``(target, symbol, args)``."""
+    stand for the card's): ``(target, symbol, args)``. The flash launch
+    counters get their values back at the test's end, so that no other
+    test in the process sees these calls."""
+    for fn in (tfa.flash_attention, tfa.flash_attention_bwd):
+        for name, value in list(vars(fn).items()):
+            if name.endswith("launches"):
+                monkeypatch.setattr(fn, name, value)
     calls = []
 
     def function(target, symbol, argtypes):
@@ -340,8 +353,9 @@ def test_bias_operand_is_cast_without_expanding_a_broadcast_dim():
 
 
 @pytest.mark.parametrize("make,match", [
-    # the gate sends s640 d64 with a bias to the split: with dropout too
-    (lambda: (torch.zeros(1, 1, 640, 64, dtype=torch.bfloat16),
+    # with dropout the gate keeps s448 d64 on the single pass, which has no
+    # variant with both (s512 and past split and launch: the test below)
+    (lambda: (torch.zeros(1, 1, 448, 64, dtype=torch.bfloat16),
               dict(dropout_rate=0.1, dropout_seed=1)), "dropout"),
     (lambda: (torch.zeros(1, 1, 64, 64, dtype=torch.bfloat16),
               dict(dropout_rate=0.1, dropout_seed=1)), "dropout"),
@@ -362,6 +376,30 @@ def test_cuda_bias_refusals_raise_before_any_launch(monkeypatch, make,
     with pytest.raises(NotImplementedError, match=match) as err:
         tfa.flash_attention(q, q, q, bias=bias, **kw)
     assert "bias" in str(err.value) and calls == []
+    if kw:      # the single pass names itself
+        assert "flash_bwd_fused_sm90" in str(err.value)
+
+
+def test_cuda_bias_with_dropout_at_s640_launches_the_split(monkeypatch):
+    """s640 d64 with a bias and dropout, which the gate splits (it raised
+    before the split took both): the forward, then the split's dq and
+    dk/dv, each with the bias and the dropout."""
+    calls = _stub_library(monkeypatch)
+    monkeypatch.setattr(tfa, "check_device_type", lambda t, what: "cuda")
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: type("P", (), {
+                            "multi_processor_count": 132})())
+    q = torch.zeros(1, 1, 640, 64, dtype=torch.bfloat16, requires_grad=True)
+    bias = torch.zeros(1, 1, 640, 640)
+    out = tfa.flash_attention(q, q, q, bias=bias, dropout_rate=0.1,
+                              dropout_seed=1)
+    out.float().sum().backward()
+    assert [c[1] for c in calls] == ["apex_flash_fwd_sm90",
+                                     "apex_flash_bwd_sm90_dq",
+                                     "apex_flash_bwd_sm90_dkdv"]
+    for _, symbol, args in calls:
+        assert args[-7].value is not None, symbol
+        assert args[-4:-1] == tfa._dropout_args(0.1, 1), symbol
 
 
 def test_cuda_bias_autograd_runs_the_bias_variants_and_a_zero_dbias(
