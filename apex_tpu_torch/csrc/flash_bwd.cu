@@ -816,7 +816,7 @@ int f32_dispatch(const void* q, const void* k, const void* v,
                  const void* sid_q, const void* sid_kv, void* ws,
                  void* dq_acc, void* turns, void* dk, void* dv, int b, int h,
                  int sq, int sk, int d, int causal, float scale,
-                 void* stream) {
+                 const fa32::Dropout& dr, void* stream) {
   if (b <= 0 || h <= 0 || sq < 0) return cudaSuccess;
   if (sk <= 0)   // no key: dq is zero (dk and dv are empty)
     return WITH_DQ && sq > 0
@@ -845,8 +845,9 @@ int f32_dispatch(const void* q, const void* k, const void* v,
   float* wf = static_cast<float*>(ws);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return fa32::launch<64, WITH_DQ>(qf, df, of, wf, p, b, st);
-    case 128: return fa32::launch<128, WITH_DQ>(qf, df, of, wf, p, b, st);
+    case 64: return fa32::launch<64, WITH_DQ>(qf, df, of, wf, p, dr, b, st);
+    case 128:
+      return fa32::launch<128, WITH_DQ>(qf, df, of, wf, p, dr, b, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -865,8 +866,11 @@ int f32_dispatch(const void* q, const void* k, const void* v,
 // key blocks that reach a query tile add into it in a fixed order, the
 // first storing) and turns, b * h * ceil(sq / 64) int32, ZEROED by the
 // caller;
-// dk, dv [b,h,sk,d] (every element written). Each returns the first
-// failing launch's cudaError_t.
+// dk, dv [b,h,sk,d] (every element written). The single pass takes
+// attention dropout as the wgmma entries do: `seed`, `threshold` (0: none,
+// the kernel without dropout) and `inv` = 1 / (1 - rate); delta (folded or
+// given) is then rowsum(dout * out) of the dropped output. Each returns the
+// first failing launch's cudaError_t.
 extern "C" int apex_flash_bwd_f32(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* out, const void* lse,
@@ -875,17 +879,20 @@ extern "C" int apex_flash_bwd_f32(const void* q, const void* k,
                                   void* ws, void* dq_acc, void* turns,
                                   void* dk, void* dv, int b, int h, int sq,
                                   int sk, int d, int causal, float scale,
-                                  void* stream) {
+                                  unsigned int seed, unsigned int threshold,
+                                  float inv, void* stream) {
 #if APEX_HAS_DTYPE(2)
   return f32_dispatch<true>(q, k, v, dout, out, lse, delta, sid_q, sid_kv,
                             ws, dq_acc, turns, dk, dv, b, h, sq, sk, d,
-                            causal, scale, stream);
+                            causal, scale,
+                            fa32::Dropout{seed, threshold, inv}, stream);
 #else
   return cudaErrorInvalidValue;
 #endif
 }
 
-// The split's dk/dv half on the same route: dk, dv [b,h,sk,d].
+// The split's dk/dv half on the same route: dk, dv [b,h,sk,d]; no
+// dropout (the split's dropout variants are not written yet).
 extern "C" int apex_flash_bwd_f32_dkdv(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* out, const void* lse,
@@ -898,7 +905,8 @@ extern "C" int apex_flash_bwd_f32_dkdv(const void* q, const void* k,
 #if APEX_HAS_DTYPE(2)
   return f32_dispatch<false>(q, k, v, dout, out, lse, delta, sid_q,
                              sid_kv, ws, nullptr, nullptr, dk, dv, b, h, sq,
-                             sk, d, causal, scale, stream);
+                             sk, d, causal, scale, fa32::Dropout{0, 0, 1.f},
+                             stream);
 #else
   return cudaErrorInvalidValue;
 #endif

@@ -71,11 +71,26 @@
 // it, and under a causal mask key block j + 1 reaches a tile two tiles
 // (d 64) ahead of block j. The dk/dv kernel runs its rounds in order (the
 // longest causal walks first) and keeps nothing beyond its own keys.
+//
+// Attention dropout (`_p_dp_ds`, :526-555), in the single pass: a variant
+// of it, flash_bwd_f32_dropout_kernel (chosen by the C entry when the keep
+// threshold is not 0; the kernels without dropout keep their parameters and
+// their code), regenerates the forward's keep bit of each (query row, key)
+// element from dropout_hash.cuh at their global positions, takes dp = keep
+// ? dp / (1 - rate) : 0 before ds = p (dp - delta) with the undropped p,
+// and stores the dropped p (0, or p / (1 - rate)) as P for the dV product.
+// delta is rowsum(do * out) of the dropped output, as the prologue folds it
+// from that output. The hash's (seed, batch, head) term is computed once a
+// block and xored with a lane's four query rows' terms once a tile; an
+// element costs its key's term, one xor and one fmix32. The split's dk/dv
+// (flash_dkdv_f32_kernel) and dq (flash_dq_f32_kernel) have no such
+// variant: the C entries of the split take no dropout.
 
 #pragma once
 
 #include <stdint.h>
 
+#include "dropout_hash.cuh"
 #include "simt_f32.cuh"
 #include "turns.cuh"
 
@@ -120,6 +135,13 @@ struct Params {
   float* dv;
   int h, sq, sk, sqp, causal;
   float scale;
+};
+
+// the dropout variant's own parameters: the seed, the keep threshold and
+// 1 / (1 - rate) (the kernels without dropout take Params alone)
+struct Dropout {
+  uint32_t seed, threshold;
+  float inv;
 };
 
 // element (query, key) of a [BQ][BN] tile: 16-byte granules XOR-swizzled
@@ -181,8 +203,9 @@ __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-template <int D, bool WITH_DQ>
-__device__ __forceinline__ void kv_block(float* smem, const Params& p) {
+template <int D, bool WITH_DQ, bool DROP>
+__device__ __forceinline__ void kv_block(float* smem, const Params& p,
+                                         const Dropout& dr) {
   using C = Cfg<D>;
   constexpr int BN = C::BN, SK = C::SK, GC = C::GC, LDK = C::LDK;
   constexpr int THREADS = C::THREADS;
@@ -274,9 +297,11 @@ __device__ __forceinline__ void kv_block(float* smem, const Params& p) {
     __syncthreads();   // the tile is in; every thread is done with the last
     if (C::STAGES == 2 && qt + 1 < n_qt) load_tile(qt + 1, stage ^ 1);
 
-    // the lane's query rows: lse, delta, segment ids (used after S, dP)
+    // the lane's query rows: lse, delta, segment ids (used after S, dP);
+    // dropout: the hash's (seed, batch, head) and row terms
     float lse_r[4], dl_r[4];
     int sid_r[4];
+    uint32_t hq[4];
 #pragma unroll
     for (int jq = 0; jq < 4; ++jq) {
       const int qr = q0 + qw + jq;
@@ -284,6 +309,10 @@ __device__ __forceinline__ void kv_block(float* smem, const Params& p) {
       lse_r[jq] = in ? __ldg(p.lse + bh * sq + qr) : 0.f;
       dl_r[jq] = in ? __ldg(p.delta + bh * sq + qr) : 0.f;
       sid_r[jq] = (seg && in) ? __ldg(p.sid_q + (long)bi * sq + qr) : -1;
+      if constexpr (DROP)
+        hq[jq] = dropout::base(dr.seed, (uint32_t)bi,
+                               (uint32_t)(bh - (long)bi * p.h)) ^
+                 dropout::q_term(qr);
     }
 
     // ---- S^T = K Q^T and dP^T = V dO^T over d
@@ -321,8 +350,8 @@ __device__ __forceinline__ void kv_block(float* smem, const Params& p) {
         }
     }
 
-    // ---- mask, p = exp(s * scale - lse), ds = p * (dp - delta); stored
-    // as [query][key]
+    // ---- mask, p = exp(s * scale - lse), ds = p * (dp - delta) (with
+    // dropout dp kept and scaled, P dropped); stored as [query][key]
 #pragma unroll
     for (int jq = 0; jq < 4; ++jq) {
       const int ql = qw + jq, qr = q0 + ql;
@@ -332,8 +361,15 @@ __device__ __forceinline__ void kv_block(float* smem, const Params& p) {
         bool ok = qr < sq && key < sk && (!p.causal || key <= qr + off);
         if (seg) ok = ok && sid_r[jq] >= 0 && sid_r[jq] == sSidK[kl];
         const float pv = ok ? __expf(s[i][jq] * p.scale - lse_r[jq]) : 0.f;
-        s[i][jq] = pv;
-        dp[i][jq] = pv * (dp[i][jq] - dl_r[jq]);
+        if constexpr (DROP) {   // dV takes p dropped, ds p undropped
+          const bool kept = dropout::keep(hq[jq] ^ dropout::k_term(key),
+                                          dr.threshold);
+          dp[i][jq] = pv * ((kept ? dp[i][jq] * dr.inv : 0.f) - dl_r[jq]);
+          s[i][jq] = kept ? pv * dr.inv : 0.f;
+        } else {
+          s[i][jq] = pv;
+          dp[i][jq] = pv * (dp[i][jq] - dl_r[jq]);
+        }
       }
 #pragma unroll
       for (int g = 0; g < SK / 4; ++g) {
@@ -543,22 +579,31 @@ template <int D>
 __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
 flash_bwd_f32_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
-  kv_block<D, true>(smem, p);
+  kv_block<D, true, false>(smem, p, Dropout{});
+}
+
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
+flash_bwd_f32_dropout_kernel(const Params p, const Dropout dr) {
+  extern __shared__ __align__(16) float smem[];
+  kv_block<D, true, true>(smem, p, dr);
 }
 
 template <int D>
 __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
 flash_dkdv_f32_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
-  kv_block<D, false>(smem, p);
+  kv_block<D, false, false>(smem, p, Dropout{});
 }
 
 // q and dout [b h, sq, D] transposed into ws [2][b h][D][sqp] (and, given
-// the forward's output o, delta into p.delta), then one of the two kernels
-// over grid (b h, key blocks)
+// the forward's output o, delta into p.delta), then one of the kernels over
+// grid (b h, key blocks): the single pass (WITH_DQ; its dropout variant
+// where dr.threshold is not 0) or the split's dk/dv
 template <int D, bool WITH_DQ>
 cudaError_t launch(const float* q, const float* dout, const float* o,
-                   float* ws, Params p, int b, cudaStream_t stream) {
+                   float* ws, Params p, const Dropout& dr, int b,
+                   cudaStream_t stream) {
   const int bh = b * p.h;
   p.sqp = (p.sq + 3) & ~3;
   float* qt = ws;
@@ -574,12 +619,21 @@ cudaError_t launch(const float* q, const float* dout, const float* o,
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  auto kernel = WITH_DQ ? flash_bwd_f32_kernel<D> : flash_dkdv_f32_kernel<D>;
   const size_t smem = Cfg<D>::SMEM_BYTES + (WITH_DQ ? Cfg<D>::DQ * 4 : 0);
+  const int n_kb = (p.sk + Cfg<D>::BN - 1) / Cfg<D>::BN;
+  if (WITH_DQ && dr.threshold != 0) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_f32_dropout_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_f32_dropout_kernel<D>
+        <<<dim3(bh, n_kb), Cfg<D>::THREADS, smem, stream>>>(p, dr);
+    return cudaGetLastError();
+  }
+  auto kernel = WITH_DQ ? flash_bwd_f32_kernel<D> : flash_dkdv_f32_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int n_kb = (p.sk + Cfg<D>::BN - 1) / Cfg<D>::BN;
   kernel<<<dim3(bh, n_kb), Cfg<D>::THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }

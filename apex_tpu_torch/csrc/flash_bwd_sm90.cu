@@ -193,8 +193,22 @@
 // at 64 rows it spilled whatever held the hash's terms, the bias's
 // offsets or the keys' segment ids (in registers, a tile at a time or in
 // shared memory: variants compiled on an H100, PERF.md); at 32 rows it
-// was slower. The single pass has no such variant (its C entry
-// returns cudaErrorInvalidValue for a bias with a threshold).
+// was slower. The single pass's variant with both composes the same two
+// paths in its 64-row query tiles (the bias / scale in S^T's accumulators
+// before the S^T product; dp = keep ? dp / (1 - rate) : 0, ds = p (dp -
+// delta) with the undropped p, the dropped p for the dV product) at its
+// variants' 240/24, and its dq goes through the ordered turns unchanged.
+// At d 128 it spilled, beside S^T's accumulators in local memory (the
+// bias variant's loads in batches index them at run time); variants
+// compiled side by side on an H100 (PERF.md) took it to no spill and no
+// stack frame together: every bias load unrolled, a tile inside sq read
+// from one row pointer, the bias base pointer and key step and the keys'
+// segment ids kept in shared memory and read a tile at a time, lse, delta
+// and the rows' segment ids read by shared-window addresses, and the
+// probabilities in two halves of the tile with a warp barrier between
+// them (without it ptxas hashed the whole tile's keep bits at once). Each
+// alone still spilled; packing the tile's keep bits into a word, before
+// or during the S^T product, spilled far more.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -953,9 +967,31 @@ flash_dq_sm90(const __grid_constant__ CUtensorMap map_q,
 // column groups of the bias's loads issued together in the single pass's
 // BIAS variant: all 8 at d 64; at d 128 two batches of 4 (one batch of 32
 // loads spilled beside dV's and dK's accumulators; batches were slower at
-// d 64, PERF.md)
+// d 64, PERF.md). The variant with both issues all 8 at both head dims
+// (a loop of batches indexes S's accumulators at run time, which puts them
+// in local memory)
 template <int D>
 constexpr int kBiasUnroll = D == 64 ? 8 : 4;
+
+// the single pass's variant with both keeps in shared memory, after the
+// barriers, what it would otherwise hold in registers across its loop:
+// each consumer thread's bias base pointer and key step (two 8-byte words
+// a thread, 256 threads) and the block's 128 keys' segment ids
+constexpr size_t kBothSideBytes = 2 * 256 * 8 + 128 * 4;
+
+__device__ __forceinline__ float lds_f32(uint32_t a) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(a));
+  return v;
+}
+__device__ __forceinline__ int lds_s32(uint32_t a) {
+  int v;
+  asm volatile("ld.shared.s32 %0, [%1];\n" : "=r"(v) : "r"(a));
+  return v;
+}
+__device__ __forceinline__ void sts_s32(uint32_t a, int v) {
+  asm volatile("st.shared.s32 [%0], %1;\n" ::"r"(a), "r"(v));
+}
 
 template <int D>
 struct FusedLayout {
@@ -1013,6 +1049,10 @@ flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap map_q,
   uint64_t* res = empty + ST;
   uint64_t* dq_full = res + 1;              // a consumer's partial is in
   uint64_t* dq_free = dq_full + CONSUMERS;  // ... and has been read
+  // the variant with both: [consumer thread] its bias base pointer, [256 +
+  // consumer thread] its key step; then the keys' segment ids (kBothSideBytes)
+  uint64_t* sBiasRow = dq_free + CONSUMERS;
+  const uint32_t sSidK = wg::smem_u32(sBiasRow + 512);
 
   // the key blocks in reverse on the grid's slow axis: the shortest
   // causal loops first, each wave's blocks of one length (a grid of
@@ -1158,10 +1198,26 @@ flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap map_q,
     const int warp = t / 32, g = (t % 32) / 4, tig = t % 4;
     const int n0w = n0 + 64 * cw;
     const int key0 = n0w + 16 * warp + g, key1 = key0 + 8;
+    // the keys' segment ids, held across the loop; the variant with both
+    // keeps them, and its bias base and key step, in shared memory and
+    // reads them a tile at a time (held in registers they spilled at d 128)
     int sid0 = -1, sid1 = -1;
-    if (use_seg) {
+    if (use_seg && !(DROP && BIAS)) {
       if (key0 < sk) sid0 = p.sid_kv[(long)bi * sk + key0];
       if (key1 < sk) sid1 = p.sid_kv[(long)bi * sk + key1];
+    }
+    if constexpr (DROP && BIAS) {
+      sBiasRow[threadIdx.x - 128] = reinterpret_cast<uint64_t>(
+          p.bias + (long)bi * p.bias_sb + (long)(bh - bi * p.h) * p.bias_sh +
+          min(key0, sk - 1));
+      sBiasRow[threadIdx.x + 128] =
+          (uint64_t)(min(key1, sk - 1) - min(key0, sk - 1));
+      if (use_seg) {
+        sts_s32(sSidK + 4 * (key0 - n0),
+                key0 < sk ? p.sid_kv[(long)bi * sk + key0] : -1);
+        sts_s32(sSidK + 4 * (key1 - n0),
+                key1 < sk ? p.sid_kv[(long)bi * sk + key1] : -1);
+      }
     }
     const float sl2 = p.scale * LOG2E;
     uint8_t* dqs = sDQ + cw * FL::DQ_BYTES;    // this warpgroup's partial
@@ -1183,18 +1239,39 @@ flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap map_q,
         // key0 + 8 r, query row q0 + 8 nb + 2 tig + e), which the S^T
         // product adds to; keys past sk and rows past sq clamped to the
         // last (both masked)
-        const float* b0 = p.bias + (long)bi * p.bias_sb +
-                          (long)(bh - bi * p.h) * p.bias_sh +
-                          min(key0, sk - 1);
-        const int d1 = min(key1, sk - 1) - min(key0, sk - 1);
-#pragma unroll (kBiasUnroll<D>)
-        for (int nb = 0; nb < TILE / 8; ++nb)
+        const float* b0;
+        int d1;
+        if constexpr (DROP) {
+          b0 = reinterpret_cast<const float*>(
+              ((volatile uint64_t*)sBiasRow)[threadIdx.x - 128]);
+          d1 = (int)((volatile uint64_t*)sBiasRow)[threadIdx.x + 128];
+        } else {
+          b0 = p.bias + (long)bi * p.bias_sb +
+               (long)(bh - bi * p.h) * p.bias_sh + min(key0, sk - 1);
+          d1 = min(key1, sk - 1) - min(key0, sk - 1);
+        }
+        if (DROP && q0 + TILE <= sq) {
+          // the variant with both, the tile inside sq: its rows from one
+          // pointer
+          const float* r0 = b0 + (long)(q0 + 2 * tig) * sk;
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int off = min(q0 + 8 * nb + 2 * tig + e, sq - 1) * sk;
-            s[4 * nb + e] = __ldg(b0 + off) * p.inv_scale;
-            s[4 * nb + 2 + e] = __ldg(b0 + off + d1) * p.inv_scale;
-          }
+          for (int nb = 0; nb < TILE / 8; ++nb)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float* at = r0 + (long)(8 * nb + e) * sk;
+              s[4 * nb + e] = __ldg(at) * p.inv_scale;
+              s[4 * nb + 2 + e] = __ldg(at + d1) * p.inv_scale;
+            }
+        } else {
+#pragma unroll (DROP ? TILE / 8 : kBiasUnroll<D>)
+          for (int nb = 0; nb < TILE / 8; ++nb)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int off = min(q0 + 8 * nb + 2 * tig + e, sq - 1) * sk;
+              s[4 * nb + e] = __ldg(b0 + off) * p.inv_scale;
+              s[4 * nb + 2 + e] = __ldg(b0 + off + d1) * p.inv_scale;
+            }
+        }
       }
       wg::mbar_wait(&full[stage], phase);
       const uint8_t* tq = ring + stage * 2 * FL::TILE_BYTES;
@@ -1211,6 +1288,9 @@ flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap map_q,
       const float* lse = sLse + stage * TILE;
       const float* dl = sDelta + stage * TILE;
       const int32_t* sidq = sSid + stage * TILE;
+      // (the variant with both reads them by shared-window addresses)
+      const uint32_t lse_a = wg::smem_u32(lse), dl_a = wg::smem_u32(dl),
+                     sid_a = wg::smem_u32(sidq);
       // dropout: the hash's (seed, batch, head, key) terms of the two keys,
       // a tile at a time (held across the loop they cost registers)
       uint32_t dkey[2];
@@ -1252,11 +1332,63 @@ flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap map_q,
             }
           }
       };
+      // the variant with both: the same, reading lse, delta and the rows'
+      // segment ids by shared-window addresses and the keys' ids from
+      // shared memory, and at d 128 in two halves of the tile with a warp
+      // barrier between them (ptxas otherwise hashes the whole tile's keep
+      // bits at once, and spilled)
+      auto probs_both = [&](auto masked) {
+        constexpr int HALVES = D == 128 ? 2 : 1;
+        int ks0 = -1, ks1 = -1;
+#pragma unroll
+        for (int hf = 0; hf < HALVES; ++hf) {
+          if (decltype(masked)::value && use_seg) {
+            ks0 = lds_s32(sSidK + 4 * (key0 - n0));
+            ks1 = lds_s32(sSidK + 4 * (key1 - n0));
+          }
+#pragma unroll
+          for (int nb = hf * TILE / 8 / HALVES;
+               nb < (hf + 1) * TILE / 8 / HALVES; ++nb)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int ql = 8 * nb + 2 * tig + e;
+              const float l = lds_f32(lse_a + 4 * ql);
+              const float de = lds_f32(dl_a + 4 * ql);
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                const int i = 4 * nb + 2 * r + e;
+                float pv = ex2(fmaf(s[i], sl2, -l));
+                if constexpr (decltype(masked)::value) {
+                  const int key = r ? key1 : key0, qrow = q0 + ql;
+                  bool ok = qrow < sq && key < sk &&
+                            (!causal || key <= qrow + offset);
+                  if (use_seg) {
+                    const int sr = lds_s32(sid_a + 4 * ql);
+                    ok = ok && sr >= 0 && sr == (r ? ks1 : ks0);
+                  }
+                  pv = ok ? pv : 0.f;
+                }
+                const bool kept = dropout::keep(
+                    dkey[r] ^ dropout::q_term(q0 + ql), p.threshold);
+                dp[i] = pv * ((kept ? dp[i] * p.inv : 0.f) - de);
+                s[i] = kept ? pv * p.inv : 0.f;
+              }
+            }
+          if (HALVES == 2 && hf == 0) __syncwarp();
+        }
+      };
       if (use_seg || q0 + TILE > sq || n0w + 64 > sk ||
-          (causal && n0w + 63 > q0 + offset))
-        probs(std::true_type{});
-      else
-        probs(std::false_type{});
+          (causal && n0w + 63 > q0 + offset)) {
+        if constexpr (DROP && BIAS)
+          probs_both(std::true_type{});
+        else
+          probs(std::true_type{});
+      } else {
+        if constexpr (DROP && BIAS)
+          probs_both(std::false_type{});
+        else
+          probs(std::false_type{});
+      }
 
       // p rounded to do's dtype, ds once to q's (it feeds dK and dQ)
       uint32_t pa[TILE / 16][4], da[TILE / 16][4];
@@ -1534,7 +1666,8 @@ cudaError_t launch(const Args& a) {
     if (!wg::acc_map(&mdq, static_cast<const float*>(a.out2), bh, a.sq, D,
                      64))
       return MAP_REFUSED;
-    const size_t smem = FusedLayout<D>::SMEM;
+    const size_t smem =
+        FusedLayout<D>::SMEM + (DROP && BIAS ? kBothSideBytes : 0);
     auto kern = flash_bwd_fused_sm90<T, D, DROP, BIAS>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1592,13 +1725,10 @@ int dispatch(const Args& a, int d, int dtype) {
     return err;
   }
   // the variant with the bias where there is one; with dropout too, the
-  // split's variant with both (the single pass has none)
+  // variant with both
   if (a.bias) {
     if (!a.threshold) return launch_of<K, false, true>(a, d, dtype);
-    if constexpr (K == FUSED)
-      return cudaErrorInvalidValue;
-    else
-      return launch_of<K, true, true>(a, d, dtype);
+    return launch_of<K, true, true>(a, d, dtype);
   }
   // the variant with dropout where the threshold keeps fewer than all
   if (a.threshold) return launch_of<K, true>(a, d, dtype);
@@ -1619,9 +1749,8 @@ int dispatch(const Args& a, int d, int dtype) {
 // sk] with its last two dims contiguous and an 8-byte aligned base, or
 // null (none); `bias_sb` and `bias_sh` its batch and head strides in
 // elements (0 for a broadcast dim). Dropout as the forward's C entry takes
-// it: `seed`, `threshold` (0: no dropout) and `inv` = 1 / (1 - rate). The
-// split's entries take a bias with dropout (the variant with both); the
-// single pass's returns cudaErrorInvalidValue for it.
+// it: `seed`, `threshold` (0: no dropout) and `inv` = 1 / (1 - rate).
+// Every entry takes a bias with dropout (the variant with both).
 
 // dk, dv [b,h,sk,d] (every element written)
 extern "C" int apex_flash_bwd_sm90_dkdv(

@@ -447,11 +447,15 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
 // 128): fp32 q [b,h,sq,d], k, v [b,h,sk,d]; sid_q [b,sq] and sid_kv
 // [b,sk] int32, or both null; out [b,h,sq,d] fp32 and lse [b,h,sq] fp32
 // (every element written). p is not rounded before the PV product.
+// Attention dropout: `seed`, `threshold` (0: none, the kernel without
+// dropout) and `inv` = 1 / (1 - rate), as the wgmma forward takes them.
 extern "C" int apex_flash_fwd_f32(const void* q, const void* k,
                                   const void* v, const void* sid_q,
                                   const void* sid_kv, void* out, void* lse,
                                   int b, int h, int sq, int sk, int d,
-                                  int causal, float scale, void* stream) {
+                                  int causal, float scale, unsigned int seed,
+                                  unsigned int threshold, float inv,
+                                  void* stream) {
 #if APEX_HAS_DTYPE(2)
   if (sq <= 0 || b <= 0 || h <= 0) return cudaSuccess;
   fwd32::Params p{};
@@ -467,10 +471,11 @@ extern "C" int apex_flash_fwd_f32(const void* q, const void* k,
   p.sk = sk < 0 ? 0 : sk;
   p.causal = causal;
   p.scale = scale;
+  const fwd32::Dropout dr{seed, threshold, inv};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return fwd32::launch<64>(p, b, st);
-    case 128: return fwd32::launch<128>(p, b, st);
+    case 64: return fwd32::launch<64>(p, dr, b, st);
+    case 128: return fwd32::launch<128>(p, dr, b, st);
     default: return cudaErrorInvalidValue;
   }
 #else

@@ -44,11 +44,24 @@
 // tile), the query tiles in reverse under a causal mask: each round of
 // b h blocks walks one length of keys, the longest first. Shared memory:
 // 60 KB at d 64, 109 KB at d 128.
+//
+// Attention dropout (`_fwd_kernel`'s, :305-308 and :334-339): a variant of
+// the kernel, flash_fwd_f32_dropout_kernel (chosen by the C entry when the
+// keep threshold is not 0; the kernel without dropout keeps its parameters
+// and its code), regenerates the keep bit of each (query row, key) element
+// from dropout_hash.cuh at their global positions. l takes the undropped
+// sum, as without dropout; p is dropped after the sum and before P^T is
+// stored: keep ? p / (1 - rate) : 0, an fp32 product, so the PV product
+// stays exact fmaf's in a fixed order and a rerun is the same bits. The
+// hash's (seed, batch, head) term is xored with each of a lane's four row
+// terms once a block; an element costs its key's term, one xor and one
+// fmix32 (about 10 integer operations, on the same cores as the products).
 
 #pragma once
 
 #include <stdint.h>
 
+#include "dropout_hash.cuh"
 #include "simt_f32.cuh"
 
 namespace fwd32 {
@@ -87,18 +100,24 @@ struct Params {
   float scale;
 };
 
+// the dropout variant's own parameters: the seed, the keep threshold and
+// 1 / (1 - rate) (the kernel without dropout takes Params alone)
+struct Dropout {
+  uint32_t seed, threshold;
+  float inv;
+};
+
 __device__ __forceinline__ float at(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-template <int D>
-__global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MIN_BLOCKS)
-flash_fwd_f32_kernel(const Params p) {
+template <int D, bool DROP>
+__device__ __forceinline__ void forward(float* smem, const Params& p,
+                                        const Dropout& dr) {
   using C = Cfg<D>;
   constexpr int BQ = C::BQ, BN = C::BN, KJ = C::KJ, OJ = C::OJ;
   constexpr int LDQ = C::LDQ, LDK = C::LDK, STAGES = C::STAGES;
   constexpr int THREADS = C::THREADS;
-  extern __shared__ __align__(16) float smem[];
   float* sQt = smem;                          // [D][LDQ]
   float* sKV = sQt + C::QT;                   // stage s: K, then V
   float* sP = sKV + STAGES * 2 * C::KV;       // [BN][LDQ]
@@ -169,6 +188,15 @@ flash_fwd_f32_kernel(const Params p) {
   for (int r = 0; r < 4; ++r) {
     const int qr = q0 + qw + r;
     sid_r[r] = (seg && qr < sq) ? __ldg(p.sid_q + (long)bi * sq + qr) : -1;
+  }
+  // dropout: the hash's (seed, batch, head) and row terms of the lane's
+  // four rows
+  uint32_t hq[4];
+  if constexpr (DROP) {
+    const uint32_t hb =
+        dropout::base(dr.seed, (uint32_t)bi, (uint32_t)(bh - (long)bi * p.h));
+#pragma unroll
+    for (int r = 0; r < 4; ++r) hq[r] = hb ^ dropout::q_term(q0 + qw + r);
   }
   float m[4], l[4], o[4][4 * OJ];
 #pragma unroll
@@ -248,7 +276,13 @@ flash_fwd_f32_kernel(const Params p) {
 #pragma unroll
       for (int j = 0; j < KJ; ++j) {
         const float pv = (live >> j) & 1u ? __expf(s[r][j] - mn) : 0.f;
-        s[r][j] = pv;
+        if constexpr (DROP)   // l takes p undropped, the PV product dropped
+          s[r][j] = dropout::keep(hq[r] ^ dropout::k_term(n0 + lx + 8 * j),
+                                  dr.threshold)
+                        ? pv * dr.inv
+                        : 0.f;
+        else
+          s[r][j] = pv;
         sum += pv;
       }
 #pragma unroll
@@ -306,15 +340,36 @@ flash_fwd_f32_kernel(const Params p) {
 }
 
 template <int D>
-cudaError_t launch(const Params& p, int b, cudaStream_t stream) {
+__global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MIN_BLOCKS)
+flash_fwd_f32_kernel(const Params p) {
+  extern __shared__ __align__(16) float smem[];
+  forward<D, false>(smem, p, Dropout{});
+}
+
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MIN_BLOCKS)
+flash_fwd_f32_dropout_kernel(const Params p, const Dropout dr) {
+  extern __shared__ __align__(16) float smem[];
+  forward<D, true>(smem, p, dr);
+}
+
+// the kernel without dropout, or with it where dr.threshold is not 0
+template <int D>
+cudaError_t launch(const Params& p, const Dropout& dr, int b,
+                   cudaStream_t stream) {
   using C = Cfg<D>;
+  const bool drop = dr.threshold != 0;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)C::SMEM_BYTES);
+      drop ? (const void*)flash_fwd_f32_dropout_kernel<D>
+           : (const void*)flash_fwd_f32_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  const int n_qt = (p.sq + C::BQ - 1) / C::BQ;
-  flash_fwd_f32_kernel<D><<<dim3(b * p.h, n_qt), C::THREADS, C::SMEM_BYTES,
-                            stream>>>(p);
+  const dim3 grid(b * p.h, (p.sq + C::BQ - 1) / C::BQ);
+  if (drop)
+    flash_fwd_f32_dropout_kernel<D>
+        <<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(p, dr);
+  else
+    flash_fwd_f32_kernel<D><<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(p);
   return cudaGetLastError();
 }
 

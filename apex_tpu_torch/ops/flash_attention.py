@@ -21,11 +21,12 @@ Port of ``apex_tpu/ops/flash_attention.py``:
   other CUDA route raises (:func:`bias_refusal`). In-kernel attention
   dropout (the JAX
   kernels' counter hash, :func:`dropout_keep_reference`) runs in the
-  wgmma route's forward, single pass and split (a variant of each kernel
-  chosen at compile time) and in the plain versions; every other CUDA
-  route raises (:func:`dropout_refusal`). The bias with dropout runs in a
-  variant with both of the wgmma forward and of the split's two kernels;
-  the single pass refuses it (:func:`_bwd_route`, before the forward).
+  wgmma route's forward, single pass and split and in the fp32 FFMA
+  route's forward and single pass (a variant of each kernel chosen at
+  compile time) and in the plain versions; every other CUDA route raises
+  (:func:`dropout_refusal`: the FFMA route's split, ``frag.cuh``). The bias
+  with dropout runs in a variant with both of each of the wgmma route's
+  kernels: the forward, the single pass and the split's two.
   Past
   the JAX package's 2 MB VMEM gate the backward is its two-kernel split,
   which replaces ``_dkdv_kernel`` (``:558``) and ``_dq_kernel`` (``:671``)
@@ -99,8 +100,12 @@ and ``.dropout_dq_launches`` (the split's dropout variants),
 ``flash_attention_bwd.bias_dkdv_launches`` and ``.bias_dq_launches`` (the
 split's bias variants), ``flash_attention.bias_dropout_launches``,
 ``flash_attention_bwd.bias_dropout_dkdv_launches`` and
-``.bias_dropout_dq_launches`` (the variants with both; the bias and dropout
-counters above count the variants with one alone),
+``.bias_dropout_dq_launches`` and ``.bias_dropout_fused_launches`` (the
+variants with both of the forward, the split and the single pass; the
+bias and dropout counters above count the variants with one alone),
+``flash_attention.f32_dropout_launches`` and
+``flash_attention_bwd.f32_dropout_launches`` (the FFMA forward's and single
+pass's dropout variants, counted in ``.f32_launches`` too),
 ``paged_decode_attention.launches``
 (bf16 pool) and ``paged_decode_attention.fp8_launches`` (e4m3 pool) count
 kernel launches (the CPU path does not count).
@@ -527,53 +532,69 @@ def sm90_route(dtype: torch.dtype, kd: int) -> bool:
     return dtype in _SM90_DTYPES and kd in _SM90_HEAD_DIMS
 
 
-def dropout_refusal(dtype: torch.dtype, kd: int) -> Optional[str]:
+# the routes that refuse a variant, by name (ROADMAP §B1)
+_FFMA_ROUTE = ("the fp32 FFMA route (f32_fwd_route / f32_core_route: "
+               "csrc/flash_fwd_f32.cuh, csrc/flash_bwd_f32.cuh)")
+_FFMA_SPLIT = ("the fp32 FFMA route's split (its dk/dv kernel "
+               "flash_dkdv_f32_kernel and its dq kernel flash_dq_f32_kernel, "
+               "csrc/flash_bwd_f32.cuh; ROADMAP §B1)")
+_FRAG_ROUTE = ("the frag.cuh kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu: "
+               "fp32 over narrower operands and head dims 32, 256, 512)")
+
+
+def _ffma_dims(dtype: torch.dtype, kd: int) -> bool:
+    return dtype == torch.float32 and kd in _F32_CORE_HEAD_DIMS
+
+
+def dropout_refusal(dtype: torch.dtype, kd: int, ffma: bool = True,
+                    split: bool = False) -> Optional[str]:
     """None where the CUDA kernels take attention dropout: the wgmma route
     (:func:`sm90_route` of the promoted ``dtype`` and the kernel head dim
-    ``kd``: the forward, the single-pass backward and the split). Else the
-    route that does not take it yet, by name, for the
-    ``NotImplementedError`` its caller raises (ROADMAP §B1)."""
+    ``kd``: the forward, the single-pass backward and the split), and the
+    fp32 FFMA route's forward and single pass (fp32 at kernel head dims 64
+    and 128 where the call runs that route, ``ffma``: :func:`f32_fwd_route`
+    for the forward, :func:`f32_core_route` for the backward, so nothing
+    is rounded below fp32; not ``split``). Else the route that does not
+    take it yet, by name, for the ``NotImplementedError`` its caller
+    raises (ROADMAP §B1): the FFMA route's split, or the ``frag.cuh``
+    kernels (which also keep fp32 over narrower operands, ``ffma``
+    False)."""
     if sm90_route(dtype, kd):
         return None
-    if dtype == torch.float32 and kd in _F32_CORE_HEAD_DIMS:
-        return ("the fp32 FFMA route (f32_fwd_route / f32_core_route: "
-                "csrc/flash_fwd_f32.cuh, csrc/flash_bwd_f32.cuh)")
-    return ("the frag.cuh kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu: "
-            "fp32 over narrower operands and head dims 32, 256, 512)")
+    if _ffma_dims(dtype, kd) and ffma:
+        return _FFMA_SPLIT if split else None
+    return _FRAG_ROUTE
 
 
-def _refuse_dropout(dtype: torch.dtype, kd: int) -> None:
-    refused = dropout_refusal(dtype, kd)
+def _refuse_dropout(dtype: torch.dtype, kd: int, ffma: bool = True,
+                    split: bool = False) -> None:
+    refused = dropout_refusal(dtype, kd, ffma, split)
     if refused is not None:
         raise NotImplementedError(f"flash_attention: attention dropout is "
                                   f"not in {refused} yet")
 
 
-def bias_refusal(dtype: torch.dtype, kd: int) -> Optional[str]:
+def bias_refusal(dtype: torch.dtype, kd: int,
+                 ffma: bool = True) -> Optional[str]:
     """None where the CUDA kernels take the additive bias: the wgmma
     route's forward and backward, single pass and split alike, with
     attention dropout or without (:func:`sm90_route` of the promoted
-    ``dtype`` and the kernel head dim ``kd``; the single pass alone has no
-    variant with both, which :func:`_bwd_route` refuses). Else the refused
-    route by name, for the ``NotImplementedError`` its caller raises
-    (ROADMAP §B1): the fp32 FFMA route, the ``frag.cuh`` kernels."""
-    return dropout_refusal(dtype, kd)
+    ``dtype`` and the kernel head dim ``kd``). Else the refused route by
+    name, for the ``NotImplementedError`` its caller raises (ROADMAP §B1):
+    the fp32 FFMA route (``ffma``, as :func:`dropout_refusal` takes it),
+    the ``frag.cuh`` kernels."""
+    if sm90_route(dtype, kd):
+        return None
+    return _FFMA_ROUTE if _ffma_dims(dtype, kd) and ffma else _FRAG_ROUTE
 
 
-def _refuse_bias(dtype: torch.dtype, kd: int) -> None:
-    refused = bias_refusal(dtype, kd)
+def _refuse_bias(dtype: torch.dtype, kd: int, ffma: bool = True,
+                 dropout: bool = False) -> None:
+    refused = bias_refusal(dtype, kd, ffma)
     if refused is not None:
-        raise NotImplementedError(f"flash_attention: the additive bias is "
-                                  f"not taken by {refused} yet")
-
-
-def _refuse_single_pass_bias_dropout() -> None:
-    """The wgmma single pass has no variant that takes a bias with dropout
-    (ROADMAP §B1): raised where the backward would run it."""
-    raise NotImplementedError(
-        "flash_attention: the additive bias with attention dropout is not "
-        "taken by the single-pass backward (flash_bwd_fused_sm90) yet "
-        "(ROADMAP §B1); the split takes both (sq, sk past the JAX gate)")
+        both = " with attention dropout" if dropout else ""
+        raise NotImplementedError(f"flash_attention: the additive bias{both} "
+                                  f"is not taken by {refused} yet")
 
 
 def _check_bias_shape(bias, b, h, sq, sk) -> None:
@@ -653,10 +674,10 @@ def f32_fwd_route(dtype: torch.dtype, kd: int, p_round: int) -> bool:
 
 
 # apex_flash_fwd_f32(q, k, v, sid_q, sid_kv, out, lse, b, h, sq, sk, d,
-#                    causal, scale, stream): the FFMA route's forward, fp32
-# only (no dtype, no ``p_round``)
+#                    causal, scale, seed, threshold, inv, stream): the FFMA
+# route's forward, fp32 only (no dtype, no ``p_round``), with the dropout
 _F32_FWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_void_p]
+    ctypes.c_float] + _DROPOUT_ARGS + [ctypes.c_void_p]
 
 
 def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
@@ -666,9 +687,10 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
     """The forward kernel. ``block_rows`` (the wgmma route only) forces 64
     or 128 query rows a block, for comparing the two at one shape; None
     takes :func:`fwd_block_rows`. Attention dropout runs on the wgmma
-    route alone (:func:`dropout_refusal`), and so does the additive
-    ``bias`` (:func:`bias_refusal`), with dropout or without: the bias with
-    dropout in the variant with both, at any length."""
+    route and the fp32 FFMA route (:func:`dropout_refusal`); the additive
+    ``bias`` on the wgmma route alone (:func:`bias_refusal`), with dropout
+    or without: the bias with dropout in the variant with both, at any
+    length."""
     what = "flash_attention kernel"
     _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, what,
              "q, k, v must be [b, h, s, d]")
@@ -700,9 +722,9 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
     sm90 = sm90_route(dtype, kd)
     f32 = f32_fwd_route(dtype, kd, p_round)
     if bias is not None:
-        _refuse_bias(dtype, kd)
+        _refuse_bias(dtype, kd, f32, bool(dropout_rate))
     elif dropout_rate:
-        _refuse_dropout(dtype, kd)
+        _refuse_dropout(dtype, kd, f32)
     bias, bias_sb, bias_sh = _bias_operand(bias, b, h, sq, sk, q.device,
                                            scale)
     _require(block_rows is None or (sm90 and block_rows in (64, 128)), what,
@@ -727,7 +749,8 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
         elif f32:
             fn = _build.function(_build.dtype_target("flash_fwd", code),
                                  "apex_flash_fwd_f32", _F32_FWD_ARGS)
-            err = fn(*args[:-1], _stream(q))
+            err = fn(*args[:-1], *_dropout_args(dropout_rate, dropout_seed),
+                     _stream(q))
         else:
             fn = _build.function(_build.dtype_target("flash_fwd", code),
                                  "apex_flash_fwd", _FLASH_ARGS)
@@ -744,6 +767,8 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
                 flash_attention.bias_launches += 1
         if f32:
             flash_attention.f32_launches += 1
+            if dropout_rate:
+                flash_attention.f32_dropout_launches += 1
         return out, lse
 
     out, lse = with_padded_last_dim(launch, kd, (q, k, v), sliced=(0,))
@@ -825,23 +850,23 @@ def _bwd_route(q, k, v, causal, dropout_rate, do=None,
     (:func:`uses_split_backward` where ``split`` is None, counting a bias
     and dropout as the JAX gate counts them) and the dtype the kernels run
     the operands in. Raises ``NotImplementedError`` where attention
-    dropout or a ``bias`` is asked of a route that does not take it (the
-    route is the dtype's and head dim's, split or not:
-    :func:`dropout_refusal`, :func:`bias_refusal`), and where both are
-    asked of the single pass, which has no variant with both."""
+    dropout or a ``bias`` is asked of a route that does not take it
+    (:func:`dropout_refusal`, :func:`bias_refusal`: the route is the
+    dtype's and head dim's, and on the fp32 FFMA route, which takes
+    dropout in the single pass alone, whether the backward splits)."""
     if split is None:
         split = uses_split_backward(q.shape[2], k.shape[2], q.shape[-1],
                                     k.element_size(), v.element_size(),
                                     causal, bias=bias,
                                     dropout=bool(dropout_rate))
-    dtype = _promoted_dtype(q, k, v, q if do is None else do)
+    do = q if do is None else do
+    dtype = _promoted_dtype(q, k, v, do)
     kd = kernel_head_dim(q.shape[-1])
+    ffma = f32_core_route(dtype, kd, _mixed_rounds(q, k, do))
     if bias:
-        _refuse_bias(dtype, kd)
-        if dropout_rate and not split:
-            _refuse_single_pass_bias_dropout()
+        _refuse_bias(dtype, kd, ffma, bool(dropout_rate))
     elif dropout_rate:
-        _refuse_dropout(dtype, kd)
+        _refuse_dropout(dtype, kd, ffma, split)
     return split, dtype
 
 
@@ -992,10 +1017,10 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
     """The backward kernels. ``split=None`` routes by
     :func:`uses_split_backward`; True or False forces the two-kernel split
     or the single pass (for comparing the two at one shape). Attention
-    dropout runs on the wgmma route alone, split or single pass
-    (:func:`dropout_refusal`), and so does the additive ``bias``
-    (:func:`bias_refusal`); the bias with dropout on the split alone
-    (:func:`_bwd_route`)."""
+    dropout runs on the wgmma route, split or single pass, and on the fp32
+    FFMA route's single pass (:func:`dropout_refusal`); the additive
+    ``bias`` on the wgmma route alone (:func:`bias_refusal`), with dropout
+    or without (:func:`_bwd_route`)."""
     what = "flash_attention_bwd kernel"
     _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, what,
              "q, k, v must be [b, h, s, d]")
@@ -1076,7 +1101,7 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
         if f32:
             dk, dv = _flash_bwd_f32_cuda(q, k, v, do, out, lse, dl,
                                          segment_ids_q, segment_ids_kv,
-                                         causal, scale, dq_acc, turns)
+                                         causal, scale, dq_acc, turns, drop)
             return dq_acc, dk, dv
         dk = torch.empty_like(k)
         dv = torch.empty_like(v)
@@ -1111,11 +1136,9 @@ def _flash_bwd_fused_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal,
     rowsum(do * out) fp32 [b, h, sq], given (``out`` the dropped output
     under dropout). ``dropout``: :func:`_dropout_args`; ``bias``:
     :func:`_bias_operand`'s ``(fp32 bias or None, batch stride, head
-    stride)``, not with dropout (refused)."""
+    stride)``, alone or with ``dropout`` (the variant with both)."""
     b, h, sq, d = q.shape
     bias_t, bias_sb, bias_sh = bias
-    if bias_t is not None and dropout[1]:
-        _refuse_single_pass_bias_dropout()
     if turns is None:
         turns = torch.zeros(single_pass_turns(b, h, sq, d, True),
                             dtype=torch.int32, device=q.device)
@@ -1131,20 +1154,24 @@ def _flash_bwd_fused_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal,
                  "flash_attention_bwd single-pass kernel")
     flash_attention_bwd.launches += 1
     flash_attention_bwd.wgmma_launches += 1
-    if dropout[1]:
+    if dropout[1] and bias_t is not None:
+        flash_attention_bwd.bias_dropout_fused_launches += 1
+    elif dropout[1]:
         flash_attention_bwd.dropout_launches += 1
-    if bias_t is not None:
+    elif bias_t is not None:
         flash_attention_bwd.bias_launches += 1
     return dk, dv
 
 
 # apex_flash_bwd_f32(q, k, v, do, out, lse, delta, sid_q, sid_kv, ws,
 #                    dq_acc, turns, dk, dv, b, h, sq, sk, d, causal, scale,
-#                    stream) and apex_flash_bwd_f32_dkdv(..., sid_kv, ws, dk,
-# dv, b, ...): the FFMA route, fp32 only, with the scratch of q and do
-# transposed (no dtype, no ``rounds``); ``out`` null reads a given delta
+#                    seed, threshold, inv, stream) and
+# apex_flash_bwd_f32_dkdv(..., sid_kv, ws, dk, dv, b, ..., scale, stream):
+# the FFMA route, fp32 only, with the scratch of q and do transposed (no
+# dtype, no ``rounds``); the single pass with the dropout, the split's
+# dk/dv without; ``out`` null reads a given delta
 _F32_BWD_ARGS = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_void_p]
+    ctypes.c_float] + _DROPOUT_ARGS + [ctypes.c_void_p]
 _F32_DKDV_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_void_p]
 # apex_flash_bwd_f32_dq(q, k, v, do, lse, delta, sid_q, sid_kv, ws,
@@ -1165,13 +1192,14 @@ def _f32_transposes(q):
 
 
 def _f32_call(symbol, q, k, v, do, out, lse, delta, sid_q, sid_kv, causal,
-              scale, outs, ws=None):
+              scale, outs, ws=None, dropout=()):
     """One C call of the FFMA route (``symbol`` with its argument types)
     on fp32 operands ``_flash_bwd_cuda`` checked: the prologue (the
     transposes of q and do into ``ws``, :func:`_f32_transposes`, allocated
     here when None; and with ``out``, the forward's fp32 output, delta
     written into ``delta``), then the kernel; ``outs`` the output pointers
-    after the scratch."""
+    after the scratch, ``dropout`` the single pass's
+    :func:`_dropout_args` (the split's dk/dv takes none)."""
     b, h, sq, d = q.shape
     _require(out is None or (out.dtype == torch.float32
                              and out.shape == q.shape
@@ -1186,37 +1214,44 @@ def _f32_call(symbol, q, k, v, do, out, lse, delta, sid_q, sid_kv, causal,
                     _ptr(lse), _ptr(delta), _ptr(sid_q), _ptr(sid_kv),
                     _ptr(ws), *outs,
                     b, h, sq, k.shape[2], d, int(bool(causal)), float(scale),
-                    _stream(q)), f"flash_attention_bwd {name}")
+                    *dropout, _stream(q)), f"flash_attention_bwd {name}")
 
 
 def _flash_bwd_f32_cuda(q, k, v, do, out, lse, delta, sid_q, sid_kv, causal,
-                        scale, dq_acc, turns):
-    """The FFMA route's single pass (``flash_bwd_f32_kernel``) on fp32
-    operands ``_flash_bwd_cuda`` checked, at kernel head dim 64 or 128:
-    ``(dk, dv)``, and dq times ``scale`` written into ``dq_acc`` (fp32, q's
-    shape; every element: each query tile's key blocks add in a fixed
-    order, the first storing). ``turns``: the zeroed int32 turn counters
-    (:func:`single_pass_turns`). The call writes delta = rowsum(do * out)
-    (fp32 [b, h, sq]) into ``delta`` from ``out``, the forward's
-    output."""
+                        scale, dq_acc, turns, dropout=(0, 0, 1.0)):
+    """The FFMA route's single pass (``flash_bwd_f32_kernel``, or with
+    ``dropout``, :func:`_dropout_args`, its variant
+    ``flash_bwd_f32_dropout_kernel``) on fp32 operands ``_flash_bwd_cuda``
+    checked, at kernel head dim 64 or 128: ``(dk, dv)``, and dq times
+    ``scale`` written into ``dq_acc`` (fp32, q's shape; every element:
+    each query tile's key blocks add in a fixed order, the first storing).
+    ``turns``: the zeroed int32 turn counters (:func:`single_pass_turns`).
+    The call writes delta = rowsum(do * out) (fp32 [b, h, sq]) into
+    ``delta`` from ``out``, the forward's output (the dropped one under
+    dropout)."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _f32_call(("apex_flash_bwd_f32", _F32_BWD_ARGS), q, k, v, do, out, lse,
               delta, sid_q, sid_kv, causal, scale,
-              (_ptr(dq_acc), _ptr(turns), _ptr(dk), _ptr(dv)))
+              (_ptr(dq_acc), _ptr(turns), _ptr(dk), _ptr(dv)),
+              dropout=dropout)
     flash_attention_bwd.launches += 1
     flash_attention_bwd.f32_launches += 1
+    if dropout[1]:
+        flash_attention_bwd.f32_dropout_launches += 1
     return dk, dv
 
 
-def _refuse_split_variants(q, dropout, bias) -> None:
+def _refuse_split_variants(q, rounds, dropout, bias) -> None:
     """Raises ``NotImplementedError`` before a split kernel's call where
     its route does not take the ``dropout`` or the ``bias`` it is given
-    (:func:`dropout_refusal`, :func:`bias_refusal`); the wgmma route takes
-    either and both."""
+    (:func:`dropout_refusal`, :func:`bias_refusal`, ``rounds`` telling the
+    FFMA route from ``frag.cuh``): the wgmma route takes either and both,
+    the FFMA route's split neither yet."""
+    ffma = f32_core_route(q.dtype, q.shape[-1], rounds)
     if bias[0] is not None:
-        _refuse_bias(q.dtype, q.shape[-1])
+        _refuse_bias(q.dtype, q.shape[-1], ffma, bool(dropout[1]))
     elif dropout[1]:
-        _refuse_dropout(q.dtype, q.shape[-1])
+        _refuse_dropout(q.dtype, q.shape[-1], ffma, split=True)
 
 
 def _split_operands(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
@@ -1253,7 +1288,7 @@ def _flash_dkdv_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
     ``dropout``: :func:`_dropout_args`; ``bias``: :func:`_bias_operand`'s
     ``(fp32 bias or None, batch stride, head stride)``, alone or with
     ``dropout`` (the variant with both); both the wgmma route's alone."""
-    _refuse_split_variants(q, dropout, bias)
+    _refuse_split_variants(q, rounds, dropout, bias)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if f32_core_route(q.dtype, q.shape[-1], rounds):
         _f32_call(("apex_flash_bwd_f32_dkdv", _F32_DKDV_ARGS), q, k, v, do,
@@ -1298,7 +1333,7 @@ def _flash_dq_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
     transposed (the split passes it), or None: this call's own prologue
     transposes them first. ``dropout`` and ``bias`` as
     :func:`_flash_dkdv_cuda` takes them."""
-    _refuse_split_variants(q, dropout, bias)
+    _refuse_split_variants(q, rounds, dropout, bias)
     dq = torch.empty_like(q)
     if f32_core_route(q.dtype, q.shape[-1], rounds):
         _require(out is None, "flash_attention_bwd dq kernel", "the FFMA "
@@ -1385,17 +1420,18 @@ def flash_attention_bwd(q, k, v, out, lse, do, segment_ids_q=None,
     the CPU :func:`flash_attention_bwd_reference`.
     ``flash_attention_bwd.launches`` counts single-pass launches
     (``.wgmma_launches`` those on the wgmma route, ``.f32_launches`` those
-    on the FFMA route), ``.dkdv_launches`` and ``.dq_launches`` the
-    split's (``.f32_dkdv_launches`` and ``.f32_dq_launches`` those on the
-    FFMA route); ``.dropout_launches`` the single passes with dropout,
-    ``.dropout_dkdv_launches`` and ``.dropout_dq_launches`` the split's,
-    ``.bias_launches`` the single passes with a bias,
+    on the FFMA route, ``.f32_dropout_launches`` those with dropout),
+    ``.dkdv_launches`` and ``.dq_launches`` the split's
+    (``.f32_dkdv_launches`` and ``.f32_dq_launches`` those on the FFMA
+    route); on the wgmma route ``.dropout_launches`` the single passes
+    with dropout, ``.dropout_dkdv_launches`` and ``.dropout_dq_launches``
+    the split's, ``.bias_launches`` the single passes with a bias,
     ``.bias_dkdv_launches`` and ``.bias_dq_launches`` the split's,
+    ``.bias_dropout_fused_launches`` the single passes with both,
     ``.bias_dropout_dkdv_launches`` and ``.bias_dropout_dq_launches`` the
-    split's with both (which the single pass refuses; a launch with both
-    counts there alone). ``dropout_rate``/``dropout_seed`` and ``bias`` are
-    the forward's: the kernel regenerates its mask and recomputes p with
-    the bias."""
+    split's (a launch with both counts there alone).
+    ``dropout_rate``/``dropout_seed`` and ``bias`` are the forward's: the
+    kernel regenerates its mask and recomputes p with the bias."""
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     _check_dropout(dropout_rate, dropout_seed)
     if check_device_type(q, "flash_attention_bwd") == "cpu":
@@ -1419,12 +1455,14 @@ flash_attention_bwd.wgmma_dq_launches = 0
 flash_attention_bwd.f32_launches = 0
 flash_attention_bwd.f32_dkdv_launches = 0
 flash_attention_bwd.f32_dq_launches = 0
+flash_attention_bwd.f32_dropout_launches = 0
 flash_attention_bwd.dropout_launches = 0
 flash_attention_bwd.dropout_dkdv_launches = 0
 flash_attention_bwd.dropout_dq_launches = 0
 flash_attention_bwd.bias_launches = 0
 flash_attention_bwd.bias_dkdv_launches = 0
 flash_attention_bwd.bias_dq_launches = 0
+flash_attention_bwd.bias_dropout_fused_launches = 0
 flash_attention_bwd.bias_dropout_dkdv_launches = 0
 flash_attention_bwd.bias_dropout_dq_launches = 0
 
@@ -1433,12 +1471,10 @@ class FlashAttentionFunction(torch.autograd.Function):
     """Forward kernel + backward kernel as one differentiable op. Saves
     ``(q, k, v, out, lse)``, the segment ids and the bias, and carries the
     dropout rate and seed to the backward, which regenerates the mask
-    (with a bias too: the forward's and the split's variants with both;
-    the single pass refuses both before the forward, in
-    :func:`flash_attention`); segment ids get no gradient, the bias an
-    exactly zero one in its own shape (the JAX ``_fa_bwd``'s
-    ``zeros_like(bias)``: an additive mask, non-differentiable by
-    contract)."""
+    (with a bias too: the variants with both of the forward, the single
+    pass and the split); segment ids get no gradient, the bias an exactly
+    zero one in its own shape (the JAX ``_fa_bwd``'s ``zeros_like(bias)``:
+    an additive mask, non-differentiable by contract)."""
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
@@ -1510,22 +1546,21 @@ def flash_attention(q, k, v, segment_ids_q=None, segment_ids_kv=None,
     (:class:`FlashAttentionFunction`); every other route raises
     ``NotImplementedError`` naming the route (:func:`bias_refusal`),
     before the forward where the backward's route would refuse it. With
-    dropout too, the forward runs its variant with both at any length and
-    the backward the split's (past the JAX gate, which with both counts
-    512-row blocks: s512 at d 64, s448 at d 128); where the backward would
-    take the single pass, a call that wants gradients raises
-    ``NotImplementedError`` naming ``flash_bwd_fused_sm90`` before the
-    forward. On the CPU it runs through the plain version
-    (:class:`BiasedAttentionFunction`).
+    dropout too, the forward, the single pass and the split each run
+    their variant with both (the JAX gate, which with both counts 512-row
+    blocks, splits from s512 at d 64 and s448 at d 128). On the CPU it
+    runs through the plain version (:class:`BiasedAttentionFunction`).
 
     ``dropout_rate``/``dropout_seed`` (an int32): in-kernel attention
     dropout, the keep mask a hash of (seed, batch, head, q position, k
     position) that the backward regenerates
     (:func:`dropout_keep_reference`, bit for bit the JAX package's); pass a
     fresh seed a step. On CUDA the wgmma route's forward and backward
-    (single pass and split) take it; every other route raises
-    ``NotImplementedError`` naming itself (:func:`dropout_refusal`), before
-    the forward where the backward's route would refuse it."""
+    (single pass and split) take it, and so do the fp32 FFMA route's
+    forward and single pass (fp32 operands at kernel head dims 64 and
+    128); every other route raises ``NotImplementedError`` naming itself
+    (:func:`dropout_refusal`: the FFMA route's split, ``frag.cuh``),
+    before the forward where the backward's route would refuse it."""
     _check_dropout(dropout_rate, dropout_seed)
     dropout_rate = float(dropout_rate)
     dropout_seed = int(dropout_seed) if dropout_rate > 0 else None
@@ -1551,6 +1586,7 @@ def flash_attention(q, k, v, segment_ids_q=None, segment_ids_kv=None,
 flash_attention.launches = 0
 flash_attention.wgmma_launches = 0
 flash_attention.f32_launches = 0
+flash_attention.f32_dropout_launches = 0
 flash_attention.dropout_launches = 0
 flash_attention.bias_launches = 0
 flash_attention.bias_dropout_launches = 0

@@ -1,9 +1,10 @@
-"""The SASS of the wgmma flash kernels of this checkout against another
+"""The SASS of the flash kernels of this checkout against another
 checkout's, function by function.
 
 Builds this checkout's ``flash_fwd_sm90`` and ``flash_bwd_sm90`` targets
-(bf16 and fp16, ``ops/_build.py``), compiles the other checkout's sources of
-the same names with the same flags beside them, disassembles both with
+(bf16 and fp16, ``ops/_build.py``) and the fp32 targets of ``flash_fwd``
+and ``flash_bwd`` (the FFMA kernels and frag.cuh's), compiles the other
+checkout's sources of the same names with the same flags beside them, disassembles both with
 ``cuobjdump -sass`` and compares each kernel present in both by its
 instructions (addresses and encodings stripped). Needs ``nvcc`` and
 ``cuobjdump``, no card. Run from this checkout's root::
@@ -31,8 +32,11 @@ sys.path.insert(0, str(ROOT))
 
 from apex_tpu_torch.ops import _build  # noqa: E402
 
-SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90")
-CODES = {0: "bf16", 1: "f16"}
+# (source, dtype codes): the wgmma sources in both of their dtypes, the
+# others in fp32
+SOURCES = (("flash_fwd_sm90", (0, 1)), ("flash_bwd_sm90", (0, 1)),
+           ("flash_fwd", (2,)), ("flash_bwd", (2,)))
+CODES = {0: "bf16", 1: "f16", 2: "f32"}
 
 
 # the anonymous namespace's name in a mangled name: a hash of the source
@@ -78,7 +82,7 @@ def main() -> int:
                     help="where the other checkout's libraries are built")
     args = ap.parse_args()
     args.out.mkdir(parents=True, exist_ok=True)
-    jobs = [(s, c) for s in SOURCES for c in CODES]
+    jobs = [(s, c) for s, codes in SOURCES for c in codes]
     targets = [f"{s}@{CODES[c]}" for s, c in jobs]
     with ThreadPoolExecutor(len(jobs) + 1) as ex:
         mine = ex.submit(_build.build_all, targets)

@@ -177,7 +177,27 @@ Phases (any failure exits non-zero; no phase's error is caught):
     with both ran: this path's configuration at s3072 (d 128),
     ``SelfMultiheadAttn(1024, 16)`` at b16 s512 with the future mask and
     key padding of 384-512 tokens (d 64; with both the gate splits s512)
-    and ``EncdecMultiheadAttn(1024, 16)`` at sq 512, sk 1024, b16.
+    and ``EncdecMultiheadAttn(1024, 16)`` at sq 512, sk 1024, b16;
+23. train-mha6-e1024h16-b28s128-bias-dropout — the decoder self-attention
+    of fairseq's ``transformer_wmt_en_de_big`` (embed 1024, 16 heads, 6
+    decoder layers, ``attention_dropout`` 0.1, the future mask over padded
+    target sentences, a batch of ``--max-tokens 3584``): 6
+    ``SelfMultiheadAttn(1024, 16, use_bias=True, include_norm_add=True,
+    impl="fast", dropout=0.1)`` layers through the same recipe over x [128,
+    28, 1024] bf16 with key padding of 96-128 real tokens a sentence and
+    the future mask as the bias: per step 6 launches each of B1's and B2's
+    variants with both (the gate keeps s128 on the single pass), 6 of each
+    LayerNorm kernel and no other flash launch; then, among the grad checks
+    above, two on the single pass's variant with both: this path's
+    configuration at b28 s128 and ``EncdecMultiheadAttn(1024, 16)`` at sq
+    256, sk 384, b16 with a finite bias and dropout 0.1;
+24. train-o0-dropout-gpt2-b8s1024 — the O0 path's 2-layer fp32 GPT at b8
+    s1024 with Megatron's attention and hidden dropout 0.1: the loss and
+    every gradient through the kernels against ``reference=True`` with a
+    host generator in the same state on both sides (loss 1e-5 relative,
+    gradients 1e-4), then 3 counted O0 steps with 2 launches each of the
+    FFMA forward's and single pass's dropout variants a step and none of
+    the FFMA kernels without dropout, and one step under the profiler.
 
 The kernel phase also holds the shapes and dtypes ROADMAP §C records as
 repaired against the plain versions: flash forward and backward (single
@@ -222,12 +242,15 @@ and without the bias beside its plain version and SDPA's backward with
 the mask (B1's bias variant beside SDPA's forward there too); ptxas
 shows no spill in B4's and no more in B3's than in their twins.
 
-B1's, B3's and B4's variants with both the bias and dropout
-(``flash_fwd_sm90``, ``flash_dkdv_sm90`` and ``flash_dq_sm90`` with
-``DROP`` and ``BIAS``; the single pass has none and refuses) are held at
-the bias variants' shapes with dropout 0.1 against the plain versions with
-the same bias and seed (the bf16 limits; the folded delta 1e-5), each
-bitwise on a rerun, dead rows exactly zero; at rate 0.5 their keep pattern
+B1's, B3's, B4's and B2's variants with both the bias and dropout
+(``flash_fwd_sm90``, ``flash_dkdv_sm90``, ``flash_dq_sm90`` and
+``flash_bwd_fused_sm90`` with ``DROP`` and ``BIAS``) are held at the bias
+variants' shapes with dropout 0.1 against the plain versions with the same
+bias and seed (the bf16 limits; the folded delta 1e-5), each bitwise on a
+rerun (B2's dq through its ordered turns), dead rows exactly zero; B2's is
+timed at the train-mha6 path's b28 h16 s128 d64 with key padding, alone
+and as called, beside its twins, its plain version and SDPA's backward
+with the mask and ``dropout_p=0.1``; at rate 0.5 their keep pattern
 bitwise through identity operands under a bias finite everywhere, and
 their positions bitwise through one-hot bias rows (the kept elements
 doubled, exact products); then at b16 h16 s512 d64 (train-mha18's
@@ -269,6 +292,16 @@ forward and the single pass's dk and dv bitwise on a rerun, with ptxas's
 registers and no spill. Every bf16 main path (the GPT cells, ZeRO-3,
 LAMB, serve) takes the wgmma route for every flash launch, the O0 paths
 none.
+
+B1's and B2's dropout variants on the fp32 FFMA route
+(``flash_fwd_f32_dropout_kernel``, ``flash_bwd_f32_dropout_kernel``) are
+held at d 64 and 128, causal and not, sq != sk, segment padding and the O0
+dropout path's b8 h16 s1024 d64 causal against the plain versions with
+the same seed (out 1e-5, lse 1e-5 relative, gradients 1e-4), bitwise on a
+rerun, their keep pattern the plain mask bit for bit at rate 0.5, one
+device launch of the single pass's variant a call (profiler), no spill;
+each timed beside its twin without dropout, its plain version and SDPA
+fp32 with ``dropout_p=0.1``.
 
 The fp32 forward's FFMA route (``csrc/flash_fwd_f32.cuh``, B1) is held at
 the O0 paths' b8 h16 s1024 and b2 h16 s4096 d64 causal and at the shapes
@@ -2325,6 +2358,214 @@ def check_flash_f32(torch, timer, split: bool):
         split_as_called_ms=split_ms, plain_dq_ms=dq_plain_ms, **common)]
 
 
+# ---------------------------------------------------------------------------
+# attention dropout on the fp32 FFMA route (B1's and B2's dropout variants):
+# the O0 dropout path's b8 h16 s1024 d64 causal and the shapes below (d 64
+# and 128, causal and not, sq != sk both ways, segment padding, a padded
+# head dim)
+# ---------------------------------------------------------------------------
+
+F32_DROPOUT_SEED = 20261022
+F32_DROPOUT_SHAPES = ((2, 2, 1000, 1003, 64, True, True),
+                      (1, 4, 300, 100, 128, True, False),
+                      (1, 4, 100, 300, 64, True, False),
+                      (2, 4, 700, 700, 128, False, True),
+                      (1, 4, 500, 500, 80, True, True))
+
+
+def _f32_dropout_held(torch, fa, q, k, v, do, sids, causal, scale, shape):
+    """The FFMA forward and single pass with dropout 0.1 on one input
+    against the plain versions with the same seed (out FP32_FWD_TOL, lse
+    FP32_FWD_TOL relative, gradients FP32_GRAD_TOL), both bitwise on a
+    rerun, padding rows' dq exactly 0, one launch each of the two dropout
+    variants a call; returns the forward's output and lse and the
+    record."""
+    f, g = fa.flash_attention, fa.flash_attention_bwd
+    drop = dict(dropout_rate=DROPOUT_RATE, dropout_seed=F32_DROPOUT_SEED)
+    what = f"flash fp32 dropout {shape}"
+    n0 = (f.f32_dropout_launches, g.f32_dropout_launches)
+    out, lse = fa.flash_attention_fwd(q, k, v, *sids, causal, scale, **drop)
+    again = fa.flash_attention_fwd(q, k, v, *sids, causal, scale, **drop)
+    grads = fa._flash_bwd_cuda(q, k, v, out, lse, do, *sids, causal, scale,
+                               split=False, **drop)
+    grads2 = fa._flash_bwd_cuda(q, k, v, out, lse, do, *sids, causal,
+                                scale, split=False, **drop)
+    torch.cuda.synchronize()
+    check((f.f32_dropout_launches - n0[0], g.f32_dropout_launches - n0[1])
+          == (2, 2), f"{what}: not the FFMA route's dropout variants")
+    check(torch.equal(out, again[0]) and torch.equal(lse, again[1])
+          and all(torch.equal(x, y) for x, y in zip(grads, grads2)),
+          f"{what}: a rerun gave other bits")
+    del again, grads2
+    kw = dict(causal=causal, segment_ids_q=sids[0], segment_ids_kv=sids[1],
+              scale=scale, **drop)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
+    err = _fp32_err(out, ref, f"{what} forward", FP32_FWD_TOL)
+    lse_err = _lse_err(lse, ref_lse, what)
+    del ref, ref_lse
+    ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, **kw)
+    gerr = max(_fp32_err(gr, r, f"{what} {n}", FP32_GRAD_TOL)
+               for n, gr, r in zip(("dq", "dk", "dv"), grads, ref))
+    if sids[0] is not None:
+        pad = (sids[0] < 0)[:, None, :].expand(*q.shape[:3])
+        check(not bool(grads[0][pad].any()),
+              f"{what}: padding rows got a nonzero dq")
+    return out, lse, dict(shape=shape, max_abs_err=err, lse_rel_err=lse_err,
+                          grad_max_abs_err=gerr)
+
+
+def _f32_keep_pattern(torch, fa, gen, d, seed):
+    """Rate 0.5 (kept elements doubled), no mask: the FFMA forward with
+    q = k = 0 and v = I over sk = d keys is 2 / d where a key is kept and
+    exactly 0 where dropped; the single pass with q = 0 (p = 1 / s) and
+    do = I over sq = d rows gives dv = the dropped p transposed. Both zero
+    patterns are the plain mask bit for bit."""
+    b, h, s = 2, 3, 333
+    eye = torch.eye(d, device="cuda").expand(b, h, d, d).contiguous()
+    q = torch.zeros(b, h, s, d, device="cuda")
+    k = torch.zeros(b, h, d, d, device="cuda")
+    out, _ = fa.flash_attention_fwd(q, k, eye, None, None, False, 1.0, 0.5,
+                                    seed)
+    keep = fa.dropout_keep_reference(seed, b, h, s, d, 0.5, device="cuda")
+    what = f"flash fp32 dropout keep pattern d{d}"
+    check(torch.equal(out != 0, keep)
+          and torch.equal(out[keep], torch.full_like(out[keep], 2.0 / d)),
+          f"{what}: the forward's keep pattern is not the plain mask")
+    n = keep.numel()
+    k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda")
+            for _ in range(2))
+    q = torch.zeros(b, h, d, d, device="cuda")
+    out, lse = fa.flash_attention_fwd(q, k, v, None, None, False, 1.0, 0.5,
+                                      seed)
+    _, _, dv = fa._flash_bwd_cuda(q, k, v, out, lse, eye, None, None, False,
+                                  1.0, split=False, dropout_rate=0.5,
+                                  dropout_seed=seed)
+    keep = fa.dropout_keep_reference(seed, b, h, d, s, 0.5, device="cuda")
+    check(torch.equal(dv != 0, keep.transpose(-1, -2)),
+          f"{what}: the single pass's keep pattern is not the plain mask")
+    return dict(case=what, rate=0.5, keep_elements=n + keep.numel(),
+                bitwise=True)
+
+
+def check_flash_f32_dropout(torch, timer):
+    """B1's and B2's dropout variants on the fp32 FFMA route
+    (``flash_fwd_f32_dropout_kernel`` of ``csrc/flash_fwd_f32.cuh``,
+    ``flash_bwd_f32_dropout_kernel`` of ``csrc/flash_bwd_f32.cuh``) at
+    :data:`F32_DROPOUT_SHAPES` and the O0 dropout path's b8 h16 s1024 d64
+    causal, rate 0.1 (:func:`_f32_dropout_held`); the keep pattern bitwise
+    at d 64 and 128 (:func:`_f32_keep_pattern`); each timed at the O0 shape
+    beside its twin without dropout, its plain version and SDPA fp32 with
+    ``dropout_p=0.1`` (TF32 off), the single pass as called; ptxas's
+    registers with no spill in either variant. The bounds count the hash's
+    integer operations beside the products at the fp32 rate: the same
+    cores issue both."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    checked = []
+    for b, h, sq, sk, d, causal, seg in F32_DROPOUT_SHAPES:
+        q, k, v, do, sids = _f32_inputs(torch, gen, b, h, sq, sk, d, seg)
+        shape = f"b{b} h{h} sq{sq} sk{sk} d{d}" + (" causal" if causal
+                                                   else "") + \
+            (" segments" if seg else "")
+        checked.append(_f32_dropout_held(torch, fa, q, k, v, do, sids,
+                                         causal, d ** -0.5, shape)[2])
+        del q, k, v, do, sids
+    bitwise = [_f32_keep_pattern(torch, fa, gen, 64, 5),
+               _f32_keep_pattern(torch, fa, gen, 128, -3)]
+    torch.cuda.empty_cache()
+
+    b, h, s, d = O0_B, 16, O0_S, 64
+    scale = d ** -0.5
+    q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device="cuda")
+                   for _ in range(4))
+    shape = f"b{b} h{h} s{s} d{d} fp32 causal, dropout {DROPOUT_RATE}"
+    out, lse, main = _f32_dropout_held(torch, fa, q, k, v, do, (None, None),
+                                       True, scale, shape)
+    drop = dict(dropout_rate=DROPOUT_RATE, dropout_seed=F32_DROPOUT_SEED)
+    fwd, bwd = fa.flash_attention_fwd, fa.flash_attention_bwd
+    pairs = b * h * s * (s + 1) // 2
+    sd4 = b * h * s * d * 4
+    f_bound = bound(4.0 * d * pairs + DROPOUT_HASH_OPS * pairs,
+                    4 * sd4 + b * h * s * 4, FP32_FLOPS_PER_S)
+    b_bound = bound(10.0 * d * pairs + DROPOUT_HASH_OPS * pairs,
+                    8 * sd4 + 2 * b * h * s * 4, FP32_FLOPS_PER_S)
+    times = dict(
+        fwd_ms=timer(lambda: fwd(q, k, v, None, None, True, scale, **drop),
+                     iters=10),
+        fwd_no_dropout_ms=timer(lambda: fwd(q, k, v, None, None, True,
+                                            scale), iters=10),
+        fwd_plain_ms=timer(lambda: fa.flash_attention_reference(
+            q, k, v, causal=True, scale=scale, **drop), iters=3, warmup=1),
+        fwd_library_ms=timer(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale, dropout_p=DROPOUT_RATE),
+            iters=10),
+        bwd_ms=timer(lambda: bwd(q, k, v, out, lse, do, None, None, True,
+                                 scale, **drop), iters=10),
+        bwd_no_dropout_ms=timer(lambda: bwd(q, k, v, out, lse, do, None,
+                                            None, True, scale), iters=10),
+        bwd_plain_ms=timer(lambda: fa.flash_attention_bwd_reference(
+            q, k, v, out, lse, do, causal=True, scale=scale, **drop),
+            iters=3, warmup=1),
+        bwd_library_ms=timer(_grad_of(torch, lambda a, b_, c: (
+            F.scaled_dot_product_attention(a, b_, c, is_causal=True,
+                                           scale=scale,
+                                           dropout_p=DROPOUT_RATE)),
+            (q, k, v), do), iters=5))
+    dev = device_launches(torch, bwd, (q, k, v, out, lse, do, None, None,
+                                       True, scale), F32_CORE_KERNELS +
+                          ("flash_bwd_f32_dropout_kernel",), drop)
+    want = {"flash_f32_prologue_kernel": 1, "flash_bwd_f32_kernel": 0,
+            "flash_bwd_f32_dropout_kernel": 1}
+    check({k_: dev[k_] for k_ in want} == want,
+          f"flash fp32 dropout: device launches {dev} in one single pass, "
+          f"expected {want}")
+    del q, k, v, do, out, lse
+    torch.cuda.empty_cache()
+    common = dict(
+        route="cuda", shape=shape, bitwise=bitwise,
+        checked=checked, live_pairs=pairs,
+        library="F.scaled_dot_product_attention(is_causal=True, dropout_p="
+                f"{DROPOUT_RATE}), exact fp32: its own random stream")
+    return [
+        dict(name="flash_fwd_f32_dropout",
+             source="apex_tpu_torch/csrc/flash_fwd_f32.cuh",
+             replaces="apex_tpu/ops/flash_attention.py:251",
+             max_abs_err=main["max_abs_err"], lse_rel_err=main["lse_rel_err"],
+             tolerance=f"out {FP32_FWD_TOL} of max and in relative norm, "
+                       f"lse {FP32_FWD_TOL} relative, of the plain forward "
+                       "with the same seed; a rerun bitwise; the keep "
+                       "pattern bitwise",
+             ms=times["fwd_ms"], no_dropout_ms=times["fwd_no_dropout_ms"],
+             plain_ms=times["fwd_plain_ms"],
+             library_ms=times["fwd_library_ms"], plain="flash_attention_"
+             "reference with the same seed", bound_ms=f_bound[0],
+             bound_by=f_bound[1],
+             registers=_ffma_registers(_build, "flash_fwd",
+                                       ("flash_fwd_f32_dropout_kernel",)),
+             **common),
+        dict(name="flash_bwd_f32_dropout",
+             source="apex_tpu_torch/csrc/flash_bwd_f32.cuh",
+             replaces="apex_tpu/ops/flash_attention.py:604",
+             max_abs_err=main["grad_max_abs_err"],
+             tolerance=f"{FP32_GRAD_TOL} of max and in relative norm of the "
+                       "plain backward with the same seed; padding rows' dq "
+                       "exactly 0; dq, dk, dv bitwise on a rerun; the keep "
+                       "pattern bitwise",
+             ms=times["bwd_ms"], no_dropout_ms=times["bwd_no_dropout_ms"],
+             as_called="flash_attention_bwd (the zeroed turns, two "
+                       "transposes and the delta fold, the kernel)",
+             plain_ms=times["bwd_plain_ms"],
+             library_ms=times["bwd_library_ms"],
+             plain="flash_attention_bwd_reference with the same seed",
+             bound_ms=b_bound[0], bound_by=b_bound[1],
+             device_launches_per_call=dev,
+             registers=_ffma_registers(_build, "flash_bwd",
+                                       ("flash_bwd_f32_dropout_kernel",)),
+             **common)]
+
+
 # the wgmma flash kernels in ptxas's log: the split's two, the forward (its
 # second parameter the rows a block: 1 or 2 consumer warpgroups) and the
 # single pass; their DROP and (forward, single pass) BIAS parameters
@@ -2402,12 +2643,12 @@ def _sm90_registers(build):
     check(sum(_variant(n) == " bias" for n in regs) == 20,
           f"the bias variants in ptxas's log: {sorted(regs)}")
     # the variants with both: two dtypes, two head dims; the forward at two
-    # block heights (8), the split's dk/dv (4) and dq (4); none of the
-    # single pass
+    # block heights (8), the split's dk/dv (4) and dq (4), the single pass
+    # (4)
     both = [n for n in regs if _variant(n) == " dropout bias"]
-    check(len(both) == 16 and sum(n.split()[1] == "flash_fwd_sm90"
+    check(len(both) == 20 and sum(n.split()[1] == "flash_fwd_sm90"
                                   for n in both) == 8
-          and not any(n.split()[1] == "flash_bwd_fused_sm90" for n in both),
+          and sum(n.split()[1] == "flash_bwd_fused_sm90" for n in both) == 4,
           f"the variants with both in ptxas's log: {sorted(regs)}")
     return regs
 
@@ -3073,11 +3314,13 @@ BIAS_DROPOUT_SHAPES = ((MHA_B, MHA_HEADS, MHA_S, MHA_E // MHA_HEADS,
 
 def _bias_dropout_case(torch, fa, gen, case):
     """One :func:`_bias_cases` shape with dropout 0.1: the forward at both
-    block heights and the split (forced: dq with the delta it folds in from
-    the dropped output, then dk/dv from that delta) against their plain
-    versions with the same bias and seed (the bf16 limits; the delta
-    1e-5), each bitwise on a rerun, a dead row's output and dq exactly 0;
-    returns the largest forward and gradient errors."""
+    block heights, the split (forced: dq with the delta it folds in from
+    the dropped output, then dk/dv from that delta) and the single pass
+    (forced) against their plain versions with the same bias and seed (the
+    bf16 limits; the delta 1e-5), each bitwise on a rerun (the single
+    pass's dq through its ordered turns), a dead row's output and dq
+    exactly 0; returns the largest forward, split and single-pass gradient
+    errors."""
     _, _, _, b, h, sq, sk, causal, _, dead = case
     q, k, v, do, bias, sid_q, sid_kv, scale, what = _bias_case_inputs(
         torch, gen, case, "flash bias dropout")
@@ -3122,10 +3365,21 @@ def _bias_dropout_case(torch, fa, gen, case):
           f"{what}: a non-finite gradient")
     gerr = max(grad_err(g, r, f"{what} {n}") for n, g, r in
                zip(("dq", "dk", "dv"), (dq, dk, dv), (rdq, rdk, rdv)))
+    del rdq, rdk, rdv
+    fused = [fa._flash_bwd_cuda(q, k, v, out, lse, do, sid_q, sid_kv,
+                                causal, scale, split=False, bias=bias,
+                                **drop) for _ in range(2)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(*fused)),
+          f"{what}: the single pass's rerun gave other bits")
+    ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, **kw)
+    serr = max(grad_err(g, r, f"{what} single pass {n}") for n, g, r in
+               zip(("dq", "dk", "dv"), fused[0], ref))
     if dead is not None:
-        check(dq[:, :, dead].abs().max().item() == 0.0,
+        check(dq[:, :, dead].abs().max().item() == 0.0
+              and fused[0][0][:, :, dead].abs().max().item() == 0.0,
               f"{what}: the row with no live key got a nonzero dq")
-    return what, err, gerr
+    return what, err, gerr, serr
 
 
 def _bias_dropout_bitwise(torch, fa, gen, dtype, d, seed):
@@ -3374,17 +3628,116 @@ def _bias_dropout_timed(torch, fa, F, timer, gen, b, h, s, d, min_len):
     return row
 
 
+def _single_pass_bias_dropout_timed(torch, fa, F, timer, gen):
+    """B2's variant with both at the train-mha6 path's attention (b28 h16
+    s128 d64 bf16, the future mask as a [1, 1, 128, 128] fp32 bias, key
+    padding of 96-128 tokens as segment ids, dropout 0.1): the pair as
+    routed (the forward, then the single pass, which the gate keeps)
+    against the plain backward with the same bias and seed, bitwise on a
+    rerun, the counter of the single pass with both alone moving; the
+    single pass timed alone and as called beside its twins (the same
+    kernel with the bias alone and with dropout alone), its plain version
+    and SDPA's backward with the mask as ``attn_mask`` and
+    ``dropout_p=0.1``; its bound counts the live pairs this data needs (a
+    finite bias and a real key; the bias read once) and the hash's
+    integer operations on each."""
+    b, h, s, d = MHA6_B, MHA_HEADS, MHA6_S, MHA_E // MHA_HEADS
+    scale = d ** -0.5
+    drop = dict(dropout_rate=DROPOUT_RATE, dropout_seed=BIAS_DROPOUT_SEED)
+    dargs = fa._dropout_args(DROPOUT_RATE, BIAS_DROPOUT_SEED)
+    q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    bias = future_mask(torch, s)[None, None]
+    lens = torch.from_numpy(mha6_lengths()).cuda()
+    sid_kv = torch.where(torch.arange(s, device="cuda")[None]
+                         < lens[:, None], 0, -1).to(torch.int32)
+    sid_q = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+    seg = (sid_q, sid_kv)
+    what = f"flash single pass bias dropout b{b} h{h} s{s} d{d}"
+    check(not fa.uses_split_backward(s, s, d, bias=True, dropout=True),
+          f"{what}: the gate splits")
+    g = fa.flash_attention_bwd
+
+    def counts():
+        return (g.bias_dropout_fused_launches, g.bias_launches,
+                g.dropout_launches, g.bias_dropout_dkdv_launches,
+                g.bias_dropout_dq_launches)
+
+    out, lse = fa.flash_attention_fwd(q, k, v, *seg, False, scale, bias=bias,
+                                      **drop)
+    n0 = counts()
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, *seg, False, scale,
+                                 bias=bias, **drop)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, *seg, False,
+                                   scale, bias=bias, **drop)
+    torch.cuda.synchronize()
+    moved = tuple(a - b_ for a, b_ in zip(counts(), n0))
+    check(moved == (2, 0, 0, 0, 0), f"{what}: launches (single pass with "
+          f"both, with the bias, with dropout; split with both) {moved}")
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"{what}: a rerun gave other bits")
+    ref = fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, do, segment_ids_q=sid_q, segment_ids_kv=sid_kv,
+        scale=scale, bias=bias, **drop)
+    errs = {n: grad_err(gr, r, f"{what} {n}")
+            for n, gr, r in zip(("dq", "dk", "dv"), got, ref)}
+    del got, again, ref
+
+    delta = (do.float() * out.float()).sum(dim=-1)
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
+    bop = fa._bias_operand(bias, b, h, s, s, q.device, scale)
+
+    def alone(dropout, bias_op):
+        return lambda: fa._flash_bwd_fused_cuda(
+            q, k, v, do, lse, delta, *seg, False, scale, dq_acc, None,
+            dropout, bias_op)
+
+    mask = (bias + torch.where(sid_kv < 0, float("-inf"), 0.0)[:, None, None]
+            ).to(torch.bfloat16)
+    pairs = _bias_live_pairs(torch, bias, sid_kv, h)
+    bias_bytes = bias.numel() * 4 + 2 * b * s * 4          # and the ids
+    b_bound = _with_hash(*bound(10.0 * d * pairs,
+                                8 * b * h * s * d * 2 + 2 * b * h * s * 4
+                                + bias_bytes), pairs)
+    row = dict(
+        shape=f"b{b} h{h} s{s} d{d} bf16, bias [1, 1, {s}, {s}] fp32 (future "
+              f"mask), key padding {MHA6_MIN_LEN}-{s}, dropout "
+              f"{DROPOUT_RATE}", live_pairs=pairs, pair_max_abs_err=errs,
+        max_abs_err=max(errs.values()),
+        ms=timer(alone(dargs, bop)),
+        bias_only_ms=timer(alone((0, 0, 1.0), bop)),
+        dropout_only_ms=timer(alone(dargs, (None, 0, 0))),
+        as_called_ms=timer(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, do, *seg, False, scale, bias=bias, **drop)),
+        plain_ms=timer(lambda: fa.flash_attention_bwd_reference(
+            q, k, v, out, lse, do, segment_ids_q=sid_q,
+            segment_ids_kv=sid_kv, scale=scale, bias=bias, **drop),
+            iters=5),
+        library_ms=timer(_grad_of(torch, lambda a, b_, c: (
+            F.scaled_dot_product_attention(a, b_, c, attn_mask=mask,
+                                           scale=scale,
+                                           dropout_p=DROPOUT_RATE)),
+            (q, k, v), do)),
+        bound_ms=b_bound[0], bound_by=b_bound[1])
+    del q, k, v, do, out, lse, delta, dq_acc, bop, mask
+    torch.cuda.empty_cache()
+    return row
+
+
 def check_flash_bias_dropout(torch, timer):
-    """B1's, B3's and B4's variants with both (``flash_fwd_sm90<..., DROP,
-    BIAS>``, ``flash_dkdv_sm90<..., DROP, BIAS>``, ``flash_dq_sm90<...,
-    DROP, BIAS>``) at :func:`_bias_cases`' shapes with dropout 0.1 (bf16
-    and fp16, head dims 64 and 128, the four broadcast shapes, sq != sk,
-    odd sk, segment padding, a row -inf everywhere) against their plain
+    """The variants with both of B1, B3, B4 and B2 (``flash_fwd_sm90<...,
+    DROP, BIAS>``, ``flash_dkdv_sm90<..., DROP, BIAS>``,
+    ``flash_dq_sm90<..., DROP, BIAS>``, ``flash_bwd_fused_sm90<..., DROP,
+    BIAS>``) at :func:`_bias_cases`' shapes with dropout 0.1 (bf16 and
+    fp16, head dims 64 and 128, the four broadcast shapes, sq != sk, odd
+    sk, segment padding, a row -inf everywhere) against their plain
     versions with the same bias and seed (:func:`_bias_dropout_case`); the
     keep pattern and the positions bitwise (:func:`_bias_dropout_bitwise`);
-    then at :data:`BIAS_DROPOUT_SHAPES` the checks and the times
-    (:func:`_bias_dropout_timed`). The rows' numbers are the
-    train-mha16-bias-dropout path's shape (the last)."""
+    then at :data:`BIAS_DROPOUT_SHAPES` the checks and the times of the
+    forward and the split (:func:`_bias_dropout_timed`; the rows' numbers
+    are the train-mha16-bias-dropout path's shape, the last), and at the
+    train-mha6 path's shape those of the single pass
+    (:func:`_single_pass_bias_dropout_timed`)."""
     import torch.nn.functional as F
     from apex_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(21)
@@ -3395,12 +3748,14 @@ def check_flash_bias_dropout(torch, timer):
     torch.cuda.empty_cache()
     by_shape = [_bias_dropout_timed(torch, fa, F, timer, gen, *shape)
                 for shape in BIAS_DROPOUT_SHAPES]
+    single = _single_pass_bias_dropout_timed(torch, fa, F, timer, gen)
     main = by_shape[-1]
     common = dict(
         route="cuda", shape=main["shape"], live_pairs=main["live_pairs"],
         bitwise=bitwise, by_shape=by_shape,
-        checked=[dict(case=w, max_abs_err=e, grad_max_abs_err=ge)
-                 for w, e, ge in checked])
+        checked=[dict(case=w, max_abs_err=e, grad_max_abs_err=ge,
+                      single_pass_grad_max_abs_err=se)
+                 for w, e, ge, se in checked])
     bwd = dict(
         source="apex_tpu_torch/csrc/flash_bwd_sm90.cu",
         tolerance="2 bf16 ulp + 2% of max, 1% relative norm, of the plain "
@@ -3447,6 +3802,15 @@ def check_flash_bias_dropout(torch, timer):
              plain_ms=main["dq_plain_ms"], plain="flash_bwd_dq_reference",
              bound_ms=main["dq_bound_ms"], bound_by=main["dq_bound_by"],
              **bwd),
+        dict(single, name="flash_bwd_fused_sm90_bias_dropout", route="cuda",
+             source="apex_tpu_torch/csrc/flash_bwd_sm90.cu",
+             replaces="apex_tpu/ops/flash_attention.py:604",
+             plain="flash_attention_bwd_reference with the same bias and "
+                   "seed",
+             library=bwd["library"], checked=common["checked"],
+             tolerance="2 bf16 ulp + 2% of max, 1% relative norm, of the "
+                       "plain backward with the same bias and seed; dq, dk, "
+                       "dv bitwise on a rerun; a dead row's dq exactly 0"),
     ]
 
 
@@ -3692,8 +4056,11 @@ def counters():
     launches there), and the wgmma forward's, single pass's and split's
     dropout variants (``*_dropout``) apart from their variants without,
     and the wgmma forward's, single pass's and split's bias variants
-    (``*_bias``) apart from both, and the wgmma forward's and split's
-    variants with both (``*_bias_dropout``) apart from all three."""
+    (``*_bias``) apart from both, and the wgmma forward's, single pass's
+    and split's variants with both (``*_bias_dropout``) apart from all
+    three, and the fp32 FFMA forward's and single pass's dropout variants
+    (``flash_fwd_f32_dropout``, ``flash_bwd_f32_dropout``) apart from their
+    kernels without."""
     from apex_tpu_torch.ops import flash_attention as fa
     from apex_tpu_torch.ops import fp8_matmul as mm
     from apex_tpu_torch.ops import fused_ce as xe
@@ -3710,6 +4077,8 @@ def counters():
             "flash_fwd_sm90_bias_dropout": (fa.flash_attention,
                                             "bias_dropout_launches"),
             "flash_fwd_f32": (fa.flash_attention, "f32_launches"),
+            "flash_fwd_f32_dropout": (fa.flash_attention,
+                                      "f32_dropout_launches"),
             "paged_decode": (fa.paged_decode_attention, "launches"),
             "paged_decode_fp8": (fa.paged_decode_attention, "fp8_launches"),
             "layer_norm_fwd": (ln.fused_layer_norm_affine, "launches"),
@@ -3720,7 +4089,11 @@ def counters():
                                              "dropout_launches"),
             "flash_bwd_fused_sm90_bias": (fa.flash_attention_bwd,
                                           "bias_launches"),
+            "flash_bwd_fused_sm90_bias_dropout": (
+                fa.flash_attention_bwd, "bias_dropout_fused_launches"),
             "flash_bwd_f32": (fa.flash_attention_bwd, "f32_launches"),
+            "flash_bwd_f32_dropout": (fa.flash_attention_bwd,
+                                      "f32_dropout_launches"),
             "layer_norm_bwd": (ln.layer_norm_bwd, "launches"),
             "lm_head_ce_fwd": (ce.lm_head_ce_fwd, "launches"),
             "lm_head_ce_bwd": (ce.lm_head_ce_bwd, "launches"),
@@ -3784,7 +4157,10 @@ def read_counters():
     and ``flash_bwd_dq_sm90`` count the kernels without dropout and
     ``*_dropout`` those with; and the wgmma forward's, single pass's and
     split's less their bias variants' (``*_bias``) and the variants with
-    both (``*_bias_dropout``; a launch with both counts there alone)."""
+    both (``*_bias_dropout``; a launch with both counts there alone); and
+    the FFMA forward's and single pass's less their dropout variants', so
+    that ``flash_fwd_f32`` and ``flash_bwd_f32`` count the kernels without
+    dropout and ``*_f32_dropout`` those with."""
     out = {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
     out["fp8_matmul"] -= out["fp8_matmul_prefill"]
     out["lm_head_ce_fwd"] -= out["lm_head_ce_fwd_f32"]
@@ -3794,10 +4170,13 @@ def read_counters():
     out["flash_bwd_dkdv"] -= out["flash_bwd_dkdv_sm90"] + \
         out["flash_bwd_f32_dkdv"]
     out["flash_bwd_dq"] -= out["flash_bwd_dq_sm90"] + out["flash_bwd_f32_dq"]
+    out["flash_fwd_f32"] -= out["flash_fwd_f32_dropout"]
+    out["flash_bwd_f32"] -= out["flash_bwd_f32_dropout"]
     out["flash_fwd_sm90"] -= out["flash_fwd_sm90_dropout"] + \
         out["flash_fwd_sm90_bias"] + out["flash_fwd_sm90_bias_dropout"]
     out["flash_bwd_fused_sm90"] -= out["flash_bwd_fused_sm90_dropout"] + \
-        out["flash_bwd_fused_sm90_bias"]
+        out["flash_bwd_fused_sm90_bias"] + \
+        out["flash_bwd_fused_sm90_bias_dropout"]
     out["flash_bwd_dkdv_sm90"] -= out["flash_bwd_dkdv_sm90_dropout"] + \
         out["flash_bwd_dkdv_sm90_bias"] + \
         out["flash_bwd_dkdv_sm90_bias_dropout"]
@@ -4018,6 +4397,8 @@ TRAIN_PER_STEP = {"flash_fwd": 0, "flash_fwd_sm90": 12, "flash_fwd_f32": 0,
                   "flash_fwd_sm90_bias_dropout": 0,
                   "flash_bwd_dkdv_sm90_bias_dropout": 0,
                   "flash_bwd_dq_sm90_bias_dropout": 0,
+                  "flash_bwd_fused_sm90_bias_dropout": 0,
+                  "flash_fwd_f32_dropout": 0, "flash_bwd_f32_dropout": 0,
                   "flash_bwd_f32": 0, "flash_bwd_f32_dkdv": 0,
                   "flash_bwd_f32_dq": 0, "xentropy_fwd": 0,
                   "xentropy_bwd": 0, "multi_tensor_update": 0,
@@ -4377,6 +4758,26 @@ MHA16_DROP_PER_STEP = {**{k: 0 for k in TRAIN_PER_STEP},
                        "flash_bwd_dq_sm90_bias_dropout": MHA16_LAYERS,
                        "layer_norm_fwd": MHA16_LAYERS,
                        "layer_norm_bwd": MHA16_LAYERS}
+# train-mha6-e1024h16-b28s128-bias-dropout: the decoder self-attention of
+# fairseq's transformer_wmt_en_de_big (embed 1024, 16 heads, 6 decoder
+# layers, attention_dropout 0.1, the future mask over padded target
+# sentences) in a batch of --max-tokens 3584 (Ott et al., "Scaling Neural
+# Machine Translation", 2018): 28 sentences of 128 positions, 96-128 real
+# tokens each; the gate keeps every biased backward with dropout at s128 on
+# the single pass: the forward's and the single pass's variants with both
+MHA6_LAYERS, MHA6_B, MHA6_S, MHA6_MIN_LEN = 6, 28, 128, 96
+MHA6_PER_STEP = {**{k: 0 for k in TRAIN_PER_STEP},
+                 "flash_fwd_sm90_bias_dropout": MHA6_LAYERS,
+                 "flash_bwd_fused_sm90_bias_dropout": MHA6_LAYERS,
+                 "layer_norm_fwd": MHA6_LAYERS,
+                 "layer_norm_bwd": MHA6_LAYERS}
+
+
+def mha6_lengths(seed=6):
+    """The real tokens of each of the wmt path's :data:`MHA6_B`
+    sentences."""
+    return np.random.RandomState(seed).randint(MHA6_MIN_LEN, MHA6_S + 1,
+                                               MHA6_B)
 
 
 def mha_stack(torch, layers, kw, heads=MHA_HEADS):
@@ -4505,6 +4906,21 @@ def run_mha16_dropout_path(torch):
                         lr=MHA16_LR)
 
 
+def run_mha6_path(torch):
+    """train-mha6-e1024h16-b28s128-bias-dropout: 6 layers over one
+    3584-token batch of 28 padded sentences under the future mask at
+    dropout 0.1, one host generator for the attention seeds and the
+    residual dropout's masks."""
+    from apex_tpu_torch.ops import flash_attention as fa
+    check(not fa.uses_split_backward(MHA6_S, MHA6_S, MHA_E // MHA_HEADS,
+                                     bias=True, dropout=True),
+          f"the gate at s{MHA6_S} with a bias and dropout: not the single "
+          "pass")
+    return run_mha_path(torch, MHA_BIAS_DROP_KW, MHA6_S, MHA6_B,
+                        MHA6_PER_STEP, "train-mha6-s128-bias-dropout", True,
+                        mha6_lengths(), layers=MHA6_LAYERS)
+
+
 def _twin_grads(torch, what, params, loss_of):
     """The loss and every gradient (``params``: name -> tensor) through the
     kernels against the plain versions (``loss_of(reference)``): loss
@@ -4538,20 +4954,25 @@ def _twin_grads(torch, what, params, loss_of):
 
 def _bias_routes(fa):
     """The bias variants' counters: the forward's, the single pass's and
-    the split's two; then the variants with dropout too: the forward's and
-    the split's two."""
+    the split's two; then the variants with dropout too: the forward's,
+    the split's two and the single pass's."""
     f, g = fa.flash_attention, fa.flash_attention_bwd
     return (f.bias_launches, g.bias_launches, g.bias_dkdv_launches,
             g.bias_dq_launches, f.bias_dropout_launches,
-            g.bias_dropout_dkdv_launches, g.bias_dropout_dq_launches)
+            g.bias_dropout_dkdv_launches, g.bias_dropout_dq_launches,
+            g.bias_dropout_fused_launches)
 
 
 # :func:`_bias_routes` of one attention: the single pass with the bias, the
-# split with the bias, the split with the bias and dropout, and none
-ROUTES_SINGLE = (1, 1, 0, 0, 0, 0, 0)
-ROUTES_SPLIT = (1, 0, 1, 1, 0, 0, 0)
-ROUTES_BOTH = (0, 0, 0, 0, 1, 1, 1)
-ROUTES_NONE = (0,) * 7
+# split with the bias, the split with the bias and dropout, the single pass
+# with both, and none
+ROUTES_SINGLE = (1, 1, 0, 0, 0, 0, 0, 0)
+ROUTES_SPLIT = (1, 0, 1, 1, 0, 0, 0, 0)
+ROUTES_BOTH = (0, 0, 0, 0, 1, 1, 1, 0)
+ROUTES_SINGLE_BOTH = (0, 0, 0, 0, 1, 0, 0, 1)
+ROUTES_NONE = (0,) * 8
+_ROUTE_NAMES = ("(forward, single pass, split dk/dv, split dq; with dropout: "
+                "forward, split dk/dv, split dq, single pass)")
 
 
 def _encdec_grad_check(torch, fa, what, sq, sk, b, routes, dropout=0.0):
@@ -4587,9 +5008,8 @@ def _encdec_grad_check(torch, fa, what, sq, sk, b, routes, dropout=0.0):
 
     out = _twin_grads(torch, what, params, loss_of)
     moved = tuple(a - b_ for a, b_ in zip(_bias_routes(fa), n0))
-    check(moved == routes, f"{what}: bias launches (forward, single pass, "
-          f"split dk/dv, split dq; with dropout: forward, split dk/dv, split "
-          f"dq) {moved}, expected {routes}")
+    check(moved == routes, f"{what}: bias launches {_ROUTE_NAMES} {moved}, "
+          f"expected {routes}")
     out["shape"] = (f"sq{sq} sk{sk} b{b} e{MHA_E} h{MHA_HEADS}, bias [{b}, "
                     f"1, {sq}, {sk}], key padding, dropout {dropout}")
     del m, params
@@ -4614,8 +5034,10 @@ def mha_grad_checks(torch):
     path's configuration at s3072 (d 128), ``SelfMultiheadAttn(1024, 16)``
     at b16 s512 with the future mask and key padding of 384-512 tokens
     (d 64: the gate splits s512 with both) and ``EncdecMultiheadAttn(1024,
-    16)`` at sq 512, sk 1024, b16. Each check asserts which bias variants
-    ran."""
+    16)`` at sq 512, sk 1024, b16; and on the single pass's variant with
+    both, the train-mha6 path's configuration (b28 s128, the future mask,
+    key padding of 96-128 tokens) and ``EncdecMultiheadAttn(1024, 16)`` at
+    sq 256, sk 384, b16. Each check asserts which bias variants ran."""
     from apex_tpu_torch.ops import flash_attention as fa
     out = {}
     lens1024 = np.random.RandomState(5).randint(768, 1025, 8)
@@ -4631,7 +5053,9 @@ def mha_grad_checks(torch):
             ("bias-dropout-s3072-h8", MHA_BIAS_DROP_KW, MHA16_S, MHA16_B,
              MHA16_HEADS, True, None, ROUTES_BOTH),
             ("bias-dropout-s512-h16", MHA_BIAS_DROP_KW, MHA_S, MHA_B,
-             MHA_HEADS, True, mha_lengths(), ROUTES_BOTH)):
+             MHA_HEADS, True, mha_lengths(), ROUTES_BOTH),
+            ("bias-dropout-s128-h16-b28", MHA_BIAS_DROP_KW, MHA6_S, MHA6_B,
+             MHA_HEADS, True, mha6_lengths(), ROUTES_SINGLE_BOTH)):
         stack = mha_stack(torch, MHA_GRAD_LAYERS, kw, heads).bfloat16()
         batch = mha_batch(torch, s, b, mask, lens)
 
@@ -4646,8 +5070,7 @@ def mha_grad_checks(torch):
         moved = tuple(a - b_ for a, b_ in zip(_bias_routes(fa), n0))
         want = tuple(MHA_GRAD_LAYERS * r for r in routes)
         check(moved == want, f"mha grad check {name}: bias launches "
-              f"(forward, single pass, split dk/dv, split dq; with dropout: "
-              f"forward, split dk/dv, split dq) {moved}, expected {want}")
+              f"{_ROUTE_NAMES} {moved}, expected {want}")
         out[name]["shape"] = f"s{s} b{b} h{heads}, dropout {kw['dropout']}"
         del stack, batch
     out["encdec"] = _encdec_grad_check(torch, fa, "encdec grad check", 256,
@@ -4658,6 +5081,13 @@ def mha_grad_checks(torch):
     out["encdec-sq512-sk1024-dropout"] = _encdec_grad_check(
         torch, fa, "encdec grad check sq512 sk1024 dropout", 512, 1024,
         MHA_B, ROUTES_BOTH, dropout=DROPOUT_RATE)
+    check(not fa.uses_split_backward(256, 384, MHA_E // MHA_HEADS,
+                                     bias=True, dropout=True),
+          "the gate at sq256 sk384 with a bias and dropout: not the single "
+          "pass")
+    out["encdec-sq256-sk384-dropout"] = _encdec_grad_check(
+        torch, fa, "encdec grad check sq256 sk384 dropout", 256, 384,
+        MHA_B, ROUTES_SINGLE_BOTH, dropout=DROPOUT_RATE)
     return out
 
 
@@ -5377,6 +5807,11 @@ O0_PER_STEP = {**{k: 0 for k in TRAIN_PER_STEP}, "flash_fwd_f32": O0_LAYERS,
                "layer_norm_fwd": 2 * O0_LAYERS + 1,
                "layer_norm_bwd": 2 * O0_LAYERS + 1, "lm_head_ce_fwd_f32": 1,
                "lm_head_ce_bwd_f32": 1}
+# train-o0-dropout-gpt2-b8s1024: the same step with Megatron's dropout,
+# every flash forward and single pass on the FFMA route's dropout variants
+O0_DROP_PER_STEP = {**O0_PER_STEP, "flash_fwd_f32": 0, "flash_bwd_f32": 0,
+                    "flash_fwd_f32_dropout": O0_LAYERS,
+                    "flash_bwd_f32_dropout": O0_LAYERS}
 # the O0 step against GPT.loss(reference=True), both fp32 on the same
 # parameters: the kernels round nothing below fp32 (p, ds and the CE
 # gradient tile stay fp32), so only summation order and __expf differ
@@ -5384,41 +5819,57 @@ O0_LOSS_TOL = 1e-5
 O0_GRAD_TOL = 1e-4
 
 
-def run_o0_path(torch):
+def run_o0_path(torch, dropout=False):
     """An O0 (fp32) GPT training step through the kernels: 2 layers at
     full width (h1024, 16 heads, V32768), b8 s1024, FusedAdam through
     amp.make_train_step; then the loss and every gradient against the
-    plain versions differentiated by autograd."""
+    plain versions differentiated by autograd. With ``dropout``
+    (train-o0-dropout-gpt2-b8s1024): Megatron's attention and hidden
+    dropout 0.1 (:func:`dropout_config`) in training mode, the check's two
+    sides from a host generator in the same state (the same attention
+    seeds and hidden masks), the steps from one host generator."""
     import dataclasses
     from apex_tpu_torch import amp
     from apex_tpu_torch.models.gpt import GPT
     from apex_tpu_torch.optimizers import FusedAdam
     cfg = dataclasses.replace(gpt_config(), num_layers=O0_LAYERS,
                               dtype=torch.float32)
+    if dropout:
+        cfg = dropout_config(cfg)
     model = GPT.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cuda")
     ids, labels = train_batch(torch, cfg, O0_B, O0_S)
     params = list(model.named_parameters())
-    loss = model.loss(ids, labels)
+
+    what = "O0 dropout" if dropout else "O0"
+
+    def loss_of(reference):
+        kw = dict(deterministic=False, generator=torch.Generator()
+                  .manual_seed(DROP_GEN_SEED + 5)) if dropout else {}
+        return model.loss(ids, labels, reference=reference, **kw)
+
+    loss = loss_of(False)
     grads = torch.autograd.grad(loss, [p for _, p in params])
-    ref_loss = model.loss(ids, labels, reference=True)
+    ref_loss = loss_of(True)
     ref = torch.autograd.grad(ref_loss, [p for _, p in params])
     loss, ref_loss = loss.detach(), ref_loss.detach()
     dloss = abs(float(loss) - float(ref_loss))
     check(dloss <= O0_LOSS_TOL * abs(float(ref_loss)),
-          f"O0 loss kernels {float(loss)} vs plain {float(ref_loss)}")
+          f"{what} loss kernels {float(loss)} vs plain {float(ref_loss)}")
     worst = []
     for (name, _), g, r in zip(params, grads, ref):
         rel = ((g - r).norm() / r.norm().clamp_min(1e-30)).item()
         worst.append((rel, name))
-        check(rel <= O0_GRAD_TOL, f"O0 grad {name}: relative norm {rel}")
+        check(rel <= O0_GRAD_TOL, f"{what} grad {name}: relative norm {rel}")
     worst.sort(reverse=True)
     del grads, ref
     amp_model, opt = amp.initialize(model, FusedAdam(lr=LR), opt_level="O0",
                                     verbosity=0)
     amp_model.cast_params()
     state = opt.init(model.parameters())
-    step = amp.make_train_step(lambda m, i, l: m.loss(i, l), opt)
+    gen = torch.Generator().manual_seed(DROP_GEN_SEED)
+    kw = dict(deterministic=False, generator=gen) if dropout else {}
+    step = amp.make_train_step(lambda m, i, l: m.loss(i, l, **kw), opt)
     sstate = opt._scaler.state
     _, state, sstate, _ = step(model, state, sstate, ids, labels)
     torch.cuda.synchronize()
@@ -5432,10 +5883,11 @@ def run_o0_path(torch):
         losses.append(float(l_))
     launches = read_counters()
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
-          f"O0 losses {losses}")
-    for k, per in O0_PER_STEP.items():
+          f"{what} losses {losses}")
+    for k, per in (O0_DROP_PER_STEP if dropout else O0_PER_STEP).items():
         check(launches[k] == per * O0_STEPS,
-              f"O0 {k}: {launches[k]} launches, expected {per * O0_STEPS}")
+              f"{what} {k}: {launches[k]} launches, expected "
+              f"{per * O0_STEPS}")
     box = [state, sstate]
 
     def one():
@@ -5444,7 +5896,8 @@ def run_o0_path(torch):
     # one more step under torch.profiler: device time by kernel class
     trace_one = _profile(torch, one, 1)
     return dict(layers=O0_LAYERS, batch=O0_B, seq=O0_S, dtype="float32",
-                trace=trace_one,
+                attention_dropout=cfg.attention_dropout,
+                hidden_dropout=cfg.hidden_dropout, trace=trace_one,
                 loss_kernels=float(loss), loss_plain=float(ref_loss),
                 loss_abs_diff=dloss, worst_grad_rel_norm=worst[:5],
                 median_grad_rel_norm=float(np.median([w for w, _ in worst])),
@@ -5459,6 +5912,10 @@ O0_LONG_S, O0_LONG_B, O0_LONG_STEPS = 4096, 2, 2
 O0_LONG_PER_STEP = {**O0_PER_STEP, "flash_bwd_f32": 0,
                     "flash_bwd_f32_dkdv": O0_LAYERS,
                     "flash_bwd_f32_dq": O0_LAYERS}
+
+
+def run_o0_dropout_path(torch):
+    return run_o0_path(torch, dropout=True)
 
 
 def run_o0_long_path(torch):
@@ -5842,6 +6299,8 @@ _PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_kernel", "flash_dkdv_kernel",
                  "flash_dq_kernel", "flash_bwd_f32_kernel",
                  "flash_dkdv_f32_kernel", "flash_f32_prologue_kernel",
                  "flash_fwd_f32_kernel", "flash_dq_f32_kernel",
+                 "flash_fwd_f32_dropout_kernel",
+                 "flash_bwd_f32_dropout_kernel",
                  "flash_fwd_sm90", "flash_bwd_fused_sm90",
                  "flash_dkdv_sm90", "flash_dq_sm90",
                  "paged_decode_kernel",
@@ -6018,6 +6477,7 @@ def main() -> int:
                *check_flash_dropout(torch, timer),
                *check_flash_bias(torch, timer),
                *check_flash_f32(torch, timer, split=False),
+               *check_flash_f32_dropout(torch, timer),
                check_layer_norm_bwd(torch, timer),
                *check_lm_head_ce(torch, timer),
                *check_lm_head_ce_f32(torch, timer),
@@ -6222,7 +6682,11 @@ def main() -> int:
                        run_mha_dropout_path),
                       ("train-mha16-e1024h8-b1s3072-bias", run_mha16_path),
                       ("train-mha16-e1024h8-b1s3072-bias-dropout",
-                       run_mha16_dropout_path)):
+                       run_mha16_dropout_path),
+                      ("train-mha6-e1024h16-b28s128-bias-dropout",
+                       run_mha6_path),
+                      ("train-o0-dropout-gpt2-b8s1024",
+                       run_o0_dropout_path)):
         new_paths[path] = run(torch)
         log(f"{path} path ({card}): " + json.dumps(new_paths[path]))
         if "trace" in new_paths[path]:

@@ -30,9 +30,10 @@ gradient then agree within 1e-5 of the largest value.
 
 The CUDA wrappers, with the library stubbed (no card): the forward, dq and
 dk/dv entries each receive the bias pointer and strides and the seed,
-threshold and 1 / (1 - rate); only the three counters of the variants with
-both move; the bias's gradient is exactly zero; the single pass with both
-refuses before any call.
+threshold and 1 / (1 - rate); only the counters of the variants with
+both move; the bias's gradient is exactly zero; the single pass takes both
+(its variant with both, on its own counter), and the fp32 FFMA route still
+refuses the bias before any call.
 """
 
 import importlib
@@ -344,7 +345,8 @@ def _counts():
         dq_both=g.bias_dropout_dq_launches, dkdv_bias=g.bias_dkdv_launches,
         dq_bias=g.bias_dq_launches, dkdv_drop=g.dropout_dkdv_launches,
         dq_drop=g.dropout_dq_launches, single=g.launches,
-        single_bias=g.bias_launches, single_drop=g.dropout_launches)
+        single_bias=g.bias_launches, single_drop=g.dropout_launches,
+        single_both=g.bias_dropout_fused_launches)
 
 
 @pytest.mark.parametrize("d,s", [(64, 512), (128, 448)])
@@ -377,45 +379,60 @@ def test_cuda_wrappers_pass_the_bias_and_the_dropout_together(monkeypatch,
     moved = {k: v - n0[k] for k, v in _counts().items()}
     assert moved == dict(fwd_both=1, fwd_bias=0, fwd_drop=0, dkdv_both=1,
                          dq_both=1, dkdv_bias=0, dq_bias=0, dkdv_drop=0,
-                         dq_drop=0, single=0, single_bias=0, single_drop=0)
+                         dq_drop=0, single=0, single_bias=0, single_drop=0,
+                         single_both=0)
     assert bias.grad is not None and bias.grad.dtype == torch.bfloat16
     assert tuple(bias.grad.shape) == (1, h, s, s)
     assert torch.count_nonzero(bias.grad).item() == 0
 
 
 def test_the_single_pass_refuses_both_before_any_call(monkeypatch):
-    """s448 at d 64 with both stays under the gate (1.95 MB): a call that
-    wants gradients raises ``NotImplementedError`` naming the single pass
-    before the forward; without gradients the forward's variant with both
-    runs at any length; the backward forced onto the single pass, and the
-    single pass's wrapper called alone, refuse before any call too."""
+    """The single pass takes both now: s448 at d 64 with both stays under
+    the gate (1.95 MB), and through ``flash_attention`` the forward's and
+    the single pass's variants with both run, each handed the bias and the
+    dropout, on the counters of the variants with both alone; the backward
+    forced onto the single pass, and the single pass's wrapper called
+    alone, launch it too. The fp32 FFMA route still refuses the bias (with
+    dropout or without) before any call, grads wanted or not."""
     calls = _stub_library(monkeypatch)
     s, d = 448, 64
     assert not tfa.uses_split_backward(s, s, d, bias=True, dropout=True)
     q = torch.zeros(1, 2, s, d, dtype=torch.bfloat16, requires_grad=True)
     bias = torch.zeros(1, 1, s, s)
     kw = dict(bias=bias, dropout_rate=0.1, dropout_seed=3)
-    with pytest.raises(NotImplementedError,
-                       match="flash_bwd_fused_sm90") as err:
-        tfa.flash_attention(q, q, q, **kw)
-    assert "bias" in str(err.value) and calls == []
+    drop = tfa._dropout_args(0.1, 3)
     n0 = _counts()
-    with torch.no_grad():
-        tfa.flash_attention(q, q, q, **kw)
-    assert [c[1] for c in calls] == ["apex_flash_fwd_sm90"]
-    assert _counts()["fwd_both"] - n0["fwd_both"] == 1
+    tfa.flash_attention(q, q, q, **kw).float().sum().backward()
+    assert [c[1] for c in calls] == ["apex_flash_fwd_sm90",
+                                     "apex_flash_bwd_sm90_fused"]
+    for _, symbol, args in calls:
+        assert args[-7].value is not None and args[-4:-1] == drop, symbol
+    moved = {k: v - n0[k] for k, v in _counts().items()}
+    assert moved == dict(fwd_both=1, fwd_bias=0, fwd_drop=0, dkdv_both=0,
+                         dq_both=0, dkdv_bias=0, dq_bias=0, dkdv_drop=0,
+                         dq_drop=0, single=1, single_bias=0, single_drop=0,
+                         single_both=1)
     calls.clear()
     qs = torch.zeros(1, 2, 1024, d, dtype=torch.bfloat16)
     lse = torch.zeros(1, 2, 1024)
-    with pytest.raises(NotImplementedError, match="flash_bwd_fused_sm90"):
-        tfa._flash_bwd_cuda(qs, qs, qs, qs, lse, qs, None, None, True, 0.125,
-                            split=False, bias=torch.zeros(1, 1, 1024, 1024),
-                            dropout_rate=0.1, dropout_seed=3)
+    tfa._flash_bwd_cuda(qs, qs, qs, qs, lse, qs, None, None, True, 0.125,
+                        split=False, bias=torch.zeros(1, 1, 1024, 1024),
+                        dropout_rate=0.1, dropout_seed=3)
     bop = tfa._bias_operand(torch.zeros(1, 1, 1024, 1024), 1, 2, 1024, 1024,
                             qs.device)
-    with pytest.raises(NotImplementedError, match="flash_bwd_fused_sm90"):
-        tfa._flash_bwd_fused_cuda(qs, qs, qs, qs, lse, lse, None, None, True,
-                                  0.125, torch.zeros(qs.shape),
-                                  dropout=tfa._dropout_args(0.1, 3),
-                                  bias=bop)
+    tfa._flash_bwd_fused_cuda(qs, qs, qs, qs, lse, lse, None, None, True,
+                              0.125, torch.zeros(qs.shape), dropout=drop,
+                              bias=bop)
+    assert [c[1] for c in calls] == ["apex_flash_bwd_sm90_fused"] * 2
+    assert all(c[2][-4:-1] == drop and c[2][-7].value is not None
+               for c in calls)
+    assert _counts()["single_both"] - n0["single_both"] == 3
+    calls.clear()
+    q32 = torch.zeros(1, 2, s, d, requires_grad=True)
+    for extra in (dict(dropout_rate=0.1, dropout_seed=3), {}):
+        with pytest.raises(NotImplementedError, match="FFMA"):
+            tfa.flash_attention(q32, q32, q32, bias=bias, **extra)
+        with torch.no_grad(), pytest.raises(NotImplementedError,
+                                            match="FFMA"):
+            tfa.flash_attention(q32, q32, q32, bias=bias, **extra)
     assert calls == []

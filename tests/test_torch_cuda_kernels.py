@@ -74,12 +74,17 @@ a row that is -inf everywhere (out 0, lse -1e30, dq 0); bitwise on a rerun;
 its positions bitwise through one-hot rows (out is v permuted, dv is do
 permuted; through the split with v = e_0 and a zero output, dq, dk and dv
 are exact products and so bitwise); the refused routes raise before any
-launch, naming the route. The bias with dropout (the forward's and the
-split's variants with both) is held the same way against the plain
-versions with the same bias and seed, its keep pattern bitwise through the
-identity operands above under a bias finite everywhere and its positions
-through one-hot rows at rate 0.5 (the kept elements doubled, exactly); the
-single pass, which has no such variant, refuses before any launch.
+launch, naming the route. The bias with dropout (the variants with both
+of the forward, the single pass and the split) is held the same way
+against the plain versions with the same bias and seed, its keep pattern
+bitwise through the identity operands above under a bias finite
+everywhere and its positions through one-hot rows at rate 0.5 (the kept
+elements doubled, exactly). Attention dropout on the fp32 FFMA route (the
+forward's and the single pass's dropout variants) is held at the fp32
+limits against the plain versions with the same seed, bitwise on a rerun,
+its keep pattern the plain mask bit for bit (the forward: v the identity;
+the single pass: do the identity); the FFMA split refuses dropout before
+any launch.
 
 The fp8 dequant-matmul's prefill regime (m > 8, wgmma/TMA with the
 weight converted in registers, ``_prefill_plan``) is held like its decode
@@ -748,12 +753,21 @@ def test_flash_split_dropout_masks_are_the_plain_mask(gen, dtype, d, seed):
 
 def test_flash_dropout_refuses_the_unported_routes_on_the_card(gen):
     """Dropout on a route without it raises before any launch, naming the
-    route; so does a bias with dropout where gradients would take the
-    single pass. The split at s4096 takes it on the wgmma route."""
+    route: the fp32 FFMA route's split (its forward and single pass take
+    it), frag.cuh. The split at s4096 takes it on the wgmma route, and the
+    single pass takes a bias with dropout (its variant with both)."""
     q = _rand(gen, 1, 2, 64, 64)
-    with pytest.raises(NotImplementedError, match="FFMA"):
-        fa.flash_attention(q.float(), q.float(), q.float(),
-                           dropout_rate=0.1, dropout_seed=1)
+    f32 = q.float().requires_grad_()
+    g = fa.flash_attention_bwd
+    n0 = g.f32_dropout_launches
+    fa.flash_attention(f32, f32, f32, dropout_rate=0.1,
+                       dropout_seed=1).sum().backward()
+    torch.cuda.synchronize()
+    assert g.f32_dropout_launches == n0 + 1
+    long32 = _rand(gen, 1, 1, 4096, 64, dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="FFMA route's split"):
+        fa.flash_attention(long32.requires_grad_(), long32, long32,
+                           causal=True, dropout_rate=0.1, dropout_seed=1)
     q32 = _rand(gen, 1, 2, 64, 32)
     with pytest.raises(NotImplementedError, match="frag.cuh"):
         fa.flash_attention(q32, q32, q32, dropout_rate=0.1, dropout_seed=1)
@@ -767,10 +781,14 @@ def test_flash_dropout_refuses_the_unported_routes_on_the_card(gen):
                                                                 n0[1] + 1)
     assert bool(torch.isfinite(qs.grad).all())
     qg = q.detach().requires_grad_()
-    with pytest.raises(NotImplementedError, match="bias"):
-        fa.flash_attention(qg, qg, qg, bias=torch.zeros(1, 2, 64, 64,
-                                                        device="cuda"),
-                           dropout_rate=0.1, dropout_seed=1)
+    n0 = g.bias_dropout_fused_launches
+    fa.flash_attention(qg, qg, qg, bias=torch.zeros(1, 2, 64, 64,
+                                                    device="cuda"),
+                       dropout_rate=0.1,
+                       dropout_seed=1).float().sum().backward()
+    torch.cuda.synchronize()
+    assert g.bias_dropout_fused_launches == n0 + 1
+    assert bool(torch.isfinite(qg.grad).all())
 
 
 @pytest.mark.parametrize("dtype,d,sm90", [
@@ -2298,8 +2316,9 @@ def test_flash_bias_positions_are_bitwise(gen, d):
 def test_flash_bias_refuses_the_unported_routes_on_the_card(gen):
     """s640 d64 with a bias splits, and the split takes the bias, with
     dropout too (one launch each of the dk/dv and dq variants with both);
-    the single pass with both (s448 d64, under the gate) and the FFMA and
-    frag.cuh routes refuse it before any launch."""
+    the single pass takes both (s448 d64, under the gate: one launch of its
+    variant with both); the FFMA and frag.cuh routes refuse the bias before
+    any launch."""
     qs = _rand(gen, 1, 1, 640, 64).requires_grad_()
     bias = torch.zeros(1, 1, 640, 640, device="cuda")
     g = fa.flash_attention_bwd
@@ -2321,10 +2340,15 @@ def test_flash_bias_refuses_the_unported_routes_on_the_card(gen):
     assert counts() == (s0[0], s0[1] + 1, s0[2] + 1, s0[3] + 1, s0[4] + 1)
     assert bool(torch.isfinite(qs.grad).all())
     q448 = _rand(gen, 1, 1, 448, 64).requires_grad_()
-    with pytest.raises(NotImplementedError, match="flash_bwd_fused_sm90"):
-        fa.flash_attention(q448, q448, q448,
-                           bias=torch.zeros(1, 1, 448, 448, device="cuda"),
-                           dropout_rate=0.1, dropout_seed=5)
+    n1 = g.bias_dropout_fused_launches
+    fa.flash_attention(q448, q448, q448,
+                       bias=torch.zeros(1, 1, 448, 448, device="cuda"),
+                       dropout_rate=0.1,
+                       dropout_seed=5).float().sum().backward()
+    torch.cuda.synchronize()
+    assert g.bias_dropout_fused_launches == n1 + 1
+    assert counts() == (s0[0] + 1, s0[1] + 1, s0[2] + 1, s0[3] + 1,
+                        s0[4] + 1)
     q32 = _rand(gen, 1, 2, 64, 64, dtype=torch.float32)
     b64 = torch.zeros(1, 1, 64, 64, device="cuda")
     with pytest.raises(NotImplementedError, match="FFMA"):
@@ -2333,7 +2357,7 @@ def test_flash_bias_refuses_the_unported_routes_on_the_card(gen):
     with pytest.raises(NotImplementedError, match="frag.cuh"):
         fa.flash_attention(qd, qd, qd, bias=b64)
     torch.cuda.synchronize()
-    assert fa.flash_attention.launches == n0 + 2
+    assert fa.flash_attention.launches == n0 + 3
 
 
 # ---------------------------------------------------------------------------
@@ -2564,6 +2588,154 @@ def test_flash_bias_dropout_keep_pattern_and_positions_are_bitwise(
     assert torch.equal(dk, torch.zeros_like(k).scatter_(
         2, idx, (d0 * q.float() * scale).to(dtype)))
     assert torch.equal(dq, (d0 * k.float().gather(2, idx) * scale).to(dtype))
+
+
+# ---------------------------------------------------------------------------
+# the single pass with the bias and dropout (B2's variant with both), and
+# attention dropout on the fp32 FFMA route (B1's and B2's dropout variants)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,d,bdims,b,h,sq,sk,causal,seg,dead", [
+    (_BF, 64, (1, 1), 2, 4, 448, 448, False, False, 7),   # unmasked tiles
+    (_F16, 64, (1, 4), 2, 4, 300, 700, True, False, None),
+    (_BF, 128, (2, 1), 2, 4, 257, 513, False, True, None),
+    (_F16, 128, (2, 4), 2, 4, 384, 333, False, False, 100),
+    (_BF, 64, (3, 2), 3, 2, 128, 129, True, True, None),
+    (_F16, 128, (1, 1), 1, 8, 1024, 1024, True, False, 3),
+    (_BF, 80, (1, 1), 1, 2, 96, 77, False, False, 0),     # padded head dim
+])
+def test_flash_single_pass_bias_dropout_matches_plain(gen, dtype, d, bdims,
+                                                      b, h, sq, sk, causal,
+                                                      seg, dead):
+    """The single pass's variant with both (forced: the gate splits some
+    of these shapes) with a bias and dropout 0.1 against the plain
+    backward with the same bias and seed; dq, dk and dv bitwise on a rerun
+    (dq through the ordered turns); a dead row's dq exactly 0; the counter
+    of the single pass with both alone moves."""
+    q, k, v, do, bias, sid_q, sid_kv = _bias_inputs(
+        gen, dtype, d, bdims, b, h, sq, sk, seg, dead)
+    scale, seed = d ** -0.5, 4321
+    drop = dict(dropout_rate=0.1, dropout_seed=seed)
+    g = fa.flash_attention_bwd
+    out, lse = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal, scale,
+                                      bias=bias, **drop)
+
+    def counts():
+        return (g.bias_dropout_fused_launches, g.bias_launches,
+                g.dropout_launches, g.bias_dropout_dkdv_launches,
+                g.bias_dropout_dq_launches, g.launches)
+
+    n0 = counts()
+    grads = fa._flash_bwd_cuda(q, k, v, out, lse, do, sid_q, sid_kv, causal,
+                               scale, split=False, bias=bias, **drop)
+    again = fa._flash_bwd_cuda(q, k, v, out, lse, do, sid_q, sid_kv, causal,
+                               scale, split=False, bias=bias, **drop)
+    torch.cuda.synchronize()
+    assert tuple(a - b_ for a, b_ in zip(counts(), n0)) == (2, 0, 0, 0, 0,
+                                                            2)
+    assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+    ref = fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, do, causal=causal, segment_ids_q=sid_q,
+        segment_ids_kv=sid_kv, scale=scale, bias=bias, **drop)
+    for name, got, r in zip(("dq", "dk", "dv"), grads, ref):
+        assert got.dtype == dtype and bool(torch.isfinite(got.float()).all())
+        _close_grad(got, r, name)
+    if dead is not None:
+        assert float(grads[0][:, :, dead].abs().max()) == 0.0
+
+
+_F32_DROPOUT_CASES = [
+    (2, 3, 65, 65, 64, True, True, 0.1, 1234),
+    (1, 2, 300, 129, 128, True, False, 0.3, -7),
+    (1, 2, 129, 300, 64, False, True, 0.5, 2 ** 31 - 1),
+    (2, 2, 1000, 1003, 64, True, True, 0.1, 0),
+    (1, 2, 257, 257, 80, False, False, 0.2, 99),          # d 80 -> 128
+    (1, 2, 300, 90, 128, True, True, 0.9, -2 ** 31),      # rows with no key
+]
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,seg,rate,seed",
+                         _F32_DROPOUT_CASES)
+def test_flash_f32_dropout_route_matches_plain(gen, b, h, sq, sk, d, causal,
+                                               seg, rate, seed):
+    """fp32 with dropout on the FFMA route: the forward's and the single
+    pass's dropout variants against the plain versions with the same seed
+    (out 1e-5 of the largest, lse 1e-5 relative, gradients 1e-4); out,
+    lse, dq, dk and dv bitwise on a rerun, another seed another output,
+    padding rows' dq exactly zero; their dropout counters move, and the
+    FFMA counters without them as often."""
+    f32 = torch.float32
+    q, do = _rand(gen, b, h, sq, d, dtype=f32), _rand(gen, b, h, sq, d,
+                                                      dtype=f32)
+    k, v = _rand(gen, b, h, sk, d, dtype=f32), _rand(gen, b, h, sk, d,
+                                                     dtype=f32)
+    sid_q = _f32_seg(b, sq, min(20, sq // 4)) if seg else None
+    sid_kv = _f32_seg(b, sk, 0) if seg else None
+    drop = dict(dropout_rate=rate, dropout_seed=seed)
+    f, g = fa.flash_attention, fa.flash_attention_bwd
+
+    def counts():
+        return (f.f32_dropout_launches, f.f32_launches,
+                g.f32_dropout_launches, g.f32_launches, g.dropout_launches)
+
+    n0 = counts()
+    out, lse = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal, **drop)
+    again = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal, **drop)
+    other = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal,
+                                   dropout_rate=rate, dropout_seed=seed ^ 1)
+    grads = fa._flash_bwd_cuda(q, k, v, out, lse, do, sid_q, sid_kv, causal,
+                               d ** -0.5, split=False, **drop)
+    grads2 = fa._flash_bwd_cuda(q, k, v, out, lse, do, sid_q, sid_kv, causal,
+                                d ** -0.5, split=False, **drop)
+    torch.cuda.synchronize()
+    assert tuple(a - b_ for a, b_ in zip(counts(), n0)) == (3, 3, 2, 2, 0)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    assert not torch.equal(out, other[0])
+    assert all(torch.equal(a, b_) for a, b_ in zip(grads, grads2))
+    kw = dict(causal=causal, segment_ids_q=sid_q, segment_ids_kv=sid_kv,
+              **drop)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
+    _close_fp32(out, ref, 1e-5)
+    live = ref_lse > -1e29
+    if bool(live.any()):
+        rel = (lse - ref_lse).abs() / ref_lse.abs().clamp_min(1.0)
+        assert float(rel[live].max()) <= 1e-5
+    ref_grads = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                                 **kw)
+    for got, r in zip(grads, ref_grads):
+        assert got.dtype == f32
+        _close_fp32(got, r)
+    if seg:
+        assert not bool(grads[0][(sid_q < 0)[:, None, :].expand(b, h,
+                                                                 sq)].any())
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("seed", [5, -3])
+def test_flash_f32_dropout_keep_pattern_is_the_plain_mask(gen, d, seed):
+    """Rate 0.5 on the FFMA route, no mask. The forward with q = k = 0 and
+    v = I over sk = d keys: out[q, k] is 2 / d where the key is kept and
+    exactly 0 where it is dropped. The single pass with q = 0 (p = 1 / s
+    everywhere) and do = I over sq = d rows: dv = the dropped p
+    transposed. Both zero patterns are the plain mask bit for bit."""
+    f32, b, h, s = torch.float32, 2, 3, 333
+    eye = torch.eye(d, device="cuda").expand(b, h, d, d).contiguous()
+    q = torch.zeros(b, h, s, d, device="cuda")
+    k = torch.zeros(b, h, d, d, device="cuda")
+    out, _ = fa.flash_attention_fwd(q, k, eye, None, None, False, 1.0, 0.5,
+                                    seed)
+    keep = fa.dropout_keep_reference(seed, b, h, s, d, 0.5, device="cuda")
+    assert torch.equal(out != 0, keep)
+    assert torch.equal(out[keep], torch.full_like(out[keep], 2.0 / d))
+    k, v = (_rand(gen, b, h, s, d, dtype=f32) for _ in range(2))
+    q = torch.zeros(b, h, d, d, device="cuda")
+    out, lse = fa.flash_attention_fwd(q, k, v, None, None, False, 1.0, 0.5,
+                                      seed)
+    _, _, dv = fa._flash_bwd_cuda(q, k, v, out, lse, eye, None, None, False,
+                                  1.0, split=False, dropout_rate=0.5,
+                                  dropout_seed=seed)
+    keep = fa.dropout_keep_reference(seed, b, h, d, s, 0.5, device="cuda")
+    assert torch.equal(dv != 0, keep.transpose(-1, -2))
 
 
 def test_multihead_attn_modules_run_the_bias_kernels(gen):

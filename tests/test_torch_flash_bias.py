@@ -263,9 +263,9 @@ def test_bias_refusal_names_each_refused_route():
     """The wgmma route takes the bias in the single pass and the split
     alike: the route a bias shape takes (s640 d64 splits) is not refused.
     With dropout too it takes the bias where the backward splits (the gate
-    counts 512-row blocks with both: s512 at d 64, s448 at d 128), and the
-    single pass (s448 at d 64) refuses it, naming itself; the FFMA route
-    and the frag.cuh kernels refuse the bias."""
+    counts 512-row blocks with both: s512 at d 64, s448 at d 128), and in
+    the single pass (s448 at d 64); the FFMA route and the frag.cuh
+    kernels refuse the bias."""
     bf, f32 = torch.bfloat16, torch.float32
     assert tfa.bias_refusal(bf, 64) is None
     assert tfa.bias_refusal(torch.float16, 128) is None
@@ -275,9 +275,7 @@ def test_bias_refusal_names_each_refused_route():
         q = torch.zeros(1, 1, s, d, dtype=bf)
         assert tfa._bwd_route(q, q, q, False, 0.1, bias=True) == (True, bf)
     q = torch.zeros(1, 1, 448, 64, dtype=bf)
-    with pytest.raises(NotImplementedError,
-                       match="single-pass backward .flash_bwd_fused_sm90"):
-        tfa._bwd_route(q, q, q, False, 0.1, bias=True)
+    assert tfa._bwd_route(q, q, q, False, 0.1, bias=True) == (False, bf)
     assert "FFMA" in tfa.bias_refusal(f32, 64)
     assert "frag.cuh" in tfa.bias_refusal(bf, 32)
     assert "frag.cuh" in tfa.bias_refusal(f32, 256)
@@ -353,11 +351,11 @@ def test_bias_operand_is_cast_without_expanding_a_broadcast_dim():
 
 
 @pytest.mark.parametrize("make,match", [
-    # with dropout the gate keeps s448 d64 on the single pass, which has no
-    # variant with both (s512 and past split and launch: the test below)
-    (lambda: (torch.zeros(1, 1, 448, 64, dtype=torch.bfloat16),
+    # with dropout too (which the FFMA route's single pass and forward
+    # take), the bias is refused by name, the dropout named beside it
+    (lambda: (torch.zeros(1, 1, 448, 64),
               dict(dropout_rate=0.1, dropout_seed=1)), "dropout"),
-    (lambda: (torch.zeros(1, 1, 64, 64, dtype=torch.bfloat16),
+    (lambda: (torch.zeros(1, 1, 64, 32, dtype=torch.bfloat16),
               dict(dropout_rate=0.1, dropout_seed=1)), "dropout"),
     (lambda: (torch.zeros(1, 1, 64, 64), {}), "FFMA"),
     (lambda: (torch.zeros(1, 1, 64, 32, dtype=torch.bfloat16), {}),
@@ -367,7 +365,8 @@ def test_cuda_bias_refusals_raise_before_any_launch(monkeypatch, make,
                                                     match):
     """Each refused route raises ``NotImplementedError`` naming it, before
     the forward, whenever grads are needed (the device check answers
-    CUDA; the library is stubbed, and no call reaches it)."""
+    CUDA; the library is stubbed, and no call reaches it); with dropout
+    too, the forward alone refuses as well."""
     calls = _stub_library(monkeypatch)
     monkeypatch.setattr(tfa, "check_device_type", lambda t, what: "cuda")
     q, kw = make()
@@ -376,8 +375,13 @@ def test_cuda_bias_refusals_raise_before_any_launch(monkeypatch, make,
     with pytest.raises(NotImplementedError, match=match) as err:
         tfa.flash_attention(q, q, q, bias=bias, **kw)
     assert "bias" in str(err.value) and calls == []
-    if kw:      # the single pass names itself
-        assert "flash_bwd_fused_sm90" in str(err.value)
+    if kw:      # the refused route names itself, without grads too
+        assert ("FFMA" if q.dtype == torch.float32 else "frag.cuh") in \
+            str(err.value)
+        with torch.no_grad(), pytest.raises(NotImplementedError,
+                                            match="bias with attention"):
+            tfa.flash_attention(q, q, q, bias=bias, **kw)
+        assert calls == []
 
 
 def test_cuda_bias_with_dropout_at_s640_launches_the_split(monkeypatch):

@@ -229,11 +229,14 @@ def test_validation_errors_match_jax(kw, match):
 ])
 def test_dropout_route_predicate_names_each_unported_route(dtype, kd, split,
                                                            route):
-    """The route takes dropout or not by dtype and head dim alone: the
-    backward's route agrees at a shape that splits (s4096) and one that
-    does not (s64)."""
-    refused = tfa.dropout_refusal(dtype, kd)
-    if route is None:
+    """The route (None: the wgmma route) takes dropout or not by dtype and
+    head dim, and on the fp32 FFMA route by whether the backward splits:
+    its forward and single pass take dropout, its split refuses it, naming
+    the route. The backward's route agrees at a shape that splits (s4096)
+    and one that does not (s64)."""
+    refused = tfa.dropout_refusal(dtype, kd, split=split)
+    takes = route is None or (route == "FFMA" and not split)
+    if takes:
         assert refused is None
     else:
         assert route in refused
@@ -242,7 +245,7 @@ def test_dropout_route_predicate_names_each_unported_route(dtype, kd, split,
     assert tfa.uses_split_backward(s, s, kd, q.element_size(),
                                    q.element_size(), True,
                                    dropout=True) == split
-    if route is None:
+    if takes:
         assert tfa._bwd_route(q, q, q, True, 0.1) == (split, dtype)
     else:
         with pytest.raises(NotImplementedError, match=route):
@@ -281,18 +284,19 @@ def test_cuda_wrappers_refuse_unported_routes_before_any_launch(
         monkeypatch):
     """The kernel wrappers raise ``NotImplementedError`` naming the route
     before they reach the card (CPU tensors reach the check and stop
-    there): fp32 forward and backward (FFMA), bf16 at d 32 (frag.cuh);
-    the split backward at s4096 takes the wgmma split, dq (with the delta
+    there): the fp32 FFMA route's split, the fp32 forward over a bf16 v
+    (frag.cuh, which rounds p to v's dtype), bf16 at d 32 (frag.cuh); the
+    split backward at s4096 takes the wgmma split, dq (with the delta
     fold) then dk/dv, each with the dropout's seed, threshold and 1 / (1 -
     rate) and counted on its dropout counter."""
     q = torch.zeros(1, 2, 16, 64)
-    with pytest.raises(NotImplementedError, match="FFMA"):
-        tfa._flash_fwd_cuda(q, q, q, None, None, True, 0.125,
+    with pytest.raises(NotImplementedError, match="frag.cuh"):
+        tfa._flash_fwd_cuda(q, q, q.bfloat16(), None, None, True, 0.125,
                             dropout_rate=0.1, dropout_seed=1)
     lse = torch.zeros(1, 2, 16)
-    with pytest.raises(NotImplementedError, match="FFMA"):
+    with pytest.raises(NotImplementedError, match="FFMA route's split"):
         tfa._flash_bwd_cuda(q, q, q, q, lse, q, None, None, True, 0.125,
-                            dropout_rate=0.1, dropout_seed=1)
+                            split=True, dropout_rate=0.1, dropout_seed=1)
     q32 = torch.zeros(1, 2, 16, 32, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="frag.cuh"):
         tfa._flash_fwd_cuda(q32, q32, q32, None, None, True, 0.125,
@@ -325,8 +329,8 @@ def test_backward_route_is_decided_once_for_the_wrapper_and_the_kernels():
     """``_bwd_route`` is what ``flash_attention`` checks before the forward
     and what ``_flash_bwd_cuda`` routes by: the single pass in bf16 at the
     train shape, the split at s4096 with dropout as without, and mixed
-    operands promoted to fp32 (the FFMA route, refused) whatever ``do``
-    is."""
+    operands promoted to fp32 (which round p or ds: the frag.cuh kernels,
+    refused) whatever ``do`` is."""
     q = torch.zeros(8, 16, 1024, 64, dtype=torch.bfloat16)
     assert tfa._bwd_route(q, q, q, True, 0.1) == (False, torch.bfloat16)
     assert tfa._bwd_route(q, q, q, True, 0.1, q) == (False, torch.bfloat16)
@@ -335,7 +339,7 @@ def test_backward_route_is_decided_once_for_the_wrapper_and_the_kernels():
     assert tfa._bwd_route(qs, qs, qs, True, 0.1) == (True, torch.bfloat16)
     k32 = torch.zeros(8, 16, 1024, 64)
     for do in (None, q, k32):
-        with pytest.raises(NotImplementedError, match="FFMA"):
+        with pytest.raises(NotImplementedError, match="frag.cuh"):
             tfa._bwd_route(q, k32, q, True, 0.1, do)
 
 
