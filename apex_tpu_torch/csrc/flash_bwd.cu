@@ -816,7 +816,8 @@ int f32_dispatch(const void* q, const void* k, const void* v,
                  const void* sid_q, const void* sid_kv, void* ws,
                  void* dq_acc, void* turns, void* dk, void* dv, int b, int h,
                  int sq, int sk, int d, int causal, float scale,
-                 const fa32::Dropout& dr, void* stream) {
+                 const fa32::Bias& bs, const fa32::Dropout& dr,
+                 void* stream) {
   if (b <= 0 || h <= 0 || sq < 0) return cudaSuccess;
   if (sk <= 0)   // no key: dq is zero (dk and dv are empty)
     return WITH_DQ && sq > 0
@@ -845,11 +846,18 @@ int f32_dispatch(const void* q, const void* k, const void* v,
   float* wf = static_cast<float*>(ws);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return fa32::launch<64, WITH_DQ>(qf, df, of, wf, p, dr, b, st);
+    case 64:
+      return fa32::launch<64, WITH_DQ>(qf, df, of, wf, p, dr, bs, b, st);
     case 128:
-      return fa32::launch<128, WITH_DQ>(qf, df, of, wf, p, dr, b, st);
+      return fa32::launch<128, WITH_DQ>(qf, df, of, wf, p, dr, bs, b, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// the C entries' bias: null, or fp32 with its strides (1 / scale for the
+// kernels' accumulators)
+fa32::Bias f32_bias(const void* bias, long sb, long sh, float scale) {
+  return fa32::Bias{static_cast<const float*>(bias), sb, sh, 1.f / scale};
 }
 
 }  // namespace
@@ -866,11 +874,15 @@ int f32_dispatch(const void* q, const void* k, const void* v,
 // key blocks that reach a query tile add into it in a fixed order, the
 // first storing) and turns, b * h * ceil(sq / 64) int32, ZEROED by the
 // caller;
-// dk, dv [b,h,sk,d] (every element written). The single pass takes
-// attention dropout as the wgmma entries do: `seed`, `threshold` (0: none,
-// the kernel without dropout) and `inv` = 1 / (1 - rate); delta (folded or
-// given) is then rowsum(dout * out) of the dropped output. Each returns the
-// first failing launch's cudaError_t.
+// dk, dv [b,h,sk,d] (every element written). Each entry takes the bias
+// and attention dropout as the wgmma entries do: `bias` fp32 with its last
+// two dims [sq, sk] contiguous and a 16-byte aligned base, `bias_sb` and
+// `bias_sh` its batch and head strides in elements (0 for a broadcast dim),
+// or null (no bias); `seed`, `threshold` (0: none) and `inv` = 1 / (1 -
+// rate), and delta (folded or given) is then rowsum(dout * out) of the
+// dropped output. A bias with a threshold above 0 returns
+// cudaErrorInvalidValue (no variant with both yet). Each returns the first
+// failing launch's cudaError_t.
 extern "C" int apex_flash_bwd_f32(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* out, const void* lse,
@@ -879,20 +891,23 @@ extern "C" int apex_flash_bwd_f32(const void* q, const void* k,
                                   void* ws, void* dq_acc, void* turns,
                                   void* dk, void* dv, int b, int h, int sq,
                                   int sk, int d, int causal, float scale,
-                                  unsigned int seed, unsigned int threshold,
-                                  float inv, void* stream) {
+                                  const void* bias, long bias_sb,
+                                  long bias_sh, unsigned int seed,
+                                  unsigned int threshold, float inv,
+                                  void* stream) {
 #if APEX_HAS_DTYPE(2)
   return f32_dispatch<true>(q, k, v, dout, out, lse, delta, sid_q, sid_kv,
                             ws, dq_acc, turns, dk, dv, b, h, sq, sk, d,
                             causal, scale,
+                            f32_bias(bias, bias_sb, bias_sh, scale),
                             fa32::Dropout{seed, threshold, inv}, stream);
 #else
   return cudaErrorInvalidValue;
 #endif
 }
 
-// The split's dk/dv half on the same route: dk, dv [b,h,sk,d]; no
-// dropout (the split's dropout variants are not written yet).
+// The split's dk/dv half on the same route: dk, dv [b,h,sk,d]; the bias
+// and the dropout as above.
 extern "C" int apex_flash_bwd_f32_dkdv(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* out, const void* lse,
@@ -901,12 +916,17 @@ extern "C" int apex_flash_bwd_f32_dkdv(const void* q, const void* k,
                                        const void* sid_kv, void* ws,
                                        void* dk, void* dv, int b, int h,
                                        int sq, int sk, int d, int causal,
-                                       float scale, void* stream) {
+                                       float scale, const void* bias,
+                                       long bias_sb, long bias_sh,
+                                       unsigned int seed,
+                                       unsigned int threshold, float inv,
+                                       void* stream) {
 #if APEX_HAS_DTYPE(2)
   return f32_dispatch<false>(q, k, v, dout, out, lse, delta, sid_q,
                              sid_kv, ws, nullptr, nullptr, dk, dv, b, h, sq,
-                             sk, d, causal, scale, fa32::Dropout{0, 0, 1.f},
-                             stream);
+                             sk, d, causal, scale,
+                             f32_bias(bias, bias_sb, bias_sh, scale),
+                             fa32::Dropout{seed, threshold, inv}, stream);
 #else
   return cudaErrorInvalidValue;
 #endif
@@ -916,14 +936,19 @@ extern "C" int apex_flash_bwd_f32_dkdv(const void* q, const void* k,
 // element written, times scale); delta read (the dk/dv call's fold wrote
 // it); ws as above: with `transposed` non-zero it already holds q and dout
 // transposed (the dk/dv call's prologue, on the same q and dout), else
-// this call's prologue writes them first.
+// this call's prologue writes them first; the bias and the dropout as
+// above.
 extern "C" int apex_flash_bwd_f32_dq(const void* q, const void* k,
                                      const void* v, const void* dout,
                                      const void* lse, const void* delta,
                                      const void* sid_q, const void* sid_kv,
                                      void* ws, int transposed, void* dq,
                                      int b, int h, int sq, int sk, int d,
-                                     int causal, float scale, void* stream) {
+                                     int causal, float scale,
+                                     const void* bias, long bias_sb,
+                                     long bias_sh, unsigned int seed,
+                                     unsigned int threshold, float inv,
+                                     void* stream) {
 #if APEX_HAS_DTYPE(2)
   if (b <= 0 || h <= 0 || sq <= 0) return cudaSuccess;
   fa32::Params p{};
@@ -943,12 +968,15 @@ extern "C" int apex_flash_bwd_f32_dq(const void* q, const void* k,
   float* wf = static_cast<float*>(ws);
   float* out = static_cast<float*>(dq);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const fa32::Dropout dr{seed, threshold, inv};
+  const fa32::Bias bs = f32_bias(bias, bias_sb, bias_sh, scale);
   switch (d) {
     case 64:
-      return fa32::launch_dq<64>(qf, df, wf, transposed != 0, p, out, b, st);
+      return fa32::launch_dq<64>(qf, df, wf, transposed != 0, p, out, dr, bs,
+                                 b, st);
     case 128:
-      return fa32::launch_dq<128>(qf, df, wf, transposed != 0, p, out, b,
-                                  st);
+      return fa32::launch_dq<128>(qf, df, wf, transposed != 0, p, out, dr,
+                                  bs, b, st);
     default: return cudaErrorInvalidValue;
   }
 #else

@@ -72,19 +72,46 @@
 // (d 64) ahead of block j. The dk/dv kernel runs its rounds in order (the
 // longest causal walks first) and keeps nothing beyond its own keys.
 //
-// Attention dropout (`_p_dp_ds`, :526-555), in the single pass: a variant
-// of it, flash_bwd_f32_dropout_kernel (chosen by the C entry when the keep
-// threshold is not 0; the kernels without dropout keep their parameters and
-// their code), regenerates the forward's keep bit of each (query row, key)
-// element from dropout_hash.cuh at their global positions, takes dp = keep
-// ? dp / (1 - rate) : 0 before ds = p (dp - delta) with the undropped p,
-// and stores the dropped p (0, or p / (1 - rate)) as P for the dV product.
-// delta is rowsum(do * out) of the dropped output, as the prologue folds it
-// from that output. The hash's (seed, batch, head) term is computed once a
-// block and xored with a lane's four query rows' terms once a tile; an
-// element costs its key's term, one xor and one fmix32. The split's dk/dv
-// (flash_dkdv_f32_kernel) and dq (flash_dq_f32_kernel) have no such
-// variant: the C entries of the split take no dropout.
+// Attention dropout (`_p_dp_ds`, :526-555): a variant of each kernel, the
+// single pass's flash_bwd_f32_dropout_kernel and the split's
+// flash_dkdv_f32_dropout_kernel and flash_dq_f32_dropout_kernel (chosen by
+// the C entries when the keep threshold is not 0; the kernels without
+// dropout keep their parameters and their code), regenerates the forward's
+// keep bit of each (query row, key) element from dropout_hash.cuh at their
+// global positions, takes dp = keep ? dp / (1 - rate) : 0 before ds = p (dp
+// - delta) with the undropped p, and (the key-side kernels) stores the
+// dropped p (0, or p / (1 - rate)) as P for the dV product. delta is
+// rowsum(do * out) of the dropped output, as the prologue folds it from
+// that output. The hash's (seed, batch, head) term is computed once a block
+// and xored with the query rows' terms (the key side: a lane's four, once a
+// tile; dq: a lane's rows, once a block); an element costs its key's term,
+// one xor and one fmix32.
+//
+// The additive bias (`_recompute_p`, :500, in each backward kernel): a
+// variant of each kernel, flash_bwd_f32_bias_kernel, flash_dkdv_f32_bias_
+// kernel and flash_dq_f32_bias_kernel (chosen by the C entries when the
+// bias pointer is not null; a bias with dropout is refused), with the bias's
+// fields in a parameter struct of its own (Bias: fp32 [b|1, h|1, sq, sk],
+// the last two dims contiguous, batch and head strides 0 for a broadcast
+// dim). Before a tile's S (S^T) product each lane loads its own elements
+// of the tile's bias, times 1 / scale, into the S accumulators, which the
+// product then adds to: s * scale is the biased score of the Pallas
+// kernels up to one rounding, rounded (`__fmul_rn`) before lse is taken
+// off, as the forward rounds it. The key-side kernels issue the loads
+// before the tile's barrier, so they fly while the block waits; dq issues
+// them after it (before the barrier they held S's registers across the
+// ring's copies, and dq spilled at d 64). They take no register beyond
+// S's (shared memory is full: no staged bias tile fits beside the
+// key-side kernels' 198.5 KB or dq's 202 KB). A key-side lane's keys come
+// in runs of 4 along a query row (one float4 where sk % 4 == 0, else four
+// scalar loads, chosen once a call); dq's lane reads its strided keys one
+// by one. Keys past sk read as 0 and rows past sq as the last row (both
+// masked). A -inf bias gives p = exp(-inf) = 0 exactly. A finite bias
+// takes one more rounding than the Pallas kernel's (bias / scale, then the
+// sum times scale): at the -1e30 fill itself that is exact at a scale of a
+// power of 2 (head dim 64) and one ulp above at head dim 128's, so a row
+// whose bias is the fill on every key stays live, as in the plain version
+// (ROADMAP §C).
 
 #pragma once
 
@@ -137,11 +164,19 @@ struct Params {
   float scale;
 };
 
-// the dropout variant's own parameters: the seed, the keep threshold and
+// the dropout variants' own parameters: the seed, the keep threshold and
 // 1 / (1 - rate) (the kernels without dropout take Params alone)
 struct Dropout {
   uint32_t seed, threshold;
   float inv;
+};
+
+// the bias variants' own parameters: the fp32 bias, its batch and head
+// strides in elements (0 for a broadcast dim) and 1 / scale
+struct Bias {
+  const float* bias;
+  long sb, sh;
+  float inv_scale;
 };
 
 // element (query, key) of a [BQ][BN] tile: 16-byte granules XOR-swizzled
@@ -203,9 +238,9 @@ __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-template <int D, bool WITH_DQ, bool DROP>
+template <int D, bool WITH_DQ, bool DROP, bool BIAS>
 __device__ __forceinline__ void kv_block(float* smem, const Params& p,
-                                         const Dropout& dr) {
+                                         const Dropout& dr, const Bias& bs) {
   using C = Cfg<D>;
   constexpr int BN = C::BN, SK = C::SK, GC = C::GC, LDK = C::LDK;
   constexpr int THREADS = C::THREADS;
@@ -287,11 +322,46 @@ __device__ __forceinline__ void kv_block(float* smem, const Params& p,
     for (int c = 0; c < GC; ++c) dka[i][c] = dva[i][c] = 0.f;
   int* passed = nullptr;   // thread 0: the turn its last reduction holds
 
+  // the bias variant: the (batch, head)'s [sq, sk] slice; the tile's bias /
+  // scale into S^T's accumulators (element [i][jq]: key n0 + kw + 16 (i /
+  // 4) + i % 4, query q0 + qw + jq; a run of 4 keys one float4 where sk %
+  // 4 == 0, else four loads; keys past sk read as 0, rows past sq as the
+  // last: both masked)
+  const float* bias_bh = nullptr;
+  if constexpr (BIAS)
+    bias_bh = bs.bias + (long)bi * bs.sb + (bh - (long)bi * p.h) * bs.sh;
+  auto bias_into = [&](float (&s_)[SK][4], int q0_) {
+    const bool vec = (sk & 3) == 0;
+#pragma unroll
+    for (int jq = 0; jq < 4; ++jq) {
+      const float* row = bias_bh + (long)min(q0_ + qw + jq, sq - 1) * sk;
+#pragma unroll
+      for (int g = 0; g < SK / 4; ++g) {
+        const int key = n0 + kw + 16 * g;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (vec) {
+          if (key < sk) v = __ldg(reinterpret_cast<const float4*>(row + key));
+        } else {
+          if (key < sk) v.x = __ldg(row + key);
+          if (key + 1 < sk) v.y = __ldg(row + key + 1);
+          if (key + 2 < sk) v.z = __ldg(row + key + 2);
+          if (key + 3 < sk) v.w = __ldg(row + key + 3);
+        }
+        s_[4 * g][jq] = v.x * bs.inv_scale;
+        s_[4 * g + 1][jq] = v.y * bs.inv_scale;
+        s_[4 * g + 2][jq] = v.z * bs.inv_scale;
+        s_[4 * g + 3][jq] = v.w * bs.inv_scale;
+      }
+    }
+  };
+
   for (int qt = qt0; qt < n_qt; ++qt) {
     const int q0 = qt * BQ;
     const int stage = C::STAGES == 2 ? (qt - qt0) & 1 : 0;
     const float* sQt = sQ0 + stage * 2 * C::QT;
     const float* sDOt = sQt + C::QT;
+    float s[SK][4], dp[SK][4];
+    if constexpr (BIAS) bias_into(s, q0);   // in flight over the barrier
     simt::wait_groups<0>();
     if (WITH_DQ && tid == 0) bulk_wait_read();   // sDQ is free again
     __syncthreads();   // the tile is in; every thread is done with the last
@@ -315,12 +385,17 @@ __device__ __forceinline__ void kv_block(float* smem, const Params& p,
                  dropout::q_term(qr);
     }
 
-    // ---- S^T = K Q^T and dP^T = V dO^T over d
-    float s[SK][4], dp[SK][4];
+    // ---- S^T = K Q^T and dP^T = V dO^T over d (the bias variant's S^T
+    // adds to the bias / scale)
 #pragma unroll
     for (int i = 0; i < SK; ++i)
 #pragma unroll
-      for (int jq = 0; jq < 4; ++jq) s[i][jq] = dp[i][jq] = 0.f;
+      for (int jq = 0; jq < 4; ++jq) {
+        if constexpr (BIAS)
+          dp[i][jq] = 0.f;
+        else
+          s[i][jq] = dp[i][jq] = 0.f;
+      }
 #pragma unroll
     for (int kk = 0; kk < D; ++kk) {
       float ak[SK], av[SK];
@@ -360,7 +435,14 @@ __device__ __forceinline__ void kv_block(float* smem, const Params& p,
         const int kl = kw + 16 * (i / 4) + i % 4, key = n0 + kl;
         bool ok = qr < sq && key < sk && (!p.causal || key <= qr + off);
         if (seg) ok = ok && sid_r[jq] >= 0 && sid_r[jq] == sSidK[kl];
-        const float pv = ok ? __expf(s[i][jq] * p.scale - lse_r[jq]) : 0.f;
+        // the bias variant rounds s * scale before lse is taken off, as
+        // the forward's score is rounded (a huge biased score, the -1e30
+        // fill, would otherwise keep its product's rounding error)
+        float pv;
+        if constexpr (BIAS)
+          pv = ok ? __expf(__fmul_rn(s[i][jq], p.scale) - lse_r[jq]) : 0.f;
+        else
+          pv = ok ? __expf(s[i][jq] * p.scale - lse_r[jq]) : 0.f;
         if constexpr (DROP) {   // dV takes p dropped, ds p undropped
           const bool kept = dropout::keep(hq[jq] ^ dropout::k_term(key),
                                           dr.threshold);
@@ -579,31 +661,66 @@ template <int D>
 __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
 flash_bwd_f32_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
-  kv_block<D, true, false>(smem, p, Dropout{});
+  kv_block<D, true, false, false>(smem, p, Dropout{}, Bias{});
 }
 
 template <int D>
 __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
 flash_bwd_f32_dropout_kernel(const Params p, const Dropout dr) {
   extern __shared__ __align__(16) float smem[];
-  kv_block<D, true, true>(smem, p, dr);
+  kv_block<D, true, true, false>(smem, p, dr, Bias{});
+}
+
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
+flash_bwd_f32_bias_kernel(const Params p, const Bias bs) {
+  extern __shared__ __align__(16) float smem[];
+  kv_block<D, true, false, true>(smem, p, Dropout{}, bs);
 }
 
 template <int D>
 __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
 flash_dkdv_f32_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
-  kv_block<D, false, false>(smem, p, Dropout{});
+  kv_block<D, false, false, false>(smem, p, Dropout{}, Bias{});
+}
+
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
+flash_dkdv_f32_dropout_kernel(const Params p, const Dropout dr) {
+  extern __shared__ __align__(16) float smem[];
+  kv_block<D, false, true, false>(smem, p, dr, Bias{});
+}
+
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
+flash_dkdv_f32_bias_kernel(const Params p, const Bias bs) {
+  extern __shared__ __align__(16) float smem[];
+  kv_block<D, false, false, true>(smem, p, Dropout{}, bs);
+}
+
+// `kernel` over `grid` with `smem` bytes of dynamic shared memory
+template <typename... Params_, typename... Args>
+cudaError_t start(void (*kernel)(Params_...), dim3 grid, int threads,
+                  size_t smem, cudaStream_t stream, const Args&... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 // q and dout [b h, sq, D] transposed into ws [2][b h][D][sqp] (and, given
 // the forward's output o, delta into p.delta), then one of the kernels over
-// grid (b h, key blocks): the single pass (WITH_DQ; its dropout variant
-// where dr.threshold is not 0) or the split's dk/dv
+// grid (b h, key blocks): the single pass (WITH_DQ) or the split's dk/dv,
+// or their dropout variant where dr.threshold is not 0 or their bias
+// variant where bs.bias is set (both: cudaErrorInvalidValue, before any
+// launch)
 template <int D, bool WITH_DQ>
 cudaError_t launch(const float* q, const float* dout, const float* o,
-                   float* ws, Params p, const Dropout& dr, int b,
-                   cudaStream_t stream) {
+                   float* ws, Params p, const Dropout& dr, const Bias& bs,
+                   int b, cudaStream_t stream) {
+  if (bs.bias != nullptr && dr.threshold != 0) return cudaErrorInvalidValue;
   const int bh = b * p.h;
   p.sqp = (p.sq + 3) & ~3;
   float* qt = ws;
@@ -620,22 +737,18 @@ cudaError_t launch(const float* q, const float* dout, const float* o,
     if (err != cudaSuccess) return err;
   }
   const size_t smem = Cfg<D>::SMEM_BYTES + (WITH_DQ ? Cfg<D>::DQ * 4 : 0);
-  const int n_kb = (p.sk + Cfg<D>::BN - 1) / Cfg<D>::BN;
-  if (WITH_DQ && dr.threshold != 0) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_f32_dropout_kernel<D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    flash_bwd_f32_dropout_kernel<D>
-        <<<dim3(bh, n_kb), Cfg<D>::THREADS, smem, stream>>>(p, dr);
-    return cudaGetLastError();
-  }
-  auto kernel = WITH_DQ ? flash_bwd_f32_kernel<D> : flash_dkdv_f32_kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(bh, n_kb), Cfg<D>::THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
+  const dim3 grid(bh, (p.sk + Cfg<D>::BN - 1) / Cfg<D>::BN);
+  constexpr int T = Cfg<D>::THREADS;
+  if (dr.threshold != 0)
+    return start(WITH_DQ ? flash_bwd_f32_dropout_kernel<D>
+                         : flash_dkdv_f32_dropout_kernel<D>,
+                 grid, T, smem, stream, p, dr);
+  if (bs.bias != nullptr)
+    return start(WITH_DQ ? flash_bwd_f32_bias_kernel<D>
+                         : flash_dkdv_f32_bias_kernel<D>,
+                 grid, T, smem, stream, p, bs);
+  return start(WITH_DQ ? flash_bwd_f32_kernel<D> : flash_dkdv_f32_kernel<D>,
+               grid, T, smem, stream, p);
 }
 
 // ---------------------------------------------------------------------------
@@ -697,14 +810,17 @@ __device__ __forceinline__ void pair_sync(int row) {
   asm volatile("bar.sync %0, 64;\n" ::"r"(1 + row) : "memory");
 }
 
-template <int D>
-__global__ void __launch_bounds__(DqCfg<D>::THREADS, 1)
-flash_dq_f32_kernel(const Params p, float* __restrict__ dq) {
+// The dq kernel's body: without a variant, with dropout (DROP: dp kept and
+// scaled before ds, as the key-side kernels take it) or with the bias
+// (BIAS: the tile's bias / scale loaded into S's accumulators)
+template <int D, bool DROP, bool BIAS>
+__device__ __forceinline__ void dq_block(float* smem, const Params& p,
+                                         float* __restrict__ dq,
+                                         const Dropout& dr, const Bias& bs) {
   using C = DqCfg<D>;
   constexpr int BQ = C::BQ, BN = C::BN, QI = C::QI, KJ = C::KJ, CJ = C::CJ;
   constexpr int LDQ = C::LDQ, LDK = C::LDK, STAGES = C::STAGES;
   constexpr int THREADS = C::THREADS;
-  extern __shared__ __align__(16) float smem[];
   float* sQt = smem;                          // [D][LDQ]
   float* sDt = sQt + C::QT;
   float* sKV = sDt + C::QT;                   // stage s: K, then V
@@ -785,6 +901,35 @@ flash_dq_f32_kernel(const Params p, float* __restrict__ dq) {
     dl_r[r] = in ? __ldg(p.delta + bh * sq + qr) : 0.f;
     sid_r[r] = (seg && in) ? __ldg(p.sid_q + (long)bi * sq + qr) : -1;
   }
+  // dropout: the hash's (seed, batch, head) term with each row's, once a
+  // block
+  uint32_t hq[4 * QI];
+  if constexpr (DROP) {
+    const uint32_t hb =
+        dropout::base(dr.seed, (uint32_t)bi, (uint32_t)(bh - (long)bi * p.h));
+#pragma unroll
+    for (int r = 0; r < 4 * QI; ++r)
+      hq[r] = hb ^ dropout::q_term(q0 + qw + 16 * (r / 4) + r % 4);
+  }
+  // the bias: the (batch, head)'s [sq, sk] slice; a tile's bias / scale
+  // into S's accumulators (element [r][j]: row q0 + qw + 16 (r / 4) + r %
+  // 4, key n0 + kw + 8 j; keys past sk read as 0, rows past sq as the last:
+  // both masked)
+  const float* bias_bh = nullptr;
+  if constexpr (BIAS)
+    bias_bh = bs.bias + (long)bi * bs.sb + (bh - (long)bi * p.h) * bs.sh;
+  auto bias_into = [&](float (&s_)[4 * QI][KJ], int n0) {
+#pragma unroll
+    for (int r = 0; r < 4 * QI; ++r) {
+      const float* row =
+          bias_bh + (long)min(q0 + qw + 16 * (r / 4) + r % 4, sq - 1) * sk;
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        const int key = n0 + kw + 8 * j;
+        s_[r][j] = (key < sk ? __ldg(row + key) : 0.f) * bs.inv_scale;
+      }
+    }
+  };
 
   float dqa[4 * QI][4 * CJ];
 #pragma unroll
@@ -808,12 +953,14 @@ flash_dq_f32_kernel(const Params p, float* __restrict__ dq) {
     const float* sK = sKV + stage * 2 * C::KV;
     const float* sV = sK + C::KV;
 
-    // ---- S = Q K^T and dP = dO V^T over d
+    // ---- S = Q K^T and dP = dO V^T over d (the bias variant's S adds to
+    // the bias / scale)
     float s[4 * QI][KJ], dp[4 * QI][KJ];
 #pragma unroll
     for (int r = 0; r < 4 * QI; ++r)
 #pragma unroll
       for (int j = 0; j < KJ; ++j) s[r][j] = dp[r][j] = 0.f;
+    if constexpr (BIAS) bias_into(s, n0);
 #pragma unroll
     for (int k4 = 0; k4 < D / 4; ++k4) {
       float4 kb[KJ], vb[KJ];
@@ -849,8 +996,8 @@ flash_dq_f32_kernel(const Params p, float* __restrict__ dq) {
       }
     }
 
-    // ---- mask, p = exp(s * scale - lse), ds = p * (dp - delta); stored
-    // as [key][query]
+    // ---- mask, p = exp(s * scale - lse), ds = p * (dp - delta) (with
+    // dropout dp kept and scaled); stored as [key][query]
 #pragma unroll
     for (int r = 0; r < 4 * QI; ++r) {
       const int qr = q0 + qw + 16 * (r / 4) + r % 4;
@@ -861,8 +1008,19 @@ flash_dq_f32_kernel(const Params p, float* __restrict__ dq) {
         if (seg)
           ok = ok && sid_r[r] >= 0 &&
                sid_r[r] == sSid[stage * BN + kw + 8 * j];
-        const float pv = ok ? __expf(s[r][j] * p.scale - lse_r[r]) : 0.f;
-        dp[r][j] = pv * (dp[r][j] - dl_r[r]);
+        // the bias variant rounds s * scale first, as the key side does
+        float pv;
+        if constexpr (BIAS)
+          pv = ok ? __expf(__fmul_rn(s[r][j], p.scale) - lse_r[r]) : 0.f;
+        else
+          pv = ok ? __expf(s[r][j] * p.scale - lse_r[r]) : 0.f;
+        if constexpr (DROP) {
+          const bool kept = dropout::keep(hq[r] ^ dropout::k_term(key),
+                                          dr.threshold);
+          dp[r][j] = pv * ((kept ? dp[r][j] * dr.inv : 0.f) - dl_r[r]);
+        } else {
+          dp[r][j] = pv * (dp[r][j] - dl_r[r]);
+        }
       }
     }
 #pragma unroll
@@ -910,15 +1068,42 @@ flash_dq_f32_kernel(const Params p, float* __restrict__ dq) {
   }
 }
 
+template <int D>
+__global__ void __launch_bounds__(DqCfg<D>::THREADS, 1)
+flash_dq_f32_kernel(const Params p, float* __restrict__ dq) {
+  extern __shared__ __align__(16) float smem[];
+  dq_block<D, false, false>(smem, p, dq, Dropout{}, Bias{});
+}
+
+template <int D>
+__global__ void __launch_bounds__(DqCfg<D>::THREADS, 1)
+flash_dq_f32_dropout_kernel(const Params p, float* __restrict__ dq,
+                            const Dropout dr) {
+  extern __shared__ __align__(16) float smem[];
+  dq_block<D, true, false>(smem, p, dq, dr, Bias{});
+}
+
+template <int D>
+__global__ void __launch_bounds__(DqCfg<D>::THREADS, 1)
+flash_dq_f32_bias_kernel(const Params p, float* __restrict__ dq,
+                         const Bias bs) {
+  extern __shared__ __align__(16) float smem[];
+  dq_block<D, false, true>(smem, p, dq, Dropout{}, bs);
+}
+
 // The split's dq: given `transposed`, ws already holds q^T and dO^T (the
 // dk/dv call's prologue wrote them); else this call's prologue writes
 // them (no delta: it is read). Then flash_dq_f32_kernel over grid (b h,
-// query tiles).
+// query tiles), or its dropout variant where dr.threshold is not 0 or its
+// bias variant where bs.bias is set (both: cudaErrorInvalidValue, before
+// any launch).
 template <int D>
 cudaError_t launch_dq(const float* q, const float* dout, float* ws,
-                      bool transposed, Params p, float* dq, int b,
+                      bool transposed, Params p, float* dq,
+                      const Dropout& dr, const Bias& bs, int b,
                       cudaStream_t stream) {
   using C = DqCfg<D>;
+  if (bs.bias != nullptr && dr.threshold != 0) return cudaErrorInvalidValue;
   const int bh = b * p.h;
   p.sqp = (p.sq + 3) & ~3;
   p.qt = ws;
@@ -931,14 +1116,15 @@ cudaError_t launch_dq(const float* q, const float* dout, float* ws,
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_dq_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)C::SMEM_BYTES);
-  if (err != cudaSuccess) return err;
-  const int n_qt = (p.sq + C::BQ - 1) / C::BQ;
-  flash_dq_f32_kernel<D><<<dim3(bh, n_qt), C::THREADS, C::SMEM_BYTES,
-                           stream>>>(p, dq);
-  return cudaGetLastError();
+  const dim3 grid(bh, (p.sq + C::BQ - 1) / C::BQ);
+  if (dr.threshold != 0)
+    return start(flash_dq_f32_dropout_kernel<D>, grid, C::THREADS,
+                 C::SMEM_BYTES, stream, p, dq, dr);
+  if (bs.bias != nullptr)
+    return start(flash_dq_f32_bias_kernel<D>, grid, C::THREADS,
+                 C::SMEM_BYTES, stream, p, dq, bs);
+  return start(flash_dq_f32_kernel<D>, grid, C::THREADS, C::SMEM_BYTES,
+               stream, p, dq);
 }
 
 }  // namespace fa32

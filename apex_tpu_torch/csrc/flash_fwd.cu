@@ -446,16 +446,21 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
 // cudaErrorInvalidValue elsewhere and for a head dim other than 64 or
 // 128): fp32 q [b,h,sq,d], k, v [b,h,sk,d]; sid_q [b,sq] and sid_kv
 // [b,sk] int32, or both null; out [b,h,sq,d] fp32 and lse [b,h,sq] fp32
-// (every element written). p is not rounded before the PV product.
-// Attention dropout: `seed`, `threshold` (0: none, the kernel without
-// dropout) and `inv` = 1 / (1 - rate), as the wgmma forward takes them.
+// (every element written). p is not rounded before the PV product. The
+// bias: `bias` fp32 with its last two dims [sq, sk] contiguous and a
+// 16-byte aligned base, `bias_sb` and `bias_sh` its batch and head strides
+// in elements (0 for a broadcast dim), or null (no bias). Attention
+// dropout: `seed`, `threshold` (0: none) and `inv` = 1 / (1 - rate), as the
+// wgmma forward takes them. A bias with a threshold above 0 returns
+// cudaErrorInvalidValue (no variant with both yet).
 extern "C" int apex_flash_fwd_f32(const void* q, const void* k,
                                   const void* v, const void* sid_q,
                                   const void* sid_kv, void* out, void* lse,
                                   int b, int h, int sq, int sk, int d,
-                                  int causal, float scale, unsigned int seed,
-                                  unsigned int threshold, float inv,
-                                  void* stream) {
+                                  int causal, float scale, const void* bias,
+                                  long bias_sb, long bias_sh,
+                                  unsigned int seed, unsigned int threshold,
+                                  float inv, void* stream) {
 #if APEX_HAS_DTYPE(2)
   if (sq <= 0 || b <= 0 || h <= 0) return cudaSuccess;
   fwd32::Params p{};
@@ -472,10 +477,12 @@ extern "C" int apex_flash_fwd_f32(const void* q, const void* k,
   p.causal = causal;
   p.scale = scale;
   const fwd32::Dropout dr{seed, threshold, inv};
+  const fwd32::Bias bs{static_cast<const float*>(bias), bias_sb, bias_sh,
+                       1.f / scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return fwd32::launch<64>(p, dr, b, st);
-    case 128: return fwd32::launch<128>(p, dr, b, st);
+    case 64: return fwd32::launch<64>(p, dr, bs, b, st);
+    case 128: return fwd32::launch<128>(p, dr, bs, b, st);
     default: return cudaErrorInvalidValue;
   }
 #else

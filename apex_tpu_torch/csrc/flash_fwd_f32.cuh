@@ -56,6 +56,22 @@
 // hash's (seed, batch, head) term is xored with each of a lane's four row
 // terms once a block; an element costs its key's term, one xor and one
 // fmix32 (about 10 integer operations, on the same cores as the products).
+//
+// The additive bias (`_fwd_kernel`'s `use_bias`, :282-283): a variant,
+// flash_fwd_f32_bias_kernel (chosen by the C entry when the bias pointer is
+// not null; a bias with dropout is refused), with the bias's fields in a
+// parameter struct of its own (Bias: fp32 [b|1, h|1, sq, sk], the last two
+// dims contiguous, batch and head strides 0 for a broadcast dim). Before a
+// tile's S product each lane loads its 4 rows x 4 strided keys of the
+// tile's bias, times 1 / scale, into S's accumulators, which the product
+// then adds to, so s * scale is the biased score (up to one rounding) and
+// m, l and lse are those of the biased scores, before the mask. The loads
+// take no register beyond S's (3 blocks an SM at d 64 hide their latency),
+// and a tile the warp skips loads none. Keys
+// past sk read as 0 and rows past sq as the last row (both masked). A -inf
+// bias gives p = 0 exactly (the row max is floored at the -1e30 fill), and
+// a row whose every biased score is -inf is a dead row (out 0, lse -1e30),
+// as the Pallas kernel's guard gives it.
 
 #pragma once
 
@@ -107,13 +123,41 @@ struct Dropout {
   float inv;
 };
 
+// the bias variant's own parameters: the fp32 bias, its batch and head
+// strides in elements (0 for a broadcast dim) and 1 / scale
+struct Bias {
+  const float* bias;
+  long sb, sh;
+  float inv_scale;
+};
+
 __device__ __forceinline__ float at(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-template <int D, bool DROP>
+// the bias variant: the tile from key n0's bias / scale into S's
+// accumulators (element [r][j]: row `row0` + r of the (batch, head)'s [sq,
+// sk] slice at `bias_bh`, key n0 + lx + 8 j; keys past sk read as 0, rows
+// past sq as the last: both masked)
+template <int KJ>
+__device__ __forceinline__ void bias_into(float (&s)[4][KJ],
+                                          const float* bias_bh, int row0,
+                                          int sq, int sk, int n0, int lx,
+                                          float inv_scale) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float* row = bias_bh + (long)min(row0 + r, sq - 1) * sk;
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) {
+      const int key = n0 + lx + 8 * j;
+      s[r][j] = (key < sk ? __ldg(row + key) : 0.f) * inv_scale;
+    }
+  }
+}
+
+template <int D, bool DROP, bool BIAS>
 __device__ __forceinline__ void forward(float* smem, const Params& p,
-                                        const Dropout& dr) {
+                                        const Dropout& dr, const Bias& bs) {
   using C = Cfg<D>;
   constexpr int BQ = C::BQ, BN = C::BN, KJ = C::KJ, OJ = C::OJ;
   constexpr int LDQ = C::LDQ, LDK = C::LDK, STAGES = C::STAGES;
@@ -223,12 +267,15 @@ __device__ __forceinline__ void forward(float* smem, const Params& p,
     const float* sK = sKV + stage * 2 * C::KV;
     const float* sV = sK + C::KV;
 
-    // ---- S = Q K^T over d
+    // ---- S = Q K^T over d (the bias variant's adds to the bias / scale)
     float s[4][KJ];
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
       for (int j = 0; j < KJ; ++j) s[r][j] = 0.f;
+    if constexpr (BIAS)
+      bias_into(s, bs.bias + (long)bi * bs.sb + (bh - (long)bi * p.h) * bs.sh,
+                q0 + qw, sq, sk, n0, lx, bs.inv_scale);
 #pragma unroll
     for (int k4 = 0; k4 < D / 4; ++k4) {
       float4 kb[KJ];
@@ -343,31 +390,44 @@ template <int D>
 __global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MIN_BLOCKS)
 flash_fwd_f32_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
-  forward<D, false>(smem, p, Dropout{});
+  forward<D, false, false>(smem, p, Dropout{}, Bias{});
 }
 
 template <int D>
 __global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MIN_BLOCKS)
 flash_fwd_f32_dropout_kernel(const Params p, const Dropout dr) {
   extern __shared__ __align__(16) float smem[];
-  forward<D, true>(smem, p, dr);
+  forward<D, true, false>(smem, p, dr, Bias{});
 }
 
-// the kernel without dropout, or with it where dr.threshold is not 0
 template <int D>
-cudaError_t launch(const Params& p, const Dropout& dr, int b,
-                   cudaStream_t stream) {
+__global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MIN_BLOCKS)
+flash_fwd_f32_bias_kernel(const Params p, const Bias bs) {
+  extern __shared__ __align__(16) float smem[];
+  forward<D, false, true>(smem, p, Dropout{}, bs);
+}
+
+// the kernel without a variant, with dropout where dr.threshold is not 0,
+// or with the bias where bs.bias is set (both: cudaErrorInvalidValue)
+template <int D>
+cudaError_t launch(const Params& p, const Dropout& dr, const Bias& bs,
+                   int b, cudaStream_t stream) {
   using C = Cfg<D>;
-  const bool drop = dr.threshold != 0;
+  const bool drop = dr.threshold != 0, bias = bs.bias != nullptr;
+  if (drop && bias) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       drop ? (const void*)flash_fwd_f32_dropout_kernel<D>
-           : (const void*)flash_fwd_f32_kernel<D>,
+           : bias ? (const void*)flash_fwd_f32_bias_kernel<D>
+                  : (const void*)flash_fwd_f32_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM_BYTES);
   if (err != cudaSuccess) return err;
   const dim3 grid(b * p.h, (p.sq + C::BQ - 1) / C::BQ);
   if (drop)
     flash_fwd_f32_dropout_kernel<D>
         <<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(p, dr);
+  else if (bias)
+    flash_fwd_f32_bias_kernel<D>
+        <<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(p, bs);
   else
     flash_fwd_f32_kernel<D><<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(p);
   return cudaGetLastError();

@@ -14,19 +14,19 @@ Port of ``apex_tpu/ops/flash_attention.py``:
   :func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`
   (the JAX ``_bwd_math``). The additive bias ([b|1, h|1, sq, sk], added to
   the scaled fp32 scores) runs in a variant of each of the wgmma route's
-  kernels, the forward, the single pass and the split's two (read as fp32
-  with its broadcast dims' strides 0, never expanded), in the plain
-  versions, and on the CPU through :class:`BiasedAttentionFunction`; its
-  gradient is exactly zero in its own shape, as in the JAX package; every
-  other CUDA route raises (:func:`bias_refusal`). In-kernel attention
-  dropout (the JAX
-  kernels' counter hash, :func:`dropout_keep_reference`) runs in the
-  wgmma route's forward, single pass and split and in the fp32 FFMA
-  route's forward and single pass (a variant of each kernel chosen at
-  compile time) and in the plain versions; every other CUDA route raises
-  (:func:`dropout_refusal`: the FFMA route's split, ``frag.cuh``). The bias
-  with dropout runs in a variant with both of each of the wgmma route's
-  kernels: the forward, the single pass and the split's two.
+  and the fp32 FFMA route's kernels, the forward, the single pass and the
+  split's two (read as fp32 with its broadcast dims' strides 0, never
+  expanded), in the plain versions, and on the CPU through
+  :class:`BiasedAttentionFunction`; its gradient is exactly zero in its own
+  shape, as in the JAX package; ``frag.cuh``'s kernels raise
+  (:func:`bias_refusal`). In-kernel attention dropout (the JAX kernels'
+  counter hash, :func:`dropout_keep_reference`) runs in a variant of each
+  of the wgmma route's and the fp32 FFMA route's kernels, the forward, the
+  single pass and the split's two (chosen at compile time), and in the
+  plain versions; ``frag.cuh``'s kernels raise (:func:`dropout_refusal`).
+  The bias with dropout runs in a variant with both of each of the wgmma
+  route's kernels; the FFMA route has none yet and raises
+  (:func:`bias_refusal` with ``dropout``).
   Past
   the JAX package's 2 MB VMEM gate the backward is its two-kernel split,
   which replaces ``_dkdv_kernel`` (``:558``) and ``_dq_kernel`` (``:671``)
@@ -106,6 +106,13 @@ bias and dropout counters above count the variants with one alone),
 ``flash_attention.f32_dropout_launches`` and
 ``flash_attention_bwd.f32_dropout_launches`` (the FFMA forward's and single
 pass's dropout variants, counted in ``.f32_launches`` too),
+``flash_attention_bwd.f32_dropout_dkdv_launches`` and
+``.f32_dropout_dq_launches`` (the FFMA split's dropout variants, counted in
+``.f32_dkdv_launches`` and ``.f32_dq_launches`` too),
+``flash_attention.f32_bias_launches``,
+``flash_attention_bwd.f32_bias_launches``, ``.f32_bias_dkdv_launches`` and
+``.f32_bias_dq_launches`` (the FFMA route's bias variants, counted in the
+route's own counters too),
 ``paged_decode_attention.launches``
 (bf16 pool) and ``paged_decode_attention.fp8_launches`` (e4m3 pool) count
 kernel launches (the CPU path does not count).
@@ -535,9 +542,6 @@ def sm90_route(dtype: torch.dtype, kd: int) -> bool:
 # the routes that refuse a variant, by name (ROADMAP §B1)
 _FFMA_ROUTE = ("the fp32 FFMA route (f32_fwd_route / f32_core_route: "
                "csrc/flash_fwd_f32.cuh, csrc/flash_bwd_f32.cuh)")
-_FFMA_SPLIT = ("the fp32 FFMA route's split (its dk/dv kernel "
-               "flash_dkdv_f32_kernel and its dq kernel flash_dq_f32_kernel, "
-               "csrc/flash_bwd_f32.cuh; ROADMAP §B1)")
 _FRAG_ROUTE = ("the frag.cuh kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu: "
                "fp32 over narrower operands and head dims 32, 256, 512)")
 
@@ -546,51 +550,50 @@ def _ffma_dims(dtype: torch.dtype, kd: int) -> bool:
     return dtype == torch.float32 and kd in _F32_CORE_HEAD_DIMS
 
 
-def dropout_refusal(dtype: torch.dtype, kd: int, ffma: bool = True,
-                    split: bool = False) -> Optional[str]:
+def dropout_refusal(dtype: torch.dtype, kd: int,
+                    ffma: bool = True) -> Optional[str]:
     """None where the CUDA kernels take attention dropout: the wgmma route
     (:func:`sm90_route` of the promoted ``dtype`` and the kernel head dim
-    ``kd``: the forward, the single-pass backward and the split), and the
-    fp32 FFMA route's forward and single pass (fp32 at kernel head dims 64
-    and 128 where the call runs that route, ``ffma``: :func:`f32_fwd_route`
-    for the forward, :func:`f32_core_route` for the backward, so nothing
-    is rounded below fp32; not ``split``). Else the route that does not
-    take it yet, by name, for the ``NotImplementedError`` its caller
-    raises (ROADMAP §B1): the FFMA route's split, or the ``frag.cuh``
-    kernels (which also keep fp32 over narrower operands, ``ffma``
-    False)."""
-    if sm90_route(dtype, kd):
+    ``kd``) and the fp32 FFMA route (fp32 at kernel head dims 64 and 128
+    where the call runs that route, ``ffma``: :func:`f32_fwd_route` for the
+    forward, :func:`f32_core_route` for the backward, so nothing is rounded
+    below fp32), each in its forward, single-pass backward and split. Else
+    the route that does not take it yet, by name, for the
+    ``NotImplementedError`` its caller raises (ROADMAP §B1): the
+    ``frag.cuh`` kernels (which also keep fp32 over narrower operands,
+    ``ffma`` False)."""
+    if sm90_route(dtype, kd) or (_ffma_dims(dtype, kd) and ffma):
         return None
-    if _ffma_dims(dtype, kd) and ffma:
-        return _FFMA_SPLIT if split else None
     return _FRAG_ROUTE
 
 
-def _refuse_dropout(dtype: torch.dtype, kd: int, ffma: bool = True,
-                    split: bool = False) -> None:
-    refused = dropout_refusal(dtype, kd, ffma, split)
+def _refuse_dropout(dtype: torch.dtype, kd: int, ffma: bool = True) -> None:
+    refused = dropout_refusal(dtype, kd, ffma)
     if refused is not None:
         raise NotImplementedError(f"flash_attention: attention dropout is "
                                   f"not in {refused} yet")
 
 
-def bias_refusal(dtype: torch.dtype, kd: int,
-                 ffma: bool = True) -> Optional[str]:
+def bias_refusal(dtype: torch.dtype, kd: int, ffma: bool = True,
+                 dropout: bool = False) -> Optional[str]:
     """None where the CUDA kernels take the additive bias: the wgmma
     route's forward and backward, single pass and split alike, with
     attention dropout or without (:func:`sm90_route` of the promoted
-    ``dtype`` and the kernel head dim ``kd``). Else the refused route by
-    name, for the ``NotImplementedError`` its caller raises (ROADMAP §B1):
-    the fp32 FFMA route (``ffma``, as :func:`dropout_refusal` takes it),
-    the ``frag.cuh`` kernels."""
+    ``dtype`` and the kernel head dim ``kd``), and the fp32 FFMA route's
+    (``ffma``, as :func:`dropout_refusal` takes it) without ``dropout``.
+    Else the refused route by name, for the ``NotImplementedError`` its
+    caller raises (ROADMAP §B1): the FFMA route with dropout (it has no
+    variant with both yet), the ``frag.cuh`` kernels."""
     if sm90_route(dtype, kd):
         return None
-    return _FFMA_ROUTE if _ffma_dims(dtype, kd) and ffma else _FRAG_ROUTE
+    if _ffma_dims(dtype, kd) and ffma:
+        return _FFMA_ROUTE if dropout else None
+    return _FRAG_ROUTE
 
 
 def _refuse_bias(dtype: torch.dtype, kd: int, ffma: bool = True,
                  dropout: bool = False) -> None:
-    refused = bias_refusal(dtype, kd, ffma)
+    refused = bias_refusal(dtype, kd, ffma, dropout)
     if refused is not None:
         both = " with attention dropout" if dropout else ""
         raise NotImplementedError(f"flash_attention: the additive bias{both} "
@@ -606,11 +609,11 @@ def _check_bias_shape(bias, b, h, sq, sk) -> None:
 
 
 def _bias_operand(bias, b, h, sq, sk, device, scale=1.0):
-    """``(fp32 bias, batch stride, head stride)`` as the wgmma kernels take
-    it, or ``(None, 0, 0)``: ``bias`` ([b|1, h|1, sq, sk], any float dtype)
-    cast to fp32 without expanding a broadcast dim (a dim of stride 0 is
-    taken at size 1 first), its last two dims contiguous, the base 16-byte
-    aligned; the stride of a dim of size 1 is 0. The kernels add bias /
+    """``(fp32 bias, batch stride, head stride)`` as the wgmma and FFMA
+    kernels take it, or ``(None, 0, 0)``: ``bias`` ([b|1, h|1, sq, sk], any
+    float dtype) cast to fp32 without expanding a broadcast dim (a dim of
+    stride 0 is taken at size 1 first), its last two dims contiguous, the
+    base 16-byte aligned; the stride of a dim of size 1 is 0. The kernels add bias /
     ``scale`` to the unscaled scores, so a bias needs a nonzero scale."""
     if bias is None:
         return None, 0, 0
@@ -633,7 +636,7 @@ def _bias_operand(bias, b, h, sq, sk, device, scale=1.0):
 
 def _dropout_args(dropout_rate: float, dropout_seed) -> Tuple[int, int,
                                                               float]:
-    """The wgmma kernels' ``(seed, threshold, inv)``: the int32 seed as
+    """The kernels' ``(seed, threshold, inv)``: the int32 seed as
     uint32, :func:`dropout_threshold` and ``1 / (1 - rate)`` (rounded to
     fp32 by ctypes, as the JAX kernels' weak-typed multiply rounds it).
     ``(0, 0, 1.0)`` at rate 0: threshold 0 keeps every element, and the
@@ -674,10 +677,11 @@ def f32_fwd_route(dtype: torch.dtype, kd: int, p_round: int) -> bool:
 
 
 # apex_flash_fwd_f32(q, k, v, sid_q, sid_kv, out, lse, b, h, sq, sk, d,
-#                    causal, scale, seed, threshold, inv, stream): the FFMA
-# route's forward, fp32 only (no dtype, no ``p_round``), with the dropout
+#                    causal, scale, bias, bias_sb, bias_sh, seed, threshold,
+#                    inv, stream): the FFMA route's forward, fp32 only (no
+# dtype, no ``p_round``), with the bias and the dropout
 _F32_FWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-    ctypes.c_float] + _DROPOUT_ARGS + [ctypes.c_void_p]
+    ctypes.c_float] + _BIAS_ARGS + _DROPOUT_ARGS + [ctypes.c_void_p]
 
 
 def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
@@ -686,11 +690,11 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
                     bias=None):
     """The forward kernel. ``block_rows`` (the wgmma route only) forces 64
     or 128 query rows a block, for comparing the two at one shape; None
-    takes :func:`fwd_block_rows`. Attention dropout runs on the wgmma
-    route and the fp32 FFMA route (:func:`dropout_refusal`); the additive
-    ``bias`` on the wgmma route alone (:func:`bias_refusal`), with dropout
-    or without: the bias with dropout in the variant with both, at any
-    length."""
+    takes :func:`fwd_block_rows`. Attention dropout and the additive
+    ``bias`` run on the wgmma route and the fp32 FFMA route
+    (:func:`dropout_refusal`, :func:`bias_refusal`): the bias with dropout
+    in the wgmma route's variant with both, at any length; the FFMA route
+    refuses the two together."""
     what = "flash_attention kernel"
     _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, what,
              "q, k, v must be [b, h, s, d]")
@@ -749,8 +753,8 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
         elif f32:
             fn = _build.function(_build.dtype_target("flash_fwd", code),
                                  "apex_flash_fwd_f32", _F32_FWD_ARGS)
-            err = fn(*args[:-1], *_dropout_args(dropout_rate, dropout_seed),
-                     _stream(q))
+            err = fn(*args[:-1], _ptr(bias), bias_sb, bias_sh,
+                     *_dropout_args(dropout_rate, dropout_seed), _stream(q))
         else:
             fn = _build.function(_build.dtype_target("flash_fwd", code),
                                  "apex_flash_fwd", _FLASH_ARGS)
@@ -769,6 +773,8 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
             flash_attention.f32_launches += 1
             if dropout_rate:
                 flash_attention.f32_dropout_launches += 1
+            elif bias is not None:
+                flash_attention.f32_bias_launches += 1
         return out, lse
 
     out, lse = with_padded_last_dim(launch, kd, (q, k, v), sliced=(0,))
@@ -852,8 +858,8 @@ def _bwd_route(q, k, v, causal, dropout_rate, do=None,
     the operands in. Raises ``NotImplementedError`` where attention
     dropout or a ``bias`` is asked of a route that does not take it
     (:func:`dropout_refusal`, :func:`bias_refusal`: the route is the
-    dtype's and head dim's, and on the fp32 FFMA route, which takes
-    dropout in the single pass alone, whether the backward splits)."""
+    dtype's and head dim's; the fp32 FFMA route takes either, split or
+    not, and refuses the two together)."""
     if split is None:
         split = uses_split_backward(q.shape[2], k.shape[2], q.shape[-1],
                                     k.element_size(), v.element_size(),
@@ -866,7 +872,7 @@ def _bwd_route(q, k, v, causal, dropout_rate, do=None,
     if bias:
         _refuse_bias(dtype, kd, ffma, bool(dropout_rate))
     elif dropout_rate:
-        _refuse_dropout(dtype, kd, ffma, split)
+        _refuse_dropout(dtype, kd, ffma)
     return split, dtype
 
 
@@ -1017,10 +1023,10 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
     """The backward kernels. ``split=None`` routes by
     :func:`uses_split_backward`; True or False forces the two-kernel split
     or the single pass (for comparing the two at one shape). Attention
-    dropout runs on the wgmma route, split or single pass, and on the fp32
-    FFMA route's single pass (:func:`dropout_refusal`); the additive
-    ``bias`` on the wgmma route alone (:func:`bias_refusal`), with dropout
-    or without (:func:`_bwd_route`)."""
+    dropout and the additive ``bias`` run on the wgmma route and the fp32
+    FFMA route, split or single pass (:func:`dropout_refusal`,
+    :func:`bias_refusal`): both together on the wgmma route alone
+    (:func:`_bwd_route`)."""
     what = "flash_attention_bwd kernel"
     _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, what,
              "q, k, v must be [b, h, s, d]")
@@ -1087,8 +1093,10 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
             # the FFMA route: the dk/dv call's prologue transposes q and do
             # into one scratch, which the dq kernel reads after it
             ws = _f32_transposes(q) if f32_fold else None
-            dk, dv = _flash_dkdv_cuda(*args, out=out, ws=ws)
-            return _flash_dq_cuda(*args, ws=ws), dk, dv
+            dk, dv = _flash_dkdv_cuda(*args, out=out, ws=ws, dropout=drop,
+                                      bias=bias_op)
+            return (_flash_dq_cuda(*args, ws=ws, dropout=drop, bias=bias_op),
+                    dk, dv)
         sm90 = sm90_route(dtype, dp)
         f32 = f32_core_route(dtype, dp, rounds)
         dq_acc, turns = _dq_workspace(q, dp, sm90 or (_F32 if f32
@@ -1101,7 +1109,8 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
         if f32:
             dk, dv = _flash_bwd_f32_cuda(q, k, v, do, out, lse, dl,
                                          segment_ids_q, segment_ids_kv,
-                                         causal, scale, dq_acc, turns, drop)
+                                         causal, scale, dq_acc, turns, drop,
+                                         bias_op)
             return dq_acc, dk, dv
         dk = torch.empty_like(k)
         dv = torch.empty_like(v)
@@ -1165,21 +1174,24 @@ def _flash_bwd_fused_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal,
 
 # apex_flash_bwd_f32(q, k, v, do, out, lse, delta, sid_q, sid_kv, ws,
 #                    dq_acc, turns, dk, dv, b, h, sq, sk, d, causal, scale,
-#                    seed, threshold, inv, stream) and
-# apex_flash_bwd_f32_dkdv(..., sid_kv, ws, dk, dv, b, ..., scale, stream):
-# the FFMA route, fp32 only, with the scratch of q and do transposed (no
-# dtype, no ``rounds``); the single pass with the dropout, the split's
-# dk/dv without; ``out`` null reads a given delta
-_F32_BWD_ARGS = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [
-    ctypes.c_float] + _DROPOUT_ARGS + [ctypes.c_void_p]
-_F32_DKDV_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_void_p]
+#                    bias, bias_sb, bias_sh, seed, threshold, inv, stream)
+# and apex_flash_bwd_f32_dkdv(..., sid_kv, ws, dk, dv, b, ..., scale, bias,
+# ..., inv, stream): the FFMA route, fp32 only, with the scratch of q and
+# do transposed (no dtype, no ``rounds``), the bias and the dropout;
+# ``out`` null reads a given delta
+_F32_VARIANT_ARGS = [ctypes.c_float] + _BIAS_ARGS + _DROPOUT_ARGS + [
+    ctypes.c_void_p]
+_F32_BWD_ARGS = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + \
+    _F32_VARIANT_ARGS
+_F32_DKDV_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + \
+    _F32_VARIANT_ARGS
 # apex_flash_bwd_f32_dq(q, k, v, do, lse, delta, sid_q, sid_kv, ws,
-#                       transposed, dq, b, h, sq, sk, d, causal, scale,
-#                       stream): the split's FFMA dq; ``transposed`` 1 when
-# ws already holds q and do transposed
+#                       transposed, dq, b, h, sq, sk, d, causal, scale, bias,
+#                       bias_sb, bias_sh, seed, threshold, inv, stream): the
+# split's FFMA dq; ``transposed`` 1 when ws already holds q and do
+# transposed
 _F32_DQ_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p] + [
-    ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    ctypes.c_int] * 6 + _F32_VARIANT_ARGS
 
 
 def _f32_transposes(q):
@@ -1192,14 +1204,16 @@ def _f32_transposes(q):
 
 
 def _f32_call(symbol, q, k, v, do, out, lse, delta, sid_q, sid_kv, causal,
-              scale, outs, ws=None, dropout=()):
-    """One C call of the FFMA route (``symbol`` with its argument types)
-    on fp32 operands ``_flash_bwd_cuda`` checked: the prologue (the
-    transposes of q and do into ``ws``, :func:`_f32_transposes`, allocated
-    here when None; and with ``out``, the forward's fp32 output, delta
-    written into ``delta``), then the kernel; ``outs`` the output pointers
-    after the scratch, ``dropout`` the single pass's
-    :func:`_dropout_args` (the split's dk/dv takes none)."""
+              scale, outs, ws=None, dropout=(0, 0, 1.0),
+              bias=(None, 0, 0)):
+    """One C call of the FFMA route's single pass or split dk/dv
+    (``symbol`` with its argument types) on fp32 operands
+    ``_flash_bwd_cuda`` checked: the prologue (the transposes of q and do
+    into ``ws``, :func:`_f32_transposes`, allocated here when None; and
+    with ``out``, the forward's fp32 output, delta written into
+    ``delta``), then the kernel or its variant; ``outs`` the output
+    pointers after the scratch, ``dropout`` :func:`_dropout_args` and
+    ``bias`` :func:`_bias_operand`'s triple (not both)."""
     b, h, sq, d = q.shape
     _require(out is None or (out.dtype == torch.float32
                              and out.shape == q.shape
@@ -1214,15 +1228,19 @@ def _f32_call(symbol, q, k, v, do, out, lse, delta, sid_q, sid_kv, causal,
                     _ptr(lse), _ptr(delta), _ptr(sid_q), _ptr(sid_kv),
                     _ptr(ws), *outs,
                     b, h, sq, k.shape[2], d, int(bool(causal)), float(scale),
-                    *dropout, _stream(q)), f"flash_attention_bwd {name}")
+                    _ptr(bias[0]), *bias[1:], *dropout, _stream(q)),
+                 f"flash_attention_bwd {name}")
 
 
 def _flash_bwd_f32_cuda(q, k, v, do, out, lse, delta, sid_q, sid_kv, causal,
-                        scale, dq_acc, turns, dropout=(0, 0, 1.0)):
-    """The FFMA route's single pass (``flash_bwd_f32_kernel``, or with
+                        scale, dq_acc, turns, dropout=(0, 0, 1.0),
+                        bias=(None, 0, 0)):
+    """The FFMA route's single pass (``flash_bwd_f32_kernel``; with
     ``dropout``, :func:`_dropout_args`, its variant
-    ``flash_bwd_f32_dropout_kernel``) on fp32 operands ``_flash_bwd_cuda``
-    checked, at kernel head dim 64 or 128: ``(dk, dv)``, and dq times
+    ``flash_bwd_f32_dropout_kernel``; with ``bias``,
+    :func:`_bias_operand`'s triple, ``flash_bwd_f32_bias_kernel``) on fp32
+    operands ``_flash_bwd_cuda`` checked, at kernel head dim 64 or 128:
+    ``(dk, dv)``, and dq times
     ``scale`` written into ``dq_acc`` (fp32, q's shape; every element:
     each query tile's key blocks add in a fixed order, the first storing).
     ``turns``: the zeroed int32 turn counters (:func:`single_pass_turns`).
@@ -1233,11 +1251,13 @@ def _flash_bwd_f32_cuda(q, k, v, do, out, lse, delta, sid_q, sid_kv, causal,
     _f32_call(("apex_flash_bwd_f32", _F32_BWD_ARGS), q, k, v, do, out, lse,
               delta, sid_q, sid_kv, causal, scale,
               (_ptr(dq_acc), _ptr(turns), _ptr(dk), _ptr(dv)),
-              dropout=dropout)
+              dropout=dropout, bias=bias)
     flash_attention_bwd.launches += 1
     flash_attention_bwd.f32_launches += 1
     if dropout[1]:
         flash_attention_bwd.f32_dropout_launches += 1
+    elif bias[0] is not None:
+        flash_attention_bwd.f32_bias_launches += 1
     return dk, dv
 
 
@@ -1246,12 +1266,12 @@ def _refuse_split_variants(q, rounds, dropout, bias) -> None:
     its route does not take the ``dropout`` or the ``bias`` it is given
     (:func:`dropout_refusal`, :func:`bias_refusal`, ``rounds`` telling the
     FFMA route from ``frag.cuh``): the wgmma route takes either and both,
-    the FFMA route's split neither yet."""
+    the FFMA route either alone."""
     ffma = f32_core_route(q.dtype, q.shape[-1], rounds)
     if bias[0] is not None:
         _refuse_bias(q.dtype, q.shape[-1], ffma, bool(dropout[1]))
     elif dropout[1]:
-        _refuse_dropout(q.dtype, q.shape[-1], ffma, split=True)
+        _refuse_dropout(q.dtype, q.shape[-1], ffma)
 
 
 def _split_operands(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
@@ -1286,16 +1306,20 @@ def _flash_dkdv_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
     (:func:`_f32_transposes`; allocated here when None), which the dq
     kernel after it may read (:func:`_flash_dq_cuda`'s ``ws``).
     ``dropout``: :func:`_dropout_args`; ``bias``: :func:`_bias_operand`'s
-    ``(fp32 bias or None, batch stride, head stride)``, alone or with
-    ``dropout`` (the variant with both); both the wgmma route's alone."""
+    ``(fp32 bias or None, batch stride, head stride)``, alone (both
+    routes) or with ``dropout`` (the wgmma route's variant with both)."""
     _refuse_split_variants(q, rounds, dropout, bias)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if f32_core_route(q.dtype, q.shape[-1], rounds):
         _f32_call(("apex_flash_bwd_f32_dkdv", _F32_DKDV_ARGS), q, k, v, do,
                   out, lse, delta, sid_q, sid_kv, causal, scale,
-                  (_ptr(dk), _ptr(dv)), ws)
+                  (_ptr(dk), _ptr(dv)), ws, dropout, bias)
         flash_attention_bwd.dkdv_launches += 1
         flash_attention_bwd.f32_dkdv_launches += 1
+        if dropout[1]:
+            flash_attention_bwd.f32_dropout_dkdv_launches += 1
+        elif bias[0] is not None:
+            flash_attention_bwd.f32_bias_dkdv_launches += 1
         return dk, dv
     _require(out is None and ws is None, "flash_attention_bwd dk/dv kernel",
              "only the FFMA route folds delta into the dk/dv call and "
@@ -1345,10 +1369,15 @@ def _flash_dq_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
                         _ptr(delta), _ptr(sid_q), _ptr(sid_kv),
                         _ptr(_f32_transposes(q) if ws is None else ws),
                         int(ws is not None), _ptr(dq), b, h, sq, k.shape[2],
-                        d, int(bool(causal)), float(scale), _stream(q)),
+                        d, int(bool(causal)), float(scale), _ptr(bias[0]),
+                        *bias[1:], *dropout, _stream(q)),
                      "flash_attention_bwd apex_flash_bwd_f32_dq")
         flash_attention_bwd.dq_launches += 1
         flash_attention_bwd.f32_dq_launches += 1
+        if dropout[1]:
+            flash_attention_bwd.f32_dropout_dq_launches += 1
+        elif bias[0] is not None:
+            flash_attention_bwd.f32_bias_dq_launches += 1
         return dq
     _require(ws is None, "flash_attention_bwd dq kernel",
              "only the FFMA route reads transposed q and do")
@@ -1423,7 +1452,10 @@ def flash_attention_bwd(q, k, v, out, lse, do, segment_ids_q=None,
     on the FFMA route, ``.f32_dropout_launches`` those with dropout),
     ``.dkdv_launches`` and ``.dq_launches`` the split's
     (``.f32_dkdv_launches`` and ``.f32_dq_launches`` those on the FFMA
-    route); on the wgmma route ``.dropout_launches`` the single passes
+    route, ``.f32_dropout_dkdv_launches`` and ``.f32_dropout_dq_launches``
+    those with dropout, ``.f32_bias_launches``, ``.f32_bias_dkdv_launches``
+    and ``.f32_bias_dq_launches`` the FFMA single passes and split
+    launches with a bias); on the wgmma route ``.dropout_launches`` the single passes
     with dropout, ``.dropout_dkdv_launches`` and ``.dropout_dq_launches``
     the split's, ``.bias_launches`` the single passes with a bias,
     ``.bias_dkdv_launches`` and ``.bias_dq_launches`` the split's,
@@ -1456,6 +1488,11 @@ flash_attention_bwd.f32_launches = 0
 flash_attention_bwd.f32_dkdv_launches = 0
 flash_attention_bwd.f32_dq_launches = 0
 flash_attention_bwd.f32_dropout_launches = 0
+flash_attention_bwd.f32_dropout_dkdv_launches = 0
+flash_attention_bwd.f32_dropout_dq_launches = 0
+flash_attention_bwd.f32_bias_launches = 0
+flash_attention_bwd.f32_bias_dkdv_launches = 0
+flash_attention_bwd.f32_bias_dq_launches = 0
 flash_attention_bwd.dropout_launches = 0
 flash_attention_bwd.dropout_dkdv_launches = 0
 flash_attention_bwd.dropout_dq_launches = 0
@@ -1542,24 +1579,24 @@ def flash_attention(q, k, v, segment_ids_q=None, segment_ids_kv=None,
     negative ids are padding and give zero rows. ``bias`` ([b|1, h|1, sq,
     sk], any float dtype, added to the scaled fp32 scores; -inf entries
     allowed) gets an exactly zero gradient, as in the JAX package. On CUDA
-    the wgmma route's forward and backward take it, single pass and split
-    (:class:`FlashAttentionFunction`); every other route raises
-    ``NotImplementedError`` naming the route (:func:`bias_refusal`),
-    before the forward where the backward's route would refuse it. With
-    dropout too, the forward, the single pass and the split each run
-    their variant with both (the JAX gate, which with both counts 512-row
-    blocks, splits from s512 at d 64 and s448 at d 128). On the CPU it
+    the wgmma route's and the fp32 FFMA route's forward and backward take
+    it, single pass and split (:class:`FlashAttentionFunction`);
+    ``frag.cuh``'s kernels raise ``NotImplementedError`` naming the route
+    (:func:`bias_refusal`), before the forward where the backward's route
+    would refuse it. With dropout too, the wgmma route's forward, single
+    pass and split each run their variant with both (the JAX gate, which
+    with both counts 512-row blocks, splits bf16 from s467 at d 64 and
+    s425 at d 128); the FFMA route refuses the two together. On the CPU it
     runs through the plain version (:class:`BiasedAttentionFunction`).
 
     ``dropout_rate``/``dropout_seed`` (an int32): in-kernel attention
     dropout, the keep mask a hash of (seed, batch, head, q position, k
     position) that the backward regenerates
     (:func:`dropout_keep_reference`, bit for bit the JAX package's); pass a
-    fresh seed a step. On CUDA the wgmma route's forward and backward
-    (single pass and split) take it, and so do the fp32 FFMA route's
-    forward and single pass (fp32 operands at kernel head dims 64 and
-    128); every other route raises ``NotImplementedError`` naming itself
-    (:func:`dropout_refusal`: the FFMA route's split, ``frag.cuh``),
+    fresh seed a step. On CUDA the wgmma route's and the fp32 FFMA route's
+    (fp32 operands at kernel head dims 64 and 128) forward and backward,
+    single pass and split, take it; ``frag.cuh``'s kernels raise
+    ``NotImplementedError`` naming themselves (:func:`dropout_refusal`),
     before the forward where the backward's route would refuse it."""
     _check_dropout(dropout_rate, dropout_seed)
     dropout_rate = float(dropout_rate)
@@ -1587,6 +1624,7 @@ flash_attention.launches = 0
 flash_attention.wgmma_launches = 0
 flash_attention.f32_launches = 0
 flash_attention.f32_dropout_launches = 0
+flash_attention.f32_bias_launches = 0
 flash_attention.dropout_launches = 0
 flash_attention.bias_launches = 0
 flash_attention.bias_dropout_launches = 0

@@ -197,7 +197,26 @@ Phases (any failure exits non-zero; no phase's error is caught):
     host generator in the same state on both sides (loss 1e-5 relative,
     gradients 1e-4), then 3 counted O0 steps with 2 launches each of the
     FFMA forward's and single pass's dropout variants a step and none of
-    the FFMA kernels without dropout, and one step under the profiler.
+    the FFMA kernels without dropout, and one step under the profiler;
+25. train-o0-dropout-gpt2-b2s4096 — the same at the O0 long path's b2
+    s4096, where the gate splits: the grad check at the full shape (the
+    plain twin's peak memory logged), a warm-up and 2 counted steps with 2
+    launches each of the FFMA forward's and the FFMA split's dk/dv and dq
+    dropout variants a step and none of the FFMA kernels without them,
+    finite losses, and one step under the profiler;
+26. train-o0-mha16-e1024h8-b1s3072-bias — train-mha16's configuration at
+    O0 (fp32 x and parameters, ``FusedAdam`` without a loss scale;
+    fairseq trains in fp32 without ``--fp16``), dropout 0: per step 16
+    launches each of the FFMA forward's and the FFMA split's dk/dv and dq
+    bias variants (the gate splits every biased fp32 backward at s3072
+    d128), 16 of each LayerNorm kernel and no other flash launch; then its
+    2-layer full-width grad check in fp32 (loss 1e-5, gradients 1e-4 in
+    relative norm), the bias variants' launches asserted;
+27. train-o0-mha6-e1024h16-b28s128-bias — train-mha6's configuration at
+    O0 with dropout 0: per step 6 launches each of the FFMA forward's and
+    single pass's bias variants (the gate keeps s128 on the single pass),
+    6 of each LayerNorm kernel and no other flash launch; then its 2-layer
+    grad check in fp32 as above.
 
 The kernel phase also holds the shapes and dtypes ROADMAP §C records as
 repaired against the plain versions: flash forward and backward (single
@@ -302,6 +321,31 @@ rerun, their keep pattern the plain mask bit for bit at rate 0.5, one
 device launch of the single pass's variant a call (profiler), no spill;
 each timed beside its twin without dropout, its plain version and SDPA
 fp32 with ``dropout_p=0.1``.
+
+B3's and B4's dropout variants on the fp32 FFMA route
+(``flash_dkdv_f32_dropout_kernel``, ``flash_dq_f32_dropout_kernel``) are
+held the same way with the split forced, kernel by kernel against
+``flash_bwd_dkdv_reference`` and ``flash_bwd_dq_reference`` with the same
+seed, bitwise on a rerun, their keep patterns the
+plain mask bit for bit at rate 0.5 (dk/dv: q = 0, do = I; dq: one key
+e_0 beside zero keys, v = I, do = 1), then at b2 h16 s4096 d64 causal
+the pair as routed against the plain backward, one device launch each a
+call (profiler), no spill; each timed beside its twin without dropout,
+its plain version and SDPA fp32's backward with ``dropout_p=0.1``.
+B1's, B2's, B3's and B4's bias variants on the FFMA route
+(``flash_fwd_f32_bias_kernel``, ``flash_bwd_f32_bias_kernel``,
+``flash_dkdv_f32_bias_kernel``, ``flash_dq_f32_bias_kernel``: the tile's
+bias / scale loaded into the S accumulators) are held at the bias
+variants' shapes in fp32 (head dims 64 and 128, the four broadcast
+shapes, sq != sk, odd sk, segment padding, a row -inf everywhere, a row
+-inf but for key 0, whose output is v[0] bit for bit) against the plain
+versions (1e-5 forward and lse, 1e-4 gradients), the forward, the single
+pass and the split's two kernels each bitwise on a rerun; then at
+train-o0-mha16's b1 h8 s3072 d128 (the future mask; the split) and
+train-o0-mha6's b28 h16 s128 d64 (the future mask and key padding; the
+single pass, one device launch a call) as routed, each kernel timed
+beside its twin without the bias, its plain version and SDPA fp32 with the
+same mask; no spill.
 
 The fp32 forward's FFMA route (``csrc/flash_fwd_f32.cuh``, B1) is held at
 the O0 paths' b8 h16 s1024 and b2 h16 s4096 d64 causal and at the shapes
@@ -2566,6 +2610,560 @@ def check_flash_f32_dropout(torch, timer):
              **common)]
 
 
+# ---------------------------------------------------------------------------
+# attention dropout in the fp32 FFMA route's split (B3's and B4's dropout
+# variants, flash_dkdv_f32_dropout_kernel and flash_dq_f32_dropout_kernel):
+# the O0 long dropout path's b2 h16 s4096 d64 causal and the dropout shapes
+# above, the split forced
+# ---------------------------------------------------------------------------
+
+F32_SPLIT_DROPOUT_SEED = 20261023
+F32_SPLIT_DROPOUT_KERNELS = ("flash_dkdv_f32_dropout_kernel",
+                             "flash_dq_f32_dropout_kernel")
+
+
+def _f32_split_dropout_held(torch, fa, q, k, v, do, sids, causal, scale,
+                            shape):
+    """The FFMA split's dropout variants at rate 0.1 on one input, the split
+    forced as ``_flash_bwd_cuda`` runs it (dk/dv, whose prologue transposes
+    q and do into one scratch and folds delta from the dropped output, then
+    dq on that scratch; a padded head dim zero-padded to the kernel's):
+    dq against ``flash_bwd_dq_reference``, dk and dv against
+    ``flash_bwd_dkdv_reference`` on that reference's delta, with the same
+    seed (FP32_GRAD_TOL); bitwise on a rerun, padding rows' dq exactly 0,
+    one launch each of the two variants a call. Returns the forward's
+    output and lse and the record."""
+    g = fa.flash_attention_bwd
+    drop = dict(dropout_rate=DROPOUT_RATE,
+                dropout_seed=F32_SPLIT_DROPOUT_SEED)
+    what = f"flash fp32 split dropout {shape}"
+    out, lse = fa.flash_attention_fwd(q, k, v, *sids, causal, scale, **drop)
+    n0 = (g.f32_dropout_dkdv_launches, g.f32_dropout_dq_launches)
+    runs = [fa._flash_bwd_cuda(q, k, v, out, lse, do, *sids, causal, scale,
+                               split=True, **drop) for _ in range(2)]
+    torch.cuda.synchronize()
+    check((g.f32_dropout_dkdv_launches - n0[0],
+           g.f32_dropout_dq_launches - n0[1]) == (2, 2),
+          f"{what}: not the FFMA split's dropout variants")
+    check(all(torch.equal(x, y) for x, y in zip(*runs)),
+          f"{what}: a rerun gave other bits")
+    dq, dk, dv = runs[0]
+    del runs
+    kw = dict(causal=causal, segment_ids_q=sids[0], segment_ids_kv=sids[1],
+              scale=scale, **drop)
+    rdq, rdelta = fa.flash_bwd_dq_reference(q, k, v, out, lse, do, **kw)
+    dq_err = _fp32_err(dq, rdq, f"{what} dq", FP32_GRAD_TOL)
+    del rdq
+    rdk, rdv = fa.flash_bwd_dkdv_reference(q, k, v, lse, rdelta, do, **kw)
+    dkdv_err = max(_fp32_err(dk, rdk, f"{what} dk", FP32_GRAD_TOL),
+                   _fp32_err(dv, rdv, f"{what} dv", FP32_GRAD_TOL))
+    del rdk, rdv, rdelta
+    if sids[0] is not None:
+        pad = (sids[0] < 0)[:, None, :].expand(*q.shape[:3])
+        check(not bool(dq[pad].any()),
+              f"{what}: padding rows got a nonzero dq")
+    return out, lse, dict(shape=shape, dq_max_abs_err=dq_err,
+                          dkdv_max_abs_err=dkdv_err)
+
+
+def _f32_split_keep_pattern(torch, fa, gen, d, seed):
+    """Rate 0.5 (kept elements doubled), no mask, through the split's two
+    kernels. dk/dv with q = 0 (p = 1 / s) and do = I over sq = d rows:
+    dv is the dropped p transposed. dq over sk = d keys (key 0 = e_0, the
+    others 0), v = I, do = 1 and delta 0: dp = 1 everywhere, ds = p keep 2,
+    and dq[q] = ds[q, 0] e_0, nonzero exactly where key 0 is kept. Both
+    zero patterns are the plain mask bit for bit."""
+    b, h, s = 2, 3, 333
+    half = fa._dropout_args(0.5, seed)
+    eye = torch.eye(d, device="cuda").expand(b, h, d, d).contiguous()
+    k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda")
+            for _ in range(2))
+    q = torch.zeros(b, h, d, d, device="cuda")
+    _, lse = fa.flash_attention_fwd(q, k, v, None, None, False, 1.0, 0.5,
+                                    seed)
+    zero = torch.zeros(b, h, d, device="cuda")
+    _, dv = fa._flash_dkdv_cuda(q, k, v, eye, lse, zero, None, None, False,
+                                1.0, fa._NO_ROUNDS, dropout=half)
+    keep = fa.dropout_keep_reference(seed, b, h, d, s, 0.5, device="cuda")
+    what = f"flash fp32 split dropout keep pattern d{d}"
+    check(torch.equal(dv != 0, keep.transpose(-1, -2)),
+          f"{what}: dk/dv's keep pattern is not the plain mask")
+    n = keep.numel()
+    q = torch.randn(b, h, s, d, generator=gen, device="cuda")
+    k1 = torch.zeros(b, h, d, d, device="cuda")
+    k1[:, :, 0, 0] = 1.0
+    _, lse = fa.flash_attention_fwd(q, k1, eye, None, None, False, 1.0)
+    dq = fa._flash_dq_cuda(q, k1, eye, torch.ones_like(q), lse,
+                           torch.zeros(b, h, s, device="cuda"), None, None,
+                           False, 1.0, fa._NO_ROUNDS, dropout=half)
+    keep = fa.dropout_keep_reference(seed, b, h, s, d, 0.5, device="cuda")
+    check(torch.equal(dq[..., 0] != 0, keep[..., 0])
+          and not bool(dq[..., 1:].any()),
+          f"{what}: dq's keep pattern is not the plain mask")
+    return dict(case=what, rate=0.5, keep_elements=n + keep[..., 0].numel(),
+                bitwise=True)
+
+
+def check_flash_f32_split_dropout(torch, timer):
+    """B3's and B4's dropout variants on the fp32 FFMA route
+    (``flash_dkdv_f32_dropout_kernel`` and ``flash_dq_f32_dropout_kernel``
+    of ``csrc/flash_bwd_f32.cuh``) at :data:`F32_DROPOUT_SHAPES` (the
+    split forced) and the O0 long dropout path's b2 h16 s4096 d64 causal,
+    rate 0.1 (:func:`_f32_split_dropout_held`); the keep patterns bitwise
+    at d 64 and 128 (:func:`_f32_split_keep_pattern`); at the path's
+    shape the pair as routed against the plain backward, its device
+    launches of one call (profiler: one prologue, the two variants, no
+    twin), and each kernel timed beside its twin without dropout, its
+    plain version and SDPA fp32's backward with ``dropout_p=0.1`` (dq, dk
+    and dv together; TF32 off); ptxas's registers with no spill. The
+    bounds count the hash's integer operations beside the products at the
+    fp32 rate."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    checked = []
+    for b, h, sq, sk, d, causal, seg in F32_DROPOUT_SHAPES:
+        q, k, v, do, sids = _f32_inputs(torch, gen, b, h, sq, sk, d, seg)
+        shape = f"b{b} h{h} sq{sq} sk{sk} d{d}" + (" causal" if causal
+                                                   else "") + \
+            (" segments" if seg else "")
+        checked.append(_f32_split_dropout_held(torch, fa, q, k, v, do, sids,
+                                               causal, d ** -0.5, shape)[2])
+        del q, k, v, do, sids
+    bitwise = [_f32_split_keep_pattern(torch, fa, gen, 64, 7),
+               _f32_split_keep_pattern(torch, fa, gen, 128, -11)]
+    torch.cuda.empty_cache()
+
+    b, h, s, d = O0_LONG_B, 16, O0_LONG_S, 64
+    scale = d ** -0.5
+    q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device="cuda")
+                   for _ in range(4))
+    shape = f"b{b} h{h} s{s} d{d} fp32 causal, dropout {DROPOUT_RATE}"
+    check(fa.uses_split_backward(s, s, d, 4, 4, True, dropout=True),
+          f"the gate at s{s} d{d} fp32 with dropout: not the split")
+    out, lse, main = _f32_split_dropout_held(torch, fa, q, k, v, do,
+                                             (None, None), True, scale,
+                                             shape)
+    drop = dict(dropout_rate=DROPOUT_RATE,
+                dropout_seed=F32_SPLIT_DROPOUT_SEED)
+    dargs = fa._dropout_args(DROPOUT_RATE, F32_SPLIT_DROPOUT_SEED)
+    g = fa.flash_attention_bwd
+    n0 = (g.f32_dropout_dkdv_launches, g.f32_dropout_dq_launches, g.launches)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, None, None, True,
+                                 scale, **drop)
+    torch.cuda.synchronize()
+    check((g.f32_dropout_dkdv_launches - n0[0],
+           g.f32_dropout_dq_launches - n0[1], g.launches - n0[2])
+          == (1, 1, 0), f"flash fp32 split dropout {shape}: as routed, not "
+          "the split's dropout variants")
+    ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                           causal=True, scale=scale, **drop)
+    pair_err = {n: _fp32_err(x, r, f"flash fp32 split dropout {shape} as "
+                             f"routed {n}", FP32_GRAD_TOL)
+                for n, x, r in zip(("dq", "dk", "dv"), got, ref)}
+    del got, ref
+    torch.cuda.empty_cache()
+    dev = device_launches(torch, fa.flash_attention_bwd,
+                          (q, k, v, out, lse, do, None, None, True, scale),
+                          F32_CORE_KERNELS + F32_SPLIT_DROPOUT_KERNELS, drop)
+    want = {"flash_f32_prologue_kernel": 1, "flash_dkdv_f32_kernel": 0,
+            "flash_dq_f32_kernel": 0, "flash_bwd_f32_kernel": 0,
+            "flash_dkdv_f32_dropout_kernel": 1,
+            "flash_dq_f32_dropout_kernel": 1}
+    check({k_: dev[k_] for k_ in want} == want,
+          f"flash fp32 split dropout: device launches {dev} in one call, "
+          f"expected {want}")
+    delta = (do * out).sum(dim=-1)
+    args = (q, k, v, do, lse, delta, None, None, True, scale, fa._NO_ROUNDS)
+    ws = fa._f32_transposes(q)
+    fa._flash_dkdv_cuda(*args, ws=ws, dropout=dargs)
+    kw = dict(causal=True, scale=scale, **drop)
+    times = dict(
+        dkdv_ms=timer(lambda: fa._flash_dkdv_cuda(*args, dropout=dargs),
+                      iters=10),
+        dkdv_no_dropout_ms=timer(lambda: fa._flash_dkdv_cuda(*args),
+                                 iters=10),
+        dq_ms=timer(lambda: fa._flash_dq_cuda(*args, ws=ws, dropout=dargs),
+                    iters=10),
+        dq_no_dropout_ms=timer(lambda: fa._flash_dq_cuda(*args, ws=ws),
+                               iters=10),
+        as_called_ms=timer(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, do, None, None, True, scale, **drop),
+            iters=10),
+        dkdv_plain_ms=timer(lambda: fa.flash_bwd_dkdv_reference(
+            q, k, v, lse, delta, do, **kw), iters=3, warmup=1),
+        dq_plain_ms=timer(lambda: fa.flash_bwd_dq_reference(
+            q, k, v, out, lse, do, **kw), iters=3, warmup=1),
+        library_ms=timer(_grad_of(torch, lambda a, b_, c: (
+            F.scaled_dot_product_attention(a, b_, c, is_causal=True,
+                                           scale=scale,
+                                           dropout_p=DROPOUT_RATE)),
+            (q, k, v), do), iters=5))
+    pairs = b * h * s * (s + 1) // 2
+    sd4, side = b * h * s * d * 4, b * h * s * 4
+    dkdv_bound = bound(4 * 2.0 * d * pairs + DROPOUT_HASH_OPS * pairs,
+                       6 * sd4 + 2 * side, FP32_FLOPS_PER_S)
+    dq_bound = bound(3 * 2.0 * d * pairs + DROPOUT_HASH_OPS * pairs,
+                     5 * sd4 + 2 * side, FP32_FLOPS_PER_S)
+    del q, k, v, do, out, lse, delta, args, ws
+    torch.cuda.empty_cache()
+    common = dict(
+        route="cuda", source="apex_tpu_torch/csrc/flash_bwd_f32.cuh",
+        shape=shape, bitwise=bitwise, checked=checked, live_pairs=pairs,
+        tolerance=f"{FP32_GRAD_TOL} of max and in relative norm of the "
+                  "plain split kernel with the same seed; padding rows' dq "
+                  "exactly 0; a rerun bitwise; the keep pattern bitwise",
+        as_called_ms=times["as_called_ms"], pair_max_abs_err=pair_err,
+        device_launches_per_call=dev, library_ms=times["library_ms"],
+        library="backward of F.scaled_dot_product_attention(is_causal=True,"
+                f" dropout_p={DROPOUT_RATE}), exact fp32, its own random "
+                "stream: dq, dk and dv together",
+        registers=_ffma_registers(_build, "flash_bwd",
+                                  F32_SPLIT_DROPOUT_KERNELS))
+    return [
+        dict(name="flash_bwd_f32_dkdv_dropout",
+             replaces="apex_tpu/ops/flash_attention.py:558",
+             max_abs_err=main["dkdv_max_abs_err"], ms=times["dkdv_ms"],
+             no_dropout_ms=times["dkdv_no_dropout_ms"],
+             plain_ms=times["dkdv_plain_ms"],
+             plain="flash_bwd_dkdv_reference with the same seed",
+             bound_ms=dkdv_bound[0], bound_by=dkdv_bound[1], **common),
+        dict(name="flash_bwd_f32_dq_dropout",
+             replaces="apex_tpu/ops/flash_attention.py:671",
+             max_abs_err=main["dq_max_abs_err"], ms=times["dq_ms"],
+             no_dropout_ms=times["dq_no_dropout_ms"],
+             plain_ms=times["dq_plain_ms"],
+             plain="flash_bwd_dq_reference with the same seed",
+             bound_ms=dq_bound[0], bound_by=dq_bound[1], **common)]
+
+
+# ---------------------------------------------------------------------------
+# the additive bias on the fp32 FFMA route (B1's, B2's, B3's and B4's bias
+# variants): the shapes below (d 64 and 128, the four broadcast shapes, sq
+# != sk, odd sk, segment padding, a row -inf everywhere, a row -inf but for
+# key 0, which the mask keeps), then the O0 MHA paths' attentions:
+# train-o0-mha16's b1 h8 s3072 d128 (the future mask; split) and
+# train-o0-mha6's b28 h16 s128 d64 (the future mask and key padding; single
+# pass)
+# ---------------------------------------------------------------------------
+
+F32_BIAS_FWD_KERNELS = ("flash_fwd_f32_bias_kernel",)
+F32_BIAS_BWD_KERNELS = ("flash_bwd_f32_bias_kernel",
+                        "flash_dkdv_f32_bias_kernel",
+                        "flash_dq_f32_bias_kernel")
+F32_ONE_KEY_ROW = 1    # the row whose bias masks every key but key 0
+
+
+def _f32_bias_case(torch, fa, gen, case):
+    """One :func:`_bias_cases` shape in fp32 with row
+    :data:`F32_ONE_KEY_ROW` -inf but for key 0, which the mask keeps (its
+    p exactly 1 there): the forward against the plain version (out and
+    lse FP32_FWD_TOL), the single pass and the split's two kernels (dk/dv
+    folding delta, then dq on its scratch; both forced) against theirs
+    (FP32_GRAD_TOL), each bitwise on a rerun; a dead row's out and dq
+    exactly 0 and its lse the fill. Returns the case's record."""
+    *_, causal, _, dead = case
+    q, k, v, do, bias, sid_q, sid_kv, scale, what = _bias_case_inputs(
+        torch, gen, case, "flash fp32 bias")
+    bias[:, :, F32_ONE_KEY_ROW] = float("-inf")
+    bias[:, :, F32_ONE_KEY_ROW, 0] = 0.0
+    b, h, sq, _ = q.shape
+    sk = k.shape[2]
+    kw = dict(causal=causal, segment_ids_q=sid_q, segment_ids_kv=sid_kv,
+              scale=scale, bias=bias)
+    f, g = fa.flash_attention, fa.flash_attention_bwd
+    n0 = (f.f32_bias_launches, g.f32_bias_launches,
+          g.f32_bias_dkdv_launches, g.f32_bias_dq_launches)
+    out, lse = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal, scale,
+                                      bias=bias)
+    again = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal, scale,
+                                   bias=bias)
+    single = [fa._flash_bwd_cuda(q, k, v, out, lse, do, sid_q, sid_kv,
+                                 causal, scale, split=False, bias=bias)
+              for _ in range(2)]
+    bop = fa._bias_operand(bias, b, h, sq, sk, q.device, scale)
+    split = []
+    for _ in range(2):
+        delta = torch.empty((b, h, sq), dtype=torch.float32, device="cuda")
+        args = (q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
+                fa._NO_ROUNDS)
+        ws = fa._f32_transposes(q)
+        dk, dv = fa._flash_dkdv_cuda(*args, out=out, ws=ws, bias=bop)
+        split.append((fa._flash_dq_cuda(*args, ws=ws, bias=bop), dk, dv,
+                      delta))
+    torch.cuda.synchronize()
+    moved = (f.f32_bias_launches - n0[0], g.f32_bias_launches - n0[1],
+             g.f32_bias_dkdv_launches - n0[2], g.f32_bias_dq_launches - n0[3])
+    check(moved == (2, 2, 2, 2), f"{what}: bias launches (forward, single "
+          f"pass, dk/dv, dq) {moved}, expected 2 each")
+    one = out[:, :, F32_ONE_KEY_ROW]
+    check(torch.equal(one, v[:, :, 0].expand_as(one)),
+          f"{what}: the row with one live key is not v[0] bit for bit")
+    check(torch.equal(out, again[0]) and torch.equal(lse, again[1])
+          and all(torch.equal(x, y) for x, y in zip(*single))
+          and all(torch.equal(x, y) for x, y in zip(*split)),
+          f"{what}: a rerun gave other bits")
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
+    err = _fp32_err(out, ref, f"{what} forward", FP32_FWD_TOL)
+    lse_err = _lse_err(lse, ref_lse, what)
+    rgrads = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, **kw)
+    gerr = max(_fp32_err(x, r, f"{what} single pass {n}", FP32_GRAD_TOL)
+               for n, x, r in zip(("dq", "dk", "dv"), single[0], rgrads))
+    dq, dk, dv, delta = split[0]
+    rdq, rdelta = fa.flash_bwd_dq_reference(q, k, v, out, lse, do, **kw)
+    _fp32_err(delta, rdelta, f"{what} delta fold", FP32_FWD_TOL)
+    dq_err = _fp32_err(dq, rdq, f"{what} split dq", FP32_GRAD_TOL)
+    rdk, rdv = fa.flash_bwd_dkdv_reference(q, k, v, lse, delta, do, **kw)
+    dkdv_err = max(_fp32_err(dk, rdk, f"{what} split dk", FP32_GRAD_TOL),
+                   _fp32_err(dv, rdv, f"{what} split dv", FP32_GRAD_TOL))
+    if dead is not None:
+        check(out[:, :, dead].abs().max().item() == 0.0
+              and bool((lse[:, :, dead] == -1e30).all())
+              and single[0][0][:, :, dead].abs().max().item() == 0.0
+              and dq[:, :, dead].abs().max().item() == 0.0,
+              f"{what}: the row with no live key is not zero, -1e30")
+    return dict(case=what, max_abs_err=err, lse_rel_err=lse_err,
+                single_pass_max_abs_err=gerr, dq_max_abs_err=dq_err,
+                dkdv_max_abs_err=dkdv_err)
+
+
+def _f32_bias_shape(torch, b, h, s, d, min_len, gen):
+    """fp32 q, k, v, do at one O0 MHA path's attention, the future mask
+    as a [1, 1, s, s] bias, key padding of ``min_len``-``s`` real tokens a
+    sequence as segment ids (or none), the SDPA mask of both and the live
+    pairs this run's data needs."""
+    q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device="cuda")
+                   for _ in range(4))
+    bias = future_mask(torch, s)[None, None]
+    if min_len is None:
+        sids, pad = (None, None), 0.0
+        sid_kv = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+    else:
+        lens = torch.from_numpy(mha6_lengths()).cuda()
+        sid_kv = torch.where(torch.arange(s, device="cuda")[None]
+                             < lens[:, None], 0, -1).to(torch.int32)
+        sids = (torch.zeros(b, s, dtype=torch.int32, device="cuda"), sid_kv)
+        pad = torch.where(sid_kv < 0, float("-inf"), 0.0)[:, None, None]
+    return (q, k, v, do, bias, sids, bias + pad,
+            _bias_live_pairs(torch, bias, sid_kv, h))
+
+
+def check_flash_f32_bias(torch, timer):
+    """B1's, B2's, B3's and B4's bias variants on the fp32 FFMA route
+    (``flash_fwd_f32_bias_kernel`` of ``csrc/flash_fwd_f32.cuh``;
+    ``flash_bwd_f32_bias_kernel``, ``flash_dkdv_f32_bias_kernel`` and
+    ``flash_dq_f32_bias_kernel`` of ``csrc/flash_bwd_f32.cuh``: the tile's
+    bias / scale loaded into the S accumulators before the product) at
+    :func:`_bias_cases`' shapes in fp32 (:func:`_f32_bias_case`); then at
+    train-o0-mha16's b1 h8 s3072 d128 (the future mask; the gate splits)
+    the forward and the split as routed against the plain versions, and
+    at train-o0-mha6's b28 h16 s128 d64 (the future mask and key padding;
+    the single pass) the single pass as routed, its device launches of
+    one call (profiler: one prologue, the variant); each kernel timed
+    beside its twin without the bias (the same shape, no mask), its plain
+    version and SDPA fp32 with the same mask as ``attn_mask`` (TF32 off);
+    the bounds count the live pairs this run's data needs (a finite bias
+    and a real key) and the bias read once; ptxas's registers with no
+    spill."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    checked = [_f32_bias_case(torch, fa, gen, (torch.float32, *c[1:]))
+               for c in _bias_cases(torch)]
+    torch.cuda.empty_cache()
+
+    # train-o0-mha16's attention: the forward and the split
+    b, h, s, d = MHA16_B, MHA16_HEADS, MHA16_S, MHA_E // MHA16_HEADS
+    scale = d ** -0.5
+    q, k, v, do, bias, sids, mask, pairs = _f32_bias_shape(torch, b, h, s, d,
+                                                           None, gen)
+    split_shape = f"b{b} h{h} s{s} d{d} fp32, bias [1, 1, {s}, {s}] (the " \
+                  "future mask)"
+    check(fa.uses_split_backward(s, s, d, 4, 4, bias=True),
+          f"the gate at s{s} d{d} fp32 with a bias: not the split")
+    f, g = fa.flash_attention, fa.flash_attention_bwd
+    n0 = (f.f32_bias_launches, g.f32_bias_dkdv_launches,
+          g.f32_bias_dq_launches, g.launches)
+    out, lse = fa.flash_attention_fwd(q, k, v, *sids, False, scale,
+                                      bias=bias)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, *sids, False, scale,
+                                 bias=bias)
+    torch.cuda.synchronize()
+    moved = (f.f32_bias_launches - n0[0], g.f32_bias_dkdv_launches - n0[1],
+             g.f32_bias_dq_launches - n0[2], g.launches - n0[3])
+    check(moved == (1, 1, 1, 0), f"flash fp32 bias {split_shape}: launches "
+          f"(forward, dk/dv, dq, single pass) {moved}, expected the bias "
+          "variants once each")
+    kw = dict(scale=scale, bias=bias)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
+    fwd_err = _fp32_err(out, ref, f"flash fp32 bias {split_shape} forward",
+                        FP32_FWD_TOL)
+    _lse_err(lse, ref_lse, f"flash fp32 bias {split_shape}")
+    del ref, ref_lse
+    rgrads = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, **kw)
+    split_err = {n: _fp32_err(x, r, f"flash fp32 bias {split_shape} {n}",
+                              FP32_GRAD_TOL)
+                 for n, x, r in zip(("dq", "dk", "dv"), got, rgrads)}
+    del got, rgrads
+    delta = (do * out).sum(dim=-1)
+    args = (q, k, v, do, lse, delta, None, None, False, scale,
+            fa._NO_ROUNDS)
+    bop = fa._bias_operand(bias, b, h, s, s, q.device, scale)
+    ws = fa._f32_transposes(q)
+    fa._flash_dkdv_cuda(*args, ws=ws)
+    sd4, side = b * h * s * d * 4, b * h * s * 4
+    bias_bytes = bias.numel() * 4
+    split_times = dict(
+        fwd_ms=timer(lambda: fa.flash_attention_fwd(
+            q, k, v, None, None, False, scale, bias=bias), iters=10),
+        fwd_no_bias_ms=timer(lambda: fa.flash_attention_fwd(
+            q, k, v, None, None, False, scale), iters=10),
+        fwd_plain_ms=timer(lambda: fa.flash_attention_reference(
+            q, k, v, **kw), iters=3, warmup=1),
+        fwd_library_ms=timer(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale), iters=10),
+        dkdv_ms=timer(lambda: fa._flash_dkdv_cuda(*args, bias=bop),
+                      iters=10),
+        dkdv_no_bias_ms=timer(lambda: fa._flash_dkdv_cuda(*args), iters=10),
+        dq_ms=timer(lambda: fa._flash_dq_cuda(*args, ws=ws, bias=bop),
+                    iters=10),
+        dq_no_bias_ms=timer(lambda: fa._flash_dq_cuda(*args, ws=ws),
+                            iters=10),
+        as_called_ms=timer(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, do, None, None, False, scale, bias=bias),
+            iters=10),
+        dkdv_plain_ms=timer(lambda: fa.flash_bwd_dkdv_reference(
+            q, k, v, lse, delta, do, **kw), iters=3, warmup=1),
+        dq_plain_ms=timer(lambda: fa.flash_bwd_dq_reference(
+            q, k, v, out, lse, do, **kw), iters=3, warmup=1),
+        library_ms=timer(_grad_of(torch, lambda a, b_, c: (
+            F.scaled_dot_product_attention(a, b_, c, attn_mask=mask,
+                                           scale=scale)), (q, k, v), do),
+            iters=5))
+    f_bound = bound(4.0 * d * pairs, 4 * sd4 + side + bias_bytes,
+                    FP32_FLOPS_PER_S)
+    dkdv_bound = bound(4 * 2.0 * d * pairs, 6 * sd4 + 2 * side + bias_bytes,
+                       FP32_FLOPS_PER_S)
+    dq_bound = bound(3 * 2.0 * d * pairs, 5 * sd4 + 2 * side + bias_bytes,
+                     FP32_FLOPS_PER_S)
+    split_pairs = pairs
+    del q, k, v, do, out, lse, delta, args, ws, bias, mask, bop
+    torch.cuda.empty_cache()
+
+    # train-o0-mha6's attention: the single pass
+    b, h, s, d = MHA6_B, MHA_HEADS, MHA6_S, MHA_E // MHA_HEADS
+    scale = d ** -0.5
+    q, k, v, do, bias, sids, mask, pairs = _f32_bias_shape(
+        torch, b, h, s, d, MHA6_MIN_LEN, gen)
+    single_shape = f"b{b} h{h} s{s} d{d} fp32, bias [1, 1, {s}, {s}] (the " \
+                   f"future mask), key padding {MHA6_MIN_LEN}-{s}"
+    check(not fa.uses_split_backward(s, s, d, 4, 4, bias=True),
+          f"the gate at s{s} d{d} fp32 with a bias: not the single pass")
+    out, lse = fa.flash_attention_fwd(q, k, v, *sids, False, scale,
+                                      bias=bias)
+    n0 = (g.f32_bias_launches, g.dkdv_launches)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, *sids, False, scale,
+                                 bias=bias)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, *sids, False,
+                                   scale, bias=bias)
+    torch.cuda.synchronize()
+    check((g.f32_bias_launches - n0[0], g.dkdv_launches - n0[1]) == (2, 0),
+          f"flash fp32 bias {single_shape}: not the single pass's bias "
+          "variant")
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"flash fp32 bias {single_shape}: a rerun gave other bits")
+    kw = dict(segment_ids_q=sids[0], segment_ids_kv=sids[1], scale=scale,
+              bias=bias)
+    single_err = {n: _fp32_err(x, r, f"flash fp32 bias {single_shape} {n}",
+                               FP32_GRAD_TOL)
+                  for n, x, r in zip(("dq", "dk", "dv"), got,
+                                     fa.flash_attention_bwd_reference(
+                                         q, k, v, out, lse, do, **kw))}
+    dev = device_launches(torch, fa.flash_attention_bwd,
+                          (q, k, v, out, lse, do, *sids, False, scale),
+                          F32_CORE_KERNELS + F32_BIAS_BWD_KERNELS,
+                          dict(bias=bias))
+    want = {"flash_f32_prologue_kernel": 1, "flash_bwd_f32_kernel": 0,
+            "flash_bwd_f32_bias_kernel": 1, "flash_dkdv_f32_bias_kernel": 0,
+            "flash_dq_f32_bias_kernel": 0}
+    check({k_: dev[k_] for k_ in want} == want,
+          f"flash fp32 bias single pass: device launches {dev} in one call, "
+          f"expected {want}")
+    sd4, side = b * h * s * d * 4, b * h * s * 4
+    bias_bytes = bias.numel() * 4 + 2 * b * s * 4
+    single_times = dict(
+        ms=timer(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, do, *sids, False, scale, bias=bias),
+            iters=10),
+        no_bias_ms=timer(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, do, *sids, False, scale), iters=10),
+        plain_ms=timer(lambda: fa.flash_attention_bwd_reference(
+            q, k, v, out, lse, do, **kw), iters=3, warmup=1),
+        library_ms=timer(_grad_of(torch, lambda a, b_, c: (
+            F.scaled_dot_product_attention(a, b_, c, attn_mask=mask,
+                                           scale=scale)), (q, k, v), do),
+            iters=10))
+    b_bound = bound(10.0 * d * pairs, 8 * sd4 + 2 * side + bias_bytes,
+                    FP32_FLOPS_PER_S)
+    del q, k, v, do, out, lse, got, again, bias, mask
+    torch.cuda.empty_cache()
+    common = dict(
+        route="cuda", checked=checked,
+        tolerance=f"out and lse {FP32_FWD_TOL}, gradients {FP32_GRAD_TOL}, "
+                  "of max and in relative norm, of the plain versions with "
+                  "the same bias; a dead row's out and dq exactly 0, its "
+                  "lse the fill; a rerun bitwise",
+        library="F.scaled_dot_product_attention(attn_mask=the bias and the "
+                "padding as one fp32 mask), exact fp32 (backward: dq, dk "
+                "and dv together)")
+    fwd_regs = _ffma_registers(_build, "flash_fwd", F32_BIAS_FWD_KERNELS)
+    bwd_regs = _ffma_registers(_build, "flash_bwd", F32_BIAS_BWD_KERNELS)
+    split_common = dict(common, shape=split_shape, live_pairs=split_pairs,
+                        source="apex_tpu_torch/csrc/flash_bwd_f32.cuh",
+                        library_ms=split_times["library_ms"],
+                        as_called_ms=split_times["as_called_ms"],
+                        pair_max_abs_err=split_err, registers=bwd_regs)
+    return [
+        dict(name="flash_fwd_f32_bias", source="apex_tpu_torch/csrc/"
+             "flash_fwd_f32.cuh", replaces="apex_tpu/ops/flash_attention.py"
+             ":251", max_abs_err=fwd_err, ms=split_times["fwd_ms"],
+             no_bias_ms=split_times["fwd_no_bias_ms"],
+             plain_ms=split_times["fwd_plain_ms"],
+             plain="flash_attention_reference with the same bias",
+             library_ms=split_times["fwd_library_ms"], bound_ms=f_bound[0],
+             bound_by=f_bound[1], shape=split_shape, live_pairs=split_pairs,
+             registers=fwd_regs, **common),
+        dict(name="flash_bwd_f32_bias",
+             source="apex_tpu_torch/csrc/flash_bwd_f32.cuh",
+             replaces="apex_tpu/ops/flash_attention.py:604",
+             max_abs_err=max(single_err.values()), ms=single_times["ms"],
+             no_bias_ms=single_times["no_bias_ms"],
+             plain_ms=single_times["plain_ms"],
+             plain="flash_attention_bwd_reference with the same bias",
+             library_ms=single_times["library_ms"], bound_ms=b_bound[0],
+             bound_by=b_bound[1], shape=single_shape, live_pairs=pairs,
+             as_called="flash_attention_bwd (the zeroed turns, two "
+                       "transposes and the delta fold, the kernel)",
+             device_launches_per_call=dev, registers=bwd_regs, **common),
+        dict(name="flash_bwd_f32_dkdv_bias",
+             replaces="apex_tpu/ops/flash_attention.py:558",
+             max_abs_err=max(split_err["dk"], split_err["dv"]),
+             ms=split_times["dkdv_ms"],
+             no_bias_ms=split_times["dkdv_no_bias_ms"],
+             plain_ms=split_times["dkdv_plain_ms"],
+             plain="flash_bwd_dkdv_reference with the same bias",
+             bound_ms=dkdv_bound[0], bound_by=dkdv_bound[1], **split_common),
+        dict(name="flash_bwd_f32_dq_bias",
+             replaces="apex_tpu/ops/flash_attention.py:671",
+             max_abs_err=split_err["dq"], ms=split_times["dq_ms"],
+             no_bias_ms=split_times["dq_no_bias_ms"],
+             plain_ms=split_times["dq_plain_ms"],
+             plain="flash_bwd_dq_reference with the same bias",
+             bound_ms=dq_bound[0], bound_by=dq_bound[1], **split_common)]
+
+
 # the wgmma flash kernels in ptxas's log: the split's two, the forward (its
 # second parameter the rows a block: 1 or 2 consumer warpgroups) and the
 # single pass; their DROP and (forward, single pass) BIAS parameters
@@ -4058,9 +4656,9 @@ def counters():
     and the wgmma forward's, single pass's and split's bias variants
     (``*_bias``) apart from both, and the wgmma forward's, single pass's
     and split's variants with both (``*_bias_dropout``) apart from all
-    three, and the fp32 FFMA forward's and single pass's dropout variants
-    (``flash_fwd_f32_dropout``, ``flash_bwd_f32_dropout``) apart from their
-    kernels without."""
+    three, and the fp32 FFMA forward's, single pass's and split's dropout
+    and bias variants (``flash_*_f32_*dropout``, ``flash_*_f32_*bias``)
+    apart from their kernels without."""
     from apex_tpu_torch.ops import flash_attention as fa
     from apex_tpu_torch.ops import fp8_matmul as mm
     from apex_tpu_torch.ops import fused_ce as xe
@@ -4079,6 +4677,7 @@ def counters():
             "flash_fwd_f32": (fa.flash_attention, "f32_launches"),
             "flash_fwd_f32_dropout": (fa.flash_attention,
                                       "f32_dropout_launches"),
+            "flash_fwd_f32_bias": (fa.flash_attention, "f32_bias_launches"),
             "paged_decode": (fa.paged_decode_attention, "launches"),
             "paged_decode_fp8": (fa.paged_decode_attention, "fp8_launches"),
             "layer_norm_fwd": (ln.fused_layer_norm_affine, "launches"),
@@ -4094,6 +4693,8 @@ def counters():
             "flash_bwd_f32": (fa.flash_attention_bwd, "f32_launches"),
             "flash_bwd_f32_dropout": (fa.flash_attention_bwd,
                                       "f32_dropout_launches"),
+            "flash_bwd_f32_bias": (fa.flash_attention_bwd,
+                                   "f32_bias_launches"),
             "layer_norm_bwd": (ln.layer_norm_bwd, "launches"),
             "lm_head_ce_fwd": (ce.lm_head_ce_fwd, "launches"),
             "lm_head_ce_bwd": (ce.lm_head_ce_bwd, "launches"),
@@ -4123,6 +4724,14 @@ def counters():
             "flash_bwd_f32_dkdv": (fa.flash_attention_bwd,
                                    "f32_dkdv_launches"),
             "flash_bwd_f32_dq": (fa.flash_attention_bwd, "f32_dq_launches"),
+            "flash_bwd_f32_dkdv_dropout": (fa.flash_attention_bwd,
+                                           "f32_dropout_dkdv_launches"),
+            "flash_bwd_f32_dq_dropout": (fa.flash_attention_bwd,
+                                         "f32_dropout_dq_launches"),
+            "flash_bwd_f32_dkdv_bias": (fa.flash_attention_bwd,
+                                        "f32_bias_dkdv_launches"),
+            "flash_bwd_f32_dq_bias": (fa.flash_attention_bwd,
+                                      "f32_bias_dq_launches"),
             "xentropy_fwd": (xe.softmax_cross_entropy_with_smoothing,
                              "launches"),
             "xentropy_bwd": (xe.softmax_cross_entropy_with_smoothing,
@@ -4158,9 +4767,10 @@ def read_counters():
     ``*_dropout`` those with; and the wgmma forward's, single pass's and
     split's less their bias variants' (``*_bias``) and the variants with
     both (``*_bias_dropout``; a launch with both counts there alone); and
-    the FFMA forward's and single pass's less their dropout variants', so
-    that ``flash_fwd_f32`` and ``flash_bwd_f32`` count the kernels without
-    dropout and ``*_f32_dropout`` those with."""
+    the FFMA forward's, single pass's and split's less their dropout and
+    bias variants', so that ``flash_fwd_f32``, ``flash_bwd_f32``,
+    ``flash_bwd_f32_dkdv`` and ``flash_bwd_f32_dq`` count the kernels
+    without a variant and ``*_dropout``, ``*_bias`` those with."""
     out = {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
     out["fp8_matmul"] -= out["fp8_matmul_prefill"]
     out["lm_head_ce_fwd"] -= out["lm_head_ce_fwd_f32"]
@@ -4170,8 +4780,14 @@ def read_counters():
     out["flash_bwd_dkdv"] -= out["flash_bwd_dkdv_sm90"] + \
         out["flash_bwd_f32_dkdv"]
     out["flash_bwd_dq"] -= out["flash_bwd_dq_sm90"] + out["flash_bwd_f32_dq"]
-    out["flash_fwd_f32"] -= out["flash_fwd_f32_dropout"]
-    out["flash_bwd_f32"] -= out["flash_bwd_f32_dropout"]
+    out["flash_fwd_f32"] -= out["flash_fwd_f32_dropout"] + \
+        out["flash_fwd_f32_bias"]
+    out["flash_bwd_f32"] -= out["flash_bwd_f32_dropout"] + \
+        out["flash_bwd_f32_bias"]
+    out["flash_bwd_f32_dkdv"] -= out["flash_bwd_f32_dkdv_dropout"] + \
+        out["flash_bwd_f32_dkdv_bias"]
+    out["flash_bwd_f32_dq"] -= out["flash_bwd_f32_dq_dropout"] + \
+        out["flash_bwd_f32_dq_bias"]
     out["flash_fwd_sm90"] -= out["flash_fwd_sm90_dropout"] + \
         out["flash_fwd_sm90_bias"] + out["flash_fwd_sm90_bias_dropout"]
     out["flash_bwd_fused_sm90"] -= out["flash_bwd_fused_sm90_dropout"] + \
@@ -4400,7 +5016,11 @@ TRAIN_PER_STEP = {"flash_fwd": 0, "flash_fwd_sm90": 12, "flash_fwd_f32": 0,
                   "flash_bwd_fused_sm90_bias_dropout": 0,
                   "flash_fwd_f32_dropout": 0, "flash_bwd_f32_dropout": 0,
                   "flash_bwd_f32": 0, "flash_bwd_f32_dkdv": 0,
-                  "flash_bwd_f32_dq": 0, "xentropy_fwd": 0,
+                  "flash_bwd_f32_dq": 0, "flash_fwd_f32_bias": 0,
+                  "flash_bwd_f32_bias": 0, "flash_bwd_f32_dkdv_bias": 0,
+                  "flash_bwd_f32_dq_bias": 0,
+                  "flash_bwd_f32_dkdv_dropout": 0,
+                  "flash_bwd_f32_dq_dropout": 0, "xentropy_fwd": 0,
                   "xentropy_bwd": 0, "multi_tensor_update": 0,
                   "multi_tensor_update_lamb": 0}
 
@@ -4805,12 +5425,13 @@ def mha_loss(stack, x, target, kpm, mask, generator=None, reference=False):
     return (x.float() - target).square().mean()
 
 
-def mha_batch(torch, s, b, mask: bool, lens=None):
-    """``(x, target, key_padding_mask, attn_mask)``: x bf16 from numpy seed
-    0, the target fp32 from seed 1; with ``mask`` fairseq's future mask,
-    with ``lens`` (each sequence's real tokens) the key padding."""
+def mha_batch(torch, s, b, mask: bool, lens=None, dtype=None):
+    """``(x, target, key_padding_mask, attn_mask)``: x from numpy seed 0 in
+    ``dtype`` (bf16 when None), the target fp32 from seed 1; with ``mask``
+    fairseq's future mask, with ``lens`` (each sequence's real tokens) the
+    key padding."""
     x = torch.from_numpy(np.random.RandomState(0).randn(
-        s, b, MHA_E).astype(np.float32)).cuda().bfloat16()
+        s, b, MHA_E).astype(np.float32)).cuda().to(dtype or torch.bfloat16)
     target = torch.from_numpy(np.random.RandomState(1).randn(
         s, b, MHA_E).astype(np.float32)).cuda()
     kpm = None
@@ -4821,25 +5442,30 @@ def mha_batch(torch, s, b, mask: bool, lens=None):
 
 
 def run_mha_path(torch, kw, s, b, per_step, what, mask, lens=None,
-                 layers=MHA_LAYERS, heads=MHA_HEADS, lr=LR):
-    """The O2 ``FusedAdam`` step (dynamic scale, ``amp.make_train_step``)
-    of a ``layers``-layer stack of ``heads`` heads over
-    :func:`mha_batch`'s batch: a warm-up, then :data:`MHA_STEPS` timed
-    steps with the counters reset just before, 2 traced; finite, falling
-    losses and each kernel's launches a step as ``per_step`` has them.
-    Attention dropout from one host generator."""
+                 layers=MHA_LAYERS, heads=MHA_HEADS, lr=LR, opt_level="O2"):
+    """The ``FusedAdam`` step (``amp.make_train_step``) at ``opt_level``
+    (O2: a dynamic scale and a bf16 batch; O0: fp32 throughout) of a
+    ``layers``-layer stack of ``heads`` heads over :func:`mha_batch`'s
+    batch: a warm-up, then :data:`MHA_STEPS` timed steps with the counters
+    reset just before, 2 traced; finite, falling losses and each kernel's
+    launches a step as ``per_step`` has them. Attention dropout from one
+    host generator."""
     from apex_tpu_torch import amp
     from apex_tpu_torch.optimizers import FusedAdam
     stack = mha_stack(torch, layers, kw, heads)
-    amp_model, opt = amp.initialize(stack, FusedAdam(lr=lr), opt_level="O2",
-                                    loss_scale="dynamic", verbosity=0)
+    o2 = opt_level == "O2"
+    amp_model, opt = amp.initialize(stack, FusedAdam(lr=lr),
+                                    opt_level=opt_level, verbosity=0,
+                                    **(dict(loss_scale="dynamic") if o2
+                                       else {}))
     amp_model.cast_params()
     state = opt.init(stack.parameters())
     sstate = opt._scaler.state
     gen = torch.Generator().manual_seed(DROP_GEN_SEED)
     step = amp.make_train_step(
         lambda m, x, t, kpm, mask: mha_loss(m, x, t, kpm, mask, gen), opt)
-    batch = mha_batch(torch, s, b, mask, lens)
+    batch = mha_batch(torch, s, b, mask, lens,
+                      None if o2 else torch.float32)
     _, state, sstate, _ = step(stack, state, sstate, *batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4867,7 +5493,8 @@ def run_mha_path(torch, kw, s, b, per_step, what, mask, lens=None,
 
     trace = _profile(torch, one, 2)
     stats = dict(layers=layers, embed=MHA_E, heads=heads, batch=b, lr=lr,
-                 seq=s, module_options=kw, steps=MHA_STEPS, losses=losses,
+                 seq=s, opt_level=opt_level, module_options=kw,
+                 steps=MHA_STEPS, losses=losses,
                  step_ms_median=float(np.median(ms)),
                  step_ms_p90=float(np.percentile(ms, 90)), step_ms_all=ms,
                  tokens_per_s=b * s / (np.median(ms) / 1e3),
@@ -4921,11 +5548,12 @@ def run_mha6_path(torch):
                         mha6_lengths(), layers=MHA6_LAYERS)
 
 
-def _twin_grads(torch, what, params, loss_of):
+def _twin_grads(torch, what, params, loss_of, loss_tol=GRAD_LOSS_TOL,
+                norm_tol=GRAD_NORM_TOL):
     """The loss and every gradient (``params``: name -> tensor) through the
     kernels against the plain versions (``loss_of(reference)``): loss
-    :data:`GRAD_LOSS_TOL`, each gradient :data:`GRAD_NORM_TOL` in relative
-    norm."""
+    ``loss_tol`` (:data:`GRAD_LOSS_TOL`), each gradient ``norm_tol``
+    (:data:`GRAD_NORM_TOL`) in relative norm."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     names, ts = zip(*params.items())
@@ -4935,14 +5563,14 @@ def _twin_grads(torch, what, params, loss_of):
     ref = torch.autograd.grad(ref_loss, ts)
     loss, ref_loss = loss.detach(), ref_loss.detach()
     dloss = abs(float(loss) - float(ref_loss))
-    check(dloss <= GRAD_LOSS_TOL, f"{what}: loss kernels {float(loss)} vs "
+    check(dloss <= loss_tol, f"{what}: loss kernels {float(loss)} vs "
           f"plain {float(ref_loss)}")
     worst = []
     for name, g, r in zip(names, grads, ref):
         rel = ((g.float() - r.float()).norm()
                / r.float().norm().clamp_min(1e-30)).item()
         worst.append((rel, name))
-        check(rel <= GRAD_NORM_TOL, f"{what} grad {name}: relative norm "
+        check(rel <= norm_tol, f"{what} grad {name}: relative norm "
               f"error {rel}")
     worst.sort(reverse=True)
     return dict(loss_kernels=float(loss), loss_plain=float(ref_loss),
@@ -5819,29 +6447,36 @@ O0_LOSS_TOL = 1e-5
 O0_GRAD_TOL = 1e-4
 
 
-def run_o0_path(torch, dropout=False):
+def run_o0_path(torch, dropout=False, b=O0_B, s=O0_S, steps=O0_STEPS,
+                per_step=None):
     """An O0 (fp32) GPT training step through the kernels: 2 layers at
-    full width (h1024, 16 heads, V32768), b8 s1024, FusedAdam through
-    amp.make_train_step; then the loss and every gradient against the
-    plain versions differentiated by autograd. With ``dropout``
-    (train-o0-dropout-gpt2-b8s1024): Megatron's attention and hidden
-    dropout 0.1 (:func:`dropout_config`) in training mode, the check's two
-    sides from a host generator in the same state (the same attention
-    seeds and hidden masks), the steps from one host generator."""
+    full width (h1024, 16 heads, V32768), ``b`` x ``s`` (b8 s1024),
+    FusedAdam through amp.make_train_step; first the loss and every
+    gradient against the plain versions differentiated by autograd (the
+    plain twin's peak memory recorded). With ``dropout``
+    (train-o0-dropout-gpt2-b8s1024, and at b2 s4096 through the split):
+    Megatron's attention and hidden dropout 0.1 (:func:`dropout_config`)
+    in training mode, the check's two sides from a host generator in the
+    same state (the same attention seeds and hidden masks), the steps from
+    one host generator. Then a warm-up and ``steps`` counted steps, each
+    kernel's launches a step as ``per_step`` has them; finite losses, and
+    falling where the run has more than two steps."""
     import dataclasses
     from apex_tpu_torch import amp
     from apex_tpu_torch.models.gpt import GPT
     from apex_tpu_torch.optimizers import FusedAdam
-    cfg = dataclasses.replace(gpt_config(), num_layers=O0_LAYERS,
-                              dtype=torch.float32)
+    cfg = dataclasses.replace(gpt_config(max_seq_len=max(s, 1024)),
+                              num_layers=O0_LAYERS, dtype=torch.float32)
     if dropout:
         cfg = dropout_config(cfg)
+    if per_step is None:
+        per_step = O0_DROP_PER_STEP if dropout else O0_PER_STEP
     model = GPT.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cuda")
-    ids, labels = train_batch(torch, cfg, O0_B, O0_S)
+    ids, labels = train_batch(torch, cfg, b, s)
     params = list(model.named_parameters())
 
-    what = "O0 dropout" if dropout else "O0"
+    what = f"O0{' dropout' if dropout else ''} b{b} s{s}"
 
     def loss_of(reference):
         kw = dict(deterministic=False, generator=torch.Generator()
@@ -5850,8 +6485,11 @@ def run_o0_path(torch, dropout=False):
 
     loss = loss_of(False)
     grads = torch.autograd.grad(loss, [p for _, p in params])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ref_loss = loss_of(True)
     ref = torch.autograd.grad(ref_loss, [p for _, p in params])
+    plain_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     loss, ref_loss = loss.detach(), ref_loss.detach()
     dloss = abs(float(loss) - float(ref_loss))
     check(dloss <= O0_LOSS_TOL * abs(float(ref_loss)),
@@ -5875,19 +6513,20 @@ def run_o0_path(torch, dropout=False):
     torch.cuda.synchronize()
     reset_counters()
     losses, times = [], []
-    for _ in range(O0_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         _, state, sstate, l_ = step(model, state, sstate, ids, labels)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
         losses.append(float(l_))
     launches = read_counters()
-    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+    check(all(np.isfinite(losses))
+          and (steps <= 2 or losses[-1] < losses[0]),
           f"{what} losses {losses}")
-    for k, per in (O0_DROP_PER_STEP if dropout else O0_PER_STEP).items():
-        check(launches[k] == per * O0_STEPS,
+    for k, per in per_step.items():
+        check(launches[k] == per * steps,
               f"{what} {k}: {launches[k]} launches, expected "
-              f"{per * O0_STEPS}")
+              f"{per * steps}")
     box = [state, sstate]
 
     def one():
@@ -5895,15 +6534,16 @@ def run_o0_path(torch, dropout=False):
 
     # one more step under torch.profiler: device time by kernel class
     trace_one = _profile(torch, one, 1)
-    return dict(layers=O0_LAYERS, batch=O0_B, seq=O0_S, dtype="float32",
+    return dict(layers=O0_LAYERS, batch=b, seq=s, dtype="float32",
                 attention_dropout=cfg.attention_dropout,
                 hidden_dropout=cfg.hidden_dropout, trace=trace_one,
                 loss_kernels=float(loss), loss_plain=float(ref_loss),
                 loss_abs_diff=dloss, worst_grad_rel_norm=worst[:5],
                 median_grad_rel_norm=float(np.median([w for w, _ in worst])),
+                plain_twin_peak_mem_gb=plain_peak_gb,
                 losses=losses, step_ms_all=times,
                 step_ms_median=float(np.median(times)),
-                tokens_per_s=O0_B * O0_S / (np.median(times) / 1e3),
+                tokens_per_s=b * s / (np.median(times) / 1e3),
                 launches=launches)
 
 
@@ -5916,6 +6556,106 @@ O0_LONG_PER_STEP = {**O0_PER_STEP, "flash_bwd_f32": 0,
 
 def run_o0_dropout_path(torch):
     return run_o0_path(torch, dropout=True)
+
+
+# train-o0-dropout-gpt2-b2s4096: the O0 long path with Megatron's dropout,
+# every split's dk/dv and dq on the FFMA split's dropout variants
+O0_LONG_DROP_PER_STEP = {**O0_LONG_PER_STEP, "flash_fwd_f32": 0,
+                         "flash_fwd_f32_dropout": O0_LAYERS,
+                         "flash_bwd_f32_dkdv": 0, "flash_bwd_f32_dq": 0,
+                         "flash_bwd_f32_dkdv_dropout": O0_LAYERS,
+                         "flash_bwd_f32_dq_dropout": O0_LAYERS}
+
+
+def run_o0_long_dropout_path(torch):
+    """train-o0-dropout-gpt2-b2s4096: the fp32 twin of
+    train-dropout-gpt12-h1024-b2s4096, the grad check at the full shape."""
+    from apex_tpu_torch.ops import flash_attention as fa
+    check(fa.uses_split_backward(O0_LONG_S, O0_LONG_S, 64, 4, 4, True,
+                                 dropout=True),
+          f"the gate at s{O0_LONG_S} fp32 with dropout: not the split")
+    return run_o0_path(torch, dropout=True, b=O0_LONG_B, s=O0_LONG_S,
+                       steps=O0_LONG_STEPS, per_step=O0_LONG_DROP_PER_STEP)
+
+
+# the O0 twins of the bias MHA paths (fairseq trains in fp32 without
+# --fp16): every flash launch on the FFMA route's bias variants, the
+# LayerNorm pair of norm_add; dropout 0, as the FFMA route has no variant
+# with the bias and dropout together yet
+O0_MHA16_PER_STEP = {**{k: 0 for k in TRAIN_PER_STEP},
+                     "flash_fwd_f32_bias": MHA16_LAYERS,
+                     "flash_bwd_f32_dkdv_bias": MHA16_LAYERS,
+                     "flash_bwd_f32_dq_bias": MHA16_LAYERS,
+                     "layer_norm_fwd": MHA16_LAYERS,
+                     "layer_norm_bwd": MHA16_LAYERS}
+O0_MHA6_PER_STEP = {**{k: 0 for k in TRAIN_PER_STEP},
+                    "flash_fwd_f32_bias": MHA6_LAYERS,
+                    "flash_bwd_f32_bias": MHA6_LAYERS,
+                    "layer_norm_fwd": MHA6_LAYERS,
+                    "layer_norm_bwd": MHA6_LAYERS}
+
+
+def _o0_mha_grad_check(torch, what, s, b, heads, lens, per_layer):
+    """A 2-layer full-width fp32 stack of the path's configuration through
+    the kernels against ``reference=True``: loss :data:`O0_LOSS_TOL`
+    (absolute: the MSE is above 1, so stricter than relative), every
+    gradient :data:`O0_GRAD_TOL` in relative norm; the
+    FFMA bias variants' launches (``per_layer`` of each a layer) asserted."""
+    stack = mha_stack(torch, MHA_GRAD_LAYERS, MHA_BIAS_KW, heads)
+    batch = mha_batch(torch, s, b, True, lens, torch.float32)
+
+    def loss_of(reference):
+        return mha_loss(stack, *batch, reference=reference)
+
+    reset_counters()
+    out = _twin_grads(torch, what, dict(stack.named_parameters()), loss_of,
+                      O0_LOSS_TOL, O0_GRAD_TOL)
+    launches = read_counters()
+    for k, per in per_layer.items():
+        check(launches[k] == per * MHA_GRAD_LAYERS,
+              f"{what} {k}: {launches[k]} launches, expected "
+              f"{per * MHA_GRAD_LAYERS}")
+    out["shape"] = f"{MHA_GRAD_LAYERS} layers, s{s} b{b} h{heads}, fp32"
+    del stack, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_o0_mha16_path(torch):
+    """train-o0-mha16-e1024h8-b1s3072-bias: train-mha16's configuration at
+    O0 (fp32), through the FFMA route's forward and split bias variants
+    (the gate splits every biased fp32 backward at s3072 d128); then its
+    2-layer grad check."""
+    stats = run_mha_path(torch, MHA_BIAS_KW, MHA16_S, MHA16_B,
+                         O0_MHA16_PER_STEP, "train-o0-mha16-s3072-bias", True,
+                         layers=MHA16_LAYERS, heads=MHA16_HEADS, lr=MHA16_LR,
+                         opt_level="O0")
+    per_layer = {k: v // MHA16_LAYERS for k, v in O0_MHA16_PER_STEP.items()
+                 if k.startswith("flash")}
+    stats["grad_check"] = _o0_mha_grad_check(
+        torch, "O0 mha grad check s3072 h8", MHA16_S, MHA16_B, MHA16_HEADS,
+        None, per_layer)
+    return stats
+
+
+def run_o0_mha6_path(torch):
+    """train-o0-mha6-e1024h16-b28s128-bias: train-mha6's configuration at
+    O0 (fp32) without dropout, through the FFMA route's forward and single
+    pass bias variants (the gate keeps s128 on the single pass); then its
+    2-layer grad check."""
+    from apex_tpu_torch.ops import flash_attention as fa
+    check(not fa.uses_split_backward(MHA6_S, MHA6_S, MHA_E // MHA_HEADS, 4,
+                                     4, bias=True),
+          f"the gate at s{MHA6_S} fp32 with a bias: not the single pass")
+    stats = run_mha_path(torch, MHA_BIAS_KW, MHA6_S, MHA6_B, O0_MHA6_PER_STEP,
+                         "train-o0-mha6-s128-bias", True, mha6_lengths(),
+                         layers=MHA6_LAYERS, opt_level="O0")
+    per_layer = {k: v // MHA6_LAYERS for k, v in O0_MHA6_PER_STEP.items()
+                 if k.startswith("flash")}
+    stats["grad_check"] = _o0_mha_grad_check(
+        torch, "O0 mha grad check s128 h16 b28", MHA6_S, MHA6_B, MHA_HEADS,
+        mha6_lengths(), per_layer)
+    return stats
 
 
 def run_o0_long_path(torch):
@@ -6301,6 +7041,10 @@ _PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_kernel", "flash_dkdv_kernel",
                  "flash_fwd_f32_kernel", "flash_dq_f32_kernel",
                  "flash_fwd_f32_dropout_kernel",
                  "flash_bwd_f32_dropout_kernel",
+                 "flash_dkdv_f32_dropout_kernel",
+                 "flash_dq_f32_dropout_kernel", "flash_fwd_f32_bias_kernel",
+                 "flash_bwd_f32_bias_kernel", "flash_dkdv_f32_bias_kernel",
+                 "flash_dq_f32_bias_kernel",
                  "flash_fwd_sm90", "flash_bwd_fused_sm90",
                  "flash_dkdv_sm90", "flash_dq_sm90",
                  "paged_decode_kernel",
@@ -6486,6 +7230,8 @@ def main() -> int:
                *check_flash_split_bias(torch, timer),
                *check_flash_bias_dropout(torch, timer),
                *check_flash_f32(torch, timer, split=True),
+               *check_flash_f32_split_dropout(torch, timer),
+               *check_flash_f32_bias(torch, timer),
                *check_xentropy(torch, timer),
                check_multi_tensor_update(torch, timer),
                check_vpu_probe(torch, timer), check_bottleneck(torch, timer)]
@@ -6686,7 +7432,13 @@ def main() -> int:
                       ("train-mha6-e1024h16-b28s128-bias-dropout",
                        run_mha6_path),
                       ("train-o0-dropout-gpt2-b8s1024",
-                       run_o0_dropout_path)):
+                       run_o0_dropout_path),
+                      ("train-o0-dropout-gpt2-b2s4096",
+                       run_o0_long_dropout_path),
+                      ("train-o0-mha16-e1024h8-b1s3072-bias",
+                       run_o0_mha16_path),
+                      ("train-o0-mha6-e1024h16-b28s128-bias",
+                       run_o0_mha6_path)):
         new_paths[path] = run(torch)
         log(f"{path} path ({card}): " + json.dumps(new_paths[path]))
         if "trace" in new_paths[path]:

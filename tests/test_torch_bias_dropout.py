@@ -392,8 +392,9 @@ def test_the_single_pass_refuses_both_before_any_call(monkeypatch):
     the single pass's variants with both run, each handed the bias and the
     dropout, on the counters of the variants with both alone; the backward
     forced onto the single pass, and the single pass's wrapper called
-    alone, launch it too. The fp32 FFMA route still refuses the bias (with
-    dropout or without) before any call, grads wanted or not."""
+    alone, launch it too. The fp32 FFMA route still refuses the bias with
+    dropout before any call, grads wanted or not; the bias alone it takes
+    (its forward's and single pass's bias variants)."""
     calls = _stub_library(monkeypatch)
     s, d = 448, 64
     assert not tfa.uses_split_backward(s, s, d, bias=True, dropout=True)
@@ -429,10 +430,14 @@ def test_the_single_pass_refuses_both_before_any_call(monkeypatch):
     assert _counts()["single_both"] - n0["single_both"] == 3
     calls.clear()
     q32 = torch.zeros(1, 2, s, d, requires_grad=True)
-    for extra in (dict(dropout_rate=0.1, dropout_seed=3), {}):
-        with pytest.raises(NotImplementedError, match="FFMA"):
-            tfa.flash_attention(q32, q32, q32, bias=bias, **extra)
-        with torch.no_grad(), pytest.raises(NotImplementedError,
-                                            match="FFMA"):
-            tfa.flash_attention(q32, q32, q32, bias=bias, **extra)
+    extra = dict(dropout_rate=0.1, dropout_seed=3)
+    with pytest.raises(NotImplementedError, match="FFMA"):
+        tfa.flash_attention(q32, q32, q32, bias=bias, **extra)
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="FFMA"):
+        tfa.flash_attention(q32, q32, q32, bias=bias, **extra)
     assert calls == []
+    tfa.flash_attention(q32, q32, q32, bias=bias).sum().backward()
+    assert [c[1] for c in calls] == ["apex_flash_fwd_f32",
+                                     "apex_flash_bwd_f32"]
+    assert all(c[2][-7].value is not None and c[2][-4:-1] == (0, 0, 1.0)
+               for c in calls)

@@ -83,8 +83,14 @@ elements doubled, exactly). Attention dropout on the fp32 FFMA route (the
 forward's and the single pass's dropout variants) is held at the fp32
 limits against the plain versions with the same seed, bitwise on a rerun,
 its keep pattern the plain mask bit for bit (the forward: v the identity;
-the single pass: do the identity); the FFMA split refuses dropout before
-any launch.
+the single pass: do the identity). The FFMA split's dropout variants
+(dk/dv and dq) and the FFMA route's bias variants (the forward, the single
+pass, the split's dk/dv and dq) are held the same way: against the plain
+versions with the same seed or bias, the keep pattern bitwise through
+the identity operands, each broadcast shape of the bias with a row -inf
+everywhere (a dead row, dq exactly 0) and a row -inf but for key 0, which
+the mask keeps (its output v[0] bit for bit), bitwise on a rerun; the FFMA
+route refuses the bias with dropout before any launch.
 
 The fp8 dequant-matmul's prefill regime (m > 8, wgmma/TMA with the
 weight converted in registers, ``_prefill_plan``) is held like its decode
@@ -753,9 +759,10 @@ def test_flash_split_dropout_masks_are_the_plain_mask(gen, dtype, d, seed):
 
 def test_flash_dropout_refuses_the_unported_routes_on_the_card(gen):
     """Dropout on a route without it raises before any launch, naming the
-    route: the fp32 FFMA route's split (its forward and single pass take
-    it), frag.cuh. The split at s4096 takes it on the wgmma route, and the
-    single pass takes a bias with dropout (its variant with both)."""
+    route: frag.cuh. The fp32 FFMA route takes it in the single pass and,
+    at s4096, in its split (the split's dropout variants); the split at
+    s4096 takes it on the wgmma route, and the single pass takes a bias
+    with dropout (its variant with both)."""
     q = _rand(gen, 1, 2, 64, 64)
     f32 = q.float().requires_grad_()
     g = fa.flash_attention_bwd
@@ -765,9 +772,14 @@ def test_flash_dropout_refuses_the_unported_routes_on_the_card(gen):
     torch.cuda.synchronize()
     assert g.f32_dropout_launches == n0 + 1
     long32 = _rand(gen, 1, 1, 4096, 64, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="FFMA route's split"):
-        fa.flash_attention(long32.requires_grad_(), long32, long32,
-                           causal=True, dropout_rate=0.1, dropout_seed=1)
+    long32.requires_grad_()
+    n0 = (g.f32_dropout_dkdv_launches, g.f32_dropout_dq_launches)
+    fa.flash_attention(long32, long32, long32, causal=True, dropout_rate=0.1,
+                       dropout_seed=1).sum().backward()
+    torch.cuda.synchronize()
+    assert (g.f32_dropout_dkdv_launches - n0[0],
+            g.f32_dropout_dq_launches - n0[1]) == (1, 1)
+    assert bool(torch.isfinite(long32.grad).all())
     q32 = _rand(gen, 1, 2, 64, 32)
     with pytest.raises(NotImplementedError, match="frag.cuh"):
         fa.flash_attention(q32, q32, q32, dropout_rate=0.1, dropout_seed=1)
@@ -2317,8 +2329,9 @@ def test_flash_bias_refuses_the_unported_routes_on_the_card(gen):
     """s640 d64 with a bias splits, and the split takes the bias, with
     dropout too (one launch each of the dk/dv and dq variants with both);
     the single pass takes both (s448 d64, under the gate: one launch of its
-    variant with both); the FFMA and frag.cuh routes refuse the bias before
-    any launch."""
+    variant with both); the fp32 FFMA route takes the bias alone (its
+    forward's and single pass's bias variants) and refuses it with dropout,
+    and frag.cuh refuses the bias, before any launch."""
     qs = _rand(gen, 1, 1, 640, 64).requires_grad_()
     bias = torch.zeros(1, 1, 640, 640, device="cuda")
     g = fa.flash_attention_bwd
@@ -2349,15 +2362,21 @@ def test_flash_bias_refuses_the_unported_routes_on_the_card(gen):
     assert g.bias_dropout_fused_launches == n1 + 1
     assert counts() == (s0[0] + 1, s0[1] + 1, s0[2] + 1, s0[3] + 1,
                         s0[4] + 1)
-    q32 = _rand(gen, 1, 2, 64, 64, dtype=torch.float32)
+    q32 = _rand(gen, 1, 2, 64, 64, dtype=torch.float32).requires_grad_()
     b64 = torch.zeros(1, 1, 64, 64, device="cuda")
+    n1 = (fa.flash_attention.f32_bias_launches, g.f32_bias_launches)
+    fa.flash_attention(q32, q32, q32, bias=b64).sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.f32_bias_launches - n1[0],
+            g.f32_bias_launches - n1[1]) == (1, 1)
     with pytest.raises(NotImplementedError, match="FFMA"):
-        fa.flash_attention(q32, q32, q32, bias=b64)
+        fa.flash_attention(q32, q32, q32, bias=b64, dropout_rate=0.1,
+                           dropout_seed=5)
     qd = _rand(gen, 1, 2, 64, 32)
     with pytest.raises(NotImplementedError, match="frag.cuh"):
         fa.flash_attention(qd, qd, qd, bias=b64)
     torch.cuda.synchronize()
-    assert fa.flash_attention.launches == n0 + 3
+    assert fa.flash_attention.launches == n0 + 4
 
 
 # ---------------------------------------------------------------------------
@@ -2779,3 +2798,175 @@ def test_multihead_attn_modules_run_the_bias_kernels(gen):
     out = enc(x, xk, attn_mask=bias, is_training=False)
     ref = enc(x, xk, attn_mask=bias, is_training=False, reference=True)
     assert rel(out, ref) <= 1e-2
+
+
+# ---------------------------------------------------------------------------
+# the fp32 FFMA route: dropout in its split (B3's and B4's dropout
+# variants) and the additive bias in its forward, single pass and split
+# (B1's, B2's, B3's and B4's bias variants)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,seg,rate,seed",
+                         _F32_DROPOUT_CASES)
+def test_flash_f32_split_dropout_matches_plain(gen, b, h, sq, sk, d, causal,
+                                               seg, rate, seed):
+    """The FFMA split's dropout variants (dk/dv, then dq on the scratch the
+    dk/dv call transposed into) against the plain split with the same seed
+    (1e-4 of the largest value and in relative norm); dq, dk and dv bitwise
+    on a rerun, padding rows' dq exactly 0; the split's dropout counters
+    move beside its FFMA counters, and no single pass runs."""
+    f32 = torch.float32
+    q, do = (_rand(gen, b, h, sq, d, dtype=f32) for _ in range(2))
+    k, v = (_rand(gen, b, h, sk, d, dtype=f32) for _ in range(2))
+    sid_q = _f32_seg(b, sq, min(20, sq // 4)) if seg else None
+    sid_kv = _f32_seg(b, sk, 0) if seg else None
+    drop = dict(dropout_rate=rate, dropout_seed=seed)
+    g = fa.flash_attention_bwd
+
+    def counts():
+        return (g.f32_dropout_dkdv_launches, g.f32_dropout_dq_launches,
+                g.f32_dkdv_launches, g.f32_dq_launches, g.launches)
+
+    out, lse = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal, **drop)
+    n0 = counts()
+    grads = fa._flash_bwd_cuda(q, k, v, out, lse, do, sid_q, sid_kv, causal,
+                               d ** -0.5, split=True, **drop)
+    again = fa._flash_bwd_cuda(q, k, v, out, lse, do, sid_q, sid_kv, causal,
+                               d ** -0.5, split=True, **drop)
+    torch.cuda.synchronize()
+    assert tuple(a - b_ for a, b_ in zip(counts(), n0)) == (2, 2, 2, 2, 0)
+    assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+    ref = fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, do, causal=causal, segment_ids_q=sid_q,
+        segment_ids_kv=sid_kv, **drop)
+    for got, r in zip(grads, ref):
+        _close_fp32(got, r)
+    if seg:
+        assert not bool(grads[0][(sid_q < 0)[:, None, :].expand(b, h,
+                                                                 sq)].any())
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("seed", [5, -3])
+def test_flash_f32_split_dropout_keep_pattern_is_the_plain_mask(gen, d,
+                                                                seed):
+    """Rate 0.5, no mask, through the split's two kernels. dk/dv with q = 0
+    (p = 1 / s everywhere) and do = I over sq = d rows: dv = the dropped p
+    transposed. dq over sk = d keys, key 0 = e_0 and the others 0, v = I,
+    do = 1 and delta 0: dp = 1 everywhere, so ds = p keep 2 and dq[q] =
+    ds[q, 0] e_0, nonzero in its first column exactly where key 0 is kept.
+    Both zero patterns are the plain mask bit for bit."""
+    f32, b, h, s = torch.float32, 2, 3, 333
+    rounds = fa._NO_ROUNDS
+    half = fa._dropout_args(0.5, seed)
+    eye = torch.eye(d, device="cuda").expand(b, h, d, d).contiguous()
+    k, v = (_rand(gen, b, h, s, d, dtype=f32) for _ in range(2))
+    q = torch.zeros(b, h, d, d, device="cuda")
+    out, lse = fa.flash_attention_fwd(q, k, v, None, None, False, 1.0, 0.5,
+                                      seed)
+    delta = torch.zeros(b, h, d, device="cuda")
+    _, dv = fa._flash_dkdv_cuda(q, k, v, eye, lse, delta, None, None, False,
+                                1.0, rounds, dropout=half)
+    keep = fa.dropout_keep_reference(seed, b, h, d, s, 0.5, device="cuda")
+    assert torch.equal(dv != 0, keep.transpose(-1, -2))
+    q = _rand(gen, b, h, s, d, dtype=f32)
+    kk = torch.zeros(b, h, d, d, device="cuda")
+    kk[:, :, 0, 0] = 1.0
+    do = torch.ones(b, h, s, d, device="cuda")
+    _, lse = fa.flash_attention_fwd(q, kk, eye, None, None, False, 1.0)
+    delta = torch.zeros(b, h, s, device="cuda")
+    dq = fa._flash_dq_cuda(q, kk, eye, do, lse, delta, None, None, False,
+                           1.0, rounds, dropout=half)
+    keep = fa.dropout_keep_reference(seed, b, h, s, d, 0.5, device="cuda")
+    assert torch.equal(dq[..., 0] != 0, keep[..., 0])
+    assert not bool(dq[..., 1:].any())
+
+
+_F32_BIAS_CASES = [
+    (64, (1, 1), 2, 4, 512, 512, False, False, 7),      # unmasked tiles
+    (64, (1, 4), 2, 4, 300, 700, True, False, None),
+    (128, (2, 1), 2, 4, 257, 513, False, True, None),   # odd sk
+    (128, (2, 4), 2, 4, 640, 333, False, False, 100),
+    (64, (3, 2), 3, 2, 128, 129, True, True, None),
+    (80, (1, 1), 1, 2, 96, 77, False, False, 0),        # padded head dim
+]
+
+
+@pytest.mark.parametrize("d,bdims,b,h,sq,sk,causal,seg,dead",
+                         _F32_BIAS_CASES)
+@pytest.mark.parametrize("split", [False, True])
+def test_flash_f32_bias_matches_plain(gen, d, bdims, b, h, sq, sk, causal,
+                                      seg, dead, split):
+    """fp32 with a bias on the FFMA route: the forward's bias variant, then
+    the single pass's or the split's (forced), against the plain versions
+    with the same bias (out 1e-5, lse 1e-5 relative, gradients 1e-4); a
+    row -inf everywhere is dead (out, dq exactly 0, lse the fill), row 1
+    is -inf but for key 0, which the mask keeps, so its output is v[0]
+    bit for bit; every output bitwise on a rerun; the bias counters move
+    beside the route's own."""
+    f32 = torch.float32
+    q, k, v, do, bias, sid_q, sid_kv = _bias_inputs(
+        gen, f32, d, bdims, b, h, sq, sk, seg, dead)
+    bias[:, :, 1] = float("-inf")
+    bias[:, :, 1, 0] = 0.0
+    scale = d ** -0.5
+    f, g = fa.flash_attention, fa.flash_attention_bwd
+
+    def counts():
+        return (f.f32_bias_launches, g.f32_bias_launches,
+                g.f32_bias_dkdv_launches, g.f32_bias_dq_launches)
+
+    n0 = counts()
+    out, lse = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal, scale,
+                                      bias=bias)
+    again = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal, scale,
+                                   bias=bias)
+    grads = fa._flash_bwd_cuda(q, k, v, out, lse, do, sid_q, sid_kv, causal,
+                               scale, split=split, bias=bias)
+    grads2 = fa._flash_bwd_cuda(q, k, v, out, lse, do, sid_q, sid_kv, causal,
+                                scale, split=split, bias=bias)
+    torch.cuda.synchronize()
+    moved = tuple(a - b_ for a, b_ in zip(counts(), n0))
+    assert moved == ((2, 0, 2, 2) if split else (2, 2, 0, 0))
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    assert all(torch.equal(a, b_) for a, b_ in zip(grads, grads2))
+    assert torch.equal(out[:, :, 1], v[:, :, 0].expand_as(out[:, :, 1]))
+    kw = dict(causal=causal, segment_ids_q=sid_q, segment_ids_kv=sid_kv,
+              scale=scale, bias=bias)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
+    _close_fp32(out, ref, 1e-5)
+    live = ref_lse > -1e29
+    rel = (lse - ref_lse).abs() / ref_lse.abs().clamp_min(1.0)
+    assert float(rel[live].max()) <= 1e-5
+    assert torch.equal(lse[~live], ref_lse[~live])
+    for got, r in zip(grads, fa.flash_attention_bwd_reference(
+            q, k, v, out, lse, do, **kw)):
+        _close_fp32(got, r)
+    if dead is not None:
+        assert float(out[:, :, dead].abs().max()) == 0.0
+        assert bool((lse[:, :, dead] == -1e30).all())
+        assert float(grads[0][:, :, dead].abs().max()) == 0.0
+
+
+def test_flash_f32_bias_refuses_dropout_before_any_launch(gen):
+    """The FFMA route has no variant with both: the bias with dropout
+    raises naming the route and the dropout, before any launch, through
+    ``flash_attention`` (grads or not) and each wrapper."""
+    q = _rand(gen, 1, 2, 64, 64, dtype=torch.float32)
+    bias = torch.zeros(1, 1, 64, 64, device="cuda")
+    f, g = fa.flash_attention, fa.flash_attention_bwd
+    n0 = (f.launches, g.launches, g.dkdv_launches, g.dq_launches)
+    kw = dict(bias=bias, dropout_rate=0.1, dropout_seed=3)
+    for grad in (True, False):
+        qg = q.clone().requires_grad_(grad)
+        with pytest.raises(NotImplementedError,
+                           match="bias with attention dropout.*FFMA"):
+            fa.flash_attention(qg, qg, qg, **kw)
+    lse = torch.zeros(1, 2, 64, device="cuda")
+    bop = fa._bias_operand(bias, 1, 2, 64, 64, q.device, 0.125)
+    for wrapper in (fa._flash_dkdv_cuda, fa._flash_dq_cuda):
+        with pytest.raises(NotImplementedError, match="FFMA"):
+            wrapper(q, q, q, q, lse, lse, None, None, False, 0.125,
+                    fa._NO_ROUNDS, dropout=fa._dropout_args(0.1, 3),
+                    bias=bop)
+    assert (f.launches, g.launches, g.dkdv_launches, g.dq_launches) == n0

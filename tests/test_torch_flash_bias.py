@@ -264,8 +264,9 @@ def test_bias_refusal_names_each_refused_route():
     alike: the route a bias shape takes (s640 d64 splits) is not refused.
     With dropout too it takes the bias where the backward splits (the gate
     counts 512-row blocks with both: s512 at d 64, s448 at d 128), and in
-    the single pass (s448 at d 64); the FFMA route and the frag.cuh
-    kernels refuse the bias."""
+    the single pass (s448 at d 64); the FFMA route takes the bias alone
+    (its bias variants) and refuses it with dropout; the frag.cuh kernels
+    refuse the bias."""
     bf, f32 = torch.bfloat16, torch.float32
     assert tfa.bias_refusal(bf, 64) is None
     assert tfa.bias_refusal(torch.float16, 128) is None
@@ -276,7 +277,9 @@ def test_bias_refusal_names_each_refused_route():
         assert tfa._bwd_route(q, q, q, False, 0.1, bias=True) == (True, bf)
     q = torch.zeros(1, 1, 448, 64, dtype=bf)
     assert tfa._bwd_route(q, q, q, False, 0.1, bias=True) == (False, bf)
-    assert "FFMA" in tfa.bias_refusal(f32, 64)
+    assert tfa.bias_refusal(f32, 64) is None
+    assert tfa.bias_refusal(f32, 128) is None
+    assert "FFMA" in tfa.bias_refusal(f32, 64, dropout=True)
     assert "frag.cuh" in tfa.bias_refusal(bf, 32)
     assert "frag.cuh" in tfa.bias_refusal(f32, 256)
 
@@ -357,7 +360,8 @@ def test_bias_operand_is_cast_without_expanding_a_broadcast_dim():
               dict(dropout_rate=0.1, dropout_seed=1)), "dropout"),
     (lambda: (torch.zeros(1, 1, 64, 32, dtype=torch.bfloat16),
               dict(dropout_rate=0.1, dropout_seed=1)), "dropout"),
-    (lambda: (torch.zeros(1, 1, 64, 64), {}), "FFMA"),
+    (lambda: (torch.zeros(1, 1, 64, 64),
+              dict(dropout_rate=0.2, dropout_seed=2)), "FFMA"),
     (lambda: (torch.zeros(1, 1, 64, 32, dtype=torch.bfloat16), {}),
      "frag.cuh"),
 ])

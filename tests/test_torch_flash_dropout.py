@@ -230,12 +230,12 @@ def test_validation_errors_match_jax(kw, match):
 def test_dropout_route_predicate_names_each_unported_route(dtype, kd, split,
                                                            route):
     """The route (None: the wgmma route) takes dropout or not by dtype and
-    head dim, and on the fp32 FFMA route by whether the backward splits:
-    its forward and single pass take dropout, its split refuses it, naming
-    the route. The backward's route agrees at a shape that splits (s4096)
-    and one that does not (s64)."""
-    refused = tfa.dropout_refusal(dtype, kd, split=split)
-    takes = route is None or (route == "FFMA" and not split)
+    head dim: the wgmma route and the fp32 FFMA route take it in the
+    forward, the single pass and the split alike; frag.cuh refuses it,
+    naming the route. The backward's route agrees at a shape that splits
+    (s4096) and one that does not (s64)."""
+    refused = tfa.dropout_refusal(dtype, kd)
+    takes = route in (None, "FFMA")
     if takes:
         assert refused is None
     else:
@@ -284,8 +284,9 @@ def test_cuda_wrappers_refuse_unported_routes_before_any_launch(
         monkeypatch):
     """The kernel wrappers raise ``NotImplementedError`` naming the route
     before they reach the card (CPU tensors reach the check and stop
-    there): the fp32 FFMA route's split, the fp32 forward over a bf16 v
-    (frag.cuh, which rounds p to v's dtype), bf16 at d 32 (frag.cuh); the
+    there): the fp32 split over a bf16 dout (frag.cuh, which rounds p to
+    dout's dtype), the fp32 forward over a bf16 v (frag.cuh, which rounds p
+    to v's dtype), bf16 at d 32 (frag.cuh); the
     split backward at s4096 takes the wgmma split, dq (with the delta
     fold) then dk/dv, each with the dropout's seed, threshold and 1 / (1 -
     rate) and counted on its dropout counter."""
@@ -294,9 +295,10 @@ def test_cuda_wrappers_refuse_unported_routes_before_any_launch(
         tfa._flash_fwd_cuda(q, q, q.bfloat16(), None, None, True, 0.125,
                             dropout_rate=0.1, dropout_seed=1)
     lse = torch.zeros(1, 2, 16)
-    with pytest.raises(NotImplementedError, match="FFMA route's split"):
-        tfa._flash_bwd_cuda(q, q, q, q, lse, q, None, None, True, 0.125,
-                            split=True, dropout_rate=0.1, dropout_seed=1)
+    with pytest.raises(NotImplementedError, match="frag.cuh"):
+        tfa._flash_bwd_cuda(q, q, q, q, lse, q.bfloat16(), None, None, True,
+                            0.125, split=True, dropout_rate=0.1,
+                            dropout_seed=1)
     q32 = torch.zeros(1, 2, 16, 32, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="frag.cuh"):
         tfa._flash_fwd_cuda(q32, q32, q32, None, None, True, 0.125,

@@ -4,12 +4,12 @@ forward and single pass with dropout.
 
 The route table: ``dropout_refusal`` and ``_bwd_route`` take fp32 dropout
 at kernel head dims 64 and 128 on the FFMA single pass (s1024 d64, the O0
-GPT step's shape, stays on it) and refuse it where the backward splits
-(the FFMA split has no dropout variant yet), naming the split's kernels;
-fp32 over narrower operands (which round p or ds) stays on the frag.cuh
-kernels and keeps their refusal; the FFMA route keeps refusing the bias;
-bf16 with the bias and dropout takes the single pass at s128 (the gate
-counts 512-row blocks with both) and splits at s512.
+GPT step's shape, stays on it) and, where the backward splits, on the
+FFMA split's dropout variants; fp32 over narrower operands (which round p
+or ds) stays on the frag.cuh kernels and keeps their refusal; the FFMA
+route takes the bias alone and refuses it with dropout; bf16 with the
+bias and dropout takes the single pass at s128 (the gate counts 512-row
+blocks with both) and splits at s512.
 
 The CUDA wrappers, with the library stubbed (no card): the seed, threshold
 and 1 / (1 - rate) reach ``apex_flash_fwd_f32`` and ``apex_flash_bwd_f32``
@@ -70,23 +70,15 @@ F32, BF = torch.float32, torch.bfloat16
 def test_fp32_dropout_takes_the_ffma_single_pass_and_refuses_its_split(
         kd, s, split):
     """fp32 dropout at kernel head dims 64 and 128: the FFMA single pass
-    takes it (s1024 d64, the O0 step, included), the FFMA split refuses
-    it by name before the forward; the forward takes it at any length."""
+    takes it (s1024 d64, the O0 step, included), and where the gate splits
+    the FFMA split's dropout variants take it (its refusal is lifted); the
+    forward takes it at any length."""
     assert tfa.uses_split_backward(s, s, kd, 4, 4, True,
                                    dropout=True) == split
     q = torch.zeros(1, 1, s, kd)
-    assert tfa.dropout_refusal(F32, kd) is None       # the forward
-    refused = tfa.dropout_refusal(F32, kd, split=split)
-    if not split:
-        assert refused is None
-        assert tfa._bwd_route(q, q, q, True, 0.1) == (False, F32)
-        return
-    for name in ("FFMA route's split", "flash_dkdv_f32_kernel",
-                 "flash_dq_f32_kernel", "ROADMAP §B1"):
-        assert name in refused
-    with pytest.raises(NotImplementedError, match="flash_dq_f32_kernel"):
-        tfa._bwd_route(q, q, q, True, 0.1)
-    assert tfa._bwd_route(q, q, q, True, 0.0) == (True, F32)
+    assert tfa.dropout_refusal(F32, kd) is None
+    assert tfa._bwd_route(q, q, q, True, 0.1) == (split, F32)
+    assert tfa._bwd_route(q, q, q, True, 0.0) == (split, F32)
 
 
 @pytest.mark.parametrize("dtypes", [(BF, F32, BF), (BF, BF, F32),
@@ -104,14 +96,21 @@ def test_mixed_operands_keep_the_frag_route_refusal(dtypes):
 
 @pytest.mark.parametrize("dropout", [0.0, 0.1])
 def test_the_ffma_route_still_refuses_the_bias(dropout):
-    """The fp32 FFMA route takes no bias, with dropout or without, and its
-    refusal names it (and the dropout beside the bias)."""
-    assert "FFMA" in tfa.bias_refusal(F32, 64)
+    """The fp32 FFMA route takes the bias alone (its bias variants) and
+    still refuses it with dropout, naming the route and the dropout beside
+    the bias (no variant with both yet); over narrower operands frag.cuh
+    refuses it."""
+    assert tfa.bias_refusal(F32, 64) is None
+    assert "FFMA" in tfa.bias_refusal(F32, 64, dropout=True)
     assert "frag.cuh" in tfa.bias_refusal(F32, 64, ffma=False)
     q = torch.zeros(1, 2, 128, 64)
+    if not dropout:
+        assert tfa._bwd_route(q, q, q, True, dropout, bias=True) == \
+            (False, F32)
+        return
     with pytest.raises(NotImplementedError, match="FFMA") as err:
         tfa._bwd_route(q, q, q, True, dropout, bias=True)
-    assert ("with attention dropout" in str(err.value)) == bool(dropout)
+    assert "with attention dropout" in str(err.value)
 
 
 @pytest.mark.parametrize("s,d,split", [(128, 64, False), (448, 64, False),
@@ -126,7 +125,7 @@ def test_bf16_bias_with_dropout_takes_the_single_pass_under_the_gate(s, d,
     assert tfa.uses_split_backward(s, s, d, bias=True, dropout=True) == split
     assert tfa._bwd_route(q, q, q, False, 0.1, bias=True) == (split, BF)
     assert tfa.bias_refusal(BF, d) is None
-    assert tfa.dropout_refusal(BF, d, split=split) is None
+    assert tfa.dropout_refusal(BF, d) is None
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +178,7 @@ def _moved(n0):
 @pytest.mark.parametrize("d,s", [(64, 1024), (128, 512)])
 def test_ffma_wrappers_pass_the_dropout(monkeypatch, d, s):
     """fp32 through ``flash_attention`` at s1024 d64 and s512 d128 (the
-    single pass; the gate splits s1024 at d 128): the
+    single pass; the gate splits fp32 with dropout from s513 at d 128): the
     forward's and the single pass's FFMA entries each get the seed,
     threshold and 1 / (1 - rate) before the stream, and the FFMA dropout
     counters move beside the FFMA route's; at rate 0 they get (0, 0, 1.0)
@@ -209,30 +208,36 @@ def test_ffma_wrappers_pass_the_dropout(monkeypatch, d, s):
 
 
 def test_ffma_forward_takes_dropout_where_the_split_refuses(monkeypatch):
-    """At s4096 fp32 the backward splits: a call that wants gradients
-    raises naming the FFMA split before the forward; without gradients the
-    FFMA forward runs with the dropout; the split's wrappers refuse it
-    called alone too."""
+    """At s4096 fp32 the backward splits, and the split no longer refuses
+    dropout: a call that wants gradients runs the FFMA forward and the
+    split's dk/dv then dq, each handed the seed, threshold and 1 / (1 -
+    rate) before the stream; without gradients the forward alone; the
+    split's wrappers called alone take it too."""
     calls = _stub_library(monkeypatch)
     q = torch.zeros(1, 2, 4096, 64, requires_grad=True)
     kw = dict(causal=True, dropout_rate=0.1, dropout_seed=5)
-    with pytest.raises(NotImplementedError, match="FFMA route's split"):
-        tfa.flash_attention(q, q, q, **kw)
-    assert calls == []
+    drop = tfa._dropout_args(0.1, 5)
+    tfa.flash_attention(q, q, q, **kw).sum().backward()
+    assert [c[1] for c in calls] == ["apex_flash_fwd_f32",
+                                     "apex_flash_bwd_f32_dkdv",
+                                     "apex_flash_bwd_f32_dq"]
+    assert all(c[2][-4:-1] == drop for c in calls)
+    calls.clear()
     n0 = _counts()
     with torch.no_grad():
         tfa.flash_attention(q, q, q, **kw)
     assert [c[1] for c in calls] == ["apex_flash_fwd_f32"]
-    assert calls[0][2][-4:-1] == tfa._dropout_args(0.1, 5)
+    assert calls[0][2][-4:-1] == drop
     assert _moved(n0) == dict(fwd_f32=1, fwd_f32_drop=1)
     calls.clear()
     qs, lse = q.detach(), torch.zeros(1, 2, 4096)
     args = (qs, qs, qs, qs, lse, lse, None, None, True, 0.125,
             tfa._NO_ROUNDS)
     for split_kernel in (tfa._flash_dkdv_cuda, tfa._flash_dq_cuda):
-        with pytest.raises(NotImplementedError, match="FFMA route's split"):
-            split_kernel(*args, dropout=tfa._dropout_args(0.1, 5))
-    assert calls == []
+        split_kernel(*args, dropout=drop)
+    assert [c[1] for c in calls] == ["apex_flash_bwd_f32_dkdv",
+                                     "apex_flash_bwd_f32_dq"]
+    assert all(c[2][-4:-1] == drop for c in calls)
 
 
 def test_wgmma_single_pass_takes_the_bias_and_the_dropout(monkeypatch):
