@@ -880,9 +880,8 @@ fa32::Bias f32_bias(const void* bias, long sb, long sh, float scale) {
 // `bias_sh` its batch and head strides in elements (0 for a broadcast dim),
 // or null (no bias); `seed`, `threshold` (0: none) and `inv` = 1 / (1 -
 // rate), and delta (folded or given) is then rowsum(dout * out) of the
-// dropped output. A bias with a threshold above 0 returns
-// cudaErrorInvalidValue (no variant with both yet). Each returns the first
-// failing launch's cudaError_t.
+// dropped output. A bias with a threshold above 0 runs the variant with
+// both. Each returns the first failing launch's cudaError_t.
 extern "C" int apex_flash_bwd_f32(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* out, const void* lse,

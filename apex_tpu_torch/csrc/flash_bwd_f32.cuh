@@ -90,7 +90,7 @@
 // The additive bias (`_recompute_p`, :500, in each backward kernel): a
 // variant of each kernel, flash_bwd_f32_bias_kernel, flash_dkdv_f32_bias_
 // kernel and flash_dq_f32_bias_kernel (chosen by the C entries when the
-// bias pointer is not null; a bias with dropout is refused), with the bias's
+// bias pointer is not null and the keep threshold is 0), with the bias's
 // fields in a parameter struct of its own (Bias: fp32 [b|1, h|1, sq, sk],
 // the last two dims contiguous, batch and head strides 0 for a broadcast
 // dim). Before a tile's S (S^T) product each lane loads its own elements
@@ -112,6 +112,16 @@
 // power of 2 (head dim 64) and one ulp above at head dim 128's, so a row
 // whose bias is the fill on every key stays live, as in the plain version
 // (ROADMAP §C).
+//
+// The bias with dropout (`_p_dp_ds` over `_recompute_p` with its bias,
+// :500-555): a variant with both of each kernel, flash_bwd_f32_bias_
+// dropout_kernel, flash_dkdv_f32_bias_dropout_kernel and flash_dq_f32_
+// bias_dropout_kernel (chosen by the C entries when the bias pointer is set
+// and the keep threshold is above 0; they take both structs), composes the
+// two: p recomputed from the biased scores (the bias / scale in the S
+// accumulators, s * scale rounded before lse is taken off), dp = keep ? dp
+// / (1 - rate) : 0, ds = p (dp - delta) with the undropped p, and on the
+// key side the dropped p stored as P for the dV product.
 
 #pragma once
 
@@ -699,6 +709,22 @@ flash_dkdv_f32_bias_kernel(const Params p, const Bias bs) {
   kv_block<D, false, false, true>(smem, p, Dropout{}, bs);
 }
 
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
+flash_bwd_f32_bias_dropout_kernel(const Params p, const Dropout dr,
+                                  const Bias bs) {
+  extern __shared__ __align__(16) float smem[];
+  kv_block<D, true, true, true>(smem, p, dr, bs);
+}
+
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
+flash_dkdv_f32_bias_dropout_kernel(const Params p, const Dropout dr,
+                                   const Bias bs) {
+  extern __shared__ __align__(16) float smem[];
+  kv_block<D, false, true, true>(smem, p, dr, bs);
+}
+
 // `kernel` over `grid` with `smem` bytes of dynamic shared memory
 template <typename... Params_, typename... Args>
 cudaError_t start(void (*kernel)(Params_...), dim3 grid, int threads,
@@ -713,14 +739,12 @@ cudaError_t start(void (*kernel)(Params_...), dim3 grid, int threads,
 // q and dout [b h, sq, D] transposed into ws [2][b h][D][sqp] (and, given
 // the forward's output o, delta into p.delta), then one of the kernels over
 // grid (b h, key blocks): the single pass (WITH_DQ) or the split's dk/dv,
-// or their dropout variant where dr.threshold is not 0 or their bias
-// variant where bs.bias is set (both: cudaErrorInvalidValue, before any
-// launch)
+// or their dropout variant where dr.threshold is not 0, their bias variant
+// where bs.bias is set, or their variant with both where both are
 template <int D, bool WITH_DQ>
 cudaError_t launch(const float* q, const float* dout, const float* o,
                    float* ws, Params p, const Dropout& dr, const Bias& bs,
                    int b, cudaStream_t stream) {
-  if (bs.bias != nullptr && dr.threshold != 0) return cudaErrorInvalidValue;
   const int bh = b * p.h;
   p.sqp = (p.sq + 3) & ~3;
   float* qt = ws;
@@ -739,6 +763,10 @@ cudaError_t launch(const float* q, const float* dout, const float* o,
   const size_t smem = Cfg<D>::SMEM_BYTES + (WITH_DQ ? Cfg<D>::DQ * 4 : 0);
   const dim3 grid(bh, (p.sk + Cfg<D>::BN - 1) / Cfg<D>::BN);
   constexpr int T = Cfg<D>::THREADS;
+  if (dr.threshold != 0 && bs.bias != nullptr)
+    return start(WITH_DQ ? flash_bwd_f32_bias_dropout_kernel<D>
+                         : flash_dkdv_f32_bias_dropout_kernel<D>,
+                 grid, T, smem, stream, p, dr, bs);
   if (dr.threshold != 0)
     return start(WITH_DQ ? flash_bwd_f32_dropout_kernel<D>
                          : flash_dkdv_f32_dropout_kernel<D>,
@@ -1091,19 +1119,26 @@ flash_dq_f32_bias_kernel(const Params p, float* __restrict__ dq,
   dq_block<D, false, true>(smem, p, dq, Dropout{}, bs);
 }
 
+template <int D>
+__global__ void __launch_bounds__(DqCfg<D>::THREADS, 1)
+flash_dq_f32_bias_dropout_kernel(const Params p, float* __restrict__ dq,
+                                 const Dropout dr, const Bias bs) {
+  extern __shared__ __align__(16) float smem[];
+  dq_block<D, true, true>(smem, p, dq, dr, bs);
+}
+
 // The split's dq: given `transposed`, ws already holds q^T and dO^T (the
 // dk/dv call's prologue wrote them); else this call's prologue writes
 // them (no delta: it is read). Then flash_dq_f32_kernel over grid (b h,
-// query tiles), or its dropout variant where dr.threshold is not 0 or its
-// bias variant where bs.bias is set (both: cudaErrorInvalidValue, before
-// any launch).
+// query tiles), or its dropout variant where dr.threshold is not 0, its
+// bias variant where bs.bias is set, or its variant with both where both
+// are.
 template <int D>
 cudaError_t launch_dq(const float* q, const float* dout, float* ws,
                       bool transposed, Params p, float* dq,
                       const Dropout& dr, const Bias& bs, int b,
                       cudaStream_t stream) {
   using C = DqCfg<D>;
-  if (bs.bias != nullptr && dr.threshold != 0) return cudaErrorInvalidValue;
   const int bh = b * p.h;
   p.sqp = (p.sq + 3) & ~3;
   p.qt = ws;
@@ -1117,6 +1152,9 @@ cudaError_t launch_dq(const float* q, const float* dout, float* ws,
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(bh, (p.sq + C::BQ - 1) / C::BQ);
+  if (dr.threshold != 0 && bs.bias != nullptr)
+    return start(flash_dq_f32_bias_dropout_kernel<D>, grid, C::THREADS,
+                 C::SMEM_BYTES, stream, p, dq, dr, bs);
   if (dr.threshold != 0)
     return start(flash_dq_f32_dropout_kernel<D>, grid, C::THREADS,
                  C::SMEM_BYTES, stream, p, dq, dr);

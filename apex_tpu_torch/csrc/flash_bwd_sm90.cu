@@ -167,8 +167,19 @@
 // A -inf element gives p = ex2(-inf) = +0 on the unmasked path too, and ds
 // 0; a row whose bias is -inf everywhere has lse -1e30 from the forward,
 // so its p is 0 everywhere: its dq and its share of dk and dv are exactly
-// 0. The delta pass and fold and the ordered dq are unchanged; no dbias is
-// computed (the JAX op returns zeros for it). Registers and loads
+// 0. The bias variants round s * scale (`__fmul_rn`) before taking it to
+// base 2, p = 2^(fl(s scale) log2(e) - lse log2(e)): the forward's bias
+// variant writes lse = m + log(l) from the same rounded score in natural
+// units, so a row whose biased scores sit at the -1e30 fill, or just above
+// it, on every kept key (lse = that score: log(l) is lost at 1e30) gets p =
+// 2^0 = 1 on each, as the Pallas backward and the plain version take it (an
+// FMA of s by scale log2(e) would keep its product's rounding error, ~1e23
+// there, and give 0 or inf). The single pass's variant with both takes the
+// two products in place over S^T before its probabilities loop (inside the
+// loop they spilled at d 128); the split's bias variants of dk/dv at d 128
+// stream 48-row tiles for them. The delta pass and fold and the ordered dq
+// are unchanged; no dbias is computed (the JAX op returns zeros for it).
+// Registers and loads
 // (variants timed on an H100, PERF.md): the
 // single pass loads at d 128 in batches of four column groups
 // (kBiasUnroll); the split's variants issue a tile's loads at once
@@ -176,9 +187,12 @@
 // slower). dk/dv takes 64-row tiles at d 64 (at 128 rows the loads spilled
 // more than its twin) and at d 128 the dropout variant's register split,
 // 240/24 (at 232 it spilled, its twin not), with one pointer for the rows
-// of a tile inside sq. dq keeps its twin's tiles and registers and chooses
-// its loads once a tile (8-byte pairs where sk is even: a choice per pair
-// made the loads wait for one another, several times slower).
+// of a tile inside sq, and 48-row tiles as the variant with both (at 64
+// rows it spilled once its scores were rounded before the exponent, for
+// the rows at the -1e30 fill, below). dq keeps its twin's tiles and
+// registers and chooses its loads once a tile (8-byte pairs where sk is
+// even: a choice per pair made the loads wait for one another, several
+// times slower).
 //
 // The bias with dropout (`_p_dp_ds` over `_recompute_p` with its bias,
 // :500-555): in both kernels of the split, a variant with both (DROP and
@@ -241,14 +255,15 @@ struct SplitTile {
 
 // the dk/dv kernel's: 64 rows in the dropout and bias variants at d 64 (at
 // 128 the hash's registers, or the bias's loads, beside S^T, dP^T, dV and
-// dK spilled); 48 in the variant with both at d 128 (at 64 it spilled, in
-// the probabilities loop too; at 32 it was slower)
+// dK spilled); 48 in the bias variants at d 128 (at 64 the variant with
+// both spilled, in the probabilities loop too, and the bias variant spilled
+// once its scores were rounded before the exponent; at 32 it was slower)
 template <int D, bool DROP, bool BIAS>
 struct DkdvTile {
   static constexpr int value =
       D == 64 && (DROP || BIAS)
           ? 64
-          : (D == 128 && DROP && BIAS ? 48 : SplitTile<D>::value);
+          : (D == 128 && BIAS ? 48 : SplitTile<D>::value);
 };
 
 template <int D, int TILE_ROWS = SplitTile<D>::value>
@@ -621,7 +636,12 @@ flash_dkdv_sm90(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
               for (int r = 0; r < 2; ++r) {
                 const int i = 4 * nb + 2 * r + e;
-                float pv = ex2(fmaf(s[i], sl2, -l));
+                float pv;   // the bias variants: s * scale rounded first
+                if constexpr (BIAS)
+                  pv = ex2(__fmul_rn(__fmul_rn(s[i], p.scale), LOG2E) -
+                           l);
+                else
+                  pv = ex2(fmaf(s[i], sl2, -l));
                 if constexpr (decltype(masked)::value) {
                   const int key = r ? key1 : key0, qrow = q0 + ql;
                   bool ok = qrow < sq && key < sk &&
@@ -906,7 +926,12 @@ flash_dq_sm90(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
               for (int r = 0; r < 2; ++r) {
                 const int i = 4 * nb + 2 * r + e;
-                float pv = ex2(fmaf(s[i], sl2, -lse[r]));
+                float pv;   // the bias variants: s * scale rounded first
+                if constexpr (BIAS)
+                  pv = ex2(__fmul_rn(__fmul_rn(s[i], p.scale), LOG2E) -
+                           lse[r]);
+                else
+                  pv = ex2(fmaf(s[i], sl2, -lse[r]));
                 if constexpr (decltype(masked)::value) {
                   const int row = row0 + 8 * r;
                   bool ok = row < sq && key < sk &&
@@ -1282,6 +1307,14 @@ flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap map_q,
       wg::wgmma_wait<0>();
       wg::fence_regs(s);
       wg::fence_regs(dp);
+      // the variant with both: s * scale rounded, then taken to base 2, in
+      // place before its probabilities loop (the two products inside the
+      // loop spilled at d 128)
+      if constexpr (DROP && BIAS) {
+#pragma unroll
+        for (int i = 0; i < TILE / 2; ++i)
+          s[i] = __fmul_rn(__fmul_rn(s[i], p.scale), LOG2E);
+      }
 
       // p^T = exp(s^T * scale - lse), ds^T = p^T (dp^T - delta); the mask
       // only on diagonal, ragged or segment tiles
@@ -1309,7 +1342,12 @@ flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
             for (int r = 0; r < 2; ++r) {
               const int i = 4 * nb + 2 * r + e;
-              float pv = ex2(fmaf(s[i], sl2, -l));
+              float pv;   // the bias variants: s * scale rounded first
+              if constexpr (BIAS)
+                pv = ex2(__fmul_rn(__fmul_rn(s[i], p.scale), LOG2E) -
+                         l);
+              else
+                pv = ex2(fmaf(s[i], sl2, -l));
               if constexpr (decltype(masked)::value) {
                 const int key = r ? key1 : key0, qrow = q0 + ql;
                 bool ok = qrow < sq && key < sk &&
@@ -1357,7 +1395,7 @@ flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
               for (int r = 0; r < 2; ++r) {
                 const int i = 4 * nb + 2 * r + e;
-                float pv = ex2(fmaf(s[i], sl2, -l));
+                float pv = ex2(s[i] - l);   // s in base 2 already
                 if constexpr (decltype(masked)::value) {
                   const int key = r ? key1 : key0, qrow = q0 + ql;
                   bool ok = qrow < sq && key < sk &&

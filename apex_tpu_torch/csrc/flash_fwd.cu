@@ -451,8 +451,8 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
 // 16-byte aligned base, `bias_sb` and `bias_sh` its batch and head strides
 // in elements (0 for a broadcast dim), or null (no bias). Attention
 // dropout: `seed`, `threshold` (0: none) and `inv` = 1 / (1 - rate), as the
-// wgmma forward takes them. A bias with a threshold above 0 returns
-// cudaErrorInvalidValue (no variant with both yet).
+// wgmma forward takes them. A bias with a threshold above 0 runs the
+// variant with both.
 extern "C" int apex_flash_fwd_f32(const void* q, const void* k,
                                   const void* v, const void* sid_q,
                                   const void* sid_kv, void* out, void* lse,

@@ -59,7 +59,7 @@
 //
 // The additive bias (`_fwd_kernel`'s `use_bias`, :282-283): a variant,
 // flash_fwd_f32_bias_kernel (chosen by the C entry when the bias pointer is
-// not null; a bias with dropout is refused), with the bias's fields in a
+// not null and the keep threshold is 0), with the bias's fields in a
 // parameter struct of its own (Bias: fp32 [b|1, h|1, sq, sk], the last two
 // dims contiguous, batch and head strides 0 for a broadcast dim). Before a
 // tile's S product each lane loads its 4 rows x 4 strided keys of the
@@ -72,6 +72,15 @@
 // bias gives p = 0 exactly (the row max is floored at the -1e30 fill), and
 // a row whose every biased score is -inf is a dead row (out 0, lse -1e30),
 // as the Pallas kernel's guard gives it.
+//
+// The bias with dropout (`_fwd_kernel` with both: the bias at :282-283,
+// then the keep bits at :305-308 and :334-339): a variant with both,
+// flash_fwd_f32_bias_dropout_kernel (chosen by the C entry when the bias
+// pointer is set and the keep threshold is above 0; it takes both structs),
+// runs the two as above in the Pallas kernel's order: the bias / scale in
+// S's accumulators before the S product, the mask, m and l on the biased,
+// undropped scores, then the keep bit on p before P^T's store. A dead row's
+// p is 0 whatever its keep bits, so its output stays exactly 0.
 
 #pragma once
 
@@ -407,22 +416,33 @@ flash_fwd_f32_bias_kernel(const Params p, const Bias bs) {
   forward<D, false, true>(smem, p, Dropout{}, bs);
 }
 
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MIN_BLOCKS)
+flash_fwd_f32_bias_dropout_kernel(const Params p, const Dropout dr,
+                                  const Bias bs) {
+  extern __shared__ __align__(16) float smem[];
+  forward<D, true, true>(smem, p, dr, bs);
+}
+
 // the kernel without a variant, with dropout where dr.threshold is not 0,
-// or with the bias where bs.bias is set (both: cudaErrorInvalidValue)
+// with the bias where bs.bias is set, or with both where both are
 template <int D>
 cudaError_t launch(const Params& p, const Dropout& dr, const Bias& bs,
                    int b, cudaStream_t stream) {
   using C = Cfg<D>;
   const bool drop = dr.threshold != 0, bias = bs.bias != nullptr;
-  if (drop && bias) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      drop ? (const void*)flash_fwd_f32_dropout_kernel<D>
-           : bias ? (const void*)flash_fwd_f32_bias_kernel<D>
-                  : (const void*)flash_fwd_f32_kernel<D>,
+      drop && bias ? (const void*)flash_fwd_f32_bias_dropout_kernel<D>
+      : drop       ? (const void*)flash_fwd_f32_dropout_kernel<D>
+      : bias       ? (const void*)flash_fwd_f32_bias_kernel<D>
+                   : (const void*)flash_fwd_f32_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM_BYTES);
   if (err != cudaSuccess) return err;
   const dim3 grid(b * p.h, (p.sq + C::BQ - 1) / C::BQ);
-  if (drop)
+  if (drop && bias)
+    flash_fwd_f32_bias_dropout_kernel<D>
+        <<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(p, dr, bs);
+  else if (drop)
     flash_fwd_f32_dropout_kernel<D>
         <<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(p, dr);
   else if (bias)

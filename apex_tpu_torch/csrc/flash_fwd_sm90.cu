@@ -95,8 +95,16 @@
 // bias in registers of its own beside S: it spilled at head dim 128 and
 // was much slower, PERF.md). A -inf bias gives an exact 0
 // (ex2.approx.ftz(-inf)), and a row whose every biased score is -inf (or
-// below -1e30 in base-2 units) keeps m at the fill and is a dead row: out
-// 0, lse -1e30, as the Pallas kernel's guard gives it.
+// below the -1e30 fill) keeps m at the fill and is a dead row: out 0, lse
+// -1e30, as the Pallas kernel's guard gives it. The bias variants keep m
+// in natural units: s * scale rounded (`__fmul_rn`), a masked score -inf,
+// p = 2^((s - m) log2(e)). So a row whose biased scores sit at the fill
+// itself, or just above it, on every key the mask keeps (-1e30 to about
+// -6.9e29, which are below -1e30 in base-2 units) is live as in the Pallas
+// kernel and the plain version: its max is the fill (or its score), p = 1
+// on each kept key, out their mean, and lse = m + log(l) is written with
+// no round trip through log2(e), so the backward, which rounds s * scale
+// the same way, recomputes p = 1 there bit for bit.
 //
 // The bias with dropout (the `_fwd_kernel` with both, :282-283 then
 // :305-308 / :334-339): the variant with both (DROP and BIAS, chosen by the
@@ -325,7 +333,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q,
     // the last key this warpgroup's rows see (causal)
     const int last_w = min(sq - 1, m0w + 63) + offset;
     const float sl2 = p.scale * LOG2E;
-    // m in base-2 units (s * scale * log2(e)), this thread's partial l
+    // m in base-2 units (s * scale * log2(e); the bias variants' in natural
+    // units, s * scale), this thread's partial l
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
     float o[D / 2];
 #pragma unroll
@@ -399,7 +408,12 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q,
     // the quad, p = 2^(s - m_new) in s; m and l move on, alpha is returned
     // for O. A masked score's 2^(-1e30 - m_new) is exactly 0 unless the
     // row has no live key yet (m_new is the fill itself): such a row's p
-    // is set to 0 (the dead-row guard).
+    // is set to 0 (the dead-row guard). The bias variants keep s * scale
+    // (rounded) in natural units against the same -1e30 floor, -inf where
+    // masked, and p = 2^((s - m_new) log2(e)): a biased score at the fill
+    // itself, or just above it (to -6.9e29, below the floor in base-2
+    // units), is live with p = 1 as in the Pallas kernel, and a masked
+    // score's p is exactly 0 with no guard (the fill is a live score there)
     auto softmax = [&](float (&s)[KT / 2], int n0, int st,
                        float (&alpha)[2]) {
       float mx[2] = {NEG_INF, NEG_INF};
@@ -429,11 +443,18 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
             for (int r = 0; r < 2; ++r) {
               const int i = 4 * nb + 2 * r + e;
-              float x = s[i] * sl2;
+              float x;
+              if constexpr (BIAS)
+                x = __fmul_rn(s[i], p.scale);
+              else
+                x = s[i] * sl2;
               if constexpr (decltype(masked)::value) {
                 bool ok = kl < lim[r];
                 if (use_seg) ok = ok && sid[r] == (e ? sk2.y : sk2.x);
-                x = ok ? x : NEG_INF;
+                if constexpr (BIAS)
+                  x = ok ? x : __uint_as_float(0xff800000u);   // -inf
+                else
+                  x = ok ? x : NEG_INF;
               }
               s[i] = x;
               mx[r] = fmaxf(mx[r], x);
@@ -453,15 +474,24 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q,
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
         mn[r] = fmaxf(m[r], mx[r]);
-        dead[r] = mn[r] == NEG_INF;
-        alpha[r] = ex2(m[r] - mn[r]);
+        if constexpr (BIAS) {
+          dead[r] = false;
+          alpha[r] = ex2(__fmul_rn(m[r] - mn[r], LOG2E));
+        } else {
+          dead[r] = mn[r] == NEG_INF;
+          alpha[r] = ex2(m[r] - mn[r]);
+        }
         m[r] = mn[r];
         l[r] *= alpha[r];
       }
 #pragma unroll
       for (int i = 0; i < KT / 2; ++i) {
         const int r = (i / 2) % 2;
-        float pv = dead[r] ? 0.f : ex2(s[i] - mn[r]);
+        float pv;
+        if constexpr (BIAS)
+          pv = ex2(__fmul_rn(s[i] - mn[r], LOG2E));
+        else
+          pv = dead[r] ? 0.f : ex2(s[i] - mn[r]);
         l[r] += pv;
         if constexpr (DROP)     // l took the undropped p; P V the dropped
           pv = (kb[i / 32] >> (i % 32)) & 1u ? pv * p.inv : 0.f;
@@ -538,7 +568,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q,
     }
 
     // ---- finish: out = O / safe_l, lse = m + log(safe_l) (natural units;
-    // -1e30 on rows with no live key, whose l is 0)
+    // -1e30 on rows with no live key, whose l is 0; the bias variants' m
+    // is natural already, so a row at the fill keeps its lse bit for bit
+    // for the backward, which rounds s * scale as m was rounded)
     const long bhs = (long)bh * sq;
     T* out = static_cast<T*>(p.out) + bhs * D;
 #pragma unroll
@@ -555,8 +587,13 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q,
                                        2 * tig) =
               Frag<T>::pack(o[4 * nb + 2 * r] * inv,
                             o[4 * nb + 2 * r + 1] * inv);
-        if (tig == 0)
-          p.lse[bhs + row] = l[r] > 0.f ? m[r] * LN2 + logf(safe_l) : NEG_INF;
+        if (tig == 0) {
+          if constexpr (BIAS)
+            p.lse[bhs + row] = l[r] > 0.f ? m[r] + logf(safe_l) : NEG_INF;
+          else
+            p.lse[bhs + row] =
+                l[r] > 0.f ? m[r] * LN2 + logf(safe_l) : NEG_INF;
+        }
       }
     }
   }

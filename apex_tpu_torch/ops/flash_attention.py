@@ -25,9 +25,7 @@ Port of ``apex_tpu/ops/flash_attention.py``:
   single pass and the split's two (chosen at compile time), and in the
   plain versions; ``frag.cuh``'s kernels raise (:func:`dropout_refusal`).
   The bias with dropout runs in a variant with both of each of the wgmma
-  route's kernels; the FFMA route has none yet and raises
-  (:func:`bias_refusal` with ``dropout``).
-  Past
+  route's and the fp32 FFMA route's kernels. Past
   the JAX package's 2 MB VMEM gate the backward is its two-kernel split,
   which replaces ``_dkdv_kernel`` (``:558``) and ``_dq_kernel`` (``:671``)
   on the same two routes (:func:`split_route`): ``flash_dkdv_sm90`` and
@@ -112,7 +110,12 @@ pass's dropout variants, counted in ``.f32_launches`` too),
 ``flash_attention.f32_bias_launches``,
 ``flash_attention_bwd.f32_bias_launches``, ``.f32_bias_dkdv_launches`` and
 ``.f32_bias_dq_launches`` (the FFMA route's bias variants, counted in the
-route's own counters too),
+route's own counters too), ``flash_attention.f32_bias_dropout_launches``,
+``flash_attention_bwd.f32_bias_dropout_launches``,
+``.f32_bias_dropout_dkdv_launches`` and ``.f32_bias_dropout_dq_launches``
+(the FFMA route's variants with both, counted in the route's own counters
+too; the FFMA bias and dropout counters above count the variants with one
+alone),
 ``paged_decode_attention.launches``
 (bf16 pool) and ``paged_decode_attention.fp8_launches`` (e4m3 pool) count
 kernel launches (the CPU path does not count).
@@ -574,30 +577,25 @@ def _refuse_dropout(dtype: torch.dtype, kd: int, ffma: bool = True) -> None:
                                   f"not in {refused} yet")
 
 
-def bias_refusal(dtype: torch.dtype, kd: int, ffma: bool = True,
-                 dropout: bool = False) -> Optional[str]:
-    """None where the CUDA kernels take the additive bias: the wgmma
-    route's forward and backward, single pass and split alike, with
-    attention dropout or without (:func:`sm90_route` of the promoted
-    ``dtype`` and the kernel head dim ``kd``), and the fp32 FFMA route's
-    (``ffma``, as :func:`dropout_refusal` takes it) without ``dropout``.
-    Else the refused route by name, for the ``NotImplementedError`` its
-    caller raises (ROADMAP §B1): the FFMA route with dropout (it has no
-    variant with both yet), the ``frag.cuh`` kernels."""
-    if sm90_route(dtype, kd):
+def bias_refusal(dtype: torch.dtype, kd: int,
+                 ffma: bool = True) -> Optional[str]:
+    """None where the CUDA kernels take the additive bias, with attention
+    dropout or without: the wgmma route (:func:`sm90_route` of the
+    promoted ``dtype`` and the kernel head dim ``kd``) and the fp32 FFMA
+    route (``ffma``, as :func:`dropout_refusal` takes it), each in its
+    forward, single pass and split. Else the refused route by name, for
+    the ``NotImplementedError`` its caller raises (ROADMAP §B1): the
+    ``frag.cuh`` kernels."""
+    if sm90_route(dtype, kd) or (_ffma_dims(dtype, kd) and ffma):
         return None
-    if _ffma_dims(dtype, kd) and ffma:
-        return _FFMA_ROUTE if dropout else None
     return _FRAG_ROUTE
 
 
-def _refuse_bias(dtype: torch.dtype, kd: int, ffma: bool = True,
-                 dropout: bool = False) -> None:
-    refused = bias_refusal(dtype, kd, ffma, dropout)
+def _refuse_bias(dtype: torch.dtype, kd: int, ffma: bool = True) -> None:
+    refused = bias_refusal(dtype, kd, ffma)
     if refused is not None:
-        both = " with attention dropout" if dropout else ""
-        raise NotImplementedError(f"flash_attention: the additive bias{both} "
-                                  f"is not taken by {refused} yet")
+        raise NotImplementedError(f"flash_attention: the additive bias is "
+                                  f"not taken by {refused} yet")
 
 
 def _check_bias_shape(bias, b, h, sq, sk) -> None:
@@ -692,9 +690,8 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
     or 128 query rows a block, for comparing the two at one shape; None
     takes :func:`fwd_block_rows`. Attention dropout and the additive
     ``bias`` run on the wgmma route and the fp32 FFMA route
-    (:func:`dropout_refusal`, :func:`bias_refusal`): the bias with dropout
-    in the wgmma route's variant with both, at any length; the FFMA route
-    refuses the two together."""
+    (:func:`dropout_refusal`, :func:`bias_refusal`), alone or together
+    (each route's variant with both)."""
     what = "flash_attention kernel"
     _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, what,
              "q, k, v must be [b, h, s, d]")
@@ -726,7 +723,7 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
     sm90 = sm90_route(dtype, kd)
     f32 = f32_fwd_route(dtype, kd, p_round)
     if bias is not None:
-        _refuse_bias(dtype, kd, f32, bool(dropout_rate))
+        _refuse_bias(dtype, kd, f32)
     elif dropout_rate:
         _refuse_dropout(dtype, kd, f32)
     bias, bias_sb, bias_sh = _bias_operand(bias, b, h, sq, sk, q.device,
@@ -771,7 +768,9 @@ def _flash_fwd_cuda(q, k, v, segment_ids_q, segment_ids_kv, causal, scale,
                 flash_attention.bias_launches += 1
         if f32:
             flash_attention.f32_launches += 1
-            if dropout_rate:
+            if dropout_rate and bias is not None:
+                flash_attention.f32_bias_dropout_launches += 1
+            elif dropout_rate:
                 flash_attention.f32_dropout_launches += 1
             elif bias is not None:
                 flash_attention.f32_bias_launches += 1
@@ -858,8 +857,8 @@ def _bwd_route(q, k, v, causal, dropout_rate, do=None,
     the operands in. Raises ``NotImplementedError`` where attention
     dropout or a ``bias`` is asked of a route that does not take it
     (:func:`dropout_refusal`, :func:`bias_refusal`: the route is the
-    dtype's and head dim's; the fp32 FFMA route takes either, split or
-    not, and refuses the two together)."""
+    dtype's and head dim's; the wgmma and fp32 FFMA routes take either or
+    both, split or not)."""
     if split is None:
         split = uses_split_backward(q.shape[2], k.shape[2], q.shape[-1],
                                     k.element_size(), v.element_size(),
@@ -870,7 +869,7 @@ def _bwd_route(q, k, v, causal, dropout_rate, do=None,
     kd = kernel_head_dim(q.shape[-1])
     ffma = f32_core_route(dtype, kd, _mixed_rounds(q, k, do))
     if bias:
-        _refuse_bias(dtype, kd, ffma, bool(dropout_rate))
+        _refuse_bias(dtype, kd, ffma)
     elif dropout_rate:
         _refuse_dropout(dtype, kd, ffma)
     return split, dtype
@@ -1024,9 +1023,8 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids_q, segment_ids_kv,
     :func:`uses_split_backward`; True or False forces the two-kernel split
     or the single pass (for comparing the two at one shape). Attention
     dropout and the additive ``bias`` run on the wgmma route and the fp32
-    FFMA route, split or single pass (:func:`dropout_refusal`,
-    :func:`bias_refusal`): both together on the wgmma route alone
-    (:func:`_bwd_route`)."""
+    FFMA route, split or single pass, alone or together
+    (:func:`dropout_refusal`, :func:`bias_refusal`, :func:`_bwd_route`)."""
     what = "flash_attention_bwd kernel"
     _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, what,
              "q, k, v must be [b, h, s, d]")
@@ -1213,7 +1211,7 @@ def _f32_call(symbol, q, k, v, do, out, lse, delta, sid_q, sid_kv, causal,
     with ``out``, the forward's fp32 output, delta written into
     ``delta``), then the kernel or its variant; ``outs`` the output
     pointers after the scratch, ``dropout`` :func:`_dropout_args` and
-    ``bias`` :func:`_bias_operand`'s triple (not both)."""
+    ``bias`` :func:`_bias_operand`'s triple (either, both or neither)."""
     b, h, sq, d = q.shape
     _require(out is None or (out.dtype == torch.float32
                              and out.shape == q.shape
@@ -1238,7 +1236,8 @@ def _flash_bwd_f32_cuda(q, k, v, do, out, lse, delta, sid_q, sid_kv, causal,
     """The FFMA route's single pass (``flash_bwd_f32_kernel``; with
     ``dropout``, :func:`_dropout_args`, its variant
     ``flash_bwd_f32_dropout_kernel``; with ``bias``,
-    :func:`_bias_operand`'s triple, ``flash_bwd_f32_bias_kernel``) on fp32
+    :func:`_bias_operand`'s triple, ``flash_bwd_f32_bias_kernel``; with
+    both, ``flash_bwd_f32_bias_dropout_kernel``) on fp32
     operands ``_flash_bwd_cuda`` checked, at kernel head dim 64 or 128:
     ``(dk, dv)``, and dq times
     ``scale`` written into ``dq_acc`` (fp32, q's shape; every element:
@@ -1254,7 +1253,9 @@ def _flash_bwd_f32_cuda(q, k, v, do, out, lse, delta, sid_q, sid_kv, causal,
               dropout=dropout, bias=bias)
     flash_attention_bwd.launches += 1
     flash_attention_bwd.f32_launches += 1
-    if dropout[1]:
+    if dropout[1] and bias[0] is not None:
+        flash_attention_bwd.f32_bias_dropout_launches += 1
+    elif dropout[1]:
         flash_attention_bwd.f32_dropout_launches += 1
     elif bias[0] is not None:
         flash_attention_bwd.f32_bias_launches += 1
@@ -1265,11 +1266,11 @@ def _refuse_split_variants(q, rounds, dropout, bias) -> None:
     """Raises ``NotImplementedError`` before a split kernel's call where
     its route does not take the ``dropout`` or the ``bias`` it is given
     (:func:`dropout_refusal`, :func:`bias_refusal`, ``rounds`` telling the
-    FFMA route from ``frag.cuh``): the wgmma route takes either and both,
-    the FFMA route either alone."""
+    FFMA route from ``frag.cuh``): the wgmma and FFMA routes take either
+    and both."""
     ffma = f32_core_route(q.dtype, q.shape[-1], rounds)
     if bias[0] is not None:
-        _refuse_bias(q.dtype, q.shape[-1], ffma, bool(dropout[1]))
+        _refuse_bias(q.dtype, q.shape[-1], ffma)
     elif dropout[1]:
         _refuse_dropout(q.dtype, q.shape[-1], ffma)
 
@@ -1306,8 +1307,8 @@ def _flash_dkdv_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
     (:func:`_f32_transposes`; allocated here when None), which the dq
     kernel after it may read (:func:`_flash_dq_cuda`'s ``ws``).
     ``dropout``: :func:`_dropout_args`; ``bias``: :func:`_bias_operand`'s
-    ``(fp32 bias or None, batch stride, head stride)``, alone (both
-    routes) or with ``dropout`` (the wgmma route's variant with both)."""
+    ``(fp32 bias or None, batch stride, head stride)``, alone or with
+    ``dropout`` (each route's variant with both)."""
     _refuse_split_variants(q, rounds, dropout, bias)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if f32_core_route(q.dtype, q.shape[-1], rounds):
@@ -1316,7 +1317,9 @@ def _flash_dkdv_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
                   (_ptr(dk), _ptr(dv)), ws, dropout, bias)
         flash_attention_bwd.dkdv_launches += 1
         flash_attention_bwd.f32_dkdv_launches += 1
-        if dropout[1]:
+        if dropout[1] and bias[0] is not None:
+            flash_attention_bwd.f32_bias_dropout_dkdv_launches += 1
+        elif dropout[1]:
             flash_attention_bwd.f32_dropout_dkdv_launches += 1
         elif bias[0] is not None:
             flash_attention_bwd.f32_bias_dkdv_launches += 1
@@ -1374,7 +1377,9 @@ def _flash_dq_cuda(q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
                      "flash_attention_bwd apex_flash_bwd_f32_dq")
         flash_attention_bwd.dq_launches += 1
         flash_attention_bwd.f32_dq_launches += 1
-        if dropout[1]:
+        if dropout[1] and bias[0] is not None:
+            flash_attention_bwd.f32_bias_dropout_dq_launches += 1
+        elif dropout[1]:
             flash_attention_bwd.f32_dropout_dq_launches += 1
         elif bias[0] is not None:
             flash_attention_bwd.f32_bias_dq_launches += 1
@@ -1455,8 +1460,11 @@ def flash_attention_bwd(q, k, v, out, lse, do, segment_ids_q=None,
     route, ``.f32_dropout_dkdv_launches`` and ``.f32_dropout_dq_launches``
     those with dropout, ``.f32_bias_launches``, ``.f32_bias_dkdv_launches``
     and ``.f32_bias_dq_launches`` the FFMA single passes and split
-    launches with a bias); on the wgmma route ``.dropout_launches`` the single passes
-    with dropout, ``.dropout_dkdv_launches`` and ``.dropout_dq_launches``
+    launches with a bias, ``.f32_bias_dropout_launches``,
+    ``.f32_bias_dropout_dkdv_launches`` and ``.f32_bias_dropout_dq_launches``
+    those with both, which count there alone); on the wgmma route
+    ``.dropout_launches`` the single passes with dropout,
+    ``.dropout_dkdv_launches`` and ``.dropout_dq_launches``
     the split's, ``.bias_launches`` the single passes with a bias,
     ``.bias_dkdv_launches`` and ``.bias_dq_launches`` the split's,
     ``.bias_dropout_fused_launches`` the single passes with both,
@@ -1493,6 +1501,9 @@ flash_attention_bwd.f32_dropout_dq_launches = 0
 flash_attention_bwd.f32_bias_launches = 0
 flash_attention_bwd.f32_bias_dkdv_launches = 0
 flash_attention_bwd.f32_bias_dq_launches = 0
+flash_attention_bwd.f32_bias_dropout_launches = 0
+flash_attention_bwd.f32_bias_dropout_dkdv_launches = 0
+flash_attention_bwd.f32_bias_dropout_dq_launches = 0
 flash_attention_bwd.dropout_launches = 0
 flash_attention_bwd.dropout_dkdv_launches = 0
 flash_attention_bwd.dropout_dq_launches = 0
@@ -1583,10 +1594,11 @@ def flash_attention(q, k, v, segment_ids_q=None, segment_ids_kv=None,
     it, single pass and split (:class:`FlashAttentionFunction`);
     ``frag.cuh``'s kernels raise ``NotImplementedError`` naming the route
     (:func:`bias_refusal`), before the forward where the backward's route
-    would refuse it. With dropout too, the wgmma route's forward, single
-    pass and split each run their variant with both (the JAX gate, which
-    with both counts 512-row blocks, splits bf16 from s467 at d 64 and
-    s425 at d 128); the FFMA route refuses the two together. On the CPU it
+    would refuse it. With dropout too, the wgmma route's and the FFMA
+    route's forward, single pass and split each run their variant with
+    both (the JAX gate, which with both counts 512-row blocks, splits bf16
+    from s467 at d 64 and s425 at d 128, fp32 from s452 at d 64 and s400
+    at d 128, causal or not). On the CPU it
     runs through the plain version (:class:`BiasedAttentionFunction`).
 
     ``dropout_rate``/``dropout_seed`` (an int32): in-kernel attention
@@ -1625,6 +1637,7 @@ flash_attention.wgmma_launches = 0
 flash_attention.f32_launches = 0
 flash_attention.f32_dropout_launches = 0
 flash_attention.f32_bias_launches = 0
+flash_attention.f32_bias_dropout_launches = 0
 flash_attention.dropout_launches = 0
 flash_attention.bias_launches = 0
 flash_attention.bias_dropout_launches = 0

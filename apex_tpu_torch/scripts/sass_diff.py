@@ -57,9 +57,12 @@ def _sass(lib: Path) -> dict:
             name = _ANON.sub("_ZN_anon_", m.group(1))
             funcs[name] = []
         elif name:
-            ins = _ANON.sub("_ZN_anon_", re.sub(r"/\*[0-9a-f]{4,}\*/", "",
-                                                line)).strip()
-            if ins and not ins.startswith("/*"):
+            # the instruction alone: no address or encoding comments, and
+            # single spaces (cuobjdump aligns the comments to the longest
+            # instruction in the file, so another kernel moves them)
+            ins = " ".join(_ANON.sub("_ZN_anon_", re.sub(
+                r"/\*[^*]*\*/", "", line)).split())
+            if ins:
                 funcs[name].append(ins)
     return funcs
 

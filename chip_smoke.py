@@ -216,7 +216,18 @@ Phases (any failure exits non-zero; no phase's error is caught):
     O0 with dropout 0: per step 6 launches each of the FFMA forward's and
     single pass's bias variants (the gate keeps s128 on the single pass),
     6 of each LayerNorm kernel and no other flash launch; then its 2-layer
-    grad check in fp32 as above.
+    grad check in fp32 as above;
+28. train-o0-mha16-e1024h8-b1s3072-bias-dropout — path 26 at fairseq's
+    attention dropout 0.1 (one host generator for the attention seeds and
+    the residual dropout's masks): per step 16 launches each of the FFMA
+    forward's and split's variants with both (the gate splits fp32 with
+    both from s400 at d 128), 16 of each LayerNorm kernel and no other
+    flash launch; then its 2-layer grad check in fp32 with the host
+    generator in the same state on both sides;
+29. train-o0-mha6-e1024h16-b28s128-bias-dropout — path 27 at dropout 0.1:
+    per step 6 launches each of the FFMA forward's and single pass's
+    variants with both, 6 of each LayerNorm kernel; then its grad check
+    as path 28's.
 
 The kernel phase also holds the shapes and dtypes ROADMAP §C records as
 repaired against the plain versions: flash forward and backward (single
@@ -345,7 +356,17 @@ train-o0-mha16's b1 h8 s3072 d128 (the future mask; the split) and
 train-o0-mha6's b28 h16 s128 d64 (the future mask and key padding; the
 single pass, one device launch a call) as routed, each kernel timed
 beside its twin without the bias, its plain version and SDPA fp32 with the
-same mask; no spill.
+same mask; no spill. Their variants with both the bias and dropout
+(``flash_*_f32_bias_dropout_kernel``) are held the same way at dropout 0.1
+(the one-key row's output v[0] / (1 - rate) or 0 by its keep bit, bit for
+bit), their keep pattern bitwise under a finite bias, then at the same
+two paths' shapes and at b8 h16 s1024 d64 (the split) as routed, each
+timed beside its twins (the bias alone, dropout alone), its plain version
+and SDPA fp32 with the mask and ``dropout_p``; no spill. Every bias
+variant, wgmma and FFMA, with dropout and without, single pass and split,
+is held on rows whose bias sits at the -1e30 fill or just above it on
+every kept key (live: out the kept mean, lse the fill, the backward's p =
+1 on each kept key) against the plain forward and backward end to end.
 
 The fp32 forward's FFMA route (``csrc/flash_fwd_f32.cuh``, B1) is held at
 the O0 paths' b8 h16 s1024 and b2 h16 s4096 d64 causal and at the shapes
@@ -1466,21 +1487,105 @@ def _bias_positions(torch, fa, gen):
                 lse_max_abs_err=lse_err, dq_dk_max_abs=noise)
 
 
+# rows of the fill cases: a bias at the -1e30 fill itself or just above it
+# (-8e29: below the fill in base-2 units) on every key the causal mask
+# keeps, and a row -inf everywhere
+FILL_ROWS = {3: -1e30, 9: -1e30, 5: -8e29, 12: -8e29}
+FILL_DEAD_ROW = 7
+FILL_SEED = 20261024
+
+
+def _fill_rows_case(torch, fa, gen, dtype, d, split, rate):
+    """Rows whose bias is at the -1e30 fill or just above it on every key
+    the causal mask keeps (:data:`FILL_ROWS`) beside finite rows and a row
+    -inf everywhere, b2 h2 s256 in ``dtype`` at head dim ``d``, dropout
+    ``rate``: the forward (the wgmma route at both block heights) and the
+    single pass or the split (``split``, forced) against the plain forward
+    and backward end to end (the plain backward from the plain lse: the
+    kernels' lse of such a row is the rounded score, which may sit an ulp
+    from the plain one). A fill row is live, as in the Pallas kernels: out
+    the mean of v over the kept keys (the dropped mean with dropout), lse
+    the fill, and the backward's p = 1 on each kept key, so its dq is
+    finite and not zero; the -inf row is dead (out and dq exactly 0, lse
+    the fill). fp32 takes the fp32 limits, bf16 and fp16 the bias
+    variants'."""
+    b, h, s = 2, 2, 256
+    q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device="cuda",
+                               dtype=dtype) for _ in range(4))
+    bias = torch.randn(1, h, s, s, generator=gen, device="cuda")
+    for row, fill in FILL_ROWS.items():
+        bias[:, :, row] = fill
+    bias[:, :, FILL_DEAD_ROW] = float("-inf")
+    scale = d ** -0.5
+    drop = dict(dropout_rate=rate, dropout_seed=FILL_SEED if rate else None)
+    kw = dict(causal=True, scale=scale, bias=bias, **drop)
+    what = (f"fill rows {str(dtype)[6:]} d{d} "
+            f"{'split' if split else 'single pass'} dropout {rate}")
+    fp32 = dtype == torch.float32
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
+    rgrads = fa.flash_attention_bwd_reference(q, k, v, ref, ref_lse, do, **kw)
+    rows = sorted(FILL_ROWS)
+    err = lse_err = 0.0
+    for block_rows in ((None,) if fp32 else (64, 128)):
+        out, lse = fa._flash_fwd_cuda(q, k, v, None, None, True, scale,
+                                      block_rows=block_rows, bias=bias,
+                                      **drop)
+        torch.cuda.synchronize()
+        err = max(err, _fp32_err(out, ref, f"{what} forward", FP32_FWD_TOL)
+                  if fp32 else bf16_err(out, ref, 4e-3,
+                                        f"{what} rows{block_rows}"))
+        rel = ((lse - ref_lse).abs() / ref_lse.abs().clamp_min(1.0)).max()
+        lse_err = max(lse_err, rel.item())
+        check(rel.item() <= (FP32_FWD_TOL if fp32 else 1e-3),
+              f"{what} rows{block_rows}: lse relative err {rel.item()}")
+        check(bool((lse[:, :, rows] < -6e29).all()) and (rate or bool(
+            (out[:, :, rows].float().abs().amax(-1) > 0).all())),
+              f"{what} rows{block_rows}: a fill row is not live")
+        check(out[:, :, FILL_DEAD_ROW].abs().max().item() == 0.0
+              and bool((lse[:, :, FILL_DEAD_ROW] == -1e30).all()),
+              f"{what} rows{block_rows}: the -inf row is not zero, -1e30")
+    grads = fa._flash_bwd_cuda(q, k, v, out, lse, do, None, None, True,
+                               scale, split=split, bias=bias, **drop)
+    torch.cuda.synchronize()
+    gerr = 0.0
+    for n, g_, r in zip(("dq", "dk", "dv"), grads, rgrads):
+        check(bool(torch.isfinite(g_.float()).all()),
+              f"{what} {n}: not finite")
+        gerr = max(gerr, _fp32_err(g_, r, f"{what} {n}", FP32_GRAD_TOL)
+                   if fp32 else grad_err(g_, r, f"{what} {n}"))
+    check(bool((grads[0][:, :, rows].float().abs().amax(-1) > 0).all())
+          and grads[0][:, :, FILL_DEAD_ROW].abs().max().item() == 0.0,
+          f"{what}: a fill row's dq is zero, or the -inf row's is not")
+    return dict(case=what, max_abs_err=err, lse_rel_err=lse_err,
+                grad_max_abs_err=gerr)
+
+
+def _fill_rows_cases(torch, fa, gen, dtypes, splits, rate):
+    """:func:`_fill_rows_case` at head dims 64 and 128 for each dtype and
+    backward."""
+    return [_fill_rows_case(torch, fa, gen, dt, d, sp, rate)
+            for dt in dtypes for d in (64, 128) for sp in splits]
+
+
 def check_flash_bias(torch, timer):
     """B1's and B2's bias variants (``flash_fwd_sm90<..., BIAS>``,
     ``flash_bwd_fused_sm90<..., BIAS>``) at the train-mha18 path's
     attention (b16 h16 s512 d64 bf16, the [1, 1, 512, 512] future mask as
     the bias, key padding as segment ids): against the plain versions with
     the same bias (the bf16 forwards' and backwards' limits), a rerun
-    bitwise; the positions check (:func:`_bias_positions`) and the other
-    shapes (:func:`_bias_cases`); each timed with and without the bias
-    beside its plain version and SDPA with the mask as ``attn_mask``."""
+    bitwise; the positions check (:func:`_bias_positions`), the other
+    shapes (:func:`_bias_cases`) and the rows at the -1e30 fill
+    (:func:`_fill_rows_cases`, the single pass); each timed with and
+    without the bias beside its plain version and SDPA with the mask as
+    ``attn_mask``."""
     import torch.nn.functional as F
     from apex_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(19)
     f, g = fa.flash_attention, fa.flash_attention_bwd
     checked = [_bias_case(torch, fa, gen, c) for c in _bias_cases(torch)]
     positions = _bias_positions(torch, fa, gen)
+    fill = _fill_rows_cases(torch, fa, gen, (torch.bfloat16, torch.float16),
+                            (False,), 0.0)
     torch.cuda.empty_cache()
 
     b, h, s, d = MHA_B, MHA_HEADS, MHA_S, MHA_E // MHA_HEADS
@@ -1554,7 +1659,7 @@ def check_flash_bias(torch, timer):
         library="F.scaled_dot_product_attention(attn_mask=the bias and the "
                 "padding as one [b, 1, s, s] bf16 mask)",
         bound_ms=f_bound[0], bound_by=f_bound[1], live_pairs=pairs,
-        positions=positions,
+        positions=positions, fill_rows=fill,
         checked=[dict(case=w, max_abs_err=e, grad_max_abs_err=ge)
                  for w, e, ge in checked])
     delta = (do.float() * out.float()).sum(dim=-1)
@@ -2855,51 +2960,92 @@ F32_BIAS_BWD_KERNELS = ("flash_bwd_f32_bias_kernel",
 F32_ONE_KEY_ROW = 1    # the row whose bias masks every key but key 0
 
 
-def _f32_bias_case(torch, fa, gen, case):
+# the FFMA route's variant counters (:func:`_f32_variant_counts`): with both
+# the bias and dropout, with the bias alone, with dropout alone (slot 2);
+# each the forward's, the single pass's, the split's dk/dv and dq
+F32_BOTH, F32_BIAS_ALONE = 0, 1
+
+
+def _f32_variant_counts(fa):
+    f, g = fa.flash_attention, fa.flash_attention_bwd
+    return (f.f32_bias_dropout_launches, g.f32_bias_dropout_launches,
+            g.f32_bias_dropout_dkdv_launches, g.f32_bias_dropout_dq_launches,
+            f.f32_bias_launches, g.f32_bias_launches,
+            g.f32_bias_dkdv_launches, g.f32_bias_dq_launches,
+            f.f32_dropout_launches, g.f32_dropout_launches,
+            g.f32_dropout_dkdv_launches, g.f32_dropout_dq_launches)
+
+
+def _f32_moved(fa, n0, launches, variant, what):
+    """Since ``n0`` (:func:`_f32_variant_counts`), ``launches`` (forward,
+    single pass, dk/dv, dq) of the FFMA ``variant`` and none of the
+    others."""
+    moved = tuple(a - b for a, b in zip(_f32_variant_counts(fa), n0))
+    want = [0] * 12
+    want[4 * variant:4 * variant + 4] = launches
+    check(moved == tuple(want), f"{what}: FFMA variant launches (with both, "
+          f"the bias alone, dropout alone; each forward, single pass, "
+          f"dk/dv, dq) {moved}, expected {tuple(want)}")
+
+
+def _f32_bias_case(torch, fa, gen, case, rate=0.0):
     """One :func:`_bias_cases` shape in fp32 with row
     :data:`F32_ONE_KEY_ROW` -inf but for key 0, which the mask keeps (its
-    p exactly 1 there): the forward against the plain version (out and
-    lse FP32_FWD_TOL), the single pass and the split's two kernels (dk/dv
-    folding delta, then dq on its scratch; both forced) against theirs
-    (FP32_GRAD_TOL), each bitwise on a rerun; a dead row's out and dq
-    exactly 0 and its lse the fill. Returns the case's record."""
+    p exactly 1 there), at dropout ``rate`` (above 0: the variants with
+    both, seed :data:`F32_BIAS_DROPOUT_SEED`): the forward against the
+    plain version (out and lse FP32_FWD_TOL), the single pass and the
+    split's two kernels (dk/dv folding delta, then dq on its scratch; both
+    forced) against theirs (FP32_GRAD_TOL), each bitwise on a rerun, on the
+    variant's counters alone; the one-key row's out v[0] bit for bit (with
+    dropout v[0] / (1 - rate) where key 0 is kept, 0 where dropped); a
+    dead row's out and dq exactly 0 and its lse the fill. Returns the
+    case's record."""
     *_, causal, _, dead = case
     q, k, v, do, bias, sid_q, sid_kv, scale, what = _bias_case_inputs(
-        torch, gen, case, "flash fp32 bias")
+        torch, gen, case, "flash fp32 bias" + (" dropout" if rate else ""))
     bias[:, :, F32_ONE_KEY_ROW] = float("-inf")
     bias[:, :, F32_ONE_KEY_ROW, 0] = 0.0
     b, h, sq, _ = q.shape
     sk = k.shape[2]
+    seed = F32_BIAS_DROPOUT_SEED if rate else None
+    drop = dict(dropout_rate=rate, dropout_seed=seed)
     kw = dict(causal=causal, segment_ids_q=sid_q, segment_ids_kv=sid_kv,
-              scale=scale, bias=bias)
-    f, g = fa.flash_attention, fa.flash_attention_bwd
-    n0 = (f.f32_bias_launches, g.f32_bias_launches,
-          g.f32_bias_dkdv_launches, g.f32_bias_dq_launches)
+              scale=scale, bias=bias, **drop)
+    n0 = _f32_variant_counts(fa)
     out, lse = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal, scale,
-                                      bias=bias)
+                                      bias=bias, **drop)
     again = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal, scale,
-                                   bias=bias)
+                                   bias=bias, **drop)
     single = [fa._flash_bwd_cuda(q, k, v, out, lse, do, sid_q, sid_kv,
-                                 causal, scale, split=False, bias=bias)
-              for _ in range(2)]
+                                 causal, scale, split=False, bias=bias,
+                                 **drop) for _ in range(2)]
     bop = fa._bias_operand(bias, b, h, sq, sk, q.device, scale)
+    dargs = fa._dropout_args(rate, seed)
     split = []
     for _ in range(2):
         delta = torch.empty((b, h, sq), dtype=torch.float32, device="cuda")
         args = (q, k, v, do, lse, delta, sid_q, sid_kv, causal, scale,
                 fa._NO_ROUNDS)
         ws = fa._f32_transposes(q)
-        dk, dv = fa._flash_dkdv_cuda(*args, out=out, ws=ws, bias=bop)
-        split.append((fa._flash_dq_cuda(*args, ws=ws, bias=bop), dk, dv,
-                      delta))
+        dk, dv = fa._flash_dkdv_cuda(*args, out=out, ws=ws, dropout=dargs,
+                                     bias=bop)
+        split.append((fa._flash_dq_cuda(*args, ws=ws, dropout=dargs,
+                                        bias=bop), dk, dv, delta))
     torch.cuda.synchronize()
-    moved = (f.f32_bias_launches - n0[0], g.f32_bias_launches - n0[1],
-             g.f32_bias_dkdv_launches - n0[2], g.f32_bias_dq_launches - n0[3])
-    check(moved == (2, 2, 2, 2), f"{what}: bias launches (forward, single "
-          f"pass, dk/dv, dq) {moved}, expected 2 each")
-    one = out[:, :, F32_ONE_KEY_ROW]
-    check(torch.equal(one, v[:, :, 0].expand_as(one)),
-          f"{what}: the row with one live key is not v[0] bit for bit")
+    _f32_moved(fa, n0, (2, 2, 2, 2), F32_BOTH if rate else F32_BIAS_ALONE,
+               what)
+    one = v[:, :, 0]
+    if rate:
+        keep = fa.dropout_keep_reference(seed, b, h, sq, sk, rate,
+                                         device="cuda")
+        inv = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32,
+                           device="cuda")
+        one = torch.where(keep[:, :, F32_ONE_KEY_ROW, :1], one * inv,
+                          torch.zeros_like(one))
+        del keep
+    check(torch.equal(out[:, :, F32_ONE_KEY_ROW], one),
+          f"{what}: the row with one live key is not v[0] bit for bit "
+          "(with dropout, v[0] / (1 - rate) or 0 by its keep bit)")
     check(torch.equal(out, again[0]) and torch.equal(lse, again[1])
           and all(torch.equal(x, y) for x, y in zip(*single))
           and all(torch.equal(x, y) for x, y in zip(*split)),
@@ -2907,9 +3053,11 @@ def _f32_bias_case(torch, fa, gen, case):
     ref, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
     err = _fp32_err(out, ref, f"{what} forward", FP32_FWD_TOL)
     lse_err = _lse_err(lse, ref_lse, what)
+    del ref, ref_lse
     rgrads = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, **kw)
     gerr = max(_fp32_err(x, r, f"{what} single pass {n}", FP32_GRAD_TOL)
                for n, x, r in zip(("dq", "dk", "dv"), single[0], rgrads))
+    del rgrads
     dq, dk, dv, delta = split[0]
     rdq, rdelta = fa.flash_bwd_dq_reference(q, k, v, out, lse, do, **kw)
     _fp32_err(delta, rdelta, f"{what} delta fold", FP32_FWD_TOL)
@@ -3162,6 +3310,393 @@ def check_flash_f32_bias(torch, timer):
              plain_ms=split_times["dq_plain_ms"],
              plain="flash_bwd_dq_reference with the same bias",
              bound_ms=dq_bound[0], bound_by=dq_bound[1], **split_common)]
+
+
+# ---------------------------------------------------------------------------
+# the bias with dropout on the fp32 FFMA route (B1's, B2's, B3's and B4's
+# variants with both): train-o0-mha16's attention at dropout 0.1 (b1 h8
+# s3072 d128, the future mask; the split), train-o0-mha6's (b28 h16 s128
+# d64, the future mask and key padding; the single pass) and a d-64 split
+# shape (b8 h16 s1024, the future mask as the bias)
+# ---------------------------------------------------------------------------
+
+F32_BIAS_DROPOUT_SEED = 20261024
+F32_BIAS_DROPOUT_FWD_KERNELS = ("flash_fwd_f32_bias_dropout_kernel",)
+F32_BIAS_DROPOUT_BWD_KERNELS = ("flash_bwd_f32_bias_dropout_kernel",
+                                "flash_dkdv_f32_bias_dropout_kernel",
+                                "flash_dq_f32_bias_dropout_kernel")
+# the d-64 split shape: b8 h16 s1024, which the gate splits with both (fp32
+# from s452 at d 64)
+F32_BOTH_D64_SPLIT = (8, MHA_HEADS, 1024, 64)
+
+
+def _f32_bias_dropout_keep_pattern(torch, fa, gen, d, seed):
+    """Rate 0.5 under a finite bias (0.5 randn, [1, h, s, s]), no mask. The
+    forward with q = k = 0 and v = I over sk = d keys: out[q, k] = 2 p[q,
+    k] where the key is kept, exactly 0 where it is dropped. The single
+    pass and the split's dk/dv with q = 0 and do = I over sq = d rows: dv
+    = the dropped p transposed. The split's dq with key 0 = e_0 and the
+    others 0, v = I, do = 1 and delta 0: dq[q] = ds[q, 0] e_0, nonzero
+    exactly where key 0 is kept. Every zero pattern is the plain mask bit
+    for bit."""
+    b, h, s = 2, 3, 333
+    half = dict(dropout_rate=0.5, dropout_seed=seed)
+    what = f"flash fp32 bias dropout keep pattern d{d}"
+    eye = torch.eye(d, device="cuda").expand(b, h, d, d).contiguous()
+    bias_fwd = 0.5 * torch.randn(1, h, s, d, generator=gen, device="cuda")
+    q = torch.zeros(b, h, s, d, device="cuda")
+    k = torch.zeros(b, h, d, d, device="cuda")
+    out, _ = fa.flash_attention_fwd(q, k, eye, None, None, False, 1.0,
+                                    bias=bias_fwd, **half)
+    keep = fa.dropout_keep_reference(seed, b, h, s, d, 0.5, device="cuda")
+    check(torch.equal(out != 0, keep),
+          f"{what}: the forward's keep pattern is not the plain mask")
+    n = keep.numel()
+    bias_bwd = 0.5 * torch.randn(1, h, d, s, generator=gen, device="cuda")
+    k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda")
+            for _ in range(2))
+    q = torch.zeros(b, h, d, d, device="cuda")
+    out, lse = fa.flash_attention_fwd(q, k, v, None, None, False, 1.0,
+                                      bias=bias_bwd, **half)
+    keep = fa.dropout_keep_reference(seed, b, h, d, s, 0.5, device="cuda")
+    for split in (False, True):
+        _, _, dv = fa._flash_bwd_cuda(q, k, v, out, lse, eye, None, None,
+                                      False, 1.0, split=split, bias=bias_bwd,
+                                      **half)
+        check(torch.equal(dv != 0, keep.transpose(-1, -2)),
+              f"{what}: the {'split' if split else 'single pass'}'s keep "
+              "pattern is not the plain mask")
+    n += 2 * keep.numel()
+    q = torch.randn(b, h, s, d, generator=gen, device="cuda")
+    kk = torch.zeros(b, h, d, d, device="cuda")
+    kk[:, :, 0, 0] = 1.0
+    ones = torch.ones(b, h, s, d, device="cuda")
+    _, lse = fa.flash_attention_fwd(q, kk, eye, None, None, False, 1.0,
+                                    bias=bias_fwd)
+    delta = torch.zeros(b, h, s, device="cuda")
+    dq = fa._flash_dq_cuda(q, kk, eye, ones, lse, delta, None, None, False,
+                           1.0, fa._NO_ROUNDS,
+                           dropout=fa._dropout_args(0.5, seed),
+                           bias=fa._bias_operand(bias_fwd, b, h, s, d,
+                                                 q.device, 1.0))
+    keep = fa.dropout_keep_reference(seed, b, h, s, d, 0.5, device="cuda")
+    check(torch.equal(dq[..., 0] != 0, keep[..., 0])
+          and not bool(dq[..., 1:].any()),
+          f"{what}: the split dq's keep pattern is not the plain mask")
+    return dict(case=what, rate=0.5, keep_elements=n + b * h * s,
+                bitwise=True)
+
+
+def _f32_both_split_timed(torch, fa, F, timer, gen, b, h, s, d):
+    """The FFMA forward and split with both at b h s d (the [1, 1, s, s]
+    future mask as the bias, no padding, dropout 0.1; the gate splits):
+    the forward and the pair as routed against the plain versions, a
+    rerun bitwise, each split kernel against its own plain version; the
+    forward, dk/dv and dq timed beside their twins (the bias alone over
+    the same tiles; dropout alone over the same tiles, unmasked), their
+    plain versions and SDPA fp32 (``attn_mask``, ``dropout_p``: its own
+    random stream, a time only); the bounds over the live pairs with the
+    hash's integer operations beside the products."""
+    scale = d ** -0.5
+    q, k, v, do, bias, sids, mask, pairs = _f32_bias_shape(torch, b, h, s, d,
+                                                           None, gen)
+    shape = (f"b{b} h{h} s{s} d{d} fp32, bias [1, 1, {s}, {s}] (the future "
+             f"mask), dropout {DROPOUT_RATE}")
+    check(fa.uses_split_backward(s, s, d, 4, 4, bias=True, dropout=True),
+          f"the gate at s{s} d{d} fp32 with both: not the split")
+    drop = dict(dropout_rate=DROPOUT_RATE, dropout_seed=F32_BIAS_DROPOUT_SEED)
+    kw = dict(scale=scale, bias=bias, **drop)
+    n0 = _f32_variant_counts(fa)
+    n1 = fa.flash_attention_bwd.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, *sids, False, scale,
+                                      bias=bias, **drop)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, *sids, False, scale,
+                                 bias=bias, **drop)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, *sids, False,
+                                   scale, bias=bias, **drop)
+    torch.cuda.synchronize()
+    _f32_moved(fa, n0, (1, 0, 2, 2), F32_BOTH,
+               f"flash fp32 bias dropout {shape}")
+    check(fa.flash_attention_bwd.launches == n1,
+          f"flash fp32 bias dropout {shape}: a single pass ran")
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"flash fp32 bias dropout {shape}: a rerun gave other bits")
+    del again
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
+    fwd_err = _fp32_err(out, ref, f"flash fp32 bias dropout {shape} "
+                        "forward", FP32_FWD_TOL)
+    lse_err = _lse_err(lse, ref_lse, f"flash fp32 bias dropout {shape}")
+    del ref, ref_lse
+    rgrads = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, **kw)
+    pair_err = {n: _fp32_err(x, r, f"flash fp32 bias dropout {shape} {n}",
+                             FP32_GRAD_TOL)
+                for n, x, r in zip(("dq", "dk", "dv"), got, rgrads)}
+    del got, rgrads
+    delta = (do * out).sum(dim=-1)
+    args = (q, k, v, do, lse, delta, None, None, False, scale, fa._NO_ROUNDS)
+    bop = fa._bias_operand(bias, b, h, s, s, q.device, scale)
+    dargs = fa._dropout_args(DROPOUT_RATE, F32_BIAS_DROPOUT_SEED)
+    ws = fa._f32_transposes(q)
+    dk, dv = fa._flash_dkdv_cuda(*args, ws=ws, dropout=dargs, bias=bop)
+    dq = fa._flash_dq_cuda(*args, ws=ws, dropout=dargs, bias=bop)
+    rdq, _ = fa.flash_bwd_dq_reference(q, k, v, out, lse, do, **kw)
+    dq_err = _fp32_err(dq, rdq, f"flash fp32 bias dropout {shape} dq alone",
+                       FP32_GRAD_TOL)
+    del rdq
+    rdk, rdv = fa.flash_bwd_dkdv_reference(q, k, v, lse, delta, do, **kw)
+    dkdv_err = max(
+        _fp32_err(dk, rdk, f"flash fp32 bias dropout {shape} dk alone",
+                  FP32_GRAD_TOL),
+        _fp32_err(dv, rdv, f"flash fp32 bias dropout {shape} dv alone",
+                  FP32_GRAD_TOL))
+    del rdk, rdv, dk, dv, dq
+    torch.cuda.empty_cache()
+    ldrop = dict(dropout_p=DROPOUT_RATE)
+    t = dict(
+        fwd_ms=timer(lambda: fa.flash_attention_fwd(
+            q, k, v, None, None, False, scale, bias=bias, **drop), iters=10),
+        fwd_bias_only_ms=timer(lambda: fa.flash_attention_fwd(
+            q, k, v, None, None, False, scale, bias=bias), iters=10),
+        fwd_dropout_only_ms=timer(lambda: fa.flash_attention_fwd(
+            q, k, v, None, None, False, scale, **drop), iters=10),
+        fwd_plain_ms=timer(lambda: fa.flash_attention_reference(
+            q, k, v, **kw), iters=3, warmup=1),
+        fwd_library_ms=timer(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale, **ldrop), iters=10),
+        dkdv_ms=timer(lambda: fa._flash_dkdv_cuda(*args, dropout=dargs,
+                                                  bias=bop), iters=10),
+        dkdv_bias_only_ms=timer(lambda: fa._flash_dkdv_cuda(*args, bias=bop),
+                                iters=10),
+        dkdv_dropout_only_ms=timer(lambda: fa._flash_dkdv_cuda(
+            *args, dropout=dargs), iters=10),
+        dq_ms=timer(lambda: fa._flash_dq_cuda(*args, ws=ws, dropout=dargs,
+                                              bias=bop), iters=10),
+        dq_bias_only_ms=timer(lambda: fa._flash_dq_cuda(*args, ws=ws,
+                                                        bias=bop), iters=10),
+        dq_dropout_only_ms=timer(lambda: fa._flash_dq_cuda(
+            *args, ws=ws, dropout=dargs), iters=10),
+        as_called_ms=timer(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, do, None, None, False, scale, bias=bias,
+            **drop), iters=10),
+        dkdv_plain_ms=timer(lambda: fa.flash_bwd_dkdv_reference(
+            q, k, v, lse, delta, do, **kw), iters=3, warmup=1),
+        dq_plain_ms=timer(lambda: fa.flash_bwd_dq_reference(
+            q, k, v, out, lse, do, **kw), iters=3, warmup=1),
+        library_ms=timer(_grad_of(torch, lambda a, b_, c: (
+            F.scaled_dot_product_attention(a, b_, c, attn_mask=mask,
+                                           scale=scale, **ldrop)),
+            (q, k, v), do), iters=5))
+    sd4, side = b * h * s * d * 4, b * h * s * 4
+    bias_bytes = bias.numel() * 4
+    hashed = DROPOUT_HASH_OPS * pairs
+    f_bound = bound(4.0 * d * pairs + hashed, 4 * sd4 + side + bias_bytes,
+                    FP32_FLOPS_PER_S)
+    dkdv_bound = bound(4 * 2.0 * d * pairs + hashed,
+                       6 * sd4 + 2 * side + bias_bytes, FP32_FLOPS_PER_S)
+    dq_bound = bound(3 * 2.0 * d * pairs + hashed,
+                     5 * sd4 + 2 * side + bias_bytes, FP32_FLOPS_PER_S)
+    del q, k, v, do, out, lse, delta, args, ws, bias, mask, bop
+    torch.cuda.empty_cache()
+    return dict(shape=shape, live_pairs=pairs, fwd_max_abs_err=fwd_err,
+                lse_rel_err=lse_err, pair_max_abs_err=pair_err,
+                dkdv_max_abs_err=dkdv_err, dq_max_abs_err=dq_err,
+                fwd_bound_ms=f_bound[0], fwd_bound_by=f_bound[1],
+                dkdv_bound_ms=dkdv_bound[0], dkdv_bound_by=dkdv_bound[1],
+                dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1], **t)
+
+
+def _f32_both_single_timed(torch, fa, F, timer, gen):
+    """The FFMA forward and single pass with both at train-o0-mha6's
+    attention (b28 h16 s128 d64 fp32, the future mask as the bias, key
+    padding as segment ids, dropout 0.1; the gate keeps the single pass):
+    both as routed against the plain versions, a rerun bitwise, the device
+    launches of one backward call (profiler: one prologue, the variant);
+    the single pass timed as called beside its twins (the bias alone; the
+    dropout alone over the same tiles, unmasked), its plain version and
+    SDPA fp32 (``attn_mask``, ``dropout_p``); the bound over the live
+    pairs with the hash beside the products."""
+    b, h, s, d = MHA6_B, MHA_HEADS, MHA6_S, MHA_E // MHA_HEADS
+    scale = d ** -0.5
+    q, k, v, do, bias, sids, mask, pairs = _f32_bias_shape(
+        torch, b, h, s, d, MHA6_MIN_LEN, gen)
+    shape = (f"b{b} h{h} s{s} d{d} fp32, bias [1, 1, {s}, {s}] (the future "
+             f"mask), key padding {MHA6_MIN_LEN}-{s}, dropout {DROPOUT_RATE}")
+    check(not fa.uses_split_backward(s, s, d, 4, 4, bias=True, dropout=True),
+          f"the gate at s{s} d{d} fp32 with both: not the single pass")
+    drop = dict(dropout_rate=DROPOUT_RATE, dropout_seed=F32_BIAS_DROPOUT_SEED)
+    kw = dict(segment_ids_q=sids[0], segment_ids_kv=sids[1], scale=scale,
+              bias=bias, **drop)
+    n0 = _f32_variant_counts(fa)
+    n1 = fa.flash_attention_bwd.dkdv_launches
+    out, lse = fa.flash_attention_fwd(q, k, v, *sids, False, scale,
+                                      bias=bias, **drop)
+    again = fa.flash_attention_fwd(q, k, v, *sids, False, scale, bias=bias,
+                                   **drop)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, *sids, False, scale,
+                                 bias=bias, **drop)
+    got2 = fa.flash_attention_bwd(q, k, v, out, lse, do, *sids, False, scale,
+                                  bias=bias, **drop)
+    torch.cuda.synchronize()
+    _f32_moved(fa, n0, (2, 2, 0, 0), F32_BOTH,
+               f"flash fp32 bias dropout {shape}")
+    check(fa.flash_attention_bwd.dkdv_launches == n1,
+          f"flash fp32 bias dropout {shape}: the split ran")
+    check(torch.equal(out, again[0]) and torch.equal(lse, again[1])
+          and all(torch.equal(x, y) for x, y in zip(got, got2)),
+          f"flash fp32 bias dropout {shape}: a rerun gave other bits")
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
+    fwd_err = _fp32_err(out, ref, f"flash fp32 bias dropout {shape} "
+                        "forward", FP32_FWD_TOL)
+    _lse_err(lse, ref_lse, f"flash fp32 bias dropout {shape}")
+    err = {n: _fp32_err(x, r, f"flash fp32 bias dropout {shape} {n}",
+                        FP32_GRAD_TOL)
+           for n, x, r in zip(("dq", "dk", "dv"), got,
+                              fa.flash_attention_bwd_reference(
+                                  q, k, v, out, lse, do, **kw))}
+    dev = device_launches(torch, fa.flash_attention_bwd,
+                          (q, k, v, out, lse, do, *sids, False, scale),
+                          F32_CORE_KERNELS + F32_BIAS_BWD_KERNELS
+                          + F32_BIAS_DROPOUT_BWD_KERNELS,
+                          dict(bias=bias, **drop))
+    want = {k_: 0 for k_ in F32_CORE_KERNELS + F32_BIAS_BWD_KERNELS
+            + F32_BIAS_DROPOUT_BWD_KERNELS}
+    want.update(flash_f32_prologue_kernel=1,
+                flash_bwd_f32_bias_dropout_kernel=1)
+    check({k_: dev[k_] for k_ in want} == want, f"flash fp32 bias dropout "
+          f"single pass: device launches {dev} in one call, expected {want}")
+    ldrop = dict(dropout_p=DROPOUT_RATE)
+    t = dict(
+        ms=timer(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, do, *sids, False, scale, bias=bias, **drop),
+            iters=10),
+        bias_only_ms=timer(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, do, *sids, False, scale, bias=bias),
+            iters=10),
+        dropout_only_ms=timer(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, do, *sids, False, scale, **drop), iters=10),
+        plain_ms=timer(lambda: fa.flash_attention_bwd_reference(
+            q, k, v, out, lse, do, **kw), iters=3, warmup=1),
+        library_ms=timer(_grad_of(torch, lambda a, b_, c: (
+            F.scaled_dot_product_attention(a, b_, c, attn_mask=mask,
+                                           scale=scale, **ldrop)),
+            (q, k, v), do), iters=10))
+    sd4, side = b * h * s * d * 4, b * h * s * 4
+    bias_bytes = bias.numel() * 4 + 2 * b * s * 4
+    b_bound = bound(10.0 * d * pairs + DROPOUT_HASH_OPS * pairs,
+                    8 * sd4 + 2 * side + bias_bytes, FP32_FLOPS_PER_S)
+    del q, k, v, do, out, lse, got, got2, again, bias, mask
+    torch.cuda.empty_cache()
+    return dict(shape=shape, live_pairs=pairs, fwd_max_abs_err=fwd_err,
+                max_abs_err=max(err.values()), grad_max_abs_err=err,
+                bound_ms=b_bound[0], bound_by=b_bound[1],
+                device_launches_per_call=dev, **t)
+
+
+def check_flash_f32_bias_dropout(torch, timer):
+    """The variants with both the bias and dropout of B1, B2, B3 and B4 on
+    the fp32 FFMA route (``flash_fwd_f32_bias_dropout_kernel`` of
+    ``csrc/flash_fwd_f32.cuh``; ``flash_bwd_f32_bias_dropout_kernel``,
+    ``flash_dkdv_f32_bias_dropout_kernel`` and
+    ``flash_dq_f32_bias_dropout_kernel`` of ``csrc/flash_bwd_f32.cuh``) at
+    :func:`_bias_cases`' shapes in fp32 with dropout 0.1
+    (:func:`_f32_bias_case`), the keep pattern bitwise at d 64 and
+    128 (:func:`_f32_bias_dropout_keep_pattern`), the rows at the -1e30
+    fill (:func:`_fill_rows_cases`, single pass and split); then at
+    train-o0-mha16's shape (the forward and the split,
+    :func:`_f32_both_split_timed`: the rows' numbers), at the d-64 split
+    shape :data:`F32_BOTH_D64_SPLIT` (the same) and at train-o0-mha6's
+    shape (the forward and the single pass, :func:`_f32_both_single_timed`:
+    B2's row); ptxas's registers with no spill."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    checked = [_f32_bias_case(torch, fa, gen, (torch.float32, *c[1:]),
+                              DROPOUT_RATE) for c in _bias_cases(torch)]
+    bitwise = [_f32_bias_dropout_keep_pattern(torch, fa, gen, 64, 5),
+               _f32_bias_dropout_keep_pattern(torch, fa, gen, 128, -3)]
+    fill = _fill_rows_cases(torch, fa, gen, (torch.float32,), (False, True),
+                            DROPOUT_RATE)
+    torch.cuda.empty_cache()
+    main = _f32_both_split_timed(torch, fa, F, timer, gen, MHA16_B,
+                                 MHA16_HEADS, MHA16_S, MHA_E // MHA16_HEADS)
+    d64 = _f32_both_split_timed(torch, fa, F, timer, gen,
+                                *F32_BOTH_D64_SPLIT)
+    single = _f32_both_single_timed(torch, fa, F, timer, gen)
+    fwd_regs = _ffma_registers(_build, "flash_fwd",
+                               F32_BIAS_DROPOUT_FWD_KERNELS)
+    bwd_regs = _ffma_registers(_build, "flash_bwd",
+                               F32_BIAS_DROPOUT_BWD_KERNELS)
+    common = dict(
+        route="cuda", bitwise=bitwise, fill_rows=fill,
+        checked=checked,
+        tolerance=f"out and lse {FP32_FWD_TOL}, gradients {FP32_GRAD_TOL}, "
+                  "of max and in relative norm, of the plain versions with "
+                  "the same bias and seed; the one-key row bit for bit; a "
+                  "dead row's out and dq exactly 0, its lse the fill; a "
+                  "rerun bitwise; the keep pattern bitwise",
+        library="F.scaled_dot_product_attention(attn_mask=the bias and the "
+                f"padding as one fp32 mask, dropout_p={DROPOUT_RATE}), exact "
+                "fp32, its own random stream (a time, not an oracle; "
+                "backward: dq, dk and dv together)")
+    split_common = dict(common, shape=main["shape"],
+                        live_pairs=main["live_pairs"],
+                        source="apex_tpu_torch/csrc/flash_bwd_f32.cuh",
+                        library_ms=main["library_ms"],
+                        as_called_ms=main["as_called_ms"],
+                        pair_max_abs_err=main["pair_max_abs_err"],
+                        registers=bwd_regs, d64_shape=d64)
+    return [
+        dict(name="flash_fwd_f32_bias_dropout",
+             source="apex_tpu_torch/csrc/flash_fwd_f32.cuh",
+             replaces="apex_tpu/ops/flash_attention.py:251",
+             max_abs_err=main["fwd_max_abs_err"],
+             lse_rel_err=main["lse_rel_err"], ms=main["fwd_ms"],
+             bias_only_ms=main["fwd_bias_only_ms"],
+             dropout_only_ms=main["fwd_dropout_only_ms"],
+             plain_ms=main["fwd_plain_ms"],
+             plain="flash_attention_reference with the same bias and seed",
+             library_ms=main["fwd_library_ms"], bound_ms=main["fwd_bound_ms"],
+             bound_by=main["fwd_bound_by"], shape=main["shape"],
+             live_pairs=main["live_pairs"], registers=fwd_regs,
+             d64_shape=d64, single_pass_shape=dict(
+                 shape=single["shape"],
+                 fwd_max_abs_err=single["fwd_max_abs_err"]), **common),
+        dict(name="flash_bwd_f32_bias_dropout",
+             source="apex_tpu_torch/csrc/flash_bwd_f32.cuh",
+             replaces="apex_tpu/ops/flash_attention.py:604",
+             max_abs_err=single["max_abs_err"],
+             pair_max_abs_err=single["grad_max_abs_err"], ms=single["ms"],
+             bias_only_ms=single["bias_only_ms"],
+             dropout_only_ms=single["dropout_only_ms"],
+             plain_ms=single["plain_ms"],
+             plain="flash_attention_bwd_reference with the same bias and "
+                   "seed",
+             library_ms=single["library_ms"], bound_ms=single["bound_ms"],
+             bound_by=single["bound_by"], shape=single["shape"],
+             live_pairs=single["live_pairs"],
+             as_called="flash_attention_bwd (the zeroed turns, two "
+                       "transposes and the delta fold, the kernel)",
+             device_launches_per_call=single["device_launches_per_call"],
+             registers=bwd_regs, **common),
+        dict(name="flash_bwd_f32_dkdv_bias_dropout",
+             replaces="apex_tpu/ops/flash_attention.py:558",
+             max_abs_err=main["dkdv_max_abs_err"], ms=main["dkdv_ms"],
+             bias_only_ms=main["dkdv_bias_only_ms"],
+             dropout_only_ms=main["dkdv_dropout_only_ms"],
+             plain_ms=main["dkdv_plain_ms"],
+             plain="flash_bwd_dkdv_reference with the same bias and seed",
+             bound_ms=main["dkdv_bound_ms"], bound_by=main["dkdv_bound_by"],
+             **split_common),
+        dict(name="flash_bwd_f32_dq_bias_dropout",
+             replaces="apex_tpu/ops/flash_attention.py:671",
+             max_abs_err=main["dq_max_abs_err"], ms=main["dq_ms"],
+             bias_only_ms=main["dq_bias_only_ms"],
+             dropout_only_ms=main["dq_dropout_only_ms"],
+             plain_ms=main["dq_plain_ms"],
+             plain="flash_bwd_dq_reference with the same bias and seed",
+             bound_ms=main["dq_bound_ms"], bound_by=main["dq_bound_by"],
+             **split_common)]
 
 
 # the wgmma flash kernels in ptxas's log: the split's two, the forward (its
@@ -3848,7 +4383,8 @@ def check_flash_split_bias(torch, timer):
     shapes, sq != sk, odd sk, segment padding, a row -inf everywhere;
     unmasked tiles with -inf entries beside masked ones), each kernel
     against its plain version with the same bias at the bf16 backwards'
-    limits; the positions bitwise (:func:`_split_bias_positions`); then at
+    limits; the positions bitwise (:func:`_split_bias_positions`); the
+    rows at the -1e30 fill (:func:`_fill_rows_cases`, the split); then at
     :data:`SPLIT_BIAS_SHAPES` the pair as routed against the plain
     backward, a bitwise rerun, each kernel against its plain version, and
     the times (:func:`_split_bias_timed`). The rows' numbers are the
@@ -3861,6 +4397,8 @@ def check_flash_split_bias(torch, timer):
                                        256, 321),
                  _split_bias_positions(torch, fa, gen, torch.float16, 128,
                                        300, 512)]
+    fill = _fill_rows_cases(torch, fa, gen, (torch.bfloat16, torch.float16),
+                            (True,), 0.0)
     torch.cuda.empty_cache()
     by_shape = [_split_bias_timed(torch, fa, F, timer, gen, *shape)
                 for shape in SPLIT_BIAS_SHAPES]
@@ -3878,7 +4416,7 @@ def check_flash_split_bias(torch, timer):
         as_called_ms=main["as_called_ms"], live_pairs=main["live_pairs"],
         pair_max_abs_err=main["pair_max_abs_err"], positions=positions,
         checked=[dict(case=w, grad_max_abs_err=e) for w, e in checked],
-        by_shape=by_shape)
+        fill_rows=fill, by_shape=by_shape)
     return [
         dict(name="flash_bwd_dkdv_sm90_bias",
              replaces="apex_tpu/ops/flash_attention.py:558",
@@ -4331,10 +4869,11 @@ def check_flash_bias_dropout(torch, timer):
     sk, segment padding, a row -inf everywhere) against their plain
     versions with the same bias and seed (:func:`_bias_dropout_case`); the
     keep pattern and the positions bitwise (:func:`_bias_dropout_bitwise`);
-    then at :data:`BIAS_DROPOUT_SHAPES` the checks and the times of the
-    forward and the split (:func:`_bias_dropout_timed`; the rows' numbers
-    are the train-mha16-bias-dropout path's shape, the last), and at the
-    train-mha6 path's shape those of the single pass
+    the rows at the -1e30 fill (:func:`_fill_rows_cases`, the single pass
+    and the split); then at :data:`BIAS_DROPOUT_SHAPES` the checks and the
+    times of the forward and the split (:func:`_bias_dropout_timed`; the
+    rows' numbers are the train-mha16-bias-dropout path's shape, the last),
+    and at the train-mha6 path's shape those of the single pass
     (:func:`_single_pass_bias_dropout_timed`)."""
     import torch.nn.functional as F
     from apex_tpu_torch.ops import flash_attention as fa
@@ -4343,6 +4882,8 @@ def check_flash_bias_dropout(torch, timer):
                for c in _bias_cases(torch)]
     bitwise = [_bias_dropout_bitwise(torch, fa, gen, torch.bfloat16, 64, 5),
                _bias_dropout_bitwise(torch, fa, gen, torch.float16, 128, -3)]
+    fill = _fill_rows_cases(torch, fa, gen, (torch.bfloat16, torch.float16),
+                            (False, True), DROPOUT_RATE)
     torch.cuda.empty_cache()
     by_shape = [_bias_dropout_timed(torch, fa, F, timer, gen, *shape)
                 for shape in BIAS_DROPOUT_SHAPES]
@@ -4350,7 +4891,7 @@ def check_flash_bias_dropout(torch, timer):
     main = by_shape[-1]
     common = dict(
         route="cuda", shape=main["shape"], live_pairs=main["live_pairs"],
-        bitwise=bitwise, by_shape=by_shape,
+        bitwise=bitwise, by_shape=by_shape, fill_rows=fill,
         checked=[dict(case=w, max_abs_err=e, grad_max_abs_err=ge,
                       single_pass_grad_max_abs_err=se)
                  for w, e, ge, se in checked])
@@ -4658,7 +5199,8 @@ def counters():
     and split's variants with both (``*_bias_dropout``) apart from all
     three, and the fp32 FFMA forward's, single pass's and split's dropout
     and bias variants (``flash_*_f32_*dropout``, ``flash_*_f32_*bias``)
-    apart from their kernels without."""
+    and their variants with both (``flash_*_f32_*bias_dropout``) apart
+    from their kernels without."""
     from apex_tpu_torch.ops import flash_attention as fa
     from apex_tpu_torch.ops import fp8_matmul as mm
     from apex_tpu_torch.ops import fused_ce as xe
@@ -4678,6 +5220,8 @@ def counters():
             "flash_fwd_f32_dropout": (fa.flash_attention,
                                       "f32_dropout_launches"),
             "flash_fwd_f32_bias": (fa.flash_attention, "f32_bias_launches"),
+            "flash_fwd_f32_bias_dropout": (fa.flash_attention,
+                                           "f32_bias_dropout_launches"),
             "paged_decode": (fa.paged_decode_attention, "launches"),
             "paged_decode_fp8": (fa.paged_decode_attention, "fp8_launches"),
             "layer_norm_fwd": (ln.fused_layer_norm_affine, "launches"),
@@ -4695,6 +5239,8 @@ def counters():
                                       "f32_dropout_launches"),
             "flash_bwd_f32_bias": (fa.flash_attention_bwd,
                                    "f32_bias_launches"),
+            "flash_bwd_f32_bias_dropout": (fa.flash_attention_bwd,
+                                           "f32_bias_dropout_launches"),
             "layer_norm_bwd": (ln.layer_norm_bwd, "launches"),
             "lm_head_ce_fwd": (ce.lm_head_ce_fwd, "launches"),
             "lm_head_ce_bwd": (ce.lm_head_ce_bwd, "launches"),
@@ -4732,6 +5278,10 @@ def counters():
                                         "f32_bias_dkdv_launches"),
             "flash_bwd_f32_dq_bias": (fa.flash_attention_bwd,
                                       "f32_bias_dq_launches"),
+            "flash_bwd_f32_dkdv_bias_dropout": (
+                fa.flash_attention_bwd, "f32_bias_dropout_dkdv_launches"),
+            "flash_bwd_f32_dq_bias_dropout": (
+                fa.flash_attention_bwd, "f32_bias_dropout_dq_launches"),
             "xentropy_fwd": (xe.softmax_cross_entropy_with_smoothing,
                              "launches"),
             "xentropy_bwd": (xe.softmax_cross_entropy_with_smoothing,
@@ -4768,9 +5318,11 @@ def read_counters():
     split's less their bias variants' (``*_bias``) and the variants with
     both (``*_bias_dropout``; a launch with both counts there alone); and
     the FFMA forward's, single pass's and split's less their dropout and
-    bias variants', so that ``flash_fwd_f32``, ``flash_bwd_f32``,
-    ``flash_bwd_f32_dkdv`` and ``flash_bwd_f32_dq`` count the kernels
-    without a variant and ``*_dropout``, ``*_bias`` those with."""
+    bias variants' and their variants with both, so that
+    ``flash_fwd_f32``, ``flash_bwd_f32``, ``flash_bwd_f32_dkdv`` and
+    ``flash_bwd_f32_dq`` count the kernels without a variant and
+    ``*_dropout``, ``*_bias``, ``*_bias_dropout`` those with (a launch
+    with both counts there alone)."""
     out = {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
     out["fp8_matmul"] -= out["fp8_matmul_prefill"]
     out["lm_head_ce_fwd"] -= out["lm_head_ce_fwd_f32"]
@@ -4781,13 +5333,13 @@ def read_counters():
         out["flash_bwd_f32_dkdv"]
     out["flash_bwd_dq"] -= out["flash_bwd_dq_sm90"] + out["flash_bwd_f32_dq"]
     out["flash_fwd_f32"] -= out["flash_fwd_f32_dropout"] + \
-        out["flash_fwd_f32_bias"]
+        out["flash_fwd_f32_bias"] + out["flash_fwd_f32_bias_dropout"]
     out["flash_bwd_f32"] -= out["flash_bwd_f32_dropout"] + \
-        out["flash_bwd_f32_bias"]
+        out["flash_bwd_f32_bias"] + out["flash_bwd_f32_bias_dropout"]
     out["flash_bwd_f32_dkdv"] -= out["flash_bwd_f32_dkdv_dropout"] + \
-        out["flash_bwd_f32_dkdv_bias"]
+        out["flash_bwd_f32_dkdv_bias"] + out["flash_bwd_f32_dkdv_bias_dropout"]
     out["flash_bwd_f32_dq"] -= out["flash_bwd_f32_dq_dropout"] + \
-        out["flash_bwd_f32_dq_bias"]
+        out["flash_bwd_f32_dq_bias"] + out["flash_bwd_f32_dq_bias_dropout"]
     out["flash_fwd_sm90"] -= out["flash_fwd_sm90_dropout"] + \
         out["flash_fwd_sm90_bias"] + out["flash_fwd_sm90_bias_dropout"]
     out["flash_bwd_fused_sm90"] -= out["flash_bwd_fused_sm90_dropout"] + \
@@ -5020,7 +5572,11 @@ TRAIN_PER_STEP = {"flash_fwd": 0, "flash_fwd_sm90": 12, "flash_fwd_f32": 0,
                   "flash_bwd_f32_bias": 0, "flash_bwd_f32_dkdv_bias": 0,
                   "flash_bwd_f32_dq_bias": 0,
                   "flash_bwd_f32_dkdv_dropout": 0,
-                  "flash_bwd_f32_dq_dropout": 0, "xentropy_fwd": 0,
+                  "flash_bwd_f32_dq_dropout": 0,
+                  "flash_fwd_f32_bias_dropout": 0,
+                  "flash_bwd_f32_bias_dropout": 0,
+                  "flash_bwd_f32_dkdv_bias_dropout": 0,
+                  "flash_bwd_f32_dq_bias_dropout": 0, "xentropy_fwd": 0,
                   "xentropy_bwd": 0, "multi_tensor_update": 0,
                   "multi_tensor_update_lamb": 0}
 
@@ -6579,9 +7135,8 @@ def run_o0_long_dropout_path(torch):
 
 
 # the O0 twins of the bias MHA paths (fairseq trains in fp32 without
-# --fp16): every flash launch on the FFMA route's bias variants, the
-# LayerNorm pair of norm_add; dropout 0, as the FFMA route has no variant
-# with the bias and dropout together yet
+# --fp16) at dropout 0: every flash launch on the FFMA route's bias
+# variants, the LayerNorm pair of norm_add (the only main paths on them)
 O0_MHA16_PER_STEP = {**{k: 0 for k in TRAIN_PER_STEP},
                      "flash_fwd_f32_bias": MHA16_LAYERS,
                      "flash_bwd_f32_dkdv_bias": MHA16_LAYERS,
@@ -6593,19 +7148,38 @@ O0_MHA6_PER_STEP = {**{k: 0 for k in TRAIN_PER_STEP},
                     "flash_bwd_f32_bias": MHA6_LAYERS,
                     "layer_norm_fwd": MHA6_LAYERS,
                     "layer_norm_bwd": MHA6_LAYERS}
+# the same two at fairseq's attention_dropout 0.1 (transformer_lm_wiki103,
+# transformer_wmt_en_de_big): every flash launch on the FFMA route's
+# variants with both (the gate splits fp32 with both from s400 at d 128 and
+# keeps s128 at d 64 on the single pass)
+O0_MHA16_DROP_PER_STEP = {**{k: 0 for k in TRAIN_PER_STEP},
+                          "flash_fwd_f32_bias_dropout": MHA16_LAYERS,
+                          "flash_bwd_f32_dkdv_bias_dropout": MHA16_LAYERS,
+                          "flash_bwd_f32_dq_bias_dropout": MHA16_LAYERS,
+                          "layer_norm_fwd": MHA16_LAYERS,
+                          "layer_norm_bwd": MHA16_LAYERS}
+O0_MHA6_DROP_PER_STEP = {**{k: 0 for k in TRAIN_PER_STEP},
+                         "flash_fwd_f32_bias_dropout": MHA6_LAYERS,
+                         "flash_bwd_f32_bias_dropout": MHA6_LAYERS,
+                         "layer_norm_fwd": MHA6_LAYERS,
+                         "layer_norm_bwd": MHA6_LAYERS}
 
 
-def _o0_mha_grad_check(torch, what, s, b, heads, lens, per_layer):
-    """A 2-layer full-width fp32 stack of the path's configuration through
-    the kernels against ``reference=True``: loss :data:`O0_LOSS_TOL`
+def _o0_mha_grad_check(torch, what, s, b, heads, lens, per_layer,
+                       kw=MHA_BIAS_KW):
+    """A 2-layer full-width fp32 stack of the path's configuration (module
+    options ``kw``) through the kernels against ``reference=True``, a host
+    generator in the same state on both sides (the attention seeds and the
+    residual dropout's masks under dropout): loss :data:`O0_LOSS_TOL`
     (absolute: the MSE is above 1, so stricter than relative), every
-    gradient :data:`O0_GRAD_TOL` in relative norm; the
-    FFMA bias variants' launches (``per_layer`` of each a layer) asserted."""
-    stack = mha_stack(torch, MHA_GRAD_LAYERS, MHA_BIAS_KW, heads)
+    gradient :data:`O0_GRAD_TOL` in relative norm; the FFMA variants'
+    launches (``per_layer`` of each a layer) asserted."""
+    stack = mha_stack(torch, MHA_GRAD_LAYERS, kw, heads)
     batch = mha_batch(torch, s, b, True, lens, torch.float32)
 
     def loss_of(reference):
-        return mha_loss(stack, *batch, reference=reference)
+        gen = torch.Generator().manual_seed(DROP_GEN_SEED + 5)
+        return mha_loss(stack, *batch, generator=gen, reference=reference)
 
     reset_counters()
     out = _twin_grads(torch, what, dict(stack.named_parameters()), loss_of,
@@ -6615,7 +7189,8 @@ def _o0_mha_grad_check(torch, what, s, b, heads, lens, per_layer):
         check(launches[k] == per * MHA_GRAD_LAYERS,
               f"{what} {k}: {launches[k]} launches, expected "
               f"{per * MHA_GRAD_LAYERS}")
-    out["shape"] = f"{MHA_GRAD_LAYERS} layers, s{s} b{b} h{heads}, fp32"
+    out["shape"] = (f"{MHA_GRAD_LAYERS} layers, s{s} b{b} h{heads}, fp32, "
+                    f"dropout {kw['dropout']}")
     del stack, batch
     torch.cuda.empty_cache()
     return out
@@ -6655,6 +7230,52 @@ def run_o0_mha6_path(torch):
     stats["grad_check"] = _o0_mha_grad_check(
         torch, "O0 mha grad check s128 h16 b28", MHA6_S, MHA6_B, MHA_HEADS,
         mha6_lengths(), per_layer)
+    return stats
+
+
+def run_o0_mha16_dropout_path(torch):
+    """train-o0-mha16-e1024h8-b1s3072-bias-dropout: train-mha16-bias-
+    dropout's configuration at O0 (fp32), attention dropout 0.1 from the
+    host generator, through the FFMA route's forward and split variants
+    with both; then its 2-layer grad check."""
+    from apex_tpu_torch.ops import flash_attention as fa
+    check(fa.uses_split_backward(MHA16_S, MHA16_S, MHA_E // MHA16_HEADS, 4,
+                                 4, bias=True, dropout=True),
+          f"the gate at s{MHA16_S} fp32 with both: not the split")
+    stats = run_mha_path(torch, MHA_BIAS_DROP_KW, MHA16_S, MHA16_B,
+                         O0_MHA16_DROP_PER_STEP,
+                         "train-o0-mha16-s3072-bias-dropout", True,
+                         layers=MHA16_LAYERS, heads=MHA16_HEADS, lr=MHA16_LR,
+                         opt_level="O0")
+    per_layer = {k: v // MHA16_LAYERS
+                 for k, v in O0_MHA16_DROP_PER_STEP.items()
+                 if k.startswith("flash")}
+    stats["grad_check"] = _o0_mha_grad_check(
+        torch, "O0 mha grad check s3072 h8 dropout", MHA16_S, MHA16_B,
+        MHA16_HEADS, None, per_layer, MHA_BIAS_DROP_KW)
+    return stats
+
+
+def run_o0_mha6_dropout_path(torch):
+    """train-o0-mha6-e1024h16-b28s128-bias-dropout: train-mha6's
+    configuration at O0 (fp32), attention dropout 0.1 from the host
+    generator, through the FFMA route's forward and single pass variants
+    with both (the gate keeps s128 on the single pass); then its 2-layer
+    grad check."""
+    from apex_tpu_torch.ops import flash_attention as fa
+    check(not fa.uses_split_backward(MHA6_S, MHA6_S, MHA_E // MHA_HEADS, 4,
+                                     4, bias=True, dropout=True),
+          f"the gate at s{MHA6_S} fp32 with both: not the single pass")
+    stats = run_mha_path(torch, MHA_BIAS_DROP_KW, MHA6_S, MHA6_B,
+                         O0_MHA6_DROP_PER_STEP,
+                         "train-o0-mha6-s128-bias-dropout", True,
+                         mha6_lengths(), layers=MHA6_LAYERS, opt_level="O0")
+    per_layer = {k: v // MHA6_LAYERS
+                 for k, v in O0_MHA6_DROP_PER_STEP.items()
+                 if k.startswith("flash")}
+    stats["grad_check"] = _o0_mha_grad_check(
+        torch, "O0 mha grad check s128 h16 b28 dropout", MHA6_S, MHA6_B,
+        MHA_HEADS, mha6_lengths(), per_layer, MHA_BIAS_DROP_KW)
     return stats
 
 
@@ -7045,6 +7666,10 @@ _PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_kernel", "flash_dkdv_kernel",
                  "flash_dq_f32_dropout_kernel", "flash_fwd_f32_bias_kernel",
                  "flash_bwd_f32_bias_kernel", "flash_dkdv_f32_bias_kernel",
                  "flash_dq_f32_bias_kernel",
+                 "flash_fwd_f32_bias_dropout_kernel",
+                 "flash_bwd_f32_bias_dropout_kernel",
+                 "flash_dkdv_f32_bias_dropout_kernel",
+                 "flash_dq_f32_bias_dropout_kernel",
                  "flash_fwd_sm90", "flash_bwd_fused_sm90",
                  "flash_dkdv_sm90", "flash_dq_sm90",
                  "paged_decode_kernel",
@@ -7232,6 +7857,7 @@ def main() -> int:
                *check_flash_f32(torch, timer, split=True),
                *check_flash_f32_split_dropout(torch, timer),
                *check_flash_f32_bias(torch, timer),
+               *check_flash_f32_bias_dropout(torch, timer),
                *check_xentropy(torch, timer),
                check_multi_tensor_update(torch, timer),
                check_vpu_probe(torch, timer), check_bottleneck(torch, timer)]
@@ -7249,7 +7875,8 @@ def main() -> int:
                       "alone_ms", "split_as_called_ms", "no_dropout_ms",
                       "mask_check", "pair_max_abs_err", "no_bias_ms",
                       "positions", "live_pairs", "bias_only_ms",
-                      "dropout_only_ms", "bitwise",
+                      "dropout_only_ms", "bitwise", "fill_rows",
+                      "d64_shape", "single_pass_shape",
                       "cudnn_composition_max_abs_err", "plan"):
             if extra in kr:
                 log(f"  {kr['name']} {extra}: {json.dumps(kr[extra])}")
@@ -7438,7 +8065,11 @@ def main() -> int:
                       ("train-o0-mha16-e1024h8-b1s3072-bias",
                        run_o0_mha16_path),
                       ("train-o0-mha6-e1024h16-b28s128-bias",
-                       run_o0_mha6_path)):
+                       run_o0_mha6_path),
+                      ("train-o0-mha16-e1024h8-b1s3072-bias-dropout",
+                       run_o0_mha16_dropout_path),
+                      ("train-o0-mha6-e1024h16-b28s128-bias-dropout",
+                       run_o0_mha6_dropout_path)):
         new_paths[path] = run(torch)
         log(f"{path} path ({card}): " + json.dumps(new_paths[path]))
         if "trace" in new_paths[path]:

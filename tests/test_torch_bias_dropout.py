@@ -32,8 +32,8 @@ The CUDA wrappers, with the library stubbed (no card): the forward, dq and
 dk/dv entries each receive the bias pointer and strides and the seed,
 threshold and 1 / (1 - rate); only the counters of the variants with
 both move; the bias's gradient is exactly zero; the single pass takes both
-(its variant with both, on its own counter), and the fp32 FFMA route still
-refuses the bias before any call.
+(its variant with both, on its own counter), and so does the fp32 FFMA
+route; frag.cuh refuses the pair before any call.
 """
 
 import importlib
@@ -392,9 +392,11 @@ def test_the_single_pass_refuses_both_before_any_call(monkeypatch):
     the single pass's variants with both run, each handed the bias and the
     dropout, on the counters of the variants with both alone; the backward
     forced onto the single pass, and the single pass's wrapper called
-    alone, launch it too. The fp32 FFMA route still refuses the bias with
-    dropout before any call, grads wanted or not; the bias alone it takes
-    (its forward's and single pass's bias variants)."""
+    alone, launch it too. The fp32 FFMA route takes the bias with dropout
+    too (s448 at d 64 stays on its single pass: fp32 with both splits from
+    s452), its forward's and single pass's C entries each handed both,
+    and the bias alone; frag.cuh (fp32 at kernel head dim 256) still
+    refuses the pair before any call, grads wanted or not."""
     calls = _stub_library(monkeypatch)
     s, d = 448, 64
     assert not tfa.uses_split_backward(s, s, d, bias=True, dropout=True)
@@ -431,10 +433,18 @@ def test_the_single_pass_refuses_both_before_any_call(monkeypatch):
     calls.clear()
     q32 = torch.zeros(1, 2, s, d, requires_grad=True)
     extra = dict(dropout_rate=0.1, dropout_seed=3)
-    with pytest.raises(NotImplementedError, match="FFMA"):
-        tfa.flash_attention(q32, q32, q32, bias=bias, **extra)
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="FFMA"):
-        tfa.flash_attention(q32, q32, q32, bias=bias, **extra)
+    tfa.flash_attention(q32, q32, q32, bias=bias, **extra).sum().backward()
+    assert [c[1] for c in calls] == ["apex_flash_fwd_f32",
+                                     "apex_flash_bwd_f32"]
+    assert all(c[2][-7].value is not None and c[2][-4:-1] == drop
+               for c in calls)
+    calls.clear()
+    q256 = torch.zeros(1, 2, s, 256, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="frag.cuh"):
+        tfa.flash_attention(q256, q256, q256, bias=bias, **extra)
+    with torch.no_grad(), pytest.raises(NotImplementedError,
+                                        match="frag.cuh"):
+        tfa.flash_attention(q256, q256, q256, bias=bias, **extra)
     assert calls == []
     tfa.flash_attention(q32, q32, q32, bias=bias).sum().backward()
     assert [c[1] for c in calls] == ["apex_flash_fwd_f32",

@@ -89,8 +89,16 @@ pass, the split's dk/dv and dq) are held the same way: against the plain
 versions with the same seed or bias, the keep pattern bitwise through
 the identity operands, each broadcast shape of the bias with a row -inf
 everywhere (a dead row, dq exactly 0) and a row -inf but for key 0, which
-the mask keeps (its output v[0] bit for bit), bitwise on a rerun; the FFMA
-route refuses the bias with dropout before any launch.
+the mask keeps (its output v[0] bit for bit), bitwise on a rerun. The FFMA
+route's variants with both the bias and dropout (the forward, the single
+pass, the split's dk/dv and dq) are held the same way against the plain
+versions with the same bias and seed, the one-key row's output v[0] / (1 -
+rate) or 0 by its keep bit, the keep pattern bitwise under a finite bias;
+frag.cuh refuses the pair before any launch. The wgmma bias variants, with
+and without dropout, on rows whose bias is at the -1e30 fill or just above
+it on every kept key: live rows (the kept mean, lse the fill, p = 1 on
+each kept key in the backward) against the plain forward and backward end
+to end.
 
 The fp8 dequant-matmul's prefill regime (m > 8, wgmma/TMA with the
 weight converted in registers, ``_prefill_plan``) is held like its decode
@@ -2330,8 +2338,9 @@ def test_flash_bias_refuses_the_unported_routes_on_the_card(gen):
     dropout too (one launch each of the dk/dv and dq variants with both);
     the single pass takes both (s448 d64, under the gate: one launch of its
     variant with both); the fp32 FFMA route takes the bias alone (its
-    forward's and single pass's bias variants) and refuses it with dropout,
-    and frag.cuh refuses the bias, before any launch."""
+    forward's and single pass's bias variants) and with dropout (their
+    variants with both), and frag.cuh refuses the bias, with dropout or
+    without, before any launch."""
     qs = _rand(gen, 1, 1, 640, 64).requires_grad_()
     bias = torch.zeros(1, 1, 640, 640, device="cuda")
     g = fa.flash_attention_bwd
@@ -2369,14 +2378,21 @@ def test_flash_bias_refuses_the_unported_routes_on_the_card(gen):
     torch.cuda.synchronize()
     assert (fa.flash_attention.f32_bias_launches - n1[0],
             g.f32_bias_launches - n1[1]) == (1, 1)
-    with pytest.raises(NotImplementedError, match="FFMA"):
-        fa.flash_attention(q32, q32, q32, bias=b64, dropout_rate=0.1,
-                           dropout_seed=5)
-    qd = _rand(gen, 1, 2, 64, 32)
-    with pytest.raises(NotImplementedError, match="frag.cuh"):
-        fa.flash_attention(qd, qd, qd, bias=b64)
+    q32.grad = None
+    n1 = (fa.flash_attention.f32_bias_dropout_launches,
+          g.f32_bias_dropout_launches)
+    fa.flash_attention(q32, q32, q32, bias=b64, dropout_rate=0.1,
+                       dropout_seed=5).sum().backward()
     torch.cuda.synchronize()
-    assert fa.flash_attention.launches == n0 + 4
+    assert (fa.flash_attention.f32_bias_dropout_launches - n1[0],
+            g.f32_bias_dropout_launches - n1[1]) == (1, 1)
+    assert bool(torch.isfinite(q32.grad).all())
+    qd = _rand(gen, 1, 2, 64, 32)
+    for kw in ({}, dict(dropout_rate=0.1, dropout_seed=5)):
+        with pytest.raises(NotImplementedError, match="frag.cuh"):
+            fa.flash_attention(qd, qd, qd, bias=b64, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 5
 
 
 # ---------------------------------------------------------------------------
@@ -2949,24 +2965,222 @@ def test_flash_f32_bias_matches_plain(gen, d, bdims, b, h, sq, sk, causal,
 
 
 def test_flash_f32_bias_refuses_dropout_before_any_launch(gen):
-    """The FFMA route has no variant with both: the bias with dropout
-    raises naming the route and the dropout, before any launch, through
-    ``flash_attention`` (grads or not) and each wrapper."""
+    """The FFMA route takes the bias with dropout now (its variants with
+    both): through ``flash_attention`` (grads or not; s64 stays on the
+    single pass) and each split wrapper alone, every launch counted on the
+    counters with both alone; frag.cuh (fp32 at kernel head dim 256)
+    still refuses the pair before any launch."""
     q = _rand(gen, 1, 2, 64, 64, dtype=torch.float32)
     bias = torch.zeros(1, 1, 64, 64, device="cuda")
     f, g = fa.flash_attention, fa.flash_attention_bwd
-    n0 = (f.launches, g.launches, g.dkdv_launches, g.dq_launches)
+
+    def counts():
+        return (f.f32_bias_dropout_launches, g.f32_bias_dropout_launches,
+                g.f32_bias_dropout_dkdv_launches,
+                g.f32_bias_dropout_dq_launches, f.f32_bias_launches,
+                f.f32_dropout_launches, g.f32_bias_launches,
+                g.f32_dropout_launches, g.f32_bias_dkdv_launches,
+                g.f32_dropout_dkdv_launches, g.f32_bias_dq_launches,
+                g.f32_dropout_dq_launches)
+
+    n0 = counts()
     kw = dict(bias=bias, dropout_rate=0.1, dropout_seed=3)
     for grad in (True, False):
         qg = q.clone().requires_grad_(grad)
-        with pytest.raises(NotImplementedError,
-                           match="bias with attention dropout.*FFMA"):
-            fa.flash_attention(qg, qg, qg, **kw)
+        out = fa.flash_attention(qg, qg, qg, **kw)
+        if grad:
+            out.sum().backward()
     lse = torch.zeros(1, 2, 64, device="cuda")
     bop = fa._bias_operand(bias, 1, 2, 64, 64, q.device, 0.125)
     for wrapper in (fa._flash_dkdv_cuda, fa._flash_dq_cuda):
-        with pytest.raises(NotImplementedError, match="FFMA"):
-            wrapper(q, q, q, q, lse, lse, None, None, False, 0.125,
-                    fa._NO_ROUNDS, dropout=fa._dropout_args(0.1, 3),
-                    bias=bop)
-    assert (f.launches, g.launches, g.dkdv_launches, g.dq_launches) == n0
+        wrapper(q, q, q, q, lse, lse, None, None, False, 0.125,
+                fa._NO_ROUNDS, dropout=fa._dropout_args(0.1, 3), bias=bop)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), n0)) == (
+        2, 1, 1, 1) + (0,) * 8
+    q256 = _rand(gen, 1, 2, 64, 256, dtype=torch.float32)
+    n1 = (f.launches, g.launches, g.dkdv_launches, g.dq_launches)
+    for grad in (True, False):
+        qg = q256.clone().requires_grad_(grad)
+        with pytest.raises(NotImplementedError, match="bias.*frag.cuh"):
+            fa.flash_attention(qg, qg, qg, **kw)
+    assert (f.launches, g.launches, g.dkdv_launches, g.dq_launches) == n1
+
+
+# ---------------------------------------------------------------------------
+# the fp32 FFMA route with the bias and dropout together (B1-B4's variants
+# with both), and the wgmma bias variants on rows at the -1e30 fill
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d,bdims,b,h,sq,sk,causal,seg,dead",
+                         _F32_BIAS_CASES)
+@pytest.mark.parametrize("split", [False, True])
+def test_flash_f32_bias_dropout_matches_plain(gen, d, bdims, b, h, sq, sk,
+                                              causal, seg, dead, split):
+    """fp32 with a bias and dropout 0.1 on the FFMA route: the forward's
+    variant with both, then the single pass's or the split's (forced),
+    against the plain versions with the same bias and seed (out 1e-5, lse
+    1e-5 relative, gradients 1e-4); a row -inf everywhere is dead (out and
+    dq exactly 0, lse the fill, whatever its keep bits), row 1 is -inf but
+    for key 0, so its output is v[0] / (1 - rate) where key 0 is kept and
+    0 where it is dropped, bit for bit; every output bitwise on a rerun;
+    only the counters with both move beside the route's own."""
+    f32, rate, seed = torch.float32, 0.1, 1234
+    q, k, v, do, bias, sid_q, sid_kv = _bias_inputs(
+        gen, f32, d, bdims, b, h, sq, sk, seg, dead)
+    bias[:, :, 1] = float("-inf")
+    bias[:, :, 1, 0] = 0.0
+    scale = d ** -0.5
+    drop = dict(dropout_rate=rate, dropout_seed=seed)
+    f, g = fa.flash_attention, fa.flash_attention_bwd
+
+    def counts():
+        return (f.f32_bias_dropout_launches, g.f32_bias_dropout_launches,
+                g.f32_bias_dropout_dkdv_launches,
+                g.f32_bias_dropout_dq_launches, f.f32_bias_launches,
+                f.f32_dropout_launches, g.f32_bias_launches,
+                g.f32_dropout_launches)
+
+    n0 = counts()
+    out, lse = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal, scale,
+                                      bias=bias, **drop)
+    again = fa.flash_attention_fwd(q, k, v, sid_q, sid_kv, causal, scale,
+                                   bias=bias, **drop)
+    grads = fa._flash_bwd_cuda(q, k, v, out, lse, do, sid_q, sid_kv, causal,
+                               scale, split=split, bias=bias, **drop)
+    grads2 = fa._flash_bwd_cuda(q, k, v, out, lse, do, sid_q, sid_kv, causal,
+                                scale, split=split, bias=bias, **drop)
+    torch.cuda.synchronize()
+    moved = tuple(a - b_ for a, b_ in zip(counts(), n0))
+    assert moved == ((2, 0, 2, 2) if split else (2, 2, 0, 0)) + (0,) * 4
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    assert all(torch.equal(a, b_) for a, b_ in zip(grads, grads2))
+    keep = fa.dropout_keep_reference(seed, b, h, sq, sk, rate, device="cuda")
+    inv = torch.tensor(1.0 / (1.0 - rate), dtype=f32, device="cuda")
+    one = torch.where(keep[:, :, 1, :1], v[:, :, 0] * inv,
+                      torch.zeros_like(v[:, :, 0]))
+    assert torch.equal(out[:, :, 1], one)
+    kw = dict(causal=causal, segment_ids_q=sid_q, segment_ids_kv=sid_kv,
+              scale=scale, bias=bias, **drop)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
+    _close_fp32(out, ref, 1e-5)
+    live = ref_lse > -1e29
+    rel = (lse - ref_lse).abs() / ref_lse.abs().clamp_min(1.0)
+    assert float(rel[live].max()) <= 1e-5
+    assert torch.equal(lse[~live], ref_lse[~live])
+    for got, r in zip(grads, fa.flash_attention_bwd_reference(
+            q, k, v, out, lse, do, **kw)):
+        _close_fp32(got, r)
+    if dead is not None:
+        assert float(out[:, :, dead].abs().max()) == 0.0
+        assert bool((lse[:, :, dead] == -1e30).all())
+        assert float(grads[0][:, :, dead].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("split", [False, True])
+def test_flash_f32_bias_dropout_keep_pattern_is_the_plain_mask(gen, d,
+                                                               split):
+    """Rate 0.5 under a finite bias (0.5 randn, [1, h, s, s]), no mask. The
+    forward with q = k = 0 and v = I over sk = d keys: out[q, k] = 2 p[q,
+    k] where the key is kept, exactly 0 where it is dropped. The backward
+    (the single pass or the split) with q = 0 and do = I over sq = d rows:
+    dv = the dropped p transposed. The split's dq with key 0 = e_0 and the
+    others 0, v = I, do = 1 and delta 0: dq[q] = ds[q, 0] e_0, nonzero
+    exactly where key 0 is kept. Every zero pattern is the plain mask bit
+    for bit."""
+    f32, b, h, s, seed = torch.float32, 2, 3, 333, -21
+    half = dict(dropout_rate=0.5, dropout_seed=seed)
+    eye = torch.eye(d, device="cuda").expand(b, h, d, d).contiguous()
+    bias_fwd = 0.5 * _rand(gen, 1, h, s, d, dtype=f32)
+    q = torch.zeros(b, h, s, d, device="cuda")
+    k = torch.zeros(b, h, d, d, device="cuda")
+    out, _ = fa.flash_attention_fwd(q, k, eye, None, None, False, 1.0,
+                                    bias=bias_fwd, **half)
+    keep = fa.dropout_keep_reference(seed, b, h, s, d, 0.5, device="cuda")
+    assert torch.equal(out != 0, keep)
+    bias_bwd = 0.5 * _rand(gen, 1, h, d, s, dtype=f32)
+    k, v = (_rand(gen, b, h, s, d, dtype=f32) for _ in range(2))
+    q = torch.zeros(b, h, d, d, device="cuda")
+    out, lse = fa.flash_attention_fwd(q, k, v, None, None, False, 1.0,
+                                      bias=bias_bwd, **half)
+    _, _, dv = fa._flash_bwd_cuda(q, k, v, out, lse, eye, None, None, False,
+                                  1.0, split=split, bias=bias_bwd, **half)
+    keep = fa.dropout_keep_reference(seed, b, h, d, s, 0.5, device="cuda")
+    assert torch.equal(dv != 0, keep.transpose(-1, -2))
+    if not split:
+        return
+    q = _rand(gen, b, h, s, d, dtype=f32)
+    kk = torch.zeros(b, h, d, d, device="cuda")
+    kk[:, :, 0, 0] = 1.0
+    ones = torch.ones(b, h, s, d, device="cuda")
+    _, lse = fa.flash_attention_fwd(q, kk, eye, None, None, False, 1.0,
+                                    bias=bias_fwd)
+    delta = torch.zeros(b, h, s, device="cuda")
+    bop = fa._bias_operand(bias_fwd, b, h, s, d, q.device, 1.0)
+    dq = fa._flash_dq_cuda(q, kk, eye, ones, lse, delta, None, None, False,
+                           1.0, fa._NO_ROUNDS,
+                           dropout=fa._dropout_args(0.5, seed), bias=bop)
+    keep = fa.dropout_keep_reference(seed, b, h, s, d, 0.5, device="cuda")
+    assert torch.equal(dq[..., 0] != 0, keep[..., 0])
+    assert not bool(dq[..., 1:].any())
+
+
+# rows of the fill case: biases at the -1e30 fill and just above it on every
+# key (the causal mask keeps a prefix of them), and a row -inf everywhere
+_FILL_ROWS = {3: -1e30, 5: -1e30, 7: -8e29, 9: -8e29}
+_DEAD_ROW = 11
+
+
+@pytest.mark.parametrize("dtype", [_BF, _F16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_bias_fill_rows_match_plain(gen, dtype, d, split, rate):
+    """The wgmma bias variants (B1, then B2 or the split's B4 and B3; with
+    dropout, the variants with both) on rows whose bias is -1e30 or -8e29
+    on every key the causal mask keeps, beside a row -inf everywhere:
+    against the plain forward and backward end to end (the plain backward
+    from the plain lse). Such a row is live: its out is the mean of v over
+    the kept keys (the dropped mean with dropout), its lse the fill
+    (relative 1e-3), and the backward takes p = 1 on each kept key, as
+    the Pallas kernels do; every gradient finite and within the bias
+    variants' limits. The -inf row stays dead: out and dq exactly 0, lse
+    the fill."""
+    b, h, s = 2, 2, 256
+    q, k, v, do = (_rand(gen, b, h, s, d, dtype=dtype) for _ in range(4))
+    bias = _rand(gen, 1, h, s, s, dtype=torch.float32)
+    for row, fill in _FILL_ROWS.items():
+        bias[:, :, row] = fill
+    bias[:, :, _DEAD_ROW] = float("-inf")
+    scale = d ** -0.5
+    kw = dict(causal=True, scale=scale, bias=bias)
+    if rate:
+        kw.update(dropout_rate=rate, dropout_seed=77)
+    out, lse = fa.flash_attention_fwd(q, k, v, None, None, True, scale,
+                                      bias=bias, dropout_rate=rate,
+                                      dropout_seed=77 if rate else None)
+    grads = fa._flash_bwd_cuda(q, k, v, out, lse, do, None, None, True,
+                               scale, split=split, bias=bias,
+                               dropout_rate=rate,
+                               dropout_seed=77 if rate else None)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
+    rows = list(_FILL_ROWS)
+    mean = v.float().cumsum(2)[:, :, rows] / torch.tensor(
+        [r + 1.0 for r in rows], device="cuda")[:, None]
+    if not rate:    # the plain version is the kept mean there
+        _close(ref[:, :, rows], mean, 1e-3)
+    _close(out, ref, 4e-3)
+    rel = (lse - ref_lse).abs() / ref_lse.abs().clamp_min(1.0)
+    assert float(rel.max()) <= 1e-3
+    assert bool((lse[:, :, rows] < -6e29).all())
+    rgrads = fa.flash_attention_bwd_reference(q, k, v, ref, ref_lse, do,
+                                              **kw)
+    for name, got, r in zip(("dq", "dk", "dv"), grads, rgrads):
+        assert bool(torch.isfinite(got.float()).all()), name
+        _close_grad(got, r, name)
+    assert float(grads[0][:, :, rows].float().abs().max()) > 0.0
+    assert float(out[:, :, _DEAD_ROW].float().abs().max()) == 0.0
+    assert bool((lse[:, :, _DEAD_ROW] == -1e30).all())
+    assert float(grads[0][:, :, _DEAD_ROW].float().abs().max()) == 0.0

@@ -2,11 +2,11 @@
 (forward, single pass, split), on the CPU.
 
 The route table after the lift: ``dropout_refusal`` and ``bias_refusal``
-take fp32 at kernel head dims 64 and 128 on the FFMA route, split or not;
-the FFMA route refuses the bias with dropout (no variant with both yet),
-naming itself and the dropout; fp32 over narrower operands stays on the
-frag.cuh kernels and their refusals. The gate's first split lengths, which
-the documents quote, are pinned here.
+take fp32 at kernel head dims 64 and 128 on the FFMA route, split or not,
+and the FFMA route takes the two together (its variants with both); fp32
+over narrower operands stays on the frag.cuh kernels and their refusals,
+the pair included. The gate's first split lengths, which the documents
+quote, are pinned here.
 
 The CUDA wrappers, with the library stubbed (no card): each of the four
 FFMA C entries (``apex_flash_fwd_f32``, ``apex_flash_bwd_f32``,
@@ -61,20 +61,16 @@ F32, BF = torch.float32, torch.bfloat16
 def test_the_ffma_route_takes_dropout_and_the_bias_split_or_not(kd, s,
                                                                 causal,
                                                                 split):
-    """fp32 at kernel head dims 64 and 128: dropout alone and the bias
-    alone take the FFMA route whether the gate splits or not (both count
-    as the JAX gate counts them); the two together are refused before the
-    forward, naming the route and the dropout."""
+    """fp32 at kernel head dims 64 and 128: dropout alone, the bias
+    alone and the two together take the FFMA route whether the gate splits
+    or not (each counts as the JAX gate counts it: with both, every shape
+    here splits, from s452 at d 64 and s400 at d 128)."""
     q = torch.zeros(1, 1, s, kd)
     assert tfa.dropout_refusal(F32, kd) is None
     assert tfa.bias_refusal(F32, kd) is None
     assert tfa._bwd_route(q, q, q, causal, 0.1) == (split, F32)
     assert tfa._bwd_route(q, q, q, causal, 0.0, bias=True) == (split, F32)
-    refused = tfa.bias_refusal(F32, kd, dropout=True)
-    assert "FFMA" in refused
-    with pytest.raises(NotImplementedError,
-                       match="bias with attention dropout.*FFMA"):
-        tfa._bwd_route(q, q, q, causal, 0.1, bias=True)
+    assert tfa._bwd_route(q, q, q, causal, 0.1, bias=True) == (True, F32)
 
 
 @pytest.mark.parametrize("dtype,kd,ffma", [
@@ -82,10 +78,11 @@ def test_the_ffma_route_takes_dropout_and_the_bias_split_or_not(kd, s,
     (BF, 32, True)])
 def test_frag_routes_keep_their_refusals(dtype, kd, ffma):
     """frag.cuh (fp32 at d 32/256/512, fp32 over narrower operands, bf16
-    at d 32) takes neither dropout nor the bias."""
+    at d 32) takes neither dropout nor the bias, nor the two together."""
     assert "frag.cuh" in tfa.dropout_refusal(dtype, kd, ffma)
     assert "frag.cuh" in tfa.bias_refusal(dtype, kd, ffma)
-    assert "frag.cuh" in tfa.bias_refusal(dtype, kd, ffma, dropout=True)
+    with pytest.raises(NotImplementedError, match="bias.*frag.cuh"):
+        tfa._refuse_bias(dtype, kd, ffma)
 
 
 # (kd, causal, bias, dropout, itemsize) -> the first length the gate splits
@@ -97,6 +94,8 @@ FIRST_SPLIT = [
     (128, True, True, False, 4, 513), (64, True, False, False, 4, 2049),
     (128, True, False, False, 4, 1025), (64, True, False, False, 2, 2049),
     (64, True, True, True, 2, 467), (128, True, True, True, 2, 425),
+    (64, True, True, True, 4, 452), (64, False, True, True, 4, 452),
+    (128, True, True, True, 4, 400), (128, False, True, True, 4, 400),
 ]
 
 
@@ -108,8 +107,8 @@ def test_the_gate_first_splits_at_the_documented_lengths(kd, causal, bias,
     """The first square length the backward splits at, by head dim, mask,
     bias, dropout and operand size: the figures README, ROADMAP and the
     tests quote (fp32 with dropout or a bias: s1025 causal and s608 not at
-    d 64, s513 at d 128; fp32 with neither: s2049 at d 64, s1025 at d
-    128)."""
+    d 64, s513 at d 128; fp32 with both: s452 at d 64, s400 at d 128,
+    causal or not; fp32 with neither: s2049 at d 64, s1025 at d 128)."""
     def splits(s):
         return tfa.uses_split_backward(s, s, kd, itemsize, itemsize, causal,
                                        bias, dropout)
@@ -160,12 +159,14 @@ def _moved(n0):
 FWD, BWD = "flash_attention", "flash_attention_bwd"
 
 
-@pytest.mark.parametrize("variant", ["none", "dropout", "bias"])
+@pytest.mark.parametrize("variant", ["none", "dropout", "bias",
+                                     "bias_dropout"])
 @pytest.mark.parametrize("split", [False, True])
 def test_ffma_entries_get_the_bias_and_the_dropout(monkeypatch, variant,
                                                    split):
     """fp32 at d 64 through ``flash_attention`` (s2560 splits whatever the
-    variant, s512 does not): the forward's entry and the backward's (the
+    variant; s512 does not with one variant, s384 with both): the
+    forward's entry and the backward's (the
     single pass, or the split's dk/dv then dq) each get (bias, batch
     stride, head stride) and
     (seed, threshold, inv) before the stream: null and zeros where unused,
@@ -173,15 +174,15 @@ def test_ffma_entries_get_the_bias_and_the_dropout(monkeypatch, variant,
     batch: stride 0, head stride s * s). The counters of the variant move
     beside the route's own; no other counter moves."""
     calls = _stub_library(monkeypatch)
-    s = 2560 if split else 512
+    s = 2560 if split else 384 if variant == "bias_dropout" else 512
     q = torch.zeros(2, 2, s, 64, requires_grad=True)
     kw, bias_args, drop = {}, (None, 0, 0), (0, 0, 1.0)
-    if variant == "dropout":
+    if "dropout" in variant:
         kw = dict(dropout_rate=0.1, dropout_seed=-77)
         drop = tfa._dropout_args(0.1, -77)
         assert drop[0] == 2 ** 32 - 77 and drop[1] > 0
-    elif variant == "bias":
-        kw = dict(bias=torch.zeros(1, 2, s, s))
+    if "bias" in variant:
+        kw["bias"] = torch.zeros(1, 2, s, s)
         bias_args = (True, 0, s * s)
     n0 = _counts()
     tfa.flash_attention(q, q, q, causal=True, **kw).sum().backward()
@@ -214,9 +215,10 @@ def test_ffma_entries_get_the_bias_and_the_dropout(monkeypatch, variant,
 
 
 def test_ffma_split_wrappers_refuse_the_bias_with_dropout(monkeypatch):
-    """The FFMA split's wrappers called alone take the bias alone and the
-    dropout alone, and refuse the two together before any call; so does
-    the forward."""
+    """The FFMA split's wrappers called alone take the bias alone, the
+    dropout alone and the two together (the C call gets both), and so
+    does the forward; over operands that round p or ds (frag.cuh) the same
+    wrappers still refuse the pair before any call, naming frag.cuh."""
     calls = _stub_library(monkeypatch)
     qs, lse = torch.zeros(1, 2, 256, 128), torch.zeros(1, 2, 256)
     bias = torch.zeros(1, 1, 256, 256)
@@ -227,15 +229,18 @@ def test_ffma_split_wrappers_refuse_the_bias_with_dropout(monkeypatch):
     for wrapper in (tfa._flash_dkdv_cuda, tfa._flash_dq_cuda):
         wrapper(*args, bias=bop)
         wrapper(*args, dropout=drop)
-        with pytest.raises(NotImplementedError, match="FFMA"):
-            wrapper(*args, dropout=drop, bias=bop)
-    assert [c[1] for c in calls] == ["apex_flash_bwd_f32_dkdv"] * 2 + [
-        "apex_flash_bwd_f32_dq"] * 2
+        wrapper(*args, dropout=drop, bias=bop)
+        with pytest.raises(NotImplementedError, match="frag.cuh"):
+            wrapper(*args[:-1], 0x22, dropout=drop, bias=bop)
+    assert [c[1] for c in calls] == ["apex_flash_bwd_f32_dkdv"] * 3 + [
+        "apex_flash_bwd_f32_dq"] * 3
+    both = [c[2] for c in calls[2::3]]
+    assert all(a[-7] is not None and a[-4:-1] == drop for a in both)
     calls.clear()
-    with pytest.raises(NotImplementedError, match="with attention dropout"):
-        tfa._flash_fwd_cuda(qs, qs, qs, None, None, False, 0.125,
-                            dropout_rate=0.1, dropout_seed=9, bias=bias)
-    assert calls == []
+    tfa._flash_fwd_cuda(qs, qs, qs, None, None, False, 0.125,
+                        dropout_rate=0.1, dropout_seed=9, bias=bias)
+    assert [c[1] for c in calls] == ["apex_flash_fwd_f32"]
+    assert calls[0][2][-7] is not None and calls[0][2][-4:-1] == drop
 
 
 # ---------------------------------------------------------------------------

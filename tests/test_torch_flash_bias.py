@@ -265,8 +265,9 @@ def test_bias_refusal_names_each_refused_route():
     With dropout too it takes the bias where the backward splits (the gate
     counts 512-row blocks with both: s512 at d 64, s448 at d 128), and in
     the single pass (s448 at d 64); the FFMA route takes the bias alone
-    (its bias variants) and refuses it with dropout; the frag.cuh kernels
-    refuse the bias."""
+    and with dropout (its variants with both: fp32 with both splits from
+    s452 at d 64); the frag.cuh kernels refuse the bias, with dropout or
+    without."""
     bf, f32 = torch.bfloat16, torch.float32
     assert tfa.bias_refusal(bf, 64) is None
     assert tfa.bias_refusal(torch.float16, 128) is None
@@ -279,7 +280,12 @@ def test_bias_refusal_names_each_refused_route():
     assert tfa._bwd_route(q, q, q, False, 0.1, bias=True) == (False, bf)
     assert tfa.bias_refusal(f32, 64) is None
     assert tfa.bias_refusal(f32, 128) is None
-    assert "FFMA" in tfa.bias_refusal(f32, 64, dropout=True)
+    for s, split in ((384, False), (452, True)):
+        q = torch.zeros(1, 1, s, 64)
+        assert tfa._bwd_route(q, q, q, True, 0.1, bias=True) == (split, f32)
+    q = torch.zeros(1, 1, 384, 256)
+    with pytest.raises(NotImplementedError, match="bias.*frag.cuh"):
+        tfa._bwd_route(q, q, q, True, 0.1, bias=True)
     assert "frag.cuh" in tfa.bias_refusal(bf, 32)
     assert "frag.cuh" in tfa.bias_refusal(f32, 256)
 
@@ -354,14 +360,15 @@ def test_bias_operand_is_cast_without_expanding_a_broadcast_dim():
 
 
 @pytest.mark.parametrize("make,match", [
-    # with dropout too (which the FFMA route's single pass and forward
-    # take), the bias is refused by name, the dropout named beside it
-    (lambda: (torch.zeros(1, 1, 448, 64),
-              dict(dropout_rate=0.1, dropout_seed=1)), "dropout"),
+    # with dropout too, the frag.cuh kernels refuse the bias by name (the
+    # FFMA route takes the two together: fp32 at d 64 and 128 no longer
+    # refuses, so fp32 at kernel head dims 256 and 32 stands here)
+    (lambda: (torch.zeros(1, 1, 448, 256),
+              dict(dropout_rate=0.1, dropout_seed=1)), "frag.cuh"),
     (lambda: (torch.zeros(1, 1, 64, 32, dtype=torch.bfloat16),
-              dict(dropout_rate=0.1, dropout_seed=1)), "dropout"),
-    (lambda: (torch.zeros(1, 1, 64, 64),
-              dict(dropout_rate=0.2, dropout_seed=2)), "FFMA"),
+              dict(dropout_rate=0.1, dropout_seed=1)), "frag.cuh"),
+    (lambda: (torch.zeros(1, 1, 64, 32),
+              dict(dropout_rate=0.2, dropout_seed=2)), "frag.cuh"),
     (lambda: (torch.zeros(1, 1, 64, 32, dtype=torch.bfloat16), {}),
      "frag.cuh"),
 ])
@@ -380,10 +387,8 @@ def test_cuda_bias_refusals_raise_before_any_launch(monkeypatch, make,
         tfa.flash_attention(q, q, q, bias=bias, **kw)
     assert "bias" in str(err.value) and calls == []
     if kw:      # the refused route names itself, without grads too
-        assert ("FFMA" if q.dtype == torch.float32 else "frag.cuh") in \
-            str(err.value)
         with torch.no_grad(), pytest.raises(NotImplementedError,
-                                            match="bias with attention"):
+                                            match="bias.*frag.cuh"):
             tfa.flash_attention(q, q, q, bias=bias, **kw)
         assert calls == []
 

@@ -7,7 +7,7 @@ at kernel head dims 64 and 128 on the FFMA single pass (s1024 d64, the O0
 GPT step's shape, stays on it) and, where the backward splits, on the
 FFMA split's dropout variants; fp32 over narrower operands (which round p
 or ds) stays on the frag.cuh kernels and keeps their refusal; the FFMA
-route takes the bias alone and refuses it with dropout; bf16 with the
+route takes the bias alone and with dropout; bf16 with the
 bias and dropout takes the single pass at s128 (the gate counts 512-row
 blocks with both) and splits at s512.
 
@@ -97,20 +97,16 @@ def test_mixed_operands_keep_the_frag_route_refusal(dtypes):
 @pytest.mark.parametrize("dropout", [0.0, 0.1])
 def test_the_ffma_route_still_refuses_the_bias(dropout):
     """The fp32 FFMA route takes the bias alone (its bias variants) and
-    still refuses it with dropout, naming the route and the dropout beside
-    the bias (no variant with both yet); over narrower operands frag.cuh
-    refuses it."""
+    with dropout (its variants with both), on the single pass at s128;
+    over narrower operands (p or ds rounded) frag.cuh still refuses it,
+    with dropout or without."""
     assert tfa.bias_refusal(F32, 64) is None
-    assert "FFMA" in tfa.bias_refusal(F32, 64, dropout=True)
     assert "frag.cuh" in tfa.bias_refusal(F32, 64, ffma=False)
     q = torch.zeros(1, 2, 128, 64)
-    if not dropout:
-        assert tfa._bwd_route(q, q, q, True, dropout, bias=True) == \
-            (False, F32)
-        return
-    with pytest.raises(NotImplementedError, match="FFMA") as err:
-        tfa._bwd_route(q, q, q, True, dropout, bias=True)
-    assert "with attention dropout" in str(err.value)
+    assert tfa._bwd_route(q, q, q, True, dropout, bias=True) == (False, F32)
+    k = q.to(torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="bias.*frag.cuh"):
+        tfa._bwd_route(q, k, k, True, dropout, bias=True)
 
 
 @pytest.mark.parametrize("s,d,split", [(128, 64, False), (448, 64, False),
